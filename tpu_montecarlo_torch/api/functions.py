@@ -1,0 +1,34 @@
+"""Module-level convenience functions, with the reference defaults."""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Union
+
+from ..distributions import Distribution
+from .integrator import MonteCarloIntegrator
+from .results import IntegrationResult
+
+
+def integrate(
+    functions: List[Union[Callable, str]],
+    distribution: Distribution,
+    n_samples: int = 1_000_000,
+    seed: int = 42,
+    target_threads: Optional[int] = None,
+    device="cuda",
+    mesh=None,
+    method: str = "mc",
+    return_stderr: bool = False,
+    qmc_rotations: int = 8,
+    control_variates=None,
+) -> IntegrationResult:
+    """One-shot Monte Carlo integration (fresh integrator; built programs
+    are still cached process-wide)."""
+    integrator = MonteCarloIntegrator(
+        target_threads=target_threads, device=device, mesh=mesh
+    )
+    return integrator.integrate(
+        functions, distribution, n_samples, seed, method=method,
+        return_stderr=return_stderr, qmc_rotations=qmc_rotations,
+        control_variates=control_variates,
+    )

@@ -1,0 +1,38 @@
+"""The MonteCarloIntegrator class (port of
+``tpu_montecarlo/api/integrator.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..utils.roadmap import MESH, not_ported
+from .base import _BaseMixin, resolve_device
+from .cache import GLOBAL_CACHE
+from .integrate import _IntegrateMixin
+
+
+class MonteCarloIntegrator(_BaseMixin, _IntegrateMixin):
+    """Monte Carlo integrator for expected values on an NVIDIA GPU.
+
+    Fuses K integrands into one kernel pass over shared samples
+    (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device.
+
+    Args:
+        target_threads: lane-width knob kept from the reference API
+            (default 65,536); it shapes the plan and so the sample count.
+        device: ``"cuda"`` (default) runs the CUDA kernel and raises when
+            no GPU is there; ``"cpu"`` runs the plain PyTorch version.
+        mesh: multi-device runs are not ported yet; must be None.
+    """
+
+    def __init__(
+        self,
+        target_threads: Optional[int] = None,
+        device="cuda",
+        mesh=None,
+    ):
+        if mesh is not None:
+            raise not_ported("mesh (multi-device) runs", MESH)
+        self._target_threads = target_threads
+        self._device = resolve_device(device)
+        self._cache = GLOBAL_CACHE

@@ -1,0 +1,25 @@
+// Helpers for the integrand device functions that ops/lower.py generates.
+//
+// The generated source calls C math functions (sinf, expf, ...) and the
+// helpers below, and nothing else, so it compiles both as CUDA (included
+// by integrate.cu) and as host C++ with -D__device__= (the CPU tests
+// compile it with g++ and hold it against the torch lowering).
+#pragma once
+
+#ifdef __CUDACC__
+#define TMC_INF __int_as_float(0x7f800000)
+#define TMC_NAN __int_as_float(0x7fffffff)
+#else
+#include <math.h>
+#define TMC_INF INFINITY
+#define TMC_NAN NAN
+#endif
+
+// jnp.minimum / jnp.maximum propagate NaN; fminf / fmaxf do not.
+static __device__ inline float tmc_minimum(float a, float b) {
+  return (a != a || b != b) ? a + b : (a < b ? a : b);
+}
+
+static __device__ inline float tmc_maximum(float a, float b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}

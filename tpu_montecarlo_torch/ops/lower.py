@@ -1,0 +1,234 @@
+"""Lowerings of the integrand IR (``tracing.Node``).
+
+The JAX package needs none: Mosaic and XLA compile the traced jax
+functions.  The port lowers each traced integrand two ways from the one
+IR, so the plain version and the kernel evaluate the same operations in
+the same order:
+
+* :func:`to_torch` — a torch callable on float32 tensors (the plain
+  version, and the CPU path);
+* :func:`cuda_source` — CUDA C ``__device__ float f_j(float x)``
+  functions plus ``tmc_accumulate``, which ``csrc/integrate.cu`` includes.
+  The source also compiles as host C++ with ``-D__device__=`` (the tests
+  do that with g++), since it only uses C math names and the helpers of
+  ``csrc/integrand_math.cuh``.
+
+Each IR operation is one float32 operation in both; constants are rounded
+to float32 once, here, for both.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from ..tracing import (
+    BINARY_OPS,
+    COMPARE_OPS,
+    LOGIC_OPS,
+    UNARY_OPS,
+    Node,
+    TracedFunction,
+)
+
+__all__ = ["cuda_source", "to_torch", "topo_order"]
+
+
+def topo_order(roots: Sequence[Node]) -> List[Node]:
+    """Every node reachable from ``roots``, each once, arguments first."""
+    order: List[Node] = []
+    seen = set()
+    stack = [(r, False) for r in reversed(roots)]
+    while stack:
+        node, expanded = stack.pop()
+        if id(node) in seen:
+            continue
+        if expanded:
+            seen.add(id(node))
+            order.append(node)
+            continue
+        stack.append((node, True))
+        for a in reversed(node.args):
+            if id(a) not in seen:
+                stack.append((a, False))
+    return order
+
+
+def _torch_cbrt(x):
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+_TORCH_UNARY: Dict[str, Callable] = {
+    "neg": torch.neg,
+    "abs": torch.abs,
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tan": torch.tan,
+    "asin": torch.asin,
+    "acos": torch.acos,
+    "atan": torch.atan,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "tanh": torch.tanh,
+    "asinh": torch.asinh,
+    "acosh": torch.acosh,
+    "atanh": torch.atanh,
+    "sqrt": torch.sqrt,
+    "cbrt": _torch_cbrt,
+    "exp": torch.exp,
+    "exp2": torch.exp2,
+    "expm1": torch.expm1,
+    "log": torch.log,
+    "log2": torch.log2,
+    "log10": torch.log10,
+    "log1p": torch.log1p,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "rint": torch.round,  # half to even, like jnp.round and rintf
+    "trunc": torch.trunc,
+}
+_TORCH_BINARY: Dict[str, Callable] = {
+    "add": torch.add,
+    "sub": torch.sub,
+    "mul": torch.mul,
+    "div": torch.div,
+    "pow": torch.pow,
+    "atan2": torch.atan2,
+    "hypot": torch.hypot,
+    "copysign": torch.copysign,
+    "fmod": torch.fmod,
+    "minimum": torch.minimum,
+    "maximum": torch.maximum,
+    "gt": torch.gt,
+    "lt": torch.lt,
+    "ge": torch.ge,
+    "le": torch.le,
+    "eq": torch.eq,
+    "ne": torch.ne,
+    "and": torch.logical_and,
+    "or": torch.logical_or,
+    "xor": torch.logical_xor,
+}
+
+
+def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
+    """Torch callable of ``fn.n_args`` float32 tensors (of one shape),
+    returning float32 values of that shape."""
+    order = topo_order([fn.ir])
+
+    def run(*xs: torch.Tensor) -> torch.Tensor:
+        like = xs[0]
+        vals: Dict[int, torch.Tensor] = {}
+        for node in order:
+            op = node.op
+            args = [vals[id(a)] for a in node.args]
+            if op == "arg":
+                out = xs[node.value]
+            elif op == "const":
+                out = torch.tensor(
+                    node.value, dtype=torch.float32, device=like.device
+                )
+            elif op in _TORCH_UNARY:
+                out = _TORCH_UNARY[op](args[0])
+            elif op in _TORCH_BINARY:
+                out = _TORCH_BINARY[op](args[0], args[1])
+            elif op == "not":
+                out = torch.logical_not(args[0])
+            elif op == "select":
+                out = torch.where(args[0], args[1], args[2])
+            elif op == "to_f32":
+                out = args[0].to(torch.float32)
+            else:
+                raise ValueError(f"unknown IR operation {op!r}")
+            vals[id(node)] = out
+        return torch.broadcast_to(vals[id(fn.ir)], like.shape)
+
+    return run
+
+
+def _c_float(v: float) -> str:
+    if math.isnan(v):
+        return "TMC_NAN"
+    if math.isinf(v):
+        return "TMC_INF" if v > 0 else "(-TMC_INF)"
+    return f"({v!r}f)"
+
+
+_C_UNARY = {
+    "neg": "(-{0})",
+    "abs": "fabsf({0})",
+    "rint": "rintf({0})",
+    "not": "(!{0})",
+    "to_f32": "({0} ? 1.0f : 0.0f)",
+}
+_C_UNARY.update(
+    {op: op + "f({0})" for op in UNARY_OPS if op not in _C_UNARY}
+)
+_C_BINARY = {
+    "add": "({0} + {1})",
+    "sub": "({0} - {1})",
+    "mul": "({0} * {1})",
+    "div": "({0} / {1})",
+    "pow": "powf({0}, {1})",
+    "atan2": "atan2f({0}, {1})",
+    "hypot": "hypotf({0}, {1})",
+    "copysign": "copysignf({0}, {1})",
+    "fmod": "fmodf({0}, {1})",
+    "minimum": "tmc_minimum({0}, {1})",
+    "maximum": "tmc_maximum({0}, {1})",
+    "gt": "({0} > {1})",
+    "lt": "({0} < {1})",
+    "ge": "({0} >= {1})",
+    "le": "({0} <= {1})",
+    "eq": "({0} == {1})",
+    "ne": "({0} != {1})",
+    "and": "({0} && {1})",
+    "or": "({0} || {1})",
+    "xor": "({0} != {1})",
+}
+assert set(_C_BINARY) == BINARY_OPS | COMPARE_OPS | LOGIC_OPS
+
+
+def _c_function(name: str, fn: TracedFunction) -> str:
+    if fn.n_args != 1:
+        raise ValueError("the CUDA lowering takes 1-argument integrands")
+    lines = [f"static __device__ inline float {name}(float x) {{"]
+    names: Dict[int, str] = {}
+    for i, node in enumerate(topo_order([fn.ir])):
+        op = node.op
+        if op == "arg":
+            names[id(node)] = "x"
+            continue
+        if op == "const":
+            names[id(node)] = _c_float(node.value)
+            continue
+        args = [names[id(a)] for a in node.args]
+        if op in _C_UNARY:
+            expr = _C_UNARY[op].format(*args)
+        elif op in _C_BINARY:
+            expr = _C_BINARY[op].format(*args)
+        elif op == "select":
+            expr = f"({args[0]} ? {args[1]} : {args[2]})"
+        else:
+            raise ValueError(f"unknown IR operation {op!r}")
+        ctype = "bool" if node.dtype == "bool" else "float"
+        names[id(node)] = f"t{i}"
+        lines.append(f"  const {ctype} t{i} = {expr};")
+    lines.append(f"  return {names[id(fn.ir)]};")
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def cuda_source(fns: Sequence[TracedFunction]) -> str:
+    """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and
+    ``tmc_accumulate(x, acc)``, which adds each ``f_j(x)`` to ``acc[j]``."""
+    parts = [f"#define TMC_K {len(fns)}"]
+    parts += [_c_function(f"f_{j}", fn) for j, fn in enumerate(fns)]
+    body = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(len(fns)))
+    parts.append(
+        "static __device__ inline void tmc_accumulate(float x, float* acc) {\n"
+        f"{body}\n}}"
+    )
+    return "\n\n".join(parts) + "\n"

@@ -1,0 +1,23 @@
+"""Where each part of the JAX package that the port does not have yet
+stands in ``ROADMAP.md``, so every ``NotImplementedError`` names it."""
+
+from __future__ import annotations
+
+__all__ = [
+    "FRONT_END",
+    "MESH",
+    "ND",
+    "VARIANTS",
+    "not_ported",
+]
+
+VARIANTS = "ROADMAP.md, queue 1 item 2 (integrate variants)"
+FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
+ND = "ROADMAP.md, queue 1 item 7 (nd integrate)"
+MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
+
+
+def not_ported(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to tpu_montecarlo_torch yet; see {item}"
+    )
