@@ -162,6 +162,9 @@ extern "C" void tmc_eval(const float* x, long n, float* out) {
     for (int j = 0; j < TMC_K; ++j) out[i * TMC_K + j] = acc[j];
   }
 }
+extern "C" void tmc_values_at(const float* x, long n, float* out) {
+  for (long i = 0; i < n; ++i) tmc_values(x[i], out + i * TMC_K);
+}
 """
 
 
@@ -186,6 +189,8 @@ def host_lowering(tmp_path_factory):
     lib.tmc_k.restype = ctypes.c_int
     lib.tmc_eval.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
     lib.tmc_eval.restype = None
+    lib.tmc_values_at.argtypes = lib.tmc_eval.argtypes
+    lib.tmc_values_at.restype = None
     assert lib.tmc_k() == len(ALL)
     return lib
 
@@ -201,12 +206,24 @@ def test_c_lowering_matches_torch_lowering(host_lowering):
         )
 
 
+def test_c_values_entry_matches_accumulate(host_lowering):
+    # tmc_values (the MCMC kernel's per-point entry) stores what
+    # tmc_accumulate adds to zeroed sums: the same f_j(x), bit for bit.
+    x = _grid()
+    acc = np.empty((x.size, len(ALL)), np.float32)
+    vals = np.empty_like(acc)
+    host_lowering.tmc_eval(x.ctypes.data, x.size, acc.ctypes.data)
+    host_lowering.tmc_values_at(x.ctypes.data, x.size, vals.ctypes.data)
+    np.testing.assert_array_equal(vals, acc)
+
+
 def test_cuda_source_shape():
     src = cuda_source([ttr.trace_function(f) for f in BENCH])
     assert "#define TMC_K 8" in src
     for j in range(8):
         assert f"static __device__ inline float f_{j}(float x)" in src
     assert "acc[7] += f_7(x);" in src
+    assert "vals[7] = f_7(x);" in src
     # Integer powers are multiply chains, not powf.
     assert "powf" not in src
 

@@ -1,21 +1,27 @@
 """tpu_montecarlo_torch — the PyTorch and CUDA port of tpu_montecarlo for
 one NVIDIA H100.
 
-This slice ports the fused 1-D plain Monte Carlo ``integrate`` path: the
-integrand front end, the counter-based sample stream, the uniform, normal
-and exponential families, and a hand-written CUDA kernel that fuses up to
-128 integrands over one shared stream.  It imports torch and numpy, never
-jax.
+The port so far covers the fused 1-D plain Monte Carlo ``integrate`` path
+(the integrand front end, the counter-based sample stream, the uniform,
+normal and exponential families, and a hand-written CUDA kernel that fuses
+up to 128 integrands over one shared stream) and 1-D Metropolis-Hastings,
+``integrate_mcmc``, with independence, random-walk and adaptive
+random-walk proposals and error bars, in a second hand-written kernel.  It
+imports torch and numpy, never jax.
 
 Example:
-    >>> from tpu_montecarlo_torch import Distribution, integrate
+    >>> from tpu_montecarlo_torch import (
+    ...     Distribution, RandomWalk, integrate, integrate_mcmc)
     >>> r = integrate([lambda x: x, lambda x: x**2],
     ...               Distribution.normal(0.0, 1.0), n_samples=10_000_000)
     >>> r.values  # ~[0, 1]
+    >>> m = integrate_mcmc([lambda x: x * x], Distribution.normal(0.0, 1.0),
+    ...                    RandomWalk(adapt=True), n_chains=4096)
+    >>> m.values, m.acceptance_rate  # ~[1], ~0.44
 """
 
-from .api import IntegrationResult, MonteCarloIntegrator, integrate
-from .distributions import Distribution, DistributionType
+from .api import IntegrationResult, MonteCarloIntegrator, integrate, integrate_mcmc
+from .distributions import HMC, Distribution, DistributionType, RandomWalk
 from .tracing import TraceError, is_traceable, trace_function
 
 __version__ = "0.1.0"
@@ -23,10 +29,13 @@ __version__ = "0.1.0"
 __all__ = [
     "Distribution",
     "DistributionType",
+    "HMC",
     "IntegrationResult",
     "MonteCarloIntegrator",
+    "RandomWalk",
     "TraceError",
     "integrate",
+    "integrate_mcmc",
     "is_traceable",
     "trace_function",
 ]

@@ -1,7 +1,13 @@
-"""Public API: MonteCarloIntegrator, IntegrationResult, integrate."""
+"""Public API: MonteCarloIntegrator, IntegrationResult, integrate,
+integrate_mcmc."""
 
-from .functions import integrate
+from .functions import integrate, integrate_mcmc
 from .integrator import MonteCarloIntegrator
 from .results import IntegrationResult
 
-__all__ = ["IntegrationResult", "MonteCarloIntegrator", "integrate"]
+__all__ = [
+    "IntegrationResult",
+    "MonteCarloIntegrator",
+    "integrate",
+    "integrate_mcmc",
+]

@@ -9,19 +9,22 @@ from ..utils.roadmap import MESH, not_ported
 from .base import _BaseMixin, resolve_device
 from .cache import GLOBAL_CACHE
 from .integrate import _IntegrateMixin
+from .mcmc import _McmcMixin
 
 
-class MonteCarloIntegrator(_BaseMixin, _IntegrateMixin):
+class MonteCarloIntegrator(_BaseMixin, _IntegrateMixin, _McmcMixin):
     """Monte Carlo integrator for expected values on an NVIDIA GPU.
 
     Fuses K integrands into one kernel pass over shared samples
-    (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device.
+    (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, and
+    runs Metropolis-Hastings chains for ``integrate_mcmc``.
 
     Args:
         target_threads: lane-width knob kept from the reference API
-            (default 65,536); it shapes the plan and so the sample count.
-        device: ``"cuda"`` (default) runs the CUDA kernel and raises when
-            no GPU is there; ``"cpu"`` runs the plain PyTorch version.
+            (default 65,536); it shapes the plan and so the sample count,
+            and overrides ``n_chains`` in ``integrate_mcmc``.
+        device: ``"cuda"`` (default) runs the CUDA kernels and raises when
+            no GPU is there; ``"cpu"`` runs the plain PyTorch versions.
         mesh: multi-device runs are not ported yet; must be None.
     """
 

@@ -1,0 +1,206 @@
+"""Scalar-chain MCMC (port of the 1-D Pallas path of
+``tpu_montecarlo/api/mcmc.py``): ``integrate_mcmc`` with independence,
+random-walk and adaptive random-walk proposals, with error bars on
+request.
+
+The JAX package routes workloads its Pallas kernel cannot take to an XLA
+sweep; the port has no such twin and runs every workload it takes in its
+kernel (``ops/mcmc_kernel.py``).  What it does not take yet raises
+``NotImplementedError`` naming its ROADMAP item."""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Union
+
+import torch
+
+from ..distributions import Distribution, RandomWalk
+from ..ops.mcmc_kernel import (
+    MAX_FUNCTIONS,
+    McmcConfig,
+    McmcProgram,
+    Mode,
+    mcmc_cuda,
+    mcmc_finish,
+    plan_chains,
+    plan_mcmc_grid,
+)
+from ..sampling import dist_spec_of
+from ..utils.roadmap import (
+    MCMC_DIAGNOSTICS,
+    MCMC_SAMPLES,
+    MCMC_SERVING,
+    MCMC_STATE,
+    MCMC_WIDE,
+    ND_MCMC,
+    TEMPERING,
+    not_ported,
+)
+from .cache import fns_key
+from .results import IntegrationResult
+
+
+def _check_random_walk_args(
+    rw: RandomWalk, n_burnin: int, stateful: bool
+) -> None:
+    """``tpu_montecarlo/api/batching.py:55``: adaptation happens during
+    burn-in, so it needs one, and its per-chain steps are not checkpointed,
+    so adaptive runs are stateless."""
+    name = type(rw).__name__
+    if rw.adapt and n_burnin <= 0:
+        raise ValueError(
+            f"{name}(adapt=True) tunes the step during burn-in; "
+            "pass n_burnin > 0 (or a fixed step_size with adapt=False)"
+        )
+    if rw.adapt and stateful:
+        raise ValueError(
+            f"{name}(adapt=True) is stateless-only: the adapted "
+            "per-chain steps are not part of the checkpoint state.  "
+            "Resume with a fixed step_size (adapt=False) instead"
+        )
+
+
+class _McmcMixin:
+    def integrate_mcmc(
+        self,
+        functions: List[Union[Callable, str]],
+        target_distribution: Distribution,
+        proposal_distribution: Union[Distribution, RandomWalk],
+        n_steps: int = 10_000,
+        n_chains: int = 1024,
+        n_burnin: int = 1_000,
+        seed: int = 42,
+        initial_state=None,
+        return_state: bool = False,
+        return_stderr: bool = False,
+        return_diagnostics: bool = False,
+        return_samples: Optional[int] = None,
+        temperatures: Optional[List[float]] = None,
+    ) -> IntegrationResult:
+        """Compute E_p[f(X)] with parallel Metropolis-Hastings chains, one
+        chain per CUDA thread.
+
+        ``proposal_distribution`` is a ``Distribution`` (independence
+        sampler: acceptance ``log u < log p(x') + log q(x) - log p(x) -
+        log q(x')``) or a :class:`RandomWalk` (``x' = x + step * N(0, 1)``,
+        acceptance ``log u < log p(x') - log p(x)``; ``adapt=True`` tunes
+        the step per chain during burn-in).  Burn-in advances the chains
+        without counting; each sampling step adds f(x) to the chain's sums.
+        The values are the average over all ``chains_actual`` chains (at
+        least 1024: the JAX kernel's grid), ``n_samples`` is ``n_chains *
+        n_steps`` and ``acceptance_rate`` the sampling-phase acceptance.
+
+        ``return_stderr=True``: ``result.stderr`` is the standard error
+        from the between-chain variance of the per-chain means.
+
+        Not ported yet, each raising ``NotImplementedError`` naming its
+        ROADMAP item: ``initial_state``/``return_state``,
+        ``return_diagnostics``, ``return_samples``, ``temperatures``, HMC,
+        nd and joint log-density targets, more than 127 functions.
+        """
+        if len(functions) == 0:
+            raise ValueError("At least one function is required")
+        if n_steps <= 0:
+            raise ValueError("n_steps must be positive")
+        if n_chains <= 0:
+            raise ValueError("n_chains must be positive")
+        if n_burnin < 0:
+            raise ValueError("n_burnin must be non-negative")
+        if return_stderr and (return_state or initial_state is not None):
+            raise ValueError(
+                "return_stderr applies to stateless MCMC runs only "
+                "(resumed segments' between-chain variance reflects the "
+                "segment, not the combined run)"
+            )
+        if return_diagnostics and (
+            return_state or initial_state is not None
+        ):
+            raise ValueError(
+                "return_diagnostics applies to stateless MCMC runs only"
+            )
+        if return_samples is not None:
+            if return_state or initial_state is not None:
+                raise ValueError(
+                    "return_samples applies to stateless MCMC runs only"
+                )
+            if not 1 <= int(return_samples) <= n_steps:
+                raise ValueError(
+                    f"return_samples must be in [1, n_steps={n_steps}], "
+                    f"got {return_samples}"
+                )
+        if temperatures is not None:
+            raise not_ported("parallel tempering (temperatures=)", TEMPERING)
+        if isinstance(proposal_distribution, RandomWalk):
+            _check_random_walk_args(
+                proposal_distribution, n_burnin,
+                return_state or initial_state is not None,
+            )
+        if not isinstance(target_distribution, Distribution) or isinstance(
+            proposal_distribution, (list, tuple)
+        ):
+            raise not_ported(
+                "nd and joint log-density MCMC targets", ND_MCMC
+            )
+        if return_state or initial_state is not None:
+            raise not_ported("MCMC state (return_state, initial_state)",
+                             MCMC_STATE)
+        if return_diagnostics:
+            raise not_ported("return_diagnostics", MCMC_DIAGNOSTICS)
+        if return_samples is not None:
+            raise not_ported("return_samples", MCMC_SAMPLES)
+
+        traced = self._trace_user_functions(functions)
+        if len(traced) > MAX_FUNCTIONS:
+            raise not_ported(
+                f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
+            )
+        values, acceptance, stderr = self._run_mcmc(
+            traced, target_distribution, proposal_distribution, n_steps,
+            n_chains, n_burnin, seed, return_stderr,
+        )
+        return IntegrationResult(
+            values=values,
+            n_samples=n_chains * n_steps,
+            n_functions=len(functions),
+            acceptance_rate=acceptance,
+            stderr=stderr,
+        )
+
+    def compile_mcmc(self, *args, **kwargs):
+        """Ahead-of-time MCMC handles (with seed and param batches) are not
+        ported yet: raises ``NotImplementedError``."""
+        raise not_ported("compile_mcmc (seed_batch, param_batch)",
+                         MCMC_SERVING)
+
+    def _run_mcmc(
+        self, traced, target, proposal, n_steps, n_chains, n_burnin, seed,
+        with_stderr,
+    ):
+        """(values, acceptance rate, stderr or None) as numpy/float."""
+        targ = dist_spec_of(target)
+        if isinstance(proposal, RandomWalk):
+            mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
+            prop_kind = targ.kind
+            prop_row = list(proposal.pack_params(target))
+        else:
+            mode = Mode.INDEPENDENCE
+            prop = dist_spec_of(proposal)
+            prop_kind = prop.kind
+            prop_row = [*prop.params, 0.0, 0.0]
+        cfg = McmcConfig(mode, prop_kind, targ.kind, n_steps, n_burnin,
+                         with_stderr)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        program = self._cache.get_or_build(
+            ("mcmc", fns_key(traced)), lambda: McmcProgram(traced)
+        )
+        params = torch.tensor(
+            [*prop_row, *targ.params], dtype=torch.float32,
+            device=self._device,
+        )
+        out = mcmc_cuda(program, cfg, params, seed, grid)
+        values, acceptance, stderr = mcmc_finish(out, grid, cfg, len(traced))
+        return (
+            values.cpu().numpy(),
+            float(acceptance),
+            None if stderr is None else stderr.cpu().numpy(),
+        )

@@ -1,0 +1,80 @@
+// The counter-based sample stream and the family transforms, shared by
+// the port's kernels (integrate.cu, mcmc.cu).
+//
+// tmc::pcg is the PCG output mix of the JAX package's CounterRng
+// (tpu_montecarlo/ops/integrate_pallas.py:107-133, ops/qmc.py _pcg_mix):
+// a stream is seeded per (seed word, program), a draw with block counter
+// c and tag t takes base = pcg(state + c * 15485863 + t * 7199369), and
+// position pos = row * 128 + lane gets the bits pcg(base + pos *
+// 2654435761).  Uniforms come from the top 24 bits; tmc::transform turns
+// them into a sample of the family with the JAX kernels' formulas and
+// float32 operation order (sampling.normal_from_u01, the exponential
+// inverse transform, the uniform's clamp below its open bound).
+#pragma once
+
+#include <cstdint>
+
+namespace tmc {
+
+constexpr int kLanes = 128;
+constexpr float kInv2Pow24 = 1.0f / 16777216.0f;
+constexpr float kULo = 1e-7f;
+constexpr float kUHi = 0.99999988079071044921875f;  // float32(1 - 1e-7)
+constexpr float kSqrt2 = 1.41421353816986083984375f;  // float32(sqrt 2)
+
+enum Kind { kUniform = 0, kNormal = 1, kExponential = 2 };
+
+__device__ __forceinline__ uint32_t pcg(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  const uint32_t word = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (word >> 22u) ^ word;
+}
+
+// CounterRng(words...).seed: the stream state of one program.
+__device__ __forceinline__ uint32_t seed_state(uint32_t seed, uint32_t pid) {
+  return pcg(pcg(0x9E3779B9u ^ seed) ^ pid);
+}
+
+// The base of one (counter, tag) block of a program's stream.
+__device__ __forceinline__ uint32_t block_base(uint32_t state, uint32_t counter,
+                                               uint32_t tag) {
+  return pcg(state + counter * 15485863u + tag * 7199369u);
+}
+
+// The 24-bit mantissa of position pos in the block at `base`.
+__device__ __forceinline__ uint32_t mantissa(uint32_t base, uint32_t pos) {
+  return pcg(base + pos * 2654435761u) >> 8;
+}
+
+__device__ __forceinline__ float halfopen01(uint32_t m) {  // [0, 1)
+  return float(m) * kInv2Pow24;
+}
+
+__device__ __forceinline__ float open01(uint32_t m) {  // (0, 1]
+  return float(m + 1u) * kInv2Pow24;
+}
+
+__device__ __forceinline__ float next_below(float hi) {
+  const int bits = __float_as_int(hi);
+  const int dec = hi > 0.0f ? bits - 1 : (hi < 0.0f ? bits + 1 : -2147483647);
+  return __int_as_float(dec);
+}
+
+__device__ __forceinline__ float normal_from_u01(float u) {
+  u = fminf(fmaxf(u, kULo), kUHi);
+  return kSqrt2 * erfinvf(2.0f * u - 1.0f);
+}
+
+// One sample of the family from the mantissa m: uniform (p1, p2) =
+// (min, max), normal (mean, std), exponential (lambda, -).
+__device__ __forceinline__ float transform(int kind, uint32_t m, float p1,
+                                           float p2) {
+  if (kind == kUniform) {
+    const float x = p1 + halfopen01(m) * (p2 - p1);
+    return x >= p2 ? next_below(p2) : x;
+  }
+  if (kind == kNormal) return p1 + p2 * normal_from_u01(halfopen01(m));
+  return -logf(fmaxf(open01(m), kULo)) / p1;
+}
+
+}  // namespace tmc

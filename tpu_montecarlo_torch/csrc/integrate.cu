@@ -35,32 +35,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_rng.cuh"
 #include "integrand_math.cuh"
 #include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, tmc_accumulate
 
 namespace {
 
-constexpr int kLanes = 128;
+using tmc::kExponential;
+using tmc::kNormal;
+using tmc::kUniform;
+
+constexpr int kLanes = tmc::kLanes;
 constexpr int kBlockRows = 256;
 constexpr int kThreads = 256;
-constexpr float kInv2Pow24 = 1.0f / 16777216.0f;
-constexpr float kULo = 1e-7f;
-constexpr float kUHi = 0.99999988079071044921875f;  // float32(1 - 1e-7)
-constexpr float kSqrt2 = 1.41421353816986083984375f;  // float32(sqrt 2)
-
-enum Kind { kUniform = 0, kNormal = 1, kExponential = 2 };
-
-__device__ __forceinline__ uint32_t tmc_pcg(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  const uint32_t word = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
-  return (word >> 22u) ^ word;
-}
-
-__device__ __forceinline__ float next_below(float hi) {
-  const int bits = __float_as_int(hi);
-  const int dec = hi > 0.0f ? bits - 1 : (hi < 0.0f ? bits + 1 : -2147483647);
-  return __int_as_float(dec);
-}
 
 // Draws `n_pos` positions of one (state, blk, tag) stream, transforms
 // them and accumulates the integrands.  Thread t takes positions
@@ -70,21 +57,10 @@ template <int KIND>
 __device__ __forceinline__ void sweep(uint32_t state, uint32_t blk,
                                       uint32_t tag, int n_pos, float p1,
                                       float p2, float* acc) {
-  const uint32_t base = tmc_pcg(state + blk * 15485863u + tag * 7199369u);
+  const uint32_t base = tmc::block_base(state, blk, tag);
   for (int pos = threadIdx.x; pos < n_pos; pos += kThreads) {
-    const uint32_t m = tmc_pcg(base + uint32_t(pos) * 2654435761u) >> 8;
-    float x;
-    if (KIND == kUniform) {
-      const float u = float(m) * kInv2Pow24;  // [0, 1)
-      x = p1 + u * (p2 - p1);
-      if (x >= p2) x = next_below(p2);
-    } else if (KIND == kNormal) {
-      const float u = fminf(fmaxf(float(m) * kInv2Pow24, kULo), kUHi);
-      x = p1 + p2 * (kSqrt2 * erfinvf(2.0f * u - 1.0f));
-    } else {
-      const float u = float(m + 1u) * kInv2Pow24;  // (0, 1]
-      x = -logf(fmaxf(u, kULo)) / p1;
-    }
+    const float x = tmc::transform(KIND, tmc::mantissa(base, uint32_t(pos)),
+                                   p1, p2);
     tmc_accumulate(x, acc);
   }
 }
@@ -95,7 +71,6 @@ integrate_kernel(uint32_t seed, const float* __restrict__ params, int loops,
                  long long n_tiles, float* __restrict__ partials) {
   const float p1 = params[0];
   const float p2 = params[1];
-  const uint32_t seeded = tmc_pcg(0x9E3779B9u ^ seed);
   float acc[TMC_K];
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
@@ -103,7 +78,7 @@ integrate_kernel(uint32_t seed, const float* __restrict__ params, int loops,
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const uint32_t pid = uint32_t(tile / loops);
     const uint32_t blk = uint32_t(tile % loops);
-    const uint32_t state = tmc_pcg(seeded ^ pid);
+    const uint32_t state = tmc::seed_state(seed, pid);
     if (KIND == kNormal) {
       // Two half blocks, tags 0 and 1 (integrate_pallas.py:571-581).
       sweep<KIND>(state, blk, 0u, (kBlockRows / 2) * kLanes, p1, p2, acc);

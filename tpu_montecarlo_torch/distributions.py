@@ -1,22 +1,24 @@
 """Probability distributions (port of ``tpu_montecarlo/distributions.py``).
 
 ``Distribution`` is a host-side value object recording a family and its
-parameters, with the JAX package's factory names, parameter dicts and
-host ``pdf``.  The port samples uniform, normal and exponential; the other
-factories raise ``NotImplementedError`` naming their ROADMAP item.
+parameters, with the JAX package's factory names, parameter dicts, host
+``pdf`` and ``quantile``.  The port samples uniform, normal and
+exponential; the other factories raise ``NotImplementedError`` naming
+their ROADMAP item.  ``RandomWalk`` is the random-walk MCMC proposal.
 """
 
 from __future__ import annotations
 
 import math
+import statistics
 from enum import Enum, auto
 from typing import Callable
 
 import numpy as np
 
-from .utils.roadmap import VARIANTS, not_ported
+from .utils.roadmap import MCMC_HMC, VARIANTS, not_ported
 
-__all__ = ["Distribution", "DistributionType"]
+__all__ = ["HMC", "Distribution", "DistributionType", "RandomWalk"]
 
 
 class DistributionType(Enum):
@@ -125,6 +127,154 @@ class Distribution:
         if name == "EXPONENTIAL":
             return Distribution.exponential(p["lambda"])
         raise not_ported(f"the {name.lower()} distribution", VARIANTS)
+
+    def quantile(self, q: float) -> float:
+        """Exact host-side quantile (inverse CDF) at ``q`` in (0, 1), in
+        the JAX package's closed forms (``distributions.py:663``)."""
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"q must be in (0, 1), got {q}")
+        p = self.params
+        t = self.dist_type
+        if t == DistributionType.UNIFORM:
+            return p["min"] + q * (p["max"] - p["min"])
+        if t == DistributionType.NORMAL:
+            return statistics.NormalDist(p["mean"], p["std"]).inv_cdf(q)
+        if t == DistributionType.EXPONENTIAL:
+            return -math.log1p(-q) / p["lambda"]
+        raise not_ported(f"the quantile of {t.name.lower()}", VARIANTS)
+
+
+class RandomWalk:
+    """Symmetric Gaussian random-walk Metropolis proposal for
+    ``integrate_mcmc`` (port of ``tpu_montecarlo/distributions.py:828``).
+
+    Passed where ``integrate_mcmc`` takes a proposal ``Distribution``, it
+    switches the sampler to random-walk MH: each step proposes ``x' = x +
+    step_size * z`` with ``z ~ N(0, 1)``, and the acceptance is ``log u <
+    log p(x') - log p(x)``.  ``adapt=True`` tunes the step per chain
+    during burn-in by Robbins-Monro on the log step (``gamma_i =
+    i^-0.6``) toward ``target_accept``, then freezes it for sampling.
+    Chains start uniformly over ``init_range`` (default: the target's
+    central 98% interval).  Per-dimension steps and ranges are accepted
+    for the nd samplers, which are not ported yet.
+    """
+
+    __slots__ = ("step_size", "adapt", "target_accept", "init_range")
+
+    def __init__(
+        self,
+        step_size=1.0,
+        adapt: bool = False,
+        target_accept: float = 0.44,
+        init_range=None,
+    ):
+        if isinstance(step_size, (list, tuple, np.ndarray)):
+            step_size = tuple(float(s) for s in step_size)
+            if not step_size or not all(s > 0 for s in step_size):
+                raise ValueError(
+                    "per-dimension step_size must be a non-empty "
+                    f"sequence of positive floats, got {step_size}"
+                )
+        else:
+            step_size = float(step_size)
+            if not step_size > 0:
+                raise ValueError(
+                    f"step_size must be positive, got {step_size}"
+                )
+        if not 0.0 < target_accept < 1.0:
+            raise ValueError(
+                f"target_accept must be in (0, 1), got {target_accept}"
+            )
+        if init_range is not None:
+            init_range = self._check_ranges(init_range)
+        self.step_size = step_size
+        self.adapt = bool(adapt)
+        self.target_accept = float(target_accept)
+        self.init_range = init_range
+
+    @staticmethod
+    def _check_ranges(init_range):
+        """One (lo, hi) pair, or a sequence of per-dimension pairs."""
+        first = init_range[0]
+        if isinstance(first, (list, tuple, np.ndarray)):
+            pairs = []
+            for r in init_range:
+                lo, hi = float(r[0]), float(r[1])
+                if not lo < hi:
+                    raise ValueError(
+                        f"init_range pairs must satisfy lo < hi, got {r}"
+                    )
+                pairs.append((lo, hi))
+            if not pairs:
+                raise ValueError("init_range sequence must be non-empty")
+            return tuple(pairs)
+        lo, hi = float(init_range[0]), float(init_range[1])
+        if not lo < hi:
+            raise ValueError(
+                f"init_range must satisfy lo < hi, got {init_range}"
+            )
+        return (lo, hi)
+
+    def __repr__(self) -> str:
+        return (
+            f"RandomWalk(step_size={self.step_size}, adapt={self.adapt}, "
+            f"target_accept={self.target_accept}, "
+            f"init_range={self.init_range})"
+        )
+
+    @staticmethod
+    def from_reference(rw) -> "RandomWalk":
+        """The port's equivalent of a ``tpu_montecarlo`` ``RandomWalk``.
+
+        Duck-typed like ``Distribution.from_reference``; an ``HMC``
+        proposal raises, since HMC is not ported yet."""
+        if type(rw).__name__ == "HMC":
+            raise not_ported("HMC proposals", MCMC_HMC)
+        return RandomWalk(
+            step_size=rw.step_size,
+            adapt=rw.adapt,
+            target_accept=rw.target_accept,
+            init_range=rw.init_range,
+        )
+
+    def pack_params(self, target: Distribution) -> np.ndarray:
+        """(4,) float32 row the 1-D MCMC kernel reads: (step_size,
+        init_lo, init_hi, target_accept).  The init range defaults to the
+        target's central 98% interval; an empty range widens by a step."""
+        if isinstance(self.step_size, tuple):
+            if len(self.step_size) != 1:
+                raise ValueError(
+                    f"step_size has {len(self.step_size)} entries but "
+                    "this MCMC run has 1 dimension(s)"
+                )
+            (step,) = self.step_size
+        else:
+            step = self.step_size
+        r = self.init_range
+        if r is None:
+            lo, hi = target.quantile(0.01), target.quantile(0.99)
+        elif isinstance(r[0], tuple):
+            if len(r) != 1:
+                raise ValueError(
+                    f"init_range has {len(r)} pairs but this MCMC run "
+                    "has 1 dimension(s)"
+                )
+            (lo, hi), = r
+        else:
+            lo, hi = r
+        if not hi > lo:
+            lo, hi = lo - step, hi + step
+        return np.asarray([step, lo, hi, self.target_accept], np.float32)
+
+
+class HMC(RandomWalk):
+    """Hamiltonian Monte Carlo proposal: not ported yet; constructing one
+    raises ``NotImplementedError`` naming its ROADMAP item."""
+
+    __slots__ = ()
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("HMC proposals", MCMC_HMC)
 
 
 def _not_ported_factory(name: str):

@@ -16,6 +16,7 @@ two half blocks with tags 0 and 1, the others one block with tag 0.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Callable, List, Sequence
 
@@ -44,6 +45,7 @@ __all__ = [
     "integrate_cuda",
     "integrate_reference",
     "plan_grid",
+    "sample_block",
     "sample_subblocks",
     "uniform_halfopen01",
     "uniform_open01",
@@ -144,26 +146,39 @@ def uniform_halfopen01(rng: CounterRng, shape, counter=0, tag: int = 0):
     return m.to(torch.float32) * _INV_2POW24
 
 
+def sample_block(
+    kind: DistKind, p1, p2, rng: CounterRng, shape, counter, tag: int = 0
+) -> torch.Tensor:
+    """One block of samples of the family from the (counter, tag) stream
+    (``csrc/counter_rng.cuh`` ``tmc::transform``): uniform and normal from
+    [0, 1) uniforms, exponential from (0, 1] ones."""
+    if kind == DistKind.UNIFORM:
+        u = uniform_halfopen01(rng, shape, counter, tag)
+        x = p1 + u * (p2 - p1)
+        # f32 rounding may land on the open bound: clamp below it.
+        return torch.where(x >= p2, next_below_f32(torch.as_tensor(p2)), x)
+    if kind == DistKind.NORMAL:
+        u = uniform_halfopen01(rng, shape, counter, tag)
+        return p1 + p2 * normal_from_u01(u)
+    if kind == DistKind.EXPONENTIAL:
+        u = uniform_open01(rng, shape, counter, tag)
+        return exponential_from_u01(u) / p1
+    raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
+
+
 def sample_subblocks(
     kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS
 ) -> List[torch.Tensor]:
     """One tile of samples as a list of equal-shape sub-blocks, as the JAX
     kernel's ``_sample_subblocks`` (integrate_pallas.py:550-602) returns
     them: the normal family as two half blocks (tags 0 and 1)."""
-    if kind == DistKind.UNIFORM:
-        u = uniform_halfopen01(rng, (rows, LANES), counter, 0)
-        x = p1 + u * (p2 - p1)
-        # f32 rounding may land on the open bound: clamp below it.
-        return [torch.where(x >= p2, next_below_f32(torch.as_tensor(p2)), x)]
     if kind == DistKind.NORMAL:
-        half = rows // 2
-        u1 = uniform_halfopen01(rng, (half, LANES), counter, 0)
-        u2 = uniform_halfopen01(rng, (half, LANES), counter, 1)
-        return [p1 + p2 * normal_from_u01(u1), p1 + p2 * normal_from_u01(u2)]
-    if kind == DistKind.EXPONENTIAL:
-        u = uniform_open01(rng, (rows, LANES), counter, 0)
-        return [exponential_from_u01(u) / p1]
-    raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
+        half = (rows // 2, LANES)
+        return [
+            sample_block(kind, p1, p2, rng, half, counter, tag)
+            for tag in (0, 1)
+        ]
+    return [sample_block(kind, p1, p2, rng, (rows, LANES), counter)]
 
 
 class IntegrateProgram:
@@ -182,9 +197,21 @@ class IntegrateProgram:
 
     def library(self):
         if self._lib is None:
-            from .build import load_integrate_library
+            from .build import load_kernel_library
 
-            self._lib = load_integrate_library(cuda_source(self.fns))
+            lib = load_kernel_library("integrate.cu", cuda_source(self.fns))
+            lib.tmc_integrate.argtypes = [
+                ctypes.c_int,       # kind
+                ctypes.c_uint32,    # seed word
+                ctypes.c_void_p,    # params (2,) float32 on the device
+                ctypes.c_int,       # loops per program
+                ctypes.c_longlong,  # tiles = programs * loops
+                ctypes.c_int,       # CUDA grid size
+                ctypes.c_void_p,    # partials (grid, K) float32
+                ctypes.c_void_p,    # cudaStream_t
+            ]
+            lib.tmc_integrate.restype = ctypes.c_int
+            self._lib = lib
         return self._lib
 
 

@@ -8,7 +8,8 @@ the same order:
 * :func:`to_torch` — a torch callable on float32 tensors (the plain
   version, and the CPU path);
 * :func:`cuda_source` — CUDA C ``__device__ float f_j(float x)``
-  functions plus ``tmc_accumulate``, which ``csrc/integrate.cu`` includes.
+  functions plus two per-point entries, ``tmc_accumulate`` and
+  ``tmc_values``, which the kernels in ``csrc/`` include.
   The source also compiles as host C++ with ``-D__device__=`` (the tests
   do that with g++), since it only uses C math names and the helpers of
   ``csrc/integrand_math.cuh``.
@@ -222,13 +223,21 @@ def _c_function(name: str, fn: TracedFunction) -> str:
 
 
 def cuda_source(fns: Sequence[TracedFunction]) -> str:
-    """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and
-    ``tmc_accumulate(x, acc)``, which adds each ``f_j(x)`` to ``acc[j]``."""
-    parts = [f"#define TMC_K {len(fns)}"]
+    """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K``,
+    ``tmc_accumulate(x, acc)``, which adds each ``f_j(x)`` to ``acc[j]``
+    (the integrate kernel), and ``tmc_values(x, vals)``, which stores each
+    ``f_j(x)`` in ``vals[j]`` (the MCMC kernel, which shifts them)."""
+    k = len(fns)
+    parts = [f"#define TMC_K {k}"]
     parts += [_c_function(f"f_{j}", fn) for j, fn in enumerate(fns)]
-    body = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(len(fns)))
+    acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
+    vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
     parts.append(
         "static __device__ inline void tmc_accumulate(float x, float* acc) {\n"
-        f"{body}\n}}"
+        f"{acc}\n}}"
+    )
+    parts.append(
+        "static __device__ inline void tmc_values(float x, float* vals) {\n"
+        f"{vals}\n}}"
     )
     return "\n\n".join(parts) + "\n"

@@ -1,0 +1,393 @@
+"""1-D Metropolis-Hastings: chain plan, the plain PyTorch version and the
+CUDA kernel's wrapper.
+
+Port of ``tpu_montecarlo/ops/mcmc_pallas.py`` (``build_mcmc_fn_pallas``)
+in its independence, random-walk and adaptive random-walk modes, with and
+without error bars, for the uniform, normal and exponential families.
+Both versions here run, chain for chain, the chains that the JAX kernel
+runs under ``CounterRng`` (its interpreter stream): the same seeding per
+(seed ^ 0x5BD1E995, program), the same counters per step (0 for the
+initial state, 3i+1 for the proposal, 3i+2 for the accept test) and the
+same float32 operation order.  Only last-bit differences of ``log``,
+``exp`` and ``erfinv`` between libraries can flip an accept decision.
+
+Chains are laid out as the JAX kernel lays them out: chain ``c`` is
+position ``c % chains_per_program`` (``row * 128 + lane``) of program
+``c // chains_per_program``.  Both versions return per-block rows of
+``CHAIN_THREADS`` chains: (sums, accept count), (SS, 0) and (centroid, 0)
+of the chain means; :func:`mcmc_finish` turns them into estimates, the
+acceptance rate and the error bars (Chan's parallel-variance formula,
+exact for any partition of the chains).
+
+The JAX package sends MCMC workloads its kernel cannot take to an XLA
+sweep keyed on ``jax.random``; the port has no such twin and runs every
+workload it takes in this kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from enum import IntEnum
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..sampling import PORTED_KINDS, DistKind, analytic_log_pdf, normal_from_u01
+from ..tracing import TracedFunction
+from ..utils.roadmap import MCMC_FAMILIES, not_ported
+from .integrate_kernel import (
+    LANES,
+    CounterRng,
+    sample_block,
+    uniform_halfopen01,
+    uniform_open01,
+)
+from .lower import cuda_source, to_torch
+
+__all__ = [
+    "CHAIN_THREADS",
+    "MAX_FUNCTIONS",
+    "McmcConfig",
+    "McmcGrid",
+    "McmcOutput",
+    "McmcProgram",
+    "Mode",
+    "mcmc_cuda",
+    "mcmc_finish",
+    "mcmc_reference",
+    "plan_chains",
+    "plan_mcmc_grid",
+    "seed_word",
+]
+
+#: Chains per CUDA block, and so per row of the output: one warp, fixed
+#: in csrc/mcmc.cu (kChainThreads).
+CHAIN_THREADS = 32
+#: One lane of the JAX kernel's output row holds the accept count.
+MAX_FUNCTIONS = LANES - 1
+_SEED_MIX = 0x5BD1E995
+_LOG_STEP_MIN = -13.815511
+_LOG_STEP_MAX = 13.815511
+
+
+class Mode(IntEnum):
+    """Proposal modes, with the codes ``csrc/mcmc.cu`` takes."""
+
+    INDEPENDENCE = 0
+    RANDOM_WALK = 1
+    ADAPTIVE = 2
+
+
+def plan_chains(
+    n_chains: int, target_threads: Optional[int], n_dev: int = 1
+) -> int:
+    """Total chain count (``tpu_montecarlo/ops/mcmc_xla.py:85``):
+    ``target_threads`` overrides ``n_chains`` when given (the reference
+    engine's quirk), rounded up to a multiple of lcm(256, n_dev)."""
+    chains = target_threads if target_threads is not None else n_chains
+    m = math.lcm(256, max(int(n_dev), 1))
+    return -(-max(int(chains), 1) // m) * m
+
+
+@dataclass(frozen=True)
+class McmcGrid:
+    """The JAX kernel's grid: ``programs`` blocks of ``rows x 128``
+    chains; every one of the ``chains_actual`` chains enters the average."""
+
+    programs: int
+    rows: int
+    chains_actual: int
+
+    @property
+    def chains_per_program(self) -> int:
+        return self.rows * LANES
+
+
+def plan_mcmc_grid(total_chains: int) -> McmcGrid:
+    """``tpu_montecarlo/ops/mcmc_pallas.py:71``: 8 to 64 rows of 128
+    chains per program, so at least 1024 chains run."""
+    rows = max(8, min(64, -(-total_chains // LANES)))
+    rows = (rows + 7) // 8 * 8
+    block = rows * LANES
+    programs = -(-total_chains // block)
+    return McmcGrid(programs, rows, programs * block)
+
+
+def seed_word(seed: int) -> int:
+    """The kernels' seed word: the seed as uint32 (``np.uint32`` rejects
+    seeds outside [0, 2**32), as the JAX package does) xor 0x5BD1E995."""
+    return int(np.uint32(seed)) ^ _SEED_MIX
+
+
+@dataclass(frozen=True)
+class McmcConfig:
+    """What a run does.  ``proposal_kind`` is ignored by the walks."""
+
+    mode: Mode
+    proposal_kind: DistKind
+    target_kind: DistKind
+    n_steps: int
+    n_burnin: int
+    with_stderr: bool = False
+
+
+class McmcOutput(NamedTuple):
+    """``rows``: (chains / CHAIN_THREADS, 3, K + 1) float32 block rows;
+    ``x_final``: (chains,) float32 final chain states."""
+
+    rows: torch.Tensor
+    x_final: torch.Tensor
+
+
+class McmcProgram:
+    """One integrand set, lowered both ways: ``torch_fns`` for the plain
+    version, and the CUDA library, built at first use."""
+
+    def __init__(self, fns: Sequence[TracedFunction]):
+        if not 1 <= len(fns) <= MAX_FUNCTIONS:
+            raise ValueError(
+                f"the MCMC kernel takes 1 to {MAX_FUNCTIONS} functions, "
+                f"got {len(fns)}"
+            )
+        self.fns = tuple(fns)
+        self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
+        self._lib = None
+
+    def library(self):
+        if self._lib is None:
+            from .build import load_kernel_library
+
+            lib = load_kernel_library("mcmc.cu", cuda_source(self.fns))
+            p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+            lib.tmc_mcmc_pilots.argtypes = [i, i, u, p, i, i, p, p]
+            lib.tmc_mcmc_pilots.restype = i
+            # mode, proposal kind, target kind, seed word, params, burn-in,
+            # steps, chains per program, chains, pilots, rows, x_final,
+            # stream
+            lib.tmc_mcmc.argtypes = [i, i, i, u, p, i, i, i, i, p, p, p, p]
+            lib.tmc_mcmc.restype = i
+            self._lib = lib
+        return self._lib
+
+
+def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int) -> None:
+    kinds = [cfg.target_kind]
+    if cfg.mode == Mode.INDEPENDENCE:
+        kinds.append(cfg.proposal_kind)
+    for kind in kinds:
+        if kind not in PORTED_KINDS:
+            raise not_ported(f"MCMC under {DistKind(kind).name}", MCMC_FAMILIES)
+    if params.dtype != torch.float32 or params.shape != (6,):
+        raise ValueError(
+            f"params must be a (6,) float32 tensor, got {tuple(params.shape)} "
+            f"{params.dtype}"
+        )
+    if not 1 <= k <= MAX_FUNCTIONS:
+        raise ValueError(f"1 to {MAX_FUNCTIONS} functions, got {k}")
+    if cfg.n_steps < 1 or cfg.n_burnin < 0:
+        raise ValueError("n_steps must be positive and n_burnin non-negative")
+
+
+def _block_rows(
+    acc: torch.Tensor, n_acc: torch.Tensor, pilots: torch.Tensor, n_steps: int
+) -> torch.Tensor:
+    """The kernel's output rows from per-chain sums ``acc`` (C, K), accept
+    counts ``n_acc`` (C,) and each chain's pilots (C, K)."""
+    c, k = acc.shape
+    nb = CHAIN_THREADS
+    inv_steps = float(np.float32(1.0) / np.float32(n_steps))
+    blocks = acc.reshape(c // nb, nb, k)
+    cm = blocks * inv_steps
+    mbs = cm.sum(dim=1) / float(nb)
+    ss = torch.clamp(
+        (cm * cm).sum(dim=1) - float(nb) * mbs * mbs, min=0.0
+    )
+    mb = mbs + pilots.reshape(c // nb, nb, k)[:, 0, :]
+    accepted = n_acc.reshape(c // nb, nb).sum(dim=1, keepdim=True)
+    zero = torch.zeros_like(accepted)
+    return torch.stack(
+        [
+            torch.cat([blocks.sum(dim=1), accepted], dim=1),
+            torch.cat([ss, zero], dim=1),
+            torch.cat([mb, zero], dim=1),
+        ],
+        dim=1,
+    )
+
+
+def mcmc_reference(
+    torch_fns: Sequence[Callable],
+    cfg: McmcConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Plain PyTorch version of the kernel, on ``params``' device:
+    vectorised over all chains, a Python loop over the steps, with the
+    kernel's counters and float32 operation order."""
+    _check_args(cfg, params, len(torch_fns))
+    dev = params.device
+    q1, q2, q3, q4, t1, t2 = params.unbind()
+    shape = (grid.rows, LANES)
+    pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
+    rng = CounterRng(seed_word(seed), pids, device=dev)
+    indep = cfg.mode == Mode.INDEPENDENCE
+
+    def propose(counter):  # (programs, rows, 128)
+        return sample_block(cfg.proposal_kind, q1, q2, rng, shape, counter)
+
+    def lp_t(v):
+        return analytic_log_pdf(cfg.target_kind, t1, t2, v)
+
+    def lp_q(v):
+        return analytic_log_pdf(cfg.proposal_kind, q1, q2, v)
+
+    def values(v):
+        return [f(v).to(torch.float32) for f in torch_fns]
+
+    if indep:
+        x = propose(0)
+        logq = lp_q(x)
+    else:
+        x = q2 + uniform_halfopen01(rng, shape, 0, 0) * (q3 - q2)
+    logp = lp_t(x)
+    k = len(torch_fns)
+    if cfg.with_stderr:
+        n_block = float(grid.chains_per_program)
+        pilots = [v.sum(dim=(1, 2), keepdim=True) / n_block for v in values(x)]
+    else:
+        pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+
+    step = q1
+    if cfg.mode == Mode.ADAPTIVE:
+        log_step = torch.log(q1) + torch.zeros_like(x)
+    accs = [torch.zeros_like(x) for _ in range(k)]
+    n_acc = torch.zeros_like(x)
+    for i in range(cfg.n_burnin + cfg.n_steps):
+        burn = i < cfg.n_burnin
+        if cfg.mode == Mode.ADAPTIVE and (burn or i == cfg.n_burnin):
+            step = torch.exp(log_step)
+        if indep:
+            xp = propose(3 * i + 1)
+            logq_prop = lp_q(xp)
+            logp_prop = lp_t(xp)
+            log_alpha = logp_prop + logq - logp - logq_prop
+        else:
+            u = uniform_halfopen01(rng, shape, 3 * i + 1, 0)
+            xp = x + step * normal_from_u01(u)
+            logp_prop = lp_t(xp)
+            log_alpha = logp_prop - logp
+        u2 = uniform_open01(rng, shape, 3 * i + 2, 0)
+        accept = torch.log(u2) < log_alpha
+        x = torch.where(accept, xp, x)
+        logp = torch.where(accept, logp_prop, logp)
+        if indep:
+            logq = torch.where(accept, logq_prop, logq)
+        if burn:
+            if cfg.mode == Mode.ADAPTIVE:
+                alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
+                i_f = torch.full((), float(i + 1), device=dev)
+                gamma = torch.exp(-0.6 * torch.log(i_f))
+                log_step = torch.clamp(
+                    log_step + gamma * (alpha_p - q4),
+                    _LOG_STEP_MIN, _LOG_STEP_MAX,
+                )
+            continue
+        accs = [a + (v - p) for a, v, p in zip(accs, values(x), pilots)]
+        n_acc = n_acc + accept.to(torch.float32)
+
+    acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
+    chain_pilots = torch.stack(
+        [p.expand_as(x).reshape(-1) for p in pilots], dim=1
+    )
+    rows = _block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
+    return McmcOutput(rows, x.reshape(-1))
+
+
+def mcmc_cuda(
+    program: McmcProgram,
+    cfg: McmcConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Runs the grid's chains on ``params``' device.
+
+    A CUDA ``params`` launches the kernel: ``mcmc_cuda.launches`` counts
+    the chain-kernel launches, and ``mcmc_cuda.pilot_launches`` the pilot
+    kernel's, which an error-bar run launches first.  A CPU ``params``
+    runs the plain version.  Any other
+    device raises.  The launches are asynchronous on the current
+    stream."""
+    _check_args(cfg, params, len(program.fns))
+    if params.device.type == "cpu":
+        return mcmc_reference(program.torch_fns, cfg, params, seed, grid)
+    if params.device.type != "cuda":
+        raise ValueError(f"no MCMC kernel for device {params.device}")
+    params = params.contiguous()
+    lib = program.library()
+    k = len(program.fns)
+    dev = params.device
+    word = seed_word(seed)
+    rows = torch.empty(
+        (grid.chains_actual // CHAIN_THREADS, 3, k + 1),
+        dtype=torch.float32, device=dev,
+    )
+    x_final = torch.empty(grid.chains_actual, dtype=torch.float32, device=dev)
+    pilots = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cfg.with_stderr:
+            pilots = torch.empty(
+                (grid.programs, k), dtype=torch.float32, device=dev
+            )
+            err = lib.tmc_mcmc_pilots(
+                int(cfg.mode), int(cfg.proposal_kind), word,
+                params.data_ptr(), grid.chains_per_program, grid.programs,
+                pilots.data_ptr(), stream,
+            )
+            _raise_on(lib, err, "pilot")
+            mcmc_cuda.pilot_launches += 1
+        err = lib.tmc_mcmc(
+            int(cfg.mode), int(cfg.proposal_kind), int(cfg.target_kind),
+            word, params.data_ptr(), cfg.n_burnin, cfg.n_steps,
+            grid.chains_per_program, grid.chains_actual,
+            None if pilots is None else pilots.data_ptr(),
+            rows.data_ptr(), x_final.data_ptr(), stream,
+        )
+        _raise_on(lib, err, "chain")
+    mcmc_cuda.launches += 1
+    return McmcOutput(rows, x_final)
+
+
+mcmc_cuda.launches = 0
+mcmc_cuda.pilot_launches = 0
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"MCMC {what} kernel launch failed: {lib.tmc_error_string(err)!r}"
+        )
+
+
+def mcmc_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcConfig, k: int):
+    """(values (K,), acceptance (), stderr (K,) or None), float32 tensors
+    on the rows' device: the JAX wrapper's math (mcmc_pallas.py:1150-1166,
+    :1286-1324) over CUDA blocks in place of programs."""
+    rows = out.rows
+    tot = rows.sum(dim=0)
+    chains = np.float32(grid.chains_actual)
+    denom = float(chains * np.float32(cfg.n_steps))
+    acceptance = tot[0, k] / denom
+    if not cfg.with_stderr:
+        return tot[0, :k] / denom, acceptance, None
+    n_b = float(CHAIN_THREADS)
+    mb = rows[:, 2, :k]
+    values = (n_b * mb).sum(dim=0) / float(chains)
+    ss_total = (rows[:, 1, :k] + n_b * (mb - values) ** 2).sum(dim=0)
+    var = ss_total / float(max(chains - np.float32(1.0), np.float32(1.0)))
+    return values, acceptance, torch.sqrt(var / float(chains))

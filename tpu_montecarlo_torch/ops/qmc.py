@@ -2,8 +2,8 @@
 ``tpu_montecarlo/ops/qmc.py:_pcg_mix``).
 
 Only the hash is ported in this slice; the radical inverse and Sobol
-streams of ``method="qmc"`` are later work.  The CUDA kernel carries the
-same mix as ``tmc_pcg`` in ``csrc/integrate.cu``.
+streams of ``method="qmc"`` are later work.  The CUDA kernels carry the
+same mix as ``tmc::pcg`` in ``csrc/counter_rng.cuh``.
 
 Torch has no full uint32 arithmetic and its ``>>`` on int32 is
 arithmetic, so words travel as int64 tensors holding values in

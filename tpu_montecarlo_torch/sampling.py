@@ -1,8 +1,9 @@
-"""Family codes, packed distribution specs and the sampling transforms.
+"""Family codes, packed distribution specs, the sampling transforms and
+the closed-form log densities.
 
 Port of the analytic rows of ``tpu_montecarlo/sampling.py``.  The
-transforms are torch functions on float32 tensors; the CUDA kernel
-applies the same formulas in the same order (``csrc/integrate.cu``).
+transforms are torch functions on float32 tensors; the CUDA kernels
+apply the same formulas in the same order (``csrc/counter_rng.cuh``).
 """
 
 from __future__ import annotations
@@ -16,13 +17,18 @@ import torch
 from .utils.roadmap import VARIANTS, not_ported
 
 __all__ = [
+    "LOG_PDF_FLOOR",
     "DistKind",
     "DistSpec",
+    "analytic_log_pdf",
     "dist_spec_of",
     "exponential_from_u01",
     "next_below_f32",
     "normal_from_u01",
 ]
+
+#: Log density out of support (``tpu_montecarlo/tables.py:36``).
+LOG_PDF_FLOOR = -100.0
 
 
 class DistKind(IntEnum):
@@ -84,6 +90,25 @@ def exponential_from_u01(u: torch.Tensor) -> torch.Tensor:
     """Standard exponential by inverse transform, ``-log(max(u, 1e-7))``,
     for ``u`` in (0, 1]; divide by lambda for Exp(lambda)."""
     return -torch.log(torch.clamp(u, min=_U_LO))
+
+
+_SQRT_2PI = float(np.float32(2.50662827463))
+
+
+def analytic_log_pdf(kind: DistKind, p1, p2, x: torch.Tensor) -> torch.Tensor:
+    """Closed-form float32 log densities, with the JAX package's
+    expressions in the same order (``tpu_montecarlo/sampling.py:542``):
+    uniform on the half-open ``[p1, p2)``, the ``LOG_PDF_FLOOR`` out of
+    support.  ``p1``, ``p2`` are float32 scalars (tensors or floats)."""
+    if kind == DistKind.UNIFORM:
+        inside = (p1 <= x) & (x < p2)
+        return torch.where(inside, -torch.log(p2 - p1), LOG_PDF_FLOOR)
+    if kind == DistKind.NORMAL:
+        z = (x - p1) / p2
+        return -0.5 * z * z - torch.log(p2 * _SQRT_2PI)
+    if kind == DistKind.EXPONENTIAL:
+        return torch.where(x >= 0.0, torch.log(p1) - p1 * x, LOG_PDF_FLOOR)
+    raise not_ported(f"the log density of {DistKind(kind).name}", VARIANTS)
 
 
 def next_below_f32(hi: torch.Tensor) -> torch.Tensor:
