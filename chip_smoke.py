@@ -21,7 +21,8 @@ Phases, each of which exits non-zero on failure:
    closed form within 6 sigma, and that the kernel's launch count rose;
 5. at the main path's shape, 1e9 samples under N(0, 1): hold the kernel
    against the plain version with the same tolerance, time both (CUDA
-   events) and time ``integrate()`` end to end (host clock);
+   events), time ``integrate()`` end to end (host clock) and read the
+   device idle share of warm calls from one ``torch.profiler`` window;
 6. finish building the MCMC kernel (``csrc/mcmc.cu``) and print nvcc's
    register and spill report;
 7. hold the MCMC kernel against its plain version on the card in every
@@ -37,7 +38,38 @@ Phases, each of which exits non-zero on failure:
    kernel and chain kernel): hold the kernel against the plain version as
    in phase 7, time both (CUDA events) and time ``integrate_mcmc()`` end
    to end (host clock), in chain-steps/s counted as 4096 x (10_000 +
-   1_000); the kernel without error bars is timed beside them.
+   1_000); the kernel without error bars is timed beside them;
+10. finish building the nd integrate kernel (``csrc/integrate_nd.cu``) for
+    c9's and c9c's integrand sets and print nvcc's register and spill
+    report;
+11. hold the nd kernel against its plain version on the card at 2**24
+    samples in every mode: c9's set (N(0,1) x U(0,1) x Exp(2)) in mc,
+    antithetic, qmc, and mc and antithetic with error bars; c9c's in qmc.
+    Means within rel 1e-5 + abs 1e-6, error bars within rel 1e-4;
+12. drive nd main path 1, ``integrate([x*y*z, x*x+y+z], [N(0,1), U(0,1),
+    Exp(2)], n_samples=1e9, seed=42)``: both means within 6 sigma of
+    their closed forms (0, 2), and the nd kernel's launch count rose;
+13. drive nd main path 2, ``integrate([exp(x)*exp(y)], [U(0,1)]*2,
+    n_samples=1e9, method="qmc", return_stderr=True, qmc_rotations=8)``:
+    within 6 rQMC standard errors of (e - 1)^2 plus 4 float32 ulp (the
+    rotations' float32 means can agree bit for bit); then each of the 8
+    rotations again at its own grid (2**27 points) and seed: the kernel
+    against the plain version (rel 1e-5 + abs 1e-6), and the spread of the
+    rotations' float64 means (from the kernel's float32 block rows) above
+    0 and 10x below the plain-MC error at 1e9;
+14. at main path 1's shape: hold the nd kernel against the plain version,
+    time both (CUDA events) and ``integrate()`` end to end (host clock),
+    in d-vector samples/s counted as ``benchmarks/run_all.py:339`` counts
+    them (requested samples), and read the device idle share of warm
+    calls from one ``torch.profiler`` window.
+
+Each kernel's bound is the least time the card could take at the main
+path's shape: from the built library's SASS (``cuobjdump -sass``, read by
+``card_bound`` and the functions it calls), the instructions per sample of each
+arithmetic pipe (FP32, INT32, MUFU and conversions) on the cheapest path
+through the sample loop, over that pipe's rate on the card's SMs at the
+SM clock read under load (``nvidia-smi``); the busiest pipe sets it.
+The time to issue every instruction of the loop is printed beside it.
 
 Prints the kernel record as one JSON line before the last, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -49,11 +81,14 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import replace
+from dataclasses import dataclass, replace
+from pathlib import Path
 
 import numpy as np
 
@@ -99,6 +134,20 @@ MAIN_SAMPLES = 1_000_000_000
 CHECK_SAMPLES = 1 << 24
 SEED = 42
 RTOL, ATOL = 1e-5, 1e-6
+# nd main path 1: c9's set (benchmarks/run_all.py:338-354) at 1e9, with
+# its closed forms under N(0,1) x U(0,1) x Exp(2): E and Var.
+ND_FNS = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
+ND_MEANS = [0.0, 2.0]
+ND_VARS = [1.0 / 6.0, 2.0 + 1.0 / 12.0 + 1.0 / 4.0]
+# nd main path 2: c9c's set (run_all.py:365-371), Sobol over U(0,1)^2,
+# E = (e - 1)^2 and Var = ((e^2 - 1) / 2)^2 - (e - 1)^4.
+QMC_FNS = [lambda x, y: np.exp(x) * np.exp(y)]
+QMC_MEAN = (math.e - 1.0) ** 2
+QMC_VAR = ((math.e ** 2 - 1.0) / 2.0) ** 2 - (math.e - 1.0) ** 4
+QMC_ROTATIONS = 8
+# Kernel and plain version sum the same squares in other orders; a wrong
+# count of units or a dropped pair mean moves an error bar by 40 % or more.
+ND_STDERR_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -130,6 +179,376 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def clock_under_load(fn, ms: float) -> float:
+    """SM clock (MHz) read while about a second of ``fn`` launches runs."""
+    import torch
+
+    for _ in range(max(20, int(1000.0 / max(ms, 1e-3)))):
+        fn()
+    mhz = float(smi("clocks.sm"))
+    torch.cuda.synchronize()
+    return mhz
+
+
+def idle_share(call, n_calls: int = 10):
+    """Device idle share of ``n_calls`` warm ``call()``s in one
+    ``torch.profiler`` window: busy is the union of the device intervals
+    (kernels, copies) the profiler recorded, wall the host clock around
+    the window.  Prints and returns the share, or None when the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    busy_us, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    if busy_us == 0.0:
+        print("  device idle share: not measured (no device time traced)")
+        return None
+    share = 1.0 - busy_us / wall_us
+    print(f"  device idle share of {n_calls} warm calls, one profiled "
+          f"window: wall {wall_us / 1e3:.3f} ms, busy {busy_us / 1e3:.3f} ms,"
+          f" idle {share:.2%} ({wall_us / n_calls / 1e3:.3f} ms per call "
+          f"under the profiler)")
+    return share
+
+
+# -- The bounds: per-pipe instruction counts of a kernel's SASS sample loop --
+#
+# ``cuobjdump -sass`` lists a built library's machine code.  For one kernel
+# function the code below finds its loops (a backward branch and the
+# instructions between its target and it) and counts, along the cheapest
+# path through one iteration, the instructions of each arithmetic pipe,
+# per thread (a warp instruction is 32 lane-operations):
+#
+# * fp32: float32 add, multiply, compare, min/max and select;
+# * int32: 32-bit integer and logic operations (IMAD, IADD3, LOP3, SHF);
+# * xu: MUFU special functions and type conversions (I2F, F2I, FRND).
+#
+# Their rates per SM per clock, 128, 64 and 16, are the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table for compute
+# capability 9.0.  The bound is the busiest pipe's time.  Loads, moves and
+# branches use no arithmetic pipe; ``issue`` (every instruction, four
+# schedulers issuing one warp instruction per clock each) is reported
+# beside the bound and is not part of it.  The cheapest path makes the
+# count a lower bound whatever branches a run takes (a rare slow path,
+# such as sinf's argument reduction, is skipped).  One iteration's samples
+# are its uint32 -> float32 conversions (one per uniform, the 24-bit
+# mantissa) over the conversions per sample; logf and sinf convert signed
+# integers and division converts with .RP, so neither counts.
+#
+# A kernel of few warps (MCMC: 4096 chains are 128 warps, one per SM)
+# cannot fill the pipes; each of its threads runs its steps one after
+# another.  Its latency bound is the steps times the dependent chain of
+# one step (``chain``: the longest run of instructions each reading what
+# the one before wrote, on the cheapest path) times LATENCY_CYCLES.
+
+PIPE_RATES = {"fp32": 128, "int32": 64, "xu": 16}
+SCHEDULERS_PER_SM = 4
+# The least clocks between an arithmetic instruction and one that reads its
+# result: the fixed-latency FP32 and INT32 pipes' depth on Volta through
+# Hopper SMs, as published microbenchmarks report it.  Assumed, not
+# measured here; MUFU, conversions and shared loads take longer, so the
+# chain's time is a lower bound.
+LATENCY_CYCLES = 4
+_FP32 = {
+    "FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "FMNMX",
+    "FSEL", "FSET", "FSETP", "FSWZADD",
+}
+_INT32 = {
+    "BFE", "BFI", "BMSK", "IABS", "IADD", "IADD3", "IADD32I", "IMAD",
+    "IMAD32I", "IMNMX", "IMUL", "IMUL32I", "ISCADD", "ISETP", "LEA", "LOP",
+    "LOP3", "LOP32I", "PRMT", "SEL", "SGXT", "SHF", "SHL", "SHR", "VIADD",
+    "VIMNMX",
+}
+_XU = {
+    "BREV", "F2F", "F2FP", "F2I", "FLO", "FRND", "I2F", "I2FP", "I2I",
+    "MUFU", "POPC",
+}
+_COUNTED = ("fp32", "int32", "xu", "issue", "conversions")
+_TERMINAL = ("EXIT", "RET", "BRX", "JMX")
+_SASS_INSTR = re.compile(r"/\*([0-9a-fA-F]+)\*/\s+([^;]*?)\s*;")
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_REG = re.compile(r"\bU?[RP]\d+\b")
+_NO_DEST = {"RED", "BRA", "JMP", "EXIT", "RET", "BAR", "BSYNC", "BSSY",
+            "WARPSYNC", "NOP", "CALL"}
+
+
+@dataclass(frozen=True)
+class Instr:
+    addr: int
+    predicated: bool
+    opcode: str  # full, e.g. "IMAD.WIDE.U32"
+    operands: str
+
+    @property
+    def base(self) -> str:
+        return self.opcode.split(".")[0]
+
+    def branch_target(self):
+        if self.base not in ("BRA", "JMP"):
+            return None
+        m = re.search(r"0x([0-9a-fA-F]+)", self.operands)
+        if m is None:
+            raise ValueError(f"branch without an address: {self}")
+        return int(m.group(1), 16)
+
+
+@dataclass(frozen=True)
+class LoopCount:
+    """One loop: its address range and, per class, the instructions on
+    the cheapest path through one iteration."""
+
+    start: int
+    end: int
+    counts: dict
+
+
+def pipe_of(opcode: str):
+    base = opcode.split(".")[0]
+    for pipe, ops in (("fp32", _FP32), ("int32", _INT32), ("xu", _XU)):
+        if base in ops:
+            return pipe
+    return None
+
+
+def is_uniform_conversion(opcode: str) -> bool:
+    """uint32 -> float32, as ``float(mantissa)`` compiles (``I2F.U32``,
+    ``I2FP.F32.U32``; not the ``.RP`` reciprocal of integer division)."""
+    parts = opcode.split(".")
+    return (parts[0] in ("I2F", "I2FP") and "U32" in parts
+            and not {"F64", "F16", "RP"} & set(parts))
+
+
+def parse_functions(listing: str) -> dict:
+    """The instructions of each function of a ``cuobjdump -sass``
+    listing, by (mangled) name."""
+    out, current = {}, None
+    for line in listing.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = _SASS_INSTR.search(line)
+        if m is None or current is None or not m.group(2).split():
+            continue
+        text = m.group(2).split()
+        pred = text[0].startswith("@")
+        if pred:
+            text = text[1:]
+        current.append(
+            Instr(int(m.group(1), 16), pred, text[0], " ".join(text[1:])))
+    return out
+
+
+def loop_counts(instrs) -> list:
+    """Each loop of a function, in address order, with its per-class
+    counts on the cheapest path from the loop's first block to a block
+    that branches back to it (blocks in address order, forward edges
+    only, so a nested loop's body counts once or, where a branch skips
+    it, not at all)."""
+    index = {ins.addr: i for i, ins in enumerate(instrs)}
+    leaders = {0}
+    for i, ins in enumerate(instrs):
+        target = ins.branch_target()
+        if target is not None and target in index:
+            leaders.add(index[target])
+        if target is not None or ins.base in _TERMINAL:
+            leaders.add(i + 1)
+    starts = sorted(s for s in leaders if s < len(instrs))
+    bounds = [(s, (starts[n + 1] if n + 1 < len(starts) else len(instrs)) - 1)
+              for n, s in enumerate(starts)]
+    block_of = {s: n for n, (s, _) in enumerate(bounds)}
+    succs, cost = [], []
+    for n, (first, last) in enumerate(bounds):
+        ins, out = instrs[last], []
+        target = ins.branch_target()
+        if target is not None and target in index:
+            out.append(block_of[index[target]])
+        falls = (target is None and ins.base not in _TERMINAL) or ins.predicated
+        if falls and n + 1 < len(bounds):
+            out.append(n + 1)
+        succs.append(out)
+        c = dict.fromkeys(_COUNTED, 0)
+        for i in instrs[first:last + 1]:
+            c["issue"] += 1
+            c["conversions"] += is_uniform_conversion(i.opcode)
+            if pipe_of(i.opcode):
+                c[pipe_of(i.opcode)] += 1
+        cost.append(c)
+    latches = {}
+    for n, out in enumerate(succs):
+        for s in out:
+            if s <= n:  # a backward edge n -> s: s heads a loop
+                latches.setdefault(s, []).append(n)
+    result = []
+    for h in sorted(latches):
+        end = max(latches[h])
+        counts, path = {}, None
+        for cls in _COUNTED:
+            dist, pred = {h: cost[h][cls]}, {}
+            for n in range(h, end + 1):
+                for s in succs[n] if n in dist else ():
+                    if n < s <= end and dist[n] + cost[s][cls] < dist.get(
+                            s, math.inf):
+                        dist[s], pred[s] = dist[n] + cost[s][cls], n
+            last = min((n for n in latches[h] if n in dist), key=dist.get)
+            counts[cls] = dist[last]
+            if cls == "issue":
+                path = [last]
+                while path[-1] != h:
+                    path.append(pred[path[-1]])
+        counts["chain"] = chain_depth(
+            [i for b in reversed(path) for i in instrs[bounds[b][0]:bounds[b][1] + 1]])
+        result.append(LoopCount(instrs[bounds[h][0]].addr,
+                                instrs[bounds[end][1]].addr, counts))
+    return result
+
+
+def chain_depth(instrs) -> int:
+    """The longest chain of dependent instructions in straight-line
+    ``instrs``: each reads a register (R, P, UR, UP) that the one before
+    it wrote.  Values from before the first instruction count as ready,
+    and an instruction's destination is its first operand (after any
+    ``PT``), so a second destination (IMAD.WIDE's high word) is missed:
+    both keep the count a lower bound."""
+    depth, longest = {}, 0
+    for ins in instrs:
+        toks = [t.strip() for t in ins.operands.split(",")]
+        while toks and toks[0] == "PT":
+            toks.pop(0)
+        dest = None
+        if (toks and _SASS_REG.fullmatch(toks[0])
+                and not ins.base.startswith("ST") and ins.base not in _NO_DEST):
+            dest, toks = toks[0], toks[1:]
+        d = 1 + max((depth.get(r, 0) for t in toks
+                     for r in _SASS_REG.findall(t)), default=0)
+        if dest is not None:
+            depth[dest] = d
+        longest = max(longest, d)
+    return longest
+
+
+def sample_loops(instrs) -> list:
+    """The loops that draw samples: those converting uniforms on their
+    cheapest path, less those that hold another such loop (a tile loop
+    around the sample loop)."""
+    drawing = [lp for lp in loop_counts(instrs) if lp.counts["conversions"]]
+    return [lp for lp in drawing
+            if not any(lp.start < o.start <= lp.end
+                       for o in drawing if o is not lp)]
+
+
+def per_sample(listing: str, function: str, conversions_per_sample: int):
+    """(dearest, cheapest) per-class instructions per sample over the
+    sample loops of the kernel function whose mangled name contains
+    ``function``.  One iteration draws ``conversions /
+    conversions_per_sample`` samples."""
+    funcs = [ins for name, ins in parse_functions(listing).items()
+             if function in name]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} functions match {function!r}")
+    rows = []
+    for loop in sample_loops(funcs[0]):
+        n, rest = divmod(loop.counts["conversions"], conversions_per_sample)
+        if rest:
+            raise ValueError(
+                f"a loop of {function!r} converts {loop.counts['conversions']}"
+                f" uniforms, not a multiple of {conversions_per_sample}")
+        rows.append({k: v / n for k, v in loop.counts.items()})
+    if not rows:
+        raise ValueError(f"no sample loop in {function!r}")
+    return ({k: max(r[k] for r in rows) for k in rows[0]},
+            {k: min(r[k] for r in rows) for k in rows[0]})
+
+
+def bound_ms(counts, units: float, sms: int, clock_mhz: float, warps=None):
+    """(least milliseconds, pipe) for ``units`` samples (or chain-steps)
+    of ``counts`` per unit on ``sms`` SMs at ``clock_mhz``: the busiest
+    arithmetic pipe's time.  With ``warps`` given (a kernel of fewer warps
+    than the card has schedulers), only ``warps`` schedulers work, each
+    with a quarter of its SM's pipes."""
+    busy = sms if warps is None else min(warps, SCHEDULERS_PER_SM * sms) / 4
+    times = {pipe: counts[pipe] * units / (rate * busy * clock_mhz * 1e6) * 1e3
+             for pipe, rate in PIPE_RATES.items()}
+    pipe = max(times, key=times.get)
+    return times[pipe], pipe
+
+
+def issue_ms(counts, units: float, sms: int, clock_mhz: float, warps=None):
+    """Milliseconds to issue ``counts["issue"]`` instructions per unit, one
+    warp instruction per scheduler per clock: a diagnostic beside the
+    bound, since it counts loop control, moves and branches too."""
+    schedulers = SCHEDULERS_PER_SM * sms
+    if warps is not None:
+        schedulers = min(warps, schedulers)
+    return counts["issue"] * units / (32 * schedulers * clock_mhz * 1e6) * 1e3
+
+
+def latency_ms(chain: float, steps: int, clock_mhz: float) -> float:
+    """Milliseconds for ``steps`` serial steps of a ``chain``-instruction
+    dependent chain each, at LATENCY_CYCLES per instruction."""
+    return chain * steps * LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def sass_listing(lib) -> str:
+    """``cuobjdump -sass`` of a built library (the CUDA toolkit's)."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    exe = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if exe is None:
+        fail("cuobjdump not found: the SASS cannot be read")
+    return subprocess.run([exe, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def card_bound(lib, function: str, conversions: int, units: float,
+               clock_mhz: float, warps=None, weights=None):
+    """The bound of ``units`` units of a built kernel on this card:
+    ``(bound_ms, pipe, issue_ms, counts)``.  Counts are the dearest sample
+    loop's per unit, or with ``weights = (w_dear, w_cheap)`` the
+    weighted mean of the dearest and the cheapest loop's."""
+    import torch
+
+    dear, cheap = per_sample(sass_listing(lib), function, conversions)
+    counts = dear
+    if weights is not None:
+        counts = {k: (weights[0] * dear[k] + weights[1] * cheap[k])
+                  / sum(weights) for k in dear}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms, pipe = bound_ms(counts, units, sms, clock_mhz, warps)
+    return ms, pipe, issue_ms(counts, units, sms, clock_mhz, warps), counts
+
+
+def print_bound(bound, clock_mhz: float, unit: str) -> None:
+    ms, pipe, issue, counts = bound
+    per = ", ".join(f"{k} {v:g}" for k, v in counts.items())
+    print(f"  bound {ms:.3f} ms ({pipe} pipe) at {clock_mhz:.0f} MHz under "
+          f"load; issue {issue:.3f} ms (diagnostic); per {unit} on the "
+          f"cheapest path: {per}")
+
+
 def main() -> int:
     try:
         import torch
@@ -148,6 +567,16 @@ def main() -> int:
             integrate_cuda,
             integrate_reference,
             plan_grid,
+        )
+        from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+            IntegrateNdProgram,
+            NdConfig,
+            finish_stderr,
+            integrate_nd_cuda,
+            integrate_nd_reference,
+            integrate_nd_rows,
+            pilot_row,
+            plan_nd_grid,
         )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
             McmcConfig,
@@ -186,14 +615,35 @@ def main() -> int:
     check_program = McmcProgram(
         tuple(tm.trace_function(f) for f in MCMC_CHECK_FNS)
     )
+    nd_dists = [tm.Distribution.normal(0.0, 1.0),
+                tm.Distribution.uniform(0.0, 1.0),
+                tm.Distribution.exponential(2.0)]
+    qmc_dists = [tm.Distribution.uniform(0.0, 1.0)] * 2
+    nd_kinds = tuple(dist_spec_of(d).kind for d in nd_dists)
+    qmc_kinds = tuple(dist_spec_of(d).kind for d in qmc_dists)
+    nd_traced = tuple(tm.trace_function(f, 3) for f in ND_FNS)
+    qmc_traced = tuple(tm.trace_function(f, 2) for f in QMC_FNS)
+    nd_program = GLOBAL_CACHE.get_or_build(
+        ("integrate_nd", fns_key(nd_traced), nd_kinds),
+        lambda: IntegrateNdProgram(nd_traced, nd_kinds),
+    )
+    qmc_program = GLOBAL_CACHE.get_or_build(
+        ("integrate_nd", fns_key(qmc_traced), qmc_kinds),
+        lambda: IntegrateNdProgram(qmc_traced, qmc_kinds),
+    )
+
     def timed_build(prog):
         start = time.perf_counter()
         return prog.library(), time.perf_counter() - start
 
+    # One nvcc per kernel source and integrand set, all started together.
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=2)
+    pool = ThreadPoolExecutor(max_workers=4)
     mcmc_builds = [
         pool.submit(timed_build, p) for p in (mcmc_program, check_program)
+    ]
+    nd_builds = [
+        pool.submit(timed_build, p) for p in (nd_program, qmc_program)
     ]
     lib = program.library()
     build_s = time.perf_counter() - t0
@@ -288,6 +738,13 @@ def main() -> int:
           f"{plain_ms:.3f} ms ({n_main / plain_ms * 1e3:.4e} samples/s), "
           f"integrate() end to end {call_ms:.3f} ms median of 5, host clock "
           f"({n_main / call_ms * 1e3:.4e} samples/s)")
+    mhz = clock_under_load(
+        lambda: integrate_cuda(program, spec.kind, params, SEED, main_grid), ms
+    )
+    integrate_bound = card_bound(lib, "integrate_kernelILi1EE", 1, n_main, mhz)
+    print_bound(integrate_bound, mhz, "sample")
+    idle_share(lambda: tm.integrate(BENCH_FNS, normal,
+                                    n_samples=MAIN_SAMPLES, seed=SEED))
 
     # 6. The MCMC kernel's builds, started in phase 2.
     built = [b.result() for b in mcmc_builds]
@@ -437,6 +894,216 @@ def main() -> int:
           f"integrate_mcmc() end to end {mcmc_call_ms:.3f} ms median of 5, "
           f"host clock ({chain_steps / mcmc_call_ms * 1e3:.4e} "
           f"chain-steps/s)")
+    # Bound: burn-in steps at the cheapest loop's count, sampling steps at
+    # the dearest's (the sampling loop also evaluates the integrands); the
+    # 128 warps work on 128 of the card's schedulers.
+    mhz = clock_under_load(
+        lambda: mcmc_cuda(mcmc_program, main_cfg, params, SEED, main_grid),
+        mcmc_ms,
+    )
+    mcmc_bound = card_bound(
+        mcmc_program.library(), "mcmc_kernelILi0EE", 2, chain_steps, mhz,
+        warps=main_grid.chains_actual // 32,
+        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
+    )
+    print_bound(mcmc_bound, mhz, "chain-step")
+    steps = MCMC_MAIN["n_steps"] + MCMC_MAIN["n_burnin"]
+    mcmc_latency = latency_ms(mcmc_bound[3]["chain"], steps, mhz)
+    print(f"  latency bound {mcmc_latency:.3f} ms: {steps} steps per chain x "
+          f"{mcmc_bound[3]['chain']:g} dependent instructions per step x "
+          f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
+          f"applies")
+
+    # 10. The nd kernel's builds, started in phase 2.
+    built = [b.result() for b in nd_builds]
+    pool.shutdown()
+    print("phase 10: built the nd kernel for c9's and c9c's sets in "
+          + " and ".join(f"{sec:.1f}" for _, sec in built)
+          + " s (in parallel with phase 2)")
+    for nd_lib, _ in built:
+        for line in nd_lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # 11. nd kernel against the plain version in every mode, 2**24.
+    def nd_vs_plain(prog, dists, method, with_stderr, n, phase):
+        """Means (and error bars) of the nd kernel and of the plain
+        version on the same samples; fails unless they agree.  Returns
+        the max abs diff of the means."""
+        kinds = tuple(dist_spec_of(d).kind for d in dists)
+        cfg = NdConfig(kinds, method, with_stderr)
+        grid = plan_nd_grid(make_integrate_plan(n).actual_samples, method)
+        params = torch.tensor(
+            np.stack([dist_spec_of(d).params for d in dists]), device=dev
+        )
+        pilot = pilot_row(prog.torch_fns, kinds, params) if with_stderr else None
+        got = integrate_nd_cuda(prog, cfg, params, SEED, grid, pilot)
+        torch.cuda.synchronize()
+        want = integrate_nd_reference(prog.torch_fns, cfg, params, SEED, grid,
+                                      pilot)
+        if with_stderr:
+            (m_k, s_k), (m_p, s_p) = (
+                finish_stderr(t[0], t[1], pilot, grid, cfg.antithetic)
+                for t in (got, want)
+            )
+        else:
+            m_k, m_p = (t / float(np.float32(grid.actual_samples))
+                        for t in (got, want))
+        m_k, m_p = m_k.double().cpu().numpy(), m_p.double().cpu().numpy()
+        err = np.abs(m_k - m_p)
+        name = (f"{method}{' + stderr' if with_stderr else ''}, d={cfg.d}, "
+                f"{grid.actual_samples} samples")
+        print(f"phase {phase}: {name}: kernel {m_k}")
+        print(f"          plain  {m_p}  max|diff| {err.max():.3e}")
+        if not np.all(np.isfinite(m_k)):
+            fail(f"nd {name}: non-finite kernel means {m_k}")
+        if not np.all(err <= RTOL * np.abs(m_p) + ATOL):
+            fail(f"nd {name}: kernel and plain version disagree")
+        if with_stderr:
+            s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
+            print(f"          stderr kernel {s_k} plain {s_p}")
+            if not (np.all(s_k > 0) and np.allclose(
+                    s_k, s_p, rtol=ND_STDERR_RTOL, atol=0.0)):
+                fail(f"nd {name}: error bars disagree")
+        return float(err.max())
+
+    nd_err = 0.0
+    for method, with_stderr in (("mc", False), ("antithetic", False),
+                                ("qmc", False), ("mc", True),
+                                ("antithetic", True)):
+        nd_err = max(nd_err, nd_vs_plain(nd_program, nd_dists, method,
+                                         with_stderr, CHECK_SAMPLES, "11"))
+    nd_err = max(nd_err, nd_vs_plain(qmc_program, qmc_dists, "qmc", False,
+                                     CHECK_SAMPLES, "11"))
+
+    # 12. nd main path 1 through the public API, counted.
+    integrate_nd_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = tm.integrate(ND_FNS, nd_dists, n_samples=MAIN_SAMPLES, seed=SEED)
+    main_s = time.perf_counter() - t0
+    nd_launches = integrate_nd_cuda.launches
+    nd_grid = plan_nd_grid(make_integrate_plan(MAIN_SAMPLES).actual_samples)
+    n_nd = nd_grid.actual_samples
+    print(f"phase 12: integrate([x*y*z, x*x+y+z], [N(0,1), U(0,1), Exp(2)], "
+          f"n_samples={MAIN_SAMPLES}) drew {n_nd} samples in {main_s:.3f} s "
+          f"(host clock), {nd_launches} kernel launch(es)")
+    if nd_launches < 1:
+        fail("nd main path 1 did not launch the nd kernel")
+    values = np.asarray(result.values)
+    if values.shape != (2,) or not np.all(np.isfinite(values)):
+        fail(f"bad nd main-path result {values!r}")
+    for j, (v, mu, var) in enumerate(zip(values, ND_MEANS, ND_VARS)):
+        z = (v - mu) / math.sqrt(var / n_nd)
+        print(f"  f{j}: {v:+.7f}  closed form {mu:+.7f}  z = {z:+.2f}")
+        if abs(z) > 6.0:
+            fail(f"nd f{j} is {z:.1f} sigma from its closed form")
+
+    # 13. nd main path 2: randomized Sobol QMC, counted.
+    integrate_nd_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = tm.integrate(QMC_FNS, qmc_dists, n_samples=MAIN_SAMPLES,
+                          seed=SEED, method="qmc", return_stderr=True,
+                          qmc_rotations=QMC_ROTATIONS)
+    main_s = time.perf_counter() - t0
+    qmc_launches = integrate_nd_cuda.launches
+    v, se = float(result.values[0]), float(result.stderr[0])
+    mc_se = math.sqrt(QMC_VAR / MAIN_SAMPLES)
+    # Each rotation's mean is float32, as in the JAX package; at 2**27
+    # points a rotation's error is far below the float32 spacing of the
+    # mean, so the rotations may agree bit for bit (stderr 0).  The check
+    # allows that resolution: 4 float32 ulp of (e - 1)^2.
+    f32_floor = 4.0 * float(np.spacing(np.float32(QMC_MEAN)))
+    print(f"phase 13: integrate([exp(x)*exp(y)], [U(0,1)]*2, n_samples="
+          f"{MAIN_SAMPLES}, qmc, {QMC_ROTATIONS} rotations) in {main_s:.3f} s "
+          f"(host clock), {qmc_launches} kernel launch(es): {v:.9f} +- "
+          f"{se:.3e} (closed form {QMC_MEAN:.9f}, off by "
+          f"{v - QMC_MEAN:+.3e}; float32 floor {f32_floor:.3e}); plain-MC "
+          f"stderr at 1e9 {mc_se:.3e}")
+    if qmc_launches < QMC_ROTATIONS:
+        fail("nd main path 2 did not launch the nd kernel per rotation")
+    if not (math.isfinite(v) and se >= 0
+            and abs(v - QMC_MEAN) <= 6 * se + f32_floor):
+        fail("nd main path 2 is not within 6 rQMC standard errors "
+             "(plus the float32 floor)")
+    # Each rotation again, at the main path's own grid and seeds (derived
+    # as api/integrate.py derives them): the kernel's sums against the
+    # plain version's, and the rotations' spread from float64 sums of the
+    # kernel's float32 block rows, which resolve what the float32 means
+    # cannot: distinct rotations (spread > 0) and an rQMC error 10x below
+    # plain MC's at 1e9.
+    rot_grid = plan_nd_grid(make_integrate_plan(
+        -(-MAIN_SAMPLES // QMC_ROTATIONS)).actual_samples, "qmc")
+    n_rot = rot_grid.actual_samples
+    rot_seeds = np.uint32(SEED) + np.uint32(0x9E3779B9) * np.arange(
+        QMC_ROTATIONS, dtype=np.uint32)
+    qmc_cfg = NdConfig(qmc_kinds, "qmc")
+    qmc_params = torch.tensor(
+        np.stack([dist_spec_of(d).params for d in qmc_dists]), device=dev)
+    means32, means64 = [], []
+    for s in rot_seeds:
+        rows = integrate_nd_rows(qmc_program, qmc_cfg, qmc_params, int(s),
+                                 rot_grid)
+        got = float((rows.sum(dim=0) / float(np.float32(n_rot)))[0])
+        want = float(integrate_nd_reference(
+            qmc_program.torch_fns, qmc_cfg, qmc_params, int(s), rot_grid,
+        )[0]) / n_rot
+        means32.append(got)
+        means64.append(float(rows[:, 0].double().sum()) / n_rot)
+        print(f"  rotation seed {int(s)}: kernel {got:.9f} plain {want:.9f} "
+              f"|diff| {abs(got - want):.3e}; float64 sum of rows "
+              f"{means64[-1]:.12f}")
+        if not abs(got - want) <= RTOL * abs(want) + ATOL:
+            fail(f"rotation seed {int(s)}: kernel and plain version disagree")
+        nd_err = max(nd_err, abs(got - want))
+    se64 = float(np.std(means64, ddof=1) / math.sqrt(QMC_ROTATIONS))
+    print(f"  {QMC_ROTATIONS} rotations of {n_rot} points: stderr of the "
+          f"float64 rotation means {se64:.3e}, 10x below plain MC's "
+          f"{mc_se:.3e}: {se64 * 10 <= mc_se}")
+    if abs(float(np.mean(means32)) - v) > np.spacing(np.float32(QMC_MEAN)):
+        fail("the rotations run again do not give main path 2's value")
+    if not (0.0 < se64 and se64 * 10 <= mc_se):
+        fail("the rotations' spread is zero or not 10x below plain MC's")
+
+    # 14. nd kernel and plain version at main path 1's shape, timed.
+    nd_cfg = NdConfig(nd_kinds)
+    nd_params = torch.tensor(
+        np.stack([dist_spec_of(d).params for d in nd_dists]), device=dev
+    )
+    nd_err = max(nd_err, nd_vs_plain(nd_program, nd_dists, "mc", False,
+                                     MAIN_SAMPLES, "14"))
+    nd_ms = time_ms(
+        lambda: integrate_nd_cuda(nd_program, nd_cfg, nd_params, SEED,
+                                  nd_grid),
+        reps=10,
+    )
+    nd_plain_ms = time_ms(
+        lambda: integrate_nd_reference(nd_program.torch_fns, nd_cfg,
+                                       nd_params, SEED, nd_grid),
+        reps=1,
+    )
+    call_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tm.integrate(ND_FNS, nd_dists, n_samples=MAIN_SAMPLES, seed=SEED)
+        call_s.append(time.perf_counter() - t0)
+    nd_call_ms = float(np.median(call_s)) * 1e3
+    print(f"phase 14: {n_nd} samples, d=3, K=2 on {card}: kernel "
+          f"{nd_ms:.3f} ms ({MAIN_SAMPLES / nd_ms * 1e3:.4e} d-vector "
+          f"samples/s as run_all.py counts them, "
+          f"{n_nd / nd_ms * 1e3:.4e} drawn), plain {nd_plain_ms:.3f} ms "
+          f"({MAIN_SAMPLES / nd_plain_ms * 1e3:.4e}), integrate() end to "
+          f"end {nd_call_ms:.3f} ms median of 5, host clock "
+          f"({MAIN_SAMPLES / nd_call_ms * 1e3:.4e})")
+    mhz = clock_under_load(
+        lambda: integrate_nd_cuda(nd_program, nd_cfg, nd_params, SEED,
+                                  nd_grid),
+        nd_ms,
+    )
+    nd_bound = card_bound(nd_program.library(),
+                          "integrate_nd_kernelILi0ELb0EE", 3, n_nd, mhz)
+    print_bound(nd_bound, mhz, "sample")
+    idle_share(lambda: tm.integrate(ND_FNS, nd_dists,
+                                    n_samples=MAIN_SAMPLES, seed=SEED))
 
     print(json.dumps({"kernels": [{
         "name": "integrate",
@@ -447,6 +1114,11 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": integrate_bound[0],
+        "bound_by": "operations",
+        "bound_pipe": integrate_bound[1],
+        "issue_ms": integrate_bound[2],
+        "library_ms": None,
     }, {
         "name": "mcmc",
         "route": "cuda",
@@ -457,6 +1129,27 @@ def main() -> int:
         "max_abs_err": mcmc_err,
         "ms": mcmc_ms,
         "plain_ms": mcmc_plain_ms,
+        "bound_ms": mcmc_bound[0],
+        "bound_by": "operations",
+        "bound_pipe": mcmc_bound[1],
+        "issue_ms": mcmc_bound[2],
+        "latency_ms": mcmc_latency,
+        "library_ms": None,
+    }, {
+        "name": "integrate_nd",
+        "route": "cuda",
+        "source": "tpu_montecarlo_torch/csrc/integrate_nd.cu",
+        "replaces": "tpu_montecarlo/ops/integrate_nd_pallas.py:373",
+        "launches": nd_launches,
+        "qmc_launches": qmc_launches,
+        "max_abs_err": nd_err,
+        "ms": nd_ms,
+        "plain_ms": nd_plain_ms,
+        "bound_ms": nd_bound[0],
+        "bound_by": "operations",
+        "bound_pipe": nd_bound[1],
+        "issue_ms": nd_bound[2],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -234,3 +234,212 @@ def test_mcmc_kernel_rejects_bad_params(cuda_device):
     params = torch.zeros(6, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024))
+
+
+# -- the nd integrate kernel --------------------------------------------------
+#
+# The nd kernel and its plain version draw the same samples (counter
+# stream or Sobol net) and evaluate the same float32 operations: means
+# within rel 1e-5 + abs 1e-6, as for the 1-D kernel.  Error bars come from
+# the same pilot-shifted squares summed in other orders: rel 1e-4 (a wrong
+# unit count or a dropped pair mean moves them by 40 % or more).
+ND_STDERR_RTOL = 1e-4
+ND_FNS = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
+ND_DISTS = [
+    tm.Distribution.normal(0.0, 1.0),
+    tm.Distribution.uniform(0.0, 1.0),
+    tm.Distribution.exponential(2.0),
+]
+ND8_FNS = [
+    lambda a, b, c, d, e, f, g, h: a * b + c - d * e + np.exp(-f * f) + g * h,
+    lambda a, b, c, d, e, f, g, h: (a > 0.5) * h + abs(b - g) * c,
+    lambda a, b, c, d, e, f, g, h: np.sin(a + d) * e - f / (1.0 + h * h),
+]
+ND8_DISTS = [
+    tm.Distribution.normal(0.5, 1.5),
+    tm.Distribution.exponential(1.5),
+    tm.Distribution.uniform(-1.0, 2.0),
+    tm.Distribution.normal(-1.0, 0.5),
+    tm.Distribution.uniform(0.0, 1.0),
+    tm.Distribution.exponential(4.0),
+    tm.Distribution.normal(0.0, 1.0),
+    tm.Distribution.uniform(-2.0, 0.0),
+]
+ND_MODES = [("mc", False), ("antithetic", False), ("qmc", False),
+            ("mc", True), ("antithetic", True)]
+
+
+def _nd_kernel_and_plain(fns, dists, method, with_stderr, device, n_samples):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+        IntegrateNdProgram,
+        NdConfig,
+        finish_stderr,
+        integrate_nd_cuda,
+        integrate_nd_reference,
+        pilot_row,
+        plan_nd_grid,
+    )
+
+    d = len(dists)
+    specs = [dist_spec_of(dd) for dd in dists]
+    kinds = tuple(s.kind for s in specs)
+    program = IntegrateNdProgram(tuple(tm.trace_function(f, d) for f in fns), kinds)
+    cfg = NdConfig(kinds, method, with_stderr)
+    grid = plan_nd_grid(n_samples, method)
+    params = torch.tensor(np.stack([s.params for s in specs]), device=device)
+    pilot = pilot_row(program.torch_fns, kinds, params) if with_stderr else None
+    before = integrate_nd_cuda.launches
+    got = integrate_nd_cuda(program, cfg, params, 42, grid, pilot)
+    torch.cuda.synchronize()
+    assert integrate_nd_cuda.launches == before + 1
+    want = integrate_nd_reference(program.torch_fns, cfg, params, 42, grid, pilot)
+    if with_stderr:
+        return [
+            tuple(t.double().cpu().numpy()
+                  for t in finish_stderr(o[0], o[1], pilot, grid, cfg.antithetic))
+            for o in (got, want)
+        ]
+    n = float(np.float32(grid.actual_samples))
+    return [((o / n).double().cpu().numpy(), None) for o in (got, want)]
+
+
+def _check_nd(got, want):
+    (m_k, s_k), (m_p, s_p) = got, want
+    assert np.all(np.isfinite(m_k))
+    np.testing.assert_allclose(m_k, m_p, rtol=RTOL, atol=ATOL)
+    if s_p is not None:
+        assert np.all(s_k > 0)
+        np.testing.assert_allclose(s_k, s_p, rtol=ND_STDERR_RTOL, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,with_stderr", ND_MODES,
+                         ids=[f"{m}{'-stderr' if s else ''}" for m, s in ND_MODES])
+def test_nd_kernel_matches_plain_version(cuda_device, method, with_stderr):
+    _check_nd(*_nd_kernel_and_plain(ND_FNS, ND_DISTS, method, with_stderr,
+                                    cuda_device, 1 << 22))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,with_stderr", ND_MODES,
+                         ids=[f"{m}{'-stderr' if s else ''}" for m, s in ND_MODES])
+def test_nd_kernel_in_eight_dimensions(cuda_device, method, with_stderr):
+    _check_nd(*_nd_kernel_and_plain(ND8_FNS, ND8_DISTS, method, with_stderr,
+                                    cuda_device, 1 << 21))
+
+
+def _nd_family(c):
+    def branchy(x, y):
+        if x > c:
+            return math.exp(-abs(y)) * c
+        return (x - c) ** 2 + y
+
+    return [
+        lambda x, y: x * y + c,
+        lambda x, y: np.sin(c * x) + np.tanh(y),
+        lambda x, y: (x > c) & (y < c + 0.5),
+        branchy,
+    ]
+
+
+# MAX_FUNCTIONS two-argument integrands: with error bars, 256 float32 sums
+# per thread, more than the registers hold.
+ND_WIDEST = [f for i in range(MAX_FUNCTIONS // 4) for f in _nd_family(i / 32.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["mc", "antithetic"])
+def test_widest_nd_kernel_with_error_bars(cuda_device, method):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import IntegrateNdProgram
+
+    dists = [tm.Distribution.normal(0.0, 1.0), tm.Distribution.uniform(-1.0, 2.0)]
+    # nvcc's register and spill report (empty when the library is cached);
+    # pytest -rP shows it.
+    program = IntegrateNdProgram(
+        tuple(tm.trace_function(f, 2) for f in ND_WIDEST),
+        tuple(dist_spec_of(d).kind for d in dists),
+    )
+    for line in program.library().build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    got, want = _nd_kernel_and_plain(ND_WIDEST, dists, method, True,
+                                     cuda_device, 1 << 20)
+    assert got[0].shape == (MAX_FUNCTIONS,)
+    _check_nd(got, want)
+
+
+@pytest.mark.cuda
+def test_nd_qmc_kernel_past_two_to_the_32_points(cuda_device):
+    # 2**32 points: the plan reaches the Sobol segment split (seg = t >> 17).
+    u = tm.Distribution.uniform(0.0, 1.0)
+    fns = [lambda x, y: np.exp(x) * np.exp(y), lambda x, y: x * y]
+    _check_nd(*_nd_kernel_and_plain(fns, [u, u], "qmc", False, cuda_device,
+                                    1 << 32))
+
+
+@pytest.mark.cuda
+def test_integrate_nd_on_cuda_matches_cpu(cuda_device):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import integrate_nd_cuda
+
+    for kw in (dict(method="mc", return_stderr=True),
+               dict(method="antithetic"),
+               dict(method="qmc", return_stderr=True, qmc_rotations=4)):
+        before = integrate_nd_cuda.launches
+        got = tm.integrate(ND_FNS, ND_DISTS, n_samples=1 << 20,
+                           device=cuda_device, **kw)
+        assert integrate_nd_cuda.launches == before + kw.get("qmc_rotations", 1)
+        want = tm.integrate(ND_FNS, ND_DISTS, n_samples=1 << 20, device="cpu", **kw)
+        np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
+        if kw["method"] == "qmc":
+            # rQMC error bars: the spread of rotations' means, each within
+            # the means' tolerance.
+            assert np.all(np.abs(got.stderr - want.stderr)
+                          <= RTOL * np.abs(want.values) + ATOL)
+        elif kw.get("return_stderr"):
+            np.testing.assert_allclose(got.stderr, want.stderr,
+                                       rtol=ND_STDERR_RTOL)
+
+
+@pytest.mark.cuda
+def test_nd_kernel_rows_sum_to_the_wrapper_result(cuda_device):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+        MAX_CUDA_BLOCKS,
+        IntegrateNdProgram,
+        NdConfig,
+        integrate_nd_cuda,
+        integrate_nd_rows,
+        plan_nd_grid,
+    )
+
+    u = tm.Distribution.uniform(0.0, 1.0)
+    kinds = (dist_spec_of(u).kind,) * 2
+    program = IntegrateNdProgram(
+        (tm.trace_function(lambda x, y: np.exp(x) * np.exp(y), 2),), kinds
+    )
+    cfg = NdConfig(kinds, "qmc")
+    params = torch.tensor([dist_spec_of(u).params] * 2, device=cuda_device)
+    grid = plan_nd_grid(1 << 22, "qmc")
+    before = integrate_nd_cuda.launches
+    rows = integrate_nd_rows(program, cfg, params, 7, grid)
+    assert integrate_nd_cuda.launches == before + 1
+    assert rows.shape == (min(grid.n_tiles, MAX_CUDA_BLOCKS), 1)
+    assert torch.equal(rows.sum(dim=0),
+                       integrate_nd_cuda(program, cfg, params, 7, grid))
+
+
+@pytest.mark.cuda
+def test_nd_kernel_rejects_bad_params(cuda_device):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+        IntegrateNdProgram,
+        NdConfig,
+        integrate_nd_cuda,
+        plan_nd_grid,
+    )
+
+    kinds = tuple(dist_spec_of(d).kind for d in ND_DISTS)
+    program = IntegrateNdProgram(
+        tuple(tm.trace_function(f, 3) for f in ND_FNS), kinds
+    )
+    params = torch.zeros((3, 2), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        integrate_nd_cuda(program, NdConfig(kinds), params, 42, plan_nd_grid(1000))

@@ -236,7 +236,10 @@ def test_other_surfaces_not_ported_yet():
     cases = [
         lambda: tm.integrate(["return x * x;"], d, device="cpu"),
         lambda: tm.integrate(many, d, n_samples=1000, device="cpu"),
-        lambda: tm.integrate([lambda x: x], [d, d], device="cpu"),
+        lambda: tm.integrate(
+            [lambda x, y: x], [d, d], device="cpu",
+            control_variates=[(lambda x, y: y, 0.0)],
+        ),
         lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
         lambda: tm.Distribution.lognormal(0.0, 1.0),
         lambda: tm.Distribution.from_reference(jmc.Distribution.cauchy(0.0, 1.0)),

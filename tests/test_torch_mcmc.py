@@ -513,6 +513,8 @@ def test_runs_with_jax_blocked(tmp_path):
         "import sys\n"
         "sys.modules['jax'] = None  # any import of jax now fails\n"
         "import tpu_montecarlo_torch as tm\n"
+        "import tpu_montecarlo_torch.ops.integrate_nd_kernel\n"
+        "import tpu_montecarlo_torch.ops.qmc\n"
         "r = tm.integrate_mcmc([lambda x: x * x], tm.Distribution.normal(0, 1),\n"
         "                      tm.RandomWalk(adapt=True), n_steps=50,\n"
         "                      n_burnin=20, device='cpu', return_stderr=True)\n"

@@ -228,6 +228,84 @@ def test_cuda_source_shape():
     assert "powf" not in src
 
 
+# d-ary integrands (the nd kernel's entries): a 3-argument set.
+ND = [
+    lambda x, y, z: x * y * z,
+    lambda x, y, z: x * x + y + z,
+    lambda x, y, z: np.exp(x) * np.exp(y) - z,
+    lambda x, y, z: np.where(x > y, z, -z) + abs(x - z),
+    lambda x, y, z: 2.5,
+]
+
+_ND_SHIM = r"""
+#include "integrand_math.cuh"
+#include "integrands_nd.inc"
+extern "C" int tmc_d(void) { return TMC_D; }
+// Per point: acc, sq (pilot-shifted squares) and vals, 3 x TMC_K floats.
+extern "C" void tmc_eval_nd(const float* x, long n, const float* pilot,
+                            float* out) {
+  for (long i = 0; i < n; ++i) {
+    float acc[TMC_K], sq[TMC_K], acc2[TMC_K];
+    for (int j = 0; j < TMC_K; ++j) acc[j] = sq[j] = acc2[j] = 0.0f;
+    tmc_accumulate_nd_sq(x + i * TMC_D, pilot, acc, sq);
+    tmc_accumulate_nd(x + i * TMC_D, acc2);
+    float* o = out + i * 3 * TMC_K;
+    tmc_values_nd(x + i * TMC_D, o + 2 * TMC_K);
+    for (int j = 0; j < TMC_K; ++j) {
+      o[j] = acc[j];
+      o[TMC_K + j] = sq[j];
+      if (acc2[j] != acc[j]) o[j] = TMC_NAN;
+    }
+  }
+}
+"""
+
+
+def test_c_lowering_of_d_ary_integrands(tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    traced = [ttr.trace_function(f, 3) for f in ND]
+    src = cuda_source(traced)
+    assert "#define TMC_D 3" in src
+    assert "static __device__ inline float f_0(const float* x) {" in src
+    (tmp_path / "integrands_nd.inc").write_text(src)
+    (tmp_path / "shim.cpp").write_text(_ND_SHIM)
+    so = tmp_path / "libnd.so"
+    subprocess.run(
+        [gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-D__device__=", "-I", str(CSRC), "-I", str(tmp_path),
+         str(tmp_path / "shim.cpp"), "-o", str(so)],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(so))
+    lib.tmc_d.restype = ctypes.c_int
+    lib.tmc_eval_nd.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    lib.tmc_eval_nd.restype = None
+    assert lib.tmc_d() == 3
+    g = _grid()
+    pts = np.ascontiguousarray(
+        np.stack([g, np.roll(g, 7), np.roll(g, 501)], axis=1)
+    )
+    k = len(ND)
+    pilot = np.linspace(-1.0, 1.0, k).astype(np.float32)
+    out = np.empty((len(g), 3, k), np.float32)
+    lib.tmc_eval_nd(pts.ctypes.data, len(g), pilot.ctypes.data, out.ctypes.data)
+    cols = [torch.from_numpy(np.ascontiguousarray(pts[:, i])) for i in range(3)]
+    for j, fn in enumerate(traced):
+        want = to_torch(fn)(*cols).numpy()
+        got_acc, got_sq, got_vals = out[:, 0, j], out[:, 1, j], out[:, 2, j]
+        np.testing.assert_allclose(got_acc, want, rtol=2e-6, atol=1e-6)
+        np.testing.assert_array_equal(got_vals, got_acc)
+        dd = got_acc - pilot[j]
+        np.testing.assert_array_equal(got_sq, dd * dd)
+        jax_vals = np.asarray(jtr.trace_function(ND[j], 3)(*map(jnp.asarray, cols)))
+        np.testing.assert_allclose(
+            want, np.broadcast_to(jax_vals, want.shape), rtol=2e-6, atol=1e-6
+        )
+
+
 REJECTED = [
     lambda x: int(x),
     lambda x: float(x) + 1.0,

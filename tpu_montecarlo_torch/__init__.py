@@ -4,10 +4,13 @@ one NVIDIA H100.
 The port so far covers the fused 1-D plain Monte Carlo ``integrate`` path
 (the integrand front end, the counter-based sample stream, the uniform,
 normal and exponential families, and a hand-written CUDA kernel that fuses
-up to 128 integrands over one shared stream) and 1-D Metropolis-Hastings,
+up to 128 integrands over one shared stream); multi-dimensional
+``integrate`` over d >= 2 independent dimensions of those families, in
+plain MC, antithetic or Sobol QMC, with error bars (pilot-shifted squares,
+or randomized QMC), in a second kernel; and 1-D Metropolis-Hastings,
 ``integrate_mcmc``, with independence, random-walk and adaptive
-random-walk proposals and error bars, in a second hand-written kernel.  It
-imports torch and numpy, never jax.
+random-walk proposals and error bars, in a third.  It imports torch and
+numpy, never jax.
 
 Example:
     >>> from tpu_montecarlo_torch import (
@@ -15,6 +18,10 @@ Example:
     >>> r = integrate([lambda x: x, lambda x: x**2],
     ...               Distribution.normal(0.0, 1.0), n_samples=10_000_000)
     >>> r.values  # ~[0, 1]
+    >>> u = Distribution.uniform(0.0, 1.0)
+    >>> q = integrate([lambda x, y: x * y], [u, u], n_samples=10_000_000,
+    ...               method="qmc", return_stderr=True)
+    >>> q.values, q.stderr  # ~[0.25], rQMC error bar
     >>> m = integrate_mcmc([lambda x: x * x], Distribution.normal(0.0, 1.0),
     ...                    RandomWalk(adapt=True), n_chains=4096)
     >>> m.values, m.acceptance_rate  # ~[1], ~0.44

@@ -1,5 +1,5 @@
-"""Plain Monte Carlo integration (port of the plain-MC path of
-``tpu_montecarlo/api/integrate.py``)."""
+"""Plain Monte Carlo integration, 1-D and multi-dimensional (port of the
+plain-MC and nd paths of ``tpu_montecarlo/api/integrate.py``)."""
 
 from __future__ import annotations
 
@@ -8,18 +8,71 @@ from typing import Callable, List, Union
 import numpy as np
 import torch
 
-from ..distributions import Distribution
+from ..distributions import Distribution, DistributionType
 from ..ops.integrate_kernel import (
     MAX_FUNCTIONS,
     IntegrateProgram,
     integrate_cuda,
     plan_grid,
 )
+from ..ops.integrate_nd_kernel import (
+    IntegrateNdProgram,
+    NdConfig,
+    finish_stderr,
+    integrate_nd_cuda,
+    pilot_row,
+    plan_nd_grid,
+)
 from ..sampling import dist_spec_of
 from ..utils.dispatch import make_integrate_plan
-from ..utils.roadmap import ND, VARIANTS, not_ported
+from ..utils.roadmap import (
+    API_SURFACE,
+    IMPORTANCE,
+    ND_CUSTOM,
+    ND_CV,
+    ND_FAMILIES,
+    ND_IS,
+    ND_SERVING,
+    ND_WIDE,
+    VARIANTS,
+    not_ported,
+)
 from .cache import fns_key
 from .results import IntegrationResult
+
+_PORTED_ND_TYPES = (
+    DistributionType.UNIFORM,
+    DistributionType.NORMAL,
+    DistributionType.EXPONENTIAL,
+)
+
+
+def _as_dims(distribution):
+    """The per-dimension Distributions of a sequence, or None for one
+    Distribution."""
+    if not isinstance(distribution, (list, tuple)):
+        return None
+    dists = list(distribution)
+    if not dists or not all(isinstance(dd, Distribution) for dd in dists):
+        raise TypeError(
+            "a distribution sequence must be a non-empty list of "
+            "Distribution objects (one per integrand argument)"
+        )
+    return dists
+
+
+def _nd_specs(dists):
+    """Packed specs of nd dimensions; the families the nd kernel does not
+    take yet raise, naming their ROADMAP item."""
+    for dd in dists:
+        if dd.dist_type == DistributionType.CUSTOM:
+            raise not_ported("CUSTOM dimensions in nd integrate", ND_CUSTOM)
+        if dd.dist_type not in _PORTED_ND_TYPES:
+            raise not_ported(
+                f"{dd.dist_type.name.lower()} dimensions in nd integrate",
+                ND_FAMILIES,
+            )
+    return [dist_spec_of(dd) for dd in dists]
 
 
 class _IntegrateMixin:
@@ -39,23 +92,35 @@ class _IntegrateMixin:
         One fused pass draws ``actual_samples >= n_samples`` samples (the
         plan's rounding) and evaluates every function on each; means
         divide by ``actual_samples`` in float32 and come back float64.
-        Plain MC only: ``method="qmc"``/``"antithetic"``,
-        ``return_stderr``, control variates and more than 128 functions
-        are not ported yet and raise ``NotImplementedError``."""
-        del qmc_rotations  # used only by qmc error bars, not ported yet
+
+        ``distribution`` may be a list of d >= 2 per-dimension
+        Distributions (uniform, normal, exponential) for d-ary functions,
+        E[f_i(X_1, ..., X_d)] over independent dimensions.  Then
+        ``method`` may be ``"mc"``, ``"antithetic"`` (each uniform vector
+        also mirrored, ``1 - u``, through every dimension) or ``"qmc"``
+        (a Sobol net of up to 32 dimensions under a seed-derived
+        rotation), and ``return_stderr`` gives error bars: from
+        pilot-shifted squares (of pair means under ``"antithetic"``), or
+        under ``"qmc"`` from ``qmc_rotations`` independent rotations of
+        ``ceil(n_samples / qmc_rotations)`` points each (randomized QMC:
+        the mean of the rotations, and their spread over
+        sqrt(rotations)).
+
+        1-D runs are plain MC only: their ``method="qmc"``/
+        ``"antithetic"`` and ``return_stderr``, control variates and more
+        than 128 functions are not ported yet and raise
+        ``NotImplementedError``."""
+        dists = _as_dims(distribution)
+        if dists is not None and len(dists) > 1:
+            if control_variates is not None:
+                raise not_ported("control variates in nd integrate", ND_CV)
+            return self._integrate_nd(
+                functions, dists, n_samples, seed, method, return_stderr,
+                qmc_rotations,
+            )
         if control_variates is not None:
             raise not_ported("control variates", VARIANTS)
-        if isinstance(distribution, (list, tuple)):
-            dists = list(distribution)
-            if not dists or not all(
-                isinstance(dd, Distribution) for dd in dists
-            ):
-                raise TypeError(
-                    "a distribution sequence must be a non-empty list of "
-                    "Distribution objects (one per integrand argument)"
-                )
-            if len(dists) > 1:
-                raise not_ported("multi-dimensional integration", ND)
+        if dists is not None:
             distribution = dists[0]
         if method not in ("mc", "qmc", "antithetic"):
             raise ValueError(
@@ -89,3 +154,105 @@ class _IntegrateMixin:
         sums = integrate_cuda(program, spec.kind, params, seed_word, grid)
         means = sums / float(np.float32(grid.actual_samples))
         return means.cpu().numpy()
+
+    # -- multi-dimensional (kernel 2, ops/integrate_nd_kernel.py) -----------
+
+    def _integrate_nd(
+        self, functions, dists, n_samples, seed, method, return_stderr,
+        qmc_rotations,
+    ) -> IntegrationResult:
+        specs = _nd_specs(dists)
+        cfg = NdConfig(
+            tuple(s.kind for s in specs), method,
+            with_stderr=return_stderr and method != "qmc",
+        )
+        traced = self._trace_user_functions(functions, n_args=cfg.d)
+        if len(traced) > MAX_FUNCTIONS:
+            raise not_ported(
+                f"more than {MAX_FUNCTIONS} fused functions in nd integrate",
+                ND_WIDE,
+            )
+        if return_stderr and method == "qmc" and qmc_rotations < 2:
+            raise ValueError(
+                "qmc_rotations must be >= 2 to estimate an rQMC "
+                f"error bar (got {qmc_rotations})"
+            )
+        program = self._cache.get_or_build(
+            ("integrate_nd", fns_key(traced), cfg.kinds),
+            lambda: IntegrateNdProgram(traced, cfg.kinds),
+        )
+        params = torch.tensor(
+            np.stack([s.params for s in specs]), device=self._device
+        )
+        done = dict(n_samples=n_samples, n_functions=len(functions))
+        if return_stderr and method == "qmc":
+            # Randomized QMC: independent seed-derived rotations of the
+            # net (the JAX package's _integrate_nd, api/integrate.py:694).
+            r = qmc_rotations
+            grid = self._nd_grid(-(-n_samples // r), method)
+            seeds = np.uint32(seed) + np.uint32(0x9E3779B9) * np.arange(
+                r, dtype=np.uint32
+            )
+            vals = np.stack(
+                [
+                    self._nd_means(program, cfg, params, int(s), grid)
+                    for s in seeds
+                ]
+            ).astype(np.float64)
+            return IntegrationResult(
+                values=vals.mean(axis=0),
+                stderr=vals.std(axis=0, ddof=1) / np.sqrt(r),
+                **done,
+            )
+        grid = self._nd_grid(n_samples, method)
+        seed_word = int(np.uint32(seed))
+        if not cfg.with_stderr:
+            return IntegrationResult(
+                values=self._nd_means(program, cfg, params, seed_word, grid),
+                **done,
+            )
+        pilot = pilot_row(program.torch_fns, cfg.kinds, params)
+        sums, sqs = integrate_nd_cuda(
+            program, cfg, params, seed_word, grid, pilot
+        )
+        mean, se = finish_stderr(sums, sqs, pilot, grid, cfg.antithetic)
+        return IntegrationResult(
+            values=mean.cpu().numpy(), stderr=se.cpu().numpy(), **done
+        )
+
+    def _nd_grid(self, n_samples, method):
+        plan = make_integrate_plan(n_samples, self._target_threads)
+        return plan_nd_grid(plan.actual_samples, method)
+
+    @staticmethod
+    def _nd_means(program, cfg, params, seed_word, grid) -> np.ndarray:
+        sums = integrate_nd_cuda(program, cfg, params, seed_word, grid)
+        return (sums / float(np.float32(grid.actual_samples))).cpu().numpy()
+
+    # -- surfaces of the JAX package not ported yet -------------------------
+
+    def compile_integrate(self, functions, distribution, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError`` naming the
+        ROADMAP item (nd or 1-D)."""
+        if _as_dims(distribution) is not None:
+            raise not_ported("compile_integrate, seed_batch and param_batch "
+                             "for nd integrate", ND_SERVING)
+        raise not_ported("compile_integrate, seed_batch and param_batch",
+                         VARIANTS)
+
+    def expectation_fn(self, functions, distribution, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError`` naming the
+        ROADMAP item (nd or 1-D)."""
+        if _as_dims(distribution) is not None:
+            raise not_ported("expectation_fn for nd integrate", ND_CV)
+        raise not_ported("expectation_fn", API_SURFACE)
+
+    def integrate_importance_sampling(
+        self, functions, target_distribution, proposal_distribution, *args,
+        **kwargs,
+    ):
+        """Not ported yet: raises ``NotImplementedError`` naming the
+        ROADMAP item (nd product weights, or 1-D)."""
+        if _as_dims(target_distribution) is not None:
+            raise not_ported("nd importance sampling (product weights)", ND_IS)
+        raise not_ported("importance sampling", IMPORTANCE)

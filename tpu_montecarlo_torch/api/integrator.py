@@ -16,8 +16,9 @@ class MonteCarloIntegrator(_BaseMixin, _IntegrateMixin, _McmcMixin):
     """Monte Carlo integrator for expected values on an NVIDIA GPU.
 
     Fuses K integrands into one kernel pass over shared samples
-    (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, and
-    runs Metropolis-Hastings chains for ``integrate_mcmc``.
+    (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, over
+    one distribution or a list of d independent ones (d-ary integrands),
+    and runs Metropolis-Hastings chains for ``integrate_mcmc``.
 
     Args:
         target_threads: lane-width knob kept from the reference API

@@ -1,0 +1,308 @@
+// Multi-dimensional fused Monte Carlo integrate kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `kernel` inside build_integrate_nd_pallas
+// (tpu_montecarlo/ops/integrate_nd_pallas.py:373-675, pallas_call at :708)
+// in its mc, antithetic and qmc modes, with and without error bars, for d
+// dimensions of the uniform, normal and exponential families.  Under the
+// JAX package's CounterRng it draws the very samples that kernel draws in
+// interpret mode at 256-row blocks:
+//
+// * a tile is one (program pid, loop block blk) of 256 x 128 positions,
+//   pos = row * 128 + lane; mc and antithetic seed the stream with
+//   (seed, pid) and draw dimension j as one full block with counter blk
+//   and tag j (tmc::block_base), uniforms from the top 24 bits;
+// * antithetic maps each uniform at u and at its mirror 1 - u (the normal
+//   pair reflects z about the mean) and evaluates both points;
+// * qmc takes position pos of tile t as Sobol point t * 2^15 + pos of each
+//   dimension, rotated by derive_shift(seed, j + 1); from 2^32 points on,
+//   seg = t >> 17 re-mixes the rotation (derive_segment_shift) and
+//   t & (2^17 - 1) is the block (sobol.cuh);
+// * the K d-ary integrands that ops/lower.py generated (tmc_integrands.inc,
+//   with TMC_D and the families TMC_KINDS) run on every point; K float32
+//   sums stay in registers, plus with error bars K sums of (f - pilot)^2,
+//   of the pair's mean under antithetic.
+//
+// What bounds it on the card: arithmetic only.  Per sample and dimension
+// one PCG hash (or, under qmc, two XORs and a shared-memory read), the
+// uint->float conversion, the transform (erfinvf for the normal family,
+// logf for the exponential) and then the integrands; nothing is read from
+// device memory in the loop and each CUDA block writes one row of K (2K)
+// partial sums.  So the limit is the SMs' FP32, INT32 and MUFU/conversion
+// pipes; chip_smoke.py counts each pipe's instructions per sample on the
+// cheapest path through this kernel's SASS sample loop and reports the
+// busiest pipe's time as the bound.  At c9's shape (N(0,1) x U(0,1) x
+// Exp(2), K = 2, mc) the loop runs 54.25 FP32, 30 INT32 and 6 MUFU and
+// conversion instructions per sample: the INT32 pipe bounds 2^30 samples
+// at 1.93 ms at 1980 MHz on 132 SMs.  On an NVIDIA H100 80GB HBM3 at
+// 700 W chip_smoke.py measured 3.89 ms, and the 105.75 instructions per
+// sample take 3.39 ms to issue (4 schedulers x 32 lanes per SM per
+// clock): the instruction count, not one pipe, sets the time.
+//
+// What the design does about it:
+// * The unit of work is one tile, which any CUDA block can draw (the
+//   counter stream and the Sobol index are functions of the tile), so a
+//   grid-stride loop spreads programs x loops tiles over up to `grid`
+//   blocks of 256 threads: 1e9 samples are ~30,000 tiles for 132 SMs.
+// * The families are compiled in (TMC_KINDS): each dimension's transform
+//   is straight-line code, with no branch on the family in the loop.  The
+//   JAX kernel is likewise traced per family tuple.
+// * The Sobol index of thread t's i-th position, pos = t + 256 i, splits
+//   into tile, thread and i parts whose words XOR together: the tile word
+//   is computed once per tile, the thread word once per thread, and the
+//   words of i (128 x d) are staged in shared memory with the direction
+//   numbers.  A sample then costs an XOR, a shared read and the add of the
+//   rotation per dimension.
+// * Sums are reduced once per block with warp shuffles in a fixed order,
+//   and torch.sum over the rows finishes: no atomics, so a result is the
+//   same on every run.
+// * Built without --use_fast_math and with --fmad=false, as integrate.cu,
+//   so float32 operations round as in the plain PyTorch version.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "counter_rng.cuh"
+#include "integrand_math.cuh"
+#include "sobol.cuh"
+#include "tmc_integrands.inc"  // TMC_K, TMC_D, TMC_KINDS, f_j, tmc_*_nd
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlockRows = 256;
+constexpr int kTilePositions = kBlockRows * tmc::kLanes;  // 2^15
+constexpr int kPerThread = kTilePositions / kThreads;     // 128
+constexpr int kPosBits = 15;     // a position within a tile
+constexpr int kThreadBits = 8;   // threadIdx.x, the low bits of pos
+constexpr int kSobolBits = 32;
+
+enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
+
+// The family of dimension j.  Called with j unrolled, so it folds to a
+// constant and each transform's family branch is resolved at compile time.
+__device__ __forceinline__ int kind_of(int j) {
+  const int kinds[TMC_D] = {TMC_KINDS};
+  return kinds[j];
+}
+
+// The antithetic pair of one dimension from the mantissa m: the family's
+// transform at u and at 1 - u (integrate_nd_pallas.py:143-180).
+__device__ __forceinline__ void transform_pair(int kind, uint32_t m, float p1,
+                                               float p2, float& a, float& b) {
+  if (kind == tmc::kUniform) {
+    const float u = tmc::halfopen01(m);
+    const float xa = p1 + u * (p2 - p1);
+    const float xb = p1 + (1.0f - u) * (p2 - p1);
+    a = xa >= p2 ? tmc::next_below(p2) : xa;
+    b = xb >= p2 ? tmc::next_below(p2) : xb;
+  } else if (kind == tmc::kNormal) {
+    const float z = tmc::normal_from_u01(tmc::halfopen01(m));
+    a = p1 + p2 * z;
+    b = p1 - p2 * z;
+  } else {
+    const float u = tmc::open01(m);
+    a = -logf(fmaxf(u, tmc::kULo)) / p1;
+    b = -logf(fmaxf(1.0f - u, tmc::kULo)) / p1;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+template <int METHOD, bool STDERR>
+__global__ void __launch_bounds__(kThreads)
+integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
+                    const uint32_t* __restrict__ dirs,
+                    const float* __restrict__ pilots, int loops,
+                    long long n_tiles, int seg_bits,
+                    float* __restrict__ partials) {
+  constexpr bool kSobol = METHOD == kQmc;
+  constexpr int kOut = STDERR ? 2 * TMC_K : TMC_K;
+  __shared__ uint32_t s_dirs[kSobol ? TMC_D * kSobolBits : 1];
+  // s_high[i * TMC_D + j]: the Sobol word of index bits 8..14 = i.
+  __shared__ uint32_t s_high[kSobol ? kPerThread * TMC_D : 1];
+  __shared__ float warp_sums[kThreads / 32][kOut];
+
+  float p1[TMC_D], p2[TMC_D];
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    p1[j] = params[2 * j];
+    p2[j] = params[2 * j + 1];
+  }
+  float acc[TMC_K], sq[TMC_K], pilot[TMC_K];
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) {
+    acc[k] = 0.0f;
+    sq[k] = 0.0f;
+    pilot[k] = STDERR ? pilots[k] : 0.0f;
+  }
+
+  uint32_t shift0[TMC_D], low[TMC_D];
+  if (kSobol) {
+    for (int e = threadIdx.x; e < TMC_D * kSobolBits; e += kThreads) {
+      s_dirs[e] = dirs[e];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kPerThread * TMC_D; e += kThreads) {
+      s_high[e] = tmc::sobol_xor<kPosBits - kThreadBits>(
+          &s_dirs[(e % TMC_D) * kSobolBits], uint32_t(e / TMC_D), kThreadBits);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      shift0[j] = tmc::derive_shift(seed, uint32_t(j + 1));
+      low[j] = tmc::sobol_xor<kThreadBits>(&s_dirs[j * kSobolBits],
+                                           threadIdx.x, 0);
+    }
+  }
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // Per dimension, the tile's word: its PRNG block base, or its Sobol
+    // block word XOR this thread's word; and the rotation under Sobol.
+    uint32_t word[TMC_D], shift[TMC_D];
+    if (kSobol) {
+      uint32_t b = uint32_t(tile);
+      uint32_t seg = 0u;
+      if (seg_bits >= 0) {
+        seg = b >> seg_bits;
+        b &= (1u << seg_bits) - 1u;
+      }
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) {
+        shift[j] = tmc::derive_segment_shift(shift0[j], seg);
+        word[j] = tmc::sobol_xor<kSobolBits - kPosBits>(
+                      &s_dirs[j * kSobolBits], b, kPosBits) ^ low[j];
+      }
+    } else {
+      const uint32_t pid = uint32_t(tile / loops);
+      const uint32_t blk = uint32_t(tile % loops);
+      const uint32_t state = tmc::seed_state(seed, pid);
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) {
+        word[j] = tmc::block_base(state, blk, uint32_t(j));
+      }
+    }
+    // Unrolled 4 ways for speed: on an H100 it beat 1, 2, 8 and full
+    // unrolling over the five modes taken together.
+#pragma unroll 4
+    for (int i = 0; i < kPerThread; ++i) {
+      const uint32_t pos = threadIdx.x + uint32_t(i) * kThreads;
+      float x[TMC_D], y[TMC_D];
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) {
+        const uint32_t m =
+            kSobol ? tmc::sobol_mantissa(word[j] ^ s_high[i * TMC_D + j],
+                                         shift[j])
+                   : tmc::mantissa(word[j], pos);
+        if (METHOD == kAntithetic) {
+          transform_pair(kind_of(j), m, p1[j], p2[j], x[j], y[j]);
+        } else {
+          x[j] = tmc::transform(kind_of(j), m, p1[j], p2[j]);
+        }
+      }
+      if (METHOD == kAntithetic && STDERR) {
+        // Squares of the pair's mean: pairs are the unit.
+        float v1[TMC_K], v2[TMC_K];
+        tmc_values_nd(x, v1);
+        tmc_values_nd(y, v2);
+#pragma unroll
+        for (int k = 0; k < TMC_K; ++k) {
+          acc[k] += v1[k];
+          acc[k] += v2[k];
+          const float dd = 0.5f * (v1[k] + v2[k]) - pilot[k];
+          sq[k] += dd * dd;
+        }
+      } else if (METHOD == kAntithetic) {
+        tmc_accumulate_nd(x, acc);
+        tmc_accumulate_nd(y, acc);
+      } else if (STDERR) {
+        tmc_accumulate_nd_sq(x, pilot, acc, sq);
+      } else {
+        tmc_accumulate_nd(x, acc);
+      }
+    }
+  }
+
+  // Block reduction in a fixed order: warp shuffles, then one thread per
+  // output sums the per-warp values in warp order.
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) {
+    const float s = warp_sum(acc[k]);
+    if (lane == 0) warp_sums[warp][k] = s;
+    if (STDERR) {
+      const float q = warp_sum(sq[k]);
+      if (lane == 0) warp_sums[warp][TMC_K + k] = q;
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kOut; k += kThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][k];
+    partials[blockIdx.x * kOut + k] = s;
+  }
+}
+
+template <int METHOD, bool STDERR>
+cudaError_t launch(uint32_t seed, const float* params, const uint32_t* dirs,
+                   const float* pilots, int loops, long long n_tiles,
+                   int seg_bits, int grid, float* partials, cudaStream_t s) {
+  integrate_nd_kernel<METHOD, STDERR><<<grid, kThreads, 0, s>>>(
+      seed, params, dirs, pilots, loops, n_tiles, seg_bits, partials);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 when
+// the launch was accepted).  `params` holds TMC_D x 2 floats; `dirs`
+// TMC_D x 32 Sobol direction numbers (qmc only, else null); `pilots` TMC_K
+// floats (error bars only, else null); `seg_bits` is -1 for a qmc run
+// inside one 2^32-point segment; `partials` holds grid x TMC_K floats, or
+// grid x 2 TMC_K (sums, then squares) with error bars.
+extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
+                                const float* params, const unsigned int* dirs,
+                                const float* pilots, int loops,
+                                long long n_tiles, int seg_bits, int grid,
+                                float* partials, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((method == kQmc) != (dirs != nullptr) ||
+      (with_stderr != 0) != (pilots != nullptr) || seg_bits > 31) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (method == kMc && !with_stderr) {
+    return static_cast<int>(launch<kMc, false>(
+        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
+        s));
+  }
+  if (method == kMc) {
+    return static_cast<int>(launch<kMc, true>(
+        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
+        s));
+  }
+  if (method == kAntithetic && !with_stderr) {
+    return static_cast<int>(launch<kAntithetic, false>(
+        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
+        s));
+  }
+  if (method == kAntithetic) {
+    return static_cast<int>(launch<kAntithetic, true>(
+        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
+        s));
+  }
+  if (method == kQmc && !with_stderr) {
+    return static_cast<int>(launch<kQmc, false>(
+        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
+        s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* tmc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

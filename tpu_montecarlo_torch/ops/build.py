@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # Headers every kernel source may include.
-_HEADERS = ("counter_rng.cuh", "integrand_math.cuh")
+_HEADERS = ("counter_rng.cuh", "integrand_math.cuh", "sobol.cuh")
 
 
 def _nvcc() -> str:

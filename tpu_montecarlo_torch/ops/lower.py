@@ -9,7 +9,10 @@ the same order:
   version, and the CPU path);
 * :func:`cuda_source` — CUDA C ``__device__ float f_j(float x)``
   functions plus two per-point entries, ``tmc_accumulate`` and
-  ``tmc_values``, which the kernels in ``csrc/`` include.
+  ``tmc_values``, which the kernels in ``csrc/`` include; for d-ary
+  integrands (d >= 2), ``f_j(const float* x)`` plus ``TMC_D`` and the
+  nd entries ``tmc_accumulate_nd``, ``tmc_accumulate_nd_sq`` and
+  ``tmc_values_nd``.
   The source also compiles as host C++ with ``-D__device__=`` (the tests
   do that with g++), since it only uses C math names and the helpers of
   ``csrc/integrand_math.cuh``.
@@ -193,14 +196,14 @@ assert set(_C_BINARY) == BINARY_OPS | COMPARE_OPS | LOGIC_OPS
 
 
 def _c_function(name: str, fn: TracedFunction) -> str:
-    if fn.n_args != 1:
-        raise ValueError("the CUDA lowering takes 1-argument integrands")
-    lines = [f"static __device__ inline float {name}(float x) {{"]
+    nd = fn.n_args > 1
+    param = "const float* x" if nd else "float x"
+    lines = [f"static __device__ inline float {name}({param}) {{"]
     names: Dict[int, str] = {}
     for i, node in enumerate(topo_order([fn.ir])):
         op = node.op
         if op == "arg":
-            names[id(node)] = "x"
+            names[id(node)] = f"x[{node.value}]" if nd else "x"
             continue
         if op == "const":
             names[id(node)] = _c_float(node.value)
@@ -223,13 +226,26 @@ def _c_function(name: str, fn: TracedFunction) -> str:
 
 
 def cuda_source(fns: Sequence[TracedFunction]) -> str:
-    """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K``,
-    ``tmc_accumulate(x, acc)``, which adds each ``f_j(x)`` to ``acc[j]``
-    (the integrate kernel), and ``tmc_values(x, vals)``, which stores each
-    ``f_j(x)`` in ``vals[j]`` (the MCMC kernel, which shifts them)."""
+    """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and the
+    per-point entries.
+
+    1-argument integrands get ``tmc_accumulate(x, acc)``, which adds each
+    ``f_j(x)`` to ``acc[j]`` (the integrate kernel), and ``tmc_values(x,
+    vals)``, which stores each ``f_j(x)`` in ``vals[j]`` (the MCMC kernel,
+    which shifts them).  Integrands of d >= 2 arguments, all of one arity,
+    take the point as ``const float* x`` and get ``TMC_D`` and
+    :func:`_nd_entries`."""
     k = len(fns)
+    arity = {fn.n_args for fn in fns}
+    if len(arity) != 1:
+        raise ValueError(f"integrands of mixed arity {sorted(arity)}")
+    d = arity.pop()
     parts = [f"#define TMC_K {k}"]
+    if d > 1:
+        parts.append(f"#define TMC_D {d}")
     parts += [_c_function(f"f_{j}", fn) for j, fn in enumerate(fns)]
+    if d > 1:
+        return "\n\n".join(parts + _nd_entries(k)) + "\n"
     acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
     vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
     parts.append(
@@ -241,3 +257,27 @@ def cuda_source(fns: Sequence[TracedFunction]) -> str:
         f"{vals}\n}}"
     )
     return "\n\n".join(parts) + "\n"
+
+
+def _nd_entries(k: int) -> List[str]:
+    """The nd integrate kernel's per-point entries: ``tmc_accumulate_nd(x,
+    acc)`` adds each ``f_j(x)``; ``tmc_accumulate_nd_sq(x, pilot, acc,
+    sq)`` also adds ``(f_j(x) - pilot[j])^2`` to ``sq[j]`` (error bars);
+    ``tmc_values_nd(x, vals)`` stores each ``f_j(x)`` (antithetic error
+    bars, which square the pair's mean)."""
+    acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
+    sq = "\n".join(
+        f"  {{\n    const float v = f_{j}(x);\n    acc[{j}] += v;\n"
+        f"    const float dd = v - pilot[{j}];\n    sq[{j}] += dd * dd;\n  }}"
+        for j in range(k)
+    )
+    vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
+    return [
+        "static __device__ inline void tmc_accumulate_nd(const float* x, "
+        f"float* acc) {{\n{acc}\n}}",
+        "static __device__ inline void tmc_accumulate_nd_sq(const float* x, "
+        "const float* pilot, float* acc, float* sq) {\n"
+        f"{sq}\n}}",
+        "static __device__ inline void tmc_values_nd(const float* x, "
+        f"float* vals) {{\n{vals}\n}}",
+    ]

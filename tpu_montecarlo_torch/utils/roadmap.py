@@ -4,7 +4,9 @@ stands in ``ROADMAP.md``, so every ``NotImplementedError`` names it."""
 from __future__ import annotations
 
 __all__ = [
+    "API_SURFACE",
     "FRONT_END",
+    "IMPORTANCE",
     "MCMC_DIAGNOSTICS",
     "MCMC_FAMILIES",
     "MCMC_HMC",
@@ -13,8 +15,13 @@ __all__ = [
     "MCMC_STATE",
     "MCMC_WIDE",
     "MESH",
-    "ND",
+    "ND_CUSTOM",
+    "ND_CV",
+    "ND_FAMILIES",
+    "ND_IS",
     "ND_MCMC",
+    "ND_SERVING",
+    "ND_WIDE",
     "TEMPERING",
     "VARIANTS",
     "not_ported",
@@ -22,6 +29,7 @@ __all__ = [
 
 VARIANTS = "ROADMAP.md, queue 1 item 2 (integrate variants)"
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
+IMPORTANCE = "ROADMAP.md, queue 1 item 5 (importance sampling)"
 MCMC_HMC = "ROADMAP.md, queue 1 item 6.1 (HMC)"
 MCMC_STATE = "ROADMAP.md, queue 1 item 6.2 (MCMC state and resume)"
 MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 6.3 (MCMC diagnostics)"
@@ -32,9 +40,20 @@ MCMC_FAMILIES = (
     "extended families)"
 )
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
-ND = "ROADMAP.md, queue 1 item 7 (nd integrate)"
+ND_CUSTOM = "ROADMAP.md, queue 1 item 7.1 (nd integrate over CUSTOM dimensions)"
+ND_FAMILIES = "ROADMAP.md, queue 1 item 7.2 (nd integrate over the extended families)"
+ND_IS = "ROADMAP.md, queue 1 item 7.3 (nd importance sampling)"
+ND_SERVING = (
+    "ROADMAP.md, queue 1 item 7.4 (nd seed_batch, param_batch and "
+    "compile_integrate)"
+)
+ND_CV = (
+    "ROADMAP.md, queue 1 item 7.5 (nd control variates and expectation_fn)"
+)
+ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
 ND_MCMC = "ROADMAP.md, queue 1 item 8 (nd MCMC)"
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
+API_SURFACE = "ROADMAP.md, queue 1 item 10 (remaining API surface)"
 MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
 
 
