@@ -61,7 +61,30 @@ Phases, each of which exits non-zero on failure:
     time both (CUDA events) and ``integrate()`` end to end (host clock),
     in d-vector samples/s counted as ``benchmarks/run_all.py:339`` counts
     them (requested samples), and read the device idle share of warm
-    calls from one ``torch.profiler`` window.
+    calls from one ``torch.profiler`` window;
+15. finish building the nd MCMC kernel (``csrc/mcmc_nd.cu``) for c9d's,
+    c9e's and c10b's sets and phase 16's (one library per integrand set,
+    target, mode and family tuple, all started in phase 2) and print
+    nvcc's register and spill report;
+16. hold the nd MCMC kernel against its plain version on the card in every
+    mode (independence under a product and under c9e's joint target,
+    random and adaptive walk on the joint target, error bars, a d = 1
+    joint target, d = 4) at 4096 chains x (200 + 1000) steps, with phase
+    7's gates;
+17. drive the nd MCMC main path, c9e: ``integrate_mcmc([x*y], joint
+    log density of a bivariate normal with rho = 0.8, [N(0,2)]*2,
+    n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42,
+    return_stderr=True)``: E[xy] within 6 standard errors of 0.8; then
+    c9d (``[x*x+y*y]`` under N(0,1)^2, E = 2) and c10b (a random walk on
+    c9e's target, E[xy] = 0.8) at the same shape.  Each call's kernel and
+    pilot kernel launch counts must rise;
+18. at c9e's shape and configuration: hold the nd kernel against the plain
+    version once (the plain version timed in that run, CUDA events), time
+    the kernel (CUDA events) and ``integrate_mcmc()`` end to end (host
+    clock) in chain-steps/s counted as 4096 x (10_000 + 1_000), compute
+    its pipe and latency bounds, and read the device idle share of warm
+    calls of c9e and of the 1-D MCMC main path from one
+    ``torch.profiler`` window each.
 
 Each kernel's bound is the least time the card could take at the main
 path's shape: from the built library's SASS (``cuobjdump -sass``, read by
@@ -148,6 +171,32 @@ QMC_ROTATIONS = 8
 # Kernel and plain version sum the same squares in other orders; a wrong
 # count of units or a dropped pair mean moves an error bar by 40 % or more.
 ND_STDERR_RTOL = 1e-4
+# nd MCMC (benchmarks/run_all.py:373-449): c9d's product target, c9e's
+# joint target (the main path) and c10b's walk on it, at MCMC_MAIN's
+# shape; and the integrand sets of phase 16, by dimension count.
+C9D_FNS = [lambda x, y: x * x + y * y]
+C9E_FNS = [lambda x, y: x * y]
+ND_MCMC_CHECK_FNS = {
+    1: [lambda x: x, lambda x: x * x],
+    2: [lambda x, y: x * y, lambda x, y: x * x + y * y,
+        lambda x, y: (x > 1.0) * y],
+    4: [lambda a, b, c, d: a * b + c - d,
+        lambda a, b, c, d: (a > 0.5) * b + c * d],
+}
+
+
+def c9e_target():
+    """c9e's joint log density in ``run_all.py:386-390``'s form: a
+    bivariate normal with rho = 0.8, its constants read from the
+    closure."""
+    rho9 = 0.8
+    c9c = 1.0 / (2.0 * (1.0 - rho9 * rho9))
+    return lambda x, y: -c9c * (x * x - 2.0 * rho9 * x * y + y * y)
+
+
+def normal_target():
+    """A 1-D joint log density: N(0, 1) up to its constant."""
+    return lambda x: -0.5 * x * x
 
 
 def fail(msg: str) -> None:
@@ -588,6 +637,10 @@ def main() -> int:
             plan_chains,
             plan_mcmc_grid,
         )
+        from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+            mcmc_nd_cuda,
+            mcmc_nd_reference,
+        )
         from tpu_montecarlo_torch.sampling import DistKind, dist_spec_of
         from tpu_montecarlo_torch.utils.dispatch import make_integrate_plan
     except ImportError as e:
@@ -632,19 +685,77 @@ def main() -> int:
         lambda: IntegrateNdProgram(qmc_traced, qmc_kinds),
     )
 
+    # The nd MCMC programs, each (program, config, params) as the public
+    # path packs them: c9d's, c9e's and c10b's at the main shape (the
+    # public calls of phase 17 take them from the cache), and phase 16's.
+    integ = tm.MonteCarloIntegrator()
+    n01 = tm.Distribution.normal(0.0, 1.0)
+    n02 = tm.Distribution.normal(0.0, 2.0)
+    c10b_walk = tm.RandomWalk(step_size=1.0, target_accept=0.234,
+                              init_range=(-4.0, 4.0))
+    # name: (functions, target, proposal, closed form of E[f])
+    nd_mcmc_cells = {
+        "c9e": (C9E_FNS, c9e_target(), [n02, n02], 0.8),
+        "c9d": (C9D_FNS, [n01, n01], [n02, n02], 2.0),
+        "c10b": (C9E_FNS, c9e_target(), c10b_walk, 0.8),
+    }
+
+    def nd_mcmc_setup(fns, target, proposal, n_steps, n_burnin, stderr):
+        parsed = integ._parse_nd_mcmc_args(target, proposal)
+        return integ._nd_mcmc_kernel_program(fns, proposal, parsed, n_steps,
+                                             n_burnin, stderr)
+
+    nd_mcmc_main = {
+        name: nd_mcmc_setup(fns, target, proposal, MCMC_MAIN["n_steps"],
+                            MCMC_MAIN["n_burnin"], True)
+        for name, (fns, target, proposal, _) in nd_mcmc_cells.items()
+    }
+    walk2 = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
+    f1, f2, f4 = (ND_MCMC_CHECK_FNS[d] for d in (1, 2, 4))
+    nd_mcmc_cases = [
+        ("independence N(0,3) x Exp(1) -> N(0.5,1.5) x Exp(1.5)", f2,
+         [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.5)],
+         [tm.Distribution.normal(0.0, 3.0), tm.Distribution.exponential(1.0)],
+         False),
+        ("independence N(0,2)^2 -> c9e joint", f2, c9e_target(), [n02, n02],
+         False),
+        ("random walk -> c9e joint", f2, c9e_target(),
+         tm.RandomWalk(**walk2), False),
+        ("adaptive walk -> c9e joint", f2, c9e_target(),
+         tm.RandomWalk(adapt=True, **walk2), False),
+        ("independence N(0,2)^2 -> c9e joint, stderr", f2, c9e_target(),
+         [n02, n02], True),
+        ("d=1: independence N(0,2) -> joint N(0,1), stderr", f1,
+         normal_target(), [n02], True),
+        ("d=4: adaptive walk -> N x Exp x U x N, stderr", f4,
+         [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.5),
+          tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.normal(-1.0, 0.5)],
+         tm.RandomWalk(step_size=[1.0, 0.6, 0.8, 0.4], adapt=True), True),
+    ]
+    nd_mcmc_checks = [
+        (name, nd_mcmc_setup(fns, target, proposal, MCMC_CHECK["n_steps"],
+                             MCMC_CHECK["n_burnin"], stderr))
+        for name, fns, target, proposal, stderr in nd_mcmc_cases
+    ]
+
     def timed_build(prog):
         start = time.perf_counter()
         return prog.library(), time.perf_counter() - start
 
     # One nvcc per kernel source and integrand set, all started together.
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=4)
+    pool = ThreadPoolExecutor(max_workers=16)
     mcmc_builds = [
         pool.submit(timed_build, p) for p in (mcmc_program, check_program)
     ]
     nd_builds = [
         pool.submit(timed_build, p) for p in (nd_program, qmc_program)
     ]
+    nd_mcmc_programs = list({
+        id(prog): prog for prog, _, _ in
+        [*nd_mcmc_main.values(), *(setup for _, setup in nd_mcmc_checks)]
+    }.values())
+    nd_mcmc_builds = [pool.submit(timed_build, p) for p in nd_mcmc_programs]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -785,10 +896,18 @@ def main() -> int:
         got = mcmc_cuda(prog, cfg, params, SEED, grid)
         torch.cuda.synchronize()
         want = mcmc_reference(prog.torch_fns, cfg, params, SEED, grid)
-        k = len(prog.fns)
-        x_k, x_p = got.x_final, want.x_final
+        return chains_agree(got, want, grid, cfg, len(prog.fns), phase)
+
+    def chains_agree(got, want, grid, cfg, k, phase: str) -> float:
+        """Fails unless two runs of the same chains (kernel and plain
+        version, 1-D or nd) agree.  Returns the max abs difference of the
+        means."""
+        # A chain splits when any of its dimensions ends apart.
+        x_k = got.x_final.reshape(-1, grid.chains_actual)
+        x_p = want.x_final.reshape(-1, grid.chains_actual)
         split = float(
-            ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).float().mean()
+            ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+            .float().mean()
         )
         v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
         v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
@@ -1105,6 +1224,120 @@ def main() -> int:
     idle_share(lambda: tm.integrate(ND_FNS, nd_dists,
                                     n_samples=MAIN_SAMPLES, seed=SEED))
 
+    # 15. The nd MCMC kernel's builds, started in phase 2.
+    built = [b.result() for b in nd_mcmc_builds]
+    pool.shutdown()
+    print(f"phase 15: built the nd MCMC kernel for {len(built)} sets (c9d, "
+          "c9e, c10b and phase 16's) in "
+          + ", ".join(f"{sec:.1f}" for _, sec in built)
+          + " s (in parallel with phase 2)")
+    for nd_mcmc_lib, _ in built:
+        for line in nd_mcmc_lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # 16. nd MCMC kernel against the plain version in every mode.
+    def nd_mcmc_vs_plain(prog, cfg, params, grid, phase: str):
+        """The kernel against the plain version on the same chains, as
+        phase 7.  Returns (max abs difference of the means, the plain
+        version's milliseconds by CUDA events)."""
+        got = mcmc_nd_cuda(prog, cfg, params, SEED, grid)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mcmc_nd_reference(prog.torch_fns, prog.torch_target, cfg,
+                                 params, SEED, grid)
+        end.record()
+        end.synchronize()
+        err = chains_agree(got, want, grid, cfg, len(prog.fns), phase)
+        return err, start.elapsed_time(end)
+
+    nd_mcmc_err = 0.0
+    for name, (prog, cfg, params) in nd_mcmc_checks:
+        print(f"phase 16: {name}, {check_grid.chains_actual} chains x "
+              f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps")
+        nd_mcmc_err = max(nd_mcmc_err, nd_mcmc_vs_plain(
+            prog, cfg, params, check_grid, "16")[0])
+
+    # 17. The nd MCMC main path (c9e), then c9d and c10b, through the
+    # public API, each counted.
+    for name, (fns, nd_target, nd_proposal, exact) in nd_mcmc_cells.items():
+        mcmc_nd_cuda.launches = mcmc_nd_cuda.pilot_launches = 0
+        t0 = time.perf_counter()
+        r = tm.integrate_mcmc(fns, nd_target, nd_proposal, return_stderr=True,
+                              **MCMC_MAIN)
+        main_s = time.perf_counter() - t0
+        launches_nd = mcmc_nd_cuda.launches, mcmc_nd_cuda.pilot_launches
+        print(f"phase 17: {name}, integrate_mcmc({MCMC_MAIN}, "
+              f"return_stderr=True) in {main_s:.3f} s (host clock), "
+              f"{launches_nd[0]} chain kernel and {launches_nd[1]} pilot "
+              "kernel launch(es)")
+        if launches_nd[0] < 1 or launches_nd[1] < 1:
+            fail(f"{name} did not launch the nd MCMC kernel and its pilot")
+        v, se = np.asarray(r.values), np.asarray(r.stderr)
+        if v.shape != (1,) or not (np.all(np.isfinite(v)) and np.all(se > 0)):
+            fail(f"bad {name} result {v!r} +- {se!r}")
+        z = (v[0] - exact) / se[0]
+        print(f"  E[f] = {v[0]:.6f} +- {se[0]:.6f}, closed form {exact} "
+              f"(z = {z:+.2f}), acceptance {r.acceptance_rate:.4f}, "
+              f"n_samples {r.n_samples}")
+        if abs(z) > 6.0 or not 0.0 < r.acceptance_rate < 1.0:
+            fail(f"{name}: E[f] is not within 6 stderr of {exact}")
+        if name == "c9e":
+            nd_mcmc_launches, nd_pilot_launches = launches_nd
+
+    # 18. nd kernel and plain version at c9e's shape and configuration.
+    prog, cfg, params = nd_mcmc_main["c9e"]
+    main_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
+    err, nd_mcmc_plain_ms = nd_mcmc_vs_plain(prog, cfg, params, main_grid,
+                                             "18")
+    nd_mcmc_err = max(nd_mcmc_err, err)
+    nd_mcmc_ms = time_ms(
+        lambda: mcmc_nd_cuda(prog, cfg, params, SEED, main_grid), reps=10
+    )
+    c9e_fns, c9e_joint, c9e_proposal, _ = nd_mcmc_cells["c9e"]
+
+    def c9e_call():
+        return tm.integrate_mcmc(c9e_fns, c9e_joint, c9e_proposal,
+                                 return_stderr=True, **MCMC_MAIN)
+
+    call_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        c9e_call()
+        call_s.append(time.perf_counter() - t0)
+    nd_mcmc_call_ms = float(np.median(call_s)) * 1e3
+    print(f"phase 18: {main_grid.chains_actual} chains x "
+          f"({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, c9e "
+          f"[x*y], N(0,2)^2 -> joint, stderr, on {card}: kernel "
+          f"{nd_mcmc_ms:.3f} ms ({chain_steps / nd_mcmc_ms * 1e3:.4e} "
+          f"chain-steps/s), plain {nd_mcmc_plain_ms:.3f} ms "
+          f"({chain_steps / nd_mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
+          f"integrate_mcmc() end to end {nd_mcmc_call_ms:.3f} ms median of "
+          f"5, host clock ({chain_steps / nd_mcmc_call_ms * 1e3:.4e} "
+          f"chain-steps/s)")
+    # Bounds as phase 9's: d + 1 uniform conversions per step, 128 warps.
+    mhz = clock_under_load(
+        lambda: mcmc_nd_cuda(prog, cfg, params, SEED, main_grid), nd_mcmc_ms
+    )
+    nd_mcmc_bound = card_bound(
+        prog.library(), "mcmc_nd_kernel", cfg.d + 1, chain_steps, mhz,
+        warps=main_grid.chains_actual // 32,
+        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
+    )
+    print_bound(nd_mcmc_bound, mhz, "chain-step")
+    nd_mcmc_latency = latency_ms(nd_mcmc_bound[3]["chain"], steps, mhz)
+    print(f"  latency bound {nd_mcmc_latency:.3f} ms: {steps} steps per "
+          f"chain x {nd_mcmc_bound[3]['chain']:g} dependent instructions per "
+          f"step x {LATENCY_CYCLES} clocks; the larger of it and the pipe "
+          f"bound applies")
+    print("  c9e:", end="")
+    idle_share(c9e_call)
+    print("  1-D MCMC main path (c5b):", end="")
+    idle_share(lambda: tm.integrate_mcmc(MCMC_MAIN_FNS, target, proposal,
+                                         return_stderr=True, **MCMC_MAIN))
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -1149,6 +1382,22 @@ def main() -> int:
         "bound_by": "operations",
         "bound_pipe": nd_bound[1],
         "issue_ms": nd_bound[2],
+        "library_ms": None,
+    }, {
+        "name": "mcmc_nd",
+        "route": "cuda",
+        "source": "tpu_montecarlo_torch/csrc/mcmc_nd.cu",
+        "replaces": "tpu_montecarlo/ops/mcmc_nd_pallas.py:338",
+        "launches": nd_mcmc_launches,
+        "pilot_launches": nd_pilot_launches,
+        "max_abs_err": nd_mcmc_err,
+        "ms": nd_mcmc_ms,
+        "plain_ms": nd_mcmc_plain_ms,
+        "bound_ms": nd_mcmc_bound[0],
+        "bound_by": "operations",
+        "bound_pipe": nd_mcmc_bound[1],
+        "issue_ms": nd_mcmc_bound[2],
+        "latency_ms": nd_mcmc_latency,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (integrate, MCMC) against their plain PyTorch
-versions.
+"""The port's CUDA kernels (integrate, MCMC, nd integrate, nd MCMC)
+against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -443,3 +443,173 @@ def test_nd_kernel_rejects_bad_params(cuda_device):
     params = torch.zeros((3, 2), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         integrate_nd_cuda(program, NdConfig(kinds), params, 42, plan_nd_grid(1000))
+
+
+# -- the nd MCMC kernel -------------------------------------------------------
+#
+# The kernel and its plain version run the same chains, as the 1-D MCMC
+# kernel and its plain version do, so the 1-D tolerances hold: at most 1%
+# of the chains end more than 1e-3 (relative) apart in any dimension, the
+# acceptance rates agree within 1e-3, the means within 0.2 standard errors
+# plus 1e-6, the error bars within rel 1e-3.
+
+
+def _c9e_target():
+    """c9e's joint log density (benchmarks/run_all.py:386-390): a
+    bivariate normal with rho = 0.8, its constants read from the
+    closure."""
+    rho9 = 0.8
+    c9c = 1.0 / (2.0 * (1.0 - rho9 * rho9))
+    return lambda x, y: -c9c * (x * x - 2.0 * rho9 * x * y + y * y)
+
+
+def _normal_target():
+    return lambda x: -0.5 * x * x
+
+
+ND_MCMC_FNS = {
+    1: [lambda x: x, lambda x: x * x],
+    2: [lambda x, y: x * y, lambda x, y: x * x + y * y,
+        lambda x, y: (x > 1.0) * y],
+    4: [lambda a, b, c, d: a * b + c - d,
+        lambda a, b, c, d: (a > 0.5) * b + c * d],
+}
+_WALK = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
+# id: (target: Distribution list or a maker of the joint log density,
+# proposal: Distribution list or RandomWalk keyword arguments, stderr)
+ND_MCMC_CASES = {
+    "independence-product": (
+        [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.5)],
+        [tm.Distribution.normal(0.0, 3.0), tm.Distribution.exponential(1.0)],
+        False,
+    ),
+    "independence-joint": (
+        _c9e_target, [tm.Distribution.normal(0.0, 2.0)] * 2, False,
+    ),
+    "walk-joint": (_c9e_target, _WALK, False),
+    "adaptive-walk-joint": (_c9e_target, dict(_WALK, adapt=True), False),
+    "independence-joint-stderr": (
+        _c9e_target, [tm.Distribution.normal(0.0, 2.0)] * 2, True,
+    ),
+    "adaptive-walk-product-stderr": (
+        [tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.normal(0.0, 1.0)],
+        dict(step_size=[0.5, 1.5], adapt=True), True,
+    ),
+    "d1-joint-stderr": (
+        _normal_target, [tm.Distribution.normal(0.0, 2.0)], True,
+    ),
+    "d4-adaptive-walk-product-stderr": (
+        [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.5),
+         tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.normal(-1.0, 0.5)],
+        dict(step_size=[1.0, 0.6, 0.8, 0.4], adapt=True), True,
+    ),
+}
+
+
+def _dims(target, proposal) -> int:
+    if isinstance(proposal, list):
+        return len(proposal)
+    if isinstance(target, list):
+        return len(target)
+    return target().__code__.co_argcount
+
+
+def _nd_mcmc_setup(target, proposal, stderr, fns, device, n_steps, n_burnin):
+    """(program, cfg, params) of one nd MCMC run, as the public path
+    builds and packs them."""
+    integ = tm.MonteCarloIntegrator(device=device)
+    target = target() if callable(target) else target
+    proposal = tm.RandomWalk(**proposal) if isinstance(proposal, dict) else proposal
+    parsed = integ._parse_nd_mcmc_args(target, proposal)
+    return integ._nd_mcmc_kernel_program(fns, proposal, parsed, n_steps,
+                                         n_burnin, stderr)
+
+
+def _check_nd_mcmc(program, cfg, params, grid):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda, mcmc_nd_reference
+
+    before = mcmc_nd_cuda.launches, mcmc_nd_cuda.pilot_launches
+    got = mcmc_nd_cuda(program, cfg, params, 42, grid)
+    torch.cuda.synchronize()
+    assert mcmc_nd_cuda.launches == before[0] + 1
+    assert mcmc_nd_cuda.pilot_launches == before[1] + int(cfg.with_stderr)
+    want = mcmc_nd_reference(program.torch_fns, program.torch_target, cfg,
+                             params, 42, grid)
+    x_k, x_p = got.x_final.cpu(), want.x_final.cpu()
+    assert x_k.shape == (cfg.d, grid.chains_actual) and torch.isfinite(x_k).all()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%} split"
+    k = len(program.fns)
+    v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
+    v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
+    _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert torch.isfinite(v_k).all()
+    assert abs(float(a_k) - float(a_p)) <= 1e-3
+    np.testing.assert_array_less(
+        (v_k - v_p).abs().cpu().numpy(), (0.2 * se + 1e-6).cpu().numpy()
+    )
+    if cfg.with_stderr:
+        np.testing.assert_allclose(
+            s_k.cpu().numpy(), s_p.cpu().numpy(), rtol=STDERR_RTOL
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ND_MCMC_CASES))
+def test_nd_mcmc_kernel_matches_plain_version(cuda_device, case):
+    target, proposal, stderr = ND_MCMC_CASES[case]
+    program, cfg, params = _nd_mcmc_setup(
+        target, proposal, stderr, ND_MCMC_FNS[_dims(target, proposal)], cuda_device,
+        n_steps=1000, n_burnin=200,
+    )
+    _check_nd_mcmc(program, cfg, params, plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+def test_widest_nd_mcmc_kernel_with_error_bars(cuda_device):
+    # 127 two-argument integrands, the most the kernel takes, with error
+    # bars: 127 float32 sums per thread.  nvcc's register and spill report
+    # (empty when the library is cached); pytest -rP shows it.
+    fns = ND_WIDEST[:MAX_FUNCTIONS - 1]
+    program, cfg, params = _nd_mcmc_setup(
+        _c9e_target, [tm.Distribution.normal(0.0, 2.0)] * 2, True, fns,
+        cuda_device, n_steps=200, n_burnin=50,
+    )
+    for line in program.library().build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    _check_nd_mcmc(program, cfg, params, plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+def test_integrate_mcmc_nd_on_cuda_matches_cpu(cuda_device):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+
+    kw = dict(n_steps=500, n_chains=2048, n_burnin=100, seed=3,
+              return_stderr=True)
+    n2 = tm.Distribution.normal(0.0, 2.0)
+    for proposal in ([n2, n2], tm.RandomWalk(adapt=True, target_accept=0.234,
+                                             init_range=(-4.0, 4.0))):
+        before = mcmc_nd_cuda.launches, mcmc_nd_cuda.pilot_launches
+        got = tm.integrate_mcmc(ND_MCMC_FNS[2], _c9e_target(), proposal,
+                                device=cuda_device, **kw)
+        assert mcmc_nd_cuda.launches == before[0] + 1
+        assert mcmc_nd_cuda.pilot_launches == before[1] + 1
+        want = tm.integrate_mcmc(ND_MCMC_FNS[2], _c9e_target(), proposal,
+                                 device="cpu", **kw)
+        assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
+        np.testing.assert_array_less(
+            np.abs(got.values - want.values), 0.2 * want.stderr + 1e-6
+        )
+        np.testing.assert_allclose(got.stderr, want.stderr, rtol=STDERR_RTOL)
+
+
+@pytest.mark.cuda
+def test_nd_mcmc_kernel_rejects_bad_params(cuda_device):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+
+    program, cfg, params = _nd_mcmc_setup(
+        _c9e_target, _WALK, False, ND_MCMC_FNS[2], cuda_device, 10, 2
+    )
+    with pytest.raises(ValueError, match="float32"):
+        mcmc_nd_cuda(program, cfg, params.double(), 42, plan_mcmc_grid(1024))

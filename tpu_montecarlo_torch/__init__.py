@@ -7,10 +7,11 @@ normal and exponential families, and a hand-written CUDA kernel that fuses
 up to 128 integrands over one shared stream); multi-dimensional
 ``integrate`` over d >= 2 independent dimensions of those families, in
 plain MC, antithetic or Sobol QMC, with error bars (pilot-shifted squares,
-or randomized QMC), in a second kernel; and 1-D Metropolis-Hastings,
+or randomized QMC), in a second kernel; 1-D Metropolis-Hastings,
 ``integrate_mcmc``, with independence, random-walk and adaptive
-random-walk proposals and error bars, in a third.  It imports torch and
-numpy, never jax.
+random-walk proposals and error bars, in a third; and the same over d
+dimensions, under a product of Distributions or a joint log density, in
+a fourth.  It imports torch and numpy, never jax.
 
 Example:
     >>> from tpu_montecarlo_torch import (
@@ -25,6 +26,11 @@ Example:
     >>> m = integrate_mcmc([lambda x: x * x], Distribution.normal(0.0, 1.0),
     ...                    RandomWalk(adapt=True), n_chains=4096)
     >>> m.values, m.acceptance_rate  # ~[1], ~0.44
+    >>> n2 = Distribution.normal(0.0, 2.0)
+    >>> j = integrate_mcmc([lambda x, y: x * y],
+    ...                    lambda x, y: -(x * x - 1.6 * x * y + y * y) / 0.72,
+    ...                    [n2, n2], n_chains=4096, return_stderr=True)
+    >>> j.values  # ~[0.8], E[xy] of a bivariate normal with rho = 0.8
 """
 
 from .api import IntegrationResult, MonteCarloIntegrator, integrate, integrate_mcmc

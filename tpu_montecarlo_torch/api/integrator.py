@@ -10,15 +10,19 @@ from .base import _BaseMixin, resolve_device
 from .cache import GLOBAL_CACHE
 from .integrate import _IntegrateMixin
 from .mcmc import _McmcMixin
+from .mcmc_nd import _McmcNdMixin
 
 
-class MonteCarloIntegrator(_BaseMixin, _IntegrateMixin, _McmcMixin):
+class MonteCarloIntegrator(
+    _BaseMixin, _IntegrateMixin, _McmcMixin, _McmcNdMixin
+):
     """Monte Carlo integrator for expected values on an NVIDIA GPU.
 
     Fuses K integrands into one kernel pass over shared samples
     (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, over
     one distribution or a list of d independent ones (d-ary integrands),
-    and runs Metropolis-Hastings chains for ``integrate_mcmc``.
+    and runs Metropolis-Hastings chains for ``integrate_mcmc``, over one
+    dimension or d (a product or joint log-density target).
 
     Args:
         target_threads: lane-width knob kept from the reference API

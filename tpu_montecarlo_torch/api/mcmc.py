@@ -1,7 +1,7 @@
-"""Scalar-chain MCMC (port of the 1-D Pallas path of
-``tpu_montecarlo/api/mcmc.py``): ``integrate_mcmc`` with independence,
-random-walk and adaptive random-walk proposals, with error bars on
-request.
+"""MCMC (port of the Pallas paths of ``tpu_montecarlo/api/mcmc.py``):
+``integrate_mcmc`` with independence, random-walk and adaptive
+random-walk proposals, with error bars on request, over one dimension
+(``ops/mcmc_kernel.py``) or d (``api/mcmc_nd.py``).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
@@ -14,7 +14,7 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
-from ..distributions import Distribution, RandomWalk
+from ..distributions import HMC, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     McmcConfig,
@@ -28,15 +28,17 @@ from ..ops.mcmc_kernel import (
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
     MCMC_DIAGNOSTICS,
+    MCMC_HMC,
     MCMC_SAMPLES,
     MCMC_SERVING,
     MCMC_STATE,
     MCMC_WIDE,
-    ND_MCMC,
+    ND_MCMC_SERVING,
     TEMPERING,
     not_ported,
 )
 from .cache import fns_key
+from .mcmc_nd import is_nd_call
 from .results import IntegrationResult
 
 
@@ -64,8 +66,8 @@ class _McmcMixin:
     def integrate_mcmc(
         self,
         functions: List[Union[Callable, str]],
-        target_distribution: Distribution,
-        proposal_distribution: Union[Distribution, RandomWalk],
+        target_distribution,
+        proposal_distribution,
         n_steps: int = 10_000,
         n_chains: int = 1024,
         n_burnin: int = 1_000,
@@ -93,10 +95,18 @@ class _McmcMixin:
         ``return_stderr=True``: ``result.stderr`` is the standard error
         from the between-chain variance of the per-chain means.
 
+        Multi-dimensional MCMC: ``target_distribution`` may be a sequence
+        of d Distributions (a product target) or a joint log density, a
+        callable of d arguments (up to an additive constant; d = 1 too),
+        and ``proposal_distribution`` a sequence of d Distributions (an
+        independence proposal per dimension) or a :class:`RandomWalk`
+        (d from the target; a joint target needs its ``init_range``).
+        The functions then take d arguments.
+
         Not ported yet, each raising ``NotImplementedError`` naming its
         ROADMAP item: ``initial_state``/``return_state``,
         ``return_diagnostics``, ``return_samples``, ``temperatures``, HMC,
-        nd and joint log-density targets, more than 127 functions.
+        CUSTOM and extended families, more than 127 functions.
         """
         if len(functions) == 0:
             raise ValueError("At least one function is required")
@@ -135,12 +145,15 @@ class _McmcMixin:
                 proposal_distribution, n_burnin,
                 return_state or initial_state is not None,
             )
-        if not isinstance(target_distribution, Distribution) or isinstance(
-            proposal_distribution, (list, tuple)
-        ):
-            raise not_ported(
-                "nd and joint log-density MCMC targets", ND_MCMC
+        if is_nd_call(target_distribution, proposal_distribution):
+            return self._integrate_mcmc_nd(
+                functions, target_distribution, proposal_distribution,
+                n_steps, n_chains, n_burnin, seed, initial_state,
+                return_state, return_stderr, return_diagnostics,
+                return_samples,
             )
+        if isinstance(proposal_distribution, HMC):
+            raise not_ported("HMC proposals", MCMC_HMC)
         if return_state or initial_state is not None:
             raise not_ported("MCMC state (return_state, initial_state)",
                              MCMC_STATE)
@@ -166,9 +179,14 @@ class _McmcMixin:
             stderr=stderr,
         )
 
-    def compile_mcmc(self, *args, **kwargs):
+    def compile_mcmc(self, functions, target_distribution,
+                     proposal_distribution, *args, **kwargs):
         """Ahead-of-time MCMC handles (with seed and param batches) are not
-        ported yet: raises ``NotImplementedError``."""
+        ported yet: raises ``NotImplementedError`` naming the ROADMAP item
+        (nd or 1-D)."""
+        if is_nd_call(target_distribution, proposal_distribution):
+            raise not_ported("compile_mcmc, seed_batch and param_batch for "
+                             "nd MCMC", ND_MCMC_SERVING)
         raise not_ported("compile_mcmc (seed_batch, param_batch)",
                          MCMC_SERVING)
 

@@ -1,0 +1,283 @@
+"""Multi-dimensional MCMC (port of ``tpu_montecarlo/api/mcmc_nd.py:74-562``
+and ``api/batching.py:17-52``): argument parsing (a product of
+per-dimension Distributions or a joint log density of d arguments, under
+per-dimension independence proposals or a :class:`RandomWalk`) and the
+run on the nd kernel (``ops/mcmc_nd_kernel.py``).
+
+The JAX package sends nd work its kernel cannot take, and all of it off
+the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
+``jax.random``; the port has no such twin and runs every workload it
+takes in its kernel.  What it does not take yet raises
+``NotImplementedError`` naming its ROADMAP item."""
+
+from __future__ import annotations
+
+import inspect
+
+import numpy as np
+import torch
+
+from ..distributions import HMC, Distribution, DistributionType, RandomWalk
+from ..ops.mcmc_kernel import (
+    MAX_FUNCTIONS,
+    Mode,
+    mcmc_finish,
+    plan_chains,
+    plan_mcmc_grid,
+)
+from ..ops.mcmc_nd_kernel import McmcNdConfig, McmcNdProgram, mcmc_nd_cuda
+from ..sampling import dist_spec_of
+from ..utils.roadmap import (
+    FRONT_END,
+    ND_MCMC_CUSTOM,
+    ND_MCMC_DIAGNOSTICS,
+    ND_MCMC_FAMILIES,
+    ND_MCMC_HMC,
+    ND_MCMC_SAMPLES,
+    ND_MCMC_STATE,
+    ND_MCMC_WIDE,
+    not_ported,
+)
+from .cache import fns_key
+from .results import IntegrationResult
+
+_PORTED_TYPES = (
+    DistributionType.UNIFORM,
+    DistributionType.NORMAL,
+    DistributionType.EXPONENTIAL,
+)
+
+
+def is_nd_call(target, proposal) -> bool:
+    """``tpu_montecarlo/api/mcmc.py:217-224``: a proposal sequence, a
+    target sequence or a joint log-density target takes the nd path (a
+    1-D joint log density is its d = 1 case)."""
+    return (
+        isinstance(proposal, (list, tuple))
+        or isinstance(target, (list, tuple))
+        or (
+            not isinstance(target, Distribution)
+            and (callable(target) or isinstance(target, str))
+        )
+    )
+
+
+def _target_arity(target) -> int:
+    """Dimension count of a joint log-density target where no
+    per-dimension proposal list fixes d (RandomWalk proposals): the
+    callable's positional parameters."""
+    if isinstance(target, str):
+        raise not_ported("WGSL source strings", FRONT_END)
+    try:
+        sig = inspect.signature(target)
+    except (TypeError, ValueError):
+        raise TypeError(
+            "cannot determine the dimension count of this joint "
+            "log-density; pass a plain function of d positional "
+            "arguments (or per-dimension proposal Distributions)"
+        )
+    kinds = [p.kind for p in sig.parameters.values()]
+    if any(
+        k in (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        for k in kinds
+    ):
+        raise TypeError(
+            "a joint log-density taking *args/**kwargs has no fixed "
+            "dimension count; declare d positional arguments"
+        )
+    return sum(
+        1
+        for k in kinds
+        if k
+        in (
+            inspect.Parameter.POSITIONAL_ONLY,
+            inspect.Parameter.POSITIONAL_OR_KEYWORD,
+        )
+    )
+
+
+def _dim_specs(dists):
+    """Packed specs of nd MCMC dimensions; the families the nd kernel
+    does not take yet raise, naming their ROADMAP item."""
+    for dd in dists:
+        if dd.dist_type == DistributionType.CUSTOM:
+            raise not_ported("CUSTOM dimensions in nd MCMC", ND_MCMC_CUSTOM)
+        if dd.dist_type not in _PORTED_TYPES:
+            raise not_ported(
+                f"{dd.dist_type.name.lower()} dimensions in nd MCMC",
+                ND_MCMC_FAMILIES,
+            )
+    return [dist_spec_of(dd) for dd in dists]
+
+
+class _McmcNdMixin:
+    def _parse_nd_mcmc_args(self, target, proposal):
+        """Validate and normalise the nd argument surface: returns
+        ``(proposals, targets, target_fn, d)`` with exactly one of
+        ``targets`` (per-dimension product) and ``target_fn`` (the traced
+        joint log density) set.  A :class:`RandomWalk` proposal returns
+        ``proposals=None``; ``d`` then comes from the target: the
+        sequence's length, or the joint log density's arity."""
+        if isinstance(proposal, RandomWalk):
+            proposals = None
+            d = None  # fixed by the target below
+        elif isinstance(proposal, Distribution):
+            proposals = [proposal]
+        elif isinstance(proposal, (list, tuple)):
+            proposals = list(proposal)
+        else:
+            raise TypeError(
+                "proposal must be a Distribution, a sequence of "
+                f"Distributions, or a RandomWalk, got {type(proposal)}"
+            )
+        if proposals is not None:
+            if not proposals or not all(
+                isinstance(p, Distribution) for p in proposals
+            ):
+                raise TypeError(
+                    "proposal sequence must be a non-empty list of "
+                    "Distribution objects"
+                )
+            d = len(proposals)
+
+        target_fn = None
+        targets = None
+        if isinstance(target, (list, tuple)):
+            targets = list(target)
+            if d is None:
+                d = len(targets)
+            if len(targets) != d or not all(
+                isinstance(t, Distribution) for t in targets
+            ):
+                raise TypeError(
+                    "target sequence must be a non-empty list of "
+                    f"Distribution objects matching the {d} "
+                    "proposal dimension(s)"
+                )
+            if not targets:
+                raise TypeError(
+                    "target sequence must be a non-empty list of "
+                    "Distribution objects"
+                )
+        elif isinstance(target, Distribution):
+            if d not in (None, 1):
+                raise TypeError(
+                    "multi-dimensional MCMC needs the target as a "
+                    f"sequence of {d} Distributions or a {d}-ary "
+                    "log-density function"
+                )
+            d = 1
+            targets = [target]
+        elif callable(target) or isinstance(target, str):
+            if d is None:
+                d = _target_arity(target)
+            target_fn = self._trace_user_functions([target], n_args=d)[0]
+        else:
+            raise TypeError(
+                f"Unsupported target type for MCMC: {type(target)}"
+            )
+        return proposals, targets, target_fn, d
+
+    def _integrate_mcmc_nd(
+        self, functions, target, proposal, n_steps, n_chains, n_burnin,
+        seed, initial_state, return_state, return_stderr,
+        return_diagnostics, return_samples,
+    ) -> IntegrationResult:
+        """Multi-dimensional MH: per-dimension independence proposals or
+        a random walk, under a product of per-dimension Distributions or
+        a joint log density of d arguments."""
+        if return_diagnostics and n_steps < 4:
+            raise ValueError("return_diagnostics needs n_steps >= 4")
+        proposals, targets, target_fn, d = self._parse_nd_mcmc_args(
+            target, proposal
+        )
+        if d == 1 and target_fn is None:
+            # 1-D in disguise: the scalar path.
+            return self.integrate_mcmc(
+                functions, targets[0],
+                proposal if proposals is None else proposals[0],
+                n_steps=n_steps, n_chains=n_chains, n_burnin=n_burnin,
+                seed=seed, initial_state=initial_state,
+                return_state=return_state, return_stderr=return_stderr,
+                return_diagnostics=return_diagnostics,
+                return_samples=return_samples,
+            )
+        if isinstance(proposal, HMC):
+            raise not_ported("nd HMC", ND_MCMC_HMC)
+        if return_state or initial_state is not None:
+            raise not_ported(
+                "nd MCMC state (return_state, initial_state)", ND_MCMC_STATE
+            )
+        if return_diagnostics:
+            raise not_ported("return_diagnostics in nd MCMC",
+                             ND_MCMC_DIAGNOSTICS)
+        if return_samples is not None:
+            raise not_ported("return_samples in nd MCMC", ND_MCMC_SAMPLES)
+        program, cfg, params = self._nd_mcmc_kernel_program(
+            functions, proposal, (proposals, targets, target_fn, d),
+            n_steps, n_burnin, return_stderr,
+        )
+        return self._run_mcmc_nd(
+            program, cfg, params, seed, n_chains, len(functions)
+        )
+
+    def _nd_mcmc_kernel_program(
+        self, functions, proposal, parsed, n_steps, n_burnin, return_stderr
+    ):
+        """``(program, cfg, params)`` of one nd run: the cached
+        :class:`McmcNdProgram` (per integrands, target, mode and
+        families), its config and the (d, 6) float32 parameter rows on
+        the integrator's device.  ``parsed`` is
+        :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
+        proposals, targets, target_fn, d = parsed
+        prop_specs = None if proposals is None else _dim_specs(proposals)
+        targ_specs = None if targets is None else _dim_specs(targets)
+        traced = self._trace_user_functions(functions, n_args=d)
+        if len(traced) > MAX_FUNCTIONS:
+            raise not_ported(
+                f"nd MCMC over more than {MAX_FUNCTIONS} functions",
+                ND_MCMC_WIDE,
+            )
+        if proposals is None:
+            mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
+            prop_rows = proposal.pack_params_nd(targets, d)
+        else:
+            mode = Mode.INDEPENDENCE
+            prop_rows = np.asarray(
+                [[*s.params, 0.0, 0.0] for s in prop_specs], np.float32
+            )
+        cfg = McmcNdConfig(
+            mode, d,
+            () if prop_specs is None else tuple(s.kind for s in prop_specs),
+            None if targ_specs is None else tuple(s.kind for s in targ_specs),
+            n_steps, n_burnin, return_stderr,
+        )
+        targ_rows = (
+            np.zeros((d, 2), np.float32) if targ_specs is None
+            else np.stack([s.params for s in targ_specs])
+        )
+        params = torch.tensor(
+            np.concatenate([prop_rows, targ_rows], axis=1),
+            dtype=torch.float32, device=self._device,
+        )
+        target_key = None if target_fn is None else target_fn.key
+        program = self._cache.get_or_build(
+            ("mcmc_nd", fns_key(traced), target_key, cfg.compiled),
+            lambda: McmcNdProgram(traced, cfg, target_fn),
+        )
+        return program, cfg, params
+
+    def _run_mcmc_nd(self, program, cfg, params, seed, n_chains, n_functions):
+        """One nd run on the kernel (a CPU integrator: its plain version)."""
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        out = mcmc_nd_cuda(program, cfg, params, seed, grid)
+        values, acceptance, stderr = mcmc_finish(
+            out, grid, cfg, len(program.fns)
+        )
+        return IntegrationResult(
+            values=values.cpu().numpy(),
+            n_samples=n_chains * cfg.n_steps,
+            n_functions=n_functions,
+            acceptance_rate=float(acceptance),
+            stderr=None if stderr is None else stderr.cpu().numpy(),
+        )

@@ -1,5 +1,5 @@
-// The counter-based sample stream and the family transforms, shared by
-// the port's kernels (integrate.cu, mcmc.cu).
+// The counter-based sample stream, the family transforms and the family
+// log densities, shared by the port's kernels.
 //
 // tmc::pcg is the PCG output mix of the JAX package's CounterRng
 // (tpu_montecarlo/ops/integrate_pallas.py:107-133, ops/qmc.py _pcg_mix):
@@ -9,7 +9,8 @@
 // 2654435761).  Uniforms come from the top 24 bits; tmc::transform turns
 // them into a sample of the family with the JAX kernels' formulas and
 // float32 operation order (sampling.normal_from_u01, the exponential
-// inverse transform, the uniform's clamp below its open bound).
+// inverse transform, the uniform's clamp below its open bound), and
+// tmc::log_pdf the MCMC kernels' closed-form log densities.
 #pragma once
 
 #include <cstdint>
@@ -21,6 +22,8 @@ constexpr float kInv2Pow24 = 1.0f / 16777216.0f;
 constexpr float kULo = 1e-7f;
 constexpr float kUHi = 0.99999988079071044921875f;  // float32(1 - 1e-7)
 constexpr float kSqrt2 = 1.41421353816986083984375f;  // float32(sqrt 2)
+constexpr float kSqrt2Pi = 2.5066282749176025390625f;  // float32(2.50662827463)
+constexpr float kLogPdfFloor = -100.0f;
 
 enum Kind { kUniform = 0, kNormal = 1, kExponential = 2 };
 
@@ -75,6 +78,21 @@ __device__ __forceinline__ float transform(int kind, uint32_t m, float p1,
   }
   if (kind == kNormal) return p1 + p2 * normal_from_u01(halfopen01(m));
   return -logf(fmaxf(open01(m), kULo)) / p1;
+}
+
+// sampling.analytic_log_pdf, in its float32 operation order: uniform on
+// [p1, p2), normal (mean, std), exponential (lambda, -), and kLogPdfFloor
+// out of support.
+__device__ __forceinline__ float log_pdf(int kind, float p1, float p2,
+                                         float x) {
+  if (kind == kUniform) {
+    return (p1 <= x && x < p2) ? -logf(p2 - p1) : kLogPdfFloor;
+  }
+  if (kind == kNormal) {
+    const float z = (x - p1) / p2;
+    return -0.5f * z * z - logf(p2 * kSqrt2Pi);
+  }
+  return x >= 0.0f ? logf(p1) - p1 * x : kLogPdfFloor;
 }
 
 }  // namespace tmc

@@ -57,17 +57,13 @@
 
 namespace {
 
-using tmc::kExponential;
-using tmc::kNormal;
-using tmc::kUniform;
+using tmc::log_pdf;
 
 enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
 
 // One warp per block (ops/mcmc_kernel.py: CHAIN_THREADS); see the header.
 constexpr int kChainThreads = 32;
 constexpr int kPilotThreads = 256;
-constexpr float kLogPdfFloor = -100.0f;
-constexpr float kSqrt2Pi = 2.5066282749176025390625f;  // float32(2.50662827463)
 constexpr float kLogStepMin = -13.815511f;
 constexpr float kLogStepMax = 13.815511f;
 
@@ -79,19 +75,6 @@ struct Params {
 
 __device__ __forceinline__ Params load_params(const float* p) {
   return Params{p[0], p[1], p[2], p[3], p[4], p[5]};
-}
-
-// sampling.analytic_log_pdf, in its float32 operation order.
-__device__ __forceinline__ float log_pdf(int kind, float p1, float p2,
-                                         float x) {
-  if (kind == kUniform) {
-    return (p1 <= x && x < p2) ? -logf(p2 - p1) : kLogPdfFloor;
-  }
-  if (kind == kNormal) {
-    const float z = (x - p1) / p2;
-    return -0.5f * z * z - logf(p2 * kSqrt2Pi);
-  }
-  return x >= 0.0f ? logf(p1) - p1 * x : kLogPdfFloor;
 }
 
 __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,

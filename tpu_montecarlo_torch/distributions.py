@@ -155,8 +155,12 @@ class RandomWalk:
     during burn-in by Robbins-Monro on the log step (``gamma_i =
     i^-0.6``) toward ``target_accept``, then freezes it for sampling.
     Chains start uniformly over ``init_range`` (default: the target's
-    central 98% interval).  Per-dimension steps and ranges are accepted
-    for the nd samplers, which are not ported yet.
+    central 98% interval).  Multi-dimensional MCMC takes the same object:
+    the step becomes a d-vector (``step_size=[s_1, ..., s_d]`` for
+    per-dimension scales), ``init_range`` broadcasts or takes one (lo, hi)
+    pair per dimension, and ``adapt=True`` tunes one per-chain scale of
+    the whole step vector.  A joint log-density target needs an explicit
+    ``init_range``.
     """
 
     __slots__ = ("step_size", "adapt", "target_accept", "init_range")
@@ -237,34 +241,56 @@ class RandomWalk:
             init_range=rw.init_range,
         )
 
+    def _steps_of(self, d: int):
+        """Per-dimension step list, broadcasting a scalar step."""
+        if isinstance(self.step_size, tuple):
+            if len(self.step_size) != d:
+                raise ValueError(
+                    f"step_size has {len(self.step_size)} entries but "
+                    f"this MCMC run has {d} dimension(s)"
+                )
+            return list(self.step_size)
+        return [self.step_size] * d
+
+    def _ranges_of(self, targets, d: int):
+        """Per-dimension (lo, hi) init pairs: explicit (broadcast or
+        per-dimension), else each target's central 98% interval."""
+        if self.init_range is not None:
+            r = self.init_range
+            if isinstance(r[0], tuple):
+                if len(r) != d:
+                    raise ValueError(
+                        f"init_range has {len(r)} pairs but this MCMC "
+                        f"run has {d} dimension(s)"
+                    )
+                return list(r)
+            return [r] * d
+        if targets is None:
+            raise ValueError(
+                "a joint log-density target carries no per-dimension "
+                "quantiles; pass RandomWalk(init_range=...) (one (lo, "
+                "hi) pair or a per-dimension list) to place the chains"
+            )
+        return [(t.quantile(0.01), t.quantile(0.99)) for t in targets]
+
     def pack_params(self, target: Distribution) -> np.ndarray:
         """(4,) float32 row the 1-D MCMC kernel reads: (step_size,
         init_lo, init_hi, target_accept).  The init range defaults to the
         target's central 98% interval; an empty range widens by a step."""
-        if isinstance(self.step_size, tuple):
-            if len(self.step_size) != 1:
-                raise ValueError(
-                    f"step_size has {len(self.step_size)} entries but "
-                    "this MCMC run has 1 dimension(s)"
-                )
-            (step,) = self.step_size
-        else:
-            step = self.step_size
-        r = self.init_range
-        if r is None:
-            lo, hi = target.quantile(0.01), target.quantile(0.99)
-        elif isinstance(r[0], tuple):
-            if len(r) != 1:
-                raise ValueError(
-                    f"init_range has {len(r)} pairs but this MCMC run "
-                    "has 1 dimension(s)"
-                )
-            (lo, hi), = r
-        else:
-            lo, hi = r
-        if not hi > lo:
-            lo, hi = lo - step, hi + step
-        return np.asarray([step, lo, hi, self.target_accept], np.float32)
+        return self.pack_params_nd([target], 1)[0]
+
+    def pack_params_nd(self, targets, d: int) -> np.ndarray:
+        """(d, 4) float32 rows (step_j, init_lo_j, init_hi_j,
+        target_accept) for the nd MCMC kernel (``distributions.py:971`` of
+        the JAX package).  ``targets`` is the per-dimension Distribution
+        list, or None for a joint log-density target, which then needs an
+        explicit ``init_range``."""
+        rows = []
+        for s, (lo, hi) in zip(self._steps_of(d), self._ranges_of(targets, d)):
+            if not hi > lo:
+                lo, hi = lo - s, hi + s
+            rows.append([s, lo, hi, self.target_accept])
+        return np.asarray(rows, np.float32)
 
 
 class HMC(RandomWalk):

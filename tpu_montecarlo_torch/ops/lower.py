@@ -12,7 +12,9 @@ the same order:
   ``tmc_values``, which the kernels in ``csrc/`` include; for d-ary
   integrands (d >= 2), ``f_j(const float* x)`` plus ``TMC_D`` and the
   nd entries ``tmc_accumulate_nd``, ``tmc_accumulate_nd_sq`` and
-  ``tmc_values_nd``.
+  ``tmc_values_nd``, which the nd MCMC kernel also takes for d = 1
+  (``pointer=True``); and :func:`cuda_target_source`, a joint
+  log-density as ``tmc_target_logpdf(const float* x)``.
   The source also compiles as host C++ with ``-D__device__=`` (the tests
   do that with g++), since it only uses C math names and the helpers of
   ``csrc/integrand_math.cuh``.
@@ -37,7 +39,7 @@ from ..tracing import (
     TracedFunction,
 )
 
-__all__ = ["cuda_source", "to_torch", "topo_order"]
+__all__ = ["cuda_source", "cuda_target_source", "to_torch", "topo_order"]
 
 
 def topo_order(roots: Sequence[Node]) -> List[Node]:
@@ -195,8 +197,8 @@ _C_BINARY = {
 assert set(_C_BINARY) == BINARY_OPS | COMPARE_OPS | LOGIC_OPS
 
 
-def _c_function(name: str, fn: TracedFunction) -> str:
-    nd = fn.n_args > 1
+def _c_function(name: str, fn: TracedFunction, pointer: bool = False) -> str:
+    nd = pointer or fn.n_args > 1
     param = "const float* x" if nd else "float x"
     lines = [f"static __device__ inline float {name}({param}) {{"]
     names: Dict[int, str] = {}
@@ -225,7 +227,7 @@ def _c_function(name: str, fn: TracedFunction) -> str:
     return "\n".join(lines)
 
 
-def cuda_source(fns: Sequence[TracedFunction]) -> str:
+def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False) -> str:
     """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and the
     per-point entries.
 
@@ -234,17 +236,19 @@ def cuda_source(fns: Sequence[TracedFunction]) -> str:
     vals)``, which stores each ``f_j(x)`` in ``vals[j]`` (the MCMC kernel,
     which shifts them).  Integrands of d >= 2 arguments, all of one arity,
     take the point as ``const float* x`` and get ``TMC_D`` and
-    :func:`_nd_entries`."""
+    :func:`_nd_entries`; ``pointer=True`` gives 1-argument integrands
+    that form too."""
     k = len(fns)
     arity = {fn.n_args for fn in fns}
     if len(arity) != 1:
         raise ValueError(f"integrands of mixed arity {sorted(arity)}")
     d = arity.pop()
+    nd = pointer or d > 1
     parts = [f"#define TMC_K {k}"]
-    if d > 1:
+    if nd:
         parts.append(f"#define TMC_D {d}")
-    parts += [_c_function(f"f_{j}", fn) for j, fn in enumerate(fns)]
-    if d > 1:
+    parts += [_c_function(f"f_{j}", fn, nd) for j, fn in enumerate(fns)]
+    if nd:
         return "\n\n".join(parts + _nd_entries(k)) + "\n"
     acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
     vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
@@ -257,6 +261,13 @@ def cuda_source(fns: Sequence[TracedFunction]) -> str:
         f"{vals}\n}}"
     )
     return "\n\n".join(parts) + "\n"
+
+
+def cuda_target_source(fn: TracedFunction) -> str:
+    """A joint log-density of d arguments as ``static __device__ inline
+    float tmc_target_logpdf(const float* x)`` (the nd MCMC kernel), in
+    the pointer form for every d, d = 1 included."""
+    return _c_function("tmc_target_logpdf", fn, pointer=True) + "\n"
 
 
 def _nd_entries(k: int) -> List[str]:

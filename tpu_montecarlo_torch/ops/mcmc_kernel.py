@@ -55,6 +55,7 @@ __all__ = [
     "McmcOutput",
     "McmcProgram",
     "Mode",
+    "block_rows",
     "mcmc_cuda",
     "mcmc_finish",
     "mcmc_reference",
@@ -136,7 +137,8 @@ class McmcConfig:
 
 class McmcOutput(NamedTuple):
     """``rows``: (chains / CHAIN_THREADS, 3, K + 1) float32 block rows;
-    ``x_final``: (chains,) float32 final chain states."""
+    ``x_final``: (chains,) float32 final chain states, (d, chains) from
+    the nd kernel (``ops/mcmc_nd_kernel.py``)."""
 
     rows: torch.Tensor
     x_final: torch.Tensor
@@ -191,7 +193,7 @@ def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int) -> None:
         raise ValueError("n_steps must be positive and n_burnin non-negative")
 
 
-def _block_rows(
+def block_rows(
     acc: torch.Tensor, n_acc: torch.Tensor, pilots: torch.Tensor, n_steps: int
 ) -> torch.Tensor:
     """The kernel's output rows from per-chain sums ``acc`` (C, K), accept
@@ -303,7 +305,7 @@ def mcmc_reference(
     chain_pilots = torch.stack(
         [p.expand_as(x).reshape(-1) for p in pilots], dim=1
     )
-    rows = _block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
+    rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
     return McmcOutput(rows, x.reshape(-1))
 
 

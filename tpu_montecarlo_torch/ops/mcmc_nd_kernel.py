@@ -1,0 +1,404 @@
+"""Multi-dimensional Metropolis-Hastings: the plain PyTorch version and
+the CUDA kernel's wrapper.
+
+Port of ``tpu_montecarlo/ops/mcmc_nd_pallas.py`` (``build_mcmc_nd_pallas``)
+in its independence, random-walk and adaptive random-walk modes, with and
+without error bars, for d dimensions of the uniform, normal and
+exponential families under a product target or a traced joint log
+density.  Both versions here run, chain for chain, the chains that the
+JAX kernel runs under ``CounterRng`` (its interpreter stream): each
+program's stream seeded with (seed ^ 0x27D4EB2F, program), dimension j
+drawn under tag j at counter 0 (the initial state) and 3i+1 (step i's
+proposal), the accept uniform under tag 0 at 3i+2, and the same float32
+operation order.  Only last-bit differences of ``log``, ``exp`` and
+``erfinv`` between libraries can flip an accept decision.
+
+The chain layout, the grid (``plan_mcmc_grid``) and the output rows are
+the 1-D kernel's (``ops/mcmc_kernel.py``), so :func:`mcmc_finish` turns
+the rows into estimates, the acceptance rate and the error bars.  The
+parameters are one (d, 6) float32 row per dimension: the proposal's
+(p1, p2, 0, 0) or the walk's (step, init_lo, init_hi, target_accept),
+then the target's (p1, p2), zeros for a joint target.  The adaptive walk
+tunes one per-chain scale of the whole step vector, starting at 1,
+toward dimension 0's target_accept.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..sampling import PORTED_KINDS, DistKind, analytic_log_pdf, normal_from_u01
+from ..tracing import TracedFunction
+from ..utils.roadmap import ND_MCMC_FAMILIES, not_ported
+from .integrate_kernel import (
+    LANES,
+    CounterRng,
+    sample_block,
+    uniform_halfopen01,
+    uniform_open01,
+)
+from .lower import cuda_source, cuda_target_source, to_torch
+from .mcmc_kernel import (
+    CHAIN_THREADS,
+    MAX_FUNCTIONS,
+    McmcGrid,
+    McmcOutput,
+    Mode,
+    block_rows,
+)
+
+__all__ = [
+    "ND_SEED_MIX",
+    "McmcNdConfig",
+    "McmcNdProgram",
+    "mcmc_nd_cuda",
+    "mcmc_nd_reference",
+    "nd_seed_word",
+]
+
+#: The nd MCMC stream family's seed mix (mcmc_nd_pallas.py:79).
+ND_SEED_MIX = 0x27D4EB2F
+_LOG_SCALE_MIN = -13.815511
+_LOG_SCALE_MAX = 13.815511
+_ROW = 6  # floats per dimension in params
+
+
+def nd_seed_word(seed: int) -> int:
+    """The nd kernels' seed word: the seed as uint32 (``np.uint32``
+    rejects seeds outside [0, 2**32), as the JAX package does) xor
+    0x27D4EB2F."""
+    return int(np.uint32(seed)) ^ ND_SEED_MIX
+
+
+def _kinds(kinds) -> Tuple[DistKind, ...]:
+    kinds = tuple(DistKind(k) for k in kinds)
+    for kind in kinds:
+        if kind not in PORTED_KINDS:
+            raise not_ported(
+                f"nd MCMC under {kind.name.lower()} dimensions", ND_MCMC_FAMILIES
+            )
+    return kinds
+
+
+@dataclass(frozen=True)
+class McmcNdConfig:
+    """What one nd run does.  ``prop_kinds``: the independence
+    proposal's family per dimension, ``()`` for the walks;
+    ``targ_kinds``: the product target's, or None for a joint log
+    density."""
+
+    mode: Mode
+    d: int
+    prop_kinds: Tuple[DistKind, ...]
+    targ_kinds: Optional[Tuple[DistKind, ...]]
+    n_steps: int
+    n_burnin: int
+    with_stderr: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "mode", Mode(self.mode))
+        object.__setattr__(self, "prop_kinds", _kinds(self.prop_kinds))
+        if self.targ_kinds is not None:
+            object.__setattr__(self, "targ_kinds", _kinds(self.targ_kinds))
+        if self.d < 1:
+            raise ValueError(f"nd MCMC takes d >= 1 dimensions, got {self.d}")
+        indep = self.mode == Mode.INDEPENDENCE
+        if len(self.prop_kinds) != (self.d if indep else 0):
+            raise ValueError(
+                "an independence proposal takes one family per dimension "
+                "and a walk none"
+            )
+        if self.targ_kinds is not None and len(self.targ_kinds) != self.d:
+            raise ValueError("a product target takes one family per dimension")
+        if self.n_steps < 1 or self.n_burnin < 0:
+            raise ValueError("n_steps must be positive and n_burnin non-negative")
+
+    @property
+    def compiled(self):
+        """What the CUDA library compiles in: mode, d and the families."""
+        return self.mode, self.d, self.prop_kinds, self.targ_kinds
+
+
+class McmcNdProgram:
+    """One integrand set and target, lowered both ways: ``torch_fns`` and
+    ``torch_target`` (None for a product target) for the plain version,
+    and the CUDA library, built at first use.  The library compiles in
+    the mode, d and the families (``cfg.compiled``), as the JAX kernel is
+    traced per family tuple, so a run's config must have the program's."""
+
+    def __init__(
+        self,
+        fns: Sequence[TracedFunction],
+        cfg: McmcNdConfig,
+        target: Optional[TracedFunction] = None,
+    ):
+        if not 1 <= len(fns) <= MAX_FUNCTIONS:
+            raise ValueError(
+                f"the nd MCMC kernel takes 1 to {MAX_FUNCTIONS} functions, "
+                f"got {len(fns)}"
+            )
+        if any(f.n_args != cfg.d for f in fns):
+            raise ValueError(
+                f"every integrand must take {cfg.d} arguments, one per "
+                "dimension"
+            )
+        if (target is None) != (cfg.targ_kinds is not None):
+            raise ValueError(
+                "a joint target needs its log density, a product target none"
+            )
+        if target is not None and target.n_args != cfg.d:
+            raise ValueError(
+                f"the joint log density must take {cfg.d} arguments"
+            )
+        self.fns = tuple(fns)
+        self.target = target
+        self.compiled = cfg.compiled
+        self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
+        self.torch_target = None if target is None else to_torch(target)
+        self._lib = None
+
+    def source(self) -> str:
+        """The generated source the kernel includes: the integrands in the
+        pointer form, the joint target, and the compiled-in mode, d and
+        families."""
+        mode, _, prop_kinds, targ_kinds = self.compiled
+
+        def kinds(name, ks):
+            return f"#define {name} {', '.join(str(int(k)) for k in ks)}\n"
+
+        parts = [
+            cuda_source(self.fns, pointer=True),
+            f"#define TMC_MODE {int(mode)}\n",
+        ]
+        if prop_kinds:
+            parts.append(kinds("TMC_PROP_KINDS", prop_kinds))
+        if targ_kinds is None:
+            parts.append(cuda_target_source(self.target))
+        else:
+            parts.append(kinds("TMC_TARG_KINDS", targ_kinds))
+        return "".join(parts)
+
+    def library(self):
+        if self._lib is None:
+            from .build import load_kernel_library
+
+            lib = load_kernel_library("mcmc_nd.cu", self.source())
+            p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+            # seed word, params, chains per program, programs, pilots,
+            # stream
+            lib.tmc_mcmc_nd_pilots.argtypes = [u, p, i, i, p, p]
+            lib.tmc_mcmc_nd_pilots.restype = i
+            # seed word, params, burn-in, steps, chains per program,
+            # chains, pilots, rows, x_final, stream
+            lib.tmc_mcmc_nd.argtypes = [u, p, i, i, i, i, p, p, p, p]
+            lib.tmc_mcmc_nd.restype = i
+            self._lib = lib
+        return self._lib
+
+
+def _check_args(cfg: McmcNdConfig, params: torch.Tensor, k: int) -> None:
+    if params.dtype != torch.float32 or params.shape != (cfg.d, _ROW):
+        raise ValueError(
+            f"params must be a ({cfg.d}, {_ROW}) float32 tensor, got "
+            f"{tuple(params.shape)} {params.dtype}"
+        )
+    if not 1 <= k <= MAX_FUNCTIONS:
+        raise ValueError(f"1 to {MAX_FUNCTIONS} functions, got {k}")
+
+
+def mcmc_nd_reference(
+    torch_fns: Sequence[Callable],
+    torch_target: Optional[Callable],
+    cfg: McmcNdConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Plain PyTorch version of the kernel, on ``params``' device:
+    vectorised over all chains, a Python loop over the steps, with the
+    kernel's counters, tags and float32 operation order.  Returns the
+    kernel's rows and ``x_final`` as (d, chains)."""
+    _check_args(cfg, params, len(torch_fns))
+    if (torch_target is None) != (cfg.targ_kinds is not None):
+        raise ValueError("a joint target needs its log density, a product none")
+    dev = params.device
+    shape = (grid.rows, LANES)
+    pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
+    rng = CounterRng(nd_seed_word(seed), pids, device=dev)
+    q1, q2, q3, q4, t1, t2 = params.unbind(dim=1)
+    dims = range(cfg.d)
+    indep = cfg.mode == Mode.INDEPENDENCE
+
+    def propose(counter):  # d blocks of (programs, rows, 128)
+        return [
+            sample_block(kind, q1[j], q2[j], rng, shape, counter, j)
+            for j, kind in enumerate(cfg.prop_kinds)
+        ]
+
+    def summed(logs):
+        tot = logs[0]
+        for lp in logs[1:]:
+            tot = tot + lp
+        return tot
+
+    def lp_t(xs):
+        if torch_target is not None:
+            return torch.broadcast_to(
+                torch_target(*xs).to(torch.float32), xs[0].shape
+            )
+        return summed([
+            analytic_log_pdf(kind, t1[j], t2[j], xs[j])
+            for j, kind in enumerate(cfg.targ_kinds)
+        ])
+
+    def lp_q(xs):
+        return summed([
+            analytic_log_pdf(kind, q1[j], q2[j], xs[j])
+            for j, kind in enumerate(cfg.prop_kinds)
+        ])
+
+    def values(xs):
+        return [f(*xs).to(torch.float32) for f in torch_fns]
+
+    if indep:
+        xs = propose(0)
+        logq = lp_q(xs)
+    else:
+        xs = [
+            q2[j] + (q3[j] - q2[j]) * uniform_halfopen01(rng, shape, 0, j)
+            for j in dims
+        ]
+    logp = lp_t(xs)
+    k = len(torch_fns)
+    if cfg.with_stderr:
+        n_block = float(grid.chains_per_program)
+        pilots = [v.sum(dim=(1, 2), keepdim=True) / n_block for v in values(xs)]
+    else:
+        pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+
+    eps = [q1[j] for j in dims]  # the walk's step vector
+    log_scale = torch.zeros_like(xs[0])
+    accs = [torch.zeros_like(xs[0]) for _ in range(k)]
+    n_acc = torch.zeros_like(xs[0])
+    for i in range(cfg.n_burnin + cfg.n_steps):
+        burn = i < cfg.n_burnin
+        if cfg.mode == Mode.ADAPTIVE and (burn or i == cfg.n_burnin):
+            scale = torch.exp(log_scale)
+            eps = [scale * q1[j] for j in dims]
+        if indep:
+            xp = propose(3 * i + 1)
+            logq_prop = lp_q(xp)
+            logp_prop = lp_t(xp)
+            log_alpha = logp_prop + logq - logp - logq_prop
+        else:
+            xp = [
+                xs[j] + eps[j] * normal_from_u01(
+                    uniform_halfopen01(rng, shape, 3 * i + 1, j)
+                )
+                for j in dims
+            ]
+            logp_prop = lp_t(xp)
+            log_alpha = logp_prop - logp
+        u = uniform_open01(rng, shape, 3 * i + 2, 0)
+        accept = torch.log(u) < log_alpha
+        xs = [torch.where(accept, a, b) for a, b in zip(xp, xs)]
+        logp = torch.where(accept, logp_prop, logp)
+        if indep:
+            logq = torch.where(accept, logq_prop, logq)
+        if burn:
+            if cfg.mode == Mode.ADAPTIVE:
+                alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
+                i_f = torch.full((), float(i + 1), device=dev)
+                gamma = torch.exp(-0.6 * torch.log(i_f))
+                log_scale = torch.clamp(
+                    log_scale + gamma * (alpha_p - q4[0]),
+                    _LOG_SCALE_MIN, _LOG_SCALE_MAX,
+                )
+            continue
+        accs = [a + (v - p) for a, v, p in zip(accs, values(xs), pilots)]
+        n_acc = n_acc + accept.to(torch.float32)
+
+    acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
+    chain_pilots = torch.stack(
+        [p.expand_as(xs[0]).reshape(-1) for p in pilots], dim=1
+    )
+    rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
+    return McmcOutput(rows, torch.stack([x.reshape(-1) for x in xs]))
+
+
+def mcmc_nd_cuda(
+    program: McmcNdProgram,
+    cfg: McmcNdConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Runs the grid's chains on ``params``' device.
+
+    A CUDA ``params`` launches the kernel: ``mcmc_nd_cuda.launches``
+    counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
+    the pilot kernel's, which an error-bar run launches first.  A CPU
+    ``params`` runs the plain version.  Any other device raises.  The
+    launches are asynchronous on the current stream."""
+    if cfg.compiled != program.compiled:
+        raise ValueError(
+            f"the program was built for {program.compiled}, not {cfg.compiled}"
+        )
+    _check_args(cfg, params, len(program.fns))
+    if params.device.type == "cpu":
+        return mcmc_nd_reference(
+            program.torch_fns, program.torch_target, cfg, params, seed, grid
+        )
+    if params.device.type != "cuda":
+        raise ValueError(f"no nd MCMC kernel for device {params.device}")
+    params = params.contiguous()
+    lib = program.library()
+    k = len(program.fns)
+    dev = params.device
+    word = nd_seed_word(seed)
+    rows = torch.empty(
+        (grid.chains_actual // CHAIN_THREADS, 3, k + 1),
+        dtype=torch.float32, device=dev,
+    )
+    x_final = torch.empty(
+        (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
+    )
+    pilots = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cfg.with_stderr:
+            pilots = torch.empty(
+                (grid.programs, k), dtype=torch.float32, device=dev
+            )
+            err = lib.tmc_mcmc_nd_pilots(
+                word, params.data_ptr(), grid.chains_per_program,
+                grid.programs, pilots.data_ptr(), stream,
+            )
+            _raise_on(lib, err, "pilot")
+            mcmc_nd_cuda.pilot_launches += 1
+        err = lib.tmc_mcmc_nd(
+            word, params.data_ptr(), cfg.n_burnin, cfg.n_steps,
+            grid.chains_per_program, grid.chains_actual,
+            None if pilots is None else pilots.data_ptr(),
+            rows.data_ptr(), x_final.data_ptr(), stream,
+        )
+        _raise_on(lib, err, "chain")
+    mcmc_nd_cuda.launches += 1
+    return McmcOutput(rows, x_final)
+
+
+mcmc_nd_cuda.launches = 0
+mcmc_nd_cuda.pilot_launches = 0
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"nd MCMC {what} kernel launch failed: "
+            f"{lib.tmc_error_string(err)!r}"
+        )

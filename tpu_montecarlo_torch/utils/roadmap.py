@@ -19,7 +19,14 @@ __all__ = [
     "ND_CV",
     "ND_FAMILIES",
     "ND_IS",
-    "ND_MCMC",
+    "ND_MCMC_CUSTOM",
+    "ND_MCMC_DIAGNOSTICS",
+    "ND_MCMC_FAMILIES",
+    "ND_MCMC_HMC",
+    "ND_MCMC_SAMPLES",
+    "ND_MCMC_SERVING",
+    "ND_MCMC_STATE",
+    "ND_MCMC_WIDE",
     "ND_SERVING",
     "ND_WIDE",
     "TEMPERING",
@@ -51,7 +58,23 @@ ND_CV = (
     "ROADMAP.md, queue 1 item 7.5 (nd control variates and expectation_fn)"
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
-ND_MCMC = "ROADMAP.md, queue 1 item 8 (nd MCMC)"
+ND_MCMC_HMC = "ROADMAP.md, queue 1 item 8.1 (nd HMC)"
+ND_MCMC_CUSTOM = (
+    "ROADMAP.md, queue 1 item 8.2 (nd MCMC over CUSTOM dimensions)"
+)
+ND_MCMC_SAMPLES = "ROADMAP.md, queue 1 item 8.3 (nd MCMC samples)"
+ND_MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 8.4 (nd MCMC diagnostics)"
+ND_MCMC_STATE = "ROADMAP.md, queue 1 item 8.5 (nd MCMC state and resume)"
+ND_MCMC_SERVING = (
+    "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
+    "param_batch)"
+)
+ND_MCMC_FAMILIES = (
+    "ROADMAP.md, queue 1 item 8.7 (nd MCMC over the extended families)"
+)
+ND_MCMC_WIDE = (
+    "ROADMAP.md, queue 1 item 8.8 (nd MCMC over more than 127 functions)"
+)
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
 API_SURFACE = "ROADMAP.md, queue 1 item 10 (remaining API surface)"
 MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
