@@ -36,9 +36,10 @@ Phases, each of which exits non-zero on failure:
    launch counts of the chain kernel and of its pilot kernel rose;
 9. at the main path's shape and configuration (error bars on, so pilot
    kernel and chain kernel): hold the kernel against the plain version as
-   in phase 7, time both (CUDA events) and time ``integrate_mcmc()`` end
-   to end (host clock), in chain-steps/s counted as 4096 x (10_000 +
-   1_000); the kernel without error bars is timed beside them;
+   in phase 7 (the plain version timed in that run), time both (CUDA
+   events) and time ``integrate_mcmc()`` end to end (host clock), in
+   chain-steps/s counted as 4096 x (10_000 + 1_000); the kernel without
+   error bars is timed beside them;
 10. finish building the nd integrate kernel (``csrc/integrate_nd.cu``) for
     c9's and c9c's integrand sets and print nvcc's register and spill
     report;
@@ -84,7 +85,32 @@ Phases, each of which exits non-zero on failure:
     clock) in chain-steps/s counted as 4096 x (10_000 + 1_000), compute
     its pipe and latency bounds, and read the device idle share of warm
     calls of c9e and of the 1-D MCMC main path from one
-    ``torch.profiler`` window each.
+    ``torch.profiler`` window each;
+19. finish building the tempered MCMC kernel (``csrc/mcmc_pt.cu``) for
+    c12's and c12c's programs and phase 20's (one library per integrand
+    set, target, mode, rung count and family tuple, all started in phase
+    2) and print nvcc's register and spill report;
+20. hold the tempered kernel against its plain version on the card in
+    every mode (adaptive walk on c12's mixture target, T = 4; a fixed walk
+    on a 1-D Distribution target, T = 3; independence N(0, 6) on the
+    mixture, T = 4; independence on a 2-D product, T = 2; a walk on c9e's
+    joint target, T = 5; error bars in walk and independence mode) at
+    4096 chains x (200 + 1000) steps, with phase 7's gates and the swap
+    rates within 1e-3;
+21. drive the tempered main path, c12: ``integrate_mcmc([x, x*x],
+    logmix, RandomWalk(step_size=0.5, adapt=True, init_range=(3, 5)),
+    temperatures=[1, 2, 4, 8], return_stderr=True, **MCMC_MAIN)``: E[x]
+    within 6 standard errors of 0 and E[x^2] of 17, the swap rate in
+    (0, 1), and the launch counts of the chain kernel and of its pilot
+    kernel rose; then c12c (independence N(0, 6)) at the same shape;
+22. at c12's shape and configuration: hold the tempered kernel against the
+    plain version once (the plain version timed in that run, CUDA events),
+    time the kernel (CUDA events) and ``integrate_mcmc()`` end to end
+    (host clock) in lane-steps/s (4 rungs x 4096 x 11,000, the unit of
+    ``benchmarks/run_all.py:508-529``) and chain-steps/s, compute its pipe
+    bound (over the T x chains / 32 warps of the step's independent rung
+    moves) and latency bound, and read the device idle share of warm c12
+    calls from one ``torch.profiler`` window.
 
 Each kernel's bound is the least time the card could take at the main
 path's shape: from the built library's SASS (``cuobjdump -sass``, read by
@@ -197,6 +223,20 @@ def c9e_target():
 def normal_target():
     """A 1-D joint log density: N(0, 1) up to its constant."""
     return lambda x: -0.5 * x * x
+
+
+def logmix(x):
+    """c12's target (``run_all.py:518-522``): 0.5 N(-4,1) + 0.5 N(4,1), up
+    to its constant; E[x] = 0, E[x^2] = 17."""
+    return math.log(
+        math.exp(-0.5 * (x + 4.0) ** 2) + math.exp(-0.5 * (x - 4.0) ** 2)
+    )
+
+
+# The tempered main path, c12 (run_all.py:518-540), at MCMC_MAIN's shape.
+PT_FNS = [lambda x: x, lambda x: x * x]
+PT_LADDER = [1.0, 2.0, 4.0, 8.0]
+PT_EXACT = [0.0, 17.0]
 
 
 def fail(msg: str) -> None:
@@ -641,6 +681,11 @@ def main() -> int:
             mcmc_nd_cuda,
             mcmc_nd_reference,
         )
+        from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+            mcmc_pt_cuda,
+            mcmc_pt_reference,
+            pt_finish,
+        )
         from tpu_montecarlo_torch.sampling import DistKind, dist_spec_of
         from tpu_montecarlo_torch.utils.dispatch import make_integrate_plan
     except ImportError as e:
@@ -738,13 +783,56 @@ def main() -> int:
         for name, fns, target, proposal, stderr in nd_mcmc_cases
     ]
 
+    # The tempered programs, each (program, config, params, ladder) as the
+    # public path packs them: c12's and c12c's at the main shape (phase
+    # 21's public calls take them from the cache), and phase 20's.
+    c12_walk = tm.RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
+    n06 = tm.Distribution.normal(0.0, 6.0)
+    pt_cells = {"c12": c12_walk, "c12c": n06}
+
+    def pt_setup(fns, target, proposal, temps, n_steps, n_burnin, stderr):
+        parsed = integ._parse_nd_mcmc_args(target, proposal)
+        return integ._pt_kernel_program(
+            fns, proposal, parsed, tuple(1.0 / t for t in temps), n_steps,
+            n_burnin, stderr)
+
+    pt_main = {
+        name: pt_setup(PT_FNS, logmix, proposal, PT_LADDER,
+                       MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True)
+        for name, proposal in pt_cells.items()
+    }
+    pt_cases = [
+        ("adaptive walk -> logmix, T=4", PT_FNS, logmix, c12_walk,
+         PT_LADDER, False),
+        ("walk -> N(1,2), T=3", PT_FNS, tm.Distribution.normal(1.0, 2.0),
+         tm.RandomWalk(step_size=1.0, init_range=(-3.0, 5.0)),
+         [1.0, 3.0, 9.0], False),
+        ("independence N(0,6) -> logmix, T=4", PT_FNS, logmix, n06,
+         PT_LADDER, False),
+        ("independence N(0.5,1.5) x Exp(1) -> U(-1,2) x Exp(1.5), T=2", f2,
+         [tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.exponential(1.5)],
+         [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.0)],
+         [1.0, 2.5], False),
+        ("walk -> c9e joint, T=5", f2, c9e_target(), tm.RandomWalk(**walk2),
+         [1.0, 2.0, 4.0, 8.0, 16.0], False),
+        ("adaptive walk -> logmix, T=4, stderr", PT_FNS, logmix, c12_walk,
+         PT_LADDER, True),
+        ("independence N(0,6) -> logmix, T=4, stderr", PT_FNS, logmix, n06,
+         PT_LADDER, True),
+    ]
+    pt_checks = [
+        (name, pt_setup(fns, target, proposal, temps, MCMC_CHECK["n_steps"],
+                        MCMC_CHECK["n_burnin"], stderr))
+        for name, fns, target, proposal, temps, stderr in pt_cases
+    ]
+
     def timed_build(prog):
         start = time.perf_counter()
         return prog.library(), time.perf_counter() - start
 
     # One nvcc per kernel source and integrand set, all started together.
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=16)
+    pool = ThreadPoolExecutor(max_workers=24)
     mcmc_builds = [
         pool.submit(timed_build, p) for p in (mcmc_program, check_program)
     ]
@@ -756,6 +844,11 @@ def main() -> int:
         [*nd_mcmc_main.values(), *(setup for _, setup in nd_mcmc_checks)]
     }.values())
     nd_mcmc_builds = [pool.submit(timed_build, p) for p in nd_mcmc_programs]
+    pt_programs = list({
+        id(setup[0]): setup[0] for setup in
+        [*pt_main.values(), *(setup for _, setup in pt_checks)]
+    }.values())
+    pt_builds = [pool.submit(timed_build, p) for p in pt_programs]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -888,15 +981,22 @@ def main() -> int:
          [0.5, -1.0, 2.0, 0.44, -1.0, 2.0], True),
     ]
 
-    def mcmc_vs_plain(prog, cfg, row, grid, phase: str) -> float:
+    def mcmc_vs_plain(prog, cfg, row, grid, phase: str):
         """Runs the kernel and the plain version on the same chains and
         fails unless they agree (tolerances in the docstring).  Returns
-        the max abs difference of the means."""
+        (the max abs difference of the means, the plain version's
+        milliseconds by CUDA events)."""
         params = torch.tensor(row, dtype=torch.float32, device=dev)
         got = mcmc_cuda(prog, cfg, params, SEED, grid)
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         want = mcmc_reference(prog.torch_fns, cfg, params, SEED, grid)
-        return chains_agree(got, want, grid, cfg, len(prog.fns), phase)
+        end.record()
+        end.synchronize()
+        err = chains_agree(got, want, grid, cfg, len(prog.fns), phase)
+        return err, start.elapsed_time(end)
 
     def chains_agree(got, want, grid, cfg, k, phase: str) -> float:
         """Fails unless two runs of the same chains (kernel and plain
@@ -940,8 +1040,8 @@ def main() -> int:
               f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps")
         cfg = McmcConfig(mode, prop, targ, MCMC_CHECK["n_steps"],
                          MCMC_CHECK["n_burnin"], stderr)
-        mcmc_err = max(mcmc_err,
-                       mcmc_vs_plain(check_program, cfg, row, check_grid, "7"))
+        mcmc_err = max(mcmc_err, mcmc_vs_plain(
+            check_program, cfg, row, check_grid, "7")[0])
 
     # 8. The MCMC main path, through the public API, counted.
     target, proposal = tm.Distribution.normal(0.0, 1.0), tm.Distribution.normal(0.0, 2.0)
@@ -978,8 +1078,10 @@ def main() -> int:
     main_cfg = McmcConfig(Mode.INDEPENDENCE, n, n, MCMC_MAIN["n_steps"],
                           MCMC_MAIN["n_burnin"], with_stderr=True)
     main_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
-    mcmc_err = max(mcmc_err, mcmc_vs_plain(
-        mcmc_program, main_cfg, main_row, main_grid, "9"))
+    # The plain version is timed in the run that holds the kernel to it.
+    err, mcmc_plain_ms = mcmc_vs_plain(mcmc_program, main_cfg, main_row,
+                                       main_grid, "9")
+    mcmc_err = max(mcmc_err, err)
     params = torch.tensor(main_row, dtype=torch.float32, device=dev)
     mcmc_ms = time_ms(
         lambda: mcmc_cuda(mcmc_program, main_cfg, params, SEED, main_grid),
@@ -990,11 +1092,6 @@ def main() -> int:
         lambda: mcmc_cuda(mcmc_program, no_stderr_cfg, params, SEED,
                           main_grid),
         reps=10,
-    )
-    mcmc_plain_ms = time_ms(
-        lambda: mcmc_reference(mcmc_program.torch_fns, main_cfg, params,
-                               SEED, main_grid),
-        reps=1,
     )
     call_s = []
     for _ in range(5):
@@ -1338,6 +1435,134 @@ def main() -> int:
     idle_share(lambda: tm.integrate_mcmc(MCMC_MAIN_FNS, target, proposal,
                                          return_stderr=True, **MCMC_MAIN))
 
+    # 19. The tempered kernel's builds, started in phase 2.
+    built = [b.result() for b in pt_builds]
+    pool.shutdown()
+    print(f"phase 19: built the tempered MCMC kernel for {len(built)} sets "
+          "(c12, c12c and phase 20's) in "
+          + ", ".join(f"{sec:.1f}" for _, sec in built)
+          + " s (in parallel with phase 2)")
+    for pt_lib, _ in built:
+        for line in pt_lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # 20. Tempered kernel against the plain version in every mode.
+    def pt_vs_plain(prog, cfg, params, ladder, grid, phase: str):
+        """The kernel against the plain version on the same ladders, as
+        phase 7, and their swap rates within 1e-3.  Returns (max abs
+        difference of the means, the plain version's milliseconds by CUDA
+        events, the kernel's swap rate)."""
+        got = mcmc_pt_cuda(prog, cfg, params, ladder, SEED, grid)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mcmc_pt_reference(prog.torch_fns, prog.torch_target, cfg,
+                                 params, ladder, SEED, grid)
+        end.record()
+        end.synchronize()
+        k = len(prog.fns)
+        err = chains_agree(got, want, grid, cfg, k, phase)
+        w_k, w_p = (float(pt_finish(t, grid, cfg, k)[2]) for t in (got, want))
+        print(f"         swap rate kernel {w_k:.6f} plain {w_p:.6f}")
+        if not (0.0 < w_k < 1.0 and abs(w_k - w_p) <= 1e-3):
+            fail(f"phase {phase}: swap rates disagree or are not in (0, 1)")
+        return err, start.elapsed_time(end), w_k
+
+    pt_err = 0.0
+    for name, (prog, cfg, params, ladder) in pt_checks:
+        print(f"phase 20: {name}, {check_grid.chains_actual} chains x "
+              f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps")
+        pt_err = max(pt_err, pt_vs_plain(prog, cfg, params, ladder,
+                                         check_grid, "20")[0])
+
+    # 21. The tempered main path (c12), then c12c, through the public API,
+    # each counted.
+    def pt_call(proposal):
+        return tm.integrate_mcmc(PT_FNS, logmix, proposal,
+                                 temperatures=PT_LADDER, return_stderr=True,
+                                 **MCMC_MAIN)
+
+    for name, pt_proposal in pt_cells.items():
+        mcmc_pt_cuda.launches = mcmc_pt_cuda.pilot_launches = 0
+        t0 = time.perf_counter()
+        r = pt_call(pt_proposal)
+        main_s = time.perf_counter() - t0
+        launches_pt = mcmc_pt_cuda.launches, mcmc_pt_cuda.pilot_launches
+        swap = r.diagnostics["swap_rate"]
+        print(f"phase 21: {name}, integrate_mcmc([x, x*x], logmix, "
+              f"temperatures={PT_LADDER}, {MCMC_MAIN}, return_stderr=True) "
+              f"in {main_s:.3f} s (host clock), {launches_pt[0]} chain kernel "
+              f"and {launches_pt[1]} pilot kernel launch(es)")
+        if launches_pt[0] < 1 or launches_pt[1] < 1:
+            fail(f"{name} did not launch the tempered kernel and its pilot")
+        v, se = np.asarray(r.values), np.asarray(r.stderr)
+        if v.shape != (2,) or not (np.all(np.isfinite(v)) and np.all(se > 0)):
+            fail(f"bad {name} result {v!r} +- {se!r}")
+        z = (v - np.asarray(PT_EXACT)) / se
+        print(f"  E[x] = {v[0]:.6f} +- {se[0]:.6f} (z = {z[0]:+.2f}), "
+              f"E[x^2] = {v[1]:.6f} +- {se[1]:.6f} (z = {z[1]:+.2f}), "
+              f"acceptance {r.acceptance_rate:.4f}, swap rate {swap:.4f}, "
+              f"n_samples {r.n_samples}")
+        if np.any(np.abs(z) > 6.0) or not 0.0 < r.acceptance_rate < 1.0:
+            fail(f"{name}: E[x], E[x^2] are not within 6 stderr of 0, 17")
+        if not 0.0 < swap < 1.0:
+            fail(f"{name}: swap rate {swap} is not in (0, 1)")
+        if name == "c12":
+            pt_launches, pt_pilot_launches = launches_pt
+            pt_swap = swap
+
+    # 22. Tempered kernel and plain version at c12's shape and
+    # configuration.
+    prog, cfg, params, ladder = pt_main["c12"]
+    err, pt_plain_ms, _ = pt_vs_plain(prog, cfg, params, ladder, main_grid,
+                                      "22")
+    pt_err = max(pt_err, err)
+    pt_ms = time_ms(
+        lambda: mcmc_pt_cuda(prog, cfg, params, ladder, SEED, main_grid),
+        reps=10,
+    )
+    call_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pt_call(c12_walk)
+        call_s.append(time.perf_counter() - t0)
+    pt_call_ms = float(np.median(call_s)) * 1e3
+    lane_steps = cfg.n_temps * chain_steps
+    print(f"phase 22: {main_grid.chains_actual} chains x {cfg.n_temps} rungs "
+          f"x ({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, c12 "
+          f"[x, x*x], adaptive walk -> logmix, stderr, on {card}: kernel "
+          f"{pt_ms:.3f} ms ({lane_steps / pt_ms * 1e3:.4e} lane-steps/s, "
+          f"{chain_steps / pt_ms * 1e3:.4e} chain-steps/s), plain "
+          f"{pt_plain_ms:.3f} ms ({lane_steps / pt_plain_ms * 1e3:.4e} "
+          f"lane-steps/s), integrate_mcmc() end to end {pt_call_ms:.3f} ms "
+          f"median of 5, host clock ({lane_steps / pt_call_ms * 1e3:.4e} "
+          f"lane-steps/s)")
+    # Bounds as phase 18's, per chain-step (every rung of the ladder): T
+    # rungs' d + 1 uniform conversions and, on the cheapest path, the
+    # parity with fewer pairs' swap draws.  The T rung moves of a step are
+    # independent, so the work spans T x chains lanes (4 x 4096: 512
+    # warps), though the kernel runs one ladder per thread (128 warps).
+    mhz = clock_under_load(
+        lambda: mcmc_pt_cuda(prog, cfg, params, ladder, SEED, main_grid),
+        pt_ms,
+    )
+    pt_conversions = cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2
+    pt_bound = card_bound(
+        prog.library(), "mcmc_pt_kernel", pt_conversions, chain_steps, mhz,
+        warps=cfg.n_temps * main_grid.chains_actual // 32,
+        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
+    )
+    print_bound(pt_bound, mhz, "chain-step")
+    pt_latency = latency_ms(pt_bound[3]["chain"], steps, mhz)
+    print(f"  latency bound {pt_latency:.3f} ms: {steps} steps per chain x "
+          f"{pt_bound[3]['chain']:g} dependent instructions per step x "
+          f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
+          f"applies")
+    print("  c12:", end="")
+    idle_share(lambda: pt_call(c12_walk))
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -1399,6 +1624,23 @@ def main() -> int:
         "issue_ms": nd_mcmc_bound[2],
         "latency_ms": nd_mcmc_latency,
         "library_ms": None,
+    }, {
+        "name": "mcmc_pt",
+        "route": "cuda",
+        "source": "tpu_montecarlo_torch/csrc/mcmc_pt.cu",
+        "replaces": "tpu_montecarlo/ops/mcmc_pt_pallas.py:332",
+        "launches": pt_launches,
+        "pilot_launches": pt_pilot_launches,
+        "max_abs_err": pt_err,
+        "ms": pt_ms,
+        "plain_ms": pt_plain_ms,
+        "bound_ms": pt_bound[0],
+        "bound_by": "operations",
+        "bound_pipe": pt_bound[1],
+        "issue_ms": pt_bound[2],
+        "latency_ms": pt_latency,
+        "library_ms": None,
+        "swap_rate": pt_swap,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (integrate, MCMC, nd integrate, nd MCMC)
-against their plain PyTorch versions.
+"""The port's CUDA kernels (integrate, MCMC, nd integrate, nd MCMC,
+tempered MCMC) against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX, so it also runs where JAX is not installed; the
@@ -613,3 +613,183 @@ def test_nd_mcmc_kernel_rejects_bad_params(cuda_device):
     )
     with pytest.raises(ValueError, match="float32"):
         mcmc_nd_cuda(program, cfg, params.double(), 42, plan_mcmc_grid(1024))
+
+
+# -- the tempered MCMC kernel (csrc/mcmc_pt.cu) --------------------------------
+#
+# The kernel and its plain version run the same ladders, so the nd MCMC
+# tolerances hold, and the swap rates agree within 1e-3.
+
+
+def _logmix(x):
+    # c12's target (benchmarks/run_all.py:518-522): 0.5 N(-4,1) + 0.5 N(4,1).
+    return math.log(
+        math.exp(-0.5 * (x + 4.0) ** 2) + math.exp(-0.5 * (x - 4.0) ** 2)
+    )
+
+
+_C12_WALK = dict(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
+_LADDER4 = [1.0, 2.0, 4.0, 8.0]
+# id: (target: a Distribution list, a Distribution or a maker of the joint
+# log density; proposal: Distribution(s) or RandomWalk keyword arguments;
+# temperatures; stderr)
+PT_CASES = {
+    "adaptive-walk-logmix-T4": (lambda: _logmix, _C12_WALK, _LADDER4, False),
+    "walk-1d-distribution-T3": (
+        tm.Distribution.normal(1.0, 2.0),
+        dict(step_size=1.0, init_range=(-3.0, 5.0)), [1.0, 3.0, 9.0], False,
+    ),
+    "independence-logmix-T4": (
+        lambda: _logmix, tm.Distribution.normal(0.0, 6.0), _LADDER4, False,
+    ),
+    "independence-2d-product-T2": (
+        [tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.exponential(1.5)],
+        [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.0)],
+        [1.0, 2.5], False,
+    ),
+    "walk-c9e-T5": (_c9e_target, _WALK, [1.0, 2.0, 4.0, 8.0, 16.0], False),
+    "adaptive-walk-logmix-stderr": (
+        lambda: _logmix, _C12_WALK, _LADDER4, True,
+    ),
+    "independence-logmix-stderr": (
+        lambda: _logmix, tm.Distribution.normal(0.0, 6.0), _LADDER4, True,
+    ),
+}
+
+
+def _pt_setup(target, proposal, temps, stderr, fns, device, n_steps,
+              n_burnin):
+    """(program, cfg, params, ladder) of one tempered run, as the public
+    path builds and packs them."""
+    integ = tm.MonteCarloIntegrator(device=device)
+    if callable(target):
+        target = target()
+    if isinstance(proposal, dict):
+        proposal = tm.RandomWalk(**proposal)
+    parsed = integ._parse_nd_mcmc_args(target, proposal)
+    return integ._pt_kernel_program(
+        fns, proposal, parsed, tuple(1.0 / t for t in temps), n_steps,
+        n_burnin, stderr,
+    )
+
+
+def _check_pt(program, cfg, params, ladder, grid):
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        mcmc_pt_cuda,
+        mcmc_pt_reference,
+        pt_finish,
+    )
+
+    before = mcmc_pt_cuda.launches, mcmc_pt_cuda.pilot_launches
+    got = mcmc_pt_cuda(program, cfg, params, ladder, 42, grid)
+    torch.cuda.synchronize()
+    assert mcmc_pt_cuda.launches == before[0] + 1
+    assert mcmc_pt_cuda.pilot_launches == before[1] + int(cfg.with_stderr)
+    want = mcmc_pt_reference(program.torch_fns, program.torch_target, cfg,
+                             params, ladder, 42, grid)
+    x_k, x_p = got.x_final.cpu(), want.x_final.cpu()
+    assert x_k.shape == (cfg.d, grid.chains_actual) and torch.isfinite(x_k).all()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%} split"
+    k = len(program.fns)
+    v_k, a_k, w_k, s_k = pt_finish(got, grid, cfg, k)
+    v_p, a_p, w_p, s_p = pt_finish(want, grid, cfg, k)
+    _, _, _, se = pt_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert torch.isfinite(v_k).all()
+    assert abs(float(a_k) - float(a_p)) <= 1e-3
+    assert abs(float(w_k) - float(w_p)) <= 1e-3 and 0.0 < float(w_k) < 1.0
+    np.testing.assert_array_less(
+        (v_k - v_p).abs().cpu().numpy(), (0.2 * se + 1e-6).cpu().numpy()
+    )
+    if cfg.with_stderr:
+        np.testing.assert_allclose(
+            s_k.cpu().numpy(), s_p.cpu().numpy(), rtol=STDERR_RTOL
+        )
+
+
+def _pt_fns(d):
+    return ND_MCMC_FNS[d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PT_CASES))
+def test_pt_kernel_matches_plain_version(cuda_device, case):
+    target, proposal, temps, stderr = PT_CASES[case]
+    d = 2 if isinstance(target, list) or target is _c9e_target else 1
+    setup = _pt_setup(target, proposal, temps, stderr, _pt_fns(d),
+                      cuda_device, n_steps=1000, n_burnin=200)
+    _check_pt(*setup, plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+def test_pt_kernel_sixteen_rungs(cuda_device):
+    # T = 16 rungs of d = 2, the widest ladder here: 16 x (2 states, logp,
+    # log scale) in registers.  nvcc's register and spill report (empty
+    # when the library is cached); pytest -rP shows it.
+    temps = [1.5 ** t for t in range(16)]
+    program, cfg, params, ladder = _pt_setup(
+        _c9e_target, dict(_WALK, adapt=True), temps, True, _pt_fns(2),
+        cuda_device, n_steps=300, n_burnin=100,
+    )
+    for line in program.library().build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    _check_pt(program, cfg, params, ladder,
+              plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+def test_widest_pt_kernel_with_error_bars(cuda_device):
+    # 126 integrands, the most the kernel takes, with error bars, on c12's
+    # ladder: 126 float32 sums per thread beside the ladder.
+    fns = WIDEST[:MAX_FUNCTIONS - 2]
+    program, cfg, params, ladder = _pt_setup(
+        lambda: _logmix, _C12_WALK, _LADDER4, True, fns, cuda_device,
+        n_steps=200, n_burnin=50,
+    )
+    for line in program.library().build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    _check_pt(program, cfg, params, ladder,
+              plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+def test_integrate_mcmc_tempered_on_cuda_matches_cpu(cuda_device):
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    kw = dict(n_steps=500, n_chains=2048, n_burnin=100, seed=3,
+              return_stderr=True, temperatures=_LADDER4)
+    for proposal in (tm.RandomWalk(**_C12_WALK),
+                     tm.Distribution.normal(0.0, 6.0)):
+        before = mcmc_pt_cuda.launches, mcmc_pt_cuda.pilot_launches
+        got = tm.integrate_mcmc(ND_MCMC_FNS[1], _logmix, proposal,
+                                device=cuda_device, **kw)
+        assert mcmc_pt_cuda.launches == before[0] + 1
+        assert mcmc_pt_cuda.pilot_launches == before[1] + 1
+        want = tm.integrate_mcmc(ND_MCMC_FNS[1], _logmix, proposal,
+                                 device="cpu", **kw)
+        assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
+        assert abs(got.diagnostics["swap_rate"]
+                   - want.diagnostics["swap_rate"]) <= 1e-3
+        np.testing.assert_array_less(
+            np.abs(got.values - want.values), 0.2 * want.stderr + 1e-6
+        )
+        np.testing.assert_allclose(got.stderr, want.stderr, rtol=STDERR_RTOL)
+
+
+@pytest.mark.cuda
+def test_pt_kernel_rejects_bad_params(cuda_device):
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    program, cfg, params, ladder = _pt_setup(
+        lambda: _logmix, _C12_WALK, _LADDER4, False, _pt_fns(1), cuda_device,
+        10, 2,
+    )
+    grid = plan_mcmc_grid(1024)
+    with pytest.raises(ValueError, match="float32"):
+        mcmc_pt_cuda(program, cfg, params.double(), ladder, 42, grid)
+    with pytest.raises(ValueError, match=r"\(7,\) float32"):
+        mcmc_pt_cuda(program, cfg, params, ladder[:5], 42, grid)
+    with pytest.raises(ValueError, match="ladder on cpu"):
+        mcmc_pt_cuda(program, cfg, params, ladder.cpu(), 42, grid)

@@ -9,9 +9,11 @@ up to 128 integrands over one shared stream); multi-dimensional
 plain MC, antithetic or Sobol QMC, with error bars (pilot-shifted squares,
 or randomized QMC), in a second kernel; 1-D Metropolis-Hastings,
 ``integrate_mcmc``, with independence, random-walk and adaptive
-random-walk proposals and error bars, in a third; and the same over d
+random-walk proposals and error bars, in a third; the same over d
 dimensions, under a product of Distributions or a joint log density, in
-a fourth.  It imports torch and numpy, never jax.
+a fourth; and parallel tempering of those chains over a ladder of
+temperatures, ``integrate_mcmc(..., temperatures=[1.0, ...])``, in a
+fifth.  It imports torch and numpy, never jax.
 
 Example:
     >>> from tpu_montecarlo_torch import (

@@ -11,10 +11,11 @@ from .cache import GLOBAL_CACHE
 from .integrate import _IntegrateMixin
 from .mcmc import _McmcMixin
 from .mcmc_nd import _McmcNdMixin
+from .tempering import _PtMixin
 
 
 class MonteCarloIntegrator(
-    _BaseMixin, _IntegrateMixin, _McmcMixin, _McmcNdMixin
+    _BaseMixin, _IntegrateMixin, _McmcMixin, _McmcNdMixin, _PtMixin
 ):
     """Monte Carlo integrator for expected values on an NVIDIA GPU.
 
@@ -22,7 +23,8 @@ class MonteCarloIntegrator(
     (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, over
     one distribution or a list of d independent ones (d-ary integrands),
     and runs Metropolis-Hastings chains for ``integrate_mcmc``, over one
-    dimension or d (a product or joint log-density target).
+    dimension or d (a product or joint log-density target), tempered over
+    a ladder of temperatures on request.
 
     Args:
         target_threads: lane-width knob kept from the reference API

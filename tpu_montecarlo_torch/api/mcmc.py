@@ -1,7 +1,8 @@
 """MCMC (port of the Pallas paths of ``tpu_montecarlo/api/mcmc.py``):
 ``integrate_mcmc`` with independence, random-walk and adaptive
 random-walk proposals, with error bars on request, over one dimension
-(``ops/mcmc_kernel.py``) or d (``api/mcmc_nd.py``).
+(``ops/mcmc_kernel.py``) or d (``api/mcmc_nd.py``), and tempered over a
+ladder of temperatures (``api/tempering.py``).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
@@ -34,7 +35,7 @@ from ..utils.roadmap import (
     MCMC_STATE,
     MCMC_WIDE,
     ND_MCMC_SERVING,
-    TEMPERING,
+    PT_SERVING,
     not_ported,
 )
 from .cache import fns_key
@@ -103,9 +104,17 @@ class _McmcMixin:
         (d from the target; a joint target needs its ``init_range``).
         The functions then take d arguments.
 
+        Parallel tempering: ``temperatures=[1.0, T_2, ..., T_R]`` (strictly
+        increasing, at least two rungs) runs a ladder of R replicas of
+        every chain against ``p(x)^(1/T)`` with even/odd adjacent
+        exchanges; only the cold rung enters the estimates and the
+        acceptance rate, and ``result.diagnostics["swap_rate"]`` is the
+        accepted share of the attempted exchanges.  Takes the proposals
+        and targets above, with error bars; at most 126 functions.
+
         Not ported yet, each raising ``NotImplementedError`` naming its
         ROADMAP item: ``initial_state``/``return_state``,
-        ``return_diagnostics``, ``return_samples``, ``temperatures``, HMC,
+        ``return_diagnostics``, ``return_samples``, HMC (tempered too),
         CUSTOM and extended families, more than 127 functions.
         """
         if len(functions) == 0:
@@ -139,7 +148,12 @@ class _McmcMixin:
                     f"got {return_samples}"
                 )
         if temperatures is not None:
-            raise not_ported("parallel tempering (temperatures=)", TEMPERING)
+            return self._integrate_mcmc_pt(
+                functions, target_distribution, proposal_distribution,
+                temperatures, n_steps, n_chains, n_burnin, seed,
+                initial_state, return_state, return_stderr,
+                return_diagnostics, return_samples,
+            )
         if isinstance(proposal_distribution, RandomWalk):
             _check_random_walk_args(
                 proposal_distribution, n_burnin,
@@ -183,7 +197,10 @@ class _McmcMixin:
                      proposal_distribution, *args, **kwargs):
         """Ahead-of-time MCMC handles (with seed and param batches) are not
         ported yet: raises ``NotImplementedError`` naming the ROADMAP item
-        (nd or 1-D)."""
+        (tempered, nd or 1-D)."""
+        if kwargs.get("temperatures") is not None:
+            raise not_ported("compile_mcmc, seed_batch and param_batch with "
+                             "temperatures", PT_SERVING)
         if is_nd_call(target_distribution, proposal_distribution):
             raise not_ported("compile_mcmc, seed_batch and param_batch for "
                              "nd MCMC", ND_MCMC_SERVING)

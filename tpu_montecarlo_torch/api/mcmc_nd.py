@@ -96,16 +96,18 @@ def _target_arity(target) -> int:
     )
 
 
-def _dim_specs(dists):
-    """Packed specs of nd MCMC dimensions; the families the nd kernel
-    does not take yet raise, naming their ROADMAP item."""
+def _dim_specs(dists, what="nd MCMC", custom_item=ND_MCMC_CUSTOM,
+               families_item=ND_MCMC_FAMILIES):
+    """Packed specs of MCMC dimensions; the families the kernel does not
+    take yet raise, naming their ROADMAP item (``what`` names the path in
+    the message)."""
     for dd in dists:
         if dd.dist_type == DistributionType.CUSTOM:
-            raise not_ported("CUSTOM dimensions in nd MCMC", ND_MCMC_CUSTOM)
+            raise not_ported(f"CUSTOM dimensions in {what}", custom_item)
         if dd.dist_type not in _PORTED_TYPES:
             raise not_ported(
-                f"{dd.dist_type.name.lower()} dimensions in nd MCMC",
-                ND_MCMC_FAMILIES,
+                f"{dd.dist_type.name.lower()} dimensions in {what}",
+                families_item,
             )
     return [dist_spec_of(dd) for dd in dists]
 
@@ -238,6 +240,27 @@ class _McmcNdMixin:
                 f"nd MCMC over more than {MAX_FUNCTIONS} functions",
                 ND_MCMC_WIDE,
             )
+        mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
+                                            targ_specs)
+        cfg = McmcNdConfig(
+            mode, d,
+            () if prop_specs is None else tuple(s.kind for s in prop_specs),
+            None if targ_specs is None else tuple(s.kind for s in targ_specs),
+            n_steps, n_burnin, return_stderr,
+        )
+        target_key = None if target_fn is None else target_fn.key
+        program = self._cache.get_or_build(
+            ("mcmc_nd", fns_key(traced), target_key, cfg.compiled),
+            lambda: McmcNdProgram(traced, cfg, target_fn),
+        )
+        return program, cfg, params
+
+    def _nd_mcmc_params(self, proposal, parsed, prop_specs, targ_specs):
+        """``(mode, params)``: the proposal mode and the (d, 6) float32
+        rows the nd and tempered kernels read, on the integrator's device
+        (the walk's or the proposal's four floats, then the target's
+        two, zeros for a joint target)."""
+        proposals, targets, _, d = parsed
         if proposals is None:
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
             prop_rows = proposal.pack_params_nd(targets, d)
@@ -246,12 +269,6 @@ class _McmcNdMixin:
             prop_rows = np.asarray(
                 [[*s.params, 0.0, 0.0] for s in prop_specs], np.float32
             )
-        cfg = McmcNdConfig(
-            mode, d,
-            () if prop_specs is None else tuple(s.kind for s in prop_specs),
-            None if targ_specs is None else tuple(s.kind for s in targ_specs),
-            n_steps, n_burnin, return_stderr,
-        )
         targ_rows = (
             np.zeros((d, 2), np.float32) if targ_specs is None
             else np.stack([s.params for s in targ_specs])
@@ -260,12 +277,7 @@ class _McmcNdMixin:
             np.concatenate([prop_rows, targ_rows], axis=1),
             dtype=torch.float32, device=self._device,
         )
-        target_key = None if target_fn is None else target_fn.key
-        program = self._cache.get_or_build(
-            ("mcmc_nd", fns_key(traced), target_key, cfg.compiled),
-            lambda: McmcNdProgram(traced, cfg, target_fn),
-        )
-        return program, cfg, params
+        return mode, params
 
     def _run_mcmc_nd(self, program, cfg, params, seed, n_chains, n_functions):
         """One nd run on the kernel (a CPU integrator: its plain version)."""

@@ -1,0 +1,152 @@
+"""Parallel tempering (port of ``tpu_montecarlo/api/tempering.py:72-187``
+and ``:496-614``): ladder validation and the tempered run on the
+tempered kernel (``ops/mcmc_pt_kernel.py``).
+
+The JAX package sends tempered work its kernel cannot take, and all of it
+off the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
+``jax.random``; the port has no such twin, so it agrees chain for chain
+only with the JAX package's ``backend="pallas"`` runs, and it has no VMEM
+gate (``pt_vmem_fits``): every ladder it takes runs in its kernel.  What
+it does not take yet raises ``NotImplementedError`` naming its ROADMAP
+item."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..distributions import HMC, RandomWalk
+from ..ops.mcmc_kernel import plan_chains, plan_mcmc_grid
+from ..ops.mcmc_pt_kernel import (
+    MAX_PT_FUNCTIONS,
+    McmcPtConfig,
+    McmcPtProgram,
+    mcmc_pt_cuda,
+    pack_ladder,
+    pt_finish,
+)
+from ..utils.roadmap import (
+    PT_CUSTOM,
+    PT_DIAGNOSTICS,
+    PT_FAMILIES,
+    PT_HMC,
+    PT_SAMPLES,
+    PT_WIDE,
+    not_ported,
+)
+from .cache import fns_key
+from .mcmc import _check_random_walk_args
+from .mcmc_nd import _dim_specs
+from .results import IntegrationResult
+
+
+def _pt_dim_specs(dists):
+    return _dim_specs(dists, "tempered MCMC", PT_CUSTOM, PT_FAMILIES)
+
+
+class _PtMixin:
+    def _integrate_mcmc_pt(
+        self, functions, target, proposal, temperatures, n_steps,
+        n_chains, n_burnin, seed, initial_state, return_state,
+        return_stderr, return_diagnostics, return_samples,
+    ) -> IntegrationResult:
+        """Parallel tempering (replica exchange): T replicas of every
+        chain run against ``pi^(1/T_t)`` and adjacent rungs exchange
+        states, so the cold (T = 1) chains, the only ones that enter the
+        estimates, mix across modes that trap a local sampler.  The
+        result carries ``diagnostics={"swap_rate": ...}``, the accepted
+        share of the attempted exchanges."""
+        temps = [float(t) for t in temperatures]
+        if len(temps) < 2:
+            raise ValueError(
+                "temperatures needs >= 2 rungs (the first is the "
+                f"target itself), got {temps}"
+            )
+        if temps[0] != 1.0:
+            raise ValueError(
+                f"temperatures must start at 1.0 (the true target), "
+                f"got {temps}"
+            )
+        if any(
+            not np.isfinite(t) or t2 <= t1
+            for t, (t1, t2) in zip(temps[1:], zip(temps, temps[1:]))
+        ):
+            raise ValueError(
+                f"temperatures must be finite and strictly increasing, "
+                f"got {temps}"
+            )
+        if return_state or initial_state is not None:
+            raise ValueError(
+                "temperatures applies to stateless MCMC runs only "
+                "(the ladder state is not checkpointed)"
+            )
+        if return_samples and not 1 <= int(return_samples) <= n_steps:
+            raise ValueError(
+                f"return_samples must be in [1, n_steps={n_steps}], "
+                f"got {return_samples}"
+            )
+        if return_diagnostics and n_steps < 4:
+            raise ValueError("return_diagnostics needs n_steps >= 4")
+        if isinstance(proposal, RandomWalk):
+            _check_random_walk_args(proposal, n_burnin, False)
+        betas = tuple(1.0 / t for t in temps)
+        parsed = self._parse_nd_mcmc_args(target, proposal)
+        if isinstance(proposal, HMC):
+            raise not_ported("tempered HMC", PT_HMC)
+        if return_samples:
+            raise not_ported("return_samples with temperatures", PT_SAMPLES)
+        if return_diagnostics:
+            raise not_ported("return_diagnostics with temperatures",
+                             PT_DIAGNOSTICS)
+        program, cfg, params, ladder = self._pt_kernel_program(
+            functions, proposal, parsed, betas, n_steps, n_burnin,
+            return_stderr,
+        )
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid)
+        values, acceptance, swap_rate, stderr = pt_finish(
+            out, grid, cfg, len(program.fns)
+        )
+        return IntegrationResult(
+            values=values.cpu().numpy(),
+            n_samples=n_chains * n_steps,
+            n_functions=len(functions),
+            acceptance_rate=float(acceptance),
+            stderr=None if stderr is None else stderr.cpu().numpy(),
+            diagnostics={"swap_rate": float(swap_rate)},
+        )
+
+    def _pt_kernel_program(
+        self, functions, proposal, parsed, betas, n_steps, n_burnin,
+        return_stderr,
+    ):
+        """``(program, cfg, params, ladder)`` of one tempered run: the
+        cached :class:`McmcPtProgram` (per integrands, target, mode, rungs
+        and families), its config, the (d, 6) float32 parameter rows and
+        the (2T - 1,) float32 ladder of ``betas`` on the integrator's
+        device.  ``parsed`` is :meth:`_parse_nd_mcmc_args`'s result for
+        ``proposal``."""
+        proposals, targets, target_fn, d = parsed
+        traced = self._trace_user_functions(functions, n_args=d)
+        if len(traced) > MAX_PT_FUNCTIONS:
+            raise not_ported(
+                f"tempering over more than {MAX_PT_FUNCTIONS} functions",
+                PT_WIDE,
+            )
+        prop_specs = None if proposals is None else _pt_dim_specs(proposals)
+        targ_specs = None if targets is None else _pt_dim_specs(targets)
+        mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
+                                            targ_specs)
+        cfg = McmcPtConfig(
+            mode, d,
+            () if prop_specs is None else tuple(s.kind for s in prop_specs),
+            None if targ_specs is None else tuple(s.kind for s in targ_specs),
+            n_steps, n_burnin, return_stderr, n_temps=len(betas),
+        )
+        target_key = None if target_fn is None else target_fn.key
+        program = self._cache.get_or_build(
+            ("mcmc_pt", fns_key(traced), target_key, cfg.compiled),
+            lambda: McmcPtProgram(traced, cfg, target_fn),
+        )
+        ladder = torch.tensor(pack_ladder(betas), device=self._device)
+        return program, cfg, params, ladder

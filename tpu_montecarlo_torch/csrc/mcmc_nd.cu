@@ -63,96 +63,11 @@
 // independence TMC_PROP_KINDS; TMC_TARG_KINDS for a product target, else
 // tmc_target_logpdf(const float* x).
 #include "tmc_integrands.inc"
-
-#ifndef TMC_PROP_KINDS
-#define TMC_PROP_KINDS 0  // walks draw from no proposal family
-#endif
+// Params, the families, log_target, log_proposal, initial_x, warp_sum and
+// the pilot kernel, shared with mcmc_pt.cu.
+#include "mcmc_nd_common.cuh"
 
 namespace {
-
-enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
-constexpr int kMode = TMC_MODE;
-
-// One warp per block (ops/mcmc_kernel.py: CHAIN_THREADS); see the header.
-constexpr int kChainThreads = 32;
-constexpr int kPilotThreads = 256;
-constexpr int kRow = 6;  // floats per dimension in params
-constexpr float kLogScaleMin = -13.815511f;
-constexpr float kLogScaleMax = 13.815511f;
-
-// Per dimension j, the params row: the proposal's (p1, p2, -, -) or the
-// walk's (step, init_lo, init_hi, target_accept), then the target's
-// (p1, p2).
-struct Params {
-  float q1[TMC_D], q2[TMC_D], q3[TMC_D], q4[TMC_D], t1[TMC_D], t2[TMC_D];
-};
-
-__device__ __forceinline__ Params load_params(const float* p) {
-  Params r;
-#pragma unroll
-  for (int j = 0; j < TMC_D; ++j) {
-    r.q1[j] = p[j * kRow];
-    r.q2[j] = p[j * kRow + 1];
-    r.q3[j] = p[j * kRow + 2];
-    r.q4[j] = p[j * kRow + 3];
-    r.t1[j] = p[j * kRow + 4];
-    r.t2[j] = p[j * kRow + 5];
-  }
-  return r;
-}
-
-// The family of proposal dimension j.  Called with j unrolled, so it folds
-// to a constant and each family branch is resolved at compile time.
-__device__ __forceinline__ int prop_kind(int j) {
-  const int kinds[TMC_D] = {TMC_PROP_KINDS};
-  return kinds[j];
-}
-
-__device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
-                                         uint32_t tag, uint32_t pos) {
-  return tmc::mantissa(tmc::block_base(state, counter, tag), pos);
-}
-
-// The target's log density at x: the product's dimensions in order, or
-// the joint log density.
-__device__ __forceinline__ float log_target(const float* x, const Params& p) {
-#ifdef TMC_TARG_KINDS
-  const int kinds[TMC_D] = {TMC_TARG_KINDS};
-  float tot = tmc::log_pdf(kinds[0], p.t1[0], p.t2[0], x[0]);
-#pragma unroll
-  for (int j = 1; j < TMC_D; ++j) {
-    tot = tot + tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x[j]);
-  }
-  return tot;
-#else
-  return tmc_target_logpdf(x);
-#endif
-}
-
-// The independence proposal's log density at x, dimensions in order.
-__device__ __forceinline__ float log_proposal(const float* x,
-                                              const Params& p) {
-  float tot = tmc::log_pdf(prop_kind(0), p.q1[0], p.q2[0], x[0]);
-#pragma unroll
-  for (int j = 1; j < TMC_D; ++j) {
-    tot = tot + tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j]);
-  }
-  return tot;
-}
-
-// The chain's state at counter 0.
-__device__ __forceinline__ void initial_x(const Params& p, uint32_t state,
-                                          uint32_t pos, float* x) {
-#pragma unroll
-  for (int j = 0; j < TMC_D; ++j) {
-    const uint32_t m = draw(state, 0u, uint32_t(j), pos);
-    if (kMode == kIndependence) {
-      x[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
-    } else {
-      x[j] = p.q2[j] + (p.q3[j] - p.q2[j]) * tmc::halfopen01(m);
-    }
-  }
-}
 
 // One MH step at global index i: moves (x, logp, logq) and returns
 // whether the proposal was accepted; *log_alpha receives the log
@@ -191,47 +106,6 @@ __device__ __forceinline__ bool mh_step(const Params& p, uint32_t state,
   }
   *log_alpha = la;
   return accept;
-}
-
-// Sums `v` over the warp with a fixed shuffle tree; lane 0 gets the sum.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__global__ void __launch_bounds__(kPilotThreads)
-mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
-                     int chains_per_program, float* __restrict__ pilots) {
-  const Params p = load_params(params);
-  const uint32_t pid = blockIdx.x;
-  const uint32_t state = tmc::seed_state(seed, pid);
-  float acc[TMC_K];
-#pragma unroll
-  for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
-  float x[TMC_D], vals[TMC_K];
-  for (int pos = threadIdx.x; pos < chains_per_program;
-       pos += kPilotThreads) {
-    initial_x(p, state, uint32_t(pos), x);
-    tmc_values_nd(x, vals);
-#pragma unroll
-    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k];
-  }
-  __shared__ float scratch[kPilotThreads / 32][TMC_K];
-#pragma unroll
-  for (int k = 0; k < TMC_K; ++k) {
-    const float s = warp_sum(acc[k]);
-    if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32][k] = s;
-  }
-  __syncthreads();
-  const float n_block = float(chains_per_program);
-  for (int k = threadIdx.x; k < TMC_K; k += kPilotThreads) {
-    float s = 0.0f;
-    for (int w = 0; w < kPilotThreads / 32; ++w) s += scratch[w][k];
-    pilots[pid * TMC_K + k] = s / n_block;
-  }
 }
 
 __global__ void __launch_bounds__(kChainThreads)
@@ -336,10 +210,8 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
 extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
                                   int chains_per_program, int programs,
                                   float* pilots, void* stream) {
-  mcmc_nd_pilot_kernel<<<programs, kPilotThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      seed, params, chains_per_program, pilots);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pilots(seed, params, chains_per_program, programs, pilots,
+                       stream);
 }
 
 // Runs n_chains chains, 32 to a block, on `stream` (chains_per_program

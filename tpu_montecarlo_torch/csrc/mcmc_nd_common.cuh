@@ -1,0 +1,171 @@
+// What the d-dimensional MCMC kernels share: the (d, 6) parameter rows,
+// the compiled-in families, the target and proposal log densities, the
+// chains' initial states and the error-bar pilot kernel.
+//
+// Included by mcmc_nd.cu and mcmc_pt.cu after the generated source
+// (tmc_integrands.inc), which defines TMC_K, TMC_D, tmc_values_nd and
+// TMC_MODE; for an independence proposal TMC_PROP_KINDS; for a product
+// target TMC_TARG_KINDS, else tmc_target_logpdf(const float* x).
+//
+// The initial state of a chain is drawn at counter 0, dimension j under
+// tag j, from the seed word's stream for its program: the nd kernel's
+// chains, and the cold rung of the tempered kernel's ladders (its rung t
+// draws under tag t * d + j, so rung 0 under tag j).  Both kernels'
+// error-bar runs take their pilots from f at that state, so one pilot
+// kernel serves both, called with each kernel's own seed word.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "counter_rng.cuh"
+#include "integrand_math.cuh"
+
+#ifndef TMC_PROP_KINDS
+#define TMC_PROP_KINDS 0  // walks draw from no proposal family
+#endif
+
+namespace {
+
+enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
+constexpr int kMode = TMC_MODE;
+
+// One warp per block (ops/mcmc_kernel.py: CHAIN_THREADS).
+constexpr int kChainThreads = 32;
+constexpr int kPilotThreads = 256;
+constexpr int kRow = 6;  // floats per dimension in params
+constexpr float kLogScaleMin = -13.815511f;
+constexpr float kLogScaleMax = 13.815511f;
+
+// Per dimension j, the params row: the proposal's (p1, p2, -, -) or the
+// walk's (step, init_lo, init_hi, target_accept), then the target's
+// (p1, p2).
+struct Params {
+  float q1[TMC_D], q2[TMC_D], q3[TMC_D], q4[TMC_D], t1[TMC_D], t2[TMC_D];
+};
+
+__device__ __forceinline__ Params load_params(const float* p) {
+  Params r;
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    r.q1[j] = p[j * kRow];
+    r.q2[j] = p[j * kRow + 1];
+    r.q3[j] = p[j * kRow + 2];
+    r.q4[j] = p[j * kRow + 3];
+    r.t1[j] = p[j * kRow + 4];
+    r.t2[j] = p[j * kRow + 5];
+  }
+  return r;
+}
+
+// The family of proposal dimension j.  Called with j unrolled, so it folds
+// to a constant and each family branch is resolved at compile time.
+__device__ __forceinline__ int prop_kind(int j) {
+  const int kinds[TMC_D] = {TMC_PROP_KINDS};
+  return kinds[j];
+}
+
+__device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
+                                         uint32_t tag, uint32_t pos) {
+  return tmc::mantissa(tmc::block_base(state, counter, tag), pos);
+}
+
+// The target's log density at x: the product's dimensions in order, or
+// the joint log density.
+__device__ __forceinline__ float log_target(const float* x, const Params& p) {
+#ifdef TMC_TARG_KINDS
+  const int kinds[TMC_D] = {TMC_TARG_KINDS};
+  float tot = tmc::log_pdf(kinds[0], p.t1[0], p.t2[0], x[0]);
+#pragma unroll
+  for (int j = 1; j < TMC_D; ++j) {
+    tot = tot + tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x[j]);
+  }
+  return tot;
+#else
+  return tmc_target_logpdf(x);
+#endif
+}
+
+// The independence proposal's log density at x, dimensions in order.
+__device__ __forceinline__ float log_proposal(const float* x,
+                                              const Params& p) {
+  float tot = tmc::log_pdf(prop_kind(0), p.q1[0], p.q2[0], x[0]);
+#pragma unroll
+  for (int j = 1; j < TMC_D; ++j) {
+    tot = tot + tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j]);
+  }
+  return tot;
+}
+
+// A chain's state at counter 0, dimension j drawn under tag tag0 + j: a
+// draw of dimension j's proposal family, or for a walk lo_j + (hi_j -
+// lo_j) * u.
+__device__ __forceinline__ void initial_x(const Params& p, uint32_t state,
+                                          uint32_t pos, float* x,
+                                          uint32_t tag0 = 0u) {
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    const uint32_t m = draw(state, 0u, tag0 + uint32_t(j), pos);
+    if (kMode == kIndependence) {
+      x[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
+    } else {
+      x[j] = p.q2[j] + (p.q3[j] - p.q2[j]) * tmc::halfopen01(m);
+    }
+  }
+}
+
+// Sums `v` over the warp with a fixed shuffle tree; lane 0 gets the sum.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The per-program pilots of an error-bar run: the mean of f_k over the
+// initial states (tag j) of the program's chains, one block per program.
+__global__ void __launch_bounds__(kPilotThreads)
+mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
+                     int chains_per_program, float* __restrict__ pilots) {
+  const Params p = load_params(params);
+  const uint32_t pid = blockIdx.x;
+  const uint32_t state = tmc::seed_state(seed, pid);
+  float acc[TMC_K];
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
+  float x[TMC_D], vals[TMC_K];
+  for (int pos = threadIdx.x; pos < chains_per_program;
+       pos += kPilotThreads) {
+    initial_x(p, state, uint32_t(pos), x);
+    tmc_values_nd(x, vals);
+#pragma unroll
+    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k];
+  }
+  __shared__ float scratch[kPilotThreads / 32][TMC_K];
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) {
+    const float s = warp_sum(acc[k]);
+    if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32][k] = s;
+  }
+  __syncthreads();
+  const float n_block = float(chains_per_program);
+  for (int k = threadIdx.x; k < TMC_K; k += kPilotThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kPilotThreads / 32; ++w) s += scratch[w][k];
+    pilots[pid * TMC_K + k] = s / n_block;
+  }
+}
+
+// Launches the pilot kernel: (programs, K) floats.  Returns
+// cudaGetLastError() (0 when the launch was accepted).
+inline int launch_pilots(uint32_t seed, const float* params,
+                         int chains_per_program, int programs, float* pilots,
+                         void* stream) {
+  mcmc_nd_pilot_kernel<<<programs, kPilotThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      seed, params, chains_per_program, pilots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

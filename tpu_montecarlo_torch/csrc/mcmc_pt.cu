@@ -1,0 +1,350 @@
+// Parallel-tempering (replica-exchange) Metropolis-Hastings kernel for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel `kernel` inside build_pt_mcmc_fn_pallas
+// (tpu_montecarlo/ops/mcmc_pt_pallas.py:332-867, pallas_call at :928) in
+// its independence, random-walk and adaptive random-walk modes, with and
+// without error bars, for d dimensions of the uniform, normal and
+// exponential families under a product target or a traced joint log
+// density, and a ladder of T >= 2 rungs.  Under the JAX package's
+// CounterRng (the interpreter's stream) it runs the very ladders that
+// kernel runs:
+//
+// * chain c belongs to program p = c / chains_per_program at position
+//   pos = c % chains_per_program; the program's stream is seeded with
+//   (seed ^ 0x165667B1, p), the tempered family's own mix (the wrapper
+//   passes the mixed word).  Each chain carries its whole ladder: rung t
+//   runs against pi^beta_t, beta_0 = 1 (the cold rung);
+// * counter 0 draws the initial state of every rung, rung t dimension j
+//   under tag t * d + j: a draw of the proposal family, or for a walk
+//   lo_j + (hi_j - lo_j) * u;
+// * step i, counted globally through burn-in and sampling, moves every
+//   rung: rung t draws dimension j's proposal (or the walk's normal step)
+//   at counter 3i+1, tag t * d + j, and its accept uniform, from (0, 1],
+//   at 3i+2, tag t.  log_alpha = beta_t * (logp' - logp) (walk) or
+//   beta_t * (logp' - logp) + logq - logq' (independence: q is not
+//   tempered), accepted when logf(u) < log_alpha;
+// * then the adjacent pairs (t, t+1) with t of i's parity try to
+//   exchange: pair t draws v from [0, 1) at 3i+3, tag t, and swaps x,
+//   logp and (independence) logq when logf(max(v, 1e-38f)) < (beta_t -
+//   beta_{t+1}) * (logp_{t+1} - logp_t), the beta difference rounded to
+//   float32 from float64.  A v of 0 (one draw in 2^24) takes the
+//   subnormal 1e-38f, whose logf is -87.5: the kernel is built without
+//   flush-to-zero, as the plain version and the JAX kernel compute it;
+// * the adaptive walk carries one log scale per rung, starting at 0, that
+//   stays with its rung through swaps; in burn-in Robbins-Monro moves it
+//   toward dimension 0's target_accept on expf(min(log_alpha, 0)) of the
+//   tempered log_alpha, gamma = expf(-0.6f * logf(i + 1)), clipped to
+//   +-13.815511.  Sampling proposes with the scale expf(logf(expf(ls))),
+//   the JAX kernel's round trip (scales, then their log, then exp);
+// * burn-in moves and swaps only; each sampling step moves, counts the
+//   cold rung's accept, swaps, then adds f_k(x) - pilot_k at the cold
+//   rung's post-swap state.  The swap count covers burn-in too.  The pilot
+//   (error-bar runs only, else 0) is the mean of f_k over the program's
+//   cold initial states, which are the nd kernel's initial states, so
+//   mcmc_nd_common.cuh's pilot kernel computes it with this seed word.
+//
+// Output: per CUDA block, three rows of K + 2 floats (sums, the cold
+// accept count and the swap count; SS of the chain means; their
+// centroid), which ops/mcmc_pt_kernel.py's pt_finish combines; and
+// x_final, the cold rung's final states as d rows of n_chains.
+//
+// What bounds it on the card: latency, as for mcmc.cu and mcmc_nd.cu.  A
+// chain is a serial loop of n_burnin + n_steps steps, each T rung moves
+// of d + 1 draws (two PCG hashes each), d transforms, the log densities
+// and logf of the accept uniform, then the active parity's swap draws;
+// nothing is read from memory in the loop.  The T rung moves of one step
+// are independent of each other, so one thread overlaps them: the design
+// keeps mcmc_nd.cu's one chain per thread and 32 chains per block (4096
+// chains reach 128 of the 132 SMs) and gives each thread its chain's
+// whole ladder, T x (d states, logp[, logq][, log scale]) in registers.
+// T, d, the mode and the families are compiled in (TMC_T, TMC_D,
+// TMC_MODE, TMC_*_KINDS) and every rung and pair loop is unrolled with
+// compile-time indices, so no ladder array is indexed at run time (that
+// would put it in local memory).  The ladder itself (the betas and the
+// pair differences) is a runtime float32 array: a new ladder needs no new
+// build.  The swaps branch on i & 1, uniform across the warp, and compute
+// only the active parity's pairs; the JAX kernel computes both parities
+// and masks one, and since the pairs of the inactive parity would swap
+// nothing and the draws are counter-based, the chains are the same.
+// Sums are reduced once, at the end, with warp shuffles in a fixed order:
+// no atomics.
+//
+// Built without --use_fast_math and with --fmad=false, as the other
+// kernels, so every float32 add and multiply rounds as in the plain
+// PyTorch version and the JAX package.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "counter_rng.cuh"
+#include "integrand_math.cuh"
+// TMC_K, TMC_D, f_k(const float* x), tmc_values_nd; TMC_MODE, TMC_T; for
+// independence TMC_PROP_KINDS; TMC_TARG_KINDS for a product target, else
+// tmc_target_logpdf(const float* x).
+#include "tmc_integrands.inc"
+#include "mcmc_nd_common.cuh"
+
+namespace {
+
+constexpr int kT = TMC_T;  // rungs
+static_assert(kT >= 2, "a ladder has at least two rungs");
+constexpr int kW = TMC_K + 2;  // row width: sums, accepts and swaps
+
+// The ladder as the wrapper packs it: the T betas, then the T - 1 pair
+// differences beta_t - beta_{t+1}, each rounded to float32 from float64.
+struct Ladder {
+  float beta[kT], dbeta[kT - 1];
+};
+
+__device__ __forceinline__ Ladder load_ladder(const float* l) {
+  Ladder r;
+#pragma unroll
+  for (int t = 0; t < kT; ++t) r.beta[t] = l[t];
+#pragma unroll
+  for (int t = 0; t + 1 < kT; ++t) r.dbeta[t] = l[kT + t];
+  return r;
+}
+
+// One tempered MH move of rung t at global step i: moves (x, logp, logq)
+// and returns whether the proposal was accepted; *log_alpha receives the
+// tempered log acceptance ratio (the adaptive walk reads it).  `eps` is
+// the rung's step vector, scale * step_j.
+__device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
+                                          uint32_t pos, uint32_t i, int t,
+                                          float beta, const float* eps,
+                                          float* x, float& logp, float& logq,
+                                          float* log_alpha) {
+  float xp[TMC_D];
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    const uint32_t m = draw(state, 3u * i + 1u, uint32_t(t * TMC_D + j), pos);
+    if (kMode == kIndependence) {
+      xp[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
+    } else {
+      xp[j] = x[j] + eps[j] * tmc::normal_from_u01(tmc::halfopen01(m));
+    }
+  }
+  const float logp_prop = log_target(xp, p);
+  float logq_prop = 0.0f, la;
+  if (kMode == kIndependence) {
+    logq_prop = log_proposal(xp, p);
+    la = beta * (logp_prop - logp) + logq - logq_prop;
+  } else {
+    la = beta * (logp_prop - logp);
+  }
+  const float u = tmc::open01(draw(state, 3u * i + 2u, uint32_t(t), pos));
+  const bool accept = logf(u) < la;
+  if (accept) {
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) x[j] = xp[j];
+    logp = logp_prop;
+    logq = logq_prop;
+  }
+  *log_alpha = la;
+  return accept;
+}
+
+// Pair (t, t+1)'s exchange at step i; adds one to `swaps` when it swaps.
+__device__ __forceinline__ void try_swap(uint32_t state, uint32_t pos,
+                                         uint32_t i, int t, float dbeta,
+                                         float (&x)[kT][TMC_D],
+                                         float (&logp)[kT],
+                                         float (&logq)[kT], float& swaps) {
+  const float v = tmc::halfopen01(draw(state, 3u * i + 3u, uint32_t(t), pos));
+  const float delta = dbeta * (logp[t + 1] - logp[t]);
+  if (logf(fmaxf(v, 1e-38f)) < delta) {
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      const float a = x[t][j];
+      x[t][j] = x[t + 1][j];
+      x[t + 1][j] = a;
+    }
+    const float pa = logp[t];
+    logp[t] = logp[t + 1];
+    logp[t + 1] = pa;
+    if (kMode == kIndependence) {
+      const float qa = logq[t];
+      logq[t] = logq[t + 1];
+      logq[t + 1] = qa;
+    }
+    swaps += 1.0f;
+  }
+}
+
+// The exchanges of step i: the pairs (t, t+1) with t of i's parity.
+__device__ __forceinline__ void exchange(uint32_t state, uint32_t pos,
+                                         uint32_t i, const Ladder& lad,
+                                         float (&x)[kT][TMC_D],
+                                         float (&logp)[kT],
+                                         float (&logq)[kT], float& swaps) {
+  if (i & 1u) {
+#pragma unroll
+    for (int t = 1; t + 1 < kT; t += 2) {
+      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, swaps);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t + 1 < kT; t += 2) {
+      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, swaps);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
+               const float* __restrict__ ladder, int n_burnin, int n_steps,
+               int chains_per_program, const float* __restrict__ pilots,
+               float* __restrict__ rows, float* __restrict__ x_final) {
+  __shared__ float s_pilot[TMC_K];
+
+  const Params p = load_params(params);
+  const Ladder lad = load_ladder(ladder);
+  const int chain = blockIdx.x * kChainThreads + threadIdx.x;
+  // A block lies inside one program: 32 divides chains_per_program.
+  const uint32_t pid = uint32_t(chain / chains_per_program);
+  const uint32_t pos = uint32_t(chain % chains_per_program);
+  const uint32_t state = tmc::seed_state(seed, pid);
+  for (int k = threadIdx.x; k < TMC_K; k += kChainThreads) {
+    s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
+  }
+  __syncwarp();
+
+  float x[kT][TMC_D], logp[kT], logq[kT];
+  float eps[kT][TMC_D];  // each rung's step vector
+  float log_scale[kT];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    initial_x(p, state, pos, x[t], uint32_t(t * TMC_D));
+    logp[t] = log_target(x[t], p);
+    logq[t] = kMode == kIndependence ? log_proposal(x[t], p) : 0.0f;
+    log_scale[t] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) eps[t][j] = p.q1[j];
+  }
+  float la, swaps = 0.0f;
+  const uint32_t n_iters = uint32_t(n_burnin) + uint32_t(n_steps);
+
+  // Burn-in: move every rung (adapting the walk's scales) and exchange.
+  for (uint32_t i = 0; i < uint32_t(n_burnin); ++i) {
+    // A signed conversion (the same float for i < 2^31): chip_smoke.py's
+    // bound counts the unsigned ones as the step's uniforms.
+    const float gamma = expf(-0.6f * logf(float(int(i) + 1)));
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      if (kMode == kAdaptive) {
+        const float scale = expf(log_scale[t]);
+#pragma unroll
+        for (int j = 0; j < TMC_D; ++j) eps[t][j] = scale * p.q1[j];
+      }
+      rung_move(p, state, pos, i, t, lad.beta[t], eps[t], x[t], logp[t],
+                logq[t], &la);
+      if (kMode == kAdaptive) {
+        const float alpha_p = expf(tmc_minimum(la, 0.0f));
+        log_scale[t] = tmc_minimum(
+            tmc_maximum(log_scale[t] + gamma * (alpha_p - p.q4[0]),
+                        kLogScaleMin),
+            kLogScaleMax);
+      }
+    }
+    exchange(state, pos, i, lad, x, logp, logq, swaps);
+  }
+  if (kMode == kAdaptive) {
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const float scale = expf(logf(expf(log_scale[t])));
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) eps[t][j] = scale * p.q1[j];
+    }
+  }
+
+  float acc[TMC_K];
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
+  float n_acc = 0.0f;
+  float vals[TMC_K];
+  for (uint32_t i = uint32_t(n_burnin); i < n_iters; ++i) {
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const bool accepted = rung_move(p, state, pos, i, t, lad.beta[t],
+                                      eps[t], x[t], logp[t], logq[t], &la);
+      if (t == 0 && accepted) n_acc += 1.0f;
+    }
+    exchange(state, pos, i, lad, x, logp, logq, swaps);
+    tmc_values_nd(x[0], vals);
+#pragma unroll
+    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - s_pilot[k];
+  }
+  const int n_chains = gridDim.x * kChainThreads;
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[0][j];
+
+  // The block's rows, written by lane 0: sums, then the SS and centroid
+  // of the chain means.
+  const bool lane0 = threadIdx.x == 0;
+  const float inv_steps = 1.0f / float(n_steps);
+  const float n_b = float(kChainThreads);
+  float* out = rows + size_t(blockIdx.x) * 3 * kW;
+#pragma unroll
+  for (int k = 0; k < TMC_K; ++k) {
+    const float cm = acc[k] * inv_steps;
+    const float s = warp_sum(acc[k]);
+    const float s1 = warp_sum(cm);
+    const float s2 = warp_sum(cm * cm);
+    if (lane0) {
+      const float mbs = s1 / n_b;
+      out[k] = s;
+      out[kW + k] = tmc_maximum(s2 - n_b * mbs * mbs, 0.0f);
+      out[2 * kW + k] = mbs + s_pilot[k];
+    }
+  }
+  const float accepted = warp_sum(n_acc);
+  const float swapped = warp_sum(swaps);
+  if (lane0) {
+    out[TMC_K] = accepted;
+    out[TMC_K + 1] = swapped;
+#pragma unroll
+    for (int c = TMC_K; c < kW; ++c) {
+      out[kW + c] = 0.0f;
+      out[2 * kW + c] = 0.0f;
+    }
+  }
+}
+
+}  // namespace
+
+// Error-bar runs: the per-program pilots, (programs, K) floats, of the
+// cold rung's initial states (mcmc_nd_common.cuh).  `seed` is the
+// tempered seed word; `params` holds TMC_D x 6 floats.  Returns
+// cudaGetLastError() (0 when the launch was accepted).
+extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
+                                  int chains_per_program, int programs,
+                                  float* pilots, void* stream) {
+  return launch_pilots(seed, params, chains_per_program, programs, pilots,
+                       stream);
+}
+
+// Runs n_chains ladders, 32 to a block, on `stream` (chains_per_program
+// a multiple of 32, n_chains of chains_per_program).  `params` holds
+// TMC_D x 6 floats, `ladder` 2 * TMC_T - 1 (Ladder); `pilots` may be null
+// (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 2) floats,
+// `x_final` TMC_D x n_chains.  Returns cudaGetLastError() (0 when the
+// launch was accepted).
+extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
+                           const float* ladder, int n_burnin, int n_steps,
+                           int chains_per_program, int n_chains,
+                           const float* pilots, float* rows, float* x_final,
+                           void* stream) {
+  if (chains_per_program % kChainThreads != 0 ||
+      n_chains % chains_per_program != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mcmc_pt_kernel<<<n_chains / kChainThreads, kChainThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      seed, params, ladder, n_burnin, n_steps, chains_per_program, pilots,
+      rows, x_final);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* tmc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

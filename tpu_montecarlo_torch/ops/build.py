@@ -34,7 +34,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # Headers every kernel source may include.
-_HEADERS = ("counter_rng.cuh", "integrand_math.cuh", "sobol.cuh")
+_HEADERS = (
+    "counter_rng.cuh", "integrand_math.cuh", "mcmc_nd_common.cuh", "sobol.cuh",
+)
 
 
 def _nvcc() -> str:

@@ -75,13 +75,11 @@ def nd_seed_word(seed: int) -> int:
     return int(np.uint32(seed)) ^ ND_SEED_MIX
 
 
-def _kinds(kinds) -> Tuple[DistKind, ...]:
+def _kinds(kinds, what: str, item: str) -> Tuple[DistKind, ...]:
     kinds = tuple(DistKind(k) for k in kinds)
     for kind in kinds:
         if kind not in PORTED_KINDS:
-            raise not_ported(
-                f"nd MCMC under {kind.name.lower()} dimensions", ND_MCMC_FAMILIES
-            )
+            raise not_ported(f"{what} under {kind.name.lower()} dimensions", item)
     return kinds
 
 
@@ -91,6 +89,10 @@ class McmcNdConfig:
     proposal's family per dimension, ``()`` for the walks;
     ``targ_kinds``: the product target's, or None for a joint log
     density."""
+
+    # What the families' NotImplementedError names.
+    _what = "nd MCMC"
+    _families_item = ND_MCMC_FAMILIES
 
     mode: Mode
     d: int
@@ -102,11 +104,14 @@ class McmcNdConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
-        object.__setattr__(self, "prop_kinds", _kinds(self.prop_kinds))
-        if self.targ_kinds is not None:
-            object.__setattr__(self, "targ_kinds", _kinds(self.targ_kinds))
+        for name in ("prop_kinds", "targ_kinds"):
+            kinds = getattr(self, name)
+            if kinds is not None:
+                object.__setattr__(
+                    self, name, _kinds(kinds, self._what, self._families_item)
+                )
         if self.d < 1:
-            raise ValueError(f"nd MCMC takes d >= 1 dimensions, got {self.d}")
+            raise ValueError(f"{self._what} takes d >= 1 dimensions, got {self.d}")
         indep = self.mode == Mode.INDEPENDENCE
         if len(self.prop_kinds) != (self.d if indep else 0):
             raise ValueError(
@@ -131,16 +136,23 @@ class McmcNdProgram:
     the mode, d and the families (``cfg.compiled``), as the JAX kernel is
     traced per family tuple, so a run's config must have the program's."""
 
+    kernel_source = "mcmc_nd.cu"
+    max_functions = MAX_FUNCTIONS
+    #: The library's pilot and chain entry points.
+    entry_points = ("tmc_mcmc_nd_pilots", "tmc_mcmc_nd")
+    #: The chain entry point's device arrays before the run's sizes.
+    chain_inputs = ("params",)
+
     def __init__(
         self,
         fns: Sequence[TracedFunction],
         cfg: McmcNdConfig,
         target: Optional[TracedFunction] = None,
     ):
-        if not 1 <= len(fns) <= MAX_FUNCTIONS:
+        if not 1 <= len(fns) <= self.max_functions:
             raise ValueError(
-                f"the nd MCMC kernel takes 1 to {MAX_FUNCTIONS} functions, "
-                f"got {len(fns)}"
+                f"{self.kernel_source} takes 1 to {self.max_functions} "
+                f"functions, got {len(fns)}"
             )
         if any(f.n_args != cfg.d for f in fns):
             raise ValueError(
@@ -166,7 +178,7 @@ class McmcNdProgram:
         """The generated source the kernel includes: the integrands in the
         pointer form, the joint target, and the compiled-in mode, d and
         families."""
-        mode, _, prop_kinds, targ_kinds = self.compiled
+        mode, _, prop_kinds, targ_kinds = self.compiled[:4]
 
         def kinds(name, ks):
             return f"#define {name} {', '.join(str(int(k)) for k in ks)}\n"
@@ -187,28 +199,61 @@ class McmcNdProgram:
         if self._lib is None:
             from .build import load_kernel_library
 
-            lib = load_kernel_library("mcmc_nd.cu", self.source())
+            lib = load_kernel_library(self.kernel_source, self.source())
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+            pilots, chain = (getattr(lib, name) for name in self.entry_points)
             # seed word, params, chains per program, programs, pilots,
             # stream
-            lib.tmc_mcmc_nd_pilots.argtypes = [u, p, i, i, p, p]
-            lib.tmc_mcmc_nd_pilots.restype = i
-            # seed word, params, burn-in, steps, chains per program,
+            pilots.argtypes = [u, p, i, i, p, p]
+            # seed word, chain_inputs, burn-in, steps, chains per program,
             # chains, pilots, rows, x_final, stream
-            lib.tmc_mcmc_nd.argtypes = [u, p, i, i, i, i, p, p, p, p]
-            lib.tmc_mcmc_nd.restype = i
+            chain.argtypes = [u, *[p] * len(self.chain_inputs),
+                              i, i, i, i, p, p, p, p]
+            pilots.restype = chain.restype = i
             self._lib = lib
         return self._lib
 
 
-def _check_args(cfg: McmcNdConfig, params: torch.Tensor, k: int) -> None:
+def _check_args(
+    cfg: McmcNdConfig, params: torch.Tensor, k: int,
+    max_functions: int = MAX_FUNCTIONS,
+) -> None:
     if params.dtype != torch.float32 or params.shape != (cfg.d, _ROW):
         raise ValueError(
             f"params must be a ({cfg.d}, {_ROW}) float32 tensor, got "
             f"{tuple(params.shape)} {params.dtype}"
         )
-    if not 1 <= k <= MAX_FUNCTIONS:
-        raise ValueError(f"1 to {MAX_FUNCTIONS} functions, got {k}")
+    if not 1 <= k <= max_functions:
+        raise ValueError(f"1 to {max_functions} functions, got {k}")
+
+
+def _summed(logs):
+    tot = logs[0]
+    for lp in logs[1:]:
+        tot = tot + lp
+    return tot
+
+
+def log_target(torch_target, targ_kinds, t1, t2, xs) -> torch.Tensor:
+    """The plain versions' target log density at the d blocks ``xs``: the
+    joint target's, or the product's dimensions summed in order."""
+    if torch_target is not None:
+        return torch.broadcast_to(
+            torch_target(*xs).to(torch.float32), xs[0].shape
+        )
+    return _summed([
+        analytic_log_pdf(kind, t1[j], t2[j], xs[j])
+        for j, kind in enumerate(targ_kinds)
+    ])
+
+
+def log_proposal(prop_kinds, q1, q2, xs) -> torch.Tensor:
+    """The independence proposal's log density at ``xs``, dimensions
+    summed in order."""
+    return _summed([
+        analytic_log_pdf(kind, q1[j], q2[j], xs[j])
+        for j, kind in enumerate(prop_kinds)
+    ])
 
 
 def mcmc_nd_reference(
@@ -240,27 +285,11 @@ def mcmc_nd_reference(
             for j, kind in enumerate(cfg.prop_kinds)
         ]
 
-    def summed(logs):
-        tot = logs[0]
-        for lp in logs[1:]:
-            tot = tot + lp
-        return tot
-
     def lp_t(xs):
-        if torch_target is not None:
-            return torch.broadcast_to(
-                torch_target(*xs).to(torch.float32), xs[0].shape
-            )
-        return summed([
-            analytic_log_pdf(kind, t1[j], t2[j], xs[j])
-            for j, kind in enumerate(cfg.targ_kinds)
-        ])
+        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs)
 
     def lp_q(xs):
-        return summed([
-            analytic_log_pdf(kind, q1[j], q2[j], xs[j])
-            for j, kind in enumerate(cfg.prop_kinds)
-        ])
+        return log_proposal(cfg.prop_kinds, q1, q2, xs)
 
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]

@@ -1,0 +1,412 @@
+"""Parallel tempering (replica exchange): the plain PyTorch version and the
+CUDA kernel's wrapper.
+
+Port of ``tpu_montecarlo/ops/mcmc_pt_pallas.py``
+(``build_pt_mcmc_fn_pallas``) in its independence, random-walk and
+adaptive random-walk modes, with and without error bars, for d dimensions
+of the uniform, normal and exponential families under a product target or
+a traced joint log density, and a ladder of T >= 2 rungs.  Each chain
+carries its whole ladder: rung t runs against ``pi^beta_t`` with
+``beta_0 = 1``, and only the cold rung enters the estimates.  Both
+versions here run, ladder for ladder, the chains that the JAX kernel runs
+under ``CounterRng`` (its interpreter stream):
+
+* each program's stream is seeded with (seed ^ 0x165667B1, program);
+* rung t, dimension j draws its initial state at counter 0 and its
+  proposal (or the walk's normal step) at 3i+1 under tag ``t*d + j``;
+  rung t's accept uniform, from (0, 1], at 3i+2 under tag t; pair
+  (t, t+1)'s swap uniform, from [0, 1), at 3i+3 under tag t; i counts
+  through burn-in and sampling;
+* every rung moves, with acceptance ``beta_t * (logp' - logp)`` (walk) or
+  ``beta_t * (logp' - logp) + logq - logq'`` (independence), then the
+  pairs of i's parity exchange x, logp and logq when
+  ``log(max(v, 1e-38)) < (beta_t - beta_{t+1}) * (logp_{t+1} - logp_t)``,
+  then the integrands are evaluated at the cold rung's post-swap state;
+* the adaptive walk carries one log scale per rung, which stays with its
+  rung through swaps, and samples with ``exp(log(exp(ls)))``.
+
+Only last-bit differences of ``log``, ``exp`` and ``erfinv`` between
+libraries can flip a decision.  The parameters are the nd kernel's (d, 6)
+float32 rows (``ops/mcmc_nd_kernel.py``); the ladder is a float32 vector
+of the T betas and the T - 1 pair differences, each rounded from float64
+(:func:`pack_ladder`), so a new ladder needs no new build.  The output
+rows are the 1-D kernel's with one more column, the swap count.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..sampling import normal_from_u01
+from ..utils.roadmap import PT_FAMILIES
+from .integrate_kernel import (
+    LANES,
+    CounterRng,
+    sample_block,
+    uniform_halfopen01,
+    uniform_open01,
+)
+from .mcmc_kernel import (
+    CHAIN_THREADS,
+    McmcGrid,
+    McmcOutput,
+    Mode,
+    block_rows,
+    mcmc_finish,
+)
+from .mcmc_nd_kernel import (
+    _LOG_SCALE_MAX,
+    _LOG_SCALE_MIN,
+    McmcNdConfig,
+    McmcNdProgram,
+    log_proposal,
+    log_target,
+)
+from .mcmc_nd_kernel import _check_args as _check_nd_args
+
+__all__ = [
+    "MAX_PT_FUNCTIONS",
+    "PT_SEED_MIX",
+    "McmcPtConfig",
+    "McmcPtProgram",
+    "mcmc_pt_cuda",
+    "mcmc_pt_reference",
+    "pack_ladder",
+    "pt_attempted_swaps",
+    "pt_finish",
+    "pt_seed_word",
+]
+
+#: The tempered stream family's seed mix (mcmc_pt_pallas.py:81).
+PT_SEED_MIX = 0x165667B1
+#: Two lanes of the JAX kernel's output row hold the accept and swap
+#: counts (mcmc_pt_pallas.py:304-307).
+MAX_PT_FUNCTIONS = LANES - 2
+
+
+def pt_seed_word(seed: int) -> int:
+    """The tempered kernel's seed word: the seed as uint32 (``np.uint32``
+    rejects seeds outside [0, 2**32), as the JAX package does) xor
+    0x165667B1."""
+    return int(np.uint32(seed)) ^ PT_SEED_MIX
+
+
+def pt_attempted_swaps(n_temps: int, n_iters: int, chains: int) -> int:
+    """Attempted adjacent exchanges over a run (mcmc_pt_pallas.py:127-136):
+    even iterations attempt the pairs (0, 1), (2, 3), ..., odd ones (1, 2),
+    (3, 4), ..., on every chain, burn-in included."""
+    n_pairs_even = n_temps // 2
+    n_pairs_odd = (n_temps - 1) // 2
+    n_even = (n_iters + 1) // 2
+    n_odd = n_iters // 2
+    return chains * (n_even * n_pairs_even + n_odd * n_pairs_odd)
+
+
+def pack_ladder(betas: Sequence[float]) -> np.ndarray:
+    """The (2T - 1,) float32 ladder the kernels read: the T betas, then the
+    pair differences ``beta_t - beta_{t+1}`` taken in float64 and rounded
+    (rounding the two betas first can give another float32)."""
+    b = np.asarray(betas, np.float64)
+    return np.concatenate([b, b[:-1] - b[1:]]).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class McmcPtConfig(McmcNdConfig):
+    """What one tempered run does: the nd config's fields
+    (``ops/mcmc_nd_kernel.py``) and ``n_temps``, the rungs (keyword)."""
+
+    _what = "tempering"
+    _families_item = PT_FAMILIES
+
+    n_temps: int = field(kw_only=True)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.n_temps < 2:
+            raise ValueError(
+                f"a ladder has at least 2 rungs, got {self.n_temps}"
+            )
+
+    @property
+    def compiled(self):
+        """What the CUDA library compiles in: mode, d, the families and
+        the rungs."""
+        return (*super().compiled, self.n_temps)
+
+
+class McmcPtProgram(McmcNdProgram):
+    """The nd program (``ops/mcmc_nd_kernel.py``: ``torch_fns``,
+    ``torch_target`` and the CUDA library, built at first use) for the
+    tempered kernel, which also compiles in the rung count."""
+
+    kernel_source = "mcmc_pt.cu"
+    max_functions = MAX_PT_FUNCTIONS
+    entry_points = ("tmc_mcmc_pt_pilots", "tmc_mcmc_pt")
+    chain_inputs = ("params", "ladder")
+
+    def source(self) -> str:
+        return super().source() + f"#define TMC_T {self.compiled[4]}\n"
+
+
+def _check_args(
+    cfg: McmcPtConfig, params: torch.Tensor, ladder: torch.Tensor, k: int
+) -> None:
+    _check_nd_args(cfg, params, k, MAX_PT_FUNCTIONS)
+    n = 2 * cfg.n_temps - 1
+    if ladder.dtype != torch.float32 or ladder.shape != (n,):
+        raise ValueError(
+            f"ladder must be a ({n},) float32 tensor, got "
+            f"{tuple(ladder.shape)} {ladder.dtype}"
+        )
+    if ladder.device != params.device:
+        raise ValueError(
+            f"ladder on {ladder.device} but params on {params.device}"
+        )
+
+
+def mcmc_pt_reference(
+    torch_fns: Sequence[Callable],
+    torch_target: Optional[Callable],
+    cfg: McmcPtConfig,
+    params: torch.Tensor,
+    ladder: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Plain PyTorch version of the kernel, on ``params``' device:
+    vectorised over the rungs (a leading T dimension) and all chains, a
+    Python loop over the steps, with the kernel's counters, tags and
+    float32 operation order.  Returns the kernel's rows and ``x_final``,
+    the cold rung's final states, as (d, chains)."""
+    _check_args(cfg, params, ladder, len(torch_fns))
+    if (torch_target is None) != (cfg.targ_kinds is not None):
+        raise ValueError("a joint target needs its log density, a product none")
+    dev = params.device
+    d, n_temps = cfg.d, cfg.n_temps
+    shape = (grid.rows, LANES)
+    pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
+    rng = CounterRng(pt_seed_word(seed), pids, device=dev)
+    q1, q2, q3, q4, t1, t2 = params.unbind(dim=1)
+    beta = ladder[:n_temps].reshape(n_temps, 1, 1, 1)
+    dbeta = ladder[n_temps:]
+    rungs = torch.arange(n_temps, dtype=torch.int64, device=dev)[:, None]
+    # Draws of all rungs at once: a (T, 1) tag gives (T, programs, rows,
+    # 128) blocks.
+    dims = range(d)
+    indep = cfg.mode == Mode.INDEPENDENCE
+    adaptive = cfg.mode == Mode.ADAPTIVE
+
+    def propose(counter):
+        return [
+            sample_block(kind, q1[j], q2[j], rng, shape, counter, rungs * d + j)
+            for j, kind in enumerate(cfg.prop_kinds)
+        ]
+
+    def lp_t(xs):
+        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs)
+
+    def lp_q(xs):
+        return log_proposal(cfg.prop_kinds, q1, q2, xs)
+
+    def values(xs):
+        return [f(*xs).to(torch.float32) for f in torch_fns]
+
+    if indep:
+        xs = propose(0)
+        logq = lp_q(xs)
+    else:
+        xs = [
+            q2[j] + (q3[j] - q2[j])
+            * uniform_halfopen01(rng, shape, 0, rungs * d + j)
+            for j in dims
+        ]
+    logp = lp_t(xs)
+    k = len(torch_fns)
+    if cfg.with_stderr:
+        n_block = float(grid.chains_per_program)
+        pilots = [
+            v.sum(dim=(1, 2), keepdim=True) / n_block
+            for v in values([x[0] for x in xs])
+        ]
+    else:
+        pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+
+    # Each parity's pairs (t, t+1): the t, the t + 1 and the pairs' beta
+    # differences.
+    pairs = []
+    for parity in (0, 1):
+        lo = torch.arange(parity, n_temps - 1, 2, dtype=torch.int64, device=dev)
+        pairs.append((lo, lo + 1, dbeta[lo].reshape(-1, 1, 1, 1)))
+
+    def exchange(a, lo, hi, swap):
+        a = a.clone()
+        a_lo, a_hi = a[lo], a[hi]
+        a[lo] = torch.where(swap, a_hi, a_lo)
+        a[hi] = torch.where(swap, a_lo, a_hi)
+        return a
+
+    eps = [q1[j] for j in dims]  # the walk's step vector, per rung
+    log_scale = torch.zeros_like(xs[0])
+    accs = [torch.zeros_like(xs[0][0]) for _ in range(k)]
+    n_acc = torch.zeros_like(xs[0][0])
+    swaps = torch.zeros_like(xs[0][0])
+    for i in range(cfg.n_burnin + cfg.n_steps):
+        burn = i < cfg.n_burnin
+        if adaptive and burn:
+            scale = torch.exp(log_scale)
+            eps = [scale * q1[j] for j in dims]
+        elif adaptive and i == cfg.n_burnin:
+            # The JAX kernel keeps the scales' logs and exponentiates them
+            # each step (mcmc_pt_pallas.py:756, :777, :712).
+            scale = torch.exp(torch.log(torch.exp(log_scale)))
+            eps = [scale * q1[j] for j in dims]
+        if indep:
+            xp = propose(3 * i + 1)
+            logq_prop = lp_q(xp)
+            logp_prop = lp_t(xp)
+            log_alpha = beta * (logp_prop - logp) + logq - logq_prop
+        else:
+            xp = [
+                xs[j] + eps[j] * normal_from_u01(
+                    uniform_halfopen01(rng, shape, 3 * i + 1, rungs * d + j)
+                )
+                for j in dims
+            ]
+            logp_prop = lp_t(xp)
+            log_alpha = beta * (logp_prop - logp)
+        u = uniform_open01(rng, shape, 3 * i + 2, rungs)
+        accept = torch.log(u) < log_alpha
+        xs = [torch.where(accept, a, b) for a, b in zip(xp, xs)]
+        logp = torch.where(accept, logp_prop, logp)
+        if indep:
+            logq = torch.where(accept, logq_prop, logq)
+        if adaptive and burn:
+            alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
+            i_f = torch.full((), float(i + 1), device=dev)
+            gamma = torch.exp(-0.6 * torch.log(i_f))
+            log_scale = torch.clamp(
+                log_scale + gamma * (alpha_p - q4[0]),
+                _LOG_SCALE_MIN, _LOG_SCALE_MAX,
+            )
+        lo, hi, dlo = pairs[i % 2]
+        if len(lo):
+            v = uniform_halfopen01(rng, shape, 3 * i + 3, lo[:, None])
+            delta = dlo * (logp[hi] - logp[lo])
+            swap = torch.log(torch.clamp(v, min=1e-38)) < delta
+            xs = [exchange(x, lo, hi, swap) for x in xs]
+            logp = exchange(logp, lo, hi, swap)
+            if indep:
+                logq = exchange(logq, lo, hi, swap)
+            swaps = swaps + swap.to(torch.float32).sum(dim=0)
+        if burn:
+            continue
+        n_acc = n_acc + accept[0].to(torch.float32)
+        cold = [x[0] for x in xs]
+        accs = [a + (v - p) for a, v, p in zip(accs, values(cold), pilots)]
+
+    acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
+    chain_pilots = torch.stack(
+        [p.expand_as(accs[0]).reshape(-1) for p in pilots], dim=1
+    )
+    rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
+    block_swaps = swaps.reshape(-1, CHAIN_THREADS).sum(dim=1)
+    swap_col = torch.zeros_like(rows[:, :, :1])
+    swap_col[:, 0, 0] = block_swaps
+    return McmcOutput(
+        torch.cat([rows, swap_col], dim=2),
+        torch.stack([x[0].reshape(-1) for x in xs]),
+    )
+
+
+def mcmc_pt_cuda(
+    program: McmcPtProgram,
+    cfg: McmcPtConfig,
+    params: torch.Tensor,
+    ladder: torch.Tensor,
+    seed: int,
+    grid: McmcGrid,
+) -> McmcOutput:
+    """Runs the grid's ladders on ``params``' device.
+
+    A CUDA ``params`` launches the kernel: ``mcmc_pt_cuda.launches``
+    counts the chain-kernel launches, and ``mcmc_pt_cuda.pilot_launches``
+    the pilot kernel's, which an error-bar run launches first.  A CPU
+    ``params`` runs the plain version.  Any other device raises.  The
+    launches are asynchronous on the current stream."""
+    if cfg.compiled != program.compiled:
+        raise ValueError(
+            f"the program was built for {program.compiled}, not {cfg.compiled}"
+        )
+    _check_args(cfg, params, ladder, len(program.fns))
+    if params.device.type == "cpu":
+        return mcmc_pt_reference(
+            program.torch_fns, program.torch_target, cfg, params, ladder,
+            seed, grid,
+        )
+    if params.device.type != "cuda":
+        raise ValueError(f"no tempered MCMC kernel for device {params.device}")
+    params, ladder = params.contiguous(), ladder.contiguous()
+    lib = program.library()
+    k = len(program.fns)
+    dev = params.device
+    word = pt_seed_word(seed)
+    rows = torch.empty(
+        (grid.chains_actual // CHAIN_THREADS, 3, k + 2),
+        dtype=torch.float32, device=dev,
+    )
+    x_final = torch.empty(
+        (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
+    )
+    pilots = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cfg.with_stderr:
+            pilots = torch.empty(
+                (grid.programs, k), dtype=torch.float32, device=dev
+            )
+            err = lib.tmc_mcmc_pt_pilots(
+                word, params.data_ptr(), grid.chains_per_program,
+                grid.programs, pilots.data_ptr(), stream,
+            )
+            _raise_on(lib, err, "pilot")
+            mcmc_pt_cuda.pilot_launches += 1
+        err = lib.tmc_mcmc_pt(
+            word, params.data_ptr(), ladder.data_ptr(), cfg.n_burnin,
+            cfg.n_steps, grid.chains_per_program, grid.chains_actual,
+            None if pilots is None else pilots.data_ptr(),
+            rows.data_ptr(), x_final.data_ptr(), stream,
+        )
+        _raise_on(lib, err, "chain")
+    mcmc_pt_cuda.launches += 1
+    return McmcOutput(rows, x_final)
+
+
+mcmc_pt_cuda.launches = 0
+mcmc_pt_cuda.pilot_launches = 0
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"tempered MCMC {what} kernel launch failed: "
+            f"{lib.tmc_error_string(err)!r}"
+        )
+
+
+def pt_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcPtConfig, k: int):
+    """(values (K,), cold acceptance (), swap rate (), stderr (K,) or
+    None), float32 tensors on the rows' device: the JAX wrapper's math
+    (mcmc_pt_pallas.py:966-1006, :1056-1065) over CUDA blocks in place of
+    programs.  The swap rate divides by the attempted exchanges of the
+    whole run, burn-in included."""
+    values, acceptance, stderr = mcmc_finish(out, grid, cfg, k)
+    attempted = pt_attempted_swaps(
+        cfg.n_temps, cfg.n_burnin + cfg.n_steps, grid.chains_actual
+    )
+    denom = float(np.float32(max(float(attempted), 1.0)))
+    swap_rate = out.rows[:, 0, k + 1].sum() / denom
+    return values, acceptance, swap_rate, stderr

@@ -29,6 +29,13 @@ __all__ = [
     "ND_MCMC_WIDE",
     "ND_SERVING",
     "ND_WIDE",
+    "PT_CUSTOM",
+    "PT_DIAGNOSTICS",
+    "PT_FAMILIES",
+    "PT_HMC",
+    "PT_SAMPLES",
+    "PT_SERVING",
+    "PT_WIDE",
     "TEMPERING",
     "VARIANTS",
     "not_ported",
@@ -76,6 +83,23 @@ ND_MCMC_WIDE = (
     "ROADMAP.md, queue 1 item 8.8 (nd MCMC over more than 127 functions)"
 )
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
+PT_HMC = "ROADMAP.md, queue 1 item 9.1 (tempered HMC)"
+PT_CUSTOM = (
+    "ROADMAP.md, queue 1 item 9.2 (tempering over CUSTOM target and "
+    "proposal dimensions)"
+)
+PT_SAMPLES = "ROADMAP.md, queue 1 item 9.3 (tempered cold-rung samples)"
+PT_DIAGNOSTICS = "ROADMAP.md, queue 1 item 9.4 (tempered split-R-hat and ESS)"
+PT_SERVING = (
+    "ROADMAP.md, queue 1 item 9.5 (tempered compile_mcmc, seed_batch and "
+    "param_batch)"
+)
+PT_FAMILIES = (
+    "ROADMAP.md, queue 1 item 9.6 (tempering over the extended families)"
+)
+PT_WIDE = (
+    "ROADMAP.md, queue 1 item 9.7 (tempering over more than 126 functions)"
+)
 API_SURFACE = "ROADMAP.md, queue 1 item 10 (remaining API surface)"
 MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
 
