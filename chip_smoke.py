@@ -23,13 +23,14 @@ Phases, each of which exits non-zero on failure:
    against the plain version with the same tolerance, time both (CUDA
    events), time ``integrate()`` end to end (host clock) and read the
    device idle share of warm calls from one ``torch.profiler`` window;
-6. finish building the MCMC kernel (``csrc/mcmc.cu``) and print nvcc's
-   register and spill report;
+6. finish building the MCMC kernel (``csrc/mcmc.cu``, one library per
+   integrand set, mode and family pair, all started in phase 2) and print
+   nvcc's register and spill report;
 7. hold the MCMC kernel against its plain version on the card in every
    mode (independence under three family pairs, random walk, adaptive
-   walk, error bars) at 4096 chains x (200 + 1000) steps: at most 1% of
-   the chains split (end more than 1e-3 apart), acceptance within 1e-3,
-   means within 0.2 standard errors + 1e-6, error bars within rel 1e-3;
+   walk, error bars) at 4096 chains x (200 + 1000) steps: no chain splits
+   (ends more than 1e-3 apart), acceptance within 1e-3, means within 0.2
+   standard errors + 1e-6, error bars within rel 1e-3;
 8. drive the MCMC main path, ``integrate_mcmc([x*x], N(0, 1), N(0, 2),
    n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42,
    return_stderr=True)``: E[x^2] within 6 standard errors of 1, and the
@@ -39,7 +40,9 @@ Phases, each of which exits non-zero on failure:
    in phase 7 (the plain version timed in that run), time both (CUDA
    events) and time ``integrate_mcmc()`` end to end (host clock), in
    chain-steps/s counted as 4096 x (10_000 + 1_000); the kernel without
-   error bars is timed beside them;
+   error bars and the kernel of an adaptive walk on N(0, 1)
+   (``RandomWalk(adapt=True)``) at the same shape are timed beside them,
+   and the pipe and latency bounds computed;
 10. finish building the nd integrate kernel (``csrc/integrate_nd.cu``) for
     c9's and c9c's integrand sets and print nvcc's register and spill
     report;
@@ -71,7 +74,7 @@ Phases, each of which exits non-zero on failure:
     mode (independence under a product and under c9e's joint target,
     random and adaptive walk on the joint target, error bars, a d = 1
     joint target, d = 4) at 4096 chains x (200 + 1000) steps, with phase
-    7's gates;
+    7's gates (no chain splits);
 17. drive the nd MCMC main path, c9e: ``integrate_mcmc([x*y], joint
     log density of a bivariate normal with rho = 0.8, [N(0,2)]*2,
     n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42,
@@ -81,11 +84,11 @@ Phases, each of which exits non-zero on failure:
     pilot kernel launch counts must rise;
 18. at c9e's shape and configuration: hold the nd kernel against the plain
     version once (the plain version timed in that run, CUDA events), time
-    the kernel (CUDA events) and ``integrate_mcmc()`` end to end (host
-    clock) in chain-steps/s counted as 4096 x (10_000 + 1_000), compute
-    its pipe and latency bounds, and read the device idle share of warm
-    calls of c9e and of the 1-D MCMC main path from one
-    ``torch.profiler`` window each;
+    the kernel and c10b's walk kernel (CUDA events) and
+    ``integrate_mcmc()`` end to end (host clock) in chain-steps/s counted
+    as 4096 x (10_000 + 1_000), compute its pipe and latency bounds, and
+    read the device idle share of warm calls of c9e and of the 1-D MCMC
+    main path from one ``torch.profiler`` window each;
 19. finish building the tempered MCMC kernel (``csrc/mcmc_pt.cu``) for
     c12's and c12c's programs and phase 20's (one library per integrand
     set, target, mode, rung count and family tuple, all started in phase
@@ -96,7 +99,7 @@ Phases, each of which exits non-zero on failure:
     mixture, T = 4; independence on a 2-D product, T = 2; a walk on c9e's
     joint target, T = 5; error bars in walk and independence mode) at
     4096 chains x (200 + 1000) steps, with phase 7's gates and the swap
-    rates within 1e-3;
+    rates within 1e-3 (at most 1 % of the ladders split);
 21. drive the tempered main path, c12: ``integrate_mcmc([x, x*x],
     logmix, RandomWalk(step_size=0.5, adapt=True, init_range=(3, 5)),
     temperatures=[1, 2, 4, 8], return_stderr=True, **MCMC_MAIN)``: E[x]
@@ -111,6 +114,15 @@ Phases, each of which exits non-zero on failure:
     bound (over the T x chains / 32 warps of the step's independent rung
     moves) and latency bound, and read the device idle share of warm c12
     calls from one ``torch.profiler`` window.
+
+The three MCMC kernels' latency bounds are the steps times the carried
+chain of one step (the dependent instructions per step on a cycle of
+registers one iteration carries into the next), and their pipe bounds
+count the function's parallel work: the whole card under an independence
+proposal, the chains' (or rung moves') warps for a walk.  A 1-D or nd
+build that spreads a chain over L lanes runs each decision on every lane,
+so their bounds count a one-lane build of the same group, the function's
+own instructions; the running build's count is printed beside it.
 
 Each kernel's bound is the least time the card could take at the main
 path's shape: from the built library's SASS (``cuobjdump -sass``, read by
@@ -348,11 +360,19 @@ def idle_share(call, n_calls: int = 10):
 # mantissa) over the conversions per sample; logf and sinf convert signed
 # integers and division converts with .RP, so neither counts.
 #
-# A kernel of few warps (MCMC: 4096 chains are 128 warps, one per SM)
-# cannot fill the pipes; each of its threads runs its steps one after
-# another.  Its latency bound is the steps times the dependent chain of
-# one step (``chain``: the longest run of instructions each reading what
-# the one before wrote, on the cheapest path) times LATENCY_CYCLES.
+# An MCMC chain is a recurrence: each step's decision reads the state the
+# step before carried out.  Besides the pipes, its least time is the
+# steps times the carried chain of one step (``carried``: the most
+# dependent instructions per iteration along a cycle of registers that
+# one iteration carries into the next, ``carried_depth``) times
+# LATENCY_CYCLES.  What an iteration computes from no carried register
+# (the draws, from the loop counter and the seed) is ready whenever it is
+# needed, so it is not on that chain.  ``chain`` (the longest run of
+# dependent instructions within one iteration, carried or not) is printed
+# beside it.  The pipes count the function's own parallel work: the whole
+# card where every chain-step's draws are independent of every other
+# (independence proposals), and the chains' warps where a step waits on
+# the one before (walks; ``function_warps``).
 
 PIPE_RATES = {"fp32": 128, "int32": 64, "xu": 16}
 SCHEDULERS_PER_SM = 4
@@ -383,6 +403,10 @@ _SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
 _SASS_REG = re.compile(r"\bU?[RP]\d+\b")
 _NO_DEST = {"RED", "BRA", "JMP", "EXIT", "RET", "BAR", "BSYNC", "BSSY",
             "WARPSYNC", "NOP", "CALL"}
+# What a loop counter's update may take: an induction register steps by a
+# loop-invariant amount in at most two of these.
+_INDUCTION = {"IADD3", "IADD", "IADD32I", "VIADD", "IMAD", "LEA", "MOV",
+              "UIADD3", "UMOV", "ULEA", "UIMAD"}
 
 
 @dataclass(frozen=True)
@@ -391,6 +415,7 @@ class Instr:
     predicated: bool
     opcode: str  # full, e.g. "IMAD.WIDE.U32"
     operands: str
+    guard: str = ""  # the predicate register of "@P0" or "@!P0"
 
     @property
     def base(self) -> str:
@@ -445,10 +470,11 @@ def parse_functions(listing: str) -> dict:
             continue
         text = m.group(2).split()
         pred = text[0].startswith("@")
+        guard = text[0].lstrip("@!") if pred else ""
         if pred:
             text = text[1:]
-        current.append(
-            Instr(int(m.group(1), 16), pred, text[0], " ".join(text[1:])))
+        current.append(Instr(int(m.group(1), 16), pred, text[0],
+                             " ".join(text[1:]), guard))
     return out
 
 
@@ -509,8 +535,10 @@ def loop_counts(instrs) -> list:
                 path = [last]
                 while path[-1] != h:
                     path.append(pred[path[-1]])
-        counts["chain"] = chain_depth(
-            [i for b in reversed(path) for i in instrs[bounds[b][0]:bounds[b][1] + 1]])
+        body = [i for b in reversed(path)
+                for i in instrs[bounds[b][0]:bounds[b][1] + 1]]
+        counts["chain"] = chain_depth(body)
+        counts["carried"] = carried_depth(body)
         result.append(LoopCount(instrs[bounds[h][0]].addr,
                                 instrs[bounds[end][1]].addr, counts))
     return result
@@ -540,6 +568,104 @@ def chain_depth(instrs) -> int:
     return longest
 
 
+def _dest_and_sources(ins):
+    """(destination register or None, source registers) of ``ins``, as
+    ``chain_depth`` reads them; a guarded instruction also reads its guard
+    and, since it may keep it, its destination's old value."""
+    toks = [t.strip() for t in ins.operands.split(",")]
+    while toks and toks[0] == "PT":
+        toks.pop(0)
+    dest = None
+    if (toks and _SASS_REG.fullmatch(toks[0])
+            and not ins.base.startswith("ST") and ins.base not in _NO_DEST):
+        dest, toks = toks[0], toks[1:]
+    srcs = [r for t in toks for r in _SASS_REG.findall(t)]
+    if ins.guard and _SASS_REG.fullmatch(ins.guard):
+        srcs.append(ins.guard)
+    if ins.predicated and dest is not None:
+        srcs.append(dest)
+    return dest, srcs
+
+
+def carried_depth(instrs) -> float:
+    """The carried chain of one iteration of straight-line ``instrs`` (a
+    loop body): the most dependent instructions per iteration on a cycle
+    of carried registers, those the body reads before it writes them.
+    The weight of an edge a -> b is the longest dependent path from a's
+    value at the iteration's start to b's at its end; a cycle of k edges
+    spans k iterations, and the count is the largest mean over cycles
+    (Karp's algorithm).  A path that leaves the cycles (a sum of f(x) in
+    which x is carried) overlaps later iterations and does not count.
+    Values computed from no carried register count as ready, and so do
+    induction registers (a loop counter: a carried register that steps
+    by a loop-invariant amount in at most two additions or moves), since
+    a whole run of their values can be had ahead."""
+    parsed = [_dest_and_sources(ins) for ins in instrs]
+    written = {d for d, _ in parsed if d is not None}
+    seen, carried = set(), []
+    for (dest, srcs), ins in zip(parsed, instrs):
+        for r in srcs:
+            if r in written and r not in seen and r not in carried:
+                carried.append(r)
+        if dest is not None:
+            seen.add(dest)
+
+    def longest_from(seeds):
+        """Per register, the longest path from any of ``seeds`` (at the
+        iteration's start) to its value at the end, or -inf."""
+        depth = dict.fromkeys(seeds, 0)
+        for (dest, srcs), ins in zip(parsed, instrs):
+            if dest is None:
+                continue
+            d = max((depth.get(r, -math.inf) for r in srcs),
+                    default=-math.inf)
+            depth[dest] = d + 1
+        return depth
+
+    reach = {c: longest_from([c]) for c in carried}
+
+    def is_induction(r):
+        """r steps by a loop-invariant amount: its end value depends on no
+        other carried register, through at most two additions or moves."""
+        if any(c != r and reach[c].get(r, -math.inf) > -math.inf
+               for c in carried):
+            return False
+        depth, bad = {r: 0}, set()
+        for (dest, srcs), ins in zip(parsed, instrs):
+            if dest is None:
+                continue
+            hit = [x for x in srcs if x in depth]
+            bad.discard(dest)
+            if not hit:
+                depth.pop(dest, None)
+                continue
+            depth[dest] = 1 + max(depth[x] for x in hit)
+            if ins.base not in _INDUCTION or any(x in bad for x in hit):
+                bad.add(dest)
+        return r in depth and r not in bad and depth[r] <= 2
+
+    nodes = [r for r in carried if not is_induction(r)]
+    weight = {a: {b: w for b, w in reach[a].items()
+                  if b in nodes and w > -math.inf} for a in nodes}
+    n = len(nodes)
+    if n == 0:
+        return 0
+    # Karp: best[k][v] is the heaviest walk of exactly k edges ending at v.
+    best = [dict.fromkeys(nodes, 0.0)]
+    for _ in range(n):
+        prev, cur = best[-1], dict.fromkeys(nodes, -math.inf)
+        for a in nodes:
+            if prev[a] == -math.inf:
+                continue
+            for b, w in weight[a].items():
+                cur[b] = max(cur[b], prev[a] + w)
+        best.append(cur)
+    means = [min((best[n][v] - best[k][v]) / (n - k)
+                 for k in range(n) if best[k][v] > -math.inf)
+             for v in nodes if best[n][v] > -math.inf]
+    return max(means, default=0)
+
+
 def sample_loops(instrs) -> list:
     """The loops that draw samples: those converting uniforms on their
     cheapest path, less those that hold another such loop (a tile loop
@@ -550,11 +676,16 @@ def sample_loops(instrs) -> list:
                        for o in drawing if o is not lp)]
 
 
-def per_sample(listing: str, function: str, conversions_per_sample: int):
+def per_sample(listing: str, function: str, conversions_per_sample: int,
+               lanes: int = 1):
     """(dearest, cheapest) per-class instructions per sample over the
     sample loops of the kernel function whose mangled name contains
     ``function``.  One iteration draws ``conversions /
-    conversions_per_sample`` samples."""
+    conversions_per_sample`` samples on each of a unit's ``lanes``
+    threads (MCMC: the lanes of one chain), and runs that many times
+    ``lanes`` units one after another: the pipe and issue counts, summed
+    over the lanes, are per unit, and ``chain`` and ``carried`` per unit
+    of that sequence."""
     funcs = [ins for name, ins in parse_functions(listing).items()
              if function in name]
     if len(funcs) != 1:
@@ -566,7 +697,8 @@ def per_sample(listing: str, function: str, conversions_per_sample: int):
             raise ValueError(
                 f"a loop of {function!r} converts {loop.counts['conversions']}"
                 f" uniforms, not a multiple of {conversions_per_sample}")
-        rows.append({k: v / n for k, v in loop.counts.items()})
+        rows.append({k: v / (n * lanes if k in ("chain", "carried") else n)
+                     for k, v in loop.counts.items()})
     if not rows:
         raise ValueError(f"no sample loop in {function!r}")
     return ({k: max(r[k] for r in rows) for k in rows[0]},
@@ -612,15 +744,26 @@ def sass_listing(lib) -> str:
                           text=True, check=True).stdout
 
 
+def function_warps(mode, chains: int, rungs: int = 1):
+    """The warps of an MCMC function's parallel work (``bound_ms``'s
+    ``warps``): None (the whole card) when every chain-step's draws are
+    independent of every other, as under an independence proposal; else
+    the rung moves that one step makes at once, rungs x chains lanes."""
+    if int(mode) == 0:  # independence
+        return None
+    return rungs * chains // 32
+
+
 def card_bound(lib, function: str, conversions: int, units: float,
-               clock_mhz: float, warps=None, weights=None):
+               clock_mhz: float, warps=None, weights=None, lanes: int = 1):
     """The bound of ``units`` units of a built kernel on this card:
     ``(bound_ms, pipe, issue_ms, counts)``.  Counts are the dearest sample
     loop's per unit, or with ``weights = (w_dear, w_cheap)`` the
-    weighted mean of the dearest and the cheapest loop's."""
+    weighted mean of the dearest and the cheapest loop's; ``lanes`` as
+    ``per_sample``'s."""
     import torch
 
-    dear, cheap = per_sample(sass_listing(lib), function, conversions)
+    dear, cheap = per_sample(sass_listing(lib), function, conversions, lanes)
     counts = dear
     if weights is not None:
         counts = {k: (weights[0] * dear[k] + weights[1] * cheap[k])
@@ -630,12 +773,32 @@ def card_bound(lib, function: str, conversions: int, units: float,
     return ms, pipe, issue_ms(counts, units, sms, clock_mhz, warps), counts
 
 
-def print_bound(bound, clock_mhz: float, unit: str) -> None:
+def print_bound(bound, clock_mhz: float, unit: str, own=None) -> None:
+    """Prints a bound; ``own``, the bound counted on the multi-lane build
+    that runs (``bound`` then comes from its one-lane twin), beside it."""
     ms, pipe, issue, counts = bound
     per = ", ".join(f"{k} {v:g}" for k, v in counts.items())
     print(f"  bound {ms:.3f} ms ({pipe} pipe) at {clock_mhz:.0f} MHz under "
           f"load; issue {issue:.3f} ms (diagnostic); per {unit} on the "
           f"cheapest path: {per}")
+    if own is not None:
+        print(f"  (counted on the one-lane build; the build that runs, "
+              f"whose lanes repeat every decision: pipes {own[0]:.3f} ms "
+              f"({own[1]}), issue {own[2]:.3f} ms, "
+              f"{own[3]['issue']:g} instructions per {unit})")
+
+
+def print_latency(bound, steps: int, clock_mhz: float) -> float:
+    """Prints and returns an MCMC kernel's latency bound: ``steps`` steps
+    of ``bound``'s carried chain per step at LATENCY_CYCLES each."""
+    counts = bound[3]
+    ms = latency_ms(counts["carried"], steps, clock_mhz)
+    print(f"  latency bound {ms:.3f} ms: {steps} steps per chain x "
+          f"{counts['carried']:g} carried dependent instructions per step "
+          f"(longest chain within one step {counts['chain']:g}) x "
+          f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
+          f"applies")
+    return ms
 
 
 def main() -> int:
@@ -668,6 +831,7 @@ def main() -> int:
             plan_nd_grid,
         )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
+            Layout,
             McmcConfig,
             McmcProgram,
             Mode,
@@ -678,6 +842,7 @@ def main() -> int:
             plan_mcmc_grid,
         )
         from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+            McmcNdProgram,
             mcmc_nd_cuda,
             mcmc_nd_reference,
         )
@@ -713,6 +878,44 @@ def main() -> int:
     check_program = McmcProgram(
         tuple(tm.trace_function(f) for f in MCMC_CHECK_FNS)
     )
+    # The 1-D kernel compiles in its mode and families: one library per
+    # configuration of phase 7, of the main path and of the adaptive walk
+    # timed beside it.
+    n, u, e = DistKind.NORMAL, DistKind.UNIFORM, DistKind.EXPONENTIAL
+    walk = [0.8, -2.3, 2.3, 0.44]
+    mcmc_cases = [
+        ("independence N(0,2)->N(0,1)", Mode.INDEPENDENCE, n, n,
+         [0.0, 2.0, 0, 0, 0.0, 1.0], False),
+        ("independence U(0,6)->Exp(1.5)", Mode.INDEPENDENCE, u, e,
+         [0.0, 6.0, 0, 0, 1.5, 0.0], False),
+        ("independence Exp(1)->Exp(2)", Mode.INDEPENDENCE, e, e,
+         [1.0, 0.0, 0, 0, 2.0, 0.0], False),
+        ("random walk ->N(0,1)", Mode.RANDOM_WALK, n, n,
+         walk + [0.0, 1.0], False),
+        ("adaptive walk ->N(0,1)", Mode.ADAPTIVE, n, n,
+         walk + [0.0, 1.0], False),
+        ("independence N(0,2)->N(0,1), stderr", Mode.INDEPENDENCE, n, n,
+         [0.0, 2.0, 0, 0, 0.0, 1.0], True),
+        ("adaptive walk ->U(-1,2), stderr", Mode.ADAPTIVE, u, u,
+         [0.5, -1.0, 2.0, 0.44, -1.0, 2.0], True),
+    ]
+    mcmc_main_cfg = McmcConfig(Mode.INDEPENDENCE, n, n, MCMC_MAIN["n_steps"],
+                               MCMC_MAIN["n_burnin"], with_stderr=True)
+    # The adaptive walk at the main shape: RandomWalk(adapt=True) on N(0,1).
+    walk_main_cfg = replace(mcmc_main_cfg, mode=Mode.ADAPTIVE)
+    walk_main_row = [*tm.RandomWalk(adapt=True).pack_params(
+        tm.Distribution.normal(0.0, 1.0)), 0.0, 1.0]
+    # The bounds count the function's own work on a one-lane build of the
+    # main path's layout: a build of L lanes runs each decision L times.
+    mcmc_count_program = McmcProgram(mcmc_traced, layout=Layout(
+        1, mcmc_program.layout_for(mcmc_main_cfg).group))
+    mcmc_libraries = {
+        (id(prog), cfg.compiled): (prog, cfg) for prog, cfg in [
+            (mcmc_program, mcmc_main_cfg), (mcmc_program, walk_main_cfg),
+            (mcmc_count_program, mcmc_main_cfg),
+            *((check_program, McmcConfig(mode, prop, targ, 1, 0))
+              for _, mode, prop, targ, _, _ in mcmc_cases)]
+    }
     nd_dists = [tm.Distribution.normal(0.0, 1.0),
                 tm.Distribution.uniform(0.0, 1.0),
                 tm.Distribution.exponential(2.0)]
@@ -755,6 +958,9 @@ def main() -> int:
                             MCMC_MAIN["n_burnin"], True)
         for name, (fns, target, proposal, _) in nd_mcmc_cells.items()
     }
+    c9e_prog, c9e_cfg, _ = nd_mcmc_main["c9e"]
+    nd_count_program = McmcNdProgram(c9e_prog.fns, c9e_cfg, c9e_prog.target,
+                                     layout=Layout(1, c9e_prog.layout.group))
     walk2 = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
     f1, f2, f4 = (ND_MCMC_CHECK_FNS[d] for d in (1, 2, 4))
     nd_mcmc_cases = [
@@ -826,29 +1032,32 @@ def main() -> int:
         for name, fns, target, proposal, temps, stderr in pt_cases
     ]
 
-    def timed_build(prog):
+    def timed_build(build):
         start = time.perf_counter()
-        return prog.library(), time.perf_counter() - start
+        return build(), time.perf_counter() - start
 
     # One nvcc per kernel source and integrand set, all started together.
     t0 = time.perf_counter()
     pool = ThreadPoolExecutor(max_workers=24)
     mcmc_builds = [
-        pool.submit(timed_build, p) for p in (mcmc_program, check_program)
+        pool.submit(timed_build, lambda p=p, c=c: p.library(c))
+        for p, c in mcmc_libraries.values()
     ]
     nd_builds = [
-        pool.submit(timed_build, p) for p in (nd_program, qmc_program)
+        pool.submit(timed_build, p.library) for p in (nd_program, qmc_program)
     ]
     nd_mcmc_programs = list({
         id(prog): prog for prog, _, _ in
-        [*nd_mcmc_main.values(), *(setup for _, setup in nd_mcmc_checks)]
+        [*nd_mcmc_main.values(), *(setup for _, setup in nd_mcmc_checks),
+         (nd_count_program, None, None)]
     }.values())
-    nd_mcmc_builds = [pool.submit(timed_build, p) for p in nd_mcmc_programs]
+    nd_mcmc_builds = [pool.submit(timed_build, p.library)
+                      for p in nd_mcmc_programs]
     pt_programs = list({
         id(setup[0]): setup[0] for setup in
         [*pt_main.values(), *(setup for _, setup in pt_checks)]
     }.values())
-    pt_builds = [pool.submit(timed_build, p) for p in pt_programs]
+    pt_builds = [pool.submit(timed_build, p.library) for p in pt_programs]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -953,8 +1162,10 @@ def main() -> int:
     # 6. The MCMC kernel's builds, started in phase 2.
     built = [b.result() for b in mcmc_builds]
     pool.shutdown()
-    print("phase 6: built the MCMC kernel for [x*x] and for 4 functions in "
-          + " and ".join(f"{sec:.1f}" for _, sec in built)
+    print(f"phase 6: built the MCMC kernel for {len(built)} integrand sets,"
+          " modes, families and layouts ([x*x]: c5b, its one-lane build "
+          "for the bound and the adaptive walk; 4 functions: phase 7's) in "
+          + ", ".join(f"{sec:.1f}" for _, sec in built)
           + " s (in parallel with phase 2)")
     for mcmc_lib, _ in built:
         for line in mcmc_lib.build_log.splitlines():
@@ -962,25 +1173,6 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
 
     # 7. MCMC kernel against the plain version in every mode.
-    n, u, e = DistKind.NORMAL, DistKind.UNIFORM, DistKind.EXPONENTIAL
-    walk = [0.8, -2.3, 2.3, 0.44]
-    mcmc_cases = [
-        ("independence N(0,2)->N(0,1)", Mode.INDEPENDENCE, n, n,
-         [0.0, 2.0, 0, 0, 0.0, 1.0], False),
-        ("independence U(0,6)->Exp(1.5)", Mode.INDEPENDENCE, u, e,
-         [0.0, 6.0, 0, 0, 1.5, 0.0], False),
-        ("independence Exp(1)->Exp(2)", Mode.INDEPENDENCE, e, e,
-         [1.0, 0.0, 0, 0, 2.0, 0.0], False),
-        ("random walk ->N(0,1)", Mode.RANDOM_WALK, n, n,
-         walk + [0.0, 1.0], False),
-        ("adaptive walk ->N(0,1)", Mode.ADAPTIVE, n, n,
-         walk + [0.0, 1.0], False),
-        ("independence N(0,2)->N(0,1), stderr", Mode.INDEPENDENCE, n, n,
-         [0.0, 2.0, 0, 0, 0.0, 1.0], True),
-        ("adaptive walk ->U(-1,2), stderr", Mode.ADAPTIVE, u, u,
-         [0.5, -1.0, 2.0, 0.44, -1.0, 2.0], True),
-    ]
-
     def mcmc_vs_plain(prog, cfg, row, grid, phase: str):
         """Runs the kernel and the plain version on the same chains and
         fails unless they agree (tolerances in the docstring).  Returns
@@ -998,10 +1190,12 @@ def main() -> int:
         err = chains_agree(got, want, grid, cfg, len(prog.fns), phase)
         return err, start.elapsed_time(end)
 
-    def chains_agree(got, want, grid, cfg, k, phase: str) -> float:
+    def chains_agree(got, want, grid, cfg, k, phase: str,
+                     max_split: float = 0.0) -> float:
         """Fails unless two runs of the same chains (kernel and plain
-        version, 1-D or nd) agree.  Returns the max abs difference of the
-        means."""
+        version, 1-D or nd) agree: no more than ``max_split`` of the
+        chains split (none, but for the tempered kernel).  Returns the max
+        abs difference of the means."""
         # A chain splits when any of its dimensions ends apart.
         x_k = got.x_final.reshape(-1, grid.chains_actual)
         x_p = want.x_final.reshape(-1, grid.chains_actual)
@@ -1020,8 +1214,8 @@ def main() -> int:
               f"split chains {split:.4%}")
         if not (np.all(np.isfinite(v_k)) and torch.isfinite(x_k).all()):
             fail(f"phase {phase}: non-finite kernel output")
-        if split > 0.01:
-            fail(f"phase {phase}: {split:.2%} of the chains split")
+        if split > max_split:
+            fail(f"phase {phase}: {split:.4%} of the chains split")
         if abs(float(a_k) - float(a_p)) > 1e-3:
             fail(f"phase {phase}: acceptance rates disagree")
         if not np.all(err < 0.2 * se + 1e-6):
@@ -1075,8 +1269,7 @@ def main() -> int:
     # 9. Kernel and plain version at the main path's shape and
     # configuration: with error bars, as phase 8 ran it.
     main_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
-    main_cfg = McmcConfig(Mode.INDEPENDENCE, n, n, MCMC_MAIN["n_steps"],
-                          MCMC_MAIN["n_burnin"], with_stderr=True)
+    main_cfg = mcmc_main_cfg
     main_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
     # The plain version is timed in the run that holds the kernel to it.
     err, mcmc_plain_ms = mcmc_vs_plain(mcmc_program, main_cfg, main_row,
@@ -1093,6 +1286,12 @@ def main() -> int:
                           main_grid),
         reps=10,
     )
+    walk_params = torch.tensor(walk_main_row, dtype=torch.float32, device=dev)
+    mcmc_walk_ms = time_ms(
+        lambda: mcmc_cuda(mcmc_program, walk_main_cfg, walk_params, SEED,
+                          main_grid),
+        reps=10,
+    )
     call_s = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1104,31 +1303,33 @@ def main() -> int:
           f"({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, "
           f"[x*x], N(0,2)->N(0,1), stderr, on {card}: kernel "
           f"{mcmc_ms:.3f} ms ({chain_steps / mcmc_ms * 1e3:.4e} "
-          f"chain-steps/s; without stderr {mcmc_no_stderr_ms:.3f} ms), "
+          f"chain-steps/s; without stderr {mcmc_no_stderr_ms:.3f} ms; "
+          f"RandomWalk(adapt=True) -> N(0,1) {mcmc_walk_ms:.3f} ms; layout "
+          f"{tuple(mcmc_program.layout_for(main_cfg))}), "
           f"plain {mcmc_plain_ms:.3f} ms "
           f"({chain_steps / mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
           f"integrate_mcmc() end to end {mcmc_call_ms:.3f} ms median of 5, "
           f"host clock ({chain_steps / mcmc_call_ms * 1e3:.4e} "
           f"chain-steps/s)")
     # Bound: burn-in steps at the cheapest loop's count, sampling steps at
-    # the dearest's (the sampling loop also evaluates the integrands); the
-    # 128 warps work on 128 of the card's schedulers.
+    # the dearest's (the sampling loop also evaluates the integrands); an
+    # independence step's draws depend on no other step, so the pipes of
+    # the whole card count.
     mhz = clock_under_load(
         lambda: mcmc_cuda(mcmc_program, main_cfg, params, SEED, main_grid),
         mcmc_ms,
     )
-    mcmc_bound = card_bound(
-        mcmc_program.library(), "mcmc_kernelILi0EE", 2, chain_steps, mhz,
-        warps=main_grid.chains_actual // 32,
-        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
-    )
-    print_bound(mcmc_bound, mhz, "chain-step")
+    mcmc_bound, own = (card_bound(
+        lib, "mcmc_kernel", 2, chain_steps, mhz,
+        warps=function_warps(main_cfg.mode, main_grid.chains_actual),
+        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]), lanes=lanes,
+    ) for lib, lanes in (
+        (mcmc_count_program.library(main_cfg), 1),
+        (mcmc_program.library(main_cfg),
+         mcmc_program.layout_for(main_cfg).lanes)))
+    print_bound(mcmc_bound, mhz, "chain-step", own)
     steps = MCMC_MAIN["n_steps"] + MCMC_MAIN["n_burnin"]
-    mcmc_latency = latency_ms(mcmc_bound[3]["chain"], steps, mhz)
-    print(f"  latency bound {mcmc_latency:.3f} ms: {steps} steps per chain x "
-          f"{mcmc_bound[3]['chain']:g} dependent instructions per step x "
-          f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
-          f"applies")
+    mcmc_latency = print_latency(mcmc_bound, steps, mhz)
 
     # 10. The nd kernel's builds, started in phase 2.
     built = [b.result() for b in nd_builds]
@@ -1325,7 +1526,7 @@ def main() -> int:
     built = [b.result() for b in nd_mcmc_builds]
     pool.shutdown()
     print(f"phase 15: built the nd MCMC kernel for {len(built)} sets (c9d, "
-          "c9e, c10b and phase 16's) in "
+          "c9e, c9e's one-lane build for the bound, c10b and phase 16's) in "
           + ", ".join(f"{sec:.1f}" for _, sec in built)
           + " s (in parallel with phase 2)")
     for nd_mcmc_lib, _ in built:
@@ -1393,6 +1594,13 @@ def main() -> int:
     nd_mcmc_ms = time_ms(
         lambda: mcmc_nd_cuda(prog, cfg, params, SEED, main_grid), reps=10
     )
+    nd_mcmc_layout = list(prog.layout)
+    walk_prog, walk_cfg, walk_params = nd_mcmc_main["c10b"]
+    c10b_ms = time_ms(
+        lambda: mcmc_nd_cuda(walk_prog, walk_cfg, walk_params, SEED,
+                             main_grid),
+        reps=10,
+    )
     c9e_fns, c9e_joint, c9e_proposal, _ = nd_mcmc_cells["c9e"]
 
     def c9e_call():
@@ -1409,26 +1617,24 @@ def main() -> int:
           f"({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, c9e "
           f"[x*y], N(0,2)^2 -> joint, stderr, on {card}: kernel "
           f"{nd_mcmc_ms:.3f} ms ({chain_steps / nd_mcmc_ms * 1e3:.4e} "
-          f"chain-steps/s), plain {nd_mcmc_plain_ms:.3f} ms "
+          f"chain-steps/s; c10b's walk {c10b_ms:.3f} ms; layout "
+          f"{tuple(nd_mcmc_layout)}), plain {nd_mcmc_plain_ms:.3f} ms "
           f"({chain_steps / nd_mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
           f"integrate_mcmc() end to end {nd_mcmc_call_ms:.3f} ms median of "
           f"5, host clock ({chain_steps / nd_mcmc_call_ms * 1e3:.4e} "
           f"chain-steps/s)")
-    # Bounds as phase 9's: d + 1 uniform conversions per step, 128 warps.
+    # Bounds as phase 9's: d + 1 uniform conversions per step.
     mhz = clock_under_load(
         lambda: mcmc_nd_cuda(prog, cfg, params, SEED, main_grid), nd_mcmc_ms
     )
-    nd_mcmc_bound = card_bound(
-        prog.library(), "mcmc_nd_kernel", cfg.d + 1, chain_steps, mhz,
-        warps=main_grid.chains_actual // 32,
+    nd_mcmc_bound, own = (card_bound(
+        p.library(), "mcmc_nd_kernel", cfg.d + 1, chain_steps, mhz,
+        warps=function_warps(cfg.mode, main_grid.chains_actual),
         weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
-    )
-    print_bound(nd_mcmc_bound, mhz, "chain-step")
-    nd_mcmc_latency = latency_ms(nd_mcmc_bound[3]["chain"], steps, mhz)
-    print(f"  latency bound {nd_mcmc_latency:.3f} ms: {steps} steps per "
-          f"chain x {nd_mcmc_bound[3]['chain']:g} dependent instructions per "
-          f"step x {LATENCY_CYCLES} clocks; the larger of it and the pipe "
-          f"bound applies")
+        lanes=p.layout.lanes,
+    ) for p in (nd_count_program, prog))
+    print_bound(nd_mcmc_bound, mhz, "chain-step", own)
+    nd_mcmc_latency = print_latency(nd_mcmc_bound, steps, mhz)
     print("  c9e:", end="")
     idle_share(c9e_call)
     print("  1-D MCMC main path (c5b):", end="")
@@ -1463,7 +1669,7 @@ def main() -> int:
         end.record()
         end.synchronize()
         k = len(prog.fns)
-        err = chains_agree(got, want, grid, cfg, k, phase)
+        err = chains_agree(got, want, grid, cfg, k, phase, max_split=0.01)
         w_k, w_p = (float(pt_finish(t, grid, cfg, k)[2]) for t in (got, want))
         print(f"         swap rate kernel {w_k:.6f} plain {w_p:.6f}")
         if not (0.0 < w_k < 1.0 and abs(w_k - w_p) <= 1e-3):
@@ -1551,15 +1757,11 @@ def main() -> int:
     pt_conversions = cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2
     pt_bound = card_bound(
         prog.library(), "mcmc_pt_kernel", pt_conversions, chain_steps, mhz,
-        warps=cfg.n_temps * main_grid.chains_actual // 32,
+        warps=function_warps(cfg.mode, main_grid.chains_actual, cfg.n_temps),
         weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
     )
     print_bound(pt_bound, mhz, "chain-step")
-    pt_latency = latency_ms(pt_bound[3]["chain"], steps, mhz)
-    print(f"  latency bound {pt_latency:.3f} ms: {steps} steps per chain x "
-          f"{pt_bound[3]['chain']:g} dependent instructions per step x "
-          f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
-          f"applies")
+    pt_latency = print_latency(pt_bound, steps, mhz)
     print("  c12:", end="")
     idle_share(lambda: pt_call(c12_walk))
 
@@ -1593,6 +1795,8 @@ def main() -> int:
         "issue_ms": mcmc_bound[2],
         "latency_ms": mcmc_latency,
         "library_ms": None,
+        "layout": list(mcmc_program.layout_for(main_cfg)),
+        "walk_ms": mcmc_walk_ms,
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -1624,6 +1828,8 @@ def main() -> int:
         "issue_ms": nd_mcmc_bound[2],
         "latency_ms": nd_mcmc_latency,
         "library_ms": None,
+        "layout": nd_mcmc_layout,
+        "walk_ms": c10b_ms,
     }, {
         "name": "mcmc_pt",
         "route": "cuda",

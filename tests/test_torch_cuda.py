@@ -29,7 +29,9 @@ from tpu_montecarlo_torch.ops.integrate_kernel import (
     plan_grid,
 )
 from tpu_montecarlo_torch.ops.mcmc_kernel import (
+    Layout,
     McmcConfig,
+    McmcGrid,
     McmcProgram,
     Mode,
     mcmc_cuda,
@@ -234,6 +236,102 @@ def test_mcmc_kernel_rejects_bad_params(cuda_device):
     params = torch.zeros(6, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024))
+
+
+# -- the chain layout (csrc/mcmc_pipeline.cuh) ---------------------------------
+#
+# Spreading a chain's candidates over lanes and making them in groups
+# changes no number the kernels compute: they run the plain version's
+# chains, so no chain may split at all, and every layout gives the default
+# layout's rows and final states bit for bit.  The grid is 8 programs of
+# 1024 chains, so each chain's program and position count; the run lengths
+# take in a single step, tail groups and no burn-in.
+SEVERAL_PROGRAMS = McmcGrid(programs=8, rows=8, chains_actual=8192)
+RUN_LENGTHS = [(1, 0), (7, 3), (1201, 13)]  # (n_steps, n_burnin)
+LAYOUTS = [Layout(1, 1), Layout(2, 3), Layout(4, 1), Layout(8, 3)]
+
+
+def _no_split(got, want, grid, cfg, k):
+    """Kernel against plain version: no chain ends apart in any dimension,
+    acceptance within 1e-3, means within 0.2 standard errors + 1e-6, error
+    bars within STDERR_RTOL."""
+    x_k = got.x_final.reshape(-1, grid.chains_actual).cpu()
+    x_p = want.x_final.reshape(-1, grid.chains_actual).cpu()
+    assert torch.isfinite(x_k).all()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert int(split.sum()) == 0, f"{int(split.sum())} chains split"
+    v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
+    v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
+    _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert torch.isfinite(v_k).all()
+    assert abs(float(a_k) - float(a_p)) <= 1e-3
+    np.testing.assert_array_less(
+        (v_k - v_p).abs().cpu().numpy(), (0.2 * se + 1e-6).cpu().numpy()
+    )
+    if cfg.with_stderr:
+        np.testing.assert_allclose(
+            s_k.cpu().numpy(), s_p.cpu().numpy(), rtol=STDERR_RTOL
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,n_burnin", RUN_LENGTHS,
+                         ids=[f"steps{n}-burn{b}" for n, b in RUN_LENGTHS])
+@pytest.mark.parametrize("case", list(MCMC_CASES))
+def test_mcmc_kernel_splits_no_chain(cuda_device, case, n_steps, n_burnin):
+    mode, prop, targ, row, stderr = MCMC_CASES[case]
+    program = McmcProgram(tuple(tm.trace_function(f) for f in MCMC_FNS))
+    cfg = McmcConfig(mode, prop, targ, n_steps, n_burnin, stderr)
+    params = torch.tensor(row, dtype=torch.float32, device=cuda_device)
+    before = mcmc_cuda.launches
+    got = mcmc_cuda(program, cfg, params, 42, SEVERAL_PROGRAMS)
+    torch.cuda.synchronize()
+    assert mcmc_cuda.launches == before + 1
+    want = mcmc_reference(program.torch_fns, cfg, params, 42, SEVERAL_PROGRAMS)
+    _no_split(got, want, SEVERAL_PROGRAMS, cfg, len(MCMC_FNS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["independence-normal", "adaptive-walk"])
+def test_mcmc_layouts_run_the_same_chains(cuda_device, case):
+    # K = 1, the main path's [x*x]: every layout against the plain
+    # version, and bit for bit against one lane and no grouping.
+    mode, prop, targ, row, _ = MCMC_CASES[case]
+    traced = (tm.trace_function(lambda x: x * x),)
+    cfg = McmcConfig(mode, prop, targ, 1201, 13, True)
+    params = torch.tensor(row, dtype=torch.float32, device=cuda_device)
+    layouts = LAYOUTS if mode == Mode.INDEPENDENCE else [
+        Layout(1, g) for g in (1, 3, 4)]
+    runs = []
+    for layout in [None, *layouts]:
+        program = McmcProgram(traced, layout=layout)
+        runs.append(mcmc_cuda(program, cfg, params, 42, SEVERAL_PROGRAMS))
+    torch.cuda.synchronize()
+    want = mcmc_reference(program.torch_fns, cfg, params, 42, SEVERAL_PROGRAMS)
+    for got in runs:
+        _no_split(got, want, SEVERAL_PROGRAMS, cfg, 1)
+        assert torch.equal(got.rows, runs[0].rows)
+        assert torch.equal(got.x_final, runs[0].x_final)
+
+
+@pytest.mark.cuda
+def test_widest_mcmc_kernel_with_error_bars(cuda_device):
+    # 127 integrands, the most the kernel takes, with error bars: 127
+    # float32 sums per thread.  nvcc's register and spill report (empty
+    # when the library is cached); pytest -rP shows it.
+    program = McmcProgram(tuple(tm.trace_function(f)
+                                for f in WIDEST[:MAX_FUNCTIONS - 1]))
+    mode, prop, targ, row, _ = MCMC_CASES["stderr"]
+    cfg = McmcConfig(mode, prop, targ, 200, 50, True)
+    for line in program.library(cfg).build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    params = torch.tensor(row, dtype=torch.float32, device=cuda_device)
+    got = mcmc_cuda(program, cfg, params, 42, SEVERAL_PROGRAMS)
+    torch.cuda.synchronize()
+    want = mcmc_reference(program.torch_fns, cfg, params, 42, SEVERAL_PROGRAMS)
+    assert got.rows.shape == (8192 // 32, 3, MAX_FUNCTIONS)
+    _no_split(got, want, SEVERAL_PROGRAMS, cfg, MAX_FUNCTIONS - 1)
 
 
 # -- the nd integrate kernel --------------------------------------------------
@@ -579,6 +677,58 @@ def test_widest_nd_mcmc_kernel_with_error_bars(cuda_device):
         if "registers" in line or "spill" in line:
             print(line.strip())
     _check_nd_mcmc(program, cfg, params, plan_mcmc_grid(plan_chains(4096, None)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,n_burnin", RUN_LENGTHS,
+                         ids=[f"steps{n}-burn{b}" for n, b in RUN_LENGTHS])
+@pytest.mark.parametrize("case", list(ND_MCMC_CASES))
+def test_nd_mcmc_kernel_splits_no_chain(cuda_device, case, n_steps, n_burnin):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda, mcmc_nd_reference
+
+    target, proposal, stderr = ND_MCMC_CASES[case]
+    program, cfg, params = _nd_mcmc_setup(
+        target, proposal, stderr, ND_MCMC_FNS[_dims(target, proposal)],
+        cuda_device, n_steps=n_steps, n_burnin=n_burnin,
+    )
+    before = mcmc_nd_cuda.launches
+    got = mcmc_nd_cuda(program, cfg, params, 42, SEVERAL_PROGRAMS)
+    torch.cuda.synchronize()
+    assert mcmc_nd_cuda.launches == before + 1
+    want = mcmc_nd_reference(program.torch_fns, program.torch_target, cfg,
+                             params, 42, SEVERAL_PROGRAMS)
+    _no_split(got, want, SEVERAL_PROGRAMS, cfg, len(program.fns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", [False, True], ids=["c9e", "c10b"])
+def test_nd_mcmc_layouts_run_the_same_chains(cuda_device, walk):
+    # K = 1, c9e's [x*y] on its joint target, independence or c10b's walk:
+    # every layout against the plain version, and bit for bit against one
+    # lane and no grouping.
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+        McmcNdProgram,
+        mcmc_nd_cuda,
+        mcmc_nd_reference,
+    )
+
+    proposal = _WALK if walk else [tm.Distribution.normal(0.0, 2.0)] * 2
+    base, cfg, params = _nd_mcmc_setup(
+        _c9e_target, proposal, True, [lambda x, y: x * y], cuda_device,
+        n_steps=1201, n_burnin=13,
+    )
+    layouts = [Layout(1, g) for g in (1, 3, 4)] if walk else LAYOUTS
+    runs = [mcmc_nd_cuda(base, cfg, params, 42, SEVERAL_PROGRAMS)]
+    for layout in layouts:
+        program = McmcNdProgram(base.fns, cfg, base.target, layout=layout)
+        runs.append(mcmc_nd_cuda(program, cfg, params, 42, SEVERAL_PROGRAMS))
+    torch.cuda.synchronize()
+    want = mcmc_nd_reference(base.torch_fns, base.torch_target, cfg, params,
+                             42, SEVERAL_PROGRAMS)
+    for got in runs:
+        _no_split(got, want, SEVERAL_PROGRAMS, cfg, 1)
+        assert torch.equal(got.rows, runs[0].rows)
+        assert torch.equal(got.x_final, runs[0].x_final)
 
 
 @pytest.mark.cuda

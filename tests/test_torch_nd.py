@@ -698,13 +698,14 @@ def test_sass_sample_loop_counts_the_cheapest_path():
     # the inner body once, plus its own instructions.
     # The dependent chain on that path: IMAD R5 -> LOP3 R6 -> I2F R7 ->
     # FADD R9 -> FFMA R9 (5); the tile loop's IADD3 R3 feeds the IMAD (6).
+    # The carried chain: FADD R9 -> FFMA R9 (2); R4 and R2 are counters.
     assert loops[1].counts == {
         "fp32": 3, "int32": 4, "xu": 2, "issue": 11, "conversions": 2,
-        "chain": 5,
+        "chain": 5, "carried": 2,
     }
     assert loops[0].counts == {
         "fp32": 3, "int32": 7, "xu": 2, "issue": 16, "conversions": 2,
-        "chain": 6,
+        "chain": 6, "carried": 2,
     }
     assert loops[2].counts["chain"] == 2  # FADD R12 -> ISETP P4
     # Only the innermost drawing loop is a sample loop.
@@ -712,7 +713,7 @@ def test_sass_sample_loop_counts_the_cheapest_path():
     most, least = sass.per_sample(_LISTING, "integrate_nd_kernel", 1)
     assert most == least == {
         "fp32": 1.5, "int32": 2.0, "xu": 1.0, "issue": 5.5, "conversions": 1.0,
-        "chain": 2.5,
+        "chain": 2.5, "carried": 1.0,
     }
     with pytest.raises(ValueError, match="not a multiple"):
         sass.per_sample(_LISTING, "integrate_nd_kernel", 3)
@@ -771,3 +772,115 @@ def test_sass_chain_follows_registers_not_order():
     assert sass.chain_depth(body) == 4
     assert sass.chain_depth(body[6:]) == 4
     assert sass.chain_depth([]) == 0
+
+
+def _body(sass, rows):
+    """Instructions from (opcode, operands[, guard]) rows, 16 bytes apart."""
+    return [sass.Instr(16 * i, bool(g), op, args, g[0] if g else "")
+            for i, (op, args, *g) in enumerate(rows)]
+
+
+def test_sass_carried_chain_leaves_out_iteration_local_work():
+    sass = _chip_smoke()
+
+    # A counter R0 feeds a 7-instruction hash and log; only the sum R20
+    # carries, one FADD per iteration.
+    body = _body(sass, [
+        ("IADD3", "R0, R0, 0x1, RZ"),
+        ("IMAD", "R2, R0, 0x3, R1"),
+        ("LOP3.LUT", "R3, R2, 0x55, RZ, 0x3c, !PT"),
+        ("SHF.R.U32.HI", "R4, RZ, 0x5, R3"),
+        ("IMAD", "R5, R4, 0x9, RZ"),
+        ("I2FP.F32.U32", "R6, R5"),
+        ("MUFU.LG2", "R7, R6"),
+        ("FMUL", "R8, R7, 0.5"),
+        ("FADD", "R20, R20, R8"),
+        ("ISETP.GE.AND", "P0, PT, R0, R9, PT"),
+    ])
+    assert sass.chain_depth(body) == 9
+    assert sass.carried_depth(body) == 1
+    # Without the sum nothing carries but the counter.
+    assert sass.carried_depth(body[:8] + body[9:]) == 0
+    # A counter that is hashed into its own next value is no counter.
+    rehash = _body(sass, [("IMAD", "R2, R0, 0x3, R1"),
+                          ("LOP3.LUT", "R0, R2, 0x55, RZ, 0x3c, !PT")])
+    assert sass.carried_depth(rehash) == 2
+
+
+def test_sass_carried_chain_follows_the_recurrence():
+    sass = _chip_smoke()
+
+    # An independence step: la = ((lp' + logq) - logp) - lq', the compare,
+    # the selects of logp (R10), logq (R11) and x (R12, a guarded MOV);
+    # then the sum of x * x (R13), which no later decision reads.
+    body = _body(sass, [
+        ("IADD3", "R0, R0, 0x1, RZ"),
+        ("IMAD", "R2, R0, 0x3, R1"),
+        ("MUFU.LG2", "R3, R2"),
+        ("FADD", "R4, R3, R11"),
+        ("FADD", "R5, R4, -R10"),
+        ("FADD", "R6, R5, -R3"),
+        ("FSETP.GT.AND", "P1, PT, R6, R2, PT"),
+        ("FSEL", "R10, R3, R10, P1"),
+        ("FSEL", "R11, R3, R11, P1"),
+        ("MOV", "R12, R3", "P1"),
+        ("FMUL", "R14, R12, R12"),
+        ("FADD", "R15, R14, -R16"),
+        ("FADD", "R13, R13, R15"),
+    ])
+    assert sass.chain_depth(body) == 8
+    assert sass.carried_depth(body) == 5
+    # The guard is a source: without it the MOV of x would be ready.
+    assert body[9].guard == "P1"
+    # Two registers that feed each other: 4 instructions from R10 to R11,
+    # 5 from R11 to R10, a cycle of 9 over two iterations.
+    pair = _body(sass, [
+        ("FADD", "R1, R10, 1"), ("FMUL", "R2, R1, R1"), ("FADD", "R20, R2, 3"),
+        ("FADD", "R3, R11, 1"), ("FMUL", "R4, R3, R3"), ("FMUL", "R5, R4, R4"),
+        ("FMUL", "R6, R5, R4"), ("FADD", "R10, R6, 2"), ("MOV", "R11, R20"),
+    ])
+    assert sass.carried_depth(pair) == 4.5
+
+
+def test_sass_parse_keeps_the_guard_and_lanes_divide_the_carried_chain():
+    sass = _chip_smoke()
+
+    listing = """
+\t\tFunction : _ZN12_GLOBAL__N_111mcmc_kernelEjPKfiiiS1_PfS2_
+        /*0000*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0010*/                   I2FP.F32.U32 R2, R0 ;
+        /*0020*/                   I2FP.F32.U32 R3, R0 ;
+        /*0030*/                   FADD R4, R2, R11 ;
+        /*0040*/                   FADD R5, R4, -R10 ;
+        /*0050*/                   FSETP.GT.AND P1, PT, R5, R3, PT ;
+        /*0060*/              @!P1 MOV R10, R2 ;
+        /*0070*/                   FADD R6, R3, R10 ;
+        /*0080*/                   FADD R7, R6, -R10 ;
+        /*0090*/                   FSETP.GT.AND P2, PT, R7, R2, PT ;
+        /*00a0*/               @P2 MOV R10, R3 ;
+        /*00b0*/                   ISETP.NE.AND P3, PT, R0, 0x80, PT ;
+        /*00c0*/               @P3 BRA 0x0 ;
+        /*00d0*/                   EXIT ;
+"""
+    instrs = sass.parse_functions(listing)[
+        "_ZN12_GLOBAL__N_111mcmc_kernelEjPKfiiiS1_PfS2_"]
+    assert instrs[6].guard == "P1" and instrs[6].predicated
+    # Two steps of one chain per iteration: R10 -> FADD -> FSETP -> MOV,
+    # then FADD -> FADD -> FSETP -> MOV.
+    (loop,) = sass.loop_counts(instrs)
+    assert loop.counts["carried"] == 7
+    # Two uniforms per step on each of 4 lanes: the iteration's 2
+    # conversions are 1 step per lane, 4 steps of the chain in sequence.
+    most, least = sass.per_sample(listing, "mcmc_kernel", 2, lanes=4)
+    assert most == least
+    assert most["carried"] == 7 / 4
+    assert most["chain"] == loop.counts["chain"] / 4
+    assert most["issue"] == 13 and most["fp32"] == 6
+
+
+def test_function_warps_are_the_whole_card_only_for_independence():
+    sass = _chip_smoke()
+
+    assert sass.function_warps(0, 4096) is None
+    assert sass.function_warps(1, 4096) == 128
+    assert sass.function_warps(2, 4096, rungs=4) == 512

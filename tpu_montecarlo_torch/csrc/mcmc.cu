@@ -1,9 +1,10 @@
 // 1-D Metropolis-Hastings kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `kernel` inside build_mcmc_fn_pallas
-// (tpu_montecarlo/ops/mcmc_pallas.py:612-1007, pallas_call at :1095) in
-// its independence, random-walk and adaptive random-walk modes, with and
-// without error bars, for the uniform, normal and exponential families.
+// (tpu_montecarlo/ops/mcmc_pallas.py:387, kernel at :612-1007, pallas_call
+// at :1095) in its independence, random-walk and adaptive random-walk
+// modes, with and without error bars, for the uniform, normal and
+// exponential families.
 // Under the JAX package's CounterRng (the interpreter's stream) it runs
 // the very chains that kernel runs:
 //
@@ -33,17 +34,31 @@
 // the error bars is the CUDA block, not the JAX program: Chan's formula is
 // exact for any partition, and the wrapper combines the blocks.
 //
-// What bounds it on the card: latency.  A chain is a serial loop of
-// n_burnin + n_steps steps, each about two hundred dependent float32 and
-// integer operations (two PCG hashes per draw, erfinvf or logf for the
-// proposal, two log densities, logf of the accept uniform); nothing is
-// read from memory in the loop.  At the main shape, 4096 chains, 256
-// threads per block would fill only 16 of the 132 SMs.  So one chain is
-// one thread and a block holds only 32 chains (one warp): 4096 chains
-// spread over 128 SMs, each running its serial loop at the full rate
-// of one warp scheduler.  The chain count is the caller's and is never
-// changed.  Sums are reduced once, at the end, with warp shuffles and a
-// fixed order: no atomics, so a result is the same on every run.
+// What bounds it on the card.  A chain is a serial recurrence of
+// n_burnin + n_steps steps, and nothing is read from memory in the loop.
+// Under an independence proposal (the main path) most of a step is x-free:
+// two PCG hashes per draw, erfinvf or logf for the proposal, two log
+// densities and logf of the accept uniform.  Only the decision (three
+// float32 adds, a compare, the selects) carries from step to step: the
+// least time is the card's arithmetic pipes over the whole run's x-free
+// work, or that carried path over the steps, whichever is longer.  The
+// design (csrc/mcmc_pipeline.cuh) takes the x-free work off the carried
+// path: each chain runs on TMC_LANES lanes of a warp, every lane makes
+// TMC_GROUP candidates ahead, and all of the chain's lanes then take the
+// group's candidates by __shfl_sync and run its decisions in step order.
+// With 4096 chains and 4 lanes a chain, the card runs 512 warps, one per
+// scheduler of 128 SMs, where one lane per chain filled one scheduler of
+// four.  A walk's proposal depends on x, so walks keep one lane per chain
+// and make only their normal steps, accept uniforms and adaptive gains
+// ahead.  The chain count is the caller's and is never changed; a block
+// holds 32 chains (32 * TMC_LANES threads).  Sums are reduced once, at
+// the end, with warp shuffles in a fixed order: no atomics, so a result is
+// the same on every run, and each chain's sums are added in step order as
+// in the plain version.
+//
+// The mode, the two families and the layout are compiled in (TMC_MODE,
+// TMC_PROP_KIND, TMC_TARG_KIND, TMC_LANES, TMC_GROUP from the generated
+// source, as mcmc_nd.cu's), so no step branches on them at run time.
 //
 // Built without --use_fast_math and with --fmad=false, as integrate.cu,
 // so every float32 add and multiply rounds as in the plain PyTorch
@@ -53,7 +68,14 @@
 
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
-#include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, tmc_values
+// TMC_K, f_0 .. f_{K-1}, tmc_values; TMC_MODE, TMC_TARG_KIND, for an
+// independence proposal TMC_PROP_KIND; TMC_LANES, TMC_GROUP.
+#include "tmc_integrands.inc"
+#include "mcmc_pipeline.cuh"
+
+#ifndef TMC_PROP_KIND
+#define TMC_PROP_KIND 0  // walks draw from no proposal family
+#endif
 
 namespace {
 
@@ -61,8 +83,18 @@ using tmc::log_pdf;
 
 enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
 
-// One warp per block (ops/mcmc_kernel.py: CHAIN_THREADS); see the header.
-constexpr int kChainThreads = 32;
+constexpr int kMode = TMC_MODE;
+constexpr int kPropKind = TMC_PROP_KIND;
+constexpr int kTargKind = TMC_TARG_KIND;
+constexpr int kLanes = TMC_LANES;
+constexpr int kGroup = TMC_GROUP;
+static_assert(kMode == kIndependence || kLanes == 1,
+              "a walk runs one lane per chain");
+static_assert(kLanes >= 1 && 32 % kLanes == 0 && kGroup >= 1,
+              "lanes divide a warp");
+// Chains per block (ops/mcmc_kernel.py: CHAIN_THREADS); see the header.
+constexpr int kChains = 32;
+constexpr int kThreads = kChains * kLanes;
 constexpr int kPilotThreads = 256;
 constexpr float kLogStepMin = -13.815511f;
 constexpr float kLogStepMax = 13.815511f;
@@ -83,47 +115,96 @@ __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
 }
 
 // The chain's state at counter 0.
-__device__ __forceinline__ float initial_x(int mode, int prop_kind,
-                                           const Params& p, uint32_t state,
+__device__ __forceinline__ float initial_x(const Params& p, uint32_t state,
                                            uint32_t pos) {
   const uint32_t m = draw(state, 0u, pos);
-  if (mode == kIndependence) return tmc::transform(prop_kind, m, p.q1, p.q2);
+  if (kMode == kIndependence) return tmc::transform(kPropKind, m, p.q1, p.q2);
   return p.q2 + tmc::halfopen01(m) * (p.q3 - p.q2);
 }
 
-// One MH step at global index i: moves (x, logp, logq) and returns
-// whether the proposal was accepted; *log_alpha receives the log
-// acceptance ratio (the adaptive walk reads it).
-template <int MODE>
-__device__ __forceinline__ bool mh_step(int prop_kind, int targ_kind,
-                                        const Params& p, uint32_t state,
-                                        uint32_t pos, uint32_t i, float step,
-                                        float& x, float& logp, float& logq,
-                                        float* log_alpha) {
-  const uint32_t m = draw(state, 3u * i + 1u, pos);
-  float xp, logq_prop = 0.0f, la;
-  if (MODE == kIndependence) {
-    xp = tmc::transform(prop_kind, m, p.q1, p.q2);
-    logq_prop = log_pdf(prop_kind, p.q1, p.q2, xp);
-  } else {
-    xp = x + step * tmc::normal_from_u01(tmc::halfopen01(m));
+// The candidate of independence step i.
+struct Propose {
+  Params p;
+  uint32_t state, pos;
+
+  __device__ __forceinline__ tmc::Candidate<1> operator()(uint32_t i) const {
+    tmc::Candidate<1> c;
+    c.x[0] = tmc::transform(kPropKind, draw(state, 3u * i + 1u, pos), p.q1,
+                            p.q2);
+    c.logq = log_pdf(kPropKind, p.q1, p.q2, c.x[0]);
+    c.logp = log_pdf(kTargKind, p.t1, p.t2, c.x[0]);
+    c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, pos)));
+    return c;
   }
-  const float logp_prop = log_pdf(targ_kind, p.t1, p.t2, xp);
-  if (MODE == kIndependence) {
-    la = logp_prop + logq - logp - logq_prop;
-  } else {
-    la = logp_prop - logp;
+};
+
+// What walk step i takes from the stream, made ahead of the group's
+// moves: the normal step z, logf of the accept uniform and, in the
+// adaptive burn-in, the Robbins-Monro gain.
+struct WalkDraw {
+  float z, logu, gamma;
+};
+
+template <bool kAdapt>
+struct WalkDraws {
+  uint32_t state, pos;
+
+  __device__ __forceinline__ WalkDraw operator()(uint32_t i) const {
+    WalkDraw w;
+    w.z = tmc::normal_from_u01(tmc::halfopen01(draw(state, 3u * i + 1u, pos)));
+    w.logu = logf(tmc::open01(draw(state, 3u * i + 2u, pos)));
+    w.gamma = kAdapt ? expf(-0.6f * logf(float(int(i + 1u)))) : 0.0f;
+    return w;
   }
-  const float u = tmc::open01(draw(state, 3u * i + 2u, pos));
-  const bool accept = logf(u) < la;
-  if (accept) {
-    x = xp;
-    logp = logp_prop;
-    logq = logq_prop;
+};
+
+// One walk step: x' = x + step * z, accepted when logf(u) < logp' - logp;
+// the adaptive burn-in moves its log step by Robbins-Monro after each.
+template <bool kAdapt, class Visit>
+struct WalkStep {
+  const Params& p;
+  float (&x)[1];
+  float& logp;
+  float& step;
+  float& log_step;
+  Visit& visit;
+
+  __device__ __forceinline__ void operator()(uint32_t, const WalkDraw& w) {
+    if (kAdapt) step = expf(log_step);
+    const float xp = x[0] + step * w.z;
+    const float logp_prop = log_pdf(kTargKind, p.t1, p.t2, xp);
+    const float la = logp_prop - logp;
+    const bool accept = w.logu < la;
+    if (accept) {
+      x[0] = xp;
+      logp = logp_prop;
+    }
+    if (kAdapt) {
+      const float alpha_p = expf(tmc_minimum(la, 0.0f));
+      log_step = tmc_minimum(
+          tmc_maximum(log_step + w.gamma * (alpha_p - p.q4), kLogStepMin),
+          kLogStepMax);
+    }
+    visit(x, accept);
   }
-  *log_alpha = la;
-  return accept;
-}
+};
+
+// The sampling phase's per-chain sums, in step order: f_j(x) - pilot_j
+// and the accept count.
+struct Sums {
+  float (&acc)[TMC_K];
+  float& n_acc;
+  const float* pilot;
+
+  __device__ __forceinline__ void operator()(const float (&x)[1],
+                                             bool accepted) {
+    if (accepted) n_acc += 1.0f;
+    float vals[TMC_K];
+    tmc_values(x[0], vals);
+#pragma unroll
+    for (int j = 0; j < TMC_K; ++j) acc[j] += vals[j] - pilot[j];
+  }
+};
 
 // Sums `v` over the warp with a fixed shuffle tree; lane 0 gets the sum.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -134,19 +215,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sums `v` over the block: the warp's sum, then the warps in order.  Lane
-// 0 of warp w leaves its warp's sum in scratch[w * stride + j]; the caller
-// reads scratch after __syncthreads.
-__device__ __forceinline__ void warp_sum_to(float v, float* scratch,
-                                            int stride, int j) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) scratch[(threadIdx.x / 32) * stride + j] = v;
-}
-
 __global__ void __launch_bounds__(kPilotThreads)
-mcmc_pilot_kernel(int mode, int prop_kind, uint32_t seed,
-                  const float* __restrict__ params, int chains_per_program,
-                  float* __restrict__ pilots) {
+mcmc_pilot_kernel(uint32_t seed, const float* __restrict__ params,
+                  int chains_per_program, float* __restrict__ pilots) {
   const Params p = load_params(params);
   const uint32_t pid = blockIdx.x;
   const uint32_t state = tmc::seed_state(seed, pid);
@@ -156,13 +227,16 @@ mcmc_pilot_kernel(int mode, int prop_kind, uint32_t seed,
   float vals[TMC_K];
   for (int pos = threadIdx.x; pos < chains_per_program;
        pos += kPilotThreads) {
-    tmc_values(initial_x(mode, prop_kind, p, state, uint32_t(pos)), vals);
+    tmc_values(initial_x(p, state, uint32_t(pos)), vals);
 #pragma unroll
     for (int j = 0; j < TMC_K; ++j) acc[j] += vals[j];
   }
   __shared__ float scratch[kPilotThreads / 32][TMC_K];
 #pragma unroll
-  for (int j = 0; j < TMC_K; ++j) warp_sum_to(acc[j], &scratch[0][0], TMC_K, j);
+  for (int j = 0; j < TMC_K; ++j) {
+    const float s = warp_sum(acc[j]);
+    if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32][j] = s;
+  }
   __syncthreads();
   const float n_block = float(chains_per_program);
   for (int j = threadIdx.x; j < TMC_K; j += kPilotThreads) {
@@ -172,147 +246,101 @@ mcmc_pilot_kernel(int mode, int prop_kind, uint32_t seed,
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kChainThreads)
-mcmc_kernel(int prop_kind, int targ_kind, uint32_t seed,
-            const float* __restrict__ params, int n_burnin, int n_steps,
-            int chains_per_program, const float* __restrict__ pilots,
-            float* __restrict__ rows, float* __restrict__ x_final) {
-  constexpr int kW = TMC_K + 1;  // row width: K sums and the accept count
+__global__ void __launch_bounds__(kThreads)
+mcmc_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
+            int n_steps, int chains_per_program,
+            const float* __restrict__ pilots, float* __restrict__ rows,
+            float* __restrict__ x_final) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params);
-  const int chain = blockIdx.x * kChainThreads + threadIdx.x;
+  // The chain's lanes are kLanes consecutive threads of one warp.
+  const int lane = threadIdx.x % kLanes;
+  const int chain = blockIdx.x * kChains + threadIdx.x / kLanes;
   // A block lies inside one program: 32 divides chains_per_program.
   const uint32_t pid = uint32_t(chain / chains_per_program);
   const uint32_t pos = uint32_t(chain % chains_per_program);
   const uint32_t state = tmc::seed_state(seed, pid);
-  for (int j = threadIdx.x; j < TMC_K; j += kChainThreads) {
+  for (int j = threadIdx.x; j < TMC_K; j += kThreads) {
     s_pilot[j] = pilots != nullptr ? pilots[pid * TMC_K + j] : 0.0f;
   }
-  __syncwarp();
+  __syncthreads();
 
-  float x = initial_x(MODE, prop_kind, p, state, pos);
-  float logp = log_pdf(targ_kind, p.t1, p.t2, x);
+  float x[1] = {initial_x(p, state, pos)};
+  float logp = log_pdf(kTargKind, p.t1, p.t2, x[0]);
   float logq =
-      MODE == kIndependence ? log_pdf(prop_kind, p.q1, p.q2, x) : 0.0f;
-  float step = p.q1;
-  float la;
-  const uint32_t n_iters = uint32_t(n_burnin) + uint32_t(n_steps);
-
-  // Burn-in: advance the chains, no integrands, no accept count.
-  float log_step = logf(p.q1);
-  for (uint32_t i = 0; i < uint32_t(n_burnin); ++i) {
-    if (MODE == kAdaptive) step = expf(log_step);
-    mh_step<MODE>(prop_kind, targ_kind, p, state, pos, i, step, x, logp,
-                  logq, &la);
-    if (MODE == kAdaptive) {
-      const float alpha_p = expf(tmc_minimum(la, 0.0f));
-      const float gamma = expf(-0.6f * logf(float(i + 1u)));
-      log_step = tmc_minimum(
-          tmc_maximum(log_step + gamma * (alpha_p - p.q4), kLogStepMin),
-          kLogStepMax);
-    }
-  }
-  if (MODE == kAdaptive) step = expf(log_step);
+      kMode == kIndependence ? log_pdf(kPropKind, p.q1, p.q2, x[0]) : 0.0f;
+  const uint32_t n_burn = uint32_t(n_burnin);
+  const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
   float acc[TMC_K];
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
   float n_acc = 0.0f;
-  float vals[TMC_K];
-  for (uint32_t i = uint32_t(n_burnin); i < n_iters; ++i) {
-    if (mh_step<MODE>(prop_kind, targ_kind, p, state, pos, i, step, x, logp,
-                      logq, &la)) {
-      n_acc += 1.0f;
-    }
-    tmc_values(x, vals);
-#pragma unroll
-    for (int j = 0; j < TMC_K; ++j) acc[j] += vals[j] - s_pilot[j];
-  }
-  x_final[chain] = x;
+  Sums sums{acc, n_acc, s_pilot};
+  tmc::NoVisit none;
 
-  // The block's rows, written by lane 0: sums, then the SS and centroid
-  // of the chain means.
-  const bool lane0 = threadIdx.x == 0;
-  const float inv_steps = 1.0f / float(n_steps);
-  const float n_b = float(kChainThreads);
-  float* out = rows + size_t(blockIdx.x) * 3 * kW;
-#pragma unroll
-  for (int j = 0; j < TMC_K; ++j) {
-    const float cm = acc[j] * inv_steps;
-    const float s = warp_sum(acc[j]);
-    const float s1 = warp_sum(cm);
-    const float s2 = warp_sum(cm * cm);
-    if (lane0) {
-      const float mbs = s1 / n_b;
-      out[j] = s;
-      out[kW + j] = tmc_maximum(s2 - n_b * mbs * mbs, 0.0f);
-      out[2 * kW + j] = mbs + s_pilot[j];
-    }
+  // Burn-in advances the chains without evaluating the integrands and
+  // without counting acceptances; sampling adds both.
+  if constexpr (kMode == kIndependence) {
+    const Propose make{p, state, pos};
+    tmc::SelectStep<1, tmc::NoVisit> burn{x, logp, logq, none};
+    tmc::pipeline<kLanes, kGroup, tmc::Candidate<1>>(0u, n_burn, lane, make,
+                                                     burn);
+    tmc::SelectStep<1, Sums> sample{x, logp, logq, sums};
+    tmc::pipeline<kLanes, kGroup, tmc::Candidate<1>>(n_burn, n_iters, lane,
+                                                     make, sample);
+  } else {
+    constexpr bool kAdapt = kMode == kAdaptive;
+    float step = p.q1;
+    float log_step = logf(p.q1);
+    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, step, log_step, none};
+    tmc::pipeline<1, kGroup, WalkDraw>(0u, n_burn, 0,
+                                       WalkDraws<kAdapt>{state, pos}, burn);
+    if (kAdapt) step = expf(log_step);
+    WalkStep<false, Sums> sample{p, x, logp, step, log_step, sums};
+    tmc::pipeline<1, kGroup, WalkDraw>(n_burn, n_iters, 0,
+                                       WalkDraws<false>{state, pos}, sample);
   }
-  const float accepted = warp_sum(n_acc);
-  if (lane0) {
-    out[TMC_K] = accepted;
-    out[kW + TMC_K] = 0.0f;
-    out[2 * kW + TMC_K] = 0.0f;
-  }
-}
+  if (lane == 0) x_final[chain] = x[0];
 
-template <int MODE>
-cudaError_t launch(int prop_kind, int targ_kind, uint32_t seed,
-                   const float* params, int n_burnin, int n_steps,
-                   int chains_per_program, int n_chains, const float* pilots,
-                   float* rows, float* x_final, cudaStream_t s) {
-  mcmc_kernel<MODE><<<n_chains / kChainThreads, kChainThreads, 0, s>>>(
-      prop_kind, targ_kind, seed, params, n_burnin, n_steps,
-      chains_per_program, pilots, rows, x_final);
-  return cudaGetLastError();
+  // The block's rows: sums, then the SS and centroid of the chain means.
+  tmc::write_block_rows<TMC_K, kLanes>(
+      acc, n_acc, s_pilot, n_steps,
+      rows + size_t(blockIdx.x) * 3 * (TMC_K + 1));
 }
 
 }  // namespace
 
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
 // chains' initial states.  Returns cudaGetLastError() (0 when accepted).
-extern "C" int tmc_mcmc_pilots(int mode, int prop_kind, unsigned int seed,
-                               const float* params, int chains_per_program,
-                               int programs, float* pilots, void* stream) {
+extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
+                               int chains_per_program, int programs,
+                               float* pilots, void* stream) {
   mcmc_pilot_kernel<<<programs, kPilotThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      mode, prop_kind, seed, params, chains_per_program, pilots);
+      seed, params, chains_per_program, pilots);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Runs n_chains chains, 32 to a block, on `stream` (chains_per_program
-// a multiple of 32, n_chains of chains_per_program).  `pilots` may be
-// null (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 1) floats,
-// `x_final` n_chains.  Returns cudaGetLastError() (0 when accepted).
-extern "C" int tmc_mcmc(int mode, int prop_kind, int targ_kind,
-                        unsigned int seed, const float* params, int n_burnin,
+// Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
+// `stream` (chains_per_program a multiple of 32, n_chains of
+// chains_per_program).  `pilots` may be null (no shift); `rows` holds
+// (n_chains / 32) x 3 x (TMC_K + 1) floats, `x_final` n_chains.  Returns
+// cudaGetLastError() (0 when accepted).
+extern "C" int tmc_mcmc(unsigned int seed, const float* params, int n_burnin,
                         int n_steps, int chains_per_program, int n_chains,
                         const float* pilots, float* rows, float* x_final,
                         void* stream) {
-  if (chains_per_program % kChainThreads != 0 ||
+  if (chains_per_program % kChains != 0 ||
       n_chains % chains_per_program != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kIndependence:
-      return static_cast<int>(launch<kIndependence>(
-          prop_kind, targ_kind, seed, params, n_burnin, n_steps,
-          chains_per_program, n_chains, pilots, rows, x_final, s));
-    case kRandomWalk:
-      return static_cast<int>(launch<kRandomWalk>(
-          prop_kind, targ_kind, seed, params, n_burnin, n_steps,
-          chains_per_program, n_chains, pilots, rows, x_final, s));
-    case kAdaptive:
-      return static_cast<int>(launch<kAdaptive>(
-          prop_kind, targ_kind, seed, params, n_burnin, n_steps,
-          chains_per_program, n_chains, pilots, rows, x_final, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  mcmc_kernel<<<n_chains / kChains, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      seed, params, n_burnin, n_steps, chains_per_program, pilots, rows,
+      x_final);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* tmc_error_string(int code) {

@@ -1,7 +1,8 @@
 // Multi-dimensional Metropolis-Hastings kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `kernel` inside build_mcmc_nd_pallas
-// (tpu_montecarlo/ops/mcmc_nd_pallas.py:338-796, pallas_call at :868) in
+// (tpu_montecarlo/ops/mcmc_nd_pallas.py:138, kernel at :338-796,
+// pallas_call at :868) in
 // its independence, random-walk and adaptive random-walk modes, with and
 // without error bars, for d dimensions of the uniform, normal and
 // exponential families, under a product target or a traced joint log
@@ -40,16 +41,28 @@
 // ops/mcmc_kernel.py's mcmc_finish combines the blocks as for the 1-D
 // kernel; and x_final, the chains' final states as d rows of n_chains.
 //
-// What bounds it on the card: latency, as for mcmc.cu.  A chain is a
-// serial loop of n_burnin + n_steps steps of d + 1 draws (two PCG hashes
-// each), d transforms, the log densities and logf of the accept uniform;
-// nothing is read from memory in the loop.  So the design is mcmc.cu's:
-// one chain per thread and 32 chains per block, so 4096 chains reach 128
-// of the 132 SMs; the d chain states, logp and logq live in registers.
-// The mode, d and every dimension's family are compiled in (TMC_MODE,
-// TMC_D, TMC_PROP_KINDS, TMC_TARG_KINDS, as integrate_nd.cu's TMC_KINDS),
-// so the SASS loop is the path a step really takes.  Sums are reduced
-// once, at the end, with warp shuffles in a fixed order: no atomics.
+// What bounds it on the card, as for mcmc.cu.  A chain is a serial
+// recurrence of n_burnin + n_steps steps, and nothing is read from memory
+// in the loop.  Under an independence proposal (c9e, the main path) a
+// step's d + 1 draws (two PCG hashes each), d transforms, the target's
+// and the proposal's log densities and logf of the accept uniform are all
+// x-free; only the decision (three float32 adds, a compare, the d + 2
+// selects) carries from step to step.  So the least time is the card's
+// arithmetic pipes over the run's x-free work, or the carried path over
+// the steps, whichever is longer.  The design is mcmc.cu's
+// (csrc/mcmc_pipeline.cuh): each chain on TMC_LANES lanes of a warp,
+// TMC_GROUP candidates made ahead by every lane, the group's decisions
+// run in step order on the candidates taken by __shfl_sync, so 4096
+// chains on 4 lanes fill the four schedulers of 128 SMs.  A walk's
+// proposal x_j + eps_j * z_j depends on x, so walks keep one lane per
+// chain and make only their d normal steps, accept uniforms and adaptive
+// gains ahead.  A block holds 32 chains (32 * TMC_LANES threads); the d
+// chain states, logp and logq live in registers.  The mode, d, every
+// dimension's family and the layout are compiled in (TMC_MODE, TMC_D,
+// TMC_PROP_KINDS, TMC_TARG_KINDS, TMC_LANES, TMC_GROUP, as
+// integrate_nd.cu's TMC_KINDS), so the SASS loop is the path a step
+// really takes.  Sums are reduced once, at the end, with warp shuffles in
+// a fixed order: no atomics; each chain's sums are added in step order.
 //
 // Built without --use_fast_math and with --fmad=false, as the other
 // kernels, so every float32 add and multiply rounds as in the plain
@@ -61,145 +74,198 @@
 #include "integrand_math.cuh"
 // TMC_K, TMC_D, f_k(const float* x), tmc_values_nd; TMC_MODE; for
 // independence TMC_PROP_KINDS; TMC_TARG_KINDS for a product target, else
-// tmc_target_logpdf(const float* x).
+// tmc_target_logpdf(const float* x); TMC_LANES, TMC_GROUP.
 #include "tmc_integrands.inc"
 // Params, the families, log_target, log_proposal, initial_x, warp_sum and
 // the pilot kernel, shared with mcmc_pt.cu.
 #include "mcmc_nd_common.cuh"
+#include "mcmc_pipeline.cuh"
 
 namespace {
 
-// One MH step at global index i: moves (x, logp, logq) and returns
-// whether the proposal was accepted; *log_alpha receives the log
-// acceptance ratio (the adaptive walk reads it).  `eps` is the walk's
-// step vector, scale * step_j.
-__device__ __forceinline__ bool mh_step(const Params& p, uint32_t state,
-                                        uint32_t pos, uint32_t i,
-                                        const float* eps, float* x,
-                                        float& logp, float& logq,
-                                        float* log_alpha) {
-  float xp[TMC_D];
-#pragma unroll
-  for (int j = 0; j < TMC_D; ++j) {
-    const uint32_t m = draw(state, 3u * i + 1u, uint32_t(j), pos);
-    if (kMode == kIndependence) {
-      xp[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
-    } else {
-      xp[j] = x[j] + eps[j] * tmc::normal_from_u01(tmc::halfopen01(m));
-    }
-  }
-  const float logp_prop = log_target(xp, p);
-  float logq_prop = 0.0f, la;
-  if (kMode == kIndependence) {
-    logq_prop = log_proposal(xp, p);
-    la = logp_prop + logq - logp - logq_prop;
-  } else {
-    la = logp_prop - logp;
-  }
-  const float u = tmc::open01(draw(state, 3u * i + 2u, 0u, pos));
-  const bool accept = logf(u) < la;
-  if (accept) {
-#pragma unroll
-    for (int j = 0; j < TMC_D; ++j) x[j] = xp[j];
-    logp = logp_prop;
-    logq = logq_prop;
-  }
-  *log_alpha = la;
-  return accept;
-}
+constexpr int kLanes = TMC_LANES;
+constexpr int kGroup = TMC_GROUP;
+static_assert(kMode == kIndependence || kLanes == 1,
+              "a walk runs one lane per chain");
+static_assert(kLanes >= 1 && 32 % kLanes == 0 && kGroup >= 1,
+              "lanes divide a warp");
+constexpr int kThreads = kChainThreads * kLanes;
 
-__global__ void __launch_bounds__(kChainThreads)
+// The candidate of independence step i: dimension j drawn under tag j.
+struct Propose {
+  Params p;
+  uint32_t state, pos;
+
+  __device__ __forceinline__ tmc::Candidate<TMC_D> operator()(
+      uint32_t i) const {
+    tmc::Candidate<TMC_D> c;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      c.x[j] = tmc::transform(prop_kind(j),
+                              draw(state, 3u * i + 1u, uint32_t(j), pos),
+                              p.q1[j], p.q2[j]);
+    }
+    c.logp = log_target(c.x, p);
+    c.logq = log_proposal(c.x, p);
+    c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, 0u, pos)));
+    return c;
+  }
+};
+
+// What walk step i takes from the stream, made ahead of the group's
+// moves: the d normal steps, logf of the accept uniform and, in the
+// adaptive burn-in, the Robbins-Monro gain.
+struct WalkDraw {
+  float z[TMC_D];
+  float logu, gamma;
+};
+
+template <bool kAdapt>
+struct WalkDraws {
+  uint32_t state, pos;
+
+  __device__ __forceinline__ WalkDraw operator()(uint32_t i) const {
+    WalkDraw w;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      w.z[j] = tmc::normal_from_u01(
+          tmc::halfopen01(draw(state, 3u * i + 1u, uint32_t(j), pos)));
+    }
+    w.logu = logf(tmc::open01(draw(state, 3u * i + 2u, 0u, pos)));
+    w.gamma = kAdapt ? expf(-0.6f * logf(float(int(i + 1u)))) : 0.0f;
+    return w;
+  }
+};
+
+// One walk step: x'_j = x_j + eps_j * z_j with eps the step vector scale
+// * step_j, accepted when logf(u) < logp' - logp; the adaptive burn-in
+// moves its one log scale by Robbins-Monro after each.
+template <bool kAdapt, class Visit>
+struct WalkStep {
+  const Params& p;
+  float (&x)[TMC_D];
+  float& logp;
+  float (&eps)[TMC_D];
+  float& log_scale;
+  Visit& visit;
+
+  __device__ __forceinline__ void operator()(uint32_t, const WalkDraw& w) {
+    if (kAdapt) {
+      const float scale = expf(log_scale);
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
+    }
+    float xp[TMC_D];
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) xp[j] = x[j] + eps[j] * w.z[j];
+    const float logp_prop = log_target(xp, p);
+    const float la = logp_prop - logp;
+    const bool accept = w.logu < la;
+    if (accept) {
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) x[j] = xp[j];
+      logp = logp_prop;
+    }
+    if (kAdapt) {
+      const float alpha_p = expf(tmc_minimum(la, 0.0f));
+      log_scale = tmc_minimum(
+          tmc_maximum(log_scale + w.gamma * (alpha_p - p.q4[0]),
+                      kLogScaleMin),
+          kLogScaleMax);
+    }
+    visit(x, accept);
+  }
+};
+
+// The sampling phase's per-chain sums, in step order: f_k(x) - pilot_k
+// and the accept count.
+struct Sums {
+  float (&acc)[TMC_K];
+  float& n_acc;
+  const float* pilot;
+
+  __device__ __forceinline__ void operator()(const float (&x)[TMC_D],
+                                             bool accepted) {
+    if (accepted) n_acc += 1.0f;
+    float vals[TMC_K];
+    tmc_values_nd(x, vals);
+#pragma unroll
+    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - pilot[k];
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
 mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
                int n_steps, int chains_per_program,
                const float* __restrict__ pilots, float* __restrict__ rows,
                float* __restrict__ x_final) {
-  constexpr int kW = TMC_K + 1;  // row width: K sums and the accept count
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params);
-  const int chain = blockIdx.x * kChainThreads + threadIdx.x;
+  // The chain's lanes are kLanes consecutive threads of one warp.
+  const int lane = threadIdx.x % kLanes;
+  const int chain = blockIdx.x * kChainThreads + threadIdx.x / kLanes;
   // A block lies inside one program: 32 divides chains_per_program.
   const uint32_t pid = uint32_t(chain / chains_per_program);
   const uint32_t pos = uint32_t(chain % chains_per_program);
   const uint32_t state = tmc::seed_state(seed, pid);
-  for (int k = threadIdx.x; k < TMC_K; k += kChainThreads) {
+  for (int k = threadIdx.x; k < TMC_K; k += kThreads) {
     s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
   }
-  __syncwarp();
+  __syncthreads();
 
   float x[TMC_D];
   initial_x(p, state, pos, x);
   float logp = log_target(x, p);
   float logq = kMode == kIndependence ? log_proposal(x, p) : 0.0f;
-  float eps[TMC_D];  // the walk's step vector
-#pragma unroll
-  for (int j = 0; j < TMC_D; ++j) eps[j] = p.q1[j];
-  float la;
-  const uint32_t n_iters = uint32_t(n_burnin) + uint32_t(n_steps);
-
-  // Burn-in: advance the chains, no integrands, no accept count.
-  float log_scale = 0.0f;
-  for (uint32_t i = 0; i < uint32_t(n_burnin); ++i) {
-    if (kMode == kAdaptive) {
-      const float scale = expf(log_scale);
-#pragma unroll
-      for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
-    }
-    mh_step(p, state, pos, i, eps, x, logp, logq, &la);
-    if (kMode == kAdaptive) {
-      const float alpha_p = expf(tmc_minimum(la, 0.0f));
-      const float gamma = expf(-0.6f * logf(float(i + 1u)));
-      log_scale = tmc_minimum(
-          tmc_maximum(log_scale + gamma * (alpha_p - p.q4[0]), kLogScaleMin),
-          kLogScaleMax);
-    }
-  }
-  if (kMode == kAdaptive) {
-    const float scale = expf(log_scale);
-#pragma unroll
-    for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
-  }
+  const uint32_t n_burn = uint32_t(n_burnin);
+  const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
   float acc[TMC_K];
 #pragma unroll
   for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
   float n_acc = 0.0f;
-  float vals[TMC_K];
-  for (uint32_t i = uint32_t(n_burnin); i < n_iters; ++i) {
-    if (mh_step(p, state, pos, i, eps, x, logp, logq, &la)) n_acc += 1.0f;
-    tmc_values_nd(x, vals);
-#pragma unroll
-    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - s_pilot[k];
-  }
-  const int n_chains = gridDim.x * kChainThreads;
-#pragma unroll
-  for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[j];
+  Sums sums{acc, n_acc, s_pilot};
+  tmc::NoVisit none;
 
-  // The block's rows, written by lane 0: sums, then the SS and centroid
-  // of the chain means.
-  const bool lane0 = threadIdx.x == 0;
-  const float inv_steps = 1.0f / float(n_steps);
-  const float n_b = float(kChainThreads);
-  float* out = rows + size_t(blockIdx.x) * 3 * kW;
+  // Burn-in advances the chains without evaluating the integrands and
+  // without counting acceptances; sampling adds both.
+  if constexpr (kMode == kIndependence) {
+    const Propose make{p, state, pos};
+    tmc::SelectStep<TMC_D, tmc::NoVisit> burn{x, logp, logq, none};
+    tmc::pipeline<kLanes, kGroup, tmc::Candidate<TMC_D>>(0u, n_burn, lane,
+                                                         make, burn);
+    tmc::SelectStep<TMC_D, Sums> sample{x, logp, logq, sums};
+    tmc::pipeline<kLanes, kGroup, tmc::Candidate<TMC_D>>(n_burn, n_iters,
+                                                         lane, make, sample);
+  } else {
+    constexpr bool kAdapt = kMode == kAdaptive;
+    float eps[TMC_D];  // the walk's step vector
 #pragma unroll
-  for (int k = 0; k < TMC_K; ++k) {
-    const float cm = acc[k] * inv_steps;
-    const float s = warp_sum(acc[k]);
-    const float s1 = warp_sum(cm);
-    const float s2 = warp_sum(cm * cm);
-    if (lane0) {
-      const float mbs = s1 / n_b;
-      out[k] = s;
-      out[kW + k] = tmc_maximum(s2 - n_b * mbs * mbs, 0.0f);
-      out[2 * kW + k] = mbs + s_pilot[k];
+    for (int j = 0; j < TMC_D; ++j) eps[j] = p.q1[j];
+    float log_scale = 0.0f;
+    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, eps, log_scale, none};
+    tmc::pipeline<1, kGroup, WalkDraw>(0u, n_burn, 0,
+                                       WalkDraws<kAdapt>{state, pos}, burn);
+    if (kAdapt) {
+      const float scale = expf(log_scale);
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
+    WalkStep<false, Sums> sample{p, x, logp, eps, log_scale, sums};
+    tmc::pipeline<1, kGroup, WalkDraw>(n_burn, n_iters, 0,
+                                       WalkDraws<false>{state, pos}, sample);
   }
-  const float accepted = warp_sum(n_acc);
-  if (lane0) {
-    out[TMC_K] = accepted;
-    out[kW + TMC_K] = 0.0f;
-    out[2 * kW + TMC_K] = 0.0f;
+  if (lane == 0) {
+    const int n_chains = gridDim.x * kChainThreads;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[j];
   }
+
+  // The block's rows: sums, then the SS and centroid of the chain means.
+  tmc::write_block_rows<TMC_K, kLanes>(
+      acc, n_acc, s_pilot, n_steps,
+      rows + size_t(blockIdx.x) * 3 * (TMC_K + 1));
 }
 
 }  // namespace
@@ -214,11 +280,12 @@ extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
                        stream);
 }
 
-// Runs n_chains chains, 32 to a block, on `stream` (chains_per_program
-// a multiple of 32, n_chains of chains_per_program).  `params` holds
-// TMC_D x 6 floats; `pilots` may be null (no shift); `rows` holds
-// (n_chains / 32) x 3 x (TMC_K + 1) floats, `x_final` TMC_D x n_chains.
-// Returns cudaGetLastError() (0 when the launch was accepted).
+// Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
+// `stream` (chains_per_program a multiple of 32, n_chains of
+// chains_per_program).  `params` holds TMC_D x 6 floats; `pilots` may be
+// null (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 1) floats,
+// `x_final` TMC_D x n_chains.  Returns cudaGetLastError() (0 when the
+// launch was accepted).
 extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
                            int n_burnin, int n_steps, int chains_per_program,
                            int n_chains, const float* pilots, float* rows,
@@ -227,7 +294,7 @@ extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
       n_chains % chains_per_program != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mcmc_nd_kernel<<<n_chains / kChainThreads, kChainThreads, 0,
+  mcmc_nd_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       seed, params, n_burnin, n_steps, chains_per_program, pilots, rows,
       x_final);

@@ -30,7 +30,8 @@ namespace {
 enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
 constexpr int kMode = TMC_MODE;
 
-// One warp per block (ops/mcmc_kernel.py: CHAIN_THREADS).
+// Chains per block (ops/mcmc_kernel.py: CHAIN_THREADS): one warp in
+// mcmc_pt.cu, 32 * TMC_LANES threads in mcmc_nd.cu.
 constexpr int kChainThreads = 32;
 constexpr int kPilotThreads = 256;
 constexpr int kRow = 6;  // floats per dimension in params

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load_kernel_library"]
@@ -35,7 +36,8 @@ NVCC_FLAGS = (
 )
 # Headers every kernel source may include.
 _HEADERS = (
-    "counter_rng.cuh", "integrand_math.cuh", "mcmc_nd_common.cuh", "sobol.cuh",
+    "counter_rng.cuh", "integrand_math.cuh", "mcmc_nd_common.cuh",
+    "mcmc_pipeline.cuh", "sobol.cuh",
 )
 
 
@@ -73,7 +75,9 @@ def load_kernel_library(source: str, integrand_source: str) -> ctypes.CDLL:
     if not so_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "tmc_integrands.inc").write_text(integrand_source)
-        tmp = out_dir / f"libtmc_{stem}.{os.getpid()}.tmp"
+        # Unique per process and thread: two threads may build one library.
+        tmp = out_dir / (
+            f"libtmc_{stem}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [
             _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
             str(CSRC / source), "-o", str(tmp),

@@ -17,7 +17,10 @@ position ``c % chains_per_program`` (``row * 128 + lane``) of program
 ``CHAIN_THREADS`` chains: (sums, accept count), (SS, 0) and (centroid, 0)
 of the chain means; :func:`mcmc_finish` turns them into estimates, the
 acceptance rate and the error bars (Chan's parallel-variance formula,
-exact for any partition of the chains).
+exact for any partition of the chains).  On the card a chain runs on
+``Layout.lanes`` threads, each making ``Layout.group`` of its candidates
+ahead of the decisions (``csrc/mcmc_pipeline.cuh``); the layout changes
+no number the kernel computes.
 
 The JAX package sends MCMC workloads its kernel cannot take to an XLA
 sweep keyed on ``jax.random``; the port has no such twin and runs every
@@ -50,12 +53,14 @@ from .lower import cuda_source, to_torch
 __all__ = [
     "CHAIN_THREADS",
     "MAX_FUNCTIONS",
+    "Layout",
     "McmcConfig",
     "McmcGrid",
     "McmcOutput",
     "McmcProgram",
     "Mode",
     "block_rows",
+    "default_layout",
     "mcmc_cuda",
     "mcmc_finish",
     "mcmc_reference",
@@ -64,8 +69,9 @@ __all__ = [
     "seed_word",
 ]
 
-#: Chains per CUDA block, and so per row of the output: one warp, fixed
-#: in csrc/mcmc.cu (kChainThreads).
+#: Chains per CUDA block, and so per row of the output: fixed in
+#: csrc/mcmc.cu and csrc/mcmc_nd.cu, whose blocks run them on
+#: 32 * ``Layout.lanes`` threads.
 CHAIN_THREADS = 32
 #: One lane of the JAX kernel's output row holds the accept count.
 MAX_FUNCTIONS = LANES - 1
@@ -75,11 +81,64 @@ _LOG_STEP_MAX = 13.815511
 
 
 class Mode(IntEnum):
-    """Proposal modes, with the codes ``csrc/mcmc.cu`` takes."""
+    """Proposal modes, with the codes ``csrc/mcmc.cu`` compiles in."""
 
     INDEPENDENCE = 0
     RANDOM_WALK = 1
     ADAPTIVE = 2
+
+
+class Layout(NamedTuple):
+    """How the 1-D and nd MCMC kernels run a chain's steps on the card
+    (``csrc/mcmc_pipeline.cuh``): ``lanes`` consecutive threads of a warp
+    share one chain, and each makes ``group`` of its x-free candidates
+    ahead of every round of ``lanes * group`` decisions.  A walk's
+    candidate depends on the chain's state, so a walk takes one lane."""
+
+    lanes: int
+    group: int
+
+
+#: The layouts the kernels compile in by default, chosen by sweeps on an
+#: H100 (``tools/mcmc_layout_sweep.py``; ``PERF.md``).  Every lane of an
+#: independence chain evaluates the integrands at the chain's state, so
+#: more integrands want fewer lanes: up to k integrands a chain takes the
+#: layout beside k here, and WIDE_LAYOUT above the last k (one lane, and
+#: a small group for registers: 127 sums fill them).
+LAYOUTS_BY_FUNCTIONS = ((8, Layout(lanes=8, group=4)),
+                        (32, Layout(lanes=4, group=4)))
+WIDE_LAYOUT = Layout(lanes=1, group=2)
+#: A walk's step waits on the one before: one lane, 8 steps' draws ahead.
+WALK_LAYOUT = Layout(lanes=1, group=8)
+
+
+def default_layout(mode: Mode, k: int) -> Layout:
+    """The layout a kernel of ``k`` integrands compiles in for ``mode``."""
+    if mode != Mode.INDEPENDENCE:
+        return WALK_LAYOUT
+    return next((layout for most, layout in LAYOUTS_BY_FUNCTIONS
+                 if k <= most), WIDE_LAYOUT)
+
+
+def check_layout(mode: Mode, layout: Layout) -> Layout:
+    """``layout`` as a :class:`Layout`, or ValueError when the kernels
+    cannot run it."""
+    layout = Layout(*layout)
+    if not (1 <= layout.lanes <= 32 and 32 % layout.lanes == 0
+            and layout.group >= 1):
+        raise ValueError(
+            f"a layout takes lanes that divide a warp of 32 and a group of "
+            f"at least 1, got {tuple(layout)}"
+        )
+    if mode != Mode.INDEPENDENCE and layout.lanes != 1:
+        raise ValueError("a random walk runs one lane per chain")
+    return layout
+
+
+def layout_source(layout: Layout) -> str:
+    """The layout's lines in the generated kernel source."""
+    return (f"#define TMC_LANES {layout.lanes}\n"
+            f"#define TMC_GROUP {layout.group}\n")
 
 
 def plan_chains(
@@ -134,6 +193,15 @@ class McmcConfig:
     n_burnin: int
     with_stderr: bool = False
 
+    @property
+    def compiled(self):
+        """What the CUDA library compiles in: the mode, the proposal's
+        family (None for a walk) and the target's."""
+        mode = Mode(self.mode)
+        prop = (DistKind(self.proposal_kind) if mode == Mode.INDEPENDENCE
+                else None)
+        return mode, prop, DistKind(self.target_kind)
+
 
 class McmcOutput(NamedTuple):
     """``rows``: (chains / CHAIN_THREADS, 3, K + 1) float32 block rows;
@@ -146,9 +214,13 @@ class McmcOutput(NamedTuple):
 
 class McmcProgram:
     """One integrand set, lowered both ways: ``torch_fns`` for the plain
-    version, and the CUDA library, built at first use."""
+    version, and the CUDA libraries, one per compiled-in mode and family
+    pair (``McmcConfig.compiled``), each built at its first use.
+    ``layout`` fixes the kernels' :class:`Layout` for every mode it fits;
+    by default each mode takes :func:`default_layout`'s."""
 
-    def __init__(self, fns: Sequence[TracedFunction]):
+    def __init__(self, fns: Sequence[TracedFunction],
+                 layout: Optional[Layout] = None):
         if not 1 <= len(fns) <= MAX_FUNCTIONS:
             raise ValueError(
                 f"the MCMC kernel takes 1 to {MAX_FUNCTIONS} functions, "
@@ -156,23 +228,46 @@ class McmcProgram:
             )
         self.fns = tuple(fns)
         self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
-        self._lib = None
+        self.layout = None if layout is None else Layout(*layout)
+        self._libs = {}
 
-    def library(self):
-        if self._lib is None:
+    def layout_for(self, cfg: McmcConfig) -> Layout:
+        """The layout the library of ``cfg``'s mode runs."""
+        if self.layout is None:
+            return default_layout(cfg.mode, len(self.fns))
+        return check_layout(cfg.mode, self.layout)
+
+    def source(self, cfg: McmcConfig) -> str:
+        """The generated source the kernel includes: the integrands, the
+        compiled-in mode and families, and the layout."""
+        mode, prop, targ = cfg.compiled
+        parts = [
+            cuda_source(self.fns),
+            f"#define TMC_MODE {int(mode)}\n",
+            f"#define TMC_TARG_KIND {int(targ)}\n",
+            layout_source(self.layout_for(cfg)),
+        ]
+        if prop is not None:
+            parts.append(f"#define TMC_PROP_KIND {int(prop)}\n")
+        return "".join(parts)
+
+    def library(self, cfg: McmcConfig):
+        key = (cfg.compiled, self.layout_for(cfg))
+        if key not in self._libs:
             from .build import load_kernel_library
 
-            lib = load_kernel_library("mcmc.cu", cuda_source(self.fns))
+            lib = load_kernel_library("mcmc.cu", self.source(cfg))
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            lib.tmc_mcmc_pilots.argtypes = [i, i, u, p, i, i, p, p]
-            lib.tmc_mcmc_pilots.restype = i
-            # mode, proposal kind, target kind, seed word, params, burn-in,
-            # steps, chains per program, chains, pilots, rows, x_final,
+            # seed word, params, chains per program, programs, pilots,
             # stream
-            lib.tmc_mcmc.argtypes = [i, i, i, u, p, i, i, i, i, p, p, p, p]
+            lib.tmc_mcmc_pilots.argtypes = [u, p, i, i, p, p]
+            lib.tmc_mcmc_pilots.restype = i
+            # seed word, params, burn-in, steps, chains per program,
+            # chains, pilots, rows, x_final, stream
+            lib.tmc_mcmc.argtypes = [u, p, i, i, i, i, p, p, p, p]
             lib.tmc_mcmc.restype = i
-            self._lib = lib
-        return self._lib
+            self._libs[key] = lib
+        return self._libs[key]
 
 
 def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int) -> None:
@@ -330,7 +425,7 @@ def mcmc_cuda(
     if params.device.type != "cuda":
         raise ValueError(f"no MCMC kernel for device {params.device}")
     params = params.contiguous()
-    lib = program.library()
+    lib = program.library(cfg)
     k = len(program.fns)
     dev = params.device
     word = seed_word(seed)
@@ -347,14 +442,12 @@ def mcmc_cuda(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
             err = lib.tmc_mcmc_pilots(
-                int(cfg.mode), int(cfg.proposal_kind), word,
-                params.data_ptr(), grid.chains_per_program, grid.programs,
-                pilots.data_ptr(), stream,
+                word, params.data_ptr(), grid.chains_per_program,
+                grid.programs, pilots.data_ptr(), stream,
             )
             _raise_on(lib, err, "pilot")
             mcmc_cuda.pilot_launches += 1
         err = lib.tmc_mcmc(
-            int(cfg.mode), int(cfg.proposal_kind), int(cfg.target_kind),
             word, params.data_ptr(), cfg.n_burnin, cfg.n_steps,
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),

@@ -46,10 +46,14 @@ from .lower import cuda_source, cuda_target_source, to_torch
 from .mcmc_kernel import (
     CHAIN_THREADS,
     MAX_FUNCTIONS,
+    Layout,
     McmcGrid,
     McmcOutput,
     Mode,
     block_rows,
+    check_layout,
+    default_layout,
+    layout_source,
 )
 
 __all__ = [
@@ -134,7 +138,9 @@ class McmcNdProgram:
     ``torch_target`` (None for a product target) for the plain version,
     and the CUDA library, built at first use.  The library compiles in
     the mode, d and the families (``cfg.compiled``), as the JAX kernel is
-    traced per family tuple, so a run's config must have the program's."""
+    traced per family tuple, so a run's config must have the program's,
+    and the :class:`Layout` (``layout``, by default
+    :func:`default_layout`'s for the mode and integrand count)."""
 
     kernel_source = "mcmc_nd.cu"
     max_functions = MAX_FUNCTIONS
@@ -148,6 +154,7 @@ class McmcNdProgram:
         fns: Sequence[TracedFunction],
         cfg: McmcNdConfig,
         target: Optional[TracedFunction] = None,
+        layout: Optional[Layout] = None,
     ):
         if not 1 <= len(fns) <= self.max_functions:
             raise ValueError(
@@ -170,9 +177,15 @@ class McmcNdProgram:
         self.fns = tuple(fns)
         self.target = target
         self.compiled = cfg.compiled
+        self.layout = self._layout(cfg.mode, layout)
         self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
         self.torch_target = None if target is None else to_torch(target)
         self._lib = None
+
+    def _layout(self, mode: Mode, layout: Optional[Layout]) -> Layout:
+        if layout is None:
+            return default_layout(mode, len(self.fns))
+        return check_layout(mode, layout)
 
     def source(self) -> str:
         """The generated source the kernel includes: the integrands in the
@@ -187,6 +200,8 @@ class McmcNdProgram:
             cuda_source(self.fns, pointer=True),
             f"#define TMC_MODE {int(mode)}\n",
         ]
+        if self.layout is not None:
+            parts.append(layout_source(self.layout))
         if prop_kinds:
             parts.append(kinds("TMC_PROP_KINDS", prop_kinds))
         if targ_kinds is None:

@@ -148,6 +148,12 @@ class McmcPtProgram(McmcNdProgram):
     entry_points = ("tmc_mcmc_pt_pilots", "tmc_mcmc_pt")
     chain_inputs = ("params", "ladder")
 
+    def _layout(self, mode, layout):
+        """None: the tempered kernel runs one ladder per thread."""
+        if layout is not None:
+            raise ValueError("the tempered kernel takes no layout")
+        return None
+
     def source(self) -> str:
         return super().source() + f"#define TMC_T {self.compiled[4]}\n"
 
