@@ -90,9 +90,10 @@ Phases, each of which exits non-zero on failure:
     read the device idle share of warm calls of c9e and of the 1-D MCMC
     main path from one ``torch.profiler`` window each;
 19. finish building the tempered MCMC kernel (``csrc/mcmc_pt.cu``) for
-    c12's and c12c's programs and phase 20's (one library per integrand
-    set, target, mode, rung count and family tuple, all started in phase
-    2) and print nvcc's register and spill report;
+    c12's and c12c's programs, their ladder-layout twins and phase 20's
+    (one library per integrand set, target, mode, rung count, family
+    tuple and layout, all started in phase 2) and print nvcc's register
+    and spill report;
 20. hold the tempered kernel against its plain version on the card in
     every mode (adaptive walk on c12's mixture target, T = 4; a fixed walk
     on a 1-D Distribution target, T = 3; independence N(0, 6) on the
@@ -108,12 +109,15 @@ Phases, each of which exits non-zero on failure:
     kernel rose; then c12c (independence N(0, 6)) at the same shape;
 22. at c12's shape and configuration: hold the tempered kernel against the
     plain version once (the plain version timed in that run, CUDA events),
-    time the kernel (CUDA events) and ``integrate_mcmc()`` end to end
+    hold c12's and c12c's default layouts bit for bit against their
+    ladder layouts (rows and final states), time the kernel, c12c's and
+    both ladder layouts (CUDA events) and ``integrate_mcmc()`` end to end
     (host clock) in lane-steps/s (4 rungs x 4096 x 11,000, the unit of
     ``benchmarks/run_all.py:508-529``) and chain-steps/s, compute its pipe
     bound (over the T x chains / 32 warps of the step's independent rung
-    moves) and latency bound, and read the device idle share of warm c12
-    calls from one ``torch.profiler`` window.
+    moves) and latency bound on the ladder layout's build, print the
+    running build's counts beside them, and read the device idle share of
+    warm c12 calls from one ``torch.profiler`` window.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -122,7 +126,10 @@ count the function's parallel work: the whole card under an independence
 proposal, the chains' (or rung moves') warps for a walk.  A 1-D or nd
 build that spreads a chain over L lanes runs each decision on every lane,
 so their bounds count a one-lane build of the same group, the function's
-own instructions; the running build's count is printed beside it.
+own instructions; the running build's count is printed beside it.  A
+tempered build of rungs on lanes repeats each pair's swap decision on
+both of its lanes (and runs padding lanes), so its bounds count the
+ladder layout's build, one thread per ladder.
 
 Each kernel's bound is the least time the card could take at the main
 path's shape: from the built library's SASS (``cuobjdump -sass``, read by
@@ -773,19 +780,20 @@ def card_bound(lib, function: str, conversions: int, units: float,
     return ms, pipe, issue_ms(counts, units, sms, clock_mhz, warps), counts
 
 
-def print_bound(bound, clock_mhz: float, unit: str, own=None) -> None:
+def print_bound(bound, clock_mhz: float, unit: str, own=None,
+                twin: str = "the one-lane build") -> None:
     """Prints a bound; ``own``, the bound counted on the multi-lane build
-    that runs (``bound`` then comes from its one-lane twin), beside it."""
+    that runs (``bound`` then comes from its ``twin``), beside it."""
     ms, pipe, issue, counts = bound
     per = ", ".join(f"{k} {v:g}" for k, v in counts.items())
     print(f"  bound {ms:.3f} ms ({pipe} pipe) at {clock_mhz:.0f} MHz under "
           f"load; issue {issue:.3f} ms (diagnostic); per {unit} on the "
           f"cheapest path: {per}")
     if own is not None:
-        print(f"  (counted on the one-lane build; the build that runs, "
-              f"whose lanes repeat every decision: pipes {own[0]:.3f} ms "
-              f"({own[1]}), issue {own[2]:.3f} ms, "
-              f"{own[3]['issue']:g} instructions per {unit})")
+        mine = ", ".join(f"{k} {v:g}" for k, v in own[3].items())
+        print(f"  (counted on {twin}; the build that runs, whose lanes "
+              f"repeat decisions: pipes {own[0]:.3f} ms ({own[1]}), issue "
+              f"{own[2]:.3f} ms; per {unit} on the cheapest path: {mine})")
 
 
 def print_latency(bound, steps: int, clock_mhz: float) -> float:
@@ -847,6 +855,8 @@ def main() -> int:
             mcmc_nd_reference,
         )
         from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+            LADDER_LAYOUT,
+            McmcPtProgram,
             mcmc_pt_cuda,
             mcmc_pt_reference,
             pt_finish,
@@ -1007,6 +1017,13 @@ def main() -> int:
                        MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True)
         for name, proposal in pt_cells.items()
     }
+    # Each main program's ladder layout, one thread per ladder: the layout
+    # the defaults are held against bit for bit, and the build whose SASS
+    # holds the function's own instructions (the bounds).
+    pt_ladders = {
+        name: McmcPtProgram(prog.fns, cfg, prog.target, layout=LADDER_LAYOUT)
+        for name, (prog, cfg, _, _) in pt_main.items()
+    }
     pt_cases = [
         ("adaptive walk -> logmix, T=4", PT_FNS, logmix, c12_walk,
          PT_LADDER, False),
@@ -1054,8 +1071,9 @@ def main() -> int:
     nd_mcmc_builds = [pool.submit(timed_build, p.library)
                       for p in nd_mcmc_programs]
     pt_programs = list({
-        id(setup[0]): setup[0] for setup in
-        [*pt_main.values(), *(setup for _, setup in pt_checks)]
+        id(prog): prog for prog in
+        [*(setup[0] for setup in pt_main.values()), *pt_ladders.values(),
+         *(setup[0] for _, setup in pt_checks)]
     }.values())
     pt_builds = [pool.submit(timed_build, p.library) for p in pt_programs]
     lib = program.library()
@@ -1645,7 +1663,7 @@ def main() -> int:
     built = [b.result() for b in pt_builds]
     pool.shutdown()
     print(f"phase 19: built the tempered MCMC kernel for {len(built)} sets "
-          "(c12, c12c and phase 20's) in "
+          "(c12, c12c, their ladder layouts and phase 20's) in "
           + ", ".join(f"{sec:.1f}" for _, sec in built)
           + " s (in parallel with phase 2)")
     for pt_lib, _ in built:
@@ -1725,10 +1743,28 @@ def main() -> int:
     err, pt_plain_ms, _ = pt_vs_plain(prog, cfg, params, ladder, main_grid,
                                       "22")
     pt_err = max(pt_err, err)
-    pt_ms = time_ms(
-        lambda: mcmc_pt_cuda(prog, cfg, params, ladder, SEED, main_grid),
-        reps=10,
-    )
+    # Each main program's default layout against its ladder layout: the
+    # same ladders bit for bit; and the kernel times of both.
+    pt_times = {}
+    for name, (p_def, c_def, par, lad) in pt_main.items():
+        runs = {}
+        for how, p_run in (("default", p_def), ("ladder", pt_ladders[name])):
+            def run(p_run=p_run):
+                return mcmc_pt_cuda(p_run, c_def, par, lad, SEED, main_grid)
+            runs[how] = run()
+            pt_times[name, how] = time_ms(run, reps=10)
+        torch.cuda.synchronize()
+        same = (torch.equal(runs["default"].rows, runs["ladder"].rows)
+                and torch.equal(runs["default"].x_final,
+                                runs["ladder"].x_final))
+        print(f"phase 22: {name}: layout {tuple(p_def.layout)} "
+              f"{pt_times[name, 'default']:.4f} ms, ladder layout "
+              f"{pt_times[name, 'ladder']:.4f} ms; rows and final states "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"phase 22: {name}'s layout {tuple(p_def.layout)} and the "
+                 "ladder layout run different ladders")
+    pt_ms = pt_times["c12", "default"]
     call_s = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1745,22 +1781,36 @@ def main() -> int:
           f"lane-steps/s), integrate_mcmc() end to end {pt_call_ms:.3f} ms "
           f"median of 5, host clock ({lane_steps / pt_call_ms * 1e3:.4e} "
           f"lane-steps/s)")
-    # Bounds as phase 18's, per chain-step (every rung of the ladder): T
-    # rungs' d + 1 uniform conversions and, on the cheapest path, the
-    # parity with fewer pairs' swap draws.  The T rung moves of a step are
-    # independent, so the work spans T x chains lanes (4 x 4096: 512
-    # warps), though the kernel runs one ladder per thread (128 warps).
+    # Bounds as phase 18's, per chain-step (every rung of the ladder), on
+    # the ladder layout's build: T rungs' d + 1 uniform conversions and, on
+    # the cheapest path, the parity with fewer pairs' swap draws.  The T
+    # rung moves of a step are independent, so the work spans T x chains
+    # lanes (4 x 4096: 512 warps).  A build of rungs on lanes converts, on
+    # each rung lane, its rung's d + 1 uniforms and its pair's swap
+    # uniform; a chain-step is T' rung lanes of L lanes each.
     mhz = clock_under_load(
         lambda: mcmc_pt_cuda(prog, cfg, params, ladder, SEED, main_grid),
         pt_ms,
     )
+    pt_warps = function_warps(cfg.mode, main_grid.chains_actual, cfg.n_temps)
+    pt_weights = (MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"])
     pt_conversions = cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2
     pt_bound = card_bound(
-        prog.library(), "mcmc_pt_kernel", pt_conversions, chain_steps, mhz,
-        warps=function_warps(cfg.mode, main_grid.chains_actual, cfg.n_temps),
-        weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]),
+        pt_ladders["c12"].library(), "mcmc_pt_kernel", pt_conversions,
+        chain_steps, mhz, warps=pt_warps, weights=pt_weights,
     )
-    print_bound(pt_bound, mhz, "chain-step")
+    own = None
+    if prog.layout != LADDER_LAYOUT:
+        own = card_bound(
+            prog.library(), "mcmc_pt_kernel", cfg.d + 2,
+            chain_steps * prog.layout.rung_lanes, mhz, warps=pt_warps,
+            weights=pt_weights, lanes=prog.layout.lanes,
+        )
+        own = (*own[:3], {k: (v * prog.layout.rung_lanes
+                              if k not in ("chain", "carried") else v)
+                          for k, v in own[3].items()})
+    print_bound(pt_bound, mhz, "chain-step", own,
+                twin="the ladder layout's build")
     pt_latency = print_latency(pt_bound, steps, mhz)
     print("  c12:", end="")
     idle_share(lambda: pt_call(c12_walk))
@@ -1847,6 +1897,10 @@ def main() -> int:
         "latency_ms": pt_latency,
         "library_ms": None,
         "swap_rate": pt_swap,
+        "layout": list(prog.layout),
+        "ladder_ms": pt_times["c12", "ladder"],
+        "c12c_ms": pt_times["c12c", "default"],
+        "c12c_ladder_ms": pt_times["c12c", "ladder"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -943,3 +943,88 @@ def test_pt_kernel_rejects_bad_params(cuda_device):
         mcmc_pt_cuda(program, cfg, params, ladder[:5], 42, grid)
     with pytest.raises(ValueError, match="ladder on cpu"):
         mcmc_pt_cuda(program, cfg, params, ladder.cpu(), 42, grid)
+
+
+# -- the tempered kernel's layouts ----------------------------------------------
+#
+# A layout changes no number the tempered kernel computes: the default
+# layout and every layout below give the ladder layout's rows and final
+# states bit for bit (zero split ladders), in every mode of PT_CASES, at
+# T = 16 and 24 (32 rung lanes, blocks of 1,024 threads) and at K = 126,
+# over 8 programs at 1, 7 and 1,201 steps.
+PT_LAYOUT_CASES = {
+    **PT_CASES,
+    "adaptive-walk-c9e-T16": (_c9e_target, dict(_WALK, adapt=True),
+                              [1.5 ** t for t in range(16)], True),
+    "adaptive-walk-c9e-T24": (_c9e_target, dict(_WALK, adapt=True),
+                              [1.2 ** t for t in range(24)], True),
+    "adaptive-walk-logmix-K126-stderr": (lambda: _logmix, _C12_WALK,
+                                         _LADDER4, True),
+}
+
+
+def _pt_case_fns(case, target):
+    if "K126" in case:
+        return WIDEST[:MAX_FUNCTIONS - 2]
+    return _pt_fns(2 if isinstance(target, list) or target is _c9e_target
+                   else 1)
+
+
+def _pt_layouts(n_temps):
+    """Rungs on lanes: one, two or four lanes per rung, groups of 1 to
+    4."""
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import PtLayout, rung_lanes
+
+    t_lanes = rung_lanes(n_temps)
+    return [PtLayout(t_lanes, lanes, group)
+            for lanes, group in ((1, 1), (1, 3), (2, 1), (2, 4), (4, 3))
+            if t_lanes * lanes <= 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,n_burnin", RUN_LENGTHS,
+                         ids=[f"steps{n}-burn{b}" for n, b in RUN_LENGTHS])
+@pytest.mark.parametrize("case", list(PT_LAYOUT_CASES))
+def test_pt_layouts_run_the_ladder_layouts_chains(cuda_device, case, n_steps,
+                                                  n_burnin):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        LADDER_LAYOUT,
+        McmcPtProgram,
+        mcmc_pt_cuda,
+    )
+
+    target, proposal, temps, stderr = PT_LAYOUT_CASES[case]
+    base, cfg, params, ladder = _pt_setup(
+        target, proposal, temps, stderr, _pt_case_fns(case, target),
+        cuda_device, n_steps=n_steps, n_burnin=n_burnin,
+    )
+    programs = [McmcPtProgram(base.fns, cfg, base.target, layout=layout)
+                for layout in (LADDER_LAYOUT, None, *_pt_layouts(len(temps)))]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda p: p.library(), programs))
+    runs = [mcmc_pt_cuda(p, cfg, params, ladder, 42, SEVERAL_PROGRAMS)
+            for p in programs]
+    torch.cuda.synchronize()
+    for program, got in zip(programs[1:], runs[1:]):
+        assert torch.equal(got.rows, runs[0].rows), program.layout
+        assert torch.equal(got.x_final, runs[0].x_final), program.layout
+    if n_steps > 1000:
+        # The ladder layout against the plain version.
+        _check_pt(programs[0], cfg, params, ladder, SEVERAL_PROGRAMS)
+
+
+@pytest.mark.cuda
+def test_pt_kernel_past_32_rungs_takes_the_ladder(cuda_device):
+    # T = 33 would need 64 rung lanes: the ladder layout, one thread per
+    # ladder, runs it.
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import LADDER_LAYOUT
+
+    program, cfg, params, ladder = _pt_setup(
+        lambda: _logmix, _C12_WALK, [1.1 ** t for t in range(33)], False,
+        _pt_fns(1), cuda_device, n_steps=300, n_burnin=100,
+    )
+    assert program.layout == LADDER_LAYOUT
+    _check_pt(program, cfg, params, ladder,
+              plan_mcmc_grid(plan_chains(4096, None)))

@@ -31,6 +31,7 @@ from tpu_montecarlo_torch.ops.mcmc_kernel import (
     check_layout,
     default_layout,
 )
+from tpu_montecarlo_torch.ops.mcmc_pt_kernel import default_pt_layout
 from tpu_montecarlo_torch.sampling import DistKind
 
 F32 = np.float32
@@ -305,7 +306,14 @@ def test_nd_sources_compile_in_the_layout_and_tempered_ones_do_not():
         assert program.layout == layout
         assert (f"#define TMC_LANES {layout.lanes}\n"
                 f"#define TMC_GROUP {layout.group}\n") in program.source()
+    # The tempered kernel compiles in its own layout (rungs on lanes, or
+    # the ladder), never the nd kernel's TMC_LANES / TMC_GROUP.
     parsed = integ._parse_nd_mcmc_args(target, walk)
     program, _, _, _ = integ._pt_kernel_program(
         [lambda x, y: x * y], walk, parsed, (1.0, 0.5), 10, 2, False)
-    assert program.layout is None and "TMC_LANES" not in program.source()
+    src = program.source()
+    assert program.layout == default_pt_layout(Mode.RANDOM_WALK, 2, 1)
+    assert "TMC_LANES" not in src and "TMC_GROUP" not in src
+    assert (f"#define TMC_PT_RUNG_LANES {program.layout.rung_lanes}\n"
+            f"#define TMC_PT_LANES {program.layout.lanes}\n"
+            f"#define TMC_PT_GROUP {program.layout.group}\n") in src

@@ -57,15 +57,20 @@ from tpu_montecarlo_torch.api import tempering as api_pt
 from tpu_montecarlo_torch.ops import integrate_kernel as tk
 from tpu_montecarlo_torch.ops.mcmc_kernel import Mode, plan_mcmc_grid
 from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+    LADDER_LAYOUT,
     PT_SEED_MIX,
     McmcPtConfig,
     McmcPtProgram,
+    PtLayout,
+    default_pt_layout,
     mcmc_pt_cuda,
     mcmc_pt_reference,
     pack_ladder,
     pt_attempted_swaps,
     pt_finish,
+    pt_layout_source,
     pt_seed_word,
+    rung_lanes,
 )
 from tpu_montecarlo_torch.sampling import DistKind
 
@@ -524,6 +529,30 @@ def test_config_and_program_validation():
     src = program.source()
     assert "#define TMC_T 3\n" in src and "#define TMC_MODE 1\n" in src
     assert "tmc_target_logpdf" in src
+    # Layouts: rungs on T' = 4 lanes (T = 3 pads one) with lanes per rung
+    # and a group, or the ladder, one thread per ladder; none other.
+    target = tm.trace_function(logmix)
+    assert program.layout == default_pt_layout(Mode.RANDOM_WALK, 3, 1)
+    assert rung_lanes(3) == 4 and rung_lanes(4) == 4 and rung_lanes(33) == 64
+    for layout in (LADDER_LAYOUT, (4, 1, 1), (4, 2, 3), (4, 8, 8)):
+        taken = McmcPtProgram(f1, cfg, target, layout=layout)
+        assert taken.layout == PtLayout(*layout)
+        assert pt_layout_source(taken.layout) in taken.source()
+    for bad, match in (((2, 1, 4), "rung lanes 1 .the ladder. or 4"),
+                       ((8, 1, 4), "rung lanes 1 .the ladder. or 4"),
+                       ((1, 2, 1), "ladder layout runs one lane"),
+                       ((1, 1, 4), "ladder layout runs one lane"),
+                       ((4, 16, 1), "divide a warp"),
+                       ((4, 3, 1), "divide a warp"),
+                       ((4, 1, 0), "divide a warp")):
+        with pytest.raises(ValueError, match=match):
+            McmcPtProgram(f1, cfg, target, layout=bad)
+    # Past 32 rung lanes, and by default past the thresholds, the ladder.
+    many = McmcPtConfig(Mode.RANDOM_WALK, 1, (), None, 10, 2, n_temps=33)
+    assert McmcPtProgram(f1, many, target).layout == LADDER_LAYOUT
+    with pytest.raises(ValueError, match="rung lanes 1 .the ladder. or 64"):
+        McmcPtProgram(f1, many, target, layout=(32, 1, 1))
+    assert default_pt_layout(Mode.ADAPTIVE, 33, 1) == LADDER_LAYOUT
 
 
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():

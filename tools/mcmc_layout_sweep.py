@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Times the 1-D and nd MCMC kernels of ``tpu_montecarlo_torch`` on one
-NVIDIA GPU at their main paths' shape, per chain layout, with their SASS
-bounds.
+"""Times the 1-D, nd and tempered MCMC kernels of ``tpu_montecarlo_torch``
+on one NVIDIA GPU at their main paths' shape, per chain layout, with their
+SASS bounds.
 
     python3 tools/mcmc_layout_sweep.py [--tree DIR] [--sweep]
-        [--cells c5b,walk,c9e,c10b,c12] [--out FILE]
+        [--cells c5b,walk,c9e,c10b,c12,c12c] [--out FILE]
 
 ``--tree`` names the repository checkout whose package is timed (default:
-this one); it may be an older checkout without chain layouts, which is
-then timed as it is.  The SASS counter and its bounds are always this
-checkout's ``chip_smoke.py``.  Cells, all at 4096 chains x (1,000 burn-in
-+ 10,000) steps with error bars (``chip_smoke.py``'s MCMC_MAIN):
+this one); it may be an older checkout without chain layouts (or without
+tempered layouts), which is then timed as it is.  The SASS counter and its
+bounds are always this checkout's ``chip_smoke.py``.  Cells, all at 4096
+chains x (1,000 burn-in + 10,000) steps with error bars
+(``chip_smoke.py``'s MCMC_MAIN):
 
 * ``c5b``: ``[x*x]``, independence N(0, 2) -> N(0, 1);
 * ``walk``: ``[x*x]``, ``RandomWalk(adapt=True)`` -> N(0, 1);
@@ -20,7 +21,18 @@ checkout's ``chip_smoke.py``.  Cells, all at 4096 chains x (1,000 burn-in
   init_range=(-4, 4))`` on the same target;
 * ``c12``: ``[x, x*x]``, the tempered kernel's main path (an adaptive
   walk of step 0.5 on the mixture 0.5 N(-4, 1) + 0.5 N(4, 1), ladder
-  [1, 2, 4, 8]), whose layout is fixed;
+  [1, 2, 4, 8]);
+* ``c12c``: the same with independence N(0, 6) proposals;
+* ``t3``, ``t2``, ``t5``, ``t16`` (named in ``--cells`` only): the other
+  tempered modes of ``chip_smoke.py`` phase 20 at this shape, without
+  error bars: a walk on N(1, 2) over [1, 3, 9]; independence N(0.5, 1.5)
+  x Exp(1) on U(-1, 2) x Exp(1.5) over [1, 2.5]; a walk on c9e's target
+  over [1, 2, 4, 8, 16]; and an adaptive walk on c9e's target over 16
+  rungs 1.5^t, with error bars (the CUDA tests' T = 16 case); ``t24``
+  the same over 24 rungs 1.2^t (32 rung lanes);
+* ``ptk8``, ``ptk16``, ``ptk32``, ``ptk64``, ``ptwide`` (named in
+  ``--cells`` only): c12 with the ``wide`` set's first 8, 16, 32, 64 and
+  126 integrands, at 4096 x (200 + 1,000) steps;
 * ``k2``, ``k4``, ``k8``, ``k16``, ``k32`` (named in ``--cells`` only):
   the first k of ``chip_smoke.py``'s K=8 bench integrands, repeated,
   independence N(0, 2) -> N(0, 1);
@@ -30,13 +42,18 @@ checkout's ``chip_smoke.py``.  Cells, all at 4096 chains x (1,000 burn-in
 
 Without ``--sweep`` each cell runs its default layout; with it, every
 layout of lanes in {1, 2, 4, 8} and group in {1, 2, 4, 8} (walks: one
-lane; ``k*`` and ``wide``: group 4).  Each result is one JSON line: kernel milliseconds (CUDA events,
-the mean of 10 launches after one), the card's name and power limit, the
-SM clock under load, the pipe bound (whole card for an independence
-proposal, the chains' or rung moves' warps for a walk) with its busiest
-pipe, the issue time,
-the carried-chain latency bound, and digests of the kernel's rows and
-final states: equal digests mean the same chains to the last bit.
+lane; ``k*`` and ``wide``: group 4); a tempered cell runs the ladder
+layout and rungs on T' lanes with lanes per rung in {1, 2, 4} (at most
+32 lanes a chain) and group in {1, 2, 4, 8}.  Each result is one JSON line: kernel milliseconds (CUDA
+events, the mean of 10 launches after one), the card's name and power
+limit, the SM clock under load, the pipe bound (whole card for an
+independence proposal, the chains' or rung moves' warps for a walk) with
+its busiest pipe, the issue time, the carried-chain latency bound, and
+digests of the kernel's rows and final states: equal digests mean the
+same chains to the last bit.  The counts are the build's own: a tempered
+build of rungs on lanes counts per rung lane, padding lanes included,
+and its decisions and exchanges repeat on the lanes of a rung and of a
+pair.
 """
 
 from __future__ import annotations
@@ -129,9 +146,10 @@ def main() -> int:
     n = DistKind.NORMAL
     n01 = tm.Distribution.normal(0.0, 1.0)
     n02 = tm.Distribution.normal(0.0, 2.0)
+    n06 = tm.Distribution.normal(0.0, 6.0)
 
     # Each cell's build(layout) -> (run, library, kernel function, uniforms
-    # per chain-step, rungs).
+    # per unit, rungs, lanes per unit, units per chain-step).
     def one_d(fns, mode, row, steps):
         traced = tuple(tm.trace_function(f) for f in fns)
         cfg = mk.McmcConfig(mode, n, n, steps["n_steps"], steps["n_burnin"],
@@ -144,8 +162,9 @@ def main() -> int:
             lib = prog.library(cfg) if layouts else prog.library()
             name = ("mcmc_kernel" if layouts
                     else f"mcmc_kernelILi{int(mode)}EE")
+            lanes = 1 if layout is None else layout.lanes
             return (lambda: mk.mcmc_cuda(prog, cfg, params, SEED, grid),
-                    lib, name, 2, 1)
+                    lib, name, 2, 1, lanes, 1)
 
         return build
 
@@ -157,31 +176,47 @@ def main() -> int:
         def build(layout):
             prog = (McmcNdProgram(prog0.fns, cfg, prog0.target, layout=layout)
                     if layouts else prog0)
+            lanes = 1 if layout is None else layout.lanes
             return (lambda: mcmc_nd_cuda(prog, cfg, params, SEED, grid),
-                    prog.library(), "mcmc_nd_kernel", cfg.d + 1, 1)
+                    prog.library(), "mcmc_nd_kernel", cfg.d + 1, 1, lanes, 1)
 
         return build
 
-    def tempered(fns, target, proposal, temps, steps):
-        from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+    def tempered(fns, target, proposal, temps, steps, stderr=True):
+        from tpu_montecarlo_torch.ops import mcmc_pt_kernel as pk
 
         parsed = integ._parse_nd_mcmc_args(target, proposal)
-        prog, cfg, params, ladder = integ._pt_kernel_program(
+        prog0, cfg, params, ladder = integ._pt_kernel_program(
             fns, proposal, parsed, tuple(1.0 / t for t in temps),
-            steps["n_steps"], steps["n_burnin"], True)
+            steps["n_steps"], steps["n_burnin"], stderr)
         t = cfg.n_temps
 
         def build(layout):
-            return (lambda: mcmc_pt_cuda(prog, cfg, params, ladder, SEED,
-                                         grid),
-                    prog.library(), "mcmc_pt_kernel",
-                    t * (cfg.d + 1) + (t - 1) // 2, t)
+            prog = (pk.McmcPtProgram(prog0.fns, cfg, prog0.target,
+                                     layout=layout)
+                    if layout is not None else prog0)
+            run = lambda: pk.mcmc_pt_cuda(prog, cfg, params, ladder, SEED,  # noqa: E731
+                                          grid)
+            if layout is None or layout.rung_lanes == 1:
+                # The ladder: one thread's loop draws every rung's uniforms
+                # and, on the cheapest path, the parity with fewer pairs'.
+                return (run, prog.library(), "mcmc_pt_kernel",
+                        t * (cfg.d + 1) + (t - 1) // 2, t, 1, 1)
+            # Rungs on lanes: each lane draws its rung's d + 1 uniforms and
+            # its pair's swap uniform; a chain-step is T' rung lanes.
+            return (run, prog.library(), "mcmc_pt_kernel", cfg.d + 2, t,
+                    layout.lanes, layout.rung_lanes)
 
         return build
 
     walk_row = [*tm.RandomWalk(adapt=True).pack_params(n01), 0.0, 1.0]
-    c10b = tm.RandomWalk(step_size=1.0, target_accept=0.234,
-                         init_range=(-4.0, 4.0))
+    c10b_kw = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
+    c10b = tm.RandomWalk(**c10b_kw)
+    c12_walk = tm.RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
+    pt_fns = [lambda x: x, lambda x: x * x]
+    pt2_fns = [lambda x, y: x * y, lambda x, y: x * x + y * y,
+               lambda x, y: (x > 1.0) * y]
+    ladder4 = [1.0, 2.0, 4.0, 8.0]
     cells = {
         "c5b": (one_d([lambda x: x * x], mk.Mode.INDEPENDENCE,
                       [0.0, 2.0, 0.0, 0.0, 0.0, 1.0], MAIN), 0, MAIN),
@@ -191,23 +226,61 @@ def main() -> int:
                 0, MAIN),
         "c10b": (nd([lambda x, y: x * y], _c9e_target(), c10b, MAIN), 1,
                  MAIN),
-        "c12": (tempered([lambda x: x, lambda x: x * x], _logmix,
-                         tm.RandomWalk(step_size=0.5, adapt=True,
-                                       init_range=(3.0, 5.0)),
-                         [1.0, 2.0, 4.0, 8.0], MAIN), 2, MAIN),
+        "c12": (tempered(pt_fns, _logmix, c12_walk, ladder4, MAIN), 2, MAIN),
+        "c12c": (tempered(pt_fns, _logmix, n06, ladder4, MAIN), 0, MAIN),
+        "t3": (tempered(pt_fns, tm.Distribution.normal(1.0, 2.0),
+                        tm.RandomWalk(step_size=1.0, init_range=(-3.0, 5.0)),
+                        [1.0, 3.0, 9.0], MAIN, False), 1, MAIN),
+        "t2": (tempered(pt2_fns, [tm.Distribution.uniform(-1.0, 2.0),
+                                  tm.Distribution.exponential(1.5)],
+                        [tm.Distribution.normal(0.5, 1.5),
+                         tm.Distribution.exponential(1.0)],
+                        [1.0, 2.5], MAIN, False), 0, MAIN),
+        "t5": (tempered(pt2_fns, _c9e_target(), c10b,
+                        [1.0, 2.0, 4.0, 8.0, 16.0], MAIN, False), 1, MAIN),
+        "t16": (tempered(pt2_fns, _c9e_target(),
+                         tm.RandomWalk(adapt=True, **c10b_kw),
+                         [1.5 ** t for t in range(16)], MAIN), 2, MAIN),
     }
+    cells["t24"] = (tempered(pt2_fns, _c9e_target(),
+                             tm.RandomWalk(adapt=True, **c10b_kw),
+                             [1.2 ** t for t in range(24)], MAIN), 2, MAIN)
+    wide_steps = dict(n_steps=1_000, n_burnin=200)
+    pt_k = {"ptk8": 8, "ptk16": 16, "ptk32": 32, "ptk64": 64, "ptwide": 126}
+    for name, k in pt_k.items():
+        cells[name] = (tempered(WIDE_FNS[:k], _logmix, c12_walk, ladder4,
+                                wide_steps), 2, wide_steps)
     indep_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
     for k in (2, 4, 8, 16, 32):
         fns = [cs.BENCH_FNS[i % len(cs.BENCH_FNS)] for i in range(k)]
         cells[f"k{k}"] = (one_d(fns, mk.Mode.INDEPENDENCE, indep_row, MAIN),
                           0, MAIN)
-    wide_steps = dict(n_steps=1_000, n_burnin=200)
     cells["wide"] = (one_d(WIDE_FNS, mk.Mode.INDEPENDENCE, indep_row,
                            wide_steps), 0, wide_steps)
     cells = {name: cells[name] for name in args.cells.split(",")}
 
+    try:
+        from tpu_montecarlo_torch.ops import mcmc_pt_kernel as pk
+    except ImportError:
+        pk = None
+    pt_layouts = pk is not None and hasattr(pk, "PtLayout")
+    rungs_of = {"c12": 4, "c12c": 4, "t3": 3, "t2": 2, "t5": 5, "t16": 16,
+                "t24": 24, **dict.fromkeys(pt_k, 4)}
+
     def layouts_of(name, mode):
-        if not layouts or name == "c12":
+        if name in rungs_of:
+            if not pt_layouts:
+                return [None]
+            n_temps = rungs_of[name]
+            if not args.sweep:
+                k = pt_k.get(name, 3 if name in ("t2", "t5", "t16", "t24")
+                             else 2)
+                return [pk.default_pt_layout(mode, n_temps, k)]
+            t_lanes = pk.rung_lanes(n_temps)
+            return [pk.LADDER_LAYOUT] + [
+                pk.PtLayout(t_lanes, lanes, g) for lanes in (1, 2, 4)
+                for g in (1, 2, 4, 8) if t_lanes * lanes <= 32]
+        if not layouts:
             return [None]
         if not args.sweep:
             k = {"wide": 127}.get(name, int(name[1:]) if name[0] == "k"
@@ -230,14 +303,14 @@ def main() -> int:
 
     out = open(args.out, "a") if args.out else None
     for (name, mode, steps, _, layout), (run, lib, function, uniforms,
-                                         rungs) in zip(jobs, built):
+                                         rungs, lanes, unit_lanes) in zip(
+                                             jobs, built):
         got = run()
         torch.cuda.synchronize()
         ms = cs.time_ms(run, reps=REPS)
         mhz = cs.clock_under_load(run, ms)
         chain_steps = CHAINS * (steps["n_steps"] + steps["n_burnin"])
         steps_per_chain = steps["n_steps"] + steps["n_burnin"]
-        lanes = 1 if layout is None else layout.lanes
         try:
             dear, cheap = cs.per_sample(cs.sass_listing(lib), function,
                                         uniforms, lanes)
@@ -252,17 +325,20 @@ def main() -> int:
             counts = {k: (w[0] * dear[k] + w[1] * cheap[k]) / sum(w)
                       for k in dear}
             warps = cs.function_warps(mode, CHAINS, rungs)
-            pipe_ms, pipe = cs.bound_ms(counts, chain_steps, sms, mhz, warps)
+            units = chain_steps * unit_lanes
+            pipe_ms, pipe = cs.bound_ms(counts, units, sms, mhz, warps)
             bound = {
                 "pipe_ms": pipe_ms,
                 "pipe": pipe,
-                "issue_ms": cs.issue_ms(counts, chain_steps, sms, mhz, warps),
+                "issue_ms": cs.issue_ms(counts, units, sms, mhz, warps),
                 "carried": counts["carried"],
                 "chain": counts["chain"],
                 "latency_ms": cs.latency_ms(counts["carried"],
                                             steps_per_chain, mhz),
-                "per_step": {k: counts[k] for k in ("fp32", "int32", "xu",
-                                                     "issue")},
+                # Per chain-step: a tempered build of rungs on lanes
+                # counts per rung lane.
+                "per_step": {k: counts[k] * unit_lanes
+                             for k in ("fp32", "int32", "xu", "issue")},
             }
         rec = {
             "tree": str(Path(args.tree).resolve().name),

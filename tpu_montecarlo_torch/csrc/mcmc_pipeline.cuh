@@ -24,13 +24,21 @@
 // keeps one lane per chain (L = 1) and makes only the x-independent part
 // of its steps ahead (the normal step z, logf(u), the adaptive gain).
 //
+// The tempered kernel (mcmc_pt.cu) runs the same pipeline on each rung of
+// a ladder: rung t of a chain on its own lanes, its x-free draws made
+// ahead, and after every step the pairs of rungs of the step's parity
+// exchange states between their lanes by __shfl_sync (the second half of
+// this file).
+//
 // Everything here but the block rows is plain C++ that also compiles on
 // the host with `g++ -D__device__= -D__forceinline__=inline`, so the
-// decisions, the grouping and the exchange (lanes run as threads) are
+// decisions, the grouping and the exchanges (lanes run as threads) are
 // tested on the CPU against a float32 loop.
 #pragma once
 
 #include <cstdint>
+
+#include "integrand_math.cuh"  // tmc_minimum, tmc_maximum (and host math)
 
 namespace tmc {
 
@@ -99,6 +107,40 @@ __device__ __forceinline__ Candidate<D> from_lane(const Candidate<D>& c,
   return r;
 }
 
+// What a tempered step takes from the stream, made ahead of the group's
+// decisions: under an independence proposal the rung's candidate and the
+// swap's log uniform; for a walk the normal steps z, logf(u), the adaptive
+// gain and the swap's log uniform.
+template <int D>
+struct PtCandidate {
+  Candidate<D> c;
+  float logv;  // swap_logv of the swap uniform of the lane's pair
+};
+
+template <int D>
+struct PtWalkDraw {
+  float z[D];
+  float logu, gamma, logv;
+};
+
+template <int L, int D>
+__device__ __forceinline__ PtCandidate<D> from_lane(const PtCandidate<D>& c,
+                                                    int src) {
+  return {from_lane<L>(c.c, src), from_lane<L>(c.logv, src)};
+}
+
+template <int L, int D>
+__device__ __forceinline__ PtWalkDraw<D> from_lane(const PtWalkDraw<D>& w,
+                                                   int src) {
+  PtWalkDraw<D> r;
+#pragma unroll
+  for (int j = 0; j < D; ++j) r.z[j] = from_lane<L>(w.z[j], src);
+  r.logu = from_lane<L>(w.logu, src);
+  r.gamma = from_lane<L>(w.gamma, src);
+  r.logv = from_lane<L>(w.logv, src);
+  return r;
+}
+
 // One group of G * L steps from step i0: this lane (`lane` of L) makes
 // the candidates of steps i0 + g * L + lane with make(i), then step(i, c)
 // runs on every step's candidate in step order.  A tail group (kTail)
@@ -160,21 +202,205 @@ struct NoVisit {
   __device__ __forceinline__ void operator()(const float (&)[D], bool) {}
 };
 
+// -- Parallel tempering (mcmc_pt.cu) ----------------------------------------
+//
+// A chain's ladder of T rungs runs on W = T' * L consecutive lanes of a
+// warp, T' the smallest power of two >= T: rung t on the L lanes t * L +
+// l, which hold the same rung state and make its x-free draws in turn, as
+// above.  Lanes of rungs t >= T pad the segment: they take part in every
+// shuffle, decide nothing and count nothing.  Step i moves every rung,
+// then the pairs (t, t + 1) with t of i's parity exchange: both lanes of a
+// pair take the partner's logp by shuffle, compute the same delta from the
+// same operands, hold the same swap uniform (both draw it, under the
+// pair's tag t) and so take the same decision; on a swap each takes the
+// partner's x, logp and (independence) logq.  An adaptive walk's log
+// scale stays with its rung, so on a lane it never moves.
+
+// The tempered log acceptance ratio in the JAX kernel's float32 order
+// (mcmc_pt_pallas.py:449): beta * (logp' - logp), then under an
+// independence proposal (q is not tempered) + logq - logq'.  The only
+// code of this formula; it rounds otherwise than independence_log_alpha.
+template <bool kIndep>
+__device__ __forceinline__ float tempered_log_alpha(float beta,
+                                                   float logp_prop,
+                                                   float logp,
+                                                   float logq_prop,
+                                                   float logq) {
+  const float la = beta * (logp_prop - logp);
+  return kIndep ? (la + logq) - logq_prop : la;
+}
+
+// logf of a swap uniform v from [0, 1), a v of 0 taken as the subnormal
+// 1e-38f (logf -87.5): the kernels are built without flush-to-zero.
+__device__ __forceinline__ float swap_logv(float v) {
+  return logf(fmaxf(v, 1e-38f));
+}
+
+// Pair (t, t + 1)'s exchange decision: logv < dbeta_t * (logp_{t+1} -
+// logp_t), strict, dbeta_t = beta_t - beta_{t+1}.
+__device__ __forceinline__ bool swap_accepted(float logv, float dbeta,
+                                              float logp_lo,
+                                              float logp_hi) {
+  return logv < dbeta * (logp_hi - logp_lo);
+}
+
+// A lane's part in the exchanges of one parity.
+struct PairLane {
+  int partner;  // the partner rung's lane of the same l, in the segment
+  int lo;       // the pair's lower rung t: the swap uniform's tag
+  bool active;  // both rungs of the pair are < T
+  bool lower;   // this lane holds rung t of (t, t + 1)
+  bool counts;  // this lane counts the pair's swaps (rung t, l = 0)
+  float dbeta;  // beta_t - beta_{t+1}
+};
+
+// The part of lane l of rung `rung` (of T) at `parity`; `dbeta` holds the
+// T - 1 pair differences.
+template <int L>
+__device__ __forceinline__ PairLane pair_lane(int rung, int l, int n_temps,
+                                              int parity,
+                                              const float* dbeta) {
+  PairLane p;
+  p.lower = ((rung ^ parity) & 1) == 0;
+  const int other = p.lower ? rung + 1 : rung - 1;
+  p.lo = p.lower ? rung : other;
+  p.active = other >= 0 && other < n_temps && rung < n_temps;
+  p.partner = (p.active ? other : rung) * L + l;
+  p.counts = p.active && p.lower && l == 0;
+  p.dbeta = p.active ? dbeta[p.lo] : 0.0f;
+  if (!p.active) p.lo = 0;
+  return p;
+}
+
+// This lane's exchange at one step: every lane of the segment of W lanes
+// takes part in the shuffles; returns whether the lane's pair swapped.
+template <int W, int D, bool kIndep>
+__device__ __forceinline__ bool exchange(const PairLane& pr, float logv,
+                                         float (&x)[D], float& logp,
+                                         float& logq) {
+  const float logp_o = from_lane<W>(logp, pr.partner);
+  float x_o[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) x_o[j] = from_lane<W>(x[j], pr.partner);
+  const float logq_o = kIndep ? from_lane<W>(logq, pr.partner) : 0.0f;
+  const bool swap =
+      pr.active && swap_accepted(logv, pr.dbeta, pr.lower ? logp : logp_o,
+                                 pr.lower ? logp_o : logp);
+  if (swap) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) x[j] = x_o[j];
+    logp = logp_o;
+    if (kIndep) logq = logq_o;
+  }
+  return swap;
+}
+
+// One lane's rung, as the step functors below move it.
+template <int D>
+struct Rung {
+  float x[D];
+  float logp, logq;
+  float beta;
+  bool real;            // rung < T (not a padding lane)
+  PairLane even, odd;   // its part in the exchanges of each parity
+  float swaps;          // swaps this lane counts
+};
+
+template <int W, int D, bool kIndep>
+__device__ __forceinline__ void exchange_step(uint32_t i, float logv,
+                                              Rung<D>& r) {
+  const PairLane pr = (i & 1u) ? r.odd : r.even;
+  if (exchange<W, D, kIndep>(pr, logv, r.x, r.logp, r.logq) && pr.counts) {
+    r.swaps += 1.0f;
+  }
+}
+
+// The step functor of a tempered independence phase: the rung's decision
+// on its candidate, the exchange, then visit(x, accepted).
+template <int W, int D, class Visit>
+struct PtSelectStep {
+  Rung<D>& r;
+  Visit& visit;
+
+  __device__ __forceinline__ void operator()(uint32_t i,
+                                             const PtCandidate<D>& c) {
+    const float la = tempered_log_alpha<true>(r.beta, c.c.logp, r.logp,
+                                              c.c.logq, r.logq);
+    const bool accept = r.real && c.c.logu < la;
+    if (accept) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) r.x[j] = c.c.x[j];
+      r.logp = c.c.logp;
+      r.logq = c.c.logq;
+    }
+    exchange_step<W, D, true>(i, c.logv, r);
+    visit(r.x, accept);
+  }
+};
+
+// The step functor of a tempered walk phase: x'_j = x_j + eps_j * z_j,
+// the rung's decision, in the adaptive burn-in (kAdapt) the rung's
+// Robbins-Monro move of its log scale (eps = expf(log_scale) * step before
+// each move), the exchange, then visit(x, accepted).  `target(x')` is the
+// target's log density.
+template <int W, int D, bool kAdapt, class Target, class Visit>
+struct PtWalkStep {
+  const Target& target;
+  const float (&step)[D];
+  float target_accept;
+  float lo_scale, hi_scale;  // the log scale's clip
+  Rung<D>& r;
+  float (&eps)[D];
+  float& log_scale;
+  Visit& visit;
+
+  __device__ __forceinline__ void operator()(uint32_t i,
+                                             const PtWalkDraw<D>& w) {
+    if (kAdapt) {
+      const float scale = expf(log_scale);
+#pragma unroll
+      for (int j = 0; j < D; ++j) eps[j] = scale * step[j];
+    }
+    float xp[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) xp[j] = r.x[j] + eps[j] * w.z[j];
+    const float logp_prop = target(xp);
+    const float la =
+        tempered_log_alpha<false>(r.beta, logp_prop, r.logp, 0.0f, 0.0f);
+    const bool accept = r.real && w.logu < la;
+    if (accept) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) r.x[j] = xp[j];
+      r.logp = logp_prop;
+    }
+    if (kAdapt) {
+      const float alpha_p = expf(tmc_minimum(la, 0.0f));
+      log_scale = tmc_minimum(
+          tmc_maximum(log_scale + w.gamma * (alpha_p - target_accept),
+                      lo_scale),
+          hi_scale);
+    }
+    exchange_step<W, D, false>(i, w.logv, r);
+    visit(r.x, accept);
+  }
+};
+
 #ifdef __CUDACC__
-// The block's three rows of K + 1 floats (mcmc.cu's output) from its 32
-// chains: the sums of acc_k and the accept counts; the SS of the chain
-// means acc_k / n_steps; their centroid, shifted back by the pilot.  Each
-// chain's values are those of its lane 0; with L > 1 they are staged in
-// shared memory for the first warp, so the sums take the same fixed
-// shuffle tree over the 32 chains whatever L is.  Lane 0 of the block
-// writes the rows.  Called by every thread of the block, last: threads
-// past the first warp return from it.
-template <int K, int L>
+// The block's three rows of K + C floats from its 32 chains: the sums of
+// acc_k and of the C counts (mcmc.cu, mcmc_nd.cu: the accept count;
+// mcmc_pt.cu: the cold accept and the swap count); the SS of the chain
+// means acc_k / n_steps; their centroid, shifted back by the pilot (0 in
+// the count columns).  Each chain's values are those of its lane 0; with
+// L > 1 lanes per chain they are staged in shared memory for the first
+// warp, so the sums take the same fixed shuffle tree over the 32 chains
+// whatever L is.  Lane 0 of the block writes the rows.  Called by every
+// thread of the block, last: threads past the first warp return from it.
+template <int K, int L, int C>
 __device__ __forceinline__ void write_block_rows(const float (&acc)[K],
-                                                 float n_acc,
+                                                 const float (&counts)[C],
                                                  const float* s_pilot,
                                                  int n_steps, float* out) {
-  constexpr int kW = K + 1;
+  constexpr int kW = K + C;
   const auto warp_sum = [](float v) {
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) {
@@ -182,21 +408,22 @@ __device__ __forceinline__ void write_block_rows(const float (&acc)[K],
     }
     return v;
   };
-  __shared__ float stage[L > 1 ? K + 1 : 1][32];
+  __shared__ float stage[L > 1 ? kW : 1][32];
   if constexpr (L > 1) {
     if (threadIdx.x % L == 0) {
 #pragma unroll
       for (int k = 0; k < K; ++k) stage[k][threadIdx.x / L] = acc[k];
-      stage[K][threadIdx.x / L] = n_acc;
+#pragma unroll
+      for (int c = 0; c < C; ++c) stage[K + c][threadIdx.x / L] = counts[c];
     }
     __syncthreads();
   }
-  // Chain threadIdx.x's acc_k (k < K) or accept count (k == K).
+  // Chain threadIdx.x's acc_k (k < K) or count k - K (k >= K).
   const auto value = [&](int k) {
     if constexpr (L > 1) {
       return stage[k][threadIdx.x];
     } else {
-      return k < K ? acc[k] : n_acc;
+      return k < K ? acc[k] : counts[k - K];
     }
   };
   if (threadIdx.x >= 32) return;
@@ -217,12 +444,25 @@ __device__ __forceinline__ void write_block_rows(const float (&acc)[K],
       out[2 * kW + k] = mbs + s_pilot[k];
     }
   }
-  const float accepted = warp_sum(value(K));
-  if (lane0) {
-    out[K] = accepted;
-    out[kW + K] = 0.0f;
-    out[2 * kW + K] = 0.0f;
+#pragma unroll
+  for (int c = K; c < kW; ++c) {
+    const float total = warp_sum(value(c));
+    if (lane0) {
+      out[c] = total;
+      out[kW + c] = 0.0f;
+      out[2 * kW + c] = 0.0f;
+    }
   }
+}
+
+// The rows of K + 1 floats of a kernel whose one count is n_acc.
+template <int K, int L>
+__device__ __forceinline__ void write_block_rows(const float (&acc)[K],
+                                                 float n_acc,
+                                                 const float* s_pilot,
+                                                 int n_steps, float* out) {
+  const float counts[1] = {n_acc};
+  write_block_rows<K, L, 1>(acc, counts, s_pilot, n_steps, out);
 }
 #endif  // __CUDACC__
 

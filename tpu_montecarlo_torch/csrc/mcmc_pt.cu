@@ -54,21 +54,42 @@
 // of d + 1 draws (two PCG hashes each), d transforms, the log densities
 // and logf of the accept uniform, then the active parity's swap draws;
 // nothing is read from memory in the loop.  The T rung moves of one step
-// are independent of each other, so one thread overlaps them: the design
-// keeps mcmc_nd.cu's one chain per thread and 32 chains per block (4096
-// chains reach 128 of the 132 SMs) and gives each thread its chain's
-// whole ladder, T x (d states, logp[, logq][, log scale]) in registers.
+// are independent of each other: the function's parallel work is T x
+// chains rung moves per step (4 x 4096 on c12: 512 warps, one for each of
+// the card's schedulers), and what carries from one step to the next is
+// each rung's decision and its pair's exchange.
+//
+// Two layouts, compiled in (TMC_PT_RUNG_LANES, TMC_PT_LANES,
+// TMC_PT_GROUP; ops/mcmc_pt_kernel.py's PtLayout), both 32 chains to a
+// block and bit for bit the same ladders:
+//
+// * rungs on lanes (TMC_PT_RUNG_LANES = T', the smallest power of two
+//   >= T): a chain's rung t runs on TMC_PT_LANES (L) consecutive lanes of
+//   one warp, its segment of T' * L lanes padded past rung T - 1.  Each
+//   lane keeps its rung's x, logp, logq and log scale in registers and
+//   makes TMC_PT_GROUP of its x-free draws ahead of the group's decisions
+//   (the walk's normal steps, logf(u), the swap's logf(v) and the
+//   adaptive gain; under independence the whole candidate), spread over
+//   its rung's L lanes, through mcmc_pipeline.cuh's pipeline; after each
+//   decision the pairs exchange by __shfl_sync between their lanes.  The
+//   cold rung's lanes add the integrands.  A block holds 32 * T' * L
+//   threads;
+// * the ladder (TMC_PT_RUNG_LANES = 1): one thread carries its chain's
+//   whole ladder, T x (d states, logp[, logq][, log scale]) in registers,
+//   and overlaps the T rung moves of a step itself; one warp to a block.
+//   Every rung and pair loop is unrolled with compile-time indices, so no
+//   ladder array is indexed at run time (that would put it in local
+//   memory).  The swaps branch on i & 1, uniform across the warp, and
+//   compute only the active parity's pairs; the JAX kernel computes both
+//   parities and masks one, and since the pairs of the inactive parity
+//   would swap nothing and the draws are counter-based, the chains are the
+//   same.  It takes any T and is the layout above 32 rung lanes.
+//
 // T, d, the mode and the families are compiled in (TMC_T, TMC_D,
-// TMC_MODE, TMC_*_KINDS) and every rung and pair loop is unrolled with
-// compile-time indices, so no ladder array is indexed at run time (that
-// would put it in local memory).  The ladder itself (the betas and the
-// pair differences) is a runtime float32 array: a new ladder needs no new
-// build.  The swaps branch on i & 1, uniform across the warp, and compute
-// only the active parity's pairs; the JAX kernel computes both parities
-// and masks one, and since the pairs of the inactive parity would swap
-// nothing and the draws are counter-based, the chains are the same.
-// Sums are reduced once, at the end, with warp shuffles in a fixed order:
-// no atomics.
+// TMC_MODE, TMC_*_KINDS).  The ladder itself (the betas and the pair
+// differences) is a runtime float32 array: a new ladder needs no new
+// build.  Sums are reduced once, at the end, with warp shuffles in a fixed
+// order over the block's 32 chains: no atomics.
 //
 // Built without --use_fast_math and with --fmad=false, as the other
 // kernels, so every float32 add and multiply rounds as in the plain
@@ -80,15 +101,30 @@
 #include "integrand_math.cuh"
 // TMC_K, TMC_D, f_k(const float* x), tmc_values_nd; TMC_MODE, TMC_T; for
 // independence TMC_PROP_KINDS; TMC_TARG_KINDS for a product target, else
-// tmc_target_logpdf(const float* x).
+// tmc_target_logpdf(const float* x); TMC_PT_RUNG_LANES, TMC_PT_LANES,
+// TMC_PT_GROUP.
 #include "tmc_integrands.inc"
 #include "mcmc_nd_common.cuh"
+#include "mcmc_pipeline.cuh"
 
 namespace {
 
 constexpr int kT = TMC_T;  // rungs
 static_assert(kT >= 2, "a ladder has at least two rungs");
 constexpr int kW = TMC_K + 2;  // row width: sums, accepts and swaps
+constexpr int kRungLanes = TMC_PT_RUNG_LANES;
+constexpr int kLanes = TMC_PT_LANES;  // lanes per rung
+constexpr int kGroup = TMC_PT_GROUP;
+constexpr bool kLadder = kRungLanes == 1;
+// A chain's lanes, and the block's threads.
+constexpr int kChainLanes = kRungLanes * kLanes;
+constexpr int kThreads = kChainThreads * kChainLanes;
+static_assert(kLadder ? kLanes == 1 && kGroup == 1
+                      : kRungLanes >= kT && kRungLanes < 2 * kT &&
+                            (kRungLanes & (kRungLanes - 1)) == 0,
+              "rung lanes: 1 (the ladder) or T', the power of two >= T");
+static_assert(kChainLanes <= 32 && 32 % kChainLanes == 0 && kGroup >= 1,
+              "a chain's lanes divide a warp");
 
 // The ladder as the wrapper packs it: the T betas, then the T - 1 pair
 // differences beta_t - beta_{t+1}, each rounded to float32 from float64.
@@ -104,6 +140,172 @@ __device__ __forceinline__ Ladder load_ladder(const float* l) {
   for (int t = 0; t + 1 < kT; ++t) r.dbeta[t] = l[kT + t];
   return r;
 }
+
+// The target's log density, for the step functors.
+struct Target {
+  const Params& p;
+
+  __device__ __forceinline__ float operator()(const float (&x)[TMC_D]) const {
+    return log_target(x, p);
+  }
+};
+
+// The sampling phase's per-lane sums, in step order: f_k(x) - pilot_k and
+// the accept count.  Every lane of a chain adds them at its rung's state
+// (no branch); the rows take the cold rung's, lane 0's.
+struct Sums {
+  float (&acc)[TMC_K];
+  float& n_acc;
+  const float* pilot;
+
+  __device__ __forceinline__ void operator()(const float (&x)[TMC_D],
+                                             bool accepted) {
+    if (accepted) n_acc += 1.0f;
+    float vals[TMC_K];
+    tmc_values_nd(x, vals);
+#pragma unroll
+    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - pilot[k];
+  }
+};
+
+// -- rungs on lanes -----------------------------------------------------------
+
+// The swap uniform's tags of a lane: the lower rung of its pair at even
+// and at odd steps.
+struct SwapTags {
+  uint32_t even, odd;
+
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    return (i & 1u) ? odd : even;
+  }
+};
+
+// Independence step i's candidate for rung `rung`, made ahead.
+struct PtPropose {
+  Params p;
+  uint32_t state, pos;
+  int rung;
+  SwapTags tag;
+
+  __device__ __forceinline__ tmc::PtCandidate<TMC_D> operator()(
+      uint32_t i) const {
+    tmc::PtCandidate<TMC_D> c;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      c.c.x[j] = tmc::transform(
+          prop_kind(j),
+          draw(state, 3u * i + 1u, uint32_t(rung * TMC_D + j), pos), p.q1[j],
+          p.q2[j]);
+    }
+    c.c.logp = log_target(c.c.x, p);
+    c.c.logq = log_proposal(c.c.x, p);
+    c.c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, uint32_t(rung),
+                                     pos)));
+    c.logv = tmc::swap_logv(
+        tmc::halfopen01(draw(state, 3u * i + 3u, tag(i), pos)));
+    return c;
+  }
+};
+
+// Walk step i's draws for rung `rung`, made ahead.
+template <bool kAdapt>
+struct PtWalkDraws {
+  uint32_t state, pos;
+  int rung;
+  SwapTags tag;
+
+  __device__ __forceinline__ tmc::PtWalkDraw<TMC_D> operator()(
+      uint32_t i) const {
+    tmc::PtWalkDraw<TMC_D> w;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      w.z[j] = tmc::normal_from_u01(tmc::halfopen01(
+          draw(state, 3u * i + 1u, uint32_t(rung * TMC_D + j), pos)));
+    }
+    w.logu = logf(tmc::open01(draw(state, 3u * i + 2u, uint32_t(rung), pos)));
+    // A signed conversion (the same float for i < 2^31): chip_smoke.py's
+    // bound counts the unsigned ones as the step's uniforms.
+    w.gamma = kAdapt ? expf(-0.6f * logf(float(int(i + 1u)))) : 0.0f;
+    w.logv = tmc::swap_logv(
+        tmc::halfopen01(draw(state, 3u * i + 3u, tag(i), pos)));
+    return w;
+  }
+};
+
+// Sums `v` over the chain's kChainLanes lanes (integer-valued floats, so
+// the order does not matter); every lane gets the sum.
+__device__ __forceinline__ float chain_sum(float v) {
+#pragma unroll
+  for (int off = kChainLanes / 2; off > 0; off /= 2) {
+    v += __shfl_xor_sync(0xffffffffu, v, off, kChainLanes);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void run_lanes(const Params& p,
+                                          const float* __restrict__ ladder,
+                                          uint32_t state, uint32_t pos,
+                                          int n_burnin, int n_steps,
+                                          const float* s_pilot,
+                                          float (&acc)[TMC_K],
+                                          float (&counts)[2], float* x_cold) {
+  const int seg = threadIdx.x % kChainLanes;
+  const int rung = seg / kLanes;
+  const int l = seg % kLanes;
+  tmc::Rung<TMC_D> r;
+  r.real = rung < kT;
+  r.beta = r.real ? ladder[rung] : 0.0f;
+  r.even = tmc::pair_lane<kLanes>(rung, l, kT, 0, ladder + kT);
+  r.odd = tmc::pair_lane<kLanes>(rung, l, kT, 1, ladder + kT);
+  r.swaps = 0.0f;
+  initial_x(p, state, pos, r.x, uint32_t(rung * TMC_D));
+  r.logp = log_target(r.x, p);
+  r.logq = kMode == kIndependence ? log_proposal(r.x, p) : 0.0f;
+
+  const SwapTags tag{uint32_t(r.even.lo), uint32_t(r.odd.lo)};
+  const uint32_t n_burn = uint32_t(n_burnin);
+  const uint32_t n_iters = n_burn + uint32_t(n_steps);
+  float n_acc = 0.0f;
+  Sums sums{acc, n_acc, s_pilot};
+  tmc::NoVisit none;
+  if constexpr (kMode == kIndependence) {
+    const PtPropose make{p, state, pos, rung, tag};
+    tmc::PtSelectStep<kChainLanes, TMC_D, tmc::NoVisit> burn{r, none};
+    tmc::pipeline<kLanes, kGroup, tmc::PtCandidate<TMC_D>>(0u, n_burn, l,
+                                                           make, burn);
+    tmc::PtSelectStep<kChainLanes, TMC_D, Sums> sample{r, sums};
+    tmc::pipeline<kLanes, kGroup, tmc::PtCandidate<TMC_D>>(n_burn, n_iters,
+                                                           l, make, sample);
+  } else {
+    constexpr bool kAdapt = kMode == kAdaptive;
+    const Target target{p};
+    float eps[TMC_D];  // the rung's step vector
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) eps[j] = p.q1[j];
+    float log_scale = 0.0f;
+    tmc::PtWalkStep<kChainLanes, TMC_D, kAdapt, Target, tmc::NoVisit> burn{
+        target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
+        log_scale, none};
+    tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
+        0u, n_burn, l, PtWalkDraws<kAdapt>{state, pos, rung, tag}, burn);
+    if (kAdapt) {
+      const float scale = expf(logf(expf(log_scale)));
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
+    }
+    tmc::PtWalkStep<kChainLanes, TMC_D, false, Target, Sums> sample{
+        target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
+        log_scale, sums};
+    tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
+        n_burn, n_iters, l, PtWalkDraws<false>{state, pos, rung, tag}, sample);
+  }
+  counts[0] = n_acc;  // lane 0's is the cold rung's
+  counts[1] = chain_sum(r.swaps);
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) x_cold[j] = r.x[j];
+}
+
+// -- the ladder ---------------------------------------------------------------
 
 // One tempered MH move of rung t at global step i: moves (x, logp, logq)
 // and returns whether the proposal was accepted; *log_alpha receives the
@@ -128,9 +330,10 @@ __device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
   float logq_prop = 0.0f, la;
   if (kMode == kIndependence) {
     logq_prop = log_proposal(xp, p);
-    la = beta * (logp_prop - logp) + logq - logq_prop;
+    la = tmc::tempered_log_alpha<true>(beta, logp_prop, logp, logq_prop,
+                                       logq);
   } else {
-    la = beta * (logp_prop - logp);
+    la = tmc::tempered_log_alpha<false>(beta, logp_prop, logp, 0.0f, 0.0f);
   }
   const float u = tmc::open01(draw(state, 3u * i + 2u, uint32_t(t), pos));
   const bool accept = logf(u) < la;
@@ -151,8 +354,7 @@ __device__ __forceinline__ void try_swap(uint32_t state, uint32_t pos,
                                          float (&logp)[kT],
                                          float (&logq)[kT], float& swaps) {
   const float v = tmc::halfopen01(draw(state, 3u * i + 3u, uint32_t(t), pos));
-  const float delta = dbeta * (logp[t + 1] - logp[t]);
-  if (logf(fmaxf(v, 1e-38f)) < delta) {
+  if (tmc::swap_accepted(tmc::swap_logv(v), dbeta, logp[t], logp[t + 1])) {
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) {
       const float a = x[t][j];
@@ -190,25 +392,15 @@ __device__ __forceinline__ void exchange(uint32_t state, uint32_t pos,
   }
 }
 
-__global__ void __launch_bounds__(kChainThreads)
-mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
-               const float* __restrict__ ladder, int n_burnin, int n_steps,
-               int chains_per_program, const float* __restrict__ pilots,
-               float* __restrict__ rows, float* __restrict__ x_final) {
-  __shared__ float s_pilot[TMC_K];
-
-  const Params p = load_params(params);
+__device__ __forceinline__ void run_ladder(const Params& p,
+                                           const float* __restrict__ ladder,
+                                           uint32_t state, uint32_t pos,
+                                           int n_burnin, int n_steps,
+                                           const float* s_pilot,
+                                           float (&acc)[TMC_K],
+                                           float (&counts)[2],
+                                           float* x_cold) {
   const Ladder lad = load_ladder(ladder);
-  const int chain = blockIdx.x * kChainThreads + threadIdx.x;
-  // A block lies inside one program: 32 divides chains_per_program.
-  const uint32_t pid = uint32_t(chain / chains_per_program);
-  const uint32_t pos = uint32_t(chain % chains_per_program);
-  const uint32_t state = tmc::seed_state(seed, pid);
-  for (int k = threadIdx.x; k < TMC_K; k += kChainThreads) {
-    s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
-  }
-  __syncwarp();
-
   float x[kT][TMC_D], logp[kT], logq[kT];
   float eps[kT][TMC_D];  // each rung's step vector
   float log_scale[kT];
@@ -226,8 +418,7 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
 
   // Burn-in: move every rung (adapting the walk's scales) and exchange.
   for (uint32_t i = 0; i < uint32_t(n_burnin); ++i) {
-    // A signed conversion (the same float for i < 2^31): chip_smoke.py's
-    // bound counts the unsigned ones as the step's uniforms.
+    // A signed conversion, as in PtWalkDraws.
     const float gamma = expf(-0.6f * logf(float(int(i) + 1)));
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
@@ -257,57 +448,64 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
     }
   }
 
-  float acc[TMC_K];
-#pragma unroll
-  for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
   float n_acc = 0.0f;
-  float vals[TMC_K];
+  Sums sums{acc, n_acc, s_pilot};
   for (uint32_t i = uint32_t(n_burnin); i < n_iters; ++i) {
+    bool cold_accepted = false;
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
       const bool accepted = rung_move(p, state, pos, i, t, lad.beta[t],
                                       eps[t], x[t], logp[t], logq[t], &la);
-      if (t == 0 && accepted) n_acc += 1.0f;
+      if (t == 0) cold_accepted = accepted;
     }
     exchange(state, pos, i, lad, x, logp, logq, swaps);
-    tmc_values_nd(x[0], vals);
-#pragma unroll
-    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - s_pilot[k];
+    sums(x[0], cold_accepted);
   }
-  const int n_chains = gridDim.x * kChainThreads;
+  counts[0] = n_acc;
+  counts[1] = swaps;
 #pragma unroll
-  for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[0][j];
+  for (int j = 0; j < TMC_D; ++j) x_cold[j] = x[0][j];
+}
 
-  // The block's rows, written by lane 0: sums, then the SS and centroid
-  // of the chain means.
-  const bool lane0 = threadIdx.x == 0;
-  const float inv_steps = 1.0f / float(n_steps);
-  const float n_b = float(kChainThreads);
-  float* out = rows + size_t(blockIdx.x) * 3 * kW;
-#pragma unroll
-  for (int k = 0; k < TMC_K; ++k) {
-    const float cm = acc[k] * inv_steps;
-    const float s = warp_sum(acc[k]);
-    const float s1 = warp_sum(cm);
-    const float s2 = warp_sum(cm * cm);
-    if (lane0) {
-      const float mbs = s1 / n_b;
-      out[k] = s;
-      out[kW + k] = tmc_maximum(s2 - n_b * mbs * mbs, 0.0f);
-      out[2 * kW + k] = mbs + s_pilot[k];
-    }
+__global__ void __launch_bounds__(kThreads)
+mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
+               const float* __restrict__ ladder, int n_burnin, int n_steps,
+               int chains_per_program, const float* __restrict__ pilots,
+               float* __restrict__ rows, float* __restrict__ x_final) {
+  __shared__ float s_pilot[TMC_K];
+
+  const Params p = load_params(params);
+  const int chain = blockIdx.x * kChainThreads + threadIdx.x / kChainLanes;
+  // A block lies inside one program: 32 divides chains_per_program.
+  const uint32_t pid = uint32_t(chain / chains_per_program);
+  const uint32_t pos = uint32_t(chain % chains_per_program);
+  const uint32_t state = tmc::seed_state(seed, pid);
+  for (int k = threadIdx.x; k < TMC_K; k += kThreads) {
+    s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
   }
-  const float accepted = warp_sum(n_acc);
-  const float swapped = warp_sum(swaps);
-  if (lane0) {
-    out[TMC_K] = accepted;
-    out[TMC_K + 1] = swapped;
+  __syncthreads();
+
+  float acc[TMC_K];
 #pragma unroll
-    for (int c = TMC_K; c < kW; ++c) {
-      out[kW + c] = 0.0f;
-      out[2 * kW + c] = 0.0f;
-    }
+  for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
+  float counts[2];  // the cold accepts, the swaps
+  float x_cold[TMC_D];
+  if constexpr (kLadder) {
+    run_ladder(p, ladder, state, pos, n_burnin, n_steps, s_pilot, acc,
+               counts, x_cold);
+  } else {
+    run_lanes(p, ladder, state, pos, n_burnin, n_steps, s_pilot, acc, counts,
+              x_cold);
   }
+  if (threadIdx.x % kChainLanes == 0) {
+    const int n_chains = gridDim.x * kChainThreads;
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x_cold[j];
+  }
+
+  // The block's rows: sums, then the SS and centroid of the chain means.
+  tmc::write_block_rows<TMC_K, kChainLanes, 2>(
+      acc, counts, s_pilot, n_steps, rows + size_t(blockIdx.x) * 3 * kW);
 }
 
 }  // namespace
@@ -323,12 +521,13 @@ extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
                        stream);
 }
 
-// Runs n_chains ladders, 32 to a block, on `stream` (chains_per_program
-// a multiple of 32, n_chains of chains_per_program).  `params` holds
-// TMC_D x 6 floats, `ladder` 2 * TMC_T - 1 (Ladder); `pilots` may be null
-// (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 2) floats,
-// `x_final` TMC_D x n_chains.  Returns cudaGetLastError() (0 when the
-// launch was accepted).
+// Runs n_chains ladders, 32 to a block of 32 * TMC_PT_RUNG_LANES *
+// TMC_PT_LANES threads, on `stream` (chains_per_program a multiple of 32,
+// n_chains of chains_per_program).  `params` holds TMC_D x 6 floats,
+// `ladder` 2 * TMC_T - 1 (Ladder); `pilots` may be null (no shift);
+// `rows` holds (n_chains / 32) x 3 x (TMC_K + 2) floats, `x_final` TMC_D
+// x n_chains.  Returns cudaGetLastError() (0 when the launch was
+// accepted).
 extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
                            const float* ladder, int n_burnin, int n_steps,
                            int chains_per_program, int n_chains,
@@ -338,7 +537,7 @@ extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
       n_chains % chains_per_program != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mcmc_pt_kernel<<<n_chains / kChainThreads, kChainThreads, 0,
+  mcmc_pt_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       seed, params, ladder, n_burnin, n_steps, chains_per_program, pilots,
       rows, x_final);

@@ -148,6 +148,8 @@ class McmcNdProgram:
     entry_points = ("tmc_mcmc_nd_pilots", "tmc_mcmc_nd")
     #: The chain entry point's device arrays before the run's sizes.
     chain_inputs = ("params",)
+    #: The layout's lines in the generated source.
+    layout_source = staticmethod(layout_source)
 
     def __init__(
         self,
@@ -201,7 +203,7 @@ class McmcNdProgram:
             f"#define TMC_MODE {int(mode)}\n",
         ]
         if self.layout is not None:
-            parts.append(layout_source(self.layout))
+            parts.append(self.layout_source(self.layout))
         if prop_kinds:
             parts.append(kinds("TMC_PROP_KINDS", prop_kinds))
         if targ_kinds is None:

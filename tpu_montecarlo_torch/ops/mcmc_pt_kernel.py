@@ -31,12 +31,16 @@ float32 rows (``ops/mcmc_nd_kernel.py``); the ladder is a float32 vector
 of the T betas and the T - 1 pair differences, each rounded from float64
 (:func:`pack_ladder`), so a new ladder needs no new build.  The output
 rows are the 1-D kernel's with one more column, the swap count.
+
+On the card a chain's rungs run on lanes of a warp, or its whole ladder
+on one thread, as its :class:`PtLayout` says (``csrc/mcmc_pt.cu``); the
+layout changes no number the kernel computes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,16 +73,22 @@ from .mcmc_nd_kernel import (
 from .mcmc_nd_kernel import _check_args as _check_nd_args
 
 __all__ = [
+    "LADDER_LAYOUT",
     "MAX_PT_FUNCTIONS",
     "PT_SEED_MIX",
     "McmcPtConfig",
     "McmcPtProgram",
+    "PtLayout",
+    "check_pt_layout",
+    "default_pt_layout",
     "mcmc_pt_cuda",
     "mcmc_pt_reference",
     "pack_ladder",
     "pt_attempted_swaps",
     "pt_finish",
+    "pt_layout_source",
     "pt_seed_word",
+    "rung_lanes",
 ]
 
 #: The tempered stream family's seed mix (mcmc_pt_pallas.py:81).
@@ -86,6 +96,85 @@ PT_SEED_MIX = 0x165667B1
 #: Two lanes of the JAX kernel's output row hold the accept and swap
 #: counts (mcmc_pt_pallas.py:304-307).
 MAX_PT_FUNCTIONS = LANES - 2
+
+
+class PtLayout(NamedTuple):
+    """How the tempered kernel runs a chain's ladder on the card
+    (``csrc/mcmc_pt.cu``): ``rung_lanes`` is 1, the whole ladder on one
+    thread, or T' (:func:`rung_lanes`), rung t on its own ``lanes``
+    consecutive lanes of a warp, each making ``group`` of the rung's
+    x-free draws ahead of every round of ``lanes * group`` decisions."""
+
+    rung_lanes: int
+    lanes: int
+    group: int
+
+
+#: One thread per ladder, its T rung moves one after another: the layout
+#: of any T, and the one above 32 rung lanes.
+LADDER_LAYOUT = PtLayout(1, 1, 1)
+# The defaults, from sweeps on an H100 (tools/mcmc_layout_sweep.py;
+# PERF.md): lanes per rung, at most 4 under an independence proposal (its
+# candidates spread) and 2 for a walk, and at most 16 lanes a chain; and
+# at most 32 integrand evaluations per round of group * lanes steps (a
+# round's steps are unrolled; past that the time grew, to twice at K =
+# 126, with no spills), at most 4 steps' draws ahead per lane.
+_MAX_LANES = {Mode.INDEPENDENCE: 4, Mode.RANDOM_WALK: 2, Mode.ADAPTIVE: 2}
+_MAX_CHAIN_LANES = 16
+_MAX_ROUND_VALUES = 32
+_MAX_GROUP = 4
+
+
+def rung_lanes(n_temps: int) -> int:
+    """T', the lanes of a chain's rungs: the smallest power of two >= T."""
+    return 1 << (int(n_temps) - 1).bit_length()
+
+
+def check_pt_layout(n_temps: int, layout) -> PtLayout:
+    """``layout`` as a :class:`PtLayout`, or ValueError when the kernel
+    cannot run it for ``n_temps`` rungs."""
+    layout = PtLayout(*layout)
+    if layout == LADDER_LAYOUT:
+        return layout
+    t_lanes = rung_lanes(n_temps)
+    if layout.rung_lanes == 1:
+        raise ValueError(
+            "the ladder layout runs one lane and a group of 1, got "
+            f"{tuple(layout)}"
+        )
+    if layout.rung_lanes != t_lanes:
+        raise ValueError(
+            f"{n_temps} rungs take rung lanes 1 (the ladder) or {t_lanes}, "
+            f"got {layout.rung_lanes}"
+        )
+    if not (layout.lanes >= 1 and 32 % (t_lanes * layout.lanes) == 0
+            and layout.group >= 1):
+        raise ValueError(
+            f"a chain's {t_lanes} x {layout.lanes} lanes must divide a warp "
+            f"of 32 and the group be at least 1, got {tuple(layout)}"
+        )
+    return layout
+
+
+def default_pt_layout(mode: Mode, n_temps: int, k: int) -> PtLayout:
+    """The layout a tempered kernel of ``mode``, ``n_temps`` rungs and
+    ``k`` integrands compiles in: the ladder past 32 rung lanes, else
+    rungs on lanes (the sweeps found no mode or K where the ladder was
+    faster)."""
+    t_lanes = rung_lanes(n_temps)
+    if t_lanes > 32:
+        return LADDER_LAYOUT
+    steps = max(1, _MAX_ROUND_VALUES // k)  # per round
+    lanes = max(1, min(_MAX_LANES[Mode(mode)], _MAX_CHAIN_LANES // t_lanes,
+                       steps))
+    return PtLayout(t_lanes, lanes, max(1, min(_MAX_GROUP, steps // lanes)))
+
+
+def pt_layout_source(layout: PtLayout) -> str:
+    """The layout's lines in the generated kernel source."""
+    return (f"#define TMC_PT_RUNG_LANES {layout.rung_lanes}\n"
+            f"#define TMC_PT_LANES {layout.lanes}\n"
+            f"#define TMC_PT_GROUP {layout.group}\n")
 
 
 def pt_seed_word(seed: int) -> int:
@@ -141,18 +230,21 @@ class McmcPtConfig(McmcNdConfig):
 class McmcPtProgram(McmcNdProgram):
     """The nd program (``ops/mcmc_nd_kernel.py``: ``torch_fns``,
     ``torch_target`` and the CUDA library, built at first use) for the
-    tempered kernel, which also compiles in the rung count."""
+    tempered kernel, which also compiles in the rung count and a
+    :class:`PtLayout` (``layout``, by default :func:`default_pt_layout`'s
+    for the mode, rungs and integrand count)."""
 
     kernel_source = "mcmc_pt.cu"
     max_functions = MAX_PT_FUNCTIONS
     entry_points = ("tmc_mcmc_pt_pilots", "tmc_mcmc_pt")
     chain_inputs = ("params", "ladder")
+    layout_source = staticmethod(pt_layout_source)
 
-    def _layout(self, mode, layout):
-        """None: the tempered kernel runs one ladder per thread."""
-        if layout is not None:
-            raise ValueError("the tempered kernel takes no layout")
-        return None
+    def _layout(self, mode, layout) -> PtLayout:
+        n_temps = self.compiled[4]
+        if layout is None:
+            return default_pt_layout(mode, n_temps, len(self.fns))
+        return check_pt_layout(n_temps, layout)
 
     def source(self) -> str:
         return super().source() + f"#define TMC_T {self.compiled[4]}\n"
