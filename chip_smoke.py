@@ -21,8 +21,10 @@ Phases, each of which exits non-zero on failure:
    closed form within 6 sigma, and that the kernel's launch count rose;
 5. at the main path's shape, 1e9 samples under N(0, 1): hold the kernel
    against the plain version with the same tolerance, time both (CUDA
-   events), time ``integrate()`` end to end (host clock) and read the
-   device idle share of warm calls from one ``torch.profiler`` window;
+   events), time ``integrate()`` end to end (host clock), count the bound
+   on the running build and, beside it, on the SASS of the kernel before
+   its redesign (``tools/sass``), and read the device idle share of warm
+   calls from one ``torch.profiler`` window;
 6. finish building the MCMC kernel (``csrc/mcmc.cu``, one library per
    integrand set, mode and family pair, all started in phase 2) and print
    nvcc's register and spill report;
@@ -60,12 +62,14 @@ Phases, each of which exits non-zero on failure:
     rotations again at its own grid (2**27 points) and seed: the kernel
     against the plain version (rel 1e-5 + abs 1e-6), and the spread of the
     rotations' float64 means (from the kernel's float32 block rows) above
-    0 and 10x below the plain-MC error at 1e9;
+    0 and 10x below the plain-MC error at 1e9; and time one rotation's
+    kernel (CUDA events);
 14. at main path 1's shape: hold the nd kernel against the plain version,
     time both (CUDA events) and ``integrate()`` end to end (host clock),
     in d-vector samples/s counted as ``benchmarks/run_all.py:339`` counts
-    them (requested samples), and read the device idle share of warm
-    calls from one ``torch.profiler`` window;
+    them (requested samples), count the bound as phase 5 does, and read
+    the device idle share of warm calls from one ``torch.profiler``
+    window;
 15. finish building the nd MCMC kernel (``csrc/mcmc_nd.cu``) for c9d's,
     c9e's and c10b's sets and phase 16's (one library per integrand set,
     target, mode and family tuple, all started in phase 2) and print
@@ -117,7 +121,11 @@ Phases, each of which exits non-zero on failure:
     bound (over the T x chains / 32 warps of the step's independent rung
     moves) and latency bound on the ladder layout's build, print the
     running build's counts beside them, and read the device idle share of
-    warm c12 calls from one ``torch.profiler`` window.
+    warm c12 calls from one ``torch.profiler`` window;
+23. time the pipe probe's IMAD + FFMA mix (``tools/pipe_rates.cu``; all
+    its mixes: ``tools/pipe_probe.py``), print each SASS opcode's rate
+    per SM per clock, and fail if it runs above the bounds' pipe model
+    by more than 3 %.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -134,7 +142,7 @@ ladder layout's build, one thread per ladder.
 Each kernel's bound is the least time the card could take at the main
 path's shape: from the built library's SASS (``cuobjdump -sass``, read by
 ``card_bound`` and the functions it calls), the instructions per sample of each
-arithmetic pipe (FP32, INT32, MUFU and conversions) on the cheapest path
+arithmetic pipe (fma, its IMAD half, alu, xu) on the cheapest path
 through the sample loop, over that pipe's rate on the card's SMs at the
 SM clock read under load (``nvidia-smi``); the busiest pipe sets it.
 The time to issue every instruction of the loop is printed beside it.
@@ -351,14 +359,26 @@ def idle_share(call, n_calls: int = 10):
 # path through one iteration, the instructions of each arithmetic pipe,
 # per thread (a warp instruction is 32 lane-operations):
 #
-# * fp32: float32 add, multiply, compare, min/max and select;
-# * int32: 32-bit integer and logic operations (IMAD, IADD3, LOP3, SHF);
+# * fma: float32 add, multiply, fused multiply-add, compare and select,
+#   Hopper's integer add VIADD, and integer multiply-add (IMAD, also as a
+#   move; IMUL compiles to it);
+# * fmaheavy: IMAD alone, which only half of the fma pipe's lanes run;
+# * alu: 32-bit integer and logic operations (IADD3, LOP3, SHF, ISETP,
+#   LEA, ...) and float32 min/max (FMNMX);
 # * xu: MUFU special functions and type conversions (I2F, F2I, FRND).
 #
-# Their rates per SM per clock, 128, 64 and 16, are the CUDA C++
+# Their rates per SM per clock, 128, 64, 64 and 16, are the CUDA C++
 # Programming Guide's arithmetic-instruction throughput table for compute
-# capability 9.0.  The bound is the busiest pipe's time.  Loads, moves and
-# branches use no arithmetic pipe; ``issue`` (every instruction, four
+# capability 9.0 (32-bit integer multiply-add at 64); so an fma-pipe time
+# is max(IMAD / 64, (FP32 + IMAD) / 128).  Which instruction takes which
+# pipe is what the pipe probe (tools/pipe_probe.py) showed on an H100:
+# IMAD alone runs at 64 per SM per clock, beside LOP3 at 55 + 55 (two
+# pipes) and beside FFMA at 45 + 45 (90, under the shared 128); FMNMX
+# beside LOP3 at 31 + 31 (one pipe of 64); ptxas splits a stream of adds
+# into IADD3 and VIADD, which run at 53 + 53 (two pipes).  Phase 23 runs
+# the probe's IMAD + FFMA mix and fails if it beats this model.  The bound
+# is the busiest pipe's time.  Loads, moves and branches use no
+# arithmetic pipe; ``issue`` (every instruction, four
 # schedulers issuing one warp instruction per clock each) is reported
 # beside the bound and is not part of it.  The cheapest path makes the
 # count a lower bound whatever branches a run takes (a rare slow path,
@@ -381,29 +401,42 @@ def idle_share(call, n_calls: int = 10):
 # (independence proposals), and the chains' warps where a step waits on
 # the one before (walks; ``function_warps``).
 
-PIPE_RATES = {"fp32": 128, "int32": 64, "xu": 16}
+# The integrate kernels' SASS before their redesign (tools/integrate_sweep.py
+# --sass on commit e1fa41d's tree, an H100 build): phases 5 and 14 print
+# the bound counted on it beside the running build's, like for like with
+# the runs before the redesign.
+PARENT_SASS = Path(__file__).resolve().parent / "tools" / "sass"
+PARENT_TWIN = "the build before the redesign (tools/sass, commit e1fa41d)"
+PIPE_RATES = {"fma": 128, "fmaheavy": 64, "alu": 64, "xu": 16}
 SCHEDULERS_PER_SM = 4
+# How far a probe mix may run above the model's ceiling before phase 23
+# fails: the SM clock is read, not set, and IMAD alone reads 64.3 of 64.
+# A mix that broke a pipe class (IMAD as two fma slots: 134 of 128) runs
+# well above it.
+PROBE_TOLERANCE = 0.03
 # The least clocks between an arithmetic instruction and one that reads its
 # result: the fixed-latency FP32 and INT32 pipes' depth on Volta through
 # Hopper SMs, as published microbenchmarks report it.  Assumed, not
 # measured here; MUFU, conversions and shared loads take longer, so the
 # chain's time is a lower bound.
 LATENCY_CYCLES = 4
-_FP32 = {
-    "FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "FMNMX",
-    "FSEL", "FSET", "FSETP", "FSWZADD",
+_FMA_HEAVY = {"IMAD", "IMAD32I", "IMUL", "IMUL32I"}
+_FMA = {
+    "FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "FSEL", "FSET",
+    "FSETP", "FSWZADD", "VIADD", *_FMA_HEAVY,
 }
-_INT32 = {
-    "BFE", "BFI", "BMSK", "IABS", "IADD", "IADD3", "IADD32I", "IMAD",
-    "IMAD32I", "IMNMX", "IMUL", "IMUL32I", "ISCADD", "ISETP", "LEA", "LOP",
-    "LOP3", "LOP32I", "PRMT", "SEL", "SGXT", "SHF", "SHL", "SHR", "VIADD",
-    "VIMNMX",
+_ALU = {
+    "BFE", "BFI", "BMSK", "FMNMX", "IABS", "IADD", "IADD3", "IADD32I",
+    "IMNMX", "ISCADD", "ISETP", "LEA", "LOP", "LOP3", "LOP32I", "PRMT",
+    "SEL", "SGXT", "SHF", "SHL", "SHR", "VIMNMX",
 }
 _XU = {
     "BREV", "F2F", "F2FP", "F2I", "FLO", "FRND", "I2F", "I2FP", "I2I",
     "MUFU", "POPC",
 }
-_COUNTED = ("fp32", "int32", "xu", "issue", "conversions")
+_PIPES = (("fma", _FMA), ("fmaheavy", _FMA_HEAVY), ("alu", _ALU),
+          ("xu", _XU))
+_COUNTED = (*PIPE_RATES, "issue", "conversions")
 _TERMINAL = ("EXIT", "RET", "BRX", "JMX")
 _SASS_INSTR = re.compile(r"/\*([0-9a-fA-F]+)\*/\s+([^;]*?)\s*;")
 _SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
@@ -440,19 +473,20 @@ class Instr:
 @dataclass(frozen=True)
 class LoopCount:
     """One loop: its address range and, per class, the instructions on
-    the cheapest path through one iteration."""
+    the cheapest path through one iteration; ``path``, the addresses of
+    the instructions on the path with the fewest (issue)."""
 
     start: int
     end: int
     counts: dict
+    path: tuple = ()
 
 
-def pipe_of(opcode: str):
+def pipe_of(opcode: str) -> tuple:
+    """The arithmetic pipes an instruction takes one slot of each (IMAD:
+    fma and fmaheavy), or () for none."""
     base = opcode.split(".")[0]
-    for pipe, ops in (("fp32", _FP32), ("int32", _INT32), ("xu", _XU)):
-        if base in ops:
-            return pipe
-    return None
+    return tuple(pipe for pipe, ops in _PIPES if base in ops)
 
 
 def is_uniform_conversion(opcode: str) -> bool:
@@ -517,8 +551,8 @@ def loop_counts(instrs) -> list:
         for i in instrs[first:last + 1]:
             c["issue"] += 1
             c["conversions"] += is_uniform_conversion(i.opcode)
-            if pipe_of(i.opcode):
-                c[pipe_of(i.opcode)] += 1
+            for pipe in pipe_of(i.opcode):
+                c[pipe] += 1
         cost.append(c)
     latches = {}
     for n, out in enumerate(succs):
@@ -547,7 +581,8 @@ def loop_counts(instrs) -> list:
         counts["chain"] = chain_depth(body)
         counts["carried"] = carried_depth(body)
         result.append(LoopCount(instrs[bounds[h][0]].addr,
-                                instrs[bounds[end][1]].addr, counts))
+                                instrs[bounds[end][1]].addr, counts,
+                                tuple(i.addr for i in body)))
     return result
 
 
@@ -762,15 +797,19 @@ def function_warps(mode, chains: int, rungs: int = 1):
 
 
 def card_bound(lib, function: str, conversions: int, units: float,
-               clock_mhz: float, warps=None, weights=None, lanes: int = 1):
+               clock_mhz: float, warps=None, weights=None, lanes: int = 1,
+               listing=None):
     """The bound of ``units`` units of a built kernel on this card:
     ``(bound_ms, pipe, issue_ms, counts)``.  Counts are the dearest sample
     loop's per unit, or with ``weights = (w_dear, w_cheap)`` the
     weighted mean of the dearest and the cheapest loop's; ``lanes`` as
-    ``per_sample``'s."""
+    ``per_sample``'s.  ``listing``, a SASS listing, takes the place of
+    ``lib``'s (a build that is not in this checkout)."""
     import torch
 
-    dear, cheap = per_sample(sass_listing(lib), function, conversions, lanes)
+    if listing is None:
+        listing = sass_listing(lib)
+    dear, cheap = per_sample(listing, function, conversions, lanes)
     counts = dear
     if weights is not None:
         counts = {k: (weights[0] * dear[k] + weights[1] * cheap[k])
@@ -781,9 +820,10 @@ def card_bound(lib, function: str, conversions: int, units: float,
 
 
 def print_bound(bound, clock_mhz: float, unit: str, own=None,
-                twin: str = "the one-lane build") -> None:
-    """Prints a bound; ``own``, the bound counted on the multi-lane build
-    that runs (``bound`` then comes from its ``twin``), beside it."""
+                twin: str = "the one-lane build",
+                why: str = ", whose lanes repeat decisions") -> None:
+    """Prints a bound; ``own``, the bound counted on the build that runs
+    (``bound`` then comes from its ``twin``), beside it."""
     ms, pipe, issue, counts = bound
     per = ", ".join(f"{k} {v:g}" for k, v in counts.items())
     print(f"  bound {ms:.3f} ms ({pipe} pipe) at {clock_mhz:.0f} MHz under "
@@ -791,9 +831,18 @@ def print_bound(bound, clock_mhz: float, unit: str, own=None,
           f"cheapest path: {per}")
     if own is not None:
         mine = ", ".join(f"{k} {v:g}" for k, v in own[3].items())
-        print(f"  (counted on {twin}; the build that runs, whose lanes "
-              f"repeat decisions: pipes {own[0]:.3f} ms ({own[1]}), issue "
-              f"{own[2]:.3f} ms; per {unit} on the cheapest path: {mine})")
+        print(f"  (counted on {twin}; the build that runs{why}: pipes "
+              f"{own[0]:.3f} ms ({own[1]}), issue {own[2]:.3f} ms; per "
+              f"{unit} on the cheapest path: {mine})")
+
+
+def print_parent_bound(bound, unit: str) -> None:
+    """Prints the bound counted on PARENT_TWIN, beside the running
+    build's."""
+    ms, pipe, issue, counts = bound
+    per = ", ".join(f"{k} {v:g}" for k, v in counts.items())
+    print(f"  like for like, on {PARENT_TWIN}: pipes {ms:.3f} ms ({pipe}), "
+          f"issue {issue:.3f} ms; per {unit} on the cheapest path: {per}")
 
 
 def print_latency(bound, steps: int, clock_mhz: float) -> float:
@@ -807,6 +856,98 @@ def print_latency(bound, steps: int, clock_mhz: float) -> float:
           f"{LATENCY_CYCLES} clocks; the larger of it and the pipe bound "
           f"applies")
     return ms
+
+
+# The pipe probe (tools/pipe_rates.cu): its mixes' Op bits, by name.
+PIPE_PROBE = Path(__file__).resolve().parent / "tools" / "pipe_rates.cu"
+_PIPE_OPS = {1: "IMAD", 2: "IMUL", 4: "IADD3", 8: "LOP3", 16: "FFMA",
+             32: "FMNMX"}
+
+
+def load_pipe_probe():
+    """Builds (once) and loads the pipe probe."""
+    import ctypes
+
+    from tpu_montecarlo_torch.ops.build import load_kernel_library
+
+    lib = load_kernel_library(str(PIPE_PROBE), "")
+    lib.tmc_pipe_mix.argtypes = [ctypes.c_int]
+    lib.tmc_pipe_mix.restype = ctypes.c_int
+    lib.tmc_pipe_rates.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.tmc_pipe_rates.restype = ctypes.c_int
+    return lib
+
+
+def ceiling_shares(rates: dict) -> dict:
+    """Per pipe (and issue, four schedulers of 32 lanes), the share of its
+    rate per SM per clock that ``rates`` ({opcode: thread instructions
+    per SM per clock}) take under the model of ``pipe_of``: above 1, the
+    loop ran faster than the model allows."""
+    use = dict.fromkeys((*PIPE_RATES, "issue"), 0.0)
+    for op, r in rates.items():
+        for pipe in pipe_of(op):
+            use[pipe] += r
+        use["issue"] += r
+    rate = {**PIPE_RATES, "issue": 32 * SCHEDULERS_PER_SM}
+    return {pipe: use[pipe] / rate[pipe] for pipe in use}
+
+
+def pipe_rates(lib, card: str, names=None) -> dict:
+    """Times each mix of the pipe probe (those named in ``names``, or all)
+    on the whole card and prints, per mix, each SASS opcode's rate in its
+    loop (thread instructions per SM per clock, counted from the loop's
+    SASS and the SM clock under load) and each pipe's share of its rate
+    under the bounds' model.  Fails if a mix runs above the model's
+    ceiling by more than PROBE_TOLERANCE.  Returns ``{mix name: {opcode:
+    rate}}``."""
+    import torch
+
+    funcs = parse_functions(sass_listing(lib))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters, threads = sms * 8, 20_000, 256
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"pipe rates on {card}, {blocks} blocks of {threads} threads x "
+          f"{iters} rounds (thread instructions per SM per clock):")
+    rates = {}
+    mix = 0
+    while (ops := lib.tmc_pipe_mix(mix)) >= 0:
+        name = "+".join(v for k, v in _PIPE_OPS.items() if ops & k)
+        mix += 1
+        if names is not None and name not in names:
+            continue
+        (instrs,) = [v for k, v in funcs.items()
+                     if f"pipe_kernelILi{ops}EE" in k]
+        loop = max(loop_counts(instrs), key=lambda lp: lp.counts["issue"])
+        body = [i for i in instrs if loop.start <= i.addr <= loop.end]
+        n_op = {}
+        for ins in body:
+            n_op[ins.base] = n_op.get(ins.base, 0) + 1
+
+        def run(mix=mix - 1):
+            err = lib.tmc_pipe_rates(mix, blocks, iters, out.data_ptr(),
+                                     stream)
+            if err != 0:
+                fail(f"pipe probe launch failed: {lib.tmc_error_string(err)}")
+
+        ms = time_ms(run, reps=5)
+        mhz = clock_under_load(run, ms)
+        per = blocks * threads * iters / (ms * 1e-3 * mhz * 1e6 * sms)
+        rates[name] = {op: n * per for op, n in n_op.items()}
+        shares = ceiling_shares(rates[name])
+        print(f"  {name}: {ms:.3f} ms at {mhz:.0f} MHz; loop "
+              + ", ".join(f"{op} {n}" for op, n in sorted(n_op.items()))
+              + "; per SM per clock "
+              + ", ".join(f"{op} {r:.1f}" for op, r in rates[name].items())
+              + "; share of the model's rate "
+              + ", ".join(f"{p} {v:.3f}" for p, v in shares.items()))
+        over = {p: v for p, v in shares.items() if v > 1 + PROBE_TOLERANCE}
+        if over:
+            fail(f"pipe probe: {name} runs above the bounds' model: {over}")
+    if names is not None and set(names) - set(rates):
+        fail(f"pipe probe: no mix {sorted(set(names) - set(rates))}")
+    return rates
 
 
 def main() -> int:
@@ -1076,6 +1217,7 @@ def main() -> int:
          *(setup[0] for _, setup in pt_checks)]
     }.values())
     pt_builds = [pool.submit(timed_build, p.library) for p in pt_programs]
+    probe_build = pool.submit(load_pipe_probe)
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -1172,8 +1314,16 @@ def main() -> int:
     mhz = clock_under_load(
         lambda: integrate_cuda(program, spec.kind, params, SEED, main_grid), ms
     )
-    integrate_bound = card_bound(lib, "integrate_kernelILi1EE", 1, n_main, mhz)
+    # The bound of the build that runs; beside it, like for like with
+    # earlier runs, the count on the SASS of the kernel before its
+    # redesign, stored in the checkout.
+    integrate_bound = card_bound(lib, "integrate_kernelILi1EE", 1, n_main,
+                                 mhz)
+    integrate_parent = card_bound(
+        None, "integrate_kernelILi1EE", 1, n_main, mhz,
+        listing=(PARENT_SASS / "integrate_n.sass").read_text())
     print_bound(integrate_bound, mhz, "sample")
+    print_parent_bound(integrate_parent, "sample")
     idle_share(lambda: tm.integrate(BENCH_FNS, normal,
                                     n_samples=MAIN_SAMPLES, seed=SEED))
 
@@ -1490,6 +1640,11 @@ def main() -> int:
         if not abs(got - want) <= RTOL * abs(want) + ATOL:
             fail(f"rotation seed {int(s)}: kernel and plain version disagree")
         nd_err = max(nd_err, abs(got - want))
+    rot_ms = time_ms(lambda: integrate_nd_rows(
+        qmc_program, qmc_cfg, qmc_params, int(rot_seeds[0]), rot_grid),
+        reps=10)
+    print(f"  one rotation's kernel ({n_rot} points, CUDA events, mean of 10 "
+          f"launches): {rot_ms:.4f} ms")
     se64 = float(np.std(means64, ddof=1) / math.sqrt(QMC_ROTATIONS))
     print(f"  {QMC_ROTATIONS} rotations of {n_rot} points: stderr of the "
           f"float64 rotation means {se64:.3e}, 10x below plain MC's "
@@ -1536,7 +1691,11 @@ def main() -> int:
     )
     nd_bound = card_bound(nd_program.library(),
                           "integrate_nd_kernelILi0ELb0EE", 3, n_nd, mhz)
+    nd_parent = card_bound(
+        None, "integrate_nd_kernelILi0ELb0EE", 3, n_nd, mhz,
+        listing=(PARENT_SASS / "integrate_nd_c9.sass").read_text())
     print_bound(nd_bound, mhz, "sample")
+    print_parent_bound(nd_parent, "sample")
     idle_share(lambda: tm.integrate(ND_FNS, nd_dists,
                                     n_samples=MAIN_SAMPLES, seed=SEED))
 
@@ -1815,6 +1974,11 @@ def main() -> int:
     print("  c12:", end="")
     idle_share(lambda: pt_call(c12_walk))
 
+    # 23. The bounds' pipe model against the probe mix that tells IMAD's
+    # classes apart (tools/pipe_probe.py runs every mix).
+    print("phase 23:", end=" ")
+    pipe_rates(probe_build.result(), card, ["IMAD+FFMA"])
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -1828,6 +1992,9 @@ def main() -> int:
         "bound_by": "operations",
         "bound_pipe": integrate_bound[1],
         "issue_ms": integrate_bound[2],
+        "parent_bound_ms": integrate_parent[0],
+        "parent_bound_pipe": integrate_parent[1],
+        "parent_issue_ms": integrate_parent[2],
         "library_ms": None,
     }, {
         "name": "mcmc",
@@ -1861,7 +2028,11 @@ def main() -> int:
         "bound_by": "operations",
         "bound_pipe": nd_bound[1],
         "issue_ms": nd_bound[2],
+        "parent_bound_ms": nd_parent[0],
+        "parent_bound_pipe": nd_parent[1],
+        "parent_issue_ms": nd_parent[2],
         "library_ms": None,
+        "qmc_rotation_ms": rot_ms,
     }, {
         "name": "mcmc_nd",
         "route": "cuda",

@@ -125,6 +125,18 @@ def test_integrate_on_cuda_matches_cpu(cuda_device):
     np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
 
 
+# Integrand counts on both sides of the switch from the cursor loop to the
+# run-time position loop (integrate.cu, 17 integrands): each draws the
+# same samples through the same transform.
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 17, 24])
+@pytest.mark.parametrize("dist", DISTS, ids=["uniform", "normal", "exponential"])
+def test_kernel_sample_loops_match_plain_version(cuda_device, dist, k):
+    got, want = _kernel_and_plain(WIDEST[:k], dist, cuda_device, 1 << 22)
+    assert got.shape == (k,) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_params(cuda_device):
     program = IntegrateProgram((tm.trace_function(BENCH[0]),))
@@ -1028,3 +1040,54 @@ def test_pt_kernel_past_32_rungs_takes_the_ladder(cuda_device):
     assert program.layout == LADDER_LAYOUT
     _check_pt(program, cfg, params, ladder,
               plan_mcmc_grid(plan_chains(4096, None)))
+
+
+# -- the MCMC kernels, bit for bit ----------------------------------------------
+#
+# sha256 (first 16 hex digits) of the rows and final states of c5b, c9e,
+# c12 and c12c at their main shape (4096 chains x (1,000 + 10,000) steps,
+# error bars on, default layouts), as tools/mcmc_layout_sweep.py prints
+# them: read on an H100 (CUDA 12 toolkit) from the kernels as they were at
+# commit e1fa41d.  A change to a header they share (counter_rng.cuh,
+# integrand_math.cuh, the lowering) must leave their chains as they were.
+MCMC_DIGESTS = {
+    "c5b": ("ce85a1ff091ba840", "ac9938cf8ab0b8a4"),
+    "c9e": ("7984f9f4489012be", "8925440880a69e7a"),
+    "c12": ("a5eae55349111f12", "7a48bbccc45c826e"),
+    "c12c": ("ac6f1a2a47ade534", "640a252c499d639f"),
+}
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(MCMC_DIGESTS))
+def test_mcmc_kernels_run_their_recorded_chains(cuda_device, cell):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    n02 = tm.Distribution.normal(0.0, 2.0)
+    if cell == "c5b":
+        program = McmcProgram((tm.trace_function(lambda x: x * x),))
+        cfg = McmcConfig(Mode.INDEPENDENCE, _N, _N, 10_000, 1_000, True)
+        params = torch.tensor([0.0, 2.0, 0.0, 0.0, 0.0, 1.0],
+                              dtype=torch.float32, device=cuda_device)
+        got = mcmc_cuda(program, cfg, params, 42, grid)
+    elif cell == "c9e":
+        program, cfg, params = _nd_mcmc_setup(
+            _c9e_target, [n02, n02], True, [lambda x, y: x * y], cuda_device,
+            n_steps=10_000, n_burnin=1_000)
+        got = mcmc_nd_cuda(program, cfg, params, 42, grid)
+    else:
+        proposal = _C12_WALK if cell == "c12" else tm.Distribution.normal(0.0, 6.0)
+        program, cfg, params, ladder = _pt_setup(
+            lambda: _logmix, proposal, _LADDER4, True, _pt_fns(1), cuda_device,
+            n_steps=10_000, n_burnin=1_000)
+        got = mcmc_pt_cuda(program, cfg, params, ladder, 42, grid)
+    torch.cuda.synchronize()
+    assert (_digest(got.rows), _digest(got.x_final)) == MCMC_DIGESTS[cell]

@@ -569,7 +569,7 @@ extern "C" uint32_t kernel_mantissa(const uint32_t* v, uint32_t seed, uint32_t t
   const uint32_t shift = tmc::derive_segment_shift(tmc::derive_shift(seed, tag), seg);
   const uint32_t word = tmc::sobol_xor<17>(v, b, 15) ^ tmc::sobol_xor<8>(v, thread, 0) ^
                         tmc::sobol_xor<7>(v, i, 8);
-  return tmc::sobol_mantissa(word, shift);
+  return tmc::sobol_top24(word, shift) >> 8;
 }
 """
 
@@ -699,12 +699,13 @@ def test_sass_sample_loop_counts_the_cheapest_path():
     # The dependent chain on that path: IMAD R5 -> LOP3 R6 -> I2F R7 ->
     # FADD R9 -> FFMA R9 (5); the tile loop's IADD3 R3 feeds the IMAD (6).
     # The carried chain: FADD R9 -> FFMA R9 (2); R4 and R2 are counters.
+    # IMAD takes a slot of the fma pipe and one of its IMAD half.
     assert loops[1].counts == {
-        "fp32": 3, "int32": 4, "xu": 2, "issue": 11, "conversions": 2,
+        "fma": 4, "fmaheavy": 1, "alu": 3, "xu": 2, "issue": 11, "conversions": 2,
         "chain": 5, "carried": 2,
     }
     assert loops[0].counts == {
-        "fp32": 3, "int32": 7, "xu": 2, "issue": 16, "conversions": 2,
+        "fma": 4, "fmaheavy": 1, "alu": 6, "xu": 2, "issue": 16, "conversions": 2,
         "chain": 6, "carried": 2,
     }
     assert loops[2].counts["chain"] == 2  # FADD R12 -> ISETP P4
@@ -712,15 +713,20 @@ def test_sass_sample_loop_counts_the_cheapest_path():
     assert sass.sample_loops(nd) == [loops[1]]
     most, least = sass.per_sample(_LISTING, "integrate_nd_kernel", 1)
     assert most == least == {
-        "fp32": 1.5, "int32": 2.0, "xu": 1.0, "issue": 5.5, "conversions": 1.0,
+        "fma": 2.0, "fmaheavy": 0.5, "alu": 1.5, "xu": 1.0, "issue": 5.5,
+        "conversions": 1.0,
         "chain": 2.5, "carried": 1.0,
     }
     with pytest.raises(ValueError, match="not a multiple"):
         sass.per_sample(_LISTING, "integrate_nd_kernel", 3)
     with pytest.raises(ValueError, match="no sample loop"):
         sass.per_sample(_LISTING, "mcmc_kernel", 1)
-    assert sass.pipe_of("IMAD.WIDE.U32") == "int32"
-    assert sass.pipe_of("MUFU.EX2") == "xu" and sass.pipe_of("LDS") is None
+    assert sass.pipe_of("IMAD.WIDE.U32") == ("fma", "fmaheavy")
+    assert sass.pipe_of("IMAD.MOV.U32") == ("fma", "fmaheavy")
+    assert sass.pipe_of("FFMA") == sass.pipe_of("VIADD") == ("fma",)
+    assert sass.pipe_of("FMNMX") == sass.pipe_of("LOP3.LUT") == ("alu",)
+    assert sass.pipe_of("MUFU.EX2") == ("xu",)
+    assert sass.pipe_of("LDS") == ()
     # A uniform's conversion is uint32 -> float32; logf's and sinf's
     # signed ones and integer division's .RP reciprocal are not.
     assert sass.is_uniform_conversion("I2FP.F32.U32")
@@ -729,14 +735,56 @@ def test_sass_sample_loop_counts_the_cheapest_path():
         assert not sass.is_uniform_conversion(op)
 
 
+# Thread instructions per SM per clock of each pipe-probe mix
+# (tools/pipe_probe.py) on an NVIDIA H100 80GB HBM3 at 700 W, at 1980 MHz:
+# (the mix's own opcodes' rate, its loop control's ISETP, UIADD3 and BRA
+# rate, and LDC where the loop loads a constant).
+PROBE_READINGS = {
+    "IMAD": ({"IMAD": 64.3}, 4.0, False),
+    "IADD3": ({"IADD3": 52.8, "VIADD": 52.8}, 6.6, False),
+    "LOP3": ({"LOP3": 59.6}, 3.7, False),
+    "FFMA": ({"FFMA": 103.5}, 6.5, False),
+    "FMNMX": ({"FMNMX": 60.6}, 3.8, False),
+    "IMAD+IADD3": ({"IMAD": 62.7, "IADD3": 28.5}, 2.8, True),
+    "IMAD+LOP3": ({"IMAD": 55.3, "LOP3": 55.3}, 3.5, False),
+    "IMAD+FFMA": ({"IMAD": 44.8, "FFMA": 44.8}, 2.8, True),
+    "LOP3+FFMA": ({"LOP3": 50.7, "FFMA": 50.7}, 3.2, True),
+    "LOP3+FMNMX": ({"LOP3": 30.7, "FMNMX": 30.7}, 1.9, True),
+    "FFMA+FMNMX": ({"FFMA": 40.9, "FMNMX": 40.9}, 2.6, True),
+}
+
+
+@pytest.mark.parametrize("mix", list(PROBE_READINGS))
+def test_pipe_model_admits_every_probe_reading(mix):
+    sass = _chip_smoke()
+    ops, control, ldc = PROBE_READINGS[mix]
+    rates = {**ops, "ISETP": control, "UIADD3": control, "BRA": control}
+    if ldc:
+        rates["LDC"] = control
+    shares = sass.ceiling_shares(rates)
+    assert max(shares.values()) <= 1 + sass.PROBE_TOLERANCE, shares
+    if mix == "IMAD+FFMA":
+        # Under two fma slots per IMAD this mix would need 134 of 128.
+        assert (2 * ops["IMAD"] + ops["FFMA"]) / 128 > 1 + sass.PROBE_TOLERANCE
+        assert shares["fma"] == pytest.approx((44.8 + 44.8) / 128)
+        assert shares["fmaheavy"] == pytest.approx(44.8 / 64)
+
+
 def test_sass_bound_takes_the_busiest_pipe():
     sass = _chip_smoke()
 
-    counts = {"fp32": 30.0, "int32": 20.0, "xu": 4.0, "issue": 80.0}
+    counts = {"fma": 30.0, "fmaheavy": 10.0, "alu": 20.0, "xu": 4.0,
+              "issue": 80.0}
     ms, pipe = sass.bound_ms(counts, 1e9, sms=132, clock_mhz=1000.0)
-    # int32: 20e9 / (64 * 132 * 1e9) s, above fp32's 30 / 128 and xu's
-    # 4 / 16; issue, 80 instructions, is a diagnostic and not the bound.
-    assert pipe == "int32" and ms == pytest.approx(20e9 / (64 * 132e9) * 1e3)
+    # alu: 20e9 / (64 * 132 * 1e9) s, above fma's 30 / 128, its IMADs'
+    # 10 / 64 and xu's 4 / 16; issue, 80 instructions, is a diagnostic
+    # and not the bound.
+    assert pipe == "alu" and ms == pytest.approx(20e9 / (64 * 132e9) * 1e3)
+    # 22 IMADs of the 30 fma-pipe instructions: their half of the pipe
+    # takes longer than the whole pipe's 30 / 128.
+    heavy = {**counts, "fmaheavy": 22.0}
+    ms, pipe = sass.bound_ms(heavy, 1e9, sms=132, clock_mhz=1000.0)
+    assert pipe == "fmaheavy" and ms == pytest.approx(22e9 / (64 * 132e9) * 1e3)
     assert sass.issue_ms(counts, 1e9, 132, 1000.0) == pytest.approx(
         80e9 / (128 * 132e9) * 1e3
     )
@@ -875,7 +923,7 @@ def test_sass_parse_keeps_the_guard_and_lanes_divide_the_carried_chain():
     assert most == least
     assert most["carried"] == 7 / 4
     assert most["chain"] == loop.counts["chain"] / 4
-    assert most["issue"] == 13 and most["fp32"] == 6
+    assert most["issue"] == 13 and most["fma"] == 6
 
 
 def test_function_warps_are_the_whole_card_only_for_independence():

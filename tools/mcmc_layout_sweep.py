@@ -338,7 +338,7 @@ def main() -> int:
                 # Per chain-step: a tempered build of rungs on lanes
                 # counts per rung lane.
                 "per_step": {k: counts[k] * unit_lanes
-                             for k in ("fp32", "int32", "xu", "issue")},
+                             for k in ("fma", "fmaheavy", "alu", "xu", "issue")},
             }
         rec = {
             "tree": str(Path(args.tree).resolve().name),

@@ -49,6 +49,25 @@ __device__ __forceinline__ uint32_t mantissa(uint32_t base, uint32_t pos) {
   return pcg(base + pos * 2654435761u) >> 8;
 }
 
+// The stream cursor, for loops that walk a block's positions (the
+// integrate kernels).  The hash of position pos starts with two affine
+// steps, x = (base + pos * 2654435761) * 747796405 + 2891336453 mod 2^32,
+// which is cursor(base, 0) + pos * kCursorStride: a thread that walks
+// pos0, pos0 + s, ... steps one word by s * kCursorStride and finishes
+// the hash from it (cursor_top24), with the bits of tmc::mantissa.
+constexpr uint32_t kCursorStride = 2654435761u * 747796405u;  // mod 2^32
+
+__device__ __forceinline__ uint32_t cursor(uint32_t base, uint32_t pos) {
+  return (base + pos * 2654435761u) * 747796405u + 2891336453u;
+}
+
+// mantissa(base, pos) << 8 from the cursor word x of pos: the top 24 bits
+// of the hash in place, the low 8 cleared in the same logic operation.
+__device__ __forceinline__ uint32_t cursor_top24(uint32_t x) {
+  const uint32_t word = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return ((word >> 22u) ^ word) & 0xFFFFFF00u;
+}
+
 __device__ __forceinline__ float halfopen01(uint32_t m) {  // [0, 1)
   return float(m) * kInv2Pow24;
 }

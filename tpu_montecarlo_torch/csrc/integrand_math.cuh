@@ -23,3 +23,21 @@ static __device__ inline float tmc_minimum(float a, float b) {
 static __device__ inline float tmc_maximum(float a, float b) {
   return (a != a || b != b) ? a + b : (a > b ? a : b);
 }
+
+// a * b + c rounded once.  Kernels are built with --fmad=false, so this is
+// the only contraction: the integrate kernels' sums (acc += a * b,
+// sq += dd * dd) and their transforms' affine steps.  The MCMC kernels
+// call neither.  TMC_CONTRACT=0 rounds after the multiply and after the
+// add, for the host tests (tests/test_torch_integrate_stream.py) and
+// tools/integrate_sweep.py; the package always builds with 1.
+#ifndef TMC_CONTRACT
+#define TMC_CONTRACT 1
+#endif
+
+static __device__ inline float tmc_fma(float a, float b, float c) {
+#if TMC_CONTRACT
+  return fmaf(a, b, c);
+#else
+  return a * b + c;
+#endif
+}

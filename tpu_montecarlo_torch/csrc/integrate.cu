@@ -11,12 +11,14 @@
 // integrands that ops/lower.py generated (tmc_integrands.inc) on every
 // sample and keeps K float32 sums in registers.
 //
-// What bounds it on the card: arithmetic only.  Each sample costs two PCG
-// hashes, the transform (erfinvf for the normal family) and the K
-// integrands (libdevice sinf, expf, ...); nothing is read from device
-// memory and each CUDA block writes one row of K partial sums.  So the
-// limit is the SMs' FP32/INT32 and SFU throughput and how many warps keep
-// them busy.
+// What bounds it on the card: issue.  Nothing is read from device memory
+// in the sample loop and each CUDA block writes one row of K partial sums,
+// so the time is the instructions each sample costs (the hash, the
+// conversion, the transform with erfinvf for the normal family, the K
+// integrands with libdevice sinf, expf, ...) over the four schedulers of
+// each SM: at the bench set (K = 8, N(0, 1)) issuing them takes most of
+// the kernel's time on an H100.  chip_smoke.py counts them from this
+// kernel's SASS (PERF.md section 6).
 //
 // What the design does about it:
 // * The TPU grid has at most 512 blocks per program, so 1e9 samples are
@@ -24,20 +26,44 @@
 //   (program, block) tile of 256 x 128 samples; the counter stream lets
 //   any CUDA block take any tile, so a grid-stride loop spreads the
 //   programs x blocks tiles over up to `grid` CUDA blocks of 256 threads.
+//   A block steps its (program, block) pair without 64-bit division and
+//   seeds a program's stream only when the program changes
+//   (tmc::TileWalk).
+// * Thread t takes positions t, t + 256, ... of a block: their hashes
+//   start from one cursor word stepped by a constant (tmc::cursor), so a
+//   sample costs the hash's finish, not its two affine steps and the
+//   position.  Trip counts are compile-time (64 or 128 per thread), the
+//   normal family's two half blocks (tags 0 and 1) share one loop, and a
+//   loop body holds kUnroll samples (tmc::default_unroll: 8 for a few
+//   integrands, fewer for more, whose bodies would outgrow the instruction
+//   cache).  Sets of 17 integrands or more keep a loop that counts
+//   positions at run time (sweep_wide); both loops draw through one
+//   transform, so a sample does not depend on the loop that drew it.
+// * The transforms are integrate_draw.cuh's: the same uniforms, affine
+//   steps as one fused multiply-add, the exponential's division as a
+//   multiply by -1 / p1 made once per thread.
 // * Accumulators stay in registers for the whole run; the block reduces
 //   them once, with warp shuffles and a fixed order, and writes its row.
 //   No atomics: the result is deterministic for a given plan.  A second
 //   pass (torch.sum over the rows, as the JAX package sums its program
 //   rows at integrate_pallas.py:1214) finishes the reduction.
 // * Built without --use_fast_math, so sinf, expf, logf and erfinvf keep
-//   full float32 accuracy, and with --fmad=false, so each float32 add and
-//   multiply rounds as in the plain PyTorch version and the JAX package.
+//   full float32 accuracy, and with --fmad=false, so the only fused
+//   multiply-adds are those written out (tmc_fma).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
+#include "integrate_draw.cuh"
 #include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, tmc_accumulate
+
+// tools/integrate_sweep.py may set TMC_UNROLL (samples per loop body) and
+// TMC_WIDE_K (the first integrand count that takes sweep_wide) to time
+// other values; the package builds with neither.
+#ifndef TMC_WIDE_K
+#define TMC_WIDE_K 17
+#endif
 
 namespace {
 
@@ -48,20 +74,67 @@ using tmc::kUniform;
 constexpr int kLanes = tmc::kLanes;
 constexpr int kBlockRows = 256;
 constexpr int kThreads = 256;
+#ifdef TMC_UNROLL
+constexpr int kUnroll = TMC_UNROLL;
+#else
+constexpr int kUnroll = tmc::default_unroll(TMC_K, 1);  // samples per body
+#endif
+// Integrand sets from this size on take sweep_wide.
+constexpr int kWideK = TMC_WIDE_K;
+// The cursor's step between a thread's positions t, t + 256, ...
+constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
 
-// Draws `n_pos` positions of one (state, blk, tag) stream, transforms
-// them and accumulates the integrands.  Thread t takes positions
-// t, t + 256, ...; the positions a thread takes do not change the sums'
-// values beyond float32 summation order.
-template <int KIND>
+// Draws positions t, t + 256, ... of the TAGS parts (tags 0 .. TAGS - 1)
+// of one tile in one loop, transforms and accumulates the integrands,
+// kUnroll samples per loop body (at least one per part).  The positions a
+// thread takes do not change the sums' values beyond float32 summation
+// order.
+template <int KIND, int TAGS>
 __device__ __forceinline__ void sweep(uint32_t state, uint32_t blk,
-                                      uint32_t tag, int n_pos, float p1,
-                                      float p2, float* acc) {
+                                      const tmc::Family& f, float* acc) {
+  constexpr int kPerThread = kBlockRows * kLanes / TAGS / kThreads;
+  uint32_t x0[TAGS];
+#pragma unroll
+  for (int t = 0; t < TAGS; ++t) {
+    x0[t] = tmc::cursor(tmc::block_base(state, blk, uint32_t(t)),
+                        threadIdx.x);
+  }
+#pragma unroll (kUnroll > TAGS ? kUnroll / TAGS : 1)
+  for (int i = 0; i < kPerThread; ++i) {
+#pragma unroll
+    for (int t = 0; t < TAGS; ++t) {
+      const uint32_t top = tmc::cursor_top24(x0[t] + uint32_t(i) * kStep);
+      tmc_accumulate(tmc::transform_top(KIND, top, f), acc);
+    }
+  }
+}
+
+// One tile: the normal family's two half blocks, tags 0 and 1
+// (integrate_pallas.py:571-581), in one loop; the others' one block, tag 0.
+template <int KIND>
+__device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
+                                          const tmc::Family& f, float* acc) {
+  if (KIND == kNormal) {
+    sweep<KIND, 2>(state, blk, f, acc);
+  } else {
+    sweep<KIND, 1>(state, blk, f, acc);
+  }
+}
+
+// The sample loop of wide integrand sets (TMC_K >= kWideK): the position
+// counted at run time, each sample's top 24 bits from tmc::mantissa, and
+// sweep's transform.  Its body is mostly the integrands, and on an H100 it
+// ran faster than the cursor loop at every count from 17 to 24 and at 32
+// and 128, slower at 9 to 16 (tools/integrate_sweep.py, PERF.md
+// section 6).
+template <int KIND>
+__device__ __forceinline__ void sweep_wide(uint32_t state, uint32_t blk,
+                                           uint32_t tag, int n_pos,
+                                           const tmc::Family& f, float* acc) {
   const uint32_t base = tmc::block_base(state, blk, tag);
   for (int pos = threadIdx.x; pos < n_pos; pos += kThreads) {
-    const float x = tmc::transform(KIND, tmc::mantissa(base, uint32_t(pos)),
-                                   p1, p2);
-    tmc_accumulate(x, acc);
+    const uint32_t top = tmc::mantissa(base, uint32_t(pos)) << 8;
+    tmc_accumulate(tmc::transform_top(KIND, top, f), acc);
   }
 }
 
@@ -69,23 +142,23 @@ template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 integrate_kernel(uint32_t seed, const float* __restrict__ params, int loops,
                  long long n_tiles, float* __restrict__ partials) {
-  const float p1 = params[0];
-  const float p2 = params[1];
+  const tmc::Family f = tmc::family(params[0], params[1]);
   float acc[TMC_K];
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
 
+  tmc::TileWalk walk(seed, uint32_t(loops), blockIdx.x, gridDim.x);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const uint32_t pid = uint32_t(tile / loops);
-    const uint32_t blk = uint32_t(tile % loops);
-    const uint32_t state = tmc::seed_state(seed, pid);
-    if (KIND == kNormal) {
-      // Two half blocks, tags 0 and 1 (integrate_pallas.py:571-581).
-      sweep<KIND>(state, blk, 0u, (kBlockRows / 2) * kLanes, p1, p2, acc);
-      sweep<KIND>(state, blk, 1u, (kBlockRows / 2) * kLanes, p1, p2, acc);
+    const uint32_t state = walk.stream();
+    if (TMC_K < kWideK) {
+      draw_tile<KIND>(state, walk.blk, f, acc);
+    } else if (KIND == kNormal) {
+      sweep_wide<KIND>(state, walk.blk, 0u, kBlockRows * kLanes / 2, f, acc);
+      sweep_wide<KIND>(state, walk.blk, 1u, kBlockRows * kLanes / 2, f, acc);
     } else {
-      sweep<KIND>(state, blk, 0u, kBlockRows * kLanes, p1, p2, acc);
+      sweep_wide<KIND>(state, walk.blk, 0u, kBlockRows * kLanes, f, acc);
     }
+    walk.next();
   }
 
   // Block reduction in a fixed order: warp shuffles, then warp 0's

@@ -22,30 +22,34 @@
 //   sums stay in registers, plus with error bars K sums of (f - pilot)^2,
 //   of the pair's mean under antithetic.
 //
-// What bounds it on the card: arithmetic only.  Per sample and dimension
-// one PCG hash (or, under qmc, two XORs and a shared-memory read), the
-// uint->float conversion, the transform (erfinvf for the normal family,
-// logf for the exponential) and then the integrands; nothing is read from
-// device memory in the loop and each CUDA block writes one row of K (2K)
-// partial sums.  So the limit is the SMs' FP32, INT32 and MUFU/conversion
-// pipes; chip_smoke.py counts each pipe's instructions per sample on the
-// cheapest path through this kernel's SASS sample loop and reports the
-// busiest pipe's time as the bound.  At c9's shape (N(0,1) x U(0,1) x
-// Exp(2), K = 2, mc) the loop runs 54.25 FP32, 30 INT32 and 6 MUFU and
-// conversion instructions per sample: the INT32 pipe bounds 2^30 samples
-// at 1.93 ms at 1980 MHz on 132 SMs.  On an NVIDIA H100 80GB HBM3 at
-// 700 W chip_smoke.py measured 3.89 ms, and the 105.75 instructions per
-// sample take 3.39 ms to issue (4 schedulers x 32 lanes per SM per
-// clock): the instruction count, not one pipe, sets the time.
+// What bounds it on the card: issue.  Per sample and dimension one PCG
+// hash (or, under qmc, two XORs and a shared-memory read), the uint->float
+// conversion, the transform (erfinvf for the normal family, logf for the
+// exponential) and then the integrands; nothing is read from device memory
+// in the loop and each CUDA block writes one row of K (2K) partial sums.
+// chip_smoke.py counts each arithmetic pipe's instructions per sample on
+// the cheapest path through this kernel's SASS sample loop (its bound is
+// the busiest pipe's time) and the time to issue them all: at c9's shape
+// (N(0,1) x U(0,1) x Exp(2), K = 2, mc) issue takes most of the kernel's
+// time on an H100, so the instructions per sample set it (PERF.md
+// section 6).
 //
 // What the design does about it:
 // * The unit of work is one tile, which any CUDA block can draw (the
 //   counter stream and the Sobol index are functions of the tile), so a
 //   grid-stride loop spreads programs x loops tiles over up to `grid`
 //   blocks of 256 threads: 1e9 samples are ~30,000 tiles for 132 SMs.
+//   A block steps its (program, block) pair without 64-bit division and
+//   seeds a program's stream only when the program changes
+//   (tmc::TileWalk).
 // * The families are compiled in (TMC_KINDS): each dimension's transform
 //   is straight-line code, with no branch on the family in the loop.  The
 //   JAX kernel is likewise traced per family tuple.
+// * Under mc and antithetic, thread t's positions t + 256 i of dimension j
+//   hash from one cursor word per tile stepped by a constant
+//   (tmc::cursor), so a sample costs the hash's finish only; the
+//   transforms are integrate_draw.cuh's (affine steps fused, the
+//   exponential's division a multiply by -1 / p1 made once per thread).
 // * The Sobol index of thread t's i-th position, pos = t + 256 i, splits
 //   into tile, thread and i parts whose words XOR together: the tile word
 //   is computed once per tile, the thread word once per thread, and the
@@ -55,13 +59,14 @@
 // * Sums are reduced once per block with warp shuffles in a fixed order,
 //   and torch.sum over the rows finishes: no atomics, so a result is the
 //   same on every run.
-// * Built without --use_fast_math and with --fmad=false, as integrate.cu,
-//   so float32 operations round as in the plain PyTorch version.
+// * Built without --use_fast_math and with --fmad=false, as integrate.cu:
+//   the only fused multiply-adds are those written out (tmc_fma).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
+#include "integrate_draw.cuh"
 #include "sobol.cuh"
 #include "tmc_integrands.inc"  // TMC_K, TMC_D, TMC_KINDS, f_j, tmc_*_nd
 
@@ -74,6 +79,15 @@ constexpr int kPerThread = kTilePositions / kThreads;     // 128
 constexpr int kPosBits = 15;     // a position within a tile
 constexpr int kThreadBits = 8;   // threadIdx.x, the low bits of pos
 constexpr int kSobolBits = 32;
+// Positions per loop body; tools/integrate_sweep.py may set TMC_UNROLL to
+// time other values, the package builds without it.
+#ifdef TMC_UNROLL
+constexpr int kUnroll = TMC_UNROLL;
+#else
+constexpr int kUnroll = tmc::default_unroll(TMC_K, TMC_D);
+#endif
+// The cursor's step between a thread's positions t, t + 256, ...
+constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
 
 enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
 
@@ -82,27 +96,6 @@ enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
 __device__ __forceinline__ int kind_of(int j) {
   const int kinds[TMC_D] = {TMC_KINDS};
   return kinds[j];
-}
-
-// The antithetic pair of one dimension from the mantissa m: the family's
-// transform at u and at 1 - u (integrate_nd_pallas.py:143-180).
-__device__ __forceinline__ void transform_pair(int kind, uint32_t m, float p1,
-                                               float p2, float& a, float& b) {
-  if (kind == tmc::kUniform) {
-    const float u = tmc::halfopen01(m);
-    const float xa = p1 + u * (p2 - p1);
-    const float xb = p1 + (1.0f - u) * (p2 - p1);
-    a = xa >= p2 ? tmc::next_below(p2) : xa;
-    b = xb >= p2 ? tmc::next_below(p2) : xb;
-  } else if (kind == tmc::kNormal) {
-    const float z = tmc::normal_from_u01(tmc::halfopen01(m));
-    a = p1 + p2 * z;
-    b = p1 - p2 * z;
-  } else {
-    const float u = tmc::open01(m);
-    a = -logf(fmaxf(u, tmc::kULo)) / p1;
-    b = -logf(fmaxf(1.0f - u, tmc::kULo)) / p1;
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -127,11 +120,10 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
   __shared__ uint32_t s_high[kSobol ? kPerThread * TMC_D : 1];
   __shared__ float warp_sums[kThreads / 32][kOut];
 
-  float p1[TMC_D], p2[TMC_D];
+  tmc::Family fam[TMC_D];
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
-    p1[j] = params[2 * j];
-    p2[j] = params[2 * j + 1];
+    fam[j] = tmc::family(params[2 * j], params[2 * j + 1]);
   }
   float acc[TMC_K], sq[TMC_K], pilot[TMC_K];
 #pragma unroll
@@ -160,9 +152,11 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
     }
   }
 
+  tmc::TileWalk walk(seed, uint32_t(loops), blockIdx.x, gridDim.x);
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    // Per dimension, the tile's word: its PRNG block base, or its Sobol
-    // block word XOR this thread's word; and the rotation under Sobol.
+    // Per dimension, the tile's word: this thread's first cursor word, or
+    // its Sobol block word XOR this thread's word; and the rotation under
+    // Sobol.
     uint32_t word[TMC_D], shift[TMC_D];
     if (kSobol) {
       uint32_t b = uint32_t(tile);
@@ -178,30 +172,28 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
                       &s_dirs[j * kSobolBits], b, kPosBits) ^ low[j];
       }
     } else {
-      const uint32_t pid = uint32_t(tile / loops);
-      const uint32_t blk = uint32_t(tile % loops);
-      const uint32_t state = tmc::seed_state(seed, pid);
+      const uint32_t state = walk.stream();
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) {
-        word[j] = tmc::block_base(state, blk, uint32_t(j));
+        word[j] = tmc::cursor(tmc::block_base(state, walk.blk, uint32_t(j)),
+                              threadIdx.x);
       }
+      walk.next();
     }
-    // Unrolled 4 ways for speed: on an H100 it beat 1, 2, 8 and full
-    // unrolling over the five modes taken together.
-#pragma unroll 4
+#pragma unroll (kUnroll)
     for (int i = 0; i < kPerThread; ++i) {
-      const uint32_t pos = threadIdx.x + uint32_t(i) * kThreads;
       float x[TMC_D], y[TMC_D];
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) {
-        const uint32_t m =
-            kSobol ? tmc::sobol_mantissa(word[j] ^ s_high[i * TMC_D + j],
-                                         shift[j])
-                   : tmc::mantissa(word[j], pos);
+        // Position threadIdx.x + 256 i of dimension j, its top 24 bits.
+        const uint32_t top =
+            kSobol ? tmc::sobol_top24(word[j] ^ s_high[i * TMC_D + j],
+                                      shift[j])
+                   : tmc::cursor_top24(word[j] + uint32_t(i) * kStep);
         if (METHOD == kAntithetic) {
-          transform_pair(kind_of(j), m, p1[j], p2[j], x[j], y[j]);
+          tmc::transform_pair_top(kind_of(j), top, fam[j], x[j], y[j]);
         } else {
-          x[j] = tmc::transform(kind_of(j), m, p1[j], p2[j]);
+          x[j] = tmc::transform_top(kind_of(j), top, fam[j]);
         }
       }
       if (METHOD == kAntithetic && STDERR) {
@@ -213,8 +205,8 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
         for (int k = 0; k < TMC_K; ++k) {
           acc[k] += v1[k];
           acc[k] += v2[k];
-          const float dd = 0.5f * (v1[k] + v2[k]) - pilot[k];
-          sq[k] += dd * dd;
+          const float dd = tmc_fma(0.5f, v1[k] + v2[k], -pilot[k]);
+          sq[k] = tmc_fma(dd, dd, sq[k]);
         }
       } else if (METHOD == kAntithetic) {
         tmc_accumulate_nd(x, acc);

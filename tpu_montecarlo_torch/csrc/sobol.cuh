@@ -43,10 +43,11 @@ __device__ __forceinline__ uint32_t sobol_xor(const uint32_t* v, uint32_t idx,
   return x;
 }
 
-// The 24-bit mantissa of a Sobol word under its rotation.
-__device__ __forceinline__ uint32_t sobol_mantissa(uint32_t word,
-                                                   uint32_t shift) {
-  return (word + shift) >> 8;
+// The top 24 bits of a Sobol word under its rotation, in place (the
+// 24-bit mantissa << 8), as integrate_draw.cuh's transforms take them.
+__device__ __forceinline__ uint32_t sobol_top24(uint32_t word,
+                                                uint32_t shift) {
+  return (word + shift) & 0xFFFFFF00u;
 }
 
 }  // namespace tmc

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load_kernel_library"]
 
@@ -36,8 +37,8 @@ NVCC_FLAGS = (
 )
 # Headers every kernel source may include.
 _HEADERS = (
-    "counter_rng.cuh", "integrand_math.cuh", "mcmc_nd_common.cuh",
-    "mcmc_pipeline.cuh", "sobol.cuh",
+    "counter_rng.cuh", "integrand_math.cuh", "integrate_draw.cuh",
+    "mcmc_nd_common.cuh", "mcmc_pipeline.cuh", "sobol.cuh",
 )
 
 
@@ -55,19 +56,23 @@ def _nvcc() -> str:
     return found
 
 
-def load_kernel_library(source: str, integrand_source: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<source>`` for one integrand set.
+def load_kernel_library(source: str, integrand_source: str,
+                        defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (once) and load ``csrc/<source>`` (or ``source``, an absolute
+    path) for one integrand set, with ``defines`` (``"NAME=VALUE"``)
+    passed to nvcc as ``-D`` flags.
 
     Every library exports ``tmc_error_string``; the caller declares the
     argument types of its own entry points.  The returned library carries
     ``build_log`` (nvcc's register and spill report; empty when the
     library came from the cache)."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     h = hashlib.sha256()
     for name in (source, *_HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(integrand_source.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     out_dir = BUILD_DIR / h.hexdigest()[:24]
     stem = Path(source).stem
     so_path = out_dir / f"libtmc_{stem}.so"
@@ -79,7 +84,7 @@ def load_kernel_library(source: str, integrand_source: str) -> ctypes.CDLL:
         tmp = out_dir / (
             f"libtmc_{stem}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [
-            _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
+            _nvcc(), *flags, "-I", str(CSRC), "-I", str(out_dir),
             str(CSRC / source), "-o", str(tmp),
         ]
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -197,12 +197,30 @@ _C_BINARY = {
 assert set(_C_BINARY) == BINARY_OPS | COMPARE_OPS | LOGIC_OPS
 
 
-def _c_function(name: str, fn: TracedFunction, pointer: bool = False) -> str:
+def _fma_root(fn: TracedFunction) -> bool:
+    """Whether ``fn`` ends in a float32 multiply, which a sum can take as
+    one fused multiply-add (``tmc_fma``)."""
+    root = fn.ir
+    return root.op == "mul" and all(a.dtype != "bool" for a in root.args)
+
+
+def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
+                fma_acc: bool = False) -> str:
+    """``fn`` as a device function; with ``fma_acc`` (``fn`` ending in a
+    multiply a * b), one that returns ``tmc_fma(a, b, acc)`` for a sum
+    ``acc`` passed after the point."""
     nd = pointer or fn.n_args > 1
     param = "const float* x" if nd else "float x"
+    if fma_acc:
+        param += ", float acc"
     lines = [f"static __device__ inline float {name}({param}) {{"]
     names: Dict[int, str] = {}
     for i, node in enumerate(topo_order([fn.ir])):
+        if fma_acc and node is fn.ir:
+            a, b = (names[id(arg)] for arg in node.args)
+            lines.append(f"  return tmc_fma({a}, {b}, acc);")
+            lines.append("}")
+            return "\n".join(lines)
         op = node.op
         if op == "arg":
             names[id(node)] = f"x[{node.value}]" if nd else "x"
@@ -237,7 +255,10 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False) -> str:
     which shifts them).  Integrands of d >= 2 arguments, all of one arity,
     take the point as ``const float* x`` and get ``TMC_D`` and
     :func:`_nd_entries`; ``pointer=True`` gives 1-argument integrands
-    that form too."""
+    that form too.  The sums take an integrand that ends in a multiply
+    a * b as ``f_j_fma(x, acc)``, ``tmc_fma(a, b, acc)``: one rounding
+    where ``TMC_CONTRACT`` is 1 (the integrate kernels' sums; the values
+    entries and the plain version round the product first)."""
     k = len(fns)
     arity = {fn.n_args for fn in fns}
     if len(arity) != 1:
@@ -248,9 +269,15 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False) -> str:
     if nd:
         parts.append(f"#define TMC_D {d}")
     parts += [_c_function(f"f_{j}", fn, nd) for j, fn in enumerate(fns)]
+    fused = [_fma_root(fn) for fn in fns]
+    parts += [_c_function(f"f_{j}_fma", fn, nd, fma_acc=True)
+              for j, fn in enumerate(fns) if fused[j]]
+    acc = "\n".join(
+        f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
+        else f"  acc[{j}] += f_{j}(x);" for j in range(k)
+    )
     if nd:
-        return "\n\n".join(parts + _nd_entries(k)) + "\n"
-    acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
+        return "\n\n".join(parts + _nd_entries(k, acc)) + "\n"
     vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
     parts.append(
         "static __device__ inline void tmc_accumulate(float x, float* acc) {\n"
@@ -270,16 +297,16 @@ def cuda_target_source(fn: TracedFunction) -> str:
     return _c_function("tmc_target_logpdf", fn, pointer=True) + "\n"
 
 
-def _nd_entries(k: int) -> List[str]:
+def _nd_entries(k: int, acc: str) -> List[str]:
     """The nd integrate kernel's per-point entries: ``tmc_accumulate_nd(x,
-    acc)`` adds each ``f_j(x)``; ``tmc_accumulate_nd_sq(x, pilot, acc,
-    sq)`` also adds ``(f_j(x) - pilot[j])^2`` to ``sq[j]`` (error bars);
-    ``tmc_values_nd(x, vals)`` stores each ``f_j(x)`` (antithetic error
-    bars, which square the pair's mean)."""
-    acc = "\n".join(f"  acc[{j}] += f_{j}(x);" for j in range(k))
+    acc)`` adds each ``f_j(x)`` (the body ``acc``); ``tmc_accumulate_nd_sq(x,
+    pilot, acc, sq)`` also adds ``(f_j(x) - pilot[j])^2`` to ``sq[j]``
+    (error bars); ``tmc_values_nd(x, vals)`` stores each ``f_j(x)``
+    (antithetic error bars, which square the pair's mean)."""
     sq = "\n".join(
         f"  {{\n    const float v = f_{j}(x);\n    acc[{j}] += v;\n"
-        f"    const float dd = v - pilot[{j}];\n    sq[{j}] += dd * dd;\n  }}"
+        f"    const float dd = v - pilot[{j}];\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
         for j in range(k)
     )
     vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
