@@ -125,7 +125,28 @@ Phases, each of which exits non-zero on failure:
 23. time the pipe probe's IMAD + FFMA mix (``tools/pipe_rates.cu``; all
     its mixes: ``tools/pipe_probe.py``), print each SASS opcode's rate
     per SM per clock, and fail if it runs above the bounds' pipe model
-    by more than 3 %.
+    by more than 3 %;
+24. finish building the 1-D integrate kernel's mode libraries (antithetic,
+    qmc, mc with error bars, antithetic with error bars, and config 4's
+    importance set with error bars; all started in phase 2) and print
+    nvcc's register and spill report;
+25. hold each mode's kernel against its plain version on the card at 2**22
+    samples under U(-1,2), N(0.5,1.5) and Exp(2), and config 4's
+    importance set under its proposal: means within rel 1e-5 + abs 1e-6,
+    error bars within rel 1e-4 + abs 1e-9;
+26. the bench set at 2**30 samples under N(0, 1) in each mode and one
+    rotation of rQMC (8 x 2**27, ``integrate(method="qmc",
+    return_stderr=True)``): time the kernel and the plain version (CUDA
+    events) and the ``integrate()`` call end to end (host clock), and
+    count the bound on the running build, per sample drawn (per pair
+    under antithetic);
+27. drive the importance-sampling main path at BASELINE.md
+    config 4, ``integrate_importance_sampling([x > 4], N(0,1), N(4,1.5),
+    n_samples=1e8, return_stderr=True, return_diagnostics=True)``: the
+    estimate within 6 standard errors of P(X > 4) = 3.1671e-5, the
+    weight diagnostics (ESS) printed, and the launch count rose; then
+    time its kernel, plain version and call as phase 26 does, read the
+    device idle share of warm calls, and time the same set at 2**30.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -210,6 +231,31 @@ MAIN_SAMPLES = 1_000_000_000
 CHECK_SAMPLES = 1 << 24
 SEED = 42
 RTOL, ATOL = 1e-5, 1e-6
+# The 1-D kernel's modes (phases 24-26): the bench set at 2**30 samples
+# under N(0, 1) in each, held against the plain version at 2**22 under the
+# three families; rQMC as integrate() runs it, 8 rotations of 2**27.
+MODE_SAMPLES = 1 << 30
+MODE_CHECK_SAMPLES = 1 << 22
+MODES_1D = {
+    "antithetic": ("antithetic", False),
+    "qmc": ("qmc", False),
+    "mc_stderr": ("mc", True),
+    "antithetic_stderr": ("antithetic", True),
+}
+RQMC_ROTATIONS = 8
+# Kernel and plain version sum the same squares in other orders (the kernel
+# fuses each square-add); an odd integrand's antithetic pairs cancel
+# exactly and leave its error bar at float32 rounding (~1e-11) on both.
+STDERR_1D_RTOL, STDERR_1D_ATOL = 1e-4, 1e-9
+# Phase 25 scales ATOL and STDERR_1D_ATOL by each column's own size (its
+# mean |value| on the pilot grid, or |mean| if larger): a rare-event column
+# (config 4's mean is 3.2e-5) is then held to ~1e-5 of itself, as an O(1)
+# column is, where a bare 1e-6 would let it be 3 % off.
+# The importance-sampling main path, BASELINE.md config 4:
+# P(X > 4) under N(0, 1) from the proposal N(4, 1.5), 1e8 samples.
+IS_FNS = [lambda x: x > 4.0]
+IS_SAMPLES = 100_000_000
+IS_EXACT = 0.5 * math.erfc(4.0 / math.sqrt(2.0))  # 3.1671e-5
 # nd main path 1: c9's set (benchmarks/run_all.py:338-354) at 1e9, with
 # its closed forms under N(0,1) x U(0,1) x Exp(2): E and Var.
 ND_FNS = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
@@ -963,10 +1009,13 @@ def main() -> int:
     try:
         import tpu_montecarlo_torch as tm
         from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE, fns_key
+        from tpu_montecarlo_torch.api.results import _unit_integrand
         from tpu_montecarlo_torch.ops.integrate_kernel import (
+            IntegrateConfig,
             IntegrateProgram,
             integrate_cuda,
             integrate_reference,
+            pilot_values,
             plan_grid,
         )
         from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
@@ -977,8 +1026,7 @@ def main() -> int:
             integrate_nd_reference,
             integrate_nd_rows,
             pilot_row,
-            plan_nd_grid,
-        )
+            )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
             Layout,
             McmcConfig,
@@ -1218,6 +1266,25 @@ def main() -> int:
     }.values())
     pt_builds = [pool.submit(timed_build, p.library) for p in pt_programs]
     probe_build = pool.submit(load_pipe_probe)
+    # The 1-D kernel's new modes: one library per mode for the bench set,
+    # and config 4's importance set (its integrand, the weight's unit
+    # integrand of the diagnostics, and the two densities) with error
+    # bars, as the public path builds it (phase 27 takes it from the
+    # cache).
+    mode_cfgs = {name: IntegrateConfig(*mode) for name, mode in MODES_1D.items()}
+    is_target = tm.Distribution.normal(0.0, 1.0)
+    is_proposal = tm.Distribution.normal(4.0, 1.5)
+    is_program = integ._integrate_program(
+        integ._trace_user_functions(IS_FNS) + (_unit_integrand(),),
+        (integ._pdf_mode(is_target), integ._pdf_mode(is_proposal)),
+    )
+    is_cfg = IntegrateConfig("mc", True)
+    mode_builds = {
+        name: pool.submit(timed_build, lambda c=cfg: program.library(c))
+        for name, cfg in mode_cfgs.items()
+    }
+    mode_builds["is"] = pool.submit(timed_build,
+                                    lambda: is_program.library(is_cfg))
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -1241,7 +1308,7 @@ def main() -> int:
         n = grid.actual_samples
         got = integrate_cuda(program, spec.kind, params, SEED, grid)
         want = integrate_reference(
-            program.torch_fns, spec.kind, params, SEED, grid
+            program.torch_values, spec.kind, params, SEED, grid
         )
         got = got.double().cpu().numpy() / n
         want = want.double().cpu().numpy() / n
@@ -1294,7 +1361,7 @@ def main() -> int:
     )
     plain_ms = time_ms(
         lambda: integrate_reference(
-            program.torch_fns, spec.kind, params, SEED, main_grid
+            program.torch_values, spec.kind, params, SEED, main_grid
         ),
         reps=2,
     )
@@ -1517,7 +1584,7 @@ def main() -> int:
         the max abs diff of the means."""
         kinds = tuple(dist_spec_of(d).kind for d in dists)
         cfg = NdConfig(kinds, method, with_stderr)
-        grid = plan_nd_grid(make_integrate_plan(n).actual_samples, method)
+        grid = plan_grid(make_integrate_plan(n).actual_samples, method)
         params = torch.tensor(
             np.stack([dist_spec_of(d).params for d in dists]), device=dev
         )
@@ -1567,7 +1634,7 @@ def main() -> int:
     result = tm.integrate(ND_FNS, nd_dists, n_samples=MAIN_SAMPLES, seed=SEED)
     main_s = time.perf_counter() - t0
     nd_launches = integrate_nd_cuda.launches
-    nd_grid = plan_nd_grid(make_integrate_plan(MAIN_SAMPLES).actual_samples)
+    nd_grid = plan_grid(make_integrate_plan(MAIN_SAMPLES).actual_samples)
     n_nd = nd_grid.actual_samples
     print(f"phase 12: integrate([x*y*z, x*x+y+z], [N(0,1), U(0,1), Exp(2)], "
           f"n_samples={MAIN_SAMPLES}) drew {n_nd} samples in {main_s:.3f} s "
@@ -1616,7 +1683,7 @@ def main() -> int:
     # kernel's float32 block rows, which resolve what the float32 means
     # cannot: distinct rotations (spread > 0) and an rQMC error 10x below
     # plain MC's at 1e9.
-    rot_grid = plan_nd_grid(make_integrate_plan(
+    rot_grid = plan_grid(make_integrate_plan(
         -(-MAIN_SAMPLES // QMC_ROTATIONS)).actual_samples, "qmc")
     n_rot = rot_grid.actual_samples
     rot_seeds = np.uint32(SEED) + np.uint32(0x9E3779B9) * np.arange(
@@ -1979,6 +2046,165 @@ def main() -> int:
     print("phase 23:", end=" ")
     pipe_rates(probe_build.result(), card, ["IMAD+FFMA"])
 
+    # 24. The 1-D kernel's mode libraries, started in phase 2.
+    mode_libs = {}
+    for name, build in mode_builds.items():
+        mode_libs[name], sec = build.result()
+        print(f"phase 24: built the integrate kernel's {name} library in "
+              f"{sec:.1f} s (in parallel with phase 2)")
+        for line in mode_libs[name].build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # 25. Each mode's kernel against its plain version at 2**22 samples,
+    # three families; config 4's importance set under its proposal.
+    def mode_vs_plain(prog, dist, cfg, n, phase: str) -> float:
+        """Means (and error bars) of the kernel and of the plain version
+        on the same samples; fails unless they agree.  Returns the max
+        abs diff of the means."""
+        spec = dist_spec_of(dist)
+        params = torch.tensor(spec.params, device=dev)
+        grid = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
+        pilot = (pilot_values(prog.torch_values, spec.kind, params)
+                 if cfg.with_stderr else None)
+        got = integrate_cuda(prog, spec.kind, params, SEED, grid, cfg, pilot)
+        want = integrate_reference(prog.torch_values, spec.kind, params, SEED,
+                                   grid, cfg, pilot)
+        name = (f"{cfg.method}{', stderr' if cfg.with_stderr else ''}, "
+                f"{spec.kind.name.lower()} at {grid.actual_samples} samples")
+        size = pilot_values(lambda x: [v.abs() for v in prog.torch_values(x)],
+                            spec.kind, params).double().cpu().numpy()
+        if cfg.with_stderr:
+            (m_k, s_k), (m_p, s_p) = (
+                [t.double().cpu().numpy() for t in
+                 finish_stderr(o[0], o[1], pilot, grid, cfg.antithetic)]
+                for o in (got, want))
+        else:
+            n_f = float(np.float32(grid.actual_samples))
+            m_k, m_p = ((o / n_f).double().cpu().numpy() for o in (got, want))
+        err = np.abs(m_k - m_p)
+        size = np.maximum(size, np.abs(m_p))
+        print(f"phase {phase}: {name}: kernel {m_k}")
+        print(f"         plain  {m_p}  max|diff| {err.max():.3e}, "
+              f"max|diff|/size {np.max(err / size):.3e}")
+        if not np.all(np.isfinite(m_k)):
+            fail(f"{name}: non-finite kernel means {m_k}")
+        if not np.all(err <= RTOL * np.abs(m_p) + ATOL * size):
+            fail(f"{name}: kernel and plain version disagree")
+        if cfg.with_stderr:
+            print(f"         stderr kernel {s_k} plain {s_p}")
+            if not (np.array_equal(s_k > 0, s_p > 0) and np.all(
+                    np.abs(s_k - s_p)
+                    <= STDERR_1D_RTOL * np.abs(s_p) + STDERR_1D_ATOL * size)):
+                fail(f"{name}: error bars disagree")
+        return float(err.max())
+
+    mode_err = max(mode_vs_plain(program, d, cfg, MODE_CHECK_SAMPLES, "25")
+                   for cfg in mode_cfgs.values() for d in families)
+    mode_err = max(mode_err, mode_vs_plain(is_program, is_proposal, is_cfg,
+                                           MODE_CHECK_SAMPLES, "25"))
+    max_abs_err = max(max_abs_err, mode_err)
+
+    # 26. The bench set at 2**30 samples under N(0, 1) in each mode: kernel
+    # and plain version (CUDA events), the bound per sample drawn (per
+    # pair under antithetic) on the running build, and integrate() end to
+    # end (host clock); then rQMC as integrate() runs it.
+    def mode_times(prog, cfg, lib_, spec_, n, call, label: str) -> dict:
+        params_ = torch.tensor(spec_.params, device=dev)
+        grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
+        pilot = (pilot_values(prog.torch_values, spec_.kind, params_)
+                 if cfg.with_stderr else None)
+        run = lambda: integrate_cuda(prog, spec_.kind, params_, SEED,  # noqa: E731
+                                     grid_, cfg, pilot)
+        k_ms = time_ms(run, reps=10)
+        p_ms = time_ms(lambda: integrate_reference(
+            prog.torch_values, spec_.kind, params_, SEED, grid_, cfg, pilot),
+            reps=1)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        c_ms = float(np.median(walls)) * 1e3
+        drawn = grid_.actual_samples
+        units = drawn // 2 if cfg.antithetic else drawn
+        mhz_ = clock_under_load(run, k_ms)
+        bound = card_bound(lib_, f"integrate_kernelILi{int(spec_.kind)}EE",
+                           1, units, mhz_)
+        print(f"phase 26: {label}, {drawn} samples on {card}: kernel "
+              f"{k_ms:.3f} ms ({drawn / k_ms * 1e3:.4e} samples/s), plain "
+              f"{p_ms:.3f} ms, call end to end {c_ms:.3f} ms median of 3, "
+              f"host clock")
+        print_bound(bound, mhz_, "pair" if cfg.antithetic else "sample")
+        return {"samples": drawn, "ms": k_ms, "plain_ms": p_ms,
+                "call_ms": c_ms, "bound_ms": bound[0], "bound_pipe": bound[1],
+                "issue_ms": bound[2]}
+
+    modes = {}
+    for name, (method, stderr) in MODES_1D.items():
+        modes[name] = mode_times(
+            program, mode_cfgs[name], mode_libs[name], spec, MODE_SAMPLES,
+            lambda m=method, e=stderr: tm.integrate(
+                BENCH_FNS, normal, n_samples=MODE_SAMPLES, seed=SEED,
+                method=m, return_stderr=e),
+            f"K=8, N(0,1), {name}")
+    rot_n = plan_grid(make_integrate_plan(-(-MODE_SAMPLES // RQMC_ROTATIONS))
+                      .actual_samples, "qmc").actual_samples
+    rqmc = mode_times(
+        program, mode_cfgs["qmc"], mode_libs["qmc"], spec,
+        -(-MODE_SAMPLES // RQMC_ROTATIONS),
+        lambda: tm.integrate(BENCH_FNS, normal, n_samples=MODE_SAMPLES,
+                             seed=SEED, method="qmc", return_stderr=True,
+                             qmc_rotations=RQMC_ROTATIONS),
+        f"K=8, N(0,1), one rQMC rotation of {RQMC_ROTATIONS} (the call: "
+        f"all {RQMC_ROTATIONS})")
+    rqmc.update(rotations=RQMC_ROTATIONS, rotation_samples=rot_n)
+    modes["rqmc"] = rqmc
+
+    # 27. The importance-sampling main path at config 4, through
+    # the public API, counted; then its kernel at 1e8 and 2**30 samples.
+    integrate_cuda.launches = 0
+    t0 = time.perf_counter()
+    is_result = tm.integrate_importance_sampling(
+        IS_FNS, is_target, is_proposal, n_samples=IS_SAMPLES, seed=SEED,
+        return_stderr=True, return_diagnostics=True)
+    is_s = time.perf_counter() - t0
+    is_launches = integrate_cuda.launches
+    v, se = float(is_result.values[0]), float(is_result.stderr[0])
+    diag = is_result.diagnostics
+    print(f"phase 27: integrate_importance_sampling([x > 4], N(0,1), "
+          f"N(4,1.5), n_samples={IS_SAMPLES}, return_stderr=True, "
+          f"return_diagnostics=True) in {is_s:.3f} s (host clock), "
+          f"{is_launches} kernel launch(es)")
+    print(f"  P(X > 4) = {v:.7e} +- {se:.3e}, exact {IS_EXACT:.7e}, "
+          f"z = {(v - IS_EXACT) / se:+.2f}; ESS {diag['ess']:.1f} of "
+          f"{IS_SAMPLES} ({diag['ess'] / IS_SAMPLES:.4%}), mean weight "
+          f"{diag['mean_weight']:.6f}, weight cv {diag['weight_cv']:.4f}")
+    if is_launches < 1:
+        fail("the importance-sampling path did not launch the integrate "
+             "kernel")
+    if not (math.isfinite(v) and se > 0 and abs(v - IS_EXACT) <= 6 * se):
+        fail("config 4 is not within 6 standard errors of P(X > 4)")
+    if not (0 < diag["ess"] <= IS_SAMPLES and math.isfinite(diag["weight_cv"])):
+        fail(f"bad weight diagnostics {diag}")
+    is_spec = dist_spec_of(is_proposal)
+
+    def is_call():
+        tm.integrate_importance_sampling(
+            IS_FNS, is_target, is_proposal, n_samples=IS_SAMPLES, seed=SEED,
+            return_stderr=True, return_diagnostics=True)
+
+    modes["is_config4"] = mode_times(
+        is_program, is_cfg, mode_libs["is"], is_spec, IS_SAMPLES, is_call,
+        "config 4, [x > 4] and the weight, N(0,1) from N(4,1.5), stderr")
+    modes["is_config4"]["idle_share"] = idle_share(is_call)
+    modes["is_2e30"] = mode_times(
+        is_program, is_cfg, mode_libs["is"], is_spec, MODE_SAMPLES,
+        lambda: tm.integrate_importance_sampling(
+            IS_FNS, is_target, is_proposal, n_samples=MODE_SAMPLES, seed=SEED,
+            return_stderr=True, return_diagnostics=True),
+        "config 4's set at 2**30")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -1996,6 +2222,8 @@ def main() -> int:
         "parent_bound_pipe": integrate_parent[1],
         "parent_issue_ms": integrate_parent[2],
         "library_ms": None,
+        "is_launches": is_launches,
+        "modes": modes,
     }, {
         "name": "mcmc",
         "route": "cuda",

@@ -94,7 +94,7 @@ def _kernel_and_plain(fns, dist, device, n_samples):
     got = integrate_cuda(program, spec.kind, params, 42, grid)
     torch.cuda.synchronize()
     assert integrate_cuda.launches == before + 1
-    want = integrate_reference(program.torch_fns, spec.kind, params, 42, grid)
+    want = integrate_reference(program.torch_values, spec.kind, params, 42, grid)
     n = grid.actual_samples
     return got.double().cpu().numpy() / n, want.double().cpu().numpy() / n
 
@@ -144,6 +144,212 @@ def test_kernel_rejects_bad_params(cuda_device):
     params = torch.tensor(spec.params, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         integrate_cuda(program, spec.kind, params, 42, plan_grid(1000))
+
+
+# -- the 1-D kernel's modes: antithetic, qmc, error bars, importance sets -----
+#
+# The kernel and the plain version draw the same samples in every mode, so
+# means agree as above; error bars, which come from the same squares, within
+# rel 1e-4 (float32 summation order, and the kernel's fused square-adds),
+# plus 1e-9 absolute where antithetic pairs of an odd integrand cancel
+# exactly and leave only float32 rounding (~1e-11).
+STDERR_1D_RTOL, STDERR_1D_ATOL = 1e-4, 1e-9
+MODES_1D = {
+    "antithetic": ("antithetic", False),
+    "qmc": ("qmc", False),
+    "mc-stderr": ("mc", True),
+    "antithetic-stderr": ("antithetic", True),
+}
+
+
+def _modes_kernel_and_plain(program, dist, method, with_stderr, device, n_samples):
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        finish_stderr,
+        pilot_values,
+    )
+
+    cfg = IntegrateConfig(method, with_stderr)
+    grid = plan_grid(n_samples, method)
+    spec = dist_spec_of(dist)
+    params = torch.tensor(spec.params, device=device)
+    pilot = (pilot_values(program.torch_values, spec.kind, params)
+             if with_stderr else None)
+    before = integrate_cuda.launches
+    got = integrate_cuda(program, spec.kind, params, 42, grid, cfg, pilot)
+    torch.cuda.synchronize()
+    assert integrate_cuda.launches == before + 1
+    want = integrate_reference(program.torch_values, spec.kind, params, 42,
+                               grid, cfg, pilot)
+    if with_stderr:
+        return [tuple(t.double().cpu().numpy() for t in
+                      finish_stderr(o[0], o[1], pilot, grid, cfg.antithetic))
+                for o in (got, want)]
+    n = float(np.float32(grid.actual_samples))
+    return [((o / n).double().cpu().numpy(), None) for o in (got, want)]
+
+
+def _check_1d(got, want):
+    (m_k, s_k), (m_p, s_p) = got, want
+    assert np.all(np.isfinite(m_k))
+    np.testing.assert_allclose(m_k, m_p, rtol=RTOL, atol=ATOL)
+    if s_p is not None:
+        # Zero only where the integrand is constant on the samples (WIDEST
+        # holds c * exp(-|x|) for x > c with c = 0).
+        assert np.array_equal(s_k > 0, s_p > 0)
+        np.testing.assert_allclose(s_k, s_p, rtol=STDERR_1D_RTOL,
+                                   atol=STDERR_1D_ATOL)
+
+
+def _program(fns, weight=None):
+    return IntegrateProgram(tuple(tm.trace_function(f) for f in fns), weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES_1D))
+@pytest.mark.parametrize("dist", DISTS, ids=["uniform", "normal", "exponential"])
+def test_kernel_modes_match_plain_version(cuda_device, dist, mode):
+    method, with_stderr = MODES_1D[mode]
+    _check_1d(*_modes_kernel_and_plain(_program(BENCH), dist, method,
+                                       with_stderr, cuda_device, 1 << 22))
+
+
+# Importance sets: N(0,1) under N(4,1.5), N(0,1) under U(-5,5), Exp(2)
+# under Exp(1), with the unit integrand (the weight) of the diagnostics.
+IS_PAIRS = {
+    "normal": (tm.Distribution.normal(0.0, 1.0), tm.Distribution.normal(4.0, 1.5)),
+    "uniform": (tm.Distribution.normal(0.0, 1.0), tm.Distribution.uniform(-5.0, 5.0)),
+    "exponential": (tm.Distribution.exponential(2.0), tm.Distribution.exponential(1.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc"] + list(MODES_1D))
+@pytest.mark.parametrize("pair", list(IS_PAIRS))
+def test_weighted_kernel_matches_plain_version(cuda_device, pair, mode):
+    from tpu_montecarlo_torch.api.results import _unit_integrand
+
+    method, with_stderr = MODES_1D.get(mode, ("mc", False))
+    target, proposal = IS_PAIRS[pair]
+    weight = tuple(tm.trace_function(d._pdf_func) for d in (target, proposal))
+    program = IntegrateProgram(
+        tuple(tm.trace_function(f) for f in [lambda x: x > 1.0, lambda x: x * x])
+        + (_unit_integrand(),), weight)
+    _check_1d(*_modes_kernel_and_plain(program, proposal, method, with_stderr,
+                                       cuda_device, 1 << 22))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["mc", "antithetic"])
+def test_widest_kernel_with_error_bars(cuda_device, method):
+    # 128 integrands with error bars: 256 float32 sums per thread, more
+    # than the registers hold (pytest -rP shows nvcc's spill report).
+    from tpu_montecarlo_torch.ops.integrate_kernel import IntegrateConfig
+
+    program = _program(WIDEST)
+    for line in program.library(IntegrateConfig(method, True)).build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    got, want = _modes_kernel_and_plain(program, DISTS[1], method, True,
+                                        cuda_device, 1 << 20)
+    assert got[0].shape == (MAX_FUNCTIONS,)
+    _check_1d(got, want)
+
+
+# The run-time position loop (17 integrands and more) in each new mode.
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES_1D))
+def test_wide_loop_modes_match_plain_version(cuda_device, mode):
+    method, with_stderr = MODES_1D[mode]
+    _check_1d(*_modes_kernel_and_plain(_program(WIDEST[:17]), DISTS[2], method,
+                                       with_stderr, cuda_device, 1 << 22))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", DISTS, ids=["uniform", "normal", "exponential"])
+def test_qmc_kernel_past_two_to_the_32_points(cuda_device, dist):
+    # 2**33 points: the plan reaches the segment split (seg = t >> 17).
+    from tpu_montecarlo_torch.ops.integrate_kernel import qmc_seg_bits
+
+    assert qmc_seg_bits(plan_grid(1 << 33, "qmc")) == 17
+    _check_1d(*_modes_kernel_and_plain(_program(BENCH[:2]), dist, "qmc", False,
+                                       cuda_device, 1 << 33))
+
+
+@pytest.mark.cuda
+def test_integrate_modes_on_cuda_match_cpu(cuda_device):
+    d = tm.Distribution.normal(0.0, 1.0)
+    for kw in (dict(method="mc", return_stderr=True),
+               dict(method="antithetic", return_stderr=True),
+               dict(method="qmc"),
+               dict(method="qmc", return_stderr=True, qmc_rotations=4)):
+        before = integrate_cuda.launches
+        got = tm.integrate(BENCH, d, n_samples=1 << 20, device=cuda_device, **kw)
+        rotations = kw.get("qmc_rotations", 8) if kw["method"] == "qmc" and kw.get("return_stderr") else 1
+        assert integrate_cuda.launches == before + rotations
+        want = tm.integrate(BENCH, d, n_samples=1 << 20, device="cpu", **kw)
+        np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
+        if kw["method"] == "qmc" and kw.get("return_stderr"):
+            assert np.all(np.abs(got.stderr - want.stderr)
+                          <= RTOL * np.abs(want.values) + ATOL)
+        elif kw.get("return_stderr"):
+            np.testing.assert_allclose(got.stderr, want.stderr,
+                                       rtol=STDERR_1D_RTOL, atol=STDERR_1D_ATOL)
+
+
+@pytest.mark.cuda
+def test_importance_sampling_on_cuda_matches_cpu(cuda_device):
+    target, proposal = IS_PAIRS["normal"]
+    fns = [lambda x: x > 4.0, lambda x: x]
+    for kw in (dict(return_stderr=True, return_diagnostics=True),
+               dict(method="antithetic", return_stderr=True),
+               dict(method="qmc", return_stderr=True, qmc_rotations=4)):
+        before = integrate_cuda.launches
+        got = tm.integrate_importance_sampling(fns, target, proposal,
+                                               n_samples=1 << 20,
+                                               device=cuda_device, **kw)
+        assert integrate_cuda.launches == before + kw.get("qmc_rotations", 1)
+        want = tm.integrate_importance_sampling(fns, target, proposal,
+                                                n_samples=1 << 20,
+                                                device="cpu", **kw)
+        np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
+        if kw.get("method") == "qmc":
+            assert np.all(np.abs(got.stderr - want.stderr)
+                          <= RTOL * np.abs(want.values) + ATOL)
+        else:
+            np.testing.assert_allclose(got.stderr, want.stderr,
+                                       rtol=STDERR_1D_RTOL, atol=STDERR_1D_ATOL)
+        if kw.get("return_diagnostics"):
+            for key in ("ess", "mean_weight", "weight_cv"):
+                assert got.diagnostics[key] == pytest.approx(
+                    want.diagnostics[key], rel=STDERR_1D_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES_1D))
+def test_kernel_rows_sum_to_the_wrapper_result(cuda_device, mode):
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        MAX_CUDA_BLOCKS,
+        IntegrateConfig,
+        integrate_rows,
+        pilot_values,
+    )
+
+    method, with_stderr = MODES_1D[mode]
+    cfg = IntegrateConfig(method, with_stderr)
+    program = _program(BENCH[:3])
+    spec = dist_spec_of(DISTS[0])
+    params = torch.tensor(spec.params, device=cuda_device)
+    pilot = (pilot_values(program.torch_values, spec.kind, params)
+             if with_stderr else None)
+    grid = plan_grid(1 << 22, method)
+    before = integrate_cuda.launches
+    rows = integrate_rows(program, spec.kind, params, 7, grid, cfg, pilot)
+    assert integrate_cuda.launches == before + 1
+    assert rows.shape == (min(grid.n_tiles, MAX_CUDA_BLOCKS),
+                          3 * (2 if with_stderr else 1))
+    whole = integrate_cuda(program, spec.kind, params, 7, grid, cfg, pilot)
+    assert torch.equal(rows.sum(dim=0).reshape(whole.shape), whole)
 
 
 # -- the MCMC kernel ----------------------------------------------------------
@@ -387,7 +593,6 @@ def _nd_kernel_and_plain(fns, dists, method, with_stderr, device, n_samples):
         integrate_nd_cuda,
         integrate_nd_reference,
         pilot_row,
-        plan_nd_grid,
     )
 
     d = len(dists)
@@ -395,7 +600,7 @@ def _nd_kernel_and_plain(fns, dists, method, with_stderr, device, n_samples):
     kinds = tuple(s.kind for s in specs)
     program = IntegrateNdProgram(tuple(tm.trace_function(f, d) for f in fns), kinds)
     cfg = NdConfig(kinds, method, with_stderr)
-    grid = plan_nd_grid(n_samples, method)
+    grid = plan_grid(n_samples, method)
     params = torch.tensor(np.stack([s.params for s in specs]), device=device)
     pilot = pilot_row(program.torch_fns, kinds, params) if with_stderr else None
     before = integrate_nd_cuda.launches
@@ -518,7 +723,6 @@ def test_nd_kernel_rows_sum_to_the_wrapper_result(cuda_device):
         NdConfig,
         integrate_nd_cuda,
         integrate_nd_rows,
-        plan_nd_grid,
     )
 
     u = tm.Distribution.uniform(0.0, 1.0)
@@ -528,7 +732,7 @@ def test_nd_kernel_rows_sum_to_the_wrapper_result(cuda_device):
     )
     cfg = NdConfig(kinds, "qmc")
     params = torch.tensor([dist_spec_of(u).params] * 2, device=cuda_device)
-    grid = plan_nd_grid(1 << 22, "qmc")
+    grid = plan_grid(1 << 22, "qmc")
     before = integrate_nd_cuda.launches
     rows = integrate_nd_rows(program, cfg, params, 7, grid)
     assert integrate_nd_cuda.launches == before + 1
@@ -543,7 +747,6 @@ def test_nd_kernel_rejects_bad_params(cuda_device):
         IntegrateNdProgram,
         NdConfig,
         integrate_nd_cuda,
-        plan_nd_grid,
     )
 
     kinds = tuple(dist_spec_of(d).kind for d in ND_DISTS)
@@ -552,7 +755,7 @@ def test_nd_kernel_rejects_bad_params(cuda_device):
     )
     params = torch.zeros((3, 2), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
-        integrate_nd_cuda(program, NdConfig(kinds), params, 42, plan_nd_grid(1000))
+        integrate_nd_cuda(program, NdConfig(kinds), params, 42, plan_grid(1000))
 
 
 # -- the nd MCMC kernel -------------------------------------------------------

@@ -214,13 +214,8 @@ def test_bad_arguments_raise():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [
-        {"method": "qmc"},
-        {"method": "antithetic"},
-        {"return_stderr": True},
-        {"control_variates": [(lambda x: x, 0.0)]},
-    ],
-    ids=["qmc", "antithetic", "stderr", "control-variates"],
+    [{"control_variates": [(lambda x: x, 0.0)]}],
+    ids=["control-variates"],
 )
 def test_variants_not_ported_yet(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -263,7 +258,7 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     params = torch.tensor([0.0, 1.0])
     before = integrate_cuda.launches
     got = integrate_cuda(program, DistKind.UNIFORM, params, 3, grid)
-    want = integrate_reference(program.torch_fns, DistKind.UNIFORM, params, 3, grid)
+    want = integrate_reference(program.torch_values, DistKind.UNIFORM, params, 3, grid)
     assert torch.equal(got, want)
     assert integrate_cuda.launches == before  # no kernel ran
     with pytest.raises(ValueError):

@@ -62,6 +62,7 @@ from tpu_montecarlo.utils.dispatch import make_integrate_plan as j_plan
 import tpu_montecarlo_torch as tm
 from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.ops import qmc
+from tpu_montecarlo_torch.ops.integrate_kernel import plan_grid
 from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
     IntegrateNdProgram,
     NdConfig,
@@ -72,7 +73,6 @@ from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
     nd_samples,
     nd_uniforms,
     pilot_row,
-    plan_nd_grid,
     qmc_seg_bits,
 )
 from tpu_montecarlo_torch.sampling import DistKind
@@ -210,19 +210,19 @@ def test_plan_matches_jax_actual_samples(method):
             traced, kinds, plan, interpret=True, method=method
         )
         assert run.block_rows == 256
-        grid = plan_nd_grid(plan.actual_samples, method)
+        grid = plan_grid(plan.actual_samples, method)
         assert grid.actual_samples == run.actual_samples, n
         assert grid.actual_samples >= n
 
 
 def test_qmc_segments_only_past_two_to_the_32():
-    assert qmc_seg_bits(plan_nd_grid(1 << 31, "qmc")) is None
+    assert qmc_seg_bits(plan_grid(1 << 31, "qmc")) is None
     # The plan rounds to whole programs of 512 tiles: 255 stay below 2**32
     # points, 256 reach it.
-    assert qmc_seg_bits(plan_nd_grid(255 * 512 * 32_768, "qmc")) is None
-    assert qmc_seg_bits(plan_nd_grid(255 * 512 * 32_768 + 1, "qmc")) == 17
+    assert qmc_seg_bits(plan_grid(255 * 512 * 32_768, "qmc")) is None
+    assert qmc_seg_bits(plan_grid(255 * 512 * 32_768 + 1, "qmc")) == 17
     with pytest.raises(ValueError, match="exceeds int32"):
-        qmc_seg_bits(plan_nd_grid(1 << 46, "qmc"))
+        qmc_seg_bits(plan_grid(1 << 46, "qmc"))
 
 
 # -- one tile's draws against the JAX kernel's -----------------------------------
@@ -251,7 +251,7 @@ def _samples_close(kind, mean, std, got, want):
 @pytest.mark.parametrize("seed", [42, -7, (1 << 31) + 9])
 def test_tile_uniforms_and_samples_match_jax(seed):
     kinds, params = _specs(MIXED_DISTS)
-    grid = plan_nd_grid(1 << 22)
+    grid = plan_grid(1 << 22)
     pid, blk = 3, 5
     tiles = torch.tensor([pid * grid.loops + blk])
     rng = JCounterRng()
@@ -278,7 +278,7 @@ def test_tile_uniforms_and_samples_match_jax(seed):
 
 @pytest.mark.parametrize("segmented", [False, True], ids=["one-segment", "segments"])
 def test_tile_sobol_uniforms_match_jax(segmented):
-    grid = plan_nd_grid((1 << 33) if segmented else (1 << 24), "qmc")
+    grid = plan_grid((1 << 33) if segmented else (1 << 24), "qmc")
     seg_bits = qmc_seg_bits(grid)
     assert (seg_bits is not None) == segmented
     blocks = [0, 7, (1 << 17) + 3, 3 * (1 << 17) + 11] if segmented else [0, 7, 511]
@@ -341,7 +341,7 @@ def test_plain_version_matches_jax_interpret_kernel(case):
         tuple(j_trace(f, d) for f in fns), kinds, plan, interpret=True,
         method=method, with_stderr=with_stderr,
     )
-    grid = plan_nd_grid(make_integrate_plan(n, THREADS).actual_samples, method)
+    grid = plan_grid(make_integrate_plan(n, THREADS).actual_samples, method)
     assert grid.actual_samples == run.actual_samples
     for seed in (42, -3):
         want = run(np.int32(seed), params)
@@ -473,6 +473,11 @@ def test_out_of_scope_options_name_their_roadmap_items():
     custom = tm.Distribution(tm.DistributionType.CUSTOM, {}, lambda x: 1.0)
     cauchy = tm.Distribution(tm.DistributionType.CAUCHY, {}, lambda x: 1.0)
     wide = [_plus(float(c)) for c in range(129)]
+    # An int() cast on a traced value does not trace: the JAX package's
+    # PDF-table fallback, which needs CUSTOM tables.
+    untraceable = tm.Distribution(
+        tm.DistributionType.CUSTOM, {}, lambda x: 0.5 if int(abs(x)) < 1 else 0.0
+    )
     cases = {
         r"item 7\.1 ": lambda: integ.integrate(f2, [u, custom]),
         r"item 7\.2 ": lambda: integ.integrate(f2, [cauchy, u]),
@@ -483,7 +488,7 @@ def test_out_of_scope_options_name_their_roadmap_items():
         r"item 7\.6 ": lambda: integ.integrate(wide, [u, u], n_samples=1000),
         r"item 12 ": lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
         r"item 2 ": lambda: integ.compile_integrate([lambda x: x], u),
-        r"item 5 ": lambda: integ.integrate_importance_sampling([lambda x: x], u, u),
+        r"item 2\.3 ": lambda: integ.integrate_importance_sampling([lambda x: x], untraceable, u),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], u),
     }
     for item, case in cases.items():
@@ -501,7 +506,7 @@ def test_missing_gpu_raises_instead_of_falling_back():
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     kinds, params = _specs(C9_DISTS)
     program = IntegrateNdProgram(tuple(tm.trace_function(f, 3) for f in C9_FNS), kinds)
-    grid = plan_nd_grid(100_000, "antithetic")
+    grid = plan_grid(100_000, "antithetic")
     p = torch.tensor(params)
     cfg = NdConfig(kinds, "antithetic", with_stderr=True)
     pilot = pilot_row(program.torch_fns, kinds, p)
@@ -591,7 +596,7 @@ def test_sobol_header_matches_port(tmp_path):
         ctypes.c_int] + [ctypes.c_uint32] * 3
     seed = (1 << 31) + 5
     for segmented, tile in ((False, 9), (True, (1 << 17) * 2 + 9)):
-        grid = plan_nd_grid((1 << 33) if segmented else (1 << 22), "qmc")
+        grid = plan_grid((1 << 33) if segmented else (1 << 22), "qmc")
         seg_bits = qmc_seg_bits(grid)
         for j in (0, 3):
             v = np.ascontiguousarray(qmc.sobol_direction_numbers(j))

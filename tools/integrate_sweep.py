@@ -26,6 +26,14 @@ trees can be compared):
 * ``k128``: 1-D, 128 integrands (sines, tanh, indicators, a branch)
   under N(0, 1) at 2^30; ``k<N>`` (named in ``--cells`` only): their
   first N;
+* ``is`` (named in ``--cells`` only): ``chip_smoke.py``'s importance
+  set at BASELINE.md config 4 ([x > 4] and the weight's unit integrand,
+  weighted by N(0, 1) / N(4, 1.5), samples of N(4, 1.5)) at 2^30;
+  ``is@mc_stderr`` is the one its main path runs;
+* ``<1-D cell>@<mode>`` (named in ``--cells`` only): a 1-D cell in one of
+  ``chip_smoke.py``'s ``MODES_1D`` (``antithetic``, ``qmc``,
+  ``mc_stderr``, ``antithetic_stderr``), e.g. ``k17@mc_stderr``; this
+  checkout's package only;
 * ``c9``, ``c9s``, ``c9a``, ``c9as``: nd, c9's set (N(0,1) x U(0,1) x
   Exp(2), K = 2) at 2^30 samples in mc, mc with error bars, antithetic,
   antithetic with error bars;
@@ -124,7 +132,8 @@ _ROLES = {
     "transform": {"next_below", "normal_from_u01", "transform",
                   "transform_pair", "normal_z", "transform_top",
                   "transform_pair_top", "family"},
-    "accumulate": {"tmc_accumulate", "tmc_accumulate_nd",
+    "accumulate": {"tmc_accumulate", "tmc_accumulate_sq",
+                   "tmc_accumulate_pair_sq", "tmc_weigh", "tmc_accumulate_nd",
                    "tmc_accumulate_nd_sq", "tmc_values_nd"},
     "loop": {"TileWalk", "stream", "next"},
 }
@@ -304,7 +313,9 @@ def main() -> int:
     one_d = {"u": (cs.BENCH_FNS, tm.Distribution.uniform(-1.0, 2.0)),
              "n": (cs.BENCH_FNS, n01),
              "e": (cs.BENCH_FNS, tm.Distribution.exponential(2.0)),
-             **{c: (WIDE_FNS[:int(c[1:])], n01) for c in args.cells.split(",")
+             "is": (cs.IS_FNS, tm.Distribution.normal(4.0, 1.5)),
+             **{c: (WIDE_FNS[:int(c[1:])], n01)
+                for c in (c.partition("@")[0] for c in args.cells.split(","))
                 if re.fullmatch(r"k\d+", c)}}
     # name: (functions, dimensions, method, error bars, samples)
     nd = {"c9": (cs.ND_FNS, c9_dists, "mc", False, MAIN),
@@ -332,22 +343,53 @@ def main() -> int:
             + ([] if contract is None else [f"TMC_CONTRACT={contract}"])
             + list(args.define))
 
-    # Each job builds (program, run, function, conversions per sample,
-    # samples counted, samples drawn, integrand source) for one tuning.
+    def source_of(prog):
+        """The integrand source a 1-D program's library compiles (a
+        tree before importance sets has no ``weight``)."""
+        weight = getattr(prog, "weight", None)
+        if weight is None:
+            return cuda_source(prog.fns)
+        return cuda_source(prog.fns, weight=weight)
+
+    # Each job builds (program, its library, function, conversions per
+    # sample, samples counted, samples drawn, kernel source, integrand
+    # source, run) for one tuning.
     def job_1d(name, tuning):
-        fns, dist = one_d[name]
-        prog = ik.IntegrateProgram(tuple(tm.trace_function(f) for f in fns))
+        base, _, mode = name.partition("@")
+        fns, dist = one_d[base]
+        traced = tuple(tm.trace_function(f) for f in fns)
+        if base == "is":
+            from tpu_montecarlo_torch.api.results import _unit_integrand
+
+            weight = tuple(tm.trace_function(d._pdf_func) for d in (n01, dist))
+            prog = ik.IntegrateProgram(traced + (_unit_integrand(),), weight)
+        else:
+            prog = ik.IntegrateProgram(traced)
         if tuned:
             local.defines = defines(tuning)
-        prog.library()
         spec = dist_spec_of(dist)
         params = torch.tensor(spec.params, device=dev)
-        grid = ik.plan_grid(make_integrate_plan(MAIN).actual_samples)
+        if not mode:
+            prog.library()
+            grid = ik.plan_grid(make_integrate_plan(MAIN).actual_samples)
+            run = lambda: ik.integrate_cuda(prog, spec.kind, params,  # noqa: E731
+                                            SEED, grid)
+            return (prog, prog.library, f"integrate_kernelILi{int(spec.kind)}EE",
+                    1, grid.actual_samples, grid.actual_samples,
+                    "integrate.cu", source_of(prog), run)
+        cfg = ik.IntegrateConfig(*cs.MODES_1D[mode])
+        prog.library(cfg)
+        grid = ik.plan_grid(make_integrate_plan(MAIN).actual_samples,
+                            cfg.method)
+        pilot = (ik.pilot_values(prog.torch_values, spec.kind, params)
+                 if cfg.with_stderr else None)
         run = lambda: ik.integrate_cuda(prog, spec.kind, params, SEED,  # noqa: E731
-                                        grid)
-        return (prog, run, f"integrate_kernelILi{int(spec.kind)}EE", 1,
-                grid.actual_samples, grid.actual_samples,
-                "integrate.cu", cuda_source(prog.fns))
+                                        grid, cfg, pilot)
+        units = grid.actual_samples // (2 if cfg.antithetic else 1)
+        return (prog, lambda: prog.library(cfg),
+                f"integrate_kernelILi{int(spec.kind)}EE", 1, units,
+                grid.actual_samples, "integrate.cu",
+                source_of(prog) + cfg.defines, run)
 
     def job_nd(name, tuning):
         fns, dists, method, stderr, n = nd[name]
@@ -360,7 +402,7 @@ def main() -> int:
             local.defines = defines(tuning)
         prog.library()
         cfg = nk.NdConfig(kinds, method, stderr)
-        grid = nk.plan_nd_grid(make_integrate_plan(n).actual_samples, method)
+        grid = ik.plan_grid(make_integrate_plan(n).actual_samples, method)
         params = torch.tensor(np.stack([sp.params for sp in specs]),
                               device=dev)
         pilot = (nk.pilot_row(prog.torch_fns, kinds, params) if stderr
@@ -371,8 +413,9 @@ def main() -> int:
         units = grid.actual_samples // (2 if method == "antithetic" else 1)
         inc = (cuda_source(prog.fns) + "#define TMC_KINDS "
                + ", ".join(str(int(k)) for k in kinds) + "\n")
-        return (prog, run, f"integrate_nd_kernelILi{code}ELb{int(stderr)}EE",
-                d, units, grid.actual_samples, "integrate_nd.cu", inc)
+        return (prog, prog.library,
+                f"integrate_nd_kernelILi{code}ELb{int(stderr)}EE",
+                d, units, grid.actual_samples, "integrate_nd.cu", inc, run)
 
     cells = args.cells.split(",")
     jobs = [(c, t) for c in cells for t in tunings()]
@@ -382,8 +425,8 @@ def main() -> int:
 
     out = open(args.out, "a") if args.out else None
     dumped = set()
-    for (name, tuning), (prog, run, function, conv, units, drawn, source,
-                         inc) in zip(jobs, built):
+    for (name, tuning), (prog, library, function, conv, units, drawn, source,
+                         inc, run) in zip(jobs, built):
         blocks = ik.MAX_CUDA_BLOCKS
         if tuning[2] is not None:
             ik.MAX_CUDA_BLOCKS = nk.MAX_CUDA_BLOCKS = tuning[2]
@@ -392,7 +435,7 @@ def main() -> int:
         ms = cs.time_ms(run, reps=REPS)
         mhz = cs.clock_under_load(run, ms)
         ik.MAX_CUDA_BLOCKS = nk.MAX_CUDA_BLOCKS = blocks
-        lib = prog.library()
+        lib = library()
         listing = cs.sass_listing(lib)
         counts, _ = cs.per_sample(listing, function, conv)
         pipe_ms, pipe = cs.bound_ms(counts, units, sms, mhz)

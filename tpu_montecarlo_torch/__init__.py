@@ -1,10 +1,13 @@
 """tpu_montecarlo_torch — the PyTorch and CUDA port of tpu_montecarlo for
 one NVIDIA H100.
 
-The port so far covers the fused 1-D plain Monte Carlo ``integrate`` path
-(the integrand front end, the counter-based sample stream, the uniform,
-normal and exponential families, and a hand-written CUDA kernel that fuses
-up to 128 integrands over one shared stream); multi-dimensional
+The port so far covers the fused 1-D ``integrate`` path (the integrand
+front end, the counter-based sample stream and the radical inverse, the
+uniform, normal and exponential families, plain MC, antithetic and QMC
+with error bars, and a hand-written CUDA kernel that fuses up to 128
+integrands over one shared stream); importance sampling,
+``integrate_importance_sampling``, with closed-form weights folded into
+the integrands of that kernel; multi-dimensional
 ``integrate`` over d >= 2 independent dimensions of those families, in
 plain MC, antithetic or Sobol QMC, with error bars (pilot-shifted squares,
 or randomized QMC), in a second kernel; 1-D Metropolis-Hastings,
@@ -17,10 +20,16 @@ fifth.  It imports torch and numpy, never jax.
 
 Example:
     >>> from tpu_montecarlo_torch import (
-    ...     Distribution, RandomWalk, integrate, integrate_mcmc)
+    ...     Distribution, RandomWalk, integrate,
+    ...     integrate_importance_sampling, integrate_mcmc)
     >>> r = integrate([lambda x: x, lambda x: x**2],
     ...               Distribution.normal(0.0, 1.0), n_samples=10_000_000)
     >>> r.values  # ~[0, 1]
+    >>> t = integrate_importance_sampling(
+    ...     [lambda x: x > 4.0], Distribution.normal(0.0, 1.0),
+    ...     Distribution.normal(4.0, 1.5), n_samples=100_000_000,
+    ...     return_stderr=True, return_diagnostics=True)
+    >>> t.values, t.stderr, t.diagnostics["ess"]  # ~[3.167e-5], rare event
     >>> u = Distribution.uniform(0.0, 1.0)
     >>> q = integrate([lambda x, y: x * y], [u, u], n_samples=10_000_000,
     ...               method="qmc", return_stderr=True)
@@ -35,7 +44,13 @@ Example:
     >>> j.values  # ~[0.8], E[xy] of a bivariate normal with rho = 0.8
 """
 
-from .api import IntegrationResult, MonteCarloIntegrator, integrate, integrate_mcmc
+from .api import (
+    IntegrationResult,
+    MonteCarloIntegrator,
+    integrate,
+    integrate_importance_sampling,
+    integrate_mcmc,
+)
 from .distributions import HMC, Distribution, DistributionType, RandomWalk
 from .tracing import TraceError, is_traceable, trace_function
 
@@ -50,6 +65,7 @@ __all__ = [
     "RandomWalk",
     "TraceError",
     "integrate",
+    "integrate_importance_sampling",
     "integrate_mcmc",
     "is_traceable",
     "trace_function",

@@ -1,7 +1,7 @@
 """Public API: MonteCarloIntegrator, IntegrationResult, integrate,
-integrate_mcmc."""
+integrate_importance_sampling, integrate_mcmc."""
 
-from .functions import integrate, integrate_mcmc
+from .functions import integrate, integrate_importance_sampling, integrate_mcmc
 from .integrator import MonteCarloIntegrator
 from .results import IntegrationResult
 
@@ -9,5 +9,6 @@ __all__ = [
     "IntegrationResult",
     "MonteCarloIntegrator",
     "integrate",
+    "integrate_importance_sampling",
     "integrate_mcmc",
 ]

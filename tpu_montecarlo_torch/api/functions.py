@@ -34,6 +34,32 @@ def integrate(
     )
 
 
+def integrate_importance_sampling(
+    functions: List[Union[Callable, str]],
+    target_distribution: Distribution,
+    proposal_distribution: Distribution,
+    n_samples: int = 1_000_000,
+    seed: int = 42,
+    target_threads: Optional[int] = None,
+    device="cuda",
+    mesh=None,
+    method: str = "mc",
+    return_stderr: bool = False,
+    qmc_rotations: int = 8,
+    return_diagnostics: bool = False,
+) -> IntegrationResult:
+    """One-shot importance-sampling integration (fresh integrator; built
+    programs are still cached process-wide)."""
+    integrator = MonteCarloIntegrator(
+        target_threads=target_threads, device=device, mesh=mesh
+    )
+    return integrator.integrate_importance_sampling(
+        functions, target_distribution, proposal_distribution, n_samples,
+        seed, method=method, return_stderr=return_stderr,
+        qmc_rotations=qmc_rotations, return_diagnostics=return_diagnostics,
+    )
+
+
 def integrate_mcmc(
     functions: List[Union[Callable, str]],
     target_distribution: Distribution,

@@ -1,5 +1,5 @@
-"""Plain Monte Carlo integration, 1-D and multi-dimensional (port of the
-plain-MC and nd paths of ``tpu_montecarlo/api/integrate.py``)."""
+"""Monte Carlo integration, 1-D and multi-dimensional (port of the
+1-D and nd paths of ``tpu_montecarlo/api/integrate.py``)."""
 
 from __future__ import annotations
 
@@ -11,27 +11,27 @@ import torch
 from ..distributions import Distribution, DistributionType
 from ..ops.integrate_kernel import (
     MAX_FUNCTIONS,
+    METHODS,
+    IntegrateConfig,
     IntegrateProgram,
+    finish_stderr,
     integrate_cuda,
+    pilot_values,
     plan_grid,
 )
 from ..ops.integrate_nd_kernel import (
     IntegrateNdProgram,
     NdConfig,
-    finish_stderr,
     integrate_nd_cuda,
     pilot_row,
-    plan_nd_grid,
 )
 from ..sampling import dist_spec_of
 from ..utils.dispatch import make_integrate_plan
 from ..utils.roadmap import (
     API_SURFACE,
-    IMPORTANCE,
     ND_CUSTOM,
     ND_CV,
     ND_FAMILIES,
-    ND_IS,
     ND_SERVING,
     ND_WIDE,
     VARIANTS,
@@ -106,10 +106,15 @@ class _IntegrateMixin:
         the mean of the rotations, and their spread over
         sqrt(rotations)).
 
-        1-D runs are plain MC only: their ``method="qmc"``/
-        ``"antithetic"`` and ``return_stderr``, control variates and more
-        than 128 functions are not ported yet and raise
-        ``NotImplementedError``."""
+        One Distribution (uniform, normal, exponential) takes the same
+        methods and error bars: ``"antithetic"`` maps each uniform at
+        ``u`` and ``1 - u``, ``"qmc"`` draws the seed-rotated radical
+        inverse of the global sample index, and under ``"qmc"`` error bars
+        come from ``qmc_rotations`` rotations as above, one kernel launch
+        each.
+
+        Control variates and more than 128 functions are not ported yet
+        and raise ``NotImplementedError``."""
         dists = _as_dims(distribution)
         if dists is not None and len(dists) > 1:
             if control_variates is not None:
@@ -122,38 +127,92 @@ class _IntegrateMixin:
             raise not_ported("control variates", VARIANTS)
         if dists is not None:
             distribution = dists[0]
-        if method not in ("mc", "qmc", "antithetic"):
+        if method not in METHODS:
             raise ValueError(
                 f"method must be 'mc', 'qmc' or 'antithetic', got {method!r}"
             )
-        if method != "mc":
-            raise not_ported(f"method={method!r}", VARIANTS)
-        if return_stderr:
-            raise not_ported("return_stderr", VARIANTS)
         traced = self._trace_user_functions(functions)
+        program = self._integrate_program(traced)
+        values, stderr = self._run_1d(
+            program, distribution, n_samples, seed, method, return_stderr,
+            qmc_rotations,
+        )
+        return IntegrationResult(
+            values=values, n_samples=n_samples, n_functions=len(functions),
+            stderr=stderr,
+        )
+
+    # -- 1-D (kernel 1, ops/integrate_kernel.py) ----------------------------
+
+    def _integrate_program(self, traced, weight=None) -> IntegrateProgram:
+        """The cached program of a traced set, weighted by ``weight=(p,
+        q)`` for importance sampling."""
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
                 f"more than {MAX_FUNCTIONS} fused functions (multi-pass)",
                 VARIANTS,
             )
-        values = self._run_integrate(traced, distribution, n_samples, seed)
-        return IntegrationResult(
-            values=values, n_samples=n_samples, n_functions=len(functions)
+        key = ("integrate", fns_key(traced))
+        if weight is not None:
+            key += (("is_weight", fns_key(weight)),)
+        return self._cache.get_or_build(
+            key, lambda: IntegrateProgram(traced, weight)
         )
 
-    def _run_integrate(self, traced, distribution, n_samples, seed):
+    def _run_1d(
+        self, program, distribution, n_samples, seed, method, return_stderr,
+        qmc_rotations,
+    ):
+        """(values, stderr or None) of one 1-D run of ``program`` on the
+        kernel, float64 arrays: means over the plan's ``actual_samples``;
+        error bars from pilot-shifted squares, or under ``qmc`` from
+        ``qmc_rotations`` rotations (randomized QMC, the JAX package's
+        api/integrate.py:152-174), one launch each."""
         spec = dist_spec_of(distribution)
+        params = torch.tensor(spec.params, device=self._device)
+        if return_stderr and method == "qmc":
+            if qmc_rotations < 2:
+                raise ValueError(
+                    "qmc_rotations must be >= 2 to estimate an rQMC "
+                    f"error bar (got {qmc_rotations})"
+                )
+            r = qmc_rotations
+            cfg = IntegrateConfig("qmc")
+            grid = self._grid(-(-n_samples // r), "qmc")
+            # Distinct seed words give independent rotations; the
+            # golden-ratio stride keeps consecutive user seeds apart.
+            seeds = np.uint32(seed) + np.uint32(0x9E3779B9) * np.arange(
+                r, dtype=np.uint32
+            )
+            vals = np.stack(
+                [
+                    self._means(program, spec.kind, params, int(s), grid, cfg)
+                    for s in seeds
+                ]
+            ).astype(np.float64)
+            return vals.mean(axis=0), vals.std(axis=0, ddof=1) / np.sqrt(r)
+        cfg = IntegrateConfig(method, return_stderr)
         # np.uint32 rejects seeds outside [0, 2**32), as the JAX package does.
         seed_word = int(np.uint32(seed))
-        plan = make_integrate_plan(n_samples, self._target_threads)
-        grid = plan_grid(plan.actual_samples)
-        program = self._cache.get_or_build(
-            ("integrate", fns_key(traced)), lambda: IntegrateProgram(traced)
+        grid = self._grid(n_samples, method)
+        if not return_stderr:
+            return self._means(program, spec.kind, params, seed_word, grid,
+                               cfg), None
+        pilot = pilot_values(program.torch_values, spec.kind, params)
+        sums, sqs = integrate_cuda(
+            program, spec.kind, params, seed_word, grid, cfg, pilot
         )
-        params = torch.tensor(spec.params, device=self._device)
-        sums = integrate_cuda(program, spec.kind, params, seed_word, grid)
-        means = sums / float(np.float32(grid.actual_samples))
-        return means.cpu().numpy()
+        mean, se = finish_stderr(sums, sqs, pilot, grid, cfg.antithetic)
+        return mean.cpu().numpy(), se.cpu().numpy()
+
+    def _grid(self, n_samples, method):
+        plan = make_integrate_plan(n_samples, self._target_threads)
+        return plan_grid(plan.actual_samples, method)
+
+    @staticmethod
+    def _means(program, kind, params, seed_word, grid, cfg) -> np.ndarray:
+        sums = integrate_cuda(program, kind, params, seed_word, grid, cfg)
+        return (sums / float(np.float32(grid.actual_samples))).cpu().numpy()
 
     # -- multi-dimensional (kernel 2, ops/integrate_nd_kernel.py) -----------
 
@@ -189,7 +248,7 @@ class _IntegrateMixin:
             # Randomized QMC: independent seed-derived rotations of the
             # net (the JAX package's _integrate_nd, api/integrate.py:694).
             r = qmc_rotations
-            grid = self._nd_grid(-(-n_samples // r), method)
+            grid = self._grid(-(-n_samples // r), method)
             seeds = np.uint32(seed) + np.uint32(0x9E3779B9) * np.arange(
                 r, dtype=np.uint32
             )
@@ -204,7 +263,7 @@ class _IntegrateMixin:
                 stderr=vals.std(axis=0, ddof=1) / np.sqrt(r),
                 **done,
             )
-        grid = self._nd_grid(n_samples, method)
+        grid = self._grid(n_samples, method)
         seed_word = int(np.uint32(seed))
         if not cfg.with_stderr:
             return IntegrationResult(
@@ -219,10 +278,6 @@ class _IntegrateMixin:
         return IntegrationResult(
             values=mean.cpu().numpy(), stderr=se.cpu().numpy(), **done
         )
-
-    def _nd_grid(self, n_samples, method):
-        plan = make_integrate_plan(n_samples, self._target_threads)
-        return plan_nd_grid(plan.actual_samples, method)
 
     @staticmethod
     def _nd_means(program, cfg, params, seed_word, grid) -> np.ndarray:
@@ -246,13 +301,3 @@ class _IntegrateMixin:
         if _as_dims(distribution) is not None:
             raise not_ported("expectation_fn for nd integrate", ND_CV)
         raise not_ported("expectation_fn", API_SURFACE)
-
-    def integrate_importance_sampling(
-        self, functions, target_distribution, proposal_distribution, *args,
-        **kwargs,
-    ):
-        """Not ported yet: raises ``NotImplementedError`` naming the
-        ROADMAP item (nd product weights, or 1-D)."""
-        if _as_dims(target_distribution) is not None:
-            raise not_ported("nd importance sampling (product weights)", ND_IS)
-        raise not_ported("importance sampling", IMPORTANCE)

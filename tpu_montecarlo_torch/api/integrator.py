@@ -8,6 +8,7 @@ from typing import Optional
 from ..utils.roadmap import MESH, not_ported
 from .base import _BaseMixin, resolve_device
 from .cache import GLOBAL_CACHE
+from .importance import _ImportanceMixin
 from .integrate import _IntegrateMixin
 from .mcmc import _McmcMixin
 from .mcmc_nd import _McmcNdMixin
@@ -15,14 +16,16 @@ from .tempering import _PtMixin
 
 
 class MonteCarloIntegrator(
-    _BaseMixin, _IntegrateMixin, _McmcMixin, _McmcNdMixin, _PtMixin
+    _BaseMixin, _IntegrateMixin, _ImportanceMixin, _McmcMixin, _McmcNdMixin,
+    _PtMixin,
 ):
     """Monte Carlo integrator for expected values on an NVIDIA GPU.
 
     Fuses K integrands into one kernel pass over shared samples
     (E[f_1(X)] ... E[f_K(X)] in one sweep), sampling on the device, over
     one distribution or a list of d independent ones (d-ary integrands),
-    and runs Metropolis-Hastings chains for ``integrate_mcmc``, over one
+    under a target density by importance sampling from a proposal, and
+    runs Metropolis-Hastings chains for ``integrate_mcmc``, over one
     dimension or d (a product or joint log-density target), tempered over
     a ladder of temperatures on request.
 

@@ -1,11 +1,13 @@
-"""Result type of the public API (port of ``tpu_montecarlo/api/results.py``;
-numpy only)."""
+"""Result type of the public API, and the importance-sampling weight
+diagnostics (port of ``tpu_montecarlo/api/results.py``; numpy only)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+
+from ..tracing import Node, TracedFunction
 
 __all__ = ["IntegrationResult"]
 
@@ -57,3 +59,33 @@ class IntegrationResult:
 
     def __len__(self):
         return self.n_functions
+
+
+def _unit_integrand() -> TracedFunction:
+    """The constant-1 integrand, traced (``results.py:107-122``): ``x * 0
+    + 1``, so it takes every sample.  Weighted by an importance weight it
+    evaluates to the weight p(x)/q(x) itself, and its mean and error bar
+    give the weight's moments."""
+    x = Node("arg", value=0)
+    ir = Node("add", (Node("mul", (x, Node("const", value=0.0))),
+                      Node("const", value=1.0)))
+    return TracedFunction("unit_integrand", 1, ir, ("unit_integrand", 1))
+
+
+def _weight_diagnostics(mean_w: float, se_w: float, n_samples: int) -> dict:
+    """Importance-sampling proposal diagnostics from the weight's mean and
+    standard error (``results.py:125-139``): Kish effective sample size
+    (sum w)^2 / sum w^2, the weight's coefficient of variation (ess = n /
+    (1 + cv^2)), and the mean weight itself (about 1 when both densities
+    are normalized)."""
+    var_w = se_w * se_w * n_samples
+    denom = var_w + mean_w * mean_w
+    return {
+        "ess": float(n_samples * mean_w * mean_w / denom)
+        if denom > 0
+        else 0.0,
+        "mean_weight": float(mean_w),
+        "weight_cv": float(np.sqrt(var_w) / mean_w)
+        if mean_w > 0
+        else float("inf"),
+    }

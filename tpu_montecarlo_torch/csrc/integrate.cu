@@ -2,51 +2,77 @@
 //
 // Replaces the TPU kernel `kernel` inside build_integrate_fn_pallas
 // (tpu_montecarlo/ops/integrate_pallas.py:969-1147, pallas_call at :1180)
-// in its plain-MC mode for the uniform, normal and exponential families.
-// It draws the very samples that kernel draws under the interpreter's
-// CounterRng (integrate_pallas.py:107-133): per (seed, program) a PCG
-// state, per (program, block counter, tag) a PCG base, per position
-// pos = row * 128 + lane the bits pcg(base + pos * 2654435761), uniforms
-// from bits >> 8, then the family transform.  It evaluates the K
-// integrands that ops/lower.py generated (tmc_integrands.inc) on every
-// sample and keeps K float32 sums in registers.
+// in its mc, antithetic and qmc modes, with and without error bars, for
+// the uniform, normal and exponential families and for importance-sampling
+// sets whose weight is folded into each integrand.  It draws the very
+// samples that kernel draws under the interpreter's CounterRng
+// (integrate_pallas.py:107-133) or radical inverse at 256-row blocks:
+//
+// * mc: per (seed, program) a PCG state, per (program, block counter,
+//   tag) a PCG base, per position pos = row * 128 + lane the bits
+//   pcg(base + pos * 2654435761), uniforms from bits >> 8, then the
+//   family transform (the normal family's two half blocks take tags 0
+//   and 1);
+// * antithetic: the same uniforms, each mapped at u and at its mirror
+//   1 - u (the normal pair reflects z about the mean);
+// * qmc: position pos of tile t is point g = t * 2^15 + pos of the radical
+//   inverse, its uniform the top 24 bits of bitrev32(g) + shift with
+//   shift = derive_shift(seed, 1) (the normal family's half blocks are
+//   the tile's two contiguous halves of g, so every family takes the
+//   tile's 2^15 points); from 2^32 points on, seg = t >> 17 re-mixes the
+//   rotation (derive_segment_shift) and t & (2^17 - 1) is the block.
+//
+// It evaluates the K integrands that ops/lower.py generated
+// (tmc_integrands.inc; with TMC_WEIGHTED, each weighted by p(x) / q(x),
+// both densities computed once per sample) on every sample and keeps K
+// float32 sums in registers, and with error bars (TMC_STDERR) K sums of
+// (value - pilot)^2, of the pair's mean under antithetic.  The mode is
+// compiled in (TMC_METHOD, TMC_STDERR): each is a library of its own, and
+// plain mc compiles to the same code as without the modes.
 //
 // What bounds it on the card: issue.  Nothing is read from device memory
-// in the sample loop and each CUDA block writes one row of K partial sums,
-// so the time is the instructions each sample costs (the hash, the
-// conversion, the transform with erfinvf for the normal family, the K
-// integrands with libdevice sinf, expf, ...) over the four schedulers of
-// each SM: at the bench set (K = 8, N(0, 1)) issuing them takes most of
-// the kernel's time on an H100.  chip_smoke.py counts them from this
-// kernel's SASS (PERF.md section 6).
+// in the sample loop and each CUDA block writes one row of K (2K) partial
+// sums, so the time is the instructions each sample costs (the hash or
+// the radical inverse, the conversion, the transform with erfinvf for the
+// normal family, the K integrands with libdevice sinf, expf, ...) over the
+// four schedulers of each SM: at the bench set (K = 8, N(0, 1)) issuing
+// them takes most of the kernel's time on an H100.  chip_smoke.py counts
+// them from this kernel's SASS (PERF.md section 6).
 //
 // What the design does about it:
 // * The TPU grid has at most 512 blocks per program, so 1e9 samples are
 //   only ~64 programs, too few for 132 SMs.  Here the unit of work is one
-//   (program, block) tile of 256 x 128 samples; the counter stream lets
-//   any CUDA block take any tile, so a grid-stride loop spreads the
-//   programs x blocks tiles over up to `grid` CUDA blocks of 256 threads.
-//   A block steps its (program, block) pair without 64-bit division and
-//   seeds a program's stream only when the program changes
-//   (tmc::TileWalk).
+//   (program, block) tile of 256 x 128 positions; the counter stream and
+//   the radical inverse let any CUDA block take any tile, so a grid-stride
+//   loop spreads the programs x blocks tiles over up to `grid` CUDA blocks
+//   of 256 threads.  A block steps its (program, block) pair without
+//   64-bit division and seeds a program's stream only when the program
+//   changes (tmc::TileWalk).
 // * Thread t takes positions t, t + 256, ... of a block: their hashes
 //   start from one cursor word stepped by a constant (tmc::cursor), so a
 //   sample costs the hash's finish, not its two affine steps and the
-//   position.  Trip counts are compile-time (64 or 128 per thread), the
-//   normal family's two half blocks (tags 0 and 1) share one loop, and a
-//   loop body holds kUnroll samples (tmc::default_unroll: 8 for a few
+//   position.  Under qmc the thread takes its 128 positions in the order
+//   t + 256 * bitrev7(j), j = 0 .. 127, whose bit-reversed words are the
+//   tile's word plus j << 17 (bit reversal maps the tile, thread and j
+//   parts of g to disjoint bits), so a sample costs an add and a mask.
+//   Trip counts are compile-time (64 or 128 per thread), the normal
+//   family's two half blocks (tags 0 and 1) share one loop, and a loop
+//   body holds kUnroll samples (tmc::default_unroll: 8 for a few
 //   integrands, fewer for more, whose bodies would outgrow the instruction
-//   cache).  Sets of 17 integrands or more keep a loop that counts
-//   positions at run time (sweep_wide); both loops draw through one
-//   transform, so a sample does not depend on the loop that drew it.
+//   cache; an antithetic position is two samples).  Sets of 17 integrands
+//   or more keep a loop that counts positions at run time (sweep_wide);
+//   every loop draws through one transform, so a sample does not depend
+//   on the loop that drew it.
 // * The transforms are integrate_draw.cuh's: the same uniforms, affine
 //   steps as one fused multiply-add, the exponential's division as a
 //   multiply by -1 / p1 made once per thread.
-// * Accumulators stay in registers for the whole run; the block reduces
-//   them once, with warp shuffles and a fixed order, and writes its row.
-//   No atomics: the result is deterministic for a given plan.  A second
-//   pass (torch.sum over the rows, as the JAX package sums its program
-//   rows at integrate_pallas.py:1214) finishes the reduction.
+// * Accumulators stay in registers for the whole run (the error bars'
+//   pilots too, up to 16 integrands; wider sets read them from shared
+//   memory); the block reduces them once, with warp shuffles and a fixed
+//   order, and writes its row.  No atomics: the result is deterministic
+//   for a given plan.  A second pass (torch.sum over the rows, as the JAX
+//   package sums its program rows at integrate_pallas.py:1214) finishes
+//   the reduction.
 // * Built without --use_fast_math, so sinf, expf, logf and erfinvf keep
 //   full float32 accuracy, and with --fmad=false, so the only fused
 //   multiply-adds are those written out (tmc_fma).
@@ -56,8 +82,17 @@
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
 #include "integrate_draw.cuh"
-#include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, tmc_accumulate
+#include "sobol.cuh"
+#include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, the entries
 
+// The mode, from the integrand source (IntegrateConfig.defines): 0 mc,
+// 1 antithetic, 2 qmc; error bars or not.
+#ifndef TMC_METHOD
+#define TMC_METHOD 0
+#endif
+#ifndef TMC_STDERR
+#define TMC_STDERR 0
+#endif
 // tools/integrate_sweep.py may set TMC_UNROLL (samples per loop body) and
 // TMC_WIDE_K (the first integrand count that takes sweep_wide) to time
 // other values; the package builds with neither.
@@ -71,53 +106,86 @@ using tmc::kExponential;
 using tmc::kNormal;
 using tmc::kUniform;
 
+enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
+constexpr int kMethod = TMC_METHOD;
+constexpr bool kStderr = TMC_STDERR != 0;
+static_assert(kMethod >= kMc && kMethod <= kQmc, "TMC_METHOD is 0, 1 or 2");
+static_assert(!(kMethod == kQmc && kStderr),
+              "qmc error bars come from rotations, not in-kernel squares");
+
 constexpr int kLanes = tmc::kLanes;
 constexpr int kBlockRows = 256;
 constexpr int kThreads = 256;
+constexpr int kTilePositions = kBlockRows * kLanes;  // 2^15
+constexpr int kPosBits = 15;
+// Samples one position gives.
+constexpr int kPerPosition = kMethod == kAntithetic ? 2 : 1;
 #ifdef TMC_UNROLL
 constexpr int kUnroll = TMC_UNROLL;
 #else
 constexpr int kUnroll = tmc::default_unroll(TMC_K, 1);  // samples per body
 #endif
+// Positions per loop body.
+constexpr int kPosUnroll = kUnroll > kPerPosition ? kUnroll / kPerPosition : 1;
 // Integrand sets from this size on take sweep_wide.
 constexpr int kWideK = TMC_WIDE_K;
+constexpr bool kWide = TMC_K >= kWideK;
+constexpr int kOut = kStderr ? 2 * TMC_K : TMC_K;
 // The cursor's step between a thread's positions t, t + 256, ...
 constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
+// The step of a thread's bit-reversed point word under qmc:
+// bitrev32(256 * bitrev7(j)) = j << 17.
+constexpr uint32_t kQmcStep = 1u << 17;
+
+// One position's top 24 bits: its sample(s) through the transform, and
+// the integrands into the sums (and squares).
+template <int KIND>
+__device__ __forceinline__ void take(uint32_t top, const tmc::Family& f,
+                                     const float* pilot, float* acc,
+                                     float* sq) {
+  if constexpr (kMethod == kAntithetic) {
+    float a, b;
+    tmc::transform_pair_top(KIND, top, f, a, b);
+    if constexpr (kStderr) {
+      tmc_accumulate_pair_sq(a, b, pilot, acc, sq);
+    } else {
+      tmc_accumulate(a, acc);
+      tmc_accumulate(b, acc);
+    }
+  } else {
+    const float x = tmc::transform_top(KIND, top, f);
+    if constexpr (kStderr) {
+      tmc_accumulate_sq(x, pilot, acc, sq);
+    } else {
+      tmc_accumulate(x, acc);
+    }
+  }
+}
 
 // Draws positions t, t + 256, ... of the TAGS parts (tags 0 .. TAGS - 1)
 // of one tile in one loop, transforms and accumulates the integrands,
-// kUnroll samples per loop body (at least one per part).  The positions a
-// thread takes do not change the sums' values beyond float32 summation
-// order.
+// kUnroll samples per loop body (at least one position per part).  The
+// positions a thread takes do not change the sums' values beyond float32
+// summation order.
 template <int KIND, int TAGS>
 __device__ __forceinline__ void sweep(uint32_t state, uint32_t blk,
-                                      const tmc::Family& f, float* acc) {
-  constexpr int kPerThread = kBlockRows * kLanes / TAGS / kThreads;
+                                      const tmc::Family& f,
+                                      const float* pilot, float* acc,
+                                      float* sq) {
+  constexpr int kPerThread = kTilePositions / TAGS / kThreads;
   uint32_t x0[TAGS];
 #pragma unroll
   for (int t = 0; t < TAGS; ++t) {
     x0[t] = tmc::cursor(tmc::block_base(state, blk, uint32_t(t)),
                         threadIdx.x);
   }
-#pragma unroll (kUnroll > TAGS ? kUnroll / TAGS : 1)
+#pragma unroll (kPosUnroll > TAGS ? kPosUnroll / TAGS : 1)
   for (int i = 0; i < kPerThread; ++i) {
 #pragma unroll
     for (int t = 0; t < TAGS; ++t) {
-      const uint32_t top = tmc::cursor_top24(x0[t] + uint32_t(i) * kStep);
-      tmc_accumulate(tmc::transform_top(KIND, top, f), acc);
+      take<KIND>(tmc::cursor_top24(x0[t] + uint32_t(i) * kStep), f, pilot,
+                 acc, sq);
     }
-  }
-}
-
-// One tile: the normal family's two half blocks, tags 0 and 1
-// (integrate_pallas.py:571-581), in one loop; the others' one block, tag 0.
-template <int KIND>
-__device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
-                                          const tmc::Family& f, float* acc) {
-  if (KIND == kNormal) {
-    sweep<KIND, 2>(state, blk, f, acc);
-  } else {
-    sweep<KIND, 1>(state, blk, f, acc);
   }
 }
 
@@ -130,79 +198,170 @@ __device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
 template <int KIND>
 __device__ __forceinline__ void sweep_wide(uint32_t state, uint32_t blk,
                                            uint32_t tag, int n_pos,
-                                           const tmc::Family& f, float* acc) {
+                                           const tmc::Family& f,
+                                           const float* pilot, float* acc,
+                                           float* sq) {
   const uint32_t base = tmc::block_base(state, blk, tag);
   for (int pos = threadIdx.x; pos < n_pos; pos += kThreads) {
-    const uint32_t top = tmc::mantissa(base, uint32_t(pos)) << 8;
-    tmc_accumulate(tmc::transform_top(KIND, top, f), acc);
+    take<KIND>(tmc::mantissa(base, uint32_t(pos)) << 8, f, pilot, acc, sq);
   }
+}
+
+// One tile under mc or antithetic: the normal family's two half blocks,
+// tags 0 and 1 (integrate_pallas.py:571-581), in one loop; the others'
+// one block, tag 0.
+template <int KIND>
+__device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
+                                          const tmc::Family& f,
+                                          const float* pilot, float* acc,
+                                          float* sq) {
+  constexpr int kTags = KIND == kNormal ? 2 : 1;
+  if constexpr (!kWide) {
+    sweep<KIND, kTags>(state, blk, f, pilot, acc, sq);
+  } else {
+#pragma unroll
+    for (int t = 0; t < kTags; ++t) {
+      sweep_wide<KIND>(state, blk, uint32_t(t), kTilePositions / kTags, f,
+                       pilot, acc, sq);
+    }
+  }
+}
+
+// One tile under qmc: the 128 points of this thread from the tile's word
+// `word` (bitrev32 of the thread's first point plus the rotation), j << 17
+// apart; wide sets keep the loop rolled.
+template <int KIND>
+__device__ __forceinline__ void draw_tile_qmc(uint32_t word,
+                                              const tmc::Family& f,
+                                              const float* pilot, float* acc,
+                                              float* sq) {
+  constexpr int kPerThread = kTilePositions / kThreads;
+#pragma unroll (kWide ? 1 : kPosUnroll)
+  for (int j = 0; j < kPerThread; ++j) {
+    take<KIND>((word + uint32_t(j) * kQmcStep) & 0xFFFFFF00u, f, pilot, acc,
+               sq);
+  }
+}
+
+// Every tile of this CUDA block's grid-stride walk.
+template <int KIND>
+__device__ __forceinline__ void draw_tiles(uint32_t seed, int loops,
+                                           long long n_tiles, int seg_bits,
+                                           const tmc::Family& f,
+                                           const float* pilot, float* acc,
+                                           float* sq) {
+  if (kMethod == kQmc) {
+    const uint32_t shift0 = tmc::derive_shift(seed, 1u);
+    const uint32_t thread_word = __brev(threadIdx.x);
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      uint32_t b = uint32_t(tile);
+      uint32_t seg = 0u;
+      if (seg_bits >= 0) {
+        seg = b >> seg_bits;
+        b &= (1u << seg_bits) - 1u;
+      }
+      // bitrev32(b * 2^15 + t): the block's and the thread's bits land
+      // on disjoint bits, so their words add.
+      const uint32_t word = __brev(b << kPosBits) + thread_word +
+                            tmc::derive_segment_shift(shift0, seg);
+      draw_tile_qmc<KIND>(word, f, pilot, acc, sq);
+    }
+  } else {
+    tmc::TileWalk walk(seed, uint32_t(loops), blockIdx.x, gridDim.x);
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      draw_tile<KIND>(walk.stream(), walk.blk, f, pilot, acc, sq);
+      walk.next();
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
 }
 
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-integrate_kernel(uint32_t seed, const float* __restrict__ params, int loops,
-                 long long n_tiles, float* __restrict__ partials) {
+integrate_kernel(uint32_t seed, const float* __restrict__ params,
+                 const float* __restrict__ pilots, int loops,
+                 long long n_tiles, int seg_bits,
+                 float* __restrict__ partials) {
   const tmc::Family f = tmc::family(params[0], params[1]);
+  __shared__ float warp_sums[kThreads / 32][kOut];
   float acc[TMC_K];
+  float sq[kStderr ? TMC_K : 1];
 #pragma unroll
-  for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
-
-  tmc::TileWalk walk(seed, uint32_t(loops), blockIdx.x, gridDim.x);
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const uint32_t state = walk.stream();
-    if (TMC_K < kWideK) {
-      draw_tile<KIND>(state, walk.blk, f, acc);
-    } else if (KIND == kNormal) {
-      sweep_wide<KIND>(state, walk.blk, 0u, kBlockRows * kLanes / 2, f, acc);
-      sweep_wide<KIND>(state, walk.blk, 1u, kBlockRows * kLanes / 2, f, acc);
-    } else {
-      sweep_wide<KIND>(state, walk.blk, 0u, kBlockRows * kLanes, f, acc);
-    }
-    walk.next();
+  for (int j = 0; j < TMC_K; ++j) {
+    acc[j] = 0.0f;
+    if constexpr (kStderr) sq[j] = 0.0f;
+  }
+  // Pilots: registers for narrow sets, shared memory for wide ones.
+  if constexpr (kStderr && kWide) {
+    __shared__ float s_pilot[TMC_K];
+    for (int j = threadIdx.x; j < TMC_K; j += kThreads) s_pilot[j] = pilots[j];
+    __syncthreads();
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, s_pilot, acc, sq);
+  } else if constexpr (kStderr) {
+    float r_pilot[TMC_K];
+#pragma unroll
+    for (int j = 0; j < TMC_K; ++j) r_pilot[j] = pilots[j];
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, r_pilot, acc, sq);
+  } else {
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, nullptr, acc, sq);
   }
 
-  // Block reduction in a fixed order: warp shuffles, then warp 0's
-  // threads sum the per-warp values of one integrand each.
-  __shared__ float warp_sums[kThreads / 32][TMC_K];
+  // Block reduction in a fixed order: warp shuffles, then one thread per
+  // output sums the per-warp values in warp order.
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) {
-    float v = acc[j];
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
+    const float v = warp_sum(acc[j]);
     if (lane == 0) warp_sums[warp][j] = v;
+    if constexpr (kStderr) {
+      const float q = warp_sum(sq[j]);
+      if (lane == 0) warp_sums[warp][TMC_K + j] = q;
+    }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < TMC_K; j += kThreads) {
+  for (int j = threadIdx.x; j < kOut; j += kThreads) {
     float s = 0.0f;
     for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][j];
-    partials[blockIdx.x * TMC_K + j] = s;
+    partials[blockIdx.x * kOut + j] = s;
   }
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).  `partials` holds grid x TMC_K floats.
+// the launch was accepted).  `pilots` holds TMC_K floats with error bars,
+// else null; `seg_bits` is the qmc segment bits, or -1 (a qmc run inside
+// one 2^32-point segment, and every other mode); `partials` holds grid x
+// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars.
 extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
-                             int loops, long long n_tiles, int grid,
-                             float* partials, void* stream) {
+                             const float* pilots, int loops, long long n_tiles,
+                             int seg_bits, int grid, float* partials,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kStderr != (pilots != nullptr) || seg_bits > 31 ||
+      (kMethod != kQmc && seg_bits >= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (kind) {
     case kUniform:
       integrate_kernel<kUniform><<<grid, kThreads, 0, s>>>(
-          seed, params, loops, n_tiles, partials);
+          seed, params, pilots, loops, n_tiles, seg_bits, partials);
       break;
     case kNormal:
       integrate_kernel<kNormal><<<grid, kThreads, 0, s>>>(
-          seed, params, loops, n_tiles, partials);
+          seed, params, pilots, loops, n_tiles, seg_bits, partials);
       break;
     case kExponential:
       integrate_kernel<kExponential><<<grid, kThreads, 0, s>>>(
-          seed, params, loops, n_tiles, partials);
+          seed, params, pilots, loops, n_tiles, seg_bits, partials);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

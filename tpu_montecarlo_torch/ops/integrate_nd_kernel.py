@@ -34,7 +34,6 @@ from ..sampling import (
     PORTED_KINDS,
     DistKind,
     exponential_from_u01,
-    next_below_f32,
     normal_from_u01,
 )
 from ..tracing import TracedFunction
@@ -45,17 +44,18 @@ from .integrate_kernel import (
     LANES,
     MAX_CUDA_BLOCKS,
     MAX_FUNCTIONS,
-    MAX_LOOPS_PER_PROGRAM,
-    UNROLL_BLOCKS,
+    POS_BITS,
     CounterRng,
     Grid,
+    _clamp_below,
+    finish_stderr,
+    qmc_seg_bits,
     uniform_halfopen01,
     uniform_open01,
 )
 from .lower import cuda_source, to_torch
 from .qmc import (
     MASK32,
-    QMC_MAX_SAMPLES,
     SOBOL_MAX_DIMS,
     derive_segment_shift,
     derive_shift,
@@ -75,18 +75,10 @@ __all__ = [
     "nd_samples",
     "nd_uniforms",
     "pilot_row",
-    "plan_nd_grid",
     "qmc_seg_bits",
 ]
 
 METHODS = ("mc", "qmc", "antithetic")
-# Antithetic tiles carry their mirrors, so the JAX kernel halves its
-# unroll (integrate_nd_pallas.py:341-343); the plan rounds loops to it.
-ANTITHETIC_UNROLL = UNROLL_BLOCKS // 2
-POS_BITS = BLOCK_ELEMS.bit_length() - 1  # 15: a position within a tile
-# Tile-index bits of one 2^32-point Sobol segment (integrate_nd_pallas.py
-# :366-369).
-SEG_BITS = (QMC_MAX_SAMPLES // BLOCK_ELEMS).bit_length() - 1
 # Tiles the plain version draws at once (per dimension 2M samples).
 _TILES_PER_CHUNK = 64
 # The pilot's quantile grid: 8 x 128 points per dimension, offset by the
@@ -142,31 +134,6 @@ class NdConfig:
         return self.method == "antithetic"
 
 
-def plan_nd_grid(plan_samples: int, method: str = "mc") -> Grid:
-    """Grid drawing ``actual_samples >= plan_samples`` d-vector samples:
-    ``plan_pallas_grid`` at 256 rows plus the nd kernel's rounding
-    (integrate_nd_pallas.py:318-345).  Antithetic plans tiles for half
-    the samples, rounds loops to an unroll of 4 and counts both members
-    of each pair."""
-    anti = method == "antithetic"
-    grid_samples = -(-plan_samples // 2) if anti else plan_samples
-    total_blocks = -(-grid_samples // BLOCK_ELEMS)
-    loops = min(total_blocks, MAX_LOOPS_PER_PROGRAM)
-    programs = -(-total_blocks // loops)
-    unroll = min(ANTITHETIC_UNROLL if anti else UNROLL_BLOCKS, loops)
-    loops = -(-loops // unroll) * unroll
-    actual = programs * loops * BLOCK_ELEMS * (2 if anti else 1)
-    return Grid(programs, loops, actual)
-
-
-def qmc_seg_bits(grid: Grid) -> Optional[int]:
-    """Tile-index bits of one Sobol segment when the plan reaches 2**32
-    points, else None (one segment)."""
-    if grid.n_tiles >= 1 << 31:
-        raise ValueError("QMC block counter exceeds int32; reduce n_samples")
-    return SEG_BITS if grid.actual_samples >= QMC_MAX_SAMPLES else None
-
-
 def _positions(device) -> torch.Tensor:
     """(BLOCK_ROWS, LANES) positions ``row * 128 + lane`` within a tile."""
     return torch.arange(BLOCK_ELEMS, dtype=torch.int64, device=device).reshape(
@@ -199,11 +166,6 @@ def nd_uniforms(
     return sobol_u01_split(
         base[:, None, None], offset[None], shift[:, None, None], open01=open01
     )
-
-
-def _clamp_below(x: torch.Tensor, hi) -> torch.Tensor:
-    """The uniform transform's clamp below its open bound ``hi``."""
-    return torch.where(x >= hi, next_below_f32(torch.as_tensor(hi)), x)
 
 
 def _draw_dim(kind: DistKind, p1, p2, get_u) -> torch.Tensor:
@@ -288,23 +250,6 @@ def pilot_row(
         else:
             raise not_ported(f"{DistKind(kind).name.lower()} dimensions", ND_FAMILIES)
     return torch.stack([f(*xs).mean() for f in torch_fns])
-
-
-def finish_stderr(
-    sums: torch.Tensor, sqs: torch.Tensor, pilot: torch.Tensor, grid: Grid,
-    antithetic: bool,
-):
-    """(means, standard errors), float32, from the kernel's sums and
-    pilot-shifted squares (``_finish_stderr``,
-    integrate_nd_pallas.py:877-887).  Antithetic squares are of pair
-    means, so pairs are the unit."""
-    n = float(np.float32(grid.actual_samples))
-    units = grid.actual_samples // 2 if antithetic else grid.actual_samples
-    n_units = float(np.float32(units))
-    mean = sums / n
-    dlt = mean - pilot
-    var = torch.clamp(sqs / n_units - dlt * dlt, min=0.0)
-    return mean, torch.sqrt(var / n_units)
 
 
 def _check_args(cfg: NdConfig, params: torch.Tensor, pilot, k: int) -> None:

@@ -8,8 +8,9 @@ the same order:
 * :func:`to_torch` — a torch callable on float32 tensors (the plain
   version, and the CPU path);
 * :func:`cuda_source` — CUDA C ``__device__ float f_j(float x)``
-  functions plus two per-point entries, ``tmc_accumulate`` and
-  ``tmc_values``, which the kernels in ``csrc/`` include; for d-ary
+  functions plus the per-point entries ``tmc_accumulate``,
+  ``tmc_accumulate_sq``, ``tmc_accumulate_pair_sq`` and ``tmc_values``,
+  which the kernels in ``csrc/`` include; for d-ary
   integrands (d >= 2), ``f_j(const float* x)`` plus ``TMC_D`` and the
   nd entries ``tmc_accumulate_nd``, ``tmc_accumulate_nd_sq`` and
   ``tmc_values_nd``, which the nd MCMC kernel also takes for d = 1
@@ -21,6 +22,14 @@ the same order:
 
 Each IR operation is one float32 operation in both; constants are rounded
 to float32 once, here, for both.
+
+An importance-sampling set (``weight=(p, q)``, two traced densities)
+lowers each integrand weighted as the JAX package's ``_weighted_fns``
+closure computes it (``tpu_montecarlo/api/importance.py:469-499``):
+``where(q > 0, (f(x) * p(x)) / safe_q, 0)`` with ``safe_q = where(q > 0,
+q, 1)``, the product rounded before the division.  Both lowerings
+compute ``p(x)`` and ``q(x)`` once per sample for the whole set
+(:func:`to_torch_set`; ``tmc_weight`` in the CUDA source).
 """
 
 from __future__ import annotations
@@ -39,7 +48,13 @@ from ..tracing import (
     TracedFunction,
 )
 
-__all__ = ["cuda_source", "cuda_target_source", "to_torch", "topo_order"]
+__all__ = [
+    "cuda_source",
+    "cuda_target_source",
+    "to_torch",
+    "to_torch_set",
+    "topo_order",
+]
 
 
 def topo_order(roots: Sequence[Node]) -> List[Node]:
@@ -154,6 +169,31 @@ def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
     return run
 
 
+def _weigh(v: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``where(q > 0, (v * p) / safe_q, 0)``, the weighted value."""
+    ok = q > 0
+    safe_q = torch.where(ok, q, 1.0)
+    return torch.where(ok, (v * p) / safe_q, 0.0)
+
+
+def to_torch_set(
+    fns: Sequence[TracedFunction], weight=None
+) -> Callable[[torch.Tensor], List[torch.Tensor]]:
+    """The set's values at one block of samples, as a list of K float32
+    tensors; with ``weight=(p, q)`` each weighted by ``p(x) / q(x)``,
+    the densities computed once per block."""
+    lowered = [to_torch(f) for f in fns]
+    if weight is None:
+        return lambda x: [f(x) for f in lowered]
+    p_fn, q_fn = (to_torch(w) for w in weight)
+
+    def values(x: torch.Tensor) -> List[torch.Tensor]:
+        p, q = p_fn(x), q_fn(x)
+        return [_weigh(f(x), p, q) for f in lowered]
+
+    return values
+
+
 def _c_float(v: float) -> str:
     if math.isnan(v):
         return "TMC_NAN"
@@ -245,49 +285,119 @@ def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
     return "\n".join(lines)
 
 
-def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False) -> str:
+def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
+                weight=None) -> str:
     """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and the
     per-point entries.
 
     1-argument integrands get ``tmc_accumulate(x, acc)``, which adds each
-    ``f_j(x)`` to ``acc[j]`` (the integrate kernel), and ``tmc_values(x,
-    vals)``, which stores each ``f_j(x)`` in ``vals[j]`` (the MCMC kernel,
-    which shifts them).  Integrands of d >= 2 arguments, all of one arity,
-    take the point as ``const float* x`` and get ``TMC_D`` and
-    :func:`_nd_entries`; ``pointer=True`` gives 1-argument integrands
-    that form too.  The sums take an integrand that ends in a multiply
-    a * b as ``f_j_fma(x, acc)``, ``tmc_fma(a, b, acc)``: one rounding
-    where ``TMC_CONTRACT`` is 1 (the integrate kernels' sums; the values
-    entries and the plain version round the product first)."""
+    ``f_j(x)`` to ``acc[j]`` (the integrate kernel);
+    ``tmc_accumulate_sq(x, pilot, acc, sq)``, which also adds ``(f_j(x) -
+    pilot[j])^2`` to ``sq[j]`` (error bars); ``tmc_accumulate_pair_sq(x,
+    y, pilot, acc, sq)``, which adds ``f_j(x)`` and ``f_j(y)`` and the
+    square of their mean less the pilot (antithetic error bars); and
+    ``tmc_values(x, vals)``, which stores each ``f_j(x)`` in ``vals[j]``
+    (the MCMC kernel, which shifts them).  ``weight=(p, q)``, two traced
+    1-argument densities, weighs every value by ``p(x) / q(x)`` as the
+    module docstring says, ``tmc_weight(x)`` evaluating both densities
+    once per point, and defines ``TMC_WEIGHTED``.  Integrands of d >= 2
+    arguments, all of one arity, take the point as ``const float* x`` and
+    get ``TMC_D`` and :func:`_nd_entries`; ``pointer=True`` gives
+    1-argument integrands that form too.  The sums take an unweighted
+    integrand that ends in a multiply a * b as ``f_j_fma(x, acc)``,
+    ``tmc_fma(a, b, acc)``: one rounding where ``TMC_CONTRACT`` is 1 (the
+    integrate kernels' sums; the other entries and the plain version
+    round the product first)."""
     k = len(fns)
     arity = {fn.n_args for fn in fns}
     if len(arity) != 1:
         raise ValueError(f"integrands of mixed arity {sorted(arity)}")
     d = arity.pop()
     nd = pointer or d > 1
+    if weight is not None and (nd or any(w.n_args != 1 for w in weight)):
+        raise ValueError("importance weights take 1-argument integrands "
+                         "and densities")
     parts = [f"#define TMC_K {k}"]
     if nd:
         parts.append(f"#define TMC_D {d}")
     parts += [_c_function(f"f_{j}", fn, nd) for j, fn in enumerate(fns)]
-    fused = [_fma_root(fn) for fn in fns]
+    fused = [weight is None and _fma_root(fn) for fn in fns]
     parts += [_c_function(f"f_{j}_fma", fn, nd, fma_acc=True)
               for j, fn in enumerate(fns) if fused[j]]
+    if nd:
+        acc = "\n".join(
+            f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
+            else f"  acc[{j}] += f_{j}(x);" for j in range(k)
+        )
+        return "\n\n".join(parts + _nd_entries(k, acc)) + "\n"
+    if weight is not None:
+        parts.append("#define TMC_WEIGHTED 1")
+        parts += [_c_function("tmc_pdf_p", weight[0]),
+                  _c_function("tmc_pdf_q", weight[1])]
+        parts.append(_WEIGHT_HELPERS)
+    return "\n\n".join(parts + _one_d_entries(k, fused, weight is not None)) + "\n"
+
+
+# The weighted value of _weighted_fns, from both densities at a point.
+_WEIGHT_HELPERS = """struct TmcWeight {
+  float p, q;
+};
+
+static __device__ inline TmcWeight tmc_weight(float x) {
+  return TmcWeight{tmc_pdf_p(x), tmc_pdf_q(x)};
+}
+
+static __device__ inline float tmc_weigh(float v, TmcWeight w) {
+  const bool ok = w.q > 0.0f;
+  const float safe_q = ok ? w.q : 1.0f;
+  return ok ? (v * w.p) / safe_q : 0.0f;
+}"""
+
+
+def _one_d_entries(k: int, fused, weighted: bool) -> List[str]:
+    """The 1-D integrate and MCMC kernels' per-point entries (see
+    :func:`cuda_source`)."""
+
+    def value(j: int, x: str) -> str:
+        return f"tmc_weigh(f_{j}({x}), w_{x})" if weighted else f"f_{j}({x})"
+
+    def weights(*xs: str) -> str:
+        if not weighted:
+            return ""
+        return "".join(f"  const TmcWeight w_{x} = tmc_weight({x});\n"
+                       for x in xs)
+
     acc = "\n".join(
         f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
-        else f"  acc[{j}] += f_{j}(x);" for j in range(k)
+        else f"  acc[{j}] += {value(j, 'x')};" for j in range(k)
     )
-    if nd:
-        return "\n\n".join(parts + _nd_entries(k, acc)) + "\n"
-    vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
-    parts.append(
+    sq = "\n".join(
+        f"  {{\n    const float v = {value(j, 'x')};\n    acc[{j}] += v;\n"
+        f"    const float dd = v - pilot[{j}];\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
+        for j in range(k)
+    )
+    pair = "\n".join(
+        f"  {{\n    const float a = {value(j, 'x')};\n"
+        f"    const float b = {value(j, 'y')};\n"
+        f"    acc[{j}] += a;\n    acc[{j}] += b;\n"
+        f"    const float dd = tmc_fma(0.5f, a + b, -pilot[{j}]);\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
+        for j in range(k)
+    )
+    vals = "\n".join(f"  vals[{j}] = {value(j, 'x')};" for j in range(k))
+    return [
         "static __device__ inline void tmc_accumulate(float x, float* acc) {\n"
-        f"{acc}\n}}"
-    )
-    parts.append(
+        f"{weights('x')}{acc}\n}}",
+        "static __device__ inline void tmc_accumulate_sq(float x, "
+        "const float* pilot, float* acc, float* sq) {\n"
+        f"{weights('x')}{sq}\n}}",
+        "static __device__ inline void tmc_accumulate_pair_sq(float x, "
+        "float y, const float* pilot, float* acc, float* sq) {\n"
+        f"{weights('x', 'y')}{pair}\n}}",
         "static __device__ inline void tmc_values(float x, float* vals) {\n"
-        f"{vals}\n}}"
-    )
-    return "\n\n".join(parts) + "\n"
+        f"{weights('x')}{vals}\n}}",
+    ]
 
 
 def cuda_target_source(fn: TracedFunction) -> str:

@@ -1,5 +1,6 @@
-"""The PCG output mix shared by the counter RNG, and the Sobol point sets
-of ``method="qmc"`` (port of ``tpu_montecarlo/ops/qmc.py``).
+"""The PCG output mix shared by the counter RNG, and the point sets of
+``method="qmc"`` (port of ``tpu_montecarlo/ops/qmc.py``): the 1-D rotated
+radical inverse and the Sobol dimensions.
 
 The CUDA kernels carry the same mix as ``tmc::pcg`` in
 ``csrc/counter_rng.cuh`` and the same Sobol words in ``csrc/sobol.cuh``.
@@ -9,7 +10,8 @@ arithmetic, so words travel as int64 tensors holding values in
 ``[0, 2**32)``: sums and products of such words with 32-bit constants fit
 in int64, and masking them back to 32 bits is exactly uint32 wraparound.
 
-Sobol dimension ``j`` is the XOR of the direction numbers selected by the
+The 1-D point of global index ``g`` takes the top 24 bits of
+``bitrev32(g) + derive_shift(seed, 1)``.  Sobol dimension ``j`` is the XOR of the direction numbers selected by the
 set bits of the global point index, rotated by a seed-derived uint32
 (``derive_shift(seed, j + 1)``) and cut to a 24-bit mantissa, as in the
 JAX package.  The direction-number tables are a copy of the JAX
@@ -29,6 +31,8 @@ __all__ = [
     "derive_segment_shift",
     "derive_shift",
     "pcg_mix",
+    "qmc_u01_halfopen",
+    "qmc_u01_open",
     "sobol_base_bits",
     "sobol_bits",
     "sobol_direction_numbers",
@@ -75,6 +79,20 @@ def derive_shift(seed, tag: int) -> torch.Tensor:
     """Seed-derived uint32 rotation of QMC dimension ``tag``."""
     s = _word(seed)
     return pcg_mix(s ^ 0x9E3779B9 ^ ((tag * 0x85EBCA6B) & MASK32))
+
+
+def qmc_u01_halfopen(idx, shift) -> torch.Tensor:
+    """[0, 1) float32 uniforms of the 1-D rotated radical inverse:
+    the top 24 bits of ``bitrev32(idx) + shift`` (uint32 wraparound)."""
+    m = ((bitrev32(idx) + _word(shift)) & MASK32) >> 8
+    return m.to(torch.float32) * _INV_2POW24
+
+
+def qmc_u01_open(idx, shift) -> torch.Tensor:
+    """(0, 1] variant of :func:`qmc_u01_halfopen`, for the exponential's
+    logarithm."""
+    m = ((bitrev32(idx) + _word(shift)) & MASK32) >> 8
+    return (m + 1).to(torch.float32) * _INV_2POW24
 
 
 def derive_segment_shift(base_shift, seg) -> torch.Tensor:

@@ -6,7 +6,6 @@ from __future__ import annotations
 __all__ = [
     "API_SURFACE",
     "FRONT_END",
-    "IMPORTANCE",
     "MCMC_DIAGNOSTICS",
     "MCMC_FAMILIES",
     "MCMC_HMC",
@@ -36,14 +35,20 @@ __all__ = [
     "PT_SAMPLES",
     "PT_SERVING",
     "PT_WIDE",
+    "SERVING",
+    "TABLES",
     "TEMPERING",
     "VARIANTS",
     "not_ported",
 ]
 
 VARIANTS = "ROADMAP.md, queue 1 item 2 (integrate variants)"
+TABLES = "ROADMAP.md, queue 1 item 2.3 (CUSTOM tables)"
+SERVING = (
+    "ROADMAP.md, queue 1 item 2.4 (seed_batch, param_batch and the "
+    "compile_* handles)"
+)
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
-IMPORTANCE = "ROADMAP.md, queue 1 item 5 (importance sampling)"
 MCMC_HMC = "ROADMAP.md, queue 1 item 6.1 (HMC)"
 MCMC_STATE = "ROADMAP.md, queue 1 item 6.2 (MCMC state and resume)"
 MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 6.3 (MCMC diagnostics)"
