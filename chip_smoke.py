@@ -133,20 +133,43 @@ Phases, each of which exits non-zero on failure:
 25. hold each mode's kernel against its plain version on the card at 2**22
     samples under U(-1,2), N(0.5,1.5) and Exp(2), and config 4's
     importance set under its proposal: means within rel 1e-5 + abs 1e-6,
-    error bars within rel 1e-4 + abs 1e-9;
+    error bars within rel 1e-4 + abs 1e-9, each absolute term times the
+    column's size (its mean |value| on the pilot grid, or |mean| if
+    larger);
 26. the bench set at 2**30 samples under N(0, 1) in each mode and one
     rotation of rQMC (8 x 2**27, ``integrate(method="qmc",
     return_stderr=True)``): time the kernel and the plain version (CUDA
-    events) and the ``integrate()`` call end to end (host clock), and
-    count the bound on the running build, per sample drawn (per pair
-    under antithetic);
+    events), hold the two outputs together with phase 25's tolerances,
+    time the ``integrate()`` call end to end (host clock), and count the
+    bound on the running build, per sample drawn (per pair under
+    antithetic); every later timing of this kernel (phases 27 and 29)
+    holds its outputs so too;
 27. drive the importance-sampling main path at BASELINE.md
     config 4, ``integrate_importance_sampling([x > 4], N(0,1), N(4,1.5),
     n_samples=1e8, return_stderr=True, return_diagnostics=True)``: the
     estimate within 6 standard errors of P(X > 4) = 3.1671e-5, the
     weight diagnostics (ESS) printed, and the launch count rose; then
     time its kernel, plain version and call as phase 26 does, read the
-    device idle share of warm calls, and time the same set at 2**30.
+    device idle share of warm calls, and time the same set at 2**30;
+28. finish building the 1-D kernel's CUSTOM and table-weight libraries
+    (all started in phase 2), then hold each against its plain version at
+    2**22 samples with phase 25's tolerances: the bench set on the
+    stratified route (Beta(2, 5)), the gap-respecting one (a mixture of
+    U(-3,-1) and U(1,3)) and the knot-exact one (Student-t(5)), each in
+    mc, antithetic and qmc, mc and antithetic with error bars; and
+    importance sets whose target is a pdf table (under a uniform and under
+    a table proposal) and whose q is the sampler's own density, with error
+    bars, antithetic error bars and qmc;
+29. drive BASELINE.md config 3, ``integrate([x, x*x], Distribution.beta(2,
+    5, table_size=512), n_samples=1e7)`` and ``integrate([x], triangular
+    from_pdf on [0, 2], table_size=512)``: each estimate within 6 standard
+    errors of its closed form (2/7, 6/56; 1) and the Beta ones within
+    BASELINE's 0.01, printed with its z-score, and the launch count rose;
+    then time each one's kernel, plain version and call as phase 26 does,
+    read the idle share of warm Beta calls, and time the bench set under
+    Beta(2, 5) at 2**30 and an importance set with a table target at 2**30,
+    each with its bound (the bound counts the arithmetic pipes; the table
+    loads are left out of it).
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -256,6 +279,37 @@ STDERR_1D_RTOL, STDERR_1D_ATOL = 1e-4, 1e-9
 IS_FNS = [lambda x: x > 4.0]
 IS_SAMPLES = 100_000_000
 IS_EXACT = 0.5 * math.erfc(4.0 / math.sqrt(2.0))  # 3.1671e-5
+# BASELINE.md config 3 (benchmarks/run_all.py:148-170): Beta(2, 5) and a
+# triangular from_pdf on [0, 2], 512-bin tables, 1e7 samples; closed forms
+# E and Var of each integrand.
+C3_SAMPLES = 10_000_000
+C3_BETA_FNS = [lambda x: x, lambda x: x * x]
+C3_BETA_MEANS = [2.0 / 7.0, 6.0 / 56.0]
+C3_BETA_VARS = [10.0 / 392.0, 120.0 / 5040.0 - (6.0 / 56.0) ** 2]
+C3_TRI_FNS = [lambda x: x]
+C3_TRI_MEANS, C3_TRI_VARS = [1.0], [1.0 / 6.0]
+C3_TOLERANCE = 0.01  # BASELINE.md's, at 1e7
+
+
+def tri_pdf(x):
+    """Config 3's triangular density on [0, 2], peaked at 1."""
+    if 0 <= x <= 1:
+        return x
+    if 1 < x <= 2:
+        return 2 - x
+    return 0.0
+
+
+def untraceable_pdf(x):
+    """0.5 on (-1, 1): an int() cast on a data value does not trace, so
+    importance sampling reads it from a pdf table."""
+    return 0.5 if int(abs(x)) < 1 else 0.0
+
+
+# The CUSTOM routes of phase 28 and importance sets with table weights.
+CUSTOM_IS_FNS = [lambda x: x > 0.5, lambda x: x * x]
+
+
 # nd main path 1: c9's set (benchmarks/run_all.py:338-354) at 1e9, with
 # its closed forms under N(0,1) x U(0,1) x Exp(2): E and Var.
 ND_FNS = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
@@ -1009,8 +1063,10 @@ def main() -> int:
     try:
         import tpu_montecarlo_torch as tm
         from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE, fns_key
+        from tpu_montecarlo_torch.api.device import sampling_tables
         from tpu_montecarlo_torch.api.results import _unit_integrand
         from tpu_montecarlo_torch.ops.integrate_kernel import (
+            SAMPLER,
             IntegrateConfig,
             IntegrateProgram,
             integrate_cuda,
@@ -1272,11 +1328,12 @@ def main() -> int:
     # bars, as the public path builds it (phase 27 takes it from the
     # cache).
     mode_cfgs = {name: IntegrateConfig(*mode) for name, mode in MODES_1D.items()}
+    MC_CFG = IntegrateConfig()
     is_target = tm.Distribution.normal(0.0, 1.0)
     is_proposal = tm.Distribution.normal(4.0, 1.5)
     is_program = integ._integrate_program(
         integ._trace_user_functions(IS_FNS) + (_unit_integrand(),),
-        (integ._pdf_mode(is_target), integ._pdf_mode(is_proposal)),
+        integ._is_weight(is_target, is_proposal),
     )
     is_cfg = IntegrateConfig("mc", True)
     mode_builds = {
@@ -1285,6 +1342,68 @@ def main() -> int:
     }
     mode_builds["is"] = pool.submit(timed_build,
                                     lambda: is_program.library(is_cfg))
+    # CUSTOM tables and table weights (phases 28-29): one library per
+    # program, mode and route, as the public paths build them.
+    custom_dists = {
+        "strata": tm.Distribution.beta(2.0, 5.0),
+        "gapped": tm.Distribution.mixture([tm.Distribution.uniform(-3.0, -1.0),
+                                           tm.Distribution.uniform(1.0, 3.0)]),
+        "knots": tm.Distribution.student_t(5.0),
+    }
+    custom_modes = {"mc": IntegrateConfig(), **mode_cfgs}
+    table_target = tm.Distribution.from_pdf(untraceable_pdf, support=(-1.0, 1.0))
+    u_2 = tm.Distribution.uniform(-2.0, 2.0)
+    custom_is_fns = integ._trace_user_functions(CUSTOM_IS_FNS) + (_unit_integrand(),)
+    # name: (program, proposal, modes)
+    custom_is = {
+        "table p, U(-2,2) q": (integ._integrate_program(
+            custom_is_fns, integ._is_weight(table_target, u_2)), u_2,
+            ("mc_stderr", "antithetic_stderr", "qmc")),
+        "N(0.3,0.1) p, Beta(2,5)'s sampler q": (integ._integrate_program(
+            custom_is_fns, (tm.trace_function(
+                tm.Distribution.normal(0.3, 0.1)._pdf_func), SAMPLER)),
+            custom_dists["strata"], ("mc_stderr", "antithetic_stderr", "qmc")),
+        "table p, table q": (integ._integrate_program(
+            custom_is_fns, integ._is_weight(table_target, table_target)),
+            table_target, ("mc_stderr",)),
+    }
+    c3_beta = tm.Distribution.beta(2.0, 5.0, table_size=512)
+    c3_tri = tm.Distribution.from_pdf(tri_pdf, support=(0.0, 2.0),
+                                      table_size=512)
+    c3_beta_program = integ._integrate_program(
+        integ._trace_user_functions(C3_BETA_FNS))
+    c3_tri_program = integ._integrate_program(
+        integ._trace_user_functions(C3_TRI_FNS))
+    # The importance set with a table target timed at 2**30: E[x] under a
+    # Beta(2, 5) pdf table from a U(0, 1) proposal.
+    grid_x = np.linspace(0.0, 1.0, 2048)
+    is_table_target = tm.Distribution.from_pdf_table(
+        grid_x, 30.0 * grid_x * (1.0 - grid_x) ** 4)
+    is_table_proposal = tm.Distribution.uniform(0.0, 1.0)
+    is_table_program = integ._integrate_program(
+        integ._trace_user_functions(C3_TRI_FNS),
+        integ._is_weight(is_table_target, is_table_proposal))
+
+    def route_of(prog, dist):
+        """The CUSTOM route ``prog`` draws ``dist`` on, or None."""
+        spec_ = dist_spec_of(dist)
+        if spec_.kind != DistKind.CUSTOM:
+            return None
+        return sampling_tables(dist, spec_, dev, with_pdf=prog.sampler).route
+
+    custom_libs = {(id(prog), cfg, route): (prog, cfg, route)
+                   for prog, cfg, route in [
+        *((program, c, route_of(program, d)) for d in custom_dists.values()
+          for c in custom_modes.values()),
+        *((prog, custom_modes[m], route_of(prog, q))
+          for prog, q, ms in custom_is.values() for m in ms),
+        (c3_beta_program, MC_CFG, route_of(c3_beta_program, c3_beta)),
+        (c3_tri_program, MC_CFG, route_of(c3_tri_program, c3_tri)),
+        (is_table_program, IntegrateConfig("mc", True), None),
+    ]}
+    custom_builds = [
+        pool.submit(timed_build, lambda p=p, c=c, r=r: p.library(c, r))
+        for p, c, r in custom_libs.values()]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -2058,22 +2177,21 @@ def main() -> int:
 
     # 25. Each mode's kernel against its plain version at 2**22 samples,
     # three families; config 4's importance set under its proposal.
-    def mode_vs_plain(prog, dist, cfg, n, phase: str) -> float:
-        """Means (and error bars) of the kernel and of the plain version
-        on the same samples; fails unless they agree.  Returns the max
-        abs diff of the means."""
-        spec = dist_spec_of(dist)
-        params = torch.tensor(spec.params, device=dev)
-        grid = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
-        pilot = (pilot_values(prog.torch_values, spec.kind, params)
-                 if cfg.with_stderr else None)
-        got = integrate_cuda(prog, spec.kind, params, SEED, grid, cfg, pilot)
-        want = integrate_reference(prog.torch_values, spec.kind, params, SEED,
-                                   grid, cfg, pilot)
-        name = (f"{cfg.method}{', stderr' if cfg.with_stderr else ''}, "
-                f"{spec.kind.name.lower()} at {grid.actual_samples} samples")
-        size = pilot_values(lambda x: [v.abs() for v in prog.torch_values(x)],
-                            spec.kind, params).double().cpu().numpy()
+    def tables_of(prog, dist):
+        """The device tables of a CUSTOM ``dist`` for ``prog``, or None."""
+        spec_ = dist_spec_of(dist)
+        if spec_.kind != DistKind.CUSTOM:
+            return None
+        return sampling_tables(dist, spec_, dev, with_pdf=prog.sampler)
+
+    def outputs_agree(prog, spec, params, tables, cfg, grid, pilot, got, want,
+                      name: str) -> float:
+        """Fails unless the kernel's sums ``got`` and the plain version's
+        ``want`` give the same means (and error bars) within phase 25's
+        tolerances, each scaled by its column's size.  Returns the max abs
+        diff of the means."""
+        size = pilot_values(lambda *a: [v.abs() for v in prog.torch_values(*a)],
+                            spec.kind, params, tables).double().cpu().numpy()
         if cfg.with_stderr:
             (m_k, s_k), (m_p, s_p) = (
                 [t.double().cpu().numpy() for t in
@@ -2084,9 +2202,9 @@ def main() -> int:
             m_k, m_p = ((o / n_f).double().cpu().numpy() for o in (got, want))
         err = np.abs(m_k - m_p)
         size = np.maximum(size, np.abs(m_p))
-        print(f"phase {phase}: {name}: kernel {m_k}")
+        print(f"{name}: kernel {m_k}")
         print(f"         plain  {m_p}  max|diff| {err.max():.3e}, "
-              f"max|diff|/size {np.max(err / size):.3e}")
+              f"max|diff|/size {np.max(err / np.maximum(size, 1e-30)):.3e}")
         if not np.all(np.isfinite(m_k)):
             fail(f"{name}: non-finite kernel means {m_k}")
         if not np.all(err <= RTOL * np.abs(m_p) + ATOL * size):
@@ -2099,6 +2217,26 @@ def main() -> int:
                 fail(f"{name}: error bars disagree")
         return float(err.max())
 
+    def mode_vs_plain(prog, dist, cfg, n, phase: str) -> float:
+        """The kernel and the plain version on the same samples, held
+        together by ``outputs_agree``."""
+        spec = dist_spec_of(dist)
+        params = torch.tensor(spec.params, device=dev)
+        tables = tables_of(prog, dist)
+        grid = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
+        pilot = (pilot_values(prog.torch_values, spec.kind, params, tables)
+                 if cfg.with_stderr else None)
+        got = integrate_cuda(prog, spec.kind, params, SEED, grid, cfg, pilot,
+                             tables)
+        want = integrate_reference(prog.torch_values, spec.kind, params, SEED,
+                                   grid, cfg, pilot, tables)
+        route = "" if tables is None else f" ({tables.route})"
+        name = (f"{cfg.method}{', stderr' if cfg.with_stderr else ''}, "
+                f"{spec.kind.name.lower()}{route} at {grid.actual_samples} "
+                "samples")
+        return outputs_agree(prog, spec, params, tables, cfg, grid, pilot,
+                             got, want, f"phase {phase}: {name}")
+
     mode_err = max(mode_vs_plain(program, d, cfg, MODE_CHECK_SAMPLES, "25")
                    for cfg in mode_cfgs.values() for d in families)
     mode_err = max(mode_err, mode_vs_plain(is_program, is_proposal, is_cfg,
@@ -2106,20 +2244,32 @@ def main() -> int:
     max_abs_err = max(max_abs_err, mode_err)
 
     # 26. The bench set at 2**30 samples under N(0, 1) in each mode: kernel
-    # and plain version (CUDA events), the bound per sample drawn (per
-    # pair under antithetic) on the running build, and integrate() end to
-    # end (host clock); then rQMC as integrate() runs it.
-    def mode_times(prog, cfg, lib_, spec_, n, call, label: str) -> dict:
+    # and plain version (CUDA events), held together as in phase 25, the
+    # bound per sample drawn (per pair under antithetic) on the running
+    # build, and integrate() end to end (host clock); then rQMC as
+    # integrate() runs it.
+    def mode_times(prog, cfg, lib_, spec_, n, call, label: str,
+                   tables=None) -> dict:
         params_ = torch.tensor(spec_.params, device=dev)
         grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
-        pilot = (pilot_values(prog.torch_values, spec_.kind, params_)
+        pilot = (pilot_values(prog.torch_values, spec_.kind, params_, tables)
                  if cfg.with_stderr else None)
-        run = lambda: integrate_cuda(prog, spec_.kind, params_, SEED,  # noqa: E731
-                                     grid_, cfg, pilot)
+        out = {}
+
+        def run():
+            out["kernel"] = integrate_cuda(prog, spec_.kind, params_, SEED,
+                                           grid_, cfg, pilot, tables)
+
+        def plain():
+            out["plain"] = integrate_reference(
+                prog.torch_values, spec_.kind, params_, SEED, grid_, cfg,
+                pilot, tables)
+
         k_ms = time_ms(run, reps=10)
-        p_ms = time_ms(lambda: integrate_reference(
-            prog.torch_values, spec_.kind, params_, SEED, grid_, cfg, pilot),
-            reps=1)
+        p_ms = time_ms(plain, reps=1)
+        err = outputs_agree(prog, spec_, params_, tables, cfg, grid_, pilot,
+                            out["kernel"], out["plain"],
+                            f"{label}, {grid_.actual_samples} samples")
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2131,14 +2281,14 @@ def main() -> int:
         mhz_ = clock_under_load(run, k_ms)
         bound = card_bound(lib_, f"integrate_kernelILi{int(spec_.kind)}EE",
                            1, units, mhz_)
-        print(f"phase 26: {label}, {drawn} samples on {card}: kernel "
+        print(f"{label}, {drawn} samples on {card}: kernel "
               f"{k_ms:.3f} ms ({drawn / k_ms * 1e3:.4e} samples/s), plain "
               f"{p_ms:.3f} ms, call end to end {c_ms:.3f} ms median of 3, "
               f"host clock")
         print_bound(bound, mhz_, "pair" if cfg.antithetic else "sample")
         return {"samples": drawn, "ms": k_ms, "plain_ms": p_ms,
                 "call_ms": c_ms, "bound_ms": bound[0], "bound_pipe": bound[1],
-                "issue_ms": bound[2]}
+                "issue_ms": bound[2], "max_abs_err": err}
 
     modes = {}
     for name, (method, stderr) in MODES_1D.items():
@@ -2147,7 +2297,7 @@ def main() -> int:
             lambda m=method, e=stderr: tm.integrate(
                 BENCH_FNS, normal, n_samples=MODE_SAMPLES, seed=SEED,
                 method=m, return_stderr=e),
-            f"K=8, N(0,1), {name}")
+            f"phase 26: K=8, N(0,1), {name}")
     rot_n = plan_grid(make_integrate_plan(-(-MODE_SAMPLES // RQMC_ROTATIONS))
                       .actual_samples, "qmc").actual_samples
     rqmc = mode_times(
@@ -2156,8 +2306,8 @@ def main() -> int:
         lambda: tm.integrate(BENCH_FNS, normal, n_samples=MODE_SAMPLES,
                              seed=SEED, method="qmc", return_stderr=True,
                              qmc_rotations=RQMC_ROTATIONS),
-        f"K=8, N(0,1), one rQMC rotation of {RQMC_ROTATIONS} (the call: "
-        f"all {RQMC_ROTATIONS})")
+        f"phase 26: K=8, N(0,1), one rQMC rotation of {RQMC_ROTATIONS} (the "
+        f"call: all {RQMC_ROTATIONS})")
     rqmc.update(rotations=RQMC_ROTATIONS, rotation_samples=rot_n)
     modes["rqmc"] = rqmc
 
@@ -2196,15 +2346,109 @@ def main() -> int:
 
     modes["is_config4"] = mode_times(
         is_program, is_cfg, mode_libs["is"], is_spec, IS_SAMPLES, is_call,
-        "config 4, [x > 4] and the weight, N(0,1) from N(4,1.5), stderr")
+        "phase 27: config 4, [x > 4] and the weight, N(0,1) from N(4,1.5), "
+        "stderr")
     modes["is_config4"]["idle_share"] = idle_share(is_call)
     modes["is_2e30"] = mode_times(
         is_program, is_cfg, mode_libs["is"], is_spec, MODE_SAMPLES,
         lambda: tm.integrate_importance_sampling(
             IS_FNS, is_target, is_proposal, n_samples=MODE_SAMPLES, seed=SEED,
             return_stderr=True, return_diagnostics=True),
-        "config 4's set at 2**30")
+        "phase 27: config 4's set at 2**30")
 
+    # 28. CUSTOM tables and table weights: the libraries started in phase
+    # 2, then each route and weight mode against its plain version.
+    built = [b.result() for b in custom_builds]
+    print(f"phase 28: built the integrate kernel's CUSTOM and table-weight "
+          f"libraries for {len(built)} programs and modes, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for lib_, _ in built:
+        for line in lib_.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    custom_err = max(
+        mode_vs_plain(program, d, cfg, MODE_CHECK_SAMPLES, "28")
+        for d in custom_dists.values() for cfg in custom_modes.values())
+    for label, (prog_, q, ms_) in custom_is.items():
+        print(f"phase 28: importance set, {label}:")
+        custom_err = max(custom_err, *(
+            mode_vs_plain(prog_, q, custom_modes[m], MODE_CHECK_SAMPLES, "28")
+            for m in ms_))
+    max_abs_err = max(max_abs_err, custom_err)
+
+    # 29. BASELINE.md config 3 through the public API, counted; then its
+    # kernels, the bench set under Beta(2, 5) and an importance set with a
+    # table target at 2**30, with their bounds.
+    integrate_cuda.launches = 0
+    t0 = time.perf_counter()
+    c3_beta_result = tm.integrate(C3_BETA_FNS, c3_beta, n_samples=C3_SAMPLES,
+                                  seed=SEED)
+    c3_tri_result = tm.integrate(C3_TRI_FNS, c3_tri, n_samples=C3_SAMPLES,
+                                 seed=SEED)
+    c3_s = time.perf_counter() - t0
+    custom_launches = integrate_cuda.launches
+    c3_n = plan_grid(make_integrate_plan(C3_SAMPLES).actual_samples).actual_samples
+    print(f"phase 29: config 3, integrate([x, x*x], Beta(2,5) 512-bin "
+          f"table) and integrate([x], triangular from_pdf 512-bin table), "
+          f"n_samples={C3_SAMPLES} each ({c3_n} drawn), in {c3_s:.3f} s "
+          f"(host clock), {custom_launches} kernel launch(es)")
+    if custom_launches < 2:
+        fail("config 3 did not launch the integrate kernel for each set")
+    for label, res, means, vars_, tol in (
+            ("Beta(2,5)", c3_beta_result, C3_BETA_MEANS, C3_BETA_VARS,
+             C3_TOLERANCE),
+            ("triangular", c3_tri_result, C3_TRI_MEANS, C3_TRI_VARS, None)):
+        vals = np.asarray(res.values)
+        if vals.shape != (len(means),) or not np.all(np.isfinite(vals)):
+            fail(f"bad config 3 result {vals!r}")
+        for j, (v, mu, var) in enumerate(zip(vals, means, vars_)):
+            z = (v - mu) / math.sqrt(var / c3_n)
+            print(f"  {label} f{j}: {v:.7f}  closed form {mu:.7f}  z = "
+                  f"{z:+.3f} (iid standard error; the strata make the "
+                  "estimate closer)")
+            if abs(z) > 6.0 or (tol is not None and abs(v - mu) > tol):
+                fail(f"config 3 {label} f{j} is off its closed form")
+
+    def c3_call(dist, fns):
+        return lambda: tm.integrate(fns, dist, n_samples=C3_SAMPLES, seed=SEED)
+
+    for key, prog_, dist_, fns_ in (
+            ("config3_beta", c3_beta_program, c3_beta, C3_BETA_FNS),
+            ("config3_triangular", c3_tri_program, c3_tri, C3_TRI_FNS)):
+        modes[key] = mode_times(
+            prog_, MC_CFG, prog_.library(MC_CFG, route_of(prog_, dist_)),
+            dist_spec_of(dist_), C3_SAMPLES,
+            c3_call(dist_, fns_), f"phase 29: {key}, strata",
+            tables=tables_of(prog_, dist_))
+    modes["config3_beta"]["idle_share"] = idle_share(c3_call(c3_beta,
+                                                             C3_BETA_FNS))
+    beta = custom_dists["strata"]
+    modes["beta_k8_2e30"] = mode_times(
+        program, MC_CFG, program.library(MC_CFG, route_of(program, beta)),
+        dist_spec_of(beta),
+        MODE_SAMPLES, lambda: tm.integrate(BENCH_FNS, beta,
+                                           n_samples=MODE_SAMPLES, seed=SEED),
+        "phase 29: K=8, Beta(2,5) (strata), mc", tables=tables_of(program, beta))
+    is_table_cfg = IntegrateConfig("mc", True)
+    is_table_result = tm.integrate_importance_sampling(
+        C3_TRI_FNS, is_table_target, is_table_proposal,
+        n_samples=MODE_SAMPLES, seed=SEED, return_stderr=True)
+    v, se = float(is_table_result.values[0]), float(is_table_result.stderr[0])
+    print(f"phase 29: importance set, E[x] under a Beta(2,5) pdf table from "
+          f"U(0,1), {MODE_SAMPLES} samples: {v:.7f} +- {se:.2e}, closed "
+          f"form {2.0 / 7.0:.7f}")
+    if not (math.isfinite(v) and se > 0 and abs(v - 2.0 / 7.0) <= C3_TOLERANCE):
+        fail("the table-weighted importance set is off its closed form")
+    modes["is_table_2e30"] = mode_times(
+        is_table_program, is_table_cfg, is_table_program.library(is_table_cfg),
+        dist_spec_of(is_table_proposal), MODE_SAMPLES,
+        lambda: tm.integrate_importance_sampling(
+            C3_TRI_FNS, is_table_target, is_table_proposal,
+            n_samples=MODE_SAMPLES, seed=SEED, return_stderr=True),
+        "phase 29: [x], Beta(2,5) pdf-table target from U(0,1), stderr")
+
+    max_abs_err = max(max_abs_err, *(m["max_abs_err"] for m in modes.values()))
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -2223,6 +2467,8 @@ def main() -> int:
         "parent_issue_ms": integrate_parent[2],
         "library_ms": None,
         "is_launches": is_launches,
+        "custom_launches": custom_launches,
+        "custom_max_abs_err": custom_err,
         "modes": modes,
     }, {
         "name": "mcmc",

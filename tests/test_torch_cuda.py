@@ -13,6 +13,7 @@ summation order and last-bit libm differences: rel 1e-5 + abs 1e-6.  The
 MCMC tolerances are stated above their tests.
 """
 
+import ctypes
 import math
 from dataclasses import replace
 
@@ -350,6 +351,184 @@ def test_kernel_rows_sum_to_the_wrapper_result(cuda_device, mode):
                           3 * (2 if with_stderr else 1))
     whole = integrate_cuda(program, spec.kind, params, 7, grid, cfg, pilot)
     assert torch.equal(rows.sum(dim=0).reshape(whole.shape), whole)
+
+
+# -- CUSTOM tables and table weights in the 1-D kernel --------------------------
+#
+# Each CUSTOM route (stratified tables, gap-respecting tables, the
+# knot-exact inverse) and each table weight (uniform-grid table, the
+# sampler's own density, an irregular grid's knots) against the plain
+# version on the same draws: means within rel 1e-5 plus 1e-6 times the
+# column's size (its mean |value| on the pilot grid, or |mean| if larger;
+# chip_smoke.py phase 25's scaling: a symmetric mixture's E[x] sums
+# values of both signs, so float32 order moves it in proportion to them),
+# error bars as above, scaled the same way.
+
+
+def _untraceable(x):
+    # An int() cast on a data value does not trace: a table density.
+    return 0.5 if int(abs(x)) < 1 else 0.0
+
+
+CUSTOM_DISTS = {
+    "strata": lambda: tm.Distribution.beta(2.0, 5.0),
+    "gapped": lambda: tm.Distribution.mixture(
+        [tm.Distribution.uniform(-3.0, -1.0), tm.Distribution.uniform(1.0, 3.0)]),
+    "knots": lambda: tm.Distribution.student_t(5.0),
+}
+
+
+def _custom_kernel_and_plain(program, dist, method, with_stderr, device,
+                             n_samples):
+    from tpu_montecarlo_torch.api.device import sampling_tables
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        finish_stderr,
+        pilot_values,
+    )
+
+    spec = dist_spec_of(dist)
+    tables = None
+    if spec.kind == DistKind.CUSTOM:
+        tables = sampling_tables(dist, spec, device, with_pdf=program.sampler)
+    cfg = IntegrateConfig(method, with_stderr)
+    grid = plan_grid(n_samples, method)
+    params = torch.tensor(spec.params, device=device)
+    pilot = (pilot_values(program.torch_values, spec.kind, params, tables)
+             if with_stderr else None)
+    size = pilot_values(lambda *a: [v.abs() for v in program.torch_values(*a)],
+                        spec.kind, params, tables).double().cpu().numpy()
+    before = integrate_cuda.launches
+    got = integrate_cuda(program, spec.kind, params, 42, grid, cfg, pilot, tables)
+    torch.cuda.synchronize()
+    assert integrate_cuda.launches == before + 1
+    want = integrate_reference(program.torch_values, spec.kind, params, 42,
+                               grid, cfg, pilot, tables)
+    if with_stderr:
+        runs = [tuple(t.double().cpu().numpy() for t in
+                      finish_stderr(o[0], o[1], pilot, grid, cfg.antithetic))
+                for o in (got, want)]
+    else:
+        n = float(np.float32(grid.actual_samples))
+        runs = [((o / n).double().cpu().numpy(), None) for o in (got, want)]
+    return runs, np.maximum(size, np.abs(runs[1][0]))
+
+
+def _check_custom(runs, size):
+    (m_k, s_k), (m_p, s_p) = runs
+    assert np.all(np.isfinite(m_k))
+    assert np.all(np.abs(m_k - m_p) <= RTOL * np.abs(m_p) + ATOL * size)
+    if s_p is not None:
+        assert np.array_equal(s_k > 0, s_p > 0)
+        assert np.all(np.abs(s_k - s_p)
+                      <= STDERR_1D_RTOL * np.abs(s_p) + STDERR_1D_ATOL * size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc"] + list(MODES_1D))
+@pytest.mark.parametrize("route", list(CUSTOM_DISTS))
+def test_custom_kernel_matches_plain_version(cuda_device, route, mode):
+    method, with_stderr = MODES_1D.get(mode, ("mc", False))
+    _check_custom(*_custom_kernel_and_plain(
+        _program(BENCH), CUSTOM_DISTS[route](), method, with_stderr,
+        cuda_device, 1 << 22))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(CUSTOM_DISTS))
+def test_custom_wide_loop_matches_plain_version(cuda_device, route):
+    # The run-time position loop (17 integrands) reads a position's row
+    # from the position it counts.
+    _check_custom(*_custom_kernel_and_plain(
+        _program(WIDEST[:17]), CUSTOM_DISTS[route](), "antithetic", True,
+        cuda_device, 1 << 22))
+
+
+def _weights():
+    """name: (program weight, proposal) for each table-weight mode."""
+    from tpu_montecarlo_torch.ops.integrate_kernel import SAMPLER, KnotWeightTable
+
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    table_target = tm.Distribution(tm.DistributionType.CUSTOM, {}, _untraceable)
+    u2 = tm.Distribution.uniform(-2.0, 2.0)
+    beta = tm.Distribution.beta(2.0, 5.0)
+    table_q = tm.Distribution.from_pdf(_untraceable, support=(-1.0, 1.0))
+    heavy = CUSTOM_DISTS["knots"]()
+    return {
+        "table-p": (integ._is_weight(table_target, u2), u2),
+        "table-p-table-q": (integ._is_weight(table_target, table_q), table_q),
+        "sampler-q": ((tm.trace_function(tm.Distribution.normal(0.3, 0.1)._pdf_func),
+                       SAMPLER), beta),
+        "knots-p": ((KnotWeightTable(*table_target.get_or_compute_pdf_table()),
+                     tm.trace_function(u2._pdf_func)), u2),
+        "table-p-heavy-q": (integ._is_weight(table_target, heavy), heavy),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc"] + list(MODES_1D))
+@pytest.mark.parametrize("case", ["table-p", "table-p-table-q", "sampler-q",
+                                  "knots-p", "table-p-heavy-q"])
+def test_table_weight_kernel_matches_plain_version(cuda_device, case, mode):
+    from tpu_montecarlo_torch.api.results import _unit_integrand
+
+    method, with_stderr = MODES_1D.get(mode, ("mc", False))
+    weight, proposal = _weights()[case]
+    program = IntegrateProgram(
+        tuple(tm.trace_function(f) for f in [lambda x: x > 0.5, lambda x: x * x])
+        + (_unit_integrand(),), weight)
+    _check_custom(*_custom_kernel_and_plain(program, proposal, method,
+                                            with_stderr, cuda_device, 1 << 22))
+
+
+@pytest.mark.cuda
+def test_custom_integrate_on_cuda_matches_cpu(cuda_device):
+    # The public paths, one launch each (rQMC: one per rotation).
+    for route, make in CUSTOM_DISTS.items():
+        d = make()
+        for kw in (dict(method="mc", return_stderr=True),
+                   dict(method="qmc", return_stderr=True, qmc_rotations=4)):
+            before = integrate_cuda.launches
+            got = tm.integrate(BENCH[:2], d, n_samples=1 << 20,
+                               device=cuda_device, **kw)
+            assert integrate_cuda.launches == before + kw.get("qmc_rotations", 1)
+            want = tm.integrate(BENCH[:2], d, n_samples=1 << 20, device="cpu", **kw)
+            size = np.maximum(np.abs(want.values), 1.0)
+            assert np.all(np.abs(got.values - want.values)
+                          <= RTOL * np.abs(want.values) + ATOL * size), route
+    target = tm.Distribution(tm.DistributionType.CUSTOM, {}, _untraceable)
+    proposal = tm.Distribution.from_pdf(_untraceable, support=(-1.0, 1.0))
+    got, want = (tm.integrate_importance_sampling(
+        [lambda x: x * x], target, proposal, n_samples=1 << 20, device=dev,
+        return_stderr=True, return_diagnostics=True) for dev in (cuda_device, "cpu"))
+    np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.stderr, want.stderr, rtol=STDERR_1D_RTOL,
+                               atol=STDERR_1D_ATOL)
+
+
+@pytest.mark.cuda
+def test_custom_kernel_rejects_missing_tables(cuda_device):
+    # A CUSTOM library refuses a launch without its tables, as a wrapper
+    # bypassed would give them: the C entry checks, nothing falls back.
+    from tpu_montecarlo_torch.api.device import sampling_tables
+    from tpu_montecarlo_torch.ops.integrate_kernel import IntegrateConfig, MASK32
+
+    d = CUSTOM_DISTS["strata"]()
+    spec = dist_spec_of(d)
+    tables = sampling_tables(d, spec, cuda_device)
+    program = _program(BENCH[:2])
+    lib = program.library(IntegrateConfig(), tables.route)
+    params = torch.zeros(2, device=cuda_device)
+    out = torch.empty((1, 2), device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = lib.tmc_integrate(3, 42 & MASK32, params.data_ptr(), 0, 8, 8, -1, 1,
+                            out.data_ptr(), None, stream)
+    assert err != 0
+    err = lib.tmc_integrate(1, 42, params.data_ptr(), 0, 8, 8, -1, 1,
+                            out.data_ptr(),
+                            ctypes.addressof(program.kernel_tables(tables, cuda_device)),
+                            stream)
+    assert err != 0
 
 
 # -- the MCMC kernel ----------------------------------------------------------

@@ -1,10 +1,13 @@
 """The port's importance sampling (``integrate_importance_sampling``, 1-D,
 closed-form weights) against the JAX package.
 
-Both packages fold the weight into each integrand,
-``where(q > 0, f(x) * p(x) / safe_q, 0)``; the JAX package's closures
-come from ``_weighted_fns`` and run in its 1-D kernel, the port's in its
-own (``IntegrateProgram(fns, weight=(p, q))``).  The port's plain version
+The JAX package folds the weight into each integrand,
+``where(q > 0, (f(x) * p(x)) / safe_q, 0)`` (its ``_weighted_fns``
+closures, run in its 1-D kernel); the port weighs as that kernel's
+``is_weight`` does, ``f(x) * where(q > 0, p(x) / safe_q, 0)``
+(``IntegrateProgram(fns, weight=(p, q))``), the two a few ulp apart per
+value (2e-6 relative, ``test_weighted_set_evaluates_the_jax_closures``).
+The port's plain version
 draws, tile for tile, the samples of ``build_integrate_fn_pallas`` in
 interpret mode at 256-row blocks, so weighted means agree within 1e-5
 absolute plus 1e-5 relative and error bars within 1e-3 relative, as in
@@ -119,6 +122,39 @@ def test_weighted_set_evaluates_the_jax_closures():
 _SHIM = r"""
 #include "integrand_math.cuh"
 #include "integrands.inc"
+#if TMC_WEIGHTED
+// The kernel's weight of two traced densities, where(q > 0, p / q, 0), and
+// the entries the kernel calls with it.
+static float weight_at(float x) {
+  const float q = tmc_pdf_q(x);
+  const bool ok = q > 0.0f;
+  return ok ? tmc_pdf_p(x) / (ok ? q : 1.0f) : 0.0f;
+}
+static void accumulate(float x, float* acc) {
+  tmc_accumulate_w(x, weight_at(x), acc);
+}
+static void accumulate_sq(float x, const float* pilot, float* acc, float* sq) {
+  tmc_accumulate_sq_w(x, weight_at(x), pilot, acc, sq);
+}
+static void accumulate_pair_sq(float x, float y, const float* pilot,
+                               float* acc, float* sq) {
+  tmc_accumulate_pair_sq_w(x, y, weight_at(x), weight_at(y), pilot, acc, sq);
+}
+static void values(float x, float* vals) {
+  for (int j = 0; j < TMC_K; ++j) vals[j] = 0.0f;
+  accumulate(x, vals);
+}
+#else
+static void accumulate(float x, float* acc) { tmc_accumulate(x, acc); }
+static void accumulate_sq(float x, const float* pilot, float* acc, float* sq) {
+  tmc_accumulate_sq(x, pilot, acc, sq);
+}
+static void accumulate_pair_sq(float x, float y, const float* pilot,
+                               float* acc, float* sq) {
+  tmc_accumulate_pair_sq(x, y, pilot, acc, sq);
+}
+static void values(float x, float* vals) { tmc_values(x, vals); }
+#endif
 // Per point: acc, sq, the pair entry's acc and sq (with the point and its
 // neighbour as the pair) and vals; 5 x TMC_K floats.
 extern "C" void tmc_eval(const float* x, long n, const float* pilot,
@@ -126,11 +162,11 @@ extern "C" void tmc_eval(const float* x, long n, const float* pilot,
   for (long i = 0; i < n; ++i) {
     float acc[TMC_K], sq[TMC_K], pacc[TMC_K], psq[TMC_K], one[TMC_K];
     for (int j = 0; j < TMC_K; ++j) acc[j] = sq[j] = pacc[j] = psq[j] = one[j] = 0.0f;
-    tmc_accumulate_sq(x[i], pilot, acc, sq);
-    tmc_accumulate_pair_sq(x[i], x[(i + 1) % n], pilot, pacc, psq);
-    tmc_accumulate(x[i], one);
+    accumulate_sq(x[i], pilot, acc, sq);
+    accumulate_pair_sq(x[i], x[(i + 1) % n], pilot, pacc, psq);
+    accumulate(x[i], one);
     float* o = out + i * 5 * TMC_K;
-    tmc_values(x[i], o + 4 * TMC_K);
+    values(x[i], o + 4 * TMC_K);
     for (int j = 0; j < TMC_K; ++j) {
       o[j] = acc[j];
       o[TMC_K + j] = sq[j];
@@ -147,7 +183,7 @@ extern "C" void tmc_eval(const float* x, long n, const float* pilot,
 def test_c_entries_match_torch_set(tmp_path, weighted):
     """The generated C entries (host C++ build) against the torch set:
     values, squares about a pilot, and the antithetic pair's sums and
-    squared mean."""
+    squared mean; a weighted set's entries with the kernel's weight."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -175,7 +211,7 @@ def test_c_entries_match_torch_set(tmp_path, weighted):
     pilot = np.linspace(0.1, 0.5, k).astype(np.float32)
     out = np.empty((len(x), 5, k), np.float32)
     lib.tmc_eval(x.ctypes.data, len(x), pilot.ctypes.data, out.ctypes.data)
-    values = to_torch_set(traced, weight)
+    values = IntegrateProgram(traced, weight).torch_values
     v = torch.stack(values(torch.from_numpy(x)), dim=1).numpy()
     y = np.roll(x, -1)
     vy = torch.stack(values(torch.from_numpy(y)), dim=1).numpy()
@@ -386,6 +422,11 @@ ERRORS = {
     "no-functions": (ValueError, lambda pkg: dict(
         functions=[], target=pkg.Distribution.normal(0.0, 1.0),
         proposal=pkg.Distribution.normal(0.0, 1.5))),
+    # A CUSTOM proposal with no tables to sample.
+    "custom-proposal-without-tables": (ValueError, lambda pkg: dict(
+        functions=[lambda x: x], target=pkg.Distribution.uniform(0.0, 1.0),
+        proposal=pkg.Distribution(pkg.DistributionType.CUSTOM, {},
+                                  lambda x: 1.0))),
 }
 
 
@@ -412,20 +453,29 @@ def test_one_element_sequences_are_the_scalar_path():
     np.testing.assert_array_equal(a.values, b.values)
 
 
+def _while_pdf(x):
+    # A while loop: the reference traces it in closed form; the port's
+    # front end does not have it yet (ROADMAP.md item 3).
+    y = 0.0
+    while y < 1.0:
+        y = y + 1.0
+    return 0.5 * y if abs(x) < 1.0 else 0.0
+
+
 def test_what_is_not_ported_names_its_item():
     integ = tm.MonteCarloIntegrator(device="cpu")
     cases = {
-        r"item 2\.3 \(CUSTOM tables\)": lambda: integ.integrate_importance_sampling(
-            [lambda x: x], _custom(_untraceable_pdf), U(-1.0, 1.0)),
-        r"item 2\.3 ": lambda: integ.integrate_importance_sampling(
-            [lambda x: x], U(-1.0, 1.0), _custom(_untraceable_pdf)),
+        # A density the front end cannot trace yet names item 3: the PDF
+        # table fallback does not take it, since the reference traces it.
+        r"item 3 \(integrand front end\)": lambda: integ.integrate_importance_sampling(
+            [lambda x: x], _custom(_while_pdf), U(-1.0, 1.0)),
+        r"item 3 ": lambda: integ.integrate_importance_sampling(
+            [lambda x: x], U(-1.0, 1.0), tm.Distribution.from_pdf(
+                _while_pdf, support=(-1.0, 1.0))),
         r"item 7\.3 ": lambda: integ.integrate_importance_sampling(
             [lambda x, y: x], [U(0.0, 1.0)] * 2, [U(0.0, 1.0)] * 2),
         r"item 2\.4 ": lambda: integ.compile_importance_sampling(
             [lambda x: x], N(0.0, 1.0), N(0.0, 2.0), seed_batch=4),
-        # A proposal the kernel does not sample (CUSTOM needs tables too).
-        r"item 2 ": lambda: integ.integrate_importance_sampling(
-            [lambda x: x], U(0.0, 1.0), _custom(lambda x: 1.0)),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):

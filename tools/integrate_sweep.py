@@ -131,9 +131,12 @@ _ROLES = {
     "convert": {"halfopen01", "open01", "halfopen_top", "open_top"},
     "transform": {"next_below", "normal_from_u01", "transform",
                   "transform_pair", "normal_z", "transform_top",
-                  "transform_pair_top", "family"},
+                  "transform_pair_top", "family", "strata_x", "knot_interp"},
     "accumulate": {"tmc_accumulate", "tmc_accumulate_sq",
-                   "tmc_accumulate_pair_sq", "tmc_weigh", "tmc_accumulate_nd",
+                   "tmc_accumulate_pair_sq", "tmc_accumulate_w",
+                   "tmc_accumulate_sq_w", "tmc_accumulate_pair_sq_w",
+                   "kernel_weight", "uniform_table_value",
+                   "knot_table_value", "tmc_accumulate_nd",
                    "tmc_accumulate_nd_sq", "tmc_values_nd"},
     "loop": {"TileWalk", "stream", "next"},
 }

@@ -1,12 +1,27 @@
-"""Importance sampling over one dimension with closed-form weights (port
-of the traced-PDF route of ``tpu_montecarlo/api/importance.py``).
+"""Importance sampling over one dimension (port of the 1-D routes of
+``tpu_montecarlo/api/importance.py``).
 
-Both densities are traced into the integrand IR; each integrand is then
-weighted by ``p(x) / q(x)`` inside the 1-D integrate kernel, on samples of
-the proposal (``IntegrateProgram(fns, weight=(p, q))``, ``ops/lower.py``).
-A density that does not trace would take the JAX package's table
-fallback, which needs CUSTOM tables; it raises ``NotImplementedError``
-naming that item, as do nd sequences and ``compile_importance_sampling``.
+Each integrand is weighted by ``p(x) / q(x)`` inside the 1-D integrate
+kernel, on samples of the proposal (``IntegrateProgram(fns, weight=(p,
+q))``, ``ops/lower.py``): the weight is made once per sample, as the JAX
+kernel's ``is_weight`` makes it.  The densities come from the JAX
+package's traceability probe (``_pdf_mode``):
+
+* both trace: closed-form densities (the JAX package folds them into
+  each integrand, its ``_weighted_fns`` closure, a few ulp apart);
+* otherwise its non-traced route (``importance.py:255-430``): a density
+  that does not trace becomes a pdf table on a uniform grid (resampled
+  within a bound where the table's grid is irregular, then downsampled),
+  read in the kernel; an irregular-grid CUSTOM proposal that no uniform
+  grid represents but whose table is self-normalised takes q from its
+  own sampler (``"sampler"``); where neither holds, the closure
+  fallback's table lookups, over the irregular grid by a knot search.
+
+A density that uses a construct the port's front end does not have yet
+raises its ``NotImplementedError`` (ROADMAP.md item 3): the reference
+computes it in closed form, so it does not take the table route here.
+nd sequences and ``compile_importance_sampling`` raise naming their
+items.
 """
 
 from __future__ import annotations
@@ -16,8 +31,11 @@ from typing import Callable, List, Union
 import numpy as np
 
 from ..distributions import Distribution
+from ..ops.integrate_kernel import SAMPLER, KnotWeightTable, UniformWeightTable
+from ..sampling import DistKind, dist_spec_of
 from ..tracing import TraceError, trace_function
-from ..utils.roadmap import ND_IS, SERVING, TABLES, not_ported
+from ..utils.roadmap import ND_IS, SERVING, not_ported
+from .device import _device_mode_tables, _uniform_table_mode
 from .results import IntegrationResult, _unit_integrand, _weight_diagnostics
 
 
@@ -36,10 +54,11 @@ class _ImportanceMixin:
     ) -> IntegrationResult:
         """Compute E_p[f(X)] sampling from q with weights p(x)/q(x).
 
-        All K functions share samples and see identical weights (the
-        weight is folded into each integrand): ``where(q > 0, f(x) * p(x)
-        / q(x), 0)``.  The proposal is a uniform, normal or exponential
-        Distribution; both densities must trace (closed form).
+        All K functions share samples and see identical weights:
+        ``f(x) * where(q > 0, p(x) / q(x), 0)``.  The proposal is a uniform, normal, exponential or
+        CUSTOM Distribution.  A density that traces is evaluated in closed
+        form; one that does not is read from its pdf table (the module
+        docstring lists the routes).
 
         ``method`` is ``"mc"``, ``"antithetic"`` or ``"qmc"``, as for
         :meth:`integrate`.  ``return_stderr=True``: ``result.stderr``
@@ -89,8 +108,7 @@ class _ImportanceMixin:
                 f"method={method!r})"
             )
         traced = self._trace_user_functions(functions)
-        weight = (self._pdf_mode(target_distribution),
-                  self._pdf_mode(proposal_distribution))
+        weight = self._is_weight(target_distribution, proposal_distribution)
         if return_diagnostics:
             # The weight's mean and spread: the weighted constant 1 and
             # its error bar.
@@ -122,14 +140,73 @@ class _ImportanceMixin:
 
     @staticmethod
     def _pdf_mode(dist: Distribution):
-        """The traced density of ``dist``: the JAX package's
-        traceability probe (importance.py:432-441), whose other outcome,
-        a PDF table, is not ported."""
+        """``("traced", fn)`` when the PDF traces, else ``("table", x,
+        pdf)``: the JAX package's traceability probe
+        (``importance.py:432-441``), which catches ``TraceError`` and
+        ``TypeError`` only.  The front end's ``NotImplementedError`` (a
+        construct the port does not trace yet, which the reference
+        does) propagates."""
         try:
-            return trace_function(dist._pdf_func)
-        except (TraceError, TypeError, NotImplementedError):
+            return ("traced", trace_function(dist._pdf_func))
+        except (TraceError, TypeError):
             pass
-        raise not_ported(
-            "importance weights from a PDF that does not trace (the PDF "
-            "table fallback)", TABLES,
-        )
+        x_table, pdf_table = dist.get_or_compute_pdf_table()
+        return ("table", x_table, pdf_table)
+
+    def _is_weight(self, target: Distribution, proposal: Distribution):
+        """The program weight ``(p, q)`` of an importance-sampling run,
+        routed as the JAX package's ``_get_is_program``
+        (``importance.py:236-430``): two traced densities; else each
+        density traced, a downsampled uniform-grid table, or q the
+        proposal's sampler; else the closure fallback's knot-searched
+        tables."""
+        p_mode = self._pdf_mode(target)
+        q_mode = self._pdf_mode(proposal)
+        if p_mode[0] == "traced" and q_mode[0] == "traced":
+            return (p_mode[1], q_mode[1])
+        spec = dist_spec_of(proposal)
+        p_k = _uniform_table_mode(target, p_mode)
+        q_k = _uniform_table_mode(proposal, q_mode, "proposal")
+        if (q_k is None and spec.kind == DistKind.CUSTOM
+                and not spec.exact_inverse):
+            # Only a self-normalised table keeps the reference's
+            # face-value weights under the sampler's own density.
+            x_t = np.asarray(q_mode[1], np.float64)
+            v_t = np.asarray(q_mode[2], np.float64)
+            if abs(_trapezoid(v_t, x_t) - 1.0) <= 1e-3:
+                q_k = ("sampler",)
+        if p_k is None or q_k is None:
+            return tuple(m[1] if m[0] == "traced" else _knot_table(d, m)
+                         for d, m in ((target, p_mode), (proposal, q_mode)))
+        return (_kernel_mode(target, p_k, "target"),
+                _kernel_mode(proposal, q_k, "proposal"))
+
+
+# numpy < 2.0 names it trapz.
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def _kernel_mode(dist: Distribution, mode, role: str):
+    """One density of a kernel-weighted program: traced, the sampler's,
+    or a :class:`UniformWeightTable` of the downsampled table, cached per
+    Distribution and role."""
+    if mode[0] == "traced":
+        return mode[1]
+    if mode[0] == "sampler":
+        return SAMPLER
+    attr = f"_weight_table_{role}"
+    table = getattr(dist, attr, None)
+    if table is None:
+        table = UniformWeightTable(*_device_mode_tables(dist, mode, role))
+        setattr(dist, attr, table)
+    return table
+
+
+def _knot_table(dist: Distribution, mode) -> KnotWeightTable:
+    """A table density of the closure fallback, at full resolution on its
+    own grid, cached per Distribution."""
+    table = getattr(dist, "_weight_knot_table", None)
+    if table is None:
+        table = KnotWeightTable(mode[1], mode[2])
+        dist._weight_knot_table = table
+    return table

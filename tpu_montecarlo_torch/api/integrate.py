@@ -25,7 +25,7 @@ from ..ops.integrate_nd_kernel import (
     integrate_nd_cuda,
     pilot_row,
 )
-from ..sampling import dist_spec_of
+from ..sampling import DistKind, dist_spec_of
 from ..utils.dispatch import make_integrate_plan
 from ..utils.roadmap import (
     API_SURFACE,
@@ -38,6 +38,7 @@ from ..utils.roadmap import (
     not_ported,
 )
 from .cache import fns_key
+from .device import sampling_tables
 from .results import IntegrationResult
 
 _PORTED_ND_TYPES = (
@@ -106,12 +107,17 @@ class _IntegrateMixin:
         the mean of the rotations, and their spread over
         sqrt(rotations)).
 
-        One Distribution (uniform, normal, exponential) takes the same
-        methods and error bars: ``"antithetic"`` maps each uniform at
-        ``u`` and ``1 - u``, ``"qmc"`` draws the seed-rotated radical
-        inverse of the global sample index, and under ``"qmc"`` error bars
-        come from ``qmc_rotations`` rotations as above, one kernel launch
-        each.
+        One Distribution (uniform, normal, exponential, or CUSTOM:
+        ``from_pdf``, ``from_pdf_table``, ``beta``, ``gamma``,
+        ``student_t``, ``chi2``, ``mixture``) takes the same methods and
+        error bars: ``"antithetic"`` maps each uniform at ``u`` and ``1 -
+        u``, ``"qmc"`` draws the seed-rotated radical inverse of the global
+        sample index, and under ``"qmc"`` error bars come from
+        ``qmc_rotations`` rotations as above, one kernel launch each.  A
+        CUSTOM distribution samples its inverse-CDF tables, stratified by
+        row of each tile (gap-respecting where its density has
+        zero-density spans), or, when heavy-tailed, inverts its CDF knots
+        exactly.
 
         Control variates and more than 128 functions are not ported yet
         and raise ``NotImplementedError``."""
@@ -146,7 +152,8 @@ class _IntegrateMixin:
 
     def _integrate_program(self, traced, weight=None) -> IntegrateProgram:
         """The cached program of a traced set, weighted by ``weight=(p,
-        q)`` for importance sampling."""
+        q)`` for importance sampling (each a traced density, a weight
+        table or the sampler's density, keyed by content)."""
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
                 f"more than {MAX_FUNCTIONS} fused functions (multi-pass)",
@@ -170,6 +177,10 @@ class _IntegrateMixin:
         api/integrate.py:152-174), one launch each."""
         spec = dist_spec_of(distribution)
         params = torch.tensor(spec.params, device=self._device)
+        tables = None
+        if spec.kind == DistKind.CUSTOM:
+            tables = sampling_tables(distribution, spec, self._device,
+                                     with_pdf=program.sampler)
         if return_stderr and method == "qmc":
             if qmc_rotations < 2:
                 raise ValueError(
@@ -186,7 +197,8 @@ class _IntegrateMixin:
             )
             vals = np.stack(
                 [
-                    self._means(program, spec.kind, params, int(s), grid, cfg)
+                    self._means(program, spec.kind, params, int(s), grid, cfg,
+                                tables)
                     for s in seeds
                 ]
             ).astype(np.float64)
@@ -197,10 +209,10 @@ class _IntegrateMixin:
         grid = self._grid(n_samples, method)
         if not return_stderr:
             return self._means(program, spec.kind, params, seed_word, grid,
-                               cfg), None
-        pilot = pilot_values(program.torch_values, spec.kind, params)
+                               cfg, tables), None
+        pilot = pilot_values(program.torch_values, spec.kind, params, tables)
         sums, sqs = integrate_cuda(
-            program, spec.kind, params, seed_word, grid, cfg, pilot
+            program, spec.kind, params, seed_word, grid, cfg, pilot, tables
         )
         mean, se = finish_stderr(sums, sqs, pilot, grid, cfg.antithetic)
         return mean.cpu().numpy(), se.cpu().numpy()
@@ -210,8 +222,10 @@ class _IntegrateMixin:
         return plan_grid(plan.actual_samples, method)
 
     @staticmethod
-    def _means(program, kind, params, seed_word, grid, cfg) -> np.ndarray:
-        sums = integrate_cuda(program, kind, params, seed_word, grid, cfg)
+    def _means(program, kind, params, seed_word, grid, cfg,
+               tables=None) -> np.ndarray:
+        sums = integrate_cuda(program, kind, params, seed_word, grid, cfg,
+                              tables=tables)
         return (sums / float(np.float32(grid.actual_samples))).cpu().numpy()
 
     # -- multi-dimensional (kernel 2, ops/integrate_nd_kernel.py) -----------

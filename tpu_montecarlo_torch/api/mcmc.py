@@ -15,7 +15,7 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
-from ..distributions import HMC, RandomWalk
+from ..distributions import HMC, DistributionType, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     McmcConfig,
@@ -29,6 +29,7 @@ from ..ops.mcmc_kernel import (
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
     MCMC_DIAGNOSTICS,
+    MCMC_FAMILIES,
     MCMC_HMC,
     MCMC_SAMPLES,
     MCMC_SERVING,
@@ -212,6 +213,10 @@ class _McmcMixin:
         with_stderr,
     ):
         """(values, acceptance rate, stderr or None) as numpy/float."""
+        for dist in (target, proposal):
+            if getattr(dist, "dist_type", None) == DistributionType.CUSTOM:
+                raise not_ported("MCMC over CUSTOM target and proposal "
+                                 "tables", MCMC_FAMILIES)
         targ = dist_spec_of(target)
         if isinstance(proposal, RandomWalk):
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK

@@ -3,10 +3,11 @@
 // Replaces the TPU kernel `kernel` inside build_integrate_fn_pallas
 // (tpu_montecarlo/ops/integrate_pallas.py:969-1147, pallas_call at :1180)
 // in its mc, antithetic and qmc modes, with and without error bars, for
-// the uniform, normal and exponential families and for importance-sampling
-// sets whose weight is folded into each integrand.  It draws the very
-// samples that kernel draws under the interpreter's CounterRng
-// (integrate_pallas.py:107-133) or radical inverse at 256-row blocks:
+// the uniform, normal and exponential families and CUSTOM tables, and for
+// importance-sampling sets weighted by traced densities, pdf tables or the
+// CUSTOM sampler's own density.  It draws the very samples that kernel
+// draws under the interpreter's CounterRng (integrate_pallas.py:107-133)
+// or radical inverse at 256-row blocks:
 //
 // * mc: per (seed, program) a PCG state, per (program, block counter,
 //   tag) a PCG base, per position pos = row * 128 + lane the bits
@@ -20,18 +21,32 @@
 //   shift = derive_shift(seed, 1) (the normal family's half blocks are
 //   the tile's two contiguous halves of g, so every family takes the
 //   tile's 2^15 points); from 2^32 points on, seg = t >> 17 re-mixes the
-//   rotation (derive_segment_shift) and t & (2^17 - 1) is the block.
+//   rotation (derive_segment_shift) and t & (2^17 - 1) is the block;
+// * CUSTOM (TMC_CUSTOM, compiled in only for CUSTOM libraries): one block
+//   of tag-0 [0, 1) uniforms w (one radical-inverse point per position
+//   under qmc), each through the tables of tmc::Tables
+//   (integrate_draw.cuh): route 1, the row-stratified inverse CDF
+//   (integrate_pallas.py:367-477, 32 strata of 8 rows; the stratum comes
+//   from the position's row in its tile, not from the thread), or the
+//   gap-respecting tables of the same shape; route 2, the knot-exact
+//   inverse by binary search over the CDF knots, for heavy-tailed tables
+//   (the JAX package's XLA searchsorted route; the reference's own device
+//   search, src/distribution.rs:128-158).  Antithetic mirrors w and 1 - w.
 //
 // It evaluates the K integrands that ops/lower.py generated
-// (tmc_integrands.inc; with TMC_WEIGHTED, each weighted by p(x) / q(x),
-// both densities computed once per sample) on every sample and keeps K
+// (tmc_integrands.inc; with TMC_WEIGHTED, each times
+// the JAX kernel's weight where(q > 0, p / q, 0), p a traced density or a
+// pdf table, q one of those or the sampler's density read with the draw,
+// integrate_pallas.py:1009-1029) on every sample and keeps K
 // float32 sums in registers, and with error bars (TMC_STDERR) K sums of
 // (value - pilot)^2, of the pair's mean under antithetic.  The mode is
 // compiled in (TMC_METHOD, TMC_STDERR): each is a library of its own, and
 // plain mc compiles to the same code as without the modes.
 //
-// What bounds it on the card: issue.  Nothing is read from device memory
-// in the sample loop and each CUDA block writes one row of K (2K) partial
+// What bounds it on the card: issue.  Outside the CUSTOM family and table
+// weights nothing is read from device memory in the sample loop (their
+// table reads are L1-resident loads), and each CUDA block writes one row
+// of K (2K) partial
 // sums, so the time is the instructions each sample costs (the hash or
 // the radical inverse, the conversion, the transform with erfinvf for the
 // normal family, the K integrands with libdevice sinf, expf, ...) over the
@@ -99,6 +114,13 @@
 #ifndef TMC_WIDE_K
 #define TMC_WIDE_K 17
 #endif
+// The CUSTOM route (IntegrateConfig.custom): 0 none, 1 strata, 2 knots.
+#ifndef TMC_CUSTOM
+#define TMC_CUSTOM 0
+#endif
+#ifndef TMC_WEIGHTED
+#define TMC_WEIGHTED 0
+#endif
 
 namespace {
 
@@ -112,6 +134,17 @@ constexpr bool kStderr = TMC_STDERR != 0;
 static_assert(kMethod >= kMc && kMethod <= kQmc, "TMC_METHOD is 0, 1 or 2");
 static_assert(!(kMethod == kQmc && kStderr),
               "qmc error bars come from rotations, not in-kernel squares");
+constexpr int kCustomRoute = TMC_CUSTOM;
+enum CustomRoute { kNoCustom = 0, kStrataRoute = 1, kKnotRoute = 2 };
+static_assert(kCustomRoute >= kNoCustom && kCustomRoute <= kKnotRoute,
+              "TMC_CUSTOM is 0, 1 or 2");
+#if TMC_WEIGHTED
+constexpr bool kSampler = TMC_Q_MODE == 2;
+#else
+constexpr bool kSampler = false;
+#endif
+static_assert(!kSampler || kCustomRoute == kStrataRoute,
+              "a sampler-mode weight reads the strata tables' density");
 
 constexpr int kLanes = tmc::kLanes;
 constexpr int kBlockRows = 256;
@@ -137,28 +170,117 @@ constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
 // bitrev32(256 * bitrev7(j)) = j << 17.
 constexpr uint32_t kQmcStep = 1u << 17;
 
-// One position's top 24 bits: its sample(s) through the transform, and
-// the integrands into the sums (and squares).
+// The sample of position pos (in its tile) from its top-24 word; *q gets
+// the sampler's density under a sampler-mode weight.
 template <int KIND>
-__device__ __forceinline__ void take(uint32_t top, const tmc::Family& f,
+__device__ __forceinline__ float draw(uint32_t top, uint32_t pos,
+                                      const tmc::Family& f,
+                                      const tmc::Tables& tb, float* q) {
+  if constexpr (KIND == tmc::kCustom) {
+    if constexpr (kCustomRoute == kKnotRoute) {
+      return tmc::knot_interp(tmc::halfopen_top(top), tb.ck, tb.xk, tb.m);
+    } else {
+      return tmc::strata_x<kSampler>(tb, pos, float(top) * tmc::kW127, q);
+    }
+  } else {
+    return tmc::transform_top(KIND, top, f);
+  }
+}
+
+// The antithetic pair of position pos: at w and at 1 - w.
+template <int KIND>
+__device__ __forceinline__ void draw_pair(uint32_t top, uint32_t pos,
+                                          const tmc::Family& f,
+                                          const tmc::Tables& tb, float& a,
+                                          float& b, float* qa, float* qb) {
+  if constexpr (KIND == tmc::kCustom) {
+    const float w = tmc::halfopen_top(top);
+    const float v = 1.0f - w;  // exact
+    if constexpr (kCustomRoute == kKnotRoute) {
+      a = tmc::knot_interp(w, tb.ck, tb.xk, tb.m);
+      b = tmc::knot_interp(v, tb.ck, tb.xk, tb.m);
+    } else {
+      a = tmc::strata_x<kSampler>(tb, pos, w * 127.0f, qa);
+      b = tmc::strata_x<kSampler>(tb, pos, v * 127.0f, qb);
+    }
+  } else {
+    tmc::transform_pair_top(KIND, top, f, a, b);
+  }
+}
+
+#if TMC_WEIGHTED
+// The JAX kernel's importance weight at x: where(q > 0, p / q, 0), p and
+// q each from its mode (TMC_P_MODE, TMC_Q_MODE: 0 traced, 1 uniform-grid
+// table, 2 the sampler's density q_samp, 3 irregular-grid table).
+__device__ __forceinline__ float kernel_weight(float x, float q_samp,
+                                               const tmc::Tables& tb) {
+#if TMC_P_MODE == 0
+  const float p = tmc_pdf_p(x);
+#elif TMC_P_MODE == 1
+  const float p = tmc::uniform_table_value(x, tb.p);
+#else
+  const float p = tmc::knot_table_value(x, tb.p);
+#endif
+#if TMC_Q_MODE == 0
+  const float q = tmc_pdf_q(x);
+#elif TMC_Q_MODE == 1
+  const float q = tmc::uniform_table_value(x, tb.q);
+#elif TMC_Q_MODE == 2
+  const float q = q_samp;
+#else
+  const float q = tmc::knot_table_value(x, tb.q);
+#endif
+  const bool ok = q > 0.0f;
+  const float safe_q = ok ? q : 1.0f;
+  return ok ? p / safe_q : 0.0f;
+}
+#endif
+
+// One position's top 24 bits and its place pos in the tile: its sample(s),
+// and the integrands into the sums (and squares).
+template <int KIND>
+__device__ __forceinline__ void take(uint32_t top, uint32_t pos,
+                                     const tmc::Family& f,
+                                     const tmc::Tables& tb,
                                      const float* pilot, float* acc,
                                      float* sq) {
   if constexpr (kMethod == kAntithetic) {
-    float a, b;
-    tmc::transform_pair_top(KIND, top, f, a, b);
+    float a, b, qa = 0.0f, qb = 0.0f;
+    draw_pair<KIND>(top, pos, f, tb, a, b, &qa, &qb);
+#if TMC_WEIGHTED
+    const float wa = kernel_weight(a, qa, tb);
+    const float wb = kernel_weight(b, qb, tb);
+    if constexpr (kStderr) {
+      tmc_accumulate_pair_sq_w(a, b, wa, wb, pilot, acc, sq);
+    } else {
+      tmc_accumulate_w(a, wa, acc);
+      tmc_accumulate_w(b, wb, acc);
+    }
+#else
     if constexpr (kStderr) {
       tmc_accumulate_pair_sq(a, b, pilot, acc, sq);
     } else {
       tmc_accumulate(a, acc);
       tmc_accumulate(b, acc);
     }
+#endif
   } else {
-    const float x = tmc::transform_top(KIND, top, f);
+    float q = 0.0f;
+    const float x = draw<KIND>(top, pos, f, tb, &q);
+#if TMC_WEIGHTED
+    const float w = kernel_weight(x, q, tb);
+    if constexpr (kStderr) {
+      tmc_accumulate_sq_w(x, w, pilot, acc, sq);
+    } else {
+      tmc_accumulate_w(x, w, acc);
+    }
+#else
     if constexpr (kStderr) {
       tmc_accumulate_sq(x, pilot, acc, sq);
     } else {
       tmc_accumulate(x, acc);
     }
+#endif
   }
 }
 
@@ -170,6 +292,7 @@ __device__ __forceinline__ void take(uint32_t top, const tmc::Family& f,
 template <int KIND, int TAGS>
 __device__ __forceinline__ void sweep(uint32_t state, uint32_t blk,
                                       const tmc::Family& f,
+                                      const tmc::Tables& tb,
                                       const float* pilot, float* acc,
                                       float* sq) {
   constexpr int kPerThread = kTilePositions / TAGS / kThreads;
@@ -183,8 +306,9 @@ __device__ __forceinline__ void sweep(uint32_t state, uint32_t blk,
   for (int i = 0; i < kPerThread; ++i) {
 #pragma unroll
     for (int t = 0; t < TAGS; ++t) {
-      take<KIND>(tmc::cursor_top24(x0[t] + uint32_t(i) * kStep), f, pilot,
-                 acc, sq);
+      take<KIND>(tmc::cursor_top24(x0[t] + uint32_t(i) * kStep),
+                 threadIdx.x + uint32_t(i) * kThreads, f, tb, pilot, acc,
+                 sq);
     }
   }
 }
@@ -199,11 +323,13 @@ template <int KIND>
 __device__ __forceinline__ void sweep_wide(uint32_t state, uint32_t blk,
                                            uint32_t tag, int n_pos,
                                            const tmc::Family& f,
+                                           const tmc::Tables& tb,
                                            const float* pilot, float* acc,
                                            float* sq) {
   const uint32_t base = tmc::block_base(state, blk, tag);
   for (int pos = threadIdx.x; pos < n_pos; pos += kThreads) {
-    take<KIND>(tmc::mantissa(base, uint32_t(pos)) << 8, f, pilot, acc, sq);
+    take<KIND>(tmc::mantissa(base, uint32_t(pos)) << 8, uint32_t(pos), f, tb,
+               pilot, acc, sq);
   }
 }
 
@@ -213,16 +339,17 @@ __device__ __forceinline__ void sweep_wide(uint32_t state, uint32_t blk,
 template <int KIND>
 __device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
                                           const tmc::Family& f,
+                                          const tmc::Tables& tb,
                                           const float* pilot, float* acc,
                                           float* sq) {
   constexpr int kTags = KIND == kNormal ? 2 : 1;
   if constexpr (!kWide) {
-    sweep<KIND, kTags>(state, blk, f, pilot, acc, sq);
+    sweep<KIND, kTags>(state, blk, f, tb, pilot, acc, sq);
   } else {
 #pragma unroll
     for (int t = 0; t < kTags; ++t) {
       sweep_wide<KIND>(state, blk, uint32_t(t), kTilePositions / kTags, f,
-                       pilot, acc, sq);
+                       tb, pilot, acc, sq);
     }
   }
 }
@@ -233,13 +360,16 @@ __device__ __forceinline__ void draw_tile(uint32_t state, uint32_t blk,
 template <int KIND>
 __device__ __forceinline__ void draw_tile_qmc(uint32_t word,
                                               const tmc::Family& f,
+                                              const tmc::Tables& tb,
                                               const float* pilot, float* acc,
                                               float* sq) {
   constexpr int kPerThread = kTilePositions / kThreads;
 #pragma unroll (kWide ? 1 : kPosUnroll)
   for (int j = 0; j < kPerThread; ++j) {
-    take<KIND>((word + uint32_t(j) * kQmcStep) & 0xFFFFFF00u, f, pilot, acc,
-               sq);
+    // The position t + 256 * bitrev7(j) (CUSTOM reads its row).
+    take<KIND>((word + uint32_t(j) * kQmcStep) & 0xFFFFFF00u,
+               threadIdx.x + kThreads * (__brev(uint32_t(j)) >> 25), f, tb,
+               pilot, acc, sq);
   }
 }
 
@@ -248,6 +378,7 @@ template <int KIND>
 __device__ __forceinline__ void draw_tiles(uint32_t seed, int loops,
                                            long long n_tiles, int seg_bits,
                                            const tmc::Family& f,
+                                           const tmc::Tables& tb,
                                            const float* pilot, float* acc,
                                            float* sq) {
   if (kMethod == kQmc) {
@@ -264,12 +395,12 @@ __device__ __forceinline__ void draw_tiles(uint32_t seed, int loops,
       // on disjoint bits, so their words add.
       const uint32_t word = __brev(b << kPosBits) + thread_word +
                             tmc::derive_segment_shift(shift0, seg);
-      draw_tile_qmc<KIND>(word, f, pilot, acc, sq);
+      draw_tile_qmc<KIND>(word, f, tb, pilot, acc, sq);
     }
   } else {
     tmc::TileWalk walk(seed, uint32_t(loops), blockIdx.x, gridDim.x);
     for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      draw_tile<KIND>(walk.stream(), walk.blk, f, pilot, acc, sq);
+      draw_tile<KIND>(walk.stream(), walk.blk, f, tb, pilot, acc, sq);
       walk.next();
     }
   }
@@ -288,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
 integrate_kernel(uint32_t seed, const float* __restrict__ params,
                  const float* __restrict__ pilots, int loops,
                  long long n_tiles, int seg_bits,
-                 float* __restrict__ partials) {
+                 float* __restrict__ partials, const tmc::Tables tb) {
   const tmc::Family f = tmc::family(params[0], params[1]);
   __shared__ float warp_sums[kThreads / 32][kOut];
   float acc[TMC_K];
@@ -303,14 +434,17 @@ integrate_kernel(uint32_t seed, const float* __restrict__ params,
     __shared__ float s_pilot[TMC_K];
     for (int j = threadIdx.x; j < TMC_K; j += kThreads) s_pilot[j] = pilots[j];
     __syncthreads();
-    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, s_pilot, acc, sq);
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, tb, s_pilot, acc,
+                     sq);
   } else if constexpr (kStderr) {
     float r_pilot[TMC_K];
 #pragma unroll
     for (int j = 0; j < TMC_K; ++j) r_pilot[j] = pilots[j];
-    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, r_pilot, acc, sq);
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, tb, r_pilot, acc,
+                     sq);
   } else {
-    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, nullptr, acc, sq);
+    draw_tiles<KIND>(seed, loops, n_tiles, seg_bits, f, tb, nullptr, acc,
+                     sq);
   }
 
   // Block reduction in a fixed order: warp shuffles, then one thread per
@@ -334,38 +468,83 @@ integrate_kernel(uint32_t seed, const float* __restrict__ params,
   }
 }
 
+// Whether the tables a launch got are the ones its library reads.
+bool tables_ok(const tmc::Tables& tb) {
+  if (kCustomRoute == kStrataRoute &&
+      (tb.ts == nullptr || tb.dts == nullptr || kSampler != (tb.qs != nullptr))) {
+    return false;
+  }
+  if (kCustomRoute == kKnotRoute &&
+      (tb.xk == nullptr || tb.ck == nullptr || tb.m < 2)) {
+    return false;
+  }
+#if TMC_WEIGHTED
+  const tmc::WeightTab* tabs[2] = {&tb.p, &tb.q};
+  const int modes[2] = {TMC_P_MODE, TMC_Q_MODE};
+  for (int i = 0; i < 2; ++i) {
+    const tmc::WeightTab& t = *tabs[i];
+    if (modes[i] == 1 && (t.vals == nullptr || t.dx == nullptr || t.n < 2)) {
+      return false;
+    }
+    if (modes[i] == 3 && (t.keys == nullptr || t.vals == nullptr || t.n < 2)) {
+      return false;
+    }
+  }
+#endif
+  return true;
+}
+
+template <int KIND>
+void launch(int grid, cudaStream_t s, uint32_t seed, const float* params,
+            const float* pilots, int loops, long long n_tiles, int seg_bits,
+            float* partials, const tmc::Tables& tb) {
+  integrate_kernel<KIND><<<grid, kThreads, 0, s>>>(
+      seed, params, pilots, loops, n_tiles, seg_bits, partials, tb);
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
 // the launch was accepted).  `pilots` holds TMC_K floats with error bars,
 // else null; `seg_bits` is the qmc segment bits, or -1 (a qmc run inside
 // one 2^32-point segment, and every other mode); `partials` holds grid x
-// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars.
+// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
+// `tables` is a host tmc::Tables (copied into the launch), or null where
+// the library reads no table.  A CUSTOM library launches only kind 3, the
+// others only kinds 0-2.
 extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
                              const float* pilots, int loops, long long n_tiles,
                              int seg_bits, int grid, float* partials,
-                             void* stream) {
+                             const void* tables, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tmc::Tables tb{};
+  if (tables != nullptr) tb = *static_cast<const tmc::Tables*>(tables);
   if (kStderr != (pilots != nullptr) || seg_bits > 31 ||
-      (kMethod != kQmc && seg_bits >= 0)) {
+      (kMethod != kQmc && seg_bits >= 0) || !tables_ok(tb) ||
+      (kind == tmc::kCustom) != (kCustomRoute != kNoCustom)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#if TMC_CUSTOM
+  launch<tmc::kCustom>(grid, s, seed, params, pilots, loops, n_tiles,
+                       seg_bits, partials, tb);
+#else
   switch (kind) {
     case kUniform:
-      integrate_kernel<kUniform><<<grid, kThreads, 0, s>>>(
-          seed, params, pilots, loops, n_tiles, seg_bits, partials);
+      launch<kUniform>(grid, s, seed, params, pilots, loops, n_tiles,
+                       seg_bits, partials, tb);
       break;
     case kNormal:
-      integrate_kernel<kNormal><<<grid, kThreads, 0, s>>>(
-          seed, params, pilots, loops, n_tiles, seg_bits, partials);
+      launch<kNormal>(grid, s, seed, params, pilots, loops, n_tiles, seg_bits,
+                      partials, tb);
       break;
     case kExponential:
-      integrate_kernel<kExponential><<<grid, kThreads, 0, s>>>(
-          seed, params, pilots, loops, n_tiles, seg_bits, partials);
+      launch<kExponential>(grid, s, seed, params, pilots, loops, n_tiles,
+                           seg_bits, partials, tb);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 

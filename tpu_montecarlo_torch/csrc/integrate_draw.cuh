@@ -23,6 +23,21 @@
 //   measured (0 ulp where p1 is a power of two).
 //
 // The MCMC kernels keep tmc::transform, whose bits their chains need.
+//
+// CUSTOM tables and importance-weight tables (integrate.cu's CUSTOM family
+// and kernel weights) are read here too, each as ops/integrate_kernel.py's
+// plain version reads it, operation for operation (built with
+// --fmad=false, so no product is fused into a sum unless written so):
+//
+// * strata_x: the row-stratified inverse CDF, stratum pos >> 10 (row / 8)
+//   of a 256-row tile's 32, knot j and fraction of w * 127;
+// * knot_interp: a binary search over sorted knots (the last with
+//   key <= u) and linear interpolation, the knot-exact inverse CDF;
+// * uniform_table_value: a padded uniform-grid pdf table, 0 off its grid.
+//
+// Tables are read with __ldg (tmc::ldg) from global memory: (32, 128)
+// float32 strata tables are 16 KB each and stay in L1; staging them in
+// shared memory is left for later.
 #pragma once
 
 #include <cstdint>
@@ -107,6 +122,107 @@ __device__ __forceinline__ void transform_pair_top(int kind, uint32_t top,
     a = logf(fmaxf(u, kULo)) * f.neg_inv;
     b = logf(fmaxf(1.0f - u, kULo)) * f.neg_inv;
   }
+}
+
+constexpr int kCustom = 3;  // DistKind.CUSTOM
+constexpr int kStrata = 32;  // strata of a 256-row tile (STRATA)
+// A position's stratum: pos >> kStratumShift = (pos / 128) / (256 / 32).
+constexpr int kStratumShift = 10;
+constexpr float kW127 = 127.0f * kInv2Pow32;  // exact
+
+// A table read: through the read-only data cache on the card, a plain
+// read in host builds (tests/test_torch_custom.py compiles these lookups
+// with g++).
+__device__ __forceinline__ float ldg(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// One importance-weight density's table (ops/integrate_kernel.py
+// _WeightTab): a padded uniform-grid table (vals, dx, x0, step, x_max, n
+// padded knots), or an irregular grid (keys, vals, x0 = keys[0], x_max =
+// keys[n - 1], n knots).
+struct WeightTab {
+  const float* keys;
+  const float* vals;
+  const float* dx;
+  float x0, step, x_max;
+  int n;
+};
+
+// Every table a launch reads (ops/integrate_kernel.py _KernelTables).
+struct Tables {
+  const float* ts;   // strata: (kStrata, 128) knots
+  const float* dts;  // strata: slopes
+  const float* qs;   // strata: the sampler's density, or null
+  const float* xk;   // knots: x knots
+  const float* ck;   // knots: CDF knots
+  int m;             // knots: knot count
+  WeightTab p, q;
+};
+
+// The stratified draw at the top-24 word of w (w = top * 2^-32, in [0, 1))
+// for the position pos of its tile; *q gets the sampler's density where
+// WITH_Q.  w * 127 is top * (127 * 2^-32): a power of two scales exactly.
+template <bool WITH_Q>
+__device__ __forceinline__ float strata_x(const Tables& tb, uint32_t pos,
+                                          float pw, float* q) {
+  const int j = int(pw);  // pw >= 0: truncation
+  const float frac = pw - float(j);
+  const int idx = int(pos >> kStratumShift) * kLanes + j;
+  const float x0 = ldg(tb.ts + idx);
+  const float dx = ldg(tb.dts + idx);
+  if constexpr (WITH_Q) *q = ldg(tb.qs + idx);
+  return x0 + frac * dx;
+}
+
+// Linear interpolation of vals over the m sorted keys at u: i the last
+// knot with keys[i] <= u, clamped to [0, m - 2], t = (u - keys[i]) /
+// (keys[i + 1] - keys[i]) (0 over a flat pair) clamped to [0, 1];
+// vals[m - 1] from the last key on.
+__device__ __forceinline__ float knot_interp(float u, const float* keys,
+                                             const float* vals, int m) {
+  if (u >= ldg(keys + m - 1)) return ldg(vals + m - 1);
+  int lo = 0;
+  int n = m;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (ldg(keys + lo + half) <= u) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  const int i = lo < 1 ? 0 : (lo - 1 > m - 2 ? m - 2 : lo - 1);
+  const float k0 = ldg(keys + i);
+  const float d = ldg(keys + i + 1) - k0;
+  const float v0 = ldg(vals + i);
+  const float t = d > 0.0f ? (u - k0) / d : 0.0f;
+  return v0 + fminf(fmaxf(t, 0.0f), 1.0f) * (ldg(vals + i + 1) - v0);
+}
+
+// A padded uniform-grid table at x: pos = (x - x0) / step (a true
+// division), i0 = clamp(int(pos), 0, n - 2), vals[i0] + clamp(pos - i0,
+// 0, 1) * dx[i0]; 0 off [x0, x_max].
+__device__ __forceinline__ float uniform_table_value(float x,
+                                                     const WeightTab& t) {
+  const float pos = (x - t.x0) / t.step;
+  const int p0 = int(pos);
+  const int i0 = p0 < 0 ? 0 : (p0 > t.n - 2 ? t.n - 2 : p0);
+  const float frac = fminf(fmaxf(pos - float(i0), 0.0f), 1.0f);
+  const float val = ldg(t.vals + i0) + frac * ldg(t.dx + i0);
+  return (x >= t.x0 && x <= t.x_max) ? val : 0.0f;
+}
+
+// An irregular-grid table at x: knot_interp, 0 off [x0, x_max].
+__device__ __forceinline__ float knot_table_value(float x,
+                                                  const WeightTab& t) {
+  return (x >= t.x0 && x <= t.x_max) ? knot_interp(x, t.keys, t.vals, t.n)
+                                     : 0.0f;
 }
 
 // A CUDA block's walk over the tiles first, first + stride, ... of a plan

@@ -3,8 +3,12 @@
 ``Distribution`` is a host-side value object recording a family and its
 parameters, with the JAX package's factory names, parameter dicts, host
 ``pdf`` and ``quantile``.  The port samples uniform, normal and
-exponential; the other factories raise ``NotImplementedError`` naming
-their ROADMAP item.  ``RandomWalk`` is the random-walk MCMC proposal.
+exponential in closed form, and CUSTOM distributions (``from_pdf``,
+``from_pdf_table``, ``beta``, ``gamma``, ``student_t``, ``chi2``,
+``mixture``) from host-built tables (``tables.py``), with the JAX
+package's tables bit for bit; the extended closed-form families raise
+``NotImplementedError`` naming their ROADMAP item.  ``RandomWalk`` is the
+random-walk MCMC proposal.
 """
 
 from __future__ import annotations
@@ -12,10 +16,11 @@ from __future__ import annotations
 import math
 import statistics
 from enum import Enum, auto
-from typing import Callable
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 
+from . import tables as _tables
 from .utils.roadmap import MCMC_HMC, VARIANTS, not_ported
 
 __all__ = ["HMC", "Distribution", "DistributionType", "RandomWalk"]
@@ -40,10 +45,16 @@ class DistributionType(Enum):
 class Distribution:
     """Configuration for a 1-D probability distribution.
 
+    CUSTOM distributions carry ``x_table`` / ``cdf_table`` (and a pdf
+    table once computed); the first integration caches the packed spec
+    and derived tables on the instance, so treat it as immutable once
+    used.
+
     Examples:
         >>> dist = Distribution.uniform(min=0.0, max=1.0)
         >>> dist = Distribution.normal(mean=0.0, std=1.0)
         >>> dist = Distribution.exponential(lambda_param=2.0)
+        >>> dist = Distribution.beta(alpha=2.0, beta_param=5.0)
     """
 
     def __init__(
@@ -51,10 +62,16 @@ class Distribution:
         dist_type: DistributionType,
         params: dict,
         pdf_func: Callable[[float], float],
+        x_table: Optional[np.ndarray] = None,
+        cdf_table: Optional[np.ndarray] = None,
+        pdf_table: Optional[np.ndarray] = None,
     ):
         self.dist_type = dist_type
         self.params = params
         self._pdf_func = pdf_func
+        self._x_table = x_table
+        self._cdf_table = cdf_table
+        self._pdf_table = pdf_table
 
     def pdf(self, x: float) -> float:
         """Evaluate the PDF at a point."""
@@ -112,12 +129,306 @@ class Distribution:
         )
 
     @staticmethod
+    def beta(
+        alpha: float, beta_param: float, table_size: int = 2048
+    ) -> "Distribution":
+        """Beta(alpha, beta) on [0, 1]; table-sampled via ``from_pdf``."""
+        try:
+            from scipy.special import beta as beta_fn
+        except ImportError as e:
+            raise ImportError(
+                "Distribution.beta needs scipy for the normalising "
+                "constant (scipy.special.beta); install scipy to use it"
+            ) from e
+
+        B = float(beta_fn(alpha, beta_param))
+
+        def pdf(x: float) -> float:
+            if 0 < x < 1:
+                return (x ** (alpha - 1)) * ((1 - x) ** (beta_param - 1)) / B
+            return 0.0
+
+        return Distribution.from_pdf(pdf, support=(0.0, 1.0), table_size=table_size)
+
+    @staticmethod
+    def gamma(
+        shape: float, rate: float = 1.0, table_size: int = 2048
+    ) -> "Distribution":
+        """Gamma(shape k, rate lambda); table-sampled via ``from_pdf``
+        like ``beta`` (the reference's only non-closed-form family,
+        python/wgpu_montecarlo/__init__.py:383-414).  The table spans the
+        central 1 - 2e-7 quantile interval (scipy ``ppf``), so the tail
+        truncation matches the analytic families' 1e-7 u-clamp."""
+        if not shape > 0:
+            raise ValueError(f"shape must be positive, got {shape}")
+        if not rate > 0:
+            raise ValueError(f"rate must be positive, got {rate}")
+        try:
+            from scipy.stats import gamma as gamma_dist
+        except ImportError as e:
+            raise ImportError(
+                "Distribution.gamma needs scipy (scipy.stats.gamma) for "
+                "the normalising constant and quantile bounds"
+            ) from e
+
+        return _from_scipy_frozen(
+            gamma_dist(a=shape, scale=1.0 / rate), table_size
+        )
+
+    @staticmethod
+    def student_t(
+        df: float, loc: float = 0.0, scale: float = 1.0,
+        table_size: int = 2048,
+    ) -> "Distribution":
+        """Student-t with ``df`` degrees of freedom (location/scale
+        family); table-sampled via ``from_pdf``.  Heavy tails make the
+        generic support auto-detection (pdf-ratio threshold,
+        python/wgpu_montecarlo/__init__.py:88-206) truncate real mass
+        for small df, so the bounds come from the exact quantile
+        function at the 1e-7 / 1-1e-7 levels instead."""
+        if not df > 0:
+            raise ValueError(f"df must be positive, got {df}")
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+        try:
+            from scipy.stats import t as t_dist
+        except ImportError as e:
+            raise ImportError(
+                "Distribution.student_t needs scipy (scipy.stats.t) for "
+                "the normalising constant and quantile bounds"
+            ) from e
+
+        return _from_scipy_frozen(
+            t_dist(df=df, loc=loc, scale=scale), table_size
+        )
+
+    @staticmethod
+    def chi2(df: float, table_size: int = 2048) -> "Distribution":
+        """Chi-squared with ``df`` degrees of freedom — Gamma(df/2,
+        rate=1/2); table-sampled via ``from_pdf``."""
+        return Distribution.gamma(
+            shape=df / 2.0, rate=0.5, table_size=table_size
+        )
+
+    @staticmethod
+    def mixture(
+        components, weights=None, table_size: int = 4096
+    ) -> "Distribution":
+        """Finite mixture ``sum_i w_i p_i(x)`` of Distributions, as one
+        CUSTOM table on PER-COMPONENT QUANTILE-SPACED knots: each
+        component contributes a weight-proportional share of the knot
+        budget, placed at its own quantile levels (linear core +
+        geometric tail levels, the `_from_scipy_frozen` recipe), and the
+        union is deduped in float32.  A uniform-x grid over the union
+        span cannot resolve separated or scale-mismatched modes — two
+        unit-scale modes 1000 apart get ~4 knots each, and a Cauchy
+        component's 1e-7-quantile span (±3.2e6 scale) starves a normal
+        component entirely (measured P(|X|<1) = 0.005 vs true 0.25);
+        per-component quantile knots land every mode's mass on its own
+        dense grid regardless of the union span.
+
+        The table machinery composes: widely separated modes leave
+        zero-density runs between them, which the gap-respecting
+        exact-inverse sampler jumps at a knot (no samples in the dead
+        zone); heavy tails trip the tail-moment guard on the actual
+        device-table model and route knot-exact.  In the port the
+        mixture is an integrands' sampling distribution or an IS
+        proposal/target; as an MCMC target it waits for ROADMAP.md,
+        queue 1 item 6.6.  The reference's only route to a multimodal
+        density is
+        a hand-written pdf through ``from_pdf``
+        (python/wgpu_montecarlo/__init__.py:416-460)."""
+        comps = list(components)
+        if len(comps) < 2:
+            raise ValueError(
+                f"mixture needs at least 2 components, got {len(comps)}"
+            )
+        if not all(isinstance(c, Distribution) for c in comps):
+            raise TypeError("mixture components must be Distributions")
+        if weights is None:
+            w = np.full(len(comps), 1.0 / len(comps))
+        else:
+            w = np.asarray(weights, np.float64)
+            if w.shape != (len(comps),):
+                raise ValueError(
+                    f"weights must be one per component: got shape "
+                    f"{w.shape} for {len(comps)} components"
+                )
+            if np.any(w <= 0):
+                raise ValueError("mixture weights must be positive")
+            w = w / w.sum()
+        eps = 1e-6
+        knot_sets = []
+        for wi, c in zip(w, comps):
+            n_i = max(int(round(table_size * wi)), 64)
+            u = _quantile_levels(n_i, eps)
+            knot_sets.append(
+                np.array([c.quantile(float(q)) for q in u], np.float64)
+            )
+        x = _dedupe_knots_f32(np.concatenate(knot_sets))
+        if len(x) < 2:
+            raise ValueError(
+                "mixture components collapse to fewer than 2 distinct "
+                "float32 knots — components are degenerate or their "
+                "supports exceed the float32 range"
+            )
+        x = _subdivide_wide_cells(x)
+        pdf = np.zeros(len(x))
+        for wi, c in zip(w, comps):
+            pdf += wi * np.array(
+                [max(c.pdf(float(v)), 0.0) for v in x], np.float64
+            )
+        pdf = np.nan_to_num(pdf, nan=0.0, posinf=0.0, neginf=0.0)
+        return Distribution.from_pdf_table(x, pdf)
+
+    @staticmethod
+    def from_pdf(
+        pdf_func: Callable[[float], float],
+        support: Optional[tuple] = None,
+        table_size: int = 2048,
+    ) -> "Distribution":
+        """Custom distribution from a scalar PDF function.
+
+        If ``support`` is omitted it is auto-detected
+        (locate -> peak-find -> expand); a normalised CDF lookup table with
+        at least 1000 points is built by trapezoid integration.
+
+        Raises:
+            TypeError: if ``pdf_func`` is not callable.
+            ValueError: if the PDF is zero on the scan grid, or integrates
+                to zero on the support.
+        """
+        if not callable(pdf_func):
+            raise TypeError("pdf_func must be callable")
+
+        if support is not None:
+            x_min, x_max = support
+        else:
+            x_min, x_max = _tables.find_support(pdf_func)
+
+        x_table, cdf_table = _tables.compute_cdf_table(
+            pdf_func, x_min, x_max, table_size
+        )
+        actual_size = len(x_table)
+
+        return Distribution(
+            dist_type=DistributionType.CUSTOM,
+            params={"table_size": actual_size, "support": (x_min, x_max)},
+            pdf_func=pdf_func,
+            x_table=x_table.astype(np.float32),
+            cdf_table=cdf_table.astype(np.float32),
+        )
+
+    @staticmethod
+    def from_pdf_table(
+        x_table: Union[np.ndarray, list],
+        pdf_table: Union[np.ndarray, list],
+        cdf_table: Optional[Union[np.ndarray, list]] = None,
+    ) -> "Distribution":
+        """Custom distribution from pre-computed PDF values on a grid.
+
+        ``x_table`` must be 1-D, strictly ascending, with at least 2 points;
+        ``pdf_table`` must match its length and be non-negative.  If
+        ``cdf_table`` is omitted it is computed by trapezoid integration and
+        normalised.
+        """
+        x_arr = np.asarray(x_table, dtype=np.float32)
+        pdf_arr = np.asarray(pdf_table, dtype=np.float32)
+
+        if x_arr.ndim != 1 or pdf_arr.ndim != 1:
+            raise ValueError("x_table and pdf_table must be 1D arrays")
+        if len(x_arr) != len(pdf_arr):
+            raise ValueError("x_table and pdf_table must have the same length")
+        if len(x_arr) < 2:
+            raise ValueError("Tables must have at least 2 points")
+        if not np.all(np.diff(x_arr) > 0):
+            raise ValueError("x_table must be sorted in ascending order")
+        if np.any(pdf_arr < 0):
+            raise ValueError("pdf_table must contain non-negative values")
+        if not np.all(np.isfinite(x_arr)) or not np.all(np.isfinite(pdf_arr)):
+            # An inf pdf knot would reach the device log-pdf tables and
+            # turn MH acceptance ratios into NaN.
+            raise ValueError("x_table and pdf_table must be finite")
+
+        table_size = len(x_arr)
+        x_min, x_max = float(x_arr[0]), float(x_arr[-1])
+
+        if cdf_table is not None:
+            cdf64 = np.asarray(cdf_table, dtype=np.float64)
+            if cdf64.ndim != 1 or len(cdf64) != table_size:
+                raise ValueError("cdf_table must have same length as x_table")
+            # Beyond-reference validation (the reference shipped any user
+            # CDF to its device binary search): a non-monotone CDF feeds
+            # the inverse-table interpolation garbage, and one that does
+            # not reach ~1 puts a silent probability atom at x_max (every
+            # u above cdf[-1] clamps there).
+            if np.any(np.diff(cdf64) < 0):
+                raise ValueError("cdf_table must be non-decreasing")
+            if not cdf64[-1] > 0:
+                raise ValueError(
+                    "cdf_table's final value must be positive — the "
+                    "PDF's integral is zero over this table"
+                )
+            # Normalize unconditionally: a final value even slightly under
+            # 1 leaves the residual mass as a silent atom at x_max (every
+            # u above cdf[-1] clamps there), and the pdf table is rescaled
+            # by the same factor so pdf and cdf stay mutually consistent
+            # (table-based IS weights / log-pdf tables see one scale).
+            scale = cdf64[-1]
+            cdf64 = cdf64 / scale
+            pdf_arr = (pdf_arr.astype(np.float64) / scale).astype(np.float32)
+            cdf_arr = cdf64.astype(np.float32)
+        else:
+            x64 = x_arr.astype(np.float64)
+            p64 = pdf_arr.astype(np.float64)
+            cdf64 = np.zeros(table_size)
+            cdf64[1:] = np.cumsum(
+                0.5 * (p64[1:] + p64[:-1]) * np.diff(x64)
+            )
+            if not cdf64[-1] > 0:
+                raise ValueError(
+                    "The PDF's integral is zero over this table — there "
+                    "is no probability mass to sample"
+                )
+            # Rescale the pdf by the same normalization factor as the
+            # cdf (one-scale invariant, as in the user-supplied-cdf
+            # branch above): table-based IS weights and log-pdf tables
+            # must see a true density, not the unnormalized input.
+            scale = cdf64[-1]
+            cdf64 = cdf64 / scale
+            pdf_arr = (pdf_arr.astype(np.float64) / scale).astype(np.float32)
+            cdf_arr = cdf64.astype(np.float32)
+
+        pdf_copy = pdf_arr.copy()
+
+        def pdf_func(x: float) -> float:
+            if x < x_min or x > x_max:
+                return 0.0
+            idx = int(np.searchsorted(x_arr, x))
+            if idx == 0:
+                return float(pdf_copy[0])
+            if idx >= table_size:
+                return float(pdf_copy[-1])
+            t = (x - x_arr[idx - 1]) / (x_arr[idx] - x_arr[idx - 1])
+            return float((1 - t) * pdf_copy[idx - 1] + t * pdf_copy[idx])
+
+        return Distribution(
+            dist_type=DistributionType.CUSTOM,
+            params={"table_size": table_size, "support": (x_min, x_max)},
+            pdf_func=pdf_func,
+            x_table=x_arr,
+            cdf_table=cdf_arr,
+            pdf_table=pdf_arr,
+        )
+
+    @staticmethod
     def from_reference(dist) -> "Distribution":
         """The port's equivalent of a ``tpu_montecarlo`` ``Distribution``.
 
         Duck-typed: reads ``dist.dist_type.name`` and the ``params`` dict
-        and imports nothing of the JAX package, so tests can integrate the
-        same distribution with both packages."""
+        (and, for CUSTOM, the tables and the pdf callable) and imports
+        nothing of the JAX package, so tests can integrate the same
+        distribution, on the same tables, with both packages."""
         name = dist.dist_type.name
         p = dist.params
         if name == "UNIFORM":
@@ -126,11 +437,40 @@ class Distribution:
             return Distribution.normal(p["mean"], p["std"])
         if name == "EXPONENTIAL":
             return Distribution.exponential(p["lambda"])
+        if name == "CUSTOM":
+
+            def copy(table):
+                return None if table is None else np.array(table, copy=True)
+
+            return Distribution(
+                DistributionType.CUSTOM, dict(p), dist._pdf_func,
+                x_table=copy(dist._x_table), cdf_table=copy(dist._cdf_table),
+                pdf_table=copy(dist._pdf_table),
+            )
         raise not_ported(f"the {name.lower()} distribution", VARIANTS)
+
+    def get_or_compute_pdf_table(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Return (x_table, pdf_table), lazily evaluating the PDF on the
+        distribution's grid (default grid: support, fallback (-5, 5), size
+        2048) the first time."""
+        if self._pdf_table is not None and self._x_table is not None:
+            return self._x_table, self._pdf_table
+
+        if self._x_table is None:
+            support = self.params.get("support", (-5.0, 5.0))
+            table_size = self.params.get("table_size", 2048)
+            x_min, x_max = support
+            self._x_table = np.linspace(
+                x_min, x_max, table_size, dtype=np.float32
+            )
+
+        self._pdf_table = _tables.compute_pdf_table(self._pdf_func, self._x_table)
+        return self._x_table, self._pdf_table
 
     def quantile(self, q: float) -> float:
         """Exact host-side quantile (inverse CDF) at ``q`` in (0, 1), in
-        the JAX package's closed forms (``distributions.py:663``)."""
+        the JAX package's closed forms (``distributions.py:663``); CUSTOM
+        distributions interpolate their CDF table."""
         if not 0.0 < q < 1.0:
             raise ValueError(f"q must be in (0, 1), got {q}")
         p = self.params
@@ -141,7 +481,127 @@ class Distribution:
             return statistics.NormalDist(p["mean"], p["std"]).inv_cdf(q)
         if t == DistributionType.EXPONENTIAL:
             return -math.log1p(-q) / p["lambda"]
+        if t == DistributionType.CUSTOM:
+            if self._x_table is None or self._cdf_table is None:
+                raise ValueError("Custom distribution requires x/cdf tables")
+            cdf = np.asarray(self._cdf_table, np.float64)
+            xs = np.asarray(self._x_table, np.float64)
+            return float(np.interp(q, cdf, xs))
         raise not_ported(f"the quantile of {t.name.lower()}", VARIANTS)
+
+
+def _from_scipy_frozen(frozen, table_size: int) -> "Distribution":
+    """Build a CUSTOM Distribution from a frozen scipy distribution on
+    QUANTILE-SPACED knots: ``x_j = ppf(u_j)`` for uniform u levels over
+    [1e-7, 1-1e-7], with the CDF at each knot given EXACTLY by ``u_j``.
+
+    Equal-mass knots beat the uniform-x grid the generic ``from_pdf``
+    route builds (reference machinery, __init__.py:209-251) wherever the
+    support is quantile-wide: Student-t(2)'s 1e-7 quantile span is
+    ±1581, so 2048 uniform-x knots are 1.5 wide and overstate
+    P(|X| > 5) by 37%; on equal-mass knots the same budget lands it
+    within MC noise AND keeps the fast resampled-inverse sampler (the
+    inverse of an equal-mass table IS the knot vector).
+
+    Tail moments need more than equal mass — a Student-t(5) table's
+    outermost 4.9e-4-mass cell spans x in [6.9, 38.5] and smears
+    E[X^2] from 1.667 to 2.2 — so half the knot budget goes to
+    GEOMETRIC tail levels (log-spaced quantiles => roughly log-spaced
+    tail knots, bounding each cell's x-ratio); heavy-tail tables then
+    trip :func:`tables.inverse_table_distorts` and sample knot-exact."""
+    u = _quantile_levels(int(table_size), 1e-7)
+    x = np.asarray(frozen.ppf(u), np.float64)
+    # Dedupe in FLOAT32, where from_pdf_table re-validates strict ascent:
+    # float64-distinct extreme knots collide (or overflow to inf) after
+    # the cast — e.g. student_t(df=3, loc=1e8) — and would raise a
+    # confusing 'x_table must be sorted' error.  Non-finite knots (ppf
+    # overflow for tiny df) are dropped first; from_pdf_table then
+    # renormalises the CDF so the trimmed tail mass stays consistent.
+    with np.errstate(over="ignore"):
+        x32 = x.astype(np.float32)
+    finite = np.isfinite(x32)
+    x32, u = x32[finite], u[finite]
+    keep = (
+        np.concatenate(([True], np.diff(x32) > 0))
+        if len(x32)
+        else np.zeros(0, bool)
+    )
+    x32, u = x32[keep], u[keep]
+    if len(x32) < 2:
+        raise ValueError(
+            "distribution parameters leave fewer than 2 distinct "
+            "float32 quantile knots (location/scale out of float32 "
+            "range, or a quantile span too extreme to represent); "
+            "bring the parameters into float32 range"
+        )
+    pdf = np.maximum(
+        np.asarray(frozen.pdf(x32.astype(np.float64)), np.float64), 0.0
+    )
+    pdf = np.nan_to_num(pdf, nan=0.0, posinf=0.0, neginf=0.0)
+    return Distribution.from_pdf_table(x32, pdf, cdf_table=u)
+
+
+def _quantile_levels(n: int, eps: float) -> np.ndarray:
+    """Quantile levels for an n-knot equal-mass table: a linear core over
+    [eps, 1-eps] plus geometric tail levels on both sides (log-spaced
+    quantiles => roughly log-spaced tail knots, bounding each tail
+    cell's x-ratio)."""
+    core = np.linspace(eps, 1.0 - eps, max(n // 2, 2))
+    tail = np.geomspace(eps, 0.5, max(n // 4, 2))
+    return np.unique(np.concatenate([core, tail, 1.0 - tail]))
+
+
+def _subdivide_wide_cells(
+    x: np.ndarray, factor: float = 8.0
+) -> np.ndarray:
+    """Insert geometric knot ladders into cells much wider than both
+    neighbours — the dead zones between separated mixture modes.
+
+    A component's outermost quantile knot still carries eps-level
+    density; a single trapezoid cell bridging it to the next mode reads
+    ``p_edge * gap_width`` of phantom mass (measured 0.25% of total for
+    N(±500, 1), deflating every true cell by the same factor on
+    normalisation).  Ladders doubling outward from both edges shrink
+    that to ``~p_edge * neighbour_width``: the first ladder knot sits
+    one neighbour-cell away, where a light-tailed pdf has already
+    decayed to nothing, while a genuinely dense wide cell (a heavy tail
+    bridging a light mode) simply gains resolution."""
+    x = np.asarray(x, np.float64)
+    if len(x) < 3:
+        return x.astype(np.float32)
+    w = np.diff(x)
+    prev_w = np.concatenate([[w[0]], w[:-1]])
+    next_w = np.concatenate([w[1:], [w[-1]]])
+    wide = np.flatnonzero(w > factor * np.minimum(prev_w, next_w))
+    if len(wide) == 0:
+        return x.astype(np.float32)
+    extra = []
+    for i in wide:
+        a, b = x[i], x[i + 1]
+        mid = 0.5 * (a + b)
+        for edge, step_0, sign in (
+            (a, prev_w[i], 1.0),
+            (b, next_w[i], -1.0),
+        ):
+            step = max(step_0, (b - a) * 1e-9)
+            pos = edge + sign * step
+            while (pos - mid) * sign < 0:
+                extra.append(pos)
+                step *= 2.0
+                pos = edge + sign * step
+    return _dedupe_knots_f32(np.concatenate([x, np.asarray(extra)]))
+
+
+def _dedupe_knots_f32(x: np.ndarray) -> np.ndarray:
+    """Sort, drop non-finite, and dedupe knots in float32 — the dtype
+    ``from_pdf_table`` validates strict ascent in."""
+    with np.errstate(over="ignore"):
+        x32 = np.sort(np.asarray(x, np.float64)).astype(np.float32)
+    x32 = x32[np.isfinite(x32)]
+    if len(x32) == 0:
+        return x32
+    keep = np.concatenate(([True], np.diff(x32) > 0))
+    return x32[keep]
 
 
 class RandomWalk:
@@ -314,8 +774,7 @@ def _not_ported_factory(name: str):
 
 for _name in (
     "lognormal", "cauchy", "laplace", "logistic", "gumbel", "weibull",
-    "pareto", "beta", "gamma", "student_t", "mixture", "from_pdf",
-    "from_pdf_table",
+    "pareto",
 ):
     setattr(Distribution, _name, _not_ported_factory(_name))
 del _name

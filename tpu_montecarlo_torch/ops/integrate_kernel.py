@@ -4,9 +4,9 @@ kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/integrate_pallas.py`` (kernel 1) in its
 ``mc``, ``antithetic`` and ``qmc`` modes, with and without error bars,
-for the uniform, normal and exponential families, and over an
-importance-sampling set (``IntegrateProgram(fns, weight=(p, q))``: each
-integrand weighted by two traced densities, ``ops/lower.py``).  The TPU
+for the uniform, normal and exponential families and CUSTOM tables, and
+over an importance-sampling set (``IntegrateProgram(fns, weight=(p,
+q))``: each integrand times the weight ``p / q``, ``ops/lower.py``).  The TPU
 kernel draws from the TPU's hardware PRNG; off the TPU it runs with
 ``CounterRng``, a pure integer hash.  The port implements that
 ``CounterRng`` bit for bit, so for the same (seed, plan) the plain
@@ -30,14 +30,16 @@ rotation, and a block within it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import hashlib
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..sampling import (
-    PORTED_KINDS,
+    INTEGRATE_KINDS,
     DistKind,
     exponential_from_u01,
     next_below_f32,
@@ -45,7 +47,7 @@ from ..sampling import (
 )
 from ..tracing import TracedFunction
 from ..utils.roadmap import VARIANTS, not_ported
-from .lower import cuda_source, to_torch_set
+from .lower import cuda_source, to_torch, to_torch_set
 from .qmc import (
     MASK32,
     QMC_MAX_SAMPLES,
@@ -62,14 +64,23 @@ __all__ = [
     "Grid",
     "IntegrateConfig",
     "IntegrateProgram",
+    "KnotTables",
+    "KnotWeightTable",
     "LANES",
     "MAX_CUDA_BLOCKS",
+    "SAMPLER",
+    "STRATA",
+    "StrataTables",
+    "UniformWeightTable",
     "finish_stderr",
     "integrate_cuda",
     "integrate_reference",
     "integrate_rows",
+    "knot_interp",
+    "pad_uniform_table",
     "pilot_values",
     "plan_grid",
+    "prep_inv_table_stratified",
     "qmc_seg_bits",
     "sample_block",
     "sample_subblocks",
@@ -77,6 +88,7 @@ __all__ = [
     "sample_subblocks_qmc",
     "uniform_halfopen01",
     "uniform_open01",
+    "uniform_table_value",
 ]
 
 # Stream geometry, equal to the JAX kernel's.  The JAX package shrinks
@@ -156,7 +168,9 @@ class IntegrateConfig:
     """What one 1-D run computes: the method, and whether the kernel also
     sums pilot-shifted squares (``mc`` and ``antithetic`` only: ``qmc``
     error bars come from rotations).  Each configuration is a library of
-    its own (``IntegrateProgram.library``)."""
+    its own (``IntegrateProgram.library``), and so is each CUSTOM route:
+    the route of the tables a run draws through compiles the CUSTOM
+    family in, and nothing else does."""
 
     method: str = "mc"
     with_stderr: bool = False
@@ -190,6 +204,7 @@ class IntegrateConfig:
 
 
 _METHOD_CODES = {"mc": 0, "antithetic": 1, "qmc": 2}
+_CUSTOM_CODES = {"strata": 1, "knots": 2}
 MC = IntegrateConfig()
 
 
@@ -246,6 +261,254 @@ def _clamp_below(x: torch.Tensor, hi) -> torch.Tensor:
     return torch.where(x >= hi, next_below_f32(torch.as_tensor(hi)), x)
 
 
+# -- CUSTOM tables and table weights ----------------------------------------
+
+#: Strata of a CUSTOM tile: ``prep_inv_table_stratified``'s min(4096 //
+#: 128, 256 // 8) for a 4096-knot inverse table, and the gapped tables'
+#: ``rows // 8`` segments.  The kernel compiles this count in.
+STRATA = BLOCK_ROWS // 8
+
+
+def _true_div(a: torch.Tensor, b) -> torch.Tensor:
+    """``a / b`` rounded once, on any device: a one-element divisor is
+    expanded first, since PyTorch may multiply by a scalar divisor's
+    reciprocal instead."""
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return a / b.expand(a.shape)
+
+
+def prep_inv_table_stratified(x_table, rows: int = BLOCK_ROWS, segments=None,
+                              with_pdf: bool = False):
+    """Row-stratified inverse-CDF tables, float32 numpy, the JAX package's
+    ``prep_inv_table_stratified`` (``integrate_pallas.py:367-438``) step
+    for step in float32: u-space splits into S equal-mass strata (S the
+    largest power of two <= min(m // 128, rows // 8), 32 for a 4096-knot
+    table at 256 rows), each resampled at 128 knots ``u = (s + j / 127) /
+    S`` of the m-knot uniform-u inverse table.  Returns (ts, dts), both
+    (S, 128): the knots and their forward differences (0 in the last
+    column); with ``with_pdf`` also ``qs``, this sampler's own density
+    ``1 / (S * 127 * dts)`` (0 where dts is 0).  The JAX function tiles
+    them to (rows, 128), one row per block row; the port keeps the (S,
+    128) tables and finds a row's stratum as ``row // (rows // S)``."""
+    t = np.asarray(x_table, np.float32)
+    m = t.shape[0]
+    if m < 2:
+        raise ValueError("inverse-CDF table needs at least 2 knots")
+    if segments is None:
+        cap = max(1, min(m // LANES, rows // 8))
+        segments = 1 << (cap.bit_length() - 1)
+    if rows % segments != 0 or (rows // segments) < 8:
+        raise ValueError(
+            f"segments ({segments}) must divide {rows} block rows in "
+            "groups of 8+"
+        )
+    f32 = np.float32
+    j = np.arange(LANES, dtype=f32) / f32(LANES - 1)
+    s = np.arange(segments, dtype=f32).reshape(segments, 1)
+    u = (s + j) / f32(segments)
+    pos = u * f32(m - 1)
+    i0 = np.clip(pos.astype(np.int32), 0, m - 2)
+    frac = pos - i0.astype(f32)
+    t0 = t[i0]
+    ts = t0 + frac * (t[i0 + 1] - t0)
+    dts = np.concatenate(
+        [ts[:, 1:] - ts[:, :-1], np.zeros((segments, 1), f32)], axis=1
+    )
+    if not with_pdf:
+        return ts, dts
+    inv_c = f32(1.0 / (segments * (LANES - 1)))
+    with np.errstate(divide="ignore"):
+        qs = np.where(dts > 0, inv_c / np.maximum(dts, f32(1e-38)), f32(0.0))
+    return ts, dts, qs.astype(f32)
+
+
+def pad_uniform_table(xs, values, fill: float = 0.0):
+    """A uniform-grid value table for in-kernel lookup, float32 numpy, as
+    the JAX package's ``pad_uniform_table`` (``integrate_pallas.py
+    :697-714``) builds it: the values padded to a multiple of 128 with
+    ``fill`` (past x_max, which the lookup's inside gate excludes), their
+    forward differences (0 last), and ``(x0, step, x_max)`` with ``step =
+    (x_max - x0) / (n - 1)`` in float32.  The JAX function reshapes the
+    padded tables to (n / 128, 128) VMEM tiles; the port keeps them
+    flat."""
+    xs = np.asarray(xs, np.float32)
+    values = np.asarray(values, np.float32)
+    n = values.shape[0]
+    x0, x_max = xs[0], xs[n - 1]
+    step = (x_max - x0) / np.float32(n - 1)
+    pad = (-n) % LANES
+    vals = np.concatenate([values, np.full(pad, fill, np.float32)])
+    dx = np.concatenate([vals[1:] - vals[:-1], np.zeros(1, np.float32)])
+    return vals, dx, (x0, step, x_max)
+
+
+def uniform_table_value(x: torch.Tensor, vals: torch.Tensor,
+                        dx: torch.Tensor, grid, outside: float = 0.0):
+    """Interpolated lookup of ``x`` in a :func:`pad_uniform_table` table
+    (``uniform_table_value``, ``integrate_pallas.py:717-760``): ``pos =
+    (x - x0) / step`` (a true division), ``i0 = clip(int(pos), 0, n - 2)``,
+    ``vals[i0] + clip(pos - i0, 0, 1) * dx[i0]``, and ``outside`` off
+    [x0, x_max]."""
+    x0, step, x_max = (float(g) for g in grid)
+    pos = _true_div(x - x0, step)
+    i0 = torch.clamp(pos.to(torch.int32), 0, vals.shape[0] - 2).long()
+    frac = torch.clamp(pos - i0.to(torch.float32), 0.0, 1.0)
+    val = vals[i0] + frac * dx[i0]
+    inside = (x >= x0) & (x <= x_max)
+    return torch.where(inside, val, outside)
+
+
+def knot_interp(u: torch.Tensor, keys: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation of ``vals`` over sorted ``keys`` at
+    ``u``, by a search over the knots (the reference's device binary
+    search, ``src/distribution.rs:128-158``): ``i`` the last knot with
+    ``keys[i] <= u``, clamped to [0, m - 2]; ``t = (u - keys[i]) /
+    (keys[i + 1] - keys[i])`` (0 over a flat pair), clamped to [0, 1];
+    ``vals[i] + t * (vals[i + 1] - vals[i])``; ``vals[m - 1]`` from the
+    last key on, as ``np.interp`` (the last keys of a float32 CDF may tie
+    at 1).  With ``keys`` the CDF knots and ``vals`` the x knots it is the
+    knot-exact inverse CDF, which never lands inside a zero-density
+    span."""
+    m = keys.shape[0]
+    i = torch.searchsorted(keys, u.contiguous(), right=True) - 1
+    i = torch.clamp(i, 0, m - 2)
+    k0, k1 = keys[i], keys[i + 1]
+    v0, v1 = vals[i], vals[i + 1]
+    d = k1 - k0
+    flat = d > 0
+    t = torch.where(flat, (u - k0) / torch.where(flat, d, 1.0), 0.0)
+    t = torch.clamp(t, 0.0, 1.0)
+    return torch.where(u >= keys[m - 1], vals[m - 1], v0 + t * (v1 - v0))
+
+
+@dataclass(frozen=True)
+class StrataTables:
+    """The ``"strata"`` route's (STRATA, 128) float32 tables on the
+    device: knots ``ts``, slopes ``dts`` and, for a ``"sampler"`` weight,
+    the sampler's density ``qs``."""
+
+    ts: torch.Tensor
+    dts: torch.Tensor
+    qs: Optional[torch.Tensor] = None
+    route = "strata"
+
+
+@dataclass(frozen=True)
+class KnotTables:
+    """The ``"knots"`` route's float32 tables on the device: the x and
+    CDF knots of the knot-exact inverse."""
+
+    x: torch.Tensor
+    cdf: torch.Tensor
+    route = "knots"
+
+
+Tables = Union[StrataTables, KnotTables]
+
+
+def _fields(tables: Tables) -> list:
+    """A tables object's tensors (None where absent), in field order."""
+    return [getattr(tables, f.name) for f in dataclasses.fields(tables)]
+
+
+def _custom_draw(tables: Tables, w: torch.Tensor, rows: int):
+    """CUSTOM samples at the uniforms ``w`` of (..., rows, 128) positions;
+    with a ``qs`` table an (x, q) pair, q the sampler's density at x."""
+    if isinstance(tables, KnotTables):
+        return knot_interp(w, tables.cdf, tables.x)
+    strata = tables.ts.shape[0]
+    pos = w * float(LANES - 1)
+    j = pos.to(torch.int32)
+    frac = pos - j.to(torch.float32)
+    stratum = torch.arange(rows, device=w.device) // (rows // strata)
+    idx = stratum[:, None] * LANES + j.long()
+    x = tables.ts.reshape(-1)[idx] + frac * tables.dts.reshape(-1)[idx]
+    if tables.qs is None:
+        return x
+    return x, tables.qs.reshape(-1)[idx]
+
+
+def _sha1(a: np.ndarray) -> str:
+    return hashlib.sha1(np.ascontiguousarray(a)).hexdigest()
+
+
+class _WeightTable:
+    """A weight density's two host tables, ``arrays``, with their copies
+    per device."""
+
+    def tensors(self, device):
+        on = self.__dict__.setdefault("_on", {})
+        if device not in on:
+            on[device] = tuple(torch.from_numpy(a).to(device)
+                               for a in self.arrays)
+        return on[device]
+
+
+class UniformWeightTable(_WeightTable):
+    """An importance weight's density as a uniform-grid pdf table (mode
+    ``"table"``): :func:`pad_uniform_table` of (x grid, values), looked up
+    by :func:`uniform_table_value`, 0 outside the grid.  ``key`` is its
+    content hash, as the JAX package's ``mode_key``
+    (``api/importance.py:348-361``)."""
+
+    mode = "table"
+
+    def __init__(self, xs, values):
+        xs = np.asarray(xs, np.float32)
+        values = np.asarray(values, np.float32)
+        self.key = ("pdf_table", _sha1(xs), _sha1(values))
+        self.vals, self.dx, self.grid = pad_uniform_table(xs, values)
+        self.arrays = (self.vals, self.dx)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return uniform_table_value(x, *self.tensors(x.device), self.grid)
+
+
+class KnotWeightTable(_WeightTable):
+    """An importance weight's density on an irregular x grid (mode
+    ``"knots"``), where no uniform grid meets the resampling bound: the
+    JAX package's closure fallback interpolates it with ``jnp.interp``
+    (``api/importance.py:444-467``); the port looks it up in the kernel
+    by :func:`knot_interp`, 0 outside the grid."""
+
+    mode = "knots"
+
+    def __init__(self, xs, values):
+        self.xs = np.asarray(xs, np.float32)
+        self.vals = np.asarray(values, np.float32)
+        self.key = ("pdf_knots", _sha1(self.xs), _sha1(self.vals))
+        self.grid = (self.xs[0], np.float32(0.0), self.xs[-1])
+        self.arrays = (self.xs, self.vals)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        xs, vals = self.tensors(x.device)
+        inside = (x >= float(self.xs[0])) & (x <= float(self.xs[-1]))
+        return torch.where(inside, knot_interp(x, xs, vals), 0.0)
+
+
+class _SamplerDensity:
+    """The ``"sampler"`` weight mode: q is the CUSTOM proposal's own
+    sampling density, read with the draw (``qs`` of
+    ``prep_inv_table_stratified(with_pdf=True)``)."""
+
+    mode = "sampler"
+    key = ("sampler",)
+
+    def __repr__(self):
+        return "SAMPLER"
+
+
+SAMPLER = _SamplerDensity()
+
+
+def kernel_weight(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The JAX kernel's ``is_weight`` (``integrate_pallas.py:1009-1029``):
+    ``where(q > 0, p / safe_q, 0)``."""
+    ok = q > 0
+    return torch.where(ok, p / torch.where(ok, q, 1.0), 0.0)
+
+
 def sample_block(
     kind: DistKind, p1, p2, rng: CounterRng, shape, counter, tag: int = 0
 ) -> torch.Tensor:
@@ -266,28 +529,36 @@ def sample_block(
 
 
 def sample_subblocks(
-    kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS
+    kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS,
+    tables: Optional[Tables] = None,
 ) -> List[torch.Tensor]:
     """One tile of samples as a list of equal-shape sub-blocks, as the JAX
     kernel's ``_sample_subblocks`` (integrate_pallas.py:550-602) returns
-    them: the normal family as two half blocks (tags 0 and 1)."""
+    them: the normal family as two half blocks (tags 0 and 1); CUSTOM
+    one block through ``tables`` from tag-0 [0, 1) uniforms, an (x, q)
+    pair with a ``qs`` table."""
     if kind == DistKind.NORMAL:
         half = (rows // 2, LANES)
         return [
             sample_block(kind, p1, p2, rng, half, counter, tag)
             for tag in (0, 1)
         ]
+    if kind == DistKind.CUSTOM:
+        w = uniform_halfopen01(rng, (rows, LANES), counter, 0)
+        return [_custom_draw(tables, w, rows)]
     return [sample_block(kind, p1, p2, rng, (rows, LANES), counter)]
 
 
 def sample_subblocks_antithetic(
-    kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS
+    kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS,
+    tables: Optional[Tables] = None,
 ) -> List[torch.Tensor]:
     """One antithetic tile in the JAX kernel's sub-block order
     (``_sample_subblocks_antithetic``, integrate_pallas.py:605-676): the
     same uniforms as :func:`sample_subblocks`, each at ``u`` and at
     ``1 - u``, so sub-block ``2i + 1`` mirrors sub-block ``2i`` element
-    for element; the normal family ``[+z1, -z1, +z2, -z2]``."""
+    for element; the normal family ``[+z1, -z1, +z2, -z2]``; CUSTOM
+    mirrors ``w`` and ``1 - w`` within each row's stratum."""
     shape = (rows, LANES)
     if kind == DistKind.UNIFORM:
         u = uniform_halfopen01(rng, shape, counter, 0)
@@ -308,6 +579,10 @@ def sample_subblocks_antithetic(
             exponential_from_u01(u) / p1,
             exponential_from_u01(1.0 - u) / p1,
         ]
+    if kind == DistKind.CUSTOM:
+        w = uniform_halfopen01(rng, shape, counter, 0)
+        return [_custom_draw(tables, w, rows),
+                _custom_draw(tables, 1.0 - w, rows)]
     raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
 
 
@@ -320,14 +595,15 @@ def _positions(rows: int, device) -> torch.Tensor:
 
 def sample_subblocks_qmc(
     kind: DistKind, p1, p2, block_num: torch.Tensor, shift: torch.Tensor,
-    rows: int = BLOCK_ROWS,
+    rows: int = BLOCK_ROWS, tables: Optional[Tables] = None,
 ) -> List[torch.Tensor]:
     """QMC tiles in the JAX kernel's sub-block order
     (``_sample_subblocks_qmc``, integrate_pallas.py:481-547), each
     sub-block ``(len(block_num), ..., 128)``: point ``g = b * 2**15 +
     pos`` of block ``b`` under its rotation ``shift`` (one per block,
     int64 words); the normal family as the block's two contiguous
-    halves, the exponential from (0, 1] uniforms."""
+    halves, the exponential from (0, 1] uniforms, CUSTOM through
+    ``tables`` from [0, 1) ones."""
     dev = block_num.device
     base = (block_num.to(torch.int64) * (rows * LANES))[:, None, None]
     shift = shift.to(torch.int64)[:, None, None]
@@ -344,15 +620,18 @@ def sample_subblocks_qmc(
         return [_clamp_below(p1 + u * (p2 - p1), p2)]
     if kind == DistKind.EXPONENTIAL:
         return [exponential_from_u01(qmc_u01_open(g, shift)) / p1]
+    if kind == DistKind.CUSTOM:
+        return [_custom_draw(tables, qmc_u01_halfopen(g, shift), rows)]
     raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
 
 
 def tile_subblocks(
     cfg: IntegrateConfig, kind: DistKind, p1, p2, seed: int, grid: Grid,
-    tiles: torch.Tensor,
+    tiles: torch.Tensor, tables: Optional[Tables] = None,
 ) -> List[torch.Tensor]:
     """The given tiles' sub-blocks under ``cfg.method``, each
-    ``(len(tiles), ..., 128)``."""
+    ``(len(tiles), ..., 128)`` (an (x, q) pair under a ``"sampler"``
+    weight)."""
     if cfg.method == "qmc":
         b = tiles
         shift = derive_shift(seed, 1).to(tiles.device)
@@ -362,35 +641,47 @@ def tile_subblocks(
             b = b & ((1 << seg_bits) - 1)
         else:
             shift = shift.expand(b.shape)
-        return sample_subblocks_qmc(kind, p1, p2, b, shift)
+        return sample_subblocks_qmc(kind, p1, p2, b, shift, tables=tables)
     rng = CounterRng(seed, tiles // grid.loops, device=tiles.device)
     draw = sample_subblocks_antithetic if cfg.antithetic else sample_subblocks
-    return draw(kind, p1, p2, rng, tiles % grid.loops)
+    return draw(kind, p1, p2, rng, tiles % grid.loops, tables=tables)
 
 
 def pilot_values(
     values: Callable[[torch.Tensor], List[torch.Tensor]], kind: DistKind,
-    params: torch.Tensor,
+    params: torch.Tensor, tables: Optional[Tables] = None,
 ) -> torch.Tensor:
     """(K,) float32 pilots: each integrand's mean over the 1,024 quantile
     midpoints ``(i + 0.5) / 1024`` of the sampling distribution
     (``_pilot_vals``, integrate_pallas.py:1265-1300): the uniform grid
     unclamped, the exponential's ``max(u, 1e-7)``; an importance set's
-    values carry their weights.  Any pilot keeps the error bar exact; a
-    near one keeps float32 cancellation small."""
-    _check_args(kind, params)
+    values carry their weights.  A CUSTOM ``"strata"`` pilot is the
+    tile's knots (``ts`` at each row's stratum, an equal-mass quantile
+    grid, with ``qs`` under a ``"sampler"`` weight), a ``"knots"`` one
+    the knot-exact inverse at the midpoints.  Any pilot keeps the error
+    bar exact; a near one keeps float32 cancellation small."""
+    _check_args(kind, params, tables=tables)
     dev = params.device
     u = (
         torch.arange(_PILOT_POINTS, dtype=torch.float32, device=dev) + 0.5
     ) / float(_PILOT_POINTS)
     p1, p2 = params[0], params[1]
+    q = None
     if kind == DistKind.UNIFORM:
         x = p1 + u * (p2 - p1)
     elif kind == DistKind.NORMAL:
         x = p1 + p2 * normal_from_u01(u)
-    else:
+    elif kind == DistKind.EXPONENTIAL:
         x = exponential_from_u01(u) / p1
-    return torch.stack([v.mean() for v in values(x)])
+    elif isinstance(tables, KnotTables):
+        x = knot_interp(u, tables.cdf, tables.x)
+    else:
+        rep = BLOCK_ROWS // tables.ts.shape[0]
+        x = tables.ts.repeat_interleave(rep, dim=0)
+        if tables.qs is not None:
+            q = tables.qs.repeat_interleave(rep, dim=0)
+    vals = values(x) if q is None else values(x, q)
+    return torch.stack([v.mean() for v in vals])
 
 
 def finish_stderr(
@@ -411,12 +702,63 @@ def finish_stderr(
     return mean, torch.sqrt(var / n_units)
 
 
+class _WeightTab(ctypes.Structure):
+    """One weight density's table, as ``tmc::WeightTab`` in
+    ``csrc/integrate_draw.cuh``."""
+
+    _fields_ = [
+        ("keys", ctypes.c_void_p),  # knots: x grid
+        ("vals", ctypes.c_void_p),  # table: padded values; knots: pdf
+        ("dx", ctypes.c_void_p),    # table: forward differences
+        ("x0", ctypes.c_float),
+        ("step", ctypes.c_float),
+        ("x_max", ctypes.c_float),
+        ("n", ctypes.c_int),        # table: padded length; knots: m
+    ]
+
+
+class _KernelTables(ctypes.Structure):
+    """The kernel's table arguments, as ``tmc::Tables`` in
+    ``csrc/integrate_draw.cuh``: passed by host pointer, copied into the
+    launch by value."""
+
+    _fields_ = [
+        ("ts", ctypes.c_void_p),    # strata: (STRATA, 128) knots
+        ("dts", ctypes.c_void_p),   # strata: slopes
+        ("qs", ctypes.c_void_p),    # strata: sampler density, or null
+        ("xk", ctypes.c_void_p),    # knots: x knots
+        ("ck", ctypes.c_void_p),    # knots: CDF knots
+        ("m", ctypes.c_int),        # knots: knot count
+        ("p", _WeightTab),
+        ("q", _WeightTab),
+    ]
+
+
+def _weight_tab(mode, device) -> _WeightTab:
+    tab = _WeightTab()
+    if not isinstance(mode, _WeightTable):
+        return tab
+    a, b = mode.tensors(device)
+    tab.x0, tab.step, tab.x_max = (float(g) for g in mode.grid)
+    if isinstance(mode, UniformWeightTable):
+        tab.vals, tab.dx, tab.n = a.data_ptr(), b.data_ptr(), a.shape[0]
+    else:
+        tab.keys, tab.vals, tab.n = a.data_ptr(), b.data_ptr(), a.shape[0]
+    return tab
+
+
 class IntegrateProgram:
     """One fused integrand set, lowered both ways: ``torch_values`` (the
-    set's values at a block) for the plain version, and one CUDA library per :class:`IntegrateConfig`, built at
-    first use.  ``weight=(p, q)``, two traced densities, makes it an
-    importance-sampling set: each integrand weighted by ``p(x) / q(x)``
-    (``ops/lower.py``)."""
+    set's values at a block) for the plain version, and one CUDA library
+    per :class:`IntegrateConfig`, built at first use.
+
+    ``weight=(p, q)`` makes it an importance-sampling set: each density
+    is a traced function, a :class:`UniformWeightTable`, a
+    :class:`KnotWeightTable` or (q only) :data:`SAMPLER`, and each
+    integrand is weighted as the JAX kernel's ``is_weight``: ``f(x) *
+    kernel_weight(p, q)`` (``ops/lower.py``); ``torch_values`` then takes
+    the draw's sampler density as a second argument under
+    :data:`SAMPLER`."""
 
     def __init__(self, fns: Sequence[TracedFunction], weight=None):
         if not 1 <= len(fns) <= MAX_FUNCTIONS:
@@ -426,16 +768,59 @@ class IntegrateProgram:
             )
         self.fns = tuple(fns)
         self.weight = None if weight is None else tuple(weight)
-        self.torch_values = to_torch_set(self.fns, self.weight)
+        if self.weight is not None:
+            p, q = self.weight
+            tables = (TracedFunction, UniformWeightTable, KnotWeightTable)
+            if not isinstance(p, tables) or not (
+                    isinstance(q, tables) or q is SAMPLER):
+                raise ValueError(f"unknown importance weight modes {weight}")
+            self.torch_values = self._weighted_values()
+        else:
+            self.torch_values = to_torch_set(self.fns)
         self._libs = {}
 
-    def library(self, cfg: IntegrateConfig = MC):
-        if cfg not in self._libs:
+    @property
+    def sampler(self) -> bool:
+        """Whether q is the CUSTOM proposal's own sampling density."""
+        return self.weight is not None and self.weight[1] is SAMPLER
+
+    def _weighted_values(self):
+        raw = to_torch_set(self.fns)
+        p_mode, q_mode = self.weight
+        p_of = to_torch(p_mode) if isinstance(p_mode, TracedFunction) else p_mode
+        q_of = (None if q_mode is SAMPLER else
+                to_torch(q_mode) if isinstance(q_mode, TracedFunction)
+                else q_mode)
+
+        def values(x: torch.Tensor, q: Optional[torch.Tensor] = None):
+            if (q is None) == (q_of is None):
+                raise ValueError(
+                    "the draw's sampler density is passed exactly when q "
+                    "is the sampler's")
+            w = kernel_weight(p_of(x).to(torch.float32),
+                              (q if q_of is None else q_of(x)).to(torch.float32))
+            return [v * w for v in raw(x)]
+
+        return values
+
+    def _lowered_weight(self):
+        if self.weight is None:
+            return None
+        return tuple(w if isinstance(w, TracedFunction) else w.mode
+                     for w in self.weight)
+
+    def library(self, cfg: IntegrateConfig = MC, route: Optional[str] = None):
+        """The library of ``cfg`` drawing on the CUSTOM ``route`` (the
+        tables' ``route``), or on the analytic families (None)."""
+        if (cfg, route) not in self._libs:
             from .build import load_kernel_library
 
             lib = load_kernel_library(
                 "integrate.cu",
-                cuda_source(self.fns, weight=self.weight) + cfg.defines,
+                cuda_source(self.fns, weight=self._lowered_weight())
+                + cfg.defines
+                + ("" if route is None
+                   else f"#define TMC_CUSTOM {_CUSTOM_CODES[route]}\n"),
             )
             lib.tmc_integrate.argtypes = [
                 ctypes.c_int,       # kind
@@ -447,21 +832,61 @@ class IntegrateProgram:
                 ctypes.c_int,       # QMC segment bits, or -1
                 ctypes.c_int,       # CUDA grid size
                 ctypes.c_void_p,    # partials (grid, K or 2K) float32
+                ctypes.c_void_p,    # host tmc::Tables, or null
                 ctypes.c_void_p,    # cudaStream_t
             ]
             lib.tmc_integrate.restype = ctypes.c_int
-            self._libs[cfg] = lib
-        return self._libs[cfg]
+            self._libs[cfg, route] = lib
+        return self._libs[cfg, route]
+
+    def kernel_tables(self, tables: Optional[Tables], device):
+        """The launch's ``tmc::Tables``: the sampling tables' and weight
+        tables' device pointers (``None`` when there are none)."""
+        if tables is None and self.weight is None:
+            return None
+        kt = _KernelTables()
+        if isinstance(tables, StrataTables):
+            kt.ts, kt.dts = tables.ts.data_ptr(), tables.dts.data_ptr()
+            kt.qs = 0 if tables.qs is None else tables.qs.data_ptr()
+        elif isinstance(tables, KnotTables):
+            kt.xk, kt.ck = tables.x.data_ptr(), tables.cdf.data_ptr()
+            kt.m = tables.x.shape[0]
+        if self.weight is not None:
+            kt.p = _weight_tab(self.weight[0], device)
+            kt.q = _weight_tab(self.weight[1], device)
+        return kt
 
 
-def _check_args(kind, params: torch.Tensor) -> None:
-    if kind not in PORTED_KINDS:
+def _check_args(kind, params: torch.Tensor, tables: Optional[Tables] = None,
+                program: Optional[IntegrateProgram] = None) -> None:
+    if kind not in INTEGRATE_KINDS:
         raise not_ported(f"integrating under {DistKind(kind).name}", VARIANTS)
     if params.dtype != torch.float32 or params.shape != (2,):
         raise ValueError(
             f"params must be a (2,) float32 tensor, got {tuple(params.shape)} "
             f"{params.dtype}"
         )
+    if (kind == DistKind.CUSTOM) != (tables is not None):
+        raise ValueError("CUSTOM runs, and only they, take sampling tables")
+    sampler = isinstance(tables, StrataTables) and tables.qs is not None
+    if program is not None and program.sampler != sampler:
+        raise ValueError(
+            "a sampler-mode weight needs strata tables with qs, and qs "
+            "only a sampler-mode weight")
+    if tables is None:
+        return
+    for t in _fields(tables):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != params.device:
+            raise ValueError("tables must be float32 on the params' device")
+    if isinstance(tables, StrataTables):
+        shapes = {t.shape for t in _fields(tables) if t is not None}
+        if len(shapes) != 1 or next(iter(shapes))[1] != LANES:
+            raise ValueError("strata tables must be (S, 128), all one shape")
+    elif tables.x.shape != tables.cdf.shape or tables.x.dim() != 1 or (
+            tables.x.shape[0] < 2):
+        raise ValueError("knot tables must be two 1-D tables of >= 2 knots")
 
 
 def _check_pilot(cfg: IntegrateConfig, params: torch.Tensor, pilot, k: int):
@@ -483,15 +908,17 @@ def integrate_reference(
     grid: Grid,
     cfg: IntegrateConfig = MC,
     pilot: Optional[torch.Tensor] = None,
+    tables: Optional[Tables] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, on ``params``' device: (K,) float32 sums
     over the grid's samples, or with ``cfg.with_stderr`` a (2, K) stack of
     the sums and the squares of (value - pilot), of pair means under
     ``antithetic``.  ``values`` is a set's values callable
-    (``IntegrateProgram.torch_values``).  Same draws, transforms and per-tile order as the kernel;
-    tiles go ``_TILES_PER_CHUNK`` at a time, so a large plan never holds
-    all its samples."""
-    _check_args(kind, params)
+    (``IntegrateProgram.torch_values``); a CUSTOM run draws through
+    ``tables`` on their route.  Same draws, transforms and
+    per-tile order as the kernel; tiles go ``_TILES_PER_CHUNK`` at a time,
+    so a large plan never holds all its samples."""
+    _check_args(kind, params, tables)
     dev = params.device
     p1, p2 = params[0], params[1]
     sums, sqs = 0.0, 0.0
@@ -500,8 +927,8 @@ def integrate_reference(
             t0, min(t0 + _TILES_PER_CHUNK, grid.n_tiles),
             dtype=torch.int64, device=dev,
         )
-        subs = [values(x) for x in
-                tile_subblocks(cfg, kind, p1, p2, seed, grid, tiles)]
+        subs = [values(*x) if isinstance(x, tuple) else values(x) for x in
+                tile_subblocks(cfg, kind, p1, p2, seed, grid, tiles, tables)]
         k = len(subs[0])
         if t0 == 0:
             _check_pilot(cfg, params, pilot, k)
@@ -531,6 +958,7 @@ def integrate_cuda(
     grid: Grid,
     cfg: IntegrateConfig = MC,
     pilot: Optional[torch.Tensor] = None,
+    tables: Optional[Tables] = None,
 ) -> torch.Tensor:
     """The program's sums over the grid's samples, as
     :func:`integrate_reference` returns them, on ``params``' device.
@@ -539,13 +967,14 @@ def integrate_cuda(
     counts the launches); a CPU ``params`` runs the plain version.  Any
     other device raises.  The launch is asynchronous on the current
     stream."""
-    _check_args(kind, params)
+    _check_args(kind, params, tables, program)
     _check_pilot(cfg, params, pilot, len(program.fns))
     if params.device.type == "cpu":
         return integrate_reference(
-            program.torch_values, kind, params, seed, grid, cfg, pilot
+            program.torch_values, kind, params, seed, grid, cfg, pilot, tables
         )
-    out = integrate_rows(program, kind, params, seed, grid, cfg, pilot).sum(dim=0)
+    out = integrate_rows(program, kind, params, seed, grid, cfg, pilot,
+                         tables).sum(dim=0)
     return out.reshape(2, -1) if cfg.with_stderr else out
 
 
@@ -557,16 +986,19 @@ def integrate_rows(
     grid: Grid,
     cfg: IntegrateConfig = MC,
     pilot: Optional[torch.Tensor] = None,
+    tables: Optional[Tables] = None,
 ) -> torch.Tensor:
     """Launches the kernel on CUDA ``params`` and returns its per-block
     rows, (blocks, K) float32 sums or with ``cfg.with_stderr`` (blocks,
     2K) sums then squares, unsummed (``integrate_cuda`` sums them).
     Counts the launch in ``integrate_cuda.launches``."""
-    _check_args(kind, params)
+    _check_args(kind, params, tables, program)
     k = len(program.fns)
     _check_pilot(cfg, params, pilot, k)
     if params.device.type != "cuda":
         raise ValueError(f"no integrate kernel for device {params.device}")
+    if isinstance(tables, StrataTables) and tables.ts.shape[0] != STRATA:
+        raise ValueError(f"the kernel takes {STRATA} strata")
     seg_bits = -1
     if cfg.method == "qmc":
         seg = qmc_seg_bits(grid)
@@ -574,7 +1006,11 @@ def integrate_rows(
     params = params.contiguous()
     dev = params.device
     pilots = pilot.contiguous().data_ptr() if cfg.with_stderr else 0
-    lib = program.library(cfg)
+    if tables is not None:
+        tables = type(tables)(*(None if t is None else t.contiguous()
+                                for t in _fields(tables)))
+    kt = program.kernel_tables(tables, dev)
+    lib = program.library(cfg, None if tables is None else tables.route)
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
     n_out = 2 * k if cfg.with_stderr else k
     partials = torch.empty((rows, n_out), dtype=torch.float32, device=dev)
@@ -583,7 +1019,7 @@ def integrate_rows(
         err = lib.tmc_integrate(
             int(kind), int(seed) & MASK32, params.data_ptr(), pilots,
             grid.loops, grid.n_tiles, seg_bits, rows, partials.data_ptr(),
-            stream,
+            None if kt is None else ctypes.addressof(kt), stream,
         )
     if err != 0:
         raise RuntimeError(

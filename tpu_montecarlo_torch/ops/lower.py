@@ -23,13 +23,15 @@ the same order:
 Each IR operation is one float32 operation in both; constants are rounded
 to float32 once, here, for both.
 
-An importance-sampling set (``weight=(p, q)``, two traced densities)
-lowers each integrand weighted as the JAX package's ``_weighted_fns``
-closure computes it (``tpu_montecarlo/api/importance.py:469-499``):
-``where(q > 0, (f(x) * p(x)) / safe_q, 0)`` with ``safe_q = where(q > 0,
-q, 1)``, the product rounded before the division.  Both lowerings
-compute ``p(x)`` and ``q(x)`` once per sample for the whole set
-(:func:`to_torch_set`; ``tmc_weight`` in the CUDA source).
+An importance-sampling set (``weight=(p, q)``) is weighted as the JAX
+kernel's ``is_weight`` weighs it (``integrate_pallas.py:1009-1029``): the
+kernel computes ``w = where(q > 0, p / safe_q, 0)`` once per sample, p
+and q each a traced density, a pdf table or (q only) the CUSTOM
+sampler's own density, and the CUDA source takes it in the ``_w``
+entries, ``f(x) * w`` (:func:`cuda_source`).  The JAX package's traced
+route folds the weight into each integrand instead
+(``_weighted_fns``, ``(f(x) * p(x)) / safe_q``); the two agree to a few
+ulp per value.
 """
 
 from __future__ import annotations
@@ -169,29 +171,13 @@ def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
     return run
 
 
-def _weigh(v: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``where(q > 0, (v * p) / safe_q, 0)``, the weighted value."""
-    ok = q > 0
-    safe_q = torch.where(ok, q, 1.0)
-    return torch.where(ok, (v * p) / safe_q, 0.0)
-
-
 def to_torch_set(
-    fns: Sequence[TracedFunction], weight=None
+    fns: Sequence[TracedFunction],
 ) -> Callable[[torch.Tensor], List[torch.Tensor]]:
     """The set's values at one block of samples, as a list of K float32
-    tensors; with ``weight=(p, q)`` each weighted by ``p(x) / q(x)``,
-    the densities computed once per block."""
+    tensors."""
     lowered = [to_torch(f) for f in fns]
-    if weight is None:
-        return lambda x: [f(x) for f in lowered]
-    p_fn, q_fn = (to_torch(w) for w in weight)
-
-    def values(x: torch.Tensor) -> List[torch.Tensor]:
-        p, q = p_fn(x), q_fn(x)
-        return [_weigh(f(x), p, q) for f in lowered]
-
-    return values
+    return lambda x: [f(x) for f in lowered]
 
 
 def _c_float(v: float) -> str:
@@ -297,10 +283,9 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
     y, pilot, acc, sq)``, which adds ``f_j(x)`` and ``f_j(y)`` and the
     square of their mean less the pilot (antithetic error bars); and
     ``tmc_values(x, vals)``, which stores each ``f_j(x)`` in ``vals[j]``
-    (the MCMC kernel, which shifts them).  ``weight=(p, q)``, two traced
-    1-argument densities, weighs every value by ``p(x) / q(x)`` as the
-    module docstring says, ``tmc_weight(x)`` evaluating both densities
-    once per point, and defines ``TMC_WEIGHTED``.  Integrands of d >= 2
+    (the MCMC kernel, which shifts them).  ``weight=(p, q)`` gives the
+    weighted entries of :func:`_weighted_entries` in their place, the
+    weight made by the kernel as the module docstring says.  Integrands of d >= 2
     arguments, all of one arity, take the point as ``const float* x`` and
     get ``TMC_D`` and :func:`_nd_entries`; ``pointer=True`` gives
     1-argument integrands that form too.  The sums take an unweighted
@@ -314,7 +299,8 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
         raise ValueError(f"integrands of mixed arity {sorted(arity)}")
     d = arity.pop()
     nd = pointer or d > 1
-    if weight is not None and (nd or any(w.n_args != 1 for w in weight)):
+    if weight is not None and (nd or any(
+            isinstance(w, TracedFunction) and w.n_args != 1 for w in weight)):
         raise ValueError("importance weights take 1-argument integrands "
                          "and densities")
     parts = [f"#define TMC_K {k}"]
@@ -331,72 +317,91 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
         )
         return "\n\n".join(parts + _nd_entries(k, acc)) + "\n"
     if weight is not None:
-        parts.append("#define TMC_WEIGHTED 1")
-        parts += [_c_function("tmc_pdf_p", weight[0]),
-                  _c_function("tmc_pdf_q", weight[1])]
-        parts.append(_WEIGHT_HELPERS)
-    return "\n\n".join(parts + _one_d_entries(k, fused, weight is not None)) + "\n"
+        return "\n\n".join(parts + _weighted_entries(k, weight)) + "\n"
+    return "\n\n".join(parts + _one_d_entries(k, fused)) + "\n"
 
 
-# The weighted value of _weighted_fns, from both densities at a point.
-_WEIGHT_HELPERS = """struct TmcWeight {
-  float p, q;
-};
-
-static __device__ inline TmcWeight tmc_weight(float x) {
-  return TmcWeight{tmc_pdf_p(x), tmc_pdf_q(x)};
-}
-
-static __device__ inline float tmc_weigh(float v, TmcWeight w) {
-  const bool ok = w.q > 0.0f;
-  const float safe_q = ok ? w.q : 1.0f;
-  return ok ? (v * w.p) / safe_q : 0.0f;
-}"""
+# Weight mode codes (TMC_P_MODE, TMC_Q_MODE): a traced density
+# (tmc_pdf_p, tmc_pdf_q), a uniform-grid table, the sampler's own density
+# (q only), an irregular-grid table.
+_WEIGHT_MODES = {"traced": 0, "table": 1, "sampler": 2, "knots": 3}
 
 
-def _one_d_entries(k: int, fused, weighted: bool) -> List[str]:
-    """The 1-D integrate and MCMC kernels' per-point entries (see
-    :func:`cuda_source`)."""
-
-    def value(j: int, x: str) -> str:
-        return f"tmc_weigh(f_{j}({x}), w_{x})" if weighted else f"f_{j}({x})"
-
-    def weights(*xs: str) -> str:
-        if not weighted:
-            return ""
-        return "".join(f"  const TmcWeight w_{x} = tmc_weight({x});\n"
-                       for x in xs)
-
-    acc = "\n".join(
-        f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
-        else f"  acc[{j}] += {value(j, 'x')};" for j in range(k)
-    )
+def _weighted_entries(k: int, weight) -> List[str]:
+    """A weighted 1-D set's lines: ``TMC_WEIGHTED``, the two mode
+    codes, the traced densities, and the entries ``tmc_accumulate_w(x, w,
+    acc)``, ``tmc_accumulate_sq_w(x, w, pilot, acc, sq)`` and
+    ``tmc_accumulate_pair_sq_w(x, y, wx, wy, pilot, acc, sq)``, which add
+    ``f_j(x) * w`` as :func:`_one_d_entries`' entries add ``f_j(x)``."""
+    modes = ["traced" if isinstance(w, TracedFunction) else w for w in weight]
+    if modes[0] not in ("traced", "table", "knots") or modes[1] not in (
+            _WEIGHT_MODES):
+        raise ValueError(f"unknown importance weight modes {modes}")
+    parts = ["#define TMC_WEIGHTED 1",
+             f"#define TMC_P_MODE {_WEIGHT_MODES[modes[0]]}",
+             f"#define TMC_Q_MODE {_WEIGHT_MODES[modes[1]]}"]
+    for name, w in zip(("tmc_pdf_p", "tmc_pdf_q"), weight):
+        if isinstance(w, TracedFunction):
+            parts.append(_c_function(name, w))
+    acc = "\n".join(f"  acc[{j}] += f_{j}(x) * w;" for j in range(k))
     sq = "\n".join(
-        f"  {{\n    const float v = {value(j, 'x')};\n    acc[{j}] += v;\n"
+        f"  {{\n    const float v = f_{j}(x) * w;\n    acc[{j}] += v;\n"
         f"    const float dd = v - pilot[{j}];\n"
         f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
         for j in range(k)
     )
     pair = "\n".join(
-        f"  {{\n    const float a = {value(j, 'x')};\n"
-        f"    const float b = {value(j, 'y')};\n"
+        f"  {{\n    const float a = f_{j}(x) * wx;\n"
+        f"    const float b = f_{j}(y) * wy;\n"
         f"    acc[{j}] += a;\n    acc[{j}] += b;\n"
         f"    const float dd = tmc_fma(0.5f, a + b, -pilot[{j}]);\n"
         f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
         for j in range(k)
     )
-    vals = "\n".join(f"  vals[{j}] = {value(j, 'x')};" for j in range(k))
+    return parts + [
+        "static __device__ inline void tmc_accumulate_w(float x, float w, "
+        f"float* acc) {{\n{acc}\n}}",
+        "static __device__ inline void tmc_accumulate_sq_w(float x, float w, "
+        f"const float* pilot, float* acc, float* sq) {{\n{sq}\n}}",
+        "static __device__ inline void tmc_accumulate_pair_sq_w(float x, "
+        "float y, float wx, float wy, const float* pilot, float* acc, "
+        f"float* sq) {{\n{pair}\n}}",
+    ]
+
+
+def _one_d_entries(k: int, fused) -> List[str]:
+    """The 1-D integrate and MCMC kernels' per-point entries (see
+    :func:`cuda_source`)."""
+    acc = "\n".join(
+        f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
+        else f"  acc[{j}] += f_{j}(x);" for j in range(k)
+    )
+    sq = "\n".join(
+        f"  {{\n    const float v = f_{j}(x);\n    acc[{j}] += v;\n"
+        f"    const float dd = v - pilot[{j}];\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
+        for j in range(k)
+    )
+    pair = "\n".join(
+        f"  {{\n    const float a = f_{j}(x);\n"
+        f"    const float b = f_{j}(y);\n"
+        f"    acc[{j}] += a;\n    acc[{j}] += b;\n"
+        f"    const float dd = tmc_fma(0.5f, a + b, -pilot[{j}]);\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
+        for j in range(k)
+    )
+    vals = "\n".join(f"  vals[{j}] = f_{j}(x);" for j in range(k))
     return [
         "static __device__ inline void tmc_accumulate(float x, float* acc) {\n"
-        f"{weights('x')}{acc}\n}}",
+        f"{acc}\n}}",
         "static __device__ inline void tmc_accumulate_sq(float x, "
         "const float* pilot, float* acc, float* sq) {\n"
-        f"{weights('x')}{sq}\n}}",
+        f"{sq}\n}}",
         "static __device__ inline void tmc_accumulate_pair_sq(float x, "
         "float y, const float* pilot, float* acc, float* sq) {\n"
-        f"{weights('x', 'y')}{pair}\n}}",
+        f"{pair}\n}}",
         "static __device__ inline void tmc_values(float x, float* vals) {\n"
-        f"{weights('x')}{vals}\n}}",
+        f"{vals}\n}}",
     ]
 
 

@@ -1,7 +1,8 @@
 """Family codes, packed distribution specs, the sampling transforms and
 the closed-form log densities.
 
-Port of the analytic rows of ``tpu_montecarlo/sampling.py``.  The
+Port of the analytic rows and the CUSTOM spec of
+``tpu_montecarlo/sampling.py``.  The
 transforms are torch functions on float32 tensors; the CUDA kernels
 apply the same formulas in the same order (``csrc/counter_rng.cuh``).
 """
@@ -9,7 +10,7 @@ apply the same formulas in the same order (``csrc/counter_rng.cuh``).
 from __future__ import annotations
 
 from enum import IntEnum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,6 +21,8 @@ __all__ = [
     "LOG_PDF_FLOOR",
     "DistKind",
     "DistSpec",
+    "INTEGRATE_KINDS",
+    "PORTED_KINDS",
     "analytic_log_pdf",
     "dist_spec_of",
     "exponential_from_u01",
@@ -47,20 +50,48 @@ class DistKind(IntEnum):
     PARETO = 10
 
 
-#: Families the port samples.
+#: Families every kernel of the port samples in closed form.
 PORTED_KINDS = (DistKind.UNIFORM, DistKind.NORMAL, DistKind.EXPONENTIAL)
+#: Families the 1-D integrate kernel samples: the closed forms and CUSTOM
+#: tables (the other kernels take CUSTOM with ROADMAP.md items 6.6, 7.1,
+#: 8.2 and 9.2).
+INTEGRATE_KINDS = PORTED_KINDS + (DistKind.CUSTOM,)
 
 
 class DistSpec(NamedTuple):
     """Family code plus the (2,) float32 parameter pair the kernel reads:
-    uniform (min, max), normal (mean, std), exponential (lambda, 0)."""
+    uniform (min, max), normal (mean, std), exponential (lambda, 0);
+    CUSTOM (0, 0) and its tables (``tpu_montecarlo/sampling.py:59-85``).
+
+    For CUSTOM, ``x_table`` is the uniform-u inverse-CDF table
+    (``tables.compute_inverse_cdf_table``, 4096 knots), or the original
+    x grid when ``exact_inverse`` is set: the density has zero-density
+    spans, so the sampler must jump them at a knot (gap-respecting
+    stratified tables), or, with ``heavy_tail`` as well, any uniform-u
+    resampled inverse would bias the moments, so the sampler inverts the
+    CDF knots exactly (``cdf_table``)."""
 
     kind: DistKind
     params: np.ndarray
+    x_table: Optional[np.ndarray] = None
+    cdf_table: Optional[np.ndarray] = None
+    exact_inverse: bool = False
+    heavy_tail: bool = False
 
 
 def dist_spec_of(dist) -> DistSpec:
-    """Pack a port ``Distribution`` the way the JAX package packs it."""
+    """Pack a port ``Distribution`` the way the JAX package packs it
+    (``_build_spec``, ``tpu_montecarlo/sampling.py:104-175``).  Cached on
+    the Distribution: a CUSTOM spec builds tables."""
+    cached = getattr(dist, "_cached_spec", None)
+    if cached is not None:
+        return cached
+    spec = _build_spec(dist)
+    dist._cached_spec = spec
+    return spec
+
+
+def _build_spec(dist) -> DistSpec:
     name = dist.dist_type.name
     p = dist.params
     if name == "UNIFORM":
@@ -69,9 +100,44 @@ def dist_spec_of(dist) -> DistSpec:
         pair = (p["mean"], p["std"])
     elif name == "EXPONENTIAL":
         pair = (p["lambda"], 0.0)
+    elif name == "CUSTOM":
+        return _custom_spec(dist)
     else:
         raise not_ported(f"sampling from a {name.lower()} distribution", VARIANTS)
     return DistSpec(DistKind[name], np.asarray(pair, np.float32))
+
+
+def _custom_spec(dist) -> DistSpec:
+    from .tables import (
+        compute_inverse_cdf_table,
+        find_zero_density_gaps,
+        gapped_inverse_tables,
+        inverse_table_distorts,
+        needs_exact_inverse,
+        sample_intervals_distort,
+    )
+
+    if dist._x_table is None or dist._cdf_table is None:
+        raise ValueError("Custom distribution requires x/cdf tables")
+    cdf = np.asarray(dist._cdf_table, np.float32)
+    x_table = np.asarray(dist._x_table, np.float32)
+    zeros = np.zeros(2, np.float32)
+    _, pdf_vals = dist.get_or_compute_pdf_table()
+    if needs_exact_inverse(cdf, pdf_vals):
+        # Zero-density spans; heavy when even the gap-respecting tables'
+        # outermost slabs bias the moments.
+        gaps = find_zero_density_gaps(dist._x_table, cdf, pdf_vals)
+        t, dt = gapped_inverse_tables(dist._x_table, cdf, gaps)
+        heavy = sample_intervals_distort(
+            dist._x_table, cdf, t[:-1], t[:-1] + dt[:-1]
+        )
+        return DistSpec(DistKind.CUSTOM, zeros, x_table, cdf,
+                        exact_inverse=True, heavy_tail=heavy)
+    inv = compute_inverse_cdf_table(dist._x_table, dist._cdf_table)
+    if inverse_table_distorts(dist._x_table, dist._cdf_table, inv):
+        return DistSpec(DistKind.CUSTOM, zeros, x_table, cdf,
+                        exact_inverse=True, heavy_tail=True)
+    return DistSpec(DistKind.CUSTOM, zeros, inv, cdf)
 
 
 _SQRT2 = float(np.float32(np.sqrt(2.0)))

@@ -36,14 +36,12 @@ __all__ = [
     "PT_SERVING",
     "PT_WIDE",
     "SERVING",
-    "TABLES",
     "TEMPERING",
     "VARIANTS",
     "not_ported",
 ]
 
 VARIANTS = "ROADMAP.md, queue 1 item 2 (integrate variants)"
-TABLES = "ROADMAP.md, queue 1 item 2.3 (CUSTOM tables)"
 SERVING = (
     "ROADMAP.md, queue 1 item 2.4 (seed_batch, param_batch and the "
     "compile_* handles)"
