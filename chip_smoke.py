@@ -169,7 +169,28 @@ Phases, each of which exits non-zero on failure:
     read the idle share of warm Beta calls, and time the bench set under
     Beta(2, 5) at 2**30 and an importance set with a table target at 2**30,
     each with its bound (the bound counts the arithmetic pipes; the table
-    loads are left out of it).
+    loads are left out of it);
+30. finish building the three MCMC kernels' CUSTOM-table libraries (one
+    per program, route and layout, all started in phase 2) and hold each
+    table route against its plain version at 4096 chains x (200 + 1000)
+    steps with phase 7's gates (the swap rates within 1e-3): the 1-D
+    kernel's table target, sampler-mode and gapped proposals, walks and
+    error bars; the nd kernel's CUSTOM dimensions first and last
+    (sampler-mode, gapped, a table target under a walk); the tempered
+    kernel's table target and sampler-mode dimensions;
+31. drive BASELINE.md config 5, ``integrate_mcmc([x*x], from_pdf(bimodal,
+    support=(-6, 6)), U(-6, 6), n_steps=10_000, n_chains=4096,
+    n_burnin=1_000, return_stderr=True)``: E[x^2] within 6 standard errors
+    of 5 and within BASELINE's 0.2, the launch counts (set to 0 just
+    before) rose; then hold the kernel against its plain version at that
+    shape, time both (CUDA events) and the warm call (host clock), read
+    the idle share of warm calls and count the bounds (the table loads
+    left out);
+32. the same for c9f, ``integrate_mcmc([x*y], [Beta(2,5), N(0,1)],
+    [Beta(2,5), N(0,2)], ...)``: E[xy] within 6 standard errors of 0;
+33. the same for c12d, ``integrate_mcmc([x, x*x], from_pdf(bimodal),
+    from_pdf(exp(-0.5 (x/3)^2), support=(-7, 7)), temperatures=[1, 2, 4,
+    8], ...)``: E[x] and E[x^2] within 6 standard errors of 0 and 5.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -364,6 +385,52 @@ def logmix(x):
 PT_FNS = [lambda x: x, lambda x: x * x]
 PT_LADDER = [1.0, 2.0, 4.0, 8.0]
 PT_EXACT = [0.0, 17.0]
+# MCMC over CUSTOM tables (phases 30-33), at MCMC_MAIN's shape with error
+# bars: BASELINE.md config 5 (run_all.py:184-218), E[x^2] = 5 within 6
+# error bars and BASELINE's MCMC tolerance; c9f (run_all.py:401-416),
+# E[xy] = 0; c12d (run_all.py:570-585), E[x] = 0, E[x^2] = 5.
+C5_FNS = [lambda x: x * x]
+C5_EXACT = [5.0]
+C5_TOLERANCE = 0.2
+C9F_FNS = [lambda x, y: x * y]
+C9F_EXACT = [0.0]
+C12D_FNS = [lambda x: x, lambda x: x * x]
+C12D_EXACT = [0.0, 5.0]
+
+
+def bimodal(x):
+    """Config 5's and c12d's target (run_all.py:185-188): 0.5 N(-2, 1) +
+    0.5 N(2, 1), unnormalised; E[x^2] = 5."""
+    return 0.5 * np.exp(-0.5 * (x + 2.0) ** 2) + 0.5 * np.exp(-0.5 * (x - 2.0) ** 2)
+
+
+def wide_pdf(x):
+    """c12d's proposal density (run_all.py:570-585), on (-7, 7)."""
+    return np.exp(-0.5 * (x / 3.0) ** 2)
+
+
+def table_moments(dist, powers):
+    """E[x^p] for each p of ``powers`` under the density the MCMC kernels
+    sample for a CUSTOM target: exp of its downsampled log table
+    (``api/device.py``), linear between its knots, by the trapezoid rule
+    on 2,000,001 points of its grid (host float64)."""
+    from tpu_montecarlo_torch.api.device import _device_uniform_log_tables
+
+    lx, lp = (np.asarray(a, np.float64)
+              for a in _device_uniform_log_tables(dist))
+    x = np.linspace(lx[0], lx[-1], 2_000_001)
+    p = np.exp(np.interp(x, lx, lp))
+    mass = np.trapezoid(p, x)
+    return [float(np.trapezoid(x ** k * p, x) / mass) for k in powers]
+
+
+def wide_gap(tm):
+    """A proposal with a zero-density gap on (-1, 1), on a 2048-knot grid
+    over (-6, 6): the gapped route (gap-respecting tables, a guarded log
+    table for q)."""
+    x = np.linspace(-6.0, 6.0, 2048)
+    return tm.Distribution.from_pdf_table(
+        x, np.where(np.abs(x) < 1.0, 0.0, np.exp(-0.1 * x * x)))
 
 
 def fail(msg: str) -> None:
@@ -1064,6 +1131,7 @@ def main() -> int:
         import tpu_montecarlo_torch as tm
         from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE, fns_key
         from tpu_montecarlo_torch.api.device import sampling_tables
+        from tpu_montecarlo_torch.api.mcmc_nd import dim_tables as nd_dim_tables
         from tpu_montecarlo_torch.api.results import _unit_integrand
         from tpu_montecarlo_torch.ops.integrate_kernel import (
             SAMPLER,
@@ -1404,6 +1472,116 @@ def main() -> int:
     custom_builds = [
         pool.submit(timed_build, lambda p=p, c=c, r=r: p.library(c, r))
         for p, c, r in custom_libs.values()]
+
+    # MCMC over CUSTOM tables (phases 30-33): config 5, c9f and c12d at the
+    # main shape (their public calls take the programs from the cache),
+    # each with the build its bound counts, and every table route held
+    # against its plain version at phase 7's size; each run set up as the
+    # public path sets it up (routes, parameter rows, device tables).
+    c5_target = tm.Distribution.from_pdf(bimodal, support=(-6.0, 6.0))
+    c5_proposal = tm.Distribution.uniform(-6.0, 6.0)
+    beta25 = tm.Distribution.beta(2.0, 5.0)
+    c9f_target, c9f_proposal = [beta25, n01], [beta25, n02]
+    c12d_proposal = tm.Distribution.from_pdf(wide_pdf, support=(-7.0, 7.0))
+    table_walk = tm.RandomWalk(step_size=1.0, adapt=True,
+                               init_range=(-3.0, 3.0))
+
+    def custom_mcmc_setup(fns, target, proposal, temps, n_steps, n_burnin,
+                          stderr):
+        """{"kernel", "plain"}: callables of a grid, and "program", "cfg",
+        "k", "wrapper" and "bound_program" (the build the bounds count:
+        one lane of the same group, or the ladder layout)."""
+        parsed = integ._parse_nd_mcmc_args(target, proposal)
+        if temps is not None:
+            prog, cfg, params, ladder = integ._pt_kernel_program(
+                fns, proposal, parsed, tuple(1.0 / t for t in temps),
+                n_steps, n_burnin, stderr)
+            tabs = nd_dim_tables(parsed[0], parsed[1], parsed[3], dev)
+            return dict(
+                kernel=lambda g: mcmc_pt_cuda(prog, cfg, params, ladder, SEED,
+                                              g, tabs),
+                plain=lambda g: mcmc_pt_reference(
+                    prog.torch_fns, prog.torch_target, cfg, params, ladder,
+                    SEED, g, tabs),
+                program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_pt_cuda,
+                bound_program=McmcPtProgram(prog.fns, cfg, prog.target,
+                                            layout=LADDER_LAYOUT))
+        if parsed[2] is None and parsed[3] == 1:  # the 1-D kernel
+            prog, cfg, params, tabs = integ._mcmc_kernel_program(
+                integ._trace_user_functions(fns), target, proposal, n_steps,
+                n_burnin, stderr)
+            return dict(
+                kernel=lambda g: mcmc_cuda(prog, cfg, params, SEED, g, tabs),
+                plain=lambda g: mcmc_reference(prog.torch_fns, cfg, params,
+                                               SEED, g, tabs),
+                program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_cuda,
+                bound_program=McmcProgram(prog.fns, layout=Layout(
+                    1, prog.layout_for(cfg).group)))
+        prog, cfg, params = integ._nd_mcmc_kernel_program(
+            fns, proposal, parsed, n_steps, n_burnin, stderr)
+        tabs = nd_dim_tables(parsed[0], parsed[1], parsed[3], dev)
+        return dict(
+            kernel=lambda g: mcmc_nd_cuda(prog, cfg, params, SEED, g, tabs),
+            plain=lambda g: mcmc_nd_reference(
+                prog.torch_fns, prog.torch_target, cfg, params, SEED, g, tabs),
+            program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_nd_cuda,
+            bound_program=McmcNdProgram(prog.fns, cfg, prog.target,
+                                        layout=Layout(1, prog.layout.group)))
+
+    # name: (functions, target, proposal, temperatures, closed forms)
+    custom_mcmc_cells = {
+        "config5": (C5_FNS, c5_target, c5_proposal, None, C5_EXACT),
+        "c9f": (C9F_FNS, c9f_target, c9f_proposal, None, C9F_EXACT),
+        "c12d": (C12D_FNS, c5_target, c12d_proposal, PT_LADDER, C12D_EXACT),
+    }
+    custom_mcmc_main = {
+        name: custom_mcmc_setup(fns, target, proposal, temps,
+                                MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"],
+                                True)
+        for name, (fns, target, proposal, temps, _) in custom_mcmc_cells.items()
+    }
+    f2c = ND_MCMC_CHECK_FNS[2][:2]
+    custom_mcmc_cases = [
+        ("1-D: config 5's table target under U(-6,6)", PT_FNS, c5_target,
+         c5_proposal, None, False),
+        ("1-D: Beta(2,5) sampler-mode proposal -> Beta(2,5), stderr", PT_FNS,
+         beta25, beta25, None, True),
+        ("1-D: gapped proposal -> table target", PT_FNS, c5_target,
+         wide_gap(tm), None, False),
+        ("1-D: walk -> table target", PT_FNS, c5_target,
+         tm.RandomWalk(step_size=1.5), None, False),
+        ("1-D: adaptive walk -> table target, stderr", PT_FNS, c5_target,
+         table_walk, None, True),
+        ("nd: c9f's sampler-mode dimension 0, stderr", f2c, c9f_target,
+         c9f_proposal, None, True),
+        ("nd: gapped proposal dimension last -> table target", f2c,
+         [n01, c5_target], [n02, wide_gap(tm)], None, False),
+        ("nd: adaptive walk -> table x N(0,1)", f2c, [c5_target, n01],
+         table_walk, None, False),
+        ("tempered: c12d's table target and proposal, T=4, stderr", PT_FNS,
+         c5_target, c12d_proposal, PT_LADDER, True),
+        ("tempered: adaptive walk -> table target, T=2", PT_FNS, c5_target,
+         table_walk, [1.0, 2.0], False),
+        ("tempered: sampler-mode dimension 0, T=2, stderr", f2c, c9f_target,
+         c9f_proposal, [1.0, 2.5], True),
+    ]
+    custom_mcmc_checks = [
+        (name, custom_mcmc_setup(fns, target, proposal, temps,
+                                 MCMC_CHECK["n_steps"],
+                                 MCMC_CHECK["n_burnin"], stderr))
+        for name, fns, target, proposal, temps, stderr in custom_mcmc_cases
+    ]
+
+    def custom_mcmc_library(setup, bound=False):
+        prog = setup["bound_program" if bound else "program"]
+        return (prog.library(setup["cfg"]) if isinstance(prog, McmcProgram)
+                else prog.library())
+
+    custom_mcmc_builds = [
+        pool.submit(timed_build, lambda s=s, b=b: custom_mcmc_library(s, b))
+        for s, b in [*((s, b) for s in custom_mcmc_main.values()
+                       for b in (False, True)),
+                     *((s, False) for _, s in custom_mcmc_checks)]]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -2449,6 +2627,154 @@ def main() -> int:
         "phase 29: [x], Beta(2,5) pdf-table target from U(0,1), stderr")
 
     max_abs_err = max(max_abs_err, *(m["max_abs_err"] for m in modes.values()))
+
+    # 30. MCMC over CUSTOM tables: the libraries started in phase 2, then
+    # every table route of the three MCMC kernels against its plain
+    # version at phase 7's size.
+    built = [b.result() for b in custom_mcmc_builds]
+    print(f"phase 30: built the MCMC kernels' CUSTOM-table libraries for "
+          f"{len(built)} programs, routes and layouts, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for lib_, _ in built:
+        for line in lib_.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    def custom_vs_plain(setup, grid, phase: str):
+        """The kernel against the plain version on the same chains, as
+        phases 7, 16 and 20.  Returns (max abs difference of the means,
+        the plain version's milliseconds by CUDA events)."""
+        got = setup["kernel"](grid)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = setup["plain"](grid)
+        end.record()
+        end.synchronize()
+        cfg_, k_ = setup["cfg"], setup["k"]
+        tempered = setup["wrapper"] is mcmc_pt_cuda
+        err = chains_agree(got, want, grid, cfg_, k_, phase,
+                           max_split=0.01 if tempered else 0.0)
+        if tempered:
+            w_k, w_p = (float(pt_finish(t, grid, cfg_, k_)[2])
+                        for t in (got, want))
+            print(f"         swap rate kernel {w_k:.6f} plain {w_p:.6f}")
+            if not (0.0 < w_k < 1.0 and abs(w_k - w_p) <= 1e-3):
+                fail(f"phase {phase}: swap rates disagree")
+        return err, start.elapsed_time(end)
+
+    custom_mcmc_err = 0.0
+    for name, setup in custom_mcmc_checks:
+        print(f"phase 30: {name}, {check_grid.chains_actual} chains x "
+              f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps")
+        custom_mcmc_err = max(custom_mcmc_err,
+                              custom_vs_plain(setup, check_grid, "30")[0])
+
+    # 31-33. Config 5 (1-D), c9f (nd) and c12d (tempered) through the
+    # public API, each counted from 0, held to its closed forms; then each
+    # kernel against its plain version at the main shape (the plain
+    # version timed in that run), the kernel timed (CUDA events), the
+    # warm call timed (host clock, median of 5), the idle share of warm
+    # calls and the bounds.  The bounds count the arithmetic pipes of the
+    # build's SASS and leave the table loads out: under an independence
+    # proposal every load is x-free; under a walk the target's two loads
+    # sit on the carried chain, whose latency bound counts 4 clocks per
+    # dependent instruction and none for a load.
+    custom_mcmc = {}
+    for phase, (name, (fns, target, proposal, temps, exact)) in zip(
+            (31, 32, 33), custom_mcmc_cells.items()):
+        setup = custom_mcmc_main[name]
+        wrapper, cfg, k = setup["wrapper"], setup["cfg"], setup["k"]
+        extra = {} if temps is None else {"temperatures": temps}
+
+        def call(fns=fns, target=target, proposal=proposal, extra=extra):
+            return tm.integrate_mcmc(fns, target, proposal, return_stderr=True,
+                                     **extra, **MCMC_MAIN)
+
+        wrapper.launches = wrapper.pilot_launches = 0
+        t0 = time.perf_counter()
+        r = call()
+        main_s = time.perf_counter() - t0
+        launches_c = wrapper.launches, wrapper.pilot_launches
+        print(f"phase {phase}: {name}, integrate_mcmc({MCMC_MAIN}, "
+              f"return_stderr=True{', temperatures=' + str(temps) if temps else ''})"
+              f" in {main_s:.3f} s (host clock), {launches_c[0]} chain "
+              f"kernel and {launches_c[1]} pilot kernel launch(es)")
+        if launches_c[0] < 1 or launches_c[1] < 1:
+            fail(f"{name} did not launch its MCMC kernel and its pilot")
+        v, se = np.asarray(r.values), np.asarray(r.stderr)
+        if v.shape != (len(exact),) or not (np.all(np.isfinite(v))
+                                            and np.all(se > 0)):
+            fail(f"bad {name} result {v!r} +- {se!r}")
+        z = (v - np.asarray(exact)) / se
+        swap = (r.diagnostics or {}).get("swap_rate")
+        print("  " + ", ".join(
+            f"E[f{j}] = {v[j]:.6f} +- {se[j]:.6f} (closed form {exact[j]}, "
+            f"z = {z[j]:+.2f})" for j in range(len(exact)))
+            + f", acceptance {r.acceptance_rate:.4f}"
+            + ("" if swap is None else f", swap rate {swap:.4f}")
+            + f", n_samples {r.n_samples}")
+        if name != "c9f":
+            # The bimodal table's own moments (the sampled target, its
+            # 128-knot log table on (-6, 6)), beside the closed forms.
+            own = table_moments(target, range(3 - len(exact), 3))
+            print("  against the tabulated target's own moments: " + ", ".join(
+                f"E[f{j}] {own[j]:.6f} (z = {(v[j] - own[j]) / se[j]:+.2f})"
+                for j in range(len(exact))))
+        if np.any(np.abs(z) > 6.0) or not 0.0 < r.acceptance_rate < 1.0:
+            fail(f"{name}: the estimates are not within 6 stderr of {exact}")
+        if name == "config5" and abs(v[0] - exact[0]) > C5_TOLERANCE:
+            fail(f"config 5: E[x^2] is off 5 by more than {C5_TOLERANCE}")
+        if swap is not None and not 0.0 < swap < 1.0:
+            fail(f"{name}: swap rate {swap} is not in (0, 1)")
+        err, plain_ms_c = custom_vs_plain(setup, main_grid, str(phase))
+        ms_c = time_ms(lambda s=setup: s["kernel"](main_grid), reps=10)
+        call_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            call_s.append(time.perf_counter() - t0)
+        call_ms = float(np.median(call_s)) * 1e3
+        rungs = 1 if temps is None else cfg.n_temps
+        print(f"phase {phase}: {main_grid.chains_actual} chains"
+              f"{'' if temps is None else f' x {rungs} rungs'} x "
+              f"({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, "
+              f"{name}, stderr, on {card}: kernel {ms_c:.3f} ms "
+              f"({chain_steps / ms_c * 1e3:.4e} chain-steps/s), plain "
+              f"{plain_ms_c:.3f} ms, integrate_mcmc() end to end "
+              f"{call_ms:.3f} ms median of 5, host clock")
+        mhz = clock_under_load(lambda s=setup: s["kernel"](main_grid), ms_c)
+        conversions = (2 if wrapper is mcmc_cuda else
+                       cfg.d + 1 if wrapper is mcmc_nd_cuda else
+                       cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2)
+        function = {mcmc_cuda: "mcmc_kernel", mcmc_nd_cuda: "mcmc_nd_kernel",
+                    mcmc_pt_cuda: "mcmc_pt_kernel"}[wrapper]
+        bound_c = card_bound(
+            custom_mcmc_library(setup, bound=True), function, conversions,
+            chain_steps, mhz,
+            warps=function_warps(cfg.mode, main_grid.chains_actual, rungs),
+            weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]))
+        print_bound(bound_c, mhz, "chain-step")
+        print(f"  (counted on {'the ladder layout' if temps else 'a one-lane'}"
+              " build of the same program; the table loads are left out of "
+              "both bounds)")
+        latency_c = print_latency(bound_c, steps, mhz)
+        print(f"  {name}:", end="")
+        custom_mcmc[name] = {
+            "launches": launches_c[0], "pilot_launches": launches_c[1],
+            "max_abs_err": max(err, custom_mcmc_err), "ms": ms_c,
+            "plain_ms": plain_ms_c, "call_ms": call_ms,
+            "bound_ms": max(bound_c[0], latency_c), "bound_by": "operations",
+            "bound_pipe": bound_c[1], "pipe_bound_ms": bound_c[0],
+            "issue_ms": bound_c[2], "latency_ms": latency_c,
+            "bound_leaves_out": "table loads", "library_ms": None,
+            "idle_share": idle_share(call), "values": v.tolist(),
+            "stderr": se.tolist(),
+            **({} if swap is None else {"swap_rate": swap}),
+        }
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -2488,6 +2814,7 @@ def main() -> int:
         "library_ms": None,
         "layout": list(mcmc_program.layout_for(main_cfg)),
         "walk_ms": mcmc_walk_ms,
+        "custom": {"config5": custom_mcmc["config5"]},
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -2525,6 +2852,7 @@ def main() -> int:
         "library_ms": None,
         "layout": nd_mcmc_layout,
         "walk_ms": c10b_ms,
+        "custom": {"c9f": custom_mcmc["c9f"]},
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -2546,6 +2874,7 @@ def main() -> int:
         "ladder_ms": pt_times["c12", "ladder"],
         "c12c_ms": pt_times["c12c", "default"],
         "c12c_ladder_ms": pt_times["c12c", "ladder"],
+        "custom": {"c12d": custom_mcmc["c12d"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

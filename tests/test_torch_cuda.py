@@ -1473,3 +1473,174 @@ def test_mcmc_kernels_run_their_recorded_chains(cuda_device, cell):
         got = mcmc_pt_cuda(program, cfg, params, ladder, 42, grid)
     torch.cuda.synchronize()
     assert (_digest(got.rows), _digest(got.x_final)) == MCMC_DIGESTS[cell]
+
+
+# -- CUSTOM tables in the three MCMC kernels -----------------------------------
+#
+# Every table route of the 1-D, nd and tempered kernels (a table target,
+# a sampler-mode proposal, a gapped proposal, the walks on a table target,
+# error bars) against its plain version on the card, at 4096 chains x (200
+# + 1000) steps, with the tolerances of the MCMC tests above (and the swap
+# rates within 1e-3).  Each run is set up as the public path sets it up:
+# the same routes, parameter rows and device tables.
+
+
+def _bimodal(x):
+    # BASELINE config 5's target (benchmarks/run_all.py:185-188).
+    return 0.5 * np.exp(-0.5 * (x + 2.0) ** 2) + 0.5 * np.exp(-0.5 * (x - 2.0) ** 2)
+
+
+def _custom_dist(name):
+    d = tm.Distribution
+    if name == "bimodal":
+        return d.from_pdf(_bimodal, support=(-6.0, 6.0))
+    if name == "wide":  # c12d's proposal (run_all.py:570-585)
+        return d.from_pdf(lambda x: np.exp(-0.5 * (x / 3.0) ** 2),
+                          support=(-7.0, 7.0))
+    if name == "wide-gap":
+        x = np.linspace(-6.0, 6.0, 2048)
+        return d.from_pdf_table(
+            x, np.where(np.abs(x) < 1.0, 0.0, np.exp(-0.1 * x * x)))
+    if name == "beta":
+        return d.beta(2.0, 5.0)
+    return {"u6": d.uniform(-6.0, 6.0), "n01": d.normal(0.0, 1.0),
+            "n02": d.normal(0.0, 2.0)}[name]
+
+
+def _custom_spec(spec):
+    if isinstance(spec, dict):
+        return tm.RandomWalk(**spec)
+    if isinstance(spec, str):
+        return _custom_dist(spec)
+    return [_custom_dist(s) for s in spec]
+
+
+_TWALK = dict(step_size=1.0, adapt=True, init_range=(-3.0, 3.0))
+_F1 = [lambda x: x, lambda x: x * x]
+_F2 = [lambda x, y: x * y, lambda x, y: x + y * y]
+# id: (path, fns, target, proposal, temperatures or None, stderr)
+CUSTOM_MCMC_CASES = {
+    "config5": ("1d", _F1, "bimodal", "u6", None, False),
+    "sampler-proposal": ("1d", _F1, "beta", "beta", None, True),
+    "gapped-proposal": ("1d", _F1, "bimodal", "wide-gap", None, False),
+    "walk-table-target": ("1d", _F1, "bimodal", dict(step_size=1.5), None, False),
+    "adaptive-walk-table-target-stderr": ("1d", _F1, "bimodal", _TWALK, None,
+                                          True),
+    "c9f": ("nd", _F2, ["beta", "n01"], ["beta", "n02"], None, True),
+    "nd-gapped-last": ("nd", _F2, ["n01", "bimodal"], ["n02", "wide-gap"], None,
+                       False),
+    "nd-adaptive-walk-table": ("nd", _F2, ["bimodal", "n01"], _TWALK, None,
+                               False),
+    "c12d": ("pt", _F1, "bimodal", "wide", [1.0, 2.0, 4.0, 8.0], True),
+    "pt-adaptive-walk-table-T2": ("pt", _F1, "bimodal", _TWALK, [1.0, 2.0],
+                                  False),
+    "pt-sampler-dimension-T2": ("pt", _F2, ["beta", "n01"], ["beta", "n02"],
+                                [1.0, 2.5], True),
+}
+
+
+def custom_mcmc_setup(case, device, n_steps, n_burnin):
+    """(run kernel, run plain version, cfg, k) of a CUSTOM MCMC case on
+    ``device``, set up as the public path sets it up."""
+    from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+        mcmc_nd_cuda,
+        mcmc_nd_reference,
+    )
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        mcmc_pt_cuda,
+        mcmc_pt_reference,
+    )
+
+    path, fns, target, proposal, temps, stderr = CUSTOM_MCMC_CASES[case]
+    integ = tm.MonteCarloIntegrator(device=device)
+    target, proposal = _custom_spec(target), _custom_spec(proposal)
+    if path == "1d":
+        prog, cfg, params, tables = integ._mcmc_kernel_program(
+            integ._trace_user_functions(fns), target, proposal, n_steps,
+            n_burnin, stderr)
+        return ((lambda g: mcmc_cuda(prog, cfg, params, 42, g, tables)),
+                (lambda g: mcmc_reference(prog.torch_fns, cfg, params, 42, g,
+                                          tables)), cfg, len(fns))
+    parsed = integ._parse_nd_mcmc_args(target, proposal)
+    tables = dim_tables(parsed[0], parsed[1], parsed[3], device)
+    if path == "nd":
+        prog, cfg, params = integ._nd_mcmc_kernel_program(
+            fns, proposal, parsed, n_steps, n_burnin, stderr)
+        return ((lambda g: mcmc_nd_cuda(prog, cfg, params, 42, g, tables)),
+                (lambda g: mcmc_nd_reference(prog.torch_fns, prog.torch_target,
+                                             cfg, params, 42, g, tables)),
+                cfg, len(fns))
+    prog, cfg, params, ladder = integ._pt_kernel_program(
+        fns, proposal, parsed, tuple(1.0 / t for t in temps), n_steps,
+        n_burnin, stderr)
+    return ((lambda g: mcmc_pt_cuda(prog, cfg, params, ladder, 42, g, tables)),
+            (lambda g: mcmc_pt_reference(prog.torch_fns, prog.torch_target,
+                                         cfg, params, ladder, 42, g, tables)),
+            cfg, len(fns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUSTOM_MCMC_CASES))
+def test_custom_mcmc_kernel_matches_plain_version(cuda_device, case):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda, pt_finish
+
+    path = CUSTOM_MCMC_CASES[case][0]
+    kernel, plain, cfg, k = custom_mcmc_setup(case, cuda_device, 1000, 200)
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    wrapper = {"1d": mcmc_cuda, "nd": mcmc_nd_cuda, "pt": mcmc_pt_cuda}[path]
+    before = wrapper.launches
+    got = kernel(grid)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(grid)
+    x_k = got.x_final.reshape(-1, grid.chains_actual).cpu()
+    x_p = want.x_final.reshape(-1, grid.chains_actual).cpu()
+    assert torch.isfinite(x_k).all()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0).float().mean()
+    assert split <= 0.01, f"{float(split):.2%} of the chains split"
+    v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
+    v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
+    _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert abs(float(a_k) - float(a_p)) <= 1e-3
+    np.testing.assert_array_less(
+        (v_k - v_p).abs().cpu().numpy(), (0.2 * se + 1e-6).cpu().numpy())
+    if cfg.with_stderr:
+        np.testing.assert_allclose(s_k.cpu().numpy(), s_p.cpu().numpy(),
+                                   rtol=STDERR_RTOL)
+    if path == "pt":
+        sw_k, sw_p = (float(pt_finish(o, grid, cfg, k)[2]) for o in (got, want))
+        assert abs(sw_k - sw_p) <= 1e-3 and 0.0 < sw_k < 1.0
+
+
+@pytest.mark.cuda
+def test_custom_integrate_mcmc_on_cuda_matches_cpu(cuda_device):
+    # Config 5's public call, scaled down, on the card and on the CPU.
+    kw = dict(n_steps=500, n_chains=2048, n_burnin=100, seed=3,
+              return_stderr=True)
+    before = mcmc_cuda.launches
+    got = tm.integrate_mcmc(_F1, _custom_dist("bimodal"), _custom_dist("u6"),
+                            device=cuda_device, **kw)
+    assert mcmc_cuda.launches == before + 1
+    want = tm.integrate_mcmc(_F1, _custom_dist("bimodal"), _custom_dist("u6"),
+                             device="cpu", **kw)
+    assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
+    np.testing.assert_array_less(np.abs(got.values - want.values),
+                                 0.2 * want.stderr + 1e-6)
+
+
+@pytest.mark.cuda
+def test_custom_mcmc_kernel_rejects_missing_tables(cuda_device):
+    # A table library never runs without its tables, and tables on another
+    # device than the run's are refused.
+    kernel, _, cfg, _ = custom_mcmc_setup("config5", cuda_device, 10, 0)
+    program = McmcProgram((tm.trace_function(lambda x: x),))
+    params = torch.zeros(6, device=cuda_device)
+    with pytest.raises(ValueError, match="one DimTables entry"):
+        mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024))
+    from tpu_montecarlo_torch.api.device import mcmc_dim_tables
+
+    cpu_tables = mcmc_dim_tables(None, _custom_dist("bimodal"), "cpu")
+    with pytest.raises(ValueError, match="lie on cpu"):
+        mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024), cpu_tables)

@@ -17,11 +17,14 @@ Heavy-tailed tables take the port's knot-exact inverse in the kernel
 where the JAX package takes its XLA searchsorted sampler: the Student-t(5)
 second moment is held to 5/3 within the reference's 0.1.
 
-Then the routing this slice leaves to later items: a CUSTOM target or
-proposal in 1-D, nd and tempered MCMC, and a CUSTOM dimension in nd
-integrate, raise naming items 6.6, 8.2, 9.2 and 7.1; and a density whose
-front-end construct the port lacks names item 3 rather than take the
-table route (the reference traces it in closed form).
+Then the routing left to later items: the CUSTOM MCMC workloads that the
+JAX package sends to its XLA sweep rather than its kernels (a heavy-tailed
+proposal, a target table with no uniform grid, a gapped tempered
+proposal) raise naming items 6.8, 8.9 and 9.8, and the JAX package's
+kernel gates refuse the same inputs; a CUSTOM dimension in nd integrate
+raises naming item 7.1; and a density whose front-end construct the port
+lacks names item 3 rather than take the table route (the reference traces
+it in closed form).
 """
 
 import math
@@ -314,25 +317,49 @@ def _beta():
     return D.beta(2.0, 5.0)
 
 
+def _spike(pkg):
+    """A table whose spike no uniform grid of up to 65,536 knots resolves:
+    its log table has no uniform grid."""
+    x = np.concatenate([np.linspace(-2.0, 0.0, 64), [1e-6, 2e-6],
+                        np.linspace(0.01, 2.0, 64)])
+    p = np.concatenate([np.full(64, 0.2), [50.0, 0.2], np.full(64, 0.2)])
+    return pkg.Distribution.from_pdf_table(x, p)
+
+
+def _gapped_wide(pkg):
+    """A proposal with a zero-density gap that the JAX kernel samples
+    (``tests/test_gapped_pallas.py:19``), on a wider support."""
+    x = np.linspace(-6.0, 6.0, 2048)
+    return pkg.Distribution.from_pdf_table(
+        x, np.where(np.abs(x) < 1.0, 0.0, np.exp(-0.1 * x * x)))
+
+
 def _mcmc(**kw):
     fns = kw.pop("fns", [lambda x: x])
     return tm.integrate_mcmc(fns, kw.pop("target"), kw.pop("proposal"), n_steps=10,
                              n_burnin=2, device="cpu", **kw)
 
 
+_F2 = [lambda x, y: x * y]
+_PT = dict(temperatures=[1.0, 2.0])
+
 ROUTING = {
-    "mcmc-custom-target": (lambda: _mcmc(target=_beta(), proposal=_N2), r"item 6\.6"),
-    "mcmc-custom-proposal": (lambda: _mcmc(target=_N, proposal=_beta()), r"item 6\.6"),
-    "mcmc-custom-walk-target": (lambda: _mcmc(target=_beta(), proposal=tm.RandomWalk()),
-                                r"item 6\.6"),
-    "nd-mcmc-custom-target": (lambda: _mcmc(fns=[lambda x, y: x], target=[_N, _beta()],
-                                            proposal=[_N2, _N2]), r"item 8\.2"),
-    "nd-mcmc-custom-proposal": (lambda: _mcmc(fns=[lambda x, y: x], target=[_N, _N],
-                                              proposal=[_N2, _beta()]), r"item 8\.2"),
-    "tempered-custom-target": (lambda: _mcmc(target=_beta(), proposal=tm.RandomWalk(),
-                                             temperatures=[1.0, 2.0]), r"item 9\.2"),
-    "tempered-custom-proposal": (lambda: _mcmc(target=_N, proposal=_beta(),
-                                               temperatures=[1.0, 2.0]), r"item 9\.2"),
+    "mcmc-heavy-proposal": (lambda: _mcmc(target=_N, proposal=D.student_t(5.0)),
+                            r"item 6\.8"),
+    "mcmc-gridless-target": (lambda: _mcmc(target=_spike(tm), proposal=_N2),
+                             r"item 6\.8"),
+    "nd-mcmc-heavy-proposal": (lambda: _mcmc(fns=_F2, target=[_N, _N],
+                                             proposal=[_N2, D.student_t(5.0)]),
+                               r"item 8\.9"),
+    "nd-mcmc-gridless-target": (lambda: _mcmc(fns=_F2, target=[_spike(tm), _N],
+                                              proposal=tm.RandomWalk()),
+                                r"item 8\.9"),
+    "tempered-gapped-proposal": (lambda: _mcmc(target=_N, proposal=_gapped_wide(tm), **_PT),
+                                 r"item 9\.8"),
+    "tempered-heavy-proposal": (lambda: _mcmc(target=_N, proposal=D.student_t(5.0),
+                                              **_PT), r"item 9\.8"),
+    "tempered-gridless-target": (lambda: _mcmc(target=_spike(tm), proposal=tm.RandomWalk(),
+                                               **_PT), r"item 9\.8"),
     "nd-integrate-custom-dimension": (lambda: tm.integrate(
         [lambda x, y: x * y], [_N, _beta()], n_samples=1000, device="cpu"), r"item 7\.1"),
     "while-density-target": (lambda: _is([lambda x: x], D(tm.DistributionType.CUSTOM, {}, _while_pdf),
@@ -348,6 +375,23 @@ def test_left_to_later_items(case):
     call, item = ROUTING[case]
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
         call()
+
+
+def test_the_jax_kernels_refuse_what_the_port_leaves_to_item_6_8():
+    # The JAX package's kernel gates send the MCMC cases above to its XLA
+    # sweep: a heavy-tailed proposal (``_mcmc_pallas_ok``, also the nd and
+    # tempered gates), a target with no uniform-grid log table, and a
+    # gapped proposal under tempering (``_pt_pallas_eligible``).
+    from tpu_montecarlo.api.device import _uniform_log_tables
+    from tpu_montecarlo.api.device import _proposal_kernel_log_tables
+
+    assert j_dist_spec_of(jmc.Distribution.student_t(5.0)).heavy_tail
+    assert _uniform_log_tables(_spike(jmc)) is None
+    gapped = _gapped_wide(jmc)
+    assert j_dist_spec_of(gapped).exact_inverse
+    assert not j_dist_spec_of(gapped).heavy_tail
+    # ... which the 1-D and nd kernels do take (tests/test_torch_mcmc_custom.py).
+    assert _proposal_kernel_log_tables(gapped) is not None
 
 
 def test_while_density_is_traced_by_the_reference():

@@ -392,9 +392,6 @@ def test_program_cache_hits_for_fresh_identical_lambdas():
 
 _T = tm.Distribution.normal(0.0, 1.0)
 _Q = tm.Distribution.normal(0.0, 2.0)
-_CUSTOM = tm.Distribution(tm.DistributionType.CUSTOM, {}, lambda x: 1.0)
-
-
 def _hmc():
     """An HMC proposal object: ``tm.HMC()`` raises (item 6.1), so this
     bypasses its constructor to reach the nd path's own check."""
@@ -443,21 +440,12 @@ NOT_PORTED = {
         lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc()),
         r"item 8\.1",
     ),
-    "nd-custom-dimension": (
-        lambda: _call(fns=[lambda x, y: x], target=[_T, _CUSTOM],
-                      proposal=[_Q, _Q]),
-        r"item 8\.2",
-    ),
     "128-functions": (
         lambda: _call(fns=[f for c in range(128) for f in _make_fns(float(c))]),
         r"item 6\.7",
     ),
     "extended-family": (
         lambda: _call(target=tm.Distribution.cauchy(0.0, 1.0)), "item 2"
-    ),
-    "custom-table": (
-        lambda: _call(target=tm.Distribution.from_pdf(lambda x: 1.0)),
-        r"item 6\.6",
     ),
     "mesh": (lambda: tm.integrate_mcmc([lambda x: x], _T, _Q, mesh="auto"),
              "item 12"),

@@ -495,7 +495,7 @@ def test_out_of_scope_options_name_their_roadmap_items():
     integ = tm.MonteCarloIntegrator(device="cpu")
     f2 = [lambda x, y: x * y]
     n = tm.Distribution.normal(0.0, 1.0)
-    custom = tm.Distribution(tm.DistributionType.CUSTOM, {}, lambda x: 1.0)
+    heavy = tm.Distribution.student_t(5.0)  # a knot-exact, heavy-tailed table
     cauchy = tm.Distribution(tm.DistributionType.CAUCHY, {}, lambda x: 1.0)
     wide = [(lambda c: lambda x, y: x + c)(float(c)) for c in range(128)]
     kw = dict(n_steps=10, n_burnin=2)
@@ -505,7 +505,7 @@ def test_out_of_scope_options_name_their_roadmap_items():
 
     cases = {
         r"item 8\.1 ": lambda: run(proposal=_hmc()),
-        r"item 8\.2 ": lambda: run(target=(n, custom)),
+        r"item 8\.9 ": lambda: run(proposal=(n, heavy)),
         r"item 8\.3 ": lambda: run(return_samples=5),
         r"item 8\.4 ": lambda: run(return_diagnostics=True),
         r"item 8\.5 ": lambda: run(initial_state=object()),

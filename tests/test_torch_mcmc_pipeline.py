@@ -283,8 +283,10 @@ def test_sources_compile_in_mode_families_and_layout():
     walk = McmcConfig(Mode.ADAPTIVE, e, n, 10, 2)
     src = program.source(walk)
     assert "TMC_PROP_KIND" not in src and "#define TMC_LANES 1\n" in src
-    assert indep.compiled == (Mode.INDEPENDENCE, e, n)
-    assert walk.compiled == (Mode.ADAPTIVE, None, n)
+    # Only a CUSTOM proposal compiles in its route (gapped or sampler).
+    assert "TMC_PROP_GAPPED" not in program.source(indep) + src
+    assert indep.compiled == (Mode.INDEPENDENCE, e, n, False)
+    assert walk.compiled == (Mode.ADAPTIVE, None, n, False)
     # A fixed layout is checked against each mode it is asked for.
     fixed = McmcProgram(program.fns, layout=(2, 3))
     assert "#define TMC_LANES 2\n#define TMC_GROUP 3\n" in fixed.source(indep)

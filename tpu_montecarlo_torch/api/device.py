@@ -1,11 +1,17 @@
 """Table staging for CUSTOM distributions and importance weights (port of
 the table half of ``tpu_montecarlo/api/device.py``).
 
-Per-Distribution caches of the host tables the 1-D integrate kernel reads
-(the stratified or gap-respecting inverse tables, the CDF knots of the
-knot-exact route, the uniform-grid pdf tables of importance weights) and
-of their device copies.  The JAX package's VMEM gates and byte accounting
-are not carried over: the card reads the tables from global memory.
+Per-Distribution caches of the host tables the kernels read and of their
+device copies: for the 1-D integrate kernel the stratified or
+gap-respecting inverse tables, the CDF knots of the knot-exact route and
+the uniform-grid pdf tables of importance weights; for the three MCMC
+kernels the downsampled flat inverse of a proposal (or its flat
+gap-respecting tables), the guarded and downsampled log table of a gapped
+proposal and the downsampled log table of a target
+(:func:`mcmc_dim_tables`).  The downsampling is kept: it defines the
+tables the JAX kernel samples, so the chains are the same.  The JAX
+package's VMEM gates and byte accounting are not carried over: the card
+reads the tables from global memory.
 """
 
 from __future__ import annotations
@@ -19,32 +25,211 @@ from ..ops.integrate_kernel import (
     StrataTables,
     prep_inv_table_stratified,
 )
+from ..ops.mcmc_tables import DimTables, InverseTable, log_table, prep_inv_table
+from ..sampling import DistKind, dist_spec_of
 from ..tables import (
+    downsample_log_table,
     downsample_pdf_table,
     find_zero_density_gaps,
+    gapped_inverse_tables,
     gapped_stratified_tables,
+    guard_proposal_log_floor,
     is_uniform_grid,
+    log_pdf_from_pdf,
     resample_uniform_table,
 )
 
-__all__ = ["sampling_tables"]
+__all__ = [
+    "mcmc_dim_tables",
+    "mcmc_proposal_route",
+    "mcmc_target_tables_ok",
+    "sampling_tables",
+]
 
 
-def _device_gapped_tables(distribution, spec):
-    """Gap-respecting (STRATA, 128) stratified (value, slope) tables of an
-    ``exact_inverse`` CUSTOM distribution, float32 numpy, cached per
-    Distribution (``tpu_montecarlo/api/device.py:93-133``, stratified, at
-    the kernel's 256 // 8 strata): each gap's jump sits at a knot, so no
-    draw lands inside a gap."""
-    cached = getattr(distribution, "_device_gapped", None)
-    if cached is None:
+def _device_gapped_tables(distribution, spec, stratified: bool = True):
+    """Gap-respecting (value, slope) tables of an ``exact_inverse`` CUSTOM
+    distribution, float32 numpy, cached per Distribution
+    (``tpu_montecarlo/api/device.py:93-133``): ``stratified``, (STRATA,
+    128) tables at the integrate kernel's 256 // 8 strata; else the flat
+    m-knot tables of an MCMC proposal.  Each gap's jump sits at a knot, so
+    no draw lands inside a gap."""
+    cache = distribution.__dict__.setdefault("_device_gapped_cache", {})
+    if stratified not in cache:
         _, pdf_vals = distribution.get_or_compute_pdf_table()
         gaps = find_zero_density_gaps(spec.x_table, spec.cdf_table, pdf_vals)
-        cached = gapped_stratified_tables(
-            spec.x_table, spec.cdf_table, gaps, segments=STRATA
-        )
-        distribution._device_gapped = cached
+        if stratified:
+            cache[stratified] = gapped_stratified_tables(
+                spec.x_table, spec.cdf_table, gaps, segments=STRATA
+            )
+        else:
+            cache[stratified] = gapped_inverse_tables(
+                spec.x_table, spec.cdf_table, gaps
+            )
+    return cache[stratified]
+
+
+def _mcmc_prop_inverse(distribution, spec):
+    """The downsampled inverse-CDF table of a non-gapped CUSTOM proposal
+    under sampler-mode logq, float32 numpy, cached per Distribution
+    (``tpu_montecarlo/api/device.py:47-90``): the smallest power-of-two
+    u-grid of at least 256 knots whose resampled inverse stays within
+    2e-4 of the support's span in Wasserstein-1 distance of the full
+    table's sampler, else the full table.  Sampler mode takes the draw's
+    own density, so the chain keeps its target at any resolution."""
+    cached = getattr(distribution, "_mcmc_inv_table", None)
+    if cached is None:
+        x = np.asarray(spec.x_table, np.float64)
+        m = x.shape[0]
+        u_full = np.linspace(0.0, 1.0, m)
+        span = float(x[-1] - x[0])
+        tol = 2e-4 * span if span > 0 else 0.0
+        best = x
+        size = 256
+        while size < m:
+            u_c = np.linspace(0.0, 1.0, size)
+            x_c = np.interp(u_full, u_c, np.interp(u_c, u_full, x))
+            if np.trapezoid(np.abs(x_c - x), u_full) <= tol:
+                best = np.interp(u_c, u_full, x)
+                break
+            size *= 2
+        cached = np.asarray(best, np.float32)
+        distribution._mcmc_inv_table = cached
     return cached
+
+
+def _uniform_log_tables(distribution):
+    """(x, log pdf) tables on a uniform grid for the MCMC kernels' lookups
+    (``tpu_montecarlo/api/device.py:158-184``): a uniform grid passes
+    through; an irregular one resamples the pdf within the error bound
+    (:func:`_uniform_table_mode`) and takes the logs after.  None when the
+    bound cannot be met (the JAX package then runs its XLA sweep).  Cached
+    per Distribution."""
+    lx, lp = distribution.get_log_pdf_table()
+    if is_uniform_grid(lx):
+        return lx, lp
+    cached = getattr(distribution, "_uniform_log_tables", False)
+    if cached is False:
+        mode = _uniform_table_mode(
+            distribution,
+            ("table",) + tuple(distribution.get_or_compute_pdf_table()),
+        )
+        cached = None if mode is None else (mode[1], log_pdf_from_pdf(mode[2]))
+        distribution._uniform_log_tables = cached
+    return cached
+
+
+def _proposal_kernel_log_tables(distribution):
+    """The uniform-grid log tables fit to serve as a gapped MCMC
+    proposal's q-table, or None (``tpu_montecarlo/api/device.py:187-229``):
+    resample an irregular grid, hold the guarded resample within 0.01 nats
+    of the guarded original at the union of both knot sets (away from the
+    floor), guard the floor edges (``guard_proposal_log_floor``), then
+    downsample strictly.  Cached per Distribution."""
+    cached = getattr(distribution, "_prop_kernel_log_tables", False)
+    if cached is not False:
+        return cached
+    lx, lp = distribution.get_log_pdf_table()
+    result = None
+    uniform = _uniform_log_tables(distribution)
+    if uniform is not None:
+        ulx, ulp = uniform
+        ok = True
+        if ulx is not lx:
+            gorig = guard_proposal_log_floor(lp)
+            gulp = guard_proposal_log_floor(ulp)
+            probe = np.union1d(np.asarray(lx), np.asarray(ulx))
+            a = np.interp(probe, lx, gorig)
+            b = np.interp(probe, ulx, gulp)
+            mask = a > -90.0
+            ok = not np.any(np.abs(b - a)[mask] > 0.01)
+            ulp = gulp
+        else:
+            ulp = guard_proposal_log_floor(ulp)
+        if ok:
+            result = downsample_log_table(ulx, ulp, strict=True)
+    distribution._prop_kernel_log_tables = result
+    return result
+
+
+def _device_uniform_log_tables(distribution, role: str = "target"):
+    """The MCMC kernels' log table of ``role``, float32 numpy, cached per
+    Distribution and role (``tpu_montecarlo/api/device.py:232-256``): a
+    target's uniform log table downsampled within the density-weighted
+    bound (``downsample_log_table``), a gapped proposal's through
+    :func:`_proposal_kernel_log_tables`."""
+    attr = ("_device_log_tables_u" if role == "target"
+            else "_device_log_tables_uq")
+    cached = getattr(distribution, attr, None)
+    if cached is None:
+        if role == "target":
+            lx, lp = downsample_log_table(*_uniform_log_tables(distribution))
+        else:
+            lx, lp = _proposal_kernel_log_tables(distribution)
+        cached = (np.asarray(lx, np.float32), np.asarray(lp, np.float32))
+        setattr(distribution, attr, cached)
+    return cached
+
+
+def mcmc_proposal_route(distribution):
+    """How the MCMC kernels draw from a CUSTOM proposal, as the JAX
+    package's ``_mcmc_pallas_ok`` (``tpu_montecarlo/api/mcmc.py:454-500``)
+    routes a stateless run: ``"sampler"`` (a lane-multiple inverse table,
+    sampler-mode logq), ``"gapped"`` (gap-respecting tables and a faithful
+    q-table), or None where the JAX package runs its XLA sweep (a heavy
+    tail, an inverse of another length, a gapped proposal with no
+    faithful q-table)."""
+    spec = dist_spec_of(distribution)
+    if spec.heavy_tail:
+        return None
+    if spec.exact_inverse:
+        if _proposal_kernel_log_tables(distribution) is None:
+            return None
+        return "gapped"
+    if spec.x_table is None or spec.x_table.shape[0] % 128 != 0:
+        return None
+    return "sampler"
+
+
+def mcmc_target_tables_ok(distribution) -> bool:
+    """Whether a CUSTOM target has the uniform-grid log table the MCMC
+    kernels read (the JAX package's gate)."""
+    return _uniform_log_tables(distribution) is not None
+
+
+def mcmc_dim_tables(proposal, target, device):
+    """One dimension's :class:`DimTables` on ``device`` for a proposal
+    (a Distribution, or None for a walk) and a target (a Distribution, or
+    None for a joint log density), or None when neither is CUSTOM.  The
+    caller has routed the proposal (:func:`mcmc_proposal_route`) and the
+    target.  Device copies are cached per Distribution, role and
+    device."""
+    key = str(torch.device(device))
+
+    def staged(dist, role, make):
+        cache = dist.__dict__.setdefault("_mcmc_device_tables", {})
+        if (role, key) not in cache:
+            cache[role, key] = make()
+        return cache[role, key]
+
+    inv = q = targ = None
+    if proposal is not None and dist_spec_of(proposal).kind == DistKind.CUSTOM:
+        spec = dist_spec_of(proposal)
+        if spec.exact_inverse:
+            inv = staged(proposal, "inv", lambda: InverseTable.of(
+                *_device_gapped_tables(proposal, spec, stratified=False),
+                device))
+            q = staged(proposal, "q", lambda: log_table(
+                *_device_uniform_log_tables(proposal, "proposal"), device))
+        else:
+            inv = staged(proposal, "inv", lambda: InverseTable.of(
+                *prep_inv_table(_mcmc_prop_inverse(proposal, spec)), device))
+    if target is not None and dist_spec_of(target).kind == DistKind.CUSTOM:
+        targ = staged(target, "targ", lambda: log_table(
+            *_device_uniform_log_tables(target), device))
+    if inv is None and targ is None:
+        return None
+    return DimTables(inv, q, targ)
 
 
 def sampling_tables(distribution, spec, device, with_pdf: bool = False):

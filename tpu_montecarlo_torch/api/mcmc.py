@@ -2,7 +2,8 @@
 ``integrate_mcmc`` with independence, random-walk and adaptive
 random-walk proposals, with error bars on request, over one dimension
 (``ops/mcmc_kernel.py``) or d (``api/mcmc_nd.py``), and tempered over a
-ladder of temperatures (``api/tempering.py``).
+ladder of temperatures (``api/tempering.py``), under the closed-form
+families and CUSTOM tables (``api/device.py`` stages them).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
@@ -15,7 +16,7 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
-from ..distributions import HMC, DistributionType, RandomWalk
+from ..distributions import HMC, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     McmcConfig,
@@ -29,18 +30,19 @@ from ..ops.mcmc_kernel import (
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
     MCMC_DIAGNOSTICS,
-    MCMC_FAMILIES,
     MCMC_HMC,
     MCMC_SAMPLES,
     MCMC_SERVING,
     MCMC_STATE,
+    MCMC_TABLES_XLA,
     MCMC_WIDE,
     ND_MCMC_SERVING,
     PT_SERVING,
     not_ported,
 )
 from .cache import fns_key
-from .mcmc_nd import is_nd_call
+from .device import mcmc_dim_tables
+from .mcmc_nd import _table_routes, is_nd_call
 from .results import IntegrationResult
 
 
@@ -113,10 +115,19 @@ class _McmcMixin:
         accepted share of the attempted exchanges.  Takes the proposals
         and targets above, with error bars; at most 126 functions.
 
+        CUSTOM tables (``from_pdf``, ``beta``, ``mixture``, ...) run in
+        the kernels as the JAX package's kernels run them: a target's
+        downsampled log table; a proposal's downsampled inverse table
+        with the sampler's own density (or, for a density with
+        zero-density gaps, gap-respecting tables and a guarded log
+        table).
+
         Not ported yet, each raising ``NotImplementedError`` naming its
         ROADMAP item: ``initial_state``/``return_state``,
         ``return_diagnostics``, ``return_samples``, HMC (tempered too),
-        CUSTOM and extended families, more than 127 functions.
+        the extended families, the CUSTOM tables the JAX package sends to
+        its XLA sweep (heavy-tailed proposals, tables with no uniform
+        grid), more than 127 functions.
         """
         if len(functions) == 0:
             raise ValueError("At least one function is required")
@@ -213,23 +224,40 @@ class _McmcMixin:
         with_stderr,
     ):
         """(values, acceptance rate, stderr or None) as numpy/float."""
-        for dist in (target, proposal):
-            if getattr(dist, "dist_type", None) == DistributionType.CUSTOM:
-                raise not_ported("MCMC over CUSTOM target and proposal "
-                                 "tables", MCMC_FAMILIES)
+        program, cfg, params, tables = self._mcmc_kernel_program(
+            traced, target, proposal, n_steps, n_burnin, with_stderr)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        out = mcmc_cuda(program, cfg, params, seed, grid, tables)
+        values, acceptance, stderr = mcmc_finish(out, grid, cfg, len(traced))
+        return (
+            values.cpu().numpy(),
+            float(acceptance),
+            None if stderr is None else stderr.cpu().numpy(),
+        )
+
+    def _mcmc_kernel_program(self, traced, target, proposal, n_steps,
+                             n_burnin, with_stderr):
+        """``(program, cfg, params, tables)`` of one 1-D run: the cached
+        :class:`McmcProgram`, its config (mode, families and a CUSTOM
+        proposal's route, as the JAX kernel gate routes them), the (6,)
+        float32 parameter row and the CUSTOM tables (None without one) on
+        the integrator's device."""
         targ = dist_spec_of(target)
         if isinstance(proposal, RandomWalk):
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
             prop_kind = targ.kind
             prop_row = list(proposal.pack_params(target))
+            proposal, prop_specs = None, ()
         else:
             mode = Mode.INDEPENDENCE
             prop = dist_spec_of(proposal)
             prop_kind = prop.kind
             prop_row = [*prop.params, 0.0, 0.0]
+            prop_specs = (prop,)
+        gapped = _table_routes((proposal,), prop_specs, (target,), (targ,),
+                               "MCMC", MCMC_TABLES_XLA)
         cfg = McmcConfig(mode, prop_kind, targ.kind, n_steps, n_burnin,
-                         with_stderr)
-        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+                         with_stderr, prop_gapped=any(gapped))
         program = self._cache.get_or_build(
             ("mcmc", fns_key(traced)), lambda: McmcProgram(traced)
         )
@@ -237,10 +265,5 @@ class _McmcMixin:
             [*prop_row, *targ.params], dtype=torch.float32,
             device=self._device,
         )
-        out = mcmc_cuda(program, cfg, params, seed, grid)
-        values, acceptance, stderr = mcmc_finish(out, grid, cfg, len(traced))
-        return (
-            values.cpu().numpy(),
-            float(acceptance),
-            None if stderr is None else stderr.cpu().numpy(),
-        )
+        return (program, cfg, params,
+                mcmc_dim_tables(proposal, target, self._device))

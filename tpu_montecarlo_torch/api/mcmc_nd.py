@@ -26,25 +26,27 @@ from ..ops.mcmc_kernel import (
     plan_mcmc_grid,
 )
 from ..ops.mcmc_nd_kernel import McmcNdConfig, McmcNdProgram, mcmc_nd_cuda
-from ..sampling import dist_spec_of
+from ..sampling import DistKind, dist_spec_of
 from ..utils.roadmap import (
     FRONT_END,
-    ND_MCMC_CUSTOM,
     ND_MCMC_DIAGNOSTICS,
     ND_MCMC_FAMILIES,
     ND_MCMC_HMC,
     ND_MCMC_SAMPLES,
     ND_MCMC_STATE,
+    ND_MCMC_TABLES_XLA,
     ND_MCMC_WIDE,
     not_ported,
 )
 from .cache import fns_key
+from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
 from .results import IntegrationResult
 
 _PORTED_TYPES = (
     DistributionType.UNIFORM,
     DistributionType.NORMAL,
     DistributionType.EXPONENTIAL,
+    DistributionType.CUSTOM,
 )
 
 
@@ -96,20 +98,52 @@ def _target_arity(target) -> int:
     )
 
 
-def _dim_specs(dists, what="nd MCMC", custom_item=ND_MCMC_CUSTOM,
-               families_item=ND_MCMC_FAMILIES):
+def _dim_specs(dists, what="nd MCMC", families_item=ND_MCMC_FAMILIES):
     """Packed specs of MCMC dimensions; the families the kernel does not
     take yet raise, naming their ROADMAP item (``what`` names the path in
     the message)."""
     for dd in dists:
-        if dd.dist_type == DistributionType.CUSTOM:
-            raise not_ported(f"CUSTOM dimensions in {what}", custom_item)
         if dd.dist_type not in _PORTED_TYPES:
             raise not_ported(
                 f"{dd.dist_type.name.lower()} dimensions in {what}",
                 families_item,
             )
     return [dist_spec_of(dd) for dd in dists]
+
+
+def _table_routes(proposals, prop_specs, targets, targ_specs, what, item,
+                  gapped_ok=True):
+    """The CUSTOM dimensions' routes as the JAX package's kernel gates
+    take them (``tpu_montecarlo/api/mcmc_nd.py:198-219``, and
+    ``api/tempering.py:330-426`` with ``gapped_ok=False``): per proposal
+    dimension whether it is gapped (``()`` for a walk).  What the JAX
+    package sends to its XLA sweep raises, naming ``item``: a heavy-tailed
+    proposal or one with no faithful table, a gapped one where
+    ``gapped_ok`` is False, a target with no uniform-grid log table."""
+    for t, s in zip(targets or (), targ_specs or ()):
+        if s.kind == DistKind.CUSTOM and not mcmc_target_tables_ok(t):
+            raise not_ported(f"a CUSTOM target table with no uniform grid "
+                             f"in {what}", item)
+    gapped = []
+    for p, s in zip(proposals or (), prop_specs or ()):
+        route = mcmc_proposal_route(p) if s.kind == DistKind.CUSTOM else None
+        if s.kind == DistKind.CUSTOM and (
+                route is None or (route == "gapped" and not gapped_ok)):
+            raise not_ported(
+                f"a heavy-tailed{'' if gapped_ok else ', gapped'} or "
+                f"unfaithful CUSTOM proposal table in {what}", item)
+        gapped.append(route == "gapped")
+    return tuple(gapped)
+
+
+def dim_tables(proposals, targets, d, device):
+    """Per dimension, the tables of its CUSTOM proposal and target on
+    ``device`` (``api/device.py``), or None where no dimension is
+    CUSTOM."""
+    tables = [mcmc_dim_tables(None if proposals is None else proposals[j],
+                              None if targets is None else targets[j], device)
+              for j in range(d)]
+    return None if all(t is None for t in tables) else tables
 
 
 class _McmcNdMixin:
@@ -219,21 +253,25 @@ class _McmcNdMixin:
             functions, proposal, (proposals, targets, target_fn, d),
             n_steps, n_burnin, return_stderr,
         )
+        tables = dim_tables(proposals, targets, d, self._device)
         return self._run_mcmc_nd(
-            program, cfg, params, seed, n_chains, len(functions)
+            program, cfg, params, tables, seed, n_chains, len(functions)
         )
 
     def _nd_mcmc_kernel_program(
         self, functions, proposal, parsed, n_steps, n_burnin, return_stderr
     ):
         """``(program, cfg, params)`` of one nd run: the cached
-        :class:`McmcNdProgram` (per integrands, target, mode and
-        families), its config and the (d, 6) float32 parameter rows on
-        the integrator's device.  ``parsed`` is
+        :class:`McmcNdProgram` (per integrands, target, mode, families
+        and CUSTOM routes), its config and the (d, 6) float32 parameter
+        rows on the integrator's device (:func:`dim_tables` stages the
+        CUSTOM dimensions' tables).  ``parsed`` is
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
         proposals, targets, target_fn, d = parsed
         prop_specs = None if proposals is None else _dim_specs(proposals)
         targ_specs = None if targets is None else _dim_specs(targets)
+        gapped = _table_routes(proposals, prop_specs, targets, targ_specs,
+                               "nd MCMC", ND_MCMC_TABLES_XLA)
         traced = self._trace_user_functions(functions, n_args=d)
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
@@ -246,7 +284,7 @@ class _McmcNdMixin:
             mode, d,
             () if prop_specs is None else tuple(s.kind for s in prop_specs),
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
-            n_steps, n_burnin, return_stderr,
+            n_steps, n_burnin, return_stderr, gapped,
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
@@ -279,10 +317,11 @@ class _McmcNdMixin:
         )
         return mode, params
 
-    def _run_mcmc_nd(self, program, cfg, params, seed, n_chains, n_functions):
+    def _run_mcmc_nd(self, program, cfg, params, tables, seed, n_chains,
+                     n_functions):
         """One nd run on the kernel (a CPU integrator: its plain version)."""
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_nd_cuda(program, cfg, params, seed, grid)
+        out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables)
         values, acceptance, stderr = mcmc_finish(
             out, grid, cfg, len(program.fns)
         )

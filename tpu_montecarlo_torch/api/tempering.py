@@ -26,22 +26,22 @@ from ..ops.mcmc_pt_kernel import (
     pt_finish,
 )
 from ..utils.roadmap import (
-    PT_CUSTOM,
     PT_DIAGNOSTICS,
     PT_FAMILIES,
     PT_HMC,
     PT_SAMPLES,
+    PT_TABLES_XLA,
     PT_WIDE,
     not_ported,
 )
 from .cache import fns_key
 from .mcmc import _check_random_walk_args
-from .mcmc_nd import _dim_specs
+from .mcmc_nd import _dim_specs, _table_routes, dim_tables
 from .results import IntegrationResult
 
 
 def _pt_dim_specs(dists):
-    return _dim_specs(dists, "tempered MCMC", PT_CUSTOM, PT_FAMILIES)
+    return _dim_specs(dists, "tempered MCMC", PT_FAMILIES)
 
 
 class _PtMixin:
@@ -102,8 +102,9 @@ class _PtMixin:
             functions, proposal, parsed, betas, n_steps, n_burnin,
             return_stderr,
         )
+        tables = dim_tables(parsed[0], parsed[1], parsed[3], self._device)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid)
+        out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid, tables)
         values, acceptance, swap_rate, stderr = pt_finish(
             out, grid, cfg, len(program.fns)
         )
@@ -124,8 +125,11 @@ class _PtMixin:
         cached :class:`McmcPtProgram` (per integrands, target, mode, rungs
         and families), its config, the (d, 6) float32 parameter rows and
         the (2T - 1,) float32 ladder of ``betas`` on the integrator's
-        device.  ``parsed`` is :meth:`_parse_nd_mcmc_args`'s result for
-        ``proposal``."""
+        device (``api/mcmc_nd.py``'s ``dim_tables`` stages the CUSTOM
+        dimensions' tables).  CUSTOM proposal dimensions run in sampler
+        mode only: the JAX package sends gapped and heavy-tailed ones to
+        its XLA sweep, and the port raises.  ``parsed`` is
+        :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
         proposals, targets, target_fn, d = parsed
         traced = self._trace_user_functions(functions, n_args=d)
         if len(traced) > MAX_PT_FUNCTIONS:
@@ -135,6 +139,8 @@ class _PtMixin:
             )
         prop_specs = None if proposals is None else _pt_dim_specs(proposals)
         targ_specs = None if targets is None else _pt_dim_specs(targets)
+        _table_routes(proposals, prop_specs, targets, targ_specs,
+                      "tempered MCMC", PT_TABLES_XLA, gapped_ok=False)
         mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
                                             targ_specs)
         cfg = McmcPtConfig(

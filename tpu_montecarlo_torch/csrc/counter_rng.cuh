@@ -11,6 +11,12 @@
 // float32 operation order (sampling.normal_from_u01, the exponential
 // inverse transform, the uniform's clamp below its open bound), and
 // tmc::log_pdf the MCMC kernels' closed-form log densities.
+//
+// The CUSTOM family's table primitives follow: a table read (tmc::ldg),
+// the flat inverse-CDF draw with its slope, the padded uniform-grid
+// table's lookup, and the MCMC kernels' per-dimension table references
+// (TableRef, McmcTables) with their draw, sampler-mode density and log
+// table lookup, each as ops/mcmc_tables.py's plain version computes it.
 #pragma once
 
 #include <cstdint>
@@ -25,7 +31,7 @@ constexpr float kSqrt2 = 1.41421353816986083984375f;  // float32(sqrt 2)
 constexpr float kSqrt2Pi = 2.5066282749176025390625f;  // float32(2.50662827463)
 constexpr float kLogPdfFloor = -100.0f;
 
-enum Kind { kUniform = 0, kNormal = 1, kExponential = 2 };
+enum Kind { kUniform = 0, kNormal = 1, kExponential = 2, kCustom = 3 };
 
 __device__ __forceinline__ uint32_t pcg(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -112,6 +118,89 @@ __device__ __forceinline__ float log_pdf(int kind, float p1, float p2,
     return -0.5f * z * z - logf(p2 * kSqrt2Pi);
   }
   return x >= 0.0f ? logf(p1) - p1 * x : kLogPdfFloor;
+}
+
+// -- CUSTOM tables --------------------------------------------------------
+
+// A table read: through the read-only data cache on the card, a plain read
+// in host builds (the CPU tests compile the lookups with g++).
+__device__ __forceinline__ float ldg(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// The flat inverse-CDF table t of n knots (with dt its forward
+// differences, or a gapped table's slopes) at the [0, 1) uniform of the
+// mantissa m: pos = u * (n - 1), i0 = clamp(int(pos), 0, n - 2), x = t[i0]
+// + (pos - i0) * dt[i0]; `slope` gets dt[i0] (ops/mcmc_tables.py
+// inverse_draw; mcmc_pallas.py:243-261).
+__device__ __forceinline__ float inverse_table_x(uint32_t m, const float* t,
+                                                 const float* dt, int n,
+                                                 float& slope) {
+  const float pos = halfopen01(m) * float(n - 1);
+  const int p0 = int(pos);
+  const int i0 = p0 < 0 ? 0 : (p0 > n - 2 ? n - 2 : p0);
+  const float frac = pos - float(i0);
+  slope = ldg(dt + i0);
+  return ldg(t + i0) + frac * slope;
+}
+
+// A padded uniform-grid table (n values, forward differences dx) at x:
+// pos = (x - x0) / step (a true division), i0 = clamp(int(pos), 0, n - 2),
+// vals[i0] + clamp(pos - i0, 0, 1) * dx[i0]; `outside` off [x0, x_max]
+// (integrate_pallas.py uniform_table_value: 0 for a pdf, -100 for a log
+// pdf).
+__device__ __forceinline__ float grid_table_value(float x, const float* vals,
+                                                  const float* dx, float x0,
+                                                  float step, float x_max,
+                                                  int n, float outside) {
+  const float pos = (x - x0) / step;
+  const int p0 = int(pos);
+  const int i0 = p0 < 0 ? 0 : (p0 > n - 2 ? n - 2 : p0);
+  const float frac = fminf(fmaxf(pos - float(i0), 0.0f), 1.0f);
+  const float val = ldg(vals + i0) + frac * ldg(dx + i0);
+  return (x >= x0 && x <= x_max) ? val : outside;
+}
+
+// One CUSTOM table of an MCMC kernel (ops/mcmc_tables.py _TableRef): a
+// proposal's flat inverse (v the n knots, d their forward differences or
+// gap slopes, log_m1 = float32(log(n - 1))), or a uniform-grid log table
+// (v the n padded values, d their forward differences, x0, step, x_max).
+struct TableRef {
+  const float* v;
+  const float* d;
+  float x0, step, x_max, log_m1;
+  int n;
+};
+
+// A launch's tables, per dimension j: the CUSTOM proposal's inverse, a
+// gapped proposal's log table and the CUSTOM target's log table (null
+// where the dimension has none).  Passed by value.
+template <int D>
+struct McmcTables {
+  TableRef inv[D], q[D], targ[D];
+};
+
+// A CUSTOM proposal's draw at the mantissa m; `slope` gets its slope.
+__device__ __forceinline__ float table_draw(const TableRef& t, uint32_t m,
+                                            float& slope) {
+  return inverse_table_x(m, t.v, t.d, t.n, slope);
+}
+
+// The sampler's own log density at a draw of slope `slope` (sampler mode,
+// the JAX kernel's float32 order): -logf(max(slope, 1e-30)) - log_m1.
+__device__ __forceinline__ float sampler_logq(const TableRef& t,
+                                              float slope) {
+  return -logf(fmaxf(slope, 1e-30f)) - t.log_m1;
+}
+
+// A log table at x, kLogPdfFloor off its grid.
+__device__ __forceinline__ float table_log_pdf(const TableRef& t, float x) {
+  return grid_table_value(x, t.v, t.d, t.x0, t.step, t.x_max, t.n,
+                          kLogPdfFloor);
 }
 
 }  // namespace tmc

@@ -35,9 +35,9 @@
 //   key <= u) and linear interpolation, the knot-exact inverse CDF;
 // * uniform_table_value: a padded uniform-grid pdf table, 0 off its grid.
 //
-// Tables are read with __ldg (tmc::ldg) from global memory: (32, 128)
-// float32 strata tables are 16 KB each and stay in L1; staging them in
-// shared memory is left for later.
+// Tables are read with __ldg (tmc::ldg, counter_rng.cuh) from global
+// memory: (32, 128) float32 strata tables are 16 KB each and stay in L1;
+// staging them in shared memory is left for later.
 #pragma once
 
 #include <cstdint>
@@ -124,22 +124,10 @@ __device__ __forceinline__ void transform_pair_top(int kind, uint32_t top,
   }
 }
 
-constexpr int kCustom = 3;  // DistKind.CUSTOM
 constexpr int kStrata = 32;  // strata of a 256-row tile (STRATA)
 // A position's stratum: pos >> kStratumShift = (pos / 128) / (256 / 32).
 constexpr int kStratumShift = 10;
 constexpr float kW127 = 127.0f * kInv2Pow32;  // exact
-
-// A table read: through the read-only data cache on the card, a plain
-// read in host builds (tests/test_torch_custom.py compiles these lookups
-// with g++).
-__device__ __forceinline__ float ldg(const float* p) {
-#ifdef __CUDA_ARCH__
-  return __ldg(p);
-#else
-  return *p;
-#endif
-}
 
 // One importance-weight density's table (ops/integrate_kernel.py
 // _WeightTab): a padded uniform-grid table (vals, dx, x0, step, x_max, n
@@ -205,17 +193,11 @@ __device__ __forceinline__ float knot_interp(float u, const float* keys,
   return v0 + fminf(fmaxf(t, 0.0f), 1.0f) * (ldg(vals + i + 1) - v0);
 }
 
-// A padded uniform-grid table at x: pos = (x - x0) / step (a true
-// division), i0 = clamp(int(pos), 0, n - 2), vals[i0] + clamp(pos - i0,
-// 0, 1) * dx[i0]; 0 off [x0, x_max].
+// A padded uniform-grid table at x (tmc::grid_table_value), 0 off
+// [x0, x_max].
 __device__ __forceinline__ float uniform_table_value(float x,
                                                      const WeightTab& t) {
-  const float pos = (x - t.x0) / t.step;
-  const int p0 = int(pos);
-  const int i0 = p0 < 0 ? 0 : (p0 > t.n - 2 ? t.n - 2 : p0);
-  const float frac = fminf(fmaxf(pos - float(i0), 0.0f), 1.0f);
-  const float val = ldg(t.vals + i0) + frac * ldg(t.dx + i0);
-  return (x >= t.x0 && x <= t.x_max) ? val : 0.0f;
+  return grid_table_value(x, t.vals, t.dx, t.x0, t.step, t.x_max, t.n, 0.0f);
 }
 
 // An irregular-grid table at x: knot_interp, 0 off [x0, x_max].

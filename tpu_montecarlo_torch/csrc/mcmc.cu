@@ -4,7 +4,8 @@
 // (tpu_montecarlo/ops/mcmc_pallas.py:387, kernel at :612-1007, pallas_call
 // at :1095) in its independence, random-walk and adaptive random-walk
 // modes, with and without error bars, for the uniform, normal and
-// exponential families.
+// exponential families and CUSTOM tables (a table target; a table
+// proposal in sampler mode or gapped).
 // Under the JAX package's CounterRng (the interpreter's stream) it runs
 // the very chains that kernel runs:
 //
@@ -18,6 +19,12 @@
 // * log_alpha = logp' + logq - logp - logq' (independence) or logp' -
 //   logp (walk), accepted when logf(u) < log_alpha; the chain carries
 //   logp and logq and replaces them only on acceptance;
+// * a CUSTOM proposal draws from its flat inverse table with the same
+//   counters, x = t[i0] + frac * dt[i0] at pos = u * (m - 1), and takes
+//   logq from its own slope, -logf(max(dt[i0], 1e-30)) - log(m - 1)
+//   (sampler mode), or, gapped, from its guarded log table at x; a CUSTOM
+//   target's logp is its log table at x, -100 off its grid (the shared
+//   lookups of counter_rng.cuh, ops/mcmc_tables.py);
 // * the adaptive walk updates its log step through burn-in by
 //   Robbins-Monro, gamma = expf(-0.6f * logf(i + 1)), clipped to
 //   +-13.815511, and freezes it for sampling;
@@ -35,7 +42,8 @@
 // exact for any partition, and the wrapper combines the blocks.
 //
 // What bounds it on the card.  A chain is a serial recurrence of
-// n_burnin + n_steps steps, and nothing is read from memory in the loop.
+// n_burnin + n_steps steps, and over the closed-form families nothing is
+// read from memory in the loop.
 // Under an independence proposal (the main path) most of a step is x-free:
 // two PCG hashes per draw, erfinvf or logf for the proposal, two log
 // densities and logf of the accept uniform.  Only the decision (three
@@ -56,9 +64,20 @@
 // the same on every run, and each chain's sums are added in step order as
 // in the plain version.
 //
-// The mode, the two families and the layout are compiled in (TMC_MODE,
-// TMC_PROP_KIND, TMC_TARG_KIND, TMC_LANES, TMC_GROUP from the generated
-// source, as mcmc_nd.cu's), so no step branches on them at run time.
+// CUSTOM tables (BASELINE config 5: a table target under U(-6, 6)) add
+// table loads, read with __ldg from global memory (a downsampled table of
+// a few hundred to a few thousand floats stays in L1).  Under an
+// independence proposal the draw, its logq and the target's lookup at x'
+// are all x-free, so they are part of the candidate made ahead; a walk's
+// lookup at x' = x + step * z sits on the carried chain, a division and
+// two dependent loads each step.
+//
+// The mode, the two families, a CUSTOM proposal's route and the layout are
+// compiled in (TMC_MODE, TMC_PROP_KIND, TMC_TARG_KIND, TMC_PROP_GAPPED,
+// TMC_LANES, TMC_GROUP from the generated source, as mcmc_nd.cu's), so no
+// step branches on them at run time.  The tables themselves are run-time
+// arguments (tmc::McmcTables<1>, by value): a new table needs no new
+// build.
 //
 // Built without --use_fast_math and with --fmad=false, as integrate.cu,
 // so every float32 add and multiply rounds as in the plain PyTorch
@@ -69,12 +88,16 @@
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
 // TMC_K, f_0 .. f_{K-1}, tmc_values; TMC_MODE, TMC_TARG_KIND, for an
-// independence proposal TMC_PROP_KIND; TMC_LANES, TMC_GROUP.
+// independence proposal TMC_PROP_KIND (and TMC_PROP_GAPPED for a CUSTOM
+// one); TMC_LANES, TMC_GROUP.
 #include "tmc_integrands.inc"
 #include "mcmc_pipeline.cuh"
 
 #ifndef TMC_PROP_KIND
 #define TMC_PROP_KIND 0  // walks draw from no proposal family
+#endif
+#ifndef TMC_PROP_GAPPED
+#define TMC_PROP_GAPPED 0  // a CUSTOM proposal's route: 1 gapped, 0 sampler
 #endif
 
 namespace {
@@ -86,6 +109,7 @@ enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
 constexpr int kMode = TMC_MODE;
 constexpr int kPropKind = TMC_PROP_KIND;
 constexpr int kTargKind = TMC_TARG_KIND;
+constexpr bool kPropGapped = TMC_PROP_GAPPED != 0;
 constexpr int kLanes = TMC_LANES;
 constexpr int kGroup = TMC_GROUP;
 static_assert(kMode == kIndependence || kLanes == 1,
@@ -99,14 +123,51 @@ constexpr int kPilotThreads = 256;
 constexpr float kLogStepMin = -13.815511f;
 constexpr float kLogStepMax = 13.815511f;
 
+using Tables = tmc::McmcTables<1>;
+
 // The run's parameters: the proposal row (p1, p2, -, -) or the walk's
-// (step, init_lo, init_hi, target_accept), then the target's (p1, p2).
+// (step, init_lo, init_hi, target_accept), then the target's (p1, p2);
+// and the CUSTOM tables.
 struct Params {
   float q1, q2, q3, q4, t1, t2;
+  Tables tb;
 };
 
-__device__ __forceinline__ Params load_params(const float* p) {
-  return Params{p[0], p[1], p[2], p[3], p[4], p[5]};
+__device__ __forceinline__ Params load_params(const float* p,
+                                              const Tables& tb) {
+  return Params{p[0], p[1], p[2], p[3], p[4], p[5], tb};
+}
+
+// The target's log density at x: its family's closed form, or its log
+// table.
+__device__ __forceinline__ float log_target(const Params& p, float x) {
+  if constexpr (kTargKind == tmc::kCustom) {
+    return tmc::table_log_pdf(p.tb.targ[0], x);
+  } else {
+    return log_pdf(kTargKind, p.t1, p.t2, x);
+  }
+}
+
+// The independence proposal's draw at the mantissa m, and its log density
+// in `logq`: the family's transform and closed form; for a CUSTOM
+// proposal the inverse table's draw, and the sampler's own density at it
+// or, gapped, the proposal's log table at x.
+__device__ __forceinline__ float propose(const Params& p, uint32_t m,
+                                         float& logq) {
+  if constexpr (kPropKind == tmc::kCustom) {
+    float slope;
+    const float x = tmc::table_draw(p.tb.inv[0], m, slope);
+    if constexpr (kPropGapped) {
+      logq = tmc::table_log_pdf(p.tb.q[0], x);
+    } else {
+      logq = tmc::sampler_logq(p.tb.inv[0], slope);
+    }
+    return x;
+  } else {
+    const float x = tmc::transform(kPropKind, m, p.q1, p.q2);
+    logq = log_pdf(kPropKind, p.q1, p.q2, x);
+    return x;
+  }
 }
 
 __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
@@ -114,11 +175,13 @@ __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
   return tmc::mantissa(tmc::block_base(state, counter, 0u), pos);
 }
 
-// The chain's state at counter 0.
+// The chain's state at counter 0; `logq` gets an independence proposal's
+// log density there.
 __device__ __forceinline__ float initial_x(const Params& p, uint32_t state,
-                                           uint32_t pos) {
+                                           uint32_t pos, float& logq) {
   const uint32_t m = draw(state, 0u, pos);
-  if (kMode == kIndependence) return tmc::transform(kPropKind, m, p.q1, p.q2);
+  logq = 0.0f;
+  if constexpr (kMode == kIndependence) return propose(p, m, logq);
   return p.q2 + tmc::halfopen01(m) * (p.q3 - p.q2);
 }
 
@@ -129,10 +192,8 @@ struct Propose {
 
   __device__ __forceinline__ tmc::Candidate<1> operator()(uint32_t i) const {
     tmc::Candidate<1> c;
-    c.x[0] = tmc::transform(kPropKind, draw(state, 3u * i + 1u, pos), p.q1,
-                            p.q2);
-    c.logq = log_pdf(kPropKind, p.q1, p.q2, c.x[0]);
-    c.logp = log_pdf(kTargKind, p.t1, p.t2, c.x[0]);
+    c.x[0] = propose(p, draw(state, 3u * i + 1u, pos), c.logq);
+    c.logp = log_target(p, c.x[0]);
     c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, pos)));
     return c;
   }
@@ -172,7 +233,7 @@ struct WalkStep {
   __device__ __forceinline__ void operator()(uint32_t, const WalkDraw& w) {
     if (kAdapt) step = expf(log_step);
     const float xp = x[0] + step * w.z;
-    const float logp_prop = log_pdf(kTargKind, p.t1, p.t2, xp);
+    const float logp_prop = log_target(p, xp);
     const float la = logp_prop - logp;
     const bool accept = w.logu < la;
     if (accept) {
@@ -217,17 +278,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kPilotThreads)
 mcmc_pilot_kernel(uint32_t seed, const float* __restrict__ params,
-                  int chains_per_program, float* __restrict__ pilots) {
-  const Params p = load_params(params);
+                  const Tables tb, int chains_per_program,
+                  float* __restrict__ pilots) {
+  const Params p = load_params(params, tb);
   const uint32_t pid = blockIdx.x;
   const uint32_t state = tmc::seed_state(seed, pid);
   float acc[TMC_K];
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
   float vals[TMC_K];
+  float logq;
   for (int pos = threadIdx.x; pos < chains_per_program;
        pos += kPilotThreads) {
-    tmc_values(initial_x(p, state, uint32_t(pos)), vals);
+    tmc_values(initial_x(p, state, uint32_t(pos), logq), vals);
 #pragma unroll
     for (int j = 0; j < TMC_K; ++j) acc[j] += vals[j];
   }
@@ -247,13 +310,13 @@ mcmc_pilot_kernel(uint32_t seed, const float* __restrict__ params,
 }
 
 __global__ void __launch_bounds__(kThreads)
-mcmc_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
-            int n_steps, int chains_per_program,
+mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
+            int n_burnin, int n_steps, int chains_per_program,
             const float* __restrict__ pilots, float* __restrict__ rows,
             float* __restrict__ x_final) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params);
+  const Params p = load_params(params, tb);
   // The chain's lanes are kLanes consecutive threads of one warp.
   const int lane = threadIdx.x % kLanes;
   const int chain = blockIdx.x * kChains + threadIdx.x / kLanes;
@@ -266,10 +329,9 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
   }
   __syncthreads();
 
-  float x[1] = {initial_x(p, state, pos)};
-  float logp = log_pdf(kTargKind, p.t1, p.t2, x[0]);
-  float logq =
-      kMode == kIndependence ? log_pdf(kPropKind, p.q1, p.q2, x[0]) : 0.0f;
+  float logq;
+  float x[1] = {initial_x(p, state, pos, logq)};
+  float logp = log_target(p, x[0]);
   const uint32_t n_burn = uint32_t(n_burnin);
   const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
@@ -310,26 +372,35 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
       rows + size_t(blockIdx.x) * 3 * (TMC_K + 1));
 }
 
+// The launch's tables from the host pointer `tables` (a tmc::McmcTables<1>,
+// or null for the closed-form families).
+Tables tables_of(const void* tables) {
+  return tables != nullptr ? *static_cast<const Tables*>(tables) : Tables{};
+}
+
 }  // namespace
 
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
-// chains' initial states.  Returns cudaGetLastError() (0 when accepted).
+// chains' initial states.  `tables` is a host pointer to the CUSTOM tables
+// (tmc::McmcTables<1>) or null.  Returns cudaGetLastError() (0 when
+// accepted).
 extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
-                               int chains_per_program, int programs,
-                               float* pilots, void* stream) {
+                               const void* tables, int chains_per_program,
+                               int programs, float* pilots, void* stream) {
   mcmc_pilot_kernel<<<programs, kPilotThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      seed, params, chains_per_program, pilots);
+      seed, params, tables_of(tables), chains_per_program, pilots);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
 // `stream` (chains_per_program a multiple of 32, n_chains of
-// chains_per_program).  `pilots` may be null (no shift); `rows` holds
-// (n_chains / 32) x 3 x (TMC_K + 1) floats, `x_final` n_chains.  Returns
-// cudaGetLastError() (0 when accepted).
-extern "C" int tmc_mcmc(unsigned int seed, const float* params, int n_burnin,
-                        int n_steps, int chains_per_program, int n_chains,
+// chains_per_program).  `tables` as tmc_mcmc_pilots'; `pilots` may be
+// null (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 1) floats,
+// `x_final` n_chains.  Returns cudaGetLastError() (0 when accepted).
+extern "C" int tmc_mcmc(unsigned int seed, const float* params,
+                        const void* tables, int n_burnin, int n_steps,
+                        int chains_per_program, int n_chains,
                         const float* pilots, float* rows, float* x_final,
                         void* stream) {
   if (chains_per_program % kChains != 0 ||
@@ -338,8 +409,8 @@ extern "C" int tmc_mcmc(unsigned int seed, const float* params, int n_burnin,
   }
   mcmc_kernel<<<n_chains / kChains, kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      seed, params, n_burnin, n_steps, chains_per_program, pilots, rows,
-      x_final);
+      seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
+      pilots, rows, x_final);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,10 @@
 // pallas_call at :868) in
 // its independence, random-walk and adaptive random-walk modes, with and
 // without error bars, for d dimensions of the uniform, normal and
-// exponential families, under a product target or a traced joint log
-// density.  Under the JAX package's CounterRng (the interpreter's stream)
-// it runs the very chains that kernel runs:
+// exponential families and CUSTOM tables (target dimensions, and proposal
+// dimensions in sampler mode or gapped), under a product target or a
+// traced joint log density.  Under the JAX package's CounterRng (the
+// interpreter's stream) it runs the very chains that kernel runs:
 //
 // * chain c belongs to program p = c / chains_per_program at position
 //   pos = c % chains_per_program (row * 128 + lane in the JAX block); the
@@ -23,7 +24,9 @@
 //   logp (walk), accepted when logf(u) < log_alpha.  logp and logq are
 //   the dimensions' log densities summed in dimension order, or logp is
 //   the joint target's value; the chain carries them and replaces them
-//   only on acceptance;
+//   only on acceptance.  A CUSTOM dimension draws from its inverse table
+//   and reads its log tables (mcmc_nd_common.cuh, whose logq sums the
+//   sampler-mode dimensions first, as the JAX kernel does);
 // * the walk proposes x'_j = x_j + (scale * step_j) * z_j.  The adaptive
 //   walk carries ONE per-chain log scale, starting at 0, that multiplies
 //   the whole step vector; through burn-in Robbins-Monro moves it toward
@@ -42,12 +45,15 @@
 // kernel; and x_final, the chains' final states as d rows of n_chains.
 //
 // What bounds it on the card, as for mcmc.cu.  A chain is a serial
-// recurrence of n_burnin + n_steps steps, and nothing is read from memory
-// in the loop.  Under an independence proposal (c9e, the main path) a
-// step's d + 1 draws (two PCG hashes each), d transforms, the target's
-// and the proposal's log densities and logf of the accept uniform are all
-// x-free; only the decision (three float32 adds, a compare, the d + 2
-// selects) carries from step to step.  So the least time is the card's
+// recurrence of n_burnin + n_steps steps, and over the closed-form
+// families nothing is read from memory in the loop (a CUSTOM dimension's
+// tables are read with __ldg, part of the x-free candidate under an
+// independence proposal, on the carried chain of a walk's target).
+// Under an independence proposal (c9e, the main path) a step's d + 1
+// draws (two PCG hashes each), d transforms, the target's and the
+// proposal's log densities and logf of the accept uniform are all x-free;
+// only the decision (three float32 adds, a compare, the d + 2 selects)
+// carries from step to step.  So the least time is the card's
 // arithmetic pipes over the run's x-free work, or the carried path over
 // the steps, whichever is longer.  The design is mcmc.cu's
 // (csrc/mcmc_pipeline.cuh): each chain on TMC_LANES lanes of a warp,
@@ -59,10 +65,11 @@
 // gains ahead.  A block holds 32 chains (32 * TMC_LANES threads); the d
 // chain states, logp and logq live in registers.  The mode, d, every
 // dimension's family and the layout are compiled in (TMC_MODE, TMC_D,
-// TMC_PROP_KINDS, TMC_TARG_KINDS, TMC_LANES, TMC_GROUP, as
-// integrate_nd.cu's TMC_KINDS), so the SASS loop is the path a step
-// really takes.  Sums are reduced once, at the end, with warp shuffles in
-// a fixed order: no atomics; each chain's sums are added in step order.
+// TMC_PROP_KINDS, TMC_PROP_GAPPED, TMC_TARG_KINDS, TMC_LANES, TMC_GROUP,
+// as integrate_nd.cu's TMC_KINDS), so the SASS loop is the path a step
+// really takes; the tables are run-time arguments (tmc::McmcTables<d>).
+// Sums are reduced once, at the end, with warp shuffles in a fixed order:
+// no atomics; each chain's sums are added in step order.
 //
 // Built without --use_fast_math and with --fmad=false, as the other
 // kernels, so every float32 add and multiply rounds as in the plain
@@ -99,14 +106,14 @@ struct Propose {
   __device__ __forceinline__ tmc::Candidate<TMC_D> operator()(
       uint32_t i) const {
     tmc::Candidate<TMC_D> c;
+    float slope[TMC_D];
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) {
-      c.x[j] = tmc::transform(prop_kind(j),
-                              draw(state, 3u * i + 1u, uint32_t(j), pos),
-                              p.q1[j], p.q2[j]);
+      c.x[j] = draw_dim(j, p, draw(state, 3u * i + 1u, uint32_t(j), pos),
+                        slope[j]);
     }
     c.logp = log_target(c.x, p);
-    c.logq = log_proposal(c.x, p);
+    c.logq = log_proposal(c.x, slope, p);
     c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, 0u, pos)));
     return c;
   }
@@ -195,13 +202,13 @@ struct Sums {
 };
 
 __global__ void __launch_bounds__(kThreads)
-mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
-               int n_steps, int chains_per_program,
-               const float* __restrict__ pilots, float* __restrict__ rows,
-               float* __restrict__ x_final) {
+mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
+               const Tables tb, int n_burnin, int n_steps,
+               int chains_per_program, const float* __restrict__ pilots,
+               float* __restrict__ rows, float* __restrict__ x_final) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params);
+  const Params p = load_params(params, tb);
   // The chain's lanes are kLanes consecutive threads of one warp.
   const int lane = threadIdx.x % kLanes;
   const int chain = blockIdx.x * kChainThreads + threadIdx.x / kLanes;
@@ -214,10 +221,10 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
   }
   __syncthreads();
 
-  float x[TMC_D];
-  initial_x(p, state, pos, x);
+  float x[TMC_D], slope[TMC_D];
+  initial_x(p, state, pos, x, slope);
   float logp = log_target(x, p);
-  float logq = kMode == kIndependence ? log_proposal(x, p) : 0.0f;
+  float logq = kMode == kIndependence ? log_proposal(x, slope, p) : 0.0f;
   const uint32_t n_burn = uint32_t(n_burnin);
   const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
@@ -271,33 +278,35 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params, int n_burnin,
 }  // namespace
 
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
-// chains' initial states.  `params` holds TMC_D x 6 floats.  Returns
-// cudaGetLastError() (0 when the launch was accepted).
+// chains' initial states.  `params` holds TMC_D x 6 floats; `tables` is a
+// host pointer to the CUSTOM tables (tmc::McmcTables<TMC_D>) or null.
+// Returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
-                                  int chains_per_program, int programs,
-                                  float* pilots, void* stream) {
-  return launch_pilots(seed, params, chains_per_program, programs, pilots,
-                       stream);
+                                  const void* tables, int chains_per_program,
+                                  int programs, float* pilots, void* stream) {
+  return launch_pilots(seed, params, tables, chains_per_program, programs,
+                       pilots, stream);
 }
 
 // Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
 // `stream` (chains_per_program a multiple of 32, n_chains of
-// chains_per_program).  `params` holds TMC_D x 6 floats; `pilots` may be
-// null (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 1) floats,
-// `x_final` TMC_D x n_chains.  Returns cudaGetLastError() (0 when the
-// launch was accepted).
+// chains_per_program).  `params` holds TMC_D x 6 floats; `tables` as
+// tmc_mcmc_nd_pilots'; `pilots` may be null (no shift); `rows` holds
+// (n_chains / 32) x 3 x (TMC_K + 1) floats, `x_final` TMC_D x n_chains.
+// Returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
-                           int n_burnin, int n_steps, int chains_per_program,
-                           int n_chains, const float* pilots, float* rows,
-                           float* x_final, void* stream) {
+                           const void* tables, int n_burnin, int n_steps,
+                           int chains_per_program, int n_chains,
+                           const float* pilots, float* rows, float* x_final,
+                           void* stream) {
   if (chains_per_program % kChainThreads != 0 ||
       n_chains % chains_per_program != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_nd_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      seed, params, n_burnin, n_steps, chains_per_program, pilots, rows,
-      x_final);
+      seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
+      pilots, rows, x_final);
   return static_cast<int>(cudaGetLastError());
 }
 

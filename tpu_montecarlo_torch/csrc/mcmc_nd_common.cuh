@@ -1,11 +1,23 @@
-// What the d-dimensional MCMC kernels share: the (d, 6) parameter rows,
-// the compiled-in families, the target and proposal log densities, the
-// chains' initial states and the error-bar pilot kernel.
+// What the d-dimensional MCMC kernels share: the (d, 6) parameter rows
+// and the CUSTOM tables, the compiled-in families, the proposal draws,
+// the target and proposal log densities, the chains' initial states and
+// the error-bar pilot kernel.
 //
 // Included by mcmc_nd.cu and mcmc_pt.cu after the generated source
 // (tmc_integrands.inc), which defines TMC_K, TMC_D, tmc_values_nd and
-// TMC_MODE; for an independence proposal TMC_PROP_KINDS; for a product
-// target TMC_TARG_KINDS, else tmc_target_logpdf(const float* x).
+// TMC_MODE; for an independence proposal TMC_PROP_KINDS (and, when a
+// dimension is CUSTOM, TMC_PROP_GAPPED: per dimension 1 for a gapped
+// table, 0 for sampler mode); for a product target TMC_TARG_KINDS, else
+// tmc_target_logpdf(const float* x).
+//
+// A CUSTOM dimension draws from its flat inverse table (counter_rng.cuh
+// tmc::table_draw) under the dimension's tag.  Its log density is the
+// sampler's own at the draw (sampler mode) or, gapped, its log table at x;
+// the proposal's logq sums the sampler-mode dimensions first, in
+// dimension order, then the others in dimension order, and adds the two
+// sums, as the JAX kernels do (mcmc_nd_pallas.py:395-455,
+// mcmc_pt_pallas.py:421-464).  A CUSTOM target dimension takes its log
+// table at x.
 //
 // The initial state of a chain is drawn at counter 0, dimension j under
 // tag j, from the seed word's stream for its program: the nd kernel's
@@ -24,6 +36,9 @@
 #ifndef TMC_PROP_KINDS
 #define TMC_PROP_KINDS 0  // walks draw from no proposal family
 #endif
+#ifndef TMC_PROP_GAPPED
+#define TMC_PROP_GAPPED 0  // no gapped CUSTOM proposal dimension
+#endif
 
 namespace {
 
@@ -38,15 +53,20 @@ constexpr int kRow = 6;  // floats per dimension in params
 constexpr float kLogScaleMin = -13.815511f;
 constexpr float kLogScaleMax = 13.815511f;
 
+using Tables = tmc::McmcTables<TMC_D>;
+
 // Per dimension j, the params row: the proposal's (p1, p2, -, -) or the
 // walk's (step, init_lo, init_hi, target_accept), then the target's
-// (p1, p2).
+// (p1, p2); and the CUSTOM tables.
 struct Params {
   float q1[TMC_D], q2[TMC_D], q3[TMC_D], q4[TMC_D], t1[TMC_D], t2[TMC_D];
+  Tables tb;
 };
 
-__device__ __forceinline__ Params load_params(const float* p) {
+__device__ __forceinline__ Params load_params(const float* p,
+                                              const Tables& tb) {
   Params r;
+  r.tb = tb;
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
     r.q1[j] = p[j * kRow];
@@ -60,10 +80,18 @@ __device__ __forceinline__ Params load_params(const float* p) {
 }
 
 // The family of proposal dimension j.  Called with j unrolled, so it folds
-// to a constant and each family branch is resolved at compile time.
+// to a constant and each family branch is resolved at compile time (as do
+// the functions below).
 __device__ __forceinline__ int prop_kind(int j) {
   const int kinds[TMC_D] = {TMC_PROP_KINDS};
   return kinds[j];
+}
+
+// Whether proposal dimension j is CUSTOM and takes its log density from its
+// draw's slope (sampler mode), not from a gapped table's log table.
+__device__ __forceinline__ bool sampler_dim(int j) {
+  const int gapped[TMC_D] = {TMC_PROP_GAPPED};
+  return prop_kind(j) == tmc::kCustom && gapped[j] == 0;
 }
 
 __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
@@ -71,46 +99,85 @@ __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
   return tmc::mantissa(tmc::block_base(state, counter, tag), pos);
 }
 
+#ifdef TMC_TARG_KINDS
+// Target dimension j's log density at x: its family's closed form, or its
+// log table.
+__device__ __forceinline__ float log_target_dim(int j, const Params& p,
+                                                float x) {
+  const int kinds[TMC_D] = {TMC_TARG_KINDS};
+  return kinds[j] == tmc::kCustom
+             ? tmc::table_log_pdf(p.tb.targ[j], x)
+             : tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x);
+}
+#endif
+
 // The target's log density at x: the product's dimensions in order, or
 // the joint log density.
 __device__ __forceinline__ float log_target(const float* x, const Params& p) {
 #ifdef TMC_TARG_KINDS
-  const int kinds[TMC_D] = {TMC_TARG_KINDS};
-  float tot = tmc::log_pdf(kinds[0], p.t1[0], p.t2[0], x[0]);
+  float tot = log_target_dim(0, p, x[0]);
 #pragma unroll
-  for (int j = 1; j < TMC_D; ++j) {
-    tot = tot + tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x[j]);
-  }
+  for (int j = 1; j < TMC_D; ++j) tot = tot + log_target_dim(j, p, x[j]);
   return tot;
 #else
   return tmc_target_logpdf(x);
 #endif
 }
 
-// The independence proposal's log density at x, dimensions in order.
-__device__ __forceinline__ float log_proposal(const float* x,
-                                              const Params& p) {
-  float tot = tmc::log_pdf(prop_kind(0), p.q1[0], p.q2[0], x[0]);
-#pragma unroll
-  for (int j = 1; j < TMC_D; ++j) {
-    tot = tot + tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j]);
+// Proposal dimension j's draw at the mantissa m: its family's transform,
+// or its inverse table's draw (`slope` gets the draw's slope; 0 for a
+// closed-form family).
+__device__ __forceinline__ float draw_dim(int j, const Params& p, uint32_t m,
+                                          float& slope) {
+  if (prop_kind(j) == tmc::kCustom) {
+    return tmc::table_draw(p.tb.inv[j], m, slope);
   }
-  return tot;
+  slope = 0.0f;
+  return tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
+}
+
+// The independence proposal's log density at x, drawn with the slopes
+// `slope`: the sampler-mode dimensions' terms summed in dimension order,
+// then the other dimensions' (closed forms, gapped log tables) in
+// dimension order, then the two sums added; with no sampler-mode
+// dimension, the dimensions in order.
+__device__ __forceinline__ float log_proposal(const float* x,
+                                              const float* slope,
+                                              const Params& p) {
+  float drawn = 0.0f, rest = 0.0f;
+  bool any_drawn = false, any_rest = false;
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    if (sampler_dim(j)) {
+      const float l = tmc::sampler_logq(p.tb.inv[j], slope[j]);
+      drawn = any_drawn ? drawn + l : l;
+      any_drawn = true;
+    } else {
+      const float l = prop_kind(j) == tmc::kCustom
+                          ? tmc::table_log_pdf(p.tb.q[j], x[j])
+                          : tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j]);
+      rest = any_rest ? rest + l : l;
+      any_rest = true;
+    }
+  }
+  if (!any_drawn) return rest;
+  return any_rest ? drawn + rest : drawn;
 }
 
 // A chain's state at counter 0, dimension j drawn under tag tag0 + j: a
-// draw of dimension j's proposal family, or for a walk lo_j + (hi_j -
-// lo_j) * u.
+// draw of dimension j's proposal (its slope in `slope`), or for a walk
+// lo_j + (hi_j - lo_j) * u.
 __device__ __forceinline__ void initial_x(const Params& p, uint32_t state,
                                           uint32_t pos, float* x,
-                                          uint32_t tag0 = 0u) {
+                                          float* slope, uint32_t tag0 = 0u) {
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
     const uint32_t m = draw(state, 0u, tag0 + uint32_t(j), pos);
     if (kMode == kIndependence) {
-      x[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
+      x[j] = draw_dim(j, p, m, slope[j]);
     } else {
       x[j] = p.q2[j] + (p.q3[j] - p.q2[j]) * tmc::halfopen01(m);
+      slope[j] = 0.0f;
     }
   }
 }
@@ -128,17 +195,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // initial states (tag j) of the program's chains, one block per program.
 __global__ void __launch_bounds__(kPilotThreads)
 mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
-                     int chains_per_program, float* __restrict__ pilots) {
-  const Params p = load_params(params);
+                     const Tables tb, int chains_per_program,
+                     float* __restrict__ pilots) {
+  const Params p = load_params(params, tb);
   const uint32_t pid = blockIdx.x;
   const uint32_t state = tmc::seed_state(seed, pid);
   float acc[TMC_K];
 #pragma unroll
   for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
-  float x[TMC_D], vals[TMC_K];
+  float x[TMC_D], slope[TMC_D], vals[TMC_K];
   for (int pos = threadIdx.x; pos < chains_per_program;
        pos += kPilotThreads) {
-    initial_x(p, state, uint32_t(pos), x);
+    initial_x(p, state, uint32_t(pos), x, slope);
     tmc_values_nd(x, vals);
 #pragma unroll
     for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k];
@@ -158,14 +226,20 @@ mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
   }
 }
 
+// The launch's tables from the host pointer `tables` (a
+// tmc::McmcTables<TMC_D>, or null where no dimension is CUSTOM).
+inline Tables tables_of(const void* tables) {
+  return tables != nullptr ? *static_cast<const Tables*>(tables) : Tables{};
+}
+
 // Launches the pilot kernel: (programs, K) floats.  Returns
 // cudaGetLastError() (0 when the launch was accepted).
 inline int launch_pilots(uint32_t seed, const float* params,
-                         int chains_per_program, int programs, float* pilots,
-                         void* stream) {
+                         const void* tables, int chains_per_program,
+                         int programs, float* pilots, void* stream) {
   mcmc_nd_pilot_kernel<<<programs, kPilotThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      seed, params, chains_per_program, pilots);
+      seed, params, tables_of(tables), chains_per_program, pilots);
   return static_cast<int>(cudaGetLastError());
 }
 

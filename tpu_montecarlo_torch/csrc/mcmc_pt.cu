@@ -5,10 +5,12 @@
 // (tpu_montecarlo/ops/mcmc_pt_pallas.py:332-867, pallas_call at :928) in
 // its independence, random-walk and adaptive random-walk modes, with and
 // without error bars, for d dimensions of the uniform, normal and
-// exponential families under a product target or a traced joint log
-// density, and a ladder of T >= 2 rungs.  Under the JAX package's
-// CounterRng (the interpreter's stream) it runs the very ladders that
-// kernel runs:
+// exponential families and CUSTOM tables (target dimensions, and proposal
+// dimensions in sampler mode: the draw's own density is rung-independent
+// and swaps with the state, as a closed form's) under a product target or
+// a traced joint log density, and a ladder of T >= 2 rungs.  Under the
+// JAX package's CounterRng (the interpreter's stream) it runs the very
+// ladders that kernel runs:
 //
 // * chain c belongs to program p = c / chains_per_program at position
 //   pos = c % chains_per_program; the program's stream is seeded with
@@ -53,7 +55,10 @@
 // chain is a serial loop of n_burnin + n_steps steps, each T rung moves
 // of d + 1 draws (two PCG hashes each), d transforms, the log densities
 // and logf of the accept uniform, then the active parity's swap draws;
-// nothing is read from memory in the loop.  The T rung moves of one step
+// over the closed-form families nothing is read from memory in the loop
+// (a CUSTOM dimension's tables are read with __ldg, as in mcmc.cu, on the
+// carried chain only where a walk looks its target up at x').  The T rung
+// moves of one step
 // are independent of each other: the function's parallel work is T x
 // chains rung moves per step (4 x 4096 on c12: 512 warps, one for each of
 // the card's schedulers), and what carries from one step to the next is
@@ -87,9 +92,10 @@
 //
 // T, d, the mode and the families are compiled in (TMC_T, TMC_D,
 // TMC_MODE, TMC_*_KINDS).  The ladder itself (the betas and the pair
-// differences) is a runtime float32 array: a new ladder needs no new
-// build.  Sums are reduced once, at the end, with warp shuffles in a fixed
-// order over the block's 32 chains: no atomics.
+// differences) and the CUSTOM tables (tmc::McmcTables<d>) are run-time
+// arguments: a new ladder or table needs no new build.  Sums are reduced
+// once, at the end, with warp shuffles in a fixed order over the block's
+// 32 chains: no atomics.
 //
 // Built without --use_fast_math and with --fmad=false, as the other
 // kernels, so every float32 add and multiply rounds as in the plain
@@ -190,15 +196,15 @@ struct PtPropose {
   __device__ __forceinline__ tmc::PtCandidate<TMC_D> operator()(
       uint32_t i) const {
     tmc::PtCandidate<TMC_D> c;
+    float slope[TMC_D];
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) {
-      c.c.x[j] = tmc::transform(
-          prop_kind(j),
-          draw(state, 3u * i + 1u, uint32_t(rung * TMC_D + j), pos), p.q1[j],
-          p.q2[j]);
+      c.c.x[j] = draw_dim(
+          j, p, draw(state, 3u * i + 1u, uint32_t(rung * TMC_D + j), pos),
+          slope[j]);
     }
     c.c.logp = log_target(c.c.x, p);
-    c.c.logq = log_proposal(c.c.x, p);
+    c.c.logq = log_proposal(c.c.x, slope, p);
     c.c.logu = logf(tmc::open01(draw(state, 3u * i + 2u, uint32_t(rung),
                                      pos)));
     c.logv = tmc::swap_logv(
@@ -258,9 +264,10 @@ __device__ __forceinline__ void run_lanes(const Params& p,
   r.even = tmc::pair_lane<kLanes>(rung, l, kT, 0, ladder + kT);
   r.odd = tmc::pair_lane<kLanes>(rung, l, kT, 1, ladder + kT);
   r.swaps = 0.0f;
-  initial_x(p, state, pos, r.x, uint32_t(rung * TMC_D));
+  float slope[TMC_D];
+  initial_x(p, state, pos, r.x, slope, uint32_t(rung * TMC_D));
   r.logp = log_target(r.x, p);
-  r.logq = kMode == kIndependence ? log_proposal(r.x, p) : 0.0f;
+  r.logq = kMode == kIndependence ? log_proposal(r.x, slope, p) : 0.0f;
 
   const SwapTags tag{uint32_t(r.even.lo), uint32_t(r.odd.lo)};
   const uint32_t n_burn = uint32_t(n_burnin);
@@ -316,12 +323,12 @@ __device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
                                           float beta, const float* eps,
                                           float* x, float& logp, float& logq,
                                           float* log_alpha) {
-  float xp[TMC_D];
+  float xp[TMC_D], slope[TMC_D];
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
     const uint32_t m = draw(state, 3u * i + 1u, uint32_t(t * TMC_D + j), pos);
     if (kMode == kIndependence) {
-      xp[j] = tmc::transform(prop_kind(j), m, p.q1[j], p.q2[j]);
+      xp[j] = draw_dim(j, p, m, slope[j]);
     } else {
       xp[j] = x[j] + eps[j] * tmc::normal_from_u01(tmc::halfopen01(m));
     }
@@ -329,7 +336,7 @@ __device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
   const float logp_prop = log_target(xp, p);
   float logq_prop = 0.0f, la;
   if (kMode == kIndependence) {
-    logq_prop = log_proposal(xp, p);
+    logq_prop = log_proposal(xp, slope, p);
     la = tmc::tempered_log_alpha<true>(beta, logp_prop, logp, logq_prop,
                                        logq);
   } else {
@@ -406,9 +413,10 @@ __device__ __forceinline__ void run_ladder(const Params& p,
   float log_scale[kT];
 #pragma unroll
   for (int t = 0; t < kT; ++t) {
-    initial_x(p, state, pos, x[t], uint32_t(t * TMC_D));
+    float slope[TMC_D];
+    initial_x(p, state, pos, x[t], slope, uint32_t(t * TMC_D));
     logp[t] = log_target(x[t], p);
-    logq[t] = kMode == kIndependence ? log_proposal(x[t], p) : 0.0f;
+    logq[t] = kMode == kIndependence ? log_proposal(x[t], slope, p) : 0.0f;
     log_scale[t] = 0.0f;
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) eps[t][j] = p.q1[j];
@@ -469,12 +477,13 @@ __device__ __forceinline__ void run_ladder(const Params& p,
 
 __global__ void __launch_bounds__(kThreads)
 mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
-               const float* __restrict__ ladder, int n_burnin, int n_steps,
-               int chains_per_program, const float* __restrict__ pilots,
-               float* __restrict__ rows, float* __restrict__ x_final) {
+               const float* __restrict__ ladder, const Tables tb,
+               int n_burnin, int n_steps, int chains_per_program,
+               const float* __restrict__ pilots, float* __restrict__ rows,
+               float* __restrict__ x_final) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params);
+  const Params p = load_params(params, tb);
   const int chain = blockIdx.x * kChainThreads + threadIdx.x / kChainLanes;
   // A block lies inside one program: 32 divides chains_per_program.
   const uint32_t pid = uint32_t(chain / chains_per_program);
@@ -512,35 +521,37 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
 
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
 // cold rung's initial states (mcmc_nd_common.cuh).  `seed` is the
-// tempered seed word; `params` holds TMC_D x 6 floats.  Returns
+// tempered seed word; `params` holds TMC_D x 6 floats; `tables` is a host
+// pointer to the CUSTOM tables (tmc::McmcTables<TMC_D>) or null.  Returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
-                                  int chains_per_program, int programs,
-                                  float* pilots, void* stream) {
-  return launch_pilots(seed, params, chains_per_program, programs, pilots,
-                       stream);
+                                  const void* tables, int chains_per_program,
+                                  int programs, float* pilots, void* stream) {
+  return launch_pilots(seed, params, tables, chains_per_program, programs,
+                       pilots, stream);
 }
 
 // Runs n_chains ladders, 32 to a block of 32 * TMC_PT_RUNG_LANES *
 // TMC_PT_LANES threads, on `stream` (chains_per_program a multiple of 32,
 // n_chains of chains_per_program).  `params` holds TMC_D x 6 floats,
-// `ladder` 2 * TMC_T - 1 (Ladder); `pilots` may be null (no shift);
+// `ladder` 2 * TMC_T - 1 (Ladder); `tables` as tmc_mcmc_pt_pilots';
+// `pilots` may be null (no shift);
 // `rows` holds (n_chains / 32) x 3 x (TMC_K + 2) floats, `x_final` TMC_D
 // x n_chains.  Returns cudaGetLastError() (0 when the launch was
 // accepted).
 extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
-                           const float* ladder, int n_burnin, int n_steps,
-                           int chains_per_program, int n_chains,
-                           const float* pilots, float* rows, float* x_final,
-                           void* stream) {
+                           const float* ladder, const void* tables,
+                           int n_burnin, int n_steps, int chains_per_program,
+                           int n_chains, const float* pilots, float* rows,
+                           float* x_final, void* stream) {
   if (chains_per_program % kChainThreads != 0 ||
       n_chains % chains_per_program != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_pt_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      seed, params, ladder, n_burnin, n_steps, chains_per_program, pilots,
-      rows, x_final);
+      seed, params, ladder, tables_of(tables), n_burnin, n_steps,
+      chains_per_program, pilots, rows, x_final);
   return static_cast<int>(cudaGetLastError());
 }
 

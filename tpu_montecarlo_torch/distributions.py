@@ -467,6 +467,36 @@ class Distribution:
         self._pdf_table = _tables.compute_pdf_table(self._pdf_func, self._x_table)
         return self._x_table, self._pdf_table
 
+    def get_log_pdf_table(
+        self, min_log_value: float = _tables.LOG_PDF_FLOOR
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Return (x_table, log_pdf_table) for MCMC
+        (``tpu_montecarlo/distributions.py:630-660``).
+
+        Zero/negative PDF values map to ``min_log_value``.  For UNIFORM the
+        final table entry is forced to log(1/width): the half-open pdf makes
+        x = max read as zero, which would poison acceptance ratios at the
+        boundary (reference: __init__.py:598-606).  Cached per
+        ``min_log_value``.
+        """
+        cache = getattr(self, "_log_pdf_cache", None)
+        if cache is None:
+            cache = self._log_pdf_cache = {}
+        if min_log_value in cache:
+            return cache[min_log_value]
+        x_table, pdf_table = self.get_or_compute_pdf_table()
+        log_pdf_table = _tables.log_pdf_from_pdf(
+            pdf_table, min_log_value
+        ).astype(np.float32)
+
+        if self.dist_type == DistributionType.UNIFORM:
+            width = self.params.get("max", 1.0) - self.params.get("min", 0.0)
+            if width > 0:
+                log_pdf_table[-1] = np.log(1.0 / width)
+
+        cache[min_log_value] = (x_table, log_pdf_table)
+        return x_table, log_pdf_table
+
     def quantile(self, q: float) -> float:
         """Exact host-side quantile (inverse CDF) at ``q`` in (0, 1), in
         the JAX package's closed forms (``distributions.py:663``); CUSTOM

@@ -3,7 +3,10 @@ CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/mcmc_pallas.py`` (``build_mcmc_fn_pallas``)
 in its independence, random-walk and adaptive random-walk modes, with and
-without error bars, for the uniform, normal and exponential families.
+without error bars, for the uniform, normal and exponential families and
+CUSTOM tables: a table target, and a table proposal in sampler mode (its
+logq the draw's own density) or gapped (its logq from its log table), as
+``ops/mcmc_tables.py`` reads them.
 Both versions here run, chain for chain, the chains that the JAX kernel
 runs under ``CounterRng`` (its interpreter stream): the same seeding per
 (seed ^ 0x5BD1E995, program), the same counters per step (0 for the
@@ -49,11 +52,20 @@ from .integrate_kernel import (
     uniform_open01,
 )
 from .lower import cuda_source, to_torch
+from .mcmc_tables import (
+    DimTables,
+    check_dim_tables,
+    inverse_draw,
+    kernel_tables,
+    log_table_value,
+    sampler_logq,
+)
 
 __all__ = [
     "CHAIN_THREADS",
     "MAX_FUNCTIONS",
     "Layout",
+    "MCMC_KINDS",
     "McmcConfig",
     "McmcGrid",
     "McmcOutput",
@@ -75,6 +87,8 @@ __all__ = [
 CHAIN_THREADS = 32
 #: One lane of the JAX kernel's output row holds the accept count.
 MAX_FUNCTIONS = LANES - 1
+#: The families the MCMC kernels take: the closed forms and CUSTOM tables.
+MCMC_KINDS = PORTED_KINDS + (DistKind.CUSTOM,)
 _SEED_MIX = 0x5BD1E995
 _LOG_STEP_MIN = -13.815511
 _LOG_STEP_MAX = 13.815511
@@ -184,7 +198,9 @@ def seed_word(seed: int) -> int:
 
 @dataclass(frozen=True)
 class McmcConfig:
-    """What a run does.  ``proposal_kind`` is ignored by the walks."""
+    """What a run does.  ``proposal_kind`` is ignored by the walks;
+    ``prop_gapped`` marks a CUSTOM proposal drawn from gap-respecting
+    tables, whose logq comes from its log table (else sampler mode)."""
 
     mode: Mode
     proposal_kind: DistKind
@@ -192,15 +208,24 @@ class McmcConfig:
     n_steps: int
     n_burnin: int
     with_stderr: bool = False
+    prop_gapped: bool = False
 
     @property
     def compiled(self):
         """What the CUDA library compiles in: the mode, the proposal's
-        family (None for a walk) and the target's."""
+        family (None for a walk), the target's, and whether a CUSTOM
+        proposal is gapped."""
         mode = Mode(self.mode)
         prop = (DistKind(self.proposal_kind) if mode == Mode.INDEPENDENCE
                 else None)
-        return mode, prop, DistKind(self.target_kind)
+        gapped = bool(self.prop_gapped) and prop == DistKind.CUSTOM
+        return mode, prop, DistKind(self.target_kind), gapped
+
+    @property
+    def roles(self):
+        """(proposal is CUSTOM, proposal is gapped, target is CUSTOM)."""
+        _, prop, targ, gapped = self.compiled
+        return prop == DistKind.CUSTOM, gapped, targ == DistKind.CUSTOM
 
 
 class McmcOutput(NamedTuple):
@@ -239,8 +264,9 @@ class McmcProgram:
 
     def source(self, cfg: McmcConfig) -> str:
         """The generated source the kernel includes: the integrands, the
-        compiled-in mode and families, and the layout."""
-        mode, prop, targ = cfg.compiled
+        compiled-in mode and families (with a CUSTOM proposal's route),
+        and the layout."""
+        mode, prop, targ, gapped = cfg.compiled
         parts = [
             cuda_source(self.fns),
             f"#define TMC_MODE {int(mode)}\n",
@@ -249,6 +275,8 @@ class McmcProgram:
         ]
         if prop is not None:
             parts.append(f"#define TMC_PROP_KIND {int(prop)}\n")
+        if prop == DistKind.CUSTOM:
+            parts.append(f"#define TMC_PROP_GAPPED {int(gapped)}\n")
         return "".join(parts)
 
     def library(self, cfg: McmcConfig):
@@ -258,25 +286,29 @@ class McmcProgram:
 
             lib = load_kernel_library("mcmc.cu", self.source(cfg))
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # seed word, params, chains per program, programs, pilots,
-            # stream
-            lib.tmc_mcmc_pilots.argtypes = [u, p, i, i, p, p]
+            # seed word, params, host tables, chains per program,
+            # programs, pilots, stream
+            lib.tmc_mcmc_pilots.argtypes = [u, p, p, i, i, p, p]
             lib.tmc_mcmc_pilots.restype = i
-            # seed word, params, burn-in, steps, chains per program,
-            # chains, pilots, rows, x_final, stream
-            lib.tmc_mcmc.argtypes = [u, p, i, i, i, i, p, p, p, p]
+            # seed word, params, host tables, burn-in, steps, chains per
+            # program, chains, pilots, rows, x_final, stream
+            lib.tmc_mcmc.argtypes = [u, p, p, i, i, i, i, p, p, p, p]
             lib.tmc_mcmc.restype = i
             self._libs[key] = lib
         return self._libs[key]
 
 
-def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int) -> None:
+def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int,
+                tables: Optional[DimTables] = None) -> None:
     kinds = [cfg.target_kind]
     if cfg.mode == Mode.INDEPENDENCE:
         kinds.append(cfg.proposal_kind)
     for kind in kinds:
-        if kind not in PORTED_KINDS:
+        if kind not in MCMC_KINDS:
             raise not_ported(f"MCMC under {DistKind(kind).name}", MCMC_FAMILIES)
+    if cfg.prop_gapped and cfg.compiled[1] != DistKind.CUSTOM:
+        raise ValueError("only a CUSTOM proposal is gapped")
+    check_dim_tables([tables], [cfg.roles], "MCMC", params.device)
     if params.dtype != torch.float32 or params.shape != (6,):
         raise ValueError(
             f"params must be a (6,) float32 tensor, got {tuple(params.shape)} "
@@ -321,33 +353,42 @@ def mcmc_reference(
     params: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[DimTables] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over all chains, a Python loop over the steps, with the
-    kernel's counters and float32 operation order."""
-    _check_args(cfg, params, len(torch_fns))
+    kernel's counters and float32 operation order.  ``tables`` holds the
+    CUSTOM tables of a table proposal or target."""
+    _check_args(cfg, params, len(torch_fns), tables)
     dev = params.device
     q1, q2, q3, q4, t1, t2 = params.unbind()
     shape = (grid.rows, LANES)
     pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
     rng = CounterRng(seed_word(seed), pids, device=dev)
     indep = cfg.mode == Mode.INDEPENDENCE
+    _, _, _, gapped = cfg.compiled
 
-    def propose(counter):  # (programs, rows, 128)
-        return sample_block(cfg.proposal_kind, q1, q2, rng, shape, counter)
+    def propose(counter):
+        """(x, logq), each (programs, rows, 128)."""
+        if cfg.proposal_kind == DistKind.CUSTOM:
+            u = uniform_halfopen01(rng, shape, counter, 0)
+            x, slope = inverse_draw(u, tables.inv)
+            if gapped:
+                return x, log_table_value(x, tables.q)
+            return x, sampler_logq(slope, tables.inv)
+        x = sample_block(cfg.proposal_kind, q1, q2, rng, shape, counter)
+        return x, analytic_log_pdf(cfg.proposal_kind, q1, q2, x)
 
     def lp_t(v):
+        if cfg.target_kind == DistKind.CUSTOM:
+            return log_table_value(v, tables.targ)
         return analytic_log_pdf(cfg.target_kind, t1, t2, v)
-
-    def lp_q(v):
-        return analytic_log_pdf(cfg.proposal_kind, q1, q2, v)
 
     def values(v):
         return [f(v).to(torch.float32) for f in torch_fns]
 
     if indep:
-        x = propose(0)
-        logq = lp_q(x)
+        x, logq = propose(0)
     else:
         x = q2 + uniform_halfopen01(rng, shape, 0, 0) * (q3 - q2)
     logp = lp_t(x)
@@ -368,8 +409,7 @@ def mcmc_reference(
         if cfg.mode == Mode.ADAPTIVE and (burn or i == cfg.n_burnin):
             step = torch.exp(log_step)
         if indep:
-            xp = propose(3 * i + 1)
-            logq_prop = lp_q(xp)
+            xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = logp_prop + logq - logp - logq_prop
         else:
@@ -410,8 +450,10 @@ def mcmc_cuda(
     params: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[DimTables] = None,
 ) -> McmcOutput:
-    """Runs the grid's chains on ``params``' device.
+    """Runs the grid's chains on ``params``' device, with ``tables`` (on
+    the same device) for a CUSTOM proposal or target.
 
     A CUDA ``params`` launches the kernel: ``mcmc_cuda.launches`` counts
     the chain-kernel launches, and ``mcmc_cuda.pilot_launches`` the pilot
@@ -419,12 +461,15 @@ def mcmc_cuda(
     runs the plain version.  Any other
     device raises.  The launches are asynchronous on the current
     stream."""
-    _check_args(cfg, params, len(program.fns))
+    _check_args(cfg, params, len(program.fns), tables)
     if params.device.type == "cpu":
-        return mcmc_reference(program.torch_fns, cfg, params, seed, grid)
+        return mcmc_reference(program.torch_fns, cfg, params, seed, grid,
+                              tables)
     if params.device.type != "cuda":
         raise ValueError(f"no MCMC kernel for device {params.device}")
     params = params.contiguous()
+    kt = kernel_tables([tables], 1)
+    host_tables = None if kt is None else ctypes.addressof(kt)
     lib = program.library(cfg)
     k = len(program.fns)
     dev = params.device
@@ -442,13 +487,14 @@ def mcmc_cuda(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
             err = lib.tmc_mcmc_pilots(
-                word, params.data_ptr(), grid.chains_per_program,
-                grid.programs, pilots.data_ptr(), stream,
+                word, params.data_ptr(), host_tables,
+                grid.chains_per_program, grid.programs, pilots.data_ptr(),
+                stream,
             )
             _raise_on(lib, err, "pilot")
             mcmc_cuda.pilot_launches += 1
         err = lib.tmc_mcmc(
-            word, params.data_ptr(), cfg.n_burnin, cfg.n_steps,
+            word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), stream,

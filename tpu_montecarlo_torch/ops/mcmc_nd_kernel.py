@@ -4,14 +4,16 @@ the CUDA kernel's wrapper.
 Port of ``tpu_montecarlo/ops/mcmc_nd_pallas.py`` (``build_mcmc_nd_pallas``)
 in its independence, random-walk and adaptive random-walk modes, with and
 without error bars, for d dimensions of the uniform, normal and
-exponential families under a product target or a traced joint log
-density.  Both versions here run, chain for chain, the chains that the
-JAX kernel runs under ``CounterRng`` (its interpreter stream): each
-program's stream seeded with (seed ^ 0x27D4EB2F, program), dimension j
-drawn under tag j at counter 0 (the initial state) and 3i+1 (step i's
-proposal), the accept uniform under tag 0 at 3i+2, and the same float32
-operation order.  Only last-bit differences of ``log``, ``exp`` and
-``erfinv`` between libraries can flip an accept decision.
+exponential families and CUSTOM tables (``ops/mcmc_tables.py``: target
+dimensions, and proposal dimensions in sampler mode or gapped) under a
+product target or a traced joint log density.  Both versions here run,
+chain for chain, the chains that the JAX kernel runs under ``CounterRng``
+(its interpreter stream): each program's stream seeded with (seed ^
+0x27D4EB2F, program), dimension j drawn under tag j at counter 0 (the
+initial state) and 3i+1 (step i's proposal), the accept uniform under tag
+0 at 3i+2, and the same float32 operation order.  Only last-bit
+differences of ``log``, ``exp`` and ``erfinv`` between libraries can flip
+an accept decision.
 
 The chain layout, the grid (``plan_mcmc_grid``) and the output rows are
 the 1-D kernel's (``ops/mcmc_kernel.py``), so :func:`mcmc_finish` turns
@@ -20,7 +22,11 @@ parameters are one (d, 6) float32 row per dimension: the proposal's
 (p1, p2, 0, 0) or the walk's (step, init_lo, init_hi, target_accept),
 then the target's (p1, p2), zeros for a joint target.  The adaptive walk
 tunes one per-chain scale of the whole step vector, starting at 1,
-toward dimension 0's target_accept.
+toward dimension 0's target_accept.  A CUSTOM dimension's tables are
+run-time arguments, one :class:`DimTables` entry per dimension; the
+proposal's logq sums its sampler-mode dimensions first, in dimension
+order, then the others, as the JAX kernel does
+(``mcmc_nd_pallas.py:395-455``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..sampling import PORTED_KINDS, DistKind, analytic_log_pdf, normal_from_u01
+from ..sampling import DistKind, analytic_log_pdf, normal_from_u01
 from ..tracing import TracedFunction
 from ..utils.roadmap import ND_MCMC_FAMILIES, not_ported
 from .integrate_kernel import (
@@ -46,6 +52,7 @@ from .lower import cuda_source, cuda_target_source, to_torch
 from .mcmc_kernel import (
     CHAIN_THREADS,
     MAX_FUNCTIONS,
+    MCMC_KINDS,
     Layout,
     McmcGrid,
     McmcOutput,
@@ -55,11 +62,20 @@ from .mcmc_kernel import (
     default_layout,
     layout_source,
 )
+from .mcmc_tables import (
+    DimTables,
+    check_dim_tables,
+    inverse_draw,
+    kernel_tables,
+    log_table_value,
+    sampler_logq,
+)
 
 __all__ = [
     "ND_SEED_MIX",
     "McmcNdConfig",
     "McmcNdProgram",
+    "draw_proposal",
     "mcmc_nd_cuda",
     "mcmc_nd_reference",
     "nd_seed_word",
@@ -82,7 +98,7 @@ def nd_seed_word(seed: int) -> int:
 def _kinds(kinds, what: str, item: str) -> Tuple[DistKind, ...]:
     kinds = tuple(DistKind(k) for k in kinds)
     for kind in kinds:
-        if kind not in PORTED_KINDS:
+        if kind not in MCMC_KINDS:
             raise not_ported(f"{what} under {kind.name.lower()} dimensions", item)
     return kinds
 
@@ -92,7 +108,9 @@ class McmcNdConfig:
     """What one nd run does.  ``prop_kinds``: the independence
     proposal's family per dimension, ``()`` for the walks;
     ``targ_kinds``: the product target's, or None for a joint log
-    density."""
+    density; ``prop_gapped``: per proposal dimension, whether a CUSTOM
+    one is drawn from gap-respecting tables (its logq from its log
+    table; else sampler mode), ``()`` for none."""
 
     # What the families' NotImplementedError names.
     _what = "nd MCMC"
@@ -105,6 +123,7 @@ class McmcNdConfig:
     n_steps: int
     n_burnin: int
     with_stderr: bool = False
+    prop_gapped: Tuple[bool, ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
@@ -122,6 +141,16 @@ class McmcNdConfig:
                 "an independence proposal takes one family per dimension "
                 "and a walk none"
             )
+        gapped = tuple(bool(g) for g in self.prop_gapped) or (
+            (False,) * len(self.prop_kinds))
+        if len(gapped) != len(self.prop_kinds) or any(
+                g and k != DistKind.CUSTOM
+                for g, k in zip(gapped, self.prop_kinds)):
+            raise ValueError(
+                "prop_gapped takes one flag per proposal dimension, set only "
+                "for CUSTOM ones"
+            )
+        object.__setattr__(self, "prop_gapped", gapped)
         if self.targ_kinds is not None and len(self.targ_kinds) != self.d:
             raise ValueError("a product target takes one family per dimension")
         if self.n_steps < 1 or self.n_burnin < 0:
@@ -129,8 +158,20 @@ class McmcNdConfig:
 
     @property
     def compiled(self):
-        """What the CUDA library compiles in: mode, d and the families."""
-        return self.mode, self.d, self.prop_kinds, self.targ_kinds
+        """What the CUDA library compiles in: mode, d, the families and
+        the CUSTOM proposal dimensions' routes."""
+        return (self.mode, self.d, self.prop_kinds, self.targ_kinds,
+                self.prop_gapped)
+
+    @property
+    def roles(self):
+        """Per dimension: (proposal is CUSTOM, proposal is gapped, target
+        is CUSTOM)."""
+        props = self.prop_kinds or (None,) * self.d
+        targs = self.targ_kinds or (None,) * self.d
+        gapped = self.prop_gapped or (False,) * self.d
+        return [(p == DistKind.CUSTOM, g, t == DistKind.CUSTOM)
+                for p, g, t in zip(props, gapped, targs)]
 
 
 class McmcNdProgram:
@@ -193,7 +234,7 @@ class McmcNdProgram:
         """The generated source the kernel includes: the integrands in the
         pointer form, the joint target, and the compiled-in mode, d and
         families."""
-        mode, _, prop_kinds, targ_kinds = self.compiled[:4]
+        mode, _, prop_kinds, targ_kinds, gapped = self.compiled[:5]
 
         def kinds(name, ks):
             return f"#define {name} {', '.join(str(int(k)) for k in ks)}\n"
@@ -206,6 +247,8 @@ class McmcNdProgram:
             parts.append(self.layout_source(self.layout))
         if prop_kinds:
             parts.append(kinds("TMC_PROP_KINDS", prop_kinds))
+        if DistKind.CUSTOM in prop_kinds:
+            parts.append(kinds("TMC_PROP_GAPPED", gapped))
         if targ_kinds is None:
             parts.append(cuda_target_source(self.target))
         else:
@@ -219,12 +262,12 @@ class McmcNdProgram:
             lib = load_kernel_library(self.kernel_source, self.source())
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
             pilots, chain = (getattr(lib, name) for name in self.entry_points)
-            # seed word, params, chains per program, programs, pilots,
-            # stream
-            pilots.argtypes = [u, p, i, i, p, p]
-            # seed word, chain_inputs, burn-in, steps, chains per program,
-            # chains, pilots, rows, x_final, stream
-            chain.argtypes = [u, *[p] * len(self.chain_inputs),
+            # seed word, params, host tables, chains per program,
+            # programs, pilots, stream
+            pilots.argtypes = [u, p, p, i, i, p, p]
+            # seed word, chain_inputs, host tables, burn-in, steps, chains
+            # per program, chains, pilots, rows, x_final, stream
+            chain.argtypes = [u, *[p] * len(self.chain_inputs), p,
                               i, i, i, i, p, p, p, p]
             pilots.restype = chain.restype = i
             self._lib = lib
@@ -234,7 +277,9 @@ class McmcNdProgram:
 def _check_args(
     cfg: McmcNdConfig, params: torch.Tensor, k: int,
     max_functions: int = MAX_FUNCTIONS,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> None:
+    check_dim_tables(tables, cfg.roles, cfg._what, params.device)
     if params.dtype != torch.float32 or params.shape != (cfg.d, _ROW):
         raise ValueError(
             f"params must be a ({cfg.d}, {_ROW}) float32 tensor, got "
@@ -251,26 +296,47 @@ def _summed(logs):
     return tot
 
 
-def log_target(torch_target, targ_kinds, t1, t2, xs) -> torch.Tensor:
+def log_target(torch_target, targ_kinds, t1, t2, xs,
+               tables=None) -> torch.Tensor:
     """The plain versions' target log density at the d blocks ``xs``: the
-    joint target's, or the product's dimensions summed in order."""
+    joint target's, or the product's dimensions (closed forms, CUSTOM
+    log tables) summed in order."""
     if torch_target is not None:
         return torch.broadcast_to(
             torch_target(*xs).to(torch.float32), xs[0].shape
         )
     return _summed([
-        analytic_log_pdf(kind, t1[j], t2[j], xs[j])
+        log_table_value(xs[j], tables[j].targ) if kind == DistKind.CUSTOM
+        else analytic_log_pdf(kind, t1[j], t2[j], xs[j])
         for j, kind in enumerate(targ_kinds)
     ])
 
 
-def log_proposal(prop_kinds, q1, q2, xs) -> torch.Tensor:
-    """The independence proposal's log density at ``xs``, dimensions
-    summed in order."""
-    return _summed([
-        analytic_log_pdf(kind, q1[j], q2[j], xs[j])
-        for j, kind in enumerate(prop_kinds)
-    ])
+def draw_proposal(cfg, q1, q2, rng, shape, counter, tags, tables=None):
+    """An independence proposal's d blocks at ``counter`` (dimension j
+    under ``tags[j]``) and its log density: the sampler-mode dimensions'
+    terms summed in dimension order, then the others' (closed forms,
+    gapped log tables), then the two sums added
+    (``mcmc_nd_pallas.py:395-455``)."""
+    xs, drawn, rest = [], None, None
+    for j, kind in enumerate(cfg.prop_kinds):
+        if kind == DistKind.CUSTOM:
+            u = uniform_halfopen01(rng, shape, counter, tags[j])
+            x, slope = inverse_draw(u, tables[j].inv)
+            if not cfg.prop_gapped[j]:
+                lq = sampler_logq(slope, tables[j].inv)
+                drawn = lq if drawn is None else drawn + lq
+                xs.append(x)
+                continue
+            lq = log_table_value(x, tables[j].q)
+        else:
+            x = sample_block(kind, q1[j], q2[j], rng, shape, counter, tags[j])
+            lq = analytic_log_pdf(kind, q1[j], q2[j], x)
+        rest = lq if rest is None else rest + lq
+        xs.append(x)
+    if drawn is None:
+        return xs, rest
+    return xs, drawn if rest is None else drawn + rest
 
 
 def mcmc_nd_reference(
@@ -280,12 +346,14 @@ def mcmc_nd_reference(
     params: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over all chains, a Python loop over the steps, with the
-    kernel's counters, tags and float32 operation order.  Returns the
-    kernel's rows and ``x_final`` as (d, chains)."""
-    _check_args(cfg, params, len(torch_fns))
+    kernel's counters, tags and float32 operation order.  ``tables``
+    holds one :class:`DimTables` (or None) per dimension where any is
+    CUSTOM.  Returns the kernel's rows and ``x_final`` as (d, chains)."""
+    _check_args(cfg, params, len(torch_fns), tables=tables)
     if (torch_target is None) != (cfg.targ_kinds is not None):
         raise ValueError("a joint target needs its log density, a product none")
     dev = params.device
@@ -296,24 +364,18 @@ def mcmc_nd_reference(
     dims = range(cfg.d)
     indep = cfg.mode == Mode.INDEPENDENCE
 
-    def propose(counter):  # d blocks of (programs, rows, 128)
-        return [
-            sample_block(kind, q1[j], q2[j], rng, shape, counter, j)
-            for j, kind in enumerate(cfg.prop_kinds)
-        ]
+    def propose(counter):  # d blocks of (programs, rows, 128), logq
+        return draw_proposal(cfg, q1, q2, rng, shape, counter, range(cfg.d),
+                             tables)
 
     def lp_t(xs):
-        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs)
-
-    def lp_q(xs):
-        return log_proposal(cfg.prop_kinds, q1, q2, xs)
+        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs, tables)
 
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]
 
     if indep:
-        xs = propose(0)
-        logq = lp_q(xs)
+        xs, logq = propose(0)
     else:
         xs = [
             q2[j] + (q3[j] - q2[j]) * uniform_halfopen01(rng, shape, 0, j)
@@ -337,8 +399,7 @@ def mcmc_nd_reference(
             scale = torch.exp(log_scale)
             eps = [scale * q1[j] for j in dims]
         if indep:
-            xp = propose(3 * i + 1)
-            logq_prop = lp_q(xp)
+            xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = logp_prop + logq - logp - logq_prop
         else:
@@ -383,8 +444,10 @@ def mcmc_nd_cuda(
     params: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> McmcOutput:
-    """Runs the grid's chains on ``params``' device.
+    """Runs the grid's chains on ``params``' device, with ``tables`` (on
+    the same device) where a dimension is CUSTOM.
 
     A CUDA ``params`` launches the kernel: ``mcmc_nd_cuda.launches``
     counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
@@ -395,14 +458,17 @@ def mcmc_nd_cuda(
         raise ValueError(
             f"the program was built for {program.compiled}, not {cfg.compiled}"
         )
-    _check_args(cfg, params, len(program.fns))
+    _check_args(cfg, params, len(program.fns), tables=tables)
     if params.device.type == "cpu":
         return mcmc_nd_reference(
-            program.torch_fns, program.torch_target, cfg, params, seed, grid
+            program.torch_fns, program.torch_target, cfg, params, seed, grid,
+            tables,
         )
     if params.device.type != "cuda":
         raise ValueError(f"no nd MCMC kernel for device {params.device}")
     params = params.contiguous()
+    kt = kernel_tables(tables, cfg.d)
+    host_tables = None if kt is None else ctypes.addressof(kt)
     lib = program.library()
     k = len(program.fns)
     dev = params.device
@@ -422,13 +488,14 @@ def mcmc_nd_cuda(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
             err = lib.tmc_mcmc_nd_pilots(
-                word, params.data_ptr(), grid.chains_per_program,
-                grid.programs, pilots.data_ptr(), stream,
+                word, params.data_ptr(), host_tables,
+                grid.chains_per_program, grid.programs, pilots.data_ptr(),
+                stream,
             )
             _raise_on(lib, err, "pilot")
             mcmc_nd_cuda.pilot_launches += 1
         err = lib.tmc_mcmc_nd(
-            word, params.data_ptr(), cfg.n_burnin, cfg.n_steps,
+            word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), stream,

@@ -4,8 +4,10 @@ CUDA kernel's wrapper.
 Port of ``tpu_montecarlo/ops/mcmc_pt_pallas.py``
 (``build_pt_mcmc_fn_pallas``) in its independence, random-walk and
 adaptive random-walk modes, with and without error bars, for d dimensions
-of the uniform, normal and exponential families under a product target or
-a traced joint log density, and a ladder of T >= 2 rungs.  Each chain
+of the uniform, normal and exponential families and CUSTOM tables (target
+dimensions, and proposal dimensions in sampler mode, whose logq is
+rung-independent and swaps with the state) under a product target or a
+traced joint log density, and a ladder of T >= 2 rungs.  Each chain
 carries its whole ladder: rung t runs against ``pi^beta_t`` with
 ``beta_0 = 1``, and only the cold rung enters the estimates.  Both
 versions here run, ladder for ladder, the chains that the JAX kernel runs
@@ -39,6 +41,7 @@ layout changes no number the kernel computes.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Sequence
 
@@ -50,7 +53,6 @@ from ..utils.roadmap import PT_FAMILIES
 from .integrate_kernel import (
     LANES,
     CounterRng,
-    sample_block,
     uniform_halfopen01,
     uniform_open01,
 )
@@ -67,9 +69,10 @@ from .mcmc_nd_kernel import (
     _LOG_SCALE_MIN,
     McmcNdConfig,
     McmcNdProgram,
-    log_proposal,
+    draw_proposal,
     log_target,
 )
+from .mcmc_tables import DimTables, kernel_tables
 from .mcmc_nd_kernel import _check_args as _check_nd_args
 
 __all__ = [
@@ -241,19 +244,20 @@ class McmcPtProgram(McmcNdProgram):
     layout_source = staticmethod(pt_layout_source)
 
     def _layout(self, mode, layout) -> PtLayout:
-        n_temps = self.compiled[4]
+        n_temps = self.compiled[-1]
         if layout is None:
             return default_pt_layout(mode, n_temps, len(self.fns))
         return check_pt_layout(n_temps, layout)
 
     def source(self) -> str:
-        return super().source() + f"#define TMC_T {self.compiled[4]}\n"
+        return super().source() + f"#define TMC_T {self.compiled[-1]}\n"
 
 
 def _check_args(
-    cfg: McmcPtConfig, params: torch.Tensor, ladder: torch.Tensor, k: int
+    cfg: McmcPtConfig, params: torch.Tensor, ladder: torch.Tensor, k: int,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> None:
-    _check_nd_args(cfg, params, k, MAX_PT_FUNCTIONS)
+    _check_nd_args(cfg, params, k, MAX_PT_FUNCTIONS, tables)
     n = 2 * cfg.n_temps - 1
     if ladder.dtype != torch.float32 or ladder.shape != (n,):
         raise ValueError(
@@ -274,13 +278,15 @@ def mcmc_pt_reference(
     ladder: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over the rungs (a leading T dimension) and all chains, a
     Python loop over the steps, with the kernel's counters, tags and
-    float32 operation order.  Returns the kernel's rows and ``x_final``,
-    the cold rung's final states, as (d, chains)."""
-    _check_args(cfg, params, ladder, len(torch_fns))
+    float32 operation order; ``tables`` as the nd version's.  Returns the
+    kernel's rows and ``x_final``, the cold rung's final states, as (d,
+    chains)."""
+    _check_args(cfg, params, ladder, len(torch_fns), tables)
     if (torch_target is None) != (cfg.targ_kinds is not None):
         raise ValueError("a joint target needs its log density, a product none")
     dev = params.device
@@ -299,23 +305,17 @@ def mcmc_pt_reference(
     adaptive = cfg.mode == Mode.ADAPTIVE
 
     def propose(counter):
-        return [
-            sample_block(kind, q1[j], q2[j], rng, shape, counter, rungs * d + j)
-            for j, kind in enumerate(cfg.prop_kinds)
-        ]
+        return draw_proposal(cfg, q1, q2, rng, shape, counter,
+                             [rungs * d + j for j in dims], tables)
 
     def lp_t(xs):
-        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs)
-
-    def lp_q(xs):
-        return log_proposal(cfg.prop_kinds, q1, q2, xs)
+        return log_target(torch_target, cfg.targ_kinds, t1, t2, xs, tables)
 
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]
 
     if indep:
-        xs = propose(0)
-        logq = lp_q(xs)
+        xs, logq = propose(0)
     else:
         xs = [
             q2[j] + (q3[j] - q2[j])
@@ -363,8 +363,7 @@ def mcmc_pt_reference(
             scale = torch.exp(torch.log(torch.exp(log_scale)))
             eps = [scale * q1[j] for j in dims]
         if indep:
-            xp = propose(3 * i + 1)
-            logq_prop = lp_q(xp)
+            xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = beta * (logp_prop - logp) + logq - logq_prop
         else:
@@ -427,8 +426,10 @@ def mcmc_pt_cuda(
     ladder: torch.Tensor,
     seed: int,
     grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> McmcOutput:
-    """Runs the grid's ladders on ``params``' device.
+    """Runs the grid's ladders on ``params``' device, with ``tables`` (on
+    the same device) where a dimension is CUSTOM.
 
     A CUDA ``params`` launches the kernel: ``mcmc_pt_cuda.launches``
     counts the chain-kernel launches, and ``mcmc_pt_cuda.pilot_launches``
@@ -439,15 +440,17 @@ def mcmc_pt_cuda(
         raise ValueError(
             f"the program was built for {program.compiled}, not {cfg.compiled}"
         )
-    _check_args(cfg, params, ladder, len(program.fns))
+    _check_args(cfg, params, ladder, len(program.fns), tables)
     if params.device.type == "cpu":
         return mcmc_pt_reference(
             program.torch_fns, program.torch_target, cfg, params, ladder,
-            seed, grid,
+            seed, grid, tables,
         )
     if params.device.type != "cuda":
         raise ValueError(f"no tempered MCMC kernel for device {params.device}")
     params, ladder = params.contiguous(), ladder.contiguous()
+    kt = kernel_tables(tables, cfg.d)
+    host_tables = None if kt is None else ctypes.addressof(kt)
     lib = program.library()
     k = len(program.fns)
     dev = params.device
@@ -467,14 +470,16 @@ def mcmc_pt_cuda(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
             err = lib.tmc_mcmc_pt_pilots(
-                word, params.data_ptr(), grid.chains_per_program,
-                grid.programs, pilots.data_ptr(), stream,
+                word, params.data_ptr(), host_tables,
+                grid.chains_per_program, grid.programs, pilots.data_ptr(),
+                stream,
             )
             _raise_on(lib, err, "pilot")
             mcmc_pt_cuda.pilot_launches += 1
         err = lib.tmc_mcmc_pt(
-            word, params.data_ptr(), ladder.data_ptr(), cfg.n_burnin,
-            cfg.n_steps, grid.chains_per_program, grid.chains_actual,
+            word, params.data_ptr(), ladder.data_ptr(), host_tables,
+            cfg.n_burnin, cfg.n_steps, grid.chains_per_program,
+            grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), stream,
         )

@@ -5,12 +5,11 @@ weights (port of ``tpu_montecarlo/tables.py``, pure NumPy).
 The port keeps its own copy rather than importing the JAX package's
 module (importing it would start JAX).  Every function here gives the JAX
 package's result bit for bit on the same inputs
-(``tests/test_torch_tables.py``).  The MCMC log-table helpers
-(``downsample_log_table``, ``guard_proposal_log_floor``,
-``log_pdf_from_pdf``) are not here yet: they come with MCMC over CUSTOM
-tables (ROADMAP.md, queue 1 item 6.6).  Behaviour (grids, thresholds,
-normalisation, sanitisation) mirrors the reference implementation
-(reference: python/wgpu_montecarlo/__init__.py:88-251).
+(``tests/test_torch_tables.py``, ``tests/test_torch_mcmc_custom.py`` for
+the MCMC log-table helpers ``downsample_log_table``,
+``guard_proposal_log_floor`` and ``log_pdf_from_pdf``).  Behaviour
+(grids, thresholds, normalisation, sanitisation) mirrors the reference
+implementation (reference: python/wgpu_montecarlo/__init__.py:88-251).
 """
 
 from __future__ import annotations
@@ -27,13 +26,16 @@ __all__ = [
     "compute_cdf_table",
     "compute_inverse_cdf_table",
     "compute_pdf_table",
+    "downsample_log_table",
     "downsample_pdf_table",
     "find_support",
     "find_zero_density_gaps",
     "gapped_inverse_tables",
     "gapped_stratified_tables",
+    "guard_proposal_log_floor",
     "inverse_table_distorts",
     "is_uniform_grid",
+    "log_pdf_from_pdf",
     "needs_exact_inverse",
     "resample_uniform_table",
     "sample_intervals_distort",
@@ -435,6 +437,87 @@ def resample_uniform_table(
     return None
 
 
+def downsample_log_table(
+    lx: np.ndarray,
+    lp: np.ndarray,
+    bound: float = 0.01,
+    max_nats: float = 2.0,
+    floor_margin: float = -90.0,
+    min_knots: int = 128,
+    strict: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Shrink a uniform-grid log-pdf table to the smallest knot count whose
+    linear interpolant is statistically indistinguishable from the
+    original — in-kernel lookups scan one lane-gather per 128-knot
+    segment, so a 512-knot table costs 4 gathers where 2048 costs 16.
+
+    Default (``strict=False``, safe for MH TARGET tables, where the
+    algorithm samples the table-defined target exactly, so table
+    distortion maps directly to target distortion): the error allowance is
+    density-weighted — a log-space error of e nats at density p perturbs
+    the target by |e|*p in absolute density, so the per-knot allowance is
+    ``bound * p_max / p`` capped at ``max_nats`` — and coarse intervals
+    touching a -100 floor knot are exempt (no grid represents a cliff
+    mid-interval) provided they jointly carry at most ``bound`` of the
+    total mass.  Net moment distortion: O(bound).
+
+    ``strict=True`` (required for PROPOSAL tables): flat ``bound``-nat
+    allowance at every knot away from the floor, no cliff exemption.  An
+    independence sampler's q-table must match the sampling density
+    everywhere the sampler emits — a state whose log q reads tens of nats
+    low becomes an absorbing trap, and the occupancy inflation e^err is
+    NOT bounded by the mis-modeled region's mass (observed: a smeared
+    hard-gap edge biased a uniform-target mean by 0.09).  Tables with
+    cliffs bordered by appreciable density therefore keep full resolution
+    as proposals.
+
+    Returns the original table when no smaller grid qualifies."""
+    lx = np.asarray(lx)
+    lp = np.asarray(lp)
+    n = len(lx)
+    lp_max = float(np.max(lp))
+    if strict:
+        allowed = np.full(lp.shape, bound)
+    else:
+        allowed = np.minimum(
+            bound * np.exp(np.minimum(lp_max - lp, 50.0)), max_nats
+        )
+    p = np.exp(np.minimum(lp - lp_max, 0.0))  # relative density
+    total_mass = float(np.sum(p))
+    floor_fine = lp <= floor_margin
+    m = min_knots
+    while m < n:
+        cx = np.linspace(lx[0], lx[-1], m)
+        cl = np.interp(cx, lx, lp)
+        back = np.interp(lx, cx, cl)
+        if strict:
+            # every knot the sampler can emit must meet the bound — no
+            # exemption for coarse values that dipped below the floor
+            # (that is exactly the absorbing-trap shape).
+            mask = ~floor_fine
+            ok_mass = True
+        else:
+            # Fine knots inside (or adjacent to) a coarse interval that
+            # contains a floor knot: cliff neighbourhoods, exempt from
+            # the nat bound but capped in mass.
+            iv = np.clip(
+                ((lx - lx[0]) / (cx[1] - cx[0])).astype(np.int64), 0, m - 2
+            )
+            floor_iv = np.zeros(m - 1, bool)
+            np.logical_or.at(floor_iv, iv, floor_fine)
+            pad = np.zeros(m - 1, bool)
+            pad[:-1] |= floor_iv[1:]
+            pad[1:] |= floor_iv[:-1]
+            cliff = (floor_iv | pad)[iv]
+            excluded_mass = float(np.sum(p[cliff & ~floor_fine]))
+            ok_mass = excluded_mass <= bound * max(total_mass, 1e-30)
+            mask = ~cliff
+        if ok_mass and not np.any(np.abs(back - lp)[mask] > allowed[mask]):
+            return cx.astype(np.float32), cl.astype(np.float32)
+        m *= 2
+    return lx, lp
+
+
 def downsample_pdf_table(
     x: np.ndarray,
     v: np.ndarray,
@@ -474,6 +557,39 @@ def downsample_pdf_table(
             return cx.astype(np.float32), cv.astype(np.float32)
         m *= 2
     return x, v
+
+
+def guard_proposal_log_floor(
+    lp: np.ndarray, floor_margin: float = -90.0
+) -> np.ndarray:
+    """Make an MH PROPOSAL log table safe against edge absorption: every
+    -100 floor knot that borders a non-floor knot is raised to its highest
+    non-floor neighbour.
+
+    The sampler emits inside the boundary trapezoid (density falls
+    linearly to zero toward a support edge or gap edge), but interpolating
+    the log table toward the -100 floor knot reads tens of nats BELOW the
+    sampler's true density there — states in that band become absorbing
+    (log alpha to leave ~ log q(state), acceptance collapses as chains
+    accumulate; measured: E[X^2] under a uniform target drifted from 0.343
+    to 0.280 over 5000 steps with a gapped proposal).  Raising the edge
+    knot makes the table OVERestimate q across the boundary interval,
+    which only under-occupies a band holding O(knot) mass.  Floors deeper
+    than one knot (true gap/tail interiors, never emitted) keep -100."""
+    lp = np.asarray(lp, np.float32).copy()
+    floor = lp <= floor_margin
+    neg_inf = np.float32(-np.inf)
+    left = np.concatenate([[neg_inf], lp[:-1]])
+    left_floor = np.concatenate([[True], floor[:-1]])
+    right = np.concatenate([lp[1:], [neg_inf]])
+    right_floor = np.concatenate([floor[1:], [True]])
+    cand = np.maximum(
+        np.where(left_floor, neg_inf, left),
+        np.where(right_floor, neg_inf, right),
+    )
+    lift = floor & np.isfinite(cand)
+    lp[lift] = cand[lift]
+    return lp
 
 
 def find_zero_density_gaps(
@@ -605,3 +721,20 @@ def gapped_stratified_tables(
     t, dt = _gapped_tables_for_grid(u, x64, c64, gaps)
     return t.astype(np.float32), dt.astype(np.float32)
 
+
+def log_pdf_from_pdf(
+    pdf_table: np.ndarray,
+    min_log_value: float = LOG_PDF_FLOOR,
+) -> np.ndarray:
+    """Convert PDF values to log-space with a finite floor.
+
+    pdf > 0  -> log(max(pdf, 1e-16))
+    pdf <= 0 -> ``min_log_value``
+    (reference: __init__.py:572-596)
+    """
+    pdf_table = np.asarray(pdf_table)
+    return np.where(
+        pdf_table > 0,
+        np.log(np.maximum(pdf_table, 1e-16)),
+        min_log_value,
+    ).astype(np.float32)

@@ -12,28 +12,29 @@ __all__ = [
     "MCMC_SAMPLES",
     "MCMC_SERVING",
     "MCMC_STATE",
+    "MCMC_TABLES_XLA",
     "MCMC_WIDE",
     "MESH",
     "ND_CUSTOM",
     "ND_CV",
     "ND_FAMILIES",
     "ND_IS",
-    "ND_MCMC_CUSTOM",
     "ND_MCMC_DIAGNOSTICS",
     "ND_MCMC_FAMILIES",
     "ND_MCMC_HMC",
     "ND_MCMC_SAMPLES",
     "ND_MCMC_SERVING",
     "ND_MCMC_STATE",
+    "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
     "ND_SERVING",
     "ND_WIDE",
-    "PT_CUSTOM",
     "PT_DIAGNOSTICS",
     "PT_FAMILIES",
     "PT_HMC",
     "PT_SAMPLES",
     "PT_SERVING",
+    "PT_TABLES_XLA",
     "PT_WIDE",
     "SERVING",
     "TEMPERING",
@@ -53,10 +54,14 @@ MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 6.3 (MCMC diagnostics)"
 MCMC_SAMPLES = "ROADMAP.md, queue 1 item 6.4 (MCMC samples)"
 MCMC_SERVING = "ROADMAP.md, queue 1 item 6.5 (compile_mcmc and batches)"
 MCMC_FAMILIES = (
-    "ROADMAP.md, queue 1 item 6.6 (MCMC over CUSTOM tables and the "
-    "extended families)"
+    "ROADMAP.md, queue 1 item 6.6 (MCMC over the extended families, with "
+    "item 2.2)"
 )
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
+MCMC_TABLES_XLA = (
+    "ROADMAP.md, queue 1 item 6.8 (MCMC over the CUSTOM tables the JAX "
+    "package runs on its XLA sweep)"
+)
 ND_CUSTOM = "ROADMAP.md, queue 1 item 7.1 (nd integrate over CUSTOM dimensions)"
 ND_FAMILIES = "ROADMAP.md, queue 1 item 7.2 (nd integrate over the extended families)"
 ND_IS = "ROADMAP.md, queue 1 item 7.3 (nd importance sampling)"
@@ -69,9 +74,6 @@ ND_CV = (
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
 ND_MCMC_HMC = "ROADMAP.md, queue 1 item 8.1 (nd HMC)"
-ND_MCMC_CUSTOM = (
-    "ROADMAP.md, queue 1 item 8.2 (nd MCMC over CUSTOM dimensions)"
-)
 ND_MCMC_SAMPLES = "ROADMAP.md, queue 1 item 8.3 (nd MCMC samples)"
 ND_MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 8.4 (nd MCMC diagnostics)"
 ND_MCMC_STATE = "ROADMAP.md, queue 1 item 8.5 (nd MCMC state and resume)"
@@ -85,12 +87,12 @@ ND_MCMC_FAMILIES = (
 ND_MCMC_WIDE = (
     "ROADMAP.md, queue 1 item 8.8 (nd MCMC over more than 127 functions)"
 )
+ND_MCMC_TABLES_XLA = (
+    "ROADMAP.md, queue 1 item 8.9 (nd MCMC over the CUSTOM dimensions the "
+    "JAX package runs on its XLA sweep)"
+)
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
 PT_HMC = "ROADMAP.md, queue 1 item 9.1 (tempered HMC)"
-PT_CUSTOM = (
-    "ROADMAP.md, queue 1 item 9.2 (tempering over CUSTOM target and "
-    "proposal dimensions)"
-)
 PT_SAMPLES = "ROADMAP.md, queue 1 item 9.3 (tempered cold-rung samples)"
 PT_DIAGNOSTICS = "ROADMAP.md, queue 1 item 9.4 (tempered split-R-hat and ESS)"
 PT_SERVING = (
@@ -102,6 +104,10 @@ PT_FAMILIES = (
 )
 PT_WIDE = (
     "ROADMAP.md, queue 1 item 9.7 (tempering over more than 126 functions)"
+)
+PT_TABLES_XLA = (
+    "ROADMAP.md, queue 1 item 9.8 (tempering over the CUSTOM dimensions the "
+    "JAX package runs on its XLA sweep)"
 )
 API_SURFACE = "ROADMAP.md, queue 1 item 10 (remaining API surface)"
 MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
