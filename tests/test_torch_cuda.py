@@ -1542,6 +1542,17 @@ CUSTOM_MCMC_CASES = {
 def custom_mcmc_setup(case, device, n_steps, n_burnin):
     """(run kernel, run plain version, cfg, k) of a CUSTOM MCMC case on
     ``device``, set up as the public path sets it up."""
+    path, fns, target, proposal, temps, stderr = CUSTOM_MCMC_CASES[case]
+    return public_mcmc_setup(path, fns, _custom_spec(target),
+                             _custom_spec(proposal), temps, stderr, device,
+                             n_steps, n_burnin)
+
+
+def public_mcmc_setup(path, fns, target, proposal, temps, stderr, device,
+                      n_steps, n_burnin):
+    """(run kernel, run plain version, cfg, k) of an MCMC run on the 1-D
+    ("1d"), nd ("nd") or tempered ("pt") kernel, set up as the public path
+    sets it up: the same routes, parameter rows and device tables."""
     from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
     from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
         mcmc_nd_cuda,
@@ -1552,9 +1563,7 @@ def custom_mcmc_setup(case, device, n_steps, n_burnin):
         mcmc_pt_reference,
     )
 
-    path, fns, target, proposal, temps, stderr = CUSTOM_MCMC_CASES[case]
     integ = tm.MonteCarloIntegrator(device=device)
-    target, proposal = _custom_spec(target), _custom_spec(proposal)
     if path == "1d":
         prog, cfg, params, tables = integ._mcmc_kernel_program(
             integ._trace_user_functions(fns), target, proposal, n_steps,
@@ -1580,14 +1589,15 @@ def custom_mcmc_setup(case, device, n_steps, n_burnin):
             cfg, len(fns))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CUSTOM_MCMC_CASES))
-def test_custom_mcmc_kernel_matches_plain_version(cuda_device, case):
+def check_public_mcmc(path, setup, max_split=0.01):
+    """The kernel against its plain version at 4096 chains: at most
+    ``max_split`` of the chains split, acceptance within 1e-3, means within
+    0.2 standard errors + 1e-6, error bars within STDERR_RTOL, swap rates
+    within 1e-3."""
     from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
     from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda, pt_finish
 
-    path = CUSTOM_MCMC_CASES[case][0]
-    kernel, plain, cfg, k = custom_mcmc_setup(case, cuda_device, 1000, 200)
+    kernel, plain, cfg, k = setup
     grid = plan_mcmc_grid(plan_chains(4096, None))
     wrapper = {"1d": mcmc_cuda, "nd": mcmc_nd_cuda, "pt": mcmc_pt_cuda}[path]
     before = wrapper.launches
@@ -1599,7 +1609,7 @@ def test_custom_mcmc_kernel_matches_plain_version(cuda_device, case):
     x_p = want.x_final.reshape(-1, grid.chains_actual).cpu()
     assert torch.isfinite(x_k).all()
     split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0).float().mean()
-    assert split <= 0.01, f"{float(split):.2%} of the chains split"
+    assert split <= max_split, f"{float(split):.2%} of the chains split"
     v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
     v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
     _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
@@ -1612,6 +1622,13 @@ def test_custom_mcmc_kernel_matches_plain_version(cuda_device, case):
     if path == "pt":
         sw_k, sw_p = (float(pt_finish(o, grid, cfg, k)[2]) for o in (got, want))
         assert abs(sw_k - sw_p) <= 1e-3 and 0.0 < sw_k < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUSTOM_MCMC_CASES))
+def test_custom_mcmc_kernel_matches_plain_version(cuda_device, case):
+    check_public_mcmc(CUSTOM_MCMC_CASES[case][0],
+                      custom_mcmc_setup(case, cuda_device, 1000, 200))
 
 
 @pytest.mark.cuda
@@ -1644,3 +1661,170 @@ def test_custom_mcmc_kernel_rejects_missing_tables(cuda_device):
     cpu_tables = mcmc_dim_tables(None, _custom_dist("bimodal"), "cpu")
     with pytest.raises(ValueError, match="lie on cpu"):
         mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024), cpu_tables)
+
+
+# -- the extended families ---------------------------------------------------
+#
+# Lognormal, Cauchy, Laplace, logistic, Gumbel, Weibull and Pareto through
+# the five kernels, each against its plain version on the card.  An
+# extended family compiles into 1-D integrate libraries of its own
+# (TMC_FAMILY); the fixture builds them all at once, one nvcc each.  Means
+# within RTOL + ATOL times each column's size (its mean |value| on the
+# pilot grid): a Cauchy sample reaches 6e6, so a column of x sums terms
+# that large, in two orders.
+
+FAMILY_ARGS = {
+    "lognormal": (0.0, 0.5), "cauchy": (0.0, 1.0), "laplace": (3.0, 1.0),
+    "logistic": (0.0, 2.0), "gumbel": (1.0, 0.5), "weibull": (1.5, 2.0),
+    "pareto": (1.0, 3.0),
+}
+FAMILY_FNS = [lambda x: x, lambda x: x * x, lambda x: np.exp(-x * x),
+              lambda x: x > 1.0]
+
+
+def _family_dist(name, *args):
+    return getattr(tm.Distribution, name)(*(args or FAMILY_ARGS[name]))
+
+
+@pytest.fixture(scope="module")
+def family_program():
+    """The 1-D program of FAMILY_FNS with every family's library in every
+    mode built, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        library_route,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    program = _program(FAMILY_FNS)
+    cfgs = [IntegrateConfig(*m) for m in [("mc", False), *MODES_1D.values()]]
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        for f in [pool.submit(program.library, c,
+                              library_route(DistKind[name.upper()]))
+                  for name in FAMILY_ARGS for c in cfgs]:
+            f.result()
+    return program
+
+
+def _check_family(runs, program, dist, device):
+    from tpu_montecarlo_torch.ops.integrate_kernel import pilot_values
+
+    (m_k, s_k), (m_p, s_p) = runs
+    spec = dist_spec_of(dist)
+    size = pilot_values(lambda x: [v.abs() for v in program.torch_values(x)],
+                        spec.kind, torch.tensor(spec.params, device=device))
+    size = np.maximum(size.double().cpu().numpy(), np.abs(m_p))
+    assert np.all(np.isfinite(m_k))
+    assert np.all(np.abs(m_k - m_p) <= RTOL * np.abs(m_p) + ATOL * size)
+    if s_p is not None:
+        assert np.all(np.abs(s_k - s_p)
+                      <= STDERR_1D_RTOL * s_p + STDERR_1D_ATOL * size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc"] + list(MODES_1D))
+@pytest.mark.parametrize("name", list(FAMILY_ARGS))
+def test_family_kernel_matches_plain_version(cuda_device, family_program, name,
+                                             mode):
+    method, with_stderr = MODES_1D.get(mode, ("mc", False))
+    dist = _family_dist(name)
+    runs = _modes_kernel_and_plain(family_program, dist, method, with_stderr,
+                                   cuda_device, 1 << 22)
+    _check_family(runs, family_program, dist, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc", "antithetic-stderr", "qmc"])
+def test_family_importance_kernel_matches_plain_version(cuda_device, mode):
+    # A Laplace target under a logistic proposal, both traced densities.
+    method, with_stderr = MODES_1D.get(mode, ("mc", False))
+    target, proposal = _family_dist("laplace"), _family_dist("logistic", 2.5, 2.0)
+    program = _program(FAMILY_FNS[:2], tuple(
+        tm.trace_function(d._pdf_func) for d in (target, proposal)))
+    runs = _modes_kernel_and_plain(program, proposal, method, with_stderr,
+                                   cuda_device, 1 << 22)
+    _check_family(runs, program, proposal, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILY_ARGS))
+def test_family_integrate_on_cuda_matches_cpu(cuda_device, name):
+    before = integrate_cuda.launches
+    got = tm.integrate(FAMILY_FNS, _family_dist(name), n_samples=1 << 21,
+                       device=cuda_device, method="qmc", return_stderr=True,
+                       qmc_rotations=4)
+    assert integrate_cuda.launches == before + 4
+    want = tm.integrate(FAMILY_FNS, _family_dist(name), n_samples=1 << 21,
+                        device="cpu", method="qmc", return_stderr=True,
+                        qmc_rotations=4)
+    size = np.maximum(np.abs(want.values), 1.0)
+    assert np.all(np.abs(got.values - want.values) <= 1e-5 * size)
+
+
+FAMILY_ND_DISTS = [
+    [_family_dist(n) for n in ("lognormal", "cauchy", "laplace", "logistic")],
+    [_family_dist(n) for n in ("gumbel", "weibull", "pareto")]
+    + [tm.Distribution.normal(0.0, 1.0)],
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,with_stderr", ND_MODES,
+                         ids=[f"{m}{'-stderr' if s else ''}" for m, s in ND_MODES])
+@pytest.mark.parametrize("dims", [0, 1], ids=["lognormal-cauchy-laplace-logistic",
+                                              "gumbel-weibull-pareto-normal"])
+def test_family_nd_kernel_matches_plain_version(cuda_device, dims, method,
+                                                with_stderr):
+    fns = [lambda a, b, c, d: np.exp(-a * a) * c + d, lambda a, b, c, d: (b > 1.0) + a * d]
+    got, want = _nd_kernel_and_plain(fns, FAMILY_ND_DISTS[dims], method,
+                                     with_stderr, cuda_device, 1 << 22)
+    assert np.all(np.isfinite(got[0]))
+    np.testing.assert_allclose(got[0], want[0], rtol=RTOL, atol=1e-5)
+    if with_stderr:
+        np.testing.assert_allclose(got[1], want[1], rtol=ND_STDERR_RTOL)
+
+
+_F1F = [lambda x: x, lambda x: np.exp(-x * x)]
+_F2F = [lambda x, y: x * y, lambda x, y: x + y]
+# id: (path, fns, target, proposal, temperatures or None, stderr); a name
+# is a family at FAMILY_ARGS, a tuple a family at its own parameters.
+FAMILY_MCMC_CASES = {
+    "laplace-target-logistic-proposal": ("1d", _F1F, "laplace", ("logistic", 0.0, 2.0), None, True),
+    "cauchy-target-cauchy-proposal": ("1d", _F1F, "cauchy", ("cauchy", 0.0, 2.0), None, False),
+    "gumbel-target-walk": ("1d", _F1F, "gumbel", dict(step_size=0.6), None, False),
+    "weibull-target-pareto-proposal": ("1d", _F1F, "weibull", ("pareto", 0.2, 1.5), None, False),
+    "pareto-target-adaptive-walk": ("1d", _F1F, "pareto", dict(adapt=True), None, True),
+    "lognormal-target-gumbel-proposal": ("1d", _F1F, "lognormal", ("gumbel", 1.0, 0.6), None, False),
+    "nd-lognormal-gumbel": ("nd", _F2F, ["lognormal", "gumbel"],
+                            [("weibull", 1.5, 2.0), ("logistic", 1.0, 1.0)], None, True),
+    "nd-walk-cauchy-laplace": ("nd", _F2F, ["cauchy", "laplace"],
+                               dict(step_size=[2.0, 1.0], adapt=True), None, False),
+    "pt-gumbel-target": ("pt", _F1F, "gumbel",
+                         dict(step_size=0.5, adapt=True, init_range=(0.0, 2.0)),
+                         [1.0, 2.0, 4.0], True),
+    "pt-cauchy-proposals": ("pt", _F2F, ["laplace", "logistic"],
+                            [("cauchy", 3.0, 1.0), ("cauchy", 0.0, 2.0)], [1.0, 2.5],
+                            False),
+}
+
+
+def _family_spec(spec):
+    if isinstance(spec, dict):
+        return tm.RandomWalk(**spec)
+    if isinstance(spec, list):
+        return [_family_spec(s) for s in spec]
+    if isinstance(spec, str):
+        return _family_dist(spec)
+    return _family_dist(*spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FAMILY_MCMC_CASES))
+def test_family_mcmc_kernels_match_plain_versions(cuda_device, case):
+    path, fns, target, proposal, temps, stderr = FAMILY_MCMC_CASES[case]
+    check_public_mcmc(path, public_mcmc_setup(
+        path, fns, _family_spec(target), _family_spec(proposal), temps, stderr,
+        cuda_device, 1000, 200))

@@ -194,10 +194,10 @@ def test_heavy_tail_from_pdf_second_moment():
 
 
 def test_gapped_heavy_tail_mixture():
-    # tests/test_mixture.py's separated heavy-tailed modes, with Cauchy as
-    # Student-t(1) (the port's Cauchy factory is item 2.2): both gapped
-    # and heavy, so the knot-exact route; the median band holds.
-    d = D.mixture([D.student_t(1.0, loc=-500.0), D.student_t(1.0, loc=500.0)])
+    # tests/test_mixture.py's separated heavy-tailed modes, two Cauchy
+    # components: both gapped and heavy, so the knot-exact route; the
+    # median band holds.
+    d = D.mixture([D.cauchy(-500.0, 1.0), D.cauchy(500.0, 1.0)])
     spec = dist_spec_of(d)
     assert spec.exact_inverse and spec.heavy_tail
     got = _integrate([lambda x: 1.0 * (x > 0.0), lambda x: 1.0 * (abs(x) < 400.0)],

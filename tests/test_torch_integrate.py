@@ -236,8 +236,6 @@ def test_other_surfaces_not_ported_yet():
             control_variates=[(lambda x, y: y, 0.0)],
         ),
         lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
-        lambda: tm.Distribution.lognormal(0.0, 1.0),
-        lambda: tm.Distribution.from_reference(jmc.Distribution.cauchy(0.0, 1.0)),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -11,7 +11,8 @@ host's g++ and held against the formulas the rest of the port uses.
   integrand calls.
 * Each rewritten transform is held against the reference formula
   (``tmc::transform``, which the MCMC kernels and the plain version follow;
-  the antithetic pair as written below) over all 2^24 mantissas.  Built
+  the antithetic pair as written below) over all 2^24 mantissas.  The
+  extended families' rows are not rewritten: bit-equal.  Built
   with ``TMC_CONTRACT=0`` the uniform and normal rewrites (the 2^-32 and
   2^-31 scalings, the clamps) are bit-equal.  With the fused multiply-adds
   of the default build, the largest gap allowed is 1 ulp of the larger
@@ -31,7 +32,7 @@ import torch
 
 from tpu_montecarlo_torch.ops.build import CSRC
 from tpu_montecarlo_torch.ops.integrate_kernel import CounterRng
-from tpu_montecarlo_torch.sampling import DistKind
+from tpu_montecarlo_torch.sampling import ANALYTIC_EXT, DistKind
 
 N_MANTISSAS = 1 << 24
 TILE = 1 << 15
@@ -132,10 +133,14 @@ static void reference_pair(int kind, uint32_t m, float p1, float p2, float& a,
     const float z = normal_from_u01(halfopen01(m));
     a = p1 + p2 * z;
     b = p1 - p2 * z;
-  } else {
+  } else if (kind == kExponential) {
     const float u = open01(m);
     a = -logf(fmaxf(u, kULo)) / p1;
     b = -logf(fmaxf(1.0f - u, kULo)) / p1;
+  } else {
+    const float u = halfopen01(m);
+    a = ext_inv(kind, u, p1, p2);
+    b = ext_inv(kind, 1.0f - u, p1, p2);
   }
 }
 
@@ -258,6 +263,10 @@ FAMILIES = [
     (DistKind.NORMAL, -1.0, 0.5),
     (DistKind.EXPONENTIAL, 2.0, 0.0), (DistKind.EXPONENTIAL, 1.5, 0.0),
     (DistKind.EXPONENTIAL, 1.0, 0.0), (DistKind.EXPONENTIAL, 0.3, 0.0),
+    (DistKind.LOGNORMAL, 0.0, 0.5), (DistKind.CAUCHY, 0.0, 1.0),
+    (DistKind.LAPLACE, 3.0, 1.0), (DistKind.LOGISTIC, 0.0, 2.0),
+    (DistKind.GUMBEL, 1.0, 0.5), (DistKind.WEIBULL, 1.5, 2.0),
+    (DistKind.PARETO, 1.0, 3.0),
 ]
 IDS = [f"{k.name.lower()}({p1},{p2})" for k, p1, p2 in FAMILIES]
 
@@ -281,6 +290,10 @@ def _ulps(reference, rewrite, scale):
 def test_transforms_within_their_ulp_bounds(fused, unfused, kind, p1, p2,
                                             pair):
     reference, rewrite = _samples(fused, kind, pair, p1, p2)
+    if kind in ANALYTIC_EXT:
+        # The extended families take tmc::transform's row as it is.
+        np.testing.assert_array_equal(rewrite, reference)
+        return
     if kind == DistKind.EXPONENTIAL:
         assert _ulps(reference, rewrite, reference).max() <= EXP_ULPS
         if float(np.log2(p1)).is_integer():

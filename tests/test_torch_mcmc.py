@@ -444,8 +444,13 @@ NOT_PORTED = {
         lambda: _call(fns=[f for c in range(128) for f in _make_fns(float(c))]),
         r"item 6\.7",
     ),
+    # Extended families run (tests/test_torch_families_kernels.py); their
+    # seed batches not yet.
     "extended-family": (
-        lambda: _call(target=tm.Distribution.cauchy(0.0, 1.0)), "item 2"
+        lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
+            [lambda x: x], tm.Distribution.cauchy(0.0, 1.0), _Q, seed_batch=4
+        ),
+        r"item 6\.5",
     ),
     "mesh": (lambda: tm.integrate_mcmc([lambda x: x], _T, _Q, mesh="auto"),
              "item 12"),
@@ -459,11 +464,12 @@ def test_out_of_scope_options_raise(case):
         call()
 
 
-def test_other_families_raise_in_the_kernel_wrapper():
+def test_extended_families_run_in_the_kernel_wrapper():
     fns = [to_torch(tm.trace_function(lambda x: x))]
     cfg = McmcConfig(Mode.INDEPENDENCE, DistKind.CAUCHY, _N, 4, 0)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 6\.6"):
-        mcmc_reference(fns, cfg, torch.zeros(6), 1, plan_mcmc_grid(256))
+    params = torch.tensor([0.0, 1.0, 0, 0, 0.0, 1.0])
+    out = mcmc_reference(fns, cfg, params, 1, plan_mcmc_grid(256))
+    assert torch.all(torch.isfinite(out.rows)) and out.x_final.shape == (1024,)
 
 
 ARG_ERRORS = [

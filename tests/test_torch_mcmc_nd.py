@@ -382,8 +382,9 @@ def test_config_and_program_validation():
         McmcNdConfig(Mode.RANDOM_WALK, 2, (n, n), None, 10, 2)
     with pytest.raises(ValueError, match="product target"):
         McmcNdConfig(Mode.RANDOM_WALK, 2, (), (n,), 10, 2)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.7 "):
-        McmcNdConfig(Mode.INDEPENDENCE, 1, (DistKind.CAUCHY,), None, 10, 2)
+    # The extended families are families like the others.
+    assert McmcNdConfig(Mode.INDEPENDENCE, 1, (DistKind.CAUCHY,), None, 10,
+                        2).prop_kinds == (DistKind.CAUCHY,)
     cfg = McmcNdConfig(Mode.RANDOM_WALK, 2, (), None, 10, 2)
     f2 = (tm.trace_function(lambda x, y: x, 2),)
     with pytest.raises(ValueError, match="joint target needs"):
@@ -496,7 +497,6 @@ def test_out_of_scope_options_name_their_roadmap_items():
     f2 = [lambda x, y: x * y]
     n = tm.Distribution.normal(0.0, 1.0)
     heavy = tm.Distribution.student_t(5.0)  # a knot-exact, heavy-tailed table
-    cauchy = tm.Distribution(tm.DistributionType.CAUCHY, {}, lambda x: 1.0)
     wide = [(lambda c: lambda x, y: x + c)(float(c)) for c in range(128)]
     kw = dict(n_steps=10, n_burnin=2)
 
@@ -510,7 +510,6 @@ def test_out_of_scope_options_name_their_roadmap_items():
         r"item 8\.4 ": lambda: run(return_diagnostics=True),
         r"item 8\.5 ": lambda: run(initial_state=object()),
         r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [n, n], [n, n], seed_batch=2),
-        r"item 8\.7 ": lambda: run(proposal=(cauchy, n)),
         r"item 8\.8 ": lambda: run(fns=wide),
         r"item 3 ": lambda: integ.integrate_mcmc(
             f2, "fn f(x: f32, y: f32) -> f32 { return -x * x; }",

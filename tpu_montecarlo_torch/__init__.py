@@ -3,7 +3,9 @@ one NVIDIA H100.
 
 The port so far covers the fused 1-D ``integrate`` path (the integrand
 front end, the counter-based sample stream and the radical inverse, the
-uniform, normal and exponential families, plain MC, antithetic and QMC
+uniform, normal and exponential families, the seven extended families
+(lognormal, Cauchy, Laplace, logistic, Gumbel, Weibull, Pareto) and
+CUSTOM tables, plain MC, antithetic and QMC
 with error bars, and a hand-written CUDA kernel that fuses up to 128
 integrands over one shared stream); importance sampling,
 ``integrate_importance_sampling``, with closed-form weights folded into

@@ -55,8 +55,9 @@ class _ImportanceMixin:
         """Compute E_p[f(X)] sampling from q with weights p(x)/q(x).
 
         All K functions share samples and see identical weights:
-        ``f(x) * where(q > 0, p(x) / q(x), 0)``.  The proposal is a uniform, normal, exponential or
-        CUSTOM Distribution.  A density that traces is evaluated in closed
+        ``f(x) * where(q > 0, p(x) / q(x), 0)``.  The proposal is a
+        Distribution of any family: closed-form (uniform, normal,
+        exponential, the extended families) or CUSTOM.  A density that traces is evaluated in closed
         form; one that does not is read from its pdf table (the module
         docstring lists the routes).
 

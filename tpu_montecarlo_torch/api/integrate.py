@@ -31,7 +31,6 @@ from ..utils.roadmap import (
     API_SURFACE,
     ND_CUSTOM,
     ND_CV,
-    ND_FAMILIES,
     ND_SERVING,
     ND_WIDE,
     VARIANTS,
@@ -40,13 +39,6 @@ from ..utils.roadmap import (
 from .cache import fns_key
 from .device import sampling_tables
 from .results import IntegrationResult
-
-_PORTED_ND_TYPES = (
-    DistributionType.UNIFORM,
-    DistributionType.NORMAL,
-    DistributionType.EXPONENTIAL,
-)
-
 
 def _as_dims(distribution):
     """The per-dimension Distributions of a sequence, or None for one
@@ -63,16 +55,11 @@ def _as_dims(distribution):
 
 
 def _nd_specs(dists):
-    """Packed specs of nd dimensions; the families the nd kernel does not
-    take yet raise, naming their ROADMAP item."""
+    """Packed specs of nd dimensions; CUSTOM dimensions, which the nd
+    kernel does not take yet, raise naming their ROADMAP item."""
     for dd in dists:
         if dd.dist_type == DistributionType.CUSTOM:
             raise not_ported("CUSTOM dimensions in nd integrate", ND_CUSTOM)
-        if dd.dist_type not in _PORTED_ND_TYPES:
-            raise not_ported(
-                f"{dd.dist_type.name.lower()} dimensions in nd integrate",
-                ND_FAMILIES,
-            )
     return [dist_spec_of(dd) for dd in dists]
 
 
@@ -95,7 +82,9 @@ class _IntegrateMixin:
         divide by ``actual_samples`` in float32 and come back float64.
 
         ``distribution`` may be a list of d >= 2 per-dimension
-        Distributions (uniform, normal, exponential) for d-ary functions,
+        Distributions (uniform, normal, exponential or an extended
+        family: lognormal, Cauchy, Laplace, logistic, Gumbel, Weibull,
+        Pareto) for d-ary functions,
         E[f_i(X_1, ..., X_d)] over independent dimensions.  Then
         ``method`` may be ``"mc"``, ``"antithetic"`` (each uniform vector
         also mirrored, ``1 - u``, through every dimension) or ``"qmc"``
@@ -107,7 +96,8 @@ class _IntegrateMixin:
         the mean of the rotations, and their spread over
         sqrt(rotations)).
 
-        One Distribution (uniform, normal, exponential, or CUSTOM:
+        One Distribution (uniform, normal, exponential, an extended
+        family, or CUSTOM:
         ``from_pdf``, ``from_pdf_table``, ``beta``, ``gamma``,
         ``student_t``, ``chi2``, ``mixture``) takes the same methods and
         error bars: ``"antithetic"`` maps each uniform at ``u`` and ``1 -

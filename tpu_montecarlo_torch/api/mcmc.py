@@ -125,7 +125,7 @@ class _McmcMixin:
         Not ported yet, each raising ``NotImplementedError`` naming its
         ROADMAP item: ``initial_state``/``return_state``,
         ``return_diagnostics``, ``return_samples``, HMC (tempered too),
-        the extended families, the CUSTOM tables the JAX package sends to
+        the CUSTOM tables the JAX package sends to
         its XLA sweep (heavy-tailed proposals, tables with no uniform
         grid), more than 127 functions.
         """

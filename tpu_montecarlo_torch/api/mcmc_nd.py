@@ -17,7 +17,7 @@ import inspect
 import numpy as np
 import torch
 
-from ..distributions import HMC, Distribution, DistributionType, RandomWalk
+from ..distributions import HMC, Distribution, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     Mode,
@@ -30,7 +30,6 @@ from ..sampling import DistKind, dist_spec_of
 from ..utils.roadmap import (
     FRONT_END,
     ND_MCMC_DIAGNOSTICS,
-    ND_MCMC_FAMILIES,
     ND_MCMC_HMC,
     ND_MCMC_SAMPLES,
     ND_MCMC_STATE,
@@ -41,14 +40,6 @@ from ..utils.roadmap import (
 from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
 from .results import IntegrationResult
-
-_PORTED_TYPES = (
-    DistributionType.UNIFORM,
-    DistributionType.NORMAL,
-    DistributionType.EXPONENTIAL,
-    DistributionType.CUSTOM,
-)
-
 
 def is_nd_call(target, proposal) -> bool:
     """``tpu_montecarlo/api/mcmc.py:217-224``: a proposal sequence, a
@@ -96,19 +87,6 @@ def _target_arity(target) -> int:
             inspect.Parameter.POSITIONAL_OR_KEYWORD,
         )
     )
-
-
-def _dim_specs(dists, what="nd MCMC", families_item=ND_MCMC_FAMILIES):
-    """Packed specs of MCMC dimensions; the families the kernel does not
-    take yet raise, naming their ROADMAP item (``what`` names the path in
-    the message)."""
-    for dd in dists:
-        if dd.dist_type not in _PORTED_TYPES:
-            raise not_ported(
-                f"{dd.dist_type.name.lower()} dimensions in {what}",
-                families_item,
-            )
-    return [dist_spec_of(dd) for dd in dists]
 
 
 def _table_routes(proposals, prop_specs, targets, targ_specs, what, item,
@@ -268,8 +246,10 @@ class _McmcNdMixin:
         CUSTOM dimensions' tables).  ``parsed`` is
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
         proposals, targets, target_fn, d = parsed
-        prop_specs = None if proposals is None else _dim_specs(proposals)
-        targ_specs = None if targets is None else _dim_specs(targets)
+        prop_specs = (None if proposals is None
+                      else [dist_spec_of(p) for p in proposals])
+        targ_specs = (None if targets is None
+                      else [dist_spec_of(t) for t in targets])
         gapped = _table_routes(proposals, prop_specs, targets, targ_specs,
                                "nd MCMC", ND_MCMC_TABLES_XLA)
         traced = self._trace_user_functions(functions, n_args=d)

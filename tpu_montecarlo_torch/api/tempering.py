@@ -25,9 +25,9 @@ from ..ops.mcmc_pt_kernel import (
     pack_ladder,
     pt_finish,
 )
+from ..sampling import dist_spec_of
 from ..utils.roadmap import (
     PT_DIAGNOSTICS,
-    PT_FAMILIES,
     PT_HMC,
     PT_SAMPLES,
     PT_TABLES_XLA,
@@ -36,12 +36,8 @@ from ..utils.roadmap import (
 )
 from .cache import fns_key
 from .mcmc import _check_random_walk_args
-from .mcmc_nd import _dim_specs, _table_routes, dim_tables
+from .mcmc_nd import _table_routes, dim_tables
 from .results import IntegrationResult
-
-
-def _pt_dim_specs(dists):
-    return _dim_specs(dists, "tempered MCMC", PT_FAMILIES)
 
 
 class _PtMixin:
@@ -137,8 +133,10 @@ class _PtMixin:
                 f"tempering over more than {MAX_PT_FUNCTIONS} functions",
                 PT_WIDE,
             )
-        prop_specs = None if proposals is None else _pt_dim_specs(proposals)
-        targ_specs = None if targets is None else _pt_dim_specs(targets)
+        prop_specs = (None if proposals is None
+                      else [dist_spec_of(p) for p in proposals])
+        targ_specs = (None if targets is None
+                      else [dist_spec_of(t) for t in targets])
         _table_routes(proposals, prop_specs, targets, targ_specs,
                       "tempered MCMC", PT_TABLES_XLA, gapped_ok=False)
         mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,

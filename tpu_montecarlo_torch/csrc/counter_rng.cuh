@@ -9,8 +9,20 @@
 // 2654435761).  Uniforms come from the top 24 bits; tmc::transform turns
 // them into a sample of the family with the JAX kernels' formulas and
 // float32 operation order (sampling.normal_from_u01, the exponential
-// inverse transform, the uniform's clamp below its open bound), and
+// inverse transform, the uniform's clamp below its open bound, and the
+// extended families' registry rows, sampling.ANALYTIC_EXT), and
 // tmc::log_pdf the MCMC kernels' closed-form log densities.
+//
+// The extended families (kLognormal .. kPareto) are one row each: an
+// inverse CDF of a [0, 1) uniform, which clamps it into [1e-7, 1 - 1e-7]
+// (tmc::ext_inv), and a log density floored at kLogPdfFloor
+// (tmc::ext_log_pdf), in the JAX expressions' float32 order (the kernels
+// build with --fmad=false).  Cauchy's tangent is the JAX package's
+// polynomial (tmc::fast_tan, ops/fast_math.py there), not libdevice tanf:
+// that polynomial, with the fused multiply-adds the JAX package's CPU
+// compiler gives it, defines its Cauchy samples.  A kernel
+// calls these rows with a compile-time family, so a library compiles in
+// only the rows it draws.
 //
 // The CUSTOM family's table primitives follow: a table read (tmc::ldg),
 // the flat inverse-CDF draw with its slope, the padded uniform-grid
@@ -31,7 +43,19 @@ constexpr float kSqrt2 = 1.41421353816986083984375f;  // float32(sqrt 2)
 constexpr float kSqrt2Pi = 2.5066282749176025390625f;  // float32(2.50662827463)
 constexpr float kLogPdfFloor = -100.0f;
 
-enum Kind { kUniform = 0, kNormal = 1, kExponential = 2, kCustom = 3 };
+enum Kind {
+  kUniform = 0,
+  kNormal = 1,
+  kExponential = 2,
+  kCustom = 3,
+  kLognormal = 4,
+  kCauchy = 5,
+  kLaplace = 6,
+  kLogistic = 7,
+  kGumbel = 8,
+  kWeibull = 9,
+  kPareto = 10,
+};
 
 __device__ __forceinline__ uint32_t pcg(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -93,8 +117,108 @@ __device__ __forceinline__ float normal_from_u01(float u) {
   return kSqrt2 * erfinvf(2.0f * u - 1.0f);
 }
 
+// -- The extended families -------------------------------------------------
+
+constexpr float kPiF = 0x1.921fb6p+1f;          // float32(pi)
+constexpr float kPiHi = 3.140625f;                // 201 / 64, 8 bits
+constexpr float kPiLo = 0x1.fb5444p-11f;          // float32(pi - kPiHi)
+constexpr float kInvPi = 0x1.45f306p-2f;          // float32(1 / pi)
+constexpr float kTiny = 0x1.4484c0p-100f;         // float32(1e-30)
+constexpr float kCauchySplit = 0x1.c6bf52p+49f;   // float32(1e15)
+
+// The JAX package's fast_tan: k = round(x / pi) half to even, r = (x - k
+// pi_hi) - k pi_lo, tan = sin_poly(r) / cos_poly(r) (the signs cancel),
+// with the fused multiply-adds XLA's CPU compiler makes of it under jit
+// (sampling.fast_tan): the reduction's last step, each Horner step, the
+// sine's r + (r s) p and the cosine's 1 + s p.
+__device__ __forceinline__ float fast_tan(float x) {
+  const float k = rintf(x * kInvPi);
+  const float r = fmaf(-k, kPiLo, x - k * kPiHi);
+  const float s = r * r;
+  float ps = fmaf(2.6000516e-06f, s, -1.9806616e-04f);
+  ps = fmaf(ps, s, 8.333017e-03f);
+  ps = fmaf(ps, s, -1.6666657e-01f);
+  float pc = fmaf(-2.6077066e-07f, s, 2.4761885e-05f);
+  pc = fmaf(pc, s, -1.3888404e-03f);
+  pc = fmaf(pc, s, 4.166664e-02f);
+  pc = fmaf(pc, s, -5e-01f);
+  return fmaf(r * s, ps, r) / fmaf(s, pc, 1.0f);
+}
+
+__device__ __forceinline__ float clip_u(float u) {
+  return fminf(fmaxf(u, kULo), kUHi);
+}
+
+// An extended family's inverse CDF at the uniform u: lognormal (mu, sigma),
+// Cauchy, Laplace, logistic and Gumbel (loc, scale), Weibull (shape,
+// scale), Pareto (x_min, alpha).
+__device__ __forceinline__ float ext_inv(int kind, float u, float p1,
+                                         float p2) {
+  if (kind == kLognormal) return expf(p1 + p2 * normal_from_u01(u));
+  if (kind == kCauchy) {
+    return fmaf(p2, fast_tan(kPiF * (clip_u(u) - 0.5f)), p1);
+  }
+  if (kind == kLaplace) {
+    const float t = clip_u(u) - 0.5f;
+    const float mag = -logf(1.0f - 2.0f * fabsf(t));
+    return p1 + p2 * (t >= 0.0f ? mag : -mag);
+  }
+  if (kind == kLogistic) {
+    const float uc = clip_u(u);
+    return p1 + p2 * logf(uc / (1.0f - uc));
+  }
+  if (kind == kGumbel) return p1 - p2 * logf(-logf(clip_u(u)));
+  if (kind == kWeibull) {
+    const float e = -logf(clip_u(u));
+    return p2 * expf(logf(e) / p1);
+  }
+  return p1 * expf(-logf(clip_u(u)) / p2);  // kPareto
+}
+
+// An extended family's log density at x, floored at kLogPdfFloor (and the
+// floor off its support).  x is finite: no argument below is NaN.
+__device__ __forceinline__ float ext_log_pdf(int kind, float p1, float p2,
+                                             float x) {
+  if (kind == kLognormal) {
+    const float lx = logf(fmaxf(x, kTiny));
+    const float z = (lx - p1) / p2;
+    const float val = -0.5f * z * z - lx - logf(p2 * kSqrt2Pi);
+    return x > 0.0f ? fmaxf(val, kLogPdfFloor) : kLogPdfFloor;
+  }
+  if (kind == kCauchy) {
+    const float az = fabsf((x - p1) / p2);
+    const float zc = fminf(az, kCauchySplit);
+    const float log_term = az > kCauchySplit ? 2.0f * logf(fmaxf(az, kTiny))
+                                             : logf(1.0f + zc * zc);
+    return fmaxf(-(logf(kPiF * p2) + log_term), kLogPdfFloor);
+  }
+  if (kind == kLaplace) {
+    return fmaxf(-fabsf(x - p1) / p2 - logf(2.0f * p2), kLogPdfFloor);
+  }
+  if (kind == kLogistic) {
+    const float z = (x - p1) / p2;
+    const float t = -z;  // softplus(t) = max(t, 0) + log(1 + exp(-|t|))
+    const float softplus = fmaxf(t, 0.0f) + logf(1.0f + expf(-fabsf(t)));
+    return fmaxf(-z - 2.0f * softplus - logf(p2), kLogPdfFloor);
+  }
+  if (kind == kGumbel) {
+    const float z = (x - p1) / p2;
+    return fmaxf(-(z + expf(-z)) - logf(p2), kLogPdfFloor);
+  }
+  if (kind == kWeibull) {
+    const float lt = logf(fmaxf(x, kTiny) / p2);
+    const float val = logf(p1 / p2) + (p1 - 1.0f) * lt - expf(p1 * lt);
+    return x > 0.0f ? fmaxf(val, kLogPdfFloor) : kLogPdfFloor;
+  }
+  // kPareto
+  const float val =
+      logf(p2) + p2 * logf(p1) - (p2 + 1.0f) * logf(fmaxf(x, p1));
+  return x >= p1 ? fmaxf(val, kLogPdfFloor) : kLogPdfFloor;
+}
+
 // One sample of the family from the mantissa m: uniform (p1, p2) =
-// (min, max), normal (mean, std), exponential (lambda, -).
+// (min, max), normal (mean, std), exponential (lambda, -), an extended
+// family from the [0, 1) uniform.
 __device__ __forceinline__ float transform(int kind, uint32_t m, float p1,
                                            float p2) {
   if (kind == kUniform) {
@@ -102,12 +226,13 @@ __device__ __forceinline__ float transform(int kind, uint32_t m, float p1,
     return x >= p2 ? next_below(p2) : x;
   }
   if (kind == kNormal) return p1 + p2 * normal_from_u01(halfopen01(m));
-  return -logf(fmaxf(open01(m), kULo)) / p1;
+  if (kind == kExponential) return -logf(fmaxf(open01(m), kULo)) / p1;
+  return ext_inv(kind, halfopen01(m), p1, p2);
 }
 
 // sampling.analytic_log_pdf, in its float32 operation order: uniform on
 // [p1, p2), normal (mean, std), exponential (lambda, -), and kLogPdfFloor
-// out of support.
+// out of support; the extended families' rows.
 __device__ __forceinline__ float log_pdf(int kind, float p1, float p2,
                                          float x) {
   if (kind == kUniform) {
@@ -117,7 +242,10 @@ __device__ __forceinline__ float log_pdf(int kind, float p1, float p2,
     const float z = (x - p1) / p2;
     return -0.5f * z * z - logf(p2 * kSqrt2Pi);
   }
-  return x >= 0.0f ? logf(p1) - p1 * x : kLogPdfFloor;
+  if (kind == kExponential) {
+    return x >= 0.0f ? logf(p1) - p1 * x : kLogPdfFloor;
+  }
+  return ext_log_pdf(kind, p1, p2, x);
 }
 
 // -- CUSTOM tables --------------------------------------------------------

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel `kernel` inside build_integrate_fn_pallas
 // (tpu_montecarlo/ops/integrate_pallas.py:969-1147, pallas_call at :1180)
 // in its mc, antithetic and qmc modes, with and without error bars, for
-// the uniform, normal and exponential families and CUSTOM tables, and for
-// importance-sampling sets weighted by traced densities, pdf tables or the
+// the uniform, normal and exponential families, the seven extended
+// families and CUSTOM tables, and for importance-sampling sets weighted by traced densities, pdf tables or the
 // CUSTOM sampler's own density.  It draws the very samples that kernel
 // draws under the interpreter's CounterRng (integrate_pallas.py:107-133)
 // or radical inverse at 256-row blocks:
@@ -32,6 +32,12 @@
 //   inverse by binary search over the CDF knots, for heavy-tailed tables
 //   (the JAX package's XLA searchsorted route; the reference's own device
 //   search, src/distribution.rs:128-158).  Antithetic mirrors w and 1 - w.
+// * an extended family (TMC_FAMILY, its DistKind code 4-10, compiled in
+//   only for that family's libraries, as TMC_CUSTOM is): one block of
+//   tag-0 [0, 1) uniforms (one radical-inverse point per position under
+//   qmc) through the family's inverse CDF (tmc::ext_inv,
+//   integrate_pallas.py:592-600); antithetic evaluates the inverse at
+//   1 - u afresh (:665-674).
 //
 // It evaluates the K integrands that ops/lower.py generated
 // (tmc_integrands.inc; with TMC_WEIGHTED, each times
@@ -118,6 +124,12 @@
 #ifndef TMC_CUSTOM
 #define TMC_CUSTOM 0
 #endif
+// The extended family a library draws (IntegrateProgram.library): 0 none
+// (the library takes the uniform, normal and exponential families), else
+// its DistKind code, 4-10.
+#ifndef TMC_FAMILY
+#define TMC_FAMILY 0
+#endif
 #ifndef TMC_WEIGHTED
 #define TMC_WEIGHTED 0
 #endif
@@ -138,6 +150,12 @@ constexpr int kCustomRoute = TMC_CUSTOM;
 enum CustomRoute { kNoCustom = 0, kStrataRoute = 1, kKnotRoute = 2 };
 static_assert(kCustomRoute >= kNoCustom && kCustomRoute <= kKnotRoute,
               "TMC_CUSTOM is 0, 1 or 2");
+constexpr int kFamily = TMC_FAMILY;
+static_assert(kFamily == 0 ||
+                  (kFamily >= tmc::kLognormal && kFamily <= tmc::kPareto),
+              "TMC_FAMILY is 0 or an extended family's code, 4-10");
+static_assert(kFamily == 0 || kCustomRoute == kNoCustom,
+              "a library draws one of CUSTOM tables or an extended family");
 #if TMC_WEIGHTED
 constexpr bool kSampler = TMC_Q_MODE == 2;
 #else
@@ -510,8 +528,9 @@ void launch(int grid, cudaStream_t s, uint32_t seed, const float* params,
 // one 2^32-point segment, and every other mode); `partials` holds grid x
 // TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
 // `tables` is a host tmc::Tables (copied into the launch), or null where
-// the library reads no table.  A CUSTOM library launches only kind 3, the
-// others only kinds 0-2.
+// the library reads no table.  A CUSTOM library launches only kind 3, an
+// extended family's only its own kind (TMC_FAMILY), the others only kinds
+// 0-2.
 extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
                              const float* pilots, int loops, long long n_tiles,
                              int seg_bits, int grid, float* partials,
@@ -521,12 +540,16 @@ extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
   if (tables != nullptr) tb = *static_cast<const tmc::Tables*>(tables);
   if (kStderr != (pilots != nullptr) || seg_bits > 31 ||
       (kMethod != kQmc && seg_bits >= 0) || !tables_ok(tb) ||
-      (kind == tmc::kCustom) != (kCustomRoute != kNoCustom)) {
+      (kind == tmc::kCustom) != (kCustomRoute != kNoCustom) ||
+      (kFamily != 0 && kind != kFamily)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #if TMC_CUSTOM
   launch<tmc::kCustom>(grid, s, seed, params, pilots, loops, n_tiles,
                        seg_bits, partials, tb);
+#elif TMC_FAMILY
+  launch<kFamily>(grid, s, seed, params, pilots, loops, n_tiles, seg_bits,
+                  partials, tb);
 #else
   switch (kind) {
     case kUniform:

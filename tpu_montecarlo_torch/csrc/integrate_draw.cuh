@@ -20,7 +20,9 @@
 //   two roundings;
 // * the exponential multiplies log(u) by -1 / p1, computed once per
 //   thread, where tmc::transform divides: within the bound that test
-//   measured (0 ulp where p1 is a power of two).
+//   measured (0 ulp where p1 is a power of two);
+// * the extended families take tmc::transform's row unchanged, from the
+//   same [0, 1) uniform (float(top) * 2^-32).
 //
 // The MCMC kernels keep tmc::transform, whose bits their chains need.
 //
@@ -94,19 +96,24 @@ __device__ __forceinline__ float normal_z(uint32_t top) {
   return kSqrt2 * erfinvf(fminf(fmaxf(v, kVLo), kVHi));
 }
 
-// tmc::transform(kind, top >> 8, p1, p2) under the rewrites above.  Called
-// with a compile-time kind, so the family's branch folds away.
+// tmc::transform(kind, top >> 8, p1, p2) under the rewrites above; an
+// extended family takes tmc::ext_inv of the [0, 1) uniform as it is.
+// Called with a compile-time kind, so the family's branch folds away.
 __device__ __forceinline__ float transform_top(int kind, uint32_t top,
                                                const Family& f) {
   if (kind == kUniform) {
     return fminf(tmc_fma(float(top), f.scaled, f.p1), f.below);
   }
   if (kind == kNormal) return tmc_fma(f.p2, normal_z(top), f.p1);
-  return logf(fmaxf(open_top(top), kULo)) * f.neg_inv;
+  if (kind == kExponential) {
+    return logf(fmaxf(open_top(top), kULo)) * f.neg_inv;
+  }
+  return ext_inv(kind, halfopen_top(top), f.p1, f.p2);
 }
 
 // The antithetic pair: the transform at u and at its mirror 1 - u (exact
-// for u on the 2^-24 grid), the normal pair reflecting z about the mean.
+// for u on the 2^-24 grid), the normal pair reflecting z about the mean;
+// an extended family evaluates its inverse at 1 - u afresh.
 __device__ __forceinline__ void transform_pair_top(int kind, uint32_t top,
                                                    const Family& f, float& a,
                                                    float& b) {
@@ -117,10 +124,14 @@ __device__ __forceinline__ void transform_pair_top(int kind, uint32_t top,
     const float z = normal_z(top);
     a = tmc_fma(f.p2, z, f.p1);
     b = tmc_fma(-f.p2, z, f.p1);
-  } else {
+  } else if (kind == kExponential) {
     const float u = open_top(top);
     a = logf(fmaxf(u, kULo)) * f.neg_inv;
     b = logf(fmaxf(1.0f - u, kULo)) * f.neg_inv;
+  } else {
+    const float u = halfopen_top(top);
+    a = ext_inv(kind, u, f.p1, f.p2);
+    b = ext_inv(kind, 1.0f - u, f.p1, f.p2);
   }
 }
 

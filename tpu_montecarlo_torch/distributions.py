@@ -2,13 +2,13 @@
 
 ``Distribution`` is a host-side value object recording a family and its
 parameters, with the JAX package's factory names, parameter dicts, host
-``pdf`` and ``quantile``.  The port samples uniform, normal and
-exponential in closed form, and CUSTOM distributions (``from_pdf``,
-``from_pdf_table``, ``beta``, ``gamma``, ``student_t``, ``chi2``,
-``mixture``) from host-built tables (``tables.py``), with the JAX
-package's tables bit for bit; the extended closed-form families raise
-``NotImplementedError`` naming their ROADMAP item.  ``RandomWalk`` is the
-random-walk MCMC proposal.
+``pdf`` and ``quantile``.  The port samples uniform, normal, exponential
+and the extended families (``lognormal``, ``cauchy``, ``laplace``,
+``logistic``, ``gumbel``, ``weibull``, ``pareto``) in closed form, and
+CUSTOM distributions (``from_pdf``, ``from_pdf_table``, ``beta``,
+``gamma``, ``student_t``, ``chi2``, ``mixture``) from host-built tables
+(``tables.py``), with the JAX package's tables bit for bit.
+``RandomWalk`` is the random-walk MCMC proposal.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 
 from . import tables as _tables
-from .utils.roadmap import MCMC_HMC, VARIANTS, not_ported
+from .sampling import ANALYTIC_EXT, DistKind
+from .utils.roadmap import MCMC_HMC, not_ported
 
 __all__ = ["HMC", "Distribution", "DistributionType", "RandomWalk"]
 
@@ -128,6 +129,151 @@ class Distribution:
             pdf,
         )
 
+    # -- The extended closed-form families (tpu_montecarlo/distributions.py
+    # :146-313): each samples by one inverse-CDF registry row
+    # (sampling.ANALYTIC_EXT) with the tails cut at the 1e-7 quantiles, and
+    # records a support wide enough for the table fall-backs.
+
+    @staticmethod
+    def lognormal(mu: float = 0.0, sigma: float = 1.0) -> "Distribution":
+        """Log-normal: ``ln X ~ N(mu, sigma)``.  E[X] = exp(mu + sigma^2/2)."""
+        if not sigma > 0:
+            raise ValueError(f"sigma must be positive, got {sigma}")
+        sqrt_2pi = np.sqrt(2 * np.pi)
+
+        def pdf(x: float) -> float:
+            return (
+                math.exp(-0.5 * ((math.log(x) - mu) / sigma) ** 2)
+                / (x * sigma * sqrt_2pi)
+                if x > 0
+                else 0.0
+            )
+
+        return Distribution(
+            DistributionType.LOGNORMAL,
+            {"mu": mu, "sigma": sigma,
+             "support": (0.0, math.exp(mu + 7 * sigma))},
+            pdf,
+        )
+
+    @staticmethod
+    def cauchy(loc: float = 0.0, scale: float = 1.0) -> "Distribution":
+        """Cauchy (Lorentz) with location/scale.  No finite moments; the
+        sampler truncates at the 1e-7 quantiles (|x - loc| up to ~3.2e6
+        scale)."""
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+        inv_pi = 1.0 / math.pi
+
+        def pdf(x: float) -> float:
+            return inv_pi / (scale * (1.0 + ((x - loc) / scale) ** 2))
+
+        return Distribution(
+            DistributionType.CAUCHY,
+            {"loc": loc, "scale": scale,
+             "support": (loc - 3.2e6 * scale, loc + 3.2e6 * scale)},
+            pdf,
+        )
+
+    @staticmethod
+    def laplace(loc: float = 0.0, scale: float = 1.0) -> "Distribution":
+        """Laplace (double exponential) with location and diversity b."""
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+
+        def pdf(x: float) -> float:
+            return math.exp(-abs(x - loc) / scale) / (2.0 * scale)
+
+        return Distribution(
+            DistributionType.LAPLACE,
+            {"loc": loc, "scale": scale,
+             "support": (loc - 17.0 * scale, loc + 17.0 * scale)},
+            pdf,
+        )
+
+    @staticmethod
+    def logistic(loc: float = 0.0, scale: float = 1.0) -> "Distribution":
+        """Logistic with location/scale; Var[X] = (pi * scale)^2 / 3."""
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+
+        def pdf(x: float) -> float:
+            t = math.exp(-abs((x - loc) / scale))
+            return t / (scale * (1.0 + t) ** 2)
+
+        return Distribution(
+            DistributionType.LOGISTIC,
+            {"loc": loc, "scale": scale,
+             "support": (loc - 17.0 * scale, loc + 17.0 * scale)},
+            pdf,
+        )
+
+    @staticmethod
+    def gumbel(loc: float = 0.0, scale: float = 1.0) -> "Distribution":
+        """Gumbel (max extreme-value): E[X] = loc + gamma * scale."""
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+
+        def pdf(x: float) -> float:
+            z = (x - loc) / scale
+            return (
+                math.exp(-(z + math.exp(-z))) / scale if z > -30.0 else 0.0
+            )
+
+        return Distribution(
+            DistributionType.GUMBEL,
+            {"loc": loc, "scale": scale,
+             "support": (loc - 3.0 * scale, loc + 17.0 * scale)},
+            pdf,
+        )
+
+    @staticmethod
+    def weibull(shape: float, scale: float = 1.0) -> "Distribution":
+        """Weibull with shape k and scale lambda:
+        E[X] = scale * Gamma(1 + 1/shape)."""
+        if not shape > 0:
+            raise ValueError(f"shape must be positive, got {shape}")
+        if not scale > 0:
+            raise ValueError(f"scale must be positive, got {scale}")
+
+        def pdf(x: float) -> float:
+            return (
+                (shape / scale)
+                * (x / scale) ** (shape - 1.0)
+                * math.exp(-((x / scale) ** shape))
+                if x > 0
+                else 0.0
+            )
+
+        return Distribution(
+            DistributionType.WEIBULL,
+            {"shape": shape, "scale": scale,
+             "support": (0.0, scale * 16.2 ** (1.0 / shape))},
+            pdf,
+        )
+
+    @staticmethod
+    def pareto(x_min: float = 1.0, alpha: float = 1.0) -> "Distribution":
+        """Pareto (type I) with minimum x_min and tail index alpha."""
+        if not x_min > 0:
+            raise ValueError(f"x_min must be positive, got {x_min}")
+        if not alpha > 0:
+            raise ValueError(f"alpha must be positive, got {alpha}")
+
+        def pdf(x: float) -> float:
+            return (
+                alpha * x_min**alpha / x ** (alpha + 1.0)
+                if x >= x_min
+                else 0.0
+            )
+
+        return Distribution(
+            DistributionType.PARETO,
+            {"x_min": x_min, "alpha": alpha,
+             "support": (x_min, x_min * math.exp(16.2 / alpha))},
+            pdf,
+        )
+
     @staticmethod
     def beta(
         alpha: float, beta_param: float, table_size: int = 2048
@@ -231,12 +377,9 @@ class Distribution:
         zero-density runs between them, which the gap-respecting
         exact-inverse sampler jumps at a knot (no samples in the dead
         zone); heavy tails trip the tail-moment guard on the actual
-        device-table model and route knot-exact.  In the port the
-        mixture is an integrands' sampling distribution or an IS
-        proposal/target; as an MCMC target it waits for ROADMAP.md,
-        queue 1 item 6.6.  The reference's only route to a multimodal
-        density is
-        a hand-written pdf through ``from_pdf``
+        device-table model and route knot-exact.  The reference's only
+        route to a multimodal density is a hand-written pdf through
+        ``from_pdf``
         (python/wgpu_montecarlo/__init__.py:416-460)."""
         comps = list(components)
         if len(comps) < 2:
@@ -437,6 +580,10 @@ class Distribution:
             return Distribution.normal(p["mean"], p["std"])
         if name == "EXPONENTIAL":
             return Distribution.exponential(p["lambda"])
+        ext = ANALYTIC_EXT.get(getattr(DistKind, name, None))
+        if ext is not None:
+            return getattr(Distribution, ext.name)(
+                *(p[n] for n in ext.param_names))
         if name == "CUSTOM":
 
             def copy(table):
@@ -447,7 +594,7 @@ class Distribution:
                 x_table=copy(dist._x_table), cdf_table=copy(dist._cdf_table),
                 pdf_table=copy(dist._pdf_table),
             )
-        raise not_ported(f"the {name.lower()} distribution", VARIANTS)
+        raise ValueError(f"Unknown distribution type: {name}")
 
     def get_or_compute_pdf_table(self) -> Tuple[np.ndarray, np.ndarray]:
         """Return (x_table, pdf_table), lazily evaluating the PDF on the
@@ -499,8 +646,9 @@ class Distribution:
 
     def quantile(self, q: float) -> float:
         """Exact host-side quantile (inverse CDF) at ``q`` in (0, 1), in
-        the JAX package's closed forms (``distributions.py:663``); CUSTOM
-        distributions interpolate their CDF table."""
+        the JAX package's closed forms (``distributions.py:663-712``) for
+        every analytic family; CUSTOM distributions interpolate their CDF
+        table."""
         if not 0.0 < q < 1.0:
             raise ValueError(f"q must be in (0, 1), got {q}")
         p = self.params
@@ -511,13 +659,30 @@ class Distribution:
             return statistics.NormalDist(p["mean"], p["std"]).inv_cdf(q)
         if t == DistributionType.EXPONENTIAL:
             return -math.log1p(-q) / p["lambda"]
+        if t == DistributionType.LOGNORMAL:
+            return math.exp(
+                statistics.NormalDist(p["mu"], p["sigma"]).inv_cdf(q))
+        if t == DistributionType.CAUCHY:
+            return p["loc"] + p["scale"] * math.tan(math.pi * (q - 0.5))
+        if t == DistributionType.LAPLACE:
+            half = q - 0.5
+            mag = -math.log1p(-2.0 * abs(half))
+            return p["loc"] + p["scale"] * math.copysign(mag, half)
+        if t == DistributionType.LOGISTIC:
+            return p["loc"] + p["scale"] * math.log(q / (1.0 - q))
+        if t == DistributionType.GUMBEL:
+            return p["loc"] - p["scale"] * math.log(-math.log(q))
+        if t == DistributionType.WEIBULL:
+            return p["scale"] * (-math.log1p(-q)) ** (1.0 / p["shape"])
+        if t == DistributionType.PARETO:
+            return p["x_min"] * (1.0 - q) ** (-1.0 / p["alpha"])
         if t == DistributionType.CUSTOM:
             if self._x_table is None or self._cdf_table is None:
                 raise ValueError("Custom distribution requires x/cdf tables")
             cdf = np.asarray(self._cdf_table, np.float64)
             xs = np.asarray(self._x_table, np.float64)
             return float(np.interp(q, cdf, xs))
-        raise not_ported(f"the quantile of {t.name.lower()}", VARIANTS)
+        raise ValueError(f"Unknown distribution type: {t}")
 
 
 def _from_scipy_frozen(frozen, table_size: int) -> "Distribution":
@@ -791,20 +956,3 @@ class HMC(RandomWalk):
 
     def __init__(self, *args, **kwargs):
         raise not_ported("HMC proposals", MCMC_HMC)
-
-
-def _not_ported_factory(name: str):
-    def factory(*args, **kwargs):
-        raise not_ported(f"Distribution.{name}", VARIANTS)
-
-    factory.__name__ = name
-    factory.__doc__ = f"Not ported yet: raises NotImplementedError ({VARIANTS})."
-    return staticmethod(factory)
-
-
-for _name in (
-    "lognormal", "cauchy", "laplace", "logistic", "gumbel", "weibull",
-    "pareto",
-):
-    setattr(Distribution, _name, _not_ported_factory(_name))
-del _name

@@ -4,8 +4,9 @@ kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/integrate_pallas.py`` (kernel 1) in its
 ``mc``, ``antithetic`` and ``qmc`` modes, with and without error bars,
-for the uniform, normal and exponential families and CUSTOM tables, and
-over an importance-sampling set (``IntegrateProgram(fns, weight=(p,
+for the uniform, normal and exponential families, the seven extended
+families (``sampling.ANALYTIC_EXT``) and CUSTOM tables, and over an
+importance-sampling set (``IntegrateProgram(fns, weight=(p,
 q))``: each integrand times the weight ``p / q``, ``ops/lower.py``).  The TPU
 kernel draws from the TPU's hardware PRNG; off the TPU it runs with
 ``CounterRng``, a pure integer hash.  The port implements that
@@ -17,9 +18,11 @@ Sample layout: the plan becomes ``programs x loops`` tiles of
 ``BLOCK_ROWS x LANES`` positions.  Under ``mc`` tile (pid, blk) seeds the
 RNG with (seed, pid) and draws with block counter ``blk``; the normal
 family draws two half blocks with tags 0 and 1, the others one block with
-tag 0.  ``antithetic`` draws the same uniforms and maps each at ``u`` and
-at its mirror ``1 - u`` (the normal pair reflects z about the mean), so a
-tile holds twice its positions in samples.  Under ``qmc`` position ``pos``
+tag 0 (an extended family from [0, 1) uniforms through its inverse CDF).
+``antithetic`` draws the same uniforms and maps each at ``u`` and at its
+mirror ``1 - u`` (the normal pair reflects z about the mean; an extended
+family evaluates its inverse at ``1 - u`` afresh), so a tile holds twice
+its positions in samples.  Under ``qmc`` position ``pos``
 of tile ``t`` is point ``g = t * 2**15 + pos`` of the radical inverse,
 rotated by ``derive_shift(seed, 1)`` (the normal family's two half
 blocks are the tile's two contiguous halves of ``g``); past 2**32 points
@@ -39,14 +42,13 @@ import numpy as np
 import torch
 
 from ..sampling import (
-    INTEGRATE_KINDS,
+    ANALYTIC_EXT,
     DistKind,
     exponential_from_u01,
-    next_below_f32,
     normal_from_u01,
+    transform_from_u,
 )
 from ..tracing import TracedFunction
-from ..utils.roadmap import VARIANTS, not_ported
 from .lower import cuda_source, to_torch, to_torch_set
 from .qmc import (
     MASK32,
@@ -77,6 +79,7 @@ __all__ = [
     "integrate_reference",
     "integrate_rows",
     "knot_interp",
+    "library_route",
     "pad_uniform_table",
     "pilot_values",
     "plan_grid",
@@ -168,9 +171,10 @@ class IntegrateConfig:
     """What one 1-D run computes: the method, and whether the kernel also
     sums pilot-shifted squares (``mc`` and ``antithetic`` only: ``qmc``
     error bars come from rotations).  Each configuration is a library of
-    its own (``IntegrateProgram.library``), and so is each CUSTOM route:
-    the route of the tables a run draws through compiles the CUSTOM
-    family in, and nothing else does."""
+    its own (``IntegrateProgram.library``), and so is each CUSTOM route
+    and each extended family: the route of the tables a run draws
+    through compiles the CUSTOM family in, an extended family's library
+    that family alone, and nothing else does."""
 
     method: str = "mc"
     with_stderr: bool = False
@@ -254,11 +258,6 @@ def uniform_halfopen01(rng: CounterRng, shape, counter=0, tag: int = 0):
     """[0, 1) float32 uniforms from the top 24 bits."""
     m = rng.bits(shape, counter, tag) >> 8
     return m.to(torch.float32) * _INV_2POW24
-
-
-def _clamp_below(x: torch.Tensor, hi) -> torch.Tensor:
-    """The uniform transform's clamp below its open bound ``hi``."""
-    return torch.where(x >= hi, next_below_f32(torch.as_tensor(hi)), x)
 
 
 # -- CUSTOM tables and table weights ----------------------------------------
@@ -513,19 +512,10 @@ def sample_block(
     kind: DistKind, p1, p2, rng: CounterRng, shape, counter, tag: int = 0
 ) -> torch.Tensor:
     """One block of samples of the family from the (counter, tag) stream
-    (``csrc/counter_rng.cuh`` ``tmc::transform``): uniform and normal from
-    [0, 1) uniforms, exponential from (0, 1] ones."""
-    if kind == DistKind.UNIFORM:
-        u = uniform_halfopen01(rng, shape, counter, tag)
-        # f32 rounding may land on the open bound: clamp below it.
-        return _clamp_below(p1 + u * (p2 - p1), p2)
-    if kind == DistKind.NORMAL:
-        u = uniform_halfopen01(rng, shape, counter, tag)
-        return p1 + p2 * normal_from_u01(u)
-    if kind == DistKind.EXPONENTIAL:
-        u = uniform_open01(rng, shape, counter, tag)
-        return exponential_from_u01(u) / p1
-    raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
+    (``csrc/counter_rng.cuh`` ``tmc::transform``): the exponential from
+    (0, 1] uniforms, the others from [0, 1) ones."""
+    draw = uniform_open01 if kind == DistKind.EXPONENTIAL else uniform_halfopen01
+    return transform_from_u(draw(rng, shape, counter, tag), kind, p1, p2)
 
 
 def sample_subblocks(
@@ -560,12 +550,6 @@ def sample_subblocks_antithetic(
     for element; the normal family ``[+z1, -z1, +z2, -z2]``; CUSTOM
     mirrors ``w`` and ``1 - w`` within each row's stratum."""
     shape = (rows, LANES)
-    if kind == DistKind.UNIFORM:
-        u = uniform_halfopen01(rng, shape, counter, 0)
-        return [
-            _clamp_below(p1 + u * (p2 - p1), p2),
-            _clamp_below(p1 + (1.0 - u) * (p2 - p1), p2),
-        ]
     if kind == DistKind.NORMAL:
         half = (rows // 2, LANES)
         out = []
@@ -573,17 +557,14 @@ def sample_subblocks_antithetic(
             z = normal_from_u01(uniform_halfopen01(rng, half, counter, tag))
             out += [p1 + p2 * z, p1 - p2 * z]
         return out
-    if kind == DistKind.EXPONENTIAL:
-        u = uniform_open01(rng, shape, counter, 0)
-        return [
-            exponential_from_u01(u) / p1,
-            exponential_from_u01(1.0 - u) / p1,
-        ]
     if kind == DistKind.CUSTOM:
         w = uniform_halfopen01(rng, shape, counter, 0)
         return [_custom_draw(tables, w, rows),
                 _custom_draw(tables, 1.0 - w, rows)]
-    raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
+    draw = uniform_open01 if kind == DistKind.EXPONENTIAL else uniform_halfopen01
+    u = draw(rng, shape, counter, 0)
+    return [transform_from_u(u, kind, p1, p2),
+            transform_from_u(1.0 - u, kind, p1, p2)]
 
 
 def _positions(rows: int, device) -> torch.Tensor:
@@ -603,7 +584,8 @@ def sample_subblocks_qmc(
     pos`` of block ``b`` under its rotation ``shift`` (one per block,
     int64 words); the normal family as the block's two contiguous
     halves, the exponential from (0, 1] uniforms, CUSTOM through
-    ``tables`` from [0, 1) ones."""
+    ``tables`` and the extended families through their inverses from
+    [0, 1) ones."""
     dev = block_num.device
     base = (block_num.to(torch.int64) * (rows * LANES))[:, None, None]
     shift = shift.to(torch.int64)[:, None, None]
@@ -615,14 +597,10 @@ def sample_subblocks_qmc(
             for off in (0, half * LANES)
         ]
     g = base + _positions(rows, dev)
-    if kind == DistKind.UNIFORM:
-        u = qmc_u01_halfopen(g, shift)
-        return [_clamp_below(p1 + u * (p2 - p1), p2)]
-    if kind == DistKind.EXPONENTIAL:
-        return [exponential_from_u01(qmc_u01_open(g, shift)) / p1]
     if kind == DistKind.CUSTOM:
         return [_custom_draw(tables, qmc_u01_halfopen(g, shift), rows)]
-    raise not_ported(f"sampling {DistKind(kind).name} in the kernel", VARIANTS)
+    u01 = qmc_u01_open if kind == DistKind.EXPONENTIAL else qmc_u01_halfopen
+    return [transform_from_u(u01(g, shift), kind, p1, p2)]
 
 
 def tile_subblocks(
@@ -673,6 +651,8 @@ def pilot_values(
         x = p1 + p2 * normal_from_u01(u)
     elif kind == DistKind.EXPONENTIAL:
         x = exponential_from_u01(u) / p1
+    elif kind != DistKind.CUSTOM:
+        x = transform_from_u(u, kind, p1, p2)
     elif isinstance(tables, KnotTables):
         x = knot_interp(u, tables.cdf, tables.x)
     else:
@@ -809,18 +789,27 @@ class IntegrateProgram:
         return tuple(w if isinstance(w, TracedFunction) else w.mode
                      for w in self.weight)
 
-    def library(self, cfg: IntegrateConfig = MC, route: Optional[str] = None):
+    def library(self, cfg: IntegrateConfig = MC, route=None):
         """The library of ``cfg`` drawing on the CUSTOM ``route`` (the
-        tables' ``route``), or on the analytic families (None)."""
+        tables' ``route``), on one extended family (``route`` its
+        DistKind, see :func:`library_route`), or on the uniform, normal
+        and exponential families (None)."""
         if (cfg, route) not in self._libs:
             from .build import load_kernel_library
 
+            if route is None:
+                draws = ""
+            elif isinstance(route, str):
+                draws = f"#define TMC_CUSTOM {_CUSTOM_CODES[route]}\n"
+            elif DistKind(route) in ANALYTIC_EXT:
+                draws = f"#define TMC_FAMILY {int(route)}\n"
+            else:
+                raise ValueError(f"{route!r} is not a CUSTOM route or an "
+                                 "extended family")
             lib = load_kernel_library(
                 "integrate.cu",
                 cuda_source(self.fns, weight=self._lowered_weight())
-                + cfg.defines
-                + ("" if route is None
-                   else f"#define TMC_CUSTOM {_CUSTOM_CODES[route]}\n"),
+                + cfg.defines + draws,
             )
             lib.tmc_integrate.argtypes = [
                 ctypes.c_int,       # kind
@@ -857,10 +846,19 @@ class IntegrateProgram:
         return kt
 
 
+def library_route(kind, tables: Optional[Tables] = None):
+    """The ``route`` of :meth:`IntegrateProgram.library` that draws
+    ``kind``: the CUSTOM tables' route, the extended family itself, or
+    None for the uniform, normal and exponential families."""
+    kind = DistKind(kind)
+    if kind == DistKind.CUSTOM:
+        return tables.route
+    return kind if kind in ANALYTIC_EXT else None
+
+
 def _check_args(kind, params: torch.Tensor, tables: Optional[Tables] = None,
                 program: Optional[IntegrateProgram] = None) -> None:
-    if kind not in INTEGRATE_KINDS:
-        raise not_ported(f"integrating under {DistKind(kind).name}", VARIANTS)
+    DistKind(kind)
     if params.dtype != torch.float32 or params.shape != (2,):
         raise ValueError(
             f"params must be a (2,) float32 tensor, got {tuple(params.shape)} "
@@ -1010,7 +1008,7 @@ def integrate_rows(
         tables = type(tables)(*(None if t is None else t.contiguous()
                                 for t in _fields(tables)))
     kt = program.kernel_tables(tables, dev)
-    lib = program.library(cfg, None if tables is None else tables.route)
+    lib = program.library(cfg, library_route(kind, tables))
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
     n_out = 2 * k if cfg.with_stderr else k
     partials = torch.empty((rows, n_out), dtype=torch.float32, device=dev)

@@ -4,7 +4,8 @@ the CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/integrate_nd_pallas.py`` (kernel 2) in its
 ``mc``, ``antithetic`` and ``qmc`` modes, with and without error bars, for
-d >= 2 dimensions of the uniform, normal and exponential families.  For
+d >= 2 dimensions of the uniform, normal and exponential families and the
+seven extended families (``sampling.ANALYTIC_EXT``), in any mix.  For
 the same (seed, plan) the plain version and the kernel draw exactly the
 samples the JAX kernel draws in interpret mode, where that kernel keeps
 256-row blocks (``pick_nd_rows``; the port always does).
@@ -31,13 +32,13 @@ import numpy as np
 import torch
 
 from ..sampling import (
-    PORTED_KINDS,
+    ANALYTIC_KINDS,
     DistKind,
-    exponential_from_u01,
     normal_from_u01,
+    transform_from_u,
 )
 from ..tracing import TracedFunction
-from ..utils.roadmap import ND_FAMILIES, not_ported
+from ..utils.roadmap import ND_CUSTOM, not_ported
 from .integrate_kernel import (
     BLOCK_ELEMS,
     BLOCK_ROWS,
@@ -47,7 +48,6 @@ from .integrate_kernel import (
     POS_BITS,
     CounterRng,
     Grid,
-    _clamp_below,
     finish_stderr,
     qmc_seg_bits,
     uniform_halfopen01,
@@ -109,10 +109,10 @@ class NdConfig:
         if len(self.kinds) < 2:
             raise ValueError("nd integrate takes d >= 2 dimensions")
         for kind in self.kinds:
-            if kind not in PORTED_KINDS:
+            if kind not in ANALYTIC_KINDS:
                 raise not_ported(
                     f"{kind.name.lower()} dimensions in nd integrate",
-                    ND_FAMILIES,
+                    ND_CUSTOM,
                 )
         if self.method == "qmc" and self.d > SOBOL_MAX_DIMS:
             raise ValueError(
@@ -171,33 +171,22 @@ def nd_uniforms(
 def _draw_dim(kind: DistKind, p1, p2, get_u) -> torch.Tensor:
     """One block of dimension samples from ``get_u(open01)``'s uniforms
     (integrate_nd_pallas.py:183-204, ``csrc/counter_rng.cuh``
-    ``tmc::transform``)."""
-    if kind == DistKind.UNIFORM:
-        return _clamp_below(p1 + get_u(False) * (p2 - p1), p2)
-    if kind == DistKind.NORMAL:
-        return p1 + p2 * normal_from_u01(get_u(False))
-    if kind == DistKind.EXPONENTIAL:
-        return exponential_from_u01(get_u(True)) / p1
-    raise not_ported(f"{DistKind(kind).name.lower()} dimensions", ND_FAMILIES)
+    ``tmc::transform``): the exponential from (0, 1] uniforms, the others
+    from [0, 1) ones."""
+    return transform_from_u(get_u(kind == DistKind.EXPONENTIAL), kind, p1, p2)
 
 
 def _draw_dim_pair(kind: DistKind, p1, p2, get_u):
     """Antithetic pair of one dimension from one uniform set: the
     transform at ``u`` and at its mirror ``1 - u`` (the normal pair
-    reflects z about the mean; integrate_nd_pallas.py:143-180)."""
-    if kind == DistKind.UNIFORM:
-        u = get_u(False)
-        return (
-            _clamp_below(p1 + u * (p2 - p1), p2),
-            _clamp_below(p1 + (1.0 - u) * (p2 - p1), p2),
-        )
+    reflects z about the mean, an extended family evaluates its inverse at
+    ``1 - u`` afresh; integrate_nd_pallas.py:143-180)."""
     if kind == DistKind.NORMAL:
         z = normal_from_u01(get_u(False))
         return p1 + p2 * z, p1 - p2 * z
-    if kind == DistKind.EXPONENTIAL:
-        u = get_u(True)
-        return exponential_from_u01(u) / p1, exponential_from_u01(1.0 - u) / p1
-    raise not_ported(f"{DistKind(kind).name.lower()} dimensions", ND_FAMILIES)
+    u = get_u(kind == DistKind.EXPONENTIAL)
+    return transform_from_u(u, kind, p1, p2), transform_from_u(1.0 - u, kind,
+                                                               p1, p2)
 
 
 def nd_samples(
@@ -248,7 +237,7 @@ def pilot_row(
         elif kind == DistKind.EXPONENTIAL:
             xs.append(-torch.log(u) / p1)
         else:
-            raise not_ported(f"{DistKind(kind).name.lower()} dimensions", ND_FAMILIES)
+            xs.append(transform_from_u(u, kind, p1, p2))
     return torch.stack([f(*xs).mean() for f in torch_fns])
 
 

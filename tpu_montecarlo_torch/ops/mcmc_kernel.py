@@ -3,8 +3,9 @@ CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/mcmc_pallas.py`` (``build_mcmc_fn_pallas``)
 in its independence, random-walk and adaptive random-walk modes, with and
-without error bars, for the uniform, normal and exponential families and
-CUSTOM tables: a table target, and a table proposal in sampler mode (its
+without error bars, for the uniform, normal and exponential families, the
+seven extended families (``sampling.ANALYTIC_EXT``) and CUSTOM tables: a
+table target, and a table proposal in sampler mode (its
 logq the draw's own density) or gapped (its logq from its log table), as
 ``ops/mcmc_tables.py`` reads them.
 Both versions here run, chain for chain, the chains that the JAX kernel
@@ -41,9 +42,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..sampling import PORTED_KINDS, DistKind, analytic_log_pdf, normal_from_u01
+from ..sampling import DistKind, analytic_log_pdf, normal_from_u01
 from ..tracing import TracedFunction
-from ..utils.roadmap import MCMC_FAMILIES, not_ported
 from .integrate_kernel import (
     LANES,
     CounterRng,
@@ -65,7 +65,6 @@ __all__ = [
     "CHAIN_THREADS",
     "MAX_FUNCTIONS",
     "Layout",
-    "MCMC_KINDS",
     "McmcConfig",
     "McmcGrid",
     "McmcOutput",
@@ -87,8 +86,6 @@ __all__ = [
 CHAIN_THREADS = 32
 #: One lane of the JAX kernel's output row holds the accept count.
 MAX_FUNCTIONS = LANES - 1
-#: The families the MCMC kernels take: the closed forms and CUSTOM tables.
-MCMC_KINDS = PORTED_KINDS + (DistKind.CUSTOM,)
 _SEED_MIX = 0x5BD1E995
 _LOG_STEP_MIN = -13.815511
 _LOG_STEP_MAX = 13.815511
@@ -300,12 +297,6 @@ class McmcProgram:
 
 def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int,
                 tables: Optional[DimTables] = None) -> None:
-    kinds = [cfg.target_kind]
-    if cfg.mode == Mode.INDEPENDENCE:
-        kinds.append(cfg.proposal_kind)
-    for kind in kinds:
-        if kind not in MCMC_KINDS:
-            raise not_ported(f"MCMC under {DistKind(kind).name}", MCMC_FAMILIES)
     if cfg.prop_gapped and cfg.compiled[1] != DistKind.CUSTOM:
         raise ValueError("only a CUSTOM proposal is gapped")
     check_dim_tables([tables], [cfg.roles], "MCMC", params.device)

@@ -4,8 +4,9 @@ the CUDA kernel's wrapper.
 Port of ``tpu_montecarlo/ops/mcmc_nd_pallas.py`` (``build_mcmc_nd_pallas``)
 in its independence, random-walk and adaptive random-walk modes, with and
 without error bars, for d dimensions of the uniform, normal and
-exponential families and CUSTOM tables (``ops/mcmc_tables.py``: target
-dimensions, and proposal dimensions in sampler mode or gapped) under a
+exponential families, the seven extended families and CUSTOM tables
+(``ops/mcmc_tables.py``: target dimensions, and proposal dimensions in
+sampler mode or gapped) under a
 product target or a traced joint log density.  Both versions here run,
 chain for chain, the chains that the JAX kernel runs under ``CounterRng``
 (its interpreter stream): each program's stream seeded with (seed ^
@@ -40,7 +41,6 @@ import torch
 
 from ..sampling import DistKind, analytic_log_pdf, normal_from_u01
 from ..tracing import TracedFunction
-from ..utils.roadmap import ND_MCMC_FAMILIES, not_ported
 from .integrate_kernel import (
     LANES,
     CounterRng,
@@ -52,7 +52,6 @@ from .lower import cuda_source, cuda_target_source, to_torch
 from .mcmc_kernel import (
     CHAIN_THREADS,
     MAX_FUNCTIONS,
-    MCMC_KINDS,
     Layout,
     McmcGrid,
     McmcOutput,
@@ -95,14 +94,6 @@ def nd_seed_word(seed: int) -> int:
     return int(np.uint32(seed)) ^ ND_SEED_MIX
 
 
-def _kinds(kinds, what: str, item: str) -> Tuple[DistKind, ...]:
-    kinds = tuple(DistKind(k) for k in kinds)
-    for kind in kinds:
-        if kind not in MCMC_KINDS:
-            raise not_ported(f"{what} under {kind.name.lower()} dimensions", item)
-    return kinds
-
-
 @dataclass(frozen=True)
 class McmcNdConfig:
     """What one nd run does.  ``prop_kinds``: the independence
@@ -112,9 +103,8 @@ class McmcNdConfig:
     one is drawn from gap-respecting tables (its logq from its log
     table; else sampler mode), ``()`` for none."""
 
-    # What the families' NotImplementedError names.
+    # The path, as messages name it.
     _what = "nd MCMC"
-    _families_item = ND_MCMC_FAMILIES
 
     mode: Mode
     d: int
@@ -131,8 +121,7 @@ class McmcNdConfig:
             kinds = getattr(self, name)
             if kinds is not None:
                 object.__setattr__(
-                    self, name, _kinds(kinds, self._what, self._families_item)
-                )
+                    self, name, tuple(DistKind(k) for k in kinds))
         if self.d < 1:
             raise ValueError(f"{self._what} takes d >= 1 dimensions, got {self.d}")
         indep = self.mode == Mode.INDEPENDENCE

@@ -4,9 +4,10 @@ CUDA kernel's wrapper.
 Port of ``tpu_montecarlo/ops/mcmc_pt_pallas.py``
 (``build_pt_mcmc_fn_pallas``) in its independence, random-walk and
 adaptive random-walk modes, with and without error bars, for d dimensions
-of the uniform, normal and exponential families and CUSTOM tables (target
-dimensions, and proposal dimensions in sampler mode, whose logq is
-rung-independent and swaps with the state) under a product target or a
+of the uniform, normal and exponential families, the seven extended
+families and CUSTOM tables (target dimensions, and proposal dimensions in
+sampler mode, whose logq is rung-independent and swaps with the state)
+under a product target or a
 traced joint log density, and a ladder of T >= 2 rungs.  Each chain
 carries its whole ladder: rung t runs against ``pi^beta_t`` with
 ``beta_0 = 1``, and only the cold rung enters the estimates.  Both
@@ -49,7 +50,6 @@ import numpy as np
 import torch
 
 from ..sampling import normal_from_u01
-from ..utils.roadmap import PT_FAMILIES
 from .integrate_kernel import (
     LANES,
     CounterRng,
@@ -212,7 +212,6 @@ class McmcPtConfig(McmcNdConfig):
     (``ops/mcmc_nd_kernel.py``) and ``n_temps``, the rungs (keyword)."""
 
     _what = "tempering"
-    _families_item = PT_FAMILIES
 
     n_temps: int = field(kw_only=True)
 

@@ -1,33 +1,35 @@
 """Family codes, packed distribution specs, the sampling transforms and
 the closed-form log densities.
 
-Port of the analytic rows and the CUSTOM spec of
-``tpu_montecarlo/sampling.py``.  The
-transforms are torch functions on float32 tensors; the CUDA kernels
+Port of the analytic rows, the extended families' registry
+(``ANALYTIC_EXT``) and the CUSTOM spec of ``tpu_montecarlo/sampling.py``.
+The transforms are torch functions on float32 tensors; the CUDA kernels
 apply the same formulas in the same order (``csrc/counter_rng.cuh``).
 """
 
 from __future__ import annotations
 
 from enum import IntEnum
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .utils.roadmap import VARIANTS, not_ported
-
 __all__ = [
+    "ANALYTIC_EXT",
+    "ANALYTIC_KINDS",
     "LOG_PDF_FLOOR",
+    "AnalyticExt",
     "DistKind",
     "DistSpec",
-    "INTEGRATE_KINDS",
-    "PORTED_KINDS",
     "analytic_log_pdf",
     "dist_spec_of",
     "exponential_from_u01",
+    "fast_tan",
+    "fma_f32",
     "next_below_f32",
     "normal_from_u01",
+    "transform_from_u",
 ]
 
 #: Log density out of support (``tpu_montecarlo/tables.py:36``).
@@ -50,18 +52,11 @@ class DistKind(IntEnum):
     PARETO = 10
 
 
-#: Families every kernel of the port samples in closed form.
-PORTED_KINDS = (DistKind.UNIFORM, DistKind.NORMAL, DistKind.EXPONENTIAL)
-#: Families the 1-D integrate kernel samples: the closed forms and CUSTOM
-#: tables (the other kernels take CUSTOM with ROADMAP.md items 6.6, 7.1,
-#: 8.2 and 9.2).
-INTEGRATE_KINDS = PORTED_KINDS + (DistKind.CUSTOM,)
-
-
 class DistSpec(NamedTuple):
     """Family code plus the (2,) float32 parameter pair the kernel reads:
-    uniform (min, max), normal (mean, std), exponential (lambda, 0);
-    CUSTOM (0, 0) and its tables (``tpu_montecarlo/sampling.py:59-85``).
+    uniform (min, max), normal (mean, std), exponential (lambda, 0), an
+    extended family its registry row's ``param_names``; CUSTOM (0, 0) and
+    its tables (``tpu_montecarlo/sampling.py:59-85``).
 
     For CUSTOM, ``x_table`` is the uniform-u inverse-CDF table
     (``tables.compute_inverse_cdf_table``, 4096 knots), or the original
@@ -103,7 +98,10 @@ def _build_spec(dist) -> DistSpec:
     elif name == "CUSTOM":
         return _custom_spec(dist)
     else:
-        raise not_ported(f"sampling from a {name.lower()} distribution", VARIANTS)
+        ext = ANALYTIC_EXT.get(getattr(DistKind, name, None))
+        if ext is None:
+            raise ValueError(f"Unknown distribution type: {dist.dist_type}")
+        pair = tuple(p[n] for n in ext.param_names)
     return DistSpec(DistKind[name], np.asarray(pair, np.float32))
 
 
@@ -165,7 +163,8 @@ def analytic_log_pdf(kind: DistKind, p1, p2, x: torch.Tensor) -> torch.Tensor:
     """Closed-form float32 log densities, with the JAX package's
     expressions in the same order (``tpu_montecarlo/sampling.py:542``):
     uniform on the half-open ``[p1, p2)``, the ``LOG_PDF_FLOOR`` out of
-    support.  ``p1``, ``p2`` are float32 scalars (tensors or floats)."""
+    support, and the extended families' registry rows.  ``p1``, ``p2``
+    are float32 scalars (tensors or floats)."""
     if kind == DistKind.UNIFORM:
         inside = (p1 <= x) & (x < p2)
         return torch.where(inside, -torch.log(p2 - p1), LOG_PDF_FLOOR)
@@ -174,7 +173,245 @@ def analytic_log_pdf(kind: DistKind, p1, p2, x: torch.Tensor) -> torch.Tensor:
         return -0.5 * z * z - torch.log(p2 * _SQRT_2PI)
     if kind == DistKind.EXPONENTIAL:
         return torch.where(x >= 0.0, torch.log(p1) - p1 * x, LOG_PDF_FLOOR)
-    raise not_ported(f"the log density of {DistKind(kind).name}", VARIANTS)
+    ext = ANALYTIC_EXT.get(kind)
+    if ext is None:
+        raise ValueError(f"No analytic log-pdf for {DistKind(kind).name}")
+    return ext.log_pdf(x, _f32(p1, x), _f32(p2, x))
+
+
+def transform_from_u(u: torch.Tensor, kind: DistKind, p1, p2) -> torch.Tensor:
+    """Samples of an analytic family from the uniforms ``u``
+    (``tpu_montecarlo/sampling.py:490``): the uniform's affine step
+    clamped below its open bound, the normal's and exponential's inverse
+    transforms, an extended family's registry inverse (which clamps ``u``
+    to ``[1e-7, 1 - 1e-7]`` itself, so ``u`` may be [0, 1) or (0, 1])."""
+    if kind == DistKind.UNIFORM:
+        x = p1 + u * (p2 - p1)
+        return torch.where(x >= p2, next_below_f32(torch.as_tensor(p2)), x)
+    if kind == DistKind.NORMAL:
+        return p1 + p2 * normal_from_u01(u)
+    if kind == DistKind.EXPONENTIAL:
+        return exponential_from_u01(u) / p1
+    ext = ANALYTIC_EXT.get(kind)
+    if ext is None:
+        raise ValueError(f"No closed-form transform for {DistKind(kind).name}")
+    return ext.inv_cdf(u, p1, p2)
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """A float32 scalar tensor on ``like``'s device."""
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+# -- Cauchy's tangent -------------------------------------------------------
+#
+# The JAX package draws every Cauchy sample through its kernel-grade
+# tangent (tpu_montecarlo/ops/fast_math.py:30-48, 148-153) on every
+# backend, so that polynomial defines its Cauchy stream: a Cody-Waite
+# reduction by pi and minimax sine and cosine polynomials, tan = sin / cos
+# off one reduction.  This is its copy, coefficients and float32 operation
+# order included (csrc/counter_rng.cuh has the kernels' copy), with the
+# fused multiply-adds that XLA's CPU compiler makes of it under jit (the
+# reduction's last step, every Horner step, the sine's r + (r s) p, the
+# cosine's 1 + s p and the inverse's p1 + p2 tan), so that the samples are
+# the interpret-mode JAX kernel's bit for bit.  A libm tangent would not do: near u = 1e-7 the
+# argument sits 3e-7 off -pi/2, where the cosine polynomial's 5e-9
+# absolute error is 2 % of the cosine, and so is a rounding there.
+
+_PI_HI = float(np.float32(3.140625))
+_PI_LO = float(np.float32(np.pi - 3.140625))
+_INV_PI = float(np.float32(1.0 / np.pi))
+_SIN_C = tuple(
+    float(np.float32(c))
+    for c in (2.6000516e-06, -1.9806616e-04, 8.333017e-03, -1.6666657e-01)
+)
+_COS_C = tuple(
+    float(np.float32(c))
+    for c in (-2.6077066e-07, 2.4761885e-05, -1.3888404e-03, 4.166664e-02,
+              -5e-01)
+)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (float32 tensors or floats,
+    broadcast): the product is exact in float64, the sum's rounding error
+    is recovered exactly (TwoSum), and a float64 sum that lands on a
+    float32 tie is broken by the sign of that error, so the one rounding
+    is the fused multiply-add's."""
+    p = torch.as_tensor(a, dtype=torch.float64) * torch.as_tensor(
+        b, dtype=torch.float64)
+    c = torch.as_tensor(c, dtype=torch.float64, device=p.device)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    r = torch.where((s == (r64 + up.to(torch.float64)) * 0.5) & (err > 0),
+                    up, r)
+    return torch.where(
+        (s == (r64 + down.to(torch.float64)) * 0.5) & (err < 0), down, r)
+
+
+def _reduce_pi(x: torch.Tensor) -> torch.Tensor:
+    """r with x = k pi + r, |r| <= pi / 2 (k rounded half to even)."""
+    k = torch.round(x * _INV_PI)
+    return fma_f32(-k, _PI_LO, x - k * _PI_HI)
+
+
+def _horner(coeffs, s: torch.Tensor) -> torch.Tensor:
+    p = fma_f32(coeffs[0], s, coeffs[1])
+    for c in coeffs[2:]:
+        p = fma_f32(p, s, c)
+    return p
+
+
+def fast_tan(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``fast_tan``: tan(x) = sin_poly(r) / cos_poly(r)
+    (the signs (-1)^k of the two cancel)."""
+    r = _reduce_pi(x)
+    s = r * r
+    sin_r = fma_f32(r * s, _horner(_SIN_C, s), r)
+    cos_r = fma_f32(s, _horner(_COS_C, s), 1.0)
+    return sin_r / cos_r
+
+
+# -- The extended analytic families -----------------------------------------
+#
+# Each family is one registry row, as in the JAX package
+# (tpu_montecarlo/sampling.py:250-410): an inverse CDF that clamps u into
+# [1e-7, 1 - 1e-7] (so the sampled tails stop at the 1e-7 quantiles) and a
+# log density floored at LOG_PDF_FLOOR, in the JAX expressions and their
+# float32 order: log(1 + .) where the JAX code avoids log1p, the Cauchy log
+# density's 2 log|z| past |z| = 1e15, Weibull's power as exp(log(e) / k).
+
+_PI_F = float(np.float32(np.pi))
+_TINY = float(np.float32(1e-30))
+_CAUCHY_SPLIT = float(np.float32(1e15))
+
+
+class AnalyticExt(NamedTuple):
+    """One extended family: its name, its two parameters' names in the
+    order ``DistSpec.params`` packs them, ``inv_cdf(u, p1, p2)`` and
+    ``log_pdf(x, p1, p2)`` (float32 tensors in and out)."""
+
+    name: str
+    param_names: Tuple[str, str]
+    inv_cdf: Callable
+    log_pdf: Callable
+
+
+def _clip_u(u: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(u, _U_LO, _U_HI)
+
+
+def _floored(val: torch.Tensor, inside=None) -> torch.Tensor:
+    if inside is not None:
+        val = torch.where(inside, val, LOG_PDF_FLOOR)
+    return torch.clamp(val, min=LOG_PDF_FLOOR)
+
+
+def _lognormal_inv(u, p1, p2):
+    return torch.exp(p1 + p2 * normal_from_u01(u))
+
+
+def _lognormal_logpdf(x, p1, p2):
+    lx = torch.log(torch.clamp(x, min=_TINY))
+    z = (lx - p1) / p2
+    return _floored(-0.5 * z * z - lx - torch.log(p2 * _SQRT_2PI), x > 0)
+
+
+def _cauchy_inv(u, p1, p2):
+    return fma_f32(p2, fast_tan(_PI_F * (_clip_u(u) - 0.5)), p1)
+
+
+def _cauchy_logpdf(x, p1, p2):
+    az = torch.abs((x - p1) / p2)
+    zc = torch.clamp(az, max=_CAUCHY_SPLIT)
+    log_term = torch.where(
+        az > _CAUCHY_SPLIT,
+        2.0 * torch.log(torch.clamp(az, min=_TINY)),
+        torch.log(1.0 + zc * zc),
+    )
+    return _floored(-(torch.log(_PI_F * p2) + log_term))
+
+
+def _laplace_inv(u, p1, p2):
+    t = _clip_u(u) - 0.5
+    mag = -torch.log(1.0 - 2.0 * torch.abs(t))
+    return p1 + p2 * torch.where(t >= 0, mag, -mag)
+
+
+def _laplace_logpdf(x, p1, p2):
+    return _floored(-torch.abs(x - p1) / p2 - torch.log(2.0 * p2))
+
+
+def _logistic_inv(u, p1, p2):
+    uc = _clip_u(u)
+    return p1 + p2 * torch.log(uc / (1.0 - uc))
+
+
+def _softplus(t):
+    return torch.clamp(t, min=0.0) + torch.log(1.0 + torch.exp(-torch.abs(t)))
+
+
+def _logistic_logpdf(x, p1, p2):
+    z = (x - p1) / p2
+    return _floored(-z - 2.0 * _softplus(-z) - torch.log(p2))
+
+
+def _gumbel_inv(u, p1, p2):
+    return p1 - p2 * torch.log(-torch.log(_clip_u(u)))
+
+
+def _gumbel_logpdf(x, p1, p2):
+    z = (x - p1) / p2
+    return _floored(-(z + torch.exp(-z)) - torch.log(p2))
+
+
+def _weibull_inv(u, p1, p2):
+    e = -torch.log(_clip_u(u))
+    return p2 * torch.exp(torch.log(e) / p1)
+
+
+def _weibull_logpdf(x, p1, p2):
+    lt = torch.log(torch.clamp(x, min=_TINY) / p2)
+    val = torch.log(p1 / p2) + (p1 - 1.0) * lt - torch.exp(p1 * lt)
+    return _floored(val, x > 0)
+
+
+def _pareto_inv(u, p1, p2):
+    return p1 * torch.exp(-torch.log(_clip_u(u)) / p2)
+
+
+def _pareto_logpdf(x, p1, p2):
+    safe = torch.maximum(x, p1)
+    val = torch.log(p2) + p2 * torch.log(p1) - (p2 + 1.0) * torch.log(safe)
+    return _floored(val, x >= p1)
+
+
+ANALYTIC_EXT = {
+    DistKind.LOGNORMAL: AnalyticExt(
+        "lognormal", ("mu", "sigma"), _lognormal_inv, _lognormal_logpdf),
+    DistKind.CAUCHY: AnalyticExt(
+        "cauchy", ("loc", "scale"), _cauchy_inv, _cauchy_logpdf),
+    DistKind.LAPLACE: AnalyticExt(
+        "laplace", ("loc", "scale"), _laplace_inv, _laplace_logpdf),
+    DistKind.LOGISTIC: AnalyticExt(
+        "logistic", ("loc", "scale"), _logistic_inv, _logistic_logpdf),
+    DistKind.GUMBEL: AnalyticExt(
+        "gumbel", ("loc", "scale"), _gumbel_inv, _gumbel_logpdf),
+    DistKind.WEIBULL: AnalyticExt(
+        "weibull", ("shape", "scale"), _weibull_inv, _weibull_logpdf),
+    DistKind.PARETO: AnalyticExt(
+        "pareto", ("x_min", "alpha"), _pareto_inv, _pareto_logpdf),
+}
+
+#: Every family sampled by a closed-form transform, with no host tables.
+ANALYTIC_KINDS: Tuple[DistKind, ...] = (
+    DistKind.UNIFORM, DistKind.NORMAL, DistKind.EXPONENTIAL,
+) + tuple(ANALYTIC_EXT)
 
 
 def next_below_f32(hi: torch.Tensor) -> torch.Tensor:

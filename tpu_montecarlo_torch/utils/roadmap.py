@@ -7,7 +7,6 @@ __all__ = [
     "API_SURFACE",
     "FRONT_END",
     "MCMC_DIAGNOSTICS",
-    "MCMC_FAMILIES",
     "MCMC_HMC",
     "MCMC_SAMPLES",
     "MCMC_SERVING",
@@ -17,10 +16,8 @@ __all__ = [
     "MESH",
     "ND_CUSTOM",
     "ND_CV",
-    "ND_FAMILIES",
     "ND_IS",
     "ND_MCMC_DIAGNOSTICS",
-    "ND_MCMC_FAMILIES",
     "ND_MCMC_HMC",
     "ND_MCMC_SAMPLES",
     "ND_MCMC_SERVING",
@@ -30,7 +27,6 @@ __all__ = [
     "ND_SERVING",
     "ND_WIDE",
     "PT_DIAGNOSTICS",
-    "PT_FAMILIES",
     "PT_HMC",
     "PT_SAMPLES",
     "PT_SERVING",
@@ -53,17 +49,12 @@ MCMC_STATE = "ROADMAP.md, queue 1 item 6.2 (MCMC state and resume)"
 MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 6.3 (MCMC diagnostics)"
 MCMC_SAMPLES = "ROADMAP.md, queue 1 item 6.4 (MCMC samples)"
 MCMC_SERVING = "ROADMAP.md, queue 1 item 6.5 (compile_mcmc and batches)"
-MCMC_FAMILIES = (
-    "ROADMAP.md, queue 1 item 6.6 (MCMC over the extended families, with "
-    "item 2.2)"
-)
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
 MCMC_TABLES_XLA = (
     "ROADMAP.md, queue 1 item 6.8 (MCMC over the CUSTOM tables the JAX "
     "package runs on its XLA sweep)"
 )
 ND_CUSTOM = "ROADMAP.md, queue 1 item 7.1 (nd integrate over CUSTOM dimensions)"
-ND_FAMILIES = "ROADMAP.md, queue 1 item 7.2 (nd integrate over the extended families)"
 ND_IS = "ROADMAP.md, queue 1 item 7.3 (nd importance sampling)"
 ND_SERVING = (
     "ROADMAP.md, queue 1 item 7.4 (nd seed_batch, param_batch and "
@@ -81,9 +72,6 @@ ND_MCMC_SERVING = (
     "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
     "param_batch)"
 )
-ND_MCMC_FAMILIES = (
-    "ROADMAP.md, queue 1 item 8.7 (nd MCMC over the extended families)"
-)
 ND_MCMC_WIDE = (
     "ROADMAP.md, queue 1 item 8.8 (nd MCMC over more than 127 functions)"
 )
@@ -98,9 +86,6 @@ PT_DIAGNOSTICS = "ROADMAP.md, queue 1 item 9.4 (tempered split-R-hat and ESS)"
 PT_SERVING = (
     "ROADMAP.md, queue 1 item 9.5 (tempered compile_mcmc, seed_batch and "
     "param_batch)"
-)
-PT_FAMILIES = (
-    "ROADMAP.md, queue 1 item 9.6 (tempering over the extended families)"
 )
 PT_WIDE = (
     "ROADMAP.md, queue 1 item 9.7 (tempering over more than 126 functions)"
