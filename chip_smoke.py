@@ -220,7 +220,32 @@ Phases, each of which exits non-zero on failure:
     4e6 samples within 2 % and 6 error bars, the Cauchy(2, 1.5) CDF at 2,
     0.5 and 3.5 within 0.005, a Laplace(3, 1) MCMC target from a
     Logistic(0, 2) proposal within 0.1, Weibull(1.5, 2) QMC within 0.005;
-    and the wall time phases 34-38 add.
+    and the wall time phases 34-38 add;
+39. the nd kernel over CUSTOM dimensions and with importance weights
+    (libraries of their own, one per program and tuple of routes, all
+    started in phase 2): each route (strata, strata mirrored, flat, flat
+    under qmc, gapped strata, flat gapped, knots) and each weight kind
+    (traced, uniform-grid and irregular-grid tables, the sampler's
+    density on the stratified and on the flat route; d = 3 with three
+    CUSTOM dimensions) against its plain version at 2**22: means within
+    rel 1e-5 + abs 1e-6 and error bars within rel 1e-4 + abs 1e-9, each
+    absolute term times the column's size;
+40. c9b, ``integrate([x*y], [Beta(2,5), U(0,1)], n_samples=1e7)``,
+    counted from 0: 1/7 within 6 sigma and the reference's 0.01; its
+    kernel against the plain version, timed, bounded (the table loads
+    left out), the warm call and the idle share of warm calls;
+41. c9's set at 2**30 with its normal dimension made CUSTOM (Beta(2,5) x
+    U(0,1) x Exp(2)), counted, within 6 sigma of its closed forms, timed
+    and bounded beside c9's phase-14 time;
+42. nd importance sampling of a rare event,
+    ``integrate_importance_sampling([(x > 3)(y > 3)], [N(0,1)]*2,
+    [N(3.5,1.5)]*2, n_samples=1e8, return_stderr=True,
+    return_diagnostics=True)``, counted: within 6 standard errors of
+    Phi-bar(3)^2 = 1.8222e-6; timed, bounded, the idle share;
+43. nd importance sampling with table and sampler weights, ``[x*y*y]``
+    under [Beta(2,5) pdf table, N(0,1)] from [Beta(1.5,3), N(0,1.5)] at
+    2**30 with error bars, counted: 2/7 within 6 standard errors; timed
+    and bounded; and the wall time phases 39-43 add.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -474,6 +499,43 @@ PARITY_CAUCHY_FNS = [lambda x: x < 2.0, lambda x: x < 0.5, lambda x: x < 3.5]
 PARITY_MEAN_FNS = [lambda x: x]
 
 
+# nd over CUSTOM dimensions and nd importance sampling (phases 39-43).
+# c9b (benchmarks/run_all.py:355-363): E[xy] over Beta(2,5) x U(0,1) =
+# 1/7, Var = E[x^2] E[y^2] - 1/49 = (3/28)(1/3) - 1/49, held within 6
+# sigma and the reference's 0.01.
+C9B_FNS = [lambda x, y: x * y]
+C9B_SAMPLES = 10_000_000
+C9B_MEAN = 1.0 / 7.0
+C9B_VAR = (3.0 / 28.0) / 3.0 - 1.0 / 49.0
+C9B_TOLERANCE = 0.01
+# c9's set at 2**30 with its normal dimension made CUSTOM, Beta(2,5) x
+# U(0,1) x Exp(2): E[xyz] = (2/7)(1/2)(1/2), E[x^2 + y + z] = 3/28 + 1;
+# Var[xyz] = (3/28)(1/3)(1/2) - (1/14)^2, Var[x^2 + y + z] = Var[x^2] +
+# 1/12 + 1/4 with E[x^4] = 1/42.
+ND_CUSTOM_MEANS = [1.0 / 14.0, 3.0 / 28.0 + 1.0]
+ND_CUSTOM_VARS = [1.0 / 56.0 - 1.0 / 196.0,
+                  1.0 / 42.0 - (3.0 / 28.0) ** 2 + 1.0 / 12.0 + 0.25]
+# nd importance sampling, a rare event: P(X > 3, Y > 3) under N(0,1)^2
+# from N(3.5, 1.5)^2 at 1e8 with error bars and diagnostics,
+# Phi-bar(3)^2 = 1.8222e-6 within 6 standard errors.
+ND_RARE_FNS = [lambda x, y: (x > 3.0) * (y > 3.0)]
+ND_RARE_SAMPLES = 100_000_000
+ND_RARE_EXACT = (0.5 * math.erfc(3.0 / math.sqrt(2.0))) ** 2
+# nd importance sampling with table and sampler weights: E[x y^2] under a
+# Beta(2,5) pdf table x N(0,1) from Beta(1.5,3) x N(0,1.5), 2**30
+# samples: the target table's p and the sampler's q on the stratified
+# dimension, traced p and q on the second; 2/7 within 6 standard errors.
+ND_TS_FNS = [lambda x, y: x * y * y]
+ND_TS_EXACT = 2.0 / 7.0
+
+
+def beta25_table(tm):
+    """Beta(2, 5)'s density as a pdf table on a 2048-knot uniform grid: a
+    table p (Beta(2, 5) itself traces)."""
+    x = np.linspace(0.0, 1.0, 2048)
+    return tm.Distribution.from_pdf_table(x, 30.0 * x * (1.0 - x) ** 4)
+
+
 def bimodal(x):
     """Config 5's and c12d's target (run_all.py:185-188): 0.5 N(-2, 1) +
     0.5 N(2, 1), unnormalised; E[x^2] = 5."""
@@ -556,34 +618,42 @@ def clock_under_load(fn, ms: float) -> float:
     return mhz
 
 
-def idle_share(call, n_calls: int = 10):
+def idle_share(call, n_calls: int = 10, windows: int = 3):
     """Device idle share of ``n_calls`` warm ``call()``s in one
     ``torch.profiler`` window: busy is the union of the device intervals
     (kernels, copies) the profiler recorded, wall the host clock around
-    the window.  Prints and returns the share, or None when the profiler
-    saw no device time."""
+    the window.  A window that traces no device time (as some of c9b's
+    did late in this script, never in a process of its own,
+    tools/idle_probe.py) is taken again, up to ``windows`` in all.
+    Prints and returns the share, or None when no window saw device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            call()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-    )
-    busy_us, end = 0.0, -math.inf
-    for start, stop in spans:
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    if busy_us == 0.0:
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_calls):
+                call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+        )
+        busy_us, end = 0.0, -math.inf
+        for start, stop in spans:
+            if stop > end:
+                busy_us += stop - max(start, end)
+                end = stop
+        if busy_us > 0.0:
+            break
+        print(f"  device idle share: window {window} traced no device time")
+    else:
         print("  device idle share: not measured (no device time traced)")
         return None
     share = 1.0 - busy_us / wall_us
@@ -1225,6 +1295,7 @@ def main() -> int:
             integrate_nd_cuda,
             integrate_nd_reference,
             integrate_nd_rows,
+            nd_routes as nk_routes,
             pilot_row,
             )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
@@ -1770,6 +1841,100 @@ def main() -> int:
         pool.submit(timed_build,
                     lambda: parity_mcmc[0].library(parity_mcmc[1])),
     ]
+    # nd over CUSTOM dimensions and nd importance sets (phases 39-43): one
+    # library per program and tuple of routes, every route and weight kind
+    # of phase 39 and the main paths' programs as their public calls build
+    # them (they take the programs from the cache).
+    from tpu_montecarlo_torch.api.device import nd_tables
+    D = tm.Distribution
+    beta_tab = beta25_table(tm)
+    u01, e2 = D.uniform(0.0, 1.0), D.exponential(2.0)
+    beta33, beta153 = D.beta(3.0, 3.0), D.beta(1.5, 3.0)
+    grid_g = np.linspace(0.0, 1.0, 2048)
+    gapped_u = D.from_pdf_table(grid_g, np.where(
+        (grid_g > 0.4) & (grid_g < 0.6), 0.0, 1.0))
+    student5 = D.student_t(5.0)
+    spiky_x = np.unique(np.concatenate([np.linspace(0.0, 1.0, 300),
+                                        0.5 + np.geomspace(1e-5, 1e-3, 60)]))
+    spiky = D.from_pdf_table(spiky_x, 1.0 + 50.0 * np.exp(
+        -(((spiky_x - 0.5) / 1e-5) ** 2)))
+    nd_f2 = [lambda x, y: x * y, lambda x, y: x + y * y]
+    nd_f3 = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y - z]
+    all_modes = [("mc", False), ("antithetic", False), ("qmc", False),
+                 ("mc", True), ("antithetic", True)]
+    # name: (functions, proposals, targets or None, modes); an importance
+    # set carries the diagnostics' weight column.
+    nd_new_cases = {
+        "strata, Beta(2,5) x U(0,1)": (nd_f2, [beta25, u01], None, all_modes),
+        "strata + flat, Beta(2,5) x Beta(3,3)": (
+            nd_f2, [beta25, beta33], None,
+            [("mc", False), ("antithetic", True), ("qmc", False)]),
+        "gapped strata, gapped x U(0,1)": (
+            nd_f2, [gapped_u, u01], None, [("mc", False), ("antithetic", True)]),
+        "flat gapped, U(0,1) x gapped": (nd_f2, [u01, gapped_u], None,
+                                         [("mc", True)]),
+        "knots, Student-t(5) x N(0,1)": (nd_f2, [student5, n01], None,
+                                         [("mc", True), ("qmc", False)]),
+        "IS traced, N(3.5,1.5)^2 -> N(0,1)^2": (
+            ND_RARE_FNS, [D.normal(3.5, 1.5)] * 2, [n01, n01],
+            [("mc", True), ("antithetic", False), ("qmc", False)]),
+        "IS table p, sampler q": (
+            ND_TS_FNS, [beta153, D.normal(0.0, 1.5)], [beta_tab, n01],
+            [("mc", False), ("antithetic", True), ("qmc", False)]),
+        "IS two sampler q (strata, flat)": (
+            nd_f2, [beta153, beta33], [beta25, beta_tab], [("mc", True)]),
+        "IS three CUSTOM dims, d=3": (
+            nd_f3, [beta153, beta33, D.beta(2.0, 2.0)],
+            [beta_tab, beta25, D.beta(2.0, 2.0)], [("mc", True)]),
+        "IS knot p, U(0,1) x N(0,1)": (nd_f2, [u01, n01], [spiky, n01],
+                                       [("mc", True)]),
+        "IS heavy and gapped q": (
+            nd_f2, [student5, gapped_u], [n01, u01], [("mc", True)]),
+    }
+
+    def nd_new_program(fns, props, targs, diagnostics=True):
+        """The program as integrate() or integrate_importance_sampling()
+        builds it (with the diagnostics' weight column unless told
+        otherwise), from the cache."""
+        traced_ = integ._trace_user_functions(fns, n_args=len(props))
+        kinds_ = tuple(dist_spec_of(q).kind for q in props)
+        if targs is None:
+            return integ._nd_program(traced_, kinds_)
+        weight_ = tuple(integ._is_weight_dim(t, q)
+                        for t, q in zip(targs, props))
+        unit = (_unit_integrand(len(props)),) if diagnostics else ()
+        return integ._nd_program(traced_ + unit, kinds_, weight_)
+
+    def nd_new_setup(prog, props, method, stderr):
+        cfg_ = NdConfig(prog.kinds, method, stderr)
+        return cfg_, nd_tables(props, cfg_, dev, prog.sampler_dims)
+
+    nd_new_checks = [
+        (case, nd_prog, nd_props, *nd_new_setup(nd_prog, nd_props, *mode))
+        for case, nd_prog, nd_props, modes_ in (
+            (c, nd_new_program(f, q, t), q, m)
+            for c, (f, q, t, m) in nd_new_cases.items())
+        for mode in modes_]
+    nd_new_main = {
+        "c9b": (nd_new_program(C9B_FNS, [beta25, u01], None), [beta25, u01],
+                "mc", False),
+        "c9_custom": (nd_new_program(ND_FNS, [beta25, u01, e2], None),
+                      [beta25, u01, e2], "mc", False),
+        "rare": (nd_new_program(ND_RARE_FNS, [D.normal(3.5, 1.5)] * 2,
+                                [n01, n01]), [D.normal(3.5, 1.5)] * 2,
+                 "mc", True),
+    }
+    ts_props = [beta153, D.normal(0.0, 1.5)]
+    nd_new_main["table_sampler"] = (
+        nd_new_program(ND_TS_FNS, ts_props, [beta_tab, n01],
+                       diagnostics=False), ts_props, "mc", True)
+    nd_new_libs = {(id(c[1]), nk_routes(*c[3:])): c[1] for c in nd_new_checks}
+    nd_new_libs.update(
+        ((id(m[0]), nk_routes(*nd_new_setup(*m))), m[0])
+        for m in nd_new_main.values())
+    nd_new_builds = [
+        pool.submit(timed_build, lambda p=p, r=r: p.library(r))
+        for (_, r), p in nd_new_libs.items()]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -3155,6 +3320,231 @@ def main() -> int:
     print(f"phases 34-38 (the extended families) took "
           f"{time.perf_counter() - t_families:.1f} s after phase 33")
 
+    # 39. nd over CUSTOM dimensions and nd importance sets: the libraries
+    # started in phase 2, then each route and weight kind against its
+    # plain version at 2**22.
+    t_nd_new = time.perf_counter()
+    built = [b.result() for b in nd_new_builds]
+    print(f"phase 39: built the nd kernel's CUSTOM and importance libraries "
+          f"for {len(built)} programs and routes, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for lib_, _ in built:
+        for line in lib_.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    def nd_new_vs_plain(prog, props, cfg_, tables_, n, name, phase):
+        """The nd kernel against its plain version on the same samples:
+        means within rel 1e-5 + abs 1e-6 and error bars within rel 1e-4
+        + abs 1e-9, each absolute term times the column's size (its mean
+        |value| on the pilot grid, weighted, or |mean| if larger).
+        Returns (max abs diff of the means, the kernel's sums, params,
+        grid, pilot)."""
+        grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg_.method)
+        params_ = torch.tensor(
+            np.stack([dist_spec_of(q).params for q in props]), device=dev)
+        pilot_ = (pilot_row(prog.torch_fns, prog.kinds, params_, tables_,
+                            prog.torch_weight) if cfg_.with_stderr else None)
+        # The weight is never negative: |f w| = |f| w.
+        size = pilot_row([lambda *x, f=f: f(*x).abs() for f in prog.torch_fns],
+                         prog.kinds, params_, tables_, prog.torch_weight)
+        got = integrate_nd_cuda(prog, cfg_, params_, SEED, grid_, pilot_,
+                                tables_)
+        torch.cuda.synchronize()
+        want = integrate_nd_reference(prog.torch_fns, cfg_, params_, SEED,
+                                      grid_, pilot_, tables_,
+                                      prog.torch_weight)
+        if cfg_.with_stderr:
+            (m_k, s_k), (m_p, s_p) = (
+                [t.double().cpu().numpy() for t in
+                 finish_stderr(o[0], o[1], pilot_, grid_, cfg_.antithetic)]
+                for o in (got, want))
+        else:
+            n_f = float(np.float32(grid_.actual_samples))
+            m_k, m_p = ((o / n_f).double().cpu().numpy() for o in (got, want))
+        size = np.maximum(size.double().cpu().numpy(), np.abs(m_p))
+        err = np.abs(m_k - m_p)
+        label = (f"phase {phase}: {name}, {cfg_.method}"
+                 f"{' + stderr' if cfg_.with_stderr else ''}, routes "
+                 f"{nk_routes(cfg_, tables_)}, {grid_.actual_samples} samples")
+        print(f"{label}: kernel {m_k}")
+        print(f"         plain  {m_p}  max|diff|/size "
+              f"{np.max(err / np.maximum(size, 1e-30)):.3e}")
+        if not np.all(np.isfinite(m_k)):
+            fail(f"{label}: non-finite kernel means")
+        if not np.all(err <= RTOL * np.abs(m_p) + ATOL * size):
+            fail(f"{label}: kernel and plain version disagree")
+        if cfg_.with_stderr:
+            print(f"         stderr kernel {s_k} plain {s_p}")
+            if not (np.all(s_k > 0) and np.all(
+                    np.abs(s_k - s_p) <= ND_STDERR_RTOL * np.abs(s_p)
+                    + STDERR_1D_ATOL * size)):
+                fail(f"{label}: error bars disagree")
+        return float(err.max()), params_, grid_, pilot_
+
+    nd_new_err = max(
+        nd_new_vs_plain(c[1], c[2], c[3], c[4], MODE_CHECK_SAMPLES, c[0],
+                        "39")[0] for c in nd_new_checks)
+
+    def nd_new_times(key, n, call, label, phase):
+        """A main path's kernel timed (CUDA events, 10 launches) against
+        its plain version (held to phase 39's gates), its warm call (host
+        clock, median of 3) and its bound, as phase 14 counts it (table
+        loads left out: they take no arithmetic pipe)."""
+        prog, props, method, stderr = nd_new_main[key]
+        cfg_, tables_ = nd_new_setup(prog, props, method, stderr)
+        err, params_, grid_, pilot_ = nd_new_vs_plain(
+            prog, props, cfg_, tables_, n, label, phase)
+
+        def run():
+            integrate_nd_cuda(prog, cfg_, params_, SEED, grid_, pilot_,
+                              tables_)
+
+        k_ms = time_ms(run, reps=10)
+        p_ms = time_ms(lambda: integrate_nd_reference(
+            prog.torch_fns, cfg_, params_, SEED, grid_, pilot_, tables_,
+            prog.torch_weight), reps=1)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        c_ms = float(np.median(walls)) * 1e3
+        drawn = grid_.actual_samples
+        mhz_ = clock_under_load(run, k_ms)
+        bound = card_bound(
+            prog.library(nk_routes(cfg_, tables_)),
+            f"integrate_nd_kernelILi0ELb{int(stderr)}EE", len(props), drawn,
+            mhz_)
+        print(f"phase {phase}: {label}, {drawn} samples on {card}: kernel "
+              f"{k_ms:.3f} ms ({drawn / k_ms * 1e3:.4e} samples/s), plain "
+              f"{p_ms:.3f} ms, call end to end {c_ms:.3f} ms median of 3, "
+              "host clock")
+        print_bound(bound, mhz_, "sample")
+        return {"samples": drawn, "ms": k_ms, "plain_ms": p_ms,
+                "call_ms": c_ms, "bound_ms": bound[0], "bound_pipe": bound[1],
+                "issue_ms": bound[2], "max_abs_err": err}
+
+    def moments_hold(label, values, means, vars_, n, tol=None):
+        values = np.asarray(values)
+        if values.shape != (len(means),) or not np.all(np.isfinite(values)):
+            fail(f"bad {label} result {values!r}")
+        for j, (v, mu, var) in enumerate(zip(values, means, vars_)):
+            z = (v - mu) / math.sqrt(var / n)
+            print(f"  {label} f{j}: {v:.7f}  closed form {mu:.7f}  z = "
+                  f"{z:+.3f} (iid standard error)")
+            if abs(z) > 6.0 or (tol is not None and abs(v - mu) > tol):
+                fail(f"{label} f{j} is off its closed form")
+
+    # 40. c9b through integrate(), counted from 0: 1/7 within 6 sigma and
+    # the reference's 0.01; then its kernel, warm call and idle share.
+    def c9b_call():
+        return tm.integrate(C9B_FNS, [beta25, u01], n_samples=C9B_SAMPLES,
+                            seed=SEED)
+
+    integrate_nd_cuda.launches = 0
+    t0 = time.perf_counter()
+    c9b_result = c9b_call()
+    c9b_s = time.perf_counter() - t0
+    c9b_launches = integrate_nd_cuda.launches
+    c9b_n = plan_grid(make_integrate_plan(C9B_SAMPLES).actual_samples
+                      ).actual_samples
+    print(f"phase 40: c9b, integrate([x*y], [Beta(2,5), U(0,1)], n_samples="
+          f"{C9B_SAMPLES}) drew {c9b_n} samples in {c9b_s:.3f} s (host "
+          f"clock), {c9b_launches} kernel launch(es)")
+    if c9b_launches < 1:
+        fail("c9b did not launch the nd kernel")
+    moments_hold("c9b", c9b_result.values, [C9B_MEAN], [C9B_VAR], c9b_n,
+                 C9B_TOLERANCE)
+    nd_custom = {"c9b": nd_new_times("c9b", C9B_SAMPLES, c9b_call,
+                                     "c9b, strata", "40")}
+    nd_custom["c9b"]["idle_share"] = idle_share(c9b_call)
+
+    # 41. c9's set at 2**30 with its normal dimension made CUSTOM, counted,
+    # timed and bounded beside c9.
+    def c9_custom_call():
+        return tm.integrate(ND_FNS, [beta25, u01, e2], n_samples=MODE_SAMPLES,
+                            seed=SEED)
+
+    integrate_nd_cuda.launches = 0
+    c9c_result = c9_custom_call()
+    c9_custom_launches = integrate_nd_cuda.launches
+    if c9_custom_launches < 1:
+        fail("c9's CUSTOM set did not launch the nd kernel")
+    n_c9c = plan_grid(make_integrate_plan(MODE_SAMPLES).actual_samples
+                      ).actual_samples
+    print(f"phase 41: integrate([x*y*z, x*x+y+z], [Beta(2,5), U(0,1), "
+          f"Exp(2)], n_samples={MODE_SAMPLES}), {c9_custom_launches} kernel "
+          f"launch(es); c9 (N(0,1) in its place) {nd_ms:.3f} ms")
+    moments_hold("c9_custom", c9c_result.values, ND_CUSTOM_MEANS,
+                 ND_CUSTOM_VARS, n_c9c)
+    nd_custom["c9_custom"] = nd_new_times(
+        "c9_custom", MODE_SAMPLES, c9_custom_call,
+        "c9's set over Beta(2,5) x U(0,1) x Exp(2), strata", "41")
+
+    # 42. nd importance sampling, a rare event at 1e8 with error bars and
+    # diagnostics, counted: within 6 standard errors of Phi-bar(3)^2.
+    rare_props = nd_new_main["rare"][1]
+
+    def rare_call():
+        return tm.integrate_importance_sampling(
+            ND_RARE_FNS, [n01, n01], rare_props, n_samples=ND_RARE_SAMPLES,
+            seed=SEED, return_stderr=True, return_diagnostics=True)
+
+    integrate_nd_cuda.launches = 0
+    t0 = time.perf_counter()
+    rare = rare_call()
+    rare_s = time.perf_counter() - t0
+    rare_launches = integrate_nd_cuda.launches
+    v, se = float(rare.values[0]), float(rare.stderr[0])
+    print(f"phase 42: integrate_importance_sampling([(x > 3)(y > 3)], "
+          f"[N(0,1)]*2, [N(3.5,1.5)]*2, n_samples={ND_RARE_SAMPLES}, "
+          f"return_stderr=True, return_diagnostics=True) in {rare_s:.3f} s "
+          f"(host clock), {rare_launches} kernel launch(es): {v:.6e} +- "
+          f"{se:.3e} (exact {ND_RARE_EXACT:.6e}, z = "
+          f"{(v - ND_RARE_EXACT) / se:+.3f}); diagnostics {rare.diagnostics}")
+    if rare_launches < 1:
+        fail("the nd rare event did not launch the nd kernel")
+    if not (math.isfinite(v) and se > 0
+            and abs(v - ND_RARE_EXACT) <= 6.0 * se):
+        fail("the nd rare event is not within 6 standard errors")
+    nd_is = {"rare": nd_new_times("rare", ND_RARE_SAMPLES, rare_call,
+                                  "nd rare event, traced weights, stderr",
+                                  "42")}
+    nd_is["rare"]["idle_share"] = idle_share(rare_call)
+    nd_is["rare"].update(value=v, stderr=se)
+
+    # 43. nd importance sampling with table and sampler weights at 2**30:
+    # 2/7 within 6 standard errors; timed and bounded.
+    def ts_call():
+        return tm.integrate_importance_sampling(
+            ND_TS_FNS, [beta_tab, n01], ts_props, n_samples=MODE_SAMPLES,
+            seed=SEED, return_stderr=True)
+
+    integrate_nd_cuda.launches = 0
+    ts = ts_call()
+    ts_launches = integrate_nd_cuda.launches
+    v, se = float(ts.values[0]), float(ts.stderr[0])
+    print(f"phase 43: integrate_importance_sampling([x*y*y], [Beta(2,5) pdf "
+          f"table, N(0,1)], [Beta(1.5,3), N(0,1.5)], n_samples="
+          f"{MODE_SAMPLES}, return_stderr=True), {ts_launches} kernel "
+          f"launch(es): {v:.7f} +- {se:.2e} (exact {ND_TS_EXACT:.7f}, z = "
+          f"{(v - ND_TS_EXACT) / se:+.3f})")
+    if ts_launches < 1:
+        fail("the table/sampler nd importance set did not launch the kernel")
+    if not (math.isfinite(v) and se > 0 and abs(v - ND_TS_EXACT) <= 6.0 * se):
+        fail("the table/sampler nd importance set is off 2/7")
+    nd_is["table_sampler"] = nd_new_times(
+        "table_sampler", MODE_SAMPLES, ts_call,
+        "[x*y*y], table p and sampler q (strata), traced p and q, stderr",
+        "43")
+    nd_is["table_sampler"].update(value=v, stderr=se)
+    for rec in (*nd_custom.values(), *nd_is.values()):
+        nd_new_err = max(nd_new_err, rec["max_abs_err"])
+    print(f"phases 39-43 (nd CUSTOM dimensions and nd importance sampling) "
+          f"took {time.perf_counter() - t_nd_new:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -3222,6 +3612,16 @@ def main() -> int:
             "samples": n_fam, "ms": fam_nd_ms, "plain_ms": fam_nd_plain_ms,
             "call_ms": fam_nd_call_ms, "bound_ms": fam_nd_bound[0],
             "bound_pipe": fam_nd_bound[1], "issue_ms": fam_nd_bound[2]}},
+        "custom": {
+            "launches": c9b_launches, "max_abs_err": nd_new_err,
+            **{k: nd_custom["c9b"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "call_ms")},
+            **nd_custom},
+        "is": {
+            "launches": rare_launches, "max_abs_err": nd_new_err,
+            **{k: nd_is["rare"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "call_ms")},
+            **nd_is},
     }, {
         "name": "mcmc_nd",
         "route": "cuda",

@@ -1828,3 +1828,186 @@ def test_family_mcmc_kernels_match_plain_versions(cuda_device, case):
     check_public_mcmc(path, public_mcmc_setup(
         path, fns, _family_spec(target), _family_spec(proposal), temps, stderr,
         cuda_device, 1000, 200))
+
+
+# -- nd over CUSTOM dimensions and nd importance weights ----------------------
+#
+# Each CUSTOM route of the nd kernel (the stratified tables, their gapped
+# twin, the flat inverse, the flat gapped tables, the knot-exact inverse)
+# and each weight kind (traced, uniform-grid table, irregular-grid table,
+# the sampler's density on the stratified and on the flat route) against
+# the plain version at 2**22: the same draws, so means within rel 1e-5 +
+# abs 1e-6 and error bars within rel 1e-4 + abs 1e-9, each absolute term
+# times the column's size (its mean |value| on the weighted pilot grid,
+# or |mean| if larger: a rare event's column is held to itself).
+
+
+def _nd_grid_pdf():
+    x = np.linspace(0.0, 1.0, 2048)
+    return tm.Distribution.from_pdf_table(x, np.where((x > 0.4) & (x < 0.6), 0.0, 1.0))
+
+
+def _nd_beta_table():
+    x = np.linspace(0.0, 1.0, 2048)
+    return tm.Distribution.from_pdf_table(x, 30.0 * x * (1.0 - x) ** 4)
+
+
+def _nd_spiky():
+    x = np.unique(np.concatenate([np.linspace(0.0, 1.0, 300),
+                                  0.5 + np.geomspace(1e-5, 1e-3, 60)]))
+    return tm.Distribution.from_pdf_table(x, 1.0 + 50.0 * np.exp(-(((x - 0.5) / 1e-5) ** 2)))
+
+
+def _nd_named(name):
+    d = tm.Distribution
+    return {
+        "beta25": lambda: d.beta(2.0, 5.0), "beta33": lambda: d.beta(3.0, 3.0),
+        "beta153": lambda: d.beta(1.5, 3.0), "beta22": lambda: d.beta(2.0, 2.0),
+        "u01": lambda: d.uniform(0.0, 1.0), "n01": lambda: d.normal(0.0, 1.0),
+        "n015": lambda: d.normal(0.0, 1.5), "n3515": lambda: d.normal(3.5, 1.5),
+        "gapped": _nd_grid_pdf, "t5": lambda: d.student_t(5.0),
+        "betatab": _nd_beta_table, "spiky": _nd_spiky,
+    }[name]()
+
+
+_NDF2 = [lambda x, y: x * y, lambda x, y: x + y * y]
+_NDF3 = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y - z]
+# id: (fns, proposals, targets or None)
+ND_CUSTOM_CASES = {
+    "strata": (_NDF2, ("beta25", "u01"), None),
+    "strata-flat": (_NDF2, ("beta25", "beta33"), None),
+    "gapped-strata": (_NDF2, ("gapped", "u01"), None),
+    "flat-gapped": (_NDF2, ("u01", "gapped"), None),
+    "knots": (_NDF2, ("t5", "n01"), None),
+    "is-traced": ([lambda x, y: (x > 3.0) * (y > 3.0)], ("n3515", "n3515"), ("n01", "n01")),
+    "is-table-p-sampler-q": ([lambda x, y: x * y * y], ("beta153", "n015"), ("betatab", "n01")),
+    "is-two-samplers": (_NDF2, ("beta153", "beta33"), ("beta25", "betatab")),
+    "is-knot-p": (_NDF2, ("u01", "n01"), ("spiky", "n01")),
+    "is-heavy-gapped-q": (_NDF2, ("t5", "gapped"), ("n01", "u01")),
+    "is-three-dims": (_NDF3, ("beta153", "beta33", "beta22"), ("betatab", "beta25", "beta22")),
+}
+
+
+def _nd_new_kernel_and_plain(case, method, with_stderr, device, n_samples):
+    from tpu_montecarlo_torch.api.device import nd_tables
+    from tpu_montecarlo_torch.api.results import _unit_integrand
+    from tpu_montecarlo_torch.ops import integrate_nd_kernel as nk
+
+    fns, props, targs = ND_CUSTOM_CASES[case]
+    props = [_nd_named(n) for n in props]
+    d = len(props)
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    traced = tuple(tm.trace_function(f, d) for f in fns)
+    weight = None
+    if targs is not None:
+        traced += (_unit_integrand(d),)
+        weight = tuple(integ._is_weight_dim(_nd_named(t), q) for t, q in zip(targs, props))
+    kinds = tuple(dist_spec_of(q).kind for q in props)
+    program = nk.IntegrateNdProgram(traced, kinds, weight)
+    cfg = nk.NdConfig(kinds, method, with_stderr)
+    tables = nd_tables(props, cfg, device, program.sampler_dims)
+    grid = plan_grid(n_samples, method)
+    params = torch.tensor(np.stack([dist_spec_of(q).params for q in props]), device=device)
+    pilot = (nk.pilot_row(program.torch_fns, kinds, params, tables, program.torch_weight)
+             if with_stderr else None)
+    # The weight is never negative: |f w| = |f| w.
+    size = nk.pilot_row([lambda *x, f=f: f(*x).abs() for f in program.torch_fns], kinds,
+                        params, tables, program.torch_weight).double().cpu().numpy()
+    before = nk.integrate_nd_cuda.launches
+    got = nk.integrate_nd_cuda(program, cfg, params, 42, grid, pilot, tables)
+    torch.cuda.synchronize()
+    assert nk.integrate_nd_cuda.launches == before + 1
+    want = nk.integrate_nd_reference(program.torch_fns, cfg, params, 42, grid, pilot,
+                                     tables, program.torch_weight)
+    if with_stderr:
+        out = [tuple(t.double().cpu().numpy()
+                     for t in nk.finish_stderr(o[0], o[1], pilot, grid, cfg.antithetic))
+               for o in (got, want)]
+    else:
+        n = float(np.float32(grid.actual_samples))
+        out = [((o / n).double().cpu().numpy(), None) for o in (got, want)]
+    return out, np.maximum(size, np.abs(out[1][0]))
+
+
+def _check_nd_new(got, want, size):
+    (m_k, s_k), (m_p, s_p) = got, want
+    assert np.all(np.isfinite(m_k))
+    assert np.all(np.abs(m_k - m_p) <= RTOL * np.abs(m_p) + ATOL * size), (m_k, m_p)
+    if s_p is not None:
+        assert np.all(s_k > 0)
+        assert np.all(np.abs(s_k - s_p) <= ND_STDERR_RTOL * np.abs(s_p) + 1e-9 * size)
+
+
+ND_CUSTOM_RUNS = (
+    [("strata", m, s) for m, s in ND_MODES]
+    + [("strata-flat", "mc", False), ("strata-flat", "antithetic", True),
+       ("strata-flat", "qmc", False), ("gapped-strata", "mc", False),
+       ("gapped-strata", "antithetic", True), ("flat-gapped", "mc", True),
+       ("flat-gapped", "qmc", False), ("knots", "mc", True), ("knots", "qmc", False)]
+    + [(c, m, s) for c in ("is-traced", "is-table-p-sampler-q") for m, s in ND_MODES]
+    + [("is-two-samplers", "mc", True), ("is-two-samplers", "qmc", False),
+       ("is-knot-p", "mc", True), ("is-heavy-gapped-q", "mc", True),
+       ("is-heavy-gapped-q", "antithetic", False), ("is-three-dims", "mc", True),
+       ("is-three-dims", "antithetic", True)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,method,with_stderr", ND_CUSTOM_RUNS,
+                         ids=[f"{c}-{m}{'-stderr' if s else ''}" for c, m, s in ND_CUSTOM_RUNS])
+def test_nd_custom_kernel_matches_plain_version(cuda_device, case, method, with_stderr):
+    (got, want), size = _nd_new_kernel_and_plain(case, method, with_stderr, cuda_device,
+                                                 1 << 22)
+    _check_nd_new(got, want, size)
+
+
+@pytest.mark.cuda
+def test_integrate_nd_custom_on_cuda_matches_cpu(cuda_device):
+    # c9b and an nd importance set with table and sampler weights through
+    # the public calls, on the card and on the CPU: the same draws, so the
+    # means agree to float32 summation order.
+    d = tm.Distribution
+    on = {dev: tm.MonteCarloIntegrator(device=dev) for dev in ("cpu", "cuda")}
+    b, u = d.beta(2.0, 5.0), d.uniform(0.0, 1.0)
+    r = {k: i.integrate([lambda x, y: x * y], [b, u], n_samples=1 << 20, seed=3,
+                        return_stderr=True) for k, i in on.items()}
+    np.testing.assert_allclose(r["cuda"].values, r["cpu"].values, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(r["cuda"].stderr, r["cpu"].stderr, rtol=ND_STDERR_RTOL)
+    s = {k: i.integrate_importance_sampling(
+        [lambda x, y: x * y * y], [_nd_beta_table(), d.normal(0.0, 1.0)],
+        [d.beta(1.5, 3.0), d.normal(0.0, 1.5)], n_samples=1 << 20, seed=3,
+        return_stderr=True, return_diagnostics=True) for k, i in on.items()}
+    np.testing.assert_allclose(s["cuda"].values, s["cpu"].values, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(s["cuda"].stderr, s["cpu"].stderr, rtol=ND_STDERR_RTOL)
+    assert abs(s["cuda"].diagnostics["ess"] - s["cpu"].diagnostics["ess"]) <= (
+        1e-3 * s["cpu"].diagnostics["ess"])
+
+
+@pytest.mark.cuda
+def test_nd_custom_kernel_rejects_missing_tables(cuda_device):
+    # A CUSTOM library launched with no tables, or a stratified route under
+    # qmc, returns an error and runs nothing.
+    from tpu_montecarlo_torch.api.device import nd_tables
+    from tpu_montecarlo_torch.ops import integrate_nd_kernel as nk
+
+    props = [tm.Distribution.beta(2.0, 5.0), tm.Distribution.uniform(0.0, 1.0)]
+    kinds = tuple(dist_spec_of(q).kind for q in props)
+    program = nk.IntegrateNdProgram((tm.trace_function(lambda x, y: x * y, 2),), kinds)
+    cfg = nk.NdConfig(kinds)
+    tables = nd_tables(props, cfg, cuda_device)
+    lib = program.library(nk.nd_routes(cfg, tables))
+    params = torch.zeros((2, 2), device=cuda_device)
+    out = torch.empty((1, 1), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.tmc_integrate_nd(0, 0, 42, params.data_ptr(), 0, 0, 1, 1, -1, 1,
+                               out.data_ptr(), None, stream)
+    assert err != 0
+    kt = program.kernel_tables(tables, cuda_device)
+    dirs = program.direction_numbers(cuda_device)
+    err = lib.tmc_integrate_nd(2, 0, 42, params.data_ptr(), dirs.data_ptr(), 0, 1, 1,
+                               -1, 1, out.data_ptr(), ctypes.addressof(kt), stream)
+    assert err != 0
+    err = lib.tmc_integrate_nd(0, 0, 42, params.data_ptr(), 0, 0, 1, 1, -1, 1,
+                               out.data_ptr(), ctypes.addressof(kt), stream)
+    torch.cuda.synchronize()
+    assert err == 0

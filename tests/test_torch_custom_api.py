@@ -21,8 +21,9 @@ Then the routing left to later items: the CUSTOM MCMC workloads that the
 JAX package sends to its XLA sweep rather than its kernels (a heavy-tailed
 proposal, a target table with no uniform grid, a gapped tempered
 proposal) raise naming items 6.8, 8.9 and 9.8, and the JAX package's
-kernel gates refuse the same inputs; a CUSTOM dimension in nd integrate
-raises naming item 7.1; and a density whose front-end construct the port
+kernel gates refuse the same inputs; compile_integrate over a CUSTOM
+dimension raises naming item 7.4 (nd integrate itself takes CUSTOM
+dimensions, ``tests/test_torch_nd_custom.py``); and a density whose front-end construct the port
 lacks names item 3 rather than take the table route (the reference traces
 it in closed form).
 """
@@ -360,8 +361,8 @@ ROUTING = {
                                               **_PT), r"item 9\.8"),
     "tempered-gridless-target": (lambda: _mcmc(target=_spike(tm), proposal=tm.RandomWalk(),
                                                **_PT), r"item 9\.8"),
-    "nd-integrate-custom-dimension": (lambda: tm.integrate(
-        [lambda x, y: x * y], [_N, _beta()], n_samples=1000, device="cpu"), r"item 7\.1"),
+    "nd-integrate-custom-dimension": (lambda: tm.MonteCarloIntegrator(device="cpu").compile_integrate(
+        [lambda x, y: x * y], [_N, _beta()], seed_batch=4), r"item 7\.4"),
     "while-density-target": (lambda: _is([lambda x: x], D(tm.DistributionType.CUSTOM, {}, _while_pdf),
                                          D.uniform(-1.0, 1.0), 1000), r"item 3 "),
     "while-density-proposal": (lambda: _is([lambda x: x], D.uniform(-1.0, 1.0),

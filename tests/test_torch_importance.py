@@ -472,7 +472,7 @@ def test_what_is_not_ported_names_its_item():
         r"item 3 ": lambda: integ.integrate_importance_sampling(
             [lambda x: x], U(-1.0, 1.0), tm.Distribution.from_pdf(
                 _while_pdf, support=(-1.0, 1.0))),
-        r"item 7\.3 ": lambda: integ.integrate_importance_sampling(
+        r"item 2\.4 \(seed_batch": lambda: integ.compile_importance_sampling(
             [lambda x, y: x], [U(0.0, 1.0)] * 2, [U(0.0, 1.0)] * 2),
         r"item 2\.4 ": lambda: integ.compile_importance_sampling(
             [lambda x: x], N(0.0, 1.0), N(0.0, 2.0), seed_batch=4),

@@ -477,14 +477,12 @@ def test_out_of_scope_options_name_their_roadmap_items():
     integ = tm.MonteCarloIntegrator(device="cpu")
     u = tm.Distribution.uniform(0.0, 1.0)
     f2 = [lambda x, y: x * y]
-    custom = tm.Distribution(tm.DistributionType.CUSTOM, {}, lambda x: 1.0)
     wide = [_plus(float(c)) for c in range(129)]
     # A density with a while loop: the JAX package traces it; the port's
     # front end names item 3 rather than take the PDF-table fallback.
     untraceable = tm.Distribution(tm.DistributionType.CUSTOM, {}, _while_pdf)
     cases = {
-        r"item 7\.1 ": lambda: integ.integrate(f2, [u, custom]),
-        r"item 7\.3 ": lambda: integ.integrate_importance_sampling(f2, [u, u], [u, u]),
+        r"item 2\.4 ": lambda: integ.compile_importance_sampling(f2, [u, u], [u, u]),
         r"item 7\.4 ": lambda: integ.compile_integrate(f2, [u, u], seed_batch=4),
         r"item 7\.5 ": lambda: integ.integrate(f2, [u, u], control_variates=[(f2[0], 0.25)]),
         r"item 7\.5 \(nd control variates and expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),

@@ -4,7 +4,9 @@ the table half of ``tpu_montecarlo/api/device.py``).
 Per-Distribution caches of the host tables the kernels read and of their
 device copies: for the 1-D integrate kernel the stratified or
 gap-respecting inverse tables, the CDF knots of the knot-exact route and
-the uniform-grid pdf tables of importance weights; for the three MCMC
+the uniform-grid pdf tables of importance weights; for the nd integrate
+kernel each CUSTOM dimension's route tables and full inverse
+(:func:`nd_custom_dim`); for the three MCMC
 kernels the downsampled flat inverse of a proposal (or its flat
 gap-respecting tables), the guarded and downsampled log table of a gapped
 proposal and the downsampled log table of a target
@@ -25,6 +27,7 @@ from ..ops.integrate_kernel import (
     StrataTables,
     prep_inv_table_stratified,
 )
+from ..ops.integrate_nd_kernel import CustomDim, FlatTables, NdConfig
 from ..ops.mcmc_tables import DimTables, InverseTable, log_table, prep_inv_table
 from ..sampling import DistKind, dist_spec_of
 from ..tables import (
@@ -41,6 +44,8 @@ from ..tables import (
 
 __all__ = [
     "mcmc_dim_tables",
+    "nd_custom_dim",
+    "nd_tables",
     "mcmc_proposal_route",
     "mcmc_target_tables_ok",
     "sampling_tables",
@@ -261,6 +266,67 @@ def sampling_tables(distribution, spec, device, with_pdf: bool = False):
             spec.x_table, with_pdf=with_pdf)))
     cache[key] = tables
     return tables
+
+
+def nd_custom_dim(distribution, spec, device, stratified: bool,
+                  sampler: bool = False) -> CustomDim:
+    """A CUSTOM dimension's tables for the nd integrate kernel, cached per
+    Distribution, device, route and sampler mode: on the stratified
+    dimension (``stratified``) the 1-D kernel's row-stratified tables
+    (with the sampler's density ``qs`` under ``sampler``) or, for an
+    ``exact_inverse`` spec, its gap-respecting strata; elsewhere the flat
+    full inverse of the spec's table (``prep_inv_table``'s knots and
+    forward differences, any knot count) or, gapped, the flat gapped
+    tables; a heavy-tailed spec the knot-exact inverse on either.  The
+    full inverse rides along for the pilot (``CustomDim.full``)."""
+    cache = distribution.__dict__.setdefault("_nd_device_tables", {})
+    key = (str(torch.device(device)), stratified, sampler)
+    if key in cache:
+        return cache[key]
+    if sampler and spec.exact_inverse:
+        raise ValueError(
+            "sampler-mode IS weights need a non-gapped CUSTOM proposal"
+        )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    if spec.heavy_tail:
+        full = KnotTables(dev(spec.x_table), dev(spec.cdf_table))
+        tables = CustomDim(full, full)
+    else:
+        if spec.exact_inverse:
+            full = FlatTables(*map(dev, _device_gapped_tables(
+                distribution, spec, stratified=False)))
+        else:
+            t = np.asarray(spec.x_table, np.float32)
+            full = FlatTables(dev(t), dev(np.concatenate(
+                [t[1:] - t[:-1], np.zeros(1, np.float32)])))
+        draw = full
+        if stratified and spec.exact_inverse:
+            draw = StrataTables(*map(dev, _device_gapped_tables(distribution,
+                                                                spec)))
+        elif stratified:
+            draw = StrataTables(*map(dev, prep_inv_table_stratified(
+                spec.x_table, with_pdf=sampler)))
+        tables = CustomDim(draw, full)
+    cache[key] = tables
+    return tables
+
+
+def nd_tables(dists, cfg: NdConfig, device, sampler_dims=()):
+    """Each CUSTOM dimension's :class:`CustomDim` on ``device`` as ``cfg``
+    draws it (stratified on ``cfg.strat_dim``, with the sampler's density
+    on ``sampler_dims``), None elsewhere; None when no dimension is
+    CUSTOM."""
+    if DistKind.CUSTOM not in cfg.kinds:
+        return None
+    return [
+        nd_custom_dim(dd, dist_spec_of(dd), device, j == cfg.strat_dim,
+                      j in sampler_dims)
+        if kind == DistKind.CUSTOM else None
+        for j, (dd, kind) in enumerate(zip(dists, cfg.kinds))
+    ]
 
 
 def _uniform_table_mode(distribution, mode, role: str = "target"):

@@ -1,4 +1,4 @@
-"""Importance sampling over one dimension (port of the 1-D routes of
+"""Importance sampling over one dimension and over d (port of
 ``tpu_montecarlo/api/importance.py``).
 
 Each integrand is weighted by ``p(x) / q(x)`` inside the 1-D integrate
@@ -20,8 +20,16 @@ package's traceability probe (``_pdf_mode``):
 A density that uses a construct the port's front end does not have yet
 raises its ``NotImplementedError`` (ROADMAP.md item 3): the reference
 computes it in closed form, so it does not take the table route here.
-nd sequences and ``compile_importance_sampling`` raise naming their
-items.
+
+Sequences of d >= 2 targets and proposals run in the nd integrate kernel
+(``IntegrateNdProgram(fns, kinds, weight)``), weighted by the product
+prod_j p_j(x_j) / q_j(x_j) in dimension order, as the JAX package's
+kernel route (``_try_is_nd_kernel``) weighs them; each factor traced, a
+uniform-grid table, an irregular-grid one, or, for a non-gapped CUSTOM
+proposal dimension, the sampler's own density.  The JAX package folds
+what its kernel route refuses into the integrands on its XLA sweep; the
+port keeps it in the kernel (``_is_weight_dim``).
+``compile_importance_sampling`` raises naming its item.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from ..distributions import Distribution
 from ..ops.integrate_kernel import SAMPLER, KnotWeightTable, UniformWeightTable
 from ..sampling import DistKind, dist_spec_of
 from ..tracing import TraceError, trace_function
-from ..utils.roadmap import ND_IS, SERVING, not_ported
+from ..utils.roadmap import SERVING, not_ported
 from .device import _device_mode_tables, _uniform_table_mode
 from .results import IntegrationResult, _unit_integrand, _weight_diagnostics
 
@@ -98,8 +106,9 @@ class _ImportanceMixin:
                     "non-empty lists of Distribution objects"
                 )
             if len(targets) > 1:
-                raise not_ported("nd importance sampling (product weights)",
-                                 ND_IS)
+                return self._integrate_is_nd(
+                    functions, targets, proposals, n_samples, seed, method,
+                    return_stderr, qmc_rotations, return_diagnostics)
             target_distribution = targets[0]
             proposal_distribution = proposals[0]
         if return_diagnostics and method != "mc":
@@ -119,18 +128,67 @@ class _ImportanceMixin:
             program, proposal_distribution, n_samples, seed, method,
             return_stderr or return_diagnostics, qmc_rotations,
         )
-        if not return_diagnostics:
-            return IntegrationResult(
-                values=values, n_samples=n_samples,
-                n_functions=len(functions), stderr=stderr,
-            )
-        v = np.asarray(values, np.float64)
-        s = np.asarray(stderr, np.float64)
-        return IntegrationResult(
-            values=v[:-1], n_samples=n_samples, n_functions=len(functions),
-            stderr=s[:-1] if return_stderr else None,
-            diagnostics=_weight_diagnostics(v[-1], s[-1], n_samples),
+        return _is_result(values, stderr, n_samples, len(functions),
+                          return_stderr, return_diagnostics)
+
+    def _integrate_is_nd(
+        self, functions, targets, proposals, n_samples, seed, method,
+        return_stderr, qmc_rotations, return_diagnostics,
+    ) -> IntegrationResult:
+        """d-dimensional importance sampling (the JAX package's
+        ``_integrate_is_nd``): each dimension drawn from its proposal,
+        every integrand times the product weight prod_j p_j(x_j) /
+        q_j(x_j) in the nd kernel, in every method; the diagnostics'
+        weight column is the weighted constant 1 of d arguments."""
+        d = len(targets)
+        traced = self._trace_user_functions(functions, n_args=d)
+        if return_diagnostics:
+            if method != "mc":
+                raise ValueError(
+                    "return_diagnostics estimates the per-sample weight "
+                    "variance, an iid quantity; use method='mc' (got "
+                    f"method={method!r})"
+                )
+            traced = traced + (_unit_integrand(d),)
+        weight = tuple(self._is_weight_dim(t, q)
+                       for t, q in zip(targets, proposals))
+        kinds = tuple(dist_spec_of(q).kind for q in proposals)
+        program = self._nd_program(traced, kinds, weight)
+        values, stderr = self._run_nd(
+            program, proposals, n_samples, seed, method,
+            return_stderr or return_diagnostics, qmc_rotations,
         )
+        return _is_result(values, stderr, n_samples, len(functions),
+                          return_stderr, return_diagnostics)
+
+    def _is_weight_dim(self, target: Distribution, proposal: Distribution):
+        """One dimension's (p, q) of an nd importance set, as the JAX
+        package's kernel route (``_try_is_nd_kernel``,
+        ``importance.py:585-729``) takes them: p traced or a downsampled
+        uniform-grid table; q the proposal's sampler density where it is a
+        non-gapped CUSTOM table, else traced.  Where that route gives up
+        (a table p with no uniform grid, a gapped or heavy-tailed CUSTOM
+        proposal, a q that does not trace), the port stays in its kernel
+        with the densities its folded route reads: traced, a uniform-grid
+        table, or the table on its own grid by a knot search."""
+        spec = dist_spec_of(proposal)
+        if spec.kind == DistKind.CUSTOM and not spec.exact_inverse:
+            q = SAMPLER
+        else:
+            q = self._density(proposal, "proposal")
+        return self._density(target, "target"), q
+
+    def _density(self, dist: Distribution, role: str):
+        """A density of an nd weight: traced; else its table on a uniform
+        grid (downsampled, as the 1-D kernel route reads it); else the
+        table on its own grid."""
+        mode = self._pdf_mode(dist)
+        if mode[0] == "traced":
+            return mode[1]
+        uniform = _uniform_table_mode(dist, mode, role)
+        if uniform is None:
+            return _knot_table(dist, mode)
+        return _kernel_mode(dist, uniform, role)
 
     def compile_importance_sampling(self, functions, target_distribution,
                                     proposal_distribution, *args, **kwargs):
@@ -181,6 +239,22 @@ class _ImportanceMixin:
                          for d, m in ((target, p_mode), (proposal, q_mode)))
         return (_kernel_mode(target, p_k, "target"),
                 _kernel_mode(proposal, q_k, "proposal"))
+
+
+def _is_result(values, stderr, n_samples, n_functions, return_stderr,
+               return_diagnostics) -> IntegrationResult:
+    """An importance run's result; with diagnostics, the last column is
+    the weight's (its mean and error bar give them) and is dropped."""
+    if not return_diagnostics:
+        return IntegrationResult(values=values, n_samples=n_samples,
+                                 n_functions=n_functions, stderr=stderr)
+    v = np.asarray(values, np.float64)
+    s = np.asarray(stderr, np.float64)
+    return IntegrationResult(
+        values=v[:-1], n_samples=n_samples, n_functions=n_functions,
+        stderr=s[:-1] if return_stderr else None,
+        diagnostics=_weight_diagnostics(v[-1], s[-1], n_samples),
+    )
 
 
 # numpy < 2.0 names it trapz.

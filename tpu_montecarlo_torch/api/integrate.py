@@ -8,7 +8,7 @@ from typing import Callable, List, Union
 import numpy as np
 import torch
 
-from ..distributions import Distribution, DistributionType
+from ..distributions import Distribution
 from ..ops.integrate_kernel import (
     MAX_FUNCTIONS,
     METHODS,
@@ -29,7 +29,6 @@ from ..sampling import DistKind, dist_spec_of
 from ..utils.dispatch import make_integrate_plan
 from ..utils.roadmap import (
     API_SURFACE,
-    ND_CUSTOM,
     ND_CV,
     ND_SERVING,
     ND_WIDE,
@@ -37,7 +36,7 @@ from ..utils.roadmap import (
     not_ported,
 )
 from .cache import fns_key
-from .device import sampling_tables
+from .device import nd_tables, sampling_tables
 from .results import IntegrationResult
 
 def _as_dims(distribution):
@@ -52,15 +51,6 @@ def _as_dims(distribution):
             "Distribution objects (one per integrand argument)"
         )
     return dists
-
-
-def _nd_specs(dists):
-    """Packed specs of nd dimensions; CUSTOM dimensions, which the nd
-    kernel does not take yet, raise naming their ROADMAP item."""
-    for dd in dists:
-        if dd.dist_type == DistributionType.CUSTOM:
-            raise not_ported("CUSTOM dimensions in nd integrate", ND_CUSTOM)
-    return [dist_spec_of(dd) for dd in dists]
 
 
 class _IntegrateMixin:
@@ -82,9 +72,12 @@ class _IntegrateMixin:
         divide by ``actual_samples`` in float32 and come back float64.
 
         ``distribution`` may be a list of d >= 2 per-dimension
-        Distributions (uniform, normal, exponential or an extended
+        Distributions (uniform, normal, exponential, an extended
         family: lognormal, Cauchy, Laplace, logistic, Gumbel, Weibull,
-        Pareto) for d-ary functions,
+        Pareto, or CUSTOM: the first CUSTOM dimension stratified by row
+        of each tile under ``"mc"`` and ``"antithetic"``, the others and
+        every one under ``"qmc"`` through their full inverse-CDF tables)
+        for d-ary functions,
         E[f_i(X_1, ..., X_d)] over independent dimensions.  Then
         ``method`` may be ``"mc"``, ``"antithetic"`` (each uniform vector
         also mirrored, ``1 - u``, through every dimension) or ``"qmc"``
@@ -224,33 +217,54 @@ class _IntegrateMixin:
         self, functions, dists, n_samples, seed, method, return_stderr,
         qmc_rotations,
     ) -> IntegrationResult:
-        specs = _nd_specs(dists)
-        cfg = NdConfig(
-            tuple(s.kind for s in specs), method,
-            with_stderr=return_stderr and method != "qmc",
-        )
-        traced = self._trace_user_functions(functions, n_args=cfg.d)
+        kinds = tuple(dist_spec_of(dd).kind for dd in dists)
+        NdConfig(kinds, method)  # the method and Sobol dimension errors first
+        traced = self._trace_user_functions(functions, n_args=len(kinds))
+        program = self._nd_program(traced, kinds)
+        values, stderr = self._run_nd(program, dists, n_samples, seed, method,
+                                      return_stderr, qmc_rotations)
+        return IntegrationResult(values=values, stderr=stderr,
+                                 n_samples=n_samples,
+                                 n_functions=len(functions))
+
+    def _nd_program(self, traced, kinds, weight=None) -> IntegrateNdProgram:
+        """The cached nd program of a traced set over ``kinds``, weighted
+        by ``weight`` (one (p, q) pair per dimension) for importance
+        sampling."""
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
                 f"more than {MAX_FUNCTIONS} fused functions in nd integrate",
                 ND_WIDE,
             )
+        key = ("integrate_nd", fns_key(traced), kinds)
+        if weight is not None:
+            key += (("is_weight_nd", tuple(fns_key(pair) for pair in weight)),)
+        return self._cache.get_or_build(
+            key, lambda: IntegrateNdProgram(traced, kinds, weight))
+
+    def _run_nd(
+        self, program, dists, n_samples, seed, method, return_stderr,
+        qmc_rotations,
+    ):
+        """(values, stderr or None) of one nd run of ``program`` over the
+        Distributions ``dists`` on the kernel, float64 arrays: means over
+        the plan's ``actual_samples``; error bars from pilot-shifted
+        squares, or under ``qmc`` from ``qmc_rotations`` rotations
+        (randomized QMC, the JAX package's ``_integrate_nd``,
+        api/integrate.py:694), one launch each."""
+        cfg = NdConfig(program.kinds, method,
+                       with_stderr=return_stderr and method != "qmc")
         if return_stderr and method == "qmc" and qmc_rotations < 2:
             raise ValueError(
                 "qmc_rotations must be >= 2 to estimate an rQMC "
                 f"error bar (got {qmc_rotations})"
             )
-        program = self._cache.get_or_build(
-            ("integrate_nd", fns_key(traced), cfg.kinds),
-            lambda: IntegrateNdProgram(traced, cfg.kinds),
-        )
         params = torch.tensor(
-            np.stack([s.params for s in specs]), device=self._device
+            np.stack([dist_spec_of(dd).params for dd in dists]),
+            device=self._device,
         )
-        done = dict(n_samples=n_samples, n_functions=len(functions))
+        tables = nd_tables(dists, cfg, self._device, program.sampler_dims)
         if return_stderr and method == "qmc":
-            # Randomized QMC: independent seed-derived rotations of the
-            # net (the JAX package's _integrate_nd, api/integrate.py:694).
             r = qmc_rotations
             grid = self._grid(-(-n_samples // r), method)
             seeds = np.uint32(seed) + np.uint32(0x9E3779B9) * np.arange(
@@ -258,34 +272,29 @@ class _IntegrateMixin:
             )
             vals = np.stack(
                 [
-                    self._nd_means(program, cfg, params, int(s), grid)
+                    self._nd_means(program, cfg, params, int(s), grid, tables)
                     for s in seeds
                 ]
             ).astype(np.float64)
-            return IntegrationResult(
-                values=vals.mean(axis=0),
-                stderr=vals.std(axis=0, ddof=1) / np.sqrt(r),
-                **done,
-            )
+            return vals.mean(axis=0), vals.std(axis=0, ddof=1) / np.sqrt(r)
         grid = self._grid(n_samples, method)
         seed_word = int(np.uint32(seed))
         if not cfg.with_stderr:
-            return IntegrationResult(
-                values=self._nd_means(program, cfg, params, seed_word, grid),
-                **done,
-            )
-        pilot = pilot_row(program.torch_fns, cfg.kinds, params)
+            return self._nd_means(program, cfg, params, seed_word, grid,
+                                  tables), None
+        pilot = pilot_row(program.torch_fns, cfg.kinds, params, tables,
+                          program.torch_weight)
         sums, sqs = integrate_nd_cuda(
-            program, cfg, params, seed_word, grid, pilot
+            program, cfg, params, seed_word, grid, pilot, tables
         )
         mean, se = finish_stderr(sums, sqs, pilot, grid, cfg.antithetic)
-        return IntegrationResult(
-            values=mean.cpu().numpy(), stderr=se.cpu().numpy(), **done
-        )
+        return mean.cpu().numpy(), se.cpu().numpy()
 
     @staticmethod
-    def _nd_means(program, cfg, params, seed_word, grid) -> np.ndarray:
-        sums = integrate_nd_cuda(program, cfg, params, seed_word, grid)
+    def _nd_means(program, cfg, params, seed_word, grid,
+                  tables=None) -> np.ndarray:
+        sums = integrate_nd_cuda(program, cfg, params, seed_word, grid,
+                                 tables=tables)
         return (sums / float(np.float32(grid.actual_samples))).cpu().numpy()
 
     # -- surfaces of the JAX package not ported yet -------------------------

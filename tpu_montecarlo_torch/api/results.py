@@ -61,15 +61,17 @@ class IntegrationResult:
         return self.n_functions
 
 
-def _unit_integrand() -> TracedFunction:
-    """The constant-1 integrand, traced (``results.py:107-122``): ``x * 0
-    + 1``, so it takes every sample.  Weighted by an importance weight it
-    evaluates to the weight p(x)/q(x) itself, and its mean and error bar
-    give the weight's moments."""
+def _unit_integrand(n_args: int = 1) -> TracedFunction:
+    """The constant-1 integrand of ``n_args`` arguments, traced
+    (``results.py:107-122``): ``x * 0 + 1`` of its first argument, so it
+    takes every sample.  Weighted by an importance weight it evaluates to
+    the weight p(x)/q(x) itself, and its mean and error bar give the
+    weight's moments."""
     x = Node("arg", value=0)
     ir = Node("add", (Node("mul", (x, Node("const", value=0.0))),
                       Node("const", value=1.0)))
-    return TracedFunction("unit_integrand", 1, ir, ("unit_integrand", 1))
+    return TracedFunction("unit_integrand", n_args, ir,
+                          ("unit_integrand", n_args))
 
 
 def _weight_diagnostics(mean_w: float, se_w: float, n_samples: int) -> dict:

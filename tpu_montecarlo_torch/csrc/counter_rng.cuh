@@ -261,19 +261,26 @@ __device__ __forceinline__ float ldg(const float* p) {
 }
 
 // The flat inverse-CDF table t of n knots (with dt its forward
-// differences, or a gapped table's slopes) at the [0, 1) uniform of the
-// mantissa m: pos = u * (n - 1), i0 = clamp(int(pos), 0, n - 2), x = t[i0]
+// differences, or a gapped table's slopes) at the [0, 1) uniform u:
+// pos = u * (n - 1), i0 = clamp(int(pos), 0, n - 2), x = t[i0]
 // + (pos - i0) * dt[i0]; `slope` gets dt[i0] (ops/mcmc_tables.py
 // inverse_draw; mcmc_pallas.py:243-261).
-__device__ __forceinline__ float inverse_table_x(uint32_t m, const float* t,
+__device__ __forceinline__ float inverse_table_u(float u, const float* t,
                                                  const float* dt, int n,
                                                  float& slope) {
-  const float pos = halfopen01(m) * float(n - 1);
+  const float pos = u * float(n - 1);
   const int p0 = int(pos);
   const int i0 = p0 < 0 ? 0 : (p0 > n - 2 ? n - 2 : p0);
   const float frac = pos - float(i0);
   slope = ldg(dt + i0);
   return ldg(t + i0) + frac * slope;
+}
+
+// inverse_table_u at the [0, 1) uniform of the mantissa m.
+__device__ __forceinline__ float inverse_table_x(uint32_t m, const float* t,
+                                                 const float* dt, int n,
+                                                 float& slope) {
+  return inverse_table_u(halfopen01(m), t, dt, n, slope);
 }
 
 // A padded uniform-grid table (n values, forward differences dx) at x:

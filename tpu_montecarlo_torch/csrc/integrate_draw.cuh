@@ -35,7 +35,9 @@
 //   of a 256-row tile's 32, knot j and fraction of w * 127;
 // * knot_interp: a binary search over sorted knots (the last with
 //   key <= u) and linear interpolation, the knot-exact inverse CDF;
-// * uniform_table_value: a padded uniform-grid pdf table, 0 off its grid.
+// * uniform_table_value: a padded uniform-grid pdf table, 0 off its grid;
+// * nd_custom_x: the nd kernel's CUSTOM dimension on its route (strata,
+//   the flat full inverse with its sampler density, or knots).
 //
 // Tables are read with __ldg (tmc::ldg, counter_rng.cuh) from global
 // memory: (32, 128) float32 strata tables are 16 KB each and stay in L1;
@@ -166,16 +168,24 @@ struct Tables {
 // The stratified draw at the top-24 word of w (w = top * 2^-32, in [0, 1))
 // for the position pos of its tile; *q gets the sampler's density where
 // WITH_Q.  w * 127 is top * (127 * 2^-32): a power of two scales exactly.
+// The (kStrata, 128) tables' draw at pw for position pos; `idx` gets the
+// table index it read, where a sampler's density sits in its qs table.
+__device__ __forceinline__ float strata_lookup(const float* ts,
+                                               const float* dts, uint32_t pos,
+                                               float pw, int& idx) {
+  const int j = int(pw);  // pw >= 0: truncation
+  const float frac = pw - float(j);
+  idx = int(pos >> kStratumShift) * kLanes + j;
+  return ldg(ts + idx) + frac * ldg(dts + idx);
+}
+
 template <bool WITH_Q>
 __device__ __forceinline__ float strata_x(const Tables& tb, uint32_t pos,
                                           float pw, float* q) {
-  const int j = int(pw);  // pw >= 0: truncation
-  const float frac = pw - float(j);
-  const int idx = int(pos >> kStratumShift) * kLanes + j;
-  const float x0 = ldg(tb.ts + idx);
-  const float dx = ldg(tb.dts + idx);
+  int idx;
+  const float x = strata_lookup(tb.ts, tb.dts, pos, pw, idx);
   if constexpr (WITH_Q) *q = ldg(tb.qs + idx);
-  return x0 + frac * dx;
+  return x;
 }
 
 // Linear interpolation of vals over the m sorted keys at u: i the last
@@ -216,6 +226,66 @@ __device__ __forceinline__ float knot_table_value(float x,
                                                   const WeightTab& t) {
   return (x >= t.x0 && x <= t.x_max) ? knot_interp(x, t.keys, t.vals, t.n)
                                      : 0.0f;
+}
+
+// -- CUSTOM dimensions and product weights of the nd integrate kernel ----
+
+// A CUSTOM dimension's route in integrate_nd.cu (TMC_ROUTES): the
+// row-stratified tables (the first CUSTOM dimension under mc and
+// antithetic), the flat full inverse (the others, and every one under
+// qmc), or the knot-exact inverse of a heavy-tailed table.
+enum NdRoute { kNdAnalytic = 0, kNdStrata = 1, kNdFlat = 2, kNdKnots = 3 };
+
+// One dimension's tables in the nd kernel (ops/integrate_nd_kernel.py
+// _NdDim): t and dt are the strata tables' knots and slopes, the flat
+// inverse's m knots and its forward differences (a gapped table's
+// slopes), or the knot route's x and CDF knots; qs is the strata tables'
+// sampler density (sampler-mode q only); inv_du = float32(1 / (m - 1));
+// p and q are the weight's tables, where its mode reads one.
+struct NdDim {
+  const float* t;
+  const float* dt;
+  const float* qs;
+  float inv_du;
+  int m;
+  WeightTab p, q;
+};
+
+// The flat inverse's sampler density at a draw of slope dt (the JAX nd
+// kernel's full-inverse sampler q): (1 / (m - 1)) / dt, 0 where dt is 0.
+__device__ __forceinline__ float flat_sampler_q(float dt, float inv_du) {
+  return dt > 0.0f ? inv_du / fmaxf(dt, 1e-38f) : 0.0f;
+}
+
+// A CUSTOM dimension's sample at the [0, 1) uniform w of position pos on
+// `route` (pw = w * 127, the strata tables' knot position, passed in: it
+// is float(top) * kW127 for a top-24 word); *q gets the sampler's density
+// where WITH_Q (strata: its qs table; flat: flat_sampler_q).
+template <bool WITH_Q>
+__device__ __forceinline__ float nd_custom_x(int route, float w, float pw,
+                                             uint32_t pos, const NdDim& d,
+                                             float* q) {
+  if (route == kNdStrata) {
+    int idx;
+    const float x = strata_lookup(d.t, d.dt, pos, pw, idx);
+    if constexpr (WITH_Q) *q = ldg(d.qs + idx);
+    return x;
+  }
+  if (route == kNdFlat) {
+    float slope;
+    const float x = inverse_table_u(w, d.t, d.dt, d.m, slope);
+    if constexpr (WITH_Q) *q = flat_sampler_q(slope, d.inv_du);
+    return x;
+  }
+  return knot_interp(w, d.dt, d.t, d.m);
+}
+
+// One dimension's factor of the product weight, where(q > 0, p / q, 0),
+// with p and q given.
+__device__ __forceinline__ float weight_ratio(float p, float q) {
+  const bool ok = q > 0.0f;
+  const float safe_q = ok ? q : 1.0f;
+  return ok ? p / safe_q : 0.0f;
 }
 
 // A CUDA block's walk over the tiles first, first + stride, ... of a plan

@@ -3,9 +3,10 @@
 // Replaces the TPU kernel `kernel` inside build_integrate_nd_pallas
 // (tpu_montecarlo/ops/integrate_nd_pallas.py:373-675, pallas_call at :708)
 // in its mc, antithetic and qmc modes, with and without error bars, for d
-// dimensions of the uniform, normal and exponential families.  Under the
-// JAX package's CounterRng it draws the very samples that kernel draws in
-// interpret mode at 256-row blocks:
+// dimensions of the uniform, normal and exponential families, the seven
+// extended families and CUSTOM tables, and with its importance weights
+// (is_weight_nd).  Under the JAX package's CounterRng it draws the very
+// samples that kernel draws in interpret mode at 256-row blocks:
 //
 // * a tile is one (program pid, loop block blk) of 256 x 128 positions,
 //   pos = row * 128 + lane; mc and antithetic seed the stream with
@@ -17,6 +18,18 @@
 //   dimension, rotated by derive_shift(seed, j + 1); from 2^32 points on,
 //   seg = t >> 17 re-mixes the rotation (derive_segment_shift) and
 //   t & (2^17 - 1) is the block (sobol.cuh);
+// * a CUSTOM dimension (kind 3) draws from its [0, 1) uniform w on its
+//   route (TMC_ROUTES): the first CUSTOM dimension under mc and antithetic
+//   through the row-stratified tables, stratum pos >> 10 of the tile's 32
+//   (its mirror 1 - w in the same stratum); the others, and every one
+//   under qmc, through the flat full inverse x = t[i0] + frac * dt[i0] at
+//   pos = w * (m - 1); a gap-respecting table through the gapped strata
+//   or the flat gapped slopes, a heavy-tailed one through the knot-exact
+//   inverse (the JAX package sends those two to its XLA sweep);
+// * an importance set (TMC_WEIGHTED) weighs every integrand by the product
+//   prod_j where(q_j > 0, p_j / q_j, 0) in dimension order, each density
+//   traced, a uniform- or irregular-grid table, or q the CUSTOM sampler's
+//   own density (the strata tables' qs, or (1 / (m - 1)) / dt[i0]);
 // * the K d-ary integrands that ops/lower.py generated (tmc_integrands.inc,
 //   with TMC_D and the families TMC_KINDS) run on every point; K float32
 //   sums stay in registers, plus with error bars K sums of (f - pilot)^2,
@@ -59,6 +72,12 @@
 // * Sums are reduced once per block with warp shuffles in a fixed order,
 //   and torch.sum over the rows finishes: no atomics, so a result is the
 //   same on every run.
+// * Tables are read at run time from an NdTables passed by value (one
+//   tmc::NdDim per dimension), through the read-only cache from global
+//   memory, as integrate.cu reads its tables: a (32, 128) strata table is
+//   16 KB and stays in L1.  The routes and weight modes are compiled in
+//   per library; a library with neither takes no table argument and
+//   compiles no table code, so the closed-form libraries are unchanged.
 // * Built without --use_fast_math and with --fmad=false, as integrate.cu:
 //   the only fused multiply-adds are those written out (tmc_fma).
 #include <cstdint>
@@ -69,6 +88,22 @@
 #include "integrate_draw.cuh"
 #include "sobol.cuh"
 #include "tmc_integrands.inc"  // TMC_K, TMC_D, TMC_KINDS, f_j, tmc_*_nd
+
+// A library over CUSTOM dimensions compiles in each dimension's route
+// (TMC_ROUTES, tmc::NdRoute: 0 for a closed-form family); an importance
+// set (TMC_WEIGHTED, from the integrand source) each dimension's p and q
+// modes (TMC_P_MODES, TMC_Q_MODES: 0 traced, 1 uniform-grid table, 2 the
+// sampler's own density, 3 irregular-grid table).  Either takes the
+// launch's tables (NdTables); a library with neither is built as before,
+// with no table code and no table argument.
+#ifndef TMC_WEIGHTED
+#define TMC_WEIGHTED 0
+#endif
+#if defined(TMC_ROUTES) || TMC_WEIGHTED
+#define TMC_ND_TABLES 1
+#else
+#define TMC_ND_TABLES 0
+#endif
 
 namespace {
 
@@ -98,6 +133,82 @@ __device__ __forceinline__ int kind_of(int j) {
   return kinds[j];
 }
 
+#if TMC_ND_TABLES
+// Every table a launch reads, per dimension (ops/integrate_nd_kernel.py
+// _NdTables): passed by value.
+struct NdTables {
+  tmc::NdDim dim[TMC_D];
+};
+#define TMC_TABLES_PARAM , const NdTables tb
+#define TMC_TABLES_ARG , tb
+#else
+#define TMC_TABLES_PARAM
+#define TMC_TABLES_ARG
+#endif
+
+// Dimension j's CUSTOM route and weight modes, folded at compile time as
+// kind_of is (and read by the host's table check).
+__host__ __device__ __forceinline__ int route_of(int j) {
+#ifdef TMC_ROUTES
+  const int routes[TMC_D] = {TMC_ROUTES};
+  return routes[j];
+#else
+  return tmc::kNdAnalytic;
+#endif
+}
+
+#if TMC_WEIGHTED
+__host__ __device__ __forceinline__ int p_mode_of(int j) {
+  const int modes[TMC_D] = {TMC_P_MODES};
+  return modes[j];
+}
+
+__host__ __device__ __forceinline__ int q_mode_of(int j) {
+  const int modes[TMC_D] = {TMC_Q_MODES};
+  return modes[j];
+}
+
+constexpr int kSamplerMode = 2;
+
+// A density of dimension j at x in its mode: traced (tmc_pdf_p_nd,
+// tmc_pdf_q_nd from the integrand source), a uniform-grid table or an
+// irregular-grid one.
+template <bool P>
+__device__ __forceinline__ float density(int j, int mode, float x,
+                                         const tmc::WeightTab& t) {
+  if (mode == 0) return P ? tmc_pdf_p_nd(j, x) : tmc_pdf_q_nd(j, x);
+  if (mode == 1) return tmc::uniform_table_value(x, t);
+  return tmc::knot_table_value(x, t);
+}
+
+// The product weight prod_j where(q_j > 0, p_j / q_j, 0) at the point x,
+// in dimension order (the JAX nd kernel's `weight`); q_samp holds the
+// sampler's density of sampler-mode dimensions.
+__device__ __forceinline__ float nd_weight(const float* x,
+                                           const float* q_samp,
+                                           const NdTables& tb) {
+  float w = 1.0f;  // 1 * r is r: the first factor is taken as it is
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    const float p = density<true>(j, p_mode_of(j), x[j], tb.dim[j].p);
+    const float q = q_mode_of(j) == kSamplerMode
+                        ? q_samp[j]
+                        : density<false>(j, q_mode_of(j), x[j], tb.dim[j].q);
+    w = w * tmc::weight_ratio(p, q);
+  }
+  return w;
+}
+#endif
+
+// Whether dimension j's q is its sampler's own density.
+__device__ __forceinline__ bool wants_q(int j) {
+#if TMC_WEIGHTED
+  return q_mode_of(j) == kSamplerMode;
+#else
+  return false;
+#endif
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) {
@@ -112,7 +223,7 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
                     const uint32_t* __restrict__ dirs,
                     const float* __restrict__ pilots, int loops,
                     long long n_tiles, int seg_bits,
-                    float* __restrict__ partials) {
+                    float* __restrict__ partials TMC_TABLES_PARAM) {
   constexpr bool kSobol = METHOD == kQmc;
   constexpr int kOut = STDERR ? 2 * TMC_K : TMC_K;
   __shared__ uint32_t s_dirs[kSobol ? TMC_D * kSobolBits : 1];
@@ -183,6 +294,7 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
 #pragma unroll (kUnroll)
     for (int i = 0; i < kPerThread; ++i) {
       float x[TMC_D], y[TMC_D];
+      float qx[TMC_D], qy[TMC_D];  // sampler densities (sampler-mode q)
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) {
         // Position threadIdx.x + 256 i of dimension j, its top 24 bits.
@@ -190,12 +302,65 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
             kSobol ? tmc::sobol_top24(word[j] ^ s_high[i * TMC_D + j],
                                       shift[j])
                    : tmc::cursor_top24(word[j] + uint32_t(i) * kStep);
+#if TMC_ND_TABLES
+        if (kind_of(j) == tmc::kCustom) {
+          // w and its mirror 1 - w through the route's tables (a
+          // stratified dimension's mirror stays in its row's stratum).
+          const uint32_t pos = threadIdx.x + uint32_t(i) * kThreads;
+          const float w = tmc::halfopen_top(top);
+          if (wants_q(j)) {
+            x[j] = tmc::nd_custom_x<true>(route_of(j), w,
+                                          float(top) * tmc::kW127, pos,
+                                          tb.dim[j], &qx[j]);
+          } else {
+            x[j] = tmc::nd_custom_x<false>(route_of(j), w,
+                                           float(top) * tmc::kW127, pos,
+                                           tb.dim[j], nullptr);
+          }
+          if (METHOD == kAntithetic) {
+            const float v = 1.0f - w;  // exact
+            if (wants_q(j)) {
+              y[j] = tmc::nd_custom_x<true>(route_of(j), v, v * 127.0f, pos,
+                                            tb.dim[j], &qy[j]);
+            } else {
+              y[j] = tmc::nd_custom_x<false>(route_of(j), v, v * 127.0f,
+                                             pos, tb.dim[j], nullptr);
+            }
+          }
+          continue;
+        }
+#endif
         if (METHOD == kAntithetic) {
           tmc::transform_pair_top(kind_of(j), top, fam[j], x[j], y[j]);
         } else {
           x[j] = tmc::transform_top(kind_of(j), top, fam[j]);
         }
       }
+#if TMC_WEIGHTED
+      // The product weight multiplies each integrand's value before the
+      // sums and the pilot-shifted squares.
+      const float wx = nd_weight(x, qx, tb);
+      const float wy = METHOD == kAntithetic ? nd_weight(y, qy, tb) : 0.0f;
+      if (METHOD == kAntithetic && STDERR) {
+        float v1[TMC_K], v2[TMC_K];
+        tmc_values_nd_w(x, wx, v1);
+        tmc_values_nd_w(y, wy, v2);
+#pragma unroll
+        for (int k = 0; k < TMC_K; ++k) {
+          acc[k] += v1[k];
+          acc[k] += v2[k];
+          const float dd = tmc_fma(0.5f, v1[k] + v2[k], -pilot[k]);
+          sq[k] = tmc_fma(dd, dd, sq[k]);
+        }
+      } else if (METHOD == kAntithetic) {
+        tmc_accumulate_nd_w(x, wx, acc);
+        tmc_accumulate_nd_w(y, wy, acc);
+      } else if (STDERR) {
+        tmc_accumulate_nd_sq_w(x, wx, pilot, acc, sq);
+      } else {
+        tmc_accumulate_nd_w(x, wx, acc);
+      }
+#else
       if (METHOD == kAntithetic && STDERR) {
         // Squares of the pair's mean: pairs are the unit.
         float v1[TMC_K], v2[TMC_K];
@@ -216,6 +381,7 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
       } else {
         tmc_accumulate_nd(x, acc);
       }
+#endif
     }
   }
 
@@ -240,12 +406,56 @@ integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
   }
 }
 
+#if TMC_ND_TABLES
+// Whether every table the library reads is there, so that no lookup reads
+// through a null pointer or before a table's start (a flat table needs two
+// knots, a weight table two).  Which route and modes go with which
+// Distribution, ops/integrate_nd_kernel.py's nd_routes and _check_program
+// decide.
+bool tables_ok(const NdTables& tb) {
+  for (int j = 0; j < TMC_D; ++j) {
+    const tmc::NdDim& d = tb.dim[j];
+    const int route = route_of(j);
+    if (route != tmc::kNdAnalytic && (d.t == nullptr || d.dt == nullptr)) {
+      return false;
+    }
+    if (route != tmc::kNdStrata && route != tmc::kNdAnalytic && d.m < 2) {
+      return false;
+    }
+#if TMC_WEIGHTED
+    if (q_mode_of(j) == kSamplerMode && route == tmc::kNdStrata &&
+        d.qs == nullptr) {
+      return false;
+    }
+    const tmc::WeightTab* tabs[2] = {&d.p, &d.q};
+    const int modes[2] = {p_mode_of(j), q_mode_of(j)};
+    for (int i = 0; i < 2; ++i) {
+      const tmc::WeightTab& t = *tabs[i];
+      const bool table = modes[i] == 1 || modes[i] == 3;
+      if (table && (t.vals == nullptr || t.n < 2 ||
+                    (modes[i] == 1 ? t.dx : t.keys) == nullptr)) {
+        return false;
+      }
+    }
+#endif
+  }
+  return true;
+}
+#endif
+
 template <int METHOD, bool STDERR>
 cudaError_t launch(uint32_t seed, const float* params, const uint32_t* dirs,
                    const float* pilots, int loops, long long n_tiles,
-                   int seg_bits, int grid, float* partials, cudaStream_t s) {
+                   int seg_bits, int grid, float* partials, cudaStream_t s,
+                   const void* tables) {
+#if TMC_ND_TABLES
+  const NdTables tb = *static_cast<const NdTables*>(tables);
+#else
+  (void)tables;
+#endif
   integrate_nd_kernel<METHOD, STDERR><<<grid, kThreads, 0, s>>>(
-      seed, params, dirs, pilots, loops, n_tiles, seg_bits, partials);
+      seed, params, dirs, pilots, loops, n_tiles, seg_bits,
+      partials TMC_TABLES_ARG);
   return cudaGetLastError();
 }
 
@@ -256,41 +466,56 @@ cudaError_t launch(uint32_t seed, const float* params, const uint32_t* dirs,
 // TMC_D x 32 Sobol direction numbers (qmc only, else null); `pilots` TMC_K
 // floats (error bars only, else null); `seg_bits` is -1 for a qmc run
 // inside one 2^32-point segment; `partials` holds grid x TMC_K floats, or
-// grid x 2 TMC_K (sums, then squares) with error bars.
+// grid x 2 TMC_K (sums, then squares) with error bars; `tables` a host
+// NdTables (copied into the launch) where the library reads tables
+// (TMC_ROUTES or TMC_WEIGHTED), else null.
 extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
                                 const float* params, const unsigned int* dirs,
                                 const float* pilots, int loops,
                                 long long n_tiles, int seg_bits, int grid,
-                                float* partials, void* stream) {
+                                float* partials, const void* tables,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((method == kQmc) != (dirs != nullptr) ||
-      (with_stderr != 0) != (pilots != nullptr) || seg_bits > 31) {
+      (with_stderr != 0) != (pilots != nullptr) || seg_bits > 31 ||
+      TMC_ND_TABLES != (tables != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#if TMC_ND_TABLES
+  if (!tables_ok(*static_cast<const NdTables*>(tables))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The stratified route only under mc and antithetic.
+  for (int j = 0; j < TMC_D; ++j) {
+    if (method == kQmc && route_of(j) == tmc::kNdStrata) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#endif
   if (method == kMc && !with_stderr) {
     return static_cast<int>(launch<kMc, false>(
         seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s));
+        s, tables));
   }
   if (method == kMc) {
     return static_cast<int>(launch<kMc, true>(
         seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s));
+        s, tables));
   }
   if (method == kAntithetic && !with_stderr) {
     return static_cast<int>(launch<kAntithetic, false>(
         seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s));
+        s, tables));
   }
   if (method == kAntithetic) {
     return static_cast<int>(launch<kAntithetic, true>(
         seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s));
+        s, tables));
   }
   if (method == kQmc && !with_stderr) {
     return static_cast<int>(launch<kQmc, false>(
         seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s));
+        s, tables));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

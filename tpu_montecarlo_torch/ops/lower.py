@@ -23,12 +23,15 @@ the same order:
 Each IR operation is one float32 operation in both; constants are rounded
 to float32 once, here, for both.
 
-An importance-sampling set (``weight=(p, q)``) is weighted as the JAX
+An importance-sampling set (``weight=(p, q)``, or for d-ary integrands
+one such pair per dimension) is weighted as the JAX
 kernel's ``is_weight`` weighs it (``integrate_pallas.py:1009-1029``): the
 kernel computes ``w = where(q > 0, p / safe_q, 0)`` once per sample, p
 and q each a traced density, a pdf table or (q only) the CUSTOM
 sampler's own density, and the CUDA source takes it in the ``_w``
-entries, ``f(x) * w`` (:func:`cuda_source`).  The JAX package's traced
+entries, ``f(x) * w`` (:func:`cuda_source`); a d-ary set takes the
+product of the dimensions' weights in dimension order, the JAX nd
+kernel's ``weight`` (``integrate_nd_pallas.py:498-520``).  The JAX package's traced
 route folds the weight into each integrand instead
 (``_weighted_fns``, ``(f(x) * p(x)) / safe_q``); the two agree to a few
 ulp per value.
@@ -287,7 +290,8 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
     weighted entries of :func:`_weighted_entries` in their place, the
     weight made by the kernel as the module docstring says.  Integrands of d >= 2
     arguments, all of one arity, take the point as ``const float* x`` and
-    get ``TMC_D`` and :func:`_nd_entries`; ``pointer=True`` gives
+    get ``TMC_D`` and :func:`_nd_entries` (with a per-dimension
+    ``weight``, also :func:`_nd_weighted_entries`); ``pointer=True`` gives
     1-argument integrands that form too.  The sums take an unweighted
     integrand that ends in a multiply a * b as ``f_j_fma(x, acc)``,
     ``tmc_fma(a, b, acc)``: one rounding where ``TMC_CONTRACT`` is 1 (the
@@ -299,10 +303,15 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
         raise ValueError(f"integrands of mixed arity {sorted(arity)}")
     d = arity.pop()
     nd = pointer or d > 1
-    if weight is not None and (nd or any(
-            isinstance(w, TracedFunction) and w.n_args != 1 for w in weight)):
-        raise ValueError("importance weights take 1-argument integrands "
-                         "and densities")
+    if weight is not None:
+        densities = [w for pair in weight for w in pair] if nd else weight
+        if (nd and (pointer or len(weight) != d)) or any(
+                isinstance(w, TracedFunction) and w.n_args != 1
+                for w in densities):
+            raise ValueError(
+                "importance weights take 1-argument densities: one (p, q) "
+                "pair for 1-argument integrands, or one per dimension for "
+                "d-ary ones")
     parts = [f"#define TMC_K {k}"]
     if nd:
         parts.append(f"#define TMC_D {d}")
@@ -315,7 +324,10 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
             f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
             else f"  acc[{j}] += f_{j}(x);" for j in range(k)
         )
-        return "\n\n".join(parts + _nd_entries(k, acc)) + "\n"
+        entries = _nd_entries(k, acc)
+        if weight is not None:
+            entries += _nd_weighted_entries(k, weight)
+        return "\n\n".join(parts + entries) + "\n"
     if weight is not None:
         return "\n\n".join(parts + _weighted_entries(k, weight)) + "\n"
     return "\n\n".join(parts + _one_d_entries(k, fused)) + "\n"
@@ -366,6 +378,58 @@ def _weighted_entries(k: int, weight) -> List[str]:
         "static __device__ inline void tmc_accumulate_pair_sq_w(float x, "
         "float y, float wx, float wy, const float* pilot, float* acc, "
         f"float* sq) {{\n{pair}\n}}",
+    ]
+
+
+def _nd_weighted_entries(k: int, weight) -> List[str]:
+    """A weighted d-ary set's lines (the nd kernel's product weight):
+    ``TMC_WEIGHTED``, the per-dimension mode codes ``TMC_P_MODES`` and
+    ``TMC_Q_MODES``, each traced density as ``tmc_pdf_p_<j>`` or
+    ``tmc_pdf_q_<j>`` and the dispatchers ``tmc_pdf_p_nd(j, x)`` and
+    ``tmc_pdf_q_nd(j, x)`` (0 for a dimension whose density is not
+    traced), and the entries ``tmc_accumulate_nd_w(x, w, acc)``,
+    ``tmc_accumulate_nd_sq_w(x, w, pilot, acc, sq)`` and
+    ``tmc_values_nd_w(x, w, vals)``, which take ``f_j(x) * w`` where the
+    unweighted entries take ``f_j(x)``."""
+    modes = [["traced" if isinstance(w, TracedFunction) else w for w in pair]
+             for pair in weight]
+    for p_mode, q_mode in modes:
+        if p_mode not in ("traced", "table", "knots") or (
+                q_mode not in _WEIGHT_MODES):
+            raise ValueError(f"unknown importance weight modes {modes}")
+    parts = [
+        "#define TMC_WEIGHTED 1",
+        "#define TMC_P_MODES "
+        + ", ".join(str(_WEIGHT_MODES[p]) for p, _ in modes),
+        "#define TMC_Q_MODES "
+        + ", ".join(str(_WEIGHT_MODES[q]) for _, q in modes),
+    ]
+    for role, side in (("p", 0), ("q", 1)):
+        cases = []
+        for j, pair in enumerate(weight):
+            if isinstance(pair[side], TracedFunction):
+                parts.append(_c_function(f"tmc_pdf_{role}_{j}", pair[side]))
+                cases.append(
+                    f"  if (j == {j}) return tmc_pdf_{role}_{j}(x);")
+        body = "\n".join(cases + ["  return 0.0f;"])
+        parts.append(f"static __device__ inline float tmc_pdf_{role}_nd(int j, "
+                     f"float x) {{\n{body}\n}}")
+    acc = "\n".join(f"  acc[{j}] += f_{j}(x) * w;" for j in range(k))
+    sq = "\n".join(
+        f"  {{\n    const float v = f_{j}(x) * w;\n    acc[{j}] += v;\n"
+        f"    const float dd = v - pilot[{j}];\n"
+        f"    sq[{j}] = tmc_fma(dd, dd, sq[{j}]);\n  }}"
+        for j in range(k)
+    )
+    vals = "\n".join(f"  vals[{j}] = f_{j}(x) * w;" for j in range(k))
+    return parts + [
+        "static __device__ inline void tmc_accumulate_nd_w(const float* x, "
+        f"float w, float* acc) {{\n{acc}\n}}",
+        "static __device__ inline void tmc_accumulate_nd_sq_w(const float* x, "
+        "float w, const float* pilot, float* acc, float* sq) {\n"
+        f"{sq}\n}}",
+        "static __device__ inline void tmc_values_nd_w(const float* x, "
+        f"float w, float* vals) {{\n{vals}\n}}",
     ]
 
 

@@ -14,9 +14,7 @@ __all__ = [
     "MCMC_TABLES_XLA",
     "MCMC_WIDE",
     "MESH",
-    "ND_CUSTOM",
     "ND_CV",
-    "ND_IS",
     "ND_MCMC_DIAGNOSTICS",
     "ND_MCMC_HMC",
     "ND_MCMC_SAMPLES",
@@ -54,8 +52,6 @@ MCMC_TABLES_XLA = (
     "ROADMAP.md, queue 1 item 6.8 (MCMC over the CUSTOM tables the JAX "
     "package runs on its XLA sweep)"
 )
-ND_CUSTOM = "ROADMAP.md, queue 1 item 7.1 (nd integrate over CUSTOM dimensions)"
-ND_IS = "ROADMAP.md, queue 1 item 7.3 (nd importance sampling)"
 ND_SERVING = (
     "ROADMAP.md, queue 1 item 7.4 (nd seed_batch, param_batch and "
     "compile_integrate)"
