@@ -245,7 +245,22 @@ Phases, each of which exits non-zero on failure:
 43. nd importance sampling with table and sampler weights, ``[x*y*y]``
     under [Beta(2,5) pdf table, N(0,1)] from [Beta(1.5,3), N(0,1.5)] at
     2**30 with error bars, counted: 2/7 within 6 standard errors; timed
-    and bounded; and the wall time phases 39-43 add.
+    and bounded; and the wall time phases 39-43 add;
+44. split-R-hat, ESS and DRAWS thinned draws at c5b's shape through
+    ``integrate_mcmc``, counted from 0: R-hat in (0.99, 1.02), the draws'
+    mean of x^2 within 6 x stderr x sqrt(stride) of the value, values and
+    error bars bit-equal to the run without the outputs; the kernel
+    against its plain version at that shape (R-hat rel 1e-4, ESS rel
+    1e-3, the draws chain for chain), timed with and without the outputs;
+    then a run at MCMC_CHECK's shape with REMAINDER_DRAWS draws (steps
+    left past the last draw) whose buffer's guard rows must stay as they
+    were, against its plain version;
+45. ``tests/test_diagnostics.py:33``'s slow-mixing run: R-hat > 1.1;
+46. phase 44 at c9e's shape, and the draws' x-y correlation within 0.02
+    of 0.8;
+47. phase 44 at c12's shape (cold-rung R-hat below 1.05, the cold draws'
+    share with x > 0 within 0.05 of 0.5, the swap rate unchanged), its
+    remainder run on rungs on lanes and on the ladder layout.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -451,6 +466,20 @@ C9F_FNS = [lambda x, y: x * y]
 C9F_EXACT = [0.0]
 C12D_FNS = [lambda x: x, lambda x: x * x]
 C12D_EXACT = [0.0, 5.0]
+# Split-R-hat, ESS and thinned draws (phases 44-47): the main paths with
+# DRAWS thinned draws; phase 45's slow-mixing run, tests/test_diagnostics.py
+# :33's, whose R-hat must flag it.  Kernel and plain version sum the same
+# half-chain values in other orders: R-hat within rel 1e-4, ESS within rel
+# 1e-3.
+DRAWS = 1000
+# MCMC_CHECK's 1,000 steps over 300 draws: a stride of 3 and 100 steps past
+# the last draw, run into a buffer DRAW_GUARD rows longer than its draws.
+REMAINDER_DRAWS = 300
+DRAW_GUARD = 64
+SLOW_FNS = [lambda x: x]
+SLOW_RUN = dict(n_steps=60, n_chains=512, n_burnin=0)
+SLOW_PROPOSAL = (4.0, 0.3)  # N(4, 0.3) for the target N(0, 1)
+R_HAT_RTOL, ESS_RTOL = 1e-4, 1e-3
 # The seven extended families (phases 34-38): each family's arguments, as
 # the kernel tests use them.  Phase 34 runs the bench set under each in
 # every 1-D mode at MODE_CHECK_SAMPLES and in mc at MODE_SAMPLES.
@@ -1304,6 +1333,7 @@ def main() -> int:
             McmcProgram,
             Mode,
             mcmc_cuda,
+            mcmc_diagnostics,
             mcmc_finish,
             mcmc_reference,
             plan_chains,
@@ -1935,6 +1965,33 @@ def main() -> int:
     nd_new_builds = [
         pool.submit(timed_build, lambda p=p, r=r: p.library(r))
         for (_, r), p in nd_new_libs.items()]
+    # Split-R-hat, ESS and thinned draws (phases 44-47): c5b, c9e and c12
+    # with both outputs, as their public calls build them (they take the
+    # programs from the cache); the slow-mixing run's; c12's ladder layout
+    # with both.
+    c5b_out = integ._mcmc_kernel_program(
+        mcmc_traced, n01, n02, MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"],
+        True, True, DRAWS)
+    slow_out = integ._mcmc_kernel_program(
+        integ._trace_user_functions(SLOW_FNS), n01,
+        tm.Distribution.normal(*SLOW_PROPOSAL),
+        SLOW_RUN["n_steps"], SLOW_RUN["n_burnin"], False, True, 0)
+    c9e_fns_, c9e_target_, c9e_proposal_, _ = nd_mcmc_cells["c9e"]
+    c9e_out = integ._nd_mcmc_kernel_program(
+        c9e_fns_, c9e_proposal_,
+        integ._parse_nd_mcmc_args(c9e_target_, c9e_proposal_),
+        MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True, True, DRAWS)
+    c12_parsed = integ._parse_nd_mcmc_args(logmix, c12_walk)
+    c12_out = integ._pt_kernel_program(
+        PT_FNS, c12_walk, c12_parsed, tuple(1.0 / t for t in PT_LADDER),
+        MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True, True, DRAWS)
+    c12_ladder_out = McmcPtProgram(c12_out[0].fns, c12_out[1],
+                                   c12_out[0].target, layout=LADDER_LAYOUT)
+    outputs_builds = [
+        pool.submit(timed_build, build) for build in [
+            lambda: c5b_out[0].library(c5b_out[1]),
+            lambda: slow_out[0].library(slow_out[1]),
+            c9e_out[0].library, c12_out[0].library, c12_ladder_out.library]]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -3545,6 +3602,392 @@ def main() -> int:
     print(f"phases 39-43 (nd CUSTOM dimensions and nd importance sampling) "
           f"took {time.perf_counter() - t_nd_new:.1f} s")
 
+    # 44-47. Split-R-hat, ESS and thinned draws in the three MCMC kernels:
+    # the libraries started in phase 2; each main path through the public
+    # API with both outputs, counted, gated and held bit for bit against
+    # its run without them; then its kernel against its plain version at
+    # that shape, the kernel timed with both outputs and without them, and
+    # a run at MCMC_CHECK's shape with REMAINDER_DRAWS draws into a guarded
+    # buffer, held against its plain version.
+    t_outputs = time.perf_counter()
+    built = [b.result() for b in outputs_builds]
+    print(f"phase 44: built the MCMC kernels' {len(built)} libraries with "
+          "diagnostics and draws (c5b, the slow-mixing run, c9e, c12 and "
+          "its ladder layout with both), "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for out_lib, _ in built:
+        for line in out_lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    mcmc_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
+    stride = MCMC_MAIN["n_steps"] // DRAWS
+
+    def outputs_vs_plain(got, want, grid, cfg, k, phase, max_split=0.0):
+        """Phase 7's checks of two runs of the same chains, then R-hat
+        within rel 1e-4, ESS within rel 1e-3, and the draws chain for chain
+        (no more split than ``max_split``).  Returns (max abs difference
+        of the means, of R-hat and ESS relative, share of split draws)."""
+        err = chains_agree(got, want, grid, cfg, k, phase, max_split)
+        (r_k, e_k), (r_p, e_p) = (mcmc_diagnostics(o, grid, cfg, k)
+                                  for o in (got, want))
+        r_err = float(((r_k - r_p).abs() / r_p.abs()).max())
+        e_err = float(((e_k - e_p).abs() / e_p.abs()).max())
+        split = 0.0
+        if cfg.samples:
+            s_k, s_p = (o.samples.reshape(cfg.samples, -1, grid.chains_actual)
+                        for o in (got, want))
+            split = float(((s_k - s_p).abs() > 1e-3 * (1.0 + s_p.abs()))
+                          .any(dim=1).float().mean())
+        print(f"         r_hat kernel {r_k.cpu().numpy()} plain "
+              f"{r_p.cpu().numpy()} (rel {r_err:.2e}); ess kernel "
+              f"{e_k.cpu().numpy()} plain {e_p.cpu().numpy()} (rel "
+              f"{e_err:.2e}); split draws {split:.4%}")
+        if not (torch.isfinite(r_k).all() and torch.isfinite(e_k).all()):
+            fail(f"phase {phase}: non-finite R-hat or ESS")
+        if r_err > R_HAT_RTOL or e_err > ESS_RTOL:
+            fail(f"phase {phase}: kernel and plain R-hat or ESS disagree")
+        if split > max_split:
+            fail(f"phase {phase}: {split:.4%} of the draws split")
+        return err, r_err, e_err, split
+
+    def unchanged(got, bare, phase):
+        """Fails unless a run with the outputs has the rows and final
+        states of the same run without them, bit for bit."""
+        if not (torch.equal(got.rows[:, :3], bare.rows)
+                and torch.equal(got.x_final, bare.x_final)):
+            fail(f"phase {phase}: the outputs changed the chains or rows")
+
+    def timed_plain(plain):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        end.synchronize()
+        return want, start.elapsed_time(end)
+
+    def outputs_times(run, bare_run):
+        """The kernel's ms with both outputs and without them, one after
+        the other in this call (CUDA events, 10 launches each).
+        ``tools/mcmc_layout_sweep.py --outputs`` times each output alone."""
+        return {"ms": time_ms(run, reps=10),
+                "ms_without": time_ms(bare_run, reps=10)}
+
+    import tpu_montecarlo_torch.ops.mcmc_kernel as mcmc_kernel_mod
+    import tpu_montecarlo_torch.ops.mcmc_nd_kernel as mcmc_nd_kernel_mod
+    import tpu_montecarlo_torch.ops.mcmc_pt_kernel as mcmc_pt_kernel_mod
+
+    check_grid = plan_mcmc_grid(plan_chains(MCMC_CHECK["n_chains"], None))
+
+    def remainder_check(kernel, plain, cfg, k, phase, max_split=0.0):
+        """Runs ``kernel(cfg, grid)`` at MCMC_CHECK's shape with
+        REMAINDER_DRAWS draws, its draws' buffer the first m rows of one
+        DRAW_GUARD rows longer filled with a sentinel: fails if a row past
+        the m draws changed, else holds the run against ``plain(cfg,
+        grid)`` (``outputs_vs_plain``) and returns its errors."""
+        cfg = replace(cfg, n_steps=MCMC_CHECK["n_steps"],
+                      n_burnin=MCMC_CHECK["n_burnin"],
+                      samples=REMAINDER_DRAWS)
+        sentinel, whole = -7777.0, []
+
+        def guarded(cfg_, shape, dev):
+            buf = torch.full((cfg_.samples + DRAW_GUARD, *shape), sentinel,
+                             dtype=torch.float32, device=dev)
+            whole.append(buf)
+            return buf[:cfg_.samples]
+
+        mods = (mcmc_kernel_mod, mcmc_nd_kernel_mod, mcmc_pt_kernel_mod)
+        saved = [m_.sample_buffer for m_ in mods]
+        for m_ in mods:
+            m_.sample_buffer = guarded
+        try:
+            got = kernel(cfg, check_grid)
+            torch.cuda.synchronize()
+        finally:
+            for m_, f_ in zip(mods, saved):
+                m_.sample_buffer = f_
+        past = whole[0][REMAINDER_DRAWS:]
+        print(f"phase {phase}: {check_grid.chains_actual} chains x "
+              f"({cfg.n_burnin} + {cfg.n_steps}) steps, {cfg.samples} draws "
+              f"(stride {cfg.n_steps // cfg.samples}); rows past the draws "
+              f"untouched: {bool((past == sentinel).all())}")
+        if not bool((past == sentinel).all()):
+            fail(f"phase {phase}: the kernel wrote draws past its m rows")
+        return outputs_vs_plain(got, plain(cfg, check_grid), check_grid,
+                                cfg, k, phase, max_split)
+
+    def warm_call_ms(call):
+        call_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            call_s.append(time.perf_counter() - t0)
+        return float(np.median(call_s)) * 1e3
+
+    def gate_draws(name, r, f, phase):
+        """The draws' mean of f within 6 x (the run's stderr x
+        sqrt(stride)) of the value."""
+        m_f = float(np.mean(f(r.samples)))
+        tol = 6.0 * float(r.stderr[0]) * math.sqrt(stride)
+        print(f"  {name}: draws' mean of f {m_f:.6f}, value "
+              f"{float(r.values[0]):.6f} (within {tol:.2e})")
+        if abs(m_f - float(r.values[0])) > tol:
+            fail(f"phase {phase}: {name}'s draws do not average to its value")
+
+    outputs = {}
+
+    # 44. 1-D, c5b's shape.
+    o_prog, o_cfg, o_params, _ = c5b_out
+
+    def c5b_call(**extra):
+        return tm.integrate_mcmc(MCMC_MAIN_FNS, n01, n02, return_stderr=True,
+                                 **extra, **MCMC_MAIN)
+
+    for c in ("launches", "pilot_launches", "diag_launches",
+              "sample_launches"):
+        setattr(mcmc_cuda, c, 0)
+    t0 = time.perf_counter()
+    r = c5b_call(return_diagnostics=True, return_samples=DRAWS)
+    main_s = time.perf_counter() - t0
+    counts = {c: getattr(mcmc_cuda, c) for c in (
+        "launches", "pilot_launches", "diag_launches", "sample_launches")}
+    rh = r.diagnostics["r_hat"]
+    print(f"phase 44: integrate_mcmc([x*x], N(0,1), N(0,2), {MCMC_MAIN}, "
+          f"return_stderr=True, return_diagnostics=True, return_samples="
+          f"{DRAWS}) in {main_s:.3f} s (host clock), launches {counts}; "
+          f"E[x^2] = {r.values[0]:.6f} +- {r.stderr[0]:.6f}, r_hat {rh}, "
+          f"ess {r.diagnostics['ess']}, samples {r.samples.shape}")
+    if min(counts.values()) < 1:
+        fail("phase 44: the main path did not launch the kernel with its "
+             "outputs")
+    if r.samples.shape != (DRAWS, mcmc_grid.chains_actual) or not (
+            np.isfinite(r.samples).all() and np.isfinite(rh).all()):
+        fail("phase 44: bad draws or R-hat")
+    if not np.all((0.99 < rh) & (rh < 1.02)):
+        fail("phase 44: c5b's R-hat is not in (0.99, 1.02)")
+    gate_draws("c5b", r, lambda s: s * s, "44")
+    r0 = c5b_call()
+    if not (np.array_equal(r.values, r0.values)
+            and np.array_equal(r.stderr, r0.stderr)
+            and r.acceptance_rate == r0.acceptance_rate):
+        fail("phase 44: values or error bars moved with the outputs")
+    got = mcmc_cuda(o_prog, o_cfg, o_params, SEED, mcmc_grid)
+    want, plain_ms_o = timed_plain(lambda: mcmc_reference(
+        o_prog.torch_fns, o_cfg, o_params, SEED, mcmc_grid))
+    errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 1, "44")
+    bare = mcmc_cuda(mcmc_program, mcmc_main_cfg, o_params, SEED, mcmc_grid)
+    unchanged(got, bare, "44")
+    times = outputs_times(
+        lambda: mcmc_cuda(o_prog, o_cfg, o_params, SEED, mcmc_grid),
+        lambda: mcmc_cuda(mcmc_program, mcmc_main_cfg, o_params, SEED,
+                          mcmc_grid))
+    rem_errs = remainder_check(
+        lambda c, g: mcmc_cuda(o_prog, c, o_params, SEED, g),
+        lambda c, g: mcmc_reference(o_prog.torch_fns, c, o_params, SEED, g),
+        o_cfg, 1, "44")
+    call_ms = warm_call_ms(lambda: c5b_call(return_diagnostics=True,
+                                            return_samples=DRAWS))
+    print("  c5b with both outputs:", end="")
+    idle = idle_share(lambda: c5b_call(return_diagnostics=True,
+                                        return_samples=DRAWS))
+    outputs["mcmc"] = dict(counts, max_abs_err=max(errs[0], rem_errs[0]),
+                           r_hat_rel_err=max(errs[1], rem_errs[1]),
+                           ess_rel_err=max(errs[2], rem_errs[2]),
+                           split_draws=errs[3],
+                           remainder_split_draws=rem_errs[3],
+                           plain_ms=plain_ms_o, call_ms=call_ms,
+                           idle_share=idle, draws=DRAWS, r_hat=rh.tolist(),
+                           **times)
+    print(f"phase 44: c5b on {card}: kernel with both outputs "
+          f"{times['ms']:.4f} ms, without them "
+          f"{times['ms_without']:.4f} ms; plain {plain_ms_o:.3f} ms; warm call with both "
+          f"{call_ms:.3f} ms median of 3 (host clock); "
+          f"{time.perf_counter() - t_outputs:.1f} s")
+
+    # 45. The slow-mixing run: its R-hat must flag it.
+    t45 = time.perf_counter()
+    s_prog, s_cfg, s_params, _ = slow_out
+    mcmc_cuda.diag_launches = 0
+    r = tm.integrate_mcmc(SLOW_FNS, n01, tm.Distribution.normal(*SLOW_PROPOSAL),
+                          return_diagnostics=True, **SLOW_RUN)
+    slow_grid = plan_mcmc_grid(plan_chains(SLOW_RUN["n_chains"], None))
+    got = mcmc_cuda(s_prog, s_cfg, s_params, SEED, slow_grid)
+    want = mcmc_reference(s_prog.torch_fns, s_cfg, s_params, SEED, slow_grid)
+    print(f"phase 45: integrate_mcmc([x], N(0,1), N(4,0.3), {SLOW_RUN}, "
+          f"return_diagnostics=True): r_hat {r.diagnostics['r_hat']}, ess "
+          f"{r.diagnostics['ess']}, {mcmc_cuda.diag_launches} diagnostics "
+          "launch(es); kernel against plain version (seed 42):")
+    slow_errs = outputs_vs_plain(got, want, slow_grid, s_cfg, 1, "45")
+    if mcmc_cuda.diag_launches < 1 or not r.diagnostics["r_hat"][0] > 1.1:
+        fail("phase 45: R-hat does not flag the slow-mixing run")
+    outputs["mcmc"]["slow_mixing_r_hat"] = float(r.diagnostics["r_hat"][0])
+    print(f"phase 45: {time.perf_counter() - t45:.1f} s")
+
+    # 46. nd, c9e's shape.
+    t46 = time.perf_counter()
+    o_prog, o_cfg, o_params = c9e_out
+
+    def c9e_call(**extra):
+        return tm.integrate_mcmc(c9e_fns_, c9e_target_, c9e_proposal_,
+                                 return_stderr=True, **extra, **MCMC_MAIN)
+
+    for c in ("launches", "pilot_launches", "diag_launches",
+              "sample_launches"):
+        setattr(mcmc_nd_cuda, c, 0)
+    r = c9e_call(return_diagnostics=True, return_samples=DRAWS)
+    counts = {c: getattr(mcmc_nd_cuda, c) for c in (
+        "launches", "pilot_launches", "diag_launches", "sample_launches")}
+    rh = r.diagnostics["r_hat"]
+    s = r.samples
+    corr = float(np.corrcoef(s[..., 0].ravel(), s[..., 1].ravel())[0, 1])
+    print(f"phase 46: c9e, integrate_mcmc({MCMC_MAIN}, return_stderr=True, "
+          f"return_diagnostics=True, return_samples={DRAWS}), launches "
+          f"{counts}; E[xy] = {r.values[0]:.6f} +- {r.stderr[0]:.6f}, r_hat "
+          f"{rh}, ess {r.diagnostics['ess']}, samples {s.shape}, their x-y "
+          f"correlation {corr:.4f}")
+    if min(counts.values()) < 1:
+        fail("phase 46: c9e did not launch the nd kernel with its outputs")
+    if s.shape != (DRAWS, mcmc_grid.chains_actual, 2) or not (
+            np.isfinite(s).all() and np.isfinite(rh).all()):
+        fail("phase 46: bad draws or R-hat")
+    if not np.all((0.99 < rh) & (rh < 1.02)):
+        fail("phase 46: c9e's R-hat is not in (0.99, 1.02)")
+    if abs(corr - 0.8) > 0.02:
+        fail("phase 46: the draws' x-y correlation is not within 0.02 of 0.8")
+    gate_draws("c9e", r, lambda s_: s_[..., 0] * s_[..., 1], "46")
+    r0 = c9e_call()
+    if not (np.array_equal(r.values, r0.values)
+            and np.array_equal(r.stderr, r0.stderr)
+            and r.acceptance_rate == r0.acceptance_rate):
+        fail("phase 46: values or error bars moved with the outputs")
+    got = mcmc_nd_cuda(o_prog, o_cfg, o_params, SEED, mcmc_grid)
+    want, plain_ms_o = timed_plain(lambda: mcmc_nd_reference(
+        o_prog.torch_fns, o_prog.torch_target, o_cfg, o_params, SEED,
+        mcmc_grid))
+    errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 1, "46")
+    b_prog, b_cfg, b_params = nd_mcmc_main["c9e"]
+    bare = mcmc_nd_cuda(b_prog, b_cfg, b_params, SEED, mcmc_grid)
+    unchanged(got, bare, "46")
+    times = outputs_times(
+        lambda: mcmc_nd_cuda(o_prog, o_cfg, o_params, SEED, mcmc_grid),
+        lambda: mcmc_nd_cuda(b_prog, b_cfg, b_params, SEED, mcmc_grid))
+    rem_errs = remainder_check(
+        lambda c, g: mcmc_nd_cuda(o_prog, c, o_params, SEED, g),
+        lambda c, g: mcmc_nd_reference(o_prog.torch_fns, o_prog.torch_target,
+                                       c, o_params, SEED, g),
+        o_cfg, 1, "46")
+    call_ms = warm_call_ms(lambda: c9e_call(return_diagnostics=True,
+                                            return_samples=DRAWS))
+    print("  c9e with both outputs:", end="")
+    idle = idle_share(lambda: c9e_call(return_diagnostics=True,
+                                        return_samples=DRAWS))
+    outputs["mcmc_nd"] = dict(counts, max_abs_err=max(errs[0], rem_errs[0]),
+                              r_hat_rel_err=max(errs[1], rem_errs[1]),
+                              ess_rel_err=max(errs[2], rem_errs[2]),
+                              split_draws=errs[3],
+                              remainder_split_draws=rem_errs[3],
+                              plain_ms=plain_ms_o,
+                              call_ms=call_ms, idle_share=idle, draws=DRAWS,
+                              r_hat=rh.tolist(),
+                              draws_xy_correlation=corr, **times)
+    print(f"phase 46: c9e on {card}: kernel with both outputs "
+          f"{times['ms']:.4f} ms, without them "
+          f"{times['ms_without']:.4f} ms; plain {plain_ms_o:.3f} ms; warm call with both "
+          f"{call_ms:.3f} ms median of 3 (host clock); "
+          f"{time.perf_counter() - t46:.1f} s")
+
+    # 47. Tempered, c12's shape; then its ladder layout at phase 20's.
+    t47 = time.perf_counter()
+    o_prog, o_cfg, o_params, o_ladder = c12_out
+
+    def c12_call(**extra):
+        return tm.integrate_mcmc(PT_FNS, logmix, c12_walk,
+                                 temperatures=PT_LADDER, return_stderr=True,
+                                 **extra, **MCMC_MAIN)
+
+    for c in ("launches", "pilot_launches", "diag_launches",
+              "sample_launches"):
+        setattr(mcmc_pt_cuda, c, 0)
+    r = c12_call(return_diagnostics=True, return_samples=DRAWS)
+    counts = {c: getattr(mcmc_pt_cuda, c) for c in (
+        "launches", "pilot_launches", "diag_launches", "sample_launches")}
+    rh = r.diagnostics["r_hat"]
+    s = r.samples
+    right = float(np.mean(s > 0.0))
+    print(f"phase 47: c12, integrate_mcmc([x, x*x], logmix, temperatures="
+          f"{PT_LADDER}, {MCMC_MAIN}, return_stderr=True, "
+          f"return_diagnostics=True, return_samples={DRAWS}), launches "
+          f"{counts}; values {r.values} +- {r.stderr}, r_hat {rh}, ess "
+          f"{r.diagnostics['ess']}, swap rate {r.diagnostics['swap_rate']}, "
+          f"samples {s.shape}, share with x > 0 {right:.4f}")
+    if min(counts.values()) < 1:
+        fail("phase 47: c12 did not launch the tempered kernel with its "
+             "outputs")
+    if s.shape != (DRAWS, mcmc_grid.chains_actual, 1) or not (
+            np.isfinite(s).all() and np.isfinite(rh).all()):
+        fail("phase 47: bad draws or R-hat")
+    if not np.all(rh < 1.05):
+        fail("phase 47: c12's cold-rung R-hat is not below 1.05")
+    if abs(right - 0.5) > 0.05:
+        fail("phase 47: the cold draws do not visit both modes")
+    r0 = c12_call()
+    if not (np.array_equal(r.values, r0.values)
+            and np.array_equal(r.stderr, r0.stderr)
+            and r.acceptance_rate == r0.acceptance_rate
+            and r.diagnostics["swap_rate"] == r0.diagnostics["swap_rate"]):
+        fail("phase 47: values, error bars or swap rate moved with the "
+             "outputs")
+    got = mcmc_pt_cuda(o_prog, o_cfg, o_params, o_ladder, SEED, mcmc_grid)
+    want, plain_ms_o = timed_plain(lambda: mcmc_pt_reference(
+        o_prog.torch_fns, o_prog.torch_target, o_cfg, o_params, o_ladder,
+        SEED, mcmc_grid))
+    errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 2, "47",
+                            max_split=0.01)
+    b_prog, b_cfg, b_params, b_ladder = pt_main["c12"]
+    bare = mcmc_pt_cuda(b_prog, b_cfg, b_params, b_ladder, SEED, mcmc_grid)
+    unchanged(got, bare, "47")
+    times = outputs_times(
+        lambda: mcmc_pt_cuda(o_prog, o_cfg, o_params, o_ladder, SEED,
+                             mcmc_grid),
+        lambda: mcmc_pt_cuda(b_prog, b_cfg, b_params, b_ladder, SEED,
+                             mcmc_grid))
+    call_ms = warm_call_ms(lambda: c12_call(return_diagnostics=True,
+                                            return_samples=DRAWS))
+    print("  c12 with both outputs:", end="")
+    idle = idle_share(lambda: c12_call(return_diagnostics=True,
+                                        return_samples=DRAWS))
+    # The remainder run on rungs on lanes, then on the ladder layout (one
+    # thread per ladder), at phase 20's shape.
+    pt_plain = (lambda c, g: mcmc_pt_reference(
+        o_prog.torch_fns, o_prog.torch_target, c, o_params, o_ladder, SEED,
+        g))
+    rem_errs = remainder_check(
+        lambda c, g: mcmc_pt_cuda(o_prog, c, o_params, o_ladder, SEED, g),
+        pt_plain, o_cfg, 2, "47", max_split=0.01)
+    print("phase 47: c12's ladder layout:")
+    l_errs = remainder_check(
+        lambda c, g: mcmc_pt_cuda(c12_ladder_out, c, o_params, o_ladder,
+                                  SEED, g),
+        pt_plain, o_cfg, 2, "47", max_split=0.01)
+    outputs["mcmc_pt"] = dict(
+        counts, max_abs_err=max(errs[0], rem_errs[0], l_errs[0]),
+        r_hat_rel_err=max(errs[1], rem_errs[1], l_errs[1]),
+        ess_rel_err=max(errs[2], rem_errs[2], l_errs[2]),
+        split_draws=errs[3], remainder_split_draws=rem_errs[3],
+        ladder_split_draws=l_errs[3], plain_ms=plain_ms_o, call_ms=call_ms,
+        idle_share=idle,
+        draws=DRAWS, r_hat=rh.tolist(), draws_right_share=right,
+        layout=list(o_prog.layout), **times)
+    print(f"phase 47: c12 on {card}: kernel with both outputs "
+          f"{times['ms']:.4f} ms, without them "
+          f"{times['ms_without']:.4f} ms; plain {plain_ms_o:.3f} ms; warm call with both "
+          f"{call_ms:.3f} ms median of 3 (host clock); "
+          f"{time.perf_counter() - t47:.1f} s")
+    print(f"phases 44-47 (MCMC diagnostics and draws) took "
+          f"{time.perf_counter() - t_outputs:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -3588,6 +4031,7 @@ def main() -> int:
         "walk_ms": mcmc_walk_ms,
         "custom": {"config5": custom_mcmc["config5"]},
         "families": {"c5b_family": family_mcmc["c5b_family"]},
+        "outputs": outputs["mcmc"],
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -3642,6 +4086,7 @@ def main() -> int:
         "walk_ms": c10b_ms,
         "custom": {"c9f": custom_mcmc["c9f"]},
         "families": {"c9e_family": family_mcmc["c9e_family"]},
+        "outputs": outputs["mcmc_nd"],
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -3666,6 +4111,7 @@ def main() -> int:
         "custom": {"c12d": custom_mcmc["c12d"]},
         "families": {"c12_family": family_mcmc["c12_family"],
                      "parity": parity},
+        "outputs": outputs["mcmc_pt"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

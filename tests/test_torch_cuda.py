@@ -2011,3 +2011,214 @@ def test_nd_custom_kernel_rejects_missing_tables(cuda_device):
                                out.data_ptr(), ctypes.addressof(kt), stream)
     torch.cuda.synchronize()
     assert err == 0
+
+
+# -- split-R-hat, ESS and thinned draws in the three MCMC kernels --------------
+#
+# A library with diagnostics and draws compiled in (TMC_DIAG, TMC_SAMPLES)
+# runs the plain version's chains: check_public_mcmc's tolerances hold, and
+# R-hat within rel 1e-4 and ESS within rel 1e-3 (the block sums of the
+# half-chain values, in other orders), every draw of a chain that does not
+# split within 1e-3 (relative) of the plain version's, at most as many
+# split draws as check_public_mcmc allows split chains.  The first three
+# rows and the final states are those of the same run without the outputs,
+# bit for bit.  1,001 steps (an odd last step in neither half), 300 draws
+# (a stride of 3: 1,001 = 300 x 3 + 101, a remainder far past the stride),
+# 4096 chains; the draws' buffer is a view of one OUT_GUARD rows longer,
+# whose rows past the m draws must stay as they were.  nvcc's register and
+# spill report of each library (empty when it is cached) shows with -rP.
+OUT_STEPS, OUT_BURNIN, OUT_DRAWS, OUT_GUARD = 1001, 200, 300, 64
+_SENTINEL = -7777.0
+_LOGMIX = _logmix
+_C9E = _c9e_target()
+# id: (path, functions, target, proposal, temperatures, stderr, layout)
+OUTPUT_CASES = {
+    **{f"1d-independence-k{k}": ("1d", WIDEST[:k] if k > 1 else [lambda x: x * x],
+                                 "n01", "n02", None, True, None)
+       for k in (1, 8, 32, MAX_FUNCTIONS - 1)},
+    **{f"1d-adaptive-walk-k{k}": ("1d", WIDEST[:k] if k > 1 else [lambda x: x * x],
+                                  "n01", dict(adapt=True), None, False, None)
+       for k in (1, 8, 32)},
+    "1d-walk-four-functions": ("1d", MCMC_FNS, ("uniform", -1.0, 2.0),
+                               dict(step_size=0.5), None, True, None),
+    "1d-config5-table-target": ("1d", _F1, "bimodal", "u6", None, True, None),
+    "1d-family": ("1d", _F1, ("laplace", 3.0, 1.0), ("logistic", 0.0, 2.0),
+                  None, False, None),
+    "nd-c9e": ("nd", [lambda x, y: x * y], _C9E, ["n02", "n02"], None, True,
+               None),
+    "nd-adaptive-walk-product": ("nd", ND_MCMC_FNS[2], [("uniform", -1.0, 2.0), "n01"],
+                                 dict(step_size=[0.5, 1.5], adapt=True), None,
+                                 False, None),
+    "nd-table-dimension": ("nd", _F2, ["beta", "n01"], ["beta", "n02"], None,
+                           True, None),
+    "nd-family": ("nd", _F2, [("lognormal", 0.0, 0.5), ("gumbel", 1.0, 0.5)],
+                  [("weibull", 1.5, 2.0), ("logistic", 1.0, 1.0)], None, False,
+                  None),
+    "pt-c12": ("pt", _F1, _LOGMIX, _C12_WALK, _LADDER4, True, None),
+    "pt-c12-ladder": ("pt", _F1, _LOGMIX, _C12_WALK, _LADDER4, True, "ladder"),
+    "pt-independence-logmix": ("pt", _F1, _LOGMIX, ("normal", 0.0, 6.0),
+                               _LADDER4, False, None),
+    "pt-independence-logmix-ladder": ("pt", _F1, _LOGMIX, ("normal", 0.0, 6.0),
+                                      _LADDER4, False, "ladder"),
+    "pt-2d-product": ("pt", _F2, [("uniform", -1.0, 2.0), ("exponential", 1.5)],
+                      [("normal", 0.5, 1.5), ("exponential", 1.0)], [1.0, 2.5],
+                      True, None),
+    "pt-2d-product-ladder": ("pt", _F2, [("uniform", -1.0, 2.0), ("exponential", 1.5)],
+                             [("normal", 0.5, 1.5), ("exponential", 1.0)],
+                             [1.0, 2.5], True, "ladder"),
+    "pt-c12d-tables": ("pt", _F1, "bimodal", "wide", _LADDER4, True, None),
+    "pt-family": ("pt", _F1F, ("gumbel", 1.0, 0.5),
+                  dict(step_size=0.5, adapt=True, init_range=(0.0, 2.0)),
+                  [1.0, 2.0, 4.0], False, None),
+    "pt-33-rungs": ("pt", _F1, _LOGMIX, _C12_WALK, [1.1 ** t for t in range(33)],
+                    False, None),
+}
+
+
+def _output_spec(spec):
+    if callable(spec) and not isinstance(spec, tm.Distribution):
+        return spec
+    if isinstance(spec, dict):
+        return tm.RandomWalk(**spec)
+    if isinstance(spec, list):
+        return [_output_spec(s) for s in spec]
+    if isinstance(spec, tuple):
+        return getattr(tm.Distribution, spec[0])(*spec[1:])
+    return _custom_dist(spec)
+
+
+def _outputs_setup(case, device, with_diagnostics, samples, stderr=None):
+    """(kernel, plain, cfg, program) of an OUTPUT_CASES run with the given
+    outputs (and error bars, when ``stderr`` overrides the case's), set up
+    as the public path sets it up; kernel and plain take a grid."""
+    from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+        mcmc_nd_cuda,
+        mcmc_nd_reference,
+    )
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        LADDER_LAYOUT,
+        McmcPtProgram,
+        mcmc_pt_cuda,
+        mcmc_pt_reference,
+    )
+
+    path, fns, target, proposal, temps, case_stderr, layout = OUTPUT_CASES[case]
+    stderr = case_stderr if stderr is None else stderr
+    target, proposal = _output_spec(target), _output_spec(proposal)
+    integ = tm.MonteCarloIntegrator(device=device)
+    outs = (OUT_STEPS, OUT_BURNIN, stderr, with_diagnostics, samples)
+    if path == "1d":
+        prog, cfg, params, tables = integ._mcmc_kernel_program(
+            integ._trace_user_functions(fns), target, proposal, *outs)
+        return ((lambda g: mcmc_cuda(prog, cfg, params, 42, g, tables)),
+                (lambda g: mcmc_reference(prog.torch_fns, cfg, params, 42, g,
+                                          tables)), cfg, prog)
+    parsed = integ._parse_nd_mcmc_args(target, proposal)
+    tables = dim_tables(parsed[0], parsed[1], parsed[3], device)
+    if path == "nd":
+        prog, cfg, params = integ._nd_mcmc_kernel_program(
+            fns, proposal, parsed, *outs)
+        return ((lambda g: mcmc_nd_cuda(prog, cfg, params, 42, g, tables)),
+                (lambda g: mcmc_nd_reference(prog.torch_fns, prog.torch_target,
+                                             cfg, params, 42, g, tables)),
+                cfg, prog)
+    prog, cfg, params, ladder = integ._pt_kernel_program(
+        fns, proposal, parsed, tuple(1.0 / t for t in temps), *outs)
+    if layout == "ladder":
+        prog = McmcPtProgram(prog.fns, cfg, prog.target, layout=LADDER_LAYOUT)
+    return ((lambda g: mcmc_pt_cuda(prog, cfg, params, ladder, 42, g, tables)),
+            (lambda g: mcmc_pt_reference(prog.torch_fns, prog.torch_target,
+                                         cfg, params, ladder, 42, g, tables)),
+            cfg, prog)
+
+
+@pytest.fixture(scope="module")
+def output_libraries():
+    """Every OUTPUT_CASES library, with the outputs and without (error bars
+    on), built at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    setups = [_outputs_setup(case, device, *outs)
+              for case in OUTPUT_CASES
+              for outs in ((True, OUT_DRAWS), (False, 0, True))]
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        list(pool.map(lambda s: (s[3].library(s[2]) if isinstance(s[3], McmcProgram)
+                                 else s[3].library()), setups))
+
+
+def _guard_draw_buffers(monkeypatch) -> list:
+    """Makes the three wrappers' draws' buffers the first m rows of ones
+    OUT_GUARD rows longer, filled with _SENTINEL; returns the list to which
+    each whole buffer is added."""
+    from tpu_montecarlo_torch.ops import mcmc_kernel, mcmc_nd_kernel, mcmc_pt_kernel
+
+    whole = []
+
+    def guarded(cfg, shape, dev):
+        if not cfg.samples:
+            return None
+        buf = torch.full((cfg.samples + OUT_GUARD, *shape), _SENTINEL,
+                         dtype=torch.float32, device=dev)
+        whole.append(buf)
+        return buf[:cfg.samples]
+
+    for mod in (mcmc_kernel, mcmc_nd_kernel, mcmc_pt_kernel):
+        monkeypatch.setattr(mod, "sample_buffer", guarded)
+    return whole
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(OUTPUT_CASES))
+def test_mcmc_outputs_kernel_matches_plain_version(cuda_device, output_libraries,
+                                                   case, monkeypatch):
+    from tpu_montecarlo_torch.ops.mcmc_kernel import mcmc_diagnostics
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    path = OUTPUT_CASES[case][0]
+    whole = _guard_draw_buffers(monkeypatch)
+    kernel, plain, cfg, prog = _outputs_setup(case, cuda_device, True,
+                                              OUT_DRAWS)
+    lib = prog.library(cfg) if path == "1d" else prog.library()
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(line.strip())
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    wrapper = {"1d": mcmc_cuda, "nd": mcmc_nd_cuda, "pt": mcmc_pt_cuda}[path]
+    before = (wrapper.launches, wrapper.pilot_launches, wrapper.diag_launches,
+              wrapper.sample_launches)
+    got = kernel(grid)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.pilot_launches, wrapper.diag_launches,
+            wrapper.sample_launches) == tuple(b + 1 for b in before)
+    k = len(prog.fns)
+    d = got.x_final.reshape(-1, grid.chains_actual).shape[0]
+    assert got.rows.shape == (grid.chains_actual // 32, 7, k + 1 + (path == "pt"))
+    assert got.samples.shape == ((OUT_DRAWS, grid.chains_actual) if path == "1d"
+                                 else (OUT_DRAWS, d, grid.chains_actual))
+    # No draw past the m rows.
+    assert len(whole) == 1
+    assert bool((whole[0][OUT_DRAWS:] == _SENTINEL).all())
+    # Bit for bit the run without the outputs, with the pilot shift that
+    # diagnostics take: error bars on.
+    bare = _outputs_setup(case, cuda_device, False, 0, stderr=True)[0](grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got.rows[:, :3], bare.rows)
+    assert torch.equal(got.x_final, bare.x_final)
+    check_public_mcmc(path, (kernel, plain, cfg, k))
+    want = plain(grid)
+    (r_k, e_k), (r_p, e_p) = (mcmc_diagnostics(o, grid, cfg, k)
+                              for o in (got, want))
+    assert torch.isfinite(r_k).all() and torch.isfinite(e_k).all()
+    np.testing.assert_allclose(r_k.cpu().numpy(), r_p.cpu().numpy(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(e_k.cpu().numpy(), e_p.cpu().numpy(),
+                               rtol=1e-3)
+    s_k = got.samples.reshape(OUT_DRAWS, -1, grid.chains_actual).cpu()
+    s_p = want.samples.reshape(OUT_DRAWS, -1, grid.chains_actual).cpu()
+    split = ((s_k - s_p).abs() > 1e-3 * (1.0 + s_p.abs())).any(dim=1)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%}"

@@ -411,15 +411,8 @@ def _call(**kwargs):
 
 
 NOT_PORTED = {
-    # Tempered runs are ported (tests/test_torch_tempering.py); their
-    # cold-rung draws not yet.
-    "temperatures": (
-        lambda: _call(temperatures=[1.0, 2.0], return_samples=5), r"item 9\.3"
-    ),
     "return_state": (lambda: _call(return_state=True), r"item 6\.2"),
     "initial_state": (lambda: _call(initial_state=object()), r"item 6\.2"),
-    "return_diagnostics": (lambda: _call(return_diagnostics=True), r"item 6\.3"),
-    "return_samples": (lambda: _call(return_samples=5), r"item 6\.4"),
     "compile_mcmc": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
             [lambda x: x], _T, _Q, seed_batch=4
@@ -432,9 +425,6 @@ NOT_PORTED = {
         lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=[_Q, _Q],
                       return_state=True),
         r"item 8\.5",
-    ),
-    "joint-log-density": (
-        lambda: _call(target=lambda x: -x * x, return_samples=5), r"item 8\.3"
     ),
     "nd-hmc": (
         lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc()),

@@ -506,8 +506,6 @@ def test_out_of_scope_options_name_their_roadmap_items():
     cases = {
         r"item 8\.1 ": lambda: run(proposal=_hmc()),
         r"item 8\.9 ": lambda: run(proposal=(n, heavy)),
-        r"item 8\.3 ": lambda: run(return_samples=5),
-        r"item 8\.4 ": lambda: run(return_diagnostics=True),
         r"item 8\.5 ": lambda: run(initial_state=object()),
         r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [n, n], [n, n], seed_batch=2),
         r"item 8\.8 ": lambda: run(fns=wide),

@@ -480,8 +480,6 @@ def _not_ported_cases():
         r"item 9\.8 ": lambda: run(proposal=gapped),
         r"item 9\.8 \(tempering over the CUSTOM dimensions": (
             lambda: run(proposal=heavy)),
-        r"item 9\.3 ": lambda: run(return_samples=5),
-        r"item 9\.4 ": lambda: run(return_diagnostics=True),
         r"item 9\.5 ": lambda: integ.compile_mcmc(
             FNS1, logmix, walk, temperatures=[1.0, 2.0], seed_batch=4),
         # Extended families run (tests/test_torch_families_kernels.py);

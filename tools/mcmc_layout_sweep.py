@@ -5,6 +5,7 @@ SASS bounds.
 
     python3 tools/mcmc_layout_sweep.py [--tree DIR] [--sweep]
         [--cells c5b,walk,c9e,c10b,c12,c12c] [--out FILE]
+        [--outputs none,diag,draws,both] [--sass-dir DIR]
 
 ``--tree`` names the repository checkout whose package is timed (default:
 this one); it may be an older checkout without chain layouts (or without
@@ -40,7 +41,11 @@ chains x (1,000 burn-in + 10,000) steps with error bars
   indicators and polynomials, independence N(0, 2) -> N(0, 1), at 4096 x
   (200 + 1,000) steps.
 
-Without ``--sweep`` each cell runs its default layout; with it, every
+``--sass-dir`` writes each build's kernel function, one instruction a
+line without addresses, to ``DIR/<tree>-<cell>-<outputs>.sass``.
+``--outputs`` times each cell also with split-R-hat and ESS (``diag``),
+1,000 thinned draws (``draws``) or both (default: ``none``, the only one
+an older checkout takes).  Without ``--sweep`` each cell runs its default layout; with it, every
 layout of lanes in {1, 2, 4, 8} and group in {1, 2, 4, 8} (walks: one
 lane; ``k*`` and ``wide``: group 4); a tempered cell runs the ladder
 layout and rungs on T' lanes with lanes per rung in {1, 2, 4} (at most
@@ -48,9 +53,13 @@ layout and rungs on T' lanes with lanes per rung in {1, 2, 4} (at most
 events, the mean of 10 launches after one), the card's name and power
 limit, the SM clock under load, the pipe bound (whole card for an
 independence proposal, the chains' or rung moves' warps for a walk) with
-its busiest pipe, the issue time, the carried-chain latency bound, and
-digests of the kernel's rows and final states: equal digests mean the
-same chains to the last bit.  The counts are the build's own: a tempered
+its busiest pipe, the issue time, the carried-chain latency bound,
+digests of the kernel's rows and final states (equal digests mean the
+same chains to the last bit), nvcc's register and spill report, and the
+kernel function's SASS digest (equal digests mean the same machine code)
+with, per sample loop, its instructions, basic blocks, the blocks that
+hold a shuffle, and its branches, convergence barriers (BSSY, BSYNC,
+WARPSYNC), shuffles and global stores.  The counts are the build's own: a tempered
 build of rungs on lanes counts per rung lane, padding lanes included,
 and its decisions and exchanges repeat on the lanes of a rung and of a
 pair.
@@ -74,6 +83,7 @@ MAIN = dict(n_steps=10_000, n_burnin=1_000)
 CHAINS = 4096
 SEED = 42
 REPS = 10
+DRAWS = 1000
 
 
 def _chip_smoke():
@@ -113,13 +123,69 @@ def _digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+# The opcodes counted in the sample loops: branches, the convergence
+# barriers ptxas sets around a branch the warp may take apart, shuffles
+# and global stores.
+LOOP_OPCODES = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "SHFL", "STG")
+
+
+def _function_text(cs, listing: str, function: str) -> str:
+    """The kernel function's instructions, one a line, without their
+    addresses."""
+    funcs = [ins for name, ins in cs.parse_functions(listing).items()
+             if function in name]
+    return "\n".join(f"{i.guard} {i.opcode} {i.operands}"
+                     for i in funcs[0]) + "\n"
+
+
+def _loop_sass(cs, listing: str, function: str) -> dict:
+    """The kernel function's SASS digest (its instructions, addresses
+    left out) and, per sample loop (``chip_smoke.sample_loops``), its
+    instructions, basic blocks (cut after each branch and at each branch
+    target), the blocks that hold a shuffle, and LOOP_OPCODES' counts."""
+    funcs = [ins for name, ins in cs.parse_functions(listing).items()
+             if function in name]
+    instrs = funcs[0]
+    text = _function_text(cs, listing, function)
+    loops = []
+    for lp in cs.sample_loops(instrs):
+        body = [i for i in instrs if lp.start <= i.addr <= lp.end]
+        targets = {i.branch_target() for i in body}
+        blocks, cur = [], []
+        for i in body:
+            if i.addr in targets and cur:
+                blocks.append(cur)
+                cur = []
+            cur.append(i)
+            if i.base in ("BRA", "JMP"):
+                blocks.append(cur)
+                cur = []
+        if cur:
+            blocks.append(cur)
+        rec = {"instructions": len(body), "blocks": len(blocks),
+               "shfl_blocks": sum(any(i.base == "SHFL" for i in b)
+                                  for b in blocks)}
+        rec.update({op: sum(i.base == op for i in body)
+                    for op in LOOP_OPCODES})
+        loops.append(rec)
+    return {"sass": hashlib.sha256(text.encode()).hexdigest()[:16],
+            "loops": loops}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--cells", default="c5b,walk,c9e,c10b,c12")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--outputs", default="none")
+    ap.add_argument("--sass-dir", default=None)
     args = ap.parse_args()
+    # (with_diagnostics, draws) per --outputs name; () keeps the older
+    # checkouts' call signatures.
+    output_sets = {"none": (), "diag": (True, 0), "draws": (False, DRAWS),
+                   "both": (True, DRAWS)}
+    outputs = [(name, output_sets[name]) for name in args.outputs.split(",")]
     sys.path.insert(0, str(Path(args.tree).resolve()))
 
     import torch
@@ -150,10 +216,10 @@ def main() -> int:
 
     # Each cell's build(layout) -> (run, library, kernel function, uniforms
     # per unit, rungs, lanes per unit, units per chain-step).
-    def one_d(fns, mode, row, steps):
+    def one_d(fns, mode, row, steps, outs=()):
         traced = tuple(tm.trace_function(f) for f in fns)
         cfg = mk.McmcConfig(mode, n, n, steps["n_steps"], steps["n_burnin"],
-                            True)
+                            True, *(() if not outs else (False, *outs)))
         params = torch.tensor(row, dtype=torch.float32, device=dev)
 
         def build(layout):
@@ -168,10 +234,11 @@ def main() -> int:
 
         return build
 
-    def nd(fns, target, proposal, steps):
+    def nd(fns, target, proposal, steps, outs=()):
         parsed = integ._parse_nd_mcmc_args(target, proposal)
         prog0, cfg, params = integ._nd_mcmc_kernel_program(
-            fns, proposal, parsed, steps["n_steps"], steps["n_burnin"], True)
+            fns, proposal, parsed, steps["n_steps"], steps["n_burnin"], True,
+            *outs)
 
         def build(layout):
             prog = (McmcNdProgram(prog0.fns, cfg, prog0.target, layout=layout)
@@ -182,13 +249,13 @@ def main() -> int:
 
         return build
 
-    def tempered(fns, target, proposal, temps, steps, stderr=True):
+    def tempered(fns, target, proposal, temps, steps, stderr=True, outs=()):
         from tpu_montecarlo_torch.ops import mcmc_pt_kernel as pk
 
         parsed = integ._parse_nd_mcmc_args(target, proposal)
         prog0, cfg, params, ladder = integ._pt_kernel_program(
             fns, proposal, parsed, tuple(1.0 / t for t in temps),
-            steps["n_steps"], steps["n_burnin"], stderr)
+            steps["n_steps"], steps["n_burnin"], stderr, *outs)
         t = cfg.n_temps
 
         def build(layout):
@@ -209,55 +276,59 @@ def main() -> int:
 
         return build
 
-    walk_row = [*tm.RandomWalk(adapt=True).pack_params(n01), 0.0, 1.0]
-    c10b_kw = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
-    c10b = tm.RandomWalk(**c10b_kw)
-    c12_walk = tm.RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
-    pt_fns = [lambda x: x, lambda x: x * x]
-    pt2_fns = [lambda x, y: x * y, lambda x, y: x * x + y * y,
-               lambda x, y: (x > 1.0) * y]
-    ladder4 = [1.0, 2.0, 4.0, 8.0]
-    cells = {
-        "c5b": (one_d([lambda x: x * x], mk.Mode.INDEPENDENCE,
-                      [0.0, 2.0, 0.0, 0.0, 0.0, 1.0], MAIN), 0, MAIN),
-        "walk": (one_d([lambda x: x * x], mk.Mode.ADAPTIVE, walk_row, MAIN),
-                 2, MAIN),
-        "c9e": (nd([lambda x, y: x * y], _c9e_target(), [n02, n02], MAIN),
-                0, MAIN),
-        "c10b": (nd([lambda x, y: x * y], _c9e_target(), c10b, MAIN), 1,
-                 MAIN),
-        "c12": (tempered(pt_fns, _logmix, c12_walk, ladder4, MAIN), 2, MAIN),
-        "c12c": (tempered(pt_fns, _logmix, n06, ladder4, MAIN), 0, MAIN),
-        "t3": (tempered(pt_fns, tm.Distribution.normal(1.0, 2.0),
-                        tm.RandomWalk(step_size=1.0, init_range=(-3.0, 5.0)),
-                        [1.0, 3.0, 9.0], MAIN, False), 1, MAIN),
-        "t2": (tempered(pt2_fns, [tm.Distribution.uniform(-1.0, 2.0),
-                                  tm.Distribution.exponential(1.5)],
-                        [tm.Distribution.normal(0.5, 1.5),
-                         tm.Distribution.exponential(1.0)],
-                        [1.0, 2.5], MAIN, False), 0, MAIN),
-        "t5": (tempered(pt2_fns, _c9e_target(), c10b,
-                        [1.0, 2.0, 4.0, 8.0, 16.0], MAIN, False), 1, MAIN),
-        "t16": (tempered(pt2_fns, _c9e_target(),
-                         tm.RandomWalk(adapt=True, **c10b_kw),
-                         [1.5 ** t for t in range(16)], MAIN), 2, MAIN),
-    }
-    cells["t24"] = (tempered(pt2_fns, _c9e_target(),
-                             tm.RandomWalk(adapt=True, **c10b_kw),
-                             [1.2 ** t for t in range(24)], MAIN), 2, MAIN)
-    wide_steps = dict(n_steps=1_000, n_burnin=200)
     pt_k = {"ptk8": 8, "ptk16": 16, "ptk32": 32, "ptk64": 64, "ptwide": 126}
-    for name, k in pt_k.items():
-        cells[name] = (tempered(WIDE_FNS[:k], _logmix, c12_walk, ladder4,
-                                wide_steps), 2, wide_steps)
-    indep_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
-    for k in (2, 4, 8, 16, 32):
-        fns = [cs.BENCH_FNS[i % len(cs.BENCH_FNS)] for i in range(k)]
-        cells[f"k{k}"] = (one_d(fns, mk.Mode.INDEPENDENCE, indep_row, MAIN),
-                          0, MAIN)
-    cells["wide"] = (one_d(WIDE_FNS, mk.Mode.INDEPENDENCE, indep_row,
-                           wide_steps), 0, wide_steps)
-    cells = {name: cells[name] for name in args.cells.split(",")}
+
+    def make_cells(outs):
+        """The cells, each (build, mode, steps), with the outputs ``outs``
+        (a (diagnostics, draws) pair, or () for none)."""
+        walk_row = [*tm.RandomWalk(adapt=True).pack_params(n01), 0.0, 1.0]
+        c10b_kw = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
+        c10b = tm.RandomWalk(**c10b_kw)
+        c12_walk = tm.RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
+        pt_fns = [lambda x: x, lambda x: x * x]
+        pt2_fns = [lambda x, y: x * y, lambda x, y: x * x + y * y,
+                   lambda x, y: (x > 1.0) * y]
+        ladder4 = [1.0, 2.0, 4.0, 8.0]
+        cells = {
+            "c5b": (one_d([lambda x: x * x], mk.Mode.INDEPENDENCE,
+                          [0.0, 2.0, 0.0, 0.0, 0.0, 1.0], MAIN, outs=outs), 0, MAIN),
+            "walk": (one_d([lambda x: x * x], mk.Mode.ADAPTIVE, walk_row, MAIN, outs=outs),
+                     2, MAIN),
+            "c9e": (nd([lambda x, y: x * y], _c9e_target(), [n02, n02], MAIN, outs=outs),
+                    0, MAIN),
+            "c10b": (nd([lambda x, y: x * y], _c9e_target(), c10b, MAIN, outs=outs), 1,
+                     MAIN),
+            "c12": (tempered(pt_fns, _logmix, c12_walk, ladder4, MAIN, outs=outs), 2, MAIN),
+            "c12c": (tempered(pt_fns, _logmix, n06, ladder4, MAIN, outs=outs), 0, MAIN),
+            "t3": (tempered(pt_fns, tm.Distribution.normal(1.0, 2.0),
+                            tm.RandomWalk(step_size=1.0, init_range=(-3.0, 5.0)),
+                            [1.0, 3.0, 9.0], MAIN, False, outs=outs), 1, MAIN),
+            "t2": (tempered(pt2_fns, [tm.Distribution.uniform(-1.0, 2.0),
+                                      tm.Distribution.exponential(1.5)],
+                            [tm.Distribution.normal(0.5, 1.5),
+                             tm.Distribution.exponential(1.0)],
+                            [1.0, 2.5], MAIN, False, outs=outs), 0, MAIN),
+            "t5": (tempered(pt2_fns, _c9e_target(), c10b,
+                            [1.0, 2.0, 4.0, 8.0, 16.0], MAIN, False, outs=outs), 1, MAIN),
+            "t16": (tempered(pt2_fns, _c9e_target(),
+                             tm.RandomWalk(adapt=True, **c10b_kw),
+                             [1.5 ** t for t in range(16)], MAIN, outs=outs), 2, MAIN),
+        }
+        cells["t24"] = (tempered(pt2_fns, _c9e_target(),
+                                 tm.RandomWalk(adapt=True, **c10b_kw),
+                                 [1.2 ** t for t in range(24)], MAIN, outs=outs), 2, MAIN)
+        wide_steps = dict(n_steps=1_000, n_burnin=200)
+        for name, k in pt_k.items():
+            cells[name] = (tempered(WIDE_FNS[:k], _logmix, c12_walk, ladder4,
+                                    wide_steps, outs=outs), 2, wide_steps)
+        indep_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
+        for k in (2, 4, 8, 16, 32):
+            fns = [cs.BENCH_FNS[i % len(cs.BENCH_FNS)] for i in range(k)]
+            cells[f"k{k}"] = (one_d(fns, mk.Mode.INDEPENDENCE, indep_row, MAIN, outs=outs),
+                              0, MAIN)
+        cells["wide"] = (one_d(WIDE_FNS, mk.Mode.INDEPENDENCE, indep_row,
+                               wide_steps, outs=outs), 0, wide_steps)
+        return {name: cells[name] for name in args.cells.split(",")}
 
     try:
         from tpu_montecarlo_torch.ops import mcmc_pt_kernel as pk
@@ -293,8 +364,9 @@ def main() -> int:
         return [mk.Layout(lanes, g) for lanes in (1, 2, 4, 8)
                 for g in (1, 2, 4, 8)]
 
-    jobs = [(name, mode, steps, build, layout)
-            for name, (build, mode, steps) in cells.items()
+    jobs = [(name, mode, steps, build, layout, out_name)
+            for out_name, outs in outputs
+            for name, (build, mode, steps) in make_cells(outs).items()
             for layout in layouts_of(name, mode)]
     # An older checkout builds one 1-D library for c5b and walk: one at a
     # time there.
@@ -302,18 +374,24 @@ def main() -> int:
         built = list(pool.map(lambda j: j[3](j[4]), jobs))
 
     out = open(args.out, "a") if args.out else None
-    for (name, mode, steps, _, layout), (run, lib, function, uniforms,
-                                         rungs, lanes, unit_lanes) in zip(
-                                             jobs, built):
+    for (name, mode, steps, _, layout, out_name), (
+            run, lib, function, uniforms, rungs, lanes, unit_lanes) in zip(
+                jobs, built):
         got = run()
         torch.cuda.synchronize()
         ms = cs.time_ms(run, reps=REPS)
         mhz = cs.clock_under_load(run, ms)
         chain_steps = CHAINS * (steps["n_steps"] + steps["n_burnin"])
         steps_per_chain = steps["n_steps"] + steps["n_burnin"]
+        listing = cs.sass_listing(lib)
+        if args.sass_dir:
+            sass_dir = Path(args.sass_dir)
+            sass_dir.mkdir(parents=True, exist_ok=True)
+            tree = Path(args.tree).resolve().name
+            (sass_dir / f"{tree}-{name}-{out_name}.sass").write_text(
+                _function_text(cs, listing, function))
         try:
-            dear, cheap = cs.per_sample(cs.sass_listing(lib), function,
-                                        uniforms, lanes)
+            dear, cheap = cs.per_sample(listing, function, uniforms, lanes)
         except ValueError as err:
             # An older walk kernel converts its adaptive gain's float(i + 1)
             # unsigned, which the counter takes for a uniform.
@@ -343,6 +421,7 @@ def main() -> int:
         rec = {
             "tree": str(Path(args.tree).resolve().name),
             "cell": name,
+            "outputs": out_name,
             "layout": None if layout is None else list(layout),
             "ms": ms,
             "card": card,
@@ -350,6 +429,7 @@ def main() -> int:
             **bound,
             "rows": _digest(got.rows),
             "x_final": _digest(got.x_final),
+            **_loop_sass(cs, listing, function),
             "ptxas": [ln.strip() for ln in lib.build_log.splitlines()
                       if "registers" in ln or "spill" in ln],
         }

@@ -23,15 +23,12 @@ from ..ops.mcmc_kernel import (
     McmcProgram,
     Mode,
     mcmc_cuda,
-    mcmc_finish,
     plan_chains,
     plan_mcmc_grid,
 )
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
-    MCMC_DIAGNOSTICS,
     MCMC_HMC,
-    MCMC_SAMPLES,
     MCMC_SERVING,
     MCMC_STATE,
     MCMC_TABLES_XLA,
@@ -43,6 +40,7 @@ from ..utils.roadmap import (
 from .cache import fns_key
 from .device import mcmc_dim_tables
 from .mcmc_nd import _table_routes, is_nd_call
+from .mcmc_result import mcmc_result
 from .results import IntegrationResult
 
 
@@ -99,6 +97,20 @@ class _McmcMixin:
         ``return_stderr=True``: ``result.stderr`` is the standard error
         from the between-chain variance of the per-chain means.
 
+        ``return_diagnostics=True`` (``n_steps >= 4``):
+        ``result.diagnostics`` holds split-R-hat (``"r_hat"``) and the
+        effective sample size (``"ess"``) per function, float64 arrays:
+        each chain's sampling phase splits into two halves, and the
+        between- and within-sequence variances of the 2 x chains
+        sequences are compared; R-hat well above 1 flags chains that have
+        not mixed.
+
+        ``return_samples=m`` (``1 <= m <= n_steps``): ``result.samples``
+        holds the chain states after sampling steps ``j * (n_steps // m)``,
+        ``j < m``, float32, (m, chains) over one dimension and (m, chains,
+        d) over d; chains is the kernel's count (at least 1024).  Neither
+        output changes the values or the error bars.
+
         Multi-dimensional MCMC: ``target_distribution`` may be a sequence
         of d Distributions (a product target) or a joint log density, a
         callable of d arguments (up to an additive constant; d = 1 too),
@@ -123,8 +135,8 @@ class _McmcMixin:
         table).
 
         Not ported yet, each raising ``NotImplementedError`` naming its
-        ROADMAP item: ``initial_state``/``return_state``,
-        ``return_diagnostics``, ``return_samples``, HMC (tempered too),
+        ROADMAP item: ``initial_state``/``return_state``, HMC (tempered
+        too),
         the CUSTOM tables the JAX package sends to
         its XLA sweep (heavy-tailed proposals, tables with no uniform
         grid), more than 127 functions.
@@ -183,27 +195,19 @@ class _McmcMixin:
         if return_state or initial_state is not None:
             raise not_ported("MCMC state (return_state, initial_state)",
                              MCMC_STATE)
-        if return_diagnostics:
-            raise not_ported("return_diagnostics", MCMC_DIAGNOSTICS)
-        if return_samples is not None:
-            raise not_ported("return_samples", MCMC_SAMPLES)
 
         traced = self._trace_user_functions(functions)
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
                 f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
             )
-        values, acceptance, stderr = self._run_mcmc(
+        program, cfg, params, tables = self._mcmc_kernel_program(
             traced, target_distribution, proposal_distribution, n_steps,
-            n_chains, n_burnin, seed, return_stderr,
-        )
-        return IntegrationResult(
-            values=values,
-            n_samples=n_chains * n_steps,
-            n_functions=len(functions),
-            acceptance_rate=acceptance,
-            stderr=stderr,
-        )
+            n_burnin, return_stderr, return_diagnostics,
+            int(return_samples or 0))
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        out = mcmc_cuda(program, cfg, params, seed, grid, tables)
+        return mcmc_result(out, grid, cfg, len(traced), n_chains)
 
     def compile_mcmc(self, functions, target_distribution,
                      proposal_distribution, *args, **kwargs):
@@ -219,29 +223,14 @@ class _McmcMixin:
         raise not_ported("compile_mcmc (seed_batch, param_batch)",
                          MCMC_SERVING)
 
-    def _run_mcmc(
-        self, traced, target, proposal, n_steps, n_chains, n_burnin, seed,
-        with_stderr,
-    ):
-        """(values, acceptance rate, stderr or None) as numpy/float."""
-        program, cfg, params, tables = self._mcmc_kernel_program(
-            traced, target, proposal, n_steps, n_burnin, with_stderr)
-        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_cuda(program, cfg, params, seed, grid, tables)
-        values, acceptance, stderr = mcmc_finish(out, grid, cfg, len(traced))
-        return (
-            values.cpu().numpy(),
-            float(acceptance),
-            None if stderr is None else stderr.cpu().numpy(),
-        )
-
     def _mcmc_kernel_program(self, traced, target, proposal, n_steps,
-                             n_burnin, with_stderr):
+                             n_burnin, with_stderr, with_diagnostics=False,
+                             samples=0):
         """``(program, cfg, params, tables)`` of one 1-D run: the cached
         :class:`McmcProgram`, its config (mode, families and a CUSTOM
-        proposal's route, as the JAX kernel gate routes them), the (6,)
-        float32 parameter row and the CUSTOM tables (None without one) on
-        the integrator's device."""
+        proposal's route, as the JAX kernel gate routes them, and the
+        outputs), the (6,) float32 parameter row and the CUSTOM tables
+        (None without one) on the integrator's device."""
         targ = dist_spec_of(target)
         if isinstance(proposal, RandomWalk):
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
@@ -257,7 +246,8 @@ class _McmcMixin:
         gapped = _table_routes((proposal,), prop_specs, (target,), (targ,),
                                "MCMC", MCMC_TABLES_XLA)
         cfg = McmcConfig(mode, prop_kind, targ.kind, n_steps, n_burnin,
-                         with_stderr, prop_gapped=any(gapped))
+                         with_stderr, prop_gapped=any(gapped),
+                         with_diagnostics=with_diagnostics, samples=samples)
         program = self._cache.get_or_build(
             ("mcmc", fns_key(traced)), lambda: McmcProgram(traced)
         )
@@ -267,3 +257,4 @@ class _McmcMixin:
         )
         return (program, cfg, params,
                 mcmc_dim_tables(proposal, target, self._device))
+

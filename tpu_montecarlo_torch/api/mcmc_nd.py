@@ -21,7 +21,6 @@ from ..distributions import HMC, Distribution, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     Mode,
-    mcmc_finish,
     plan_chains,
     plan_mcmc_grid,
 )
@@ -29,9 +28,7 @@ from ..ops.mcmc_nd_kernel import McmcNdConfig, McmcNdProgram, mcmc_nd_cuda
 from ..sampling import DistKind, dist_spec_of
 from ..utils.roadmap import (
     FRONT_END,
-    ND_MCMC_DIAGNOSTICS,
     ND_MCMC_HMC,
-    ND_MCMC_SAMPLES,
     ND_MCMC_STATE,
     ND_MCMC_TABLES_XLA,
     ND_MCMC_WIDE,
@@ -39,6 +36,7 @@ from ..utils.roadmap import (
 )
 from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
+from .mcmc_result import mcmc_result
 from .results import IntegrationResult
 
 def is_nd_call(target, proposal) -> bool:
@@ -222,14 +220,10 @@ class _McmcNdMixin:
             raise not_ported(
                 "nd MCMC state (return_state, initial_state)", ND_MCMC_STATE
             )
-        if return_diagnostics:
-            raise not_ported("return_diagnostics in nd MCMC",
-                             ND_MCMC_DIAGNOSTICS)
-        if return_samples is not None:
-            raise not_ported("return_samples in nd MCMC", ND_MCMC_SAMPLES)
         program, cfg, params = self._nd_mcmc_kernel_program(
             functions, proposal, (proposals, targets, target_fn, d),
-            n_steps, n_burnin, return_stderr,
+            n_steps, n_burnin, return_stderr, return_diagnostics,
+            int(return_samples or 0),
         )
         tables = dim_tables(proposals, targets, d, self._device)
         return self._run_mcmc_nd(
@@ -237,11 +231,12 @@ class _McmcNdMixin:
         )
 
     def _nd_mcmc_kernel_program(
-        self, functions, proposal, parsed, n_steps, n_burnin, return_stderr
+        self, functions, proposal, parsed, n_steps, n_burnin, return_stderr,
+        with_diagnostics=False, samples=0,
     ):
         """``(program, cfg, params)`` of one nd run: the cached
-        :class:`McmcNdProgram` (per integrands, target, mode, families
-        and CUSTOM routes), its config and the (d, 6) float32 parameter
+        :class:`McmcNdProgram` (per integrands, target, mode, families,
+        CUSTOM routes and outputs), its config and the (d, 6) float32 parameter
         rows on the integrator's device (:func:`dim_tables` stages the
         CUSTOM dimensions' tables).  ``parsed`` is
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
@@ -265,10 +260,12 @@ class _McmcNdMixin:
             () if prop_specs is None else tuple(s.kind for s in prop_specs),
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
             n_steps, n_burnin, return_stderr, gapped,
+            with_diagnostics=with_diagnostics, samples=samples,
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
-            ("mcmc_nd", fns_key(traced), target_key, cfg.compiled),
+            ("mcmc_nd", fns_key(traced), target_key, cfg.compiled,
+             cfg.outputs),
             lambda: McmcNdProgram(traced, cfg, target_fn),
         )
         return program, cfg, params
@@ -302,13 +299,4 @@ class _McmcNdMixin:
         """One nd run on the kernel (a CPU integrator: its plain version)."""
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables)
-        values, acceptance, stderr = mcmc_finish(
-            out, grid, cfg, len(program.fns)
-        )
-        return IntegrationResult(
-            values=values.cpu().numpy(),
-            n_samples=n_chains * cfg.n_steps,
-            n_functions=n_functions,
-            acceptance_rate=float(acceptance),
-            stderr=None if stderr is None else stderr.cpu().numpy(),
-        )
+        return mcmc_result(out, grid, cfg, n_functions, n_chains)

@@ -27,9 +27,7 @@ from ..ops.mcmc_pt_kernel import (
 )
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
-    PT_DIAGNOSTICS,
     PT_HMC,
-    PT_SAMPLES,
     PT_TABLES_XLA,
     PT_WIDE,
     not_ported,
@@ -37,6 +35,7 @@ from ..utils.roadmap import (
 from .cache import fns_key
 from .mcmc import _check_random_walk_args
 from .mcmc_nd import _table_routes, dim_tables
+from .mcmc_result import mcmc_result
 from .results import IntegrationResult
 
 
@@ -89,33 +88,23 @@ class _PtMixin:
         parsed = self._parse_nd_mcmc_args(target, proposal)
         if isinstance(proposal, HMC):
             raise not_ported("tempered HMC", PT_HMC)
-        if return_samples:
-            raise not_ported("return_samples with temperatures", PT_SAMPLES)
-        if return_diagnostics:
-            raise not_ported("return_diagnostics with temperatures",
-                             PT_DIAGNOSTICS)
         program, cfg, params, ladder = self._pt_kernel_program(
             functions, proposal, parsed, betas, n_steps, n_burnin,
-            return_stderr,
+            return_stderr, return_diagnostics, int(return_samples or 0),
         )
         tables = dim_tables(parsed[0], parsed[1], parsed[3], self._device)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid, tables)
-        values, acceptance, swap_rate, stderr = pt_finish(
-            out, grid, cfg, len(program.fns)
-        )
-        return IntegrationResult(
-            values=values.cpu().numpy(),
-            n_samples=n_chains * n_steps,
-            n_functions=len(functions),
-            acceptance_rate=float(acceptance),
-            stderr=None if stderr is None else stderr.cpu().numpy(),
-            diagnostics={"swap_rate": float(swap_rate)},
-        )
+        swap_rate = pt_finish(out, grid, cfg, len(program.fns))[2]
+        # The draws of a 1-D Distribution target are (m, chains), as the
+        # JAX package surfaces them; (m, chains, d) otherwise.
+        return mcmc_result(out, grid, cfg, len(functions), n_chains,
+                           swap_rate=swap_rate,
+                           one_dim=parsed[3] == 1 and parsed[2] is None)
 
     def _pt_kernel_program(
         self, functions, proposal, parsed, betas, n_steps, n_burnin,
-        return_stderr,
+        return_stderr, with_diagnostics=False, samples=0,
     ):
         """``(program, cfg, params, ladder)`` of one tempered run: the
         cached :class:`McmcPtProgram` (per integrands, target, mode, rungs
@@ -145,11 +134,13 @@ class _PtMixin:
             mode, d,
             () if prop_specs is None else tuple(s.kind for s in prop_specs),
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
-            n_steps, n_burnin, return_stderr, n_temps=len(betas),
+            n_steps, n_burnin, return_stderr, with_diagnostics=with_diagnostics,
+            samples=samples, n_temps=len(betas),
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
-            ("mcmc_pt", fns_key(traced), target_key, cfg.compiled),
+            ("mcmc_pt", fns_key(traced), target_key, cfg.compiled,
+             cfg.outputs),
             lambda: McmcPtProgram(traced, cfg, target_fn),
         )
         ladder = torch.tensor(pack_ladder(betas), device=self._device)

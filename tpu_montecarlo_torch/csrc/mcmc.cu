@@ -41,6 +41,21 @@
 // the error bars is the CUDA block, not the JAX program: Chan's formula is
 // exact for any partition, and the wrapper combines the blocks.
 //
+// Split-R-hat and ESS (TMC_DIAG, build_mcmc_fn_pallas's with_diagnostics,
+// mcmc_pallas.py:292-363): the sampling phase runs as its two halves of
+// n1 = n_steps / 2 steps and the odd last step; through each half a chain
+// also sums the values it adds and their squares, and at the half's end
+// the block reduces those to the sums of the half-sequence means, of
+// their squares and of the squares (mcmc_pipeline.cuh end_half).  Four
+// more rows per block then hold the JAX kernel's stat rows 3-6 over the
+// block's 64 sequences, which the wrapper recombines by Chan's formula.
+// The pilot shift applies whenever diagnostics are on.  Thinned draws
+// (TMC_SAMPLES, with_samples): the post-step state after sampling steps
+// j * stride, j < m, stored by the chain's lane 0 as (m, n_chains) floats;
+// from step m * stride on the phase runs with the writer stopped (the
+// steps left when m does not divide n_steps).  Neither changes a decision or the order of a chain's sums, so the
+// values and error bars are those of a run without them.
+//
 // What bounds it on the card.  A chain is a serial recurrence of
 // n_burnin + n_steps steps, and over the closed-form families nothing is
 // read from memory in the loop.
@@ -99,6 +114,12 @@
 #ifndef TMC_PROP_GAPPED
 #define TMC_PROP_GAPPED 0  // a CUSTOM proposal's route: 1 gapped, 0 sampler
 #endif
+#ifndef TMC_DIAG
+#define TMC_DIAG 0  // 1: the split-half diagnostic rows
+#endif
+#ifndef TMC_SAMPLES
+#define TMC_SAMPLES 0  // 1: the thinned draws
+#endif
 
 namespace {
 
@@ -120,6 +141,10 @@ static_assert(kLanes >= 1 && 32 % kLanes == 0 && kGroup >= 1,
 constexpr int kChains = 32;
 constexpr int kThreads = kChains * kLanes;
 constexpr int kPilotThreads = 256;
+constexpr bool kDiag = TMC_DIAG != 0;
+constexpr bool kDraws = TMC_SAMPLES != 0;
+constexpr int kRows = tmc::block_row_count(kDiag);
+using Outputs = tmc::StepOutputs<TMC_K, 1, kDiag, kDraws>;
 constexpr float kLogStepMin = -13.815511f;
 constexpr float kLogStepMax = 13.815511f;
 
@@ -251,11 +276,13 @@ struct WalkStep {
 };
 
 // The sampling phase's per-chain sums, in step order: f_j(x) - pilot_j
-// and the accept count.
+// and the accept count; and the outputs' part (diagnostic halves, draws).
+template <class Out>
 struct Sums {
   float (&acc)[TMC_K];
   float& n_acc;
   const float* pilot;
+  Out& out;
 
   __device__ __forceinline__ void operator()(const float (&x)[1],
                                              bool accepted) {
@@ -263,7 +290,12 @@ struct Sums {
     float vals[TMC_K];
     tmc_values(x[0], vals);
 #pragma unroll
-    for (int j = 0; j < TMC_K; ++j) acc[j] += vals[j] - pilot[j];
+    for (int j = 0; j < TMC_K; ++j) {
+      const float v = vals[j] - pilot[j];
+      acc[j] += v;
+      out.add(j, v);
+    }
+    out.step(x);
   }
 };
 
@@ -313,7 +345,7 @@ __global__ void __launch_bounds__(kThreads)
 mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
             int n_burnin, int n_steps, int chains_per_program,
             const float* __restrict__ pilots, float* __restrict__ rows,
-            float* __restrict__ x_final) {
+            float* __restrict__ x_final, const tmc::Draws draws) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params, tb);
@@ -327,20 +359,24 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
   for (int j = threadIdx.x; j < TMC_K; j += kThreads) {
     s_pilot[j] = pilots != nullptr ? pilots[pid * TMC_K + j] : 0.0f;
   }
+  if constexpr (kDiag) tmc::zero_diag_sums<TMC_K>();
   __syncthreads();
 
   float logq;
   float x[1] = {initial_x(p, state, pos, logq)};
   float logp = log_target(p, x[0]);
   const uint32_t n_burn = uint32_t(n_burnin);
-  const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
   float acc[TMC_K];
 #pragma unroll
   for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
   float n_acc = 0.0f;
-  Sums sums{acc, n_acc, s_pilot};
+  Outputs out = Outputs::start(draws, chain, gridDim.x * kChains, lane == 0);
+  Sums<Outputs> sums{acc, n_acc, s_pilot, out};
   tmc::NoVisit none;
+  // Under diagnostics the sampling phase runs in halves, each ended by
+  // the block's reduction of the chains' halves.
+  auto half_done = [&] { tmc::end_half<TMC_K, kLanes>(out, n_steps); };
 
   // Burn-in advances the chains without evaluating the integrands and
   // without counting acceptances; sampling adds both.
@@ -349,9 +385,12 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
     tmc::SelectStep<1, tmc::NoVisit> burn{x, logp, logq, none};
     tmc::pipeline<kLanes, kGroup, tmc::Candidate<1>>(0u, n_burn, lane, make,
                                                      burn);
-    tmc::SelectStep<1, Sums> sample{x, logp, logq, sums};
-    tmc::pipeline<kLanes, kGroup, tmc::Candidate<1>>(n_burn, n_iters, lane,
-                                                     make, sample);
+    tmc::SelectStep<1, Sums<Outputs>> sample{x, logp, logq, sums};
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<kLanes, kGroup, tmc::Candidate<1>>(b, e, lane, make,
+                                                       sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   } else {
     constexpr bool kAdapt = kMode == kAdaptive;
     float step = p.q1;
@@ -360,16 +399,24 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
     tmc::pipeline<1, kGroup, WalkDraw>(0u, n_burn, 0,
                                        WalkDraws<kAdapt>{state, pos}, burn);
     if (kAdapt) step = expf(log_step);
-    WalkStep<false, Sums> sample{p, x, logp, step, log_step, sums};
-    tmc::pipeline<1, kGroup, WalkDraw>(n_burn, n_iters, 0,
-                                       WalkDraws<false>{state, pos}, sample);
+    WalkStep<false, Sums<Outputs>> sample{p, x, logp, step, log_step, sums};
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<1, kGroup, WalkDraw>(b, e, 0, WalkDraws<false>{state, pos},
+                                         sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   }
   if (lane == 0) x_final[chain] = x[0];
 
-  // The block's rows: sums, then the SS and centroid of the chain means.
-  tmc::write_block_rows<TMC_K, kLanes>(
-      acc, n_acc, s_pilot, n_steps,
-      rows + size_t(blockIdx.x) * 3 * (TMC_K + 1));
+  // The block's rows: sums, then the SS and centroid of the chain means;
+  // under diagnostics the four rows of the half-chain sequences.
+  float* block_rows = rows + size_t(blockIdx.x) * kRows * (TMC_K + 1);
+  if constexpr (kDiag) {
+    tmc::write_diag_rows<TMC_K, 1>(s_pilot, n_steps,
+                                   block_rows + 3 * (TMC_K + 1));
+  }
+  tmc::write_block_rows<TMC_K, kLanes>(acc, n_acc, s_pilot, n_steps,
+                                       block_rows);
 }
 
 // The launch's tables from the host pointer `tables` (a tmc::McmcTables<1>,
@@ -396,21 +443,26 @@ extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
 // Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
 // `stream` (chains_per_program a multiple of 32, n_chains of
 // chains_per_program).  `tables` as tmc_mcmc_pilots'; `pilots` may be
-// null (no shift); `rows` holds (n_chains / 32) x 3 x (TMC_K + 1) floats,
-// `x_final` n_chains.  Returns cudaGetLastError() (0 when accepted).
+// null (no shift); `rows` holds (n_chains / 32) x R x (TMC_K + 1) floats,
+// R = 7 with TMC_DIAG (n_steps >= 4) and 3 without, `x_final` n_chains;
+// with TMC_SAMPLES, `samples` holds m x n_chains floats, row j the
+// states after sampling step j * stride (1 <= m, m * stride <= n_steps),
+// else it is ignored.  Returns cudaGetLastError() (0 when accepted).
 extern "C" int tmc_mcmc(unsigned int seed, const float* params,
                         const void* tables, int n_burnin, int n_steps,
                         int chains_per_program, int n_chains,
                         const float* pilots, float* rows, float* x_final,
-                        void* stream) {
+                        float* samples, int m, int stride, void* stream) {
   if (chains_per_program % kChains != 0 ||
-      n_chains % chains_per_program != 0) {
+      n_chains % chains_per_program != 0 || (kDiag && n_steps < 4) ||
+      (kDraws && (samples == nullptr || m < 1 || stride < 1 ||
+                  int64_t(m) * stride > n_steps))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_kernel<<<n_chains / kChains, kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final);
+      pilots, rows, x_final, tmc::Draws{samples, m, stride});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,6 +43,9 @@
 // the accept count; SS of the chain means; their centroid), so
 // ops/mcmc_kernel.py's mcmc_finish combines the blocks as for the 1-D
 // kernel; and x_final, the chains' final states as d rows of n_chains.
+// Split-R-hat and ESS (TMC_DIAG) and thinned draws (TMC_SAMPLES) are
+// mcmc.cu's (mcmc_nd_pallas.py:290-310, :466-493, :765-790): four more
+// rows per block, and the draws as (m, d, n_chains) floats.
 //
 // What bounds it on the card, as for mcmc.cu.  A chain is a serial
 // recurrence of n_burnin + n_steps steps, and over the closed-form
@@ -97,6 +100,8 @@ static_assert(kMode == kIndependence || kLanes == 1,
 static_assert(kLanes >= 1 && 32 % kLanes == 0 && kGroup >= 1,
               "lanes divide a warp");
 constexpr int kThreads = kChainThreads * kLanes;
+constexpr int kRows = tmc::block_row_count(kDiag);
+using Outputs = tmc::StepOutputs<TMC_K, TMC_D, kDiag, kDraws>;
 
 // The candidate of independence step i: dimension j drawn under tag j.
 struct Propose {
@@ -185,11 +190,13 @@ struct WalkStep {
 };
 
 // The sampling phase's per-chain sums, in step order: f_k(x) - pilot_k
-// and the accept count.
+// and the accept count; and the outputs' part (diagnostic halves, draws).
+template <class Out>
 struct Sums {
   float (&acc)[TMC_K];
   float& n_acc;
   const float* pilot;
+  Out& out;
 
   __device__ __forceinline__ void operator()(const float (&x)[TMC_D],
                                              bool accepted) {
@@ -197,7 +204,12 @@ struct Sums {
     float vals[TMC_K];
     tmc_values_nd(x, vals);
 #pragma unroll
-    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - pilot[k];
+    for (int k = 0; k < TMC_K; ++k) {
+      const float v = vals[k] - pilot[k];
+      acc[k] += v;
+      out.add(k, v);
+    }
+    out.step(x);
   }
 };
 
@@ -205,7 +217,8 @@ __global__ void __launch_bounds__(kThreads)
 mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
                const Tables tb, int n_burnin, int n_steps,
                int chains_per_program, const float* __restrict__ pilots,
-               float* __restrict__ rows, float* __restrict__ x_final) {
+               float* __restrict__ rows, float* __restrict__ x_final,
+               const tmc::Draws draws) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params, tb);
@@ -219,6 +232,7 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
   for (int k = threadIdx.x; k < TMC_K; k += kThreads) {
     s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
   }
+  if constexpr (kDiag) tmc::zero_diag_sums<TMC_K>();
   __syncthreads();
 
   float x[TMC_D], slope[TMC_D];
@@ -226,14 +240,18 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
   float logp = log_target(x, p);
   float logq = kMode == kIndependence ? log_proposal(x, slope, p) : 0.0f;
   const uint32_t n_burn = uint32_t(n_burnin);
-  const uint32_t n_iters = n_burn + uint32_t(n_steps);
 
   float acc[TMC_K];
 #pragma unroll
   for (int k = 0; k < TMC_K; ++k) acc[k] = 0.0f;
   float n_acc = 0.0f;
-  Sums sums{acc, n_acc, s_pilot};
+  Outputs out =
+      Outputs::start(draws, chain, gridDim.x * kChainThreads, lane == 0);
+  Sums<Outputs> sums{acc, n_acc, s_pilot, out};
   tmc::NoVisit none;
+  // Under diagnostics the sampling phase runs in halves, each ended by
+  // the block's reduction of the chains' halves.
+  auto half_done = [&] { tmc::end_half<TMC_K, kLanes>(out, n_steps); };
 
   // Burn-in advances the chains without evaluating the integrands and
   // without counting acceptances; sampling adds both.
@@ -242,9 +260,12 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
     tmc::SelectStep<TMC_D, tmc::NoVisit> burn{x, logp, logq, none};
     tmc::pipeline<kLanes, kGroup, tmc::Candidate<TMC_D>>(0u, n_burn, lane,
                                                          make, burn);
-    tmc::SelectStep<TMC_D, Sums> sample{x, logp, logq, sums};
-    tmc::pipeline<kLanes, kGroup, tmc::Candidate<TMC_D>>(n_burn, n_iters,
-                                                         lane, make, sample);
+    tmc::SelectStep<TMC_D, Sums<Outputs>> sample{x, logp, logq, sums};
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<kLanes, kGroup, tmc::Candidate<TMC_D>>(b, e, lane, make,
+                                                           sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   } else {
     constexpr bool kAdapt = kMode == kAdaptive;
     float eps[TMC_D];  // the walk's step vector
@@ -259,9 +280,12 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
-    WalkStep<false, Sums> sample{p, x, logp, eps, log_scale, sums};
-    tmc::pipeline<1, kGroup, WalkDraw>(n_burn, n_iters, 0,
-                                       WalkDraws<false>{state, pos}, sample);
+    WalkStep<false, Sums<Outputs>> sample{p, x, logp, eps, log_scale, sums};
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<1, kGroup, WalkDraw>(b, e, 0, WalkDraws<false>{state, pos},
+                                         sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   }
   if (lane == 0) {
     const int n_chains = gridDim.x * kChainThreads;
@@ -269,10 +293,15 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
     for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[j];
   }
 
-  // The block's rows: sums, then the SS and centroid of the chain means.
-  tmc::write_block_rows<TMC_K, kLanes>(
-      acc, n_acc, s_pilot, n_steps,
-      rows + size_t(blockIdx.x) * 3 * (TMC_K + 1));
+  // The block's rows: sums, then the SS and centroid of the chain means;
+  // under diagnostics the four rows of the half-chain sequences.
+  float* block_rows = rows + size_t(blockIdx.x) * kRows * (TMC_K + 1);
+  if constexpr (kDiag) {
+    tmc::write_diag_rows<TMC_K, 1>(s_pilot, n_steps,
+                                   block_rows + 3 * (TMC_K + 1));
+  }
+  tmc::write_block_rows<TMC_K, kLanes>(acc, n_acc, s_pilot, n_steps,
+                                       block_rows);
 }
 
 }  // namespace
@@ -292,21 +321,26 @@ extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
 // `stream` (chains_per_program a multiple of 32, n_chains of
 // chains_per_program).  `params` holds TMC_D x 6 floats; `tables` as
 // tmc_mcmc_nd_pilots'; `pilots` may be null (no shift); `rows` holds
-// (n_chains / 32) x 3 x (TMC_K + 1) floats, `x_final` TMC_D x n_chains.
+// (n_chains / 32) x R x (TMC_K + 1) floats, R = 7 with TMC_DIAG (n_steps
+// >= 4) and 3 without, `x_final` TMC_D x n_chains; with TMC_SAMPLES,
+// `samples` holds m x TMC_D x n_chains floats, row j the states after
+// sampling step j * stride (1 <= m, m * stride <= n_steps), else it is
+// ignored.
 // Returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
                            const void* tables, int n_burnin, int n_steps,
                            int chains_per_program, int n_chains,
                            const float* pilots, float* rows, float* x_final,
-                           void* stream) {
+                           float* samples, int m, int stride, void* stream) {
   if (chains_per_program % kChainThreads != 0 ||
-      n_chains % chains_per_program != 0) {
+      n_chains % chains_per_program != 0 ||
+      !outputs_valid(n_steps, samples, m, stride)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_nd_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final);
+      pilots, rows, x_final, tmc::Draws{samples, m, stride});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,11 +39,20 @@
 #ifndef TMC_PROP_GAPPED
 #define TMC_PROP_GAPPED 0  // no gapped CUSTOM proposal dimension
 #endif
+#ifndef TMC_DIAG
+#define TMC_DIAG 0  // 1: the split-half diagnostic rows
+#endif
+#ifndef TMC_SAMPLES
+#define TMC_SAMPLES 0  // 1: the thinned draws
+#endif
 
 namespace {
 
 enum Mode { kIndependence = 0, kRandomWalk = 1, kAdaptive = 2 };
 constexpr int kMode = TMC_MODE;
+// The sampling phase's compiled-in outputs (mcmc_pipeline.cuh).
+constexpr bool kDiag = TMC_DIAG != 0;
+constexpr bool kDraws = TMC_SAMPLES != 0;
 
 // Chains per block (ops/mcmc_kernel.py: CHAIN_THREADS): one warp in
 // mcmc_pt.cu, 32 * TMC_LANES threads in mcmc_nd.cu.
@@ -230,6 +239,16 @@ mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
 // tmc::McmcTables<TMC_D>, or null where no dimension is CUSTOM).
 inline Tables tables_of(const void* tables) {
   return tables != nullptr ? *static_cast<const Tables*>(tables) : Tables{};
+}
+
+// Whether a chain launch's outputs are ones the library can take:
+// diagnostics need n_steps >= 4, and draws a buffer, m >= 1 and m * stride
+// <= n_steps.
+inline bool outputs_valid(int n_steps, const float* samples, int m,
+                          int stride) {
+  return (!kDiag || n_steps >= 4) &&
+         (!kDraws || (samples != nullptr && m >= 1 && stride >= 1 &&
+                      int64_t(m) * stride <= n_steps));
 }
 
 // Launches the pilot kernel: (programs, K) floats.  Returns

@@ -37,6 +37,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "integrand_math.cuh"  // tmc_minimum, tmc_maximum (and host math)
 
@@ -201,6 +202,140 @@ struct NoVisit {
   template <int D>
   __device__ __forceinline__ void operator()(const float (&)[D], bool) {}
 };
+
+// -- The sampling phase's optional outputs ------------------------------------
+//
+// Diagnostics (TMC_DIAG) split each chain's sampling phase into two halves
+// of n1 = n_steps / 2 steps (an odd last step is in neither) and keep, per
+// half, the sums and squares of the pilot-shifted values f_k(x) - pilot_k
+// that the chain's sums add; at the end of each half the block reduces
+// them (end_half) to the JAX kernels' split-half statistics
+// (mcmc_pallas.py:292-340).  Thinned draws (TMC_SAMPLES) store the
+// post-step state at the phase's steps j * stride, j < m.  Neither changes
+// a decision or the order in which the sums are added.
+
+// The draws of a run: m rows of D * n_chains floats, row j holding the
+// states after sampling step j * stride, dimension-major (out[(j * D +
+// dim) * n_chains + chain]); `out` null when the run takes none.
+struct Draws {
+  float* out;
+  int m, stride;
+};
+
+// Called by every lane of a chain once per sampling step, in step order,
+// with the post-step state; a down-counter reaches 0 at the draw steps of
+// the chain's writing lane (on the other lanes it starts at 0 and does
+// not come back to it within 2^32 steps).  It would write on past the
+// m-th draw: sampling_phase stops it at step m * stride (`span`).  A step
+// costs a decrement and a compare; a draw step the stores and two moves.
+template <int D>
+struct DrawWriter {
+  float* dst;          // the chain's column of the next draw's row
+  uint32_t n_chains;
+  uint32_t count;      // steps to the next draw
+  uint32_t stride;
+  uint32_t span;       // m * stride: the sampling steps that hold the draws
+
+  __device__ __forceinline__ void operator()(const float (&x)[D]) {
+    if (--count == 0u) {
+      count = stride;
+#pragma unroll
+      for (int dim = 0; dim < D; ++dim) dst[size_t(dim) * n_chains] = x[dim];
+      dst += size_t(D) * n_chains;
+    }
+  }
+};
+
+// A chain's diagnostic halves (kDiag): the current half's sums s_k and
+// squares q_k of the values it adds; and its draws (kDraws).  With
+// neither, every member and call compiles to nothing.
+template <int K, int D, bool kDiag, bool kDraws>
+struct StepOutputs {
+  static constexpr bool kHalves = kDiag;
+  static constexpr bool kWrites = kDraws;
+  float s[kDiag ? K : 1], q[kDiag ? K : 1];
+  DrawWriter<D> draws;
+
+  // A chain's lane at the start of the sampling phase: halves at 0, and
+  // the writer of the chain's draws (`writes` on the one lane of the
+  // chain that stores them).
+  __device__ __forceinline__ static StepOutputs start(const Draws& d,
+                                                      int chain,
+                                                      int n_chains,
+                                                      bool writes) {
+    StepOutputs out{};
+    if constexpr (kDraws) {
+      out.draws.dst = d.out + chain;
+      out.draws.n_chains = uint32_t(n_chains);
+      out.draws.count = writes ? 1u : 0u;
+      out.draws.stride = uint32_t(d.stride);
+      out.draws.span = uint32_t(d.m) * uint32_t(d.stride);
+    }
+    return out;
+  }
+
+  __device__ __forceinline__ void add(int k, float v) {
+    if constexpr (kDiag) {
+      s[k] += v;
+      q[k] += v * v;
+    }
+  }
+  __device__ __forceinline__ void step(const float (&x)[D]) {
+    if constexpr (kDraws) draws(x);
+  }
+  // No draw after this: the counter at 0, as on a lane that never writes.
+  __device__ __forceinline__ void stop_draws() {
+    if constexpr (kDraws) draws.count = 0u;
+  }
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int k = 0; k < (kDiag ? K : 1); ++k) s[k] = q[k] = 0.0f;
+  }
+};
+
+// Rows per block of a kernel's sampling phase: sums, SS and centroid,
+// then the four diagnostic rows.
+constexpr int block_row_count(bool diag) { return diag ? 7 : 3; }
+
+// Runs a sampling phase of n_steps steps from `begin` with run(b, e),
+// which runs steps [b, e): in one piece, or under diagnostics
+// (Out::kHalves) as the two halves of n1 = n_steps / 2 steps and then the
+// odd last step, if any, calling half_done() on every thread after each
+// half.  With draws (Out::kWrites) a piece that holds step begin + m *
+// stride, the first after the m-th draw's stride, runs in two, the
+// writer stopped between them, so no step from there on writes.  The
+// draws are counter-based, so no cut changes a chain.
+template <class Out, class Run, class HalfDone>
+__device__ __forceinline__ void sampling_phase(uint32_t begin,
+                                               uint32_t n_steps, Out& out,
+                                               Run& run,
+                                               HalfDone& half_done) {
+  const auto piece = [&](uint32_t b, uint32_t e) {
+    if constexpr (Out::kWrites) {
+      const uint32_t cut = begin + out.draws.span;
+#pragma unroll 1
+      while (b < e) {
+        if (b >= cut) out.stop_draws();
+        const uint32_t stop = b < cut && cut < e ? cut : e;
+        run(b, stop);
+        b = stop;
+      }
+    } else {
+      run(b, e);
+    }
+  };
+  if constexpr (!Out::kHalves) {
+    piece(begin, begin + n_steps);
+  } else {
+    const uint32_t n1 = n_steps / 2u;
+#pragma unroll 1
+    for (uint32_t part = 0; part < 3u; ++part) {
+      const uint32_t b = begin + part * n1;
+      piece(b, part < 2u ? b + n1 : begin + n_steps);
+      if (part < 2u) half_done();
+    }
+  }
+}
 
 // -- Parallel tempering (mcmc_pt.cu) ----------------------------------------
 //
@@ -452,6 +587,110 @@ __device__ __forceinline__ void write_block_rows(const float (&acc)[K],
       out[kW + c] = 0.0f;
       out[2 * kW + c] = 0.0f;
     }
+  }
+}
+
+// The block's diagnostic sums, 3 x K floats in shared memory: over its 32
+// chains and the halves so far, of the half-sequence means m_k = s_k / n1,
+// of m_k^2, and of the squares q_k.  Zeroed by zero_diag_sums.
+template <int K>
+__device__ __forceinline__ float* diag_sums() {
+  __shared__ float sums[3 * K];
+  return sums;
+}
+
+// Every thread calls it before the sampling phase, ahead of a
+// __syncthreads().
+template <int K>
+__device__ __forceinline__ void zero_diag_sums() {
+  float* sums = diag_sums<K>();
+  for (int n = threadIdx.x; n < 3 * K; n += blockDim.x) sums[n] = 0.0f;
+}
+
+// Adds to sums[k], k < K, the sum over the block's 32 chains of value(k)
+// on each chain's first lane: chains run on CL consecutive lanes, so a
+// block of 32 * CL threads is CL warps, each of whose lanes 0, CL, 2 CL,
+// ... holds a chain.  The warps' sums, in a fixed shuffle tree, are then
+// added in warp order: no atomics.  Called by every thread of the block.
+template <int K, int CL>
+__device__ __forceinline__ float* chain_stage() {
+  __shared__ float stage[CL * K];
+  return stage;
+}
+
+template <int K, int CL, class Value>
+__device__ __forceinline__ void add_chain_sums(const Value& value,
+                                               float* sums) {
+  float* stage = chain_stage<K, CL>();
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float v = value(k);
+#pragma unroll
+    for (int off = 16; off >= CL; off /= 2) {
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+    if (threadIdx.x % 32 == 0) stage[warp * K + k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < CL; ++w) total += stage[w * K + k];
+    sums[k] += total;
+  }
+  __syncthreads();
+}
+
+// The end of a diagnostic half: the block's sums of m_k = s_k / n1, of
+// m_k^2 and of q_k, added to diag_sums in that order; the chain's halves
+// then start again from 0.
+template <int K, int CL, class Out>
+__device__ __forceinline__ void end_half(Out& out, int n_steps) {
+  if constexpr (Out::kHalves) {  // else never called
+    const float inv_n1 = 1.0f / float(n_steps / 2);
+    float* sums = diag_sums<K>();
+    add_chain_sums<K, CL>([&](int k) { return out.s[k] * inv_n1; }, sums);
+    add_chain_sums<K, CL>(
+        [&](int k) {
+          const float m = out.s[k] * inv_n1;
+          return m * m;
+        },
+        sums + K);
+    add_chain_sums<K, CL>([&](int k) { return out.q[k]; }, sums + 2 * K);
+    out.reset();
+  }
+}
+
+// The block's four diagnostic rows of K + C floats, rows 3-6 of the JAX
+// kernels' stat block (mcmc_pallas.py:312-340) over its 64 half-chain
+// sequences: the sum of their means (pilot restored), the SS of the means
+// around the block's centroid, that centroid, and the summed
+// within-sequence variance (sum q - n1 * sum m^2) / max(n1 - 1, 1); 0 in
+// the count columns.  Called by every thread after the last end_half.
+template <int K, int C>
+__device__ __forceinline__ void write_diag_rows(const float* s_pilot,
+                                                int n_steps, float* out) {
+  constexpr int kW = K + C;
+  const float* sums = diag_sums<K>();
+  const int n1 = n_steps / 2;
+  const float n1f = float(n1 > 1 ? n1 : 1);
+  const float denom_w = float(n1 - 1 > 1 ? n1 - 1 : 1);
+  const float n_seq = 64.0f;  // 2 x 32 chains
+  for (int c = threadIdx.x; c < kW; c += blockDim.x) {
+    float seq_sum = 0.0f, ss = 0.0f, mb = 0.0f, w = 0.0f;
+    if (c < K) {
+      const float s_m = sums[c], s_msq = sums[K + c], s_q = sums[2 * K + c];
+      w = (s_q - n1f * s_msq) / denom_w;
+      const float mbs = s_m / n_seq;
+      ss = tmc_maximum(s_msq - n_seq * mbs * mbs, 0.0f);
+      mb = mbs + s_pilot[c];
+      seq_sum = n_seq * mb;
+    }
+    out[c] = seq_sum;
+    out[kW + c] = ss;
+    out[2 * kW + c] = mb;
+    out[3 * kW + c] = w;
   }
 }
 

@@ -50,6 +50,12 @@
 // accept count and the swap count; SS of the chain means; their
 // centroid), which ops/mcmc_pt_kernel.py's pt_finish combines; and
 // x_final, the cold rung's final states as d rows of n_chains.
+// Split-R-hat and ESS (TMC_DIAG) and thinned draws (TMC_SAMPLES) are
+// mcmc.cu's over the cold rung (mcmc_pt_pallas.py:285-303, :596-665,
+// :801-860): every lane keeps halves at its rung's values, as it adds
+// its sums, and the block reduces the cold rung's lane 0; that lane
+// writes the cold rung's post-swap draws as (m, d, n_chains) floats.  The
+// ladder runs its sampling loop in the same parts.
 //
 // What bounds it on the card: latency, as for mcmc.cu and mcmc_nd.cu.  A
 // chain is a serial loop of n_burnin + n_steps steps, each T rung moves
@@ -131,6 +137,8 @@ static_assert(kLadder ? kLanes == 1 && kGroup == 1
               "rung lanes: 1 (the ladder) or T', the power of two >= T");
 static_assert(kChainLanes <= 32 && 32 % kChainLanes == 0 && kGroup >= 1,
               "a chain's lanes divide a warp");
+constexpr int kRows = tmc::block_row_count(kDiag);
+using Outputs = tmc::StepOutputs<TMC_K, TMC_D, kDiag, kDraws>;
 
 // The ladder as the wrapper packs it: the T betas, then the T - 1 pair
 // differences beta_t - beta_{t+1}, each rounded to float32 from float64.
@@ -157,12 +165,15 @@ struct Target {
 };
 
 // The sampling phase's per-lane sums, in step order: f_k(x) - pilot_k and
-// the accept count.  Every lane of a chain adds them at its rung's state
-// (no branch); the rows take the cold rung's, lane 0's.
+// the accept count, and the outputs' part (diagnostic halves, draws).
+// Every lane of a chain adds them at its rung's state (no branch); the
+// rows take the cold rung's, lane 0's, and lane 0 writes the draws.
+template <class Out>
 struct Sums {
   float (&acc)[TMC_K];
   float& n_acc;
   const float* pilot;
+  Out& out;
 
   __device__ __forceinline__ void operator()(const float (&x)[TMC_D],
                                              bool accepted) {
@@ -170,9 +181,15 @@ struct Sums {
     float vals[TMC_K];
     tmc_values_nd(x, vals);
 #pragma unroll
-    for (int k = 0; k < TMC_K; ++k) acc[k] += vals[k] - pilot[k];
+    for (int k = 0; k < TMC_K; ++k) {
+      const float v = vals[k] - pilot[k];
+      acc[k] += v;
+      out.add(k, v);
+    }
+    out.step(x);
   }
 };
+
 
 // -- rungs on lanes -----------------------------------------------------------
 
@@ -254,7 +271,9 @@ __device__ __forceinline__ void run_lanes(const Params& p,
                                           int n_burnin, int n_steps,
                                           const float* s_pilot,
                                           float (&acc)[TMC_K],
-                                          float (&counts)[2], float* x_cold) {
+                                          float (&counts)[2], float* x_cold,
+                                          const tmc::Draws& draws,
+                                          int chain) {
   const int seg = threadIdx.x % kChainLanes;
   const int rung = seg / kLanes;
   const int l = seg % kLanes;
@@ -271,18 +290,25 @@ __device__ __forceinline__ void run_lanes(const Params& p,
 
   const SwapTags tag{uint32_t(r.even.lo), uint32_t(r.odd.lo)};
   const uint32_t n_burn = uint32_t(n_burnin);
-  const uint32_t n_iters = n_burn + uint32_t(n_steps);
   float n_acc = 0.0f;
-  Sums sums{acc, n_acc, s_pilot};
+  Outputs out =
+      Outputs::start(draws, chain, gridDim.x * kChainThreads, seg == 0);
+  Sums<Outputs> sums{acc, n_acc, s_pilot, out};
   tmc::NoVisit none;
+  // Under diagnostics the sampling phase runs in halves, each ended by
+  // the block's reduction of the cold rungs' halves.
+  auto half_done = [&] { tmc::end_half<TMC_K, kChainLanes>(out, n_steps); };
   if constexpr (kMode == kIndependence) {
     const PtPropose make{p, state, pos, rung, tag};
     tmc::PtSelectStep<kChainLanes, TMC_D, tmc::NoVisit> burn{r, none};
     tmc::pipeline<kLanes, kGroup, tmc::PtCandidate<TMC_D>>(0u, n_burn, l,
                                                            make, burn);
-    tmc::PtSelectStep<kChainLanes, TMC_D, Sums> sample{r, sums};
-    tmc::pipeline<kLanes, kGroup, tmc::PtCandidate<TMC_D>>(n_burn, n_iters,
-                                                           l, make, sample);
+    tmc::PtSelectStep<kChainLanes, TMC_D, Sums<Outputs>> sample{r, sums};
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<kLanes, kGroup, tmc::PtCandidate<TMC_D>>(b, e, l, make,
+                                                             sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   } else {
     constexpr bool kAdapt = kMode == kAdaptive;
     const Target target{p};
@@ -300,11 +326,14 @@ __device__ __forceinline__ void run_lanes(const Params& p,
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
-    tmc::PtWalkStep<kChainLanes, TMC_D, false, Target, Sums> sample{
+    tmc::PtWalkStep<kChainLanes, TMC_D, false, Target, Sums<Outputs>> sample{
         target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
         log_scale, sums};
-    tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
-        n_burn, n_iters, l, PtWalkDraws<false>{state, pos, rung, tag}, sample);
+    auto run = [&](uint32_t b, uint32_t e) {
+      tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
+          b, e, l, PtWalkDraws<false>{state, pos, rung, tag}, sample);
+    };
+    tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   }
   counts[0] = n_acc;  // lane 0's is the cold rung's
   counts[1] = chain_sum(r.swaps);
@@ -406,7 +435,9 @@ __device__ __forceinline__ void run_ladder(const Params& p,
                                            const float* s_pilot,
                                            float (&acc)[TMC_K],
                                            float (&counts)[2],
-                                           float* x_cold) {
+                                           float* x_cold,
+                                           const tmc::Draws& draws,
+                                           int chain) {
   const Ladder lad = load_ladder(ladder);
   float x[kT][TMC_D], logp[kT], logq[kT];
   float eps[kT][TMC_D];  // each rung's step vector
@@ -422,7 +453,6 @@ __device__ __forceinline__ void run_ladder(const Params& p,
     for (int j = 0; j < TMC_D; ++j) eps[t][j] = p.q1[j];
   }
   float la, swaps = 0.0f;
-  const uint32_t n_iters = uint32_t(n_burnin) + uint32_t(n_steps);
 
   // Burn-in: move every rung (adapting the walk's scales) and exchange.
   for (uint32_t i = 0; i < uint32_t(n_burnin); ++i) {
@@ -457,18 +487,24 @@ __device__ __forceinline__ void run_ladder(const Params& p,
   }
 
   float n_acc = 0.0f;
-  Sums sums{acc, n_acc, s_pilot};
-  for (uint32_t i = uint32_t(n_burnin); i < n_iters; ++i) {
-    bool cold_accepted = false;
+  Outputs out = Outputs::start(draws, chain, gridDim.x * kChainThreads, true);
+  Sums<Outputs> sums{acc, n_acc, s_pilot, out};
+  auto run = [&](uint32_t b, uint32_t e) {
+    for (uint32_t i = b; i < e; ++i) {
+      bool cold_accepted = false;
 #pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      const bool accepted = rung_move(p, state, pos, i, t, lad.beta[t],
-                                      eps[t], x[t], logp[t], logq[t], &la);
-      if (t == 0) cold_accepted = accepted;
+      for (int t = 0; t < kT; ++t) {
+        const bool accepted = rung_move(p, state, pos, i, t, lad.beta[t],
+                                        eps[t], x[t], logp[t], logq[t], &la);
+        if (t == 0) cold_accepted = accepted;
+      }
+      exchange(state, pos, i, lad, x, logp, logq, swaps);
+      sums(x[0], cold_accepted);
     }
-    exchange(state, pos, i, lad, x, logp, logq, swaps);
-    sums(x[0], cold_accepted);
-  }
+  };
+  auto half_done = [&] { tmc::end_half<TMC_K, 1>(out, n_steps); };
+  tmc::sampling_phase(uint32_t(n_burnin), uint32_t(n_steps), out, run,
+                      half_done);
   counts[0] = n_acc;
   counts[1] = swaps;
 #pragma unroll
@@ -480,7 +516,7 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
                const float* __restrict__ ladder, const Tables tb,
                int n_burnin, int n_steps, int chains_per_program,
                const float* __restrict__ pilots, float* __restrict__ rows,
-               float* __restrict__ x_final) {
+               float* __restrict__ x_final, const tmc::Draws draws) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params, tb);
@@ -492,6 +528,7 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
   for (int k = threadIdx.x; k < TMC_K; k += kThreads) {
     s_pilot[k] = pilots != nullptr ? pilots[pid * TMC_K + k] : 0.0f;
   }
+  if constexpr (kDiag) tmc::zero_diag_sums<TMC_K>();
   __syncthreads();
 
   float acc[TMC_K];
@@ -501,10 +538,10 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
   float x_cold[TMC_D];
   if constexpr (kLadder) {
     run_ladder(p, ladder, state, pos, n_burnin, n_steps, s_pilot, acc,
-               counts, x_cold);
+               counts, x_cold, draws, chain);
   } else {
     run_lanes(p, ladder, state, pos, n_burnin, n_steps, s_pilot, acc, counts,
-              x_cold);
+              x_cold, draws, chain);
   }
   if (threadIdx.x % kChainLanes == 0) {
     const int n_chains = gridDim.x * kChainThreads;
@@ -512,9 +549,14 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
     for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x_cold[j];
   }
 
-  // The block's rows: sums, then the SS and centroid of the chain means.
-  tmc::write_block_rows<TMC_K, kChainLanes, 2>(
-      acc, counts, s_pilot, n_steps, rows + size_t(blockIdx.x) * 3 * kW);
+  // The block's rows: sums, then the SS and centroid of the chain means;
+  // under diagnostics the four rows of the cold half-chain sequences.
+  float* block_rows = rows + size_t(blockIdx.x) * kRows * kW;
+  if constexpr (kDiag) {
+    tmc::write_diag_rows<TMC_K, 2>(s_pilot, n_steps, block_rows + 3 * kW);
+  }
+  tmc::write_block_rows<TMC_K, kChainLanes, 2>(acc, counts, s_pilot, n_steps,
+                                               block_rows);
 }
 
 }  // namespace
@@ -536,22 +578,28 @@ extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
 // n_chains of chains_per_program).  `params` holds TMC_D x 6 floats,
 // `ladder` 2 * TMC_T - 1 (Ladder); `tables` as tmc_mcmc_pt_pilots';
 // `pilots` may be null (no shift);
-// `rows` holds (n_chains / 32) x 3 x (TMC_K + 2) floats, `x_final` TMC_D
-// x n_chains.  Returns cudaGetLastError() (0 when the launch was
-// accepted).
+// `rows` holds (n_chains / 32) x R x (TMC_K + 2) floats, R = 7 with
+// TMC_DIAG (n_steps >= 4) and 3 without, `x_final` TMC_D x n_chains; with
+// TMC_SAMPLES, `samples` holds m x TMC_D x n_chains floats, row j the
+// cold rung's post-swap states after sampling step j * stride (1 <= m,
+// m * stride <= n_steps), else it is ignored.  Returns cudaGetLastError() (0 when the
+// launch was accepted).
 extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
                            const float* ladder, const void* tables,
                            int n_burnin, int n_steps, int chains_per_program,
                            int n_chains, const float* pilots, float* rows,
-                           float* x_final, void* stream) {
+                           float* x_final, float* samples, int m, int stride,
+                           void* stream) {
   if (chains_per_program % kChainThreads != 0 ||
-      n_chains % chains_per_program != 0) {
+      n_chains % chains_per_program != 0 ||
+      !outputs_valid(n_steps, samples, m, stride)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_pt_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       seed, params, ladder, tables_of(tables), n_burnin, n_steps,
-      chains_per_program, pilots, rows, x_final);
+      chains_per_program, pilots, rows, x_final,
+      tmc::Draws{samples, m, stride});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,9 +19,12 @@ Chains are laid out as the JAX kernel lays them out: chain ``c`` is
 position ``c % chains_per_program`` (``row * 128 + lane``) of program
 ``c // chains_per_program``.  Both versions return per-block rows of
 ``CHAIN_THREADS`` chains: (sums, accept count), (SS, 0) and (centroid, 0)
-of the chain means; :func:`mcmc_finish` turns them into estimates, the
-acceptance rate and the error bars (Chan's parallel-variance formula,
-exact for any partition of the chains).  On the card a chain runs on
+of the chain means, and with diagnostics four more rows of the blocks'
+half-chain sequences (``ops/mcmc_diagnostics.py``); :func:`mcmc_finish`
+turns them into estimates, the acceptance rate, the error bars (Chan's
+parallel-variance formula, exact for any partition of the chains) and
+split-R-hat and ESS.  With thinned draws they also return the post-step
+states at sampling steps ``j * (n_steps // m)``.  On the card a chain runs on
 ``Layout.lanes`` threads, each making ``Layout.group`` of its candidates
 ahead of the decisions (``csrc/mcmc_pipeline.cuh``); the layout changes
 no number the kernel computes.
@@ -52,6 +55,12 @@ from .integrate_kernel import (
     uniform_open01,
 )
 from .lower import cuda_source, to_torch
+from .mcmc_diagnostics import (
+    DIAG_ROWS,
+    PhaseOutputs,
+    check_outputs,
+    diag_combine,
+)
 from .mcmc_tables import (
     DimTables,
     check_dim_tables,
@@ -73,6 +82,7 @@ __all__ = [
     "block_rows",
     "default_layout",
     "mcmc_cuda",
+    "mcmc_diagnostics",
     "mcmc_finish",
     "mcmc_reference",
     "plan_chains",
@@ -197,7 +207,9 @@ def seed_word(seed: int) -> int:
 class McmcConfig:
     """What a run does.  ``proposal_kind`` is ignored by the walks;
     ``prop_gapped`` marks a CUSTOM proposal drawn from gap-respecting
-    tables, whose logq comes from its log table (else sampler mode)."""
+    tables, whose logq comes from its log table (else sampler mode);
+    ``with_diagnostics`` adds split-R-hat and ESS (n_steps >= 4), and
+    ``samples`` (0 for none) the thinned draws."""
 
     mode: Mode
     proposal_kind: DistKind
@@ -206,6 +218,24 @@ class McmcConfig:
     n_burnin: int
     with_stderr: bool = False
     prop_gapped: bool = False
+    with_diagnostics: bool = False
+    samples: int = 0
+
+    def __post_init__(self):
+        check_outputs(self.n_steps, self.with_diagnostics, self.samples)
+
+    @property
+    def outputs(self):
+        """What the library compiles in besides the mode and families:
+        (diagnostics, draws)."""
+        return bool(self.with_diagnostics), bool(self.samples)
+
+    @property
+    def stat_mode(self) -> bool:
+        """Whether the sums are pilot-shifted and the values come from the
+        blocks' centroids: error bars or diagnostics (the JAX kernels'
+        ``stat_mode``)."""
+        return bool(self.with_stderr or self.with_diagnostics)
 
     @property
     def compiled(self):
@@ -226,12 +256,28 @@ class McmcConfig:
 
 
 class McmcOutput(NamedTuple):
-    """``rows``: (chains / CHAIN_THREADS, 3, K + 1) float32 block rows;
-    ``x_final``: (chains,) float32 final chain states, (d, chains) from
-    the nd kernel (``ops/mcmc_nd_kernel.py``)."""
+    """``rows``: (chains / CHAIN_THREADS, R, K + 1) float32 block rows, R
+    = 3, or 7 with diagnostics; ``x_final``: (chains,) float32 final chain
+    states, (d, chains) from the nd kernel (``ops/mcmc_nd_kernel.py``);
+    ``samples``: the thinned draws, (m, chains) float32, (m, d, chains)
+    from the nd and tempered kernels, or None."""
 
     rows: torch.Tensor
     x_final: torch.Tensor
+    samples: Optional[torch.Tensor] = None
+
+
+def outputs_source(outputs) -> str:
+    """The generated source's lines for the (diagnostics, draws) a library
+    compiles in; none for a library without them."""
+    diag, draws = outputs
+    return (("#define TMC_DIAG 1\n" if diag else "")
+            + ("#define TMC_SAMPLES 1\n" if draws else ""))
+
+
+def row_count(cfg) -> int:
+    """Rows per block of a run of ``cfg``."""
+    return 3 + (DIAG_ROWS if cfg.with_diagnostics else 0)
 
 
 class McmcProgram:
@@ -274,10 +320,11 @@ class McmcProgram:
             parts.append(f"#define TMC_PROP_KIND {int(prop)}\n")
         if prop == DistKind.CUSTOM:
             parts.append(f"#define TMC_PROP_GAPPED {int(gapped)}\n")
+        parts.append(outputs_source(cfg.outputs))
         return "".join(parts)
 
     def library(self, cfg: McmcConfig):
-        key = (cfg.compiled, self.layout_for(cfg))
+        key = (cfg.compiled, cfg.outputs, self.layout_for(cfg))
         if key not in self._libs:
             from .build import load_kernel_library
 
@@ -288,8 +335,10 @@ class McmcProgram:
             lib.tmc_mcmc_pilots.argtypes = [u, p, p, i, i, p, p]
             lib.tmc_mcmc_pilots.restype = i
             # seed word, params, host tables, burn-in, steps, chains per
-            # program, chains, pilots, rows, x_final, stream
-            lib.tmc_mcmc.argtypes = [u, p, p, i, i, i, i, p, p, p, p]
+            # program, chains, pilots, rows, x_final, samples, m, stride,
+            # stream
+            lib.tmc_mcmc.argtypes = [u, p, p, i, i, i, i, p, p, p, p, i, i,
+                                     p]
             lib.tmc_mcmc.restype = i
             self._libs[key] = lib
         return self._libs[key]
@@ -384,11 +433,12 @@ def mcmc_reference(
         x = q2 + uniform_halfopen01(rng, shape, 0, 0) * (q3 - q2)
     logp = lp_t(x)
     k = len(torch_fns)
-    if cfg.with_stderr:
+    if cfg.stat_mode:
         n_block = float(grid.chains_per_program)
         pilots = [v.sum(dim=(1, 2), keepdim=True) / n_block for v in values(x)]
     else:
         pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+    outs = PhaseOutputs(cfg.n_steps, cfg.with_diagnostics, cfg.samples, k, x)
 
     step = q1
     if cfg.mode == Mode.ADAPTIVE:
@@ -424,15 +474,26 @@ def mcmc_reference(
                     _LOG_STEP_MIN, _LOG_STEP_MAX,
                 )
             continue
-        accs = [a + (v - p) for a, v, p in zip(accs, values(x), pilots)]
+        vals = [v - p for v, p in zip(values(x), pilots)]
+        accs = [a + v for a, v in zip(accs, vals)]
         n_acc = n_acc + accept.to(torch.float32)
+        outs.add(i - cfg.n_burnin, vals, x)
 
     acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
     chain_pilots = torch.stack(
         [p.expand_as(x).reshape(-1) for p in pilots], dim=1
     )
     rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
-    return McmcOutput(rows, x.reshape(-1))
+    return McmcOutput(with_diag_rows(rows, outs, chain_pilots),
+                      x.reshape(-1), outs.samples())
+
+
+def with_diag_rows(rows: torch.Tensor, outs: PhaseOutputs,
+                   chain_pilots: torch.Tensor) -> torch.Tensor:
+    """``rows`` with the blocks' diagnostic rows after them, when the run
+    has diagnostics."""
+    diag = outs.rows(chain_pilots, rows.shape[2])
+    return rows if diag is None else torch.cat([rows, diag], dim=1)
 
 
 def mcmc_cuda(
@@ -448,7 +509,9 @@ def mcmc_cuda(
 
     A CUDA ``params`` launches the kernel: ``mcmc_cuda.launches`` counts
     the chain-kernel launches, and ``mcmc_cuda.pilot_launches`` the pilot
-    kernel's, which an error-bar run launches first.  A CPU ``params``
+    kernel's, which an error-bar or diagnostics run launches first;
+    ``mcmc_cuda.diag_launches`` and ``mcmc_cuda.sample_launches`` count
+    the chain launches with diagnostics and with draws.  A CPU ``params``
     runs the plain version.  Any other
     device raises.  The launches are asynchronous on the current
     stream."""
@@ -466,14 +529,15 @@ def mcmc_cuda(
     dev = params.device
     word = seed_word(seed)
     rows = torch.empty(
-        (grid.chains_actual // CHAIN_THREADS, 3, k + 1),
+        (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
         dtype=torch.float32, device=dev,
     )
     x_final = torch.empty(grid.chains_actual, dtype=torch.float32, device=dev)
+    samples = sample_buffer(cfg, (grid.chains_actual,), dev)
     pilots = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.with_stderr:
+        if cfg.stat_mode:
             pilots = torch.empty(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
@@ -488,15 +552,40 @@ def mcmc_cuda(
             word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
-            rows.data_ptr(), x_final.data_ptr(), stream,
+            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
+            stream,
         )
         _raise_on(lib, err, "chain")
-    mcmc_cuda.launches += 1
-    return McmcOutput(rows, x_final)
+    count_launch(mcmc_cuda, cfg)
+    return McmcOutput(rows, x_final, samples)
 
 
 mcmc_cuda.launches = 0
 mcmc_cuda.pilot_launches = 0
+mcmc_cuda.diag_launches = 0
+mcmc_cuda.sample_launches = 0
+
+
+def sample_buffer(cfg, shape, dev) -> Optional[torch.Tensor]:
+    """The draws' buffer of a run, (m, *shape) float32, or None."""
+    if not cfg.samples:
+        return None
+    return torch.empty((cfg.samples, *shape), dtype=torch.float32,
+                       device=dev)
+
+
+def sample_args(cfg, samples: Optional[torch.Tensor]):
+    """The chain entry point's (samples, m, stride) arguments."""
+    if samples is None:
+        return None, 0, 0
+    return samples.data_ptr(), cfg.samples, cfg.n_steps // cfg.samples
+
+
+def count_launch(wrapper, cfg) -> None:
+    """Adds one chain launch of ``cfg`` to ``wrapper``'s counts."""
+    wrapper.launches += 1
+    wrapper.diag_launches += int(bool(cfg.with_diagnostics))
+    wrapper.sample_launches += int(bool(cfg.samples))
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -509,17 +598,31 @@ def _raise_on(lib, err: int, what: str) -> None:
 def mcmc_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcConfig, k: int):
     """(values (K,), acceptance (), stderr (K,) or None), float32 tensors
     on the rows' device: the JAX wrapper's math (mcmc_pallas.py:1150-1166,
-    :1286-1324) over CUDA blocks in place of programs."""
-    rows = out.rows
+    :1286-1324) over CUDA blocks in place of programs.  Under error bars
+    or diagnostics the values come from the blocks' centroids, as the JAX
+    kernels' do; :func:`mcmc_diagnostics` gives split-R-hat and ESS.
+    The three rows are taken as a tensor of their own, so the sums run as
+    in a run without diagnostics."""
+    rows = out.rows[:, :3].contiguous()
     tot = rows.sum(dim=0)
     chains = np.float32(grid.chains_actual)
     denom = float(chains * np.float32(cfg.n_steps))
     acceptance = tot[0, k] / denom
-    if not cfg.with_stderr:
+    if not cfg.stat_mode:
         return tot[0, :k] / denom, acceptance, None
     n_b = float(CHAIN_THREADS)
     mb = rows[:, 2, :k]
     values = (n_b * mb).sum(dim=0) / float(chains)
+    if not cfg.with_stderr:
+        return values, acceptance, None
     ss_total = (rows[:, 1, :k] + n_b * (mb - values) ** 2).sum(dim=0)
     var = ss_total / float(max(chains - np.float32(1.0), np.float32(1.0)))
     return values, acceptance, torch.sqrt(var / float(chains))
+
+
+def mcmc_diagnostics(out: McmcOutput, grid: McmcGrid, cfg, k: int):
+    """(r_hat (K,), ess (K,)) float32 of a diagnostics run (any of the
+    three kernels), or None without diagnostics."""
+    if not cfg.with_diagnostics:
+        return None
+    return diag_combine(out.rows, grid.chains_actual, cfg.n_steps, k)

@@ -58,9 +58,16 @@ from .mcmc_kernel import (
     Mode,
     block_rows,
     check_layout,
+    count_launch,
     default_layout,
     layout_source,
+    outputs_source,
+    row_count,
+    sample_args,
+    sample_buffer,
+    with_diag_rows,
 )
+from .mcmc_diagnostics import PhaseOutputs, check_outputs
 from .mcmc_tables import (
     DimTables,
     check_dim_tables,
@@ -101,7 +108,8 @@ class McmcNdConfig:
     ``targ_kinds``: the product target's, or None for a joint log
     density; ``prop_gapped``: per proposal dimension, whether a CUSTOM
     one is drawn from gap-respecting tables (its logq from its log
-    table; else sampler mode), ``()`` for none."""
+    table; else sampler mode), ``()`` for none; ``with_diagnostics`` and
+    ``samples`` as the 1-D config's (``ops/mcmc_kernel.py``)."""
 
     # The path, as messages name it.
     _what = "nd MCMC"
@@ -114,6 +122,8 @@ class McmcNdConfig:
     n_burnin: int
     with_stderr: bool = False
     prop_gapped: Tuple[bool, ...] = ()
+    with_diagnostics: bool = False
+    samples: int = 0
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
@@ -144,11 +154,24 @@ class McmcNdConfig:
             raise ValueError("a product target takes one family per dimension")
         if self.n_steps < 1 or self.n_burnin < 0:
             raise ValueError("n_steps must be positive and n_burnin non-negative")
+        check_outputs(self.n_steps, self.with_diagnostics, self.samples)
+
+    @property
+    def outputs(self):
+        """(diagnostics, draws): what the library compiles in besides the
+        mode and families."""
+        return bool(self.with_diagnostics), bool(self.samples)
+
+    @property
+    def stat_mode(self) -> bool:
+        """Error bars or diagnostics: pilot-shifted sums, values from the
+        blocks' centroids."""
+        return bool(self.with_stderr or self.with_diagnostics)
 
     @property
     def compiled(self):
         """What the CUDA library compiles in: mode, d, the families and
-        the CUSTOM proposal dimensions' routes."""
+        the CUSTOM proposal dimensions' routes (and :attr:`outputs`)."""
         return (self.mode, self.d, self.prop_kinds, self.targ_kinds,
                 self.prop_gapped)
 
@@ -170,7 +193,8 @@ class McmcNdProgram:
     the mode, d and the families (``cfg.compiled``), as the JAX kernel is
     traced per family tuple, so a run's config must have the program's,
     and the :class:`Layout` (``layout``, by default
-    :func:`default_layout`'s for the mode and integrand count)."""
+    :func:`default_layout`'s for the mode and integrand count), and the
+    config's outputs (``cfg.outputs``)."""
 
     kernel_source = "mcmc_nd.cu"
     max_functions = MAX_FUNCTIONS
@@ -209,6 +233,7 @@ class McmcNdProgram:
         self.fns = tuple(fns)
         self.target = target
         self.compiled = cfg.compiled
+        self.outputs = cfg.outputs
         self.layout = self._layout(cfg.mode, layout)
         self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
         self.torch_target = None if target is None else to_torch(target)
@@ -242,6 +267,7 @@ class McmcNdProgram:
             parts.append(cuda_target_source(self.target))
         else:
             parts.append(kinds("TMC_TARG_KINDS", targ_kinds))
+        parts.append(outputs_source(self.outputs))
         return "".join(parts)
 
     def library(self):
@@ -255,9 +281,10 @@ class McmcNdProgram:
             # programs, pilots, stream
             pilots.argtypes = [u, p, p, i, i, p, p]
             # seed word, chain_inputs, host tables, burn-in, steps, chains
-            # per program, chains, pilots, rows, x_final, stream
+            # per program, chains, pilots, rows, x_final, samples, m,
+            # stride, stream
             chain.argtypes = [u, *[p] * len(self.chain_inputs), p,
-                              i, i, i, i, p, p, p, p]
+                              i, i, i, i, p, p, p, p, i, i, p]
             pilots.restype = chain.restype = i
             self._lib = lib
         return self._lib
@@ -372,11 +399,13 @@ def mcmc_nd_reference(
         ]
     logp = lp_t(xs)
     k = len(torch_fns)
-    if cfg.with_stderr:
+    if cfg.stat_mode:
         n_block = float(grid.chains_per_program)
         pilots = [v.sum(dim=(1, 2), keepdim=True) / n_block for v in values(xs)]
     else:
         pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+    outs = PhaseOutputs(cfg.n_steps, cfg.with_diagnostics, cfg.samples, k,
+                        xs[0])
 
     eps = [q1[j] for j in dims]  # the walk's step vector
     log_scale = torch.zeros_like(xs[0])
@@ -416,15 +445,19 @@ def mcmc_nd_reference(
                     _LOG_SCALE_MIN, _LOG_SCALE_MAX,
                 )
             continue
-        accs = [a + (v - p) for a, v, p in zip(accs, values(xs), pilots)]
+        vals = [v - p for v, p in zip(values(xs), pilots)]
+        accs = [a + v for a, v in zip(accs, vals)]
         n_acc = n_acc + accept.to(torch.float32)
+        outs.add(i - cfg.n_burnin, vals, xs)
 
     acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
     chain_pilots = torch.stack(
         [p.expand_as(xs[0]).reshape(-1) for p in pilots], dim=1
     )
     rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
-    return McmcOutput(rows, torch.stack([x.reshape(-1) for x in xs]))
+    return McmcOutput(with_diag_rows(rows, outs, chain_pilots),
+                      torch.stack([x.reshape(-1) for x in xs]),
+                      outs.samples())
 
 
 def mcmc_nd_cuda(
@@ -440,12 +473,15 @@ def mcmc_nd_cuda(
 
     A CUDA ``params`` launches the kernel: ``mcmc_nd_cuda.launches``
     counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
-    the pilot kernel's, which an error-bar run launches first.  A CPU
+    the pilot kernel's, which an error-bar or diagnostics run launches
+    first; ``diag_launches`` and ``sample_launches`` the chain launches
+    with diagnostics and with draws.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if cfg.compiled != program.compiled:
+    if (cfg.compiled, cfg.outputs) != (program.compiled, program.outputs):
         raise ValueError(
-            f"the program was built for {program.compiled}, not {cfg.compiled}"
+            f"the program was built for {program.compiled} with outputs "
+            f"{program.outputs}, not {cfg.compiled} with {cfg.outputs}"
         )
     _check_args(cfg, params, len(program.fns), tables=tables)
     if params.device.type == "cpu":
@@ -463,16 +499,17 @@ def mcmc_nd_cuda(
     dev = params.device
     word = nd_seed_word(seed)
     rows = torch.empty(
-        (grid.chains_actual // CHAIN_THREADS, 3, k + 1),
+        (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
         dtype=torch.float32, device=dev,
     )
     x_final = torch.empty(
         (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
     )
+    samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev)
     pilots = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.with_stderr:
+        if cfg.stat_mode:
             pilots = torch.empty(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
@@ -487,15 +524,18 @@ def mcmc_nd_cuda(
             word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
-            rows.data_ptr(), x_final.data_ptr(), stream,
+            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
+            stream,
         )
         _raise_on(lib, err, "chain")
-    mcmc_nd_cuda.launches += 1
-    return McmcOutput(rows, x_final)
+    count_launch(mcmc_nd_cuda, cfg)
+    return McmcOutput(rows, x_final, samples)
 
 
 mcmc_nd_cuda.launches = 0
 mcmc_nd_cuda.pilot_launches = 0
+mcmc_nd_cuda.diag_launches = 0
+mcmc_nd_cuda.sample_launches = 0
 
 
 def _raise_on(lib, err: int, what: str) -> None:

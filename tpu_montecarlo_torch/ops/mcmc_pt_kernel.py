@@ -33,7 +33,9 @@ libraries can flip a decision.  The parameters are the nd kernel's (d, 6)
 float32 rows (``ops/mcmc_nd_kernel.py``); the ladder is a float32 vector
 of the T betas and the T - 1 pair differences, each rounded from float64
 (:func:`pack_ladder`), so a new ladder needs no new build.  The output
-rows are the 1-D kernel's with one more column, the swap count.
+rows are the 1-D kernel's with one more column, the swap count; the
+diagnostics and the draws (``ops/mcmc_diagnostics.py``) are the cold
+rung's, at its post-swap states.
 
 On the card a chain's rungs run on lanes of a warp, or its whole ladder
 on one thread, as its :class:`PtLayout` says (``csrc/mcmc_pt.cu``); the
@@ -62,8 +64,13 @@ from .mcmc_kernel import (
     McmcOutput,
     Mode,
     block_rows,
+    count_launch,
     mcmc_finish,
+    row_count,
+    sample_args,
+    sample_buffer,
 )
+from .mcmc_diagnostics import PhaseOutputs
 from .mcmc_nd_kernel import (
     _LOG_SCALE_MAX,
     _LOG_SCALE_MIN,
@@ -323,7 +330,7 @@ def mcmc_pt_reference(
         ]
     logp = lp_t(xs)
     k = len(torch_fns)
-    if cfg.with_stderr:
+    if cfg.stat_mode:
         n_block = float(grid.chains_per_program)
         pilots = [
             v.sum(dim=(1, 2), keepdim=True) / n_block
@@ -331,6 +338,8 @@ def mcmc_pt_reference(
         ]
     else:
         pilots = [torch.zeros((grid.programs, 1, 1), device=dev)] * k
+    outs = PhaseOutputs(cfg.n_steps, cfg.with_diagnostics, cfg.samples, k,
+                        xs[0][0])
 
     # Each parity's pairs (t, t+1): the t, the t + 1 and the pairs' beta
     # differences.
@@ -402,7 +411,9 @@ def mcmc_pt_reference(
             continue
         n_acc = n_acc + accept[0].to(torch.float32)
         cold = [x[0] for x in xs]
-        accs = [a + (v - p) for a, v, p in zip(accs, values(cold), pilots)]
+        vals = [v - p for v, p in zip(values(cold), pilots)]
+        accs = [a + v for a, v in zip(accs, vals)]
+        outs.add(i - cfg.n_burnin, vals, cold)
 
     acc = torch.stack([a.reshape(-1) for a in accs], dim=1)
     chain_pilots = torch.stack(
@@ -412,9 +423,12 @@ def mcmc_pt_reference(
     block_swaps = swaps.reshape(-1, CHAIN_THREADS).sum(dim=1)
     swap_col = torch.zeros_like(rows[:, :, :1])
     swap_col[:, 0, 0] = block_swaps
+    rows = torch.cat([rows, swap_col], dim=2)
+    diag = outs.rows(chain_pilots, k + 2)
+    if diag is not None:
+        rows = torch.cat([rows, diag], dim=1)
     return McmcOutput(
-        torch.cat([rows, swap_col], dim=2),
-        torch.stack([x[0].reshape(-1) for x in xs]),
+        rows, torch.stack([x[0].reshape(-1) for x in xs]), outs.samples()
     )
 
 
@@ -432,12 +446,15 @@ def mcmc_pt_cuda(
 
     A CUDA ``params`` launches the kernel: ``mcmc_pt_cuda.launches``
     counts the chain-kernel launches, and ``mcmc_pt_cuda.pilot_launches``
-    the pilot kernel's, which an error-bar run launches first.  A CPU
+    the pilot kernel's, which an error-bar or diagnostics run launches
+    first; ``diag_launches`` and ``sample_launches`` the chain launches
+    with diagnostics and with the cold rung's draws.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if cfg.compiled != program.compiled:
+    if (cfg.compiled, cfg.outputs) != (program.compiled, program.outputs):
         raise ValueError(
-            f"the program was built for {program.compiled}, not {cfg.compiled}"
+            f"the program was built for {program.compiled} with outputs "
+            f"{program.outputs}, not {cfg.compiled} with {cfg.outputs}"
         )
     _check_args(cfg, params, ladder, len(program.fns), tables)
     if params.device.type == "cpu":
@@ -455,16 +472,17 @@ def mcmc_pt_cuda(
     dev = params.device
     word = pt_seed_word(seed)
     rows = torch.empty(
-        (grid.chains_actual // CHAIN_THREADS, 3, k + 2),
+        (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 2),
         dtype=torch.float32, device=dev,
     )
     x_final = torch.empty(
         (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
     )
+    samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev)
     pilots = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.with_stderr:
+        if cfg.stat_mode:
             pilots = torch.empty(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
@@ -480,15 +498,18 @@ def mcmc_pt_cuda(
             cfg.n_burnin, cfg.n_steps, grid.chains_per_program,
             grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
-            rows.data_ptr(), x_final.data_ptr(), stream,
+            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
+            stream,
         )
         _raise_on(lib, err, "chain")
-    mcmc_pt_cuda.launches += 1
-    return McmcOutput(rows, x_final)
+    count_launch(mcmc_pt_cuda, cfg)
+    return McmcOutput(rows, x_final, samples)
 
 
 mcmc_pt_cuda.launches = 0
 mcmc_pt_cuda.pilot_launches = 0
+mcmc_pt_cuda.diag_launches = 0
+mcmc_pt_cuda.sample_launches = 0
 
 
 def _raise_on(lib, err: int, what: str) -> None:

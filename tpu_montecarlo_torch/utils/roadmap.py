@@ -6,27 +6,21 @@ from __future__ import annotations
 __all__ = [
     "API_SURFACE",
     "FRONT_END",
-    "MCMC_DIAGNOSTICS",
     "MCMC_HMC",
-    "MCMC_SAMPLES",
     "MCMC_SERVING",
     "MCMC_STATE",
     "MCMC_TABLES_XLA",
     "MCMC_WIDE",
     "MESH",
     "ND_CV",
-    "ND_MCMC_DIAGNOSTICS",
     "ND_MCMC_HMC",
-    "ND_MCMC_SAMPLES",
     "ND_MCMC_SERVING",
     "ND_MCMC_STATE",
     "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
     "ND_SERVING",
     "ND_WIDE",
-    "PT_DIAGNOSTICS",
     "PT_HMC",
-    "PT_SAMPLES",
     "PT_SERVING",
     "PT_TABLES_XLA",
     "PT_WIDE",
@@ -44,8 +38,6 @@ SERVING = (
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
 MCMC_HMC = "ROADMAP.md, queue 1 item 6.1 (HMC)"
 MCMC_STATE = "ROADMAP.md, queue 1 item 6.2 (MCMC state and resume)"
-MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 6.3 (MCMC diagnostics)"
-MCMC_SAMPLES = "ROADMAP.md, queue 1 item 6.4 (MCMC samples)"
 MCMC_SERVING = "ROADMAP.md, queue 1 item 6.5 (compile_mcmc and batches)"
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
 MCMC_TABLES_XLA = (
@@ -61,8 +53,6 @@ ND_CV = (
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
 ND_MCMC_HMC = "ROADMAP.md, queue 1 item 8.1 (nd HMC)"
-ND_MCMC_SAMPLES = "ROADMAP.md, queue 1 item 8.3 (nd MCMC samples)"
-ND_MCMC_DIAGNOSTICS = "ROADMAP.md, queue 1 item 8.4 (nd MCMC diagnostics)"
 ND_MCMC_STATE = "ROADMAP.md, queue 1 item 8.5 (nd MCMC state and resume)"
 ND_MCMC_SERVING = (
     "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
@@ -77,8 +67,6 @@ ND_MCMC_TABLES_XLA = (
 )
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
 PT_HMC = "ROADMAP.md, queue 1 item 9.1 (tempered HMC)"
-PT_SAMPLES = "ROADMAP.md, queue 1 item 9.3 (tempered cold-rung samples)"
-PT_DIAGNOSTICS = "ROADMAP.md, queue 1 item 9.4 (tempered split-R-hat and ESS)"
 PT_SERVING = (
     "ROADMAP.md, queue 1 item 9.5 (tempered compile_mcmc, seed_batch and "
     "param_batch)"
