@@ -336,6 +336,14 @@ MCMC_CHECK_FNS = [
 ]
 MCMC_MAIN = dict(n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42)
 MCMC_CHECK = dict(n_chains=4096, n_steps=1_000, n_burnin=200)
+# The MCMC cells beside the three main paths (phases 31-33 over tables, 35
+# and 37 over the families, 44-47 with diagnostics and draws, 48-49 under
+# HMC) run, timed and held to their plain versions, at SHORT_MCMC's depth:
+# MCMC_MAIN's chains and burn-in, 2,000 sampling steps where it has
+# 10,000.  At the full depth their eleven plain versions take ~400 s of the
+# script, which must end within 1,200 s on a slow host.  The chain-state
+# phases (50-51) split the main path's own depth into two calls.
+SHORT_MCMC = dict(MCMC_MAIN, n_steps=2_000)
 # Kernel and plain version run the same chain means; their error bars
 # differ by float32 summation order in the block SS, s2 - n_b*mean^2 of
 # pilot-shifted chain means (1.5e-4 relative at the main shape on an H100);
@@ -466,8 +474,8 @@ C9F_FNS = [lambda x, y: x * y]
 C9F_EXACT = [0.0]
 C12D_FNS = [lambda x: x, lambda x: x * x]
 C12D_EXACT = [0.0, 5.0]
-# Split-R-hat, ESS and thinned draws (phases 44-47): the main paths with
-# DRAWS thinned draws; phase 45's slow-mixing run, tests/test_diagnostics.py
+# Split-R-hat, ESS and thinned draws (phases 44-47): the main paths, at
+# SHORT_MCMC's depth, with DRAWS thinned draws; phase 45's slow-mixing run, tests/test_diagnostics.py
 # :33's, whose R-hat must flag it.  Kernel and plain version sum the same
 # half-chain values in other orders: R-hat within rel 1e-4, ESS within rel
 # 1e-3.
@@ -480,6 +488,25 @@ SLOW_FNS = [lambda x: x]
 SLOW_RUN = dict(n_steps=60, n_chains=512, n_burnin=0)
 SLOW_PROPOSAL = (4.0, 0.3)  # N(4, 0.3) for the target N(0, 1)
 R_HAT_RTOL, ESS_RTOL = 1e-4, 1e-3
+# HMC (phases 48-49), the reference's c11 and c11c (benchmarks/run_all.py:
+# 451-505) at SHORT_MCMC's depth, as the other cells beside the main
+# paths: (functions, step, exact value) of [x*x] on N(0, 1) and [x] on the
+# Beta(2, 5) table target under HMC(step, n_leapfrog=8, adapt=True); the
+# value within the reference's MCMC tolerance, 0.1 (BASELINE.md:
+# tests/test_mcmc.py:88-148), and the kernel held chain for chain against
+# its plain version at the shape it is timed at, no chain split.  Each cell
+# is also timed at the groups of HMC_GROUPS (Layout(1, group)).
+HMC_LEAPFROG = 8
+HMC_CELLS = {"c11": ([lambda x: x * x], 0.9, 1.0),
+             "c11c": ([lambda x: x], 0.05, 2.0 / 7.0)}
+HMC_TOL = 0.1
+HMC_GROUPS = (1, 2, 4, 8)
+# Chain state (phases 50-51): c5b and c9e run as two calls of STATE_STEPS
+# steps (return_state, then initial_state); the two calls' mean within
+# STATE_Z standard errors of the one-call run's (times sqrt 2: the second
+# halves draw other streams).
+STATE_STEPS = MCMC_MAIN["n_steps"] // 2
+STATE_Z = 6.0
 # The seven extended families (phases 34-38): each family's arguments, as
 # the kernel tests use them.  Phase 34 runs the bench set under each in
 # every 1-D mode at MODE_CHECK_SAMPLES and in mc at MODE_SAMPLES.
@@ -489,8 +516,8 @@ FAMILY_ARGS = {
     "pareto": (1.0, 3.0),
 }
 EULER_GAMMA = 0.5772156649015329
-# Phase 35, c5b's shape with a family target and proposal: Laplace(3, 1)
-# under Logistic(0, 2); E[x] = 3, E[x^2] = 3^2 + 2.
+# Phase 35, c5b's chains and burn-in with a family target and proposal:
+# Laplace(3, 1) under Logistic(0, 2); E[x] = 3, E[x^2] = 3^2 + 2.
 FAM_C5B_FNS = [lambda x: x, lambda x: x * x]
 FAM_C5B_EXACT = [3.0, 11.0]
 # Phase 36, c9's shape (2^30) over Lognormal(0, 0.5) x Gumbel(1, 0.5):
@@ -502,7 +529,7 @@ _GUMBEL_M2 = 0.25 * math.pi ** 2 / 6.0 + _GUMBEL_M1 ** 2
 FAM_C9_MEANS = [math.exp(0.125) * _GUMBEL_M1, math.exp(0.5) + _GUMBEL_M1]
 FAM_C9_VARS = [math.exp(0.5) * _GUMBEL_M2 - FAM_C9_MEANS[0] ** 2,
                math.exp(2.0) - math.exp(1.0) + 0.25 * math.pi ** 2 / 6.0]
-# Phase 37: c9e's shape over a product of family dimensions, Laplace(3, 1)
+# Phase 37: c9e's chains over a product of family dimensions, Laplace(3, 1)
 # x Gumbel(1, 0.5) under Logistic(3, 1) x Gumbel(1, 0.8), E[xy] =
 # 3 (1 + gamma / 2), E[x + y] = 4 + gamma / 2; and c12's ladder and walk on
 # a family target, Laplace(3, 1): E[x] = 3, E[x^2] = 11.
@@ -1328,6 +1355,7 @@ def main() -> int:
             pilot_row,
             )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
+            ChainStart,
             Layout,
             McmcConfig,
             McmcProgram,
@@ -1713,7 +1741,7 @@ def main() -> int:
     }
     custom_mcmc_main = {
         name: custom_mcmc_setup(fns, target, proposal, temps,
-                                MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"],
+                                SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"],
                                 True)
         for name, (fns, target, proposal, temps, _) in custom_mcmc_cells.items()
     }
@@ -1787,8 +1815,8 @@ def main() -> int:
     }
     family_mcmc_main = {
         name: custom_mcmc_setup(fns, target, proposal, temps,
-                                MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"],
-                                True)
+                                SHORT_MCMC["n_steps"],
+                                SHORT_MCMC["n_burnin"], True)
         for name, (fns, target, proposal, temps, _)
         in family_mcmc_cells.items()
     }
@@ -1970,7 +1998,7 @@ def main() -> int:
     # programs from the cache); the slow-mixing run's; c12's ladder layout
     # with both.
     c5b_out = integ._mcmc_kernel_program(
-        mcmc_traced, n01, n02, MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"],
+        mcmc_traced, n01, n02, SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"],
         True, True, DRAWS)
     slow_out = integ._mcmc_kernel_program(
         integ._trace_user_functions(SLOW_FNS), n01,
@@ -1980,11 +2008,11 @@ def main() -> int:
     c9e_out = integ._nd_mcmc_kernel_program(
         c9e_fns_, c9e_proposal_,
         integ._parse_nd_mcmc_args(c9e_target_, c9e_proposal_),
-        MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True, True, DRAWS)
+        SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"], True, True, DRAWS)
     c12_parsed = integ._parse_nd_mcmc_args(logmix, c12_walk)
     c12_out = integ._pt_kernel_program(
         PT_FNS, c12_walk, c12_parsed, tuple(1.0 / t for t in PT_LADDER),
-        MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"], True, True, DRAWS)
+        SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"], True, True, DRAWS)
     c12_ladder_out = McmcPtProgram(c12_out[0].fns, c12_out[1],
                                    c12_out[0].target, layout=LADDER_LAYOUT)
     outputs_builds = [
@@ -1992,6 +2020,40 @@ def main() -> int:
             lambda: c5b_out[0].library(c5b_out[1]),
             lambda: slow_out[0].library(slow_out[1]),
             c9e_out[0].library, c12_out[0].library, c12_ladder_out.library]]
+    # HMC and chain state (phases 48-51): c11 and c11c as their public calls
+    # build them, and at the other groups of HMC_GROUPS; c5b's and c9e's
+    # two-call runs, fresh (with_state) and resumed (use_init_state).
+    hmc_out = {}
+    for name, (fns, step, _) in HMC_CELLS.items():
+        hmc_ = tm.HMC(step_size=step, n_leapfrog=HMC_LEAPFROG, adapt=True)
+        target_ = n01 if name == "c11" else beta25
+        prog, cfg, params, tabs = integ._mcmc_kernel_program(
+            integ._trace_user_functions(fns), target_, hmc_,
+            SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"], False)
+        group = prog.layout_for(cfg).group
+        hmc_out[name] = dict(
+            fns=fns, target=target_, hmc=hmc_, program=prog, cfg=cfg,
+            params=params, tables=tabs,
+            layouts={g: prog if g == group else McmcProgram(
+                prog.fns, layout=Layout(1, g)) for g in HMC_GROUPS})
+    c9e_parsed = integ._parse_nd_mcmc_args(c9e_target_, c9e_proposal_)
+    state_out = {}
+    for resume in (False, True):
+        burn = 0 if resume else MCMC_MAIN["n_burnin"]
+        state_out["c5b", resume] = integ._mcmc_kernel_program(
+            mcmc_traced, n01, n02, STATE_STEPS, burn, False,
+            with_state=True, use_init_state=resume)
+        state_out["c9e", resume] = integ._nd_mcmc_kernel_program(
+            c9e_fns_, c9e_proposal_, c9e_parsed, STATE_STEPS, burn, False,
+            with_state=True, use_init_state=resume)
+    hmc_state_builds = [
+        pool.submit(timed_build, build) for build in [
+            *(lambda p=p, c=o["cfg"]: p.library(c)
+              for o in hmc_out.values() for p in o["layouts"].values()),
+            *(lambda o=o: o[0].library(o[1])
+              for key, o in state_out.items() if key[0] == "c5b"),
+            *(o[0].library for key, o in state_out.items()
+              if key[0] == "c9e")]]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -2147,7 +2209,10 @@ def main() -> int:
         )
         v_k, a_k, s_k = mcmc_finish(got, grid, cfg, k)
         v_p, a_p, s_p = mcmc_finish(want, grid, cfg, k)
-        _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
+        # Every block carries its SS and centroid rows: the error bars of
+        # a run of any config (a stateful one's as stateless).
+        _, _, se = mcmc_finish(want, grid, replace(
+            cfg, with_stderr=True, with_state=False, use_init_state=False), k)
         v_k, v_p, se = (t.double().cpu().numpy() for t in (v_k, v_p, se))
         err = np.abs(v_k - v_p)
         print(f"phase {phase}: kernel {v_k} acc {float(a_k):.6f}")
@@ -3096,23 +3161,26 @@ def main() -> int:
     # proposal every load is x-free; under a walk the target's two loads
     # sit on the carried chain, whose latency bound counts 4 clocks per
     # dependent instruction and none for a load.
-    def mcmc_cell(phase, name, cell, setup, tolerance=None):
-        """One MCMC main-shape cell through its public call and against
-        its plain version, timed and bounded; returns its record."""
+    def mcmc_cell(phase, name, cell, setup, tolerance=None, shape=MCMC_MAIN):
+        """One MCMC cell of ``shape`` (MCMC_MAIN's unless given) through
+        its public call and against its plain version, timed and bounded;
+        returns its record."""
         fns, target, proposal, temps, exact = cell
+        depth = shape["n_steps"] + shape["n_burnin"]
+        c_steps = shape["n_chains"] * depth
         wrapper, cfg, k = setup["wrapper"], setup["cfg"], setup["k"]
         extra = {} if temps is None else {"temperatures": temps}
 
         def call(fns=fns, target=target, proposal=proposal, extra=extra):
             return tm.integrate_mcmc(fns, target, proposal, return_stderr=True,
-                                     **extra, **MCMC_MAIN)
+                                     **extra, **shape)
 
         wrapper.launches = wrapper.pilot_launches = 0
         t0 = time.perf_counter()
         r = call()
         main_s = time.perf_counter() - t0
         launches_c = wrapper.launches, wrapper.pilot_launches
-        print(f"phase {phase}: {name}, integrate_mcmc({MCMC_MAIN}, "
+        print(f"phase {phase}: {name}, integrate_mcmc({shape}, "
               f"return_stderr=True{', temperatures=' + str(temps) if temps else ''})"
               f" in {main_s:.3f} s (host clock), {launches_c[0]} chain "
               f"kernel and {launches_c[1]} pilot kernel launch(es)")
@@ -3154,9 +3222,9 @@ def main() -> int:
         rungs = 1 if temps is None else cfg.n_temps
         print(f"phase {phase}: {main_grid.chains_actual} chains"
               f"{'' if temps is None else f' x {rungs} rungs'} x "
-              f"({MCMC_MAIN['n_burnin']} + {MCMC_MAIN['n_steps']}) steps, "
+              f"({shape['n_burnin']} + {shape['n_steps']}) steps, "
               f"{name}, stderr, on {card}: kernel {ms_c:.3f} ms "
-              f"({chain_steps / ms_c * 1e3:.4e} chain-steps/s), plain "
+              f"({c_steps / ms_c * 1e3:.4e} chain-steps/s), plain "
               f"{plain_ms_c:.3f} ms, integrate_mcmc() end to end "
               f"{call_ms:.3f} ms median of 5, host clock")
         mhz = clock_under_load(lambda s=setup: s["kernel"](main_grid), ms_c)
@@ -3167,9 +3235,9 @@ def main() -> int:
                     mcmc_pt_cuda: "mcmc_pt_kernel"}[wrapper]
         bound_c = card_bound(
             custom_mcmc_library(setup, bound=True), function, conversions,
-            chain_steps, mhz,
+            c_steps, mhz,
             warps=function_warps(cfg.mode, main_grid.chains_actual, rungs),
-            weights=(MCMC_MAIN["n_steps"], MCMC_MAIN["n_burnin"]))
+            weights=(shape["n_steps"], shape["n_burnin"]))
         print_bound(bound_c, mhz, "chain-step")
         roles = cfg.roles  # per dimension but on the 1-D kernel
         tables = (any(roles) if wrapper is mcmc_cuda
@@ -3178,11 +3246,11 @@ def main() -> int:
               " build of the same program"
               + ("; the table loads are left out of both bounds)"
                  if tables else ")"))
-        latency_c = print_latency(bound_c, steps, mhz)
+        latency_c = print_latency(bound_c, depth, mhz)
         print(f"  {name}:", end="")
         return {
             "launches": launches_c[0], "pilot_launches": launches_c[1],
-            "max_abs_err": err, "ms": ms_c,
+            "n_steps": shape["n_steps"], "max_abs_err": err, "ms": ms_c,
             "plain_ms": plain_ms_c, "call_ms": call_ms,
             "bound_ms": max(bound_c[0], latency_c), "bound_by": "operations",
             "bound_pipe": bound_c[1], "pipe_bound_ms": bound_c[0],
@@ -3198,7 +3266,7 @@ def main() -> int:
     for phase, (name, cell) in zip((31, 32, 33), custom_mcmc_cells.items()):
         custom_mcmc[name] = mcmc_cell(
             phase, name, cell, custom_mcmc_main[name],
-            C5_TOLERANCE if name == "config5" else None)
+            C5_TOLERANCE if name == "config5" else None, shape=SHORT_MCMC)
         custom_mcmc[name]["max_abs_err"] = max(
             custom_mcmc[name]["max_abs_err"], custom_mcmc_err)
 
@@ -3267,7 +3335,8 @@ def main() -> int:
     family_mcmc = {
         "c5b_family": mcmc_cell(35, "c5b_family",
                                 family_mcmc_cells["c5b_family"],
-                                family_mcmc_main["c5b_family"])}
+                                family_mcmc_main["c5b_family"],
+                                shape=SHORT_MCMC)}
 
     # 36. The nd kernel over family dimensions: every family against the
     # plain version at 2**24 in mc, antithetic and qmc; then c9's shape
@@ -3334,7 +3403,8 @@ def main() -> int:
     family_mcmc_err = max(family_mcmc_err, family_checks("37", False))
     for name, phase in (("c9e_family", 37), ("c12_family", 37)):
         family_mcmc[name] = mcmc_cell(phase, name, family_mcmc_cells[name],
-                                      family_mcmc_main[name])
+                                      family_mcmc_main[name],
+                                      shape=SHORT_MCMC)
     for rec in family_mcmc.values():
         rec["max_abs_err"] = max(rec["max_abs_err"], family_mcmc_err)
 
@@ -3621,7 +3691,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     mcmc_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
-    stride = MCMC_MAIN["n_steps"] // DRAWS
+    stride = SHORT_MCMC["n_steps"] // DRAWS
 
     def outputs_vs_plain(got, want, grid, cfg, k, phase, max_split=0.0):
         """Phase 7's checks of two runs of the same chains, then R-hat
@@ -3743,7 +3813,7 @@ def main() -> int:
 
     def c5b_call(**extra):
         return tm.integrate_mcmc(MCMC_MAIN_FNS, n01, n02, return_stderr=True,
-                                 **extra, **MCMC_MAIN)
+                                 **extra, **SHORT_MCMC)
 
     for c in ("launches", "pilot_launches", "diag_launches",
               "sample_launches"):
@@ -3754,7 +3824,7 @@ def main() -> int:
     counts = {c: getattr(mcmc_cuda, c) for c in (
         "launches", "pilot_launches", "diag_launches", "sample_launches")}
     rh = r.diagnostics["r_hat"]
-    print(f"phase 44: integrate_mcmc([x*x], N(0,1), N(0,2), {MCMC_MAIN}, "
+    print(f"phase 44: integrate_mcmc([x*x], N(0,1), N(0,2), {SHORT_MCMC}, "
           f"return_stderr=True, return_diagnostics=True, return_samples="
           f"{DRAWS}) in {main_s:.3f} s (host clock), launches {counts}; "
           f"E[x^2] = {r.values[0]:.6f} +- {r.stderr[0]:.6f}, r_hat {rh}, "
@@ -3777,11 +3847,12 @@ def main() -> int:
     want, plain_ms_o = timed_plain(lambda: mcmc_reference(
         o_prog.torch_fns, o_cfg, o_params, SEED, mcmc_grid))
     errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 1, "44")
-    bare = mcmc_cuda(mcmc_program, mcmc_main_cfg, o_params, SEED, mcmc_grid)
+    short_cfg = replace(mcmc_main_cfg, n_steps=SHORT_MCMC["n_steps"])
+    bare = mcmc_cuda(mcmc_program, short_cfg, o_params, SEED, mcmc_grid)
     unchanged(got, bare, "44")
     times = outputs_times(
         lambda: mcmc_cuda(o_prog, o_cfg, o_params, SEED, mcmc_grid),
-        lambda: mcmc_cuda(mcmc_program, mcmc_main_cfg, o_params, SEED,
+        lambda: mcmc_cuda(mcmc_program, short_cfg, o_params, SEED,
                           mcmc_grid))
     rem_errs = remainder_check(
         lambda c, g: mcmc_cuda(o_prog, c, o_params, SEED, g),
@@ -3799,7 +3870,7 @@ def main() -> int:
                            remainder_split_draws=rem_errs[3],
                            plain_ms=plain_ms_o, call_ms=call_ms,
                            idle_share=idle, draws=DRAWS, r_hat=rh.tolist(),
-                           **times)
+                           n_steps=SHORT_MCMC["n_steps"], **times)
     print(f"phase 44: c5b on {card}: kernel with both outputs "
           f"{times['ms']:.4f} ms, without them "
           f"{times['ms_without']:.4f} ms; plain {plain_ms_o:.3f} ms; warm call with both "
@@ -3831,7 +3902,7 @@ def main() -> int:
 
     def c9e_call(**extra):
         return tm.integrate_mcmc(c9e_fns_, c9e_target_, c9e_proposal_,
-                                 return_stderr=True, **extra, **MCMC_MAIN)
+                                 return_stderr=True, **extra, **SHORT_MCMC)
 
     for c in ("launches", "pilot_launches", "diag_launches",
               "sample_launches"):
@@ -3842,7 +3913,7 @@ def main() -> int:
     rh = r.diagnostics["r_hat"]
     s = r.samples
     corr = float(np.corrcoef(s[..., 0].ravel(), s[..., 1].ravel())[0, 1])
-    print(f"phase 46: c9e, integrate_mcmc({MCMC_MAIN}, return_stderr=True, "
+    print(f"phase 46: c9e, integrate_mcmc({SHORT_MCMC}, return_stderr=True, "
           f"return_diagnostics=True, return_samples={DRAWS}), launches "
           f"{counts}; E[xy] = {r.values[0]:.6f} +- {r.stderr[0]:.6f}, r_hat "
           f"{rh}, ess {r.diagnostics['ess']}, samples {s.shape}, their x-y "
@@ -3868,6 +3939,7 @@ def main() -> int:
         mcmc_grid))
     errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 1, "46")
     b_prog, b_cfg, b_params = nd_mcmc_main["c9e"]
+    b_cfg = replace(b_cfg, n_steps=SHORT_MCMC["n_steps"])
     bare = mcmc_nd_cuda(b_prog, b_cfg, b_params, SEED, mcmc_grid)
     unchanged(got, bare, "46")
     times = outputs_times(
@@ -3890,7 +3962,7 @@ def main() -> int:
                               remainder_split_draws=rem_errs[3],
                               plain_ms=plain_ms_o,
                               call_ms=call_ms, idle_share=idle, draws=DRAWS,
-                              r_hat=rh.tolist(),
+                              r_hat=rh.tolist(), n_steps=SHORT_MCMC["n_steps"],
                               draws_xy_correlation=corr, **times)
     print(f"phase 46: c9e on {card}: kernel with both outputs "
           f"{times['ms']:.4f} ms, without them "
@@ -3905,7 +3977,7 @@ def main() -> int:
     def c12_call(**extra):
         return tm.integrate_mcmc(PT_FNS, logmix, c12_walk,
                                  temperatures=PT_LADDER, return_stderr=True,
-                                 **extra, **MCMC_MAIN)
+                                 **extra, **SHORT_MCMC)
 
     for c in ("launches", "pilot_launches", "diag_launches",
               "sample_launches"):
@@ -3917,7 +3989,7 @@ def main() -> int:
     s = r.samples
     right = float(np.mean(s > 0.0))
     print(f"phase 47: c12, integrate_mcmc([x, x*x], logmix, temperatures="
-          f"{PT_LADDER}, {MCMC_MAIN}, return_stderr=True, "
+          f"{PT_LADDER}, {SHORT_MCMC}, return_stderr=True, "
           f"return_diagnostics=True, return_samples={DRAWS}), launches "
           f"{counts}; values {r.values} +- {r.stderr}, r_hat {rh}, ess "
           f"{r.diagnostics['ess']}, swap rate {r.diagnostics['swap_rate']}, "
@@ -3946,6 +4018,7 @@ def main() -> int:
     errs = outputs_vs_plain(got, want, mcmc_grid, o_cfg, 2, "47",
                             max_split=0.01)
     b_prog, b_cfg, b_params, b_ladder = pt_main["c12"]
+    b_cfg = replace(b_cfg, n_steps=SHORT_MCMC["n_steps"])
     bare = mcmc_pt_cuda(b_prog, b_cfg, b_params, b_ladder, SEED, mcmc_grid)
     unchanged(got, bare, "47")
     times = outputs_times(
@@ -3979,6 +4052,7 @@ def main() -> int:
         ladder_split_draws=l_errs[3], plain_ms=plain_ms_o, call_ms=call_ms,
         idle_share=idle,
         draws=DRAWS, r_hat=rh.tolist(), draws_right_share=right,
+        n_steps=SHORT_MCMC["n_steps"],
         layout=list(o_prog.layout), **times)
     print(f"phase 47: c12 on {card}: kernel with both outputs "
           f"{times['ms']:.4f} ms, without them "
@@ -3987,6 +4061,191 @@ def main() -> int:
           f"{time.perf_counter() - t47:.1f} s")
     print(f"phases 44-47 (MCMC diagnostics and draws) took "
           f"{time.perf_counter() - t_outputs:.1f} s")
+
+    # 48-49. HMC, c11 and c11c: the libraries started in phase 2; each
+    # main path through the public API, counted and gated; its kernel
+    # against its plain version at SHORT_MCMC's shape, both timed there:
+    # the kernel's time at each group, its bounds, the warm call and its
+    # idle share, gradient evaluations per second.
+    t_hmc = time.perf_counter()
+    built = [b.result() for b in hmc_state_builds]
+    print(f"phase 48: built the HMC and chain-state libraries ({len(built)}: "
+          "c11 and c11c at each group, c5b's and c9e's fresh and resumed), "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for name, o in hmc_out.items():
+        for line in o["program"].library(o["cfg"]).build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}): {line.strip()}")
+    hmc_depth = SHORT_MCMC["n_steps"] + SHORT_MCMC["n_burnin"]
+    hmc_chain_steps = mcmc_grid.chains_actual * hmc_depth
+    hmc = {}
+    for phase, (name, o) in zip(("48", "49"), hmc_out.items()):
+        h_prog, h_cfg, h_params, h_tabs = (
+            o[k] for k in ("program", "cfg", "params", "tables"))
+        fns, _, exact = HMC_CELLS[name]
+
+        def hmc_call(o=o, fns=fns):
+            return tm.integrate_mcmc(fns, o["target"], o["hmc"], **SHORT_MCMC)
+
+        for c in ("launches", "hmc_launches"):
+            setattr(mcmc_cuda, c, 0)
+        t0 = time.perf_counter()
+        r = hmc_call()
+        main_s = time.perf_counter() - t0
+        counts = {c: getattr(mcmc_cuda, c) for c in ("launches",
+                                                     "hmc_launches")}
+        value = float(r.values[0])
+        print(f"phase {phase}: {name}, integrate_mcmc("
+              f"{'[x*x], N(0,1)' if name == 'c11' else '[x], Beta(2,5)'}, "
+              f"{o['hmc']!r}, {SHORT_MCMC}) in {main_s:.3f} s (host clock), "
+              f"launches {counts}; value {value:.6f} (exact {exact:.6f}), "
+              f"acceptance {r.acceptance_rate:.4f}")
+        if counts["hmc_launches"] < 1:
+            fail(f"phase {phase}: {name} did not launch the HMC kernel")
+        if not (math.isfinite(value) and abs(value - exact) <= HMC_TOL):
+            fail(f"phase {phase}: {name}'s value is not within {HMC_TOL} of "
+                 f"{exact}")
+        got = mcmc_cuda(h_prog, h_cfg, h_params, SEED, mcmc_grid, h_tabs)
+        want, plain_ms_h = timed_plain(lambda: mcmc_reference(
+            h_prog.torch_fns, h_cfg, h_params, SEED, mcmc_grid, h_tabs))
+        err = chains_agree(got, want, mcmc_grid, h_cfg, len(fns), phase)
+        group_ms = {g: time_ms(lambda p=p: mcmc_cuda(
+            p, h_cfg, h_params, SEED, mcmc_grid, h_tabs), reps=5)
+                    for g, p in o["layouts"].items()}
+        h_ms = time_ms(lambda: mcmc_cuda(h_prog, h_cfg, h_params, SEED,
+                                       mcmc_grid, h_tabs), reps=10)
+        layout = h_prog.layout_for(h_cfg)
+        print(f"phase {phase}: {name} on {card}: kernel {h_ms:.4f} ms at "
+              f"{mcmc_grid.chains_actual} x ({SHORT_MCMC['n_burnin']} + "
+              f"{SHORT_MCMC['n_steps']}), layout {tuple(layout)}; by group "
+              + ", ".join(f"{g}: {t:.4f} ms" for g, t in group_ms.items())
+              + f"; plain {plain_ms_h:.3f} ms")
+        mhz = clock_under_load(lambda: mcmc_cuda(
+            h_prog, h_cfg, h_params, SEED, mcmc_grid, h_tabs), h_ms)
+        bound = card_bound(
+            h_prog.library(h_cfg), "mcmc_kernel", 2, hmc_chain_steps, mhz,
+            warps=function_warps(h_cfg.mode, mcmc_grid.chains_actual),
+            weights=(SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"]))
+        print_bound(bound, mhz, "chain-step")
+        latency = print_latency(bound, hmc_depth, mhz)
+        call_ms = warm_call_ms(hmc_call)
+        print(f"  {name}, warm call {call_ms:.3f} ms median of 3 (host "
+              "clock):", end="")
+        idle = idle_share(hmc_call)
+        grads = hmc_chain_steps * HMC_LEAPFROG / (h_ms * 1e-3)
+        print(f"  {name}: {grads:.4e} gradient evaluations per second (L = "
+              f"{HMC_LEAPFROG} per chain-step)")
+        hmc[name] = dict(
+            counts, value=value, acceptance=float(r.acceptance_rate),
+            n_steps=SHORT_MCMC["n_steps"], max_abs_err=err, ms=h_ms,
+            plain_ms=plain_ms_h, bound_ms=max(bound[0], latency),
+            bound_by="operations", bound_pipe=bound[1],
+            pipe_bound_ms=bound[0], issue_ms=bound[2], latency_ms=latency,
+            call_ms=call_ms, idle_share=idle, grad_evals_per_s=grads,
+            layout=list(layout), group_ms=group_ms)
+    print(f"phases 48-49 (HMC) took {time.perf_counter() - t_hmc:.1f} s")
+
+    # 50-51. Chain state: c5b and c9e as two public calls of STATE_STEPS
+    # steps (return_state, then initial_state), counted and held
+    # statistically against their one-call runs; segment 0's kernel
+    # against the stateless kernel bit for bit; the resumed segment's
+    # kernel against its plain version from the same start.
+    t_state = time.perf_counter()
+    state = {}
+    for phase, name in (("50", "c5b"), ("51", "c9e")):
+        nd = name == "c9e"
+        wrapper = mcmc_nd_cuda if nd else mcmc_cuda
+        half = dict(MCMC_MAIN, n_steps=STATE_STEPS)
+        fns, target_, proposal_ = ((c9e_fns_, c9e_target_, c9e_proposal_)
+                                   if nd else (MCMC_MAIN_FNS, n01, n02))
+        for c in ("launches", "state_launches"):
+            setattr(wrapper, c, 0)
+        r1 = tm.integrate_mcmc(fns, target_, proposal_, return_state=True,
+                               **half)
+        r2 = tm.integrate_mcmc(fns, target_, proposal_, return_state=True,
+                               initial_state=r1.chain_state,
+                               **dict(half, n_burnin=0))
+        counts = {c: getattr(wrapper, c) for c in ("launches",
+                                                   "state_launches")}
+        one = tm.integrate_mcmc(fns, target_, proposal_, return_stderr=True,
+                                **MCMC_MAIN)
+        two = 0.5 * (float(r1.values[0]) + float(r2.values[0]))
+        z = (two - float(one.values[0])) / (float(one.stderr[0])
+                                            * math.sqrt(2.0))
+        st = r2.chain_state
+        print(f"phase {phase}: {name} as two calls of {half}, return_state "
+              f"then initial_state: launches {counts}; values "
+              f"{float(r1.values[0]):.6f}, {float(r2.values[0]):.6f}, their "
+              f"mean {two:.6f}, one call {float(one.values[0]):.6f} +- "
+              f"{float(one.stderr[0]):.6f} (z = {z:+.2f}); state x "
+              f"{st.x.shape}, segment {st.segment}")
+        if counts["state_launches"] < 2:
+            fail(f"phase {phase}: {name}'s calls did not launch the stateful "
+                 "kernel")
+        if not (st.segment == 1 and np.isfinite(st.x).all()
+                and np.isfinite(st.log_p).all()
+                and st.x.shape[-1] == mcmc_grid.chains_actual):
+            fail(f"phase {phase}: bad chain state {st!r}")
+        if abs(z) > STATE_Z:
+            fail(f"phase {phase}: the two calls' mean is {z:+.2f} standard "
+                 "errors from the one call's")
+        (p0, c0, s_params, *_), (p1, c1, *_) = (state_out[name, False],
+                                                state_out[name, True])
+        if nd:
+            b_prog, b_cfg, _ = nd_mcmc_main["c9e"]
+            fresh = lambda: mcmc_nd_cuda(p0, c0, s_params, SEED, mcmc_grid)
+            bare_run = lambda: mcmc_nd_cuda(
+                b_prog, replace(b_cfg, with_stderr=False,
+                                n_steps=STATE_STEPS), s_params, SEED,
+                mcmc_grid)
+        else:
+            fresh = lambda: mcmc_cuda(p0, c0, s_params, SEED, mcmc_grid)
+            bare_run = lambda: mcmc_cuda(
+                mcmc_program, replace(mcmc_main_cfg, with_stderr=False,
+                                      n_steps=STATE_STEPS), s_params, SEED,
+                mcmc_grid)
+        got0, bare = fresh(), bare_run()
+        same = (torch.equal(got0.rows, bare.rows)
+                and torch.equal(got0.x_final, bare.x_final))
+        print(f"phase {phase}: segment 0 against the stateless kernel, bit "
+              f"for bit: {same}")
+        if not same:
+            fail(f"phase {phase}: {name}'s segment 0 is not the stateless "
+                 "run")
+        start = ChainStart(got0.x_final, got0.logp_final)
+        if nd:
+            resumed = lambda: mcmc_nd_cuda(p1, c1, s_params, SEED, mcmc_grid,
+                                           None, 1, start)
+            plain = lambda: mcmc_nd_reference(
+                p1.torch_fns, p1.torch_target, c1, s_params, SEED, mcmc_grid,
+                None, 1, start)
+        else:
+            resumed = lambda: mcmc_cuda(p1, c1, s_params, SEED, mcmc_grid,
+                                        None, 1, start)
+            plain = lambda: mcmc_reference(p1.torch_fns, c1, s_params, SEED,
+                                           mcmc_grid, None, 1, start)
+        got1 = resumed()
+        want1, plain_ms_s = timed_plain(plain)
+        err = chains_agree(got1, want1, mcmc_grid, c1, len(fns), phase)
+        logp_err = float((got1.logp_final - want1.logp_final).abs().max())
+        print(f"         final log densities: max |kernel - plain| "
+              f"{logp_err:.3e}")
+        if not logp_err <= 1e-4:
+            fail(f"phase {phase}: the final log densities disagree")
+        times = {"fresh_ms": time_ms(fresh, reps=10),
+                 "ms": time_ms(resumed, reps=10),
+                 "stateless_ms": time_ms(bare_run, reps=10)}
+        print(f"phase {phase}: {name} on {card}: {mcmc_grid.chains_actual} "
+              f"chains, kernel fresh ({MCMC_MAIN['n_burnin']} + {STATE_STEPS}) "
+              f"{times['fresh_ms']:.4f} ms, stateless {times['stateless_ms']:.4f}"
+              f" ms; resumed (0 + {STATE_STEPS}) {times['ms']:.4f} ms, plain "
+              f"{plain_ms_s:.3f} ms")
+        state[name] = dict(counts, max_abs_err=err, logp_max_abs_err=logp_err,
+                           two_call_mean=two, one_call=float(one.values[0]),
+                           z=z, plain_ms=plain_ms_s, **times)
+    print(f"phases 50-51 (chain state) took "
+          f"{time.perf_counter() - t_state:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "integrate",
@@ -4032,6 +4291,8 @@ def main() -> int:
         "custom": {"config5": custom_mcmc["config5"]},
         "families": {"c5b_family": family_mcmc["c5b_family"]},
         "outputs": outputs["mcmc"],
+        "hmc": hmc,
+        "state": state["c5b"],
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -4087,6 +4348,7 @@ def main() -> int:
         "custom": {"c9f": custom_mcmc["c9f"]},
         "families": {"c9e_family": family_mcmc["c9e_family"]},
         "outputs": outputs["mcmc_nd"],
+        "state": state["c9e"],
     }, {
         "name": "mcmc_pt",
         "route": "cuda",

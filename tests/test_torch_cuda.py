@@ -20,6 +20,7 @@ from dataclasses import replace
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo_torch as tm
 from tpu_montecarlo_torch.ops.integrate_kernel import (
@@ -30,6 +31,7 @@ from tpu_montecarlo_torch.ops.integrate_kernel import (
     plan_grid,
 )
 from tpu_montecarlo_torch.ops.mcmc_kernel import (
+    ChainStart,
     Layout,
     McmcConfig,
     McmcGrid,
@@ -2222,3 +2224,252 @@ def test_mcmc_outputs_kernel_matches_plain_version(cuda_device, output_libraries
     s_p = want.samples.reshape(OUT_DRAWS, -1, grid.chains_actual).cpu()
     split = ((s_k - s_p).abs() > 1e-3 * (1.0 + s_p.abs())).any(dim=1)
     assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%}"
+
+
+# -- HMC and chain state in the 1-D and nd MCMC kernels ------------------------
+#
+# HMC runs the walk's draws through the leapfrog (csrc/log_pdf_grad.cuh),
+# so kernel and plain version run the same chains as for the walks: at most
+# 1% of the chains split (check_public_mcmc's tolerances; on an H100, c11
+# and c11c split none at this shape).  A stateful run at segment 0 is the
+# stateless run's kernel bit for bit; a resumed segment is held to its
+# plain version from the same start, its final log densities within rel
+# 1e-5 where the chains agree.
+HMC_CASES = {
+    # name: (target, HMC arguments)
+    "c11": (("normal", 0.0, 1.0), dict(step_size=0.9, n_leapfrog=8, adapt=True)),
+    "c11c": ("beta", dict(step_size=0.05, n_leapfrog=8, adapt=True)),
+    "normal-fixed": (("normal", 0.5, 1.5), dict(step_size=0.3, n_leapfrog=5)),
+    "uniform": (("uniform", -1.0, 2.5), dict(step_size=0.4, n_leapfrog=4)),
+    "exponential": (("exponential", 2.0), dict(step_size=0.1, n_leapfrog=8)),
+    "lognormal": (("lognormal", 0.0, 0.5), dict(step_size=0.1, n_leapfrog=6)),
+    "cauchy": (("cauchy", 0.0, 1.0), dict(step_size=0.5, n_leapfrog=4)),
+    "laplace": (("laplace", 3.0, 1.0), dict(step_size=0.5, n_leapfrog=6)),
+    "logistic": (("logistic", 0.0, 2.0),
+                 dict(step_size=1.0, n_leapfrog=5, adapt=True)),
+    "gumbel": (("gumbel", 1.0, 0.5), dict(step_size=0.2, n_leapfrog=4)),
+    "weibull": (("weibull", 1.5, 2.0), dict(step_size=0.2, n_leapfrog=5)),
+    "pareto": (("pareto", 1.0, 3.0), dict(step_size=0.05, n_leapfrog=4)),
+    "table-fixed": ("beta", dict(step_size=0.05, n_leapfrog=8)),
+}
+HMC_FNS = [lambda x: x, lambda x: x * x]
+
+
+def _hmc_target(spec):
+    if spec == "beta":
+        return tm.Distribution.beta(2.0, 5.0)
+    return getattr(tm.Distribution, spec[0])(*spec[1:])
+
+
+def _hmc_setup(case, device, n_steps, n_burnin):
+    target, kw = HMC_CASES[case]
+    return public_mcmc_setup("1d", HMC_FNS, _hmc_target(target),
+                             tm.HMC(**kw), None, False, device, n_steps,
+                             n_burnin)
+
+
+# name: (target, proposal) of a stateful case (1-D unless the target is a
+# list).
+STATE_CASES = {
+    "independence": (("normal", 0.0, 1.0), ("normal", 0.0, 2.0)),
+    "table-proposal": ("beta", "beta"),
+    "gapped-proposal": (("uniform", 0.0, 1.0), "gap"),
+    "walk": (("normal", 0.0, 1.0), dict(step_size=0.8)),
+    "hmc": (("normal", 0.5, 1.5), dict(step_size=0.3, n_leapfrog=5, hmc=True)),
+    "nd-c9e": ("c9e", [("normal", 0.0, 2.0)] * 2),
+    "nd-table-dimension": (["beta", ("normal", 0.0, 1.0)],
+                           ["beta", ("normal", 0.0, 2.0)]),
+    "nd-walk": ([("normal", 0.0, 1.0)] * 2, dict(step_size=[1.0, 1.5])),
+}
+
+
+def _state_spec(spec):
+    if isinstance(spec, list):
+        return [_state_spec(s) for s in spec]
+    if isinstance(spec, dict):
+        kw = dict(spec)
+        return tm.HMC(**kw) if kw.pop("hmc", False) else tm.RandomWalk(**kw)
+    if spec == "beta":
+        return tm.Distribution.beta(2.0, 5.0)
+    if spec == "gap":
+        x = np.linspace(0.0, 1.0, 2048)
+        return tm.Distribution.from_pdf_table(
+            x, np.where((x > 0.4) & (x < 0.6), 0.0, 1.0))
+    if spec == "c9e":
+        return _c9e_target()
+    return getattr(tm.Distribution, spec[0])(*spec[1:])
+
+
+def _state_setup(case, device, n_steps, n_burnin, segment, start):
+    """(kernel, plain) callables of a grid for one segment of a stateful
+    case, set up as the public path sets it up (fresh when ``start`` is
+    None), and the config."""
+    from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+        mcmc_nd_cuda,
+        mcmc_nd_reference,
+    )
+
+    target, proposal = (_state_spec(s) for s in STATE_CASES[case])
+    integ = tm.MonteCarloIntegrator(device=device)
+    resume = start is not None
+    if not case.startswith("nd-"):
+        prog, cfg, params, tables = integ._mcmc_kernel_program(
+            integ._trace_user_functions([lambda x: x, lambda x: x * x]),
+            target, proposal, n_steps, n_burnin, False, with_state=True,
+            use_init_state=resume)
+        return ((lambda g: mcmc_cuda(prog, cfg, params, 42, g, tables,
+                                     segment, start)),
+                (lambda g: mcmc_reference(prog.torch_fns, cfg, params, 42, g,
+                                          tables, segment, start)), cfg)
+    fns = [lambda x, y: x * y, lambda x, y: x + y]
+    parsed = integ._parse_nd_mcmc_args(target, proposal)
+    prog, cfg, params = integ._nd_mcmc_kernel_program(
+        fns, proposal, parsed, n_steps, n_burnin, False, with_state=True,
+        use_init_state=resume)
+    tables = dim_tables(parsed[0], parsed[1], parsed[3], device, True)
+    return ((lambda g: mcmc_nd_cuda(prog, cfg, params, 42, g, tables, segment,
+                                    start)),
+            (lambda g: mcmc_nd_reference(prog.torch_fns, prog.torch_target,
+                                         cfg, params, 42, g, tables, segment,
+                                         start)), cfg)
+
+
+@pytest.fixture(scope="module")
+def hmc_state_libraries():
+    """Builds every library of this section at once (nvcc in parallel):
+    each case runs once on a small grid."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    grid = plan_mcmc_grid(1024)
+    with ThreadPoolExecutor(max_workers=32) as pool:
+        futures = [pool.submit(lambda c=c: _hmc_setup(c, device, 10, 2)[0](grid))
+                   for c in HMC_CASES]
+        futures += [pool.submit(_state_build, case, device, resume, grid)
+                    for case in STATE_CASES for resume in (False, True)]
+        for f in futures:
+            f.result()
+    torch.cuda.synchronize()
+
+
+def _state_build(case, device, resume, grid):
+    start = None
+    if resume:
+        d = 2 if case.startswith("nd-") else 1
+        x = torch.full((d, grid.chains_actual) if d > 1
+                       else (grid.chains_actual,), 0.3, device=device)
+        start = ChainStart(x, torch.zeros(grid.chains_actual, device=device))
+    _state_setup(case, device, 2, 0, int(resume), start)[0](grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HMC_CASES))
+def test_hmc_kernel_matches_plain_version(cuda_device, hmc_state_libraries,
+                                          case):
+    before = mcmc_cuda.hmc_launches
+    check_public_mcmc("1d", _hmc_setup(case, cuda_device, 1000, 200))
+    assert mcmc_cuda.hmc_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c11", "c11c"])
+def test_hmc_layouts_run_the_same_chains(cuda_device, case):
+    # The leapfrog waits on the step before: one lane; any group of draws
+    # made ahead runs the same chains bit for bit.
+    target, kw = HMC_CASES[case]
+    integ = tm.MonteCarloIntegrator(device=cuda_device)
+    prog, cfg, params, tables = integ._mcmc_kernel_program(
+        integ._trace_user_functions(HMC_FNS), _hmc_target(target),
+        tm.HMC(**kw), 301, 13, False)
+    runs = [mcmc_cuda(McmcProgram(prog.fns, layout=layout), cfg, params, 42,
+                      SEVERAL_PROGRAMS, tables)
+            for layout in (None, Layout(1, 1), Layout(1, 3), Layout(1, 8))]
+    torch.cuda.synchronize()
+    for got in runs[1:]:
+        assert torch.equal(got.rows, runs[0].rows)
+        assert torch.equal(got.x_final, runs[0].x_final)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STATE_CASES))
+def test_state_kernel_matches_plain_version(cuda_device, hmc_state_libraries,
+                                            case):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+
+    nd = case.startswith("nd-")
+    wrapper = mcmc_nd_cuda if nd else mcmc_cuda
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    # Segment 0: the stateless run's kernel, bit for bit.
+    kernel0 = _state_setup(case, cuda_device, 600, 200, 0, None)[0]
+    before = wrapper.state_launches
+    got0 = kernel0(grid)
+    integ = tm.MonteCarloIntegrator(device=cuda_device)
+    target, proposal = (_state_spec(s) for s in STATE_CASES[case])
+    if nd:
+        fns = [lambda x, y: x * y, lambda x, y: x + y]
+        parsed = integ._parse_nd_mcmc_args(target, proposal)
+        prog, cfg, params = integ._nd_mcmc_kernel_program(
+            fns, proposal, parsed, 600, 200, False)
+        from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
+
+        bare = mcmc_nd_cuda(prog, cfg, params, 42, grid,
+                            dim_tables(parsed[0], parsed[1], parsed[3],
+                                       cuda_device))
+    else:
+        prog, cfg, params, tables = integ._mcmc_kernel_program(
+            integ._trace_user_functions([lambda x: x, lambda x: x * x]),
+            target, proposal, 600, 200, False)
+        bare = mcmc_cuda(prog, cfg, params, 42, grid, tables)
+    torch.cuda.synchronize()
+    assert wrapper.state_launches == before + 1
+    # A sampler-mode CUSTOM proposal's stateful run reads its full inverse
+    # and its log table: other chains.
+    if case not in ("table-proposal", "nd-table-dimension"):
+        assert torch.equal(got0.rows, bare.rows)
+        assert torch.equal(got0.x_final, bare.x_final)
+    # Segment 1, from the kernel's segment 0, against its plain version.
+    start = ChainStart(got0.x_final, got0.logp_final)
+    kernel1, plain1, cfg1 = _state_setup(case, cuda_device, 600, 0, 1, start)
+    got, want = kernel1(grid), plain1(grid)
+    torch.cuda.synchronize()
+    x_k = got.x_final.reshape(-1, grid.chains_actual).cpu()
+    x_p = want.x_final.reshape(-1, grid.chains_actual).cpu()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%}"
+    keep = ~split
+    np.testing.assert_allclose(got.logp_final.cpu()[keep].numpy(),
+                               want.logp_final.cpu()[keep].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    v_k, a_k, _ = mcmc_finish(got, grid, cfg1, 2)
+    v_p, a_p, _ = mcmc_finish(want, grid, cfg1, 2)
+    _, _, se = mcmc_finish(want, grid, replace(
+        cfg1, with_stderr=True, with_state=False, use_init_state=False), 2)
+    assert abs(float(a_k) - float(a_p)) <= 1e-3
+    np.testing.assert_array_less((v_k - v_p).abs().cpu().numpy(),
+                                 (0.2 * se + 1e-6).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_integrate_mcmc_state_and_hmc_on_cuda_match_cpu(cuda_device):
+    kw = dict(n_steps=300, n_chains=2048, seed=3)
+    n = tm.Distribution.normal(0.5, 1.5)
+    for proposal in (tm.Distribution.normal(0.0, 3.0),
+                     tm.HMC(step_size=0.4, n_leapfrog=6)):
+        runs = {}
+        for device in (cuda_device, "cpu"):
+            r0 = tm.integrate_mcmc(HMC_FNS, n, proposal, n_burnin=100,
+                                   return_state=True, device=device, **kw)
+            r1 = tm.integrate_mcmc(HMC_FNS, n, proposal, n_burnin=0,
+                                   initial_state=r0.chain_state,
+                                   return_state=True, device=device, **kw)
+            runs[device] = (r0, r1)
+        for got, want in zip(runs[cuda_device], runs["cpu"]):
+            assert got.chain_state.segment == want.chain_state.segment
+            split = np.abs(got.chain_state.x - want.chain_state.x) > 1e-3 * (
+                1.0 + np.abs(want.chain_state.x))
+            assert split.mean() <= 0.01
+            assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
+            np.testing.assert_allclose(got.values, want.values, atol=2e-3)

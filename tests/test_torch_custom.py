@@ -34,6 +34,7 @@ CUDA kernel is held against the plain version in ``test_torch_cuda.py``.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc

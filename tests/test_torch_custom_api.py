@@ -32,6 +32,7 @@ import math
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo.sampling import dist_spec_of as j_dist_spec_of

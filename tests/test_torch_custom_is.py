@@ -18,6 +18,7 @@ uniform-grid lookup itself is held value for value.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc

@@ -35,6 +35,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo.ops.integrate_nd_pallas import (

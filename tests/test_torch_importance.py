@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo.api.results import _weight_diagnostics as j_weight_diagnostics

@@ -29,6 +29,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 from tpu_montecarlo_torch.ops.build import CSRC
 from tpu_montecarlo_torch.ops.integrate_kernel import CounterRng

@@ -29,6 +29,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc

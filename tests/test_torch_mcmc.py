@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -244,10 +245,13 @@ def test_random_walk_wrong_dimension_raises_as_jax():
 
 
 def test_hmc_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 6\.1"):
-        tm.HMC(step_size=0.5)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 6\.1"):
-        tm.RandomWalk.from_reference(jmc.HMC(step_size=0.5))
+    # 1-D HMC runs (tests/test_torch_hmc.py); nd and tempered HMC are
+    # items 8.1 and 9.1.
+    assert type(tm.RandomWalk.from_reference(jmc.HMC(step_size=0.5))) is tm.HMC
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.1"):
+        _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc())
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 9\.1"):
+        _call(proposal=_hmc(), temperatures=[1.0, 2.0])
 
 
 # -- the plain version against the interpret-mode JAX kernel -----------------
@@ -393,12 +397,8 @@ def test_program_cache_hits_for_fresh_identical_lambdas():
 _T = tm.Distribution.normal(0.0, 1.0)
 _Q = tm.Distribution.normal(0.0, 2.0)
 def _hmc():
-    """An HMC proposal object: ``tm.HMC()`` raises (item 6.1), so this
-    bypasses its constructor to reach the nd path's own check."""
-    hmc = object.__new__(tm.HMC)
-    hmc.step_size, hmc.adapt, hmc.target_accept = 0.5, False, 0.8
-    hmc.init_range = (-4.0, 4.0)
-    return hmc
+    """An HMC proposal (1-D HMC runs; nd HMC is item 8.1)."""
+    return tm.HMC(step_size=0.5, init_range=(-4.0, 4.0))
 
 
 def _call(**kwargs):
@@ -411,21 +411,13 @@ def _call(**kwargs):
 
 
 NOT_PORTED = {
-    "return_state": (lambda: _call(return_state=True), r"item 6\.2"),
-    "initial_state": (lambda: _call(initial_state=object()), r"item 6\.2"),
     "compile_mcmc": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
             [lambda x: x], _T, _Q, seed_batch=4
         ),
         r"item 6\.5",
     ),
-    "hmc": (lambda: _call(proposal=tm.HMC()), r"item 6\.1"),
-    # nd targets run (tests/test_torch_mcmc_nd.py); their options not yet.
-    "nd-target": (
-        lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=[_Q, _Q],
-                      return_state=True),
-        r"item 8\.5",
-    ),
+    # nd targets run (tests/test_torch_mcmc_nd.py); their HMC not yet.
     "nd-hmc": (
         lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc()),
         r"item 8\.1",

@@ -38,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo import tables as jtables

@@ -19,6 +19,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 

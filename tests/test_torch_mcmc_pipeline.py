@@ -20,6 +20,7 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo_torch as tm
 from tpu_montecarlo_torch.ops.build import CSRC

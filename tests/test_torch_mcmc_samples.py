@@ -30,6 +30,7 @@ import math
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo_torch as tm
 from tpu_montecarlo_torch.ops.mcmc_kernel import plan_chains, plan_mcmc_grid

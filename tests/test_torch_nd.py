@@ -39,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 from scipy.special import erfinv
 
 import jax.numpy as jnp

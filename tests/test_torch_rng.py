@@ -11,6 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 from tpu_montecarlo.ops import integrate_pallas as jpl
 from tpu_montecarlo.ops.qmc import _pcg_mix

@@ -14,6 +14,7 @@ import scipy.special
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 from tpu_montecarlo import sampling as jsamp
 from tpu_montecarlo.ops import integrate_pallas as jpl

@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo import tables as jt

@@ -43,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -447,13 +448,8 @@ def test_validation_errors_match_jax(case):
 
 
 def _hmc():
-    """An HMC proposal object: the port's HMC cannot be constructed yet
-    (queue 1 item 6.1), so this bypasses its constructor to reach the
-    tempered path's own check."""
-    hmc = object.__new__(tm.HMC)
-    hmc.step_size, hmc.adapt, hmc.target_accept = 0.35, False, 0.8
-    hmc.init_range = (3.0, 5.0)
-    return hmc
+    """An HMC proposal (1-D HMC runs; tempered HMC is item 9.1)."""
+    return tm.HMC(step_size=0.35, init_range=(3.0, 5.0))
 
 
 def _not_ported_cases():

@@ -19,6 +19,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 from tpu_montecarlo import tracing as jtr
 from tpu_montecarlo_torch import tracing as ttr

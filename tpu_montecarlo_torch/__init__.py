@@ -14,7 +14,8 @@ the integrands of that kernel; multi-dimensional
 plain MC, antithetic or Sobol QMC, with error bars (pilot-shifted squares,
 or randomized QMC), in a second kernel; 1-D Metropolis-Hastings,
 ``integrate_mcmc``, with independence, random-walk and adaptive
-random-walk proposals and error bars, in a third; the same over d
+random-walk proposals, HMC, error bars and chain state to resume from
+(``return_state``, ``initial_state``), in a third; the same over d
 dimensions, under a product of Distributions or a joint log density, in
 a fourth; and parallel tempering of those chains over a ladder of
 temperatures, ``integrate_mcmc(..., temperatures=[1.0, ...])``, in a
@@ -48,6 +49,7 @@ Example:
 
 from .api import (
     IntegrationResult,
+    McmcState,
     MonteCarloIntegrator,
     integrate,
     integrate_importance_sampling,
@@ -63,6 +65,7 @@ __all__ = [
     "DistributionType",
     "HMC",
     "IntegrationResult",
+    "McmcState",
     "MonteCarloIntegrator",
     "RandomWalk",
     "TraceError",

@@ -176,14 +176,15 @@ def _device_uniform_log_tables(distribution, role: str = "target"):
     return cached
 
 
-def mcmc_proposal_route(distribution):
+def mcmc_proposal_route(distribution, stateful: bool = False):
     """How the MCMC kernels draw from a CUSTOM proposal, as the JAX
     package's ``_mcmc_pallas_ok`` (``tpu_montecarlo/api/mcmc.py:454-500``)
-    routes a stateless run: ``"sampler"`` (a lane-multiple inverse table,
-    sampler-mode logq), ``"gapped"`` (gap-respecting tables and a faithful
-    q-table), or None where the JAX package runs its XLA sweep (a heavy
-    tail, an inverse of another length, a gapped proposal with no
-    faithful q-table)."""
+    routes it: ``"sampler"`` (a lane-multiple inverse table, sampler-mode
+    logq; stateless runs), ``"table"`` (that inverse at full size and a
+    faithful q-table; ``stateful`` runs), ``"gapped"`` (gap-respecting
+    tables and a faithful q-table), or None where the JAX package runs its
+    XLA sweep (a heavy tail, an inverse of another length, a q-table that
+    is needed and not faithful)."""
     spec = dist_spec_of(distribution)
     if spec.heavy_tail:
         return None
@@ -193,7 +194,11 @@ def mcmc_proposal_route(distribution):
         return "gapped"
     if spec.x_table is None or spec.x_table.shape[0] % 128 != 0:
         return None
-    return "sampler"
+    if not stateful:
+        return "sampler"
+    if _proposal_kernel_log_tables(distribution) is None:
+        return None
+    return "table"
 
 
 def mcmc_target_tables_ok(distribution) -> bool:
@@ -202,13 +207,16 @@ def mcmc_target_tables_ok(distribution) -> bool:
     return _uniform_log_tables(distribution) is not None
 
 
-def mcmc_dim_tables(proposal, target, device):
+def mcmc_dim_tables(proposal, target, device, stateful: bool = False):
     """One dimension's :class:`DimTables` on ``device`` for a proposal
     (a Distribution, or None for a walk) and a target (a Distribution, or
     None for a joint log density), or None when neither is CUSTOM.  The
     caller has routed the proposal (:func:`mcmc_proposal_route`) and the
-    target.  Device copies are cached per Distribution, role and
-    device."""
+    target.  A ``stateful`` run's non-gapped proposal takes its full
+    inverse table and its faithful log table, as the JAX package stages
+    them for any stateful run (``tpu_montecarlo/api/mcmc.py:630-642``,
+    ``:730-735``): a resumed chain's start has no draw to read logq from.
+    Device copies are cached per Distribution, role and device."""
     key = str(torch.device(device))
 
     def staged(dist, role, make):
@@ -224,6 +232,11 @@ def mcmc_dim_tables(proposal, target, device):
             inv = staged(proposal, "inv", lambda: InverseTable.of(
                 *_device_gapped_tables(proposal, spec, stratified=False),
                 device))
+            q = staged(proposal, "q", lambda: log_table(
+                *_device_uniform_log_tables(proposal, "proposal"), device))
+        elif stateful:
+            inv = staged(proposal, "inv_full", lambda: InverseTable.of(
+                *prep_inv_table(spec.x_table), device))
             q = staged(proposal, "q", lambda: log_table(
                 *_device_uniform_log_tables(proposal, "proposal"), device))
         else:

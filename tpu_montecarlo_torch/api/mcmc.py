@@ -1,9 +1,10 @@
 """MCMC (port of the Pallas paths of ``tpu_montecarlo/api/mcmc.py``):
 ``integrate_mcmc`` with independence, random-walk and adaptive
 random-walk proposals, with error bars on request, over one dimension
-(``ops/mcmc_kernel.py``) or d (``api/mcmc_nd.py``), and tempered over a
-ladder of temperatures (``api/tempering.py``), under the closed-form
-families and CUSTOM tables (``api/device.py`` stages them).
+(``ops/mcmc_kernel.py``, HMC too) or d (``api/mcmc_nd.py``), with chain
+state to resume from over either, and tempered over a ladder of
+temperatures (``api/tempering.py``), under the closed-form families and
+CUSTOM tables (``api/device.py`` stages them).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
@@ -14,11 +15,13 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..distributions import HMC, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
+    ChainStart,
     McmcConfig,
     McmcProgram,
     Mode,
@@ -28,9 +31,7 @@ from ..ops.mcmc_kernel import (
 )
 from ..sampling import dist_spec_of
 from ..utils.roadmap import (
-    MCMC_HMC,
     MCMC_SERVING,
-    MCMC_STATE,
     MCMC_TABLES_XLA,
     MCMC_WIDE,
     ND_MCMC_SERVING,
@@ -40,7 +41,7 @@ from ..utils.roadmap import (
 from .cache import fns_key
 from .device import mcmc_dim_tables
 from .mcmc_nd import _table_routes, is_nd_call
-from .mcmc_result import mcmc_result
+from .mcmc_result import mcmc_result, with_chain_state
 from .results import IntegrationResult
 
 
@@ -88,7 +89,9 @@ class _McmcMixin:
         sampler: acceptance ``log u < log p(x') + log q(x) - log p(x) -
         log q(x')``) or a :class:`RandomWalk` (``x' = x + step * N(0, 1)``,
         acceptance ``log u < log p(x') - log p(x)``; ``adapt=True`` tunes
-        the step per chain during burn-in).  Burn-in advances the chains
+        the step per chain during burn-in) or an :class:`HMC` (each step
+        an L-step leapfrog trajectory from a fresh momentum, over one
+        dimension).  Burn-in advances the chains
         without counting; each sampling step adds f(x) to the chain's sums.
         The values are the average over all ``chains_actual`` chains (at
         least 1024: the JAX kernel's grid), ``n_samples`` is ``n_chains *
@@ -134,9 +137,15 @@ class _McmcMixin:
         zero-density gaps, gap-respecting tables and a guarded log
         table).
 
+        ``return_state=True``: ``result.chain_state`` is an
+        :class:`McmcState` (each chain's final x, (d, chains) over d, and
+        log density), which ``initial_state=`` takes back to extend the
+        chains in a later call with the same chain count; the resumed
+        segment draws fresh streams.  Stateful runs take no error bars,
+        diagnostics, draws, adaptive steps or temperatures.
+
         Not ported yet, each raising ``NotImplementedError`` naming its
-        ROADMAP item: ``initial_state``/``return_state``, HMC (tempered
-        too),
+        ROADMAP item: nd and tempered HMC,
         the CUSTOM tables the JAX package sends to
         its XLA sweep (heavy-tailed proposals, tables with no uniform
         grid), more than 127 functions.
@@ -190,24 +199,57 @@ class _McmcMixin:
                 return_state, return_stderr, return_diagnostics,
                 return_samples,
             )
-        if isinstance(proposal_distribution, HMC):
-            raise not_ported("HMC proposals", MCMC_HMC)
-        if return_state or initial_state is not None:
-            raise not_ported("MCMC state (return_state, initial_state)",
-                             MCMC_STATE)
-
         traced = self._trace_user_functions(functions)
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
                 f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
             )
+        stateful = return_state or initial_state is not None
         program, cfg, params, tables = self._mcmc_kernel_program(
             traced, target_distribution, proposal_distribution, n_steps,
             n_burnin, return_stderr, return_diagnostics,
-            int(return_samples or 0))
+            int(return_samples or 0), stateful, initial_state is not None)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_cuda(program, cfg, params, seed, grid, tables)
-        return mcmc_result(out, grid, cfg, len(traced), n_chains)
+        if not stateful:
+            out = mcmc_cuda(program, cfg, params, seed, grid, tables)
+            return mcmc_result(out, grid, cfg, len(traced), n_chains)
+        segment, start = self._resume_point(initial_state, grid, None)
+        out = mcmc_cuda(program, cfg, params, seed, grid, tables, segment,
+                        start)
+        return with_chain_state(
+            mcmc_result(out, grid, cfg, len(traced), n_chains), out,
+            segment, return_state)
+
+    def _resume_point(self, initial_state, grid, d):
+        """``(segment, start)`` of a stateful run on ``grid``'s chains (d
+        dimensions, None over one): segment 0 and no start for a fresh
+        run; for a resumed one the next segment and the state on the
+        integrator's device, after the JAX package's chain-count checks
+        (``tpu_montecarlo/api/mcmc.py:297-302``, ``api/mcmc_nd.py:
+        500-508``)."""
+        if initial_state is None:
+            return 0, None
+        chains = grid.chains_actual
+        x = np.asarray(initial_state.x, np.float32)
+        if d is None and initial_state.n_chains != chains:
+            raise ValueError(
+                f"initial_state has {initial_state.n_chains} chains but "
+                f"this run plans {chains}; pass the state back with "
+                "the same n_chains/target_threads (and the backend that "
+                "produced it)"
+            )
+        if d is not None and (x.ndim != 2 or x.shape != (d, chains)):
+            raise ValueError(
+                f"initial_state carries x of shape {x.shape} "
+                f"but this nd run plans ({d}, {chains}); "
+                "pass the state back with the same dimensions "
+                "and n_chains/target_threads"
+            )
+        start = ChainStart(
+            torch.tensor(x, device=self._device),
+            torch.tensor(np.asarray(initial_state.log_p, np.float32),
+                         device=self._device))
+        return initial_state.segment + 1, start
 
     def compile_mcmc(self, functions, target_distribution,
                      proposal_distribution, *args, **kwargs):
@@ -225,13 +267,16 @@ class _McmcMixin:
 
     def _mcmc_kernel_program(self, traced, target, proposal, n_steps,
                              n_burnin, with_stderr, with_diagnostics=False,
-                             samples=0):
+                             samples=0, with_state=False,
+                             use_init_state=False):
         """``(program, cfg, params, tables)`` of one 1-D run: the cached
         :class:`McmcProgram`, its config (mode, families and a CUSTOM
-        proposal's route, as the JAX kernel gate routes them, and the
-        outputs), the (6,) float32 parameter row and the CUSTOM tables
-        (None without one) on the integrator's device."""
+        proposal's route, as the JAX kernel gate routes them, the outputs,
+        HMC's leapfrog steps and the chain state), the (6,) float32
+        parameter row and the CUSTOM tables (None without one) on the
+        integrator's device."""
         targ = dist_spec_of(target)
+        leapfrog = proposal.n_leapfrog if isinstance(proposal, HMC) else 0
         if isinstance(proposal, RandomWalk):
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
             prop_kind = targ.kind
@@ -244,10 +289,12 @@ class _McmcMixin:
             prop_row = [*prop.params, 0.0, 0.0]
             prop_specs = (prop,)
         gapped = _table_routes((proposal,), prop_specs, (target,), (targ,),
-                               "MCMC", MCMC_TABLES_XLA)
+                               "MCMC", MCMC_TABLES_XLA, stateful=with_state)
         cfg = McmcConfig(mode, prop_kind, targ.kind, n_steps, n_burnin,
                          with_stderr, prop_gapped=any(gapped),
-                         with_diagnostics=with_diagnostics, samples=samples)
+                         with_diagnostics=with_diagnostics, samples=samples,
+                         hmc_leapfrog=leapfrog, with_state=with_state,
+                         use_init_state=use_init_state)
         program = self._cache.get_or_build(
             ("mcmc", fns_key(traced)), lambda: McmcProgram(traced)
         )
@@ -256,5 +303,6 @@ class _McmcMixin:
             device=self._device,
         )
         return (program, cfg, params,
-                mcmc_dim_tables(proposal, target, self._device))
+                mcmc_dim_tables(proposal, target, self._device,
+                                stateful=with_state))
 

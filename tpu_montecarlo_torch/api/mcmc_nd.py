@@ -7,7 +7,8 @@ run on the nd kernel (``ops/mcmc_nd_kernel.py``).
 The JAX package sends nd work its kernel cannot take, and all of it off
 the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
 ``jax.random``; the port has no such twin and runs every workload it
-takes in its kernel.  What it does not take yet raises
+takes in its kernel, chain state too (the JAX package runs nd state on
+that sweep only).  What it does not take yet raises
 ``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
@@ -29,14 +30,13 @@ from ..sampling import DistKind, dist_spec_of
 from ..utils.roadmap import (
     FRONT_END,
     ND_MCMC_HMC,
-    ND_MCMC_STATE,
     ND_MCMC_TABLES_XLA,
     ND_MCMC_WIDE,
     not_ported,
 )
 from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
-from .mcmc_result import mcmc_result
+from .mcmc_result import mcmc_result, with_chain_state
 from .results import IntegrationResult
 
 def is_nd_call(target, proposal) -> bool:
@@ -88,11 +88,12 @@ def _target_arity(target) -> int:
 
 
 def _table_routes(proposals, prop_specs, targets, targ_specs, what, item,
-                  gapped_ok=True):
+                  gapped_ok=True, stateful=False):
     """The CUSTOM dimensions' routes as the JAX package's kernel gates
     take them (``tpu_montecarlo/api/mcmc_nd.py:198-219``, and
     ``api/tempering.py:330-426`` with ``gapped_ok=False``): per proposal
-    dimension whether it is gapped (``()`` for a walk).  What the JAX
+    dimension whether its logq comes from its log table (gapped, or any
+    CUSTOM one of a ``stateful`` run; ``()`` for a walk).  What the JAX
     package sends to its XLA sweep raises, naming ``item``: a heavy-tailed
     proposal or one with no faithful table, a gapped one where
     ``gapped_ok`` is False, a target with no uniform-grid log table."""
@@ -102,22 +103,24 @@ def _table_routes(proposals, prop_specs, targets, targ_specs, what, item,
                              f"in {what}", item)
     gapped = []
     for p, s in zip(proposals or (), prop_specs or ()):
-        route = mcmc_proposal_route(p) if s.kind == DistKind.CUSTOM else None
+        route = (mcmc_proposal_route(p, stateful)
+                 if s.kind == DistKind.CUSTOM else None)
         if s.kind == DistKind.CUSTOM and (
                 route is None or (route == "gapped" and not gapped_ok)):
             raise not_ported(
                 f"a heavy-tailed{'' if gapped_ok else ', gapped'} or "
                 f"unfaithful CUSTOM proposal table in {what}", item)
-        gapped.append(route == "gapped")
+        gapped.append(route in ("gapped", "table"))
     return tuple(gapped)
 
 
-def dim_tables(proposals, targets, d, device):
+def dim_tables(proposals, targets, d, device, stateful=False):
     """Per dimension, the tables of its CUSTOM proposal and target on
-    ``device`` (``api/device.py``), or None where no dimension is
-    CUSTOM."""
+    ``device`` (``api/device.py``; a ``stateful`` run's), or None where
+    no dimension is CUSTOM."""
     tables = [mcmc_dim_tables(None if proposals is None else proposals[j],
-                              None if targets is None else targets[j], device)
+                              None if targets is None else targets[j], device,
+                              stateful)
               for j in range(d)]
     return None if all(t is None for t in tables) else tables
 
@@ -216,27 +219,30 @@ class _McmcNdMixin:
             )
         if isinstance(proposal, HMC):
             raise not_ported("nd HMC", ND_MCMC_HMC)
-        if return_state or initial_state is not None:
-            raise not_ported(
-                "nd MCMC state (return_state, initial_state)", ND_MCMC_STATE
-            )
+        stateful = return_state or initial_state is not None
         program, cfg, params = self._nd_mcmc_kernel_program(
             functions, proposal, (proposals, targets, target_fn, d),
             n_steps, n_burnin, return_stderr, return_diagnostics,
-            int(return_samples or 0),
+            int(return_samples or 0), stateful, initial_state is not None,
         )
-        tables = dim_tables(proposals, targets, d, self._device)
-        return self._run_mcmc_nd(
-            program, cfg, params, tables, seed, n_chains, len(functions)
-        )
+        tables = dim_tables(proposals, targets, d, self._device, stateful)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        segment, start = self._resume_point(initial_state, grid, d)
+        out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables, segment,
+                           start)
+        return with_chain_state(
+            mcmc_result(out, grid, cfg, len(functions), n_chains), out,
+            segment, return_state)
 
     def _nd_mcmc_kernel_program(
         self, functions, proposal, parsed, n_steps, n_burnin, return_stderr,
-        with_diagnostics=False, samples=0,
+        with_diagnostics=False, samples=0, with_state=False,
+        use_init_state=False,
     ):
         """``(program, cfg, params)`` of one nd run: the cached
         :class:`McmcNdProgram` (per integrands, target, mode, families,
-        CUSTOM routes and outputs), its config and the (d, 6) float32 parameter
+        CUSTOM routes, outputs and chain state), its config and the (d, 6)
+        float32 parameter
         rows on the integrator's device (:func:`dim_tables` stages the
         CUSTOM dimensions' tables).  ``parsed`` is
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
@@ -246,7 +252,8 @@ class _McmcNdMixin:
         targ_specs = (None if targets is None
                       else [dist_spec_of(t) for t in targets])
         gapped = _table_routes(proposals, prop_specs, targets, targ_specs,
-                               "nd MCMC", ND_MCMC_TABLES_XLA)
+                               "nd MCMC", ND_MCMC_TABLES_XLA,
+                               stateful=with_state)
         traced = self._trace_user_functions(functions, n_args=d)
         if len(traced) > MAX_FUNCTIONS:
             raise not_ported(
@@ -261,11 +268,12 @@ class _McmcNdMixin:
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
             n_steps, n_burnin, return_stderr, gapped,
             with_diagnostics=with_diagnostics, samples=samples,
+            with_state=with_state, use_init_state=use_init_state,
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
             ("mcmc_nd", fns_key(traced), target_key, cfg.compiled,
-             cfg.outputs),
+             cfg.outputs, cfg.state),
             lambda: McmcNdProgram(traced, cfg, target_fn),
         )
         return program, cfg, params
@@ -293,10 +301,3 @@ class _McmcNdMixin:
             dtype=torch.float32, device=self._device,
         )
         return mode, params
-
-    def _run_mcmc_nd(self, program, cfg, params, tables, seed, n_chains,
-                     n_functions):
-        """One nd run on the kernel (a CPU integrator: its plain version)."""
-        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables)
-        return mcmc_result(out, grid, cfg, n_functions, n_chains)

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.mcmc_kernel import mcmc_diagnostics, mcmc_finish
-from .results import IntegrationResult
+from .results import IntegrationResult, McmcState
 
 
 def mcmc_result(out, grid, cfg, k: int, n_chains: int, swap_rate=None,
@@ -43,3 +43,14 @@ def mcmc_result(out, grid, cfg, k: int, n_chains: int, swap_rate=None,
         diagnostics=diagnostics,
         samples=samples,
     )
+
+
+def with_chain_state(result: IntegrationResult, out, segment: int,
+                     return_state: bool) -> IntegrationResult:
+    """``result`` with its :class:`McmcState` (the run's final states and
+    log densities at ``segment``) when the caller asked for it."""
+    if return_state:
+        result.chain_state = McmcState(out.x_final.cpu().numpy(),
+                                       out.logp_final.cpu().numpy(),
+                                       segment=segment)
+    return result

@@ -9,7 +9,45 @@ import numpy as np
 
 from ..tracing import Node, TracedFunction
 
-__all__ = ["IntegrationResult"]
+__all__ = ["IntegrationResult", "McmcState"]
+
+
+class McmcState:
+    """Checkpointable MCMC chain state (port of
+    ``tpu_montecarlo/api/results.py:11-36``): per-chain position and
+    cached target log density.  Returned by ``integrate_mcmc(...,
+    return_state=True)`` and taken back by ``initial_state=`` to extend
+    the chains in a later call.  Multi-dimensional runs carry ``x`` as a
+    (d, n_chains) matrix, 1-D runs a flat vector."""
+
+    def __init__(self, x: np.ndarray, log_p: np.ndarray, segment: int = 0):
+        self.x = np.asarray(x, np.float32)
+        self.log_p = np.asarray(log_p, np.float32)
+        # Resume-segment counter, folded into the seed word so a resumed
+        # run draws fresh streams under the same seed.
+        self.segment = int(segment)
+
+    @property
+    def n_chains(self) -> int:
+        return int(self.x.shape[-1])
+
+    @property
+    def ndim_state(self) -> int:
+        """State dimensionality: 1 for scalar chains, d for nd chains."""
+        return 1 if self.x.ndim == 1 else int(self.x.shape[0])
+
+    @staticmethod
+    def from_reference(state) -> "McmcState":
+        """The port's copy of a ``tpu_montecarlo`` ``McmcState`` (duck
+        typed: x, log_p and segment, as numpy arrays)."""
+        return McmcState(np.asarray(state.x), np.asarray(state.log_p),
+                         segment=state.segment)
+
+    def __repr__(self):
+        return (
+            f"McmcState(n_chains={self.n_chains}, "
+            f"d={self.ndim_state}, segment={self.segment})"
+        )
 
 
 class IntegrationResult:

@@ -3,15 +3,18 @@
 // Replaces the TPU kernel `kernel` inside build_mcmc_fn_pallas
 // (tpu_montecarlo/ops/mcmc_pallas.py:387, kernel at :612-1007, pallas_call
 // at :1095) in its independence, random-walk and adaptive random-walk
-// modes, with and without error bars, for the uniform, normal and
-// exponential families and CUSTOM tables (a table target; a table
-// proposal in sampler mode or gapped).
+// modes, with HMC (TMC_HMC) and chain state in and out (TMC_STATE,
+// TMC_INIT_STATE), with and without error bars, for the closed-form
+// families and CUSTOM tables (a table target; a table proposal in sampler
+// mode or gapped).
 // Under the JAX package's CounterRng (the interpreter's stream) it runs
 // the very chains that kernel runs:
 //
 // * chain c belongs to program p = c / chains_per_program at position
 //   pos = c % chains_per_program (row * 128 + lane in the JAX block); the
-//   program's stream is seeded with (seed ^ 0x5BD1E995, p);
+//   program's stream is seeded with (seed ^ 0x5BD1E995, p), the seed word
+//   of a resumed segment also xor segment * 0x9E3779B1 (the wrapper
+//   passes the word);
 // * counter 0 draws the initial state: a proposal draw, or for a random
 //   walk x0 = lo + u * (hi - lo); step i, counted globally through
 //   burn-in and sampling, draws the proposal (or the walk's normal step)
@@ -28,6 +31,18 @@
 // * the adaptive walk updates its log step through burn-in by
 //   Robbins-Monro, gamma = expf(-0.6f * logf(i + 1)), clipped to
 //   +-13.815511, and freezes it for sampling;
+// * HMC (TMC_HMC = L, a walk mode) takes the walk's normal draw as its
+//   momentum and the walk's accept uniform, and moves by L kick-drift-kick
+//   leapfrog steps with the energy-corrected log_alpha (log_pdf_grad.cuh:
+//   the closed forms' jax.grad expressions, a table target's slope); the
+//   chain carries the gradient at x, so a step evaluates L gradients; its
+//   adaptive step follows the walk's rule;
+// * a stateful run (TMC_STATE) also writes each chain's final log
+//   density; a resumed one (TMC_INIT_STATE) starts from the given x0 and
+//   logp0 (logp0 is not recomputed) in place of counter 0's draw, and an
+//   independence proposal takes logq at x0 from its family or, CUSTOM,
+//   from its log table (a stateful run's CUSTOM proposal always reads its
+//   log table: the wrapper routes it as gapped);
 // * burn-in advances the chains without evaluating the integrands; each
 //   sampling step adds f_j(x) - pilot_j to the chain's float32 sums, in
 //   step order, and counts acceptances.  The pilot (error-bar runs only,
@@ -106,19 +121,31 @@
 // independence proposal TMC_PROP_KIND (and TMC_PROP_GAPPED for a CUSTOM
 // one); TMC_LANES, TMC_GROUP.
 #include "tmc_integrands.inc"
+#include "log_pdf_grad.cuh"
 #include "mcmc_pipeline.cuh"
 
 #ifndef TMC_PROP_KIND
 #define TMC_PROP_KIND 0  // walks draw from no proposal family
 #endif
 #ifndef TMC_PROP_GAPPED
-#define TMC_PROP_GAPPED 0  // a CUSTOM proposal's route: 1 gapped, 0 sampler
+// A CUSTOM proposal's logq: 1 from its log table (a gapped proposal, or
+// any of a stateful run), 0 the sampler's own.
+#define TMC_PROP_GAPPED 0
 #endif
 #ifndef TMC_DIAG
 #define TMC_DIAG 0  // 1: the split-half diagnostic rows
 #endif
 #ifndef TMC_SAMPLES
 #define TMC_SAMPLES 0  // 1: the thinned draws
+#endif
+#ifndef TMC_HMC
+#define TMC_HMC 0  // L > 0: HMC with L leapfrog steps
+#endif
+#ifndef TMC_STATE
+#define TMC_STATE 0  // 1: the final log densities
+#endif
+#ifndef TMC_INIT_STATE
+#define TMC_INIT_STATE 0  // 1: the chains start from x0, logp0
 #endif
 
 namespace {
@@ -144,6 +171,14 @@ constexpr int kPilotThreads = 256;
 constexpr bool kDiag = TMC_DIAG != 0;
 constexpr bool kDraws = TMC_SAMPLES != 0;
 constexpr int kRows = tmc::block_row_count(kDiag);
+constexpr int kLeapfrog = TMC_HMC;
+constexpr bool kState = TMC_STATE != 0;
+constexpr bool kInitState = TMC_INIT_STATE != 0;
+static_assert(kLeapfrog == 0 || kMode != kIndependence,
+              "HMC is a walk mode");
+static_assert(!kInitState || kState, "a resumed run is stateful");
+static_assert(!kState || kPropKind != tmc::kCustom || kPropGapped,
+              "a stateful run's CUSTOM proposal reads its log table");
 using Outputs = tmc::StepOutputs<TMC_K, 1, kDiag, kDraws>;
 constexpr float kLogStepMin = -13.815511f;
 constexpr float kLogStepMax = 13.815511f;
@@ -170,6 +205,25 @@ __device__ __forceinline__ float log_target(const Params& p, float x) {
     return tmc::table_log_pdf(p.tb.targ[0], x);
   } else {
     return log_pdf(kTargKind, p.t1, p.t2, x);
+  }
+}
+
+// The target's d/dx log density at x (HMC's gradient).
+__device__ __forceinline__ float grad_target(const Params& p, float x) {
+  if constexpr (kTargKind == tmc::kCustom) {
+    return tmc::table_log_pdf_slope(p.tb.targ[0], x);
+  } else {
+    return tmc::log_pdf_grad(kTargKind, p.t1, p.t2, x);
+  }
+}
+
+// The independence proposal's log density at a resumed chain's x0: its
+// family's closed form, or its log table.
+__device__ __forceinline__ float logq_at(const Params& p, float x) {
+  if constexpr (kPropKind == tmc::kCustom) {
+    return tmc::table_log_pdf(p.tb.q[0], x);
+  } else {
+    return log_pdf(kPropKind, p.q1, p.q2, x);
   }
 }
 
@@ -244,26 +298,48 @@ struct WalkDraws {
   }
 };
 
-// One walk step: x' = x + step * z, accepted when logf(u) < logp' - logp;
-// the adaptive burn-in moves its log step by Robbins-Monro after each.
+// A walk's move from (x, logp) with the normal draw z and the step: x' =
+// x + step * z and log_alpha = logp' - logp, or under HMC the trajectory
+// of kLeapfrog steps from the momentum z and the gradient g at x.
+__device__ __forceinline__ tmc::HmcProposal walk_move(const Params& p,
+                                                     float x, float logp,
+                                                     float g, float z,
+                                                     float step) {
+  if constexpr (kLeapfrog > 0) {
+    return tmc::hmc_move<kLeapfrog>(
+        x, logp, g, z, step, [&](float v) { return grad_target(p, v); },
+        [&](float v) { return log_target(p, v); });
+  } else {
+    tmc::HmcProposal m;
+    m.x = x + step * z;
+    m.logp = log_target(p, m.x);
+    m.log_alpha = m.logp - logp;
+    return m;
+  }
+}
+
+// One walk step (walk_move), accepted when logf(u) < log_alpha; the
+// adaptive burn-in moves its log step by Robbins-Monro after each.  Under
+// HMC the chain carries its gradient g with x and logp.
 template <bool kAdapt, class Visit>
 struct WalkStep {
   const Params& p;
   float (&x)[1];
   float& logp;
+  float& g;
   float& step;
   float& log_step;
   Visit& visit;
 
   __device__ __forceinline__ void operator()(uint32_t, const WalkDraw& w) {
     if (kAdapt) step = expf(log_step);
-    const float xp = x[0] + step * w.z;
-    const float logp_prop = log_target(p, xp);
-    const float la = logp_prop - logp;
+    const tmc::HmcProposal m = walk_move(p, x[0], logp, g, w.z, step);
+    const float la = m.log_alpha;
     const bool accept = w.logu < la;
     if (accept) {
-      x[0] = xp;
-      logp = logp_prop;
+      x[0] = m.x;
+      logp = m.logp;
+      if constexpr (kLeapfrog > 0) g = m.g;
     }
     if (kAdapt) {
       const float alpha_p = expf(tmc_minimum(la, 0.0f));
@@ -345,7 +421,9 @@ __global__ void __launch_bounds__(kThreads)
 mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
             int n_burnin, int n_steps, int chains_per_program,
             const float* __restrict__ pilots, float* __restrict__ rows,
-            float* __restrict__ x_final, const tmc::Draws draws) {
+            float* __restrict__ x_final, const tmc::Draws draws,
+            const float* __restrict__ x0, const float* __restrict__ logp0,
+            float* __restrict__ logp_final) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params, tb);
@@ -363,8 +441,16 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
   __syncthreads();
 
   float logq;
-  float x[1] = {initial_x(p, state, pos, logq)};
-  float logp = log_target(p, x[0]);
+  float x[1];
+  float logp;
+  if constexpr (kInitState) {
+    x[0] = x0[chain];
+    logp = logp0[chain];
+    logq = kMode == kIndependence ? logq_at(p, x[0]) : 0.0f;
+  } else {
+    x[0] = initial_x(p, state, pos, logq);
+    logp = log_target(p, x[0]);
+  }
   const uint32_t n_burn = uint32_t(n_burnin);
 
   float acc[TMC_K];
@@ -395,18 +481,23 @@ mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
     constexpr bool kAdapt = kMode == kAdaptive;
     float step = p.q1;
     float log_step = logf(p.q1);
-    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, step, log_step, none};
+    float g = kLeapfrog > 0 ? grad_target(p, x[0]) : 0.0f;
+    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, g, step, log_step, none};
     tmc::pipeline<1, kGroup, WalkDraw>(0u, n_burn, 0,
                                        WalkDraws<kAdapt>{state, pos}, burn);
     if (kAdapt) step = expf(log_step);
-    WalkStep<false, Sums<Outputs>> sample{p, x, logp, step, log_step, sums};
+    WalkStep<false, Sums<Outputs>> sample{
+        p, x, logp, g, step, log_step, sums};
     auto run = [&](uint32_t b, uint32_t e) {
       tmc::pipeline<1, kGroup, WalkDraw>(b, e, 0, WalkDraws<false>{state, pos},
                                          sample);
     };
     tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   }
-  if (lane == 0) x_final[chain] = x[0];
+  if (lane == 0) {
+    x_final[chain] = x[0];
+    if constexpr (kState) logp_final[chain] = logp;
+  }
 
   // The block's rows: sums, then the SS and centroid of the chain means;
   // under diagnostics the four rows of the half-chain sequences.
@@ -447,22 +538,30 @@ extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
 // R = 7 with TMC_DIAG (n_steps >= 4) and 3 without, `x_final` n_chains;
 // with TMC_SAMPLES, `samples` holds m x n_chains floats, row j the
 // states after sampling step j * stride (1 <= m, m * stride <= n_steps),
-// else it is ignored.  Returns cudaGetLastError() (0 when accepted).
+// else it is ignored.  With TMC_INIT_STATE the chains start from x0 and
+// logp0 (n_chains floats each), with TMC_STATE `logp_final` gets their
+// final log densities (n_chains floats); else these are ignored.
+// Returns cudaGetLastError() (0 when accepted).
 extern "C" int tmc_mcmc(unsigned int seed, const float* params,
                         const void* tables, int n_burnin, int n_steps,
                         int chains_per_program, int n_chains,
                         const float* pilots, float* rows, float* x_final,
-                        float* samples, int m, int stride, void* stream) {
+                        float* samples, int m, int stride, const float* x0,
+                        const float* logp0, float* logp_final,
+                        void* stream) {
   if (chains_per_program % kChains != 0 ||
       n_chains % chains_per_program != 0 || (kDiag && n_steps < 4) ||
       (kDraws && (samples == nullptr || m < 1 || stride < 1 ||
-                  int64_t(m) * stride > n_steps))) {
+                  int64_t(m) * stride > n_steps)) ||
+      (kInitState && (x0 == nullptr || logp0 == nullptr)) ||
+      (kState && logp_final == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_kernel<<<n_chains / kChains, kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final, tmc::Draws{samples, m, stride});
+      pilots, rows, x_final, tmc::Draws{samples, m, stride}, x0, logp0,
+      logp_final);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,6 +38,15 @@
 //   step order, and counts acceptances.  The pilot (error-bar runs only,
 //   else 0) is the mean of f_k(x0) over the chain's program, computed by
 //   mcmc_nd_pilot_kernel before the chains run.
+// * a stateful run (TMC_STATE) also writes each chain's final log
+//   density; a resumed one (TMC_INIT_STATE) starts from the given x0 (d x
+//   n_chains) and logp0 (logp0 is not recomputed) in place of counter 0's
+//   draws, and an independence proposal takes logq at x0 from its
+//   dimensions' families and log tables (a stateful run's CUSTOM
+//   dimensions all read their log tables).  The wrapper folds the resumed
+//   segment into the seed word, segment * 0x9E3779B1, as the 1-D kernel's.
+//   (The JAX package runs nd state on its XLA sweep, keyed on jax.random;
+//   here it stays in this kernel under the counter stream.)
 //
 // Output: per CUDA block, mcmc.cu's three rows of K + 1 floats (sums and
 // the accept count; SS of the chain means; their centroid), so
@@ -102,6 +111,15 @@ static_assert(kLanes >= 1 && 32 % kLanes == 0 && kGroup >= 1,
 constexpr int kThreads = kChainThreads * kLanes;
 constexpr int kRows = tmc::block_row_count(kDiag);
 using Outputs = tmc::StepOutputs<TMC_K, TMC_D, kDiag, kDraws>;
+#ifndef TMC_STATE
+#define TMC_STATE 0  // 1: the final log densities
+#endif
+#ifndef TMC_INIT_STATE
+#define TMC_INIT_STATE 0  // 1: the chains start from x0, logp0
+#endif
+constexpr bool kState = TMC_STATE != 0;
+constexpr bool kInitState = TMC_INIT_STATE != 0;
+static_assert(!kInitState || kState, "a resumed run is stateful");
 
 // The candidate of independence step i: dimension j drawn under tag j.
 struct Propose {
@@ -218,7 +236,9 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
                const Tables tb, int n_burnin, int n_steps,
                int chains_per_program, const float* __restrict__ pilots,
                float* __restrict__ rows, float* __restrict__ x_final,
-               const tmc::Draws draws) {
+               const tmc::Draws draws, const float* __restrict__ x0,
+               const float* __restrict__ logp0,
+               float* __restrict__ logp_final) {
   __shared__ float s_pilot[TMC_K];
 
   const Params p = load_params(params, tb);
@@ -235,9 +255,20 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
   if constexpr (kDiag) tmc::zero_diag_sums<TMC_K>();
   __syncthreads();
 
+  const int n_chains = gridDim.x * kChainThreads;
   float x[TMC_D], slope[TMC_D];
-  initial_x(p, state, pos, x, slope);
-  float logp = log_target(x, p);
+  float logp;
+  if constexpr (kInitState) {
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      x[j] = x0[j * n_chains + chain];
+      slope[j] = 0.0f;  // no dimension is in sampler mode
+    }
+    logp = logp0[chain];
+  } else {
+    initial_x(p, state, pos, x, slope);
+    logp = log_target(x, p);
+  }
   float logq = kMode == kIndependence ? log_proposal(x, slope, p) : 0.0f;
   const uint32_t n_burn = uint32_t(n_burnin);
 
@@ -288,9 +319,9 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
     tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   }
   if (lane == 0) {
-    const int n_chains = gridDim.x * kChainThreads;
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) x_final[j * n_chains + chain] = x[j];
+    if constexpr (kState) logp_final[chain] = logp;
   }
 
   // The block's rows: sums, then the SS and centroid of the chain means;
@@ -325,22 +356,29 @@ extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
 // >= 4) and 3 without, `x_final` TMC_D x n_chains; with TMC_SAMPLES,
 // `samples` holds m x TMC_D x n_chains floats, row j the states after
 // sampling step j * stride (1 <= m, m * stride <= n_steps), else it is
-// ignored.
+// ignored.  With TMC_INIT_STATE the chains start from x0 (TMC_D x
+// n_chains floats) and logp0 (n_chains), with TMC_STATE `logp_final`
+// gets their final log densities (n_chains); else these are ignored.
 // Returns cudaGetLastError() (0 when the launch was accepted).
 extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
                            const void* tables, int n_burnin, int n_steps,
                            int chains_per_program, int n_chains,
                            const float* pilots, float* rows, float* x_final,
-                           float* samples, int m, int stride, void* stream) {
+                           float* samples, int m, int stride, const float* x0,
+                           const float* logp0, float* logp_final,
+                           void* stream) {
   if (chains_per_program % kChainThreads != 0 ||
       n_chains % chains_per_program != 0 ||
-      !outputs_valid(n_steps, samples, m, stride)) {
+      !outputs_valid(n_steps, samples, m, stride) ||
+      (kInitState && (x0 == nullptr || logp0 == nullptr)) ||
+      (kState && logp_final == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mcmc_nd_kernel<<<n_chains / kChainThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final, tmc::Draws{samples, m, stride});
+      pilots, rows, x_final, tmc::Draws{samples, m, stride}, x0, logp0,
+      logp_final);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,6 @@ import numpy as np
 
 from . import tables as _tables
 from .sampling import ANALYTIC_EXT, DistKind
-from .utils.roadmap import MCMC_HMC, not_ported
 
 __all__ = ["HMC", "Distribution", "DistributionType", "RandomWalk"]
 
@@ -886,9 +885,15 @@ class RandomWalk:
         """The port's equivalent of a ``tpu_montecarlo`` ``RandomWalk``.
 
         Duck-typed like ``Distribution.from_reference``; an ``HMC``
-        proposal raises, since HMC is not ported yet."""
+        proposal becomes the port's :class:`HMC`."""
         if type(rw).__name__ == "HMC":
-            raise not_ported("HMC proposals", MCMC_HMC)
+            return HMC(
+                step_size=rw.step_size,
+                n_leapfrog=rw.n_leapfrog,
+                adapt=rw.adapt,
+                target_accept=rw.target_accept,
+                init_range=rw.init_range,
+            )
         return RandomWalk(
             step_size=rw.step_size,
             adapt=rw.adapt,
@@ -949,10 +954,51 @@ class RandomWalk:
 
 
 class HMC(RandomWalk):
-    """Hamiltonian Monte Carlo proposal: not ported yet; constructing one
-    raises ``NotImplementedError`` naming its ROADMAP item."""
+    """Hamiltonian Monte Carlo proposal for ``integrate_mcmc`` (port of
+    ``tpu_montecarlo/distributions.py:986``).
 
-    __slots__ = ()
+    Each MCMC step draws a per-chain momentum ``p ~ N(0, 1)``, runs
+    ``n_leapfrog`` leapfrog steps of size ``step_size`` through ``H(x, p)
+    = -log pi(x) + p^2 / 2`` (the position gradient is d log pi / dx: the
+    closed form's for an analytic target, the log table's slope for a
+    CUSTOM one) and accepts the end with the exact Metropolis correction
+    ``log u < [log pi(x') - p'^2 / 2] - [log pi(x) - p^2 / 2]``; a
+    diverged trajectory rejects.  ``adapt=True`` tunes a per-chain log
+    step toward ``target_accept`` (default 0.8) during burn-in, as
+    :class:`RandomWalk` does, and freezes it for sampling.  ``init_range``
+    places the chains as for :class:`RandomWalk`.  On a Gaussian of scale
+    sigma a trajectory of length ``step_size * n_leapfrog`` near pi *
+    sigma is resonant (each step lands near -x); pick another length.
+    The port runs it over one dimension; nd and tempered HMC raise
+    ``NotImplementedError`` naming their ROADMAP items."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("HMC proposals", MCMC_HMC)
+    __slots__ = ("n_leapfrog",)
+
+    def __init__(
+        self,
+        step_size=0.5,
+        n_leapfrog: int = 8,
+        adapt: bool = False,
+        target_accept: float = 0.8,
+        init_range=None,
+    ):
+        super().__init__(
+            step_size=step_size,
+            adapt=adapt,
+            target_accept=target_accept,
+            init_range=init_range,
+        )
+        n_leapfrog = int(n_leapfrog)
+        if n_leapfrog < 1:
+            raise ValueError(
+                f"n_leapfrog must be a positive integer, got {n_leapfrog}"
+            )
+        self.n_leapfrog = n_leapfrog
+
+    def __repr__(self) -> str:
+        return (
+            f"HMC(step_size={self.step_size}, "
+            f"n_leapfrog={self.n_leapfrog}, adapt={self.adapt}, "
+            f"target_accept={self.target_accept}, "
+            f"init_range={self.init_range})"
+        )

@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 # Headers every kernel source may include.
 _HEADERS = (
     "counter_rng.cuh", "integrand_math.cuh", "integrate_draw.cuh",
-    "mcmc_nd_common.cuh", "mcmc_pipeline.cuh", "sobol.cuh",
+    "log_pdf_grad.cuh", "mcmc_nd_common.cuh", "mcmc_pipeline.cuh",
+    "sobol.cuh",
 )
 
 

@@ -2,7 +2,9 @@
 CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/mcmc_pallas.py`` (``build_mcmc_fn_pallas``)
-in its independence, random-walk and adaptive random-walk modes, with and
+in its independence, random-walk and adaptive random-walk modes, with HMC
+(``hmc_leapfrog``: the walk's step becomes an L-step leapfrog trajectory)
+and chain state in and out (``with_state``, ``use_init_state``), with and
 without error bars, for the uniform, normal and exponential families, the
 seven extended families (``sampling.ANALYTIC_EXT``) and CUSTOM tables: a
 table target, and a table proposal in sampler mode (its
@@ -10,7 +12,8 @@ logq the draw's own density) or gapped (its logq from its log table), as
 ``ops/mcmc_tables.py`` reads them.
 Both versions here run, chain for chain, the chains that the JAX kernel
 runs under ``CounterRng`` (its interpreter stream): the same seeding per
-(seed ^ 0x5BD1E995, program), the same counters per step (0 for the
+(seed ^ 0x5BD1E995 ^ segment * 0x9E3779B1, program; segment 0 but for a
+resumed run), the same counters per step (0 for the
 initial state, 3i+1 for the proposal, 3i+2 for the accept test) and the
 same float32 operation order.  Only last-bit differences of ``log``,
 ``exp`` and ``erfinv`` between libraries can flip an accept decision.
@@ -45,7 +48,12 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..sampling import DistKind, analytic_log_pdf, normal_from_u01
+from ..sampling import (
+    DistKind,
+    analytic_log_pdf,
+    log_pdf_grad,
+    normal_from_u01,
+)
 from ..tracing import TracedFunction
 from .integrate_kernel import (
     LANES,
@@ -66,6 +74,7 @@ from .mcmc_tables import (
     check_dim_tables,
     inverse_draw,
     kernel_tables,
+    log_table_slope,
     log_table_value,
     sampler_logq,
 )
@@ -78,6 +87,7 @@ __all__ = [
     "McmcGrid",
     "McmcOutput",
     "McmcProgram",
+    "ChainStart",
     "Mode",
     "block_rows",
     "default_layout",
@@ -88,6 +98,7 @@ __all__ = [
     "plan_chains",
     "plan_mcmc_grid",
     "seed_word",
+    "segment_word",
 ]
 
 #: Chains per CUDA block, and so per row of the output: fixed in
@@ -97,6 +108,8 @@ CHAIN_THREADS = 32
 #: One lane of the JAX kernel's output row holds the accept count.
 MAX_FUNCTIONS = LANES - 1
 _SEED_MIX = 0x5BD1E995
+#: Folded into the seed word per resumed segment (``mcmc_pallas.py:137-140``).
+SEGMENT_MIX = 0x9E3779B1
 _LOG_STEP_MIN = -13.815511
 _LOG_STEP_MAX = 13.815511
 
@@ -131,10 +144,17 @@ LAYOUTS_BY_FUNCTIONS = ((8, Layout(lanes=8, group=4)),
 WIDE_LAYOUT = Layout(lanes=1, group=2)
 #: A walk's step waits on the one before: one lane, 8 steps' draws ahead.
 WALK_LAYOUT = Layout(lanes=1, group=8)
+#: HMC's step is L gradient evaluations on the carried chain: one lane,
+#: and 4 steps' draws ahead, the fastest of groups 1, 2, 4 and 8 at c11 and
+#: c11c on an H100 (``chip_smoke.py`` phases 48-49; ``PERF.md``).
+HMC_LAYOUT = Layout(lanes=1, group=4)
 
 
-def default_layout(mode: Mode, k: int) -> Layout:
-    """The layout a kernel of ``k`` integrands compiles in for ``mode``."""
+def default_layout(mode: Mode, k: int, hmc: bool = False) -> Layout:
+    """The layout a kernel of ``k`` integrands compiles in for ``mode``
+    (``hmc``: a walk mode's HMC)."""
+    if hmc:
+        return HMC_LAYOUT
     if mode != Mode.INDEPENDENCE:
         return WALK_LAYOUT
     return next((layout for most, layout in LAYOUTS_BY_FUNCTIONS
@@ -197,19 +217,60 @@ def plan_mcmc_grid(total_chains: int) -> McmcGrid:
     return McmcGrid(programs, rows, programs * block)
 
 
-def seed_word(seed: int) -> int:
+def segment_word(word: int, segment: int) -> int:
+    """A seed word with a resumed segment folded in, ``word ^ (segment *
+    0x9E3779B1)`` in 32-bit arithmetic (the JAX kernel's int32 product):
+    segment 0 leaves the word, so a fresh stateful run draws the stateless
+    run's streams."""
+    return word ^ ((int(segment) * SEGMENT_MIX) & 0xFFFFFFFF)
+
+
+def seed_word(seed: int, segment: int = 0) -> int:
     """The kernels' seed word: the seed as uint32 (``np.uint32`` rejects
-    seeds outside [0, 2**32), as the JAX package does) xor 0x5BD1E995."""
-    return int(np.uint32(seed)) ^ _SEED_MIX
+    seeds outside [0, 2**32), as the JAX package does) xor 0x5BD1E995,
+    with the resumed ``segment`` folded in (:func:`segment_word`)."""
+    return segment_word(int(np.uint32(seed)) ^ _SEED_MIX, segment)
+
+
+def check_state(cfg) -> None:
+    """The JAX kernel builders' checks of a stateful config
+    (``mcmc_pallas.py:525-563``), shared by the 1-D and nd configs."""
+    if cfg.use_init_state and not cfg.with_state:
+        raise ValueError(
+            "use_init_state requires with_state=True (the stateless "
+            "program has no state inputs)"
+        )
+    if cfg.with_state:
+        for on, name in ((cfg.with_stderr, "with_stderr"),
+                         (cfg.with_diagnostics, "with_diagnostics"),
+                         (cfg.samples, "with_samples")):
+            if on:
+                raise ValueError(
+                    f"{name} applies to stateless MCMC programs only")
+    if cfg.use_init_state and cfg.mode == Mode.ADAPTIVE:
+        raise ValueError("rw_adapt is stateless-only (steps not resumable)")
+
+
+def state_source(state) -> str:
+    """The generated source's lines for a config's ``state`` (leapfrog
+    steps, state out, state in); none for a library without them."""
+    leapfrog, with_state, use_init_state = state
+    return ((f"#define TMC_HMC {int(leapfrog)}\n" if leapfrog else "")
+            + ("#define TMC_STATE 1\n" if with_state else "")
+            + ("#define TMC_INIT_STATE 1\n" if use_init_state else ""))
 
 
 @dataclass(frozen=True)
 class McmcConfig:
     """What a run does.  ``proposal_kind`` is ignored by the walks;
-    ``prop_gapped`` marks a CUSTOM proposal drawn from gap-respecting
-    tables, whose logq comes from its log table (else sampler mode);
-    ``with_diagnostics`` adds split-R-hat and ESS (n_steps >= 4), and
-    ``samples`` (0 for none) the thinned draws."""
+    ``prop_gapped`` marks a CUSTOM proposal whose logq comes from its log
+    table (a gapped one, drawn from gap-respecting tables, and any one of
+    a stateful run; else sampler mode); ``with_diagnostics`` adds
+    split-R-hat and ESS (n_steps >= 4), and ``samples`` (0 for none) the
+    thinned draws.  ``hmc_leapfrog`` (L > 0, a walk mode) makes each step
+    an L-step leapfrog trajectory; ``with_state`` returns each chain's
+    final log density beside its state, and ``use_init_state`` starts the
+    chains from a given state (x0, logp0) instead of counter 0's draws."""
 
     mode: Mode
     proposal_kind: DistKind
@@ -220,9 +281,27 @@ class McmcConfig:
     prop_gapped: bool = False
     with_diagnostics: bool = False
     samples: int = 0
+    hmc_leapfrog: int = 0
+    with_state: bool = False
+    use_init_state: bool = False
 
     def __post_init__(self):
         check_outputs(self.n_steps, self.with_diagnostics, self.samples)
+        if self.hmc_leapfrog < 0 or (
+                self.hmc_leapfrog and self.mode == Mode.INDEPENDENCE):
+            raise ValueError("hmc_leapfrog requires a walk mode")
+        check_state(self)
+        if (self.with_state and self.roles[0] and not self.prop_gapped):
+            raise ValueError(
+                "a stateful run takes a CUSTOM proposal's logq from its log "
+                "table (prop_gapped=True): its start has no draw")
+
+    @property
+    def state(self):
+        """What the library compiles in for HMC and the chain state:
+        (leapfrog steps, state out, state in)."""
+        return (int(self.hmc_leapfrog), bool(self.with_state),
+                bool(self.use_init_state))
 
     @property
     def outputs(self):
@@ -260,11 +339,22 @@ class McmcOutput(NamedTuple):
     = 3, or 7 with diagnostics; ``x_final``: (chains,) float32 final chain
     states, (d, chains) from the nd kernel (``ops/mcmc_nd_kernel.py``);
     ``samples``: the thinned draws, (m, chains) float32, (m, d, chains)
-    from the nd and tempered kernels, or None."""
+    from the nd and tempered kernels, or None; ``logp_final``: a stateful
+    run's (chains,) float32 final target log densities, else None."""
 
     rows: torch.Tensor
     x_final: torch.Tensor
     samples: Optional[torch.Tensor] = None
+    logp_final: Optional[torch.Tensor] = None
+
+
+class ChainStart(NamedTuple):
+    """A resumed run's start: each chain's state ``x`` ((chains,) float32,
+    (d, chains) over d dimensions) and its target log density ``log_p``
+    ((chains,) float32), on the run's device."""
+
+    x: torch.Tensor
+    log_p: torch.Tensor
 
 
 def outputs_source(outputs) -> str:
@@ -302,7 +392,8 @@ class McmcProgram:
     def layout_for(self, cfg: McmcConfig) -> Layout:
         """The layout the library of ``cfg``'s mode runs."""
         if self.layout is None:
-            return default_layout(cfg.mode, len(self.fns))
+            return default_layout(cfg.mode, len(self.fns),
+                                  bool(cfg.hmc_leapfrog))
         return check_layout(cfg.mode, self.layout)
 
     def source(self, cfg: McmcConfig) -> str:
@@ -321,10 +412,11 @@ class McmcProgram:
         if prop == DistKind.CUSTOM:
             parts.append(f"#define TMC_PROP_GAPPED {int(gapped)}\n")
         parts.append(outputs_source(cfg.outputs))
+        parts.append(state_source(cfg.state))
         return "".join(parts)
 
     def library(self, cfg: McmcConfig):
-        key = (cfg.compiled, cfg.outputs, self.layout_for(cfg))
+        key = (cfg.compiled, cfg.outputs, cfg.state, self.layout_for(cfg))
         if key not in self._libs:
             from .build import load_kernel_library
 
@@ -336,9 +428,9 @@ class McmcProgram:
             lib.tmc_mcmc_pilots.restype = i
             # seed word, params, host tables, burn-in, steps, chains per
             # program, chains, pilots, rows, x_final, samples, m, stride,
-            # stream
+            # x0, logp0, logp_final, stream
             lib.tmc_mcmc.argtypes = [u, p, p, i, i, i, i, p, p, p, p, i, i,
-                                     p]
+                                     p, p, p, p]
             lib.tmc_mcmc.restype = i
             self._libs[key] = lib
         return self._libs[key]
@@ -358,6 +450,29 @@ def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int,
         raise ValueError(f"1 to {MAX_FUNCTIONS} functions, got {k}")
     if cfg.n_steps < 1 or cfg.n_burnin < 0:
         raise ValueError("n_steps must be positive and n_burnin non-negative")
+
+
+def check_start(cfg, start: Optional[ChainStart], x_shape,
+                device: torch.device) -> None:
+    """Raises ValueError unless ``start`` is given exactly when ``cfg``
+    resumes (``use_init_state``), with float32 ``x`` of ``x_shape`` and
+    ``log_p`` of one entry per chain, on ``device``."""
+    if (start is not None) != bool(cfg.use_init_state):
+        raise ValueError("a start state goes with use_init_state=True, "
+                         "and only with it")
+    if start is None:
+        return
+    x, log_p = start
+    if (x.dtype != torch.float32 or log_p.dtype != torch.float32
+            or tuple(x.shape) != tuple(x_shape)
+            or tuple(log_p.shape) != (x_shape[-1],)):
+        raise ValueError(
+            f"the start state must be float32 x of shape {tuple(x_shape)} and "
+            f"log_p of ({x_shape[-1]},), got {tuple(x.shape)} {x.dtype} and "
+            f"{tuple(log_p.shape)} {log_p.dtype}")
+    if x.device != device or log_p.device != device:
+        raise ValueError(f"the start state lies on {x.device}, the run on "
+                         f"{device}")
 
 
 def block_rows(
@@ -394,17 +509,22 @@ def mcmc_reference(
     seed: int,
     grid: McmcGrid,
     tables: Optional[DimTables] = None,
+    segment: int = 0,
+    start: Optional[ChainStart] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over all chains, a Python loop over the steps, with the
     kernel's counters and float32 operation order.  ``tables`` holds the
-    CUSTOM tables of a table proposal or target."""
+    CUSTOM tables of a table proposal or target; ``segment`` is folded
+    into the seed word, and a resumed run (``cfg.use_init_state``) starts
+    from ``start``."""
     _check_args(cfg, params, len(torch_fns), tables)
     dev = params.device
+    check_start(cfg, start, (grid.chains_actual,), dev)
     q1, q2, q3, q4, t1, t2 = params.unbind()
     shape = (grid.rows, LANES)
     pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
-    rng = CounterRng(seed_word(seed), pids, device=dev)
+    rng = CounterRng(seed_word(seed, segment), pids, device=dev)
     indep = cfg.mode == Mode.INDEPENDENCE
     _, _, _, gapped = cfg.compiled
 
@@ -419,19 +539,36 @@ def mcmc_reference(
         x = sample_block(cfg.proposal_kind, q1, q2, rng, shape, counter)
         return x, analytic_log_pdf(cfg.proposal_kind, q1, q2, x)
 
+    def lp_q(v):
+        """The proposal's log density at a chain's start (table logq)."""
+        if gapped:
+            return log_table_value(v, tables.q)
+        return analytic_log_pdf(cfg.proposal_kind, q1, q2, v)
+
     def lp_t(v):
         if cfg.target_kind == DistKind.CUSTOM:
             return log_table_value(v, tables.targ)
         return analytic_log_pdf(cfg.target_kind, t1, t2, v)
 
+    def grad_t(v):
+        if cfg.target_kind == DistKind.CUSTOM:
+            return log_table_slope(v, tables.targ)
+        return log_pdf_grad(cfg.target_kind, t1, t2, v)
+
     def values(v):
         return [f(v).to(torch.float32) for f in torch_fns]
 
-    if indep:
-        x, logq = propose(0)
+    if start is not None:
+        x = start.x.reshape(grid.programs, *shape)
+        logp = start.log_p.reshape(grid.programs, *shape)
+        if indep:
+            logq = lp_q(x)
     else:
-        x = q2 + uniform_halfopen01(rng, shape, 0, 0) * (q3 - q2)
-    logp = lp_t(x)
+        if indep:
+            x, logq = propose(0)
+        else:
+            x = q2 + uniform_halfopen01(rng, shape, 0, 0) * (q3 - q2)
+        logp = lp_t(x)
     k = len(torch_fns)
     if cfg.stat_mode:
         n_block = float(grid.chains_per_program)
@@ -441,6 +578,8 @@ def mcmc_reference(
     outs = PhaseOutputs(cfg.n_steps, cfg.with_diagnostics, cfg.samples, k, x)
 
     step = q1
+    if cfg.hmc_leapfrog:
+        g = grad_t(x)
     if cfg.mode == Mode.ADAPTIVE:
         log_step = torch.log(q1) + torch.zeros_like(x)
     accs = [torch.zeros_like(x) for _ in range(k)]
@@ -453,6 +592,11 @@ def mcmc_reference(
             xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = logp_prop + logq - logp - logq_prop
+        elif cfg.hmc_leapfrog:
+            u = uniform_halfopen01(rng, shape, 3 * i + 1, 0)
+            xp, logp_prop, g_prop, log_alpha = hmc_move(
+                x, logp, g, normal_from_u01(u), step, cfg.hmc_leapfrog,
+                grad_t, lp_t)
         else:
             u = uniform_halfopen01(rng, shape, 3 * i + 1, 0)
             xp = x + step * normal_from_u01(u)
@@ -464,6 +608,8 @@ def mcmc_reference(
         logp = torch.where(accept, logp_prop, logp)
         if indep:
             logq = torch.where(accept, logq_prop, logq)
+        elif cfg.hmc_leapfrog:
+            g = torch.where(accept, g_prop, g)
         if burn:
             if cfg.mode == Mode.ADAPTIVE:
                 alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
@@ -485,7 +631,29 @@ def mcmc_reference(
     )
     rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
     return McmcOutput(with_diag_rows(rows, outs, chain_pilots),
-                      x.reshape(-1), outs.samples())
+                      x.reshape(-1), outs.samples(),
+                      logp.reshape(-1) if cfg.with_state else None)
+
+
+def hmc_move(x, logp, g, p0, step, n_leapfrog: int, grad, target):
+    """One HMC move (``mcmc_pallas.py:795-832``; ``csrc/log_pdf_grad.cuh``
+    ``hmc_move``): ``n_leapfrog`` kick-drift-kick steps of size ``step``
+    from ``x``, whose gradient is ``g``, with the momentum ``p0``, then
+    ``(x', logp', grad(x'), log_alpha)`` with the energy-corrected
+    ``log_alpha``, -3.0e38 where it is NaN (a diverged trajectory
+    rejects).  The chain carries ``g``: the JAX kernel recomputes it at each
+    step, the same function of the same x."""
+    half = 0.5 * step
+    xq, p = x, p0
+    for _ in range(n_leapfrog):
+        p = p + half * g
+        xq = xq + step * p
+        g = grad(xq)
+        p = p + half * g
+    logp_prop = target(xq)
+    log_alpha = (logp_prop - 0.5 * p * p) - (logp - 0.5 * p0 * p0)
+    log_alpha = torch.where(torch.isnan(log_alpha), -3.0e38, log_alpha)
+    return xq, logp_prop, g, log_alpha
 
 
 def with_diag_rows(rows: torch.Tensor, outs: PhaseOutputs,
@@ -503,22 +671,27 @@ def mcmc_cuda(
     seed: int,
     grid: McmcGrid,
     tables: Optional[DimTables] = None,
+    segment: int = 0,
+    start: Optional[ChainStart] = None,
 ) -> McmcOutput:
     """Runs the grid's chains on ``params``' device, with ``tables`` (on
-    the same device) for a CUSTOM proposal or target.
+    the same device) for a CUSTOM proposal or target, under the seed word
+    of ``segment``, from ``start`` when ``cfg`` resumes.
 
     A CUDA ``params`` launches the kernel: ``mcmc_cuda.launches`` counts
     the chain-kernel launches, and ``mcmc_cuda.pilot_launches`` the pilot
     kernel's, which an error-bar or diagnostics run launches first;
     ``mcmc_cuda.diag_launches`` and ``mcmc_cuda.sample_launches`` count
-    the chain launches with diagnostics and with draws.  A CPU ``params``
-    runs the plain version.  Any other
-    device raises.  The launches are asynchronous on the current
-    stream."""
+    the chain launches with diagnostics and with draws,
+    ``mcmc_cuda.hmc_launches`` and ``mcmc_cuda.state_launches`` those of
+    HMC and of stateful runs.  A CPU ``params`` runs the plain version.
+    Any other device raises.  The launches are asynchronous on the
+    current stream."""
     _check_args(cfg, params, len(program.fns), tables)
+    check_start(cfg, start, (grid.chains_actual,), params.device)
     if params.device.type == "cpu":
         return mcmc_reference(program.torch_fns, cfg, params, seed, grid,
-                              tables)
+                              tables, segment, start)
     if params.device.type != "cuda":
         raise ValueError(f"no MCMC kernel for device {params.device}")
     params = params.contiguous()
@@ -527,12 +700,15 @@ def mcmc_cuda(
     lib = program.library(cfg)
     k = len(program.fns)
     dev = params.device
-    word = seed_word(seed)
+    word = seed_word(seed, segment)
     rows = torch.empty(
         (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
         dtype=torch.float32, device=dev,
     )
     x_final = torch.empty(grid.chains_actual, dtype=torch.float32, device=dev)
+    logp_final = (torch.empty_like(x_final) if cfg.with_state else None)
+    start = None if start is None else ChainStart(*(t.contiguous()
+                                                    for t in start))
     samples = sample_buffer(cfg, (grid.chains_actual,), dev)
     pilots = None
     with torch.cuda.device(dev):
@@ -553,17 +729,28 @@ def mcmc_cuda(
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
-            stream,
+            *state_args(start, logp_final), stream,
         )
         _raise_on(lib, err, "chain")
     count_launch(mcmc_cuda, cfg)
-    return McmcOutput(rows, x_final, samples)
+    return McmcOutput(rows, x_final, samples, logp_final)
 
 
 mcmc_cuda.launches = 0
 mcmc_cuda.pilot_launches = 0
 mcmc_cuda.diag_launches = 0
 mcmc_cuda.sample_launches = 0
+mcmc_cuda.hmc_launches = 0
+mcmc_cuda.state_launches = 0
+
+
+def state_args(start: Optional[ChainStart],
+               logp_final: Optional[torch.Tensor]):
+    """The chain entry point's (x0, logp0, logp_final) arguments: null
+    where the run has none."""
+    x0, logp0 = (None, None) if start is None else (
+        start.x.data_ptr(), start.log_p.data_ptr())
+    return x0, logp0, None if logp_final is None else logp_final.data_ptr()
 
 
 def sample_buffer(cfg, shape, dev) -> Optional[torch.Tensor]:
@@ -586,6 +773,10 @@ def count_launch(wrapper, cfg) -> None:
     wrapper.launches += 1
     wrapper.diag_launches += int(bool(cfg.with_diagnostics))
     wrapper.sample_launches += int(bool(cfg.samples))
+    if getattr(cfg, "hmc_leapfrog", 0):
+        wrapper.hmc_launches += 1
+    if getattr(cfg, "with_state", False):
+        wrapper.state_launches += 1
 
 
 def _raise_on(lib, err: int, what: str) -> None:

@@ -3,7 +3,12 @@ the CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/mcmc_nd_pallas.py`` (``build_mcmc_nd_pallas``)
 in its independence, random-walk and adaptive random-walk modes, with and
-without error bars, for d dimensions of the uniform, normal and
+without error bars, with chain state in and out (``with_state``,
+``use_init_state``: the JAX package runs nd state on its XLA sweep keyed
+on ``jax.random``, ``tpu_montecarlo/api/mcmc_nd.py:431-533``; the port
+keeps it in this kernel under the counter stream, the resumed segment
+folded into the seed word as the 1-D kernel folds it), for d dimensions
+of the uniform, normal and
 exponential families, the seven extended families and CUSTOM tables
 (``ops/mcmc_tables.py``: target dimensions, and proposal dimensions in
 sampler mode or gapped) under a
@@ -52,12 +57,15 @@ from .lower import cuda_source, cuda_target_source, to_torch
 from .mcmc_kernel import (
     CHAIN_THREADS,
     MAX_FUNCTIONS,
+    ChainStart,
     Layout,
     McmcGrid,
     McmcOutput,
     Mode,
     block_rows,
     check_layout,
+    check_start,
+    check_state,
     count_launch,
     default_layout,
     layout_source,
@@ -65,6 +73,9 @@ from .mcmc_kernel import (
     row_count,
     sample_args,
     sample_buffer,
+    segment_word,
+    state_args,
+    state_source,
     with_diag_rows,
 )
 from .mcmc_diagnostics import PhaseOutputs, check_outputs
@@ -94,11 +105,12 @@ _LOG_SCALE_MAX = 13.815511
 _ROW = 6  # floats per dimension in params
 
 
-def nd_seed_word(seed: int) -> int:
+def nd_seed_word(seed: int, segment: int = 0) -> int:
     """The nd kernels' seed word: the seed as uint32 (``np.uint32``
     rejects seeds outside [0, 2**32), as the JAX package does) xor
-    0x27D4EB2F."""
-    return int(np.uint32(seed)) ^ ND_SEED_MIX
+    0x27D4EB2F, with a resumed ``segment`` folded in as the 1-D kernels'
+    (``ops/mcmc_kernel.py`` ``segment_word``)."""
+    return segment_word(int(np.uint32(seed)) ^ ND_SEED_MIX, segment)
 
 
 @dataclass(frozen=True)
@@ -108,8 +120,10 @@ class McmcNdConfig:
     ``targ_kinds``: the product target's, or None for a joint log
     density; ``prop_gapped``: per proposal dimension, whether a CUSTOM
     one is drawn from gap-respecting tables (its logq from its log
-    table; else sampler mode), ``()`` for none; ``with_diagnostics`` and
-    ``samples`` as the 1-D config's (``ops/mcmc_kernel.py``)."""
+    table; else sampler mode; a stateful run's CUSTOM dimensions all
+    read their log tables), ``()`` for none; ``with_diagnostics``,
+    ``samples``, ``with_state`` and ``use_init_state`` as the 1-D
+    config's (``ops/mcmc_kernel.py``)."""
 
     # The path, as messages name it.
     _what = "nd MCMC"
@@ -124,6 +138,8 @@ class McmcNdConfig:
     prop_gapped: Tuple[bool, ...] = ()
     with_diagnostics: bool = False
     samples: int = 0
+    with_state: bool = False
+    use_init_state: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
@@ -155,6 +171,19 @@ class McmcNdConfig:
         if self.n_steps < 1 or self.n_burnin < 0:
             raise ValueError("n_steps must be positive and n_burnin non-negative")
         check_outputs(self.n_steps, self.with_diagnostics, self.samples)
+        check_state(self)
+        if self.with_state and any(
+                k == DistKind.CUSTOM and not g
+                for k, g in zip(self.prop_kinds, gapped)):
+            raise ValueError(
+                "a stateful run takes its CUSTOM proposal dimensions' logq "
+                "from their log tables (prop_gapped): its start has no draw")
+
+    @property
+    def state(self):
+        """What the library compiles in for the chain state: (0 leapfrog
+        steps, state out, state in)."""
+        return 0, bool(self.with_state), bool(self.use_init_state)
 
     @property
     def outputs(self):
@@ -202,6 +231,8 @@ class McmcNdProgram:
     entry_points = ("tmc_mcmc_nd_pilots", "tmc_mcmc_nd")
     #: The chain entry point's device arrays before the run's sizes.
     chain_inputs = ("params",)
+    #: Whether the chain entry point takes (x0, logp0, logp_final).
+    takes_state = True
     #: The layout's lines in the generated source.
     layout_source = staticmethod(layout_source)
 
@@ -234,6 +265,7 @@ class McmcNdProgram:
         self.target = target
         self.compiled = cfg.compiled
         self.outputs = cfg.outputs
+        self.state = cfg.state
         self.layout = self._layout(cfg.mode, layout)
         self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
         self.torch_target = None if target is None else to_torch(target)
@@ -268,6 +300,7 @@ class McmcNdProgram:
         else:
             parts.append(kinds("TMC_TARG_KINDS", targ_kinds))
         parts.append(outputs_source(self.outputs))
+        parts.append(state_source(self.state))
         return "".join(parts)
 
     def library(self):
@@ -282,9 +315,10 @@ class McmcNdProgram:
             pilots.argtypes = [u, p, p, i, i, p, p]
             # seed word, chain_inputs, host tables, burn-in, steps, chains
             # per program, chains, pilots, rows, x_final, samples, m,
-            # stride, stream
+            # stride, (x0, logp0, logp_final,) stream
             chain.argtypes = [u, *[p] * len(self.chain_inputs), p,
-                              i, i, i, i, p, p, p, p, i, i, p]
+                              i, i, i, i, p, p, p, p, i, i,
+                              *[p] * (3 * self.takes_state), p]
             pilots.restype = chain.restype = i
             self._lib = lib
         return self._lib
@@ -355,6 +389,18 @@ def draw_proposal(cfg, q1, q2, rng, shape, counter, tags, tables=None):
     return xs, drawn if rest is None else drawn + rest
 
 
+def log_proposal_at(cfg, q1, q2, xs, tables=None) -> torch.Tensor:
+    """A stateful run's independence proposal log density at the d blocks
+    ``xs`` (a resumed chain's start): its dimensions' closed forms and
+    log tables summed in dimension order (no dimension is in sampler
+    mode)."""
+    return _summed([
+        log_table_value(xs[j], tables[j].q) if kind == DistKind.CUSTOM
+        else analytic_log_pdf(kind, q1[j], q2[j], xs[j])
+        for j, kind in enumerate(cfg.prop_kinds)
+    ])
+
+
 def mcmc_nd_reference(
     torch_fns: Sequence[Callable],
     torch_target: Optional[Callable],
@@ -363,19 +409,23 @@ def mcmc_nd_reference(
     seed: int,
     grid: McmcGrid,
     tables: Optional[Sequence[Optional[DimTables]]] = None,
+    segment: int = 0,
+    start: Optional[ChainStart] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over all chains, a Python loop over the steps, with the
     kernel's counters, tags and float32 operation order.  ``tables``
     holds one :class:`DimTables` (or None) per dimension where any is
-    CUSTOM.  Returns the kernel's rows and ``x_final`` as (d, chains)."""
+    CUSTOM; ``segment`` and ``start`` as the 1-D version's, x (d,
+    chains).  Returns the kernel's rows and ``x_final`` as (d, chains)."""
     _check_args(cfg, params, len(torch_fns), tables=tables)
     if (torch_target is None) != (cfg.targ_kinds is not None):
         raise ValueError("a joint target needs its log density, a product none")
     dev = params.device
+    check_start(cfg, start, (cfg.d, grid.chains_actual), dev)
     shape = (grid.rows, LANES)
     pids = torch.arange(grid.programs, dtype=torch.int64, device=dev)
-    rng = CounterRng(nd_seed_word(seed), pids, device=dev)
+    rng = CounterRng(nd_seed_word(seed, segment), pids, device=dev)
     q1, q2, q3, q4, t1, t2 = params.unbind(dim=1)
     dims = range(cfg.d)
     indep = cfg.mode == Mode.INDEPENDENCE
@@ -390,14 +440,20 @@ def mcmc_nd_reference(
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]
 
-    if indep:
-        xs, logq = propose(0)
+    if start is not None:
+        xs = [start.x[j].reshape(grid.programs, *shape) for j in dims]
+        logp = start.log_p.reshape(grid.programs, *shape)
+        if indep:
+            logq = log_proposal_at(cfg, q1, q2, xs, tables)
     else:
-        xs = [
-            q2[j] + (q3[j] - q2[j]) * uniform_halfopen01(rng, shape, 0, j)
-            for j in dims
-        ]
-    logp = lp_t(xs)
+        if indep:
+            xs, logq = propose(0)
+        else:
+            xs = [
+                q2[j] + (q3[j] - q2[j]) * uniform_halfopen01(rng, shape, 0, j)
+                for j in dims
+            ]
+        logp = lp_t(xs)
     k = len(torch_fns)
     if cfg.stat_mode:
         n_block = float(grid.chains_per_program)
@@ -457,7 +513,8 @@ def mcmc_nd_reference(
     rows = block_rows(acc, n_acc.reshape(-1), chain_pilots, cfg.n_steps)
     return McmcOutput(with_diag_rows(rows, outs, chain_pilots),
                       torch.stack([x.reshape(-1) for x in xs]),
-                      outs.samples())
+                      outs.samples(),
+                      logp.reshape(-1) if cfg.with_state else None)
 
 
 def mcmc_nd_cuda(
@@ -467,27 +524,34 @@ def mcmc_nd_cuda(
     seed: int,
     grid: McmcGrid,
     tables: Optional[Sequence[Optional[DimTables]]] = None,
+    segment: int = 0,
+    start: Optional[ChainStart] = None,
 ) -> McmcOutput:
     """Runs the grid's chains on ``params``' device, with ``tables`` (on
-    the same device) where a dimension is CUSTOM.
+    the same device) where a dimension is CUSTOM, under the seed word of
+    ``segment``, from ``start`` when ``cfg`` resumes.
 
     A CUDA ``params`` launches the kernel: ``mcmc_nd_cuda.launches``
     counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
     the pilot kernel's, which an error-bar or diagnostics run launches
     first; ``diag_launches`` and ``sample_launches`` the chain launches
-    with diagnostics and with draws.  A CPU
+    with diagnostics and with draws, and ``state_launches`` the
+    stateful ones.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if (cfg.compiled, cfg.outputs) != (program.compiled, program.outputs):
+    if ((cfg.compiled, cfg.outputs, cfg.state)
+            != (program.compiled, program.outputs, program.state)):
         raise ValueError(
             f"the program was built for {program.compiled} with outputs "
-            f"{program.outputs}, not {cfg.compiled} with {cfg.outputs}"
+            f"{program.outputs} and state {program.state}, not "
+            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
         )
     _check_args(cfg, params, len(program.fns), tables=tables)
+    check_start(cfg, start, (cfg.d, grid.chains_actual), params.device)
     if params.device.type == "cpu":
         return mcmc_nd_reference(
             program.torch_fns, program.torch_target, cfg, params, seed, grid,
-            tables,
+            tables, segment, start,
         )
     if params.device.type != "cuda":
         raise ValueError(f"no nd MCMC kernel for device {params.device}")
@@ -497,7 +561,7 @@ def mcmc_nd_cuda(
     lib = program.library()
     k = len(program.fns)
     dev = params.device
-    word = nd_seed_word(seed)
+    word = nd_seed_word(seed, segment)
     rows = torch.empty(
         (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
         dtype=torch.float32, device=dev,
@@ -505,6 +569,10 @@ def mcmc_nd_cuda(
     x_final = torch.empty(
         (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
     )
+    logp_final = (torch.empty(grid.chains_actual, dtype=torch.float32,
+                              device=dev) if cfg.with_state else None)
+    start = None if start is None else ChainStart(*(t.contiguous()
+                                                    for t in start))
     samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev)
     pilots = None
     with torch.cuda.device(dev):
@@ -525,17 +593,18 @@ def mcmc_nd_cuda(
             grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
-            stream,
+            *state_args(start, logp_final), stream,
         )
         _raise_on(lib, err, "chain")
     count_launch(mcmc_nd_cuda, cfg)
-    return McmcOutput(rows, x_final, samples)
+    return McmcOutput(rows, x_final, samples, logp_final)
 
 
 mcmc_nd_cuda.launches = 0
 mcmc_nd_cuda.pilot_launches = 0
 mcmc_nd_cuda.diag_launches = 0
 mcmc_nd_cuda.sample_launches = 0
+mcmc_nd_cuda.state_launches = 0
 
 
 def _raise_on(lib, err: int, what: str) -> None:

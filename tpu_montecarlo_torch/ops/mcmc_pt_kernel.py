@@ -247,6 +247,7 @@ class McmcPtProgram(McmcNdProgram):
     max_functions = MAX_PT_FUNCTIONS
     entry_points = ("tmc_mcmc_pt_pilots", "tmc_mcmc_pt")
     chain_inputs = ("params", "ladder")
+    takes_state = False
     layout_source = staticmethod(pt_layout_source)
 
     def _layout(self, mode, layout) -> PtLayout:

@@ -34,7 +34,12 @@ import numpy as np
 import torch
 
 from ..tables import LOG_PDF_FLOOR
-from .integrate_kernel import LANES, pad_uniform_table, uniform_table_value
+from .integrate_kernel import (
+    LANES,
+    _true_div,
+    pad_uniform_table,
+    uniform_table_value,
+)
 
 __all__ = [
     "DimTables",
@@ -44,6 +49,7 @@ __all__ = [
     "inverse_draw",
     "kernel_tables",
     "log_table",
+    "log_table_slope",
     "log_table_value",
     "prep_inv_table",
     "sampler_logq",
@@ -135,6 +141,18 @@ def log_table_value(x: torch.Tensor, tab: LogTable) -> torch.Tensor:
     """A log table at ``x``: the interpolated value on its grid, -100
     off it."""
     return uniform_table_value(x, tab.vals, tab.dx, tab.grid, LOG_PDF_FLOOR)
+
+
+def log_table_slope(x: torch.Tensor, tab: LogTable) -> torch.Tensor:
+    """A log table's slope at ``x``, HMC's gradient on a CUSTOM target
+    (``uniform_table_slope``, ``integrate_pallas.py:757-775``):
+    ``dx[i0] / step`` at the index :func:`log_table_value` reads, 0 off
+    the grid."""
+    x0, step, x_max = (float(g) for g in tab.grid)
+    pos = _true_div(x - x0, step)
+    i0 = torch.clamp(pos.to(torch.int32), 0, tab.vals.shape[0] - 2).long()
+    inside = (x >= x0) & (x <= x_max)
+    return torch.where(inside, _true_div(tab.dx[i0], step), 0.0)
 
 
 class _TableRef(ctypes.Structure):

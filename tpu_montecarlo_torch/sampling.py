@@ -27,6 +27,7 @@ __all__ = [
     "exponential_from_u01",
     "fast_tan",
     "fma_f32",
+    "log_pdf_grad",
     "next_below_f32",
     "normal_from_u01",
     "transform_from_u",
@@ -177,6 +178,116 @@ def analytic_log_pdf(kind: DistKind, p1, p2, x: torch.Tensor) -> torch.Tensor:
     if ext is None:
         raise ValueError(f"No analytic log-pdf for {DistKind(kind).name}")
     return ext.log_pdf(x, _f32(p1, x), _f32(p2, x))
+
+
+def _share(a: torch.Tensor, m: torch.Tensor, b) -> torch.Tensor:
+    """The share of the derivative of ``m``, ``max(a, b)`` or ``min(a,
+    b)``, that ``jax.grad`` gives ``a``: 1 where m is a alone, 0 where it
+    is b alone (or NaN), 0.5 at a tie."""
+    return torch.where(a == m, 1.0, 0.0) / torch.where(m == b, 2.0, 1.0)
+
+
+def _floor_share(val: torch.Tensor) -> torch.Tensor:
+    """:func:`_share` of a log density floored at ``LOG_PDF_FLOOR``."""
+    return _share(val, torch.clamp(val, min=LOG_PDF_FLOOR), LOG_PDF_FLOOR)
+
+
+def log_pdf_grad(kind: DistKind, p1, p2, x: torch.Tensor) -> torch.Tensor:
+    """d/dx of :func:`analytic_log_pdf`, float32: the expression that
+    ``jax.grad`` of the JAX package's closed form traces, in its operation
+    order (HMC's position gradient, ``mcmc_pallas.py:378-382``;
+    ``csrc/log_pdf_grad.cuh`` has the kernel's copy).  Where the log
+    density is the flat floor (off the support, or floored inside it) the
+    gradient is 0; at a tie of a ``max`` or ``min`` it takes half the
+    slope, as ``jax.grad`` does (Pareto at x_min, a floored value of
+    exactly -100); ``|x - mu|`` at x = mu takes the slope of x >= mu."""
+    x = x.to(torch.float32)
+    p1, p2 = _f32(p1, x), _f32(p2, x)
+    zero = torch.zeros_like(x)
+    if kind == DistKind.UNIFORM:
+        return zero
+    if kind == DistKind.NORMAL:
+        e = (x - p1) / p2
+        return (-0.5 * e + -0.5 * e) / p2
+    if kind == DistKind.EXPONENTIAL:
+        return p1 * -torch.where(x >= 0.0, 1.0, zero)
+    if kind == DistKind.LOGNORMAL:
+        d = torch.clamp(x, min=_TINY)
+        m = _share(x, d, _TINY)
+        n = torch.log(d)
+        p = (n - p1) / p2
+        q = -0.5 * p
+        val = q * p - n - torch.log(p2 * _SQRT_2PI)
+        inside = x > 0
+        bo = torch.where(inside, _floor_share(
+            torch.where(inside, val, LOG_PDF_FLOOR)), zero)
+        bv = (q * bo + -0.5 * (bo * p)) / p2
+        return (-bo + bv) / d * m
+    if kind == DistKind.CAUCHY:
+        e = (x - p1) / p2
+        f = torch.abs(e)
+        h = torch.clamp(f, max=_CAUCHY_SPLIT)
+        q = _share(f, h, _CAUCHY_SPLIT)
+        far = f > _CAUCHY_SPLIT
+        s = torch.clamp(f, min=_TINY)
+        bb = _share(f, s, _TINY)
+        bf = 1.0 + h * h
+        log_term = torch.where(far, 2.0 * torch.log(s), torch.log(bf))
+        bl = -(torch.log(_PI_F * p2) + log_term)
+        by = -(1.0 * _floor_share(bl))
+        bz = torch.where(far, by, zero)
+        cc = torch.where(far, zero, by) / bf
+        ck = 2.0 * bz / s * bb + (h * cc + cc * h) * q
+        pos = e >= 0.0
+        return (torch.where(pos, ck, zero) + -torch.where(pos, zero, ck)) / p2
+    if kind == DistKind.LAPLACE:
+        d = x - p1
+        k = -torch.abs(d) / p2 - torch.log(2.0 * p2)
+        y = -(1.0 * _floor_share(k) / p2)
+        pos = d >= 0.0
+        return torch.where(pos, y, zero) + -torch.where(pos, zero, y)
+    if kind == DistKind.LOGISTIC:
+        e = (x - p1) / p2
+        g = -e
+        h = torch.clamp(g, min=0.0)
+        q = _share(g, h, 0.0)
+        u = torch.exp(-torch.abs(g))
+        v = 1.0 + u
+        bb = -e - 2.0 * (h + torch.log(v)) - torch.log(p2)
+        bn = 1.0 * _floor_share(bb)
+        bp = 2.0 * -bn
+        bs = -(bp / v * u)
+        pos = g >= 0.0
+        bx = torch.where(pos, bs, zero) + -torch.where(pos, zero, bs)
+        return (-(bx + bp * q) + -bn) / p2
+    if kind == DistKind.GUMBEL:
+        e = (x - p1) / p2
+        g = torch.exp(-e)
+        k = -(e + g) - torch.log(p2)
+        w = -(1.0 * _floor_share(k))
+        return (w + -(w * g)) / p2
+    if kind == DistKind.WEIBULL:
+        d = torch.clamp(x, min=_TINY)
+        m = _share(x, d, _TINY)
+        n = d / p2
+        o = torch.log(n)
+        r = p1 - 1.0
+        v = torch.exp(p1 * o)
+        val = torch.log(p1 / p2) + r * o - v
+        inside = x > 0
+        bp = torch.where(inside, 1.0 * _floor_share(
+            torch.where(inside, val, LOG_PDF_FLOOR)), zero)
+        return (p1 * (-bp * v) + r * bp) / n / p2 * m
+    if kind == DistKind.PARETO:
+        d = torch.maximum(x, p1)
+        m = _share(x, d, p1)
+        r = p2 + 1.0
+        val = torch.log(p2) + p2 * torch.log(p1) - r * torch.log(d)
+        inside = x >= p1
+        bn = torch.where(inside, 1.0 * _floor_share(
+            torch.where(inside, val, LOG_PDF_FLOOR)), zero)
+        return r * -bn / d * m
+    raise ValueError(f"No analytic log-pdf gradient for {DistKind(kind).name}")
 
 
 def transform_from_u(u: torch.Tensor, kind: DistKind, p1, p2) -> torch.Tensor:

@@ -6,16 +6,13 @@ from __future__ import annotations
 __all__ = [
     "API_SURFACE",
     "FRONT_END",
-    "MCMC_HMC",
     "MCMC_SERVING",
-    "MCMC_STATE",
     "MCMC_TABLES_XLA",
     "MCMC_WIDE",
     "MESH",
     "ND_CV",
     "ND_MCMC_HMC",
     "ND_MCMC_SERVING",
-    "ND_MCMC_STATE",
     "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
     "ND_SERVING",
@@ -36,8 +33,6 @@ SERVING = (
     "compile_* handles)"
 )
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
-MCMC_HMC = "ROADMAP.md, queue 1 item 6.1 (HMC)"
-MCMC_STATE = "ROADMAP.md, queue 1 item 6.2 (MCMC state and resume)"
 MCMC_SERVING = "ROADMAP.md, queue 1 item 6.5 (compile_mcmc and batches)"
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
 MCMC_TABLES_XLA = (
@@ -53,7 +48,6 @@ ND_CV = (
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
 ND_MCMC_HMC = "ROADMAP.md, queue 1 item 8.1 (nd HMC)"
-ND_MCMC_STATE = "ROADMAP.md, queue 1 item 8.5 (nd MCMC state and resume)"
 ND_MCMC_SERVING = (
     "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
     "param_batch)"
