@@ -501,6 +501,25 @@ HMC_CELLS = {"c11": ([lambda x: x * x], 0.9, 1.0),
              "c11c": ([lambda x: x], 0.05, 2.0 / 7.0)}
 HMC_TOL = 0.1
 HMC_GROUPS = (1, 2, 4, 8)
+# nd and tempered HMC (phases 52-53), the reference's c11b and c12b
+# (benchmarks/run_all.py:477-486, :542-553) at SHORT_MCMC's depth, with
+# error bars: [x*y] on c9e's rho = 0.8 joint under HMC(0.4, L = 8), E[xy]
+# = 0.8 within 6 error bars and 0.2; [x*x] on logmix at temperatures
+# PT_LADDER under HMC(0.35, L = 8), E[x^2] = 17 within 6 error bars and
+# the JAX test's 2.0 (tests/test_tempering.py:482).  Each kernel is held
+# against its plain version at the shape it is timed at (nd no chain
+# split, tempered at most 1 %), and timed at one lane per chain (nd) or
+# per rung (tempered) at each group of HMC_GROUPS, and on the ladder.
+HMC_ND_CELLS = {
+    "c11b": dict(fns=[lambda x, y: x * y], target=c9e_target,
+                 hmc=dict(step_size=0.4, n_leapfrog=HMC_LEAPFROG,
+                          init_range=(-4.0, 4.0)),
+                 temps=None, exact=0.8, tol=0.2),
+    "c12b": dict(fns=[lambda x: x * x], target=lambda: logmix,
+                 hmc=dict(step_size=0.35, n_leapfrog=HMC_LEAPFROG,
+                          init_range=(3.0, 5.0)),
+                 temps=PT_LADDER, exact=17.0, tol=2.0),
+}
 # Chain state (phases 50-51): c5b and c9e run as two calls of STATE_STEPS
 # steps (return_state, then initial_state); the two calls' mean within
 # STATE_Z standard errors of the one-call run's (times sqrt 2: the second
@@ -1227,6 +1246,13 @@ def print_latency(bound, steps: int, clock_mhz: float) -> float:
     return ms
 
 
+def bound_by(bound, latency: float) -> str:
+    """What limits an MCMC record's ``bound_ms``, max(pipes, latency):
+    "latency" where the carried chain's latency bound is the larger, else
+    "operations" (the pipe bound)."""
+    return "latency" if latency > bound[0] else "operations"
+
+
 # The pipe probe (tools/pipe_rates.cu): its mixes' Op bits, by name.
 PIPE_PROBE = Path(__file__).resolve().parent / "tools" / "pipe_rates.cu"
 _PIPE_OPS = {1: "IMAD", 2: "IMUL", 4: "IADD3", 8: "LOP3", 16: "FFMA",
@@ -1375,6 +1401,7 @@ def main() -> int:
         from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
             LADDER_LAYOUT,
             McmcPtProgram,
+            PtLayout,
             mcmc_pt_cuda,
             mcmc_pt_reference,
             pt_finish,
@@ -2054,6 +2081,38 @@ def main() -> int:
               for key, o in state_out.items() if key[0] == "c5b"),
             *(o[0].library for key, o in state_out.items()
               if key[0] == "c9e")]]
+    # nd and tempered HMC (phases 52-53): c11b and c12b as their public
+    # calls build them, and at each layout they are timed at.
+    hmc_nd_out = {}
+    for name, cell in HMC_ND_CELLS.items():
+        hmc_ = tm.HMC(**cell["hmc"])
+        target_ = cell["target"]()
+        parsed_ = integ._parse_nd_mcmc_args(target_, hmc_)
+        shape_ = (SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"], True)
+        if cell["temps"] is None:
+            prog, cfg, params = integ._nd_mcmc_kernel_program(
+                cell["fns"], hmc_, parsed_, *shape_)
+            ladder = None
+            layouts = {f"(1, {g})": McmcNdProgram(prog.fns, cfg, prog.target,
+                                                  layout=Layout(1, g))
+                       for g in HMC_GROUPS}
+        else:
+            prog, cfg, params, ladder = integ._pt_kernel_program(
+                cell["fns"], hmc_, parsed_,
+                tuple(1.0 / t for t in cell["temps"]), *shape_)
+            t_lanes = prog.layout.rung_lanes
+            layouts = {str(tuple(lay)): McmcPtProgram(prog.fns, cfg,
+                                                      prog.target, layout=lay)
+                       for lay in [PtLayout(t_lanes, 1, g)
+                                   for g in HMC_GROUPS] + [LADDER_LAYOUT]}
+        layouts = {k: prog if p.layout == prog.layout else p
+                   for k, p in layouts.items()}
+        hmc_nd_out[name] = dict(target=target_, hmc=hmc_, program=prog,
+                                cfg=cfg, params=params, ladder=ladder,
+                                layouts=layouts)
+    hmc_nd_builds = [
+        pool.submit(timed_build, p.library)
+        for o in hmc_nd_out.values() for p in o["layouts"].values()]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -3252,7 +3311,8 @@ def main() -> int:
             "launches": launches_c[0], "pilot_launches": launches_c[1],
             "n_steps": shape["n_steps"], "max_abs_err": err, "ms": ms_c,
             "plain_ms": plain_ms_c, "call_ms": call_ms,
-            "bound_ms": max(bound_c[0], latency_c), "bound_by": "operations",
+            "bound_ms": max(bound_c[0], latency_c),
+            "bound_by": bound_by(bound_c, latency_c),
             "bound_pipe": bound_c[1], "pipe_bound_ms": bound_c[0],
             "issue_ms": bound_c[2], "latency_ms": latency_c,
             **({"bound_leaves_out": "table loads"} if tables else {}),
@@ -4140,7 +4200,7 @@ def main() -> int:
             counts, value=value, acceptance=float(r.acceptance_rate),
             n_steps=SHORT_MCMC["n_steps"], max_abs_err=err, ms=h_ms,
             plain_ms=plain_ms_h, bound_ms=max(bound[0], latency),
-            bound_by="operations", bound_pipe=bound[1],
+            bound_by=bound_by(bound, latency), bound_pipe=bound[1],
             pipe_bound_ms=bound[0], issue_ms=bound[2], latency_ms=latency,
             call_ms=call_ms, idle_share=idle, grad_evals_per_s=grads,
             layout=list(layout), group_ms=group_ms)
@@ -4247,6 +4307,138 @@ def main() -> int:
     print(f"phases 50-51 (chain state) took "
           f"{time.perf_counter() - t_state:.1f} s")
 
+    # 52-53. nd and tempered HMC, c11b and c12b: the libraries started in
+    # phase 2; each path through the public API, counted and gated; its
+    # kernel against its plain version at SHORT_MCMC's shape, both timed
+    # there: the kernel at each layout, its bounds, the warm call and its
+    # idle share, gradient evaluations per second.
+    t_hmc_nd = time.perf_counter()
+    built = [b.result() for b in hmc_nd_builds]
+    print(f"phase 52: built the nd and tempered HMC libraries ({len(built)}: "
+          "c11b and c12b at each layout), "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for name, o in hmc_nd_out.items():
+        for line in o["program"].library().build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}): {line.strip()}")
+    hmc_nd = {}
+    for phase, (name, o) in zip(("52", "53"), hmc_nd_out.items()):
+        cell = HMC_ND_CELLS[name]
+        pt = cell["temps"] is not None
+        wrapper = mcmc_pt_cuda if pt else mcmc_nd_cuda
+        h_prog, h_cfg, h_params, h_ladder = (
+            o[k] for k in ("program", "cfg", "params", "ladder"))
+        k_fns = len(cell["fns"])
+        extra = {"temperatures": cell["temps"]} if pt else {}
+
+        def hmc_call(o=o, cell=cell, extra=extra):
+            return tm.integrate_mcmc(cell["fns"], o["target"], o["hmc"],
+                                     return_stderr=True, **extra,
+                                     **SHORT_MCMC)
+
+        def run(p=h_prog):
+            if pt:
+                return mcmc_pt_cuda(p, h_cfg, h_params, h_ladder, SEED,
+                                    mcmc_grid)
+            return mcmc_nd_cuda(p, h_cfg, h_params, SEED, mcmc_grid)
+
+        def plain():
+            if pt:
+                return mcmc_pt_reference(
+                    h_prog.torch_fns, h_prog.torch_target, h_cfg, h_params,
+                    h_ladder, SEED, mcmc_grid,
+                    torch_target_grad=h_prog.torch_target_grad)
+            return mcmc_nd_reference(
+                h_prog.torch_fns, h_prog.torch_target, h_cfg, h_params, SEED,
+                mcmc_grid, torch_target_grad=h_prog.torch_target_grad)
+
+        for c in ("launches", "hmc_launches"):
+            setattr(wrapper, c, 0)
+        t0 = time.perf_counter()
+        r = hmc_call()
+        main_s = time.perf_counter() - t0
+        counts = {c: getattr(wrapper, c) for c in ("launches",
+                                                   "hmc_launches")}
+        value, se = float(r.values[0]), float(r.stderr[0])
+        swap = (r.diagnostics or {}).get("swap_rate")
+        print(f"phase {phase}: {name}, integrate_mcmc("
+              f"{'[x*x], logmix' if pt else '[x*y], joint rho=0.8'}, "
+              f"{o['hmc']!r}, {extra or ''}{SHORT_MCMC}, return_stderr=True) "
+              f"in {main_s:.3f} s (host clock), launches {counts}; value "
+              f"{value:.6f} +- {se:.6f} (exact {cell['exact']}, z = "
+              f"{(value - cell['exact']) / se:+.2f}), acceptance "
+              f"{r.acceptance_rate:.4f}"
+              + ("" if swap is None else f", swap rate {swap:.4f}"))
+        if counts["hmc_launches"] < 1:
+            fail(f"phase {phase}: {name} did not launch the HMC kernel")
+        if not (math.isfinite(value) and se > 0.0
+                and abs(value - cell["exact"]) <= 6.0 * se
+                and abs(value - cell["exact"]) <= cell["tol"]):
+            fail(f"phase {phase}: {name}'s value is not within 6 error bars "
+                 f"and {cell['tol']} of {cell['exact']}")
+        if pt and not 0.0 < swap < 1.0:
+            fail(f"phase {phase}: {name}'s swap rate is not in (0, 1)")
+        got = run()
+        want, plain_ms_h = timed_plain(plain)
+        err = chains_agree(got, want, mcmc_grid, h_cfg, k_fns, phase,
+                           max_split=0.01 if pt else 0.0)
+        if pt:
+            w_k, w_p = (float(pt_finish(t, mcmc_grid, h_cfg, k_fns)[2])
+                        for t in (got, want))
+            print(f"         swap rate kernel {w_k:.6f} plain {w_p:.6f}")
+            if abs(w_k - w_p) > 1e-3:
+                fail(f"phase {phase}: swap rates disagree")
+        layout_ms = {key: time_ms(lambda p=p: run(p), reps=5)
+                     for key, p in o["layouts"].items()}
+        h_ms = time_ms(run, reps=10)
+        rungs = h_cfg.n_temps if pt else 1
+        lane_steps = hmc_chain_steps * rungs
+        print(f"phase {phase}: {name} on {card}: kernel {h_ms:.4f} ms at "
+              f"{mcmc_grid.chains_actual} x {rungs} x "
+              f"({SHORT_MCMC['n_burnin']} + {SHORT_MCMC['n_steps']}), layout "
+              f"{tuple(h_prog.layout)}; by layout "
+              + ", ".join(f"{key}: {t:.4f} ms" for key, t in layout_ms.items())
+              + f"; plain {plain_ms_h:.3f} ms")
+        mhz = clock_under_load(run, h_ms)
+        # Bounds as phases 18 and 22: per chain-step, d + 1 uniform
+        # conversions a rung (and the swap draws, on the ladder layout's
+        # build, whose SASS holds the function's own instructions); the
+        # work spans rungs x chains lanes.
+        if pt:
+            count_prog = o["layouts"][str(tuple(LADDER_LAYOUT))]
+            conversions = rungs * (h_cfg.d + 1) + (rungs - 1) // 2
+            function = "mcmc_pt_kernel"
+        else:
+            count_prog = h_prog
+            conversions = h_cfg.d + 1
+            function = "mcmc_nd_kernel"
+        bound = card_bound(
+            count_prog.library(), function, conversions, hmc_chain_steps,
+            mhz, warps=function_warps(h_cfg.mode, mcmc_grid.chains_actual,
+                                      rungs),
+            weights=(SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"]))
+        print_bound(bound, mhz, "chain-step")
+        latency = print_latency(bound, hmc_depth, mhz)
+        call_ms = warm_call_ms(hmc_call)
+        print(f"  {name}, warm call {call_ms:.3f} ms median of 3 (host "
+              "clock):", end="")
+        idle = idle_share(hmc_call)
+        grads = lane_steps * HMC_LEAPFROG / (h_ms * 1e-3)
+        print(f"  {name}: {grads:.4e} gradient evaluations per second (L = "
+              f"{HMC_LEAPFROG} per {'lane' if pt else 'chain'}-step)")
+        hmc_nd[name] = dict(
+            counts, value=value, stderr=se, acceptance=float(r.acceptance_rate),
+            **({} if swap is None else {"swap_rate": float(swap)}),
+            n_steps=SHORT_MCMC["n_steps"], max_abs_err=err, ms=h_ms,
+            plain_ms=plain_ms_h, bound_ms=max(bound[0], latency),
+            bound_by=bound_by(bound, latency), bound_pipe=bound[1],
+            pipe_bound_ms=bound[0], issue_ms=bound[2], latency_ms=latency,
+            call_ms=call_ms, idle_share=idle, grad_evals_per_s=grads,
+            layout=list(h_prog.layout), layout_ms=layout_ms)
+    print(f"phases 52-53 (nd and tempered HMC) took "
+          f"{time.perf_counter() - t_hmc_nd:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -4349,6 +4541,7 @@ def main() -> int:
         "families": {"c9e_family": family_mcmc["c9e_family"]},
         "outputs": outputs["mcmc_nd"],
         "state": state["c9e"],
+        "hmc": {"c11b": hmc_nd["c11b"]},
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -4374,6 +4567,7 @@ def main() -> int:
         "families": {"c12_family": family_mcmc["c12_family"],
                      "parity": parity},
         "outputs": outputs["mcmc_pt"],
+        "hmc": {"c12b": hmc_nd["c12b"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1579,15 +1579,17 @@ def public_mcmc_setup(path, fns, target, proposal, temps, stderr, device,
         prog, cfg, params = integ._nd_mcmc_kernel_program(
             fns, proposal, parsed, n_steps, n_burnin, stderr)
         return ((lambda g: mcmc_nd_cuda(prog, cfg, params, 42, g, tables)),
-                (lambda g: mcmc_nd_reference(prog.torch_fns, prog.torch_target,
-                                             cfg, params, 42, g, tables)),
+                (lambda g: mcmc_nd_reference(
+                    prog.torch_fns, prog.torch_target, cfg, params, 42, g,
+                    tables, torch_target_grad=prog.torch_target_grad)),
                 cfg, len(fns))
     prog, cfg, params, ladder = integ._pt_kernel_program(
         fns, proposal, parsed, tuple(1.0 / t for t in temps), n_steps,
         n_burnin, stderr)
     return ((lambda g: mcmc_pt_cuda(prog, cfg, params, ladder, 42, g, tables)),
-            (lambda g: mcmc_pt_reference(prog.torch_fns, prog.torch_target,
-                                         cfg, params, ladder, 42, g, tables)),
+            (lambda g: mcmc_pt_reference(
+                prog.torch_fns, prog.torch_target, cfg, params, ladder, 42, g,
+                tables, torch_target_grad=prog.torch_target_grad)),
             cfg, len(fns))
 
 
@@ -2280,6 +2282,8 @@ STATE_CASES = {
     "nd-table-dimension": (["beta", ("normal", 0.0, 1.0)],
                            ["beta", ("normal", 0.0, 2.0)]),
     "nd-walk": ([("normal", 0.0, 1.0)] * 2, dict(step_size=[1.0, 1.5])),
+    "nd-hmc": ([("normal", 0.0, 1.0), ("normal", 1.0, 2.0)],
+               dict(step_size=[0.3, 0.5], n_leapfrog=5, hmc=True)),
 }
 
 
@@ -2332,7 +2336,7 @@ def _state_setup(case, device, n_steps, n_burnin, segment, start):
                                     start)),
             (lambda g: mcmc_nd_reference(prog.torch_fns, prog.torch_target,
                                          cfg, params, 42, g, tables, segment,
-                                         start)), cfg)
+                                         start, prog.torch_target_grad)), cfg)
 
 
 @pytest.fixture(scope="module")
@@ -2473,3 +2477,159 @@ def test_integrate_mcmc_state_and_hmc_on_cuda_match_cpu(cuda_device):
             assert split.mean() <= 0.01
             assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
             np.testing.assert_allclose(got.values, want.values, atol=2e-3)
+
+
+# -- nd and tempered HMC -------------------------------------------------------
+#
+# The nd and tempered kernels run HMC on the walk's draws (the leapfrog of
+# csrc/log_pdf_grad.cuh; a joint target's gradient generated by
+# ops/grad.py), so kernel and plain version run the same chains: at most
+# 1% of the chains split (check_public_mcmc's tolerances).
+ND_HMC_CASES = {
+    # name: (path, functions, target, HMC arguments, temperatures)
+    "nd-joint": ("nd", [lambda x, y: x * y], "c11b",
+                 dict(step_size=0.4, n_leapfrog=8, init_range=(-4.0, 4.0)),
+                 None),
+    "nd-joint-adaptive": ("nd", [lambda x, y: x * y], "c11b",
+                          dict(step_size=0.4, n_leapfrog=8, adapt=True,
+                               init_range=(-4.0, 4.0)), None),
+    "nd-product": ("nd", [lambda x, y: x, lambda x, y: y * y],
+                   [("normal", 0.0, 10.0), ("normal", 0.0, 1.0)],
+                   dict(step_size=[2.0, 0.2], n_leapfrog=8), None),
+    "nd-table-dimension": ("nd", [lambda x, y: x + y, lambda x, y: y * y],
+                           [("normal", 1.0, 1.0), "beta"],
+                           dict(step_size=[0.2, 0.05], n_leapfrog=8,
+                                init_range=[(-1.0, 3.0), (0.05, 0.95)]),
+                           None),
+    "pt-joint": ("pt", [lambda x: x, lambda x: x * x], "logmix",
+                 dict(step_size=0.35, n_leapfrog=8, init_range=(3.0, 5.0)),
+                 [1.0, 2.0, 4.0, 8.0]),
+    "pt-product": ("pt", [lambda x, y: x * y, lambda x, y: x * x],
+                   [("normal", 1.0, 1.0), ("normal", -1.0, 2.0)],
+                   dict(step_size=[0.4, 0.6], n_leapfrog=6),
+                   [1.0, 2.0, 4.0]),
+    "pt-adaptive": ("pt", [lambda x, y: x, lambda x, y: y], "banana",
+                    dict(step_size=0.15, n_leapfrog=5, adapt=True,
+                         init_range=(-2.0, 2.0)), [1.0, 2.0, 4.0]),
+    "pt-table": ("pt", [lambda v: v], "beta",
+                 dict(step_size=0.05, n_leapfrog=5, init_range=(0.05, 0.95)),
+                 [1.0, 2.0]),
+}
+
+
+def _banana(x, y):
+    return -0.5 * (x * x / 4.0 + (y - 0.5 * x * x) ** 2)
+
+
+def _logmix(x):
+    return math.log(math.exp(-0.5 * (x + 4.0) ** 2)
+                    + math.exp(-0.5 * (x - 4.0) ** 2))
+
+
+def _nd_hmc_target(spec):
+    if spec == "c11b":
+        return _c9e_target()
+    if spec == "logmix":
+        return _logmix
+    if spec == "banana":
+        return _banana
+    if spec == "beta":
+        return _hmc_target(spec)
+    return [_hmc_target(s) for s in spec]
+
+
+def _nd_hmc_setup(case, device, n_steps, n_burnin):
+    path, fns, target, kw, temps = ND_HMC_CASES[case]
+    return public_mcmc_setup(path, fns, _nd_hmc_target(target), tm.HMC(**kw),
+                             temps, False, device, n_steps, n_burnin)
+
+
+@pytest.fixture(scope="module")
+def nd_hmc_libraries():
+    """Builds every nd and tempered HMC library of this section at once
+    (nvcc in parallel): each case runs once on a small grid."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    grid = plan_mcmc_grid(1024)
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        futures = [pool.submit(
+            lambda c=c: _nd_hmc_setup(c, device, 10, 2)[0](grid))
+            for c in ND_HMC_CASES]
+        futures += [pool.submit(_state_build, "nd-hmc", device, resume, grid)
+                    for resume in (False, True)]
+        for f in futures:
+            f.result()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ND_HMC_CASES))
+def test_nd_and_tempered_hmc_kernels_match_plain_version(
+        cuda_device, nd_hmc_libraries, case):
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    path = ND_HMC_CASES[case][0]
+    wrapper = mcmc_nd_cuda if path == "nd" else mcmc_pt_cuda
+    before = wrapper.hmc_launches
+    check_public_mcmc(path, _nd_hmc_setup(case, cuda_device, 1000, 200))
+    assert wrapper.hmc_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tempered_hmc_layouts_run_the_same_ladders(cuda_device):
+    # Rungs on one lane each at any group, and the ladder layout, run the
+    # same ladders bit for bit.
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        LADDER_LAYOUT,
+        McmcPtProgram,
+        PtLayout,
+        mcmc_pt_cuda,
+    )
+
+    integ = tm.MonteCarloIntegrator(device=cuda_device)
+    _, fns, target, kw, temps = ND_HMC_CASES["pt-joint"]
+    parsed = integ._parse_nd_mcmc_args(_nd_hmc_target(target), tm.HMC(**kw))
+    prog, cfg, params, ladder = integ._pt_kernel_program(
+        fns, tm.HMC(**kw), parsed, tuple(1.0 / t for t in temps), 301, 13,
+        False)
+    runs = [mcmc_pt_cuda(p, cfg, params, ladder, 42, SEVERAL_PROGRAMS)
+            for p in [prog] + [McmcPtProgram(prog.fns, cfg, prog.target,
+                                             layout=layout)
+                               for layout in (PtLayout(4, 1, 1),
+                                              PtLayout(4, 1, 8),
+                                              LADDER_LAYOUT)]]
+    torch.cuda.synchronize()
+    for got in runs[1:]:
+        assert torch.equal(got.rows, runs[0].rows)
+        assert torch.equal(got.x_final, runs[0].x_final)
+
+
+@pytest.mark.cuda
+def test_integrate_mcmc_nd_and_tempered_hmc_on_cuda_match_cpu(cuda_device):
+    kw = dict(n_steps=300, n_chains=2048, n_burnin=100, seed=3)
+    hmc = tm.HMC(step_size=0.4, n_leapfrog=8, init_range=(-4.0, 4.0))
+    calls = [
+        lambda dev: tm.integrate_mcmc([lambda x, y: x * y], _c9e_target(), hmc,
+                                      device=dev, **kw),
+        lambda dev: tm.integrate_mcmc([lambda x, y: x * x + y * y],
+                                      _c9e_target(), hmc, device=dev,
+                                      return_diagnostics=True,
+                                      return_samples=20, **kw),
+        lambda dev: tm.integrate_mcmc(
+            [lambda x: x * x], _logmix,
+            tm.HMC(step_size=0.35, n_leapfrog=8, init_range=(3.0, 5.0)),
+            temperatures=[1.0, 2.0, 4.0, 8.0], device=dev, **kw),
+    ]
+    for call in calls:
+        got, want = call(cuda_device), call("cpu")
+        assert abs(got.acceptance_rate - want.acceptance_rate) <= 1e-3
+        np.testing.assert_allclose(got.values, want.values, atol=2e-3,
+                                   rtol=1e-4)
+        if got.samples is not None:  # nd HMC with diagnostics and draws
+            np.testing.assert_allclose(got.diagnostics["r_hat"],
+                                       want.diagnostics["r_hat"], rtol=1e-4)
+            np.testing.assert_allclose(got.samples, want.samples, atol=1e-3)

@@ -492,11 +492,6 @@ def test_family_features_of_later_items_still_raise():
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], w),
         r"item 6\.5 ": lambda: integ.compile_mcmc([lambda x: x], c, w,
                                                   seed_batch=2),
-        # 1-D HMC runs (tests/test_torch_hmc.py); over family dimensions,
-        # nd HMC is item 8.1.
-        r"item 8\.1 ": lambda: integ.integrate_mcmc(
-            [lambda x, y: x * y], [w, c], tm.HMC(step_size=0.5), n_steps=10,
-            n_burnin=2),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError,

@@ -251,15 +251,19 @@ extern "C" void grads(int kind, float p1, float p2, const float* x, long n,
 
 extern "C" void moves(int kind, float p1, float p2, const float* x,
                       const float* p0, long n, float eps, float* out) {
-  auto grad = [&](float v) { return tmc::log_pdf_grad(kind, p1, p2, v); };
-  auto target = [&](float v) { return tmc::log_pdf(kind, p1, p2, v); };
+  auto value_grad = [&](const float (&v)[1], float (&g)[1]) {
+    g[0] = tmc::log_pdf_grad(kind, p1, p2, v[0]);
+    return tmc::log_pdf(kind, p1, p2, v[0]);
+  };
   for (long i = 0; i < n; ++i) {
-    const float logp = target(x[i]);
-    const tmc::HmcProposal h = tmc::hmc_move<5>(x[i], logp, grad(x[i]), p0[i],
-                                                eps, grad, target);
-    out[4 * i] = h.x;
+    const float xs[1] = {x[i]}, ps[1] = {p0[i]}, es[1] = {eps};
+    float gs[1];
+    const float logp = value_grad(xs, gs);
+    const tmc::HmcProposal<1> h =
+        tmc::hmc_move<5, 1>(xs, logp, gs, ps, es, 1.0f, value_grad);
+    out[4 * i] = h.x[0];
     out[4 * i + 1] = h.logp;
-    out[4 * i + 2] = h.g;
+    out[4 * i + 2] = h.g[0];
     out[4 * i + 3] = h.log_alpha;
   }
 }
@@ -306,11 +310,12 @@ def test_kernel_gradient_and_move_match_plain_version(host_hmc, name):
                    eps, out.ctypes.data)
     t1, t2 = torch.tensor(F32(p1)), torch.tensor(F32(p2))
     tx = torch.from_numpy(x)
-    xq, logp, g, la = hmc_move(
-        tx, analytic_log_pdf(kind, t1, t2, tx),
-        log_pdf_grad(kind, t1, t2, tx), torch.from_numpy(p0),
-        torch.tensor(F32(eps)), 5, lambda v: log_pdf_grad(kind, t1, t2, v),
-        lambda v: analytic_log_pdf(kind, t1, t2, v))
+    (xq,), logp, (g,), la = hmc_move(
+        [tx], analytic_log_pdf(kind, t1, t2, tx),
+        [log_pdf_grad(kind, t1, t2, tx)], [torch.from_numpy(p0)],
+        [torch.tensor(F32(eps))], 5,
+        lambda v: (analytic_log_pdf(kind, t1, t2, v[0]),
+                   [log_pdf_grad(kind, t1, t2, v[0])]))
     for col, ref in enumerate((xq, logp, g, la)):
         ref = ref.numpy().astype(np.float64)
         host = out[col::4].astype(np.float64)
@@ -576,23 +581,3 @@ def test_adaptive_hmc_needs_burn_in_and_no_state(integ):
             integ.integrate_mcmc([lambda x: x], n, tm.HMC(adapt=True),
                                  n_steps=10, **kwargs)
         assert str(got.value) == str(want.value)
-
-
-def test_nd_and_tempered_hmc_name_their_items(integ):
-    n = tm.Distribution.normal(0.0, 1.0)
-    hmc = tm.HMC(step_size=0.5, init_range=(-4.0, 4.0))
-    cases = {
-        r"item 8\.1 \(nd HMC\)": lambda: integ.integrate_mcmc(
-            [lambda x, y: x * y], [n, n], hmc, n_steps=10, n_burnin=2),
-        r"item 8\.1 ": lambda: integ.integrate_mcmc(
-            [lambda x, y: x * y], lambda x, y: -0.5 * (x * x + y * y), hmc,
-            n_steps=10, n_burnin=2),
-        r"item 9\.1 \(tempered HMC\)": lambda: integ.integrate_mcmc(
-            [lambda x: x], n, hmc, n_steps=10, n_burnin=2,
-            temperatures=[1.0, 2.0]),
-    }
-    for item, call in cases.items():
-        with pytest.raises(NotImplementedError,
-                           match="tpu_montecarlo_torch yet; see ROADMAP.md, "
-                                 "queue 1 " + item):
-            call()

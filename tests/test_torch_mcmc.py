@@ -245,13 +245,13 @@ def test_random_walk_wrong_dimension_raises_as_jax():
 
 
 def test_hmc_is_not_ported_yet():
-    # 1-D HMC runs (tests/test_torch_hmc.py); nd and tempered HMC are
-    # items 8.1 and 9.1.
+    # HMC runs over one dimension (tests/test_torch_hmc.py), d dimensions
+    # (tests/test_torch_hmc_nd.py) and a ladder
+    # (tests/test_torch_hmc_tempering.py): nothing of it is left to port.
     assert type(tm.RandomWalk.from_reference(jmc.HMC(step_size=0.5))) is tm.HMC
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.1"):
-        _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc())
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 9\.1"):
-        _call(proposal=_hmc(), temperatures=[1.0, 2.0])
+    nd = _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc())
+    pt = _call(proposal=_hmc(), temperatures=[1.0, 2.0])
+    assert np.isfinite(nd.values).all() and np.isfinite(pt.values).all()
 
 
 # -- the plain version against the interpret-mode JAX kernel -----------------
@@ -397,7 +397,7 @@ def test_program_cache_hits_for_fresh_identical_lambdas():
 _T = tm.Distribution.normal(0.0, 1.0)
 _Q = tm.Distribution.normal(0.0, 2.0)
 def _hmc():
-    """An HMC proposal (1-D HMC runs; nd HMC is item 8.1)."""
+    """An HMC proposal."""
     return tm.HMC(step_size=0.5, init_range=(-4.0, 4.0))
 
 
@@ -416,11 +416,6 @@ NOT_PORTED = {
             [lambda x: x], _T, _Q, seed_batch=4
         ),
         r"item 6\.5",
-    ),
-    # nd targets run (tests/test_torch_mcmc_nd.py); their HMC not yet.
-    "nd-hmc": (
-        lambda: _call(fns=[lambda x, y: x], target=[_T, _T], proposal=_hmc()),
-        r"item 8\.1",
     ),
     "128-functions": (
         lambda: _call(fns=[f for c in range(128) for f in _make_fns(float(c))]),

@@ -483,11 +483,6 @@ def test_cache_keys_on_target_and_families():
     assert len(GLOBAL_CACHE._store) == size + 2
 
 
-def _hmc():
-    """An HMC proposal (1-D HMC runs; nd HMC is item 8.1)."""
-    return tm.HMC(step_size=0.5, init_range=(-4.0, 4.0))
-
-
 def test_out_of_scope_options_name_their_roadmap_items():
     integ = tm.MonteCarloIntegrator(device="cpu")
     f2 = [lambda x, y: x * y]
@@ -500,7 +495,6 @@ def test_out_of_scope_options_name_their_roadmap_items():
         return integ.integrate_mcmc(fns, target, proposal, **kw, **extra)
 
     cases = {
-        r"item 8\.1 ": lambda: run(proposal=_hmc()),
         r"item 8\.9 ": lambda: run(proposal=(n, heavy)),
         r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [n, n], [n, n], seed_batch=2),
         r"item 8\.8 ": lambda: run(fns=wide),

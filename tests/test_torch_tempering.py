@@ -447,11 +447,6 @@ def test_validation_errors_match_jax(case):
     assert str(got.value) == str(want.value)
 
 
-def _hmc():
-    """An HMC proposal (1-D HMC runs; tempered HMC is item 9.1)."""
-    return tm.HMC(step_size=0.35, init_range=(3.0, 5.0))
-
-
 def _not_ported_cases():
     integ = tm.MonteCarloIntegrator(device="cpu")
     n = tm.Distribution.normal(0.0, 1.0)
@@ -472,7 +467,6 @@ def _not_ported_cases():
         )
 
     return {
-        r"item 9\.1 ": lambda: run(proposal=_hmc()),
         r"item 9\.8 ": lambda: run(proposal=gapped),
         r"item 9\.8 \(tempering over the CUSTOM dimensions": (
             lambda: run(proposal=heavy)),

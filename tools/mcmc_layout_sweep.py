@@ -16,6 +16,8 @@ chains x (1,000 burn-in + 10,000) steps with error bars
 
 * ``c5b``: ``[x*x]``, independence N(0, 2) -> N(0, 1);
 * ``walk``: ``[x*x]``, ``RandomWalk(adapt=True)`` -> N(0, 1);
+* ``c11``: ``[x*x]``, ``HMC(step_size=0.9, n_leapfrog=8, adapt=True)``
+  -> N(0, 1), at ``HMC_LAYOUT`` (a checkout that has 1-D HMC);
 * ``c9e``: ``[x*y]``, independence N(0, 2)^2 -> the bivariate normal
   joint log density with rho = 0.8;
 * ``c10b``: ``[x*y]``, ``RandomWalk(step_size=1, target_accept=0.234,
@@ -216,10 +218,11 @@ def main() -> int:
 
     # Each cell's build(layout) -> (run, library, kernel function, uniforms
     # per unit, rungs, lanes per unit, units per chain-step).
-    def one_d(fns, mode, row, steps, outs=()):
+    def one_d(fns, mode, row, steps, outs=(), hmc=0):
         traced = tuple(tm.trace_function(f) for f in fns)
         cfg = mk.McmcConfig(mode, n, n, steps["n_steps"], steps["n_burnin"],
-                            True, *(() if not outs else (False, *outs)))
+                            True, *(() if not outs else (False, *outs)),
+                            **({"hmc_leapfrog": hmc} if hmc else {}))
         params = torch.tensor(row, dtype=torch.float32, device=dev)
 
         def build(layout):
@@ -282,6 +285,8 @@ def main() -> int:
         """The cells, each (build, mode, steps), with the outputs ``outs``
         (a (diagnostics, draws) pair, or () for none)."""
         walk_row = [*tm.RandomWalk(adapt=True).pack_params(n01), 0.0, 1.0]
+        hmc_row = [*tm.HMC(step_size=0.9, n_leapfrog=8, adapt=True)
+                   .pack_params(n01), 0.0, 1.0]
         c10b_kw = dict(step_size=1.0, target_accept=0.234, init_range=(-4.0, 4.0))
         c10b = tm.RandomWalk(**c10b_kw)
         c12_walk = tm.RandomWalk(step_size=0.5, adapt=True, init_range=(3.0, 5.0))
@@ -294,6 +299,8 @@ def main() -> int:
                           [0.0, 2.0, 0.0, 0.0, 0.0, 1.0], MAIN, outs=outs), 0, MAIN),
             "walk": (one_d([lambda x: x * x], mk.Mode.ADAPTIVE, walk_row, MAIN, outs=outs),
                      2, MAIN),
+            "c11": (one_d([lambda x: x * x], mk.Mode.ADAPTIVE, hmc_row, MAIN,
+                          outs=outs, hmc=8), 2, MAIN),
             "c9e": (nd([lambda x, y: x * y], _c9e_target(), [n02, n02], MAIN, outs=outs),
                     0, MAIN),
             "c10b": (nd([lambda x, y: x * y], _c9e_target(), c10b, MAIN, outs=outs), 1,
@@ -353,6 +360,8 @@ def main() -> int:
                 for g in (1, 2, 4, 8) if t_lanes * lanes <= 32]
         if not layouts:
             return [None]
+        if name == "c11":
+            return [mk.HMC_LAYOUT]
         if not args.sweep:
             k = {"wide": 127}.get(name, int(name[1:]) if name[0] == "k"
                                   else 1)

@@ -18,7 +18,7 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
-from ..distributions import HMC, RandomWalk
+from ..distributions import RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     ChainStart,
@@ -40,7 +40,7 @@ from ..utils.roadmap import (
 )
 from .cache import fns_key
 from .device import mcmc_dim_tables
-from .mcmc_nd import _table_routes, is_nd_call
+from .mcmc_nd import _table_routes, hmc_leapfrog, is_nd_call
 from .mcmc_result import mcmc_result, with_chain_state
 from .results import IntegrationResult
 
@@ -145,8 +145,7 @@ class _McmcMixin:
         diagnostics, draws, adaptive steps or temperatures.
 
         Not ported yet, each raising ``NotImplementedError`` naming its
-        ROADMAP item: nd and tempered HMC,
-        the CUSTOM tables the JAX package sends to
+        ROADMAP item: the CUSTOM tables the JAX package sends to
         its XLA sweep (heavy-tailed proposals, tables with no uniform
         grid), more than 127 functions.
         """
@@ -276,7 +275,7 @@ class _McmcMixin:
         parameter row and the CUSTOM tables (None without one) on the
         integrator's device."""
         targ = dist_spec_of(target)
-        leapfrog = proposal.n_leapfrog if isinstance(proposal, HMC) else 0
+        leapfrog = hmc_leapfrog(proposal)
         if isinstance(proposal, RandomWalk):
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
             prop_kind = targ.kind

@@ -8,8 +8,10 @@ The JAX package sends nd work its kernel cannot take, and all of it off
 the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
 ``jax.random``; the port has no such twin and runs every workload it
 takes in its kernel, chain state too (the JAX package runs nd state on
-that sweep only).  What it does not take yet raises
-``NotImplementedError`` naming its ROADMAP item."""
+that sweep only), and HMC, over a product target or a joint log density
+(whose gradient ``ops/grad.py`` builds), stateful HMC included.  What it
+does not take yet raises ``NotImplementedError`` naming its ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ from ..ops.mcmc_nd_kernel import McmcNdConfig, McmcNdProgram, mcmc_nd_cuda
 from ..sampling import DistKind, dist_spec_of
 from ..utils.roadmap import (
     FRONT_END,
-    ND_MCMC_HMC,
     ND_MCMC_TABLES_XLA,
     ND_MCMC_WIDE,
     not_ported,
@@ -38,6 +39,11 @@ from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
 from .mcmc_result import mcmc_result, with_chain_state
 from .results import IntegrationResult
+
+def hmc_leapfrog(proposal) -> int:
+    """The leapfrog steps of an :class:`HMC` proposal, 0 for any other."""
+    return proposal.n_leapfrog if isinstance(proposal, HMC) else 0
+
 
 def is_nd_call(target, proposal) -> bool:
     """``tpu_montecarlo/api/mcmc.py:217-224``: a proposal sequence, a
@@ -217,8 +223,6 @@ class _McmcNdMixin:
                 return_diagnostics=return_diagnostics,
                 return_samples=return_samples,
             )
-        if isinstance(proposal, HMC):
-            raise not_ported("nd HMC", ND_MCMC_HMC)
         stateful = return_state or initial_state is not None
         program, cfg, params = self._nd_mcmc_kernel_program(
             functions, proposal, (proposals, targets, target_fn, d),
@@ -269,6 +273,7 @@ class _McmcNdMixin:
             n_steps, n_burnin, return_stderr, gapped,
             with_diagnostics=with_diagnostics, samples=samples,
             with_state=with_state, use_init_state=use_init_state,
+            hmc_leapfrog=hmc_leapfrog(proposal),
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(

@@ -6,7 +6,8 @@ The JAX package sends tempered work its kernel cannot take, and all of it
 off the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
 ``jax.random``; the port has no such twin, so it agrees chain for chain
 only with the JAX package's ``backend="pallas"`` runs, and it has no VMEM
-gate (``pt_vmem_fits``): every ladder it takes runs in its kernel.  What
+gate (``pt_vmem_fits``): every ladder it takes runs in its kernel, tempered
+HMC included.  What
 it does not take yet raises ``NotImplementedError`` naming its ROADMAP
 item."""
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..distributions import HMC, RandomWalk
+from ..distributions import RandomWalk
 from ..ops.mcmc_kernel import plan_chains, plan_mcmc_grid
 from ..ops.mcmc_pt_kernel import (
     MAX_PT_FUNCTIONS,
@@ -26,15 +27,10 @@ from ..ops.mcmc_pt_kernel import (
     pt_finish,
 )
 from ..sampling import dist_spec_of
-from ..utils.roadmap import (
-    PT_HMC,
-    PT_TABLES_XLA,
-    PT_WIDE,
-    not_ported,
-)
+from ..utils.roadmap import PT_TABLES_XLA, PT_WIDE, not_ported
 from .cache import fns_key
 from .mcmc import _check_random_walk_args
-from .mcmc_nd import _table_routes, dim_tables
+from .mcmc_nd import _table_routes, dim_tables, hmc_leapfrog
 from .mcmc_result import mcmc_result
 from .results import IntegrationResult
 
@@ -86,8 +82,6 @@ class _PtMixin:
             _check_random_walk_args(proposal, n_burnin, False)
         betas = tuple(1.0 / t for t in temps)
         parsed = self._parse_nd_mcmc_args(target, proposal)
-        if isinstance(proposal, HMC):
-            raise not_ported("tempered HMC", PT_HMC)
         program, cfg, params, ladder = self._pt_kernel_program(
             functions, proposal, parsed, betas, n_steps, n_burnin,
             return_stderr, return_diagnostics, int(return_samples or 0),
@@ -135,12 +129,13 @@ class _PtMixin:
             () if prop_specs is None else tuple(s.kind for s in prop_specs),
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
             n_steps, n_burnin, return_stderr, with_diagnostics=with_diagnostics,
-            samples=samples, n_temps=len(betas),
+            samples=samples, hmc_leapfrog=hmc_leapfrog(proposal),
+            n_temps=len(betas),
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
             ("mcmc_pt", fns_key(traced), target_key, cfg.compiled,
-             cfg.outputs),
+             cfg.outputs, cfg.state),
             lambda: McmcPtProgram(traced, cfg, target_fn),
         )
         ladder = torch.tensor(pack_ladder(betas), device=self._device)

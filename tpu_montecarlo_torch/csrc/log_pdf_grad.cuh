@@ -1,5 +1,6 @@
 // Hamiltonian Monte Carlo's position gradient and leapfrog move for the
-// 1-D MCMC kernel (mcmc.cu).
+// MCMC kernels (mcmc.cu over one dimension, mcmc_nd.cu over d, mcmc_pt.cu
+// on each tempered rung).
 //
 // tmc::log_pdf_grad is d/dx of tmc::log_pdf for the ten closed-form
 // families: the expression that jax.grad of the JAX package's closed form
@@ -12,15 +13,9 @@
 // dx[i0] / step on the table's grid and 0 off it (the JAX kernel's
 // uniform_table_slope, at the index the log-table lookup reads).
 //
-// tmc::hmc_move is one HMC step from (x, logp, g = grad(x)): L
-// kick-drift-kick leapfrog steps of size eps from the momentum p0, then
-// the energy-corrected log acceptance ratio (mcmc_pallas.py:795-832), a NaN
-// ratio (a diverged trajectory) taken as -3.0e38, which rejects.  The
-// chain carries g: the JAX kernel recomputes grad(x) at each step's start,
-// the same function of the same x, which is the trajectory's last
-// gradient when the step before accepted and the chain's g when it
-// rejected, so a step evaluates L gradients where that kernel evaluates
-// L + 1.
+// tmc::hmc_move (hmc_move.cuh, included here) is the leapfrog move that
+// takes these gradients.  A joint target's gradient is generated from its
+// traced expression (ops/grad.py, tmc_target_logpdf_grad).
 //
 // Plain C++ that also compiles on the host with
 // g++ -D__device__= -D__forceinline__=inline -ffp-contract=off, so the CPU
@@ -28,6 +23,7 @@
 #pragma once
 
 #include "counter_rng.cuh"
+#include "hmc_move.cuh"
 #include "integrand_math.cuh"  // tmc_minimum, tmc_maximum
 
 namespace tmc {
@@ -143,38 +139,6 @@ __device__ __forceinline__ float table_log_pdf_slope(const TableRef& t,
   const int i0 = p0 < 0 ? 0 : (p0 > t.n - 2 ? t.n - 2 : p0);
   const float slope = ldg(t.d + i0) / t.step;
   return (x >= t.x0 && x <= t.x_max) ? slope : 0.0f;
-}
-
-// What an HMC move proposes: the trajectory's end x', the target's log
-// density and its gradient there, and the log acceptance ratio.
-struct HmcProposal {
-  float x, logp, g, log_alpha;
-};
-
-// One HMC move of L leapfrog steps of size eps from (x, logp) with the
-// momentum p0; g0 is grad(x), grad(v) the target's d/dx log density,
-// target(v) its log density.
-template <int L, class Grad, class Target>
-__device__ __forceinline__ HmcProposal hmc_move(float x, float logp, float g0,
-                                                float p0, float eps,
-                                                const Grad& grad,
-                                                const Target& target) {
-  const float half = 0.5f * eps;
-  float xq = x, p = p0, g = g0;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    p = p + half * g;
-    xq = xq + eps * p;
-    g = grad(xq);
-    p = p + half * g;
-  }
-  HmcProposal h;
-  h.x = xq;
-  h.logp = target(xq);
-  h.g = g;
-  h.log_alpha = (h.logp - 0.5f * p * p) - (logp - 0.5f * p0 * p0);
-  if (h.log_alpha != h.log_alpha) h.log_alpha = -3.0e38f;
-  return h;
 }
 
 }  // namespace tmc

@@ -33,8 +33,9 @@
 //   +-13.815511, and freezes it for sampling;
 // * HMC (TMC_HMC = L, a walk mode) takes the walk's normal draw as its
 //   momentum and the walk's accept uniform, and moves by L kick-drift-kick
-//   leapfrog steps with the energy-corrected log_alpha (log_pdf_grad.cuh:
-//   the closed forms' jax.grad expressions, a table target's slope); the
+//   leapfrog steps with the energy-corrected log_alpha (hmc_move.cuh; the
+//   gradients log_pdf_grad.cuh's: the closed forms' jax.grad expressions,
+//   a table target's slope); the
 //   chain carries the gradient at x, so a step evaluates L gradients; its
 //   adaptive step follows the walk's rule;
 // * a stateful run (TMC_STATE) also writes each chain's final log
@@ -301,18 +302,22 @@ struct WalkDraws {
 // A walk's move from (x, logp) with the normal draw z and the step: x' =
 // x + step * z and log_alpha = logp' - logp, or under HMC the trajectory
 // of kLeapfrog steps from the momentum z and the gradient g at x.
-__device__ __forceinline__ tmc::HmcProposal walk_move(const Params& p,
-                                                     float x, float logp,
-                                                     float g, float z,
-                                                     float step) {
+__device__ __forceinline__ tmc::HmcProposal<1> walk_move(const Params& p,
+                                                        float x, float logp,
+                                                        float g, float z,
+                                                        float step) {
   if constexpr (kLeapfrog > 0) {
-    return tmc::hmc_move<kLeapfrog>(
-        x, logp, g, z, step, [&](float v) { return grad_target(p, v); },
-        [&](float v) { return log_target(p, v); });
+    const float xs[1] = {x}, gs[1] = {g}, zs[1] = {z}, steps[1] = {step};
+    return tmc::hmc_move<kLeapfrog, 1>(
+        xs, logp, gs, zs, steps, 1.0f,
+        [&](const float (&v)[1], float (&gv)[1]) {
+          gv[0] = grad_target(p, v[0]);
+          return log_target(p, v[0]);
+        });
   } else {
-    tmc::HmcProposal m;
-    m.x = x + step * z;
-    m.logp = log_target(p, m.x);
+    tmc::HmcProposal<1> m;
+    m.x[0] = x + step * z;
+    m.logp = log_target(p, m.x[0]);
     m.log_alpha = m.logp - logp;
     return m;
   }
@@ -333,13 +338,13 @@ struct WalkStep {
 
   __device__ __forceinline__ void operator()(uint32_t, const WalkDraw& w) {
     if (kAdapt) step = expf(log_step);
-    const tmc::HmcProposal m = walk_move(p, x[0], logp, g, w.z, step);
+    const tmc::HmcProposal<1> m = walk_move(p, x[0], logp, g, w.z, step);
     const float la = m.log_alpha;
     const bool accept = w.logu < la;
     if (accept) {
-      x[0] = m.x;
+      x[0] = m.x[0];
       logp = m.logp;
-      if constexpr (kLeapfrog > 0) g = m.g;
+      if constexpr (kLeapfrog > 0) g = m.g[0];
     }
     if (kAdapt) {
       const float alpha_p = expf(tmc_minimum(la, 0.0f));

@@ -38,6 +38,14 @@
 //   step order, and counts acceptances.  The pilot (error-bar runs only,
 //   else 0) is the mean of f_k(x0) over the chain's program, computed by
 //   mcmc_nd_pilot_kernel before the chains run.
+// * HMC (TMC_HMC = L, a walk mode; mcmc_nd_pallas.py:573-617) takes the
+//   walk's d normal draws as its momenta and its accept uniform, and moves
+//   by tmc::hmc_move (hmc_move.cuh): L kick-drift-kick leapfrog steps
+//   of sizes eps_j, the energy-corrected log_alpha.  The gradient is the
+//   product's closed forms and table slopes or the joint target's
+//   generated gradient (mcmc_nd_common.cuh log_target_grad).  The chain
+//   carries it with x and logp (a resumed one computes it at x0 once), so
+//   a step evaluates L gradients; the adaptive step is the walk's;
 // * a stateful run (TMC_STATE) also writes each chain's final log
 //   density; a resumed one (TMC_INIT_STATE) starts from the given x0 (d x
 //   n_chains) and logp0 (logp0 is not recomputed) in place of counter 0's
@@ -168,13 +176,16 @@ struct WalkDraws {
 };
 
 // One walk step: x'_j = x_j + eps_j * z_j with eps the step vector scale
-// * step_j, accepted when logf(u) < logp' - logp; the adaptive burn-in
-// moves its one log scale by Robbins-Monro after each.
+// * step_j, accepted when logf(u) < logp' - logp, or under HMC
+// (kLeapfrog > 0) the trajectory of tmc::hmc_move from the momenta z and
+// the chain's gradient g; the adaptive burn-in moves its one log scale by
+// Robbins-Monro after each.
 template <bool kAdapt, class Visit>
 struct WalkStep {
   const Params& p;
   float (&x)[TMC_D];
   float& logp;
+  float (&g)[TMC_D];
   float (&eps)[TMC_D];
   float& log_scale;
   Visit& visit;
@@ -185,17 +196,34 @@ struct WalkStep {
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
+    float la;
+    bool accept;
+#if TMC_HMC > 0
+    const tmc::HmcProposal<TMC_D> m = tmc::hmc_move<kLeapfrog, TMC_D>(
+        x, logp, g, w.z, eps, 1.0f, TargetGrad{p});
+    la = m.log_alpha;
+    accept = w.logu < la;
+    if (accept) {
+#pragma unroll
+      for (int j = 0; j < TMC_D; ++j) {
+        x[j] = m.x[j];
+        g[j] = m.g[j];
+      }
+      logp = m.logp;
+    }
+#else
     float xp[TMC_D];
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) xp[j] = x[j] + eps[j] * w.z[j];
     const float logp_prop = log_target(xp, p);
-    const float la = logp_prop - logp;
-    const bool accept = w.logu < la;
+    la = logp_prop - logp;
+    accept = w.logu < la;
     if (accept) {
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) x[j] = xp[j];
       logp = logp_prop;
     }
+#endif
     if (kAdapt) {
       const float alpha_p = expf(tmc_minimum(la, 0.0f));
       log_scale = tmc_minimum(
@@ -303,7 +331,11 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) eps[j] = p.q1[j];
     float log_scale = 0.0f;
-    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, eps, log_scale, none};
+    float g[TMC_D];  // HMC's gradient at x
+#if TMC_HMC > 0
+    log_target_grad(x, p, g);
+#endif
+    WalkStep<kAdapt, tmc::NoVisit> burn{p, x, logp, g, eps, log_scale, none};
     tmc::pipeline<1, kGroup, WalkDraw>(0u, n_burn, 0,
                                        WalkDraws<kAdapt>{state, pos}, burn);
     if (kAdapt) {
@@ -311,7 +343,8 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
-    WalkStep<false, Sums<Outputs>> sample{p, x, logp, eps, log_scale, sums};
+    WalkStep<false, Sums<Outputs>> sample{p, x, logp, g,
+                                          eps, log_scale, sums};
     auto run = [&](uint32_t b, uint32_t e) {
       tmc::pipeline<1, kGroup, WalkDraw>(b, e, 0, WalkDraws<false>{state, pos},
                                          sample);

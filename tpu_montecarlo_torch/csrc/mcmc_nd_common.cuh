@@ -10,6 +10,12 @@
 // table, 0 for sampler mode); for a product target TMC_TARG_KINDS, else
 // tmc_target_logpdf(const float* x).
 //
+// Under HMC (TMC_HMC = L, a walk mode) the target's position gradient is
+// the product's per-dimension closed forms (tmc::log_pdf_grad) and log
+// table slopes, or the joint target's generated
+// tmc_target_logpdf_grad(const float* x, float* g), its reverse-mode
+// gradient (ops/grad.py), which the generated source holds only then.
+//
 // A CUSTOM dimension draws from its flat inverse table (counter_rng.cuh
 // tmc::table_draw) under the dimension's tag.  Its log density is the
 // sampler's own at the draw (sampler mode) or, gapped, its log table at x;
@@ -32,6 +38,7 @@
 
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
+#include "log_pdf_grad.cuh"
 
 #ifndef TMC_PROP_KINDS
 #define TMC_PROP_KINDS 0  // walks draw from no proposal family
@@ -45,6 +52,9 @@
 #ifndef TMC_SAMPLES
 #define TMC_SAMPLES 0  // 1: the thinned draws
 #endif
+#ifndef TMC_HMC
+#define TMC_HMC 0  // L > 0: HMC with L leapfrog steps
+#endif
 
 namespace {
 
@@ -53,6 +63,9 @@ constexpr int kMode = TMC_MODE;
 // The sampling phase's compiled-in outputs (mcmc_pipeline.cuh).
 constexpr bool kDiag = TMC_DIAG != 0;
 constexpr bool kDraws = TMC_SAMPLES != 0;
+constexpr int kLeapfrog = TMC_HMC;
+static_assert(kLeapfrog == 0 || kMode != kIndependence,
+              "HMC is a walk mode");
 
 // Chains per block (ops/mcmc_kernel.py: CHAIN_THREADS): one warp in
 // mcmc_pt.cu, 32 * TMC_LANES threads in mcmc_nd.cu.
@@ -132,6 +145,36 @@ __device__ __forceinline__ float log_target(const float* x, const Params& p) {
   return tmc_target_logpdf(x);
 #endif
 }
+
+#if TMC_HMC > 0
+// The target's log density at x, and its gradient there in g (HMC).
+__device__ __forceinline__ float log_target_grad(const float (&x)[TMC_D],
+                                                 const Params& p,
+                                                 float (&g)[TMC_D]) {
+#ifdef TMC_TARG_KINDS
+  const int kinds[TMC_D] = {TMC_TARG_KINDS};
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    g[j] = kinds[j] == tmc::kCustom
+               ? tmc::table_log_pdf_slope(p.tb.targ[j], x[j])
+               : tmc::log_pdf_grad(kinds[j], p.t1[j], p.t2[j], x[j]);
+  }
+  return log_target(x, p);
+#else
+  return tmc_target_logpdf_grad(x, g);
+#endif
+}
+
+// log_target_grad as tmc::hmc_move's value_grad.
+struct TargetGrad {
+  const Params& p;
+
+  __device__ __forceinline__ float operator()(const float (&x)[TMC_D],
+                                              float (&g)[TMC_D]) const {
+    return log_target_grad(x, p, g);
+  }
+};
+#endif
 
 // Proposal dimension j's draw at the mantissa m: its family's transform,
 // or its inverse table's draw (`slope` gets the draw's slope; 0 for a

@@ -39,6 +39,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hmc_move.cuh"        // PtWalkStep under HMC
 #include "integrand_math.cuh"  // tmc_minimum, tmc_maximum (and host math)
 
 namespace tmc {
@@ -409,14 +410,19 @@ __device__ __forceinline__ PairLane pair_lane(int rung, int l, int n_temps,
 
 // This lane's exchange at one step: every lane of the segment of W lanes
 // takes part in the shuffles; returns whether the lane's pair swapped.
-template <int W, int D, bool kIndep>
+// Under HMC (kGrad) the gradient at x swaps with it.
+template <int W, int D, bool kIndep, bool kGrad = false>
 __device__ __forceinline__ bool exchange(const PairLane& pr, float logv,
                                          float (&x)[D], float& logp,
-                                         float& logq) {
+                                         float& logq, float (&g)[D]) {
   const float logp_o = from_lane<W>(logp, pr.partner);
-  float x_o[D];
+  float x_o[D], g_o[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) x_o[j] = from_lane<W>(x[j], pr.partner);
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) g_o[j] = from_lane<W>(g[j], pr.partner);
+  }
   const float logq_o = kIndep ? from_lane<W>(logq, pr.partner) : 0.0f;
   const bool swap =
       pr.active && swap_accepted(logv, pr.dbeta, pr.lower ? logp : logp_o,
@@ -424,6 +430,10 @@ __device__ __forceinline__ bool exchange(const PairLane& pr, float logv,
   if (swap) {
 #pragma unroll
     for (int j = 0; j < D; ++j) x[j] = x_o[j];
+    if constexpr (kGrad) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) g[j] = g_o[j];
+    }
     logp = logp_o;
     if (kIndep) logq = logq_o;
   }
@@ -435,17 +445,19 @@ template <int D>
 struct Rung {
   float x[D];
   float logp, logq;
+  float g[D];           // HMC's gradient at x (else unused)
   float beta;
   bool real;            // rung < T (not a padding lane)
   PairLane even, odd;   // its part in the exchanges of each parity
   float swaps;          // swaps this lane counts
 };
 
-template <int W, int D, bool kIndep>
+template <int W, int D, bool kIndep, bool kGrad = false>
 __device__ __forceinline__ void exchange_step(uint32_t i, float logv,
                                               Rung<D>& r) {
   const PairLane pr = (i & 1u) ? r.odd : r.even;
-  if (exchange<W, D, kIndep>(pr, logv, r.x, r.logp, r.logq) && pr.counts) {
+  if (exchange<W, D, kIndep, kGrad>(pr, logv, r.x, r.logp, r.logq, r.g) &&
+      pr.counts) {
     r.swaps += 1.0f;
   }
 }
@@ -474,11 +486,15 @@ struct PtSelectStep {
 };
 
 // The step functor of a tempered walk phase: x'_j = x_j + eps_j * z_j,
+// or under HMC (kLeapfrog > 0) the trajectory of hmc_move from the
+// momenta z under the force beta * grad (the gradient carried in r.g);
 // the rung's decision, in the adaptive burn-in (kAdapt) the rung's
 // Robbins-Monro move of its log scale (eps = expf(log_scale) * step before
-// each move), the exchange, then visit(x, accepted).  `target(x')` is the
-// target's log density.
-template <int W, int D, bool kAdapt, class Target, class Visit>
+// each move), the exchange (which under HMC swaps the gradient with x),
+// then visit(x, accepted).  `target(x')` is the target's log density;
+// under HMC `target(x', g)` also writes its gradient in g.
+template <int W, int D, bool kAdapt, class Target, class Visit,
+          int kLeapfrog = 0>
 struct PtWalkStep {
   const Target& target;
   const float (&step)[D];
@@ -496,17 +512,33 @@ struct PtWalkStep {
 #pragma unroll
       for (int j = 0; j < D; ++j) eps[j] = scale * step[j];
     }
-    float xp[D];
+    float la;
+    bool accept;
+    if constexpr (kLeapfrog > 0) {
+      const HmcProposal<D> m = hmc_move<kLeapfrog, D>(
+          r.x, r.logp, r.g, w.z, eps, r.beta, target);
+      la = m.log_alpha;
+      accept = r.real && w.logu < la;
+      if (accept) {
 #pragma unroll
-    for (int j = 0; j < D; ++j) xp[j] = r.x[j] + eps[j] * w.z[j];
-    const float logp_prop = target(xp);
-    const float la =
-        tempered_log_alpha<false>(r.beta, logp_prop, r.logp, 0.0f, 0.0f);
-    const bool accept = r.real && w.logu < la;
-    if (accept) {
+        for (int j = 0; j < D; ++j) {
+          r.x[j] = m.x[j];
+          r.g[j] = m.g[j];
+        }
+        r.logp = m.logp;
+      }
+    } else {
+      float xp[D];
 #pragma unroll
-      for (int j = 0; j < D; ++j) r.x[j] = xp[j];
-      r.logp = logp_prop;
+      for (int j = 0; j < D; ++j) xp[j] = r.x[j] + eps[j] * w.z[j];
+      const float logp_prop = target(xp);
+      la = tempered_log_alpha<false>(r.beta, logp_prop, r.logp, 0.0f, 0.0f);
+      accept = r.real && w.logu < la;
+      if (accept) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) r.x[j] = xp[j];
+        r.logp = logp_prop;
+      }
     }
     if (kAdapt) {
       const float alpha_p = expf(tmc_minimum(la, 0.0f));
@@ -515,7 +547,7 @@ struct PtWalkStep {
                       lo_scale),
           hi_scale);
     }
-    exchange_step<W, D, false>(i, w.logv, r);
+    exchange_step<W, D, false, (kLeapfrog > 0)>(i, w.logv, r);
     visit(r.x, accept);
   }
 };

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel `kernel` inside build_pt_mcmc_fn_pallas
 // (tpu_montecarlo/ops/mcmc_pt_pallas.py:332-867, pallas_call at :928) in
-// its independence, random-walk and adaptive random-walk modes, with and
-// without error bars, for d dimensions of the uniform, normal and
+// its independence, random-walk and adaptive random-walk modes and
+// tempered HMC (TMC_HMC), with and without error bars, for d dimensions of the uniform, normal and
 // exponential families and CUSTOM tables (target dimensions, and proposal
 // dimensions in sampler mode: the draw's own density is rung-independent
 // and swaps with the state, as a closed form's) under a product target or
@@ -39,6 +39,14 @@
 //   tempered log_alpha, gamma = expf(-0.6f * logf(i + 1)), clipped to
 //   +-13.815511.  Sampling proposes with the scale expf(logf(expf(ls))),
 //   the JAX kernel's round trip (scales, then their log, then exp);
+// * tempered HMC (TMC_HMC = L, a walk mode; mcmc_pt_pallas.py:465-500)
+//   takes the walk's d normal draws of rung t as its momenta and moves it
+//   by tmc::hmc_move (hmc_move.cuh) with beta_t: half-kicks of
+//   ((0.5f * beta_t) * eps_j) * g_j, log_alpha = (beta_t logp' - 0.5f
+//   |p'|^2) - (beta_t logp - 0.5f |p0|^2); each rung carries its gradient
+//   (mcmc_nd_common.cuh log_target_grad), which its exchanges swap with x
+//   and logp; its adaptive step is the walk's.  On lanes a rung runs on
+//   one lane (tmc::PtWalkStep); the ladder runs it in rung_move;
 // * burn-in moves and swaps only; each sampling step moves, counts the
 //   cold rung's accept, swaps, then adds f_k(x) - pilot_k at the cold
 //   rung's post-swap state.  The swap count covers burn-in too.  The pilot
@@ -164,6 +172,14 @@ struct Target {
   }
 };
 
+// The walk step's target: its log density, or under HMC its log density
+// and gradient (tmc::hmc_move's value_grad).
+#if TMC_HMC > 0
+using WalkTarget = TargetGrad;
+#else
+using WalkTarget = Target;
+#endif
+
 // The sampling phase's per-lane sums, in step order: f_k(x) - pilot_k and
 // the accept count, and the outputs' part (diagnostic halves, draws).
 // Every lane of a chain adds them at its rung's state (no branch); the
@@ -287,6 +303,9 @@ __device__ __forceinline__ void run_lanes(const Params& p,
   initial_x(p, state, pos, r.x, slope, uint32_t(rung * TMC_D));
   r.logp = log_target(r.x, p);
   r.logq = kMode == kIndependence ? log_proposal(r.x, slope, p) : 0.0f;
+#if TMC_HMC > 0
+  log_target_grad(r.x, p, r.g);
+#endif
 
   const SwapTags tag{uint32_t(r.even.lo), uint32_t(r.odd.lo)};
   const uint32_t n_burn = uint32_t(n_burnin);
@@ -311,14 +330,15 @@ __device__ __forceinline__ void run_lanes(const Params& p,
     tmc::sampling_phase(n_burn, uint32_t(n_steps), out, run, half_done);
   } else {
     constexpr bool kAdapt = kMode == kAdaptive;
-    const Target target{p};
+    const WalkTarget target{p};
     float eps[TMC_D];  // the rung's step vector
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) eps[j] = p.q1[j];
     float log_scale = 0.0f;
-    tmc::PtWalkStep<kChainLanes, TMC_D, kAdapt, Target, tmc::NoVisit> burn{
-        target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
-        log_scale, none};
+    tmc::PtWalkStep<kChainLanes, TMC_D, kAdapt, WalkTarget, tmc::NoVisit,
+                    kLeapfrog>
+        burn{target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
+             log_scale, none};
     tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
         0u, n_burn, l, PtWalkDraws<kAdapt>{state, pos, rung, tag}, burn);
     if (kAdapt) {
@@ -326,9 +346,10 @@ __device__ __forceinline__ void run_lanes(const Params& p,
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) eps[j] = scale * p.q1[j];
     }
-    tmc::PtWalkStep<kChainLanes, TMC_D, false, Target, Sums<Outputs>> sample{
-        target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
-        log_scale, sums};
+    tmc::PtWalkStep<kChainLanes, TMC_D, false, WalkTarget, Sums<Outputs>,
+                    kLeapfrog>
+        sample{target, p.q1, p.q4[0], kLogScaleMin, kLogScaleMax, r, eps,
+               log_scale, sums};
     auto run = [&](uint32_t b, uint32_t e) {
       tmc::pipeline<kLanes, kGroup, tmc::PtWalkDraw<TMC_D>>(
           b, e, l, PtWalkDraws<false>{state, pos, rung, tag}, sample);
@@ -343,15 +364,40 @@ __device__ __forceinline__ void run_lanes(const Params& p,
 
 // -- the ladder ---------------------------------------------------------------
 
-// One tempered MH move of rung t at global step i: moves (x, logp, logq)
-// and returns whether the proposal was accepted; *log_alpha receives the
-// tempered log acceptance ratio (the adaptive walk reads it).  `eps` is
-// the rung's step vector, scale * step_j.
+// One tempered MH move of rung t at global step i: moves (x, logp, logq;
+// under HMC the gradient g) and returns whether the proposal was
+// accepted; *log_alpha receives the tempered log acceptance ratio (the
+// adaptive walk reads it).  `eps` is the rung's step vector, scale *
+// step_j.
 __device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
                                           uint32_t pos, uint32_t i, int t,
-                                          float beta, const float* eps,
-                                          float* x, float& logp, float& logq,
+                                          float beta,
+                                          const float (&eps)[TMC_D],
+                                          float (&x)[TMC_D], float& logp,
+                                          float& logq, float (&g)[TMC_D],
                                           float* log_alpha) {
+#if TMC_HMC > 0
+  float z[TMC_D];
+#pragma unroll
+  for (int j = 0; j < TMC_D; ++j) {
+    z[j] = tmc::normal_from_u01(tmc::halfopen01(
+        draw(state, 3u * i + 1u, uint32_t(t * TMC_D + j), pos)));
+  }
+  const tmc::HmcProposal<TMC_D> m = tmc::hmc_move<kLeapfrog, TMC_D>(
+      x, logp, g, z, eps, beta, TargetGrad{p});
+  const float u = tmc::open01(draw(state, 3u * i + 2u, uint32_t(t), pos));
+  const bool accept = logf(u) < m.log_alpha;
+  if (accept) {
+#pragma unroll
+    for (int j = 0; j < TMC_D; ++j) {
+      x[j] = m.x[j];
+      g[j] = m.g[j];
+    }
+    logp = m.logp;
+  }
+  *log_alpha = m.log_alpha;
+  return accept;
+#else
   float xp[TMC_D], slope[TMC_D];
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
@@ -381,6 +427,7 @@ __device__ __forceinline__ bool rung_move(const Params& p, uint32_t state,
   }
   *log_alpha = la;
   return accept;
+#endif
 }
 
 // Pair (t, t+1)'s exchange at step i; adds one to `swaps` when it swaps.
@@ -388,7 +435,9 @@ __device__ __forceinline__ void try_swap(uint32_t state, uint32_t pos,
                                          uint32_t i, int t, float dbeta,
                                          float (&x)[kT][TMC_D],
                                          float (&logp)[kT],
-                                         float (&logq)[kT], float& swaps) {
+                                         float (&logq)[kT],
+                                         float (&g)[kT][TMC_D],
+                                         float& swaps) {
   const float v = tmc::halfopen01(draw(state, 3u * i + 3u, uint32_t(t), pos));
   if (tmc::swap_accepted(tmc::swap_logv(v), dbeta, logp[t], logp[t + 1])) {
 #pragma unroll
@@ -396,6 +445,11 @@ __device__ __forceinline__ void try_swap(uint32_t state, uint32_t pos,
       const float a = x[t][j];
       x[t][j] = x[t + 1][j];
       x[t + 1][j] = a;
+      if (kLeapfrog > 0) {
+        const float b = g[t][j];
+        g[t][j] = g[t + 1][j];
+        g[t + 1][j] = b;
+      }
     }
     const float pa = logp[t];
     logp[t] = logp[t + 1];
@@ -414,16 +468,18 @@ __device__ __forceinline__ void exchange(uint32_t state, uint32_t pos,
                                          uint32_t i, const Ladder& lad,
                                          float (&x)[kT][TMC_D],
                                          float (&logp)[kT],
-                                         float (&logq)[kT], float& swaps) {
+                                         float (&logq)[kT],
+                                         float (&g)[kT][TMC_D],
+                                         float& swaps) {
   if (i & 1u) {
 #pragma unroll
     for (int t = 1; t + 1 < kT; t += 2) {
-      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, swaps);
+      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, g, swaps);
     }
   } else {
 #pragma unroll
     for (int t = 0; t + 1 < kT; t += 2) {
-      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, swaps);
+      try_swap(state, pos, i, t, lad.dbeta[t], x, logp, logq, g, swaps);
     }
   }
 }
@@ -440,6 +496,7 @@ __device__ __forceinline__ void run_ladder(const Params& p,
                                            int chain) {
   const Ladder lad = load_ladder(ladder);
   float x[kT][TMC_D], logp[kT], logq[kT];
+  float g[kT][TMC_D];  // under HMC each rung's gradient at x
   float eps[kT][TMC_D];  // each rung's step vector
   float log_scale[kT];
 #pragma unroll
@@ -448,6 +505,9 @@ __device__ __forceinline__ void run_ladder(const Params& p,
     initial_x(p, state, pos, x[t], slope, uint32_t(t * TMC_D));
     logp[t] = log_target(x[t], p);
     logq[t] = kMode == kIndependence ? log_proposal(x[t], slope, p) : 0.0f;
+#if TMC_HMC > 0
+    log_target_grad(x[t], p, g[t]);
+#endif
     log_scale[t] = 0.0f;
 #pragma unroll
     for (int j = 0; j < TMC_D; ++j) eps[t][j] = p.q1[j];
@@ -466,7 +526,7 @@ __device__ __forceinline__ void run_ladder(const Params& p,
         for (int j = 0; j < TMC_D; ++j) eps[t][j] = scale * p.q1[j];
       }
       rung_move(p, state, pos, i, t, lad.beta[t], eps[t], x[t], logp[t],
-                logq[t], &la);
+                logq[t], g[t], &la);
       if (kMode == kAdaptive) {
         const float alpha_p = expf(tmc_minimum(la, 0.0f));
         log_scale[t] = tmc_minimum(
@@ -475,7 +535,7 @@ __device__ __forceinline__ void run_ladder(const Params& p,
             kLogScaleMax);
       }
     }
-    exchange(state, pos, i, lad, x, logp, logq, swaps);
+    exchange(state, pos, i, lad, x, logp, logq, g, swaps);
   }
   if (kMode == kAdaptive) {
 #pragma unroll
@@ -494,11 +554,12 @@ __device__ __forceinline__ void run_ladder(const Params& p,
       bool cold_accepted = false;
 #pragma unroll
       for (int t = 0; t < kT; ++t) {
-        const bool accepted = rung_move(p, state, pos, i, t, lad.beta[t],
-                                        eps[t], x[t], logp[t], logq[t], &la);
+        const bool accepted =
+            rung_move(p, state, pos, i, t, lad.beta[t], eps[t], x[t],
+                      logp[t], logq[t], g[t], &la);
         if (t == 0) cold_accepted = accepted;
       }
-      exchange(state, pos, i, lad, x, logp, logq, swaps);
+      exchange(state, pos, i, lad, x, logp, logq, g, swaps);
       sums(x[0], cold_accepted);
     }
   };

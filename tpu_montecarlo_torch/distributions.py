@@ -969,8 +969,11 @@ class HMC(RandomWalk):
     places the chains as for :class:`RandomWalk`.  On a Gaussian of scale
     sigma a trajectory of length ``step_size * n_leapfrog`` near pi *
     sigma is resonant (each step lands near -x); pick another length.
-    The port runs it over one dimension; nd and tempered HMC raise
-    ``NotImplementedError`` naming their ROADMAP items."""
+    Over d dimensions ``step_size`` takes one step per dimension (a
+    diagonal mass matrix), as :class:`RandomWalk`'s does, and the gradient
+    of a joint log density is its reverse-mode gradient
+    (``ops/grad.py``); under ``temperatures=[...]`` rung t's force is
+    ``beta_t`` times the gradient."""
 
     __slots__ = ("n_leapfrog",)
 

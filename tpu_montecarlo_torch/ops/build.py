@@ -37,9 +37,9 @@ NVCC_FLAGS = (
 )
 # Headers every kernel source may include.
 _HEADERS = (
-    "counter_rng.cuh", "integrand_math.cuh", "integrate_draw.cuh",
-    "log_pdf_grad.cuh", "mcmc_nd_common.cuh", "mcmc_pipeline.cuh",
-    "sobol.cuh",
+    "counter_rng.cuh", "hmc_move.cuh", "integrand_math.cuh",
+    "integrate_draw.cuh", "log_pdf_grad.cuh", "mcmc_nd_common.cuh",
+    "mcmc_pipeline.cuh", "sobol.cuh",
 )
 
 

@@ -40,7 +40,7 @@ ulp per value.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -55,8 +55,10 @@ from ..tracing import (
 
 __all__ = [
     "cuda_source",
+    "cuda_target_grad_source",
     "cuda_target_source",
     "to_torch",
+    "to_torch_grad",
     "to_torch_set",
     "topo_order",
 ]
@@ -139,12 +141,12 @@ _TORCH_BINARY: Dict[str, Callable] = {
 }
 
 
-def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
-    """Torch callable of ``fn.n_args`` float32 tensors (of one shape),
-    returning float32 values of that shape."""
-    order = topo_order([fn.ir])
+def _torch_program(roots: Sequence[Node]) -> Callable[..., List[torch.Tensor]]:
+    """Torch callable of float32 tensors (of one shape) returning the
+    float32 values of ``roots``, each node evaluated once."""
+    order = topo_order(roots)
 
-    def run(*xs: torch.Tensor) -> torch.Tensor:
+    def run(*xs: torch.Tensor) -> List[torch.Tensor]:
         like = xs[0]
         vals: Dict[int, torch.Tensor] = {}
         for node in order:
@@ -169,9 +171,34 @@ def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
             else:
                 raise ValueError(f"unknown IR operation {op!r}")
             vals[id(node)] = out
-        return torch.broadcast_to(vals[id(fn.ir)], like.shape)
+        return [torch.broadcast_to(vals[id(r)], like.shape) for r in roots]
 
     return run
+
+
+def to_torch(fn: TracedFunction) -> Callable[..., torch.Tensor]:
+    """Torch callable of ``fn.n_args`` float32 tensors (of one shape),
+    returning float32 values of that shape."""
+    run = _torch_program([fn.ir])
+    return lambda *xs: run(*xs)[0]
+
+
+def to_torch_grad(
+    fn: TracedFunction,
+) -> Callable[..., Tuple[torch.Tensor, List[torch.Tensor]]]:
+    """Torch callable of ``fn.n_args`` float32 tensors (of one shape),
+    returning ``fn``'s values and its ``fn.n_args`` partial derivatives
+    (``ops/grad.py`` ``grad_ir``) from one forward pass."""
+    from .grad import grad_ir
+
+    value, grads = grad_ir(fn)
+    run = _torch_program([value, *grads])
+
+    def value_grad(*xs):
+        out = run(*xs)
+        return out[0], out[1:]
+
+    return value_grad
 
 
 def to_torch_set(
@@ -233,23 +260,15 @@ def _fma_root(fn: TracedFunction) -> bool:
     return root.op == "mul" and all(a.dtype != "bool" for a in root.args)
 
 
-def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
-                fma_acc: bool = False) -> str:
-    """``fn`` as a device function; with ``fma_acc`` (``fn`` ending in a
-    multiply a * b), one that returns ``tmc_fma(a, b, acc)`` for a sum
-    ``acc`` passed after the point."""
-    nd = pointer or fn.n_args > 1
-    param = "const float* x" if nd else "float x"
-    if fma_acc:
-        param += ", float acc"
-    lines = [f"static __device__ inline float {name}({param}) {{"]
+def _c_lines(roots: Sequence[Node], nd: bool, stop=None):
+    """The device function body's statements for ``roots`` (``t<i>``
+    temporaries, arguments first), and each node's C expression by id;
+    ``stop``, a node whose statement is not emitted."""
+    lines: List[str] = []
     names: Dict[int, str] = {}
-    for i, node in enumerate(topo_order([fn.ir])):
-        if fma_acc and node is fn.ir:
-            a, b = (names[id(arg)] for arg in node.args)
-            lines.append(f"  return tmc_fma({a}, {b}, acc);")
-            lines.append("}")
-            return "\n".join(lines)
+    for i, node in enumerate(topo_order(roots)):
+        if node is stop:
+            break
         op = node.op
         if op == "arg":
             names[id(node)] = f"x[{node.value}]" if nd else "x"
@@ -269,9 +288,26 @@ def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
         ctype = "bool" if node.dtype == "bool" else "float"
         names[id(node)] = f"t{i}"
         lines.append(f"  const {ctype} t{i} = {expr};")
-    lines.append(f"  return {names[id(fn.ir)]};")
-    lines.append("}")
-    return "\n".join(lines)
+    return lines, names
+
+
+def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
+                fma_acc: bool = False) -> str:
+    """``fn`` as a device function; with ``fma_acc`` (``fn`` ending in a
+    multiply a * b), one that returns ``tmc_fma(a, b, acc)`` for a sum
+    ``acc`` passed after the point."""
+    nd = pointer or fn.n_args > 1
+    param = "const float* x" if nd else "float x"
+    if fma_acc:
+        param += ", float acc"
+    lines, names = _c_lines([fn.ir], nd, fn.ir if fma_acc else None)
+    if fma_acc:
+        a, b = (names[id(arg)] for arg in fn.ir.args)
+        ret = f"tmc_fma({a}, {b}, acc)"
+    else:
+        ret = names[id(fn.ir)]
+    return "\n".join([f"static __device__ inline float {name}({param}) {{",
+                      *lines, f"  return {ret};", "}"])
 
 
 def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
@@ -474,6 +510,23 @@ def cuda_target_source(fn: TracedFunction) -> str:
     float tmc_target_logpdf(const float* x)`` (the nd MCMC kernel), in
     the pointer form for every d, d = 1 included."""
     return _c_function("tmc_target_logpdf", fn, pointer=True) + "\n"
+
+
+def cuda_target_grad_source(fn: TracedFunction) -> str:
+    """A joint log density of d arguments and its gradient (``ops/grad.py``
+    ``grad_ir``) as ``static __device__ inline float
+    tmc_target_logpdf_grad(const float* x, float* g)``: one forward pass
+    shared by the value, which it returns, and the d partial derivatives,
+    which it writes to ``g``."""
+    from .grad import grad_ir
+
+    value, grads = grad_ir(fn)
+    lines, names = _c_lines([value, *grads], nd=True)
+    lines += [f"  g[{j}] = {names[id(g)]};" for j, g in enumerate(grads)]
+    return "\n".join([
+        "static __device__ inline float tmc_target_logpdf_grad("
+        "const float* x, float* g) {",
+        *lines, f"  return {names[id(value)]};", "}"]) + "\n"
 
 
 def _nd_entries(k: int, acc: str) -> List[str]:

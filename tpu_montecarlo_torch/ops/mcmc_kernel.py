@@ -594,9 +594,9 @@ def mcmc_reference(
             log_alpha = logp_prop + logq - logp - logq_prop
         elif cfg.hmc_leapfrog:
             u = uniform_halfopen01(rng, shape, 3 * i + 1, 0)
-            xp, logp_prop, g_prop, log_alpha = hmc_move(
-                x, logp, g, normal_from_u01(u), step, cfg.hmc_leapfrog,
-                grad_t, lp_t)
+            (xp,), logp_prop, (g_prop,), log_alpha = hmc_move(
+                [x], logp, [g], [normal_from_u01(u)], [step],
+                cfg.hmc_leapfrog, lambda v: (lp_t(v[0]), [grad_t(v[0])]))
         else:
             u = uniform_halfopen01(rng, shape, 3 * i + 1, 0)
             xp = x + step * normal_from_u01(u)
@@ -635,25 +635,36 @@ def mcmc_reference(
                       logp.reshape(-1) if cfg.with_state else None)
 
 
-def hmc_move(x, logp, g, p0, step, n_leapfrog: int, grad, target):
-    """One HMC move (``mcmc_pallas.py:795-832``; ``csrc/log_pdf_grad.cuh``
-    ``hmc_move``): ``n_leapfrog`` kick-drift-kick steps of size ``step``
-    from ``x``, whose gradient is ``g``, with the momentum ``p0``, then
-    ``(x', logp', grad(x'), log_alpha)`` with the energy-corrected
-    ``log_alpha``, -3.0e38 where it is NaN (a diverged trajectory
-    rejects).  The chain carries ``g``: the JAX kernel recomputes it at each
-    step, the same function of the same x."""
-    half = 0.5 * step
-    xq, p = x, p0
+def hmc_move(xs, logp, gs, p0, eps, n_leapfrog: int, value_grad,
+             beta=1.0):
+    """One HMC move over d dimensions (``mcmc_pallas.py:795-832``,
+    ``mcmc_nd_pallas.py:593-626``, with ``beta`` 1, which scales
+    exactly; tempered, with the rung's ``beta``,
+    ``mcmc_pt_pallas.py:465-500``; ``csrc/log_pdf_grad.cuh``
+    ``hmc_move``): ``n_leapfrog`` kick-drift-kick steps from the d blocks
+    ``xs``, whose gradient is ``gs``, with the momenta ``p0`` and the steps
+    ``eps``, half-kicks of ``(0.5 * beta) * eps_j * g_j``; then ``(x',
+    logp', grad(x'), log_alpha)``, ``log_alpha = (beta * logp' - 0.5 *
+    |p'|^2) - (beta * logp - 0.5 * |p0|^2)`` with the squares summed in
+    dimension order, -3.0e38 where it is NaN (a diverged trajectory
+    rejects).  ``value_grad(xs)`` gives ``(log p, [d gradients])``; the
+    trajectory's last call gives logp'.  The chain carries the gradient:
+    the JAX kernels recompute it at each step, the same function of the
+    same x."""
+    half = [(0.5 * beta) * e for e in eps]
+    xq, p, g = list(xs), list(p0), list(gs)
     for _ in range(n_leapfrog):
-        p = p + half * g
-        xq = xq + step * p
-        g = grad(xq)
-        p = p + half * g
-    logp_prop = target(xq)
-    log_alpha = (logp_prop - 0.5 * p * p) - (logp - 0.5 * p0 * p0)
+        p = [pj + hj * gj for pj, hj, gj in zip(p, half, g)]
+        xq = [xj + ej * pj for xj, ej, pj in zip(xq, eps, p)]
+        logp_prop, g = value_grad(xq)
+        p = [pj + hj * gj for pj, hj, gj in zip(p, half, g)]
+    kin0, kinf = p0[0] * p0[0], p[0] * p[0]
+    for j in range(1, len(p)):
+        kin0 = kin0 + p0[j] * p0[j]
+        kinf = kinf + p[j] * p[j]
+    log_alpha = (beta * logp_prop - 0.5 * kinf) - (beta * logp - 0.5 * kin0)
     log_alpha = torch.where(torch.isnan(log_alpha), -3.0e38, log_alpha)
-    return xq, logp_prop, g, log_alpha
+    return xq, logp_prop, list(g), log_alpha
 
 
 def with_diag_rows(rows: torch.Tensor, outs: PhaseOutputs,

@@ -2,8 +2,10 @@
 the CUDA kernel's wrapper.
 
 Port of ``tpu_montecarlo/ops/mcmc_nd_pallas.py`` (``build_mcmc_nd_pallas``)
-in its independence, random-walk and adaptive random-walk modes, with and
-without error bars, with chain state in and out (``with_state``,
+in its independence, random-walk and adaptive random-walk modes, with
+HMC (``hmc_leapfrog``: the walk's step becomes an L-step leapfrog
+trajectory over the d dimensions), with and without error bars, with
+chain state in and out (``with_state``,
 ``use_init_state``: the JAX package runs nd state on its XLA sweep keyed
 on ``jax.random``, ``tpu_montecarlo/api/mcmc_nd.py:431-533``; the port
 keeps it in this kernel under the counter stream, the resumed segment
@@ -28,7 +30,16 @@ parameters are one (d, 6) float32 row per dimension: the proposal's
 (p1, p2, 0, 0) or the walk's (step, init_lo, init_hi, target_accept),
 then the target's (p1, p2), zeros for a joint target.  The adaptive walk
 tunes one per-chain scale of the whole step vector, starting at 1,
-toward dimension 0's target_accept.  A CUSTOM dimension's tables are
+toward dimension 0's target_accept.  HMC draws the walk's d normal
+steps as its momenta and moves by L kick-drift-kick leapfrog steps of
+sizes ``eps_j = scale * step_j`` (a diagonal mass matrix), accepted on
+the energy-corrected log ratio, NaN taken as -3e38
+(``mcmc_nd_pallas.py:573-617``); the position gradient is the product's
+closed forms and table slopes (``sampling.log_pdf_grad``,
+``mcmc_tables.log_table_slope``) or the joint log density's reverse-mode
+gradient (``ops/grad.py``).  The chain carries the gradient with x and
+log p, so a step evaluates L gradients where the JAX kernel evaluates
+L + 1, the first the same function of the same x.  A CUSTOM dimension's tables are
 run-time arguments, one :class:`DimTables` entry per dimension; the
 proposal's logq sums its sampler-mode dimensions first, in dimension
 order, then the others, as the JAX kernel does
@@ -44,7 +55,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..sampling import DistKind, analytic_log_pdf, normal_from_u01
+from ..sampling import DistKind, analytic_log_pdf, log_pdf_grad, normal_from_u01
 from ..tracing import TracedFunction
 from .integrate_kernel import (
     LANES,
@@ -53,7 +64,13 @@ from .integrate_kernel import (
     uniform_halfopen01,
     uniform_open01,
 )
-from .lower import cuda_source, cuda_target_source, to_torch
+from .lower import (
+    cuda_source,
+    cuda_target_grad_source,
+    cuda_target_source,
+    to_torch,
+    to_torch_grad,
+)
 from .mcmc_kernel import (
     CHAIN_THREADS,
     MAX_FUNCTIONS,
@@ -68,6 +85,7 @@ from .mcmc_kernel import (
     check_state,
     count_launch,
     default_layout,
+    hmc_move,
     layout_source,
     outputs_source,
     row_count,
@@ -84,6 +102,7 @@ from .mcmc_tables import (
     check_dim_tables,
     inverse_draw,
     kernel_tables,
+    log_table_slope,
     log_table_value,
     sampler_logq,
 )
@@ -93,6 +112,7 @@ __all__ = [
     "McmcNdConfig",
     "McmcNdProgram",
     "draw_proposal",
+    "log_target_grad",
     "mcmc_nd_cuda",
     "mcmc_nd_reference",
     "nd_seed_word",
@@ -122,8 +142,9 @@ class McmcNdConfig:
     one is drawn from gap-respecting tables (its logq from its log
     table; else sampler mode; a stateful run's CUSTOM dimensions all
     read their log tables), ``()`` for none; ``with_diagnostics``,
-    ``samples``, ``with_state`` and ``use_init_state`` as the 1-D
-    config's (``ops/mcmc_kernel.py``)."""
+    ``samples``, ``with_state``, ``use_init_state`` and
+    ``hmc_leapfrog`` (L > 0, a walk mode) as the 1-D config's
+    (``ops/mcmc_kernel.py``)."""
 
     # The path, as messages name it.
     _what = "nd MCMC"
@@ -140,9 +161,13 @@ class McmcNdConfig:
     samples: int = 0
     with_state: bool = False
     use_init_state: bool = False
+    hmc_leapfrog: int = 0
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
+        if self.hmc_leapfrog < 0 or (
+                self.hmc_leapfrog and self.mode == Mode.INDEPENDENCE):
+            raise ValueError("hmc_leapfrog requires a walk mode")
         for name in ("prop_kinds", "targ_kinds"):
             kinds = getattr(self, name)
             if kinds is not None:
@@ -181,9 +206,10 @@ class McmcNdConfig:
 
     @property
     def state(self):
-        """What the library compiles in for the chain state: (0 leapfrog
-        steps, state out, state in)."""
-        return 0, bool(self.with_state), bool(self.use_init_state)
+        """What the library compiles in for HMC and the chain state:
+        (leapfrog steps, state out, state in)."""
+        return (int(self.hmc_leapfrog), bool(self.with_state),
+                bool(self.use_init_state))
 
     @property
     def outputs(self):
@@ -266,15 +292,20 @@ class McmcNdProgram:
         self.compiled = cfg.compiled
         self.outputs = cfg.outputs
         self.state = cfg.state
-        self.layout = self._layout(cfg.mode, layout)
+        self.layout = self._layout(cfg, layout)
         self.torch_fns: List[Callable] = [to_torch(f) for f in fns]
         self.torch_target = None if target is None else to_torch(target)
+        # HMC over a joint target: its value and gradient (ops/grad.py).
+        self.torch_target_grad = (
+            to_torch_grad(target)
+            if target is not None and cfg.hmc_leapfrog else None)
         self._lib = None
 
-    def _layout(self, mode: Mode, layout: Optional[Layout]) -> Layout:
+    def _layout(self, cfg: McmcNdConfig, layout: Optional[Layout]) -> Layout:
         if layout is None:
-            return default_layout(mode, len(self.fns))
-        return check_layout(mode, layout)
+            return default_layout(cfg.mode, len(self.fns),
+                                  bool(cfg.hmc_leapfrog))
+        return check_layout(cfg.mode, layout)
 
     def source(self) -> str:
         """The generated source the kernel includes: the integrands in the
@@ -297,6 +328,8 @@ class McmcNdProgram:
             parts.append(kinds("TMC_PROP_GAPPED", gapped))
         if targ_kinds is None:
             parts.append(cuda_target_source(self.target))
+            if self.state[0]:
+                parts.append(cuda_target_grad_source(self.target))
         else:
             parts.append(kinds("TMC_TARG_KINDS", targ_kinds))
         parts.append(outputs_source(self.outputs))
@@ -362,6 +395,22 @@ def log_target(torch_target, targ_kinds, t1, t2, xs,
     ])
 
 
+def log_target_grad(torch_target_grad, targ_kinds, t1, t2, xs,
+                    tables=None):
+    """HMC's position gradient at the d blocks ``xs``, with the target's
+    log density: ``(log p, [d gradients])`` of the joint target (its
+    ``to_torch_grad``), or of the product, each dimension's closed-form
+    gradient or log table slope (``mcmc_nd_pallas.py:584-596``)."""
+    if torch_target_grad is not None:
+        return torch_target_grad(*xs)
+    grads = [
+        log_table_slope(xs[j], tables[j].targ) if kind == DistKind.CUSTOM
+        else log_pdf_grad(kind, t1[j], t2[j], xs[j])
+        for j, kind in enumerate(targ_kinds)
+    ]
+    return log_target(None, targ_kinds, t1, t2, xs, tables), grads
+
+
 def draw_proposal(cfg, q1, q2, rng, shape, counter, tags, tables=None):
     """An independence proposal's d blocks at ``counter`` (dimension j
     under ``tags[j]``) and its log density: the sampler-mode dimensions'
@@ -411,16 +460,22 @@ def mcmc_nd_reference(
     tables: Optional[Sequence[Optional[DimTables]]] = None,
     segment: int = 0,
     start: Optional[ChainStart] = None,
+    torch_target_grad: Optional[Callable] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over all chains, a Python loop over the steps, with the
     kernel's counters, tags and float32 operation order.  ``tables``
     holds one :class:`DimTables` (or None) per dimension where any is
     CUSTOM; ``segment`` and ``start`` as the 1-D version's, x (d,
-    chains).  Returns the kernel's rows and ``x_final`` as (d, chains)."""
+    chains); ``torch_target_grad``, HMC's value and gradient of a joint
+    target (the program's).  Returns the kernel's rows and ``x_final`` as
+    (d, chains)."""
     _check_args(cfg, params, len(torch_fns), tables=tables)
     if (torch_target is None) != (cfg.targ_kinds is not None):
         raise ValueError("a joint target needs its log density, a product none")
+    if cfg.hmc_leapfrog and (torch_target_grad is None) != (
+            torch_target is None):
+        raise ValueError("HMC over a joint target needs its gradient")
     dev = params.device
     check_start(cfg, start, (cfg.d, grid.chains_actual), dev)
     shape = (grid.rows, LANES)
@@ -439,6 +494,10 @@ def mcmc_nd_reference(
 
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]
+
+    def value_grad(xs):
+        return log_target_grad(torch_target_grad, cfg.targ_kinds, t1, t2, xs,
+                               tables)
 
     if start is not None:
         xs = [start.x[j].reshape(grid.programs, *shape) for j in dims]
@@ -464,6 +523,8 @@ def mcmc_nd_reference(
                         xs[0])
 
     eps = [q1[j] for j in dims]  # the walk's step vector
+    if cfg.hmc_leapfrog:
+        g = value_grad(xs)[1]
     log_scale = torch.zeros_like(xs[0])
     accs = [torch.zeros_like(xs[0]) for _ in range(k)]
     n_acc = torch.zeros_like(xs[0])
@@ -476,6 +537,11 @@ def mcmc_nd_reference(
             xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = logp_prop + logq - logp - logq_prop
+        elif cfg.hmc_leapfrog:
+            z = [normal_from_u01(uniform_halfopen01(rng, shape, 3 * i + 1, j))
+                 for j in dims]
+            xp, logp_prop, g_prop, log_alpha = hmc_move(
+                xs, logp, g, z, eps, cfg.hmc_leapfrog, value_grad)
         else:
             xp = [
                 xs[j] + eps[j] * normal_from_u01(
@@ -491,6 +557,8 @@ def mcmc_nd_reference(
         logp = torch.where(accept, logp_prop, logp)
         if indep:
             logq = torch.where(accept, logq_prop, logq)
+        elif cfg.hmc_leapfrog:
+            g = [torch.where(accept, a, b) for a, b in zip(g_prop, g)]
         if burn:
             if cfg.mode == Mode.ADAPTIVE:
                 alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
@@ -535,8 +603,8 @@ def mcmc_nd_cuda(
     counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
     the pilot kernel's, which an error-bar or diagnostics run launches
     first; ``diag_launches`` and ``sample_launches`` the chain launches
-    with diagnostics and with draws, and ``state_launches`` the
-    stateful ones.  A CPU
+    with diagnostics and with draws, ``hmc_launches`` those of HMC and
+    ``state_launches`` the stateful ones.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
     if ((cfg.compiled, cfg.outputs, cfg.state)
@@ -551,7 +619,7 @@ def mcmc_nd_cuda(
     if params.device.type == "cpu":
         return mcmc_nd_reference(
             program.torch_fns, program.torch_target, cfg, params, seed, grid,
-            tables, segment, start,
+            tables, segment, start, program.torch_target_grad,
         )
     if params.device.type != "cuda":
         raise ValueError(f"no nd MCMC kernel for device {params.device}")
@@ -604,6 +672,7 @@ mcmc_nd_cuda.launches = 0
 mcmc_nd_cuda.pilot_launches = 0
 mcmc_nd_cuda.diag_launches = 0
 mcmc_nd_cuda.sample_launches = 0
+mcmc_nd_cuda.hmc_launches = 0
 mcmc_nd_cuda.state_launches = 0
 
 

@@ -26,7 +26,14 @@ under ``CounterRng`` (its interpreter stream):
   ``log(max(v, 1e-38)) < (beta_t - beta_{t+1}) * (logp_{t+1} - logp_t)``,
   then the integrands are evaluated at the cold rung's post-swap state;
 * the adaptive walk carries one log scale per rung, which stays with its
-  rung through swaps, and samples with ``exp(log(exp(ls)))``.
+  rung through swaps, and samples with ``exp(log(exp(ls)))``;
+* tempered HMC (``hmc_leapfrog``, ``mcmc_pt_pallas.py:465-500``) moves
+  rung t by the leapfrog of ``ops/mcmc_kernel.py`` ``hmc_move`` under
+  the force ``beta_t * grad log pi``: the walk's
+  normal steps are its momenta, the half-kicks ``(0.5 * beta_t) * eps_j
+  * g_j``, and ``log_alpha = (beta_t logp' - 0.5 |p'|^2) - (beta_t logp -
+  0.5 |p0|^2)``, NaN taken as -3e38; each rung carries its gradient,
+  which the exchanges swap with x and logp.
 
 Only last-bit differences of ``log``, ``exp`` and ``erfinv`` between
 libraries can flip a decision.  The parameters are the nd kernel's (d, 6)
@@ -65,6 +72,7 @@ from .mcmc_kernel import (
     Mode,
     block_rows,
     count_launch,
+    hmc_move,
     mcmc_finish,
     row_count,
     sample_args,
@@ -78,6 +86,7 @@ from .mcmc_nd_kernel import (
     McmcNdProgram,
     draw_proposal,
     log_target,
+    log_target_grad,
 )
 from .mcmc_tables import DimTables, kernel_tables
 from .mcmc_nd_kernel import _check_args as _check_nd_args
@@ -85,6 +94,7 @@ from .mcmc_nd_kernel import _check_args as _check_nd_args
 __all__ = [
     "LADDER_LAYOUT",
     "MAX_PT_FUNCTIONS",
+    "PT_HMC_GROUP",
     "PT_SEED_MIX",
     "McmcPtConfig",
     "McmcPtProgram",
@@ -133,6 +143,12 @@ _MAX_LANES = {Mode.INDEPENDENCE: 4, Mode.RANDOM_WALK: 2, Mode.ADAPTIVE: 2}
 _MAX_CHAIN_LANES = 16
 _MAX_ROUND_VALUES = 32
 _MAX_GROUP = 4
+#: Tempered HMC's rung moves are L gradient evaluations on the carried
+#: chain: one lane per rung (a second lane would repeat the trajectory),
+#: and 2 steps' draws ahead, the fastest of groups 1, 2, 4 and 8 at c12b
+#: on an H100 (``chip_smoke.py`` phase 53; ``PERF.md``); the ladder
+#: layout ran 3.7x slower there.
+PT_HMC_GROUP = 2
 
 
 def rung_lanes(n_temps: int) -> int:
@@ -166,14 +182,18 @@ def check_pt_layout(n_temps: int, layout) -> PtLayout:
     return layout
 
 
-def default_pt_layout(mode: Mode, n_temps: int, k: int) -> PtLayout:
+def default_pt_layout(mode: Mode, n_temps: int, k: int,
+                      hmc: bool = False) -> PtLayout:
     """The layout a tempered kernel of ``mode``, ``n_temps`` rungs and
-    ``k`` integrands compiles in: the ladder past 32 rung lanes, else
-    rungs on lanes (the sweeps found no mode or K where the ladder was
-    faster)."""
+    ``k`` integrands compiles in (``hmc``: tempered HMC): the ladder past
+    32 rung lanes, else rungs on lanes (the sweeps found no mode or K
+    where the ladder was faster); under HMC one lane per rung and
+    PT_HMC_GROUP steps' draws ahead."""
     t_lanes = rung_lanes(n_temps)
     if t_lanes > 32:
         return LADDER_LAYOUT
+    if hmc:
+        return PtLayout(t_lanes, 1, PT_HMC_GROUP)
     steps = max(1, _MAX_ROUND_VALUES // k)  # per round
     lanes = max(1, min(_MAX_LANES[Mode(mode)], _MAX_CHAIN_LANES // t_lanes,
                        steps))
@@ -250,10 +270,11 @@ class McmcPtProgram(McmcNdProgram):
     takes_state = False
     layout_source = staticmethod(pt_layout_source)
 
-    def _layout(self, mode, layout) -> PtLayout:
+    def _layout(self, cfg, layout) -> PtLayout:
         n_temps = self.compiled[-1]
         if layout is None:
-            return default_pt_layout(mode, n_temps, len(self.fns))
+            return default_pt_layout(cfg.mode, n_temps, len(self.fns),
+                                     bool(cfg.hmc_leapfrog))
         return check_pt_layout(n_temps, layout)
 
     def source(self) -> str:
@@ -286,16 +307,20 @@ def mcmc_pt_reference(
     seed: int,
     grid: McmcGrid,
     tables: Optional[Sequence[Optional[DimTables]]] = None,
+    torch_target_grad: Optional[Callable] = None,
 ) -> McmcOutput:
     """Plain PyTorch version of the kernel, on ``params``' device:
     vectorised over the rungs (a leading T dimension) and all chains, a
     Python loop over the steps, with the kernel's counters, tags and
-    float32 operation order; ``tables`` as the nd version's.  Returns the
-    kernel's rows and ``x_final``, the cold rung's final states, as (d,
-    chains)."""
+    float32 operation order; ``tables`` and ``torch_target_grad`` as the
+    nd version's.  Returns the kernel's rows and ``x_final``, the cold
+    rung's final states, as (d, chains)."""
     _check_args(cfg, params, ladder, len(torch_fns), tables)
     if (torch_target is None) != (cfg.targ_kinds is not None):
         raise ValueError("a joint target needs its log density, a product none")
+    if cfg.hmc_leapfrog and (torch_target_grad is None) != (
+            torch_target is None):
+        raise ValueError("HMC over a joint target needs its gradient")
     dev = params.device
     d, n_temps = cfg.d, cfg.n_temps
     shape = (grid.rows, LANES)
@@ -320,6 +345,10 @@ def mcmc_pt_reference(
 
     def values(xs):
         return [f(*xs).to(torch.float32) for f in torch_fns]
+
+    def value_grad(xs):
+        return log_target_grad(torch_target_grad, cfg.targ_kinds, t1, t2, xs,
+                               tables)
 
     if indep:
         xs, logq = propose(0)
@@ -357,6 +386,8 @@ def mcmc_pt_reference(
         return a
 
     eps = [q1[j] for j in dims]  # the walk's step vector, per rung
+    if cfg.hmc_leapfrog:
+        g = value_grad(xs)[1]
     log_scale = torch.zeros_like(xs[0])
     accs = [torch.zeros_like(xs[0][0]) for _ in range(k)]
     n_acc = torch.zeros_like(xs[0][0])
@@ -375,6 +406,12 @@ def mcmc_pt_reference(
             xp, logq_prop = propose(3 * i + 1)
             logp_prop = lp_t(xp)
             log_alpha = beta * (logp_prop - logp) + logq - logq_prop
+        elif cfg.hmc_leapfrog:
+            z = [normal_from_u01(uniform_halfopen01(rng, shape, 3 * i + 1,
+                                                    rungs * d + j))
+                 for j in dims]
+            xp, logp_prop, g_prop, log_alpha = hmc_move(
+                xs, logp, g, z, eps, cfg.hmc_leapfrog, value_grad, beta)
         else:
             xp = [
                 xs[j] + eps[j] * normal_from_u01(
@@ -390,6 +427,8 @@ def mcmc_pt_reference(
         logp = torch.where(accept, logp_prop, logp)
         if indep:
             logq = torch.where(accept, logq_prop, logq)
+        elif cfg.hmc_leapfrog:
+            g = [torch.where(accept, a, b) for a, b in zip(g_prop, g)]
         if adaptive and burn:
             alpha_p = torch.exp(torch.clamp(log_alpha, max=0.0))
             i_f = torch.full((), float(i + 1), device=dev)
@@ -407,6 +446,8 @@ def mcmc_pt_reference(
             logp = exchange(logp, lo, hi, swap)
             if indep:
                 logq = exchange(logq, lo, hi, swap)
+            if cfg.hmc_leapfrog:
+                g = [exchange(gj, lo, hi, swap) for gj in g]
             swaps = swaps + swap.to(torch.float32).sum(dim=0)
         if burn:
             continue
@@ -449,19 +490,22 @@ def mcmc_pt_cuda(
     counts the chain-kernel launches, and ``mcmc_pt_cuda.pilot_launches``
     the pilot kernel's, which an error-bar or diagnostics run launches
     first; ``diag_launches`` and ``sample_launches`` the chain launches
-    with diagnostics and with the cold rung's draws.  A CPU
+    with diagnostics and with the cold rung's draws, ``hmc_launches``
+    those of tempered HMC.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if (cfg.compiled, cfg.outputs) != (program.compiled, program.outputs):
+    if ((cfg.compiled, cfg.outputs, cfg.state)
+            != (program.compiled, program.outputs, program.state)):
         raise ValueError(
             f"the program was built for {program.compiled} with outputs "
-            f"{program.outputs}, not {cfg.compiled} with {cfg.outputs}"
+            f"{program.outputs} and state {program.state}, not "
+            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
         )
     _check_args(cfg, params, ladder, len(program.fns), tables)
     if params.device.type == "cpu":
         return mcmc_pt_reference(
             program.torch_fns, program.torch_target, cfg, params, ladder,
-            seed, grid, tables,
+            seed, grid, tables, program.torch_target_grad,
         )
     if params.device.type != "cuda":
         raise ValueError(f"no tempered MCMC kernel for device {params.device}")
@@ -511,6 +555,7 @@ mcmc_pt_cuda.launches = 0
 mcmc_pt_cuda.pilot_launches = 0
 mcmc_pt_cuda.diag_launches = 0
 mcmc_pt_cuda.sample_launches = 0
+mcmc_pt_cuda.hmc_launches = 0
 
 
 def _raise_on(lib, err: int, what: str) -> None:

@@ -32,6 +32,7 @@ import ast
 import functools
 import hashlib
 import inspect
+import itertools
 import linecache
 import math
 import textwrap
@@ -86,22 +87,32 @@ COMPARE_OPS = frozenset({"gt", "lt", "ge", "le", "eq", "ne"})
 LOGIC_OPS = frozenset({"and", "or", "xor"})
 
 
+_SERIALS = itertools.count()
+
+
 class Node:
     """One recorded operation: ``op`` on ``args`` (other nodes), with
     result type ``dtype`` ("f32" or "bool").  ``arg`` nodes carry the
     argument index and ``const`` nodes a float32 value in ``value``.
+    ``no_grad`` marks a node whose gradient is 0 whatever its op's rule:
+    only the ``select`` made by ``sign`` carries it (``lax.sign`` has no
+    gradient).  ``serial`` counts the nodes in the order they were
+    recorded, the order in which the JAX tracer binds the same operations
+    (``ops/grad.py`` reverses it).
 
     Arithmetic operators record operations, so composite functions
     (``mix``, ``smoothstep``, ``_int_pow``) read as they do in the JAX
     package; between two Python floats they fold in Python, as there."""
 
-    __slots__ = ("op", "args", "dtype", "value")
+    __slots__ = ("op", "args", "dtype", "value", "no_grad", "serial")
 
     def __init__(self, op: str, args=(), dtype: str = "f32", value=None):
         self.op = op
         self.args = tuple(args)
         self.dtype = dtype
         self.value = value
+        self.no_grad = False
+        self.serial = next(_SERIALS)
 
     def __repr__(self):
         return f"Node({self.op}, {self.dtype})"
@@ -272,12 +283,14 @@ def _smoothstep(e0, e1, x):
 
 
 def _sign(x):
-    # lax.sign: +-1, and x itself at zero and NaN.
+    # lax.sign: +-1, and x itself at zero and NaN; no gradient.
     x = _f32(x)
-    return _merge(
+    out = _merge(
         _compare("gt", x, 0.0), 1.0,
         _merge(_compare("lt", x, 0.0), -1.0, x),
     )
+    out.no_grad = True
+    return out
 
 
 def _heaviside(x1, x2):

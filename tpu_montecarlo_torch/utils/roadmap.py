@@ -11,13 +11,11 @@ __all__ = [
     "MCMC_WIDE",
     "MESH",
     "ND_CV",
-    "ND_MCMC_HMC",
     "ND_MCMC_SERVING",
     "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
     "ND_SERVING",
     "ND_WIDE",
-    "PT_HMC",
     "PT_SERVING",
     "PT_TABLES_XLA",
     "PT_WIDE",
@@ -47,7 +45,6 @@ ND_CV = (
     "ROADMAP.md, queue 1 item 7.5 (nd control variates and expectation_fn)"
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
-ND_MCMC_HMC = "ROADMAP.md, queue 1 item 8.1 (nd HMC)"
 ND_MCMC_SERVING = (
     "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
     "param_batch)"
@@ -60,7 +57,6 @@ ND_MCMC_TABLES_XLA = (
     "JAX package runs on its XLA sweep)"
 )
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
-PT_HMC = "ROADMAP.md, queue 1 item 9.1 (tempered HMC)"
 PT_SERVING = (
     "ROADMAP.md, queue 1 item 9.5 (tempered compile_mcmc, seed_batch and "
     "param_batch)"
