@@ -58,12 +58,14 @@ Phases, each of which exits non-zero on failure:
 13. drive nd main path 2, ``integrate([exp(x)*exp(y)], [U(0,1)]*2,
     n_samples=1e9, method="qmc", return_stderr=True, qmc_rotations=8)``:
     within 6 rQMC standard errors of (e - 1)^2 plus 4 float32 ulp (the
-    rotations' float32 means can agree bit for bit); then each of the 8
-    rotations again at its own grid (2**27 points) and seed: the kernel
-    against the plain version (rel 1e-5 + abs 1e-6), and the spread of the
-    rotations' float64 means (from the kernel's float32 block rows) above
-    0 and 10x below the plain-MC error at 1e9; and time one rotation's
-    kernel (CUDA events);
+    rotations' float32 means can agree bit for bit), the 8 rotations one
+    batched launch; then each of the 8 rotations again at its own grid
+    (2**27 points) and seed: the kernel against the plain version (rel
+    1e-5 + abs 1e-6), and the spread of the rotations' float64 means (from
+    the kernel's float32 block rows) above 0 and 10x below the plain-MC
+    error at 1e9; the batched launch's rows against the 8 launches', bit
+    for bit; and time one rotation's kernel and the batched launch (CUDA
+    events);
 14. at main path 1's shape: hold the nd kernel against the plain version,
     time both (CUDA events) and ``integrate()`` end to end (host clock),
     in d-vector samples/s counted as ``benchmarks/run_all.py:339`` counts
@@ -260,7 +262,25 @@ Phases, each of which exits non-zero on failure:
     of 0.8;
 47. phase 44 at c12's shape (cold-rung R-hat below 1.05, the cold draws'
     share with x > 0 within 0.05 of 0.5, the swap rate unchanged), its
-    remainder run on rungs on lanes and on the ladder layout.
+    remainder run on rungs on lanes and on the ladder layout;
+54-59. the serving handles, built as a user builds them: ``compile_
+    integrate`` over the bench set at 1e9 a job with ``seed_batch=8`` (54)
+    and over eight ``pack_param_batch`` N(m, s) rows at 2**27 with error
+    bars (55); config 3 at 1e7 with ``seed_batch=64`` (56); config 4's
+    ``compile_importance_sampling`` at 1e8 with ``seed_batch=8`` and error
+    bars (57); c9's set at 1e9 with ``seed_batch=4`` and four
+    ``pack_param_batch_nd`` rows at 2**27 (58); ``compile_mcmc`` at c5b's
+    shape, 4096 x (1,000 + 2,000) with error bars and ``seed_batch=4``,
+    four N(m, s) targets under four ``pack_random_walk_batch`` adaptive
+    walks, and c11's HMC at ``seed_batch=2`` (59).  Each: one warm call is
+    one batched launch (counted), each rep of a batched launch is the
+    unbatched launch with its seed and row, bit for bit (its rows; for
+    MCMC its block rows and final states), each element of the handle the
+    unbatched handle's, bit for bit; the batched and the unbatched launch
+    timed (CUDA events), the bound R times the unbatched launch's, the
+    warm call (host clock, enqueue and synchronised) and its idle share in
+    one profiler window, and beside the integrate ones the unbatched
+    public call's.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -303,347 +323,9 @@ from pathlib import Path
 
 import numpy as np
 
-# bench.py's K=8 set (BASELINE.md config 2).
-BENCH_FNS = [
-    lambda x: x,
-    lambda x: x * x,
-    lambda x: x * x * x,
-    lambda x: x * x * x * x,
-    lambda x: np.sin(x),
-    lambda x: np.exp(-x * x),
-    lambda x: x > 1.0,
-    lambda x: abs(x),
-]
-# Closed forms under N(0, 1): E[f] and Var[f] for each bench integrand.
-_P_GT1 = 0.5 * math.erfc(1.0 / math.sqrt(2.0))
-BENCH_MEANS = [
-    0.0, 1.0, 0.0, 3.0, 0.0, 1.0 / math.sqrt(3.0), _P_GT1,
-    math.sqrt(2.0 / math.pi),
-]
-BENCH_VARS = [
-    1.0, 2.0, 15.0, 96.0, (1.0 - math.exp(-2.0)) / 2.0,
-    1.0 / math.sqrt(5.0) - 1.0 / 3.0, _P_GT1 * (1.0 - _P_GT1),
-    1.0 - 2.0 / math.pi,
-]
-# The MCMC main path (BASELINE.md config 5 in its analytic form) and the
-# integrand set its kernel is held against its plain version with.
-MCMC_MAIN_FNS = [lambda x: x * x]
-MCMC_CHECK_FNS = [
-    lambda x: x,
-    lambda x: x * x,
-    lambda x: np.sin(x),
-    lambda x: x > 1.0,
-]
-MCMC_MAIN = dict(n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42)
-MCMC_CHECK = dict(n_chains=4096, n_steps=1_000, n_burnin=200)
-# The MCMC cells beside the three main paths (phases 31-33 over tables, 35
-# and 37 over the families, 44-47 with diagnostics and draws, 48-49 under
-# HMC) run, timed and held to their plain versions, at SHORT_MCMC's depth:
-# MCMC_MAIN's chains and burn-in, 2,000 sampling steps where it has
-# 10,000.  At the full depth their eleven plain versions take ~400 s of the
-# script, which must end within 1,200 s on a slow host.  The chain-state
-# phases (50-51) split the main path's own depth into two calls.
-SHORT_MCMC = dict(MCMC_MAIN, n_steps=2_000)
-# Kernel and plain version run the same chain means; their error bars
-# differ by float32 summation order in the block SS, s2 - n_b*mean^2 of
-# pilot-shifted chain means (1.5e-4 relative at the main shape on an H100);
-# a wrong SS or centroid row moves them by 1.6% or more.
-STDERR_RTOL = 1e-3
-MAIN_SAMPLES = 1_000_000_000
-CHECK_SAMPLES = 1 << 24
-SEED = 42
-RTOL, ATOL = 1e-5, 1e-6
-# The 1-D kernel's modes (phases 24-26): the bench set at 2**30 samples
-# under N(0, 1) in each, held against the plain version at 2**22 under the
-# three families; rQMC as integrate() runs it, 8 rotations of 2**27.
-MODE_SAMPLES = 1 << 30
-MODE_CHECK_SAMPLES = 1 << 22
-MODES_1D = {
-    "antithetic": ("antithetic", False),
-    "qmc": ("qmc", False),
-    "mc_stderr": ("mc", True),
-    "antithetic_stderr": ("antithetic", True),
-}
-RQMC_ROTATIONS = 8
-# Kernel and plain version sum the same squares in other orders (the kernel
-# fuses each square-add); an odd integrand's antithetic pairs cancel
-# exactly and leave its error bar at float32 rounding (~1e-11) on both.
-STDERR_1D_RTOL, STDERR_1D_ATOL = 1e-4, 1e-9
-# Phase 25 scales ATOL and STDERR_1D_ATOL by each column's own size (its
-# mean |value| on the pilot grid, or |mean| if larger): a rare-event column
-# (config 4's mean is 3.2e-5) is then held to ~1e-5 of itself, as an O(1)
-# column is, where a bare 1e-6 would let it be 3 % off.
-# The importance-sampling main path, BASELINE.md config 4:
-# P(X > 4) under N(0, 1) from the proposal N(4, 1.5), 1e8 samples.
-IS_FNS = [lambda x: x > 4.0]
-IS_SAMPLES = 100_000_000
-IS_EXACT = 0.5 * math.erfc(4.0 / math.sqrt(2.0))  # 3.1671e-5
-# BASELINE.md config 3 (benchmarks/run_all.py:148-170): Beta(2, 5) and a
-# triangular from_pdf on [0, 2], 512-bin tables, 1e7 samples; closed forms
-# E and Var of each integrand.
-C3_SAMPLES = 10_000_000
-C3_BETA_FNS = [lambda x: x, lambda x: x * x]
-C3_BETA_MEANS = [2.0 / 7.0, 6.0 / 56.0]
-C3_BETA_VARS = [10.0 / 392.0, 120.0 / 5040.0 - (6.0 / 56.0) ** 2]
-C3_TRI_FNS = [lambda x: x]
-C3_TRI_MEANS, C3_TRI_VARS = [1.0], [1.0 / 6.0]
-C3_TOLERANCE = 0.01  # BASELINE.md's, at 1e7
-
-
-def tri_pdf(x):
-    """Config 3's triangular density on [0, 2], peaked at 1."""
-    if 0 <= x <= 1:
-        return x
-    if 1 < x <= 2:
-        return 2 - x
-    return 0.0
-
-
-def untraceable_pdf(x):
-    """0.5 on (-1, 1): an int() cast on a data value does not trace, so
-    importance sampling reads it from a pdf table."""
-    return 0.5 if int(abs(x)) < 1 else 0.0
-
-
-# The CUSTOM routes of phase 28 and importance sets with table weights.
-CUSTOM_IS_FNS = [lambda x: x > 0.5, lambda x: x * x]
-
-
-# nd main path 1: c9's set (benchmarks/run_all.py:338-354) at 1e9, with
-# its closed forms under N(0,1) x U(0,1) x Exp(2): E and Var.
-ND_FNS = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
-ND_MEANS = [0.0, 2.0]
-ND_VARS = [1.0 / 6.0, 2.0 + 1.0 / 12.0 + 1.0 / 4.0]
-# nd main path 2: c9c's set (run_all.py:365-371), Sobol over U(0,1)^2,
-# E = (e - 1)^2 and Var = ((e^2 - 1) / 2)^2 - (e - 1)^4.
-QMC_FNS = [lambda x, y: np.exp(x) * np.exp(y)]
-QMC_MEAN = (math.e - 1.0) ** 2
-QMC_VAR = ((math.e ** 2 - 1.0) / 2.0) ** 2 - (math.e - 1.0) ** 4
-QMC_ROTATIONS = 8
-# Kernel and plain version sum the same squares in other orders; a wrong
-# count of units or a dropped pair mean moves an error bar by 40 % or more.
-ND_STDERR_RTOL = 1e-4
-# nd MCMC (benchmarks/run_all.py:373-449): c9d's product target, c9e's
-# joint target (the main path) and c10b's walk on it, at MCMC_MAIN's
-# shape; and the integrand sets of phase 16, by dimension count.
-C9D_FNS = [lambda x, y: x * x + y * y]
-C9E_FNS = [lambda x, y: x * y]
-ND_MCMC_CHECK_FNS = {
-    1: [lambda x: x, lambda x: x * x],
-    2: [lambda x, y: x * y, lambda x, y: x * x + y * y,
-        lambda x, y: (x > 1.0) * y],
-    4: [lambda a, b, c, d: a * b + c - d,
-        lambda a, b, c, d: (a > 0.5) * b + c * d],
-}
-
-
-def c9e_target():
-    """c9e's joint log density in ``run_all.py:386-390``'s form: a
-    bivariate normal with rho = 0.8, its constants read from the
-    closure."""
-    rho9 = 0.8
-    c9c = 1.0 / (2.0 * (1.0 - rho9 * rho9))
-    return lambda x, y: -c9c * (x * x - 2.0 * rho9 * x * y + y * y)
-
-
-def normal_target():
-    """A 1-D joint log density: N(0, 1) up to its constant."""
-    return lambda x: -0.5 * x * x
-
-
-def logmix(x):
-    """c12's target (``run_all.py:518-522``): 0.5 N(-4,1) + 0.5 N(4,1), up
-    to its constant; E[x] = 0, E[x^2] = 17."""
-    return math.log(
-        math.exp(-0.5 * (x + 4.0) ** 2) + math.exp(-0.5 * (x - 4.0) ** 2)
-    )
-
-
-# The tempered main path, c12 (run_all.py:518-540), at MCMC_MAIN's shape.
-PT_FNS = [lambda x: x, lambda x: x * x]
-PT_LADDER = [1.0, 2.0, 4.0, 8.0]
-PT_EXACT = [0.0, 17.0]
-# MCMC over CUSTOM tables (phases 30-33), at MCMC_MAIN's shape with error
-# bars: BASELINE.md config 5 (run_all.py:184-218), E[x^2] = 5 within 6
-# error bars and BASELINE's MCMC tolerance; c9f (run_all.py:401-416),
-# E[xy] = 0; c12d (run_all.py:570-585), E[x] = 0, E[x^2] = 5.
-C5_FNS = [lambda x: x * x]
-C5_EXACT = [5.0]
-C5_TOLERANCE = 0.2
-C9F_FNS = [lambda x, y: x * y]
-C9F_EXACT = [0.0]
-C12D_FNS = [lambda x: x, lambda x: x * x]
-C12D_EXACT = [0.0, 5.0]
-# Split-R-hat, ESS and thinned draws (phases 44-47): the main paths, at
-# SHORT_MCMC's depth, with DRAWS thinned draws; phase 45's slow-mixing run, tests/test_diagnostics.py
-# :33's, whose R-hat must flag it.  Kernel and plain version sum the same
-# half-chain values in other orders: R-hat within rel 1e-4, ESS within rel
-# 1e-3.
-DRAWS = 1000
-# MCMC_CHECK's 1,000 steps over 300 draws: a stride of 3 and 100 steps past
-# the last draw, run into a buffer DRAW_GUARD rows longer than its draws.
-REMAINDER_DRAWS = 300
-DRAW_GUARD = 64
-SLOW_FNS = [lambda x: x]
-SLOW_RUN = dict(n_steps=60, n_chains=512, n_burnin=0)
-SLOW_PROPOSAL = (4.0, 0.3)  # N(4, 0.3) for the target N(0, 1)
-R_HAT_RTOL, ESS_RTOL = 1e-4, 1e-3
-# HMC (phases 48-49), the reference's c11 and c11c (benchmarks/run_all.py:
-# 451-505) at SHORT_MCMC's depth, as the other cells beside the main
-# paths: (functions, step, exact value) of [x*x] on N(0, 1) and [x] on the
-# Beta(2, 5) table target under HMC(step, n_leapfrog=8, adapt=True); the
-# value within the reference's MCMC tolerance, 0.1 (BASELINE.md:
-# tests/test_mcmc.py:88-148), and the kernel held chain for chain against
-# its plain version at the shape it is timed at, no chain split.  Each cell
-# is also timed at the groups of HMC_GROUPS (Layout(1, group)).
-HMC_LEAPFROG = 8
-HMC_CELLS = {"c11": ([lambda x: x * x], 0.9, 1.0),
-             "c11c": ([lambda x: x], 0.05, 2.0 / 7.0)}
-HMC_TOL = 0.1
-HMC_GROUPS = (1, 2, 4, 8)
-# nd and tempered HMC (phases 52-53), the reference's c11b and c12b
-# (benchmarks/run_all.py:477-486, :542-553) at SHORT_MCMC's depth, with
-# error bars: [x*y] on c9e's rho = 0.8 joint under HMC(0.4, L = 8), E[xy]
-# = 0.8 within 6 error bars and 0.2; [x*x] on logmix at temperatures
-# PT_LADDER under HMC(0.35, L = 8), E[x^2] = 17 within 6 error bars and
-# the JAX test's 2.0 (tests/test_tempering.py:482).  Each kernel is held
-# against its plain version at the shape it is timed at (nd no chain
-# split, tempered at most 1 %), and timed at one lane per chain (nd) or
-# per rung (tempered) at each group of HMC_GROUPS, and on the ladder.
-HMC_ND_CELLS = {
-    "c11b": dict(fns=[lambda x, y: x * y], target=c9e_target,
-                 hmc=dict(step_size=0.4, n_leapfrog=HMC_LEAPFROG,
-                          init_range=(-4.0, 4.0)),
-                 temps=None, exact=0.8, tol=0.2),
-    "c12b": dict(fns=[lambda x: x * x], target=lambda: logmix,
-                 hmc=dict(step_size=0.35, n_leapfrog=HMC_LEAPFROG,
-                          init_range=(3.0, 5.0)),
-                 temps=PT_LADDER, exact=17.0, tol=2.0),
-}
-# Chain state (phases 50-51): c5b and c9e run as two calls of STATE_STEPS
-# steps (return_state, then initial_state); the two calls' mean within
-# STATE_Z standard errors of the one-call run's (times sqrt 2: the second
-# halves draw other streams).
-STATE_STEPS = MCMC_MAIN["n_steps"] // 2
-STATE_Z = 6.0
-# The seven extended families (phases 34-38): each family's arguments, as
-# the kernel tests use them.  Phase 34 runs the bench set under each in
-# every 1-D mode at MODE_CHECK_SAMPLES and in mc at MODE_SAMPLES.
-FAMILY_ARGS = {
-    "lognormal": (0.0, 0.5), "cauchy": (0.0, 1.0), "laplace": (3.0, 1.0),
-    "logistic": (0.0, 2.0), "gumbel": (1.0, 0.5), "weibull": (1.5, 2.0),
-    "pareto": (1.0, 3.0),
-}
-EULER_GAMMA = 0.5772156649015329
-# Phase 35, c5b's chains and burn-in with a family target and proposal:
-# Laplace(3, 1) under Logistic(0, 2); E[x] = 3, E[x^2] = 3^2 + 2.
-FAM_C5B_FNS = [lambda x: x, lambda x: x * x]
-FAM_C5B_EXACT = [3.0, 11.0]
-# Phase 36, c9's shape (2^30) over Lognormal(0, 0.5) x Gumbel(1, 0.5):
-# E[xy] = e^(1/8) (1 + gamma / 2), E[x^2 + y] = e^(1/2) + 1 + gamma / 2,
-# and their variances (the families independent).
-FAM_C9_FNS = [lambda x, y: x * y, lambda x, y: x * x + y]
-_GUMBEL_M1 = 1.0 + 0.5 * EULER_GAMMA
-_GUMBEL_M2 = 0.25 * math.pi ** 2 / 6.0 + _GUMBEL_M1 ** 2
-FAM_C9_MEANS = [math.exp(0.125) * _GUMBEL_M1, math.exp(0.5) + _GUMBEL_M1]
-FAM_C9_VARS = [math.exp(0.5) * _GUMBEL_M2 - FAM_C9_MEANS[0] ** 2,
-               math.exp(2.0) - math.exp(1.0) + 0.25 * math.pi ** 2 / 6.0]
-# Phase 37: c9e's chains over a product of family dimensions, Laplace(3, 1)
-# x Gumbel(1, 0.5) under Logistic(3, 1) x Gumbel(1, 0.8), E[xy] =
-# 3 (1 + gamma / 2), E[x + y] = 4 + gamma / 2; and c12's ladder and walk on
-# a family target, Laplace(3, 1): E[x] = 3, E[x^2] = 11.
-FAM_ND_FNS = [lambda x, y: x * y, lambda x, y: x + y]
-FAM_ND_EXACT = [3.0 * _GUMBEL_M1, 3.0 + _GUMBEL_M1]
-FAM_PT_FNS = [lambda x: x, lambda x: x * x]
-FAM_PT_EXACT = [3.0, 11.0]
-# Phase 38: the JAX package's TPU parity checks of the families
-# (benchmarks/tpu_parity.py:803-849), copied: (factory, arguments, E[X]);
-# means at 4e6 samples, seed 42, within 2 % (of max(|E|, 0.5)) and 6 error
-# bars; the Cauchy CDF at loc, loc -/+ scale within 0.005; a Laplace target
-# under a logistic proposal within 0.1; Weibull QMC within 0.005.
-PARITY_MEANS = [
-    ("lognormal", (0.3, 0.5), math.exp(0.425)),
-    ("laplace", (1.0, 2.0), 1.0),
-    ("logistic", (0.5, 1.0), 0.5),
-    ("gumbel", (0.0, 1.5), 1.5 * EULER_GAMMA),
-    ("weibull", (2.0, 1.0), math.gamma(1.5)),
-    ("pareto", (1.0, 3.0), 1.5),
-]
-PARITY_SAMPLES = 4_000_000
-PARITY_CAUCHY_FNS = [lambda x: x < 2.0, lambda x: x < 0.5, lambda x: x < 3.5]
-PARITY_MEAN_FNS = [lambda x: x]
-
-
-# nd over CUSTOM dimensions and nd importance sampling (phases 39-43).
-# c9b (benchmarks/run_all.py:355-363): E[xy] over Beta(2,5) x U(0,1) =
-# 1/7, Var = E[x^2] E[y^2] - 1/49 = (3/28)(1/3) - 1/49, held within 6
-# sigma and the reference's 0.01.
-C9B_FNS = [lambda x, y: x * y]
-C9B_SAMPLES = 10_000_000
-C9B_MEAN = 1.0 / 7.0
-C9B_VAR = (3.0 / 28.0) / 3.0 - 1.0 / 49.0
-C9B_TOLERANCE = 0.01
-# c9's set at 2**30 with its normal dimension made CUSTOM, Beta(2,5) x
-# U(0,1) x Exp(2): E[xyz] = (2/7)(1/2)(1/2), E[x^2 + y + z] = 3/28 + 1;
-# Var[xyz] = (3/28)(1/3)(1/2) - (1/14)^2, Var[x^2 + y + z] = Var[x^2] +
-# 1/12 + 1/4 with E[x^4] = 1/42.
-ND_CUSTOM_MEANS = [1.0 / 14.0, 3.0 / 28.0 + 1.0]
-ND_CUSTOM_VARS = [1.0 / 56.0 - 1.0 / 196.0,
-                  1.0 / 42.0 - (3.0 / 28.0) ** 2 + 1.0 / 12.0 + 0.25]
-# nd importance sampling, a rare event: P(X > 3, Y > 3) under N(0,1)^2
-# from N(3.5, 1.5)^2 at 1e8 with error bars and diagnostics,
-# Phi-bar(3)^2 = 1.8222e-6 within 6 standard errors.
-ND_RARE_FNS = [lambda x, y: (x > 3.0) * (y > 3.0)]
-ND_RARE_SAMPLES = 100_000_000
-ND_RARE_EXACT = (0.5 * math.erfc(3.0 / math.sqrt(2.0))) ** 2
-# nd importance sampling with table and sampler weights: E[x y^2] under a
-# Beta(2,5) pdf table x N(0,1) from Beta(1.5,3) x N(0,1.5), 2**30
-# samples: the target table's p and the sampler's q on the stratified
-# dimension, traced p and q on the second; 2/7 within 6 standard errors.
-ND_TS_FNS = [lambda x, y: x * y * y]
-ND_TS_EXACT = 2.0 / 7.0
-
-
-def beta25_table(tm):
-    """Beta(2, 5)'s density as a pdf table on a 2048-knot uniform grid: a
-    table p (Beta(2, 5) itself traces)."""
-    x = np.linspace(0.0, 1.0, 2048)
-    return tm.Distribution.from_pdf_table(x, 30.0 * x * (1.0 - x) ** 4)
-
-
-def bimodal(x):
-    """Config 5's and c12d's target (run_all.py:185-188): 0.5 N(-2, 1) +
-    0.5 N(2, 1), unnormalised; E[x^2] = 5."""
-    return 0.5 * np.exp(-0.5 * (x + 2.0) ** 2) + 0.5 * np.exp(-0.5 * (x - 2.0) ** 2)
-
-
-def wide_pdf(x):
-    """c12d's proposal density (run_all.py:570-585), on (-7, 7)."""
-    return np.exp(-0.5 * (x / 3.0) ** 2)
-
-
-def table_moments(dist, powers):
-    """E[x^p] for each p of ``powers`` under the density the MCMC kernels
-    sample for a CUSTOM target: exp of its downsampled log table
-    (``api/device.py``), linear between its knots, by the trapezoid rule
-    on 2,000,001 points of its grid (host float64)."""
-    from tpu_montecarlo_torch.api.device import _device_uniform_log_tables
-
-    lx, lp = (np.asarray(a, np.float64)
-              for a in _device_uniform_log_tables(dist))
-    x = np.linspace(lx[0], lx[-1], 2_000_001)
-    p = np.exp(np.interp(x, lx, lp))
-    mass = np.trapezoid(p, x)
-    return [float(np.trapezoid(x ** k * p, x) / mass) for k in powers]
-
-
-def wide_gap(tm):
-    """A proposal with a zero-density gap on (-1, 1), on a 2048-knot grid
-    over (-6, 6): the gapped route (gap-respecting tables, a guarded log
-    table for q)."""
-    x = np.linspace(-6.0, 6.0, 2048)
-    return tm.Distribution.from_pdf_table(
-        x, np.where(np.abs(x) < 1.0, 0.0, np.exp(-0.1 * x * x)))
+# The cells: integrands, densities, shapes, closed forms, tolerances.
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from smoke_cells import *  # noqa: E402,F403
 
 
 def fail(msg: str) -> None:
@@ -693,23 +375,31 @@ def clock_under_load(fn, ms: float) -> float:
     return mhz
 
 
-def idle_share(call, n_calls: int = 10, windows: int = 3):
+def idle_share(call, n_calls: int = 10, windows: int = 3,
+               floor_ms: float = 0.0):
     """Device idle share of ``n_calls`` warm ``call()``s in one
     ``torch.profiler`` window: busy is the union of the device intervals
     (kernels, copies) the profiler recorded, wall the host clock around
     the window.  A window that traces no device time (as some of c9b's
     did late in this script, never in a process of its own,
     tools/idle_probe.py) is taken again, up to ``windows`` in all.
+    ``floor_ms`` is the device time a call needs at least (its kernels'
+    CUDA-event times): a window whose busy time falls short of
+    ``n_calls`` of it lost device events, and its share is not kept.
     Prints and returns the share, or None when no window saw device
-    time."""
+    time or the window lost events."""
+    import inspect
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    keep = ({"acc_events": True} if "acc_events"
+            in inspect.signature(profile).parameters else {})
     call()
     torch.cuda.synchronize()
     for window in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA], **keep) as prof:
             t0 = time.perf_counter()
             for _ in range(n_calls):
                 call()
@@ -736,6 +426,11 @@ def idle_share(call, n_calls: int = 10, windows: int = 3):
           f"window: wall {wall_us / 1e3:.3f} ms, busy {busy_us / 1e3:.3f} ms,"
           f" idle {share:.2%} ({wall_us / n_calls / 1e3:.3f} ms per call "
           f"under the profiler)")
+    if busy_us < 0.98 * n_calls * floor_ms * 1e3:
+        print(f"  the window lost device events: busy {busy_us / 1e3:.3f} ms"
+              f" under {n_calls} x {floor_ms:.4f} ms of kernel (CUDA events);"
+              " its idle share is not kept")
+        return None
     return share
 
 
@@ -1365,8 +1060,10 @@ def main() -> int:
             SAMPLER,
             IntegrateConfig,
             IntegrateProgram,
+            integrate_batch_rows,
             integrate_cuda,
             integrate_reference,
+            integrate_rows,
             pilot_values,
             plan_grid,
         )
@@ -1374,6 +1071,7 @@ def main() -> int:
             IntegrateNdProgram,
             NdConfig,
             finish_stderr,
+            integrate_nd_batch_rows,
             integrate_nd_cuda,
             integrate_nd_reference,
             integrate_nd_rows,
@@ -1386,6 +1084,7 @@ def main() -> int:
             McmcConfig,
             McmcProgram,
             Mode,
+            mcmc_batch,
             mcmc_cuda,
             mcmc_diagnostics,
             mcmc_finish,
@@ -1642,6 +1341,14 @@ def main() -> int:
     }
     mode_builds["is"] = pool.submit(timed_build,
                                     lambda: is_program.library(is_cfg))
+    # Phase 57's importance handle: config 4's set without the weight's
+    # unit integrand, with error bars, as compile_importance_sampling
+    # builds it.
+    is_handle_program = integ._integrate_program(
+        integ._trace_user_functions(IS_FNS),
+        integ._is_weight(is_target, is_proposal))
+    mode_builds["is_handle"] = pool.submit(
+        timed_build, lambda: is_handle_program.library(is_cfg))
     # CUSTOM tables and table weights (phases 28-29): one library per
     # program, mode and route, as the public paths build them.
     custom_dists = {
@@ -2502,8 +2209,9 @@ def main() -> int:
           f"{se:.3e} (closed form {QMC_MEAN:.9f}, off by "
           f"{v - QMC_MEAN:+.3e}; float32 floor {f32_floor:.3e}); plain-MC "
           f"stderr at 1e9 {mc_se:.3e}")
-    if qmc_launches < QMC_ROTATIONS:
-        fail("nd main path 2 did not launch the nd kernel per rotation")
+    if qmc_launches != 1:
+        fail("nd main path 2 did not run its rotations as one batched "
+             "launch of the nd kernel")
     if not (math.isfinite(v) and se >= 0
             and abs(v - QMC_MEAN) <= 6 * se + f32_floor):
         fail("nd main path 2 is not within 6 rQMC standard errors "
@@ -2522,10 +2230,11 @@ def main() -> int:
     qmc_cfg = NdConfig(qmc_kinds, "qmc")
     qmc_params = torch.tensor(
         np.stack([dist_spec_of(d).params for d in qmc_dists]), device=dev)
-    means32, means64 = [], []
+    means32, means64, rot_rows = [], [], []
     for s in rot_seeds:
         rows = integrate_nd_rows(qmc_program, qmc_cfg, qmc_params, int(s),
                                  rot_grid)
+        rot_rows.append(rows)
         got = float((rows.sum(dim=0) / float(np.float32(n_rot)))[0])
         want = float(integrate_nd_reference(
             qmc_program.torch_fns, qmc_cfg, qmc_params, int(s), rot_grid,
@@ -2543,6 +2252,21 @@ def main() -> int:
         reps=10)
     print(f"  one rotation's kernel ({n_rot} points, CUDA events, mean of 10 "
           f"launches): {rot_ms:.4f} ms")
+    # The rotations as the main path runs them: one launch of 8 reps, each
+    # rep's rows the rotation's own launch's above, bit for bit.
+    rot_words = torch.from_numpy(rot_seeds.view(np.int32)).to(dev)
+    rot_batch = integrate_nd_batch_rows(qmc_program, qmc_cfg, qmc_params,
+                                        rot_words, rot_grid)
+    for r, rows in enumerate(rot_rows):
+        if not torch.equal(rot_batch[r], rows):
+            fail(f"phase 13: rotation {r} of the batched launch is not its "
+                 "own launch's, bit for bit")
+    rot_batch_ms = time_ms(lambda: integrate_nd_batch_rows(
+        qmc_program, qmc_cfg, qmc_params, rot_words, rot_grid), reps=10)
+    print(f"  the {QMC_ROTATIONS} rotations in one batched launch, each bit "
+          f"for bit its own launch: {rot_batch_ms:.4f} ms (CUDA events, mean "
+          f"of 10) against {QMC_ROTATIONS} x {rot_ms:.4f} = "
+          f"{QMC_ROTATIONS * rot_ms:.4f} ms")
     se64 = float(np.std(means64, ddof=1) / math.sqrt(QMC_ROTATIONS))
     print(f"  {QMC_ROTATIONS} rotations of {n_rot} points: stderr of the "
           f"float64 rotation means {se64:.3e}, 10x below plain MC's "
@@ -4439,6 +4163,401 @@ def main() -> int:
     print(f"phases 52-53 (nd and tempered HMC) took "
           f"{time.perf_counter() - t_hmc_nd:.1f} s")
 
+    # 54-59. The serving handles: compile_integrate, compile_importance_
+    # sampling and the 1-D compile_mcmc with seed and param batches on the
+    # batch axis of kernels 1-3.  Each phase builds a handle as a user
+    # would, counts the launches of one warm call (one batched launch),
+    # holds every rep of one batched launch bit for bit against the
+    # unbatched launch with its seed and row (and the handle's element
+    # against the unbatched handle's), and times the batched launch
+    # against the unbatched one (CUDA events), the warm call (host clock,
+    # enqueue and synchronised) and its idle share: in one profiler window,
+    # kept where its busy time covers the batched launches' CUDA-event
+    # time, and from that time over the host clock of ten calls (an upper
+    # bound of the share: the calls' copies and sums count as idle).  The
+    # bound of an integrate batch is R times the unbatched launch's (R
+    # jobs' samples on the whole card); an MCMC batch's is the larger of
+    # its R jobs' pipe work, on the warps of all R, and one job's latency
+    # (the reps run side by side), times the waves when they cannot all be
+    # resident.
+    t_serve = time.perf_counter()
+    serve = tm.MonteCarloIntegrator()
+    serving = {"integrate": {}, "integrate_nd": {}, "mcmc": {}}
+
+    def words(seeds):
+        """The seed words on the card.  Staged once, outside the timed
+        launches: a copy from pageable memory waits for the stream, so
+        inside a launch's lambda it would time the host's work too."""
+        return torch.from_numpy(
+            np.asarray(seeds, np.uint32).view(np.int32)).to(dev)
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def warm_handle(call, kernel_ms, n_calls=10):
+        """(enqueue ms, synchronised ms) medians of 5 warm calls; the idle
+        share of one profiler window of ``n_calls`` calls (None where the
+        window lost events); and 1 - ``n_calls`` x ``kernel_ms`` over the
+        host clock of ``n_calls`` calls synchronised once."""
+        call()
+        torch.cuda.synchronize()
+        enq, full = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append(t1 - t0)
+            full.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_events = 1.0 - n_calls * kernel_ms / wall_ms
+        print(f"  warm call {np.median(full) * 1e3:.3f} ms synchronised, "
+              f"{np.median(enq) * 1e3:.3f} ms to enqueue (medians of 5, "
+              f"host clock); {n_calls} calls in {wall_ms:.3f} ms, idle at "
+              f"most {by_events:.2%} beside {n_calls} x {kernel_ms:.4f} ms "
+              "of kernel (CUDA events):", end="")
+        idle = idle_share(call, n_calls=n_calls, floor_ms=kernel_ms)
+        return (float(np.median(enq)) * 1e3, float(np.median(full)) * 1e3,
+                idle, by_events)
+
+    def batch_phase(phase, label, wrapper, counters, handle, args, one_handle,
+                    launch_batch, launch_one, reps, units, bound,
+                    public_call=None):
+        """One serving phase (module comment above): ``launch_batch()`` is
+        the batched launch's rows, ``launch_one(r)`` rep r's unbatched
+        launch's, ``bound(mhz)`` the batched launch's (ms, bound_by,
+        how it was counted)."""
+        for c in counters:
+            setattr(wrapper, c, 0)
+        out = handle(*args)
+        torch.cuda.synchronize()
+        counts = {c: getattr(wrapper, c) for c in counters}
+        print(f"phase {phase}: {label}: one warm call, launches {counts}")
+        if counts["launches"] != 1 or counts["batch_launches"] != 1:
+            fail(f"phase {phase}: a handle call is not one batched launch")
+        rows = launch_batch()
+        for r in range(reps):
+            one = launch_one(r)
+            for got, want in zip(as_tuple(rows), as_tuple(one)):
+                if not torch.equal(got[r], want):
+                    fail(f"phase {phase}: rep {r} of the batched launch is "
+                         "not the unbatched launch, bit for bit")
+            got = tuple(o[r] for o in as_tuple(out))
+            want = as_tuple(one_handle(r))
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"phase {phase}: element {r} of the handle is not the "
+                     "unbatched handle's, bit for bit")
+        values = as_tuple(out)[0]
+        if not bool(torch.isfinite(values).all()):
+            fail(f"phase {phase}: the handle's values are not finite")
+        b_ms = time_ms(launch_batch, reps=5)
+        o_ms = time_ms(lambda: launch_one(0), reps=10)
+        mhz_ = clock_under_load(launch_batch, b_ms)
+        b_bound, b_by, how = bound(mhz_)
+        print(f"  {reps} reps bit for bit their unbatched launches; on "
+              f"{card}: batched launch {b_ms:.4f} ms ({b_ms / reps:.4f} ms a "
+              f"job, {reps * units / b_ms * 1e3:.4e} units/s), unbatched "
+              f"{o_ms:.4f} ms ({reps} x = {reps * o_ms:.4f} ms); bound "
+              f"{b_bound:.4f} ms ({b_by}: {how}) at {mhz_:.0f} MHz, the "
+              f"launch at {b_ms / b_bound:.2f}x it")
+        enq, full, idle, idle_ev = warm_handle(lambda: handle(*args), b_ms)
+        rec = dict(reps=reps, launches=counts, ms=b_ms, ms_per_job=b_ms / reps,
+                   unbatched_ms=o_ms, units_per_s=reps * units / b_ms * 1e3,
+                   bound_ms=b_bound, bound_by=b_by, bound_mhz=mhz_,
+                   call_enqueue_ms=enq, call_ms=full, idle_share=idle,
+                   idle_share_at_most=idle_ev)
+        if public_call is not None:
+            c_ms = warm_call_ms(public_call)
+            print(f"  the public call, unbatched: warm {c_ms:.3f} ms median "
+                  "of 3 (host clock):", end="")
+            rec.update(public_call_ms=c_ms,
+                       public_idle_share=idle_share(public_call, n_calls=3,
+                                                    windows=1, floor_ms=o_ms))
+        return rec
+
+    def jobs_bound(reps, one):
+        """An integrate batch's bound: ``reps`` times ``one(mhz)``, an
+        unbatched launch's samples on the whole card."""
+        def bound(mhz_):
+            one_ms = one(mhz_)
+            return reps * one_ms, "operations", f"{reps} x {one_ms:.4f} ms"
+
+        return bound
+
+    def int_bound(lib_, kind, units):
+        return lambda mhz_: card_bound(
+            lib_, f"integrate_kernelILi{int(kind)}EE", 1, units, mhz_)[0]
+
+    # 54. K=8, N(0,1), 1e9 samples a job, seed_batch=8.
+    k8_seeds = [SEED + 1000 * r for r in range(8)]
+    k8_spec = dist_spec_of(normal)
+    k8_params = torch.tensor(k8_spec.params, device=dev)
+    k8_words = words(k8_seeds)
+    k8_grid = plan_grid(make_integrate_plan(MAIN_SAMPLES).actual_samples)
+    k8_one = serve.compile_integrate(BENCH_FNS, normal, n_samples=MAIN_SAMPLES)
+    serving["integrate"]["seed_batch"] = batch_phase(
+        "54", f"K=8, N(0,1), n_samples={MAIN_SAMPLES}, seed_batch=8",
+        integrate_cuda, ("launches", "batch_launches"),
+        serve.compile_integrate(BENCH_FNS, normal, n_samples=MAIN_SAMPLES,
+                                seed_batch=8), (k8_seeds,),
+        lambda r: k8_one(k8_seeds[r]),
+        lambda: integrate_batch_rows(program, k8_spec.kind, k8_params,
+                                     k8_words, k8_grid),
+        lambda r: integrate_rows(program, k8_spec.kind, k8_params,
+                                 k8_seeds[r], k8_grid),
+        8, n_main, jobs_bound(8, int_bound(program.library(), k8_spec.kind,
+                                          n_main)),
+        public_call=lambda: tm.integrate(BENCH_FNS, normal,
+                                         n_samples=MAIN_SAMPLES, seed=SEED))
+
+    # 55. Eight normal (mean, std) rows at 2**27 with error bars.
+    p_n = 1 << 27
+    p_grid = plan_grid(make_integrate_plan(p_n).actual_samples)
+    p_dists = [tm.Distribution.normal(0.25 * r - 1.0, 0.5 + 0.25 * r)
+               for r in range(8)]
+    p_pack = tm.pack_param_batch(p_dists)
+    p_rows = torch.tensor(np.asarray(p_pack), device=dev)
+    se_cfg = IntegrateConfig("mc", True)
+    p_pilots = torch.stack([pilot_values(program.torch_values, k8_spec.kind,
+                                         row) for row in p_rows.unbind()])
+    serving["integrate"]["param_batch"] = batch_phase(
+        "55", f"K=8, eight N(m, s) rows, n_samples={p_n}, return_stderr",
+        integrate_cuda, ("launches", "batch_launches"),
+        serve.compile_integrate(BENCH_FNS, p_dists[0], n_samples=p_n,
+                                seed_batch=8, param_batch=True,
+                                return_stderr=True), (k8_seeds, p_pack),
+        lambda r: serve.compile_integrate(BENCH_FNS, p_dists[r], n_samples=p_n,
+                                          return_stderr=True)(k8_seeds[r]),
+        lambda: integrate_batch_rows(program, k8_spec.kind, p_rows, k8_words,
+                                     p_grid, se_cfg, p_pilots),
+        lambda r: integrate_rows(program, k8_spec.kind, p_rows[r], k8_seeds[r],
+                                 p_grid, se_cfg, p_pilots[r]),
+        8, p_grid.actual_samples,
+        jobs_bound(8, int_bound(program.library(se_cfg), k8_spec.kind,
+                                p_grid.actual_samples)))
+
+    # 56. BASELINE.md config 3: Beta(2, 5), [x, x^2], 1e7 a job,
+    # seed_batch=64.
+    c3_seeds = [SEED + r for r in range(64)]
+    c3_spec = dist_spec_of(c3_beta)
+    c3_tables = sampling_tables(c3_beta, c3_spec, dev)
+    c3_params = torch.tensor(c3_spec.params, device=dev)
+    c3_grid = plan_grid(make_integrate_plan(C3_SAMPLES).actual_samples)
+    c3_words = words(c3_seeds)
+    c3_one = serve.compile_integrate(C3_BETA_FNS, c3_beta,
+                                     n_samples=C3_SAMPLES)
+    serving["integrate"]["config3_seed_batch"] = batch_phase(
+        "56", f"config 3, Beta(2,5), n_samples={C3_SAMPLES}, seed_batch=64",
+        integrate_cuda, ("launches", "batch_launches"),
+        serve.compile_integrate(C3_BETA_FNS, c3_beta, n_samples=C3_SAMPLES,
+                                seed_batch=64), (c3_seeds,),
+        lambda r: c3_one(c3_seeds[r]),
+        lambda: integrate_batch_rows(c3_beta_program, c3_spec.kind, c3_params,
+                                     c3_words, c3_grid,
+                                     tables=c3_tables),
+        lambda r: integrate_rows(c3_beta_program, c3_spec.kind, c3_params,
+                                 c3_seeds[r], c3_grid, tables=c3_tables),
+        64, c3_grid.actual_samples,
+        jobs_bound(64, int_bound(c3_beta_program.library(MC_CFG,
+                                                         c3_tables.route),
+                                 c3_spec.kind, c3_grid.actual_samples)),
+        public_call=lambda: tm.integrate(C3_BETA_FNS, c3_beta,
+                                         n_samples=C3_SAMPLES, seed=SEED))
+
+    # 57. Config 4's importance set, 1e8 a job, seed_batch=8, error bars.
+    h_spec = dist_spec_of(is_proposal)
+    is_h_params = torch.tensor(h_spec.params, device=dev)
+    h_grid = plan_grid(make_integrate_plan(IS_SAMPLES).actual_samples)
+    h_pilot = pilot_values(is_handle_program.torch_values, h_spec.kind,
+                           is_h_params)
+    h_one = serve.compile_importance_sampling(
+        IS_FNS, is_target, is_proposal, n_samples=IS_SAMPLES,
+        return_stderr=True)
+    serving["integrate"]["is_seed_batch"] = batch_phase(
+        "57", f"config 4 importance handle, n_samples={IS_SAMPLES}, "
+        "seed_batch=8, return_stderr", integrate_cuda,
+        ("launches", "batch_launches"),
+        serve.compile_importance_sampling(
+            IS_FNS, is_target, is_proposal, n_samples=IS_SAMPLES,
+            seed_batch=8, return_stderr=True), (k8_seeds,),
+        lambda r: h_one(k8_seeds[r]),
+        lambda: integrate_batch_rows(is_handle_program, h_spec.kind,
+                                     is_h_params, k8_words, h_grid, is_cfg,
+                                     h_pilot),
+        lambda r: integrate_rows(is_handle_program, h_spec.kind, is_h_params,
+                                 k8_seeds[r], h_grid, is_cfg, h_pilot),
+        8, h_grid.actual_samples,
+        jobs_bound(8, int_bound(is_handle_program.library(is_cfg),
+                                h_spec.kind, h_grid.actual_samples)),
+        public_call=lambda: tm.integrate_importance_sampling(
+            IS_FNS, is_target, is_proposal, n_samples=IS_SAMPLES, seed=SEED,
+            return_stderr=True))
+
+    # 58. nd: c9's set at 1e9 a job, seed_batch=4; four
+    # pack_param_batch_nd rows at 2**27 (phase 13 ran c9c's rotations as
+    # one launch).
+    nd_seeds = k8_seeds[:4]
+    nd_words = words(nd_seeds)
+    nd_c9_cfg = NdConfig(nd_kinds)
+    nd_c9_params = torch.tensor(
+        np.stack([dist_spec_of(d).params for d in nd_dists]), device=dev)
+    nd_one = serve.compile_integrate(ND_FNS, nd_dists, n_samples=MAIN_SAMPLES)
+    serving["integrate_nd"]["seed_batch"] = batch_phase(
+        "58", f"c9's set, n_samples={MAIN_SAMPLES}, seed_batch=4",
+        integrate_nd_cuda, ("launches", "batch_launches"),
+        serve.compile_integrate(ND_FNS, nd_dists, n_samples=MAIN_SAMPLES,
+                                seed_batch=4), (nd_seeds,),
+        lambda r: nd_one(nd_seeds[r]),
+        lambda: integrate_nd_batch_rows(nd_program, nd_c9_cfg, nd_c9_params,
+                                        nd_words, nd_grid),
+        lambda r: integrate_nd_rows(nd_program, nd_c9_cfg, nd_c9_params,
+                                    nd_seeds[r], nd_grid),
+        4, n_nd, jobs_bound(4, lambda mhz_: card_bound(
+            nd_program.library(), "integrate_nd_kernelILi0ELb0EE", 3, n_nd,
+            mhz_)[0]),
+        public_call=lambda: tm.integrate(ND_FNS, nd_dists,
+                                         n_samples=MAIN_SAMPLES, seed=SEED))
+    nd_rows = [[tm.Distribution.normal(0.5 * r, 1.0 + 0.5 * r),
+                tm.Distribution.uniform(-r, 1.0),
+                tm.Distribution.exponential(2.0 + r)] for r in range(4)]
+    nd_pack = tm.pack_param_batch_nd(nd_rows)
+    nd_prows = torch.tensor(np.asarray(nd_pack), device=dev)
+    nd_pgrid = plan_grid(make_integrate_plan(p_n).actual_samples)
+    serving["integrate_nd"]["param_batch"] = batch_phase(
+        "58", f"c9's set, four pack_param_batch_nd rows, n_samples={p_n}",
+        integrate_nd_cuda, ("launches", "batch_launches"),
+        serve.compile_integrate(ND_FNS, nd_rows[0], n_samples=p_n,
+                                seed_batch=4, param_batch=True),
+        (nd_seeds, nd_pack),
+        lambda r: serve.compile_integrate(ND_FNS, nd_rows[r],
+                                          n_samples=p_n)(nd_seeds[r]),
+        lambda: integrate_nd_batch_rows(nd_program, nd_c9_cfg, nd_prows,
+                                        nd_words, nd_pgrid),
+        lambda r: integrate_nd_rows(nd_program, nd_c9_cfg, nd_prows[r],
+                                    nd_seeds[r], nd_pgrid),
+        4, nd_pgrid.actual_samples,
+        jobs_bound(4, lambda mhz_: card_bound(
+            nd_program.library(), "integrate_nd_kernelILi0ELb0EE", 3,
+            nd_pgrid.actual_samples, mhz_)[0]))
+    serving["integrate_nd"]["rqmc"] = dict(
+        reps=QMC_ROTATIONS, ms=rot_batch_ms, unbatched_ms=rot_ms,
+        launches={"launches": qmc_launches})
+
+    # 59. The 1-D MCMC handle: c5b at 4096 x (1,000 + 2,000) with error
+    # bars, seed_batch=4; four N(m, s) targets under four adaptive walks
+    # (pack_random_walk_batch); c11's HMC handle at seed_batch=2.  Each
+    # rep's rows and final states (its chains' digest) against the
+    # unbatched launch's.
+    short = {k: v for k, v in SHORT_MCMC.items() if k != "seed"}
+    m_grid = plan_mcmc_grid(plan_chains(short["n_chains"], None))
+    m_depth = short["n_steps"] + short["n_burnin"]
+    m_units = m_grid.chains_actual * m_depth
+    mcmc_counters = ("launches", "pilot_launches", "batch_launches")
+
+    def mcmc_setup(fns, target_, proposal_, stderr):
+        traced_ = serve._trace_user_functions(fns)
+        return serve._mcmc_kernel_program(
+            traced_, target_, proposal_, short["n_steps"], short["n_burnin"],
+            stderr)
+
+    def mcmc_batch_launches(prog_, cfg_, rows_, seeds_, tabs_):
+        words_ = words(seeds_)
+
+        def batch():
+            out_ = mcmc_batch(prog_, cfg_, rows_, words_, m_grid, tabs_)
+            return out_.rows, out_.x_final
+
+        def one(r):
+            out_ = mcmc_cuda(prog_, cfg_, rows_[r] if rows_.dim() == 2
+                             else rows_, seeds_[r], m_grid, tabs_)
+            return out_.rows, out_.x_final
+
+        return batch, one
+
+    def mcmc_batch_bound(prog_, cfg_, reps):
+        """The batched launch's bound (module comment above): the pipe
+        bound of ``reps`` jobs' chain-steps on the warps of all of them,
+        against one job's latency times the waves of resident warps."""
+        def bound(mhz_):
+            lanes = prog_.layout_for(cfg_).lanes
+            warps = function_warps(cfg_.mode, m_grid.chains_actual)
+            b = card_bound(prog_.library(cfg_), "mcmc_kernel", 2,
+                           reps * m_units, mhz_,
+                           warps=None if warps is None else reps * warps,
+                           weights=(short["n_steps"], short["n_burnin"]),
+                           lanes=lanes)
+            props = torch.cuda.get_device_properties(0)
+            resident = props.multi_processor_count * getattr(
+                props, "max_threads_per_multi_processor", 2048)
+            waves = -(-reps * m_grid.chains_actual * lanes // resident)
+            lat = waves * latency_ms(b[3]["carried"], m_depth, mhz_)
+            how = (f"pipes {b[0]:.4f} ms for {reps} jobs ({b[1]}), latency "
+                   f"{lat:.4f} ms: one job's {m_depth} steps x "
+                   f"{b[3]['carried']:g} carried instructions, {waves} "
+                   "wave(s) of resident warps")
+            return max(b[0], lat), bound_by(b, lat), how
+
+        return bound
+
+    c5b_t = tm.Distribution.normal(0.0, 1.0)
+    c5b_q = tm.Distribution.normal(0.0, 2.0)
+    m_prog, m_cfg, m_params, m_tabs = mcmc_setup(MCMC_MAIN_FNS, c5b_t, c5b_q,
+                                                 True)
+    m_seeds = k8_seeds[:4]
+    m_one = serve.compile_mcmc(MCMC_MAIN_FNS, c5b_t, c5b_q, return_stderr=True,
+                               **short)
+    serving["mcmc"]["seed_batch"] = batch_phase(
+        "59", f"c5b, {m_grid.chains_actual} x ({short['n_burnin']} + "
+        f"{short['n_steps']}), error bars, seed_batch=4", mcmc_cuda,
+        mcmc_counters,
+        serve.compile_mcmc(MCMC_MAIN_FNS, c5b_t, c5b_q, seed_batch=4,
+                           return_stderr=True, **short), (m_seeds,),
+        lambda r: m_one(m_seeds[r]),
+        *mcmc_batch_launches(m_prog, m_cfg, m_params, m_seeds, m_tabs),
+        4, m_units, mcmc_batch_bound(m_prog, m_cfg, 4))
+    w_targets = [tm.Distribution.normal(0.5 * r, 1.0 + 0.5 * r)
+                 for r in range(4)]
+    w_walks = [tm.RandomWalk(step_size=0.5 + 0.5 * r, adapt=True)
+               for r in range(4)]
+    t_pack = tm.pack_param_batch(w_targets)
+    w_pack = tm.pack_random_walk_batch(w_walks, w_targets)
+    w_prog, w_cfg, _, _ = mcmc_setup(MCMC_MAIN_FNS, w_targets[0], w_walks[0],
+                                     True)
+    w_rows = torch.tensor(np.concatenate([np.asarray(w_pack),
+                                          np.asarray(t_pack)], axis=1),
+                          device=dev)
+    serving["mcmc"]["param_batch"] = batch_phase(
+        "59", "four N(m, s) targets x four adaptive walks "
+        "(pack_random_walk_batch), error bars", mcmc_cuda, mcmc_counters,
+        serve.compile_mcmc(MCMC_MAIN_FNS, w_targets[0], w_walks[0],
+                           seed_batch=4, param_batch=True, return_stderr=True,
+                           **short), (m_seeds, t_pack, w_pack),
+        lambda r: serve.compile_mcmc(MCMC_MAIN_FNS, w_targets[r], w_walks[r],
+                                     return_stderr=True, **short)(m_seeds[r]),
+        *mcmc_batch_launches(w_prog, w_cfg, w_rows, m_seeds, None),
+        4, m_units, mcmc_batch_bound(w_prog, w_cfg, 4))
+    c11_out = hmc_out["c11"]
+    c11_fns = HMC_CELLS["c11"][0]
+    x_prog, x_cfg, x_params, x_tabs = mcmc_setup(c11_fns, c11_out["target"],
+                                                 c11_out["hmc"], False)
+    x_one = serve.compile_mcmc(c11_fns, c11_out["target"], c11_out["hmc"],
+                               **short)
+    serving["mcmc"]["hmc_seed_batch"] = batch_phase(
+        "59", f"c11's HMC handle, L = {HMC_LEAPFROG}, seed_batch=2",
+        mcmc_cuda, mcmc_counters,
+        serve.compile_mcmc(c11_fns, c11_out["target"], c11_out["hmc"],
+                           seed_batch=2, **short), (m_seeds[:2],),
+        lambda r: x_one(m_seeds[r]),
+        *mcmc_batch_launches(x_prog, x_cfg, x_params, m_seeds[:2], x_tabs),
+        2, m_units, mcmc_batch_bound(x_prog, x_cfg, 2))
+    serve_s = time.perf_counter() - t_serve
+    print(f"phases 54-59 (the serving handles) took {serve_s:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -4462,6 +4581,7 @@ def main() -> int:
         "modes": modes,
         "families": {"launches": family_launches,
                      "max_abs_err": family_err, **family_times},
+        "batch": serving["integrate"],
     }, {
         "name": "mcmc",
         "route": "cuda",
@@ -4485,6 +4605,7 @@ def main() -> int:
         "outputs": outputs["mcmc"],
         "hmc": hmc,
         "state": state["c5b"],
+        "batch": serving["mcmc"],
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -4519,6 +4640,7 @@ def main() -> int:
             **{k: nd_is["rare"][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "call_ms")},
             **nd_is},
+        "batch": serving["integrate_nd"],
     }, {
         "name": "mcmc_nd",
         "route": "cuda",

@@ -43,6 +43,7 @@ from tpu_montecarlo_torch.ops.mcmc_kernel import (
     plan_chains,
     plan_mcmc_grid,
 )
+from tpu_montecarlo_torch.ops.reduce import fixed_sum
 from tpu_montecarlo_torch.sampling import DistKind, dist_spec_of
 
 BENCH = [
@@ -162,6 +163,7 @@ MODES_1D = {
     "qmc": ("qmc", False),
     "mc-stderr": ("mc", True),
     "antithetic-stderr": ("antithetic", True),
+    "qmc-stderr": ("qmc", True),
 }
 
 
@@ -288,8 +290,8 @@ def test_integrate_modes_on_cuda_match_cpu(cuda_device):
                dict(method="qmc", return_stderr=True, qmc_rotations=4)):
         before = integrate_cuda.launches
         got = tm.integrate(BENCH, d, n_samples=1 << 20, device=cuda_device, **kw)
-        rotations = kw.get("qmc_rotations", 8) if kw["method"] == "qmc" and kw.get("return_stderr") else 1
-        assert integrate_cuda.launches == before + rotations
+        # rQMC's rotations are one seed-batched launch.
+        assert integrate_cuda.launches == before + 1
         want = tm.integrate(BENCH, d, n_samples=1 << 20, device="cpu", **kw)
         np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
         if kw["method"] == "qmc" and kw.get("return_stderr"):
@@ -311,7 +313,7 @@ def test_importance_sampling_on_cuda_matches_cpu(cuda_device):
         got = tm.integrate_importance_sampling(fns, target, proposal,
                                                n_samples=1 << 20,
                                                device=cuda_device, **kw)
-        assert integrate_cuda.launches == before + kw.get("qmc_rotations", 1)
+        assert integrate_cuda.launches == before + 1  # rQMC: one batched launch
         want = tm.integrate_importance_sampling(fns, target, proposal,
                                                 n_samples=1 << 20,
                                                 device="cpu", **kw)
@@ -326,6 +328,18 @@ def test_importance_sampling_on_cuda_matches_cpu(cuda_device):
             for key in ("ess", "mean_weight", "weight_cv"):
                 assert got.diagnostics[key] == pytest.approx(
                     want.diagnostics[key], rel=STDERR_1D_RTOL)
+
+
+def _rows_sum(rows: torch.Tensor) -> torch.Tensor:
+    """The integrate kernels' second pass (``csrc/rows_sum.cuh``) over a
+    launch's (blocks, n) rows, in its order: thread t adds rows t, t +
+    256, ... in turn, then the 256 sums add in a pairwise tree."""
+    part = torch.zeros((256, rows.shape[1]), dtype=rows.dtype,
+                       device=rows.device)
+    for i in range(0, rows.shape[0], 256):
+        chunk = rows[i:i + 256]
+        part[:len(chunk)] += chunk
+    return fixed_sum(part, 0)
 
 
 @pytest.mark.cuda
@@ -352,7 +366,8 @@ def test_kernel_rows_sum_to_the_wrapper_result(cuda_device, mode):
     assert rows.shape == (min(grid.n_tiles, MAX_CUDA_BLOCKS),
                           3 * (2 if with_stderr else 1))
     whole = integrate_cuda(program, spec.kind, params, 7, grid, cfg, pilot)
-    assert torch.equal(rows.sum(dim=0).reshape(whole.shape), whole)
+    # The launch's second pass sums the rows in one order (any batch's).
+    assert torch.equal(_rows_sum(rows).reshape(whole.shape), whole)
 
 
 # -- CUSTOM tables and table weights in the 1-D kernel --------------------------
@@ -485,7 +500,8 @@ def test_table_weight_kernel_matches_plain_version(cuda_device, case, mode):
 
 @pytest.mark.cuda
 def test_custom_integrate_on_cuda_matches_cpu(cuda_device):
-    # The public paths, one launch each (rQMC: one per rotation).
+    # The public paths, one launch each (rQMC's rotations: one batched
+    # launch).
     for route, make in CUSTOM_DISTS.items():
         d = make()
         for kw in (dict(method="mc", return_stderr=True),
@@ -493,7 +509,7 @@ def test_custom_integrate_on_cuda_matches_cpu(cuda_device):
             before = integrate_cuda.launches
             got = tm.integrate(BENCH[:2], d, n_samples=1 << 20,
                                device=cuda_device, **kw)
-            assert integrate_cuda.launches == before + kw.get("qmc_rotations", 1)
+            assert integrate_cuda.launches == before + 1  # rQMC: one batched launch
             want = tm.integrate(BENCH[:2], d, n_samples=1 << 20, device="cpu", **kw)
             size = np.maximum(np.abs(want.values), 1.0)
             assert np.all(np.abs(got.values - want.values)
@@ -763,7 +779,7 @@ ND8_DISTS = [
     tm.Distribution.uniform(-2.0, 0.0),
 ]
 ND_MODES = [("mc", False), ("antithetic", False), ("qmc", False),
-            ("mc", True), ("antithetic", True)]
+            ("mc", True), ("antithetic", True), ("qmc", True)]
 
 
 def _nd_kernel_and_plain(fns, dists, method, with_stderr, device, n_samples):
@@ -883,7 +899,7 @@ def test_integrate_nd_on_cuda_matches_cpu(cuda_device):
         before = integrate_nd_cuda.launches
         got = tm.integrate(ND_FNS, ND_DISTS, n_samples=1 << 20,
                            device=cuda_device, **kw)
-        assert integrate_nd_cuda.launches == before + kw.get("qmc_rotations", 1)
+        assert integrate_nd_cuda.launches == before + 1  # rQMC: one batched launch
         want = tm.integrate(ND_FNS, ND_DISTS, n_samples=1 << 20, device="cpu", **kw)
         np.testing.assert_allclose(got.values, want.values, rtol=RTOL, atol=ATOL)
         if kw["method"] == "qmc":
@@ -918,7 +934,7 @@ def test_nd_kernel_rows_sum_to_the_wrapper_result(cuda_device):
     rows = integrate_nd_rows(program, cfg, params, 7, grid)
     assert integrate_nd_cuda.launches == before + 1
     assert rows.shape == (min(grid.n_tiles, MAX_CUDA_BLOCKS), 1)
-    assert torch.equal(rows.sum(dim=0),
+    assert torch.equal(_rows_sum(rows),
                        integrate_nd_cuda(program, cfg, params, 7, grid))
 
 
@@ -1760,7 +1776,7 @@ def test_family_integrate_on_cuda_matches_cpu(cuda_device, name):
     got = tm.integrate(FAMILY_FNS, _family_dist(name), n_samples=1 << 21,
                        device=cuda_device, method="qmc", return_stderr=True,
                        qmc_rotations=4)
-    assert integrate_cuda.launches == before + 4
+    assert integrate_cuda.launches == before + 1  # rQMC: one batched launch
     want = tm.integrate(FAMILY_FNS, _family_dist(name), n_samples=1 << 21,
                         device="cpu", method="qmc", return_stderr=True,
                         qmc_rotations=4)
@@ -2633,3 +2649,262 @@ def test_integrate_mcmc_nd_and_tempered_hmc_on_cuda_match_cpu(cuda_device):
             np.testing.assert_allclose(got.diagnostics["r_hat"],
                                        want.diagnostics["r_hat"], rtol=1e-4)
             np.testing.assert_allclose(got.samples, want.samples, atol=1e-3)
+
+
+# -- the batch axis of the integrate, nd integrate and 1-D MCMC kernels -------
+#
+# R jobs in one launch: rep r's rows (and final states and draws) are the
+# unbatched launch's with seed r (and row r), bit for bit, and so are its
+# sums, summed as the unbatched path sums them.  A batch of one is the
+# existing path.
+
+BATCH_SEEDS = [7, 42, 2**32 - 5]
+
+
+def _seed_words(device, seeds=BATCH_SEEDS):
+    return torch.from_numpy(np.asarray(seeds, np.uint32).view(np.int32)).to(device)
+
+
+def _batch_cases():
+    """(name, functions, distribution rows, method, error bars)."""
+    n = [tm.Distribution.normal(0.5, 1.5), tm.Distribution.normal(-1.0, 0.5),
+         tm.Distribution.normal(2.0, 3.0)]
+    return {
+        "mc": (BENCH, n[:1], "mc", False),
+        "mc-stderr": (BENCH, n[:1], "mc", True),
+        "antithetic-stderr": (BENCH, n[:1], "antithetic", True),
+        "qmc": (BENCH, n[:1], "qmc", False),
+        "qmc-stderr": (BENCH, n[:1], "qmc", True),
+        "params-mc": (BENCH, n, "mc", False),
+        "params-stderr": (BENCH, n, "mc", True),
+        "params-gumbel": (BENCH[:4], [tm.Distribution.gumbel(1.0, 0.5),
+                                      tm.Distribution.gumbel(-2.0, 3.0),
+                                      tm.Distribution.gumbel(0.0, 1.0)],
+                          "antithetic", True),
+        "custom": (BENCH[:4], [tm.Distribution.beta(2.0, 5.0)], "mc", True),
+        "custom-qmc": (BENCH[:4], [tm.Distribution.beta(2.0, 5.0)], "qmc", False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_batch_cases()))
+def test_integrate_batch_is_its_unbatched_launches(cuda_device, case):
+    from tpu_montecarlo_torch.api.device import sampling_tables
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        integrate_batch,
+        integrate_batch_rows,
+        integrate_rows,
+        pilot_values,
+    )
+
+    fns, dists, method, stderr = _batch_cases()[case]
+    program = IntegrateProgram(tuple(tm.trace_function(f) for f in fns))
+    cfg = IntegrateConfig(method, stderr)
+    grid = plan_grid(1 << 22, method)
+    spec = dist_spec_of(dists[0])
+    tables = None
+    if spec.kind == DistKind.CUSTOM:
+        tables = sampling_tables(dists[0], spec, cuda_device)
+    rows = [torch.tensor(dist_spec_of(d).params, device=cuda_device)
+            for d in dists]
+    pilots = [pilot_values(program.torch_values, spec.kind, p, tables)
+              if stderr else None for p in rows]
+    per_rep = len(rows) > 1
+    params = torch.stack(rows) if per_rep else rows[0]
+    pilot = (torch.stack(pilots) if per_rep else pilots[0]) if stderr else None
+    seeds = _seed_words(cuda_device, BATCH_SEEDS[:len(rows)] if per_rep
+                        else BATCH_SEEDS)
+    before = (integrate_cuda.launches, integrate_cuda.batch_launches)
+    batch_rows = integrate_batch_rows(program, spec.kind, params, seeds, grid,
+                                      cfg, pilot, tables)
+    assert (integrate_cuda.launches, integrate_cuda.batch_launches) == (
+        before[0] + 1, before[1] + 1)
+    sums = integrate_batch(program, spec.kind, params, seeds, grid, cfg, pilot,
+                           tables)
+    for r, seed in enumerate(seeds.cpu().numpy().view(np.uint32).tolist()):
+        p = rows[r] if per_rep else rows[0]
+        pl = pilots[r] if per_rep else pilots[0]
+        assert torch.equal(batch_rows[r], integrate_rows(
+            program, spec.kind, p, seed, grid, cfg, pl, tables))
+        assert torch.equal(sums[r], integrate_cuda(
+            program, spec.kind, p, seed, grid, cfg, pl, tables))
+    # A batch of one is the existing path.
+    one = integrate_batch(program, spec.kind, params[:1] if per_rep else params,
+                          seeds[:1], grid, cfg,
+                          pilot[:1] if per_rep and stderr else pilot, tables)
+    assert torch.equal(one[0], integrate_cuda(program, spec.kind, rows[0],
+                                              BATCH_SEEDS[0], grid, cfg,
+                                              pilots[0], tables))
+    # And the batch is the plain version's, rep by rep.
+    cpu_tables = None if tables is None else sampling_tables(dists[0], spec, "cpu")
+    want = integrate_batch(
+        program, spec.kind, params.cpu(), seeds.cpu(), grid, cfg,
+        None if pilot is None else pilot.cpu(), cpu_tables)
+    np.testing.assert_allclose(sums.double().cpu().numpy(),
+                               want.double().numpy(), rtol=RTOL,
+                               atol=ATOL * grid.actual_samples)
+
+
+def _nd_batch_cases():
+    c9 = [[tm.Distribution.normal(0.0, 1.0), tm.Distribution.uniform(0.0, 1.0),
+           tm.Distribution.exponential(2.0)],
+          [tm.Distribution.normal(1.0, 0.5), tm.Distribution.uniform(-1.0, 1.0),
+           tm.Distribution.exponential(0.5)]]
+    b = [[tm.Distribution.beta(2.0, 5.0), tm.Distribution.uniform(0.0, 1.0),
+          tm.Distribution.exponential(2.0)]]
+    return {
+        "mc": (c9[:1], "mc", False),
+        "antithetic-stderr": (c9[:1], "antithetic", True),
+        "qmc": (c9[:1], "qmc", False),
+        "params-stderr": (c9, "mc", True),
+        "params-qmc-stderr": (c9, "qmc", True),
+        "custom": (b, "mc", True),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_nd_batch_cases()))
+def test_nd_batch_is_its_unbatched_launches(cuda_device, case):
+    from tpu_montecarlo_torch.api.device import nd_tables
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+        IntegrateNdProgram,
+        NdConfig,
+        integrate_nd_batch,
+        integrate_nd_batch_rows,
+        integrate_nd_cuda,
+        integrate_nd_rows,
+        pilot_row,
+    )
+
+    dists, method, stderr = _nd_batch_cases()[case]
+    fns = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
+    kinds = tuple(dist_spec_of(d).kind for d in dists[0])
+    program = IntegrateNdProgram(tuple(tm.trace_function(f, 3) for f in fns),
+                                 kinds)
+    cfg = NdConfig(kinds, method, with_stderr=stderr)
+    grid = plan_grid(1 << 22, method)
+    tables = nd_tables(dists[0], cfg, cuda_device)
+    rows = [torch.tensor(np.stack([dist_spec_of(d).params for d in row]),
+                         device=cuda_device) for row in dists]
+    pilots = [pilot_row(program.torch_fns, kinds, p, tables) if stderr else None
+              for p in rows]
+    per_rep = len(rows) > 1
+    params = torch.stack(rows) if per_rep else rows[0]
+    pilot = (torch.stack(pilots) if per_rep else pilots[0]) if stderr else None
+    seeds = _seed_words(cuda_device, BATCH_SEEDS[:len(rows)] if per_rep
+                        else BATCH_SEEDS)
+    before = integrate_nd_cuda.batch_launches
+    batch_rows = integrate_nd_batch_rows(program, cfg, params, seeds, grid,
+                                         pilot, tables)
+    assert integrate_nd_cuda.batch_launches == before + 1
+    sums = integrate_nd_batch(program, cfg, params, seeds, grid, pilot, tables)
+    for r, seed in enumerate(seeds.cpu().numpy().view(np.uint32).tolist()):
+        p = rows[r] if per_rep else rows[0]
+        pl = pilots[r] if per_rep else pilots[0]
+        assert torch.equal(batch_rows[r], integrate_nd_rows(
+            program, cfg, p, seed, grid, pl, tables))
+        assert torch.equal(sums[r], integrate_nd_cuda(program, cfg, p, seed,
+                                                      grid, pl, tables))
+    one = integrate_nd_batch(program, cfg, params[:1] if per_rep else params,
+                             seeds[:1], grid,
+                             pilot[:1] if per_rep and stderr else pilot, tables)
+    assert torch.equal(one[0], integrate_nd_cuda(program, cfg, rows[0],
+                                                 BATCH_SEEDS[0], grid,
+                                                 pilots[0], tables))
+
+
+MCMC_BATCH = {
+    "independence": (Mode.INDEPENDENCE, [0.0, 3.0, 0.0, 0.0], 0),
+    "walk": (Mode.RANDOM_WALK, [1.0, -2.0, 3.0, 0.44], 0),
+    "adaptive": (Mode.ADAPTIVE, [1.0, -2.0, 3.0, 0.44], 0),
+    "hmc": (Mode.ADAPTIVE, [0.4, -2.0, 3.0, 0.8], 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", ["none", "stderr", "draws"])
+@pytest.mark.parametrize("per_rep", [False, True], ids=["seeds", "params"])
+@pytest.mark.parametrize("mode", list(MCMC_BATCH))
+def test_mcmc_batch_is_its_unbatched_launches(cuda_device, mode, per_rep,
+                                              outputs):
+    from tpu_montecarlo_torch.ops.mcmc_kernel import (
+        McmcOutput,
+        mcmc_batch,
+        mcmc_batch_finish,
+    )
+
+    code, prop_row, leapfrog = MCMC_BATCH[mode]
+    program = McmcProgram(tuple(tm.trace_function(f) for f in BENCH[:3]))
+    cfg = McmcConfig(code, DistKind.NORMAL, DistKind.NORMAL, 200, 50,
+                     with_stderr=outputs == "stderr",
+                     samples=8 if outputs == "draws" else 0,
+                     hmc_leapfrog=leapfrog)
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    targets = [(0.5, 1.5), (-1.0, 0.5), (2.0, 3.0)]
+    rows = [torch.tensor([*prop_row[:1], *prop_row[1:], *t],
+                         dtype=torch.float32, device=cuda_device)
+            for t in (targets if per_rep else targets[:1])]
+    if per_rep:
+        rows = [r.clone() for r in rows]
+        for i, r in enumerate(rows):
+            r[0] *= 1.0 + 0.25 * i  # a step (or proposal mean) per rep
+    params = torch.stack(rows) if per_rep else rows[0]
+    seeds = _seed_words(cuda_device)
+    before = (mcmc_cuda.launches, mcmc_cuda.batch_launches)
+    out = mcmc_batch(program, cfg, params, seeds, grid)
+    assert (mcmc_cuda.launches, mcmc_cuda.batch_launches) == (
+        before[0] + 1, before[1] + 1)
+    values, acceptance, stderr = mcmc_batch_finish(out, grid, cfg, 3)
+    for r, seed in enumerate(BATCH_SEEDS):
+        one = mcmc_cuda(program, cfg, rows[r] if per_rep else rows[0], seed,
+                        grid)
+        assert torch.equal(out.rows[r], one.rows)
+        assert torch.equal(out.x_final[r], one.x_final)
+        if cfg.samples:
+            assert torch.equal(out.samples[r], one.samples)
+        v, a, s = mcmc_finish(one, grid, cfg, 3)
+        assert torch.equal(values[r], v) and torch.equal(acceptance[r], a)
+        if stderr is not None:
+            assert torch.equal(stderr[r], s)
+    one = mcmc_batch(program, cfg, params[:1] if per_rep else params,
+                     seeds[:1], grid)
+    ref = mcmc_cuda(program, cfg, rows[0], BATCH_SEEDS[0], grid)
+    assert torch.equal(one.rows[0], ref.rows)
+    assert isinstance(one, McmcOutput)
+
+
+@pytest.mark.cuda
+def test_handles_on_the_card(cuda_device):
+    """The public handles on the card: a batched element is its unbatched
+    call bit for bit (seeds given as a list or as a tensor on the card),
+    and close to the CPU handle."""
+    d = tm.Distribution.normal(0.5, 1.5)
+    gpu = tm.MonteCarloIntegrator()  # "cuda": seeds on any CUDA index
+    cpu = tm.MonteCarloIntegrator(device="cpu")
+    kw = dict(n_samples=1 << 22, return_stderr=True)
+    batched = gpu.compile_integrate(BENCH, d, seed_batch=3, **kw)
+    single = gpu.compile_integrate(BENCH, d, **kw)
+    values, se = batched(_seed_words(cuda_device))
+    assert values.device.type == "cuda"
+    v2, s2 = batched(BATCH_SEEDS)
+    assert torch.equal(values, v2) and torch.equal(se, s2)
+    for r, seed in enumerate(BATCH_SEEDS):
+        v, s = single(seed)
+        assert torch.equal(values[r], v) and torch.equal(se[r], s)
+    want, _ = cpu.compile_integrate(BENCH, d, seed_batch=3, **kw)(BATCH_SEEDS)
+    np.testing.assert_allclose(values.cpu().double().numpy(),
+                               want.double().numpy(), rtol=RTOL, atol=ATOL)
+    target, walks = tm.Distribution.normal(0.0, 1.0), [
+        tm.RandomWalk(step_size=s, adapt=True) for s in (0.5, 1.0, 2.0)]
+    prog = gpu.compile_mcmc([lambda x: x * x], target, walks[0], n_steps=500,
+                            n_chains=4096, n_burnin=100, seed_batch=3,
+                            param_batch=True, return_stderr=True)
+    got = prog(BATCH_SEEDS, tm.pack_param_batch([target] * 3),
+               tm.pack_random_walk_batch(walks, target))
+    for r, walk in enumerate(walks):
+        one = gpu.compile_mcmc([lambda x: x * x], target, walk, n_steps=500,
+                               n_chains=4096, n_burnin=100,
+                               return_stderr=True)(BATCH_SEEDS[r])
+        for g, o in zip(got, one):
+            assert torch.equal(g[r], o)

@@ -21,17 +21,17 @@ Then the routing left to later items: the CUSTOM MCMC workloads that the
 JAX package sends to its XLA sweep rather than its kernels (a heavy-tailed
 proposal, a target table with no uniform grid, a gapped tempered
 proposal) raise naming items 6.8, 8.9 and 9.8, and the JAX package's
-kernel gates refuse the same inputs; compile_integrate over a CUSTOM
-dimension raises naming item 7.4 (nd integrate itself takes CUSTOM
-dimensions, ``tests/test_torch_nd_custom.py``); and a density whose front-end construct the port
-lacks names item 3 rather than take the table route (the reference traces
-it in closed form).
+kernel gates refuse the same inputs; a seed-batched compile_integrate
+over a CUSTOM dimension runs, each element its unbatched call; and a
+density whose front-end construct the port lacks names item 3 rather than
+take the table route (the reference traces it in closed form).
 """
 
 import math
 
 import numpy as np
 import pytest
+import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 import tpu_montecarlo as jmc
@@ -362,8 +362,6 @@ ROUTING = {
                                               **_PT), r"item 9\.8"),
     "tempered-gridless-target": (lambda: _mcmc(target=_spike(tm), proposal=tm.RandomWalk(),
                                                **_PT), r"item 9\.8"),
-    "nd-integrate-custom-dimension": (lambda: tm.MonteCarloIntegrator(device="cpu").compile_integrate(
-        [lambda x, y: x * y], [_N, _beta()], seed_batch=4), r"item 7\.4"),
     "while-density-target": (lambda: _is([lambda x: x], D(tm.DistributionType.CUSTOM, {}, _while_pdf),
                                          D.uniform(-1.0, 1.0), 1000), r"item 3 "),
     "while-density-proposal": (lambda: _is([lambda x: x], D.uniform(-1.0, 1.0),
@@ -377,6 +375,21 @@ def test_left_to_later_items(case):
     call, item = ROUTING[case]
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
         call()
+
+
+def test_nd_custom_dimension_takes_a_seed_batch():
+    """A seed-batched nd handle over a CUSTOM dimension, which raised
+    before the serving handles: each element its unbatched handle's, and
+    the public call's values as float32."""
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    dims, fns = [_N, _beta()], [lambda x, y: x * y]
+    prog = integ.compile_integrate(fns, dims, n_samples=1 << 16, seed_batch=4)
+    out = prog([1, 2, 3, 4])
+    single = integ.compile_integrate(fns, dims, n_samples=1 << 16)
+    for r, seed in enumerate([1, 2, 3, 4]):
+        assert torch.equal(out[r], single(seed))
+    want = integ.integrate(fns, dims, n_samples=1 << 16, seed=2).values
+    np.testing.assert_array_equal(out[1].numpy(), want)
 
 
 def test_the_jax_kernels_refuse_what_the_port_leaves_to_item_6_8():

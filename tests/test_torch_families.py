@@ -487,16 +487,38 @@ def test_family_features_of_later_items_still_raise():
     w = tm.Distribution.weibull(1.5, 2.0)
     c = tm.Distribution.cauchy(0.0, 1.0)
     cases = {
-        r"item 2 ": lambda: integ.compile_integrate([lambda x: x], w,
-                                                    param_batch=[w, w]),
+        r"item 8\.6 ": lambda: integ.compile_mcmc([lambda x, y: x], [c, w],
+                                                  [w, w], seed_batch=2),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], w),
-        r"item 6\.5 ": lambda: integ.compile_mcmc([lambda x: x], c, w,
-                                                  seed_batch=2),
+        r"item 9\.5 ": lambda: integ.compile_mcmc([lambda x: x], c, w,
+                                                  seed_batch=2,
+                                                  temperatures=[1.0, 2.0]),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md, queue 1 " + item):
             case()
+
+
+def test_family_handles_take_param_and_seed_batches():
+    """The serving handles over the extended families, which raised
+    before them: a Weibull param batch, each row its unbatched handle,
+    and a seed-batched MCMC handle over a Cauchy target."""
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    ws = [tm.Distribution.weibull(1.5, 2.0), tm.Distribution.weibull(2.5, 1.0)]
+    prog = integ.compile_integrate([lambda x: x], ws[0], n_samples=1 << 16,
+                                   seed_batch=2, param_batch=True)
+    out = prog([3, 4], tm.pack_param_batch(ws))
+    for r, (seed, w) in enumerate(zip([3, 4], ws)):
+        one = integ.compile_integrate([lambda x: x], w, n_samples=1 << 16)
+        assert torch.equal(out[r], one(seed))
+    c = tm.Distribution.cauchy(0.0, 1.0)
+    kw = dict(n_steps=20, n_chains=256, n_burnin=5)
+    batched = integ.compile_mcmc([lambda x: x], c, ws[0], seed_batch=2, **kw)
+    single = integ.compile_mcmc([lambda x: x], c, ws[0], **kw)
+    vals, acc = batched([5, 6])
+    v6, a6 = single(6)
+    assert torch.equal(vals[1], v6) and torch.equal(acc[1], a6)
 
 
 def test_sampling_rows_are_the_registry():

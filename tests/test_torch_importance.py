@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo.api.results import _weight_diagnostics as j_weight_diagnostics
@@ -39,7 +40,6 @@ from tpu_montecarlo.sampling import dist_spec_of as j_dist_spec_of
 from tpu_montecarlo.tracing import trace_function as j_trace
 
 import tpu_montecarlo_torch as tm
-from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.api.results import _unit_integrand, _weight_diagnostics
 from tpu_montecarlo_torch.ops.integrate_kernel import IntegrateProgram
 from tpu_montecarlo_torch.ops.lower import cuda_source, to_torch_set
@@ -371,17 +371,17 @@ def test_unit_integrand_is_x_times_zero_plus_one():
     assert torch.isnan(got[3:]).all()  # inf * 0 and nan, as in the JAX package
 
 
-def test_seeds_and_cache():
+def test_seeds_and_cache(program_cache):
     args = ([lambda x: x * x], N(0.0, 1.0), N(0.0, 1.5), 100_000)
     r1 = _is(*args, seed=7)
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     r2 = _is(*args, seed=7)
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     np.testing.assert_array_equal(r1.values, r2.values)
     assert _is(*args, seed=8).values[0] != r1.values[0]
     # Another proposal is another weighted program.
     _is([lambda x: x * x], N(0.0, 1.0), N(0.0, 2.5), 1000)
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
 
 
 def test_module_level_function_keeps_the_jax_defaults():
@@ -473,14 +473,31 @@ def test_what_is_not_ported_names_its_item():
         r"item 3 ": lambda: integ.integrate_importance_sampling(
             [lambda x: x], U(-1.0, 1.0), tm.Distribution.from_pdf(
                 _while_pdf, support=(-1.0, 1.0))),
-        r"item 2\.4 \(seed_batch": lambda: integ.compile_importance_sampling(
-            [lambda x, y: x], [U(0.0, 1.0)] * 2, [U(0.0, 1.0)] * 2),
-        r"item 2\.4 ": lambda: integ.compile_importance_sampling(
-            [lambda x: x], N(0.0, 1.0), N(0.0, 2.0), seed_batch=4),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
             case()
+
+
+def test_compile_importance_sampling_runs():
+    """The two handles that raised before the serving handles: over
+    sequences, and seed-batched over one Distribution; each element the
+    public call's values as float32."""
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    fns = [lambda x: x * x]
+    prog = integ.compile_importance_sampling(fns, N(0.0, 1.0), N(0.0, 2.0),
+                                             n_samples=1 << 16, seed_batch=4)
+    out = prog([1, 2, 3, 4])
+    assert out.shape == (4, 1) and out.dtype == torch.float32
+    want = _is(fns, N(0.0, 1.0), N(0.0, 2.0), 1 << 16, seed=3)
+    np.testing.assert_array_equal(out[2].numpy(), want.values)
+    nd = integ.compile_importance_sampling(
+        [lambda x, y: x], [U(0.0, 1.0)] * 2, [U(0.0, 1.0)] * 2,
+        n_samples=1 << 16)
+    want = integ.integrate_importance_sampling(
+        [lambda x, y: x], [U(0.0, 1.0)] * 2, [U(0.0, 1.0)] * 2,
+        n_samples=1 << 16, seed=9)
+    np.testing.assert_array_equal(nd(9).numpy(), want.values)
 
 
 def test_runs_with_jax_blocked(tmp_path):

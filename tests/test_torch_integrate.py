@@ -20,6 +20,7 @@ import pytest
 
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import tpu_montecarlo as jmc
 from tpu_montecarlo.ops.integrate_pallas import (
@@ -31,7 +32,6 @@ from tpu_montecarlo.tracing import trace_function as j_trace
 from tpu_montecarlo.utils.dispatch import make_integrate_plan as j_plan
 
 import tpu_montecarlo_torch as tm
-from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.ops.integrate_kernel import (
     IntegrateProgram,
     integrate_cuda,
@@ -186,14 +186,30 @@ def _make_fns(c):
     return [lambda x: x + c, lambda x: c * x * x]
 
 
-def test_program_cache_hits_for_fresh_identical_lambdas():
+def test_program_cache_hits_for_fresh_identical_lambdas(program_cache):
     d = tm.Distribution.normal(0.0, 1.0)
     tm.integrate(_make_fns(0.5), d, n_samples=1000, device="cpu")
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     tm.integrate(_make_fns(0.5), d, n_samples=1000, device="cpu")
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     tm.integrate(_make_fns(1.5), d, n_samples=1000, device="cpu")
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
+
+
+def test_program_cache_check_holds_after_the_global_cache_fills(
+        program_cache, monkeypatch):
+    """The check above, after earlier tests filled the process-wide cache
+    to its bound: the test's own cache still sees its insertion."""
+    from collections import OrderedDict
+
+    from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
+
+    monkeypatch.setattr(GLOBAL_CACHE, "_store", OrderedDict(GLOBAL_CACHE._store))
+    for i in range(GLOBAL_CACHE._maxsize + 1):
+        GLOBAL_CACHE.get_or_build(("filler", i), object)
+    assert len(GLOBAL_CACHE._store) == GLOBAL_CACHE._maxsize
+    test_program_cache_hits_for_fresh_identical_lambdas(program_cache)
+    assert ("filler", 1) in GLOBAL_CACHE._store
 
 
 # -- what the slice does not take --------------------------------------------

@@ -423,8 +423,9 @@ def test_argument_errors_match_jax(case):
 
 
 def test_config_and_pilot_checks():
-    with pytest.raises(ValueError, match="rotations"):
-        IntegrateConfig("qmc", with_stderr=True)
+    # qmc takes in-kernel squares, as the JAX kernel does.
+    assert IntegrateConfig("qmc", with_stderr=True).defines == (
+        "#define TMC_METHOD 2\n#define TMC_STDERR 1\n")
     with pytest.raises(ValueError, match="method must be"):
         IntegrateConfig("sobol")
     assert IntegrateConfig().defines == ""

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -39,7 +40,6 @@ from tpu_montecarlo.sampling import analytic_log_pdf as j_analytic_log_pdf
 from tpu_montecarlo.tracing import trace_function as j_trace
 
 import tpu_montecarlo_torch as tm
-from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.ops.mcmc_kernel import (
     McmcConfig,
     McmcProgram,
@@ -381,15 +381,15 @@ def _make_fns(c):
     return [lambda x: x + c]
 
 
-def test_program_cache_hits_for_fresh_identical_lambdas():
+def test_program_cache_hits_for_fresh_identical_lambdas(program_cache):
     d, q = tm.Distribution.normal(0.0, 1.0), tm.Distribution.normal(0.0, 2.0)
     kw = dict(n_steps=5, n_burnin=1, device="cpu")
     tm.integrate_mcmc(_make_fns(0.25), d, q, **kw)
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     tm.integrate_mcmc(_make_fns(0.25), d, q, **kw)
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     tm.integrate_mcmc(_make_fns(1.25), d, q, **kw)
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
 
 
 # -- what the slice does not take ---------------------------------------------
@@ -411,23 +411,26 @@ def _call(**kwargs):
 
 
 NOT_PORTED = {
+    # The 1-D handle runs (tests/test_torch_serving_mcmc.py); the nd one
+    # not yet.
     "compile_mcmc": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
-            [lambda x: x], _T, _Q, seed_batch=4
+            [lambda x, y: x], [_T, _T], [_Q, _Q], seed_batch=4
         ),
-        r"item 6\.5",
+        r"item 8\.6",
     ),
     "128-functions": (
         lambda: _call(fns=[f for c in range(128) for f in _make_fns(float(c))]),
         r"item 6\.7",
     ),
-    # Extended families run (tests/test_torch_families_kernels.py); their
-    # seed batches not yet.
+    # Extended families run (tests/test_torch_families_kernels.py), and
+    # so do their seed batches; tempered handles not yet.
     "extended-family": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
-            [lambda x: x], tm.Distribution.cauchy(0.0, 1.0), _Q, seed_batch=4
+            [lambda x: x], tm.Distribution.cauchy(0.0, 1.0), _Q, seed_batch=4,
+            temperatures=[1.0, 2.0]
         ),
-        r"item 6\.5",
+        r"item 9\.5",
     ),
     "mesh": (lambda: tm.integrate_mcmc([lambda x: x], _T, _Q, mesh="auto"),
              "item 12"),

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -45,7 +46,6 @@ from tpu_montecarlo.ops.mcmc_nd_pallas import _ND_STREAM_MIX
 
 import tpu_montecarlo_torch as tm
 from tpu_montecarlo_torch.api import mcmc_nd as api_nd
-from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.ops import integrate_kernel as tk
 from tpu_montecarlo_torch.ops.lower import (
     cuda_source,
@@ -469,18 +469,18 @@ def test_one_dimensional_product_takes_the_1d_path():
     assert (mcmc_nd_cuda.launches, mcmc_cuda.launches) == before  # CPU
 
 
-def test_cache_keys_on_target_and_families():
+def test_cache_keys_on_target_and_families(program_cache):
     kw = dict(n_steps=5, n_chains=256, n_burnin=1, device="cpu")
     n2 = [tm.Distribution.normal(0.0, 2.0)] * 2
     f = FNS2[:1]
     tm.integrate_mcmc(f, _c9e_target(), n2, **kw)
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     tm.integrate_mcmc(f, _c9e_target(), n2, **kw)  # a fresh, equal target
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     tm.integrate_mcmc(f, lambda x, y: -x * x - y * y, n2, **kw)
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
     tm.integrate_mcmc(f, _c9e_target(), [tm.Distribution.uniform(-4.0, 4.0)] * 2, **kw)
-    assert len(GLOBAL_CACHE._store) == size + 2
+    assert len(program_cache._store) == size + 2
 
 
 def test_out_of_scope_options_name_their_roadmap_items():

@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -61,7 +62,6 @@ from tpu_montecarlo.tracing import trace_function as j_trace
 from tpu_montecarlo.utils.dispatch import make_integrate_plan as j_plan
 
 import tpu_montecarlo_torch as tm
-from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
 from tpu_montecarlo_torch.ops import qmc
 from tpu_montecarlo_torch.ops.integrate_kernel import plan_grid
 from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
@@ -404,19 +404,19 @@ def test_rqmc_beats_plain_mc_on_c9c():
     assert q.stderr[0] < m.stderr[0] / 10
 
 
-def test_seeds_and_cache():
+def test_seeds_and_cache(program_cache):
     integ = tm.MonteCarloIntegrator(device="cpu")
     dists = _dists(tm, C9_DISTS)
     r1 = integ.integrate(C9_FNS, dists, n_samples=100_000, seed=7)
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     r2 = integ.integrate(list(C9_FNS), dists, n_samples=100_000, seed=7)
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     r3 = integ.integrate(C9_FNS, dists, n_samples=100_000, seed=8)
     np.testing.assert_array_equal(r1.values, r2.values)
     assert r1.values[0] != r3.values[0]
     # Another family tuple is another program (the families are compiled in).
     integ.integrate(C9_FNS, dists[::-1], n_samples=1000)
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
     for pkg, i in ((tm, integ), (jmc, jmc.MonteCarloIntegrator(backend="pallas"))):
         with pytest.raises(OverflowError):
             i.integrate(C9_FNS, _dists(pkg, C9_DISTS), n_samples=1000, seed=-1)
@@ -483,19 +483,37 @@ def test_out_of_scope_options_name_their_roadmap_items():
     # front end names item 3 rather than take the PDF-table fallback.
     untraceable = tm.Distribution(tm.DistributionType.CUSTOM, {}, _while_pdf)
     cases = {
-        r"item 2\.4 ": lambda: integ.compile_importance_sampling(f2, [u, u], [u, u]),
-        r"item 7\.4 ": lambda: integ.compile_integrate(f2, [u, u], seed_batch=4),
+        r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [u, u], [u, u], seed_batch=4),
         r"item 7\.5 ": lambda: integ.integrate(f2, [u, u], control_variates=[(f2[0], 0.25)]),
         r"item 7\.5 \(nd control variates and expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),
         r"item 7\.6 ": lambda: integ.integrate(wide, [u, u], n_samples=1000),
         r"item 12 ": lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
-        r"item 2 ": lambda: integ.compile_integrate([lambda x: x], u),
+        r"item 9\.5 ": lambda: integ.compile_mcmc([lambda x: x], u, u,
+                                                  temperatures=[1.0, 2.0]),
         r"item 3 ": lambda: integ.integrate_importance_sampling([lambda x: x], untraceable, u),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], u),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
             case()
+
+
+def test_the_former_refusals_run():
+    """compile_importance_sampling over sequences and a seed-batched nd
+    compile_integrate, which raised before the serving handles."""
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    u = tm.Distribution.uniform(0.0, 1.0)
+    f2 = [lambda x, y: x * y]
+    is_prog = integ.compile_importance_sampling(f2, [u, u], [u, u],
+                                                n_samples=1 << 16)
+    want = integ.integrate_importance_sampling(f2, [u, u], [u, u],
+                                               n_samples=1 << 16, seed=5)
+    np.testing.assert_array_equal(is_prog(5).numpy(), want.values)
+    prog = integ.compile_integrate(f2, [u, u], n_samples=1 << 16, seed_batch=4)
+    out = prog([1, 2, 3, 4])
+    assert out.shape == (4, 1) and out.dtype == torch.float32
+    assert torch.equal(out[2], integ.compile_integrate(f2, [u, u],
+                                                       n_samples=1 << 16)(3))
 
 
 def test_missing_gpu_raises_instead_of_falling_back():
@@ -527,8 +545,7 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
         integrate_nd_cuda(program, NdConfig(kinds), p.to("meta"), 3, grid)
     with pytest.raises(ValueError, match="no nd integrate kernel"):
         integrate_nd_rows(program, cfg, p, 3, grid, pilot)  # rows: card only
-    with pytest.raises(ValueError, match="rotations"):
-        NdConfig(kinds, "qmc", with_stderr=True)
+    assert NdConfig(kinds, "qmc", with_stderr=True).with_stderr  # as JAX's
     with pytest.raises(ValueError, match="arguments"):
         IntegrateNdProgram((tm.trace_function(lambda x, y: x, 2),), kinds)
 

@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
+from torch_cache import program_cache  # noqa: F401  (a cache per test)
 
 import jax.numpy as jnp
 import tpu_montecarlo as jmc
@@ -590,18 +591,16 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
                      grid)
 
 
-def test_cache_keys_on_rungs_but_not_on_the_ladder():
-    from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE
-
+def test_cache_keys_on_rungs_but_not_on_the_ladder(program_cache):
     kw = dict(n_steps=5, n_chains=256, n_burnin=1, device="cpu")
     walk = tm.RandomWalk(**C12_WALK)
     tm.integrate_mcmc(FNS1, logmix, walk, temperatures=[1.0, 2.0], **kw)
-    size = len(GLOBAL_CACHE._store)
+    size = len(program_cache._store)
     # Another ladder of as many rungs needs no new build.
     tm.integrate_mcmc(FNS1, logmix, walk, temperatures=[1.0, 3.0], **kw)
-    assert len(GLOBAL_CACHE._store) == size
+    assert len(program_cache._store) == size
     tm.integrate_mcmc(FNS1, logmix, walk, temperatures=[1.0, 2.0, 4.0], **kw)
-    assert len(GLOBAL_CACHE._store) == size + 1
+    assert len(program_cache._store) == size + 1
 
 
 def test_missing_gpu_raises_instead_of_falling_back():

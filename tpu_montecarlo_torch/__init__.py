@@ -54,6 +54,10 @@ from .api import (
     integrate,
     integrate_importance_sampling,
     integrate_mcmc,
+    pack_param_batch,
+    pack_param_batch_nd,
+    pack_random_walk_batch,
+    pack_random_walk_batch_nd,
 )
 from .distributions import HMC, Distribution, DistributionType, RandomWalk
 from .tracing import TraceError, is_traceable, trace_function
@@ -73,5 +77,9 @@ __all__ = [
     "integrate_importance_sampling",
     "integrate_mcmc",
     "is_traceable",
+    "pack_param_batch",
+    "pack_param_batch_nd",
+    "pack_random_walk_batch",
+    "pack_random_walk_batch_nd",
     "trace_function",
 ]

@@ -29,7 +29,10 @@ uniform-grid table, an irregular-grid one, or, for a non-gapped CUSTOM
 proposal dimension, the sampler's own density.  The JAX package folds
 what its kernel route refuses into the integrands on its XLA sweep; the
 port keeps it in the kernel (``_is_weight_dim``).
-``compile_importance_sampling`` raises naming its item.
+
+``compile_importance_sampling`` makes the same weighted programs into a
+serving handle, over one Distribution or over sequences, with seed
+batches on the kernels' batch axis.
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ from ..distributions import Distribution
 from ..ops.integrate_kernel import SAMPLER, KnotWeightTable, UniformWeightTable
 from ..sampling import DistKind, dist_spec_of
 from ..tracing import TraceError, trace_function
-from ..utils.roadmap import SERVING, not_ported
 from .device import _device_mode_tables, _uniform_table_mode
 from .results import IntegrationResult, _unit_integrand, _weight_diagnostics
 
@@ -86,25 +88,8 @@ class _ImportanceMixin:
         t_seq = isinstance(target_distribution, (list, tuple))
         q_seq = isinstance(proposal_distribution, (list, tuple))
         if t_seq or q_seq:
-            if not (t_seq and q_seq):
-                raise TypeError(
-                    "multi-dimensional importance sampling needs BOTH "
-                    "target and proposal as sequences of Distributions"
-                )
-            targets = list(target_distribution)
-            proposals = list(proposal_distribution)
-            if (
-                not targets
-                or len(targets) != len(proposals)
-                or not all(
-                    isinstance(dd, Distribution)
-                    for dd in targets + proposals
-                )
-            ):
-                raise TypeError(
-                    "target/proposal sequences must be equal-length "
-                    "non-empty lists of Distribution objects"
-                )
+            targets, proposals = _is_dims(target_distribution,
+                                          proposal_distribution)
             if len(targets) > 1:
                 return self._integrate_is_nd(
                     functions, targets, proposals, n_samples, seed, method,
@@ -124,9 +109,10 @@ class _ImportanceMixin:
             # its error bar.
             traced += (_unit_integrand(),)
         program = self._integrate_program(traced, weight)
-        values, stderr = self._run_1d(
-            program, proposal_distribution, n_samples, seed, method,
-            return_stderr or return_diagnostics, qmc_rotations,
+        values, stderr = self._run(
+            self._integrate_handle, program, proposal_distribution,
+            n_samples, seed, method, return_stderr or return_diagnostics,
+            qmc_rotations,
         )
         return _is_result(values, stderr, n_samples, len(functions),
                           return_stderr, return_diagnostics)
@@ -154,8 +140,8 @@ class _ImportanceMixin:
                        for t, q in zip(targets, proposals))
         kinds = tuple(dist_spec_of(q).kind for q in proposals)
         program = self._nd_program(traced, kinds, weight)
-        values, stderr = self._run_nd(
-            program, proposals, n_samples, seed, method,
+        values, stderr = self._run(
+            self._nd_handle, program, proposals, n_samples, seed, method,
             return_stderr or return_diagnostics, qmc_rotations,
         )
         return _is_result(values, stderr, n_samples, len(functions),
@@ -190,12 +176,47 @@ class _ImportanceMixin:
             return _knot_table(dist, mode)
         return _kernel_mode(dist, uniform, role)
 
-    def compile_importance_sampling(self, functions, target_distribution,
-                                    proposal_distribution, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError`` naming the
-        ROADMAP item."""
-        raise not_ported("compile_importance_sampling and its seed_batch",
-                         SERVING)
+    def compile_importance_sampling(
+        self,
+        functions: List[Union[Callable, str]],
+        target_distribution: Distribution,
+        proposal_distribution: Distribution,
+        n_samples: int = 1_000_000,
+        seed_batch: int = 1,
+        method: str = "mc",
+        return_stderr: bool = False,
+    ) -> Callable:
+        """Ahead-of-time importance-sampling handle (the JAX package's
+        ``compile_importance_sampling``): ``prog(seed) -> (K,)``; with
+        ``seed_batch=R``, ``prog(seeds) -> (R, K)`` in one launch, each
+        element equal bit for bit to its unbatched call; with
+        ``return_stderr=True``, ``(values, stderrs)`` pairs.  The weight's
+        densities are traced, or made into tables, once, here, as
+        :meth:`integrate_importance_sampling` routes them; sequences of d
+        >= 2 targets and proposals give an nd handle in the nd kernel."""
+        if seed_batch < 1:
+            raise ValueError("seed_batch must be >= 1")
+        t_seq = isinstance(target_distribution, (list, tuple))
+        q_seq = isinstance(proposal_distribution, (list, tuple))
+        if t_seq or q_seq:
+            targets, proposals = _is_dims(target_distribution,
+                                          proposal_distribution)
+            if len(targets) > 1:
+                traced = self._trace_user_functions(functions,
+                                                    n_args=len(targets))
+                weight = tuple(self._is_weight_dim(t, q)
+                               for t, q in zip(targets, proposals))
+                kinds = tuple(dist_spec_of(q).kind for q in proposals)
+                return self._nd_handle(
+                    self._nd_program(traced, kinds, weight), proposals,
+                    n_samples, seed_batch, method, False, return_stderr)
+            target_distribution = targets[0]
+            proposal_distribution = proposals[0]
+        traced = self._trace_user_functions(functions)
+        weight = self._is_weight(target_distribution, proposal_distribution)
+        return self._integrate_handle(
+            self._integrate_program(traced, weight), proposal_distribution,
+            n_samples, seed_batch, method, False, return_stderr)
 
     @staticmethod
     def _pdf_mode(dist: Distribution):
@@ -239,6 +260,32 @@ class _ImportanceMixin:
                          for d, m in ((target, p_mode), (proposal, q_mode)))
         return (_kernel_mode(target, p_k, "target"),
                 _kernel_mode(proposal, q_k, "proposal"))
+
+
+def _is_dims(target_distribution, proposal_distribution):
+    """(targets, proposals) of an importance run over sequences, after
+    the JAX package's checks (``importance.py:118-140``)."""
+    if not (isinstance(target_distribution, (list, tuple))
+            and isinstance(proposal_distribution, (list, tuple))):
+        raise TypeError(
+            "multi-dimensional importance sampling needs BOTH "
+            "target and proposal as sequences of Distributions"
+        )
+    targets = list(target_distribution)
+    proposals = list(proposal_distribution)
+    if (
+        not targets
+        or len(targets) != len(proposals)
+        or not all(
+            isinstance(dd, Distribution)
+            for dd in targets + proposals
+        )
+    ):
+        raise TypeError(
+            "target/proposal sequences must be equal-length "
+            "non-empty lists of Distribution objects"
+        )
+    return targets, proposals
 
 
 def _is_result(values, stderr, n_samples, n_functions, return_stderr,

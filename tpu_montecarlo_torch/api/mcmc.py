@@ -1,6 +1,7 @@
 """MCMC (port of the Pallas paths of ``tpu_montecarlo/api/mcmc.py``):
 ``integrate_mcmc`` with independence, random-walk and adaptive
-random-walk proposals, with error bars on request, over one dimension
+random-walk proposals, with error bars on request, and the 1-D
+``compile_mcmc`` serving handle with seed and param batches, over one dimension
 (``ops/mcmc_kernel.py``, HMC too) or d (``api/mcmc_nd.py``), with chain
 state to resume from over either, and tempered over a ladder of
 temperatures (``api/tempering.py``), under the closed-form families and
@@ -25,19 +26,22 @@ from ..ops.mcmc_kernel import (
     McmcConfig,
     McmcProgram,
     Mode,
+    mcmc_batch,
+    mcmc_batch_finish,
     mcmc_cuda,
+    mcmc_finish,
     plan_chains,
     plan_mcmc_grid,
 )
-from ..sampling import dist_spec_of
+from ..sampling import dist_spec_of, ensure_param_batch_family
 from ..utils.roadmap import (
-    MCMC_SERVING,
     MCMC_TABLES_XLA,
     MCMC_WIDE,
     ND_MCMC_SERVING,
     PT_SERVING,
     not_ported,
 )
+from .batching import _checked_batch_prog, stage_seeds
 from .cache import fns_key
 from .device import mcmc_dim_tables
 from .mcmc_nd import _table_routes, hmc_leapfrog, is_nd_call
@@ -250,19 +254,142 @@ class _McmcMixin:
                          device=self._device))
         return initial_state.segment + 1, start
 
-    def compile_mcmc(self, functions, target_distribution,
-                     proposal_distribution, *args, **kwargs):
-        """Ahead-of-time MCMC handles (with seed and param batches) are not
-        ported yet: raises ``NotImplementedError`` naming the ROADMAP item
-        (tempered, nd or 1-D)."""
-        if kwargs.get("temperatures") is not None:
+    def compile_mcmc(
+        self,
+        functions: List[Union[Callable, str]],
+        target_distribution,
+        proposal_distribution,
+        n_steps: int = 10_000,
+        n_chains: int = 1024,
+        n_burnin: int = 1_000,
+        seed_batch: int = 1,
+        param_batch: bool = False,
+        return_stderr: bool = False,
+        temperatures: Optional[List[float]] = None,
+        return_samples: Optional[int] = None,
+    ) -> Callable:
+        """Ahead-of-time MCMC handle for serving (the JAX package's
+        ``compile_mcmc``) over a 1-D target: the trace, the program, the
+        parameter row, the tables and the kernel's library are made once,
+        here; a call stages its seeds (and params) and launches.  The
+        handle returns float32 tensors on the integrator's device.
+
+        ``prog(seed) -> (values (K,), acceptance ())``; with
+        ``seed_batch=R``, ``prog(seeds) -> ((R, K), (R,))``: R jobs in one
+        launch, each equal bit for bit to the unbatched call with its
+        seed.  ``return_stderr=True`` adds the error bars, (K,) or (R,
+        K), third; ``return_samples=m`` adds, last, the thinned draws,
+        (m, chains) or (R, m, chains).
+
+        ``param_batch=True``: ``prog(seeds, target_params,
+        proposal_params)`` with (R, 2) rows of :func:`pack_param_batch`
+        for each, or, under a :class:`RandomWalk` (or HMC) proposal, the
+        (R, 4) walk rows of :func:`pack_random_walk_batch` in the
+        proposal slot; results keep the batch axis at R = 1.  Closed-form
+        families only.
+
+        nd targets or proposals and ``temperatures`` are not ported yet
+        and raise ``NotImplementedError`` naming their ROADMAP items."""
+        if len(functions) == 0:
+            raise ValueError("At least one function is required")
+        if n_steps <= 0:
+            raise ValueError("n_steps must be positive")
+        if n_chains <= 0:
+            raise ValueError("n_chains must be positive")
+        if n_burnin < 0:
+            raise ValueError("n_burnin must be non-negative")
+        m_samp = 0
+        if return_samples is not None:
+            m_samp = int(return_samples)
+            if not 1 <= m_samp <= n_steps:
+                raise ValueError(
+                    f"return_samples must be in [1, n_steps={n_steps}], "
+                    f"got {return_samples}"
+                )
+            if temperatures is not None:
+                raise ValueError(
+                    "compile_mcmc(return_samples=...) supports untempered "
+                    "handles only (tempered cold-rung draws ride "
+                    "integrate_mcmc)"
+                )
+        if temperatures is not None:
             raise not_ported("compile_mcmc, seed_batch and param_batch with "
                              "temperatures", PT_SERVING)
         if is_nd_call(target_distribution, proposal_distribution):
+            if m_samp and param_batch:
+                raise ValueError(
+                    "compile_mcmc(return_samples=...) does not compose "
+                    "with nd param_batch"
+                )
             raise not_ported("compile_mcmc, seed_batch and param_batch for "
                              "nd MCMC", ND_MCMC_SERVING)
-        raise not_ported("compile_mcmc (seed_batch, param_batch)",
-                         MCMC_SERVING)
+        random_walk = isinstance(proposal_distribution, RandomWalk)
+        if random_walk:
+            _check_random_walk_args(proposal_distribution, n_burnin, False)
+            if param_batch:
+                ensure_param_batch_family(
+                    dist_spec_of(target_distribution).kind, "target")
+        elif param_batch:
+            for role, d in (("target", target_distribution),
+                            ("proposal", proposal_distribution)):
+                ensure_param_batch_family(dist_spec_of(d).kind, role)
+        if seed_batch < 1:
+            raise ValueError("seed_batch must be >= 1")
+        traced = self._trace_user_functions(functions)
+        if len(traced) > MAX_FUNCTIONS:
+            raise not_ported(
+                f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
+            )
+        program, cfg, params, tables = self._mcmc_kernel_program(
+            traced, target_distribution, proposal_distribution, n_steps,
+            n_burnin, return_stderr, samples=m_samp)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        dev = self._device
+        if dev.type == "cuda":
+            program.library(cfg)
+        k = len(traced)
+
+        def result(values, acceptance, stderr, samples):
+            out = (values, acceptance)
+            if return_stderr:
+                out += (stderr,)
+            return out + ((samples,) if m_samp else ())
+
+        def batched(seeds, rows):
+            out = mcmc_batch(program, cfg, rows, seeds, grid, tables)
+            return result(*mcmc_batch_finish(out, grid, cfg, k), out.samples)
+
+        if param_batch:
+            targ_kind = dist_spec_of(target_distribution).kind
+            if random_walk:
+                prop_kind = "rw_adapt" if proposal_distribution.adapt else "rw"
+            else:
+                prop_kind = dist_spec_of(proposal_distribution).kind
+
+            def dispatch(seeds, rows):
+                prop, targ = rows
+                if prop.shape[1] == 2:
+                    prop = torch.cat([prop, torch.zeros_like(prop)], dim=1)
+                return batched(seeds, torch.cat([prop, targ], dim=1))
+
+            inner = _checked_batch_prog(dispatch, seed_batch, 2,
+                                        (prop_kind, targ_kind), dev)
+
+            def prog(seeds, target_params, proposal_params):
+                return inner(seeds, proposal_params, target_params)
+
+            return prog
+        if seed_batch != 1:
+            def prog(seeds):
+                return batched(stage_seeds(seeds, seed_batch, dev), params)
+
+            return prog
+
+        def prog(seed):
+            out = mcmc_cuda(program, cfg, params, seed, grid, tables)
+            return result(*mcmc_finish(out, grid, cfg, k), out.samples)
+
+        return prog
 
     def _mcmc_kernel_program(self, traced, target, proposal, n_steps,
                              n_burnin, with_stderr, with_diagnostics=False,

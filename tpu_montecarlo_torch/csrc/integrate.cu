@@ -103,6 +103,7 @@
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
 #include "integrate_draw.cuh"
+#include "rows_sum.cuh"
 #include "sobol.cuh"
 #include "tmc_integrands.inc"  // TMC_K, f_0 .. f_{K-1}, the entries
 
@@ -144,8 +145,6 @@ enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
 constexpr int kMethod = TMC_METHOD;
 constexpr bool kStderr = TMC_STDERR != 0;
 static_assert(kMethod >= kMc && kMethod <= kQmc, "TMC_METHOD is 0, 1 or 2");
-static_assert(!(kMethod == kQmc && kStderr),
-              "qmc error bars come from rotations, not in-kernel squares");
 constexpr int kCustomRoute = TMC_CUSTOM;
 enum CustomRoute { kNoCustom = 0, kStrataRoute = 1, kKnotRoute = 2 };
 static_assert(kCustomRoute >= kNoCustom && kCustomRoute <= kKnotRoute,
@@ -432,12 +431,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Rep blockIdx.y of a batch is one job: its seed word (`seeds[rep]`, or
+// `seed` without a seed vector), its (p1, p2) row and pilot row (shared
+// where the strides are 0) and its gridDim.x x kOut partials.  The
+// stream cursor sees only blockIdx.x and gridDim.x, so a rep draws what
+// the unbatched launch with its seed draws.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-integrate_kernel(uint32_t seed, const float* __restrict__ params,
-                 const float* __restrict__ pilots, int loops,
-                 long long n_tiles, int seg_bits,
+integrate_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+                 const float* __restrict__ params, int param_stride,
+                 const float* __restrict__ pilots, int pilot_stride,
+                 int loops, long long n_tiles, int seg_bits,
                  float* __restrict__ partials, const tmc::Tables tb) {
+  const int rep = blockIdx.y;
+  if (seeds != nullptr) seed = seeds[rep];
+  params += rep * param_stride;
+  pilots += rep * pilot_stride;
+  partials += static_cast<long long>(rep) * gridDim.x * kOut;
   const tmc::Family f = tmc::family(params[0], params[1]);
   __shared__ float warp_sums[kThreads / 32][kOut];
   float acc[TMC_K];
@@ -512,28 +522,53 @@ bool tables_ok(const tmc::Tables& tb) {
   return true;
 }
 
+// One launch's arguments besides the kind and the tables.
+struct Launch {
+  uint32_t seed;
+  const uint32_t* seeds;
+  int reps;
+  const float* params;
+  int param_stride;
+  const float* pilots;
+  int pilot_stride;
+  int loops;
+  long long n_tiles;
+  int seg_bits;
+  int grid;
+  float* partials;
+  float* sums;
+};
+
 template <int KIND>
-void launch(int grid, cudaStream_t s, uint32_t seed, const float* params,
-            const float* pilots, int loops, long long n_tiles, int seg_bits,
-            float* partials, const tmc::Tables& tb) {
-  integrate_kernel<KIND><<<grid, kThreads, 0, s>>>(
-      seed, params, pilots, loops, n_tiles, seg_bits, partials, tb);
+void launch(const Launch& a, cudaStream_t s, const tmc::Tables& tb) {
+  integrate_kernel<KIND><<<dim3(a.grid, a.reps), kThreads, 0, s>>>(
+      a.seed, a.seeds, a.params, a.param_stride, a.pilots, a.pilot_stride,
+      a.loops, a.n_tiles, a.seg_bits, a.partials, tb);
+  tmc::rows_sum(a.partials, a.reps, a.grid, kOut, a.sums, s);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).  `pilots` holds TMC_K floats with error bars,
-// else null; `seg_bits` is the qmc segment bits, or -1 (a qmc run inside
-// one 2^32-point segment, and every other mode); `partials` holds grid x
+// the launch was accepted).  `reps` jobs run in one launch, rep r with the
+// seed word `seeds[r]` (a device array of `reps` words), or `seed` for
+// every rep where `seeds` is null; its (p1, p2) at `params + r *
+// param_stride` (stride 0: one pair for all, 2: a row each); with error
+// bars its TMC_K pilots at `pilots + r * pilot_stride` (0 or TMC_K), else
+// `pilots` is null; its partials the r-th of `reps` blocks of grid x
 // TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
-// `tables` is a host tmc::Tables (copied into the launch), or null where
-// the library reads no table.  A CUSTOM library launches only kind 3, an
-// extended family's only its own kind (TMC_FAMILY), the others only kinds
-// 0-2.
-extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
-                             const float* pilots, int loops, long long n_tiles,
-                             int seg_bits, int grid, float* partials,
+// their sums over the blocks, in rows_sum.cuh's order, the r-th of `reps`
+// rows of TMC_K (or 2 TMC_K) floats at `sums`.  `seg_bits` is the qmc segment bits, or -1 (a qmc run inside one
+// 2^32-point segment, and every other mode); `tables` is a host
+// tmc::Tables (copied into the launch), or null where the library reads
+// no table.  A CUSTOM library launches only kind 3, an extended family's
+// only its own kind (TMC_FAMILY), the others only kinds 0-2.
+extern "C" int tmc_integrate(int kind, unsigned int seed,
+                             const unsigned int* seeds, int reps,
+                             const float* params, int param_stride,
+                             const float* pilots, int pilot_stride, int loops,
+                             long long n_tiles, int seg_bits, int grid,
+                             float* partials, float* sums,
                              const void* tables, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   tmc::Tables tb{};
@@ -541,28 +576,28 @@ extern "C" int tmc_integrate(int kind, unsigned int seed, const float* params,
   if (kStderr != (pilots != nullptr) || seg_bits > 31 ||
       (kMethod != kQmc && seg_bits >= 0) || !tables_ok(tb) ||
       (kind == tmc::kCustom) != (kCustomRoute != kNoCustom) ||
-      (kFamily != 0 && kind != kFamily)) {
+      (kFamily != 0 && kind != kFamily) || reps < 1 || reps > 65535 ||
+      (param_stride != 0 && param_stride != 2) ||
+      (pilot_stride != 0 && pilot_stride != TMC_K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Launch a{seed, seeds, reps, params, param_stride, pilots,
+                 pilot_stride, loops, n_tiles, seg_bits, grid,
+                 partials, sums};
 #if TMC_CUSTOM
-  launch<tmc::kCustom>(grid, s, seed, params, pilots, loops, n_tiles,
-                       seg_bits, partials, tb);
+  launch<tmc::kCustom>(a, s, tb);
 #elif TMC_FAMILY
-  launch<kFamily>(grid, s, seed, params, pilots, loops, n_tiles, seg_bits,
-                  partials, tb);
+  launch<kFamily>(a, s, tb);
 #else
   switch (kind) {
     case kUniform:
-      launch<kUniform>(grid, s, seed, params, pilots, loops, n_tiles,
-                       seg_bits, partials, tb);
+      launch<kUniform>(a, s, tb);
       break;
     case kNormal:
-      launch<kNormal>(grid, s, seed, params, pilots, loops, n_tiles, seg_bits,
-                      partials, tb);
+      launch<kNormal>(a, s, tb);
       break;
     case kExponential:
-      launch<kExponential>(grid, s, seed, params, pilots, loops, n_tiles,
-                           seg_bits, partials, tb);
+      launch<kExponential>(a, s, tb);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

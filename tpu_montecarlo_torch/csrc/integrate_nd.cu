@@ -86,6 +86,7 @@
 #include "counter_rng.cuh"
 #include "integrand_math.cuh"
 #include "integrate_draw.cuh"
+#include "rows_sum.cuh"
 #include "sobol.cuh"
 #include "tmc_integrands.inc"  // TMC_K, TMC_D, TMC_KINDS, f_j, tmc_*_nd
 
@@ -217,15 +218,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Rep blockIdx.y of a batch is one job: its seed word (`seeds[rep]`, or
+// `seed` without a seed vector), its (d, 2) parameter rows and its pilot
+// row (shared where the strides are 0) and its gridDim.x x kOut
+// partials.  The stream cursor and the Sobol block words see only
+// blockIdx.x and gridDim.x, and the rotations only the rep's seed, so a
+// rep draws what the unbatched launch with its seed draws.
 template <int METHOD, bool STDERR>
 __global__ void __launch_bounds__(kThreads)
-integrate_nd_kernel(uint32_t seed, const float* __restrict__ params,
+integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+                    const float* __restrict__ params, int param_stride,
                     const uint32_t* __restrict__ dirs,
-                    const float* __restrict__ pilots, int loops,
-                    long long n_tiles, int seg_bits,
+                    const float* __restrict__ pilots, int pilot_stride,
+                    int loops, long long n_tiles, int seg_bits,
                     float* __restrict__ partials TMC_TABLES_PARAM) {
   constexpr bool kSobol = METHOD == kQmc;
   constexpr int kOut = STDERR ? 2 * TMC_K : TMC_K;
+  const int rep = blockIdx.y;
+  if (seeds != nullptr) seed = seeds[rep];
+  params += rep * param_stride;
+  if (STDERR) pilots += rep * pilot_stride;
+  partials += static_cast<long long>(rep) * gridDim.x * kOut;
   __shared__ uint32_t s_dirs[kSobol ? TMC_D * kSobolBits : 1];
   // s_high[i * TMC_D + j]: the Sobol word of index bits 8..14 = i.
   __shared__ uint32_t s_high[kSobol ? kPerThread * TMC_D : 1];
@@ -443,42 +456,70 @@ bool tables_ok(const NdTables& tb) {
 }
 #endif
 
+// One launch's arguments besides the method and the tables.
+struct Launch {
+  uint32_t seed;
+  const uint32_t* seeds;
+  int reps;
+  const float* params;
+  int param_stride;
+  const uint32_t* dirs;
+  const float* pilots;
+  int pilot_stride;
+  int loops;
+  long long n_tiles;
+  int seg_bits;
+  int grid;
+  float* partials;
+  float* sums;
+};
+
 template <int METHOD, bool STDERR>
-cudaError_t launch(uint32_t seed, const float* params, const uint32_t* dirs,
-                   const float* pilots, int loops, long long n_tiles,
-                   int seg_bits, int grid, float* partials, cudaStream_t s,
-                   const void* tables) {
+cudaError_t launch(const Launch& a, cudaStream_t s, const void* tables) {
 #if TMC_ND_TABLES
   const NdTables tb = *static_cast<const NdTables*>(tables);
 #else
   (void)tables;
 #endif
-  integrate_nd_kernel<METHOD, STDERR><<<grid, kThreads, 0, s>>>(
-      seed, params, dirs, pilots, loops, n_tiles, seg_bits,
-      partials TMC_TABLES_ARG);
+  integrate_nd_kernel<METHOD, STDERR><<<dim3(a.grid, a.reps), kThreads, 0,
+                                        s>>>(
+      a.seed, a.seeds, a.params, a.param_stride, a.dirs, a.pilots,
+      a.pilot_stride, a.loops, a.n_tiles, a.seg_bits, a.partials
+      TMC_TABLES_ARG);
+  tmc::rows_sum(a.partials, a.reps, a.grid, STDERR ? 2 * TMC_K : TMC_K, a.sums,
+                s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).  `params` holds TMC_D x 2 floats; `dirs`
-// TMC_D x 32 Sobol direction numbers (qmc only, else null); `pilots` TMC_K
-// floats (error bars only, else null); `seg_bits` is -1 for a qmc run
-// inside one 2^32-point segment; `partials` holds grid x TMC_K floats, or
-// grid x 2 TMC_K (sums, then squares) with error bars; `tables` a host
-// NdTables (copied into the launch) where the library reads tables
+// the launch was accepted).  `reps` jobs run in one launch, rep r with the
+// seed word `seeds[r]` (a device array of `reps` words), or `seed` for
+// every rep where `seeds` is null; its TMC_D x 2 parameter floats at
+// `params + r * param_stride` (0, or 2 TMC_D: a block each); with error
+// bars its TMC_K pilots at `pilots + r * pilot_stride` (0 or TMC_K), else
+// `pilots` is null; its partials the r-th of `reps` blocks of grid x
+// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
+// their sums over the blocks, in rows_sum.cuh's order, the r-th of `reps`
+// rows of TMC_K (or 2 TMC_K) floats at `sums`.  `dirs` holds TMC_D x 32 Sobol direction numbers (qmc only, else null);
+// `seg_bits` is -1 for a qmc run inside one 2^32-point segment; `tables`
+// a host NdTables (copied into the launch) where the library reads tables
 // (TMC_ROUTES or TMC_WEIGHTED), else null.
 extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
-                                const float* params, const unsigned int* dirs,
-                                const float* pilots, int loops,
+                                const unsigned int* seeds, int reps,
+                                const float* params, int param_stride,
+                                const unsigned int* dirs, const float* pilots,
+                                int pilot_stride, int loops,
                                 long long n_tiles, int seg_bits, int grid,
-                                float* partials, const void* tables,
-                                void* stream) {
+                                float* partials, float* sums,
+                                const void* tables, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((method == kQmc) != (dirs != nullptr) ||
       (with_stderr != 0) != (pilots != nullptr) || seg_bits > 31 ||
-      TMC_ND_TABLES != (tables != nullptr)) {
+      TMC_ND_TABLES != (tables != nullptr) || reps < 1 || reps > 65535 ||
+      (param_stride != 0 && param_stride != 2 * TMC_D) ||
+      (pilot_stride != 0 && pilot_stride != TMC_K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #if TMC_ND_TABLES
@@ -492,30 +533,26 @@ extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
     }
   }
 #endif
+  const Launch a{seed, seeds, reps, params, param_stride, dirs, pilots,
+                 pilot_stride, loops, n_tiles, seg_bits, grid,
+                 partials, sums};
   if (method == kMc && !with_stderr) {
-    return static_cast<int>(launch<kMc, false>(
-        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s, tables));
+    return static_cast<int>(launch<kMc, false>(a, s, tables));
   }
   if (method == kMc) {
-    return static_cast<int>(launch<kMc, true>(
-        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s, tables));
+    return static_cast<int>(launch<kMc, true>(a, s, tables));
   }
   if (method == kAntithetic && !with_stderr) {
-    return static_cast<int>(launch<kAntithetic, false>(
-        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s, tables));
+    return static_cast<int>(launch<kAntithetic, false>(a, s, tables));
   }
   if (method == kAntithetic) {
-    return static_cast<int>(launch<kAntithetic, true>(
-        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s, tables));
+    return static_cast<int>(launch<kAntithetic, true>(a, s, tables));
   }
   if (method == kQmc && !with_stderr) {
-    return static_cast<int>(launch<kQmc, false>(
-        seed, params, dirs, pilots, loops, n_tiles, seg_bits, grid, partials,
-        s, tables));
+    return static_cast<int>(launch<kQmc, false>(a, s, tables));
+  }
+  if (method == kQmc) {
+    return static_cast<int>(launch<kQmc, true>(a, s, tables));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

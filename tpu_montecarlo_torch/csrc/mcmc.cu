@@ -389,11 +389,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The seed-mixed word a batch's rep `blockIdx.y` runs under, seeding as
+// an unbatched launch with its seed word would: `seeds[rep] ^ 0x5BD1E995`
+// (the host's seed_word, segment 0), or `seed` without a seed vector.
+__device__ __forceinline__ uint32_t rep_seed(uint32_t seed,
+                                             const uint32_t* seeds) {
+  return seeds != nullptr ? seeds[blockIdx.y] ^ 0x5BD1E995u : seed;
+}
+
+// Rep blockIdx.y of a batch: its parameter row (`param_stride` 0 or 6) and
+// its programs' pilots, (programs, K) floats a rep.
 __global__ void __launch_bounds__(kPilotThreads)
-mcmc_pilot_kernel(uint32_t seed, const float* __restrict__ params,
+mcmc_pilot_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+                  const float* __restrict__ params, int param_stride,
                   const Tables tb, int chains_per_program,
                   float* __restrict__ pilots) {
-  const Params p = load_params(params, tb);
+  const int rep = blockIdx.y;
+  seed = rep_seed(seed, seeds);
+  pilots += size_t(rep) * gridDim.x * TMC_K;
+  const Params p = load_params(params + rep * param_stride, tb);
   const uint32_t pid = blockIdx.x;
   const uint32_t state = tmc::seed_state(seed, pid);
   float acc[TMC_K];
@@ -422,16 +436,31 @@ mcmc_pilot_kernel(uint32_t seed, const float* __restrict__ params,
   }
 }
 
+// Rep blockIdx.y of a batch is one job: its seed word (rep_seed), its
+// parameter row (`param_stride` 0 or 6), its programs' pilots, and its
+// slabs of rows, final states and draws.  Chains, programs and positions
+// count from blockIdx.x and gridDim.x alone, so a rep runs the chains of
+// the unbatched launch with its seed.
 __global__ void __launch_bounds__(kThreads)
-mcmc_kernel(uint32_t seed, const float* __restrict__ params, const Tables tb,
-            int n_burnin, int n_steps, int chains_per_program,
-            const float* __restrict__ pilots, float* __restrict__ rows,
-            float* __restrict__ x_final, const tmc::Draws draws,
-            const float* __restrict__ x0, const float* __restrict__ logp0,
-            float* __restrict__ logp_final) {
+mcmc_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+            const float* __restrict__ params, int param_stride,
+            const Tables tb, int n_burnin, int n_steps,
+            int chains_per_program, const float* __restrict__ pilots,
+            float* __restrict__ rows, float* __restrict__ x_final,
+            tmc::Draws draws, const float* __restrict__ x0,
+            const float* __restrict__ logp0, float* __restrict__ logp_final) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params, tb);
+  const int rep = blockIdx.y;
+  seed = rep_seed(seed, seeds);
+  const size_t rep_chains = size_t(gridDim.x) * kChains;
+  if (pilots != nullptr) {
+    pilots += size_t(rep) * (rep_chains / chains_per_program) * TMC_K;
+  }
+  rows += size_t(rep) * gridDim.x * kRows * (TMC_K + 1);
+  x_final += size_t(rep) * rep_chains;
+  if constexpr (kDraws) draws.out += size_t(rep) * draws.m * rep_chains;
+  const Params p = load_params(params + rep * param_stride, tb);
   // The chain's lanes are kLanes consecutive threads of one warp.
   const int lane = threadIdx.x % kLanes;
   const int chain = blockIdx.x * kChains + threadIdx.x / kLanes;
@@ -527,12 +556,23 @@ Tables tables_of(const void* tables) {
 // chains' initial states.  `tables` is a host pointer to the CUSTOM tables
 // (tmc::McmcTables<1>) or null.  Returns cudaGetLastError() (0 when
 // accepted).
-extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
-                               const void* tables, int chains_per_program,
-                               int programs, float* pilots, void* stream) {
-  mcmc_pilot_kernel<<<programs, kPilotThreads, 0,
+// A batch of `reps` jobs runs in one launch: rep r under the seed word
+// `seeds[r] ^ 0x5BD1E995` (`seeds` a device array of `reps` seeds), or
+// `seed` for every rep where `seeds` is null; with its (6,) parameter row
+// at `params + r * param_stride` (0 or 6); its pilots at `pilots + r *
+// programs * TMC_K`.
+extern "C" int tmc_mcmc_pilots(unsigned int seed, const unsigned int* seeds,
+                               int reps, const float* params,
+                               int param_stride, const void* tables,
+                               int chains_per_program, int programs,
+                               float* pilots, void* stream) {
+  if (reps < 1 || reps > 65535 || (param_stride != 0 && param_stride != 6)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mcmc_pilot_kernel<<<dim3(programs, reps), kPilotThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      seed, params, tables_of(tables), chains_per_program, pilots);
+      seed, seeds, params, param_stride, tables_of(tables),
+      chains_per_program, pilots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,15 +586,22 @@ extern "C" int tmc_mcmc_pilots(unsigned int seed, const float* params,
 // else it is ignored.  With TMC_INIT_STATE the chains start from x0 and
 // logp0 (n_chains floats each), with TMC_STATE `logp_final` gets their
 // final log densities (n_chains floats); else these are ignored.
+// A batch of `reps` jobs runs in one launch, each seeded and with its
+// parameter row as in tmc_mcmc_pilots, rep r's pilots at `pilots + r *
+// (n_chains / chains_per_program) * TMC_K`, its rows, `x_final` and
+// draws at r times their sizes above; a stateful run is one job.
 // Returns cudaGetLastError() (0 when accepted).
-extern "C" int tmc_mcmc(unsigned int seed, const float* params,
+extern "C" int tmc_mcmc(unsigned int seed, const unsigned int* seeds,
+                        int reps, const float* params, int param_stride,
                         const void* tables, int n_burnin, int n_steps,
                         int chains_per_program, int n_chains,
                         const float* pilots, float* rows, float* x_final,
                         float* samples, int m, int stride, const float* x0,
                         const float* logp0, float* logp_final,
                         void* stream) {
-  if (chains_per_program % kChains != 0 ||
+  if (reps < 1 || reps > 65535 || (param_stride != 0 && param_stride != 6) ||
+      ((kState || kInitState) && reps != 1) ||
+      chains_per_program % kChains != 0 ||
       n_chains % chains_per_program != 0 || (kDiag && n_steps < 4) ||
       (kDraws && (samples == nullptr || m < 1 || stride < 1 ||
                   int64_t(m) * stride > n_steps)) ||
@@ -562,11 +609,11 @@ extern "C" int tmc_mcmc(unsigned int seed, const float* params,
       (kState && logp_final == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mcmc_kernel<<<n_chains / kChains, kThreads, 0,
+  mcmc_kernel<<<dim3(n_chains / kChains, reps), kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final, tmc::Draws{samples, m, stride}, x0, logp0,
-      logp_final);
+      seed, seeds, params, param_stride, tables_of(tables), n_burnin,
+      n_steps, chains_per_program, pilots, rows, x_final,
+      tmc::Draws{samples, m, stride}, x0, logp0, logp_final);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _HEADERS = (
     "counter_rng.cuh", "hmc_move.cuh", "integrand_math.cuh",
     "integrate_draw.cuh", "log_pdf_grad.cuh", "mcmc_nd_common.cuh",
-    "mcmc_pipeline.cuh", "sobol.cuh",
+    "mcmc_pipeline.cuh", "rows_sum.cuh", "sobol.cuh",
 )
 
 

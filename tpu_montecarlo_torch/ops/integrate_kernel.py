@@ -36,7 +36,7 @@ import ctypes
 import dataclasses
 import hashlib
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +59,7 @@ from .qmc import (
     qmc_u01_halfopen,
     qmc_u01_open,
 )
+from .reduce import fixed_sum
 
 __all__ = [
     "BLOCK_ROWS",
@@ -75,6 +76,9 @@ __all__ = [
     "StrataTables",
     "UniformWeightTable",
     "finish_stderr",
+    "check_batch",
+    "integrate_batch",
+    "integrate_batch_rows",
     "integrate_cuda",
     "integrate_reference",
     "integrate_rows",
@@ -169,8 +173,9 @@ def qmc_seg_bits(grid: Grid) -> Optional[int]:
 @dataclass(frozen=True)
 class IntegrateConfig:
     """What one 1-D run computes: the method, and whether the kernel also
-    sums pilot-shifted squares (``mc`` and ``antithetic`` only: ``qmc``
-    error bars come from rotations).  Each configuration is a library of
+    sums pilot-shifted squares (under ``qmc`` too, as the JAX kernel does;
+    ``integrate``'s own ``qmc`` error bars come from rotations).  Each
+    configuration is a library of
     its own (``IntegrateProgram.library``), and so is each CUSTOM route
     and each extended family: the route of the tables a run draws
     through compiles the CUSTOM family in, an extended family's library
@@ -184,11 +189,6 @@ class IntegrateConfig:
             raise ValueError(
                 "method must be 'mc', 'qmc' or 'antithetic', got "
                 f"{self.method!r}"
-            )
-        if self.method == "qmc" and self.with_stderr:
-            raise ValueError(
-                "qmc error bars come from rotations (qmc_rotations), not "
-                "from in-kernel squares"
             )
 
     @property
@@ -629,21 +629,37 @@ def pilot_values(
     values: Callable[[torch.Tensor], List[torch.Tensor]], kind: DistKind,
     params: torch.Tensor, tables: Optional[Tables] = None,
 ) -> torch.Tensor:
-    """(K,) float32 pilots: each integrand's mean over the 1,024 quantile
+    """(K,) float32 pilots, or (R, K) for (R, 2) ``params`` rows (one
+    batched pass): each integrand's mean over the 1,024 quantile
     midpoints ``(i + 0.5) / 1024`` of the sampling distribution
     (``_pilot_vals``, integrate_pallas.py:1265-1300): the uniform grid
     unclamped, the exponential's ``max(u, 1e-7)``; an importance set's
     values carry their weights.  A CUSTOM ``"strata"`` pilot is the
     tile's knots (``ts`` at each row's stratum, an equal-mass quantile
     grid, with ``qs`` under a ``"sampler"`` weight), a ``"knots"`` one
-    the knot-exact inverse at the midpoints.  Any pilot keeps the error
-    bar exact; a near one keeps float32 cancellation small."""
-    _check_args(kind, params, tables=tables)
+    the knot-exact inverse at the midpoints.  The means add in
+    :func:`fixed_sum`'s order, so row r of a batch is the pilot of
+    ``params[r]`` alone, bit for bit.  Any pilot keeps the error bar
+    exact; a near one keeps float32 cancellation small."""
+    if params.dim() == 2:
+        if kind == DistKind.CUSTOM:
+            raise ValueError("CUSTOM tables take one params row")
+        _check_args(kind, params[0])
+        if params.device.type == "cpu":
+            # The plain path: the CPU's elementwise kernels may round a
+            # transcendental by a vector lane or a scalar tail, by where
+            # an element falls in the tensor.
+            return torch.stack([pilot_values(values, kind, row)
+                                for row in params.unbind()])
+    else:
+        _check_args(kind, params, tables=tables)
     dev = params.device
     u = (
         torch.arange(_PILOT_POINTS, dtype=torch.float32, device=dev) + 0.5
     ) / float(_PILOT_POINTS)
-    p1, p2 = params[0], params[1]
+    p1, p2 = params[..., 0:1], params[..., 1:2]
+    if params.dim() == 1:
+        p1, p2 = p1[0], p2[0]
     q = None
     if kind == DistKind.UNIFORM:
         x = p1 + u * (p2 - p1)
@@ -661,7 +677,10 @@ def pilot_values(
         if tables.qs is not None:
             q = tables.qs.repeat_interleave(rep, dim=0)
     vals = values(x) if q is None else values(x, q)
-    return torch.stack([v.mean() for v in vals])
+    lead = params.shape[:-1]  # (R,) for rows, else ()
+    vals = torch.stack([torch.broadcast_to(v, x.shape).reshape(*lead, -1)
+                        for v in vals], dim=-2)
+    return fixed_sum(vals, -1) / float(vals.shape[-1])
 
 
 def finish_stderr(
@@ -813,14 +832,19 @@ class IntegrateProgram:
             )
             lib.tmc_integrate.argtypes = [
                 ctypes.c_int,       # kind
-                ctypes.c_uint32,    # seed word
-                ctypes.c_void_p,    # params (2,) float32 on the device
-                ctypes.c_void_p,    # pilots (K,) float32, or null
+                ctypes.c_uint32,    # seed word (without a seed vector)
+                ctypes.c_void_p,    # seed words (R,) on the device, or null
+                ctypes.c_int,       # reps R
+                ctypes.c_void_p,    # params (2,) or (R, 2) float32
+                ctypes.c_int,       # params stride: 0 shared, 2 a row each
+                ctypes.c_void_p,    # pilots (K,) or (R, K) float32, or null
+                ctypes.c_int,       # pilots stride: 0 shared, K a row each
                 ctypes.c_int,       # loops per program
                 ctypes.c_longlong,  # tiles = programs * loops
                 ctypes.c_int,       # QMC segment bits, or -1
                 ctypes.c_int,       # CUDA grid size
-                ctypes.c_void_p,    # partials (grid, K or 2K) float32
+                ctypes.c_void_p,    # partials (R, grid, K or 2K) float32
+                ctypes.c_void_p,    # sums (R, K or 2K) float32
                 ctypes.c_void_p,    # host tmc::Tables, or null
                 ctypes.c_void_p,    # cudaStream_t
             ]
@@ -971,8 +995,8 @@ def integrate_cuda(
         return integrate_reference(
             program.torch_values, kind, params, seed, grid, cfg, pilot, tables
         )
-    out = integrate_rows(program, kind, params, seed, grid, cfg, pilot,
-                         tables).sum(dim=0)
+    out = _launch(program, kind, params, int(seed), None, grid, cfg, pilot,
+                  tables)[1][0]
     return out.reshape(2, -1) if cfg.with_stderr else out
 
 
@@ -988,11 +1012,111 @@ def integrate_rows(
 ) -> torch.Tensor:
     """Launches the kernel on CUDA ``params`` and returns its per-block
     rows, (blocks, K) float32 sums or with ``cfg.with_stderr`` (blocks,
-    2K) sums then squares, unsummed (``integrate_cuda`` sums them).
+    2K) sums then squares, unsummed (the launch's second pass sums them
+    for ``integrate_cuda``).
     Counts the launch in ``integrate_cuda.launches``."""
     _check_args(kind, params, tables, program)
+    _check_pilot(cfg, params, pilot, len(program.fns))
+    return _launch(program, kind, params, int(seed), None, grid, cfg, pilot,
+                   tables)[0][0]
+
+
+def check_batch(params: torch.Tensor, seeds: torch.Tensor, pilot,
+                row_shape: Tuple[int, ...], k: int,
+                with_stderr: bool) -> Tuple[int, bool]:
+    """``(R, whether each rep has its params row)`` of a batch after its
+    checks: ``seeds`` (R,) int32 words on the params' device; ``params``
+    one row of ``row_shape`` for every rep or R of them; ``pilot`` (K,)
+    or, beside rows, (R, K)."""
+    if (seeds.dim() != 1 or seeds.dtype != torch.int32
+            or seeds.device != params.device or not 1 <= len(seeds) <= 65535):
+        raise ValueError("seeds must be a (R,) int32 tensor of 1 to 65,535 "
+                         "words on the params' device")
+    r = len(seeds)
+    rowed = params.dim() == len(row_shape) + 1
+    if tuple(params.shape) not in (tuple(row_shape), (r, *row_shape)):
+        raise ValueError(f"params must be one {tuple(row_shape)} row or R = "
+                         f"{r} of them, got {tuple(params.shape)}")
+    if with_stderr:
+        want = (r, k) if rowed else (k,)
+        if pilot is None or tuple(pilot.shape) != want:
+            raise ValueError(f"error bars need a {want} pilot")
+    return r, rowed
+
+
+def integrate_batch_rows(
+    program: IntegrateProgram,
+    kind: DistKind,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: Grid,
+    cfg: IntegrateConfig = MC,
+    pilot: Optional[torch.Tensor] = None,
+    tables: Optional[Tables] = None,
+) -> torch.Tensor:
+    """One launch of R jobs on CUDA ``params``: rep r under the seed word
+    ``seeds[r]`` ((R,) int32 words on the device) with ``params`` (2,) for
+    every rep or its row of (R, 2), and under error bars its pilot
+    ((K,), or (R, K) beside rows).  Returns (R, blocks, K or 2K) rows;
+    each rep's are the rows of the unbatched launch with its seed and
+    row, bit for bit.  Counts the launch in ``integrate_cuda.launches``
+    and ``integrate_cuda.batch_launches``."""
+    return _batch_launch(program, kind, params, seeds, grid, cfg, pilot,
+                         tables)[0]
+
+
+def _batch_launch(program, kind, params, seeds, grid, cfg, pilot, tables):
+    """:func:`_launch` of a batch after its checks."""
     k = len(program.fns)
-    _check_pilot(cfg, params, pilot, k)
+    check_batch(params, seeds, pilot, (2,), k, cfg.with_stderr)
+    row0 = params[0] if params.dim() == 2 else params
+    _check_args(kind, row0, tables, program)
+    _check_pilot(cfg, row0,
+                 pilot[0] if pilot is not None and pilot.dim() == 2 else pilot,
+                 k)
+    return _launch(program, kind, params, 0, seeds, grid, cfg, pilot, tables)
+
+
+def integrate_batch(
+    program: IntegrateProgram,
+    kind: DistKind,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: Grid,
+    cfg: IntegrateConfig = MC,
+    pilot: Optional[torch.Tensor] = None,
+    tables: Optional[Tables] = None,
+) -> torch.Tensor:
+    """R jobs' sums, (R, K), or with ``cfg.with_stderr`` (R, 2, K): element
+    r is :func:`integrate_cuda`'s result with the seed word ``seeds[r]``
+    and rep r's params and pilot (arguments as
+    :func:`integrate_batch_rows`), bit for bit.  A CUDA ``params`` runs
+    one launch, whose second pass sums each rep's rows in the one order
+    ``integrate_cuda``'s launch sums its own (``csrc/rows_sum.cuh``); a
+    CPU one runs the plain version rep by rep."""
+    k = len(program.fns)
+    r, rowed = check_batch(params, seeds, pilot, (2,), k, cfg.with_stderr)
+    if params.device.type == "cpu":
+        words = [int(w) & MASK32 for w in seeds.tolist()]
+        outs = [
+            integrate_cuda(program, kind, params[i] if rowed else params,
+                           words[i], grid, cfg,
+                           pilot[i] if rowed and pilot is not None else pilot,
+                           tables)
+            for i in range(r)
+        ]
+        return torch.stack(outs)
+    sums = _batch_launch(program, kind, params, seeds, grid, cfg, pilot,
+                         tables)[1]
+    return sums.reshape(r, 2, k) if cfg.with_stderr else sums
+
+
+def _launch(program, kind, params, seed, seeds, grid, cfg, pilot, tables):
+    """One launch of the kernel and its second pass: R = len(seeds) reps,
+    or one rep under the seed word ``seed`` where ``seeds`` is None.
+    Returns the (R, blocks, K or 2K) rows and their (R, K or 2K) sums over
+    the blocks, in ``csrc/rows_sum.cuh``'s order."""
+    k = len(program.fns)
     if params.device.type != "cuda":
         raise ValueError(f"no integrate kernel for device {params.device}")
     if isinstance(tables, StrataTables) and tables.ts.shape[0] != STRATA:
@@ -1003,6 +1127,7 @@ def integrate_rows(
         seg_bits = -1 if seg is None else seg
     params = params.contiguous()
     dev = params.device
+    reps = 1 if seeds is None else len(seeds)
     pilots = pilot.contiguous().data_ptr() if cfg.with_stderr else 0
     if tables is not None:
         tables = type(tables)(*(None if t is None else t.contiguous()
@@ -1011,12 +1136,18 @@ def integrate_rows(
     lib = program.library(cfg, library_route(kind, tables))
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
     n_out = 2 * k if cfg.with_stderr else k
-    partials = torch.empty((rows, n_out), dtype=torch.float32, device=dev)
+    partials = torch.empty((reps, rows, n_out), dtype=torch.float32,
+                           device=dev)
+    sums = torch.empty((reps, n_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tmc_integrate(
-            int(kind), int(seed) & MASK32, params.data_ptr(), pilots,
-            grid.loops, grid.n_tiles, seg_bits, rows, partials.data_ptr(),
+            int(kind), int(seed) & MASK32,
+            None if seeds is None else seeds.contiguous().data_ptr(), reps,
+            params.data_ptr(), 2 if params.dim() == 2 else 0, pilots,
+            k if cfg.with_stderr and pilot.dim() == 2 else 0,
+            grid.loops, grid.n_tiles, seg_bits, rows,
+            partials.data_ptr(), sums.data_ptr(),
             None if kt is None else ctypes.addressof(kt), stream,
         )
     if err != 0:
@@ -1024,7 +1155,9 @@ def integrate_rows(
             f"integrate kernel launch failed: {lib.tmc_error_string(err)!r}"
         )
     integrate_cuda.launches += 1
-    return partials
+    integrate_cuda.batch_launches += int(seeds is not None)
+    return partials, sums
 
 
 integrate_cuda.launches = 0
+integrate_cuda.batch_launches = 0

@@ -69,6 +69,7 @@ from .integrate_kernel import (
     _custom_draw,
     _WeightTab,
     _weight_tab,
+    check_batch,
     finish_stderr,
     kernel_weight,
     knot_interp,
@@ -77,6 +78,7 @@ from .integrate_kernel import (
     uniform_open01,
 )
 from .lower import cuda_source, to_torch
+from .reduce import fixed_sum
 from .qmc import (
     MASK32,
     SOBOL_MAX_DIMS,
@@ -94,6 +96,8 @@ __all__ = [
     "IntegrateNdProgram",
     "NdConfig",
     "finish_stderr",
+    "integrate_nd_batch",
+    "integrate_nd_batch_rows",
     "integrate_nd_cuda",
     "integrate_nd_reference",
     "integrate_nd_rows",
@@ -119,8 +123,9 @@ _U_HI = float(np.float32(1.0 - 1e-7))
 @dataclass(frozen=True)
 class NdConfig:
     """What one nd run computes: the per-dimension families, the method,
-    and whether the kernel also sums pilot-shifted squares (``mc`` and
-    ``antithetic`` only: ``qmc`` error bars come from rotations).  Its
+    and whether the kernel also sums pilot-shifted squares (in every mode,
+    as the JAX kernel does; ``integrate``'s own ``qmc`` error bars come
+    from rotations).  Its
     ``strat_dim`` is the CUSTOM dimension that draws through stratified
     tables, if any."""
 
@@ -141,11 +146,6 @@ class NdConfig:
             raise ValueError(
                 f"method='qmc' supports up to {SOBOL_MAX_DIMS} dimensions, "
                 f"got {self.d}"
-            )
-        if self.method == "qmc" and self.with_stderr:
-            raise ValueError(
-                "qmc error bars come from rotations (qmc_rotations), not "
-                "from in-kernel squares"
             )
 
     @property
@@ -412,8 +412,16 @@ def pilot_row(
     from the full inverse's slope at each point (the JAX package's
     ``_pilot_weight_nd`` interpolates a table density on its own grid and
     searches the raw inverse for the slope: the same function but for
-    rounding).  Any pilot keeps the error bar exact; a near one keeps
-    float32 cancellation small."""
+    rounding).  (R, d, 2) ``params`` rows give (R, K) pilots in one
+    batched pass; the means add in ``fixed_sum``'s order, so row r is the
+    pilot of ``params[r]`` alone, bit for bit.  Any pilot keeps the error
+    bar exact; a near one keeps float32 cancellation small."""
+    if params.dim() == 3 and params.device.type == "cpu":
+        # The plain path: the CPU's elementwise kernels may round a
+        # transcendental by a vector lane or a scalar tail, by where an
+        # element falls in the tensor.
+        return torch.stack([pilot_row(torch_fns, kinds, row, tables, weight)
+                            for row in params.unbind()])
     dev = params.device
     base = (
         torch.arange(_PILOT_POINTS, dtype=torch.float32, device=dev) + 0.5
@@ -424,14 +432,17 @@ def pilot_row(
         offset = float(np.float32(j) * np.float32(_PILOT_OFFSET))
         u = torch.remainder(base + offset, 1.0)
         u = torch.clamp(u, _U_LO, _U_HI)
-        got = _pilot_grid(j, kind, params[j, 0], params[j, 1], u, tables,
-                          j in sampler_dims)
+        got = _pilot_grid(j, kind, params[..., j, 0:1], params[..., j, 1:2],
+                          u, tables, j in sampler_dims)
         x, q = got if j in sampler_dims else (got, None)
         xs.append(x)
         qs.append(q)
     w = None if weight is None else weight(xs, qs)
-    return torch.stack([(f(*xs) if w is None else f(*xs) * w).mean()
-                        for f in torch_fns])
+    shape = torch.broadcast_shapes(*(x.shape for x in xs))
+    vals = torch.stack([
+        torch.broadcast_to(f(*xs) if w is None else f(*xs) * w, shape)
+        for f in torch_fns], dim=-2)
+    return fixed_sum(vals, -1) / float(_PILOT_POINTS)
 
 
 def _check_args(cfg: NdConfig, params: torch.Tensor, pilot, k: int,
@@ -613,15 +624,20 @@ class IntegrateNdProgram:
             lib.tmc_integrate_nd.argtypes = [
                 ctypes.c_int,       # method: 0 mc, 1 antithetic, 2 qmc
                 ctypes.c_int,       # with_stderr
-                ctypes.c_uint32,    # seed word
-                ctypes.c_void_p,    # params (d, 2) float32
+                ctypes.c_uint32,    # seed word (without a seed vector)
+                ctypes.c_void_p,    # seed words (R,) on the device, or null
+                ctypes.c_int,       # reps R
+                ctypes.c_void_p,    # params (d, 2) or (R, d, 2) float32
+                ctypes.c_int,       # params stride: 0 shared, 2d a block each
                 ctypes.c_void_p,    # Sobol direction numbers (d, 32) or null
-                ctypes.c_void_p,    # pilots (K,) float32 or null
+                ctypes.c_void_p,    # pilots (K,) or (R, K) float32, or null
+                ctypes.c_int,       # pilots stride: 0 shared, K a row each
                 ctypes.c_int,       # loops per program
                 ctypes.c_longlong,  # tiles = programs * loops
                 ctypes.c_int,       # Sobol segment bits, or -1
                 ctypes.c_int,       # CUDA grid size
-                ctypes.c_void_p,    # partials (grid, K or 2K) float32
+                ctypes.c_void_p,    # partials (R, grid, K or 2K) float32
+                ctypes.c_void_p,    # sums (R, K or 2K) float32
                 ctypes.c_void_p,    # host NdTables, or null
                 ctypes.c_void_p,    # cudaStream_t
             ]
@@ -708,14 +724,14 @@ def integrate_nd_cuda(
     counts the launches); a CPU ``params`` runs the plain version.  Any
     other device raises.  The launch is asynchronous on the current
     stream."""
+    _check_program(program, cfg, params, pilot, tables)
     if params.device.type == "cpu":
-        _check_program(program, cfg, params, pilot, tables)
         return integrate_nd_reference(
             program.torch_fns, cfg, params, seed, grid, pilot, tables,
             program.torch_weight,
         )
-    out = integrate_nd_rows(program, cfg, params, seed, grid, pilot,
-                            tables).sum(dim=0)
+    out = _launch_nd(program, cfg, params, int(seed), None, grid, pilot,
+                     tables)[1][0]
     return out.reshape(2, -1) if cfg.with_stderr else out
 
 
@@ -742,9 +758,83 @@ def integrate_nd_rows(
 ) -> torch.Tensor:
     """Launches the kernel on CUDA ``params`` and returns its per-block
     rows, (blocks, K) float32 sums or with ``cfg.with_stderr`` (blocks, 2K)
-    sums then squares, unsummed (``integrate_nd_cuda`` sums them).  Counts
+    sums then squares, unsummed (the launch's second pass sums them for
+    ``integrate_nd_cuda``).  Counts
     the launch in ``integrate_nd_cuda.launches``."""
     _check_program(program, cfg, params, pilot, tables)
+    return _launch_nd(program, cfg, params, int(seed), None, grid, pilot,
+                      tables)[0][0]
+
+
+def integrate_nd_batch_rows(
+    program: IntegrateNdProgram,
+    cfg: NdConfig,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: Grid,
+    pilot: Optional[torch.Tensor] = None,
+    tables=None,
+) -> torch.Tensor:
+    """One launch of R jobs on CUDA ``params``: rep r under the seed word
+    ``seeds[r]`` ((R,) int32 words on the device) with ``params`` (d, 2)
+    for every rep or its block of (R, d, 2), and under error bars its
+    pilot ((K,), or (R, K) beside blocks).  Returns (R, blocks, K or 2K)
+    rows; each rep's are the rows of the unbatched launch with its seed
+    and block, bit for bit.  Counts the launch in
+    ``integrate_nd_cuda.launches`` and ``integrate_nd_cuda.batch_launches``."""
+    return _batch_launch_nd(program, cfg, params, seeds, grid, pilot,
+                            tables)[0]
+
+
+def _batch_launch_nd(program, cfg, params, seeds, grid, pilot, tables):
+    """``_launch_nd`` of a batch after its checks."""
+    k = len(program.fns)
+    check_batch(params, seeds, pilot, (cfg.d, 2), k, cfg.with_stderr)
+    _check_program(
+        program, cfg, params[0] if params.dim() == 3 else params,
+        pilot[0] if pilot is not None and pilot.dim() == 2 else pilot, tables)
+    return _launch_nd(program, cfg, params, 0, seeds, grid, pilot, tables)
+
+
+def integrate_nd_batch(
+    program: IntegrateNdProgram,
+    cfg: NdConfig,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: Grid,
+    pilot: Optional[torch.Tensor] = None,
+    tables=None,
+) -> torch.Tensor:
+    """R jobs' sums, (R, K), or with ``cfg.with_stderr`` (R, 2, K): element
+    r is :func:`integrate_nd_cuda`'s result with the seed word ``seeds[r]``
+    and rep r's params and pilot (arguments as
+    :func:`integrate_nd_batch_rows`), bit for bit.  A CUDA ``params`` runs
+    one launch, whose second pass sums each rep's rows in the one order
+    ``integrate_nd_cuda``'s launch sums its own (``csrc/rows_sum.cuh``); a
+    CPU one runs the plain version rep by rep."""
+    k = len(program.fns)
+    r, rowed = check_batch(params, seeds, pilot, (cfg.d, 2), k,
+                           cfg.with_stderr)
+    if params.device.type == "cpu":
+        words = [int(w) & MASK32 for w in seeds.tolist()]
+        outs = [
+            integrate_nd_cuda(program, cfg, params[i] if rowed else params,
+                              words[i], grid,
+                              pilot[i] if rowed and pilot is not None
+                              else pilot, tables)
+            for i in range(r)
+        ]
+        return torch.stack(outs)
+    sums = _batch_launch_nd(program, cfg, params, seeds, grid, pilot,
+                            tables)[1]
+    return sums.reshape(r, 2, k) if cfg.with_stderr else sums
+
+
+def _launch_nd(program, cfg, params, seed, seeds, grid, pilot, tables):
+    """One launch of the kernel and its second pass: R = len(seeds) reps,
+    or one rep under the seed word ``seed`` where ``seeds`` is None.
+    Returns the (R, blocks, K or 2K) rows and their (R, K or 2K) sums over
+    the blocks, in ``csrc/rows_sum.cuh``'s order."""
     if params.device.type != "cuda":
         raise ValueError(f"no nd integrate kernel for device {params.device}")
     for tab in tables or ():
@@ -755,6 +845,7 @@ def integrate_nd_rows(
     k = len(program.fns)
     params = params.contiguous()
     dev = params.device
+    reps = 1 if seeds is None else len(seeds)
     seg_bits = -1
     dirs = 0
     if cfg.method == "qmc":
@@ -766,13 +857,19 @@ def integrate_nd_rows(
     lib = program.library(routes)
     n_out = 2 * k if cfg.with_stderr else k
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
-    partials = torch.empty((rows, n_out), dtype=torch.float32, device=dev)
+    partials = torch.empty((reps, rows, n_out), dtype=torch.float32,
+                           device=dev)
+    sums = torch.empty((reps, n_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tmc_integrate_nd(
             _METHOD_CODES[cfg.method], int(cfg.with_stderr),
-            int(seed) & MASK32, params.data_ptr(), dirs, pilots, grid.loops,
-            grid.n_tiles, seg_bits, rows, partials.data_ptr(),
+            int(seed) & MASK32,
+            None if seeds is None else seeds.contiguous().data_ptr(), reps,
+            params.data_ptr(), 2 * cfg.d if params.dim() == 3 else 0, dirs,
+            pilots, k if cfg.with_stderr and pilot.dim() == 2 else 0,
+            grid.loops, grid.n_tiles, seg_bits, rows,
+            partials.data_ptr(), sums.data_ptr(),
             None if kt is None else ctypes.addressof(kt), stream,
         )
     if err != 0:
@@ -780,7 +877,9 @@ def integrate_nd_rows(
             f"nd integrate kernel launch failed: {lib.tmc_error_string(err)!r}"
         )
     integrate_nd_cuda.launches += 1
-    return partials
+    integrate_nd_cuda.batch_launches += int(seeds is not None)
+    return partials, sums
 
 
 integrate_nd_cuda.launches = 0
+integrate_nd_cuda.batch_launches = 0

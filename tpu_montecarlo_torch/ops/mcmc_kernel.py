@@ -57,12 +57,15 @@ from ..sampling import (
 from ..tracing import TracedFunction
 from .integrate_kernel import (
     LANES,
+    MASK32,
     CounterRng,
+    check_batch,
     sample_block,
     uniform_halfopen01,
     uniform_open01,
 )
 from .lower import cuda_source, to_torch
+from .reduce import fixed_sum
 from .mcmc_diagnostics import (
     DIAG_ROWS,
     PhaseOutputs,
@@ -91,6 +94,8 @@ __all__ = [
     "Mode",
     "block_rows",
     "default_layout",
+    "mcmc_batch",
+    "mcmc_batch_finish",
     "mcmc_cuda",
     "mcmc_diagnostics",
     "mcmc_finish",
@@ -422,15 +427,16 @@ class McmcProgram:
 
             lib = load_kernel_library("mcmc.cu", self.source(cfg))
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # seed word, params, host tables, chains per program,
-            # programs, pilots, stream
-            lib.tmc_mcmc_pilots.argtypes = [u, p, p, i, i, p, p]
+            # seed word, seeds (R,) or null, reps, params, params stride,
+            # host tables, chains per program, programs, pilots, stream
+            lib.tmc_mcmc_pilots.argtypes = [u, p, i, p, i, p, i, i, p, p]
             lib.tmc_mcmc_pilots.restype = i
-            # seed word, params, host tables, burn-in, steps, chains per
-            # program, chains, pilots, rows, x_final, samples, m, stride,
-            # x0, logp0, logp_final, stream
-            lib.tmc_mcmc.argtypes = [u, p, p, i, i, i, i, p, p, p, p, i, i,
-                                     p, p, p, p]
+            # seed word, seeds (R,) or null, reps, params, params stride,
+            # host tables, burn-in, steps, chains per program, chains,
+            # pilots, rows, x_final, samples, m, stride, x0, logp0,
+            # logp_final, stream
+            lib.tmc_mcmc.argtypes = [u, p, i, p, i, p, i, i, i, i, p, p, p,
+                                     p, i, i, p, p, p, p]
             lib.tmc_mcmc.restype = i
             self._libs[key] = lib
         return self._libs[key]
@@ -729,15 +735,15 @@ def mcmc_cuda(
                 (grid.programs, k), dtype=torch.float32, device=dev
             )
             err = lib.tmc_mcmc_pilots(
-                word, params.data_ptr(), host_tables,
+                word, None, 1, params.data_ptr(), 0, host_tables,
                 grid.chains_per_program, grid.programs, pilots.data_ptr(),
                 stream,
             )
             _raise_on(lib, err, "pilot")
             mcmc_cuda.pilot_launches += 1
         err = lib.tmc_mcmc(
-            word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
-            grid.chains_per_program, grid.chains_actual,
+            word, None, 1, params.data_ptr(), 0, host_tables, cfg.n_burnin,
+            cfg.n_steps, grid.chains_per_program, grid.chains_actual,
             None if pilots is None else pilots.data_ptr(),
             rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
             *state_args(start, logp_final), stream,
@@ -753,6 +759,85 @@ mcmc_cuda.diag_launches = 0
 mcmc_cuda.sample_launches = 0
 mcmc_cuda.hmc_launches = 0
 mcmc_cuda.state_launches = 0
+mcmc_cuda.batch_launches = 0
+
+
+def mcmc_batch(
+    program: McmcProgram,
+    cfg: McmcConfig,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: McmcGrid,
+    tables: Optional[DimTables] = None,
+) -> McmcOutput:
+    """R stateless jobs in one launch (and one pilot launch under error
+    bars): rep r runs the chains of :func:`mcmc_cuda` with the seed
+    ``seeds[r]`` ((R,) int32 words on the params' device) and ``params``
+    (6,) for every rep or its row of (R, 6).  Returns an
+    :class:`McmcOutput` with a leading rep axis on its rows, final states
+    and draws; each rep's are the unbatched run's, bit for bit.  A CUDA
+    ``params`` launches the kernels (counted as :func:`mcmc_cuda` counts
+    them, and in ``mcmc_cuda.batch_launches``); a CPU one runs the plain
+    version rep by rep."""
+    if cfg.with_state or cfg.with_diagnostics:
+        raise ValueError("a batch runs stateless chains without diagnostics")
+    k = len(program.fns)
+    r, rowed = check_batch(params, seeds, None, (6,), k, False)
+    _check_args(cfg, params[0] if rowed else params, k, tables)
+    if params.device.type == "cpu":
+        words = [int(w) & MASK32 for w in seeds.tolist()]
+        outs = [mcmc_reference(program.torch_fns, cfg,
+                               params[i] if rowed else params, words[i], grid,
+                               tables)
+                for i in range(r)]
+        return McmcOutput(
+            torch.stack([o.rows for o in outs]),
+            torch.stack([o.x_final for o in outs]),
+            None if not cfg.samples else torch.stack([o.samples
+                                                      for o in outs]))
+    if params.device.type != "cuda":
+        raise ValueError(f"no MCMC kernel for device {params.device}")
+    params = params.contiguous()
+    seeds = seeds.contiguous()
+    kt = kernel_tables([tables], 1)
+    host_tables = None if kt is None else ctypes.addressof(kt)
+    lib = program.library(cfg)
+    dev = params.device
+    stride = 6 if rowed else 0
+    rows = torch.empty(
+        (r, grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
+        dtype=torch.float32, device=dev,
+    )
+    x_final = torch.empty((r, grid.chains_actual), dtype=torch.float32,
+                          device=dev)
+    samples = sample_buffer(cfg, (grid.chains_actual,), dev)
+    if samples is not None:
+        samples = torch.empty((r, *samples.shape), dtype=torch.float32,
+                              device=dev)
+    pilots = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cfg.stat_mode:
+            pilots = torch.empty((r, grid.programs, k), dtype=torch.float32,
+                                 device=dev)
+            err = lib.tmc_mcmc_pilots(
+                0, seeds.data_ptr(), r, params.data_ptr(), stride,
+                host_tables, grid.chains_per_program, grid.programs,
+                pilots.data_ptr(), stream,
+            )
+            _raise_on(lib, err, "pilot")
+            mcmc_cuda.pilot_launches += 1
+        err = lib.tmc_mcmc(
+            0, seeds.data_ptr(), r, params.data_ptr(), stride, host_tables,
+            cfg.n_burnin, cfg.n_steps, grid.chains_per_program,
+            grid.chains_actual, None if pilots is None else pilots.data_ptr(),
+            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
+            None, None, None, stream,
+        )
+        _raise_on(lib, err, "chain")
+    count_launch(mcmc_cuda, cfg)
+    mcmc_cuda.batch_launches += 1
+    return McmcOutput(rows, x_final, samples)
 
 
 def state_args(start: Optional[ChainStart],
@@ -802,22 +887,37 @@ def mcmc_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcConfig, k: int):
     on the rows' device: the JAX wrapper's math (mcmc_pallas.py:1150-1166,
     :1286-1324) over CUDA blocks in place of programs.  Under error bars
     or diagnostics the values come from the blocks' centroids, as the JAX
-    kernels' do; :func:`mcmc_diagnostics` gives split-R-hat and ESS.
-    The three rows are taken as a tensor of their own, so the sums run as
-    in a run without diagnostics."""
-    rows = out.rows[:, :3].contiguous()
-    tot = rows.sum(dim=0)
+    kernels' do; :func:`mcmc_diagnostics` gives split-R-hat and ESS.  The
+    sums over blocks add in :func:`fixed_sum`'s order, the same as a
+    batch's (:func:`mcmc_batch_finish`)."""
+    values, acceptance, stderr = _finish(out.rows[None], grid, cfg, k)
+    return values[0], acceptance[0], None if stderr is None else stderr[0]
+
+
+def mcmc_batch_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcConfig,
+                      k: int):
+    """(values (R, K), acceptance (R,), stderr (R, K) or None) of a
+    :func:`mcmc_batch` run: each rep's are :func:`mcmc_finish`'s of the
+    unbatched run, bit for bit, as every sum over blocks adds in
+    :func:`fixed_sum`'s order."""
+    return _finish(out.rows, grid, cfg, k)
+
+
+def _finish(rows: torch.Tensor, grid: McmcGrid, cfg: McmcConfig, k: int):
+    """:func:`mcmc_batch_finish` of (R, blocks, rows, K + 1) rows."""
+    tot = fixed_sum(rows[:, :, 0], 1)
     chains = np.float32(grid.chains_actual)
     denom = float(chains * np.float32(cfg.n_steps))
-    acceptance = tot[0, k] / denom
+    acceptance = tot[:, k] / denom
     if not cfg.stat_mode:
-        return tot[0, :k] / denom, acceptance, None
+        return tot[:, :k] / denom, acceptance, None
     n_b = float(CHAIN_THREADS)
-    mb = rows[:, 2, :k]
-    values = (n_b * mb).sum(dim=0) / float(chains)
+    mb = rows[:, :, 2, :k]
+    values = fixed_sum(n_b * mb, 1) / float(chains)
     if not cfg.with_stderr:
         return values, acceptance, None
-    ss_total = (rows[:, 1, :k] + n_b * (mb - values) ** 2).sum(dim=0)
+    ss_total = fixed_sum(rows[:, :, 1, :k] + n_b * (mb - values[:, None]) ** 2,
+                         1)
     var = ss_total / float(max(chains - np.float32(1.0), np.float32(1.0)))
     return values, acceptance, torch.sqrt(var / float(chains))
 

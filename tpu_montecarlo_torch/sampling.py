@@ -24,6 +24,7 @@ __all__ = [
     "DistSpec",
     "analytic_log_pdf",
     "dist_spec_of",
+    "ensure_param_batch_family",
     "exponential_from_u01",
     "fast_tan",
     "fma_f32",
@@ -85,6 +86,26 @@ def dist_spec_of(dist) -> DistSpec:
     spec = _build_spec(dist)
     dist._cached_spec = spec
     return spec
+
+
+def ensure_param_batch_family(
+    kind, role: str = "", feature: str = "param_batch"
+) -> None:
+    """Only closed-form families take runtime parameter rows: CUSTOM
+    distributions sample and evaluate through tables built for one
+    Distribution (``tpu_montecarlo/sampling.py:181-201``, word for word)."""
+    if kind == DistKind.CUSTOM:
+        subject = (
+            f"the {role} distribution samples/evaluates"
+            if role
+            else "custom distributions sample/evaluate"
+        )
+        raise ValueError(
+            f"{feature} applies to analytic families only "
+            "(uniform/normal/exponential and the extended closed-form "
+            f"families): {subject} through host-built per-distribution "
+            "tables"
+        )
 
 
 def _build_spec(dist) -> DistSpec:

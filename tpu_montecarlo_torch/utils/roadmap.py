@@ -6,7 +6,6 @@ from __future__ import annotations
 __all__ = [
     "API_SURFACE",
     "FRONT_END",
-    "MCMC_SERVING",
     "MCMC_TABLES_XLA",
     "MCMC_WIDE",
     "MESH",
@@ -14,32 +13,21 @@ __all__ = [
     "ND_MCMC_SERVING",
     "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
-    "ND_SERVING",
     "ND_WIDE",
     "PT_SERVING",
     "PT_TABLES_XLA",
     "PT_WIDE",
-    "SERVING",
     "TEMPERING",
     "VARIANTS",
     "not_ported",
 ]
 
 VARIANTS = "ROADMAP.md, queue 1 item 2 (integrate variants)"
-SERVING = (
-    "ROADMAP.md, queue 1 item 2.4 (seed_batch, param_batch and the "
-    "compile_* handles)"
-)
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
-MCMC_SERVING = "ROADMAP.md, queue 1 item 6.5 (compile_mcmc and batches)"
 MCMC_WIDE = "ROADMAP.md, queue 1 item 6.7 (MCMC over more than 127 functions)"
 MCMC_TABLES_XLA = (
     "ROADMAP.md, queue 1 item 6.8 (MCMC over the CUSTOM tables the JAX "
     "package runs on its XLA sweep)"
-)
-ND_SERVING = (
-    "ROADMAP.md, queue 1 item 7.4 (nd seed_batch, param_batch and "
-    "compile_integrate)"
 )
 ND_CV = (
     "ROADMAP.md, queue 1 item 7.5 (nd control variates and expectation_fn)"
