@@ -263,6 +263,10 @@ Phases, each of which exits non-zero on failure:
 47. phase 44 at c12's shape (cold-rung R-hat below 1.05, the cold draws'
     share with x > 0 within 0.05 of 0.5, the swap rate unchanged), its
     remainder run on rungs on lanes and on the ladder layout;
+48-53. HMC (c11, c11c; c11b, c12b) and chain state (c5b, c9e), each
+    kernel held against its plain version at MCMC_CHECK's depth (the
+    plain version timed there) and timed at SHORT_MCMC's shape, the
+    state phases' resumed segment at STATE_STEPS;
 54-59. the serving handles, built as a user builds them: ``compile_
     integrate`` over the bench set at 1e9 a job with ``seed_batch=8`` (54)
     and over eight ``pack_param_batch`` N(m, s) rows at 2**27 with error
@@ -277,10 +281,21 @@ Phases, each of which exits non-zero on failure:
     unbatched launch with its seed and row, bit for bit (its rows; for
     MCMC its block rows and final states), each element of the handle the
     unbatched handle's, bit for bit; the batched and the unbatched launch
-    timed (CUDA events), the bound R times the unbatched launch's, the
-    warm call (host clock, enqueue and synchronised) and its idle share in
+    timed (CUDA events), the bound (an integrate batch's R times the
+    unbatched launch's; an MCMC batch's below), the warm call (host clock, enqueue and synchronised) and its idle share in
     one profiler window, and beside the integrate ones the unbatched
-    public call's.
+    public call's;
+60-63. the nd and tempered ``compile_mcmc`` handles, as phase 59 at
+    4096 x (1,000 + 2,000) with error bars: c9e and c9d with
+    ``seed_batch=4`` (60); c9e with ``seed_batch=4`` and 300 draws (61);
+    c9d's set over four ``pack_param_batch_nd`` rows of targets and
+    proposals, and four ``pack_random_walk_batch_nd`` adaptive walks
+    (62); c12, c12b (HMC), c12c and c12d (tables) with ``seed_batch=2``
+    through tempered handles (63), the ladders' rows and cold final
+    states bit for bit.  An MCMC batch's bound is max(R jobs' pipes on
+    all their warps, one job's latency x waves of resident warps), counted
+    on a one-lane build of its group (1-D, nd; the build that runs beside
+    it) or on the ladder layout's build (tempered).
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -1094,6 +1109,7 @@ def main() -> int:
         )
         from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
             McmcNdProgram,
+            mcmc_nd_batch,
             mcmc_nd_cuda,
             mcmc_nd_reference,
         )
@@ -1101,6 +1117,7 @@ def main() -> int:
             LADDER_LAYOUT,
             McmcPtProgram,
             PtLayout,
+            mcmc_pt_batch,
             mcmc_pt_cuda,
             mcmc_pt_reference,
             pt_finish,
@@ -3531,7 +3548,6 @@ def main() -> int:
 
     import tpu_montecarlo_torch.ops.mcmc_kernel as mcmc_kernel_mod
     import tpu_montecarlo_torch.ops.mcmc_nd_kernel as mcmc_nd_kernel_mod
-    import tpu_montecarlo_torch.ops.mcmc_pt_kernel as mcmc_pt_kernel_mod
 
     check_grid = plan_mcmc_grid(plan_chains(MCMC_CHECK["n_chains"], None))
 
@@ -3546,13 +3562,14 @@ def main() -> int:
                       samples=REMAINDER_DRAWS)
         sentinel, whole = -7777.0, []
 
-        def guarded(cfg_, shape, dev):
+        def guarded(cfg_, shape, dev, lead=()):  # one job: lead is ()
             buf = torch.full((cfg_.samples + DRAW_GUARD, *shape), sentinel,
                              dtype=torch.float32, device=dev)
             whole.append(buf)
             return buf[:cfg_.samples]
 
-        mods = (mcmc_kernel_mod, mcmc_nd_kernel_mod, mcmc_pt_kernel_mod)
+        # The nd and tempered wrappers share the nd module's launch.
+        mods = (mcmc_kernel_mod, mcmc_nd_kernel_mod)
         saved = [m_.sample_buffer for m_ in mods]
         for m_ in mods:
             m_.sample_buffer = guarded
@@ -3848,9 +3865,10 @@ def main() -> int:
 
     # 48-49. HMC, c11 and c11c: the libraries started in phase 2; each
     # main path through the public API, counted and gated; its kernel
-    # against its plain version at SHORT_MCMC's shape, both timed there:
-    # the kernel's time at each group, its bounds, the warm call and its
-    # idle share, gradient evaluations per second.
+    # against its plain version at MCMC_CHECK's depth, the plain version
+    # timed there; at SHORT_MCMC's shape the kernel's time at each group,
+    # its bounds, the warm call and its idle share, gradient evaluations
+    # per second.
     t_hmc = time.perf_counter()
     built = [b.result() for b in hmc_state_builds]
     print(f"phase 48: built the HMC and chain-state libraries ({len(built)}: "
@@ -3863,6 +3881,13 @@ def main() -> int:
                 print(f"  ptxas ({name}): {line.strip()}")
     hmc_depth = SHORT_MCMC["n_steps"] + SHORT_MCMC["n_burnin"]
     hmc_chain_steps = mcmc_grid.chains_actual * hmc_depth
+    # Phases 48-53 hold their kernels against the plain versions at
+    # MCMC_CHECK's depth: the plain version's Python loop over the steps
+    # is most of their time.
+    check_steps = [MCMC_CHECK["n_burnin"], MCMC_CHECK["n_steps"]]
+
+    def check_depth(cfg_, burn=MCMC_CHECK["n_burnin"]):
+        return replace(cfg_, n_steps=MCMC_CHECK["n_steps"], n_burnin=burn)
     hmc = {}
     for phase, (name, o) in zip(("48", "49"), hmc_out.items()):
         h_prog, h_cfg, h_params, h_tabs = (
@@ -3890,10 +3915,11 @@ def main() -> int:
         if not (math.isfinite(value) and abs(value - exact) <= HMC_TOL):
             fail(f"phase {phase}: {name}'s value is not within {HMC_TOL} of "
                  f"{exact}")
-        got = mcmc_cuda(h_prog, h_cfg, h_params, SEED, mcmc_grid, h_tabs)
+        chk = check_depth(h_cfg)
+        got = mcmc_cuda(h_prog, chk, h_params, SEED, mcmc_grid, h_tabs)
         want, plain_ms_h = timed_plain(lambda: mcmc_reference(
-            h_prog.torch_fns, h_cfg, h_params, SEED, mcmc_grid, h_tabs))
-        err = chains_agree(got, want, mcmc_grid, h_cfg, len(fns), phase)
+            h_prog.torch_fns, chk, h_params, SEED, mcmc_grid, h_tabs))
+        err = chains_agree(got, want, mcmc_grid, chk, len(fns), phase)
         group_ms = {g: time_ms(lambda p=p: mcmc_cuda(
             p, h_cfg, h_params, SEED, mcmc_grid, h_tabs), reps=5)
                     for g, p in o["layouts"].items()}
@@ -3904,7 +3930,7 @@ def main() -> int:
               f"{mcmc_grid.chains_actual} x ({SHORT_MCMC['n_burnin']} + "
               f"{SHORT_MCMC['n_steps']}), layout {tuple(layout)}; by group "
               + ", ".join(f"{g}: {t:.4f} ms" for g, t in group_ms.items())
-              + f"; plain {plain_ms_h:.3f} ms")
+              + f"; plain {plain_ms_h:.3f} ms at {check_steps}")
         mhz = clock_under_load(lambda: mcmc_cuda(
             h_prog, h_cfg, h_params, SEED, mcmc_grid, h_tabs), h_ms)
         bound = card_bound(
@@ -3923,7 +3949,8 @@ def main() -> int:
         hmc[name] = dict(
             counts, value=value, acceptance=float(r.acceptance_rate),
             n_steps=SHORT_MCMC["n_steps"], max_abs_err=err, ms=h_ms,
-            plain_ms=plain_ms_h, bound_ms=max(bound[0], latency),
+            plain_ms=plain_ms_h, plain_steps=check_steps,
+            bound_ms=max(bound[0], latency),
             bound_by=bound_by(bound, latency), bound_pipe=bound[1],
             pipe_bound_ms=bound[0], issue_ms=bound[2], latency_ms=latency,
             call_ms=call_ms, idle_share=idle, grad_evals_per_s=grads,
@@ -3934,7 +3961,8 @@ def main() -> int:
     # steps (return_state, then initial_state), counted and held
     # statistically against their one-call runs; segment 0's kernel
     # against the stateless kernel bit for bit; the resumed segment's
-    # kernel against its plain version from the same start.
+    # kernel against its plain version from the same start, for
+    # MCMC_CHECK's steps.
     t_state = time.perf_counter()
     state = {}
     for phase, name in (("50", "c5b"), ("51", "c9e")):
@@ -3998,20 +4026,21 @@ def main() -> int:
             fail(f"phase {phase}: {name}'s segment 0 is not the stateless "
                  "run")
         start = ChainStart(got0.x_final, got0.logp_final)
+        c1_chk = check_depth(c1, 0)
         if nd:
-            resumed = lambda: mcmc_nd_cuda(p1, c1, s_params, SEED, mcmc_grid,
-                                           None, 1, start)
+            resumed = lambda c=c1: mcmc_nd_cuda(p1, c, s_params, SEED,
+                                                mcmc_grid, None, 1, start)
             plain = lambda: mcmc_nd_reference(
-                p1.torch_fns, p1.torch_target, c1, s_params, SEED, mcmc_grid,
-                None, 1, start)
+                p1.torch_fns, p1.torch_target, c1_chk, s_params, SEED,
+                mcmc_grid, None, 1, start)
         else:
-            resumed = lambda: mcmc_cuda(p1, c1, s_params, SEED, mcmc_grid,
-                                        None, 1, start)
-            plain = lambda: mcmc_reference(p1.torch_fns, c1, s_params, SEED,
-                                           mcmc_grid, None, 1, start)
-        got1 = resumed()
+            resumed = lambda c=c1: mcmc_cuda(p1, c, s_params, SEED, mcmc_grid,
+                                             None, 1, start)
+            plain = lambda: mcmc_reference(p1.torch_fns, c1_chk, s_params,
+                                           SEED, mcmc_grid, None, 1, start)
+        got1 = resumed(c1_chk)
         want1, plain_ms_s = timed_plain(plain)
-        err = chains_agree(got1, want1, mcmc_grid, c1, len(fns), phase)
+        err = chains_agree(got1, want1, mcmc_grid, c1_chk, len(fns), phase)
         logp_err = float((got1.logp_final - want1.logp_final).abs().max())
         print(f"         final log densities: max |kernel - plain| "
               f"{logp_err:.3e}")
@@ -4023,19 +4052,21 @@ def main() -> int:
         print(f"phase {phase}: {name} on {card}: {mcmc_grid.chains_actual} "
               f"chains, kernel fresh ({MCMC_MAIN['n_burnin']} + {STATE_STEPS}) "
               f"{times['fresh_ms']:.4f} ms, stateless {times['stateless_ms']:.4f}"
-              f" ms; resumed (0 + {STATE_STEPS}) {times['ms']:.4f} ms, plain "
-              f"{plain_ms_s:.3f} ms")
+              f" ms; resumed (0 + {STATE_STEPS}) {times['ms']:.4f} ms; plain "
+              f"{plain_ms_s:.3f} ms for (0 + {c1_chk.n_steps})")
         state[name] = dict(counts, max_abs_err=err, logp_max_abs_err=logp_err,
                            two_call_mean=two, one_call=float(one.values[0]),
-                           z=z, plain_ms=plain_ms_s, **times)
+                           z=z, plain_ms=plain_ms_s,
+                           plain_steps=[0, c1_chk.n_steps], **times)
     print(f"phases 50-51 (chain state) took "
           f"{time.perf_counter() - t_state:.1f} s")
 
     # 52-53. nd and tempered HMC, c11b and c12b: the libraries started in
     # phase 2; each path through the public API, counted and gated; its
-    # kernel against its plain version at SHORT_MCMC's shape, both timed
-    # there: the kernel at each layout, its bounds, the warm call and its
-    # idle share, gradient evaluations per second.
+    # kernel against its plain version at MCMC_CHECK's depth (the plain
+    # version timed there); at SHORT_MCMC's shape the kernel at each
+    # layout, its bounds, the warm call and its idle share, gradient
+    # evaluations per second.
     t_hmc_nd = time.perf_counter()
     built = [b.result() for b in hmc_nd_builds]
     print(f"phase 52: built the nd and tempered HMC libraries ({len(built)}: "
@@ -4061,20 +4092,21 @@ def main() -> int:
                                      return_stderr=True, **extra,
                                      **SHORT_MCMC)
 
-        def run(p=h_prog):
+        chk = check_depth(h_cfg)
+
+        def run(p=h_prog, c=h_cfg):
             if pt:
-                return mcmc_pt_cuda(p, h_cfg, h_params, h_ladder, SEED,
-                                    mcmc_grid)
-            return mcmc_nd_cuda(p, h_cfg, h_params, SEED, mcmc_grid)
+                return mcmc_pt_cuda(p, c, h_params, h_ladder, SEED, mcmc_grid)
+            return mcmc_nd_cuda(p, c, h_params, SEED, mcmc_grid)
 
         def plain():
             if pt:
                 return mcmc_pt_reference(
-                    h_prog.torch_fns, h_prog.torch_target, h_cfg, h_params,
+                    h_prog.torch_fns, h_prog.torch_target, chk, h_params,
                     h_ladder, SEED, mcmc_grid,
                     torch_target_grad=h_prog.torch_target_grad)
             return mcmc_nd_reference(
-                h_prog.torch_fns, h_prog.torch_target, h_cfg, h_params, SEED,
+                h_prog.torch_fns, h_prog.torch_target, chk, h_params, SEED,
                 mcmc_grid, torch_target_grad=h_prog.torch_target_grad)
 
         for c in ("launches", "hmc_launches"):
@@ -4103,12 +4135,12 @@ def main() -> int:
                  f"and {cell['tol']} of {cell['exact']}")
         if pt and not 0.0 < swap < 1.0:
             fail(f"phase {phase}: {name}'s swap rate is not in (0, 1)")
-        got = run()
+        got = run(c=chk)
         want, plain_ms_h = timed_plain(plain)
-        err = chains_agree(got, want, mcmc_grid, h_cfg, k_fns, phase,
+        err = chains_agree(got, want, mcmc_grid, chk, k_fns, phase,
                            max_split=0.01 if pt else 0.0)
         if pt:
-            w_k, w_p = (float(pt_finish(t, mcmc_grid, h_cfg, k_fns)[2])
+            w_k, w_p = (float(pt_finish(t, mcmc_grid, chk, k_fns)[2])
                         for t in (got, want))
             print(f"         swap rate kernel {w_k:.6f} plain {w_p:.6f}")
             if abs(w_k - w_p) > 1e-3:
@@ -4123,7 +4155,7 @@ def main() -> int:
               f"({SHORT_MCMC['n_burnin']} + {SHORT_MCMC['n_steps']}), layout "
               f"{tuple(h_prog.layout)}; by layout "
               + ", ".join(f"{key}: {t:.4f} ms" for key, t in layout_ms.items())
-              + f"; plain {plain_ms_h:.3f} ms")
+              + f"; plain {plain_ms_h:.3f} ms at {check_steps}")
         mhz = clock_under_load(run, h_ms)
         # Bounds as phases 18 and 22: per chain-step, d + 1 uniform
         # conversions a rung (and the swap draws, on the ladder layout's
@@ -4155,7 +4187,8 @@ def main() -> int:
             counts, value=value, stderr=se, acceptance=float(r.acceptance_rate),
             **({} if swap is None else {"swap_rate": float(swap)}),
             n_steps=SHORT_MCMC["n_steps"], max_abs_err=err, ms=h_ms,
-            plain_ms=plain_ms_h, bound_ms=max(bound[0], latency),
+            plain_ms=plain_ms_h, plain_steps=check_steps,
+            bound_ms=max(bound[0], latency),
             bound_by=bound_by(bound, latency), bound_pipe=bound[1],
             pipe_bound_ms=bound[0], issue_ms=bound[2], latency_ms=latency,
             call_ms=call_ms, idle_share=idle, grad_evals_per_s=grads,
@@ -4183,6 +4216,42 @@ def main() -> int:
     t_serve = time.perf_counter()
     serve = tm.MonteCarloIntegrator()
     serving = {"integrate": {}, "integrate_nd": {}, "mcmc": {}}
+
+    # The nd libraries phases 60-62 add, their handles' and the one-lane
+    # builds their bounds count, started now and built while phases 54-59
+    # run: c9e and c9d, c9e with draws, c9d's set over rows of targets
+    # and proposals and under adaptive walks.
+    def nd_one_lane(prog_, cfg_):
+        """The one-lane build of an nd program's group: its SASS holds the
+        function's own instructions."""
+        return McmcNdProgram(prog_.fns, cfg_, prog_.target,
+                             layout=Layout(1, prog_.layout.group))
+
+    row_targets = [[tm.Distribution.normal(*p) for p in row]
+                   for row in ND_SERVING_TARGETS]
+    row_props = [[tm.Distribution.normal(0.0, s)] * 2
+                 for s in ND_SERVING_PROPOSALS]
+    row_walks = [tm.RandomWalk(step_size=list(st), adapt=True)
+                 for st in ND_SERVING_STEPS]
+    short_shape = (SHORT_MCMC["n_steps"], SHORT_MCMC["n_burnin"], True)
+    nd_serving_setups = {
+        "c9e": nd_mcmc_setup(c9e_fns, c9e_joint, c9e_proposal, *short_shape),
+        "c9d": nd_mcmc_setup(*nd_mcmc_cells["c9d"][:3], *short_shape),
+        "c9e_draws": integ._nd_mcmc_kernel_program(
+            c9e_fns, c9e_proposal,
+            integ._parse_nd_mcmc_args(c9e_joint, c9e_proposal), *short_shape,
+            samples=SERVING_DRAWS),
+        "param_batch": nd_mcmc_setup(C9D_FNS, row_targets[0], row_props[0],
+                                     *short_shape),
+        "walk_param_batch": nd_mcmc_setup(C9D_FNS, row_targets[0],
+                                          row_walks[0], *short_shape),
+    }
+    serving_pool = ThreadPoolExecutor(max_workers=8)
+    serving_builds = [
+        serving_pool.submit(timed_build, build)
+        for prog_, cfg_, _ in nd_serving_setups.values()
+        for build in ((prog_.library,) if prog_.layout.lanes == 1 else
+                      (prog_.library, nd_one_lane(prog_, cfg_).library))]
 
     def words(seeds):
         """The seed words on the card.  Staged once, outside the timed
@@ -4258,7 +4327,7 @@ def main() -> int:
         b_ms = time_ms(launch_batch, reps=5)
         o_ms = time_ms(lambda: launch_one(0), reps=10)
         mhz_ = clock_under_load(launch_batch, b_ms)
-        b_bound, b_by, how = bound(mhz_)
+        b_bound, b_by, how, *extra = bound(mhz_)
         print(f"  {reps} reps bit for bit their unbatched launches; on "
               f"{card}: batched launch {b_ms:.4f} ms ({b_ms / reps:.4f} ms a "
               f"job, {reps * units / b_ms * 1e3:.4e} units/s), unbatched "
@@ -4270,7 +4339,7 @@ def main() -> int:
                    unbatched_ms=o_ms, units_per_s=reps * units / b_ms * 1e3,
                    bound_ms=b_bound, bound_by=b_by, bound_mhz=mhz_,
                    call_enqueue_ms=enq, call_ms=full, idle_share=idle,
-                   idle_share_at_most=idle_ev)
+                   idle_share_at_most=idle_ev, **(extra[0] if extra else {}))
         if public_call is not None:
             c_ms = warm_call_ms(public_call)
             print(f"  the public call, unbatched: warm {c_ms:.3f} ms median "
@@ -4479,30 +4548,67 @@ def main() -> int:
 
         return batch, one
 
-    def mcmc_batch_bound(prog_, cfg_, reps):
-        """The batched launch's bound (module comment above): the pipe
-        bound of ``reps`` jobs' chain-steps on the warps of all of them,
-        against one job's latency times the waves of resident warps."""
+    def chain_batch_bound(count, run, function, conversions, cfg_, reps,
+                          threads, rungs=1):
+        """An MCMC batched launch's bound (module comment above): the pipe
+        bound of ``reps`` jobs' chain-steps, on the warps of all of them,
+        against one job's latency times the waves of resident warps
+        (``threads`` a chain on the running build).  Both count
+        ``function`` (``conversions`` as ``card_bound``'s) on ``count``,
+        a (library, lanes) holding the function's own instructions: a
+        one-lane build of the running group, or the ladder layout's.
+        ``run``, the running build's (library, lanes) where it differs,
+        is counted beside it (``running_pipes_ms``)."""
         def bound(mhz_):
-            lanes = prog_.layout_for(cfg_).lanes
-            warps = function_warps(cfg_.mode, m_grid.chains_actual)
-            b = card_bound(prog_.library(cfg_), "mcmc_kernel", 2,
-                           reps * m_units, mhz_,
-                           warps=None if warps is None else reps * warps,
-                           weights=(short["n_steps"], short["n_burnin"]),
-                           lanes=lanes)
+            warps = function_warps(cfg_.mode, m_grid.chains_actual, rungs)
+
+            def pipes(lib_, lanes):
+                return card_bound(
+                    lib_, function, conversions, reps * m_units, mhz_,
+                    warps=None if warps is None else reps * warps,
+                    weights=(short["n_steps"], short["n_burnin"]),
+                    lanes=lanes)
+
+            b = pipes(*count)
             props = torch.cuda.get_device_properties(0)
             resident = props.multi_processor_count * getattr(
                 props, "max_threads_per_multi_processor", 2048)
-            waves = -(-reps * m_grid.chains_actual * lanes // resident)
+            waves = -(-reps * m_grid.chains_actual * threads // resident)
             lat = waves * latency_ms(b[3]["carried"], m_depth, mhz_)
             how = (f"pipes {b[0]:.4f} ms for {reps} jobs ({b[1]}), latency "
                    f"{lat:.4f} ms: one job's {m_depth} steps x "
                    f"{b[3]['carried']:g} carried instructions, {waves} "
                    "wave(s) of resident warps")
-            return max(b[0], lat), bound_by(b, lat), how
+            extra = {}
+            if run is not None:
+                own = pipes(*run)
+                how += (f"; on the build that runs ({run[1]} lanes a chain, "
+                        f"each repeating the decisions) pipes {own[0]:.4f} "
+                        f"ms ({own[1]})")
+                extra = dict(running_pipes_ms=own[0],
+                             running_bound_pipe=own[1])
+            return max(b[0], lat), bound_by(b, lat), how, extra
 
         return bound
+
+    def lane_bound(run_lib, lanes, one_lane, function, conversions, cfg_,
+                   reps):
+        """A 1-D or nd batch's bound: counted on ``one_lane()``, the
+        one-lane build of its group, where the build that runs spreads a
+        chain over ``lanes`` lanes."""
+        run = (run_lib, lanes)
+        if lanes == 1:
+            return chain_batch_bound(run, None, function, conversions, cfg_,
+                                     reps, 1)
+        return chain_batch_bound((one_lane(), 1), run, function, conversions,
+                                 cfg_, reps, lanes)
+
+    def mcmc_batch_bound(prog_, cfg_, reps):
+        layout = prog_.layout_for(cfg_)
+        return lane_bound(
+            prog_.library(cfg_), layout.lanes,
+            lambda: McmcProgram(prog_.fns, layout=Layout(
+                1, layout.group)).library(cfg_), "mcmc_kernel", 2, cfg_, reps)
 
     c5b_t = tm.Distribution.normal(0.0, 1.0)
     c5b_q = tm.Distribution.normal(0.0, 2.0)
@@ -4557,6 +4663,149 @@ def main() -> int:
         2, m_units, mcmc_batch_bound(x_prog, x_cfg, 2))
     serve_s = time.perf_counter() - t_serve
     print(f"phases 54-59 (the serving handles) took {serve_s:.1f} s")
+
+    # 60-63. The nd and tempered compile_mcmc handles at SHORT_MCMC's
+    # depth with error bars, each phase as phase 59's: one warm call is
+    # one batched chain launch (and one pilot launch), each rep's rows and
+    # final states (and draws) the unbatched launch's, each element of the
+    # handle the unbatched handle's, bit for bit.  An nd batch's bound is
+    # counted on a one-lane build of its group, a tempered one's on its
+    # ladder layout's build, the function's own instructions, as phases 18
+    # and 22 count them (the build that runs beside it); the libraries
+    # these phases add were started with phase 54.
+    t_serve_nd = time.perf_counter()
+    built = [b.result() for b in serving_builds]
+    serving_pool.shutdown()
+    print(f"phase 60: {len(built)} nd libraries (handles and one-lane "
+          f"builds), {min(t for _, t in built):.1f}-"
+          f"{max(t for _, t in built):.1f} s each, waited "
+          f"{time.perf_counter() - t_serve_nd:.1f} s for the last (started "
+          "with phase 54)")
+    serving["mcmc_nd"], serving["mcmc_pt"] = {}, {}
+    b_seeds = k8_seeds[:4]
+
+    def nd_batch_launches(prog_, cfg_, rows_, seeds_, tabs_=None):
+        words_ = words(seeds_)
+
+        def outs(o):
+            return (o.rows, o.x_final) + (() if o.samples is None
+                                          else (o.samples,))
+
+        def batch():
+            return outs(mcmc_nd_batch(prog_, cfg_, rows_, words_, m_grid,
+                                      tabs_))
+
+        def one(r):
+            return outs(mcmc_nd_cuda(prog_, cfg_, rows_[r] if rows_.dim() == 3
+                                     else rows_, seeds_[r], m_grid, tabs_))
+
+        return batch, one
+
+    def nd_batch_bound(prog_, cfg_, reps):
+        return lane_bound(prog_.library(), prog_.layout.lanes,
+                          nd_one_lane(prog_, cfg_).library, "mcmc_nd_kernel",
+                          cfg_.d + 1, cfg_, reps)
+
+    def nd_serving_phase(phase, key, label, fns_, target_, proposal_, prog_,
+                         cfg_, params_, reps, **kw):
+        one_h = serve.compile_mcmc(fns_, target_, proposal_,
+                                   return_stderr=True, **kw, **short)
+        serving["mcmc_nd"][key] = batch_phase(
+            phase, label, mcmc_nd_cuda, mcmc_counters,
+            serve.compile_mcmc(fns_, target_, proposal_, seed_batch=reps,
+                               return_stderr=True, **kw, **short),
+            (b_seeds[:reps],), lambda r: one_h(b_seeds[r]),
+            *nd_batch_launches(prog_, cfg_, params_, b_seeds[:reps]),
+            reps, m_units, nd_batch_bound(prog_, cfg_, reps))
+
+    depth = (f"{m_grid.chains_actual} x ({short['n_burnin']} + "
+             f"{short['n_steps']}), error bars")
+    for name in ("c9e", "c9d"):
+        fns_, target_, proposal_, _ = nd_mcmc_cells[name]
+        nd_serving_phase(
+            "60", f"{name}_seed_batch", f"{name}, {depth}, seed_batch=4",
+            fns_, target_, proposal_, *nd_serving_setups[name], 4)
+    nd_serving_phase(
+        "61", "c9e_draws_seed_batch",
+        f"c9e, {depth}, {SERVING_DRAWS} draws, seed_batch=4", c9e_fns,
+        c9e_joint, c9e_proposal, *nd_serving_setups["c9e_draws"], 4,
+        return_samples=SERVING_DRAWS)
+
+    # 62. c9d's set over four rows: targets N(m, s) x N(m', s') under
+    # N(0, s_q)^2 proposals, and under adaptive walks.
+    t_pack_nd = tm.pack_param_batch_nd(row_targets)
+    for key, label, props_, pack_ in (
+            ("param_batch", "four pack_param_batch_nd rows of targets and "
+             "proposals", row_props, tm.pack_param_batch_nd(row_props)),
+            ("walk_param_batch", "four targets x four adaptive walks "
+             "(pack_random_walk_batch_nd)", row_walks,
+             tm.pack_random_walk_batch_nd(row_walks, row_targets))):
+        prop_rows = np.asarray(pack_)
+        if prop_rows.shape[-1] == 2:
+            prop_rows = np.concatenate([prop_rows, np.zeros_like(prop_rows)],
+                                       axis=-1)
+        rows_ = torch.tensor(np.concatenate([prop_rows, np.asarray(t_pack_nd)],
+                                            axis=-1), device=dev)
+        prog_, cfg_, _ = nd_serving_setups[key]
+        serving["mcmc_nd"][key] = batch_phase(
+            "62", f"c9d's set, {label}, {depth}", mcmc_nd_cuda, mcmc_counters,
+            serve.compile_mcmc(C9D_FNS, row_targets[0], props_[0],
+                               seed_batch=4, param_batch=True,
+                               return_stderr=True, **short),
+            (b_seeds, t_pack_nd, pack_),
+            lambda r, p=props_: serve.compile_mcmc(
+                C9D_FNS, row_targets[r], p[r], return_stderr=True,
+                **short)(b_seeds[r]),
+            *nd_batch_launches(prog_, cfg_, rows_, b_seeds),
+            4, m_units, nd_batch_bound(prog_, cfg_, 4))
+
+    # 63. The tempered handles, seed_batch=2: c12, c12b, c12c, c12d.
+    c12b_cell = HMC_ND_CELLS["c12b"]
+    pt_serving_cells = {
+        "c12": (PT_FNS, logmix, c12_walk, PT_LADDER),
+        "c12b": (c12b_cell["fns"], c12b_cell["target"](),
+                 tm.HMC(**c12b_cell["hmc"]), c12b_cell["temps"]),
+        "c12c": (PT_FNS, logmix, n06, PT_LADDER),
+        "c12d": (C12D_FNS, c5_target, c12d_proposal, PT_LADDER),
+    }
+    for name, (fns_, target_, proposal_, temps_) in pt_serving_cells.items():
+        parsed_ = integ._parse_nd_mcmc_args(target_, proposal_)
+        prog_, cfg_, params_, ladder_ = pt_setup(
+            fns_, target_, proposal_, temps_, short["n_steps"],
+            short["n_burnin"], True)
+        tabs_ = nd_dim_tables(parsed_[0], parsed_[1], parsed_[3], dev)
+        words_ = words(b_seeds[:2])
+
+        def pt_batch(p=prog_, c=cfg_, q=params_, lad=ladder_, t=tabs_,
+                     w=words_):
+            o = mcmc_pt_batch(p, c, q, lad, w, m_grid, t)
+            return o.rows, o.x_final
+
+        def pt_one(r, p=prog_, c=cfg_, q=params_, lad=ladder_, t=tabs_):
+            o = mcmc_pt_cuda(p, c, q, lad, b_seeds[r], m_grid, t)
+            return o.rows, o.x_final
+
+        one_h = serve.compile_mcmc(fns_, target_, proposal_,
+                                   temperatures=temps_, return_stderr=True,
+                                   **short)
+        ladder_lib = McmcPtProgram(prog_.fns, cfg_, prog_.target,
+                                   layout=LADDER_LAYOUT).library()
+        rungs = cfg_.n_temps
+        serving["mcmc_pt"][f"{name}_seed_batch"] = batch_phase(
+            "63", f"{name}, {rungs} rungs, {depth}, seed_batch=2",
+            mcmc_pt_cuda, mcmc_counters,
+            serve.compile_mcmc(fns_, target_, proposal_, temperatures=temps_,
+                               seed_batch=2, return_stderr=True, **short),
+            (b_seeds[:2],), lambda r, h=one_h: h(b_seeds[r]), pt_batch,
+            pt_one, 2, m_units * rungs,
+            chain_batch_bound(
+                (ladder_lib, 1), None, "mcmc_pt_kernel",
+                rungs * (cfg_.d + 1) + (rungs - 1) // 2, cfg_, 2,
+                prog_.layout.rung_lanes * prog_.layout.lanes, rungs))
+        serving["mcmc_pt"][f"{name}_seed_batch"]["layout"] = list(
+            prog_.layout)
+    print(f"phases 60-63 (the nd and tempered handles) took "
+          f"{time.perf_counter() - t_serve_nd:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "integrate",
@@ -4664,6 +4913,7 @@ def main() -> int:
         "outputs": outputs["mcmc_nd"],
         "state": state["c9e"],
         "hmc": {"c11b": hmc_nd["c11b"]},
+        "batch": serving["mcmc_nd"],
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -4690,6 +4940,7 @@ def main() -> int:
                      "parity": parity},
         "outputs": outputs["mcmc_pt"],
         "hmc": {"c12b": hmc_nd["c12b"]},
+        "batch": serving["mcmc_pt"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

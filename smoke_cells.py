@@ -351,3 +351,15 @@ def wide_gap(tm):
     x = np.linspace(-6.0, 6.0, 2048)
     return tm.Distribution.from_pdf_table(
         x, np.where(np.abs(x) < 1.0, 0.0, np.exp(-0.1 * x * x)))
+
+
+# The nd and tempered serving handles (phases 60-63) at SHORT_MCMC's
+# depth with error bars: c9e's handle with SERVING_DRAWS thinned draws;
+# four rows of c9d's product target N(m, s) x N(m', s'), each under its
+# own N(0, s_q)^2 proposal (pack_param_batch_nd) or its own adaptive walk
+# (pack_random_walk_batch_nd), for posterior and step-size sweeps.
+SERVING_DRAWS = 300
+ND_SERVING_TARGETS = [[(0.0, 1.0), (0.0, 1.0)], [(0.5, 1.5), (-0.5, 1.0)],
+                      [(1.0, 0.5), (0.25, 2.0)], [(-1.0, 1.0), (1.0, 0.75)]]
+ND_SERVING_PROPOSALS = [2.0, 2.5, 1.5, 3.0]  # s_q of N(0, s_q) per dimension
+ND_SERVING_STEPS = [(0.8, 0.8), (1.2, 0.9), (0.5, 1.6), (1.0, 0.7)]

@@ -2173,20 +2173,22 @@ def output_libraries():
 def _guard_draw_buffers(monkeypatch) -> list:
     """Makes the three wrappers' draws' buffers the first m rows of ones
     OUT_GUARD rows longer, filled with _SENTINEL; returns the list to which
-    each whole buffer is added."""
-    from tpu_montecarlo_torch.ops import mcmc_kernel, mcmc_nd_kernel, mcmc_pt_kernel
+    each whole buffer is added.  (The nd and tempered wrappers share the
+    nd module's launch.)"""
+    from tpu_montecarlo_torch.ops import mcmc_kernel, mcmc_nd_kernel
 
     whole = []
 
-    def guarded(cfg, shape, dev):
+    def guarded(cfg, shape, dev, lead=()):
         if not cfg.samples:
             return None
+        assert not lead, "the guard takes one job's draws"
         buf = torch.full((cfg.samples + OUT_GUARD, *shape), _SENTINEL,
                          dtype=torch.float32, device=dev)
         whole.append(buf)
         return buf[:cfg.samples]
 
-    for mod in (mcmc_kernel, mcmc_nd_kernel, mcmc_pt_kernel):
+    for mod in (mcmc_kernel, mcmc_nd_kernel):
         monkeypatch.setattr(mod, "sample_buffer", guarded)
     return whole
 
@@ -2908,3 +2910,273 @@ def test_handles_on_the_card(cuda_device):
                                return_stderr=True)(BATCH_SEEDS[r])
         for g, o in zip(got, one):
             assert torch.equal(g[r], o)
+
+
+# The nd and tempered kernels' batch axis.  Each rep of a batched launch
+# is its unbatched launch, bit for bit (rows, final states, draws and the
+# finished values, acceptance, swap rate and error bars), for R = 1, 2,
+# 4 and 7 seeds, with one parameter row for every rep or one a rep; one
+# chain launch (and one pilot launch under error bars) a batch.  The last
+# rep is held against the plain version, chain for chain, at the
+# tolerances of _check_nd_mcmc and _check_pt.
+R_SEEDS = [7, 42, 2**32 - 5, 11, 12345, 3, 99]
+BATCH_STEPS = dict(n_steps=200, n_burnin=50)
+
+
+def _hmc_walk(**kw):
+    return tm.HMC(step_size=0.3, n_leapfrog=3, init_range=(-2.0, 2.0), **kw)
+
+
+# id: (target, proposal (a maker), stderr, draws, a row per rep)
+ND_MCMC_BATCH = {
+    "independence-product-params-stderr": (
+        [tm.Distribution.normal(0.5, 1.5), tm.Distribution.exponential(1.5)],
+        lambda: [tm.Distribution.normal(0.0, 3.0),
+                 tm.Distribution.exponential(1.0)], True, 0, True),
+    "independence-joint-stderr-draws": (
+        _c9e_target, lambda: [tm.Distribution.normal(0.0, 2.0)] * 2, True, 8,
+        False),
+    "adaptive-walk-product-params-stderr": (
+        [tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.normal(0.0, 1.0)],
+        lambda: tm.RandomWalk(step_size=[0.5, 1.5], adapt=True), True, 0,
+        True),
+    "walk-joint-draws": (_c9e_target, lambda: tm.RandomWalk(**_WALK), False,
+                         8, False),
+    "hmc-joint-stderr": (_c9e_target, _hmc_walk, True, 0, False),
+    "custom-product-stderr": (
+        [tm.Distribution.beta(2.0, 5.0), tm.Distribution.normal(0.0, 1.0)],
+        lambda: [tm.Distribution.uniform(0.0, 1.0),
+                 tm.Distribution.normal(0.0, 2.0)], True, 0, False),
+}
+
+
+def _rep_rows(params, reps):
+    """R parameter rows: the first column (a proposal's first word or a
+    walk's step) and the target's first word moved per rep."""
+    rows = params.expand(reps, *params.shape).clone()
+    for r in range(reps):
+        rows[r, :, 0] *= 1.0 + 0.25 * r
+        rows[r, :, 4] += 0.1 * r
+    return rows
+
+
+def _same(got, want):
+    assert got is None and want is None or torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 2, 4, 7])
+@pytest.mark.parametrize("case", list(ND_MCMC_BATCH))
+def test_mcmc_nd_batch_is_its_unbatched_launches(cuda_device, case, reps):
+    from tpu_montecarlo_torch.api.mcmc_nd import dim_tables
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import (
+        mcmc_nd_batch,
+        mcmc_nd_cuda,
+        mcmc_nd_reference,
+    )
+    from tpu_montecarlo_torch.ops.mcmc_kernel import mcmc_batch_finish
+
+    target, proposal, stderr, draws, per_rep = ND_MCMC_BATCH[case]
+    integ = tm.MonteCarloIntegrator(device=cuda_device)
+    target = target() if callable(target) else target
+    parsed = integ._parse_nd_mcmc_args(target, proposal())
+    fns = ND_MCMC_FNS[parsed[3]]
+    program, cfg, params = integ._nd_mcmc_kernel_program(
+        fns, proposal(), parsed, BATCH_STEPS["n_steps"],
+        BATCH_STEPS["n_burnin"], stderr, samples=draws)
+    tables = dim_tables(parsed[0], parsed[1], parsed[3], cuda_device)
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    rows = _rep_rows(params, reps) if per_rep else params
+    seeds = _seed_words(cuda_device, R_SEEDS[:reps])
+    before = (mcmc_nd_cuda.launches, mcmc_nd_cuda.batch_launches,
+              mcmc_nd_cuda.pilot_launches)
+    out = mcmc_nd_batch(program, cfg, rows, seeds, grid, tables)
+    assert (mcmc_nd_cuda.launches, mcmc_nd_cuda.batch_launches,
+            mcmc_nd_cuda.pilot_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(stderr))
+    k = len(program.fns)
+    finished = mcmc_batch_finish(out, grid, cfg, k)
+    for r, seed in enumerate(R_SEEDS[:reps]):
+        row = rows[r] if per_rep else params
+        one = mcmc_nd_cuda(program, cfg, row, seed, grid, tables)
+        assert torch.equal(out.rows[r], one.rows)
+        assert torch.equal(out.x_final[r], one.x_final)
+        _same(None if out.samples is None else out.samples[r], one.samples)
+        for got, want in zip(finished, mcmc_finish(one, grid, cfg, k)):
+            _same(None if got is None else got[r], want)
+    want = mcmc_nd_reference(program.torch_fns, program.torch_target, cfg,
+                             row, R_SEEDS[reps - 1], grid, tables,
+                             torch_target_grad=program.torch_target_grad)
+    x_k, x_p = out.x_final[-1].cpu(), want.x_final.cpu()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%}"
+    v_p, a_p, _ = mcmc_finish(want, grid, cfg, k)
+    _, _, se = mcmc_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert abs(float(finished[1][-1]) - float(a_p)) <= 1e-3
+    np.testing.assert_array_less(
+        (finished[0][-1] - v_p).abs().cpu().numpy(),
+        (0.2 * se + 1e-6).cpu().numpy())
+
+
+# id: (target, proposal (a maker), temperatures, stderr, d).  The last
+# runs 33 rungs: past 32 rung lanes, on the ladder layout.
+PT_BATCH = {
+    "adaptive-walk-logmix-stderr": (lambda: _logmix,
+                                    lambda: tm.RandomWalk(**_C12_WALK),
+                                    _LADDER4, True, 1),
+    "independence-logmix": (lambda: _logmix,
+                            lambda: tm.Distribution.normal(0.0, 6.0),
+                            _LADDER4, False, 1),
+    "hmc-logmix-stderr": (lambda: _logmix, _hmc_walk, _LADDER4, True, 1),
+    "independence-2d-product-params-stderr": (
+        [tm.Distribution.uniform(-1.0, 2.0), tm.Distribution.exponential(1.5)],
+        lambda: [tm.Distribution.normal(0.5, 1.5),
+                 tm.Distribution.exponential(1.0)], [1.0, 2.5], True, 2),
+    "walk-ladder-T33-stderr": (
+        tm.Distribution.normal(1.0, 2.0),
+        lambda: tm.RandomWalk(step_size=1.0, init_range=(-3.0, 5.0)),
+        [1.0 + 0.25 * t for t in range(33)], True, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 2, 4, 7])
+@pytest.mark.parametrize("case", list(PT_BATCH))
+def test_mcmc_pt_batch_is_its_unbatched_launches(cuda_device, case, reps):
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
+        LADDER_LAYOUT,
+        mcmc_pt_batch,
+        mcmc_pt_cuda,
+        mcmc_pt_reference,
+        pt_batch_finish,
+        pt_finish,
+    )
+
+    target, proposal, temps, stderr, d = PT_BATCH[case]
+    program, cfg, params, ladder = _pt_setup(
+        target, proposal(), temps, stderr, _pt_fns(d), cuda_device,
+        **BATCH_STEPS)
+    if len(temps) > 32:
+        assert program.layout == LADDER_LAYOUT
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    per_rep = "params" in case
+    rows = _rep_rows(params, reps) if per_rep else params
+    seeds = _seed_words(cuda_device, R_SEEDS[:reps])
+    before = (mcmc_pt_cuda.launches, mcmc_pt_cuda.batch_launches,
+              mcmc_pt_cuda.pilot_launches)
+    out = mcmc_pt_batch(program, cfg, rows, ladder, seeds, grid)
+    assert (mcmc_pt_cuda.launches, mcmc_pt_cuda.batch_launches,
+            mcmc_pt_cuda.pilot_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(stderr))
+    k = len(program.fns)
+    finished = pt_batch_finish(out, grid, cfg, k)
+    for r, seed in enumerate(R_SEEDS[:reps]):
+        row = rows[r] if per_rep else params
+        one = mcmc_pt_cuda(program, cfg, row, ladder, seed, grid)
+        assert torch.equal(out.rows[r], one.rows)
+        assert torch.equal(out.x_final[r], one.x_final)
+        for got, want in zip(finished, pt_finish(one, grid, cfg, k)):
+            _same(None if got is None else got[r], want)
+    want = mcmc_pt_reference(program.torch_fns, program.torch_target, cfg,
+                             row, ladder, R_SEEDS[reps - 1], grid, None,
+                             program.torch_target_grad)
+    x_k, x_p = out.x_final[-1].cpu(), want.x_final.cpu()
+    split = ((x_k - x_p).abs() > 1e-3 * (1.0 + x_p.abs())).any(dim=0)
+    assert split.float().mean() <= 0.01, f"{float(split.float().mean()):.2%}"
+    v_p, a_p, w_p, _ = pt_finish(want, grid, cfg, k)
+    _, _, _, se = pt_finish(want, grid, replace(cfg, with_stderr=True), k)
+    assert abs(float(finished[1][-1]) - float(a_p)) <= 1e-3
+    assert abs(float(finished[2][-1]) - float(w_p)) <= 1e-3
+    np.testing.assert_array_less(
+        (finished[0][-1] - v_p).abs().cpu().numpy(),
+        (0.2 * se + 1e-6).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_nd_and_tempered_batch_refusals(cuda_device):
+    """A batch runs stateless chains without diagnostics, a tempered one
+    without draws; the kernels refuse them too (a launch error raises)."""
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_batch
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_batch
+
+    grid = plan_mcmc_grid(plan_chains(4096, None))
+    seeds = _seed_words(cuda_device, R_SEEDS[:2])
+    integ = tm.MonteCarloIntegrator(device=cuda_device)
+    walk = tm.RandomWalk(**_WALK)
+    parsed = integ._parse_nd_mcmc_args(_c9e_target(), walk)
+    program, cfg, params = integ._nd_mcmc_kernel_program(
+        ND_MCMC_FNS[2], walk, parsed, 20, 5, False, with_diagnostics=True)
+    with pytest.raises(ValueError, match="without diagnostics"):
+        mcmc_nd_batch(program, cfg, params, seeds, grid)
+    program, cfg, params, ladder = _pt_setup(
+        lambda: _logmix, tm.RandomWalk(**_C12_WALK), _LADDER4, False,
+        _pt_fns(1), cuda_device, 20, 5)
+    with pytest.raises(ValueError, match="no draws"):
+        mcmc_pt_batch(program, replace(cfg, samples=4), params, ladder, seeds,
+                      grid)
+    lib = program.library()
+    rows = torch.empty((2, 128, 3, 3), device=cuda_device)
+    x = torch.empty((2, 1, 4096), device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for reps, stride in ((0, 0), (65536, 0), (2, 5)):
+        assert lib.tmc_mcmc_pt(0, seeds.data_ptr(), reps, params.data_ptr(),
+                               stride, ladder.data_ptr(), None, 5, 20, 1024,
+                               4096, None, rows.data_ptr(), x.data_ptr(),
+                               None, 0, 0, stream) != 0
+
+
+@pytest.mark.cuda
+def test_nd_and_tempered_handles_on_the_card(cuda_device):
+    """The nd and tempered handles on the card: one chain launch a batch
+    call, a batched element its unbatched call bit for bit, and close to
+    the CPU handle."""
+    from tpu_montecarlo_torch.ops.mcmc_nd_kernel import mcmc_nd_cuda
+    from tpu_montecarlo_torch.ops.mcmc_pt_kernel import mcmc_pt_cuda
+
+    gpu = tm.MonteCarloIntegrator()
+    cpu = tm.MonteCarloIntegrator(device="cpu")
+    kw = dict(n_steps=300, n_chains=4096, n_burnin=100, return_stderr=True)
+    n = tm.Distribution.normal
+    fns = ND_MCMC_FNS[2]
+    targets = [[n(0.5 * r, 1.0), n(1.0, 1.0 + r)] for r in range(3)]
+    walks = [tm.RandomWalk(step_size=[0.5 + 0.25 * r, 1.0], adapt=True)
+             for r in range(3)]
+    cases = [
+        ("nd seeds", gpu.compile_mcmc(fns, _c9e_target(), [n(0.0, 2.0)] * 2,
+                                      seed_batch=3, return_samples=5, **kw),
+         lambda r: gpu.compile_mcmc(fns, _c9e_target(), [n(0.0, 2.0)] * 2,
+                                    return_samples=5, **kw)(R_SEEDS[r]),
+         (R_SEEDS[:3],), mcmc_nd_cuda),
+        ("nd walks", gpu.compile_mcmc(fns, targets[0], walks[0], seed_batch=3,
+                                      param_batch=True, **kw),
+         lambda r: gpu.compile_mcmc(fns, targets[r], walks[r],
+                                    **kw)(R_SEEDS[r]),
+         (R_SEEDS[:3], tm.pack_param_batch_nd(targets),
+          tm.pack_random_walk_batch_nd(walks, targets)), mcmc_nd_cuda),
+        ("tempered", gpu.compile_mcmc(ND_MCMC_FNS[1], _logmix,
+                                      tm.RandomWalk(**_C12_WALK),
+                                      temperatures=_LADDER4, seed_batch=3,
+                                      **kw),
+         lambda r: gpu.compile_mcmc(ND_MCMC_FNS[1], _logmix,
+                                    tm.RandomWalk(**_C12_WALK),
+                                    temperatures=_LADDER4, **kw)(R_SEEDS[r]),
+         (R_SEEDS[:3],), mcmc_pt_cuda),
+    ]
+    for name, prog, one, args, wrapper in cases:
+        before = (wrapper.launches, wrapper.batch_launches)
+        got = prog(*args)
+        assert (wrapper.launches, wrapper.batch_launches) == (
+            before[0] + 1, before[1] + 1), name
+        assert got[0].device.type == "cuda"
+        for r in range(3):
+            want = one(r)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert torch.equal(g[r], w), name
+    got = cases[2][1](R_SEEDS[:3])
+    want = cpu.compile_mcmc(ND_MCMC_FNS[1], _logmix,
+                            tm.RandomWalk(**_C12_WALK), temperatures=_LADDER4,
+                            seed_batch=3, **kw)(R_SEEDS[:3])
+    np.testing.assert_array_less(
+        (got[0].cpu() - want[0]).abs().numpy(),
+        (0.2 * want[3] + 1e-6).numpy())

@@ -486,12 +486,13 @@ def test_family_features_of_later_items_still_raise():
     integ = tm.MonteCarloIntegrator(device="cpu")
     w = tm.Distribution.weibull(1.5, 2.0)
     c = tm.Distribution.cauchy(0.0, 1.0)
+    wide1 = [(lambda k: lambda x: x + k)(float(k)) for k in range(127)]
+    wide2 = [(lambda k: lambda x, y: x + k)(float(k)) for k in range(128)]
     cases = {
-        r"item 8\.6 ": lambda: integ.compile_mcmc([lambda x, y: x], [c, w],
-                                                  [w, w], seed_batch=2),
+        r"item 8\.8 ": lambda: integ.compile_mcmc(wide2, [c, w], [w, w],
+                                                  seed_batch=2),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], w),
-        r"item 9\.5 ": lambda: integ.compile_mcmc([lambda x: x], c, w,
-                                                  seed_batch=2,
+        r"item 9\.7 ": lambda: integ.compile_mcmc(wide1, c, w, seed_batch=2,
                                                   temperatures=[1.0, 2.0]),
     }
     for item, case in cases.items():

@@ -411,26 +411,30 @@ def _call(**kwargs):
 
 
 NOT_PORTED = {
-    # The 1-D handle runs (tests/test_torch_serving_mcmc.py); the nd one
-    # not yet.
+    # The 1-D, nd and tempered handles run
+    # (tests/test_torch_serving_mcmc*.py, test_torch_serving_tempering.py);
+    # over more than 127 functions not yet.
     "compile_mcmc": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
-            [lambda x, y: x], [_T, _T], [_Q, _Q], seed_batch=4
+            [(lambda c: lambda x, y: x + c)(float(c)) for c in range(128)],
+            [_T, _T], [_Q, _Q], seed_batch=4
         ),
-        r"item 8\.6",
+        r"item 8\.8",
     ),
     "128-functions": (
         lambda: _call(fns=[f for c in range(128) for f in _make_fns(float(c))]),
         r"item 6\.7",
     ),
     # Extended families run (tests/test_torch_families_kernels.py), and
-    # so do their seed batches; tempered handles not yet.
+    # so do their seed batches, tempered too; over more than 126
+    # functions not yet.
     "extended-family": (
         lambda: tm.MonteCarloIntegrator(device="cpu").compile_mcmc(
-            [lambda x: x], tm.Distribution.cauchy(0.0, 1.0), _Q, seed_batch=4,
+            [(lambda c: lambda x: x + c)(float(c)) for c in range(127)],
+            tm.Distribution.cauchy(0.0, 1.0), _Q, seed_batch=4,
             temperatures=[1.0, 2.0]
         ),
-        r"item 9\.5",
+        r"item 9\.7",
     ),
     "mesh": (lambda: tm.integrate_mcmc([lambda x: x], _T, _Q, mesh="auto"),
              "item 12"),

@@ -496,7 +496,8 @@ def test_out_of_scope_options_name_their_roadmap_items():
 
     cases = {
         r"item 8\.9 ": lambda: run(proposal=(n, heavy)),
-        r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [n, n], [n, n], seed_batch=2),
+        r"item 8\.8 \(nd MCMC over more than 127 functions\)": (
+            lambda: integ.compile_mcmc(wide, [n, n], [n, n], seed_batch=2)),
         r"item 8\.8 ": lambda: run(fns=wide),
         r"item 3 ": lambda: integ.integrate_mcmc(
             f2, "fn f(x: f32, y: f32) -> f32 { return -x * x; }",

@@ -479,16 +479,17 @@ def test_out_of_scope_options_name_their_roadmap_items():
     u = tm.Distribution.uniform(0.0, 1.0)
     f2 = [lambda x, y: x * y]
     wide = [_plus(float(c)) for c in range(129)]
+    wide1 = [(lambda c: lambda x: x + c)(float(c)) for c in range(127)]
     # A density with a while loop: the JAX package traces it; the port's
     # front end names item 3 rather than take the PDF-table fallback.
     untraceable = tm.Distribution(tm.DistributionType.CUSTOM, {}, _while_pdf)
     cases = {
-        r"item 8\.6 ": lambda: integ.compile_mcmc(f2, [u, u], [u, u], seed_batch=4),
+        r"item 8\.8 ": lambda: integ.compile_mcmc(wide, [u, u], [u, u], seed_batch=4),
         r"item 7\.5 ": lambda: integ.integrate(f2, [u, u], control_variates=[(f2[0], 0.25)]),
         r"item 7\.5 \(nd control variates and expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),
         r"item 7\.6 ": lambda: integ.integrate(wide, [u, u], n_samples=1000),
         r"item 12 ": lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
-        r"item 9\.5 ": lambda: integ.compile_mcmc([lambda x: x], u, u,
+        r"item 9\.7 ": lambda: integ.compile_mcmc(wide1, u, u,
                                                   temperatures=[1.0, 2.0]),
         r"item 3 ": lambda: integ.integrate_importance_sampling([lambda x: x], untraceable, u),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], u),

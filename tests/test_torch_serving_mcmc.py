@@ -263,13 +263,23 @@ def test_refusals_match_jax(case):
 
 
 def test_later_slices_still_raise():
+    """What the handles leave for later items: more than 127/126
+    functions, WGSL source strings, a mesh."""
     integ = _port()
     n = _n(tm, 0, 1)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.6 "):
-        integ.compile_mcmc([lambda x, y: x], [n, n], [n, n], seed_batch=2, **KW)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.6 "):
-        integ.compile_mcmc([lambda x, y: x], lambda x, y: -x * x - y * y,
-                           tm.RandomWalk(init_range=(-1.0, 1.0)), **KW)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 9\.5 "):
-        integ.compile_mcmc(FNS, n, tm.RandomWalk(), temperatures=[1.0, 2.0],
+    wide1 = [(lambda c: lambda x: x + c)(float(c)) for c in range(128)]
+    wide2 = [(lambda c: lambda x, y: x + c)(float(c)) for c in range(128)]
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 6\.7 "):
+        integ.compile_mcmc(wide1, n, n, seed_batch=2, **KW)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.8 "):
+        integ.compile_mcmc(wide2, [n, n], [n, n], seed_batch=2, **KW)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 9\.7 "):
+        integ.compile_mcmc(wide1[:127], n, tm.RandomWalk(),
+                           temperatures=[1.0, 2.0], seed_batch=2, **KW)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 3 "):
+        integ.compile_mcmc([lambda x, y: x],
+                           "fn f(x: f32, y: f32) -> f32 { return -x * x; }",
+                           tm.RandomWalk(init_range=(-1.0, 1.0)),
                            seed_batch=2, **KW)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 12 "):
+        tm.MonteCarloIntegrator(device="cpu", mesh="auto")

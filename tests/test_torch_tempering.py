@@ -467,18 +467,17 @@ def _not_ported_cases():
             temperatures=[1.0, 2.0], **extra,
         )
 
+    # id: the call, whose error names the item the id starts with.
     return {
         r"item 9\.8 ": lambda: run(proposal=gapped),
         r"item 9\.8 \(tempering over the CUSTOM dimensions": (
             lambda: run(proposal=heavy)),
-        r"item 9\.5 ": lambda: integ.compile_mcmc(
-            FNS1, logmix, walk, temperatures=[1.0, 2.0], seed_batch=4),
-        # Extended families run (tests/test_torch_families_kernels.py);
-        # their parameter batches not yet.
-        r"item 9\.5 \(tempered compile_mcmc, seed_batch and param_batch\)": (
-            lambda: integ.compile_mcmc(FNS2[:1], [n, cauchy], [n, n],
-                                       temperatures=[1.0, 2.0],
-                                       param_batch=[cauchy, cauchy])),
+        r"item 9\.7 \(tempering over more than 126 functions\)": (
+            lambda: integ.compile_mcmc(wide, logmix, walk,
+                                       temperatures=[1.0, 2.0], seed_batch=4)),
+        r"item 3 \(integrand front end\)": lambda: integ.compile_mcmc(
+            FNS2[:1], "fn f(x: f32, y: f32) -> f32 { return -x * x; }",
+            [n, cauchy], temperatures=[1.0, 2.0], seed_batch=4),
         r"item 9\.7 ": lambda: run(fns=wide),
     }
 

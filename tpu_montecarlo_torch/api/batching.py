@@ -3,8 +3,9 @@ the ``pack_*`` functions users feed param-batched handles, and the checks
 and staging of a handle's ``(seeds, params...)`` arguments.
 
 A batch of R jobs rides the batch axis of the kernel it runs in (the 1-D
-and nd integrate kernels, the 1-D MCMC kernel): one launch, and element
-r equal bit for bit to the unbatched call with ``seeds[r]`` (and row r).
+and nd integrate kernels, the 1-D, nd and tempered MCMC kernels): one
+launch, and element r equal bit for bit to the unbatched call with
+``seeds[r]`` (and row r).
 The port has no XLA route, so the JAX package's ``lax.map`` adapters have
 no counterpart here."""
 
@@ -134,6 +135,26 @@ def _checked_batch_prog(dispatch, seed_batch, n_param_args, param_kinds,
         return dispatch(seeds_t, params_t)
 
     return prog
+
+
+def _check_random_walk_args(
+    rw: RandomWalk, n_burnin: int, stateful: bool
+) -> None:
+    """``tpu_montecarlo/api/batching.py:55``: adaptation happens during
+    burn-in, so it needs one, and its per-chain steps are not checkpointed,
+    so adaptive runs are stateless."""
+    name = type(rw).__name__
+    if rw.adapt and n_burnin <= 0:
+        raise ValueError(
+            f"{name}(adapt=True) tunes the step during burn-in; "
+            "pass n_burnin > 0 (or a fixed step_size with adapt=False)"
+        )
+    if rw.adapt and stateful:
+        raise ValueError(
+            f"{name}(adapt=True) is stateless-only: the adapted "
+            "per-chain steps are not part of the checkpoint state.  "
+            "Resume with a fixed step_size (adapt=False) instead"
+        )
 
 
 def _param_kind_name(kind) -> str:

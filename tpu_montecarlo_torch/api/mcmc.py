@@ -1,11 +1,11 @@
 """MCMC (port of the Pallas paths of ``tpu_montecarlo/api/mcmc.py``):
 ``integrate_mcmc`` with independence, random-walk and adaptive
-random-walk proposals, with error bars on request, and the 1-D
-``compile_mcmc`` serving handle with seed and param batches, over one dimension
-(``ops/mcmc_kernel.py``, HMC too) or d (``api/mcmc_nd.py``), with chain
-state to resume from over either, and tempered over a ladder of
-temperatures (``api/tempering.py``), under the closed-form families and
-CUSTOM tables (``api/device.py`` stages them).
+random-walk proposals, with error bars on request, and the
+``compile_mcmc`` serving handle with seed and param batches, over one
+dimension (``ops/mcmc_kernel.py``, HMC too) or d (``api/mcmc_nd.py``),
+with chain state to resume from over either, and tempered over a ladder
+of temperatures (``api/tempering.py``), under the closed-form families
+and CUSTOM tables (``api/device.py`` stages them).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
@@ -34,39 +34,17 @@ from ..ops.mcmc_kernel import (
     plan_mcmc_grid,
 )
 from ..sampling import dist_spec_of, ensure_param_batch_family
-from ..utils.roadmap import (
-    MCMC_TABLES_XLA,
-    MCMC_WIDE,
-    ND_MCMC_SERVING,
-    PT_SERVING,
-    not_ported,
+from ..utils.roadmap import MCMC_TABLES_XLA, MCMC_WIDE, not_ported
+from .batching import (
+    _check_random_walk_args,
+    _checked_batch_prog,
+    stage_seeds,
 )
-from .batching import _checked_batch_prog, stage_seeds
 from .cache import fns_key
 from .device import mcmc_dim_tables
 from .mcmc_nd import _table_routes, hmc_leapfrog, is_nd_call
 from .mcmc_result import mcmc_result, with_chain_state
 from .results import IntegrationResult
-
-
-def _check_random_walk_args(
-    rw: RandomWalk, n_burnin: int, stateful: bool
-) -> None:
-    """``tpu_montecarlo/api/batching.py:55``: adaptation happens during
-    burn-in, so it needs one, and its per-chain steps are not checkpointed,
-    so adaptive runs are stateless."""
-    name = type(rw).__name__
-    if rw.adapt and n_burnin <= 0:
-        raise ValueError(
-            f"{name}(adapt=True) tunes the step during burn-in; "
-            "pass n_burnin > 0 (or a fixed step_size with adapt=False)"
-        )
-    if rw.adapt and stateful:
-        raise ValueError(
-            f"{name}(adapt=True) is stateless-only: the adapted "
-            "per-chain steps are not part of the checkpoint state.  "
-            "Resume with a fixed step_size (adapt=False) instead"
-        )
 
 
 class _McmcMixin:
@@ -269,10 +247,10 @@ class _McmcMixin:
         return_samples: Optional[int] = None,
     ) -> Callable:
         """Ahead-of-time MCMC handle for serving (the JAX package's
-        ``compile_mcmc``) over a 1-D target: the trace, the program, the
-        parameter row, the tables and the kernel's library are made once,
-        here; a call stages its seeds (and params) and launches.  The
-        handle returns float32 tensors on the integrator's device.
+        ``compile_mcmc``): the trace, the program, the parameter rows, the
+        tables and the kernel's library are made once, here; a call stages
+        its seeds (and params) and launches.  The handle returns float32
+        tensors on the integrator's device.
 
         ``prog(seed) -> (values (K,), acceptance ())``; with
         ``seed_batch=R``, ``prog(seeds) -> ((R, K), (R,))``: R jobs in one
@@ -288,8 +266,15 @@ class _McmcMixin:
         proposal slot; results keep the batch axis at R = 1.  Closed-form
         families only.
 
-        nd targets or proposals and ``temperatures`` are not ported yet
-        and raise ``NotImplementedError`` naming their ROADMAP items."""
+        nd targets or proposals (``api/mcmc_nd.py``): the same handles,
+        the draws (m, chains, d) or (R, m, chains, d), and under
+        ``param_batch`` (R, d, 2) rows of :func:`pack_param_batch_nd` for
+        a product target and the proposal, or (R, d, 4) walk rows of
+        :func:`pack_random_walk_batch_nd` (no draws).  ``temperatures``
+        (``api/tempering.py``): ``prog(seed) -> (values (K,), acceptance
+        (), swap_rate ())``, ``prog(seeds) -> ((R, K), (R,), (R,))``, with
+        the error bars appended; no param batches or draws.  Each batch
+        is one launch of its kernel."""
         if len(functions) == 0:
             raise ValueError("At least one function is required")
         if n_steps <= 0:
@@ -313,16 +298,22 @@ class _McmcMixin:
                     "integrate_mcmc)"
                 )
         if temperatures is not None:
-            raise not_ported("compile_mcmc, seed_batch and param_batch with "
-                             "temperatures", PT_SERVING)
+            return self._compile_mcmc_pt(
+                functions, target_distribution, proposal_distribution,
+                temperatures, n_steps, n_chains, n_burnin, seed_batch,
+                param_batch, return_stderr,
+            )
         if is_nd_call(target_distribution, proposal_distribution):
             if m_samp and param_batch:
                 raise ValueError(
                     "compile_mcmc(return_samples=...) does not compose "
                     "with nd param_batch"
                 )
-            raise not_ported("compile_mcmc, seed_batch and param_batch for "
-                             "nd MCMC", ND_MCMC_SERVING)
+            return self._compile_mcmc_nd(
+                functions, target_distribution, proposal_distribution,
+                n_steps, n_chains, n_burnin, seed_batch, param_batch,
+                return_stderr, return_samples=m_samp,
+            )
         random_walk = isinstance(proposal_distribution, RandomWalk)
         if random_walk:
             _check_random_walk_args(proposal_distribution, n_burnin, False)

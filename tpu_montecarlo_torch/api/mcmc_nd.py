@@ -1,8 +1,9 @@
-"""Multi-dimensional MCMC (port of ``tpu_montecarlo/api/mcmc_nd.py:74-562``
-and ``api/batching.py:17-52``): argument parsing (a product of
-per-dimension Distributions or a joint log density of d arguments, under
-per-dimension independence proposals or a :class:`RandomWalk`) and the
-run on the nd kernel (``ops/mcmc_nd_kernel.py``).
+"""Multi-dimensional MCMC (port of ``tpu_montecarlo/api/mcmc_nd.py:74-562``,
+``:710-819`` and ``api/batching.py:17-52``): argument parsing (a product
+of per-dimension Distributions or a joint log density of d arguments,
+under per-dimension independence proposals or a :class:`RandomWalk`),
+the run and the nd ``compile_mcmc`` handle with seed and param batches,
+on the nd kernel (``ops/mcmc_nd_kernel.py``).
 
 The JAX package sends nd work its kernel cannot take, and all of it off
 the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
@@ -24,16 +25,28 @@ from ..distributions import HMC, Distribution, RandomWalk
 from ..ops.mcmc_kernel import (
     MAX_FUNCTIONS,
     Mode,
+    mcmc_batch_finish,
+    mcmc_finish,
     plan_chains,
     plan_mcmc_grid,
 )
-from ..ops.mcmc_nd_kernel import McmcNdConfig, McmcNdProgram, mcmc_nd_cuda
-from ..sampling import DistKind, dist_spec_of
+from ..ops.mcmc_nd_kernel import (
+    McmcNdConfig,
+    McmcNdProgram,
+    mcmc_nd_batch,
+    mcmc_nd_cuda,
+)
+from ..sampling import DistKind, dist_spec_of, ensure_param_batch_family
 from ..utils.roadmap import (
     FRONT_END,
     ND_MCMC_TABLES_XLA,
     ND_MCMC_WIDE,
     not_ported,
+)
+from .batching import (
+    _check_nd_mcmc_params,
+    _check_random_walk_args,
+    stage_seeds,
 )
 from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
@@ -237,6 +250,98 @@ class _McmcNdMixin:
         return with_chain_state(
             mcmc_result(out, grid, cfg, len(functions), n_chains), out,
             segment, return_state)
+
+    def _compile_mcmc_nd(
+        self, functions, target, proposal, n_steps, n_chains, n_burnin,
+        seed_batch, param_batch, return_stderr, return_samples=0,
+    ):
+        """The nd serving handle (``tpu_montecarlo/api/mcmc_nd.py:
+        710-819``): ``prog(seed) -> ((K,), acceptance[, (K,) stderr][, (m,
+        chains, d) draws])``, with ``seed_batch=R`` ``prog(seeds)`` and a
+        leading R axis; ``param_batch=True`` (a product target):
+        ``prog(seeds, target_params, proposal_params)`` with (R, d, 2)
+        rows (:func:`pack_param_batch_nd`), or (R, d, 4) walk rows
+        (:func:`pack_random_walk_batch_nd`) in the proposal slot.  The R
+        jobs run in one launch of the nd kernel (plus one pilot launch
+        under error bars), each equal bit for bit to the unbatched call
+        with its seed and rows.  A 1-D product is the 1-D handle."""
+        parsed = self._parse_nd_mcmc_args(target, proposal)
+        proposals, targets, target_fn, d = parsed
+        if d == 1 and target_fn is None:
+            return self.compile_mcmc(
+                functions, targets[0],
+                proposal if proposals is None else proposals[0],
+                n_steps=n_steps, n_chains=n_chains, n_burnin=n_burnin,
+                seed_batch=seed_batch, param_batch=param_batch,
+                return_stderr=return_stderr,
+                return_samples=return_samples or None,
+            )
+        if param_batch and target_fn is not None:
+            raise ValueError(
+                "param_batch needs a product-of-Distributions target "
+                "(a joint log-density function carries no runtime "
+                "parameters)"
+            )
+        random_walk = proposals is None
+        if random_walk:
+            _check_random_walk_args(proposal, n_burnin, False)
+        prop_kinds = (() if random_walk
+                      else tuple(dist_spec_of(p).kind for p in proposals))
+        targ_kinds = (None if target_fn is not None
+                      else tuple(dist_spec_of(t).kind for t in targets))
+        if param_batch:
+            for kind in prop_kinds:
+                ensure_param_batch_family(kind, "proposal")
+            for kind in targ_kinds:
+                ensure_param_batch_family(kind, "target")
+        if seed_batch < 1:
+            raise ValueError("seed_batch must be >= 1")
+        program, cfg, params = self._nd_mcmc_kernel_program(
+            functions, proposal, parsed, n_steps, n_burnin, return_stderr,
+            samples=return_samples,
+        )
+        tables = dim_tables(proposals, targets, d, self._device)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        dev = self._device
+        if dev.type == "cuda":
+            program.library()
+        k = len(program.fns)
+
+        def result(values, acceptance, stderr, samples):
+            out = (values, acceptance)
+            if return_stderr:
+                out += (stderr,)
+            # The kernel's (..., m, d, chains) draws as integrate_mcmc
+            # surfaces them, (..., m, chains, d).
+            return out + ((samples.transpose(-1, -2),) if return_samples
+                          else ())
+
+        def batched(seeds, rows):
+            out = mcmc_nd_batch(program, cfg, rows, seeds, grid, tables)
+            return result(*mcmc_batch_finish(out, grid, cfg, k), out.samples)
+
+        if param_batch:
+            def prog(seeds, target_params, proposal_params):
+                seeds_t, prop, targ = _check_nd_mcmc_params(
+                    seeds, target_params, proposal_params, seed_batch, d,
+                    targ_kinds, prop_kinds, random_walk=random_walk,
+                    rw_adapt=random_walk and proposal.adapt, device=dev)
+                if not random_walk:
+                    prop = torch.cat([prop, torch.zeros_like(prop)], dim=-1)
+                return batched(seeds_t, torch.cat([prop, targ], dim=-1))
+
+            return prog
+        if seed_batch != 1:
+            def prog(seeds):
+                return batched(stage_seeds(seeds, seed_batch, dev), params)
+
+            return prog
+
+        def prog(seed):
+            out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables)
+            return result(*mcmc_finish(out, grid, cfg, k), out.samples)
+
+        return prog
 
     def _nd_mcmc_kernel_program(
         self, functions, proposal, parsed, n_steps, n_burnin, return_stderr,

@@ -1,6 +1,7 @@
-"""Parallel tempering (port of ``tpu_montecarlo/api/tempering.py:72-187``
-and ``:496-614``): ladder validation and the tempered run on the
-tempered kernel (``ops/mcmc_pt_kernel.py``).
+"""Parallel tempering (port of ``tpu_montecarlo/api/tempering.py:72-187``,
+``:427-494`` and ``:496-614``): ladder validation, the tempered run and
+the tempered ``compile_mcmc`` handle with seed batches on the tempered
+kernel (``ops/mcmc_pt_kernel.py``).
 
 The JAX package sends tempered work its kernel cannot take, and all of it
 off the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
@@ -22,14 +23,16 @@ from ..ops.mcmc_pt_kernel import (
     MAX_PT_FUNCTIONS,
     McmcPtConfig,
     McmcPtProgram,
+    mcmc_pt_batch,
     mcmc_pt_cuda,
     pack_ladder,
+    pt_batch_finish,
     pt_finish,
 )
 from ..sampling import dist_spec_of
 from ..utils.roadmap import PT_TABLES_XLA, PT_WIDE, not_ported
 from .cache import fns_key
-from .mcmc import _check_random_walk_args
+from .batching import _check_random_walk_args, stage_seeds
 from .mcmc_nd import _table_routes, dim_tables, hmc_leapfrog
 from .mcmc_result import mcmc_result
 from .results import IntegrationResult
@@ -95,6 +98,73 @@ class _PtMixin:
         return mcmc_result(out, grid, cfg, len(functions), n_chains,
                            swap_rate=swap_rate,
                            one_dim=parsed[3] == 1 and parsed[2] is None)
+
+    def _compile_mcmc_pt(
+        self, functions, target, proposal, temperatures, n_steps, n_chains,
+        n_burnin, seed_batch, param_batch, return_stderr,
+    ):
+        """The tempered serving handle (``tpu_montecarlo/api/tempering.py:
+        427-494``): ``prog(seed) -> ((K,) values, () acceptance, ()
+        swap_rate)``, with ``seed_batch=R`` ``prog(seeds) -> ((R, K), (R,),
+        (R,))``, the error bars appended under ``return_stderr``.  The R
+        jobs run under one ladder in one launch of the tempered kernel
+        (plus one pilot launch under error bars), each equal bit for bit
+        to the unbatched call with its seed.  The trace, program, rows,
+        ladder, tables and library are made here, once."""
+        if param_batch:
+            raise ValueError(
+                "param_batch is not supported with temperatures (the "
+                "ladder is compile-time; batch seeds instead)"
+            )
+        temps = [float(t) for t in temperatures]
+        if (
+            len(temps) < 2
+            or temps[0] != 1.0
+            or any(
+                not np.isfinite(t) or t2 <= t1
+                for t, (t1, t2) in zip(temps[1:], zip(temps, temps[1:]))
+            )
+        ):
+            raise ValueError(
+                "temperatures must be finite, strictly increasing and "
+                f"start at 1.0, got {temps}"
+            )
+        if isinstance(proposal, RandomWalk):
+            _check_random_walk_args(proposal, n_burnin, False)
+        betas = tuple(1.0 / t for t in temps)
+        parsed = self._parse_nd_mcmc_args(target, proposal)
+        if seed_batch < 1:
+            raise ValueError("seed_batch must be >= 1")
+        program, cfg, params, ladder = self._pt_kernel_program(
+            functions, proposal, parsed, betas, n_steps, n_burnin,
+            return_stderr,
+        )
+        tables = dim_tables(parsed[0], parsed[1], parsed[3], self._device)
+        grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
+        dev = self._device
+        if dev.type == "cuda":
+            program.library()
+        k = len(program.fns)
+
+        def result(values, acceptance, swap_rate, stderr):
+            out = (values, acceptance, swap_rate)
+            return out + (stderr,) if return_stderr else out
+
+        if seed_batch != 1:
+            def prog(seeds):
+                out = mcmc_pt_batch(program, cfg, params, ladder,
+                                    stage_seeds(seeds, seed_batch, dev), grid,
+                                    tables)
+                return result(*pt_batch_finish(out, grid, cfg, k))
+
+            return prog
+
+        def prog(seed):
+            out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid,
+                               tables)
+            return result(*pt_finish(out, grid, cfg, k))
+
+        return prog
 
     def _pt_kernel_program(
         self, functions, proposal, parsed, betas, n_steps, n_burnin,

@@ -128,6 +128,8 @@ using Outputs = tmc::StepOutputs<TMC_K, TMC_D, kDiag, kDraws>;
 constexpr bool kState = TMC_STATE != 0;
 constexpr bool kInitState = TMC_INIT_STATE != 0;
 static_assert(!kInitState || kState, "a resumed run is stateful");
+// The nd family's seed mix (ops/mcmc_nd_kernel.py ND_SEED_MIX).
+constexpr uint32_t kSeedMix = 0x27D4EB2Fu;
 
 // The candidate of independence step i: dimension j drawn under tag j.
 struct Propose {
@@ -259,17 +261,32 @@ struct Sums {
   }
 };
 
+// Rep blockIdx.y of a batch is one job (mcmc_nd_common.cuh): its seed
+// word, its parameter row (`param_stride` 0 or TMC_D x 6), its programs'
+// pilots, and its slabs of rows, final states and draws.
 __global__ void __launch_bounds__(kThreads)
-mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
+mcmc_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+               const float* __restrict__ params, int param_stride,
                const Tables tb, int n_burnin, int n_steps,
                int chains_per_program, const float* __restrict__ pilots,
                float* __restrict__ rows, float* __restrict__ x_final,
-               const tmc::Draws draws, const float* __restrict__ x0,
+               tmc::Draws draws, const float* __restrict__ x0,
                const float* __restrict__ logp0,
                float* __restrict__ logp_final) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params, tb);
+  const int rep = blockIdx.y;
+  seed = rep_seed(seed, seeds, kSeedMix);
+  const size_t rep_chains = size_t(gridDim.x) * kChainThreads;
+  if (pilots != nullptr) {
+    pilots += size_t(rep) * (rep_chains / chains_per_program) * TMC_K;
+  }
+  rows += size_t(rep) * gridDim.x * kRows * (TMC_K + 1);
+  x_final += size_t(rep) * TMC_D * rep_chains;
+  if constexpr (kDraws) {
+    draws.out += size_t(rep) * draws.m * TMC_D * rep_chains;
+  }
+  const Params p = load_params(params + rep * param_stride, tb);
   // The chain's lanes are kLanes consecutive threads of one warp.
   const int lane = threadIdx.x % kLanes;
   const int chain = blockIdx.x * kChainThreads + threadIdx.x / kLanes;
@@ -373,12 +390,19 @@ mcmc_nd_kernel(uint32_t seed, const float* __restrict__ params,
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
 // chains' initial states.  `params` holds TMC_D x 6 floats; `tables` is a
 // host pointer to the CUSTOM tables (tmc::McmcTables<TMC_D>) or null.
-// Returns cudaGetLastError() (0 when the launch was accepted).
-extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
-                                  const void* tables, int chains_per_program,
-                                  int programs, float* pilots, void* stream) {
-  return launch_pilots(seed, params, tables, chains_per_program, programs,
-                       pilots, stream);
+// A batch of `reps` jobs runs in one launch: rep r under the seed word
+// `seeds[r] ^ 0x27D4EB2F` (`seeds` a device array of `reps` seeds), or
+// `seed` for every rep where `seeds` is null; with its TMC_D x 6 row at
+// `params + r * param_stride` (0 or TMC_D x 6); its pilots at `pilots +
+// r * programs * TMC_K`.  Returns cudaGetLastError() (0 when the launch
+// was accepted).
+extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const unsigned int* seeds,
+                                  int reps, const float* params,
+                                  int param_stride, const void* tables,
+                                  int chains_per_program, int programs,
+                                  float* pilots, void* stream) {
+  return launch_pilots(seed, seeds, kSeedMix, reps, params, param_stride,
+                       tables, chains_per_program, programs, pilots, stream);
 }
 
 // Runs n_chains chains, 32 to a block of 32 * TMC_LANES threads, on
@@ -392,26 +416,34 @@ extern "C" int tmc_mcmc_nd_pilots(unsigned int seed, const float* params,
 // ignored.  With TMC_INIT_STATE the chains start from x0 (TMC_D x
 // n_chains floats) and logp0 (n_chains), with TMC_STATE `logp_final`
 // gets their final log densities (n_chains); else these are ignored.
+// A batch of `reps` jobs runs in one launch, each seeded and with its
+// parameter row as in tmc_mcmc_nd_pilots, rep r's pilots at `pilots + r *
+// (n_chains / chains_per_program) * TMC_K`, its rows, `x_final` and
+// draws at r times their sizes above; a stateful run, or one with
+// diagnostics, is one job (as the JAX kernel's, mcmc_nd_pallas.py:303).
 // Returns cudaGetLastError() (0 when the launch was accepted).
-extern "C" int tmc_mcmc_nd(unsigned int seed, const float* params,
+extern "C" int tmc_mcmc_nd(unsigned int seed, const unsigned int* seeds,
+                           int reps, const float* params, int param_stride,
                            const void* tables, int n_burnin, int n_steps,
                            int chains_per_program, int n_chains,
                            const float* pilots, float* rows, float* x_final,
                            float* samples, int m, int stride, const float* x0,
                            const float* logp0, float* logp_final,
                            void* stream) {
-  if (chains_per_program % kChainThreads != 0 ||
+  if (!batch_valid(reps, param_stride) ||
+      ((kState || kInitState || kDiag) && reps != 1) ||
+      chains_per_program % kChainThreads != 0 ||
       n_chains % chains_per_program != 0 ||
       !outputs_valid(n_steps, samples, m, stride) ||
       (kInitState && (x0 == nullptr || logp0 == nullptr)) ||
       (kState && logp_final == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mcmc_nd_kernel<<<n_chains / kChainThreads, kThreads, 0,
+  mcmc_nd_kernel<<<dim3(n_chains / kChainThreads, reps), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      seed, params, tables_of(tables), n_burnin, n_steps, chains_per_program,
-      pilots, rows, x_final, tmc::Draws{samples, m, stride}, x0, logp0,
-      logp_final);
+      seed, seeds, params, param_stride, tables_of(tables), n_burnin,
+      n_steps, chains_per_program, pilots, rows, x_final,
+      tmc::Draws{samples, m, stride}, x0, logp0, logp_final);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,13 @@
 // draws under tag t * d + j, so rung 0 under tag j).  Both kernels'
 // error-bar runs take their pilots from f at that state, so one pilot
 // kernel serves both, called with each kernel's own seed word.
+//
+// A batch of R jobs runs in one launch of either kernel, rep r on
+// blockIdx.y: its seed word (rep_seed), its (d, 6) parameter row (a
+// stride of 0 or d x 6 floats), its programs' pilots and its slabs of
+// the outputs.  Chains, programs and the counter stream see blockIdx.x
+// and gridDim.x alone, so a rep runs the chains of the unbatched launch
+// with its seed and row.
 #pragma once
 
 #include <cstdint>
@@ -243,13 +250,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The seed word a batch's rep blockIdx.y runs under, as an unbatched
+// launch with its seed's word would: `seeds[rep] ^ mix` (the kernel's
+// seed mix; the host's nd_seed_word or pt_seed_word of the seed), or
+// `seed` without a seed vector.
+__device__ __forceinline__ uint32_t rep_seed(uint32_t seed,
+                                             const uint32_t* seeds,
+                                             uint32_t mix) {
+  return seeds != nullptr ? seeds[blockIdx.y] ^ mix : seed;
+}
+
+// Whether a launch of `reps` jobs with a parameter stride of
+// `param_stride` floats is one the kernels take.
+inline bool batch_valid(int reps, int param_stride) {
+  return reps >= 1 && reps <= 65535 &&
+         (param_stride == 0 || param_stride == TMC_D * kRow);
+}
+
 // The per-program pilots of an error-bar run: the mean of f_k over the
-// initial states (tag j) of the program's chains, one block per program.
+// initial states (tag j) of the program's chains, one block per program;
+// rep blockIdx.y of a batch under its seed word and row, its (programs,
+// K) pilots at `pilots + rep * programs * K`.
 __global__ void __launch_bounds__(kPilotThreads)
-mcmc_nd_pilot_kernel(uint32_t seed, const float* __restrict__ params,
-                     const Tables tb, int chains_per_program,
-                     float* __restrict__ pilots) {
-  const Params p = load_params(params, tb);
+mcmc_nd_pilot_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+                     uint32_t mix, const float* __restrict__ params,
+                     int param_stride, const Tables tb,
+                     int chains_per_program, float* __restrict__ pilots) {
+  const int rep = blockIdx.y;
+  seed = rep_seed(seed, seeds, mix);
+  pilots += size_t(rep) * gridDim.x * TMC_K;
+  const Params p = load_params(params + rep * param_stride, tb);
   const uint32_t pid = blockIdx.x;
   const uint32_t state = tmc::seed_state(seed, pid);
   float acc[TMC_K];
@@ -294,14 +324,21 @@ inline bool outputs_valid(int n_steps, const float* samples, int m,
                       int64_t(m) * stride <= n_steps));
 }
 
-// Launches the pilot kernel: (programs, K) floats.  Returns
+// Launches the pilot kernel: (programs, K) floats, for each of `reps`
+// jobs (seeded by rep_seed with `seeds`, a device array of `reps` seeds
+// or null, and `mix`; rows `param_stride` floats apart).  Returns
 // cudaGetLastError() (0 when the launch was accepted).
-inline int launch_pilots(uint32_t seed, const float* params,
+inline int launch_pilots(uint32_t seed, const uint32_t* seeds, uint32_t mix,
+                         int reps, const float* params, int param_stride,
                          const void* tables, int chains_per_program,
                          int programs, float* pilots, void* stream) {
-  mcmc_nd_pilot_kernel<<<programs, kPilotThreads, 0,
+  if (!batch_valid(reps, param_stride)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mcmc_nd_pilot_kernel<<<dim3(programs, reps), kPilotThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      seed, params, tables_of(tables), chains_per_program, pilots);
+      seed, seeds, mix, params, param_stride, tables_of(tables),
+      chains_per_program, pilots);
   return static_cast<int>(cudaGetLastError());
 }
 

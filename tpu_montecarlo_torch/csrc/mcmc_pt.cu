@@ -129,6 +129,8 @@
 
 namespace {
 
+// The tempered family's seed mix (ops/mcmc_pt_kernel.py PT_SEED_MIX).
+constexpr uint32_t kSeedMix = 0x165667B1u;
 constexpr int kT = TMC_T;  // rungs
 static_assert(kT >= 2, "a ladder has at least two rungs");
 constexpr int kW = TMC_K + 2;  // row width: sums, accepts and swaps
@@ -572,15 +574,28 @@ __device__ __forceinline__ void run_ladder(const Params& p,
   for (int j = 0; j < TMC_D; ++j) x_cold[j] = x[0][j];
 }
 
+// Rep blockIdx.y of a batch is one job (mcmc_nd_common.cuh): its seed
+// word, its parameter row (`param_stride` 0 or TMC_D x 6), its programs'
+// pilots, and its slabs of rows and final states, on either layout; the
+// ladder is every rep's.
 __global__ void __launch_bounds__(kThreads)
-mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
+mcmc_pt_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
+               const float* __restrict__ params, int param_stride,
                const float* __restrict__ ladder, const Tables tb,
                int n_burnin, int n_steps, int chains_per_program,
                const float* __restrict__ pilots, float* __restrict__ rows,
                float* __restrict__ x_final, const tmc::Draws draws) {
   __shared__ float s_pilot[TMC_K];
 
-  const Params p = load_params(params, tb);
+  const int rep = blockIdx.y;
+  seed = rep_seed(seed, seeds, kSeedMix);
+  const size_t rep_chains = size_t(gridDim.x) * kChainThreads;
+  if (pilots != nullptr) {
+    pilots += size_t(rep) * (rep_chains / chains_per_program) * TMC_K;
+  }
+  rows += size_t(rep) * gridDim.x * kRows * kW;
+  x_final += size_t(rep) * TMC_D * rep_chains;
+  const Params p = load_params(params + rep * param_stride, tb);
   const int chain = blockIdx.x * kChainThreads + threadIdx.x / kChainLanes;
   // A block lies inside one program: 32 divides chains_per_program.
   const uint32_t pid = uint32_t(chain / chains_per_program);
@@ -625,13 +640,19 @@ mcmc_pt_kernel(uint32_t seed, const float* __restrict__ params,
 // Error-bar runs: the per-program pilots, (programs, K) floats, of the
 // cold rung's initial states (mcmc_nd_common.cuh).  `seed` is the
 // tempered seed word; `params` holds TMC_D x 6 floats; `tables` is a host
-// pointer to the CUSTOM tables (tmc::McmcTables<TMC_D>) or null.  Returns
-// cudaGetLastError() (0 when the launch was accepted).
-extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
-                                  const void* tables, int chains_per_program,
-                                  int programs, float* pilots, void* stream) {
-  return launch_pilots(seed, params, tables, chains_per_program, programs,
-                       pilots, stream);
+// pointer to the CUSTOM tables (tmc::McmcTables<TMC_D>) or null.  A batch
+// of `reps` jobs runs in one launch: rep r under the seed word `seeds[r]
+// ^ 0x165667B1` (`seeds` a device array of `reps` seeds), or `seed` for
+// every rep where `seeds` is null; with its TMC_D x 6 row at `params + r
+// * param_stride` (0 or TMC_D x 6); its pilots at `pilots + r * programs
+// * TMC_K`.  Returns cudaGetLastError() (0 when the launch was accepted).
+extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const unsigned int* seeds,
+                                  int reps, const float* params,
+                                  int param_stride, const void* tables,
+                                  int chains_per_program, int programs,
+                                  float* pilots, void* stream) {
+  return launch_pilots(seed, seeds, kSeedMix, reps, params, param_stride,
+                       tables, chains_per_program, programs, pilots, stream);
 }
 
 // Runs n_chains ladders, 32 to a block of 32 * TMC_PT_RUNG_LANES *
@@ -643,23 +664,31 @@ extern "C" int tmc_mcmc_pt_pilots(unsigned int seed, const float* params,
 // TMC_DIAG (n_steps >= 4) and 3 without, `x_final` TMC_D x n_chains; with
 // TMC_SAMPLES, `samples` holds m x TMC_D x n_chains floats, row j the
 // cold rung's post-swap states after sampling step j * stride (1 <= m,
-// m * stride <= n_steps), else it is ignored.  Returns cudaGetLastError() (0 when the
-// launch was accepted).
-extern "C" int tmc_mcmc_pt(unsigned int seed, const float* params,
+// m * stride <= n_steps), else it is ignored.  A batch of `reps` jobs
+// runs in one launch under one ladder, each seeded and with its parameter
+// row as in tmc_mcmc_pt_pilots, rep r's pilots at `pilots + r * (n_chains
+// / chains_per_program) * TMC_K`, its rows and `x_final` at r times their
+// sizes above; a run with draws or diagnostics is one job (as the JAX
+// kernel's, mcmc_pt_pallas.py:286-304).  Returns cudaGetLastError() (0
+// when the launch was accepted).
+extern "C" int tmc_mcmc_pt(unsigned int seed, const unsigned int* seeds,
+                           int reps, const float* params, int param_stride,
                            const float* ladder, const void* tables,
                            int n_burnin, int n_steps, int chains_per_program,
                            int n_chains, const float* pilots, float* rows,
                            float* x_final, float* samples, int m, int stride,
                            void* stream) {
-  if (chains_per_program % kChainThreads != 0 ||
+  if (!batch_valid(reps, param_stride) ||
+      ((kDraws || kDiag) && reps != 1) ||
+      chains_per_program % kChainThreads != 0 ||
       n_chains % chains_per_program != 0 ||
       !outputs_valid(n_steps, samples, m, stride)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mcmc_pt_kernel<<<n_chains / kChainThreads, kThreads, 0,
+  mcmc_pt_kernel<<<dim3(n_chains / kChainThreads, reps), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      seed, params, ladder, tables_of(tables), n_burnin, n_steps,
-      chains_per_program, pilots, rows, x_final,
+      seed, seeds, params, param_stride, ladder, tables_of(tables),
+      n_burnin, n_steps, chains_per_program, pilots, rows, x_final,
       tmc::Draws{samples, m, stride});
   return static_cast<int>(cudaGetLastError());
 }

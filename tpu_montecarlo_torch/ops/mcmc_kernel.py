@@ -785,16 +785,10 @@ def mcmc_batch(
     r, rowed = check_batch(params, seeds, None, (6,), k, False)
     _check_args(cfg, params[0] if rowed else params, k, tables)
     if params.device.type == "cpu":
-        words = [int(w) & MASK32 for w in seeds.tolist()]
-        outs = [mcmc_reference(program.torch_fns, cfg,
-                               params[i] if rowed else params, words[i], grid,
-                               tables)
-                for i in range(r)]
-        return McmcOutput(
-            torch.stack([o.rows for o in outs]),
-            torch.stack([o.x_final for o in outs]),
-            None if not cfg.samples else torch.stack([o.samples
-                                                      for o in outs]))
+        return plain_batch(
+            lambda p, word: mcmc_reference(program.torch_fns, cfg, p, word,
+                                           grid, tables),
+            params, seeds, rowed)
     if params.device.type != "cuda":
         raise ValueError(f"no MCMC kernel for device {params.device}")
     params = params.contiguous()
@@ -810,10 +804,7 @@ def mcmc_batch(
     )
     x_final = torch.empty((r, grid.chains_actual), dtype=torch.float32,
                           device=dev)
-    samples = sample_buffer(cfg, (grid.chains_actual,), dev)
-    if samples is not None:
-        samples = torch.empty((r, *samples.shape), dtype=torch.float32,
-                              device=dev)
+    samples = sample_buffer(cfg, (grid.chains_actual,), dev, (r,))
     pilots = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -849,12 +840,27 @@ def state_args(start: Optional[ChainStart],
     return x0, logp0, None if logp_final is None else logp_final.data_ptr()
 
 
-def sample_buffer(cfg, shape, dev) -> Optional[torch.Tensor]:
-    """The draws' buffer of a run, (m, *shape) float32, or None."""
+def sample_buffer(cfg, shape, dev, lead=()) -> Optional[torch.Tensor]:
+    """The draws' buffer of a run, (*lead, m, *shape) float32 (``lead``
+    a batch's rep axis), or None."""
     if not cfg.samples:
         return None
-    return torch.empty((cfg.samples, *shape), dtype=torch.float32,
+    return torch.empty((*lead, cfg.samples, *shape), dtype=torch.float32,
                        device=dev)
+
+
+def plain_batch(run, params: torch.Tensor, seeds: torch.Tensor,
+                rowed: bool) -> McmcOutput:
+    """A batch's plain version, rep by rep: ``run(params, word)`` with
+    each rep's params (its row where ``rowed``) and seed word, the
+    outputs stacked on a leading rep axis."""
+    outs = [run(params[i] if rowed else params, int(w) & MASK32)
+            for i, w in enumerate(seeds.tolist())]
+    return McmcOutput(
+        torch.stack([o.rows for o in outs]),
+        torch.stack([o.x_final for o in outs]),
+        None if outs[0].samples is None
+        else torch.stack([o.samples for o in outs]))
 
 
 def sample_args(cfg, samples: Optional[torch.Tensor]):

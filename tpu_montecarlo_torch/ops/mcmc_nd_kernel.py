@@ -60,6 +60,7 @@ from ..tracing import TracedFunction
 from .integrate_kernel import (
     LANES,
     CounterRng,
+    check_batch,
     sample_block,
     uniform_halfopen01,
     uniform_open01,
@@ -89,6 +90,7 @@ from .mcmc_kernel import (
     layout_source,
     outputs_source,
     row_count,
+    plain_batch,
     sample_args,
     sample_buffer,
     segment_word,
@@ -111,8 +113,12 @@ __all__ = [
     "ND_SEED_MIX",
     "McmcNdConfig",
     "McmcNdProgram",
+    "check_nd_batch",
+    "check_program",
     "draw_proposal",
+    "launch_chains",
     "log_target_grad",
+    "mcmc_nd_batch",
     "mcmc_nd_cuda",
     "mcmc_nd_reference",
     "nd_seed_word",
@@ -259,6 +265,10 @@ class McmcNdProgram:
     chain_inputs = ("params",)
     #: Whether the chain entry point takes (x0, logp0, logp_final).
     takes_state = True
+    #: The count columns after the K values of an output row: accepts.
+    count_columns = 1
+    #: What a failed launch calls the kernel.
+    kernel_name = "nd MCMC"
     #: The layout's lines in the generated source.
     layout_source = staticmethod(layout_source)
 
@@ -343,13 +353,15 @@ class McmcNdProgram:
             lib = load_kernel_library(self.kernel_source, self.source())
             p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
             pilots, chain = (getattr(lib, name) for name in self.entry_points)
-            # seed word, params, host tables, chains per program,
-            # programs, pilots, stream
-            pilots.argtypes = [u, p, p, i, i, p, p]
-            # seed word, chain_inputs, host tables, burn-in, steps, chains
+            # seed word, seeds (R,) or null, reps, params, params stride,
+            # host tables, chains per program, programs, pilots, stream
+            pilots.argtypes = [u, p, i, p, i, p, i, i, p, p]
+            # seed word, seeds (R,) or null, reps, params, params stride,
+            # the other chain_inputs, host tables, burn-in, steps, chains
             # per program, chains, pilots, rows, x_final, samples, m,
             # stride, (x0, logp0, logp_final,) stream
-            chain.argtypes = [u, *[p] * len(self.chain_inputs), p,
+            chain.argtypes = [u, p, i, p, i,
+                              *[p] * (len(self.chain_inputs) - 1), p,
                               i, i, i, i, p, p, p, p, i, i,
                               *[p] * (3 * self.takes_state), p]
             pilots.restype = chain.restype = i
@@ -585,6 +597,18 @@ def mcmc_nd_reference(
                       logp.reshape(-1) if cfg.with_state else None)
 
 
+def check_program(program, cfg) -> None:
+    """ValueError unless ``program`` was built for what ``cfg`` compiles
+    in: its mode, families, outputs and state."""
+    if ((cfg.compiled, cfg.outputs, cfg.state)
+            != (program.compiled, program.outputs, program.state)):
+        raise ValueError(
+            f"the program was built for {program.compiled} with outputs "
+            f"{program.outputs} and state {program.state}, not "
+            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
+        )
+
+
 def mcmc_nd_cuda(
     program: McmcNdProgram,
     cfg: McmcNdConfig,
@@ -603,17 +627,12 @@ def mcmc_nd_cuda(
     counts the chain-kernel launches, and ``mcmc_nd_cuda.pilot_launches``
     the pilot kernel's, which an error-bar or diagnostics run launches
     first; ``diag_launches`` and ``sample_launches`` the chain launches
-    with diagnostics and with draws, ``hmc_launches`` those of HMC and
-    ``state_launches`` the stateful ones.  A CPU
+    with diagnostics and with draws, ``hmc_launches`` those of HMC,
+    ``state_launches`` the stateful ones and ``batch_launches`` those of
+    :func:`mcmc_nd_batch`.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if ((cfg.compiled, cfg.outputs, cfg.state)
-            != (program.compiled, program.outputs, program.state)):
-        raise ValueError(
-            f"the program was built for {program.compiled} with outputs "
-            f"{program.outputs} and state {program.state}, not "
-            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
-        )
+    check_program(program, cfg)
     _check_args(cfg, params, len(program.fns), tables=tables)
     check_start(cfg, start, (cfg.d, grid.chains_actual), params.device)
     if params.device.type == "cpu":
@@ -623,49 +642,9 @@ def mcmc_nd_cuda(
         )
     if params.device.type != "cuda":
         raise ValueError(f"no nd MCMC kernel for device {params.device}")
-    params = params.contiguous()
-    kt = kernel_tables(tables, cfg.d)
-    host_tables = None if kt is None else ctypes.addressof(kt)
-    lib = program.library()
-    k = len(program.fns)
-    dev = params.device
-    word = nd_seed_word(seed, segment)
-    rows = torch.empty(
-        (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 1),
-        dtype=torch.float32, device=dev,
-    )
-    x_final = torch.empty(
-        (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
-    )
-    logp_final = (torch.empty(grid.chains_actual, dtype=torch.float32,
-                              device=dev) if cfg.with_state else None)
-    start = None if start is None else ChainStart(*(t.contiguous()
-                                                    for t in start))
-    samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev)
-    pilots = None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.stat_mode:
-            pilots = torch.empty(
-                (grid.programs, k), dtype=torch.float32, device=dev
-            )
-            err = lib.tmc_mcmc_nd_pilots(
-                word, params.data_ptr(), host_tables,
-                grid.chains_per_program, grid.programs, pilots.data_ptr(),
-                stream,
-            )
-            _raise_on(lib, err, "pilot")
-            mcmc_nd_cuda.pilot_launches += 1
-        err = lib.tmc_mcmc_nd(
-            word, params.data_ptr(), host_tables, cfg.n_burnin, cfg.n_steps,
-            grid.chains_per_program, grid.chains_actual,
-            None if pilots is None else pilots.data_ptr(),
-            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
-            *state_args(start, logp_final), stream,
-        )
-        _raise_on(lib, err, "chain")
-    count_launch(mcmc_nd_cuda, cfg)
-    return McmcOutput(rows, x_final, samples, logp_final)
+    return launch_chains(program, cfg, params, grid, tables,
+                         nd_seed_word(seed, segment), mcmc_nd_cuda,
+                         start=start)
 
 
 mcmc_nd_cuda.launches = 0
@@ -674,11 +653,121 @@ mcmc_nd_cuda.diag_launches = 0
 mcmc_nd_cuda.sample_launches = 0
 mcmc_nd_cuda.hmc_launches = 0
 mcmc_nd_cuda.state_launches = 0
+mcmc_nd_cuda.batch_launches = 0
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def check_nd_batch(cfg: McmcNdConfig, params: torch.Tensor,
+                   seeds: torch.Tensor, k: int) -> Tuple[int, bool]:
+    """``(R, whether each rep has its params row)`` of an nd or tempered
+    batch after the batch's own checks: a stateless run without
+    diagnostics, ``seeds`` (R,) int32 words on the params' device and
+    ``params`` one (d, 6) row for every rep or R of them."""
+    if cfg.with_state or cfg.with_diagnostics:
+        raise ValueError("a batch runs stateless chains without diagnostics")
+    return check_batch(params, seeds, None, (cfg.d, _ROW), k, False)
+
+
+def mcmc_nd_batch(
+    program: McmcNdProgram,
+    cfg: McmcNdConfig,
+    params: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
+) -> McmcOutput:
+    """R stateless jobs in one launch (and one pilot launch under error
+    bars): rep r runs the chains of :func:`mcmc_nd_cuda` with the seed
+    ``seeds[r]`` ((R,) int32 words on the params' device) and ``params``
+    (d, 6) for every rep or its row of (R, d, 6).  Returns an
+    :class:`McmcOutput` with a leading rep axis on its rows, final states
+    (R, d, chains) and draws (R, m, d, chains); each rep's are the
+    unbatched run's, bit for bit, and :func:`mcmc_batch_finish` finishes
+    them.  A CUDA ``params`` launches the kernels (counted as
+    :func:`mcmc_nd_cuda` counts them, and in
+    ``mcmc_nd_cuda.batch_launches``); a CPU one runs the plain version rep
+    by rep."""
+    check_program(program, cfg)
+    k = len(program.fns)
+    r, rowed = check_nd_batch(cfg, params, seeds, k)
+    _check_args(cfg, params[0] if rowed else params, k, tables=tables)
+    if params.device.type == "cpu":
+        return plain_batch(
+            lambda p, word: mcmc_nd_reference(
+                program.torch_fns, program.torch_target, cfg, p, word, grid,
+                tables, torch_target_grad=program.torch_target_grad),
+            params, seeds, rowed)
+    if params.device.type != "cuda":
+        raise ValueError(f"no nd MCMC kernel for device {params.device}")
+    return launch_chains(program, cfg, params, grid, tables, 0,
+                         mcmc_nd_cuda, seeds=seeds)
+
+
+def launch_chains(program, cfg, params, grid, tables, word, wrapper,
+                  inputs=(), seeds=None, start=None) -> McmcOutput:
+    """The pilot launch (under error bars or diagnostics) and the chain
+    launch of ``program``'s library (the nd or the tempered kernel's) on
+    CUDA ``params``, counted in ``wrapper``'s counts: one job under the
+    seed word ``word`` (from ``start`` when ``cfg`` resumes), or with
+    ``seeds`` ((R,) int32 words) R jobs, each with ``params`` or its row
+    of (R, d, 6), whose outputs take a leading R axis.  ``inputs`` are the
+    chain entry point's device arrays after the params (the ladder)."""
+    params = params.contiguous()
+    inputs = [t.contiguous() for t in inputs]
+    kt = kernel_tables(tables, cfg.d)
+    host_tables = None if kt is None else ctypes.addressof(kt)
+    launch_pilots, launch_chain = (getattr(program.library(), name)
+                                   for name in program.entry_points)
+    k = len(program.fns)
+    dev = params.device
+    if seeds is not None:
+        seeds = seeds.contiguous()
+    lead = () if seeds is None else (len(seeds),)
+    seed_args = ((word, None, 1) if seeds is None
+                 else (word, seeds.data_ptr(), len(seeds)))
+    param_args = (params.data_ptr(), cfg.d * _ROW if params.dim() == 3 else 0)
+    rows = torch.empty(
+        (*lead, grid.chains_actual // CHAIN_THREADS, row_count(cfg),
+         k + program.count_columns),
+        dtype=torch.float32, device=dev,
+    )
+    x_final = torch.empty((*lead, cfg.d, grid.chains_actual),
+                          dtype=torch.float32, device=dev)
+    logp_final = (torch.empty(grid.chains_actual, dtype=torch.float32,
+                              device=dev) if cfg.with_state else None)
+    start = None if start is None else ChainStart(*(t.contiguous()
+                                                    for t in start))
+    samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev, lead)
+    pilots = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cfg.stat_mode:
+            pilots = torch.empty((*lead, grid.programs, k),
+                                 dtype=torch.float32, device=dev)
+            err = launch_pilots(
+                *seed_args, *param_args, host_tables,
+                grid.chains_per_program, grid.programs, pilots.data_ptr(),
+                stream,
+            )
+            _raise_on(program, err, "pilot")
+            wrapper.pilot_launches += 1
+        err = launch_chain(
+            *seed_args, *param_args, *(t.data_ptr() for t in inputs),
+            host_tables, cfg.n_burnin, cfg.n_steps, grid.chains_per_program,
+            grid.chains_actual,
+            None if pilots is None else pilots.data_ptr(),
+            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
+            *(state_args(start, logp_final) if program.takes_state else ()),
+            stream,
+        )
+        _raise_on(program, err, "chain")
+    count_launch(wrapper, cfg)
+    wrapper.batch_launches += bool(lead)
+    return McmcOutput(rows, x_final, samples, logp_final)
+
+
+def _raise_on(program, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(
-            f"nd MCMC {what} kernel launch failed: "
-            f"{lib.tmc_error_string(err)!r}"
+            f"{program.kernel_name} {what} kernel launch failed: "
+            f"{program.library().tmc_error_string(err)!r}"
         )

@@ -51,7 +51,6 @@ layout changes no number the kernel computes.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Sequence
 
@@ -71,12 +70,9 @@ from .mcmc_kernel import (
     McmcOutput,
     Mode,
     block_rows,
-    count_launch,
     hmc_move,
-    mcmc_finish,
-    row_count,
-    sample_args,
-    sample_buffer,
+    mcmc_batch_finish,
+    plain_batch,
 )
 from .mcmc_diagnostics import PhaseOutputs
 from .mcmc_nd_kernel import (
@@ -84,12 +80,16 @@ from .mcmc_nd_kernel import (
     _LOG_SCALE_MIN,
     McmcNdConfig,
     McmcNdProgram,
+    check_nd_batch,
+    check_program,
     draw_proposal,
+    launch_chains,
     log_target,
     log_target_grad,
 )
-from .mcmc_tables import DimTables, kernel_tables
+from .mcmc_tables import DimTables
 from .mcmc_nd_kernel import _check_args as _check_nd_args
+from .reduce import fixed_sum
 
 __all__ = [
     "LADDER_LAYOUT",
@@ -101,10 +101,12 @@ __all__ = [
     "PtLayout",
     "check_pt_layout",
     "default_pt_layout",
+    "mcmc_pt_batch",
     "mcmc_pt_cuda",
     "mcmc_pt_reference",
     "pack_ladder",
     "pt_attempted_swaps",
+    "pt_batch_finish",
     "pt_finish",
     "pt_layout_source",
     "pt_seed_word",
@@ -268,6 +270,9 @@ class McmcPtProgram(McmcNdProgram):
     entry_points = ("tmc_mcmc_pt_pilots", "tmc_mcmc_pt")
     chain_inputs = ("params", "ladder")
     takes_state = False
+    #: The count columns after the K values: accepts and swaps.
+    count_columns = 2
+    kernel_name = "tempered MCMC"
     layout_source = staticmethod(pt_layout_source)
 
     def _layout(self, cfg, layout) -> PtLayout:
@@ -491,16 +496,11 @@ def mcmc_pt_cuda(
     the pilot kernel's, which an error-bar or diagnostics run launches
     first; ``diag_launches`` and ``sample_launches`` the chain launches
     with diagnostics and with the cold rung's draws, ``hmc_launches``
-    those of tempered HMC.  A CPU
+    those of tempered HMC and ``batch_launches`` those of
+    :func:`mcmc_pt_batch`.  A CPU
     ``params`` runs the plain version.  Any other device raises.  The
     launches are asynchronous on the current stream."""
-    if ((cfg.compiled, cfg.outputs, cfg.state)
-            != (program.compiled, program.outputs, program.state)):
-        raise ValueError(
-            f"the program was built for {program.compiled} with outputs "
-            f"{program.outputs} and state {program.state}, not "
-            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
-        )
+    check_program(program, cfg)
     _check_args(cfg, params, ladder, len(program.fns), tables)
     if params.device.type == "cpu":
         return mcmc_pt_reference(
@@ -509,46 +509,8 @@ def mcmc_pt_cuda(
         )
     if params.device.type != "cuda":
         raise ValueError(f"no tempered MCMC kernel for device {params.device}")
-    params, ladder = params.contiguous(), ladder.contiguous()
-    kt = kernel_tables(tables, cfg.d)
-    host_tables = None if kt is None else ctypes.addressof(kt)
-    lib = program.library()
-    k = len(program.fns)
-    dev = params.device
-    word = pt_seed_word(seed)
-    rows = torch.empty(
-        (grid.chains_actual // CHAIN_THREADS, row_count(cfg), k + 2),
-        dtype=torch.float32, device=dev,
-    )
-    x_final = torch.empty(
-        (cfg.d, grid.chains_actual), dtype=torch.float32, device=dev
-    )
-    samples = sample_buffer(cfg, (cfg.d, grid.chains_actual), dev)
-    pilots = None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.stat_mode:
-            pilots = torch.empty(
-                (grid.programs, k), dtype=torch.float32, device=dev
-            )
-            err = lib.tmc_mcmc_pt_pilots(
-                word, params.data_ptr(), host_tables,
-                grid.chains_per_program, grid.programs, pilots.data_ptr(),
-                stream,
-            )
-            _raise_on(lib, err, "pilot")
-            mcmc_pt_cuda.pilot_launches += 1
-        err = lib.tmc_mcmc_pt(
-            word, params.data_ptr(), ladder.data_ptr(), host_tables,
-            cfg.n_burnin, cfg.n_steps, grid.chains_per_program,
-            grid.chains_actual,
-            None if pilots is None else pilots.data_ptr(),
-            rows.data_ptr(), x_final.data_ptr(), *sample_args(cfg, samples),
-            stream,
-        )
-        _raise_on(lib, err, "chain")
-    count_launch(mcmc_pt_cuda, cfg)
-    return McmcOutput(rows, x_final, samples)
+    return launch_chains(program, cfg, params, grid, tables,
+                         pt_seed_word(seed), mcmc_pt_cuda, (ladder,))
 
 
 mcmc_pt_cuda.launches = 0
@@ -556,14 +518,46 @@ mcmc_pt_cuda.pilot_launches = 0
 mcmc_pt_cuda.diag_launches = 0
 mcmc_pt_cuda.sample_launches = 0
 mcmc_pt_cuda.hmc_launches = 0
+mcmc_pt_cuda.batch_launches = 0
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"tempered MCMC {what} kernel launch failed: "
-            f"{lib.tmc_error_string(err)!r}"
-        )
+def mcmc_pt_batch(
+    program: McmcPtProgram,
+    cfg: McmcPtConfig,
+    params: torch.Tensor,
+    ladder: torch.Tensor,
+    seeds: torch.Tensor,
+    grid: McmcGrid,
+    tables: Optional[Sequence[Optional[DimTables]]] = None,
+) -> McmcOutput:
+    """R tempered jobs under one ladder in one launch (and one pilot
+    launch under error bars): rep r runs the ladders of
+    :func:`mcmc_pt_cuda` with the seed ``seeds[r]`` ((R,) int32 words on
+    the params' device) and ``params`` (d, 6) for every rep or its row of
+    (R, d, 6).  Returns an :class:`McmcOutput` with a leading rep axis on
+    its rows and final cold states (R, d, chains); each rep's are the
+    unbatched run's, bit for bit, and :func:`pt_batch_finish` finishes
+    them.  Draws and diagnostics run one job at a time, as the JAX
+    kernel's (``mcmc_pt_pallas.py:286-304``).  A CUDA ``params`` launches
+    the kernels (counted as :func:`mcmc_pt_cuda` counts them, and in
+    ``mcmc_pt_cuda.batch_launches``); a CPU one runs the plain version
+    rep by rep."""
+    if cfg.samples:
+        raise ValueError("a tempered batch takes no draws")
+    check_program(program, cfg)
+    k = len(program.fns)
+    r, rowed = check_nd_batch(cfg, params, seeds, k)
+    _check_args(cfg, params[0] if rowed else params, ladder, k, tables)
+    if params.device.type == "cpu":
+        return plain_batch(
+            lambda p, word: mcmc_pt_reference(
+                program.torch_fns, program.torch_target, cfg, p, ladder, word,
+                grid, tables, program.torch_target_grad),
+            params, seeds, rowed)
+    if params.device.type != "cuda":
+        raise ValueError(f"no tempered MCMC kernel for device {params.device}")
+    return launch_chains(program, cfg, params, grid, tables, 0, mcmc_pt_cuda,
+                         (ladder,), seeds)
 
 
 def pt_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcPtConfig, k: int):
@@ -571,11 +565,23 @@ def pt_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcPtConfig, k: int):
     None), float32 tensors on the rows' device: the JAX wrapper's math
     (mcmc_pt_pallas.py:966-1006, :1056-1065) over CUDA blocks in place of
     programs.  The swap rate divides by the attempted exchanges of the
-    whole run, burn-in included."""
-    values, acceptance, stderr = mcmc_finish(out, grid, cfg, k)
+    whole run, burn-in included.  Every sum over blocks adds in
+    ``fixed_sum``'s order, the same as a batch's (:func:`pt_batch_finish`)."""
+    values, acceptance, swap_rate, stderr = pt_batch_finish(
+        McmcOutput(out.rows[None], out.x_final), grid, cfg, k)
+    return (values[0], acceptance[0], swap_rate[0],
+            None if stderr is None else stderr[0])
+
+
+def pt_batch_finish(out: McmcOutput, grid: McmcGrid, cfg: McmcPtConfig,
+                    k: int):
+    """(values (R, K), cold acceptance (R,), swap rate (R,), stderr (R, K)
+    or None) of a :func:`mcmc_pt_batch` run: each rep's are
+    :func:`pt_finish`'s of the unbatched run, bit for bit."""
+    values, acceptance, stderr = mcmc_batch_finish(out, grid, cfg, k)
     attempted = pt_attempted_swaps(
         cfg.n_temps, cfg.n_burnin + cfg.n_steps, grid.chains_actual
     )
     denom = float(np.float32(max(float(attempted), 1.0)))
-    swap_rate = out.rows[:, 0, k + 1].sum() / denom
+    swap_rate = fixed_sum(out.rows[:, :, 0, k + 1], 1) / denom
     return values, acceptance, swap_rate, stderr

@@ -10,11 +10,9 @@ __all__ = [
     "MCMC_WIDE",
     "MESH",
     "ND_CV",
-    "ND_MCMC_SERVING",
     "ND_MCMC_TABLES_XLA",
     "ND_MCMC_WIDE",
     "ND_WIDE",
-    "PT_SERVING",
     "PT_TABLES_XLA",
     "PT_WIDE",
     "TEMPERING",
@@ -33,10 +31,6 @@ ND_CV = (
     "ROADMAP.md, queue 1 item 7.5 (nd control variates and expectation_fn)"
 )
 ND_WIDE = "ROADMAP.md, queue 1 item 7.6 (nd integrate over more than 128 functions)"
-ND_MCMC_SERVING = (
-    "ROADMAP.md, queue 1 item 8.6 (nd compile_mcmc, seed_batch and "
-    "param_batch)"
-)
 ND_MCMC_WIDE = (
     "ROADMAP.md, queue 1 item 8.8 (nd MCMC over more than 127 functions)"
 )
@@ -45,10 +39,6 @@ ND_MCMC_TABLES_XLA = (
     "JAX package runs on its XLA sweep)"
 )
 TEMPERING = "ROADMAP.md, queue 1 item 9 (parallel tempering)"
-PT_SERVING = (
-    "ROADMAP.md, queue 1 item 9.5 (tempered compile_mcmc, seed_batch and "
-    "param_batch)"
-)
 PT_WIDE = (
     "ROADMAP.md, queue 1 item 9.7 (tempering over more than 126 functions)"
 )
