@@ -37,11 +37,12 @@ Phases, each of which exits non-zero on failure:
    n_steps=10_000, n_chains=4096, n_burnin=1_000, seed=42,
    return_stderr=True)``: E[x^2] within 6 standard errors of 1, and the
    launch counts of the chain kernel and of its pilot kernel rose;
-9. at the main path's shape and configuration (error bars on, so pilot
-   kernel and chain kernel): hold the kernel against the plain version as
-   in phase 7 (the plain version timed in that run), time both (CUDA
-   events) and time ``integrate_mcmc()`` end to end (host clock), in
-   chain-steps/s counted as 4096 x (10_000 + 1_000); the kernel without
+9. at the main path's configuration (error bars on, so pilot kernel and
+   chain kernel): hold the kernel against the plain version as in phase 7
+   at 4096 x (200 + 1000) steps (the plain version timed in that run),
+   time the kernel at the main path's shape (CUDA events) and time
+   ``integrate_mcmc()`` end to end (host clock), in chain-steps/s counted
+   as 4096 x (10_000 + 1_000); the kernel without
    error bars and the kernel of an adaptive walk on N(0, 1)
    (``RandomWalk(adapt=True)``) at the same shape are timed beside them,
    and the pipe and latency bounds computed;
@@ -88,9 +89,10 @@ Phases, each of which exits non-zero on failure:
     c9d (``[x*x+y*y]`` under N(0,1)^2, E = 2) and c10b (a random walk on
     c9e's target, E[xy] = 0.8) at the same shape.  Each call's kernel and
     pilot kernel launch counts must rise;
-18. at c9e's shape and configuration: hold the nd kernel against the plain
-    version once (the plain version timed in that run, CUDA events), time
-    the kernel and c10b's walk kernel (CUDA events) and
+18. at c9e's configuration: hold the nd kernel against the plain version
+    once at 4096 x (200 + 1000) steps (the plain version timed in that
+    run, CUDA events), at its shape time the kernel and c10b's walk
+    kernel (CUDA events) and
     ``integrate_mcmc()`` end to end (host clock) in chain-steps/s counted
     as 4096 x (10_000 + 1_000), compute its pipe and latency bounds, and
     read the device idle share of warm calls of c9e and of the 1-D MCMC
@@ -113,8 +115,9 @@ Phases, each of which exits non-zero on failure:
     within 6 standard errors of 0 and E[x^2] of 17, the swap rate in
     (0, 1), and the launch counts of the chain kernel and of its pilot
     kernel rose; then c12c (independence N(0, 6)) at the same shape;
-22. at c12's shape and configuration: hold the tempered kernel against the
-    plain version once (the plain version timed in that run, CUDA events),
+22. at c12's configuration: hold the tempered kernel against the plain
+    version once at 4096 x (200 + 1000) steps (the plain version timed in
+    that run, CUDA events), at its shape
     hold c12's and c12c's default layouts bit for bit against their
     ladder layouts (rows and final states), time the kernel, c12c's and
     both ladder layouts (CUDA events) and ``integrate_mcmc()`` end to end
@@ -295,7 +298,24 @@ Phases, each of which exits non-zero on failure:
     states bit for bit.  An MCMC batch's bound is max(R jobs' pipes on
     all their warps, one job's latency x waves of resident warps), counted
     on a one-lane build of its group (1-D, nd; the build that runs beside
-    it) or on the ladder layout's build (tempered).
+    it) or on the ladder layout's build (tempered);
+64-67. sets wider than one launch takes and control variates, each
+    group's library started in phase 2, each cell through its public
+    call counted from 0 (one launch a group, its passes over one stream
+    or one set of chains), every pass held against its plain version on
+    the card and timed (CUDA events) and bounded on its own build beside
+    nvcc's spills: c7 (``benchmarks/run_all.py:262-292``), 128 and 256
+    bins of Beta(2, 5)'s 2048-entry table at 2**27 through
+    ``compile_integrate`` (one and two launches), the bins within 6 sigma
+    of the masses, and K = 256's per-function rate against K = 128's (64);
+    the 128 bins with error bars (65); K = 254 over c5b's and c9e's shapes
+    and 252 over c12's at 4 096 x (200 + 1 000) with error bars through
+    ``integrate_mcmc`` (two groups each; each pass against its plain
+    version at 4 096 x (50 + 250); the passes' final states and accept
+    and swap counts bit for bit) (66); control variates, exp(x/2) and 31
+    shifted copies under N(0, 1) with the controls x, x^2, x^3 and sin x at
+    2**24, 174 composed integrands in two passes, and with error bars 206
+    against the plain run's (67).
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -1069,6 +1089,11 @@ def main() -> int:
         import tpu_montecarlo_torch as tm
         from tpu_montecarlo_torch.api.cache import GLOBAL_CACHE, fns_key
         from tpu_montecarlo_torch.api.device import sampling_tables
+        from tpu_montecarlo_torch.api.integrate import cv_composed
+        from tpu_montecarlo_torch.api.passes import (
+            check_same_chains,
+            split_groups,
+        )
         from tpu_montecarlo_torch.api.mcmc_nd import dim_tables as nd_dim_tables
         from tpu_montecarlo_torch.api.results import _unit_integrand
         from tpu_montecarlo_torch.ops.integrate_kernel import (
@@ -1094,6 +1119,7 @@ def main() -> int:
             pilot_row,
             )
         from tpu_montecarlo_torch.ops.mcmc_kernel import (
+            MAX_FUNCTIONS as MCMC_MAX_FUNCTIONS,
             ChainStart,
             Layout,
             McmcConfig,
@@ -1115,6 +1141,7 @@ def main() -> int:
         )
         from tpu_montecarlo_torch.ops.mcmc_pt_kernel import (
             LADDER_LAYOUT,
+            MAX_PT_FUNCTIONS,
             McmcPtProgram,
             PtLayout,
             mcmc_pt_batch,
@@ -1538,6 +1565,69 @@ def main() -> int:
         for s, b in [*((s, b) for s in custom_mcmc_main.values()
                        for b in (False, True)),
                      *((s, False) for _, s in custom_mcmc_checks)]]
+
+    # The wide sets and control variates (phases 64-67), each group's
+    # library started here as the public paths make it: c7's K = 128 and
+    # 256 histograms over Beta(2, 5)'s 2048-entry table (one and two groups
+    # of 128) and the K = 128 one with error bars; the K = 254 and 252 MCMC
+    # sets over c5b, c9e and c12 (groups of 127 and 126) with error bars,
+    # each group with the build its bound counts where that differs (the
+    # tempered ladder; the 1-D and nd groups run one lane a chain); the
+    # control-variate set's composed groups, 174 integrands and 206 with
+    # error bars.
+    c7_beta = tm.Distribution.beta(2.0, 5.0, table_size=C7_TABLE_SIZE)
+    c7_groups = {k: integ._integrate_groups(tuple(
+        tm.trace_function(f) for f in hist_fns(k))) for k in (128, 256)}
+    c7_route = route_of(c7_groups[128][0], c7_beta)
+    stderr_cfg = IntegrateConfig("mc", True)
+    wide_mcmc_cells = {
+        "c5b": (n01, n02, None, mcmc_cuda),
+        "c9e": (c9e_target(), [n02, n02], None, mcmc_nd_cuda),
+        "c12": (logmix, c12_walk, PT_LADDER, mcmc_pt_cuda),
+    }
+
+    def wide_mcmc_setups(shape):
+        """Each wide MCMC cell's groups as ``custom_mcmc_setup`` sets them
+        up at ``shape`` (one program per group: the libraries do not
+        depend on the depth)."""
+        return {
+            name: [custom_mcmc_setup(group, target, proposal, temps,
+                                     shape["n_steps"], shape["n_burnin"], True)
+                   for group in split_groups(
+                       tuple(tm.trace_function(f, 2 if name == "c9e" else 1)
+                             for f in WIDE_MCMC_FNS[name]),
+                       MCMC_MAX_FUNCTIONS if temps is None
+                       else MAX_PT_FUNCTIONS)]
+            for name, (target, proposal, temps, _) in wide_mcmc_cells.items()}
+
+    wide_mcmc = wide_mcmc_setups(MCMC_CHECK)
+    cv_traced = tuple(tm.trace_function(f) for f in CV_FNS)
+    cv_controls = tuple(tm.trace_function(g) for g, _ in CV_CONTROLS)
+    cv_groups = {
+        stderr: integ._integrate_groups(
+            cv_composed(cv_traced, cv_controls, [n01], stderr)[0])
+        for stderr in (False, True)}
+
+    def one_lane(setup):
+        """Whether the group's running build runs one lane a chain (its
+        bound counts that build)."""
+        prog_ = setup["program"]
+        if isinstance(prog_, McmcProgram):
+            return prog_.layout_for(setup["cfg"]).lanes == 1
+        return isinstance(prog_, McmcNdProgram) and not isinstance(
+            prog_, McmcPtProgram) and prog_.layout.lanes == 1
+
+    wide_libs = [
+        *(lambda p=p, c=c: p.library(c, c7_route) for p, c in
+          [*((p, MC_CFG) for k in (128, 256) for p in c7_groups[k]),
+           (c7_groups[128][0], stderr_cfg)]),
+        *(lambda s=s, b=b: custom_mcmc_library(s, b)
+          for setups in wide_mcmc.values() for s in setups
+          for b in ((False,) if one_lane(s) else (False, True))),
+        *(lambda p=p: p.library(MC_CFG)
+          for groups in cv_groups.values() for p in groups),
+    ]
+    wide_builds = [pool.submit(timed_build, b) for b in wide_libs]
 
     # The extended families (phases 34-38), each library started here: the
     # bench set's own library per family and 1-D mode; the family cells at
@@ -2061,9 +2151,17 @@ def main() -> int:
     main_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
     main_cfg = mcmc_main_cfg
     main_row = [0.0, 2.0, 0.0, 0.0, 0.0, 1.0]
-    # The plain version is timed in the run that holds the kernel to it.
-    err, mcmc_plain_ms = mcmc_vs_plain(mcmc_program, main_cfg, main_row,
-                                       main_grid, "9")
+    # The plain version is timed in the run that holds the kernel to it,
+    # at MCMC_CHECK's depth (the kernel is timed at the main shape below):
+    # at 4096 x 11,000 the three main paths' plain versions took 100 s of
+    # the script's 1,200 on a slow host.
+    plain_depth = dict(n_steps=MCMC_CHECK["n_steps"],
+                       n_burnin=MCMC_CHECK["n_burnin"])
+    plain_steps = main_grid.chains_actual * (MCMC_CHECK["n_steps"]
+                                             + MCMC_CHECK["n_burnin"])
+    err, mcmc_plain_ms = mcmc_vs_plain(mcmc_program,
+                                       replace(main_cfg, **plain_depth),
+                                       main_row, main_grid, "9")
     mcmc_err = max(mcmc_err, err)
     params = torch.tensor(main_row, dtype=torch.float32, device=dev)
     mcmc_ms = time_ms(
@@ -2096,8 +2194,9 @@ def main() -> int:
           f"chain-steps/s; without stderr {mcmc_no_stderr_ms:.3f} ms; "
           f"RandomWalk(adapt=True) -> N(0,1) {mcmc_walk_ms:.3f} ms; layout "
           f"{tuple(mcmc_program.layout_for(main_cfg))}), "
-          f"plain {mcmc_plain_ms:.3f} ms "
-          f"({chain_steps / mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
+          f"plain {mcmc_plain_ms:.3f} ms at ({MCMC_CHECK['n_burnin']} + "
+          f"{MCMC_CHECK['n_steps']}) steps "
+          f"({plain_steps / mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
           f"integrate_mcmc() end to end {mcmc_call_ms:.3f} ms median of 5, "
           f"host clock ({chain_steps / mcmc_call_ms * 1e3:.4e} "
           f"chain-steps/s)")
@@ -2404,8 +2503,8 @@ def main() -> int:
     # 18. nd kernel and plain version at c9e's shape and configuration.
     prog, cfg, params = nd_mcmc_main["c9e"]
     main_grid = plan_mcmc_grid(plan_chains(MCMC_MAIN["n_chains"], None))
-    err, nd_mcmc_plain_ms = nd_mcmc_vs_plain(prog, cfg, params, main_grid,
-                                             "18")
+    err, nd_mcmc_plain_ms = nd_mcmc_vs_plain(
+        prog, replace(cfg, **plain_depth), params, main_grid, "18")
     nd_mcmc_err = max(nd_mcmc_err, err)
     nd_mcmc_ms = time_ms(
         lambda: mcmc_nd_cuda(prog, cfg, params, SEED, main_grid), reps=10
@@ -2434,8 +2533,9 @@ def main() -> int:
           f"[x*y], N(0,2)^2 -> joint, stderr, on {card}: kernel "
           f"{nd_mcmc_ms:.3f} ms ({chain_steps / nd_mcmc_ms * 1e3:.4e} "
           f"chain-steps/s; c10b's walk {c10b_ms:.3f} ms; layout "
-          f"{tuple(nd_mcmc_layout)}), plain {nd_mcmc_plain_ms:.3f} ms "
-          f"({chain_steps / nd_mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
+          f"{tuple(nd_mcmc_layout)}), plain {nd_mcmc_plain_ms:.3f} ms at "
+          f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps "
+          f"({plain_steps / nd_mcmc_plain_ms * 1e3:.4e} chain-steps/s), "
           f"integrate_mcmc() end to end {nd_mcmc_call_ms:.3f} ms median of "
           f"5, host clock ({chain_steps / nd_mcmc_call_ms * 1e3:.4e} "
           f"chain-steps/s)")
@@ -2538,8 +2638,8 @@ def main() -> int:
     # 22. Tempered kernel and plain version at c12's shape and
     # configuration.
     prog, cfg, params, ladder = pt_main["c12"]
-    err, pt_plain_ms, _ = pt_vs_plain(prog, cfg, params, ladder, main_grid,
-                                      "22")
+    err, pt_plain_ms, _ = pt_vs_plain(prog, replace(cfg, **plain_depth),
+                                      params, ladder, main_grid, "22")
     pt_err = max(pt_err, err)
     # Each main program's default layout against its ladder layout: the
     # same ladders bit for bit; and the kernel times of both.
@@ -2575,7 +2675,9 @@ def main() -> int:
           f"[x, x*x], adaptive walk -> logmix, stderr, on {card}: kernel "
           f"{pt_ms:.3f} ms ({lane_steps / pt_ms * 1e3:.4e} lane-steps/s, "
           f"{chain_steps / pt_ms * 1e3:.4e} chain-steps/s), plain "
-          f"{pt_plain_ms:.3f} ms ({lane_steps / pt_plain_ms * 1e3:.4e} "
+          f"{pt_plain_ms:.3f} ms at ({MCMC_CHECK['n_burnin']} + "
+          f"{MCMC_CHECK['n_steps']}) steps "
+          f"({cfg.n_temps * plain_steps / pt_plain_ms * 1e3:.4e} "
           f"lane-steps/s), integrate_mcmc() end to end {pt_call_ms:.3f} ms "
           f"median of 5, host clock ({lane_steps / pt_call_ms * 1e3:.4e} "
           f"lane-steps/s)")
@@ -4807,6 +4909,281 @@ def main() -> int:
     print(f"phases 60-63 (the nd and tempered handles) took "
           f"{time.perf_counter() - t_serve_nd:.1f} s")
 
+    # 64-67. The wide sets and control variates (libraries started in
+    # phase 2): each cell through its public call, counted from 0 (one
+    # launch a group); every pass held against its plain version on the
+    # card; each pass timed (CUDA events) and bounded on its own build,
+    # beside nvcc's spills.
+    t_wide = time.perf_counter()
+    built = [b.result() for b in wide_builds]
+    print(f"phase 64: built the wide sets' {len(built)} libraries, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel since phase 2), waited "
+          f"{time.perf_counter() - t_wide:.1f} s for the last")
+
+    def spill_bytes(lib_):
+        """The most bytes of spill stores and loads ptxas reported for any
+        function of ``lib_`` (None where it came from the build cache)."""
+        found = [tuple(int(n) for n in m.groups()) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            lib_.build_log)]
+        if not found:
+            return None, None
+        return max(f[0] for f in found), max(f[1] for f in found)
+
+    def pass_record(prog_, cfg_, dist_, n, label):
+        """One integrate pass at ``n`` samples: the kernel timed (CUDA
+        events), its bound on its own build (table loads left out) and
+        its spills."""
+        spec_ = dist_spec_of(dist_)
+        params_ = torch.tensor(spec_.params, device=dev)
+        tables_ = tables_of(prog_, dist_)
+        grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg_.method)
+        pilot_ = (pilot_values(prog_.torch_values, spec_.kind, params_,
+                               tables_) if cfg_.with_stderr else None)
+        lib_ = prog_.library(cfg_, route_of(prog_, dist_))
+
+        def run():
+            integrate_cuda(prog_, spec_.kind, params_, SEED, grid_, cfg_,
+                           pilot_, tables_)
+
+        ms_ = time_ms(run, reps=10)
+        mhz_ = clock_under_load(run, ms_)
+        bound_ = card_bound(lib_, f"integrate_kernelILi{int(spec_.kind)}EE",
+                            1, grid_.actual_samples, mhz_)
+        stores, loads = spill_bytes(lib_)
+        k_ = len(prog_.fns)
+        print(f"{label}: a pass of {k_} functions at {grid_.actual_samples} "
+              f"samples on {card}: {ms_:.4f} ms "
+              f"({grid_.actual_samples * k_ / ms_ * 1e3:.4e} samples x "
+              f"functions/s), {ms_ / bound_[0]:.2f}x its bound; spills "
+              f"{stores} / {loads} bytes (stores / loads)")
+        print_bound(bound_, mhz_, "sample")
+        return {"k": k_, "samples": grid_.actual_samples, "ms": ms_,
+                "bound_ms": bound_[0], "bound_pipe": bound_[1],
+                "issue_ms": bound_[2], "bound_mhz": mhz_,
+                "spill_stores": stores, "spill_loads": loads}
+
+    # 64. c7: K = 128 and 256 bins through compile_integrate at 2**27, one
+    # and two launches; the bins within 6 sigma + C7_TABLE_TOL of Beta(2,
+    # 5)'s masses (the 2048-entry table's interpolation moves a bin); the
+    # per-function rate of K = 256 against K = 128's (the reference
+    # expects it within ~2x).
+    n_c7 = plan_grid(make_integrate_plan(C7_SAMPLES).actual_samples).actual_samples
+    c7 = {}
+    for k in (128, 256):
+        groups = c7_groups[k]
+        handle = serve.compile_integrate(hist_fns(k), c7_beta,
+                                         n_samples=C7_SAMPLES)
+        integrate_cuda.launches = 0
+        out = handle(SEED)
+        torch.cuda.synchronize()
+        launches = integrate_cuda.launches
+        print(f"phase 64: c7, compile_integrate({k} bins of [0, 1), Beta(2,5) "
+              f"{C7_TABLE_SIZE}-entry table, n_samples={C7_SAMPLES})(seed): "
+              f"{launches} launch(es), groups {[len(g.fns) for g in groups]}")
+        if launches != len(groups):
+            fail(f"phase 64: c7 K={k} is not one launch a group")
+        v = out.double().cpu().numpy()
+        masses = hist_masses(k)
+        off = np.abs(v - masses)
+        gate = 6.0 * np.sqrt(masses * (1.0 - masses) / n_c7) + C7_TABLE_TOL
+        print(f"  bins sum to {v.sum():.7f}; max |bin - mass| "
+              f"{off.max():.3e}, at most {np.max(off / gate):.3f} of 6 sigma "
+              f"+ {C7_TABLE_TOL:g}")
+        if v.shape != (k,) or not np.all(np.isfinite(v)):
+            fail(f"phase 64: bad c7 K={k} result")
+        if abs(v.sum() - 1.0) > 1e-5 or np.any(off > gate):
+            fail(f"phase 64: c7 K={k}'s bins are off Beta(2,5)'s masses")
+        err = max(mode_vs_plain(p, c7_beta, MC_CFG, C7_CHECK_SAMPLES, "64")
+                  for p in groups)
+        passes = [pass_record(p, MC_CFG, c7_beta, C7_SAMPLES,
+                              f"phase 64: c7 K={k}, pass {g}")
+                  for g, p in enumerate(groups)]
+        card_ms = sum(p["ms"] for p in passes)
+        call_ms = time_ms(lambda h=handle: h(SEED), reps=10)
+        c7[f"k{k}"] = {
+            "launches": launches, "groups": [p["k"] for p in passes],
+            "max_abs_err": err, "samples": n_c7, "ms": card_ms,
+            "call_card_ms": call_ms,
+            "samples_functions_per_s": n_c7 * k / card_ms * 1e3,
+            "bound_ms": sum(p["bound_ms"] for p in passes), "passes": passes,
+            "max_bin_err": float(off.max())}
+        print(f"  c7 K={k} on {card}: {card_ms:.4f} ms of passes a call "
+              f"({call_ms:.4f} ms between the handle call's events), "
+              f"{c7[f'k{k}']['samples_functions_per_s']:.4e} samples x "
+              "functions/s")
+    c7["rate_ratio"] = (c7["k256"]["samples_functions_per_s"]
+                        / c7["k128"]["samples_functions_per_s"])
+    print(f"phase 64: K=256's per-function rate is {c7['rate_ratio']:.3f} of "
+          "K=128's: the reference's 'within ~2x' "
+          f"{'holds' if c7['rate_ratio'] >= 0.5 else 'does not hold'}")
+
+    # 65. K = 128 with error bars: c7's 128 bins through compile_integrate
+    # with return_stderr=True, one launch; the pass against its plain
+    # version; timed, bounded, its spills.
+    handle = serve.compile_integrate(hist_fns(128), c7_beta,
+                                     n_samples=C7_SAMPLES, return_stderr=True)
+    integrate_cuda.launches = 0
+    v65, s65 = handle(SEED)
+    torch.cuda.synchronize()
+    launches65 = integrate_cuda.launches
+    masses = hist_masses(128)
+    v65, s65 = v65.double().cpu().numpy(), s65.double().cpu().numpy()
+    # A bin the run drew no sample in (Beta(2, 5)'s mass past x = 0.99 is
+    # 1e-11) has the error bar 0.
+    drawn = v65 > 0
+    print(f"phase 65: c7's 128 bins with error bars, {launches65} launch(es); "
+          f"{int(drawn.sum())} bins drawn, max |bin - mass| / stderr over "
+          f"them {np.max(np.abs(v65 - masses)[drawn] / s65[drawn]):.2f}")
+    if launches65 != 1 or not (np.all(np.isfinite(v65))
+                               and np.array_equal(s65 > 0, drawn)):
+        fail("phase 65: bad K=128 error-bar result")
+    err65 = mode_vs_plain(c7_groups[128][0], c7_beta, stderr_cfg,
+                          C7_CHECK_SAMPLES, "65")
+    k128_stderr = pass_record(c7_groups[128][0], stderr_cfg, c7_beta,
+                              C7_SAMPLES, "phase 65: c7 K=128, error bars")
+    k128_stderr.update(launches=launches65, max_abs_err=err65)
+
+    # 66. The wide MCMC sets at MCMC_CHECK's shape with error bars through
+    # integrate_mcmc (one chain and one pilot launch a group, the passes'
+    # chains checked equal in the call); each pass against its plain
+    # version at WIDE_MCMC_CHECK's depth; the passes' final states and
+    # accept (and swap) counts bit for bit; each pass timed and bounded
+    # (pipes on its one-lane or ladder build, latency) with its spills.
+    wide_check = wide_mcmc_setups(WIDE_MCMC_CHECK)
+    w_depth = MCMC_CHECK["n_steps"] + MCMC_CHECK["n_burnin"]
+    w_steps = check_grid.chains_actual * w_depth
+    mcmc_wide = {}
+    for name, (target_, proposal_, temps, wrapper) in wide_mcmc_cells.items():
+        setups = wide_mcmc[name]
+        ks = [s_["k"] for s_ in setups]
+        extra = {} if temps is None else {"temperatures": temps}
+        wrapper.launches = wrapper.pilot_launches = 0
+        t0 = time.perf_counter()
+        r = tm.integrate_mcmc(WIDE_MCMC_FNS[name], target_, proposal_,
+                              return_stderr=True, seed=SEED, **MCMC_CHECK,
+                              **extra)
+        call_s = time.perf_counter() - t0
+        launches = (wrapper.launches, wrapper.pilot_launches)
+        v, se = np.asarray(r.values), np.asarray(r.stderr)
+        z = (v - WIDE_MCMC_EXACT[name]) / se
+        print(f"phase 66: {name}'s shape, {len(v)} functions in groups {ks}, "
+              f"{check_grid.chains_actual} chains x ({MCMC_CHECK['n_burnin']} "
+              f"+ {MCMC_CHECK['n_steps']}), error bars: integrate_mcmc in "
+              f"{call_s:.3f} s (host clock, first call), launches (chain, "
+              f"pilot) {launches}; E[f] - {WIDE_MCMC_EXACT[name]} within "
+              f"{np.abs(z).max():.2f} stderr, acceptance "
+              f"{r.acceptance_rate:.4f}"
+              + ("" if temps is None else
+                 f", swap rate {r.diagnostics['swap_rate']:.4f}"))
+        if launches != (len(setups), len(setups)):
+            fail(f"phase 66: {name} is not one chain and one pilot launch "
+                 "a group")
+        if not np.all(np.isfinite(v)) or np.any(np.abs(z) > 6.0):
+            fail(f"phase 66: {name}'s estimates are off their closed form")
+        err = max(custom_vs_plain(s_, check_grid, "66")[0]
+                  for s_ in wide_check[name])
+        outs = [s_["kernel"](check_grid) for s_ in setups]
+        try:
+            check_same_chains(outs, ks, swap=temps is not None)
+        except RuntimeError as e:
+            fail(f"phase 66: {name}: {e}")
+        print(f"phase 66: {name}'s {len(setups)} passes ended in the same "
+              "states with the same accept"
+              + (" and swap" if temps is not None else "")
+              + " counts, bit for bit")
+        cfg_ = setups[0]["cfg"]
+        rungs = 1 if temps is None else cfg_.n_temps
+        conversions = (2 if wrapper is mcmc_cuda else
+                       cfg_.d + 1 if wrapper is mcmc_nd_cuda else
+                       cfg_.n_temps * (cfg_.d + 1) + (cfg_.n_temps - 1) // 2)
+        function = {mcmc_cuda: "mcmc_kernel", mcmc_nd_cuda: "mcmc_nd_kernel",
+                    mcmc_pt_cuda: "mcmc_pt_kernel"}[wrapper]
+        passes = []
+        for g, s_ in enumerate(setups):
+            ms_ = time_ms(lambda s_=s_: s_["kernel"](check_grid), reps=5)
+            mhz_ = clock_under_load(lambda s_=s_: s_["kernel"](check_grid),
+                                    ms_)
+            bound_ = card_bound(
+                custom_mcmc_library(s_, bound=True), function, conversions,
+                w_steps, mhz_,
+                warps=function_warps(cfg_.mode, check_grid.chains_actual,
+                                     rungs),
+                weights=(MCMC_CHECK["n_steps"], MCMC_CHECK["n_burnin"]))
+            stores, loads = spill_bytes(custom_mcmc_library(s_))
+            print(f"phase 66: {name} pass {g} ({s_['k']} functions) on "
+                  f"{card}: {ms_:.4f} ms ({w_steps / ms_ * 1e3:.4e} "
+                  f"chain-steps/s); spills {stores} / {loads} bytes (stores "
+                  "/ loads)")
+            print_bound(bound_, mhz_, "chain-step")
+            latency_ = print_latency(bound_, w_depth, mhz_)
+            passes.append({
+                "k": s_["k"], "ms": ms_, "bound_ms": max(bound_[0], latency_),
+                "bound_by": bound_by(bound_, latency_),
+                "bound_pipe": bound_[1], "pipe_bound_ms": bound_[0],
+                "latency_ms": latency_, "issue_ms": bound_[2],
+                "bound_mhz": mhz_, "spill_stores": stores,
+                "spill_loads": loads})
+        mcmc_wide[name] = {
+            "launches": launches[0], "pilot_launches": launches[1],
+            "groups": ks, "n_steps": MCMC_CHECK["n_steps"],
+            "n_burnin": MCMC_CHECK["n_burnin"], "max_abs_err": err,
+            "ms": sum(p["ms"] for p in passes),
+            "bound_ms": sum(p["bound_ms"] for p in passes),
+            "passes": passes, "max_z": float(np.abs(z).max()),
+            "acceptance_rate": r.acceptance_rate,
+            **({} if temps is None else
+               {"swap_rate": r.diagnostics["swap_rate"]})}
+
+    # 67. Control variates: exp(x/2) and 31 shifted copies under N(0, 1)
+    # with the controls x, x^2, x^3, sin x at 2**24, through integrate():
+    # 174 composed integrands (two launches), then with error bars (206,
+    # two launches) against the plain run's; each pass against its plain
+    # version at 2**22; the 174 set's passes timed and bounded.
+    n_cv = plan_grid(make_integrate_plan(CV_SAMPLES).actual_samples).actual_samples
+    integrate_cuda.launches = 0
+    t0 = time.perf_counter()
+    cv = serve.integrate(CV_FNS, n01, n_samples=CV_SAMPLES, seed=SEED,
+                         control_variates=CV_CONTROLS)
+    cv_s = time.perf_counter() - t0
+    cv_launches = integrate_cuda.launches
+    cv_se = serve.integrate(CV_FNS, n01, n_samples=CV_SAMPLES, seed=SEED,
+                            control_variates=CV_CONTROLS, return_stderr=True)
+    plain_cv = serve.integrate(CV_FNS, n01, n_samples=CV_SAMPLES, seed=SEED,
+                               return_stderr=True)
+    total_launches = integrate_cuda.launches
+    z = (cv_se.values - np.asarray(CV_MEANS)) / cv_se.stderr
+    ratio = cv_se.stderr / plain_cv.stderr
+    print(f"phase 67: control variates, {len(CV_FNS)} functions and "
+          f"{len(CV_CONTROLS)} controls at {n_cv} samples: the 174-integrand "
+          f"set in groups {[len(p.fns) for p in cv_groups[False]]}, "
+          f"{cv_launches} launch(es), first call {cv_s:.3f} s (host clock); "
+          f"with error bars groups {[len(p.fns) for p in cv_groups[True]]} "
+          f"and the plain run, {total_launches - cv_launches} more; within "
+          f"{np.abs(z).max():.2f} error bars of the closed forms; error bar "
+          f"{ratio.min():.4f}-{ratio.max():.4f} of the plain run's; values "
+          f"of the two CV runs equal: {np.array_equal(cv.values, cv_se.values)}")
+    if cv_launches != len(cv_groups[False]) or total_launches != (
+            len(cv_groups[True]) + 1 + cv_launches):
+        fail("phase 67: a control-variate run is not one launch a group")
+    if not (np.all(np.isfinite(cv.values)) and np.all(np.abs(z) <= 6.0)
+            and np.all(ratio < 1.0)):
+        fail("phase 67: the control-variate estimates are off")
+    cv_err = max(mode_vs_plain(p, n01, MC_CFG, CV_CHECK_SAMPLES, "67")
+                 for groups in cv_groups.values() for p in groups)
+    cv_passes = [pass_record(p, MC_CFG, n01, CV_SAMPLES,
+                             f"phase 67: control variates, pass {g}")
+                 for g, p in enumerate(cv_groups[False])]
+    cv_rec = {"launches": cv_launches, "groups": [p["k"] for p in cv_passes],
+              "max_abs_err": cv_err, "samples": n_cv,
+              "ms": sum(p["ms"] for p in cv_passes),
+              "bound_ms": sum(p["bound_ms"] for p in cv_passes),
+              "passes": cv_passes, "max_z": float(np.abs(z).max()),
+              "stderr_ratio": [float(ratio.min()), float(ratio.max())]}
+    print(f"phases 64-67 (the wide sets and control variates) took "
+          f"{time.perf_counter() - t_wide:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -4831,6 +5208,8 @@ def main() -> int:
         "families": {"launches": family_launches,
                      "max_abs_err": family_err, **family_times},
         "batch": serving["integrate"],
+        "wide": {"c7": c7, "k128_stderr": k128_stderr,
+                 "control_variates": cv_rec},
     }, {
         "name": "mcmc",
         "route": "cuda",
@@ -4841,6 +5220,7 @@ def main() -> int:
         "max_abs_err": mcmc_err,
         "ms": mcmc_ms,
         "plain_ms": mcmc_plain_ms,
+        "plain_steps": [MCMC_CHECK["n_burnin"], MCMC_CHECK["n_steps"]],
         "bound_ms": mcmc_bound[0],
         "bound_by": "operations",
         "bound_pipe": mcmc_bound[1],
@@ -4855,6 +5235,7 @@ def main() -> int:
         "hmc": hmc,
         "state": state["c5b"],
         "batch": serving["mcmc"],
+        "wide": mcmc_wide["c5b"],
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -4900,6 +5281,7 @@ def main() -> int:
         "max_abs_err": nd_mcmc_err,
         "ms": nd_mcmc_ms,
         "plain_ms": nd_mcmc_plain_ms,
+        "plain_steps": [MCMC_CHECK["n_burnin"], MCMC_CHECK["n_steps"]],
         "bound_ms": nd_mcmc_bound[0],
         "bound_by": "operations",
         "bound_pipe": nd_mcmc_bound[1],
@@ -4914,6 +5296,7 @@ def main() -> int:
         "state": state["c9e"],
         "hmc": {"c11b": hmc_nd["c11b"]},
         "batch": serving["mcmc_nd"],
+        "wide": mcmc_wide["c9e"],
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -4924,6 +5307,7 @@ def main() -> int:
         "max_abs_err": pt_err,
         "ms": pt_ms,
         "plain_ms": pt_plain_ms,
+        "plain_steps": [MCMC_CHECK["n_burnin"], MCMC_CHECK["n_steps"]],
         "bound_ms": pt_bound[0],
         "bound_by": "operations",
         "bound_pipe": pt_bound[1],
@@ -4941,6 +5325,7 @@ def main() -> int:
         "outputs": outputs["mcmc_pt"],
         "hmc": {"c12b": hmc_nd["c12b"]},
         "batch": serving["mcmc_pt"],
+        "wide": mcmc_wide["c12"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

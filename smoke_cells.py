@@ -363,3 +363,84 @@ ND_SERVING_TARGETS = [[(0.0, 1.0), (0.0, 1.0)], [(0.5, 1.5), (-0.5, 1.0)],
                       [(1.0, 0.5), (0.25, 2.0)], [(-1.0, 1.0), (1.0, 0.75)]]
 ND_SERVING_PROPOSALS = [2.0, 2.5, 1.5, 3.0]  # s_q of N(0, s_q) per dimension
 ND_SERVING_STEPS = [(0.8, 0.8), (1.2, 0.9), (0.5, 1.6), (1.0, 0.7)]
+
+
+# Wide sets and control variates (phases 64-67).  c7
+# (benchmarks/run_all.py:262-292): a K-bin histogram of Beta(2, 5) drawn
+# from its 2048-entry table, K = 128 (one launch) and 256 (two passes of
+# 128), at C7_SAMPLES, through compile_integrate; the reference expects
+# the K = 256 per-function rate within ~2x of K = 128's.  Each bin's mass
+# is the difference of the Beta(2, 5) CDF, 15 x^2 - 40 x^3 + 45 x^4 - 24
+# x^5 + 5 x^6.
+C7_SAMPLES = 1 << 27
+C7_CHECK_SAMPLES = 1 << 22
+C7_TABLE_SIZE = 2048
+# A bin's mass under the table the kernel samples (the 2048-entry table,
+# resampled to the kernel's strata) differs from Beta(2, 5)'s by up to 4e-5
+# (3.9e-5 at K = 128 and 2.1e-5 at K = 256 on an H100): each bin is held
+# within 6 sigma + C7_TABLE_TOL of the closed form, and each pass to its
+# plain version, which samples the same table, within rel 1e-5.
+C7_TABLE_TOL = 1e-4
+
+
+def _bin(lo, hi):
+    return lambda v: (v >= lo) * (v < hi)
+
+
+def hist_fns(k):
+    edges = np.linspace(0.0, 1.0, k + 1)
+    return [_bin(float(lo), float(hi)) for lo, hi in zip(edges[:-1], edges[1:])]
+
+
+def beta25_cdf(x):
+    return (15.0 * x ** 2 - 40.0 * x ** 3 + 45.0 * x ** 4 - 24.0 * x ** 5
+            + 5.0 * x ** 6)
+
+
+def hist_masses(k):
+    edges = np.linspace(0.0, 1.0, k + 1)
+    return np.diff(beta25_cdf(edges))
+
+
+# The wide MCMC cells at MCMC_CHECK's shape with error bars: K = 254 over
+# c5b (N(0, 1) from N(0, 2)) and c9e (the rho = 0.8 joint from N(0, 2)^2),
+# two groups of 127; K = 252 over c12's ladder and walk, two groups of
+# 126.  f_j = x^2 + c_j x (E = 1 on c5b, 17 on c12's logmix) and x y + c_j
+# x (E = 0.8), c_j = j / 64.
+def _affine1(c):
+    return lambda x: x * x + c * x
+
+
+def _affine2(c):
+    return lambda x, y: x * y + c * x
+
+
+WIDE_MCMC_K = {"c5b": 254, "c9e": 254, "c12": 252}
+WIDE_MCMC_FNS = {
+    "c5b": [_affine1(j / 64.0) for j in range(254)],
+    "c9e": [_affine2(j / 64.0) for j in range(254)],
+    "c12": [_affine1(j / 64.0) for j in range(252)],
+}
+WIDE_MCMC_EXACT = {"c5b": 1.0, "c9e": 0.8, "c12": 17.0}
+
+
+# The control-variate cell: exp(x/2) and 31 shifted copies under N(0, 1)
+# with the controls x, x^2, x^3 and sin x (known means 0, 1, 0, 0), at
+# CV_SAMPLES: 32 + 4 + 128 + 10 = 174 composed integrands (two passes),
+# 206 with error bars.
+CV_SAMPLES = 1 << 24
+
+
+def _exp_half(c):
+    return lambda x: math.e ** (0.5 * x) + c
+
+
+CV_FNS = [_exp_half(j / 8.0) for j in range(32)]
+CV_MEANS = [math.exp(0.125) + j / 8.0 for j in range(32)]
+CV_CONTROLS = [(lambda x: x, 0.0), (lambda x: x * x, 1.0),
+               (lambda x: x * x * x, 0.0), (lambda x: math.sin(x), 0.0)]
+# The depth at which each wide MCMC pass is held against its plain
+# version on the card (the plain version takes a torch op per integrand
+# and step): MCMC_CHECK's chains, 50 + 250 steps.
+WIDE_MCMC_CHECK = dict(n_chains=4096, n_steps=250, n_burnin=50)
+CV_CHECK_SAMPLES = 1 << 22

@@ -3180,3 +3180,82 @@ def test_nd_and_tempered_handles_on_the_card(cuda_device):
     np.testing.assert_array_less(
         (got[0].cpu() - want[0]).abs().numpy(),
         (0.2 * want[3] + 1e-6).numpy())
+
+
+# -- sets wider than one launch takes, and control variates -------------------
+
+
+@pytest.mark.cuda
+def test_wide_integrate_passes_on_the_card(cuda_device):
+    """More than 128 functions on the card: one launch a group, the same
+    integrand bit-equal in both passes, each pass its single launch over
+    its group bit for bit, and the plain version's values on the CPU
+    within rel 1e-5 + 1e-6."""
+    sq = tm.trace_function(lambda x: x * x)
+    gpu = tm.MonteCarloIntegrator()
+    n01 = tm.Distribution.normal(0.0, 1.0)
+    before = integrate_cuda.launches
+    r = gpu.integrate([sq] * 129, n01, n_samples=1 << 22)
+    assert integrate_cuda.launches == before + 2
+    assert np.all(r.values == r.values[0])
+    fns = [tm.trace_function(f) for f in WIDEST] + [sq, sq]
+    for stderr in (False, True):
+        wide = gpu.integrate(fns, n01, n_samples=1 << 22,
+                             return_stderr=stderr)
+        parts = [gpu.integrate(fns[:65], n01, n_samples=1 << 22,
+                               return_stderr=stderr),
+                 gpu.integrate(fns[65:], n01, n_samples=1 << 22,
+                               return_stderr=stderr)]
+        np.testing.assert_array_equal(
+            wide.values, np.concatenate([p.values for p in parts]))
+        if stderr:
+            np.testing.assert_array_equal(
+                wide.stderr, np.concatenate([p.stderr for p in parts]))
+    cpu = tm.MonteCarloIntegrator(device="cpu").integrate(
+        fns, n01, n_samples=1 << 22)
+    np.testing.assert_allclose(wide.values, cpu.values, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_wide_mcmc_passes_run_the_same_chains_on_the_card(cuda_device):
+    """Two groups on the card, 1-D, nd and tempered: the same integrand
+    bit-equal at the same place of each pass (the call checks the passes'
+    states and counts), and close to the CPU's plain passes."""
+    gpu = tm.MonteCarloIntegrator()
+    cpu = tm.MonteCarloIntegrator(device="cpu")
+    n = tm.Distribution.normal
+    kw = dict(n_steps=300, n_chains=4096, n_burnin=100, return_stderr=True)
+    one = tm.trace_function(lambda x: x * x + 0.5 * x)
+    two = tm.trace_function(lambda x, y: x * y + 0.5 * x, 2)
+    cases = [
+        ([one] * 128, n(0.0, 1.0), n(0.0, 2.0), {}),
+        ([two] * 128, _c9e_target(), [n(0.0, 2.0)] * 2, {}),
+        ([one] * 128, _logmix, tm.RandomWalk(**_C12_WALK),
+         {"temperatures": _LADDER4}),
+    ]
+    for fns, target, proposal, extra in cases:
+        got = gpu.integrate_mcmc(fns, target, proposal, **kw, **extra)
+        np.testing.assert_array_equal(got.values[:64], got.values[64:])
+        np.testing.assert_array_equal(got.stderr[:64], got.stderr[64:])
+        want = cpu.integrate_mcmc(fns, target, proposal, **kw, **extra)
+        np.testing.assert_array_less(np.abs(got.values - want.values),
+                                     0.2 * want.stderr + 1e-6)
+
+
+@pytest.mark.cuda
+def test_control_variates_on_the_card(cuda_device):
+    """A composed set over 128 (two passes) on the card against the CPU's
+    plain version: values within rel 1e-5, error bars within rel 1e-3."""
+    fns = [(lambda c: lambda x: math.e ** (0.5 * x) + c)(j / 8.0)
+           for j in range(20)]
+    controls = [(lambda x: x, 0.0), (lambda x: x * x, 1.0),
+                (lambda x: x * x * x, 0.0), (lambda x: math.sin(x), 0.0)]
+    kw = dict(n_samples=1 << 22, return_stderr=True,
+              control_variates=controls)
+    n01 = tm.Distribution.normal(0.0, 1.0)
+    before = integrate_cuda.launches
+    got = tm.MonteCarloIntegrator().integrate(fns, n01, **kw)
+    assert integrate_cuda.launches == before + 2
+    want = tm.MonteCarloIntegrator(device="cpu").integrate(fns, n01, **kw)
+    np.testing.assert_allclose(got.values, want.values, rtol=1e-5)
+    np.testing.assert_allclose(got.stderr, want.stderr, rtol=1e-3)

@@ -475,28 +475,51 @@ def _while_pdf(x):
 
 
 def test_out_of_scope_options_name_their_roadmap_items():
+    """What still raises, naming its item; what raised here before and
+    runs since (more than 127/128/126 functions in passes, nd control
+    variates) is checked by test_wide_and_control_variate_options_run."""
     integ = tm.MonteCarloIntegrator(device="cpu")
     u = tm.Distribution.uniform(0.0, 1.0)
     f2 = [lambda x, y: x * y]
-    wide = [_plus(float(c)) for c in range(129)]
-    wide1 = [(lambda c: lambda x: x + c)(float(c)) for c in range(127)]
     # A density with a while loop: the JAX package traces it; the port's
     # front end names item 3 rather than take the PDF-table fallback.
     untraceable = tm.Distribution(tm.DistributionType.CUSTOM, {}, _while_pdf)
     cases = {
-        r"item 8\.8 ": lambda: integ.compile_mcmc(wide, [u, u], [u, u], seed_batch=4),
-        r"item 7\.5 ": lambda: integ.integrate(f2, [u, u], control_variates=[(f2[0], 0.25)]),
-        r"item 7\.5 \(nd control variates and expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),
-        r"item 7\.6 ": lambda: integ.integrate(wide, [u, u], n_samples=1000),
+        r"item 7\.5 \(nd expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),
         r"item 12 ": lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
-        r"item 9\.7 ": lambda: integ.compile_mcmc(wide1, u, u,
-                                                  temperatures=[1.0, 2.0]),
         r"item 3 ": lambda: integ.integrate_importance_sampling([lambda x: x], untraceable, u),
         r"item 10 ": lambda: integ.expectation_fn([lambda x: x], u),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
             case()
+
+
+def test_wide_and_control_variate_options_run():
+    """The cases the test above raised on before they were ported: nd
+    MCMC over 129 functions in a seed-batched handle, nd integrate over
+    129, tempering over 127 (in passes of at most 127, 128 and 126), and
+    nd control variates (E[xy] = 1/4 over U(0, 1)^2, the control its own
+    integrand: exact)."""
+    integ = tm.MonteCarloIntegrator(device="cpu")
+    u = tm.Distribution.uniform(0.0, 1.0)
+    f2 = [lambda x, y: x * y]
+    wide = [_plus(float(c)) for c in range(129)]
+    wide1 = [(lambda c: lambda x: x + c)(float(c)) for c in range(127)]
+    short = dict(n_steps=10, n_burnin=2)
+    nd_handle = integ.compile_mcmc(wide, [u, u], [u, u], seed_batch=4,
+                                   **short)([1, 2, 3, 4])[0].numpy()
+    nd_values = integ.integrate(wide, [u, u], n_samples=1000).values
+    pt_handle = integ.compile_mcmc(wide1, u, u, temperatures=[1.0, 2.0],
+                                   **short)(5)[0].numpy()
+    for values, k in ((nd_handle, 129), (nd_values, 129), (pt_handle, 127)):
+        assert values.shape[-1] == k
+        shift = values - values[..., :1]
+        np.testing.assert_allclose(shift, np.broadcast_to(
+            np.arange(float(k)), shift.shape), atol=1e-3)
+    cv = integ.integrate(f2, [u, u], n_samples=1000,
+                         control_variates=[(f2[0], 0.25)])
+    assert abs(cv.values[0] - 0.25) < 1e-6
 
 
 def test_the_former_refusals_run():

@@ -473,17 +473,33 @@ def _not_ported_cases():
         r"item 9\.8 \(tempering over the CUSTOM dimensions": (
             lambda: run(proposal=heavy)),
         r"item 9\.7 \(tempering over more than 126 functions\)": (
-            lambda: integ.compile_mcmc(wide, logmix, walk,
-                                       temperatures=[1.0, 2.0], seed_batch=4)),
+            lambda: integ.compile_mcmc(wide, logmix, walk, n_steps=10,
+                                       n_burnin=2, temperatures=[1.0, 2.0],
+                                       seed_batch=4)([1, 2, 3, 4])[0]),
         r"item 3 \(integrand front end\)": lambda: integ.compile_mcmc(
             FNS2[:1], "fn f(x: f32, y: f32) -> f32 { return -x * x; }",
             [n, cauchy], temperatures=[1.0, 2.0], seed_batch=4),
-        r"item 9\.7 ": lambda: run(fns=wide),
+        r"item 9\.7 ": lambda: run(fns=wide).values,
     }
+
+
+# Ids whose item the port has since done: more than 126 functions run in
+# passes of at most 126 (api/passes.py), so the call returns its values.
+PORTED = (r"item 9\.7 \(tempering over more than 126 functions\)",
+          r"item 9\.7 ")
 
 
 @pytest.mark.parametrize("item", list(_not_ported_cases()))
 def test_out_of_scope_options_name_their_roadmap_items(item):
+    if item in PORTED:
+        # 127 functions x + c in two passes (64 + 63): E[x + c] - E[x] = c
+        # on the same chains, for every c.
+        values = np.asarray(_not_ported_cases()[item]())
+        assert values.shape[-1] == 127 and np.all(np.isfinite(values))
+        shift = values - values[..., :1]
+        np.testing.assert_allclose(shift, np.broadcast_to(
+            np.arange(127.0), shift.shape), atol=1e-3)
+        return
     with pytest.raises(NotImplementedError,
                        match="tpu_montecarlo_torch yet; see ROADMAP.md, "
                              "queue 1 " + item):

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..tracing import trace_function
+from ..tracing import TracedFunction, trace_function
 from ..utils.roadmap import FRONT_END, not_ported
 
 
@@ -35,7 +35,7 @@ class _BaseMixin:
         for func in functions:
             if isinstance(func, str):
                 raise not_ported("WGSL source strings", FRONT_END)
-            if callable(func):
+            if callable(func) or isinstance(func, TracedFunction):
                 traced.append(trace_function(func, n_args))
             else:
                 raise TypeError(

@@ -108,11 +108,10 @@ class _ImportanceMixin:
             # The weight's mean and spread: the weighted constant 1 and
             # its error bar.
             traced += (_unit_integrand(),)
-        program = self._integrate_program(traced, weight)
         values, stderr = self._run(
-            self._integrate_handle, program, proposal_distribution,
-            n_samples, seed, method, return_stderr or return_diagnostics,
-            qmc_rotations,
+            self._integrate_handle, self._integrate_groups(traced, weight),
+            proposal_distribution, n_samples, seed, method,
+            return_stderr or return_diagnostics, qmc_rotations,
         )
         return _is_result(values, stderr, n_samples, len(functions),
                           return_stderr, return_diagnostics)
@@ -139,9 +138,9 @@ class _ImportanceMixin:
         weight = tuple(self._is_weight_dim(t, q)
                        for t, q in zip(targets, proposals))
         kinds = tuple(dist_spec_of(q).kind for q in proposals)
-        program = self._nd_program(traced, kinds, weight)
         values, stderr = self._run(
-            self._nd_handle, program, proposals, n_samples, seed, method,
+            self._nd_handle, self._nd_groups(traced, kinds, weight),
+            proposals, n_samples, seed, method,
             return_stderr or return_diagnostics, qmc_rotations,
         )
         return _is_result(values, stderr, n_samples, len(functions),
@@ -208,14 +207,14 @@ class _ImportanceMixin:
                                for t, q in zip(targets, proposals))
                 kinds = tuple(dist_spec_of(q).kind for q in proposals)
                 return self._nd_handle(
-                    self._nd_program(traced, kinds, weight), proposals,
+                    self._nd_groups(traced, kinds, weight), proposals,
                     n_samples, seed_batch, method, False, return_stderr)
             target_distribution = targets[0]
             proposal_distribution = proposals[0]
         traced = self._trace_user_functions(functions)
         weight = self._is_weight(target_distribution, proposal_distribution)
         return self._integrate_handle(
-            self._integrate_program(traced, weight), proposal_distribution,
+            self._integrate_groups(traced, weight), proposal_distribution,
             n_samples, seed_batch, method, False, return_stderr)
 
     @staticmethod

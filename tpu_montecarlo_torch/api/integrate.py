@@ -1,5 +1,7 @@
 """Monte Carlo integration, 1-D and multi-dimensional (port of the
-1-D and nd paths of ``tpu_montecarlo/api/integrate.py``)."""
+1-D and nd paths of ``tpu_montecarlo/api/integrate.py``), with its
+multi-pass path over more than 128 functions (``api/passes.py``) and
+control variates."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 
 from ..distributions import Distribution
 from ..ops.integrate_kernel import (
+    LANES,
     MAX_FUNCTIONS,
     METHODS,
     IntegrateConfig,
@@ -29,18 +32,15 @@ from ..ops.integrate_nd_kernel import (
     nd_routes,
     pilot_row,
 )
+from ..ops.lower import to_torch
 from ..sampling import DistKind, dist_spec_of, ensure_param_batch_family
+from ..tracing import product, shifted
 from ..utils.dispatch import make_integrate_plan
-from ..utils.roadmap import (
-    API_SURFACE,
-    ND_CV,
-    ND_WIDE,
-    VARIANTS,
-    not_ported,
-)
+from ..utils.roadmap import API_SURFACE, ND_CV, not_ported
 from .batching import _check_nd_params, _checked_batch_prog, stage_seeds
 from .cache import fns_key
 from .device import nd_tables, sampling_tables
+from .passes import build_all, cat_passes, split_groups
 from .results import IntegrationResult
 
 def _rotation_seeds(seed, r: int) -> np.ndarray:
@@ -81,6 +81,32 @@ def _as_dims(distribution):
             "Distribution objects (one per integrand argument)"
         )
     return dists
+
+
+def cv_composed(traced_f, traced_g, dists, return_stderr: bool):
+    """``(composed, a, b)`` of a control-variate run: the set the run
+    integrates in ``_integrate_with_cv``'s order (f, g, the f*g products,
+    the g*g upper triangle, f*f under error bars), pilot-shifted by ``a``
+    and ``b``, each function's float32 mean over an (8, 128) block of the
+    distributions' medians on the host's plain lowering."""
+    meds = [torch.full((8, LANES), float(dd.quantile(0.5)),
+                       dtype=torch.float32) for dd in dists]
+
+    def pilot(t):
+        return float(to_torch(t)(*meds).mean())
+
+    a = np.array([pilot(t) for t in traced_f])
+    b = np.array([pilot(t) for t in traced_g])
+    sf = [shifted(t, ai) for t, ai in zip(traced_f, a)]
+    sg = [shifted(t, bj) for t, bj in zip(traced_g, b)]
+    k, n_cv = len(sf), len(sg)
+    composed = list(traced_f) + list(traced_g)
+    composed += [product(sf[i], sg[j]) for i in range(k) for j in range(n_cv)]
+    composed += [product(sg[j], sg[l]) for j in range(n_cv)
+                 for l in range(j, n_cv)]
+    if return_stderr:
+        composed += [product(sf[i], sf[i]) for i in range(k)]
+    return tuple(composed), a, b
 
 
 class _IntegrateMixin:
@@ -132,18 +158,26 @@ class _IntegrateMixin:
         zero-density spans), or, when heavy-tailed, inverts its CDF knots
         exactly.
 
-        Control variates and more than 128 functions are not ported yet
-        and raise ``NotImplementedError``."""
+        More than 128 functions run as passes of at most 128 over the
+        identical stream (``api/passes.py``), one launch each.
+
+        ``control_variates=[(g, E[g]), ...]`` (``"mc"`` only, 1-D or nd):
+        each estimate is corrected by controls of known mean,
+        ``theta_i = mean(f_i) - c_i^T (mean(g) - E[g])`` with the
+        regression coefficients ``c_i = Cov(g)^-1 Cov(g, f_i)``, from one
+        run of the composed set (:meth:`_integrate_with_cv`); the error
+        bars are the regression's residual ones."""
+        if control_variates is not None:
+            return self._integrate_with_cv(
+                functions, distribution, n_samples, seed, method,
+                return_stderr, control_variates,
+            )
         dists = _as_dims(distribution)
         if dists is not None and len(dists) > 1:
-            if control_variates is not None:
-                raise not_ported("control variates in nd integrate", ND_CV)
             return self._integrate_nd(
                 functions, dists, n_samples, seed, method, return_stderr,
                 qmc_rotations,
             )
-        if control_variates is not None:
-            raise not_ported("control variates", VARIANTS)
         if dists is not None:
             distribution = dists[0]
         if method not in METHODS:
@@ -151,10 +185,10 @@ class _IntegrateMixin:
                 f"method must be 'mc', 'qmc' or 'antithetic', got {method!r}"
             )
         traced = self._trace_user_functions(functions)
-        program = self._integrate_program(traced)
         values, stderr = self._run(
-            self._integrate_handle, program, distribution, n_samples, seed,
-            method, return_stderr, qmc_rotations,
+            self._integrate_handle, self._integrate_groups(traced),
+            distribution, n_samples, seed, method, return_stderr,
+            qmc_rotations,
         )
         return IntegrationResult(
             values=values, n_samples=n_samples, n_functions=len(functions),
@@ -164,14 +198,10 @@ class _IntegrateMixin:
     # -- 1-D (kernel 1, ops/integrate_kernel.py) ----------------------------
 
     def _integrate_program(self, traced, weight=None) -> IntegrateProgram:
-        """The cached program of a traced set, weighted by ``weight=(p,
-        q)`` for importance sampling (each a traced density, a weight
-        table or the sampler's density, keyed by content)."""
-        if len(traced) > MAX_FUNCTIONS:
-            raise not_ported(
-                f"more than {MAX_FUNCTIONS} fused functions (multi-pass)",
-                VARIANTS,
-            )
+        """The cached program of a traced set of at most 128 functions,
+        weighted by ``weight=(p, q)`` for importance sampling (each a
+        traced density, a weight table or the sampler's density, keyed by
+        content)."""
         key = ("integrate", fns_key(traced))
         if weight is not None:
             key += (("is_weight", fns_key(weight)),)
@@ -179,24 +209,32 @@ class _IntegrateMixin:
             key, lambda: IntegrateProgram(traced, weight)
         )
 
-    def _run(self, handle, program, dists, n_samples, seed, method,
+    def _integrate_groups(self, traced, weight=None) -> tuple:
+        """The cached programs of a traced set's groups of at most 128
+        functions (``api/passes.py``), each under the set's ``weight``:
+        one program when the set has at most 128."""
+        return tuple(self._integrate_program(group, weight)
+                     for group in split_groups(traced, MAX_FUNCTIONS))
+
+    def _run(self, handle, programs, dists, n_samples, seed, method,
              return_stderr, qmc_rotations):
-        """(values, stderr or None) of one run of ``program`` over
-        ``dists`` (a Distribution, or nd's list), float64 arrays, through
-        the serving handle ``handle`` builds (``_integrate_handle`` or
-        ``_nd_handle``): means over the plan's ``actual_samples``; error
+        """(values, stderr or None) of one run of the groups ``programs``
+        over ``dists`` (a Distribution, or nd's list), float64 arrays,
+        through the serving handle ``handle`` builds
+        (``_integrate_handle`` or ``_nd_handle``): means over the plan's
+        ``actual_samples``; error
         bars from pilot-shifted squares, or under ``qmc`` from
         ``qmc_rotations`` rotations in one seed-batched launch
         (randomized QMC, the JAX package's api/integrate.py:152-174)."""
         if return_stderr and method == "qmc":
             _check_rotations(qmc_rotations)
             r = qmc_rotations
-            prog = handle(program, dists, -(-n_samples // r), r, "qmc", False,
-                          False)
+            prog = handle(programs, dists, -(-n_samples // r), r, "qmc",
+                          False, False)
             vals = prog(_rotation_seeds(seed, r)).cpu().numpy()
             vals = vals.astype(np.float64)
             return vals.mean(axis=0), vals.std(axis=0, ddof=1) / np.sqrt(r)
-        out = handle(program, dists, n_samples, 1, method, False,
+        out = handle(programs, dists, n_samples, 1, method, False,
                      return_stderr)(seed)
         if return_stderr:
             return out[0].cpu().numpy(), out[1].cpu().numpy()
@@ -215,27 +253,29 @@ class _IntegrateMixin:
         kinds = tuple(dist_spec_of(dd).kind for dd in dists)
         NdConfig(kinds, method)  # the method and Sobol dimension errors first
         traced = self._trace_user_functions(functions, n_args=len(kinds))
-        program = self._nd_program(traced, kinds)
-        values, stderr = self._run(self._nd_handle, program, dists, n_samples,
-                                   seed, method, return_stderr, qmc_rotations)
+        values, stderr = self._run(self._nd_handle,
+                                   self._nd_groups(traced, kinds), dists,
+                                   n_samples, seed, method, return_stderr,
+                                   qmc_rotations)
         return IntegrationResult(values=values, stderr=stderr,
                                  n_samples=n_samples,
                                  n_functions=len(functions))
 
     def _nd_program(self, traced, kinds, weight=None) -> IntegrateNdProgram:
-        """The cached nd program of a traced set over ``kinds``, weighted
-        by ``weight`` (one (p, q) pair per dimension) for importance
-        sampling."""
-        if len(traced) > MAX_FUNCTIONS:
-            raise not_ported(
-                f"more than {MAX_FUNCTIONS} fused functions in nd integrate",
-                ND_WIDE,
-            )
+        """The cached nd program of a traced set of at most 128 functions
+        over ``kinds``, weighted by ``weight`` (one (p, q) pair per
+        dimension) for importance sampling."""
         key = ("integrate_nd", fns_key(traced), kinds)
         if weight is not None:
             key += (("is_weight_nd", tuple(fns_key(pair) for pair in weight)),)
         return self._cache.get_or_build(
             key, lambda: IntegrateNdProgram(traced, kinds, weight))
+
+    def _nd_groups(self, traced, kinds, weight=None) -> tuple:
+        """The cached nd programs of a traced set's groups of at most 128
+        functions (``api/passes.py``)."""
+        return tuple(self._nd_program(group, kinds, weight)
+                     for group in split_groups(traced, MAX_FUNCTIONS))
 
     # -- serving handles ----------------------------------------------------
 
@@ -277,7 +317,12 @@ class _IntegrateMixin:
         handle then serves nd integrate in the nd kernel, and
         ``param_batch`` takes (R, d, 2) rows (:func:`pack_param_batch_nd`,
         closed-form dimensions only).  CUSTOM tables (1-D or as
-        dimensions) take seed batches."""
+        dimensions) take seed batches.
+
+        More than 128 functions: a call launches each group of at most
+        128 once over the same stream and concatenates the results on
+        the function axis (``api/passes.py``), param batches too (the JAX
+        package sends those to XLA)."""
         if seed_batch < 1:
             raise ValueError("seed_batch must be >= 1")
         dists = _as_dims(distribution)
@@ -288,7 +333,7 @@ class _IntegrateMixin:
             if param_batch:
                 for kind in kinds:
                     ensure_param_batch_family(kind)
-            return self._nd_handle(self._nd_program(traced, kinds), dists,
+            return self._nd_handle(self._nd_groups(traced, kinds), dists,
                                    n_samples, seed_batch, method, param_batch,
                                    return_stderr)
         if dists is not None:
@@ -300,15 +345,17 @@ class _IntegrateMixin:
         traced = self._trace_user_functions(functions)
         if param_batch:
             ensure_param_batch_family(dist_spec_of(distribution).kind)
-        return self._integrate_handle(self._integrate_program(traced),
+        return self._integrate_handle(self._integrate_groups(traced),
                                       distribution, n_samples, seed_batch,
                                       method, param_batch, return_stderr)
 
-    def _integrate_handle(self, program, distribution, n_samples, seed_batch,
+    def _integrate_handle(self, programs, distribution, n_samples, seed_batch,
                           method, param_batch, return_stderr) -> Callable:
-        """The handle of a 1-D program (an integrand set, or an importance
-        set) over ``distribution``, with everything but the launch made
-        here."""
+        """The handle of a 1-D set (integrands, or an importance set) over
+        ``distribution``, given as its groups ``programs``
+        (``_integrate_groups``), with everything but the launches made
+        here.  A call launches each group once over the same stream and
+        concatenates their results on the function axis."""
         spec = dist_spec_of(distribution)
         kind = spec.kind
         cfg = IntegrateConfig(method, return_stderr)
@@ -317,34 +364,42 @@ class _IntegrateMixin:
         params = torch.tensor(spec.params, device=dev)
         tables = None
         if kind == DistKind.CUSTOM:
+            # Every group carries the set's weight: one set of tables.
             tables = sampling_tables(distribution, spec, dev,
-                                     with_pdf=program.sampler)
-        pilot = None
+                                     with_pdf=programs[0].sampler)
+        pilots = [None] * len(programs)
         if return_stderr and not param_batch:
-            pilot = pilot_values(program.torch_values, kind, params, tables)
+            pilots = [pilot_values(p.torch_values, kind, params, tables)
+                      for p in programs]
         if dev.type == "cuda":
-            program.library(cfg, library_route(kind, tables))
+            route = library_route(kind, tables)
+            build_all([lambda p=p: p.library(cfg, route) for p in programs])
 
-        def finished(sums, pilot):
-            return _finished(sums, pilot, grid, cfg.antithetic)
+        def passes(launch, pilots):
+            return cat_passes([
+                _finished(launch(p, pilot), pilot, grid, cfg.antithetic)
+                for p, pilot in zip(programs, pilots)])
 
         if param_batch:
             def dispatch(seeds, rows):
                 (rows,) = rows
-                pilots = None
+                row_pilots = [None] * len(programs)
                 if return_stderr:
-                    pilots = pilot_values(program.torch_values, kind, rows)
-                return finished(integrate_batch(program, kind, rows, seeds,
-                                                grid, cfg, pilots, tables),
-                                pilots)
+                    row_pilots = [pilot_values(p.torch_values, kind, rows)
+                                  for p in programs]
+                return passes(
+                    lambda p, pilot: integrate_batch(
+                        p, kind, rows, seeds, grid, cfg, pilot, tables),
+                    row_pilots)
 
             return _checked_batch_prog(dispatch, seed_batch, 1, (kind,), dev)
         if seed_batch != 1:
             def prog(seeds):
                 seeds = stage_seeds(seeds, seed_batch, dev)
-                return finished(integrate_batch(program, kind, params, seeds,
-                                                grid, cfg, pilot, tables),
-                                pilot)
+                return passes(
+                    lambda p, pilot: integrate_batch(
+                        p, kind, params, seeds, grid, cfg, pilot, tables),
+                    pilots)
 
             return prog
 
@@ -352,59 +407,177 @@ class _IntegrateMixin:
             # np.uint32 rejects seeds outside [0, 2**32), as the JAX
             # package does.
             word = int(np.uint32(seed))
-            return finished(integrate_cuda(program, kind, params, word, grid,
-                                           cfg, pilot, tables), pilot)
+            return passes(
+                lambda p, pilot: integrate_cuda(p, kind, params, word, grid,
+                                                cfg, pilot, tables),
+                pilots)
 
         return prog
 
-    def _nd_handle(self, program, dists, n_samples, seed_batch, method,
+    def _nd_handle(self, programs, dists, n_samples, seed_batch, method,
                    param_batch, return_stderr) -> Callable:
-        """The handle of an nd program (an integrand set, or an nd
-        importance set) over the Distributions ``dists``, with everything
-        but the launch made here."""
-        cfg = NdConfig(program.kinds, method, with_stderr=return_stderr)
+        """The handle of an nd set (integrands, or an nd importance set)
+        over the Distributions ``dists``, given as its groups ``programs``
+        (``_nd_groups``), with everything but the launches made here; a
+        call launches each group once and concatenates their results."""
+        cfg = NdConfig(programs[0].kinds, method, with_stderr=return_stderr)
         grid = self._grid(n_samples, method)
         dev = self._device
         params = torch.tensor(
             np.stack([dist_spec_of(dd).params for dd in dists]), device=dev)
-        tables = nd_tables(dists, cfg, dev, program.sampler_dims)
-        pilot = None
-        if return_stderr and not param_batch:
-            pilot = pilot_row(program.torch_fns, cfg.kinds, params, tables,
-                              program.torch_weight)
-        if dev.type == "cuda":
-            program.library(nd_routes(cfg, tables))
+        tables = nd_tables(dists, cfg, dev, programs[0].sampler_dims)
 
-        def finished(sums, pilot):
-            return _finished(sums, pilot, grid, cfg.antithetic)
+        def pilots_of(rows):
+            return [pilot_row(p.torch_fns, cfg.kinds, rows, tables,
+                              p.torch_weight) for p in programs]
+
+        pilots = [None] * len(programs)
+        if return_stderr and not param_batch:
+            pilots = pilots_of(params)
+        if dev.type == "cuda":
+            routes = nd_routes(cfg, tables)
+            build_all([lambda p=p: p.library(routes) for p in programs])
+
+        def passes(launch, pilots):
+            return cat_passes([
+                _finished(launch(p, pilot), pilot, grid, cfg.antithetic)
+                for p, pilot in zip(programs, pilots)])
 
         if param_batch:
             def prog(seeds, params):
                 seeds, rows = _check_nd_params(seeds, params, seed_batch,
                                                cfg.d, cfg.kinds, dev)
-                pilots = None
-                if return_stderr:
-                    pilots = pilot_row(program.torch_fns, cfg.kinds, rows,
-                                       tables, program.torch_weight)
-                return finished(integrate_nd_batch(program, cfg, rows, seeds,
-                                                   grid, pilots, tables),
-                                pilots)
+                return passes(
+                    lambda p, pilot: integrate_nd_batch(
+                        p, cfg, rows, seeds, grid, pilot, tables),
+                    pilots_of(rows) if return_stderr
+                    else [None] * len(programs))
 
             return prog
         if seed_batch != 1:
             def prog(seeds):
                 seeds = stage_seeds(seeds, seed_batch, dev)
-                return finished(integrate_nd_batch(program, cfg, params, seeds,
-                                                   grid, pilot, tables), pilot)
+                return passes(
+                    lambda p, pilot: integrate_nd_batch(
+                        p, cfg, params, seeds, grid, pilot, tables),
+                    pilots)
 
             return prog
 
         def prog(seed):
             word = int(np.uint32(seed))
-            return finished(integrate_nd_cuda(program, cfg, params, word, grid,
-                                              pilot, tables), pilot)
+            return passes(
+                lambda p, pilot: integrate_nd_cuda(p, cfg, params, word, grid,
+                                                   pilot, tables),
+                pilots)
 
         return prog
+
+    # -- control variates (the JAX package's api/integrate.py:535-662) ------
+
+    def _integrate_with_cv(self, functions, distribution, n_samples, seed,
+                           method, return_stderr,
+                           control_variates) -> IntegrationResult:
+        """Control-variate integration: ``theta_i = mean(f_i) - c_i^T
+        (mean(g) - E[g])`` with the regression-optimal ``c_i = Cov(g)^-1
+        Cov(g, f_i)``, for user controls ``g_j`` of KNOWN means.
+
+        Every moment the correction needs is itself an integrand: the
+        pilot-shifted products ``(f_i - a_i)(g_j - b_j)``, ``(g_j -
+        b_j)(g_l - b_l)`` and, for error bars, ``(f_i - a_i)^2``,
+        composed as IR over the traced functions (``tracing.shifted``,
+        ``tracing.product``), fuse with the f and g into ONE set on shared
+        samples: the 1-D or nd handle, in passes of at most 128 where the
+        set is wider.  The pilots ``a, b`` are the functions' float32
+        values at the distributions' medians, fixed shifts that keep
+        ``E[XY] - E[X]E[Y]`` away from float32 cancellation.  The
+        coefficients are the same-run plug-in (O(1/n) bias; Glasserman,
+        "Monte Carlo Methods in Financial Engineering" 4.1), solved by
+        least squares, which leaves a degenerate control's coefficient at
+        0; the error bars are the per-function regression residual,
+        ``sqrt((Var f - cov^T Cov(g)^-1 cov) / n)``, over the grid's
+        actual sample count."""
+        if method != "mc":
+            raise ValueError(
+                "control_variates supports method='mc' only "
+                "(coefficients and residual variances are iid-sample "
+                f"estimates); got method={method!r}"
+            )
+        pairs = list(control_variates)
+        if not pairs:
+            raise ValueError(
+                "control_variates must be a non-empty list of "
+                "(function, known_mean) pairs"
+            )
+        g_fns, g_means = [], []
+        for p in pairs:
+            if not (isinstance(p, (list, tuple)) and len(p) == 2):
+                raise TypeError(
+                    "each control variate is a (function, known_mean) "
+                    f"pair, got {p!r}"
+                )
+            g_fns.append(p[0])
+            g_means.append(float(p[1]))
+        if isinstance(distribution, (list, tuple)):
+            dists = list(distribution)
+            if not dists or not all(
+                isinstance(dd, Distribution) for dd in dists
+            ):
+                raise TypeError(
+                    "a distribution sequence must be a non-empty list "
+                    "of Distribution objects"
+                )
+        else:
+            dists = [distribution]
+        d = len(dists)
+        k = len(functions)
+        n_cv = len(g_fns)
+        traced_f = self._trace_user_functions(functions, n_args=d)
+        traced_g = self._trace_user_functions(g_fns, n_args=d)
+
+        composed, a, b = cv_composed(traced_f, traced_g, dists,
+                                     return_stderr)
+        if d > 1:
+            kinds = tuple(dist_spec_of(dd).kind for dd in dists)
+            NdConfig(kinds, "mc")
+            handle = self._nd_handle(self._nd_groups(composed, kinds), dists,
+                                     n_samples, 1, "mc", False, False)
+        else:
+            handle = self._integrate_handle(
+                self._integrate_groups(composed), dists[0], n_samples, 1,
+                "mc", False, False)
+        # The plan the kernel ran: its grid's sample count.
+        n_act = self._grid(n_samples, "mc").actual_samples
+        out = handle(seed).cpu().numpy().astype(np.float64)
+
+        m_f = out[:k]
+        m_g = out[k:k + n_cv]
+        pos = k + n_cv
+        fg = out[pos:pos + k * n_cv].reshape(k, n_cv)
+        pos += k * n_cv
+        # Cov(f_i, g_j) = E[(f-a)(g-b)] - (m_f - a)(m_g - b).
+        cov_fg = fg - np.outer(m_f - a, m_g - b)
+        gram = np.zeros((n_cv, n_cv))
+        for j in range(n_cv):
+            for l in range(j, n_cv):
+                v = out[pos] - (m_g[j] - b[j]) * (m_g[l] - b[l])
+                gram[j, l] = gram[l, j] = v
+                pos += 1
+        # lstsq tolerates degenerate controls (a constant g has zero
+        # variance AND zero covariance, so its coefficient is free: the
+        # minimum-norm solution sets it to 0).
+        coef = np.linalg.lstsq(gram, cov_fg.T, rcond=None)[0]  # (C, K)
+        theta = m_f - coef.T.dot(m_g - np.array(g_means))
+        stderr = None
+        if return_stderr:
+            ff = out[pos:pos + k]
+            var_f = np.maximum(ff - (m_f - a) ** 2, 0.0)
+            explained = np.sum(cov_fg * coef.T, axis=1)
+            resid = np.maximum(var_f - explained, 0.0)
+            stderr = np.sqrt(resid / float(n_act))
+        return IntegrationResult(
+            values=theta, n_samples=n_samples, n_functions=k, stderr=stderr,
+        )
 
     # -- surfaces of the JAX package not ported yet -------------------------
 
@@ -412,5 +585,6 @@ class _IntegrateMixin:
         """Not ported yet: raises ``NotImplementedError`` naming the
         ROADMAP item (nd or 1-D)."""
         if _as_dims(distribution) is not None:
-            raise not_ported("expectation_fn for nd integrate", ND_CV)
+            raise not_ported("expectation_fn for nd integrate",
+                             ND_CV)
         raise not_ported("expectation_fn", API_SURFACE)

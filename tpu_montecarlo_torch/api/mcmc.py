@@ -9,8 +9,10 @@ and CUSTOM tables (``api/device.py`` stages them).
 
 The JAX package routes workloads its Pallas kernel cannot take to an XLA
 sweep; the port has no such twin and runs every workload it takes in its
-kernel (``ops/mcmc_kernel.py``).  What it does not take yet raises
-``NotImplementedError`` naming its ROADMAP item."""
+kernel (``ops/mcmc_kernel.py``), in passes of at most 127 functions
+where the set is wider (``api/passes.py``; the JAX package sends 128 and
+more to XLA).  What it does not take yet raises ``NotImplementedError``
+naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from ..ops.mcmc_kernel import (
     plan_mcmc_grid,
 )
 from ..sampling import dist_spec_of, ensure_param_batch_family
-from ..utils.roadmap import MCMC_TABLES_XLA, MCMC_WIDE, not_ported
+from ..utils.roadmap import MCMC_TABLES_XLA
 from .batching import (
     _check_random_walk_args,
     _checked_batch_prog,
@@ -44,6 +46,13 @@ from .cache import fns_key
 from .device import mcmc_dim_tables
 from .mcmc_nd import _table_routes, hmc_leapfrog, is_nd_call
 from .mcmc_result import mcmc_result, with_chain_state
+from .passes import (
+    build_all,
+    cat_passes,
+    check_same_chains,
+    merge_results,
+    split_groups,
+)
 from .results import IntegrationResult
 
 
@@ -110,7 +119,7 @@ class _McmcMixin:
         exchanges; only the cold rung enters the estimates and the
         acceptance rate, and ``result.diagnostics["swap_rate"]`` is the
         accepted share of the attempted exchanges.  Takes the proposals
-        and targets above, with error bars; at most 126 functions.
+        and targets above, with error bars.
 
         CUSTOM tables (``from_pdf``, ``beta``, ``mixture``, ...) run in
         the kernels as the JAX package's kernels run them: a target's
@@ -126,10 +135,15 @@ class _McmcMixin:
         segment draws fresh streams.  Stateful runs take no error bars,
         diagnostics, draws, adaptive steps or temperatures.
 
-        Not ported yet, each raising ``NotImplementedError`` naming its
-        ROADMAP item: the CUSTOM tables the JAX package sends to
-        its XLA sweep (heavy-tailed proposals, tables with no uniform
-        grid), more than 127 functions.
+        More than 127 functions (126 tempered) run as passes of at most
+        127 (126), each a launch over the same chains from the same seed
+        (``api/passes.py``): the values, error bars and diagnostics of
+        every pass, the acceptance, swap rate, draws and chain state of
+        the first; the call fails if a pass ran other chains.
+
+        Not ported yet, raising ``NotImplementedError`` naming its
+        ROADMAP item: the CUSTOM tables the JAX package sends to its XLA
+        sweep (heavy-tailed proposals, tables with no uniform grid).
         """
         if len(functions) == 0:
             raise ValueError("At least one function is required")
@@ -181,25 +195,28 @@ class _McmcMixin:
                 return_samples,
             )
         traced = self._trace_user_functions(functions)
-        if len(traced) > MAX_FUNCTIONS:
-            raise not_ported(
-                f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
-            )
         stateful = return_state or initial_state is not None
-        program, cfg, params, tables = self._mcmc_kernel_program(
-            traced, target_distribution, proposal_distribution, n_steps,
-            n_burnin, return_stderr, return_diagnostics,
-            int(return_samples or 0), stateful, initial_state is not None)
+        setups = [
+            self._mcmc_kernel_program(
+                group, target_distribution, proposal_distribution, n_steps,
+                n_burnin, return_stderr, return_diagnostics,
+                int(return_samples or 0), stateful,
+                initial_state is not None)
+            for group in split_groups(traced, MAX_FUNCTIONS)]
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        if not stateful:
-            out = mcmc_cuda(program, cfg, params, seed, grid, tables)
-            return mcmc_result(out, grid, cfg, len(traced), n_chains)
         segment, start = self._resume_point(initial_state, grid, None)
-        out = mcmc_cuda(program, cfg, params, seed, grid, tables, segment,
-                        start)
-        return with_chain_state(
-            mcmc_result(out, grid, cfg, len(traced), n_chains), out,
-            segment, return_state)
+        if self._device.type == "cuda":
+            build_all([lambda p=p, c=c: p.library(c)
+                       for p, c, _, _ in setups])
+        outs = [mcmc_cuda(program, cfg, params, seed, grid, tables, segment,
+                          start)
+                for program, cfg, params, tables in setups]
+        ks = [len(program.fns) for program, _, _, _ in setups]
+        check_same_chains(outs, ks)
+        result = merge_results([
+            mcmc_result(out, grid, cfg, k, n_chains)
+            for out, (_, cfg, _, _), k in zip(outs, setups, ks)])
+        return with_chain_state(result, outs[0], segment, return_state)
 
     def _resume_point(self, initial_state, grid, d):
         """``(segment, start)`` of a stateful run on ``grid``'s chains (d
@@ -327,28 +344,37 @@ class _McmcMixin:
         if seed_batch < 1:
             raise ValueError("seed_batch must be >= 1")
         traced = self._trace_user_functions(functions)
-        if len(traced) > MAX_FUNCTIONS:
-            raise not_ported(
-                f"MCMC over more than {MAX_FUNCTIONS} functions", MCMC_WIDE
-            )
-        program, cfg, params, tables = self._mcmc_kernel_program(
-            traced, target_distribution, proposal_distribution, n_steps,
-            n_burnin, return_stderr, samples=m_samp)
+        setups = [
+            self._mcmc_kernel_program(
+                group, target_distribution, proposal_distribution, n_steps,
+                n_burnin, return_stderr, samples=m_samp)
+            for group in split_groups(traced, MAX_FUNCTIONS)]
+        params, tables = setups[0][2], setups[0][3]
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         dev = self._device
         if dev.type == "cuda":
-            program.library(cfg)
-        k = len(traced)
+            build_all([lambda p=p, c=c: p.library(c)
+                       for p, c, _, _ in setups])
 
-        def result(values, acceptance, stderr, samples):
+        def result(launch, finish):
+            # One launch of each group; values and error bars of every
+            # pass, acceptance and draws of the first.
+            parts = []
+            for program, cfg, _, _ in setups:
+                run = launch(program, cfg)
+                parts.append((*finish(run, grid, cfg, len(program.fns)),
+                              run.samples))
+            values, acceptance, stderr, samples = cat_passes(
+                parts, first_of=(1, 3))
             out = (values, acceptance)
             if return_stderr:
                 out += (stderr,)
             return out + ((samples,) if m_samp else ())
 
         def batched(seeds, rows):
-            out = mcmc_batch(program, cfg, rows, seeds, grid, tables)
-            return result(*mcmc_batch_finish(out, grid, cfg, k), out.samples)
+            return result(
+                lambda p, c: mcmc_batch(p, c, rows, seeds, grid, tables),
+                mcmc_batch_finish)
 
         if param_batch:
             targ_kind = dist_spec_of(target_distribution).kind
@@ -377,8 +403,9 @@ class _McmcMixin:
             return prog
 
         def prog(seed):
-            out = mcmc_cuda(program, cfg, params, seed, grid, tables)
-            return result(*mcmc_finish(out, grid, cfg, k), out.samples)
+            return result(
+                lambda p, c: mcmc_cuda(p, c, params, seed, grid, tables),
+                mcmc_finish)
 
         return prog
 

@@ -10,9 +10,10 @@ the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
 ``jax.random``; the port has no such twin and runs every workload it
 takes in its kernel, chain state too (the JAX package runs nd state on
 that sweep only), and HMC, over a product target or a joint log density
-(whose gradient ``ops/grad.py`` builds), stateful HMC included.  What it
-does not take yet raises ``NotImplementedError`` naming its ROADMAP
-item."""
+(whose gradient ``ops/grad.py`` builds), stateful HMC included, and
+more than 127 functions in passes of at most 127 over the same chains
+(``api/passes.py``).  What it does not take yet raises
+``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -37,12 +38,7 @@ from ..ops.mcmc_nd_kernel import (
     mcmc_nd_cuda,
 )
 from ..sampling import DistKind, dist_spec_of, ensure_param_batch_family
-from ..utils.roadmap import (
-    FRONT_END,
-    ND_MCMC_TABLES_XLA,
-    ND_MCMC_WIDE,
-    not_ported,
-)
+from ..utils.roadmap import FRONT_END, ND_MCMC_TABLES_XLA, not_ported
 from .batching import (
     _check_nd_mcmc_params,
     _check_random_walk_args,
@@ -51,6 +47,13 @@ from .batching import (
 from .cache import fns_key
 from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
 from .mcmc_result import mcmc_result, with_chain_state
+from .passes import (
+    build_all,
+    cat_passes,
+    check_same_chains,
+    merge_results,
+    split_groups,
+)
 from .results import IntegrationResult
 
 def hmc_leapfrog(proposal) -> int:
@@ -237,19 +240,27 @@ class _McmcNdMixin:
                 return_samples=return_samples,
             )
         stateful = return_state or initial_state is not None
-        program, cfg, params = self._nd_mcmc_kernel_program(
-            functions, proposal, (proposals, targets, target_fn, d),
-            n_steps, n_burnin, return_stderr, return_diagnostics,
-            int(return_samples or 0), stateful, initial_state is not None,
-        )
+        traced = self._trace_user_functions(functions, n_args=d)
+        setups = [
+            self._nd_mcmc_kernel_program(
+                group, proposal, (proposals, targets, target_fn, d), n_steps,
+                n_burnin, return_stderr, return_diagnostics,
+                int(return_samples or 0), stateful, initial_state is not None)
+            for group in split_groups(traced, MAX_FUNCTIONS)]
         tables = dim_tables(proposals, targets, d, self._device, stateful)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         segment, start = self._resume_point(initial_state, grid, d)
-        out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables, segment,
-                           start)
-        return with_chain_state(
-            mcmc_result(out, grid, cfg, len(functions), n_chains), out,
-            segment, return_state)
+        if self._device.type == "cuda":
+            build_all([program.library for program, _, _ in setups])
+        outs = [mcmc_nd_cuda(program, cfg, params, seed, grid, tables,
+                             segment, start)
+                for program, cfg, params in setups]
+        ks = [len(program.fns) for program, _, _ in setups]
+        check_same_chains(outs, ks)
+        result = merge_results([
+            mcmc_result(out, grid, cfg, k, n_chains)
+            for out, (_, cfg, _), k in zip(outs, setups, ks)])
+        return with_chain_state(result, outs[0], segment, return_state)
 
     def _compile_mcmc_nd(
         self, functions, target, proposal, n_steps, n_chains, n_burnin,
@@ -296,18 +307,29 @@ class _McmcNdMixin:
                 ensure_param_batch_family(kind, "target")
         if seed_batch < 1:
             raise ValueError("seed_batch must be >= 1")
-        program, cfg, params = self._nd_mcmc_kernel_program(
-            functions, proposal, parsed, n_steps, n_burnin, return_stderr,
-            samples=return_samples,
-        )
+        traced = self._trace_user_functions(functions, n_args=d)
+        setups = [
+            self._nd_mcmc_kernel_program(group, proposal, parsed, n_steps,
+                                         n_burnin, return_stderr,
+                                         samples=return_samples)
+            for group in split_groups(traced, MAX_FUNCTIONS)]
+        params = setups[0][2]
         tables = dim_tables(proposals, targets, d, self._device)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         dev = self._device
         if dev.type == "cuda":
-            program.library()
-        k = len(program.fns)
+            build_all([program.library for program, _, _ in setups])
 
-        def result(values, acceptance, stderr, samples):
+        def result(launch, finish):
+            # One launch of each group; values and error bars of every
+            # pass, acceptance and draws of the first.
+            parts = []
+            for program, cfg, _ in setups:
+                run = launch(program, cfg)
+                parts.append((*finish(run, grid, cfg, len(program.fns)),
+                              run.samples))
+            values, acceptance, stderr, samples = cat_passes(
+                parts, first_of=(1, 3))
             out = (values, acceptance)
             if return_stderr:
                 out += (stderr,)
@@ -317,8 +339,9 @@ class _McmcNdMixin:
                           else ())
 
         def batched(seeds, rows):
-            out = mcmc_nd_batch(program, cfg, rows, seeds, grid, tables)
-            return result(*mcmc_batch_finish(out, grid, cfg, k), out.samples)
+            return result(
+                lambda p, c: mcmc_nd_batch(p, c, rows, seeds, grid, tables),
+                mcmc_batch_finish)
 
         if param_batch:
             def prog(seeds, target_params, proposal_params):
@@ -338,8 +361,9 @@ class _McmcNdMixin:
             return prog
 
         def prog(seed):
-            out = mcmc_nd_cuda(program, cfg, params, seed, grid, tables)
-            return result(*mcmc_finish(out, grid, cfg, k), out.samples)
+            return result(
+                lambda p, c: mcmc_nd_cuda(p, c, params, seed, grid, tables),
+                mcmc_finish)
 
         return prog
 
@@ -364,11 +388,6 @@ class _McmcNdMixin:
                                "nd MCMC", ND_MCMC_TABLES_XLA,
                                stateful=with_state)
         traced = self._trace_user_functions(functions, n_args=d)
-        if len(traced) > MAX_FUNCTIONS:
-            raise not_ported(
-                f"nd MCMC over more than {MAX_FUNCTIONS} functions",
-                ND_MCMC_WIDE,
-            )
         mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
                                             targ_specs)
         cfg = McmcNdConfig(

@@ -8,9 +8,9 @@ off the TPU unless ``backend="pallas"``, to an XLA sweep keyed on
 ``jax.random``; the port has no such twin, so it agrees chain for chain
 only with the JAX package's ``backend="pallas"`` runs, and it has no VMEM
 gate (``pt_vmem_fits``): every ladder it takes runs in its kernel, tempered
-HMC included.  What
-it does not take yet raises ``NotImplementedError`` naming its ROADMAP
-item."""
+HMC included, and more than 126 functions in passes of at most 126 over
+the same ladders (``api/passes.py``).  What it does not take yet raises
+``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -30,11 +30,18 @@ from ..ops.mcmc_pt_kernel import (
     pt_finish,
 )
 from ..sampling import dist_spec_of
-from ..utils.roadmap import PT_TABLES_XLA, PT_WIDE, not_ported
-from .cache import fns_key
+from ..utils.roadmap import PT_TABLES_XLA
 from .batching import _check_random_walk_args, stage_seeds
+from .cache import fns_key
 from .mcmc_nd import _table_routes, dim_tables, hmc_leapfrog
 from .mcmc_result import mcmc_result
+from .passes import (
+    build_all,
+    cat_passes,
+    check_same_chains,
+    merge_results,
+    split_groups,
+)
 from .results import IntegrationResult
 
 
@@ -85,19 +92,26 @@ class _PtMixin:
             _check_random_walk_args(proposal, n_burnin, False)
         betas = tuple(1.0 / t for t in temps)
         parsed = self._parse_nd_mcmc_args(target, proposal)
-        program, cfg, params, ladder = self._pt_kernel_program(
-            functions, proposal, parsed, betas, n_steps, n_burnin,
-            return_stderr, return_diagnostics, int(return_samples or 0),
-        )
+        setups = [
+            self._pt_kernel_program(
+                group, proposal, parsed, betas, n_steps, n_burnin,
+                return_stderr, return_diagnostics, int(return_samples or 0))
+            for group in self._pt_groups(functions, parsed[3])]
         tables = dim_tables(parsed[0], parsed[1], parsed[3], self._device)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
-        out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid, tables)
-        swap_rate = pt_finish(out, grid, cfg, len(program.fns))[2]
+        if self._device.type == "cuda":
+            build_all([program.library for program, _, _, _ in setups])
+        outs = [mcmc_pt_cuda(program, cfg, params, ladder, seed, grid, tables)
+                for program, cfg, params, ladder in setups]
+        ks = [len(program.fns) for program, _, _, _ in setups]
+        check_same_chains(outs, ks, swap=True)
+        swap_rate = pt_finish(outs[0], grid, setups[0][1], ks[0])[2]
         # The draws of a 1-D Distribution target are (m, chains), as the
         # JAX package surfaces them; (m, chains, d) otherwise.
-        return mcmc_result(out, grid, cfg, len(functions), n_chains,
-                           swap_rate=swap_rate,
-                           one_dim=parsed[3] == 1 and parsed[2] is None)
+        return merge_results([
+            mcmc_result(out, grid, cfg, k, n_chains, swap_rate=swap_rate,
+                        one_dim=parsed[3] == 1 and parsed[2] is None)
+            for out, (_, cfg, _, _), k in zip(outs, setups, ks)])
 
     def _compile_mcmc_pt(
         self, functions, target, proposal, temperatures, n_steps, n_chains,
@@ -135,36 +149,51 @@ class _PtMixin:
         parsed = self._parse_nd_mcmc_args(target, proposal)
         if seed_batch < 1:
             raise ValueError("seed_batch must be >= 1")
-        program, cfg, params, ladder = self._pt_kernel_program(
-            functions, proposal, parsed, betas, n_steps, n_burnin,
-            return_stderr,
-        )
+        setups = [
+            self._pt_kernel_program(group, proposal, parsed, betas, n_steps,
+                                    n_burnin, return_stderr)
+            for group in self._pt_groups(functions, parsed[3])]
+        params, ladder = setups[0][2], setups[0][3]
         tables = dim_tables(parsed[0], parsed[1], parsed[3], self._device)
         grid = plan_mcmc_grid(plan_chains(n_chains, self._target_threads))
         dev = self._device
         if dev.type == "cuda":
-            program.library()
-        k = len(program.fns)
+            build_all([program.library for program, _, _, _ in setups])
 
-        def result(values, acceptance, swap_rate, stderr):
+        def result(launch, finish):
+            # One launch of each group; values and error bars of every
+            # pass, acceptance and swap rate of the first.
+            parts = [finish(launch(program, cfg), grid, cfg,
+                            len(program.fns))
+                     for program, cfg, _, _ in setups]
+            values, acceptance, swap_rate, stderr = cat_passes(
+                parts, first_of=(1, 2))
             out = (values, acceptance, swap_rate)
             return out + (stderr,) if return_stderr else out
 
         if seed_batch != 1:
             def prog(seeds):
-                out = mcmc_pt_batch(program, cfg, params, ladder,
-                                    stage_seeds(seeds, seed_batch, dev), grid,
-                                    tables)
-                return result(*pt_batch_finish(out, grid, cfg, k))
+                seeds = stage_seeds(seeds, seed_batch, dev)
+                return result(
+                    lambda p, c: mcmc_pt_batch(p, c, params, ladder, seeds,
+                                               grid, tables),
+                    pt_batch_finish)
 
             return prog
 
         def prog(seed):
-            out = mcmc_pt_cuda(program, cfg, params, ladder, seed, grid,
-                               tables)
-            return result(*pt_finish(out, grid, cfg, k))
+            return result(
+                lambda p, c: mcmc_pt_cuda(p, c, params, ladder, seed, grid,
+                                          tables),
+                pt_finish)
 
         return prog
+
+    def _pt_groups(self, functions, d: int):
+        """The traced set's groups of at most 126 functions
+        (``api/passes.py``)."""
+        traced = self._trace_user_functions(functions, n_args=d)
+        return split_groups(traced, MAX_PT_FUNCTIONS)
 
     def _pt_kernel_program(
         self, functions, proposal, parsed, betas, n_steps, n_burnin,
@@ -181,11 +210,6 @@ class _PtMixin:
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
         proposals, targets, target_fn, d = parsed
         traced = self._trace_user_functions(functions, n_args=d)
-        if len(traced) > MAX_PT_FUNCTIONS:
-            raise not_ported(
-                f"tempering over more than {MAX_PT_FUNCTIONS} functions",
-                PT_WIDE,
-            )
         prop_specs = (None if proposals is None
                       else [dist_spec_of(p) for p in proposals])
         targ_specs = (None if targets is None

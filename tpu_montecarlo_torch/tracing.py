@@ -49,6 +49,8 @@ __all__ = [
     "TracedFunction",
     "function_fingerprint",
     "is_traceable",
+    "product",
+    "shifted",
     "trace_function",
 ]
 
@@ -1137,6 +1139,27 @@ class TracedFunction:
 
     def __repr__(self):
         return f"TracedFunction({self.name})"
+
+
+def shifted(fn: TracedFunction, s: float) -> TracedFunction:
+    """``fn(*xs) - s`` with ``s`` rounded to a float32 constant, as IR over
+    ``fn``'s (a control variate's pilot shift); keyed by ``fn``'s key and
+    the constant, so two shifts share a program only where they agree."""
+    c = _const(s)
+    return TracedFunction(f"{fn.name}_shifted", fn.n_args,
+                          Node("sub", (fn.ir, c)),
+                          ("shifted", fn.key, c.value))
+
+
+def product(a: TracedFunction, b: TracedFunction) -> TracedFunction:
+    """``a(*xs) * b(*xs)``, as IR over both functions' (a control
+    variate's product moment); keyed by the two keys."""
+    if a.n_args != b.n_args:
+        raise ValueError(f"a product of {a.n_args}- and {b.n_args}-argument "
+                         "functions")
+    return TracedFunction(f"{a.name}_times_{b.name}", a.n_args,
+                          Node("mul", (a.ir, b.ir)),
+                          ("product", a.key, b.key))
 
 
 def _code_fingerprint(code, depth: int = 0):
