@@ -202,7 +202,8 @@ Phases, each of which exits non-zero on failure:
     version at 2**22 (phase 25's tolerances), then ``integrate(bench fns,
     <family>, n_samples=2**30)`` for each, counted (at least one launch
     per family, finite means), and each family's kernel at 2**30 timed
-    against its plain version with its bound, as phase 26 times a mode;
+    with its bound, as phase 26 times a mode, beside its plain version
+    at 2**22, where it is held against it;
 35. the 1-D MCMC kernel's family checks (Cauchy, Gumbel, Weibull, Pareto
     and lognormal targets; Cauchy, Pareto and Gumbel proposals; a walk and
     an adaptive walk) at phase 30's size and gates, then c5b's shape with a
@@ -311,11 +312,33 @@ Phases, each of which exits non-zero on failure:
     the 128 bins with error bars (65); K = 254 over c5b's and c9e's shapes
     and 252 over c12's at 4 096 x (200 + 1 000) with error bars through
     ``integrate_mcmc`` (two groups each; each pass against its plain
-    version at 4 096 x (50 + 250); the passes' final states and accept
+    version at 4 096 x (20 + 100); the passes' final states and accept
     and swap counts bit for bit) (66); control variates, exp(x/2) and 31
     shifted copies under N(0, 1) with the controls x, x^2, x^3 and sin x at
     2**24, 174 composed integrands in two passes, and with error bars 206
     against the plain run's (67).
+68-71. the CUSTOM tables the JAX package runs on its XLA sweep, their
+    libraries started in phase 2: every new route of the three MCMC
+    kernels (knots: a knot-exact proposal with its full, irregular log
+    table; full: an inverse of 1,000 knots with a uniform or an
+    irregular q-table; the irregular target table under a walk and HMC,
+    in 1-D, nd and tempered) against its plain version chain for chain at
+    4 096 x (200 + 1 000), the 1-D full routes and HMC on the irregular
+    target also timed and bounded there (68); then through
+    ``integrate_mcmc``, each
+    counted from 0, within 6 error bars and 0.2 of its closed form, held
+    to its plain version at 4 096 x (200 + 1 000), timed and bounded at
+    its shape: [x^2] on N(0, 1)
+    from Student-t(5) at 4 096 x (1 000 + 10 000), E = 1, and an adaptive
+    walk on a spiky irregular table at 4 096 x (1 000 + 2 000), E[x] = 2
+    (69); c9f with dimension 1's proposal Student-t(5, 0, 2), E[xy] = 0
+    (70); c12d with the Student-t(5, 0, 3) proposal and with a gapped one
+    (the tempered kernel's gapped route), E[x] = 0, E[x^2] = 5 (71), the
+    last three at 4 096 x (1 000 + 2 000).  Their bounds count the knot
+    searches: each search's loop body in the SASS (the innermost loops in
+    the sample loop) at floor(log2(n + 1)) levels over n knots, the
+    fewest a search takes, and on a walk's carried chain one dependent
+    instruction a level.
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -836,8 +859,26 @@ def sample_loops(instrs) -> list:
                        for o in drawing if o is not lp)]
 
 
+def search_levels(loops, loop, levels: float) -> tuple:
+    """(counts, found): the pipe and issue instructions that ``levels``
+    more iterations of the knot searches nested in the sample loop
+    ``loop`` run, each at the fewest of the innermost loops that ``loop``
+    holds (the binary searches); levels that ``loop``'s cheapest path
+    already runs once are taken off.  ``found`` is how many innermost
+    loops it holds (0: nothing added)."""
+    inner = [o for o in loops if loop.start < o.start and o.end <= loop.end]
+    inner = [o for o in inner
+             if not any(o.start < i.start and i.end <= o.end for i in inner)]
+    if not inner or levels <= 0:
+        return {}, len(inner)
+    on_path = sum(o.start in loop.path for o in inner)
+    times = max(levels - on_path, 0.0)
+    return ({k: times * min(o.counts[k] for o in inner)
+             for k in (*PIPE_RATES, "issue")}, len(inner))
+
+
 def per_sample(listing: str, function: str, conversions_per_sample: int,
-               lanes: int = 1):
+               lanes: int = 1, searches=None):
     """(dearest, cheapest) per-class instructions per sample over the
     sample loops of the kernel function whose mangled name contains
     ``function``.  One iteration draws ``conversions /
@@ -845,11 +886,15 @@ def per_sample(listing: str, function: str, conversions_per_sample: int,
     threads (MCMC: the lanes of one chain), and runs that many times
     ``lanes`` units one after another: the pipe and issue counts, summed
     over the lanes, are per unit, and ``chain`` and ``carried`` per unit
-    of that sequence."""
+    of that sequence.  ``searches``, the knot search levels one unit runs
+    (searches x levels each), adds their loop bodies
+    (:func:`search_levels`), and ``search_loops``, the innermost loops
+    found per iteration (0: none counted)."""
     funcs = [ins for name, ins in parse_functions(listing).items()
              if function in name]
     if len(funcs) != 1:
         raise ValueError(f"{len(funcs)} functions match {function!r}")
+    loops = loop_counts(funcs[0])
     rows = []
     for loop in sample_loops(funcs[0]):
         n, rest = divmod(loop.counts["conversions"], conversions_per_sample)
@@ -857,8 +902,14 @@ def per_sample(listing: str, function: str, conversions_per_sample: int,
             raise ValueError(
                 f"a loop of {function!r} converts {loop.counts['conversions']}"
                 f" uniforms, not a multiple of {conversions_per_sample}")
+        counts = dict(loop.counts)
+        if searches:
+            extra, found = search_levels(loops, loop, searches * n)
+            for k, v in extra.items():
+                counts[k] += v
+            counts["search_loops"] = found
         rows.append({k: v / (n * lanes if k in ("chain", "carried") else n)
-                     for k, v in loop.counts.items()})
+                     for k, v in counts.items()})
     if not rows:
         raise ValueError(f"no sample loop in {function!r}")
     return ({k: max(r[k] for r in rows) for k in rows[0]},
@@ -916,18 +967,18 @@ def function_warps(mode, chains: int, rungs: int = 1):
 
 def card_bound(lib, function: str, conversions: int, units: float,
                clock_mhz: float, warps=None, weights=None, lanes: int = 1,
-               listing=None):
+               listing=None, searches=None):
     """The bound of ``units`` units of a built kernel on this card:
     ``(bound_ms, pipe, issue_ms, counts)``.  Counts are the dearest sample
     loop's per unit, or with ``weights = (w_dear, w_cheap)`` the
-    weighted mean of the dearest and the cheapest loop's; ``lanes`` as
-    ``per_sample``'s.  ``listing``, a SASS listing, takes the place of
-    ``lib``'s (a build that is not in this checkout)."""
+    weighted mean of the dearest and the cheapest loop's; ``lanes`` and
+    ``searches`` as ``per_sample``'s.  ``listing``, a SASS listing, takes
+    the place of ``lib``'s (a build that is not in this checkout)."""
     import torch
 
     if listing is None:
         listing = sass_listing(lib)
-    dear, cheap = per_sample(listing, function, conversions, lanes)
+    dear, cheap = per_sample(listing, function, conversions, lanes, searches)
     counts = dear
     if weights is not None:
         counts = {k: (weights[0] * dear[k] + weights[1] * cheap[k])
@@ -1076,6 +1127,7 @@ def pipe_rates(lib, card: str, names=None) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1149,6 +1201,7 @@ def main() -> int:
             mcmc_pt_reference,
             pt_finish,
         )
+        from tpu_montecarlo_torch.ops.mcmc_tables import KnotTable
         from tpu_montecarlo_torch.sampling import DistKind, dist_spec_of
         from tpu_montecarlo_torch.utils.dispatch import make_integrate_plan
     except ImportError as e:
@@ -1472,8 +1525,9 @@ def main() -> int:
     def custom_mcmc_setup(fns, target, proposal, temps, n_steps, n_burnin,
                           stderr):
         """{"kernel", "plain"}: callables of a grid, and "program", "cfg",
-        "k", "wrapper" and "bound_program" (the build the bounds count:
-        one lane of the same group, or the ladder layout)."""
+        "k", "wrapper", "tabs" (its CUSTOM tables) and "bound_program"
+        (the build the bounds count: one lane of the same group, or the
+        ladder layout)."""
         parsed = integ._parse_nd_mcmc_args(target, proposal)
         if temps is not None:
             prog, cfg, params, ladder = integ._pt_kernel_program(
@@ -1487,7 +1541,7 @@ def main() -> int:
                     prog.torch_fns, prog.torch_target, cfg, params, ladder,
                     SEED, g, tabs),
                 program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_pt_cuda,
-                bound_program=McmcPtProgram(prog.fns, cfg, prog.target,
+                tabs=tabs, bound_program=McmcPtProgram(prog.fns, cfg, prog.target,
                                             layout=LADDER_LAYOUT))
         if parsed[2] is None and parsed[3] == 1:  # the 1-D kernel
             prog, cfg, params, tabs = integ._mcmc_kernel_program(
@@ -1498,7 +1552,7 @@ def main() -> int:
                 plain=lambda g: mcmc_reference(prog.torch_fns, cfg, params,
                                                SEED, g, tabs),
                 program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_cuda,
-                bound_program=McmcProgram(prog.fns, layout=Layout(
+                tabs=tabs, bound_program=McmcProgram(prog.fns, layout=Layout(
                     1, prog.layout_for(cfg).group)))
         prog, cfg, params = integ._nd_mcmc_kernel_program(
             fns, proposal, parsed, n_steps, n_burnin, stderr)
@@ -1508,7 +1562,7 @@ def main() -> int:
             plain=lambda g: mcmc_nd_reference(
                 prog.torch_fns, prog.torch_target, cfg, params, SEED, g, tabs),
             program=prog, cfg=cfg, k=len(fns), wrapper=mcmc_nd_cuda,
-            bound_program=McmcNdProgram(prog.fns, cfg, prog.target,
+            tabs=tabs, bound_program=McmcNdProgram(prog.fns, cfg, prog.target,
                                         layout=Layout(1, prog.layout.group)))
 
     # name: (functions, target, proposal, temperatures, closed forms)
@@ -1566,6 +1620,68 @@ def main() -> int:
                        for b in (False, True)),
                      *((s, False) for _, s in custom_mcmc_checks)]]
 
+    # The tables the JAX package runs on its XLA sweep (phases 68-71),
+    # started here: the cells' builds (and their one-lane and ladder twins
+    # for the bounds), then each new route of the three kernels against its
+    # plain version at MCMC_CHECK's shape.
+    t5 = tm.Distribution.student_t(5.0)
+    spike, gap_q = spiky_table(tm), outer_gap(tm)
+    spike_walk = tm.RandomWalk(step_size=0.8, adapt=True,
+                               init_range=(1.0, 3.0))
+    # name: (phase, functions, target, proposal, temperatures, closed
+    # forms, shape)
+    xla_cells = {
+        "c5b_t5": (69, MCMC_MAIN_FNS, n01, t5, None, [1.0], MCMC_MAIN),
+        "spiky_walk": (69, SPIKE_FNS, spike, spike_walk, None, SPIKE_EXACT,
+                       SHORT_MCMC),
+        "c9f_t5": (70, C9F_FNS, c9f_target,
+                   [beta25, tm.Distribution.student_t(5.0, 0.0, 2.0)], None,
+                   C9F_EXACT, SHORT_MCMC),
+        "c12d_t5": (71, C12D_FNS, c5_target,
+                    tm.Distribution.student_t(5.0, 0.0, 3.0), PT_LADDER,
+                    C12D_EXACT, SHORT_MCMC),
+        "c12d_gapped": (71, C12D_FNS, c5_target, gap_q, PT_LADDER,
+                        C12D_EXACT, SHORT_MCMC),
+    }
+    xla_main = {
+        name: custom_mcmc_setup(fns, target, proposal, temps,
+                                shape["n_steps"], shape["n_burnin"], True)
+        for name, (_, fns, target, proposal, temps, _, shape)
+        in xla_cells.items()}
+    xla_cases = [
+        ("1-D: the gapped mixture as proposal (knots) and target (irregular)",
+         PT_FNS, tm.Distribution.mixture([tm.Distribution.uniform(-3.0, -1.0),
+                                          tm.Distribution.uniform(1.0, 3.0)]),
+         tm.Distribution.mixture([tm.Distribution.uniform(-3.0, -1.0),
+                                  tm.Distribution.uniform(1.0, 3.0)]),
+         None, False),
+        ("1-D: a 1,000-knot inverse (full, uniform q) -> Beta(2,5)", PT_FNS,
+         beta25, short_inverse(tm, tm.Distribution.beta(2.0, 5.0)), None,
+         False),
+        ("1-D: the spiky table's 1,000-knot inverse (full, irregular q)",
+         PT_FNS, tm.Distribution.normal(2.0, 0.8),
+         short_inverse(tm, spiky_table(tm)), None, False),
+        ("1-D: HMC on the spiky table (irregular target, knot slopes)",
+         PT_FNS, spike, tm.HMC(step_size=0.2, n_leapfrog=4,
+                               init_range=(1.0, 3.0)), None, False),
+        ("nd: full route with an irregular target dimension", f2c,
+         [spike, n01], [short_inverse(tm, spiky_table(tm)), n02], None, False),
+        ("tempered: full route -> irregular target, T=2", PT_FNS, spike,
+         short_inverse(tm, spiky_table(tm)), [1.0, 2.0], False),
+        ("tempered: adaptive walk -> irregular target, T=2", PT_FNS, spike,
+         spike_walk, [1.0, 2.0], False),
+    ]
+    xla_checks = [
+        (name, custom_mcmc_setup(fns, target, proposal, temps,
+                                 MCMC_CHECK["n_steps"],
+                                 MCMC_CHECK["n_burnin"], stderr))
+        for name, fns, target, proposal, temps, stderr in xla_cases]
+    # The checks phase 68 also times and bounds at their shape, by their
+    # record's name: the full route with a uniform and with an irregular
+    # q-table, and HMC on an irregular target.
+    xla_timed = {xla_cases[1][0]: "full_uniform_q",
+                 xla_cases[2][0]: "full_irregular_q",
+                 xla_cases[3][0]: "hmc_irregular_target"}
     # The wide sets and control variates (phases 64-67), each group's
     # library started here as the public paths make it: c7's K = 128 and
     # 256 histograms over Beta(2, 5)'s 2048-entry table (one and two groups
@@ -1927,6 +2043,14 @@ def main() -> int:
     hmc_nd_builds = [
         pool.submit(timed_build, p.library)
         for o in hmc_nd_out.values() for p in o["layouts"].values()]
+    # Phase 68's libraries last: the queue builds them after every earlier
+    # phase's.
+    xla_builds = [
+        pool.submit(timed_build, lambda s=s, b=b: custom_mcmc_library(s, b))
+        for s, b in [*((s, b) for s in xla_main.values()
+                       for b in (False, True)),
+                     *((s, False) for _, s in xla_checks),
+                     *((s, True) for n, s in xla_checks if n in xla_timed)]]
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -2808,27 +2932,33 @@ def main() -> int:
     # build, and integrate() end to end (host clock); then rQMC as
     # integrate() runs it.
     def mode_times(prog, cfg, lib_, spec_, n, call, label: str,
-                   tables=None) -> dict:
+                   tables=None, check_n=None) -> dict:
+        """The kernel at ``n`` samples timed and bounded, held against (and
+        beside) its plain version at ``n``, or at ``check_n`` if given."""
         params_ = torch.tensor(spec_.params, device=dev)
         grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
+        check_grid_ = grid_ if check_n is None else plan_grid(
+            make_integrate_plan(check_n).actual_samples, cfg.method)
         pilot = (pilot_values(prog.torch_values, spec_.kind, params_, tables)
                  if cfg.with_stderr else None)
         out = {}
 
-        def run():
+        def run(g=grid_):
             out["kernel"] = integrate_cuda(prog, spec_.kind, params_, SEED,
-                                           grid_, cfg, pilot, tables)
+                                           g, cfg, pilot, tables)
 
         def plain():
             out["plain"] = integrate_reference(
-                prog.torch_values, spec_.kind, params_, SEED, grid_, cfg,
-                pilot, tables)
+                prog.torch_values, spec_.kind, params_, SEED, check_grid_,
+                cfg, pilot, tables)
 
         k_ms = time_ms(run, reps=10)
+        if check_grid_ is not grid_:
+            run(check_grid_)
         p_ms = time_ms(plain, reps=1)
-        err = outputs_agree(prog, spec_, params_, tables, cfg, grid_, pilot,
-                            out["kernel"], out["plain"],
-                            f"{label}, {grid_.actual_samples} samples")
+        err = outputs_agree(prog, spec_, params_, tables, cfg, check_grid_,
+                            pilot, out["kernel"], out["plain"],
+                            f"{label}, {check_grid_.actual_samples} samples")
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2842,10 +2972,14 @@ def main() -> int:
                            1, units, mhz_)
         print(f"{label}, {drawn} samples on {card}: kernel "
               f"{k_ms:.3f} ms ({drawn / k_ms * 1e3:.4e} samples/s), plain "
-              f"{p_ms:.3f} ms, call end to end {c_ms:.3f} ms median of 3, "
-              f"host clock")
+              f"{p_ms:.3f} ms"
+              + ("" if check_n is None
+                 else f" at {check_grid_.actual_samples} samples")
+              + f", call end to end {c_ms:.3f} ms median of 3, host clock")
         print_bound(bound, mhz_, "pair" if cfg.antithetic else "sample")
         return {"samples": drawn, "ms": k_ms, "plain_ms": p_ms,
+                **({} if check_n is None
+                   else {"plain_samples": check_grid_.actual_samples}),
                 "call_ms": c_ms, "bound_ms": bound[0], "bound_pipe": bound[1],
                 "issue_ms": bound[2], "max_abs_err": err}
 
@@ -3055,18 +3189,100 @@ def main() -> int:
 
     # 31-33. Config 5 (1-D), c9f (nd) and c12d (tempered) through the
     # public API, each counted from 0, held to its closed forms; then each
-    # kernel against its plain version at the main shape (the plain
-    # version timed in that run), the kernel timed (CUDA events), the
+    # kernel against its plain version at that shape (the plain version
+    # timed in that run), the kernel timed (CUDA events), the
     # warm call timed (host clock, median of 5), the idle share of warm
     # calls and the bounds.  The bounds count the arithmetic pipes of the
     # build's SASS and leave the table loads out: under an independence
     # proposal every load is x-free; under a walk the target's two loads
     # sit on the carried chain, whose latency bound counts 4 clocks per
     # dependent instruction and none for a load.
-    def mcmc_cell(phase, name, cell, setup, tolerance=None, shape=MCMC_MAIN):
+    def knot_searches(setup):
+        """(searches, on_chain, levels): the knot searches one chain-step
+        of ``setup``'s run makes (per dimension and rung, one for a
+        knot-exact draw, one for an irregular q-table at the candidate,
+        one for an irregular target table, under HMC L slopes and a
+        value), those of them on a walk's carried chain (the target's: one
+        a step, L under HMC) and the fewest levels any of them takes,
+        floor(log2(n + 1)) over n knots."""
+        cfg, tabs = setup["cfg"], setup["tabs"]
+        leap = getattr(cfg, "hmc_leapfrog", 0)
+        walk = int(cfg.mode) != 0
+        searches = on_chain = 0
+        sizes = []
+        for t in (tabs if isinstance(tabs, list) else [tabs]):
+            for role, tab in (("inv", None if t is None else t.inv),
+                              ("q", None if t is None else t.q),
+                              ("targ", None if t is None else t.targ)):
+                if not isinstance(tab, KnotTable):
+                    continue
+                sizes.append(tab.keys.shape[0])
+                if role == "targ":
+                    searches += leap + 1 if leap else 1
+                    on_chain += (leap or 1) if walk else 0
+                else:
+                    searches += 1
+        rungs = getattr(cfg, "n_temps", 1)
+        levels = min((n + 1).bit_length() - 1 for n in sizes) if sizes else 0
+        return searches * rungs, on_chain * rungs, levels
+
+    def chain_bound(setup, shape, ms, grid, temps):
+        """The bounds of ``setup``'s kernel at ``shape`` on ``grid``, timed
+        at ``ms``: the pipes of the one-lane (tempered: ladder) build's
+        SASS, its knot searches' loop bodies added at their fewest levels,
+        and the carried chain's latency, a walk's searches on it at one
+        dependent instruction a level; prints them and returns the
+        record's fields.  Table loads are left out."""
+        wrapper, cfg = setup["wrapper"], setup["cfg"]
+        depth = shape["n_steps"] + shape["n_burnin"]
+        c_steps = shape["n_chains"] * depth
+        rungs = 1 if temps is None else cfg.n_temps
+        mhz = clock_under_load(lambda s=setup: s["kernel"](grid), ms)
+        conversions = (2 if wrapper is mcmc_cuda else
+                       cfg.d + 1 if wrapper is mcmc_nd_cuda else
+                       cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2)
+        function = {mcmc_cuda: "mcmc_kernel", mcmc_nd_cuda: "mcmc_nd_kernel",
+                    mcmc_pt_cuda: "mcmc_pt_kernel"}[wrapper]
+        searches, on_chain, levels = knot_searches(setup)
+        bound_c = card_bound(
+            custom_mcmc_library(setup, bound=True), function, conversions,
+            c_steps, mhz,
+            warps=function_warps(cfg.mode, grid.chains_actual, rungs),
+            weights=(shape["n_steps"], shape["n_burnin"]),
+            searches=searches * levels)
+        print_bound(bound_c, mhz, "chain-step")
+        roles = cfg.roles  # per dimension but on the 1-D kernel
+        tables = (any(roles) if wrapper is mcmc_cuda
+                  else any(any(r_) for r_ in roles))
+        print(f"  (counted on {'the ladder layout' if temps else 'a one-lane'}"
+              " build of the same program"
+              + ("; the table loads are left out of both bounds)"
+                 if tables else ")"))
+        latency_c = print_latency(bound_c, depth, mhz)
+        out = {}
+        if searches:
+            found = bound_c[3].get("search_loops", 0)
+            search_lat = latency_ms(on_chain * levels, depth, mhz)
+            latency_c += search_lat
+            print(f"  knot searches: {searches} a chain-step of at least "
+                  f"{levels} levels, {found:g} search loops found per unit "
+                  f"in the SASS ({'added to' if found else 'none in'} the "
+                  f"pipe count); {on_chain} on the carried chain, "
+                  f"{search_lat:.3f} ms more latency")
+            out = {"knot_searches": searches, "knot_levels": levels,
+                   "search_loops": found, "knot_search_ms": search_lat}
+        return {"bound_ms": max(bound_c[0], latency_c),
+                "bound_by": bound_by(bound_c, latency_c),
+                "bound_pipe": bound_c[1], "pipe_bound_ms": bound_c[0],
+                "issue_ms": bound_c[2], "latency_ms": latency_c, **out,
+                **({"bound_leaves_out": "table loads"} if tables else {})}
+
+    def mcmc_cell(phase, name, cell, setup, tolerance=None, shape=MCMC_MAIN,
+                  check=None):
         """One MCMC cell of ``shape`` (MCMC_MAIN's unless given) through
-        its public call and against its plain version, timed and bounded;
-        returns its record."""
+        its public call, timed and bounded, and against its plain version
+        at that shape, or at ``check``'s (the cell's program: the library
+        does not depend on the depth); returns its record."""
         fns, target, proposal, temps, exact = cell
         depth = shape["n_steps"] + shape["n_burnin"]
         c_steps = shape["n_chains"] * depth
@@ -3113,7 +3329,12 @@ def main() -> int:
             fail(f"{name}: the estimates are off by more than {tolerance}")
         if swap is not None and not 0.0 < swap < 1.0:
             fail(f"{name}: swap rate {swap} is not in (0, 1)")
-        err, plain_ms_c = custom_vs_plain(setup, main_grid, str(phase))
+        check = check or shape
+        err, plain_ms_c = custom_vs_plain(
+            setup if check is shape else custom_mcmc_setup(
+                fns, target, proposal, temps, check["n_steps"],
+                check["n_burnin"], True),
+            main_grid if check is shape else check_grid, str(phase))
         ms_c = time_ms(lambda s=setup: s["kernel"](main_grid), reps=10)
         call_s = []
         for _ in range(5):
@@ -3127,39 +3348,17 @@ def main() -> int:
               f"({shape['n_burnin']} + {shape['n_steps']}) steps, "
               f"{name}, stderr, on {card}: kernel {ms_c:.3f} ms "
               f"({c_steps / ms_c * 1e3:.4e} chain-steps/s), plain "
-              f"{plain_ms_c:.3f} ms, integrate_mcmc() end to end "
+              f"{plain_ms_c:.3f} ms at ({check['n_burnin']} + "
+              f"{check['n_steps']}) steps, integrate_mcmc() end to end "
               f"{call_ms:.3f} ms median of 5, host clock")
-        mhz = clock_under_load(lambda s=setup: s["kernel"](main_grid), ms_c)
-        conversions = (2 if wrapper is mcmc_cuda else
-                       cfg.d + 1 if wrapper is mcmc_nd_cuda else
-                       cfg.n_temps * (cfg.d + 1) + (cfg.n_temps - 1) // 2)
-        function = {mcmc_cuda: "mcmc_kernel", mcmc_nd_cuda: "mcmc_nd_kernel",
-                    mcmc_pt_cuda: "mcmc_pt_kernel"}[wrapper]
-        bound_c = card_bound(
-            custom_mcmc_library(setup, bound=True), function, conversions,
-            c_steps, mhz,
-            warps=function_warps(cfg.mode, main_grid.chains_actual, rungs),
-            weights=(shape["n_steps"], shape["n_burnin"]))
-        print_bound(bound_c, mhz, "chain-step")
-        roles = cfg.roles  # per dimension but on the 1-D kernel
-        tables = (any(roles) if wrapper is mcmc_cuda
-                  else any(any(r_) for r_ in roles))
-        print(f"  (counted on {'the ladder layout' if temps else 'a one-lane'}"
-              " build of the same program"
-              + ("; the table loads are left out of both bounds)"
-                 if tables else ")"))
-        latency_c = print_latency(bound_c, depth, mhz)
+        bounds = chain_bound(setup, shape, ms_c, main_grid, temps)
         print(f"  {name}:", end="")
         return {
             "launches": launches_c[0], "pilot_launches": launches_c[1],
             "n_steps": shape["n_steps"], "max_abs_err": err, "ms": ms_c,
-            "plain_ms": plain_ms_c, "call_ms": call_ms,
-            "bound_ms": max(bound_c[0], latency_c),
-            "bound_by": bound_by(bound_c, latency_c),
-            "bound_pipe": bound_c[1], "pipe_bound_ms": bound_c[0],
-            "issue_ms": bound_c[2], "latency_ms": latency_c,
-            **({"bound_leaves_out": "table loads"} if tables else {}),
-            "library_ms": None,
+            "plain_ms": plain_ms_c,
+            "plain_steps": [check["n_burnin"], check["n_steps"]],
+            "call_ms": call_ms, **bounds, "library_ms": None,
             "idle_share": idle_share(call), "values": v.tolist(),
             "stderr": se.tolist(),
             **({} if swap is None else {"swap_rate": swap}),
@@ -3214,7 +3413,8 @@ def main() -> int:
             dist_spec_of(d), MODE_SAMPLES,
             lambda d=d: tm.integrate(BENCH_FNS, d, n_samples=MODE_SAMPLES,
                                      seed=SEED),
-            f"phase 34: K=8, {name}{FAMILY_ARGS[name]}, mc")
+            f"phase 34: K=8, {name}{FAMILY_ARGS[name]}, mc",
+            check_n=MODE_CHECK_SAMPLES)
         family_times[name]["args"] = list(FAMILY_ARGS[name])
     # Kept apart from the kernel's max_abs_err: a Cauchy column of x^4 is
     # 1e19, so its float32 sums differ by whole units in two orders.
@@ -5184,6 +5384,56 @@ def main() -> int:
     print(f"phases 64-67 (the wide sets and control variates) took "
           f"{time.perf_counter() - t_wide:.1f} s")
 
+    # 68. The tables the JAX package runs on its XLA sweep: the libraries
+    # started in phase 2, then each new route of the three kernels against
+    # its plain version, chain for chain, at MCMC_CHECK's shape.
+    t_xla = time.perf_counter()
+    built = [b.result() for b in xla_builds]
+    print(f"phase 68: built the knots, full and irregular-table routes' "
+          f"{len(built)} libraries, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for lib_, _ in built:
+        for line in lib_.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    xla_err = 0.0
+    xla_routes = {}
+    for name, setup in xla_checks:
+        print(f"phase 68: {name}, {check_grid.chains_actual} chains x "
+              f"({MCMC_CHECK['n_burnin']} + {MCMC_CHECK['n_steps']}) steps")
+        err_, plain_ms_ = custom_vs_plain(setup, check_grid, "68")
+        xla_err = max(xla_err, err_)
+        if name not in xla_timed:
+            continue
+        ms_ = time_ms(lambda s=setup: s["kernel"](check_grid), reps=10)
+        print(f"phase 68: {name} on {card}: kernel {ms_:.3f} ms, plain "
+              f"{plain_ms_:.3f} ms")
+        xla_routes[xla_timed[name]] = {
+            "n_steps": MCMC_CHECK["n_steps"],
+            "n_burnin": MCMC_CHECK["n_burnin"], "max_abs_err": err_,
+            "ms": ms_, "plain_ms": plain_ms_, "library_ms": None,
+            **chain_bound(setup, MCMC_CHECK, ms_, check_grid, None)}
+
+    # 69-71. The cells through the public API, each counted from 0, held
+    # to its closed forms within 6 error bars and XLA_TOLERANCE, against
+    # its plain version at MCMC_CHECK's shape, timed and bounded at its own
+    # with its knot searches (mcmc_cell, chain_bound).
+    xla_mcmc = {}
+    for name, (phase, fns, target, proposal, temps, exact, shape) in (
+            xla_cells.items()):
+        rec = mcmc_cell(phase, name, (fns, target, proposal, temps, exact),
+                        xla_main[name], XLA_TOLERANCE, shape=shape,
+                        check=MCMC_CHECK)
+        rec["max_abs_err"] = max(rec["max_abs_err"], xla_err)
+        print(f"phase {phase}: {name} on {card}: kernel {rec['ms']:.3f} ms, "
+              f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
+              f"{rec['plain_ms']:.3f} ms")
+        xla_mcmc[name] = rec
+    print(f"phases 68-71 (the XLA-only tables) took "
+          f"{time.perf_counter() - t_xla:.1f} s")
+    print(f"chip_smoke.py ran {time.perf_counter() - t_main:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "integrate",
         "route": "cuda",
@@ -5236,6 +5486,8 @@ def main() -> int:
         "state": state["c5b"],
         "batch": serving["mcmc"],
         "wide": mcmc_wide["c5b"],
+        "xla_tables": {**{k: xla_mcmc[k] for k in ("c5b_t5", "spiky_walk")},
+                       **xla_routes},
     }, {
         "name": "integrate_nd",
         "route": "cuda",
@@ -5297,6 +5549,7 @@ def main() -> int:
         "hmc": {"c11b": hmc_nd["c11b"]},
         "batch": serving["mcmc_nd"],
         "wide": mcmc_wide["c9e"],
+        "xla_tables": {"c9f_t5": xla_mcmc["c9f_t5"]},
     }, {
         "name": "mcmc_pt",
         "route": "cuda",
@@ -5326,6 +5579,7 @@ def main() -> int:
         "hmc": {"c12b": hmc_nd["c12b"]},
         "batch": serving["mcmc_pt"],
         "wide": mcmc_wide["c12"],
+        "xla_tables": {k: xla_mcmc[k] for k in ("c12d_t5", "c12d_gapped")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

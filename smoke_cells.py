@@ -441,6 +441,55 @@ CV_CONTROLS = [(lambda x: x, 0.0), (lambda x: x * x, 1.0),
                (lambda x: x * x * x, 0.0), (lambda x: math.sin(x), 0.0)]
 # The depth at which each wide MCMC pass is held against its plain
 # version on the card (the plain version takes a torch op per integrand
-# and step): MCMC_CHECK's chains, 50 + 250 steps.
-WIDE_MCMC_CHECK = dict(n_chains=4096, n_steps=250, n_burnin=50)
+# and step): MCMC_CHECK's chains, 20 + 100 steps (50 + 250 before the
+# XLA-only table phases 68-71 needed the time).
+WIDE_MCMC_CHECK = dict(n_chains=4096, n_steps=100, n_burnin=20)
 CV_CHECK_SAMPLES = 1 << 22
+
+
+# The tables the JAX package runs on its XLA sweep (phases 68-71): the
+# 1-D main path's [x^2] on N(0, 1) from a Student-t(5) proposal (the knots
+# route) at MCMC_MAIN's shape, E = 1; an adaptive walk on the spiky
+# irregular table (the irregular target table), E[x] = 2; c9f with
+# dimension 1's proposal Student-t(5, 0, 2), E[xy] = 0; c12d with the
+# Student-t(5, 0, 3) proposal and with a gapped proposal (the tempered
+# kernel's gapped route), E[x] = 0, E[x^2] = 5; the walk, c9f and c12d at
+# SHORT_MCMC's depth.  Each within 6 error bars and XLA_TOLERANCE, the
+# reference MCMC tolerance (BASELINE.md).
+XLA_TOLERANCE = 0.2
+SPIKE_FNS = [lambda x: x]
+SPIKE_EXACT = [2.0]
+_SPIKE_X = np.sort(np.concatenate([np.linspace(0.0, 4.0, 900),
+                                   np.linspace(1.999, 2.001, 200)]))
+
+
+def spiky_table(tm):
+    """A 0.0005-wide spike at 2 on a flat [0, 4] density, tabulated on an
+    irregular grid that no uniform grid resamples within its bound (the
+    irregular-grid log table); E[x] = 2."""
+    return tm.Distribution.from_pdf_table(
+        _SPIKE_X,
+        0.2 + np.exp(-0.5 * ((_SPIKE_X - 2.0) / 0.0005) ** 2) * 50.0)
+
+
+def outer_gap(tm):
+    """A gapped proposal for c12d's target: c12d's own proposal density
+    (``wide_pdf``) on (-8, 8) with no density on 6.5 < |x| < 7, outside the
+    target's (-6, 6), so no target mass lies in a gap; its q-table is
+    faithful (the gapped route)."""
+    x = np.linspace(-8.0, 8.0, 2048)
+    ax = np.abs(x)
+    return tm.Distribution.from_pdf_table(
+        x, np.where((ax > 6.5) & (ax < 7.0), 0.0, wide_pdf(x)))
+
+
+def short_inverse(tm, d, m=1000):
+    """``d`` with a uniform-u inverse of ``m`` knots, off the 128 lanes
+    (the "full" route), set through its spec."""
+    from tpu_montecarlo_torch.sampling import DistKind, DistSpec
+    from tpu_montecarlo_torch.tables import compute_inverse_cdf_table
+
+    inv = compute_inverse_cdf_table(d._x_table, d._cdf_table, m=m)
+    d._cached_spec = DistSpec(DistKind.CUSTOM, np.zeros(2, np.float32), inv,
+                              np.asarray(d._cdf_table, np.float32))
+    return d

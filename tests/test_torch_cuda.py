@@ -537,13 +537,17 @@ def test_custom_kernel_rejects_missing_tables(cuda_device):
     program = _program(BENCH[:2])
     lib = program.library(IntegrateConfig(), tables.route)
     params = torch.zeros(2, device=cuda_device)
-    out = torch.empty((1, 2), device=cuda_device)
+    partials = torch.empty((1, 1, 2), device=cuda_device)
+    sums = torch.empty((1, 2), device=cuda_device)
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
-    err = lib.tmc_integrate(3, 42 & MASK32, params.data_ptr(), 0, 8, 8, -1, 1,
-                            out.data_ptr(), None, stream)
+    # kind, seed word, seeds, reps, params, stride, pilots, stride, loops,
+    # tiles, segment bits, grid, partials, sums, tables, stream
+    err = lib.tmc_integrate(3, 42 & MASK32, None, 1, params.data_ptr(), 0,
+                            None, 0, 8, 8, -1, 1, partials.data_ptr(),
+                            sums.data_ptr(), None, stream)
     assert err != 0
-    err = lib.tmc_integrate(1, 42, params.data_ptr(), 0, 8, 8, -1, 1,
-                            out.data_ptr(),
+    err = lib.tmc_integrate(1, 42, None, 1, params.data_ptr(), 0, None, 0, 8,
+                            8, -1, 1, partials.data_ptr(), sums.data_ptr(),
                             ctypes.addressof(program.kernel_tables(tables, cuda_device)),
                             stream)
     assert err != 0
@@ -1683,6 +1687,141 @@ def test_custom_mcmc_kernel_rejects_missing_tables(cuda_device):
         mcmc_cuda(program, cfg, params, 42, plan_mcmc_grid(1024), cpu_tables)
 
 
+# -- the tables the JAX package runs on its XLA sweep -------------------------
+#
+# The knots route (a knot-exact proposal: Student-t, the gapped mixture
+# with no faithful q-table), the full route (an inverse off the 128 lanes,
+# or a stateful run's with no faithful q-table: a uniform or an irregular
+# q-table), the irregular target table under walks and HMC, and the gapped
+# route of the tempered kernel, each against its plain version on the card
+# at 4096 chains x (200 + 1000) steps, as the CUSTOM cases above.
+
+_SPIKE_X = np.sort(np.concatenate([np.linspace(0.0, 4.0, 900),
+                                   np.linspace(1.999, 2.001, 200)]))
+_SPIKE_P = 0.2 + np.exp(-0.5 * ((_SPIKE_X - 2.0) / 0.0005) ** 2) * 50.0
+
+
+def _short_inverse(d, m=1000):
+    """``d`` with a uniform-u inverse of ``m`` knots (off the 128 lanes:
+    the "full" route), set through its spec."""
+    from tpu_montecarlo_torch.sampling import DistSpec
+    from tpu_montecarlo_torch.tables import compute_inverse_cdf_table
+
+    inv = compute_inverse_cdf_table(d._x_table, d._cdf_table, m=m)
+    d._cached_spec = DistSpec(DistKind.CUSTOM, np.zeros(2, np.float32), inv,
+                              np.asarray(d._cdf_table, np.float32))
+    return d
+
+
+def _xla_dist(name):
+    d = tm.Distribution
+    if name.startswith("t5"):  # t5, t5s2, t5s3: Student-t(5, 0, scale)
+        return d.student_t(5.0, 0.0, float(name[3:] or 1))
+    if name == "spiky":
+        return d.from_pdf_table(_SPIKE_X, _SPIKE_P)
+    if name == "spiky-short":
+        return _short_inverse(d.from_pdf_table(_SPIKE_X, _SPIKE_P))
+    if name == "beta-short":
+        return _short_inverse(d.beta(2.0, 5.0))
+    if name == "gapped-mixture":
+        return d.mixture([d.uniform(-3.0, -1.0), d.uniform(1.0, 3.0)])
+    if name == "n208":
+        return d.normal(2.0, 0.8)
+    return _custom_dist(name)
+
+
+def _xla_spec(spec):
+    if isinstance(spec, dict):
+        kw = dict(spec)
+        return tm.HMC(**kw) if kw.pop("hmc", False) else tm.RandomWalk(**kw)
+    if isinstance(spec, str):
+        return _xla_dist(spec)
+    return [_xla_dist(s) for s in spec]
+
+
+_SPIKE_WALK = dict(step_size=0.8, adapt=True, init_range=(1.0, 3.0))
+_SPIKE_HMC = dict(step_size=0.2, n_leapfrog=4, init_range=(1.0, 3.0),
+                  hmc=True)
+# id: (path, fns, target, proposal, temperatures or None, stderr, each
+# proposal dimension's route (None for an analytic one; None for a walk),
+# the config's knots)
+_NO = (False, False, False)
+XLA_TABLE_CASES = {
+    "1d-knots": ("1d", _F1, "n01", "t5", None, True, ["knots"],
+                 (True, True, False)),
+    "1d-knots-gapped-mixture": ("1d", _F1, "gapped-mixture", "gapped-mixture",
+                                None, False, ["knots"], (True, True, True)),
+    "1d-full-uniform-q": ("1d", _F1, "beta", "beta-short", None, False,
+                          ["full"], _NO),
+    "1d-full-irregular-q": ("1d", _F1, "n208", "spiky-short", None, False,
+                            ["full"], (False, True, False)),
+    "1d-walk-irregular-target": ("1d", _F1, "spiky", _SPIKE_WALK, None, True,
+                                 None, (False, False, True)),
+    "1d-hmc-irregular-target": ("1d", _F1, "spiky", _SPIKE_HMC, None, False,
+                                None, (False, False, True)),
+    "nd-knots-c9f": ("nd", _F2, ["beta", "n01"], ["beta", "t5s2"], None, True,
+                     ["sampler", "knots"], (_NO, (True, True, False))),
+    "nd-full-irregular-target": ("nd", _F2, ["spiky", "n01"],
+                                 ["spiky-short", "n02"], None, False,
+                                 ["full", None], ((False, True, True), _NO)),
+    "nd-walk-irregular-target": ("nd", _F2, ["spiky", "n01"], _SPIKE_WALK,
+                                 None, False, None,
+                                 ((False, False, True), _NO)),
+    "nd-hmc-irregular-target": ("nd", _F2, ["spiky", "n01"],
+                                dict(_SPIKE_HMC, step_size=[0.2, 0.5]), None,
+                                False, None, ((False, False, True), _NO)),
+    "pt-knots-c12d": ("pt", _F1, "bimodal", "t5s3", [1.0, 2.0, 4.0, 8.0], True,
+                      ["knots"], ((True, True, False),)),
+    "pt-gapped": ("pt", _F1, "bimodal", "wide-gap", [1.0, 2.0], True,
+                  ["gapped"], ()),
+    "pt-full-irregular-target": ("pt", _F1, "spiky", "spiky-short", [1.0, 2.0],
+                                 False, ["full"], ((False, True, True),)),
+    "pt-walk-irregular-target": ("pt", _F1, "spiky", _SPIKE_WALK, [1.0, 2.0],
+                                 False, None, ((False, False, True),)),
+}
+
+
+def xla_table_setup(case, device, n_steps, n_burnin):
+    path, fns, target, proposal, temps, stderr = XLA_TABLE_CASES[case][:6]
+    return public_mcmc_setup(path, fns, _xla_spec(target),
+                             _xla_spec(proposal), temps, stderr, device,
+                             n_steps, n_burnin)
+
+
+@pytest.fixture(scope="module")
+def xla_table_libraries():
+    """Builds the section's libraries at once (nvcc in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    grid = plan_mcmc_grid(1024)
+    with ThreadPoolExecutor(max_workers=32) as pool:
+        for f in [pool.submit(lambda c=c: xla_table_setup(c, device, 10, 2)[0](
+                      grid)) for c in XLA_TABLE_CASES]:
+            f.result()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(XLA_TABLE_CASES))
+def test_xla_table_kernel_matches_plain_version(cuda_device,
+                                                xla_table_libraries, case):
+    from tpu_montecarlo_torch.api.device import mcmc_proposal_route
+
+    path, _, _, proposal, _, _, routes, knots = XLA_TABLE_CASES[case]
+    setup = xla_table_setup(case, cuda_device, 1000, 200)
+    assert setup[2].knots == knots
+    if routes is not None:
+        dims = _xla_spec(proposal)
+        dims = dims if isinstance(dims, list) else [dims]
+        assert [mcmc_proposal_route(d)
+                if dist_spec_of(d).kind == DistKind.CUSTOM else None
+                for d in dims] == routes
+    check_public_mcmc(path, setup)
+
+
 # -- the extended families ---------------------------------------------------
 #
 # Lognormal, Cauchy, Laplace, logistic, Gumbel, Weibull and Pareto through
@@ -2017,18 +2156,25 @@ def test_nd_custom_kernel_rejects_missing_tables(cuda_device):
     tables = nd_tables(props, cfg, cuda_device)
     lib = program.library(nk.nd_routes(cfg, tables))
     params = torch.zeros((2, 2), device=cuda_device)
-    out = torch.empty((1, 1), device=cuda_device)
+    partials = torch.empty((1, 1, 1), device=cuda_device)
+    sums = torch.empty((1, 1), device=cuda_device)
+    out = partials.data_ptr(), sums.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
-    err = lib.tmc_integrate_nd(0, 0, 42, params.data_ptr(), 0, 0, 1, 1, -1, 1,
-                               out.data_ptr(), None, stream)
+    # method, stderr, seed word, seeds, reps, params, stride, directions,
+    # pilots, stride, loops, tiles, segment bits, grid, partials, sums,
+    # tables, stream
+    err = lib.tmc_integrate_nd(0, 0, 42, None, 1, params.data_ptr(), 0, None,
+                               None, 0, 1, 1, -1, 1, *out, None, stream)
     assert err != 0
     kt = program.kernel_tables(tables, cuda_device)
     dirs = program.direction_numbers(cuda_device)
-    err = lib.tmc_integrate_nd(2, 0, 42, params.data_ptr(), dirs.data_ptr(), 0, 1, 1,
-                               -1, 1, out.data_ptr(), ctypes.addressof(kt), stream)
+    err = lib.tmc_integrate_nd(2, 0, 42, None, 1, params.data_ptr(), 0,
+                               dirs.data_ptr(), None, 0, 1, 1, -1, 1, *out,
+                               ctypes.addressof(kt), stream)
     assert err != 0
-    err = lib.tmc_integrate_nd(0, 0, 42, params.data_ptr(), 0, 0, 1, 1, -1, 1,
-                               out.data_ptr(), ctypes.addressof(kt), stream)
+    err = lib.tmc_integrate_nd(0, 0, 42, None, 1, params.data_ptr(), 0, None,
+                               None, 0, 1, 1, -1, 1, *out,
+                               ctypes.addressof(kt), stream)
     torch.cuda.synchronize()
     assert err == 0
 
@@ -2294,6 +2440,9 @@ STATE_CASES = {
     "independence": (("normal", 0.0, 1.0), ("normal", 0.0, 2.0)),
     "table-proposal": ("beta", "beta"),
     "gapped-proposal": (("uniform", 0.0, 1.0), "gap"),
+    # A spiky table with no faithful q-table: the "full" route, logq from
+    # its irregular log table.
+    "full-proposal": (("normal", 2.0, 0.8), "spiky"),
     "walk": (("normal", 0.0, 1.0), dict(step_size=0.8)),
     "hmc": (("normal", 0.5, 1.5), dict(step_size=0.3, n_leapfrog=5, hmc=True)),
     "nd-c9e": ("c9e", [("normal", 0.0, 2.0)] * 2),
@@ -2319,6 +2468,8 @@ def _state_spec(spec):
             x, np.where((x > 0.4) & (x < 0.6), 0.0, 1.0))
     if spec == "c9e":
         return _c9e_target()
+    if spec == "spiky":
+        return _xla_dist(spec)
     return getattr(tm.Distribution, spec[0])(*spec[1:])
 
 
@@ -2449,7 +2600,7 @@ def test_state_kernel_matches_plain_version(cuda_device, hmc_state_libraries,
     assert wrapper.state_launches == before + 1
     # A sampler-mode CUSTOM proposal's stateful run reads its full inverse
     # and its log table: other chains.
-    if case not in ("table-proposal", "nd-table-dimension"):
+    if case not in ("table-proposal", "full-proposal", "nd-table-dimension"):
         assert torch.equal(got0.rows, bare.rows)
         assert torch.equal(got0.x_final, bare.x_final)
     # Segment 1, from the kernel's segment 0, against its plain version.

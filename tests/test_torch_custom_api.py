@@ -370,9 +370,20 @@ ROUTING = {
 }
 
 
+# Items the port has since done: the MCMC kernels take the tables the JAX
+# package sends to its XLA sweep (knot-exact proposals, irregular target
+# tables, tempered gapped proposals), so the call returns its values.
+TAKEN = (r"item 6\.8", r"item 8\.9", r"item 9\.8")
+
+
 @pytest.mark.parametrize("case", list(ROUTING))
 def test_left_to_later_items(case):
     call, item = ROUTING[case]
+    if item in TAKEN:
+        r = call()
+        assert r.values.shape == (1,) and np.all(np.isfinite(r.values))
+        assert 0.0 < r.acceptance_rate <= 1.0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):
         call()
 

@@ -203,21 +203,24 @@ def test_flat_gapped_tables_are_the_jax_packages(name):
 
 def _jax_route(dist):
     """The route the JAX kernel gate (``_mcmc_pallas_ok``) gives a
-    stateless CUSTOM proposal."""
+    stateless CUSTOM proposal, and where it sends it to its XLA sweep the
+    port's route for what that sweep reads: ``"knots"`` for a knot-exact
+    spec, ``"full"`` for another."""
     spec = j_dist_spec_of(dist)
+    xla = "knots" if spec.exact_inverse else "full"
     if spec.heavy_tail:
-        return None
+        return xla
     if spec.exact_inverse:
-        return (None if jdevice._proposal_kernel_log_tables(dist) is None
+        return (xla if jdevice._proposal_kernel_log_tables(dist) is None
                 else "gapped")
-    return "sampler" if spec.x_table.shape[0] % 128 == 0 else None
+    return "sampler" if spec.x_table.shape[0] % 128 == 0 else xla
 
 
 @pytest.mark.parametrize("name", CUSTOM)
 def test_proposal_routes_are_the_jax_gates(name):
     jd, td = _both(name)
     assert tdevice.mcmc_proposal_route(td) == _jax_route(jd)
-    assert tdevice.mcmc_target_tables_ok(td) == (
+    assert (tdevice.mcmc_target_route(td) == "grid") == (
         jdevice._uniform_log_tables(jd) is not None)
 
 

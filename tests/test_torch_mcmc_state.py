@@ -472,7 +472,9 @@ def test_unfaithful_q_table_runs_stateless_and_names_item_when_stateful(integ):
     # A spiky irregular table whose uniform-grid q-table fails the 0.01-nat
     # fidelity check: sampler mode needs none, so the stateless run takes
     # the kernel; a stateful run needs it, and the JAX package then runs
-    # its XLA sweep (queue 1 item 6.8 on the port).
+    # its XLA sweep.  The port runs it in its kernel on the "full" route
+    # (queue 1 item 6.8, which raised here before): the inverse at full
+    # length, logq from the full irregular log table.
     x = np.sort(np.concatenate([np.linspace(0.0, 4.0, 900),
                                 np.linspace(1.999, 2.001, 200)]))
     pv = 0.2 + np.exp(-0.5 * ((x - 2.0) / 0.0005) ** 2) * 50.0
@@ -481,10 +483,11 @@ def test_unfaithful_q_table_runs_stateless_and_names_item_when_stateful(integ):
     r = integ.integrate_mcmc([lambda v: v], target,
                              tm.Distribution.from_pdf_table(x, pv), **kw)
     assert abs(r.values[0] - 2.0) < 0.1
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 6\.8 "):
-        integ.integrate_mcmc([lambda v: v], target,
+    s = integ.integrate_mcmc([lambda v: v], target,
                              tm.Distribution.from_pdf_table(x, pv),
                              return_state=True, **kw)
+    assert abs(s.values[0] - 2.0) < 0.1
+    assert s.chain_state is not None
     with pytest.warns(UserWarning, match="XLA backend"):
         jmc.MonteCarloIntegrator(backend="pallas").integrate_mcmc(
             [lambda v: v], jmc.Distribution.normal(2.0, 0.8),

@@ -11,7 +11,12 @@ kernels the downsampled flat inverse of a proposal (or its flat
 gap-respecting tables), the guarded and downsampled log table of a gapped
 proposal and the downsampled log table of a target
 (:func:`mcmc_dim_tables`).  The downsampling is kept: it defines the
-tables the JAX kernel samples, so the chains are the same.  The JAX
+tables the JAX kernel samples, so the chains are the same.  Where the JAX
+package's kernel gates send a table to its XLA sweep, the MCMC kernels
+read what that sweep reads: the CDF knots of a knot-exact proposal, a
+flat inverse at full length, and the full log-pdf table on its own grid,
+uniform or irregular (:func:`mcmc_proposal_route`,
+:func:`mcmc_target_route`).  The JAX
 package's VMEM gates and byte accounting are not carried over: the card
 reads the tables from global memory.
 """
@@ -28,7 +33,14 @@ from ..ops.integrate_kernel import (
     prep_inv_table_stratified,
 )
 from ..ops.integrate_nd_kernel import CustomDim, FlatTables, NdConfig
-from ..ops.mcmc_tables import DimTables, InverseTable, log_table, prep_inv_table
+from ..ops.mcmc_tables import (
+    DimTables,
+    InverseTable,
+    KnotTable,
+    flat_inverse,
+    log_table,
+    prep_inv_table,
+)
 from ..sampling import DistKind, dist_spec_of
 from ..tables import (
     downsample_log_table,
@@ -47,7 +59,7 @@ __all__ = [
     "nd_custom_dim",
     "nd_tables",
     "mcmc_proposal_route",
-    "mcmc_target_tables_ok",
+    "mcmc_target_route",
     "sampling_tables",
 ]
 
@@ -177,42 +189,64 @@ def _device_uniform_log_tables(distribution, role: str = "target"):
 
 
 def mcmc_proposal_route(distribution, stateful: bool = False):
-    """How the MCMC kernels draw from a CUSTOM proposal, as the JAX
-    package's ``_mcmc_pallas_ok`` (``tpu_montecarlo/api/mcmc.py:454-500``)
-    routes it: ``"sampler"`` (a lane-multiple inverse table, sampler-mode
-    logq; stateless runs), ``"table"`` (that inverse at full size and a
-    faithful q-table; ``stateful`` runs), ``"gapped"`` (gap-respecting
-    tables and a faithful q-table), or None where the JAX package runs its
-    XLA sweep (a heavy tail, an inverse of another length, a q-table that
-    is needed and not faithful)."""
+    """How the MCMC kernels draw from a CUSTOM proposal.  Where the JAX
+    package's kernel gate ``_mcmc_pallas_ok``
+    (``tpu_montecarlo/api/mcmc.py:454-500``) keeps the workload:
+    ``"sampler"`` (a lane-multiple inverse table, sampler-mode logq;
+    stateless runs), ``"table"`` (that inverse at full size and a faithful
+    q-table; ``stateful`` runs) or ``"gapped"`` (gap-respecting tables and
+    a faithful q-table).  Where it sends it to its XLA sweep, what that
+    sweep computes (``sampling.transform_from_u``): ``"knots"`` for an
+    ``exact_inverse`` spec (heavy-tailed, or gapped with no faithful
+    q-table), the knot-exact inverse, and ``"full"`` for another (an
+    inverse of another length, or a stateful run's with no faithful
+    q-table), the flat inverse at full length; both take logq from the
+    full log-pdf table (:func:`_full_log_table`)."""
     spec = dist_spec_of(distribution)
-    if spec.heavy_tail:
-        return None
     if spec.exact_inverse:
-        if _proposal_kernel_log_tables(distribution) is None:
-            return None
-        return "gapped"
-    if spec.x_table is None or spec.x_table.shape[0] % 128 != 0:
-        return None
+        if (not spec.heavy_tail
+                and _proposal_kernel_log_tables(distribution) is not None):
+            return "gapped"
+        return "knots"
+    if spec.x_table.shape[0] % 128 != 0:
+        return "full"
     if not stateful:
         return "sampler"
     if _proposal_kernel_log_tables(distribution) is None:
-        return None
+        return "full"
     return "table"
 
 
-def mcmc_target_tables_ok(distribution) -> bool:
-    """Whether a CUSTOM target has the uniform-grid log table the MCMC
-    kernels read (the JAX package's gate)."""
-    return _uniform_log_tables(distribution) is not None
+def mcmc_target_route(distribution) -> str:
+    """How the MCMC kernels read a CUSTOM target's log density:
+    ``"grid"``, its downsampled uniform-grid log table, where the JAX
+    package's gate finds one; else ``"knots"``, its full irregular log-pdf
+    table, as the JAX package's XLA sweep reads it."""
+    return "grid" if _uniform_log_tables(distribution) is not None else "knots"
+
+
+def _full_log_table(distribution, device):
+    """A distribution's full ``get_log_pdf_table()`` as the XLA sweep
+    reads it (``sampling.log_pdf_from_table``): a padded uniform-grid
+    table where its grid is uniform, else a :class:`KnotTable` over its
+    irregular grid."""
+    lx, lp = distribution.get_log_pdf_table()
+    if is_uniform_grid(lx):
+        return log_table(lx, lp, device)
+    return KnotTable.of(lx, lp, device)
+
+
+def _is_custom(distribution) -> bool:
+    return (distribution is not None
+            and dist_spec_of(distribution).kind == DistKind.CUSTOM)
 
 
 def mcmc_dim_tables(proposal, target, device, stateful: bool = False):
     """One dimension's :class:`DimTables` on ``device`` for a proposal
     (a Distribution, or None for a walk) and a target (a Distribution, or
-    None for a joint log density), or None when neither is CUSTOM.  The
-    caller has routed the proposal (:func:`mcmc_proposal_route`) and the
-    target.  A ``stateful`` run's non-gapped proposal takes its full
+    None for a joint log density), or None when neither is CUSTOM, on
+    the routes :func:`mcmc_proposal_route` and :func:`mcmc_target_route`
+    give them.  A ``stateful`` run's non-gapped proposal takes its full
     inverse table and its faithful log table, as the JAX package stages
     them for any stateful run (``tpu_montecarlo/api/mcmc.py:630-642``,
     ``:730-735``): a resumed chain's start has no draw to read logq from.
@@ -226,25 +260,35 @@ def mcmc_dim_tables(proposal, target, device, stateful: bool = False):
         return cache[role, key]
 
     inv = q = targ = None
-    if proposal is not None and dist_spec_of(proposal).kind == DistKind.CUSTOM:
+    if _is_custom(proposal):
         spec = dist_spec_of(proposal)
-        if spec.exact_inverse:
+        route = mcmc_proposal_route(proposal, stateful)
+        if route == "gapped":
             inv = staged(proposal, "inv", lambda: InverseTable.of(
                 *_device_gapped_tables(proposal, spec, stratified=False),
                 device))
-            q = staged(proposal, "q", lambda: log_table(
-                *_device_uniform_log_tables(proposal, "proposal"), device))
-        elif stateful:
-            inv = staged(proposal, "inv_full", lambda: InverseTable.of(
-                *prep_inv_table(spec.x_table), device))
-            q = staged(proposal, "q", lambda: log_table(
-                *_device_uniform_log_tables(proposal, "proposal"), device))
-        else:
+        elif route == "knots":
+            inv = staged(proposal, "inv_knots", lambda: KnotTable.of(
+                spec.cdf_table, spec.x_table, device))
+        elif route == "sampler":
             inv = staged(proposal, "inv", lambda: InverseTable.of(
                 *prep_inv_table(_mcmc_prop_inverse(proposal, spec)), device))
-    if target is not None and dist_spec_of(target).kind == DistKind.CUSTOM:
-        targ = staged(target, "targ", lambda: log_table(
-            *_device_uniform_log_tables(target), device))
+        else:  # "table", "full": the inverse at full length
+            inv = staged(proposal, "inv_full", lambda: InverseTable.of(
+                *flat_inverse(spec.x_table), device))
+        if route in ("gapped", "table"):
+            q = staged(proposal, "q", lambda: log_table(
+                *_device_uniform_log_tables(proposal, "proposal"), device))
+        elif route in ("knots", "full"):
+            q = staged(proposal, "q_full",
+                       lambda: _full_log_table(proposal, device))
+    if _is_custom(target):
+        if mcmc_target_route(target) == "grid":
+            targ = staged(target, "targ", lambda: log_table(
+                *_device_uniform_log_tables(target), device))
+        else:
+            targ = staged(target, "targ_full",
+                          lambda: _full_log_table(target, device))
     if inv is None and targ is None:
         return None
     return DimTables(inv, q, targ)

@@ -35,8 +35,8 @@ from ..ops.mcmc_kernel import (
     plan_chains,
     plan_mcmc_grid,
 )
+from ..ops.mcmc_tables import DimTables
 from ..sampling import dist_spec_of, ensure_param_batch_family
-from ..utils.roadmap import MCMC_TABLES_XLA
 from .batching import (
     _check_random_walk_args,
     _checked_batch_prog,
@@ -44,7 +44,7 @@ from .batching import (
 )
 from .cache import fns_key
 from .device import mcmc_dim_tables
-from .mcmc_nd import _table_routes, hmc_leapfrog, is_nd_call
+from .mcmc_nd import hmc_leapfrog, is_nd_call
 from .mcmc_result import mcmc_result, with_chain_state
 from .passes import (
     build_all,
@@ -425,17 +425,18 @@ class _McmcMixin:
             mode = Mode.ADAPTIVE if proposal.adapt else Mode.RANDOM_WALK
             prop_kind = targ.kind
             prop_row = list(proposal.pack_params(target))
-            proposal, prop_specs = None, ()
+            proposal = None
         else:
             mode = Mode.INDEPENDENCE
             prop = dist_spec_of(proposal)
             prop_kind = prop.kind
             prop_row = [*prop.params, 0.0, 0.0]
-            prop_specs = (prop,)
-        gapped = _table_routes((proposal,), prop_specs, (target,), (targ,),
-                               "MCMC", MCMC_TABLES_XLA, stateful=with_state)
+        tables = mcmc_dim_tables(proposal, target, self._device,
+                                 stateful=with_state)
+        dim = tables or DimTables()
         cfg = McmcConfig(mode, prop_kind, targ.kind, n_steps, n_burnin,
-                         with_stderr, prop_gapped=any(gapped),
+                         with_stderr, prop_gapped=dim.q is not None,
+                         knots=dim.knots,
                          with_diagnostics=with_diagnostics, samples=samples,
                          hmc_leapfrog=leapfrog, with_state=with_state,
                          use_init_state=use_init_state)
@@ -446,7 +447,5 @@ class _McmcMixin:
             [*prop_row, *targ.params], dtype=torch.float32,
             device=self._device,
         )
-        return (program, cfg, params,
-                mcmc_dim_tables(proposal, target, self._device,
-                                stateful=with_state))
+        return program, cfg, params, tables
 

@@ -37,15 +37,16 @@ from ..ops.mcmc_nd_kernel import (
     mcmc_nd_batch,
     mcmc_nd_cuda,
 )
+from ..ops.mcmc_tables import DimTables
 from ..sampling import DistKind, dist_spec_of, ensure_param_batch_family
-from ..utils.roadmap import FRONT_END, ND_MCMC_TABLES_XLA, not_ported
+from ..utils.roadmap import FRONT_END, not_ported
 from .batching import (
     _check_nd_mcmc_params,
     _check_random_walk_args,
     stage_seeds,
 )
 from .cache import fns_key
-from .device import mcmc_dim_tables, mcmc_proposal_route, mcmc_target_tables_ok
+from .device import mcmc_dim_tables
 from .mcmc_result import mcmc_result, with_chain_state
 from .passes import (
     build_all,
@@ -109,31 +110,15 @@ def _target_arity(target) -> int:
     )
 
 
-def _table_routes(proposals, prop_specs, targets, targ_specs, what, item,
-                  gapped_ok=True, stateful=False):
-    """The CUSTOM dimensions' routes as the JAX package's kernel gates
-    take them (``tpu_montecarlo/api/mcmc_nd.py:198-219``, and
-    ``api/tempering.py:330-426`` with ``gapped_ok=False``): per proposal
-    dimension whether its logq comes from its log table (gapped, or any
-    CUSTOM one of a ``stateful`` run; ``()`` for a walk).  What the JAX
-    package sends to its XLA sweep raises, naming ``item``: a heavy-tailed
-    proposal or one with no faithful table, a gapped one where
-    ``gapped_ok`` is False, a target with no uniform-grid log table."""
-    for t, s in zip(targets or (), targ_specs or ()):
-        if s.kind == DistKind.CUSTOM and not mcmc_target_tables_ok(t):
-            raise not_ported(f"a CUSTOM target table with no uniform grid "
-                             f"in {what}", item)
-    gapped = []
-    for p, s in zip(proposals or (), prop_specs or ()):
-        route = (mcmc_proposal_route(p, stateful)
-                 if s.kind == DistKind.CUSTOM else None)
-        if s.kind == DistKind.CUSTOM and (
-                route is None or (route == "gapped" and not gapped_ok)):
-            raise not_ported(
-                f"a heavy-tailed{'' if gapped_ok else ', gapped'} or "
-                f"unfaithful CUSTOM proposal table in {what}", item)
-        gapped.append(route in ("gapped", "table"))
-    return tuple(gapped)
+def _table_routes(tables, proposals, d):
+    """The CUSTOM dimensions' compiled-in routes, read off their staged
+    ``tables`` (:func:`dim_tables`; ``api/device.py``
+    :func:`mcmc_dim_tables` decides them): ``(gapped, knots)``, per
+    proposal dimension whether its logq comes from its log table (``()``
+    for a walk), and per dimension its :attr:`DimTables.knots`."""
+    dims = [t or DimTables() for t in (tables or [None] * d)]
+    gapped = () if proposals is None else tuple(t.q is not None for t in dims)
+    return gapped, tuple(t.knots for t in dims)
 
 
 def dim_tables(proposals, targets, d, device, stateful=False):
@@ -384,9 +369,9 @@ class _McmcNdMixin:
                       else [dist_spec_of(p) for p in proposals])
         targ_specs = (None if targets is None
                       else [dist_spec_of(t) for t in targets])
-        gapped = _table_routes(proposals, prop_specs, targets, targ_specs,
-                               "nd MCMC", ND_MCMC_TABLES_XLA,
-                               stateful=with_state)
+        gapped, knots = _table_routes(
+            dim_tables(proposals, targets, d, self._device, with_state),
+            proposals, d)
         traced = self._trace_user_functions(functions, n_args=d)
         mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
                                             targ_specs)
@@ -397,12 +382,12 @@ class _McmcNdMixin:
             n_steps, n_burnin, return_stderr, gapped,
             with_diagnostics=with_diagnostics, samples=samples,
             with_state=with_state, use_init_state=use_init_state,
-            hmc_leapfrog=hmc_leapfrog(proposal),
+            hmc_leapfrog=hmc_leapfrog(proposal), knots=knots,
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
             ("mcmc_nd", fns_key(traced), target_key, cfg.compiled,
-             cfg.outputs, cfg.state),
+             cfg.knots, cfg.outputs, cfg.state),
             lambda: McmcNdProgram(traced, cfg, target_fn),
         )
         return program, cfg, params

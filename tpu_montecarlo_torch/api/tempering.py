@@ -30,7 +30,6 @@ from ..ops.mcmc_pt_kernel import (
     pt_finish,
 )
 from ..sampling import dist_spec_of
-from ..utils.roadmap import PT_TABLES_XLA
 from .batching import _check_random_walk_args, stage_seeds
 from .cache import fns_key
 from .mcmc_nd import _table_routes, dim_tables, hmc_leapfrog
@@ -204,9 +203,12 @@ class _PtMixin:
         and families), its config, the (d, 6) float32 parameter rows and
         the (2T - 1,) float32 ladder of ``betas`` on the integrator's
         device (``api/mcmc_nd.py``'s ``dim_tables`` stages the CUSTOM
-        dimensions' tables).  CUSTOM proposal dimensions run in sampler
-        mode only: the JAX package sends gapped and heavy-tailed ones to
-        its XLA sweep, and the port raises.  ``parsed`` is
+        dimensions' tables).  CUSTOM dimensions take the nd kernel's
+        routes (``_table_routes``): the JAX package sends gapped and
+        heavy-tailed proposal dimensions to its XLA sweep, and the port
+        runs them in its kernel, gapped ones on their gap-respecting
+        tables and faithful q-tables, the others as that sweep reads
+        them.  ``parsed`` is
         :meth:`_parse_nd_mcmc_args`'s result for ``proposal``."""
         proposals, targets, target_fn, d = parsed
         traced = self._trace_user_functions(functions, n_args=d)
@@ -214,22 +216,23 @@ class _PtMixin:
                       else [dist_spec_of(p) for p in proposals])
         targ_specs = (None if targets is None
                       else [dist_spec_of(t) for t in targets])
-        _table_routes(proposals, prop_specs, targets, targ_specs,
-                      "tempered MCMC", PT_TABLES_XLA, gapped_ok=False)
+        gapped, knots = _table_routes(
+            dim_tables(proposals, targets, d, self._device), proposals, d)
         mode, params = self._nd_mcmc_params(proposal, parsed, prop_specs,
                                             targ_specs)
         cfg = McmcPtConfig(
             mode, d,
             () if prop_specs is None else tuple(s.kind for s in prop_specs),
             None if targ_specs is None else tuple(s.kind for s in targ_specs),
-            n_steps, n_burnin, return_stderr, with_diagnostics=with_diagnostics,
-            samples=samples, hmc_leapfrog=hmc_leapfrog(proposal),
+            n_steps, n_burnin, return_stderr, gapped,
+            with_diagnostics=with_diagnostics, samples=samples,
+            hmc_leapfrog=hmc_leapfrog(proposal), knots=knots,
             n_temps=len(betas),
         )
         target_key = None if target_fn is None else target_fn.key
         program = self._cache.get_or_build(
             ("mcmc_pt", fns_key(traced), target_key, cfg.compiled,
-             cfg.outputs, cfg.state),
+             cfg.knots, cfg.outputs, cfg.state),
             lambda: McmcPtProgram(traced, cfg, target_fn),
         )
         ladder = torch.tensor(pack_ladder(betas), device=self._device)

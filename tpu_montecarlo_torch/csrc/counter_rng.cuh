@@ -26,9 +26,12 @@
 //
 // The CUSTOM family's table primitives follow: a table read (tmc::ldg),
 // the flat inverse-CDF draw with its slope, the padded uniform-grid
-// table's lookup, and the MCMC kernels' per-dimension table references
-// (TableRef, McmcTables) with their draw, sampler-mode density and log
-// table lookup, each as ops/mcmc_tables.py's plain version computes it.
+// table's lookup, the knot search with linear interpolation (knot_interp,
+// the integrate kernels' knot-exact inverse too), and the MCMC kernels'
+// per-dimension table references (TableRef, McmcTables) with their draws
+// (flat or knot-exact), sampler-mode density and log table lookups
+// (uniform or irregular grid), each as ops/mcmc_tables.py's plain version
+// computes it.
 #pragma once
 
 #include <cstdint>
@@ -300,10 +303,46 @@ __device__ __forceinline__ float grid_table_value(float x, const float* vals,
   return (x >= x0 && x <= x_max) ? val : outside;
 }
 
+// The knot interval of the m sorted keys at u: the last knot i with
+// keys[i] <= u, by binary search, clamped to [0, m - 2].
+__device__ __forceinline__ int knot_index(float u, const float* keys,
+                                          int m) {
+  int lo = 0;
+  int n = m;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (ldg(keys + lo + half) <= u) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo < 1 ? 0 : (lo - 1 > m - 2 ? m - 2 : lo - 1);
+}
+
+// Linear interpolation of vals over the m sorted keys at u: i =
+// knot_index(u), t = (u - keys[i]) / (keys[i + 1] - keys[i]) (0 over a
+// flat pair) clamped to [0, 1]; vals[m - 1] from the last key on.
+__device__ __forceinline__ float knot_interp(float u, const float* keys,
+                                             const float* vals, int m) {
+  if (u >= ldg(keys + m - 1)) return ldg(vals + m - 1);
+  const int i = knot_index(u, keys, m);
+  const float k0 = ldg(keys + i);
+  const float d = ldg(keys + i + 1) - k0;
+  const float v0 = ldg(vals + i);
+  const float t = d > 0.0f ? (u - k0) / d : 0.0f;
+  return v0 + fminf(fmaxf(t, 0.0f), 1.0f) * (ldg(vals + i + 1) - v0);
+}
+
 // One CUSTOM table of an MCMC kernel (ops/mcmc_tables.py _TableRef): a
 // proposal's flat inverse (v the n knots, d their forward differences or
-// gap slopes, log_m1 = float32(log(n - 1))), or a uniform-grid log table
-// (v the n padded values, d their forward differences, x0, step, x_max).
+// gap slopes, log_m1 = float32(log(n - 1))), a uniform-grid log table
+// (v the n padded values, d their forward differences, x0, step, x_max),
+// or a knot table of n sorted keys v and values d: a knot-exact inverse
+// (the CDF knots and the x knots) or an irregular-grid log table (the x
+// grid, x0 = v[0] and x_max = v[n - 1], and the log densities).  Which
+// one a role holds is compiled into the kernel, never read at run time.
 struct TableRef {
   const float* v;
   const float* d;
@@ -336,6 +375,31 @@ __device__ __forceinline__ float sampler_logq(const TableRef& t,
 __device__ __forceinline__ float table_log_pdf(const TableRef& t, float x) {
   return grid_table_value(x, t.v, t.d, t.x0, t.step, t.x_max, t.n,
                           kLogPdfFloor);
+}
+
+// A knot-exact proposal's draw at the mantissa m: knot_interp of its x
+// knots over its CDF knots at the [0, 1) uniform (the JAX package's
+// jnp.interp(u, cdf_table, x_table), sampling.transform_from_u).
+__device__ __forceinline__ float knot_draw(const TableRef& t, uint32_t m) {
+  return knot_interp(halfopen01(m), t.v, t.d, t.n);
+}
+
+// An irregular-grid log table at x: knot_interp over its grid,
+// kLogPdfFloor off [x0, x_max] (sampling.log_pdf_from_table,
+// uniform=False).
+__device__ __forceinline__ float knot_log_pdf(const TableRef& t, float x) {
+  return (x >= t.x0 && x <= t.x_max) ? knot_interp(x, t.v, t.d, t.n)
+                                     : kLogPdfFloor;
+}
+
+// A log table at x on its compiled-in grid: knots (irregular) or uniform.
+template <bool kKnots>
+__device__ __forceinline__ float log_table_at(const TableRef& t, float x) {
+  if constexpr (kKnots) {
+    return knot_log_pdf(t, x);
+  } else {
+    return table_log_pdf(t, x);
+  }
 }
 
 }  // namespace tmc

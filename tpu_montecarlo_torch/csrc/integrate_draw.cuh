@@ -33,8 +33,9 @@
 //
 // * strata_x: the row-stratified inverse CDF, stratum pos >> 10 (row / 8)
 //   of a 256-row tile's 32, knot j and fraction of w * 127;
-// * knot_interp: a binary search over sorted knots (the last with
-//   key <= u) and linear interpolation, the knot-exact inverse CDF;
+// * knot_interp (counter_rng.cuh, shared with the MCMC kernels): a binary
+//   search over sorted knots (the last with key <= u) and linear
+//   interpolation, the knot-exact inverse CDF;
 // * uniform_table_value: a padded uniform-grid pdf table, 0 off its grid;
 // * nd_custom_x: the nd kernel's CUSTOM dimension on its route (strata,
 //   the flat full inverse with its sampler density, or knots).
@@ -186,32 +187,6 @@ __device__ __forceinline__ float strata_x(const Tables& tb, uint32_t pos,
   const float x = strata_lookup(tb.ts, tb.dts, pos, pw, idx);
   if constexpr (WITH_Q) *q = ldg(tb.qs + idx);
   return x;
-}
-
-// Linear interpolation of vals over the m sorted keys at u: i the last
-// knot with keys[i] <= u, clamped to [0, m - 2], t = (u - keys[i]) /
-// (keys[i + 1] - keys[i]) (0 over a flat pair) clamped to [0, 1];
-// vals[m - 1] from the last key on.
-__device__ __forceinline__ float knot_interp(float u, const float* keys,
-                                             const float* vals, int m) {
-  if (u >= ldg(keys + m - 1)) return ldg(vals + m - 1);
-  int lo = 0;
-  int n = m;
-  while (n > 0) {
-    const int half = n >> 1;
-    if (ldg(keys + lo + half) <= u) {
-      lo += half + 1;
-      n -= half + 1;
-    } else {
-      n = half;
-    }
-  }
-  const int i = lo < 1 ? 0 : (lo - 1 > m - 2 ? m - 2 : lo - 1);
-  const float k0 = ldg(keys + i);
-  const float d = ldg(keys + i + 1) - k0;
-  const float v0 = ldg(vals + i);
-  const float t = d > 0.0f ? (u - k0) / d : 0.0f;
-  return v0 + fminf(fmaxf(t, 0.0f), 1.0f) * (ldg(vals + i + 1) - v0);
 }
 
 // A padded uniform-grid table at x (tmc::grid_table_value), 0 off

@@ -11,7 +11,9 @@
 // jax.grad does (Pareto at x_min); |x - mu| at x = mu takes the slope of
 // x >= mu (Laplace).  A CUSTOM target's gradient is its log table's slope,
 // dx[i0] / step on the table's grid and 0 off it (the JAX kernel's
-// uniform_table_slope, at the index the log-table lookup reads).
+// uniform_table_slope, at the index the log-table lookup reads), or on an
+// irregular grid the slope of the knot interval the lookup reads, 0 off
+// it (jax.grad of jnp.interp, the JAX package's XLA sweep).
 //
 // tmc::hmc_move (hmc_move.cuh, included here) is the leapfrog move that
 // takes these gradients.  A joint target's gradient is generated from its
@@ -139,6 +141,32 @@ __device__ __forceinline__ float table_log_pdf_slope(const TableRef& t,
   const int i0 = p0 < 0 ? 0 : (p0 > t.n - 2 ? t.n - 2 : p0);
   const float slope = ldg(t.d + i0) / t.step;
   return (x >= t.x0 && x <= t.x_max) ? slope : 0.0f;
+}
+
+// An irregular-grid log table's slope at x: (d[i + 1] - d[i]) / (v[i + 1]
+// - v[i]) over the knot interval i that knot_log_pdf reads (the last knot
+// with v[i] <= x, clamped to [0, n - 2]; 0 over a flat pair), 0 off [x0,
+// x_max] (jax.grad of sampling.log_pdf_from_table, uniform=False).  The
+// search is knot_interp's (knot_index): at x = x_max it keeps the last
+// interval where knot_interp returns the last value early.
+__device__ __forceinline__ float knot_log_pdf_slope(const TableRef& t,
+                                                    float x) {
+  const int i = knot_index(x, t.v, t.n);
+  const float dk = ldg(t.v + i + 1) - ldg(t.v + i);
+  const float slope = dk > 0.0f ? (ldg(t.d + i + 1) - ldg(t.d + i)) / dk
+                                : 0.0f;
+  return (x >= t.x0 && x <= t.x_max) ? slope : 0.0f;
+}
+
+// A log table's slope at x on its compiled-in grid (log_table_at's).
+template <bool kKnots>
+__device__ __forceinline__ float log_table_slope_at(const TableRef& t,
+                                                    float x) {
+  if constexpr (kKnots) {
+    return knot_log_pdf_slope(t, x);
+  } else {
+    return table_log_pdf_slope(t, x);
+  }
 }
 
 }  // namespace tmc

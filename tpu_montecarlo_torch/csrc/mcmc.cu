@@ -23,11 +23,16 @@
 //   logp (walk), accepted when logf(u) < log_alpha; the chain carries
 //   logp and logq and replaces them only on acceptance;
 // * a CUSTOM proposal draws from its flat inverse table with the same
-//   counters, x = t[i0] + frac * dt[i0] at pos = u * (m - 1), and takes
-//   logq from its own slope, -logf(max(dt[i0], 1e-30)) - log(m - 1)
-//   (sampler mode), or, gapped, from its guarded log table at x; a CUSTOM
-//   target's logp is its log table at x, -100 off its grid (the shared
-//   lookups of counter_rng.cuh, ops/mcmc_tables.py);
+//   counters, x = t[i0] + frac * dt[i0] at pos = u * (m - 1), or, on the
+//   knots route (TMC_PROP_KNOTS), from its CDF knots by knot_interp at u
+//   (the knot-exact inverse of a heavy-tailed or unfaithful gapped table),
+//   and takes logq from its own slope, -logf(max(dt[i0], 1e-30)) - log(m -
+//   1) (sampler mode), or from its log table at x: a gapped proposal's
+//   guarded one, or on the knots and full routes its full log-pdf table,
+//   on a uniform or, TMC_Q_KNOTS, an irregular grid; a CUSTOM target's
+//   logp is its log table at x, uniform or, TMC_TARG_KNOTS, irregular,
+//   -100 off its grid (the shared lookups of counter_rng.cuh,
+//   ops/mcmc_tables.py);
 // * the adaptive walk updates its log step through burn-in by
 //   Robbins-Monro, gamma = expf(-0.6f * logf(i + 1)), clipped to
 //   +-13.815511, and freezes it for sampling;
@@ -35,7 +40,8 @@
 //   momentum and the walk's accept uniform, and moves by L kick-drift-kick
 //   leapfrog steps with the energy-corrected log_alpha (hmc_move.cuh; the
 //   gradients log_pdf_grad.cuh's: the closed forms' jax.grad expressions,
-//   a table target's slope); the
+//   a table target's slope, on an irregular table the knot interval's);
+//   the
 //   chain carries the gradient at x, so a step evaluates L gradients; its
 //   adaptive step follows the walk's rule;
 // * a stateful run (TMC_STATE) also writes each chain's final log
@@ -101,11 +107,13 @@
 // independence proposal the draw, its logq and the target's lookup at x'
 // are all x-free, so they are part of the candidate made ahead; a walk's
 // lookup at x' = x + step * z sits on the carried chain, a division and
-// two dependent loads each step.
+// two dependent loads each step, or on an irregular grid a knot search of
+// ceil(log2 n) dependent loads and the interpolation's loads after it.
 //
 // The mode, the two families, a CUSTOM proposal's route and the layout are
 // compiled in (TMC_MODE, TMC_PROP_KIND, TMC_TARG_KIND, TMC_PROP_GAPPED,
-// TMC_LANES, TMC_GROUP from the generated source, as mcmc_nd.cu's), so no
+// TMC_PROP_KNOTS, TMC_Q_KNOTS, TMC_TARG_KNOTS, TMC_LANES, TMC_GROUP from
+// the generated source, as mcmc_nd.cu's), so no
 // step branches on them at run time.  The tables themselves are run-time
 // arguments (tmc::McmcTables<1>, by value): a new table needs no new
 // build.
@@ -133,6 +141,15 @@
 // any of a stateful run), 0 the sampler's own.
 #define TMC_PROP_GAPPED 0
 #endif
+#ifndef TMC_PROP_KNOTS
+#define TMC_PROP_KNOTS 0  // 1: a CUSTOM proposal's knot-exact draw
+#endif
+#ifndef TMC_Q_KNOTS
+#define TMC_Q_KNOTS 0  // 1: its log table on an irregular grid
+#endif
+#ifndef TMC_TARG_KNOTS
+#define TMC_TARG_KNOTS 0  // 1: a CUSTOM target's log table irregular
+#endif
 #ifndef TMC_DIAG
 #define TMC_DIAG 0  // 1: the split-half diagnostic rows
 #endif
@@ -159,6 +176,11 @@ constexpr int kMode = TMC_MODE;
 constexpr int kPropKind = TMC_PROP_KIND;
 constexpr int kTargKind = TMC_TARG_KIND;
 constexpr bool kPropGapped = TMC_PROP_GAPPED != 0;
+constexpr bool kPropKnots = TMC_PROP_KNOTS != 0;
+constexpr bool kQKnots = TMC_Q_KNOTS != 0;
+constexpr bool kTargKnots = TMC_TARG_KNOTS != 0;
+static_assert(!(kPropKnots || kQKnots) || kPropGapped,
+              "the knots and full routes take logq from a log table");
 constexpr int kLanes = TMC_LANES;
 constexpr int kGroup = TMC_GROUP;
 static_assert(kMode == kIndependence || kLanes == 1,
@@ -203,7 +225,7 @@ __device__ __forceinline__ Params load_params(const float* p,
 // table.
 __device__ __forceinline__ float log_target(const Params& p, float x) {
   if constexpr (kTargKind == tmc::kCustom) {
-    return tmc::table_log_pdf(p.tb.targ[0], x);
+    return tmc::log_table_at<kTargKnots>(p.tb.targ[0], x);
   } else {
     return log_pdf(kTargKind, p.t1, p.t2, x);
   }
@@ -212,7 +234,7 @@ __device__ __forceinline__ float log_target(const Params& p, float x) {
 // The target's d/dx log density at x (HMC's gradient).
 __device__ __forceinline__ float grad_target(const Params& p, float x) {
   if constexpr (kTargKind == tmc::kCustom) {
-    return tmc::table_log_pdf_slope(p.tb.targ[0], x);
+    return tmc::log_table_slope_at<kTargKnots>(p.tb.targ[0], x);
   } else {
     return tmc::log_pdf_grad(kTargKind, p.t1, p.t2, x);
   }
@@ -222,7 +244,7 @@ __device__ __forceinline__ float grad_target(const Params& p, float x) {
 // family's closed form, or its log table.
 __device__ __forceinline__ float logq_at(const Params& p, float x) {
   if constexpr (kPropKind == tmc::kCustom) {
-    return tmc::table_log_pdf(p.tb.q[0], x);
+    return tmc::log_table_at<kQKnots>(p.tb.q[0], x);
   } else {
     return log_pdf(kPropKind, p.q1, p.q2, x);
   }
@@ -230,15 +252,16 @@ __device__ __forceinline__ float logq_at(const Params& p, float x) {
 
 // The independence proposal's draw at the mantissa m, and its log density
 // in `logq`: the family's transform and closed form; for a CUSTOM
-// proposal the inverse table's draw, and the sampler's own density at it
-// or, gapped, the proposal's log table at x.
+// proposal the inverse table's draw (or the knot-exact one), and the
+// sampler's own density at it or the proposal's log table at x.
 __device__ __forceinline__ float propose(const Params& p, uint32_t m,
                                          float& logq) {
   if constexpr (kPropKind == tmc::kCustom) {
-    float slope;
-    const float x = tmc::table_draw(p.tb.inv[0], m, slope);
+    float slope = 0.0f;
+    const float x = kPropKnots ? tmc::knot_draw(p.tb.inv[0], m)
+                               : tmc::table_draw(p.tb.inv[0], m, slope);
     if constexpr (kPropGapped) {
-      logq = tmc::table_log_pdf(p.tb.q[0], x);
+      logq = tmc::log_table_at<kQKnots>(p.tb.q[0], x);
     } else {
       logq = tmc::sampler_logq(p.tb.inv[0], slope);
     }

@@ -86,7 +86,8 @@
 // chain states, logp and logq live in registers.  The mode, d, every
 // dimension's family and the layout are compiled in (TMC_MODE, TMC_D,
 // TMC_PROP_KINDS, TMC_PROP_GAPPED, TMC_TARG_KINDS, TMC_LANES, TMC_GROUP,
-// as integrate_nd.cu's TMC_KINDS), so the SASS loop is the path a step
+// and a knot table's TMC_PROP_KNOTS, TMC_Q_KNOTS, TMC_TARG_KNOTS, as
+// integrate_nd.cu's TMC_KINDS), so the SASS loop is the path a step
 // really takes; the tables are run-time arguments (tmc::McmcTables<d>).
 // Sums are reduced once, at the end, with warp shuffles in a fixed order:
 // no atomics; each chain's sums are added in step order.

@@ -6,9 +6,12 @@
 // Included by mcmc_nd.cu and mcmc_pt.cu after the generated source
 // (tmc_integrands.inc), which defines TMC_K, TMC_D, tmc_values_nd and
 // TMC_MODE; for an independence proposal TMC_PROP_KINDS (and, when a
-// dimension is CUSTOM, TMC_PROP_GAPPED: per dimension 1 for a gapped
-// table, 0 for sampler mode); for a product target TMC_TARG_KINDS, else
-// tmc_target_logpdf(const float* x).
+// dimension is CUSTOM, TMC_PROP_GAPPED: per dimension 1 for logq from its
+// log table, 0 for sampler mode); for a product target TMC_TARG_KINDS,
+// else tmc_target_logpdf(const float* x); and, where a dimension reads a
+// knot table, TMC_PROP_KNOTS, TMC_Q_KNOTS and TMC_TARG_KNOTS (per
+// dimension 1 for a knot-exact draw, an irregular q-table, an irregular
+// target table).
 //
 // Under HMC (TMC_HMC = L, a walk mode) the target's position gradient is
 // the product's per-dimension closed forms (tmc::log_pdf_grad) and log
@@ -17,13 +20,16 @@
 // gradient (ops/grad.py), which the generated source holds only then.
 //
 // A CUSTOM dimension draws from its flat inverse table (counter_rng.cuh
-// tmc::table_draw) under the dimension's tag.  Its log density is the
-// sampler's own at the draw (sampler mode) or, gapped, its log table at x;
+// tmc::table_draw) or, on the knots route, by knot search over its CDF
+// knots (tmc::knot_draw), under the dimension's tag.  Its log density is
+// the sampler's own at the draw (sampler mode) or its log table at x (a
+// gapped proposal's guarded one; on the knots and full routes its full
+// log-pdf table, on a uniform or an irregular grid);
 // the proposal's logq sums the sampler-mode dimensions first, in
 // dimension order, then the others in dimension order, and adds the two
 // sums, as the JAX kernels do (mcmc_nd_pallas.py:395-455,
 // mcmc_pt_pallas.py:421-464).  A CUSTOM target dimension takes its log
-// table at x.
+// table at x, on a uniform or an irregular grid.
 //
 // The initial state of a chain is drawn at counter 0, dimension j under
 // tag j, from the seed word's stream for its program: the nd kernel's
@@ -51,7 +57,16 @@
 #define TMC_PROP_KINDS 0  // walks draw from no proposal family
 #endif
 #ifndef TMC_PROP_GAPPED
-#define TMC_PROP_GAPPED 0  // no gapped CUSTOM proposal dimension
+#define TMC_PROP_GAPPED 0  // no CUSTOM proposal dimension's logq from a table
+#endif
+#ifndef TMC_PROP_KNOTS
+#define TMC_PROP_KNOTS 0  // no knot-exact proposal dimension
+#endif
+#ifndef TMC_Q_KNOTS
+#define TMC_Q_KNOTS 0  // no irregular proposal log table
+#endif
+#ifndef TMC_TARG_KNOTS
+#define TMC_TARG_KNOTS 0  // no irregular target log table
 #endif
 #ifndef TMC_DIAG
 #define TMC_DIAG 0  // 1: the split-half diagnostic rows
@@ -123,6 +138,23 @@ __device__ __forceinline__ bool sampler_dim(int j) {
   return prop_kind(j) == tmc::kCustom && gapped[j] == 0;
 }
 
+// Whether dimension j's proposal draws by knot search, its log table and
+// its target's log table lie on irregular grids (folded as prop_kind).
+__device__ __forceinline__ bool knot_draw_dim(int j) {
+  const int knots[TMC_D] = {TMC_PROP_KNOTS};
+  return knots[j] != 0;
+}
+
+__device__ __forceinline__ bool q_knots_dim(int j) {
+  const int knots[TMC_D] = {TMC_Q_KNOTS};
+  return knots[j] != 0;
+}
+
+__device__ __forceinline__ bool targ_knots_dim(int j) {
+  const int knots[TMC_D] = {TMC_TARG_KNOTS};
+  return knots[j] != 0;
+}
+
 __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
                                          uint32_t tag, uint32_t pos) {
   return tmc::mantissa(tmc::block_base(state, counter, tag), pos);
@@ -134,9 +166,11 @@ __device__ __forceinline__ uint32_t draw(uint32_t state, uint32_t counter,
 __device__ __forceinline__ float log_target_dim(int j, const Params& p,
                                                 float x) {
   const int kinds[TMC_D] = {TMC_TARG_KINDS};
-  return kinds[j] == tmc::kCustom
-             ? tmc::table_log_pdf(p.tb.targ[j], x)
-             : tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x);
+  if (kinds[j] != tmc::kCustom) {
+    return tmc::log_pdf(kinds[j], p.t1[j], p.t2[j], x);
+  }
+  return targ_knots_dim(j) ? tmc::knot_log_pdf(p.tb.targ[j], x)
+                           : tmc::table_log_pdf(p.tb.targ[j], x);
 }
 #endif
 
@@ -162,9 +196,13 @@ __device__ __forceinline__ float log_target_grad(const float (&x)[TMC_D],
   const int kinds[TMC_D] = {TMC_TARG_KINDS};
 #pragma unroll
   for (int j = 0; j < TMC_D; ++j) {
-    g[j] = kinds[j] == tmc::kCustom
-               ? tmc::table_log_pdf_slope(p.tb.targ[j], x[j])
-               : tmc::log_pdf_grad(kinds[j], p.t1[j], p.t2[j], x[j]);
+    if (kinds[j] != tmc::kCustom) {
+      g[j] = tmc::log_pdf_grad(kinds[j], p.t1[j], p.t2[j], x[j]);
+    } else {
+      g[j] = targ_knots_dim(j)
+                 ? tmc::knot_log_pdf_slope(p.tb.targ[j], x[j])
+                 : tmc::table_log_pdf_slope(p.tb.targ[j], x[j]);
+    }
   }
   return log_target(x, p);
 #else
@@ -184,10 +222,14 @@ struct TargetGrad {
 #endif
 
 // Proposal dimension j's draw at the mantissa m: its family's transform,
-// or its inverse table's draw (`slope` gets the draw's slope; 0 for a
-// closed-form family).
+// or its inverse table's draw, flat or knot-exact (`slope` gets the draw's
+// slope; 0 for a closed-form family and a knot-exact draw).
 __device__ __forceinline__ float draw_dim(int j, const Params& p, uint32_t m,
                                           float& slope) {
+  if (prop_kind(j) == tmc::kCustom && knot_draw_dim(j)) {
+    slope = 0.0f;
+    return tmc::knot_draw(p.tb.inv[j], m);
+  }
   if (prop_kind(j) == tmc::kCustom) {
     return tmc::table_draw(p.tb.inv[j], m, slope);
   }
@@ -212,9 +254,11 @@ __device__ __forceinline__ float log_proposal(const float* x,
       drawn = any_drawn ? drawn + l : l;
       any_drawn = true;
     } else {
-      const float l = prop_kind(j) == tmc::kCustom
-                          ? tmc::table_log_pdf(p.tb.q[j], x[j])
-                          : tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j]);
+      const float l =
+          prop_kind(j) != tmc::kCustom
+              ? tmc::log_pdf(prop_kind(j), p.q1[j], p.q2[j], x[j])
+              : (q_knots_dim(j) ? tmc::knot_log_pdf(p.tb.q[j], x[j])
+                                : tmc::table_log_pdf(p.tb.q[j], x[j]));
       rest = any_rest ? rest + l : l;
       any_rest = true;
     }

@@ -5,9 +5,11 @@
 // (tpu_montecarlo/ops/mcmc_pt_pallas.py:332-867, pallas_call at :928) in
 // its independence, random-walk and adaptive random-walk modes and
 // tempered HMC (TMC_HMC), with and without error bars, for d dimensions of the uniform, normal and
-// exponential families and CUSTOM tables (target dimensions, and proposal
-// dimensions in sampler mode: the draw's own density is rung-independent
-// and swaps with the state, as a closed form's) under a product target or
+// exponential families and CUSTOM tables (target dimensions on a uniform
+// or an irregular grid, and proposal dimensions on every route of
+// mcmc_nd_common.cuh: sampler mode, gapped, knots, full; logq, from the
+// draw or a log table, is rung-independent and swaps with the state, as a
+// closed form's) under a product target or
 // a traced joint log density, and a ladder of T >= 2 rungs.  Under the
 // JAX package's CounterRng (the interpreter's stream) it runs the very
 // ladders that kernel runs:

@@ -43,7 +43,7 @@ import ctypes
 import math
 from dataclasses import dataclass
 from enum import IntEnum
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -256,6 +256,34 @@ def check_state(cfg) -> None:
         raise ValueError("rw_adapt is stateless-only (steps not resumable)")
 
 
+_KNOT_DEFINES = ("TMC_PROP_KNOTS", "TMC_Q_KNOTS", "TMC_TARG_KNOTS")
+
+
+def check_knots(knots, roles) -> None:
+    """Raises ValueError unless each dimension's ``knots`` (knot-exact
+    draw, irregular q-table, irregular target table) sits on its roles
+    ((proposal is CUSTOM, its logq comes from its log table, target is
+    CUSTOM)): the first two on a CUSTOM proposal whose logq comes from a
+    log table, the last on a CUSTOM target."""
+    for (draw, q, targ), (prop, gapped, custom_targ) in zip(knots, roles):
+        if ((draw or q) and not (prop and gapped)) or (
+                targ and not custom_targ):
+            raise ValueError(
+                "knot tables go with a CUSTOM proposal whose logq comes "
+                "from its log table (prop_gapped) and with a CUSTOM target")
+
+
+def knots_source(knots) -> str:
+    """The generated source's lines for the dimensions' ``knots``
+    (TMC_PROP_KNOTS, TMC_Q_KNOTS, TMC_TARG_KNOTS, one entry per
+    dimension); none for a library that reads no knot table."""
+    if not any(any(k) for k in knots):
+        return ""
+    return "".join(
+        f"#define {name} {', '.join(str(int(k[i])) for k in knots)}\n"
+        for i, name in enumerate(_KNOT_DEFINES))
+
+
 def state_source(state) -> str:
     """The generated source's lines for a config's ``state`` (leapfrog
     steps, state out, state in); none for a library without them."""
@@ -269,13 +297,18 @@ def state_source(state) -> str:
 class McmcConfig:
     """What a run does.  ``proposal_kind`` is ignored by the walks;
     ``prop_gapped`` marks a CUSTOM proposal whose logq comes from its log
-    table (a gapped one, drawn from gap-respecting tables, and any one of
-    a stateful run; else sampler mode); ``with_diagnostics`` adds
+    table (a gapped one, drawn from gap-respecting tables, one on the
+    knots or full route, and any one of a stateful run; else sampler
+    mode); ``with_diagnostics`` adds
     split-R-hat and ESS (n_steps >= 4), and ``samples`` (0 for none) the
     thinned draws.  ``hmc_leapfrog`` (L > 0, a walk mode) makes each step
     an L-step leapfrog trajectory; ``with_state`` returns each chain's
     final log density beside its state, and ``use_init_state`` starts the
-    chains from a given state (x0, logp0) instead of counter 0's draws."""
+    chains from a given state (x0, logp0) instead of counter 0's draws.
+    ``knots`` (:attr:`DimTables.knots`) marks the tables read by knot
+    search: a CUSTOM proposal's knot-exact draw (the ``"knots"`` route),
+    its log table on an irregular grid (the ``"knots"`` and ``"full"``
+    routes), a CUSTOM target's irregular log table."""
 
     mode: Mode
     proposal_kind: DistKind
@@ -289,8 +322,11 @@ class McmcConfig:
     hmc_leapfrog: int = 0
     with_state: bool = False
     use_init_state: bool = False
+    knots: Tuple[bool, bool, bool] = (False, False, False)
 
     def __post_init__(self):
+        object.__setattr__(self, "knots", tuple(bool(k) for k in self.knots))
+        check_knots([self.knots], [self.roles])
         check_outputs(self.n_steps, self.with_diagnostics, self.samples)
         if self.hmc_leapfrog < 0 or (
                 self.hmc_leapfrog and self.mode == Mode.INDEPENDENCE):
@@ -416,12 +452,14 @@ class McmcProgram:
             parts.append(f"#define TMC_PROP_KIND {int(prop)}\n")
         if prop == DistKind.CUSTOM:
             parts.append(f"#define TMC_PROP_GAPPED {int(gapped)}\n")
+        parts.append(knots_source([cfg.knots]))
         parts.append(outputs_source(cfg.outputs))
         parts.append(state_source(cfg.state))
         return "".join(parts)
 
     def library(self, cfg: McmcConfig):
-        key = (cfg.compiled, cfg.outputs, cfg.state, self.layout_for(cfg))
+        key = (cfg.compiled, cfg.knots, cfg.outputs, cfg.state,
+               self.layout_for(cfg))
         if key not in self._libs:
             from .build import load_kernel_library
 
@@ -446,7 +484,8 @@ def _check_args(cfg: McmcConfig, params: torch.Tensor, k: int,
                 tables: Optional[DimTables] = None) -> None:
     if cfg.prop_gapped and cfg.compiled[1] != DistKind.CUSTOM:
         raise ValueError("only a CUSTOM proposal is gapped")
-    check_dim_tables([tables], [cfg.roles], "MCMC", params.device)
+    check_dim_tables([tables], [cfg.roles], "MCMC", params.device,
+                     [cfg.knots])
     if params.dtype != torch.float32 or params.shape != (6,):
         raise ValueError(
             f"params must be a (6,) float32 tensor, got {tuple(params.shape)} "

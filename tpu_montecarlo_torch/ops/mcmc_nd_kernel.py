@@ -81,12 +81,14 @@ from .mcmc_kernel import (
     McmcOutput,
     Mode,
     block_rows,
+    check_knots,
     check_layout,
     check_start,
     check_state,
     count_launch,
     default_layout,
     hmc_move,
+    knots_source,
     layout_source,
     outputs_source,
     row_count,
@@ -145,12 +147,12 @@ class McmcNdConfig:
     proposal's family per dimension, ``()`` for the walks;
     ``targ_kinds``: the product target's, or None for a joint log
     density; ``prop_gapped``: per proposal dimension, whether a CUSTOM
-    one is drawn from gap-respecting tables (its logq from its log
-    table; else sampler mode; a stateful run's CUSTOM dimensions all
-    read their log tables), ``()`` for none; ``with_diagnostics``,
-    ``samples``, ``with_state``, ``use_init_state`` and
-    ``hmc_leapfrog`` (L > 0, a walk mode) as the 1-D config's
-    (``ops/mcmc_kernel.py``)."""
+    one takes its logq from its log table (the gapped, table, knots and
+    full routes of ``api/device.py``; else sampler mode; a stateful run's
+    CUSTOM dimensions all read their log tables), ``()`` for none; ``with_diagnostics``,
+    ``samples``, ``with_state``, ``use_init_state``,
+    ``hmc_leapfrog`` (L > 0, a walk mode) and, per dimension, ``knots``
+    (``()`` for none) as the 1-D config's (``ops/mcmc_kernel.py``)."""
 
     # The path, as messages name it.
     _what = "nd MCMC"
@@ -168,6 +170,7 @@ class McmcNdConfig:
     with_state: bool = False
     use_init_state: bool = False
     hmc_leapfrog: int = 0
+    knots: Tuple[Tuple[bool, bool, bool], ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "mode", Mode(self.mode))
@@ -197,10 +200,17 @@ class McmcNdConfig:
                 "for CUSTOM ones"
             )
         object.__setattr__(self, "prop_gapped", gapped)
+        knots = tuple(tuple(bool(k) for k in dim) for dim in self.knots)
+        if knots and len(knots) != self.d:
+            raise ValueError("knots takes one triple per dimension")
+        if not any(any(dim) for dim in knots):
+            knots = ()
+        object.__setattr__(self, "knots", knots)
         if self.targ_kinds is not None and len(self.targ_kinds) != self.d:
             raise ValueError("a product target takes one family per dimension")
         if self.n_steps < 1 or self.n_burnin < 0:
             raise ValueError("n_steps must be positive and n_burnin non-negative")
+        check_knots(knots, self.roles)
         check_outputs(self.n_steps, self.with_diagnostics, self.samples)
         check_state(self)
         if self.with_state and any(
@@ -300,6 +310,7 @@ class McmcNdProgram:
         self.fns = tuple(fns)
         self.target = target
         self.compiled = cfg.compiled
+        self.knots = cfg.knots
         self.outputs = cfg.outputs
         self.state = cfg.state
         self.layout = self._layout(cfg, layout)
@@ -336,6 +347,7 @@ class McmcNdProgram:
             parts.append(kinds("TMC_PROP_KINDS", prop_kinds))
         if DistKind.CUSTOM in prop_kinds:
             parts.append(kinds("TMC_PROP_GAPPED", gapped))
+        parts.append(knots_source(self.knots))
         if targ_kinds is None:
             parts.append(cuda_target_source(self.target))
             if self.state[0]:
@@ -374,7 +386,7 @@ def _check_args(
     max_functions: int = MAX_FUNCTIONS,
     tables: Optional[Sequence[Optional[DimTables]]] = None,
 ) -> None:
-    check_dim_tables(tables, cfg.roles, cfg._what, params.device)
+    check_dim_tables(tables, cfg.roles, cfg._what, params.device, cfg.knots)
     if params.dtype != torch.float32 or params.shape != (cfg.d, _ROW):
         raise ValueError(
             f"params must be a ({cfg.d}, {_ROW}) float32 tensor, got "
@@ -599,13 +611,15 @@ def mcmc_nd_reference(
 
 def check_program(program, cfg) -> None:
     """ValueError unless ``program`` was built for what ``cfg`` compiles
-    in: its mode, families, outputs and state."""
-    if ((cfg.compiled, cfg.outputs, cfg.state)
-            != (program.compiled, program.outputs, program.state)):
+    in: its mode, families, knot tables, outputs and state."""
+    if ((cfg.compiled, cfg.knots, cfg.outputs, cfg.state)
+            != (program.compiled, program.knots, program.outputs,
+                program.state)):
         raise ValueError(
-            f"the program was built for {program.compiled} with outputs "
-            f"{program.outputs} and state {program.state}, not "
-            f"{cfg.compiled} with {cfg.outputs} and {cfg.state}"
+            f"the program was built for {program.compiled} with knots "
+            f"{program.knots}, outputs {program.outputs} and state "
+            f"{program.state}, not {cfg.compiled} with {cfg.knots}, "
+            f"{cfg.outputs} and {cfg.state}"
         )
 
 

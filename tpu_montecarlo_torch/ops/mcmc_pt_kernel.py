@@ -5,8 +5,9 @@ Port of ``tpu_montecarlo/ops/mcmc_pt_pallas.py``
 (``build_pt_mcmc_fn_pallas``) in its independence, random-walk and
 adaptive random-walk modes, with and without error bars, for d dimensions
 of the uniform, normal and exponential families, the seven extended
-families and CUSTOM tables (target dimensions, and proposal dimensions in
-sampler mode, whose logq is rung-independent and swaps with the state)
+families and CUSTOM tables (target dimensions, and proposal dimensions on
+every route of ``api/device.py``: sampler mode, gapped, knots, full;
+their logq is rung-independent and swaps with the state)
 under a product target or a
 traced joint log density, and a ladder of T >= 2 rungs.  Each chain
 carries its whole ladder: rung t runs against ``pi^beta_t`` with
