@@ -339,6 +339,24 @@ Phases, each of which exits non-zero on failure:
     the sample loop) at floor(log2(n + 1)) levels over n knots, the
     fewest a search takes, and on a walk's carried chain one dependent
     instruction a level.
+72-75. ``expectation_fn`` and ``adapt_proposal``, their libraries started
+    in phase 2 and their spills printed: the bench set's estimator under
+    N(0, 1) at 2**30 with ``params.requires_grad``, counted from 0 (one
+    launch of kernel 1's gradient build), its values ``integrate()``'s bit
+    for bit, its gradients within GRAD_Z standard errors (batch means over
+    the launch's block rows) of the closed forms, timed and bounded on the
+    gradient build's SASS (72); the gradient build in each method under
+    N(0, 1) and under each extended family in mc at 2**22, its value sums
+    the value build's bit for bit, means and gradients against the plain
+    version (GRAD_RTOL) (73); c9's nd estimator at 2**30 as phase 72 (one
+    launch of kernel 2's gradient build), each method at 2**22 against the
+    plain version, timed and bounded (74); ``adapt_proposal([x > 4],
+    N(0, 1), support=(-8, 8))`` at its defaults on the card, its edges
+    within ADAPT_EDGE_TOL of the same call's on the host, then config 4 at
+    1e8 from the learned proposal through the public call, counted (kernel
+    1's strata route, the sampler's density as q), within 6 standard
+    errors of P(X > 4), its error bar against the fixed N(4, 1.5)
+    proposal's, its kernel timed and bounded as phase 27's (75).
 
 The three MCMC kernels' latency bounds are the steps times the carried
 chain of one step (the dependent instructions per step on a cycle of
@@ -1154,8 +1172,11 @@ def main() -> int:
             IntegrateProgram,
             integrate_batch_rows,
             integrate_cuda,
+            integrate_grad_cuda,
+            integrate_grad_reference,
             integrate_reference,
             integrate_rows,
+            library_route,
             pilot_values,
             plan_grid,
         )
@@ -1165,6 +1186,8 @@ def main() -> int:
             finish_stderr,
             integrate_nd_batch_rows,
             integrate_nd_cuda,
+            integrate_nd_grad_cuda,
+            integrate_nd_grad_reference,
             integrate_nd_reference,
             integrate_nd_rows,
             nd_routes as nk_routes,
@@ -1202,7 +1225,11 @@ def main() -> int:
             pt_finish,
         )
         from tpu_montecarlo_torch.ops.mcmc_tables import KnotTable
-        from tpu_montecarlo_torch.sampling import DistKind, dist_spec_of
+        from tpu_montecarlo_torch.sampling import (
+            DistKind,
+            dist_spec_of,
+            transform_grad_from_u,
+        )
         from tpu_montecarlo_torch.utils.dispatch import make_integrate_plan
     except ImportError as e:
         print(f"tpu_montecarlo_torch is not importable: {e}", file=sys.stderr)
@@ -2051,6 +2078,28 @@ def main() -> int:
                        for b in (False, True)),
                      *((s, False) for _, s in xla_checks),
                      *((s, True) for n, s in xla_checks if n in xla_timed)]]
+    # expectation_fn's gradient builds (phases 72-74) after them: the bench
+    # set's in each method and under each extended family, c9's nd set's;
+    # and the importance set of phase 75's learned proposal (the public
+    # path's program: IS_FNS weighted by the target's traced density over
+    # the CUSTOM proposal's own sampling density, on the strata route), its
+    # table learned here on the host.
+    grad_cfgs = {m: IntegrateConfig(m, grad=True)
+                 for m in ("mc", "antithetic", "qmc")}
+    grad_routes = [(grad_cfgs[m], None) for m in grad_cfgs] + [
+        (grad_cfgs["mc"], kind) for kind in family_kinds.values()]
+    grad_builds = [
+        *(pool.submit(timed_build, lambda c=c, r=r: program.library(c, r))
+          for c, r in grad_routes),
+        pool.submit(timed_build, lambda: nd_program.library(None, True))]
+    adapt_cpu, adapt_cpu_hist = tm.adapt_proposal(
+        IS_FNS[0], is_target, support=ADAPT_SUPPORT, device="cpu",
+        return_history=True)
+    adapt_program = integ._integrate_program(
+        integ._trace_user_functions(IS_FNS),
+        integ._is_weight(is_target, adapt_cpu))
+    grad_builds.append(pool.submit(
+        timed_build, lambda: adapt_program.library(is_cfg, "strata")))
     lib = program.library()
     build_s = time.perf_counter() - t0
     print(f"phase 2: built the integrate kernel in {build_s:.1f} s")
@@ -5432,6 +5481,349 @@ def main() -> int:
         xla_mcmc[name] = rec
     print(f"phases 68-71 (the XLA-only tables) took "
           f"{time.perf_counter() - t_xla:.1f} s")
+
+    # 72-75. expectation_fn's gradient builds of kernels 1 and 2 and
+    # adapt_proposal feeding kernel 1's table route; the libraries started
+    # in phase 2.
+    t_grad = time.perf_counter()
+    built = [b.result() for b in grad_builds]
+    print(f"phase 72: built the gradient builds' and the learned proposal's "
+          f"{len(built)} libraries, "
+          f"{min(t for _, t in built):.1f}-{max(t for _, t in built):.1f} s "
+          "each (in parallel with phase 2)")
+    for lib_, _ in built:
+        for line in lib_.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    def spills(lib_) -> dict:
+        """The largest spill stores and loads (bytes) ptxas reported for
+        any kernel of ``lib_``."""
+        found = [tuple(int(v) for v in m) for m in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            lib_.build_log)]
+        return {"stores": max((a for a, _ in found), default=0),
+                "loads": max((b for _, b in found), default=0)}
+
+    def grad_size(prog, kind, params_):
+        """(K, 2): the mean |f_k'(x) dx/dp| on the family's 1,024
+        quantile midpoints, the scale of GRAD_RTOL's absolute term."""
+        u_ = (torch.arange(1024, dtype=torch.float32) + 0.5) / 1024.0
+        p_ = params_.cpu()
+        x_, d1_, d2_ = transform_grad_from_u(u_, kind, p_[0], p_[1])
+        out = []
+        for vg in prog.torch_grads:
+            _, (g_,) = vg(x_)
+            out.append([float((g_ * d_).abs().mean()) for d_ in (d1_, d2_)])
+        return np.array(out)
+
+    def grads_agree(g_k, g_p, size, label):
+        """Fails unless the kernel's pathwise means ``g_k`` and the plain
+        version's ``g_p`` agree within GRAD_RTOL (equal infinities and
+        NaNs agree).  Returns the largest difference over the bound."""
+        with np.errstate(invalid="ignore"):
+            diff = np.abs(g_k - g_p)
+            allowed = GRAD_RTOL * (np.abs(g_p) + size)
+            ok = (g_k == g_p) | (np.isnan(g_k) & np.isnan(g_p)) | (
+                diff <= allowed)
+        print(f"{label}: gradients kernel {g_k.tolist()}")
+        print(f"         plain {g_p.tolist()}")
+        if not np.all(ok):
+            fail(f"{label}: kernel and plain gradients disagree")
+        finite = np.isfinite(diff)
+        return float(np.max(diff[finite] / np.maximum(allowed[finite],
+                                                     1e-300), initial=0.0))
+
+    def grad_vs_plain(prog, kind, params_, cfg, n, label):
+        """The gradient build at ``n`` samples against the value build
+        (value sums bit for bit) and against its plain version (means as
+        phase 25, pathwise means within GRAD_RTOL).  Returns (max abs
+        difference of the means, of the gradients' over their bound)."""
+        grid_ = plan_grid(make_integrate_plan(n).actual_samples, cfg.method)
+        sums, grads = integrate_grad_cuda(prog, kind, params_, SEED, grid_,
+                                          cfg)
+        values_ = integrate_cuda(prog, kind, params_, SEED, grid_,
+                                 IntegrateConfig(cfg.method))
+        if not torch.equal(sums, values_):
+            fail(f"{label}: the gradient build's values are not the value "
+                 "build's bit for bit")
+        want_s, want_g = integrate_grad_reference(prog, kind, params_, SEED,
+                                                  grid_, cfg)
+        n_f = float(np.float32(grid_.actual_samples))
+        m_k = (sums / n_f).double().cpu().numpy()
+        m_p = (want_s / n_f).double().cpu().numpy()
+        size = np.maximum(pilot_values(
+            lambda *a: [v.abs() for v in prog.torch_values(*a)], kind,
+            params_).double().cpu().numpy(), np.abs(m_p))
+        err = np.abs(m_k - m_p)
+        print(f"{label}, {grid_.actual_samples} samples: values kernel "
+              f"{m_k} plain {m_p} max|diff| {err.max():.3e}")
+        if not (np.all(np.isfinite(m_k))
+                and np.all(err <= RTOL * np.abs(m_p) + ATOL * size)):
+            fail(f"{label}: kernel and plain values disagree")
+        g_err = grads_agree((grads / n_f).double().cpu().numpy(),
+                            (want_g / n_f).double().cpu().numpy(),
+                            grad_size(prog, kind, params_), f"  {label}")
+        return float(err.max()), g_err
+
+    def batch_means(rows, k, width, n_tiles):
+        """The pathwise means and their standard errors from a gradient
+        launch's block rows (blocks, k + k * width): each block's mean
+        over its equal share of the tiles, the spread of the block means
+        over sqrt(blocks)."""
+        blocks = rows.shape[0]
+        if n_tiles % blocks:
+            fail("the gradient launch's blocks draw unequal tile counts")
+        per_block = float(n_tiles // blocks * (1 << 15))
+        g = rows[:, k:].double().cpu().numpy().reshape(blocks, k, width)
+        g = g / per_block
+        return g.mean(axis=0), g.std(axis=0, ddof=1) / math.sqrt(blocks)
+
+    def held_to_exact(mean, se, exact, label):
+        """Each pathwise mean within GRAD_Z of its run's standard errors of
+        the closed form; a term the run saw only as 0 exactly 0."""
+        exact = np.asarray(exact, np.float64).reshape(mean.shape)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = np.where(se > 0, (mean - exact) / se, 0.0)
+        print(f"{label}: pathwise means {mean.tolist()}")
+        print(f"         closed forms {exact.tolist()}, max |z| "
+              f"{np.abs(z).max():.2f}")
+        if not (np.all(np.abs(z) <= GRAD_Z)
+                and np.all((se > 0) | (mean == exact))):
+            fail(f"{label}: a pathwise gradient is off its closed form")
+        return float(np.abs(z).max())
+
+    # 72. The 1-D main path: expectation_fn over the bench set under N(0, 1)
+    # at 2**30, its gradient through autograd, counted from 0.
+    k8 = len(BENCH_FNS)
+    p01 = torch.tensor([0.0, 1.0], device=dev)
+    grad_grid = plan_grid(make_integrate_plan(MODE_SAMPLES).actual_samples)
+    mc_grad = grad_cfgs["mc"]
+    integrate_cuda.launches = 0
+    integrate_cuda.grad_launches = 0
+    t0 = time.perf_counter()
+    est = tm.expectation_fn(BENCH_FNS, normal, n_samples=MODE_SAMPLES)
+    leaf = p01.clone().requires_grad_()
+    vals = est(leaf, seed=SEED)
+    jac = torch.stack([torch.autograd.grad(vals[j], leaf, retain_graph=True)[0]
+                       for j in range(k8)])
+    torch.cuda.synchronize()
+    est_s = time.perf_counter() - t0
+    grad_launches = integrate_cuda.grad_launches
+    est_launches = integrate_cuda.launches
+    print(f"phase 72: expectation_fn(8 fns, N(0,1), n_samples={MODE_SAMPLES})"
+          f"(params.requires_grad_()) and 8 backward passes in {est_s:.3f} s "
+          f"(host clock, its libraries cached), {grad_launches} gradient "
+          f"launch(es) of {est_launches}")
+    if grad_launches != 1 or est_launches != 1:
+        fail("phase 72: the estimator is not one gradient launch")
+    plain_vals = est(p01, seed=SEED)
+    ref = tm.integrate(BENCH_FNS, normal, n_samples=MODE_SAMPLES, seed=SEED)
+    if not (torch.equal(vals.detach(), plain_vals) and np.array_equal(
+            plain_vals.cpu().numpy(), np.float32(ref.values))):
+        fail("phase 72: the gradient build's values are not integrate()'s "
+             "bit for bit")
+    rows = integrate_rows(program, DistKind.NORMAL, p01, SEED, grad_grid,
+                          mc_grad)
+    g_mean, g_se = batch_means(rows, k8, 2, grad_grid.n_tiles)
+    if not np.allclose(g_mean, jac.double().cpu().numpy(), rtol=1e-5,
+                       atol=1e-7):
+        fail("phase 72: the block rows do not sum to the estimator's "
+             "Jacobian")
+    grad_z = held_to_exact(g_mean, g_se, BENCH_GRAD_EXACT,
+                           "phase 72: K=8, N(0,1), d/d(mu, sigma)")
+    grad_rec = {"launches": grad_launches,
+                "samples": grad_grid.actual_samples, "max_z": grad_z}
+
+    def grad_run():
+        integrate_grad_cuda(program, DistKind.NORMAL, p01, SEED, grad_grid,
+                            mc_grad)
+
+    check_grid_ = plan_grid(make_integrate_plan(MODE_CHECK_SAMPLES)
+                            .actual_samples)
+    grad_rec["ms"] = time_ms(grad_run, reps=10)
+    grad_rec["plain_ms"] = time_ms(
+        lambda: integrate_grad_reference(program, DistKind.NORMAL, p01, SEED,
+                                         check_grid_, mc_grad), reps=1)
+    grad_rec["plain_samples"] = check_grid_.actual_samples
+    mhz = clock_under_load(grad_run, grad_rec["ms"])
+    bound = card_bound(program.library(mc_grad), "integrate_kernelILi1EE", 1,
+                       grad_grid.actual_samples, mhz)
+    grad_rec.update(bound_ms=bound[0], bound_pipe=bound[1], issue_ms=bound[2],
+                    bound_by="operations", library_ms=None,
+                    value_ms=ms,
+                    spills=spills(program.library(mc_grad)))
+    print(f"phase 72: the gradient build, {grad_grid.actual_samples} samples, "
+          f"K=8, N(0,1) on {card}: kernel {grad_rec['ms']:.3f} ms (the value "
+          f"build {ms:.3f} ms in phase 5, {grad_rec['ms'] / ms:.2f}x), plain "
+          f"{grad_rec['plain_ms']:.3f} ms at {check_grid_.actual_samples} "
+          f"samples; spills {grad_rec['spills']}")
+    print_bound(bound, mhz, "sample")
+
+    # 73. Each method under N(0, 1) and each extended family under mc at
+    # 2**22 against the plain version.
+    grad_errs = []
+    for method in ("mc", "antithetic", "qmc"):
+        grad_errs.append(grad_vs_plain(
+            program, DistKind.NORMAL, p01, grad_cfgs[method],
+            MODE_CHECK_SAMPLES, f"phase 73: K=8, N(0,1), {method}"))
+    for name, args in FAMILY_ARGS.items():
+        grad_errs.append(grad_vs_plain(
+            program, family_kinds[name], torch.tensor(args, device=dev),
+            mc_grad, MODE_CHECK_SAMPLES, f"phase 73: K=8, {name}{args}, mc"))
+    grad_rec["max_abs_err"] = max(e for e, _ in grad_errs)
+    grad_rec["max_grad_err_over_bound"] = max(g for _, g in grad_errs)
+
+    # 74. The nd main path: expectation_fn over c9's set at 2**30, counted
+    # from 0, against the closed forms; the build against its plain version
+    # at 2**22 in each method; timed and bounded.
+    nd_grad_cfgs = {m: NdConfig(nd_kinds, m, grad=True)
+                    for m in ("mc", "antithetic", "qmc")}
+    nd_grad_grid = plan_grid(make_integrate_plan(MODE_SAMPLES).actual_samples)
+    integrate_nd_cuda.launches = 0
+    integrate_nd_cuda.grad_launches = 0
+    est_nd = tm.expectation_fn(ND_FNS, nd_dists, n_samples=MODE_SAMPLES)
+    leaf_nd = nd_params.clone().requires_grad_()
+    v_nd = est_nd(leaf_nd, seed=SEED)
+    jac_nd = torch.stack([torch.autograd.grad(v_nd[j], leaf_nd,
+                                              retain_graph=True)[0]
+                          for j in range(len(ND_FNS))])
+    torch.cuda.synchronize()
+    nd_grad_launches = integrate_nd_cuda.grad_launches
+    if nd_grad_launches != 1 or integrate_nd_cuda.launches != 1:
+        fail("phase 74: the nd estimator is not one gradient launch")
+    nd_ref = tm.integrate(ND_FNS, nd_dists, n_samples=MODE_SAMPLES, seed=SEED)
+    if not (torch.equal(v_nd.detach(), est_nd(nd_params, seed=SEED))
+            and np.array_equal(v_nd.detach().cpu().numpy(),
+                               np.float32(nd_ref.values))):
+        fail("phase 74: the nd gradient build's values are not "
+             "integrate()'s bit for bit")
+    d_nd = len(nd_kinds)
+    nd_rows = integrate_nd_rows(nd_program, nd_grad_cfgs["mc"], nd_params,
+                                SEED, nd_grad_grid)
+    nd_mean, nd_se = batch_means(nd_rows, len(ND_FNS), 2 * d_nd,
+                                 nd_grad_grid.n_tiles)
+    nd_mean = nd_mean.reshape(len(ND_FNS), d_nd, 2)
+    nd_se = nd_se.reshape(len(ND_FNS), d_nd, 2)
+    if not np.allclose(nd_mean, jac_nd.double().cpu().numpy(), rtol=1e-5,
+                       atol=1e-7):
+        fail("phase 74: the nd block rows do not sum to the Jacobian")
+    nd_grad_rec = {
+        "launches": nd_grad_launches, "samples": nd_grad_grid.actual_samples,
+        "max_z": held_to_exact(nd_mean, nd_se, ND_GRAD_EXACT,
+                               "phase 74: c9, d/d(rows)")}
+    nd_errs = []
+    for method, cfg_ in nd_grad_cfgs.items():
+        grid_ = plan_grid(make_integrate_plan(MODE_CHECK_SAMPLES)
+                          .actual_samples, method)
+        sums, grads = integrate_nd_grad_cuda(nd_program, cfg_, nd_params,
+                                             SEED, grid_)
+        if not torch.equal(sums, integrate_nd_cuda(
+                nd_program, NdConfig(nd_kinds, method), nd_params, SEED,
+                grid_)):
+            fail(f"phase 74: {method}: the nd gradient build's values are "
+                 "not the value build's bit for bit")
+        want_s, want_g = integrate_nd_grad_reference(
+            nd_program.torch_grads, cfg_, nd_params, SEED, grid_)
+        n_f = float(np.float32(grid_.actual_samples))
+        m_k = (sums / n_f).double().cpu().numpy()
+        m_p = (want_s / n_f).double().cpu().numpy()
+        err = np.abs(m_k - m_p)
+        print(f"phase 74: c9, {method}, {grid_.actual_samples} samples: "
+              f"values kernel {m_k} plain {m_p}")
+        if not np.all(err <= RTOL * np.abs(m_p) + ATOL):
+            fail(f"phase 74: {method}: kernel and plain values disagree")
+        g_p = (want_g / n_f).double().cpu().numpy()
+        # The scale: c9's terms are O(1) (|x| < 5.2, y < 1, z < 8.1).
+        nd_errs.append((float(err.max()), grads_agree(
+            (grads / n_f).double().cpu().numpy(), g_p,
+            np.ones_like(g_p), f"  phase 74: c9, {method}")))
+    nd_grad_rec["max_abs_err"] = max(e for e, _ in nd_errs)
+    nd_grad_rec["max_grad_err_over_bound"] = max(g for _, g in nd_errs)
+
+    def nd_grad_run():
+        integrate_nd_grad_cuda(nd_program, nd_grad_cfgs["mc"], nd_params,
+                               SEED, nd_grad_grid)
+
+    nd_check_grid = plan_grid(make_integrate_plan(MODE_CHECK_SAMPLES)
+                              .actual_samples)
+    nd_grad_rec["ms"] = time_ms(nd_grad_run, reps=10)
+    nd_grad_rec["plain_ms"] = time_ms(
+        lambda: integrate_nd_grad_reference(
+            nd_program.torch_grads, nd_grad_cfgs["mc"], nd_params, SEED,
+            nd_check_grid), reps=1)
+    nd_grad_rec["plain_samples"] = nd_check_grid.actual_samples
+    mhz = clock_under_load(nd_grad_run, nd_grad_rec["ms"])
+    nd_lib = nd_program.library(None, True)
+    bound = card_bound(nd_lib, "integrate_nd_kernelILi0ELb0EE", 3,
+                       nd_grad_grid.actual_samples, mhz)
+    nd_grad_rec.update(bound_ms=bound[0], bound_pipe=bound[1],
+                       issue_ms=bound[2], bound_by="operations",
+                       library_ms=None, value_ms=nd_ms, spills=spills(nd_lib))
+    print(f"phase 74: the nd gradient build, {nd_grad_grid.actual_samples} "
+          f"samples, c9 on {card}: kernel {nd_grad_rec['ms']:.3f} ms (the "
+          f"value build {nd_ms:.3f} ms in phase 14, "
+          f"{nd_grad_rec['ms'] / nd_ms:.2f}x), plain "
+          f"{nd_grad_rec['plain_ms']:.3f} ms at "
+          f"{nd_check_grid.actual_samples} samples; spills "
+          f"{nd_grad_rec['spills']}")
+    print_bound(bound, mhz, "sample")
+
+    # 75. adapt_proposal at its defaults on the card, against the same call
+    # on the host (phase 2); then config 4's IS with the learned proposal
+    # through the public call, counted from 0, its kernel timed as phase 27
+    # times config 4's.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learned, adapt_hist = tm.adapt_proposal(
+        IS_FNS[0], is_target, support=ADAPT_SUPPORT, return_history=True)
+    torch.cuda.synchronize()
+    adapt_s = time.perf_counter() - t0
+    edge_err = float(np.max(np.abs(adapt_hist["edges"][0]
+                                   - adapt_cpu_hist["edges"][0])))
+    width = ADAPT_SUPPORT[1] - ADAPT_SUPPORT[0]
+    print(f"phase 75: adapt_proposal([x > 4], N(0,1), support="
+          f"{ADAPT_SUPPORT}) on {card} in {adapt_s * 1e3:.1f} ms (host "
+          f"clock, first call); the iterations' error bars "
+          f"{adapt_hist['stderr']}; edges against the host's: max |diff| "
+          f"{edge_err:.3e} (allowed {ADAPT_EDGE_TOL * width:.3e})")
+    if not edge_err <= ADAPT_EDGE_TOL * width:
+        fail("phase 75: the card's learned edges are not the host's")
+    integrate_cuda.launches = 0
+    learned_r = tm.integrate_importance_sampling(
+        IS_FNS, is_target, learned, n_samples=IS_SAMPLES, seed=SEED,
+        return_stderr=True)
+    learned_launches = integrate_cuda.launches
+    lv, lse = float(learned_r.values[0]), float(learned_r.stderr[0])
+    fixed_se = float(is_result.stderr[0])
+    learned_spec = dist_spec_of(learned)
+    learned_tables = tables_of(adapt_program, learned)
+    print(f"phase 75: config 4 with the learned proposal ("
+          f"{learned_launches} launch(es), route "
+          f"{library_route(learned_spec.kind, learned_tables)!r}, weight "
+          f"modes {adapt_program._lowered_weight()[1]}): P(X > 4) = "
+          f"{lv:.7e} +- {lse:.3e}, exact {IS_EXACT:.7e}, z = "
+          f"{(lv - IS_EXACT) / lse:+.2f}; the fixed N(4,1.5) proposal's "
+          f"error bar {fixed_se:.3e}, {fixed_se / lse:.2f}x the learned one's")
+    if learned_launches < 1 or library_route(
+            learned_spec.kind, learned_tables) != "strata":
+        fail("phase 75: the learned proposal did not take kernel 1's strata "
+             "route")
+    if not (lse > 0 and abs(lv - IS_EXACT) <= 6 * lse):
+        fail("phase 75: the learned proposal's estimate is off P(X > 4)")
+    adapt_rec = mode_times(
+        adapt_program, is_cfg, adapt_program.library(is_cfg, "strata"),
+        learned_spec, IS_SAMPLES,
+        lambda: tm.integrate_importance_sampling(
+            IS_FNS, is_target, learned, n_samples=IS_SAMPLES, seed=SEED,
+            return_stderr=True),
+        "phase 75: config 4 from the learned proposal", tables=learned_tables)
+    adapt_rec.update(launches=learned_launches, adapt_ms=adapt_s * 1e3,
+                     edge_max_abs_diff=edge_err, value=lv, stderr=lse,
+                     fixed_stderr=fixed_se, stderr_ratio=fixed_se / lse,
+                     library_ms=None, bound_by="operations")
+    print(f"phases 72-75 (gradient builds, adapt_proposal) took "
+          f"{time.perf_counter() - t_grad:.1f} s")
     print(f"chip_smoke.py ran {time.perf_counter() - t_main:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -5460,6 +5852,8 @@ def main() -> int:
         "batch": serving["integrate"],
         "wide": {"c7": c7, "k128_stderr": k128_stderr,
                  "control_variates": cv_rec},
+        "grad": grad_rec,
+        "adapt": adapt_rec,
     }, {
         "name": "mcmc",
         "route": "cuda",
@@ -5523,6 +5917,7 @@ def main() -> int:
                                              "call_ms")},
             **nd_is},
         "batch": serving["integrate_nd"],
+        "grad": nd_grad_rec,
     }, {
         "name": "mcmc_nd",
         "route": "cuda",

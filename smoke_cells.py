@@ -493,3 +493,33 @@ def short_inverse(tm, d, m=1000):
     d._cached_spec = DistSpec(DistKind.CUSTOM, np.zeros(2, np.float32), inv,
                               np.asarray(d._cdf_table, np.float32))
     return d
+
+# Phases 72-75: expectation_fn's gradient builds and adapt_proposal.
+# The bench set's pathwise gradients (d/dmu, d/dsigma) of E[f(mu + sigma
+# Z)] at (0, 1) (x > 1's pathwise gradient is 0; E|x| = sigma sqrt(2/pi)
+# at mu = 0; E[exp(-x^2)] = exp(-mu^2 / (1 + 2 sigma^2)) / sqrt(1 + 2
+# sigma^2)), held within GRAD_Z standard errors of the run (batch means
+# over the launch's block rows).
+BENCH_GRAD_EXACT = [
+    (1.0, 0.0), (0.0, 2.0), (3.0, 0.0), (0.0, 12.0),
+    (math.exp(-0.5), 0.0), (0.0, -2.0 * 3.0 ** -1.5), (0.0, 0.0),
+    (0.0, math.sqrt(2.0 / math.pi)),
+]
+GRAD_Z = 5.0
+# c9's set over N(0,1) x U(0,1) x Exp(2): each function's (d, 2) gradient,
+# rows (mu, sigma), (a, b), (lambda, unused).  E[xyz] = mu (a + b) / (2
+# lambda); E[x^2 + y + z] = mu^2 + sigma^2 + (a + b) / 2 + 1 / lambda.
+ND_GRAD_EXACT = [
+    [(0.25, 0.0), (0.0, 0.0), (0.0, 0.0)],
+    [(0.0, 2.0), (0.5, 0.5), (-0.25, 0.0)],
+]
+# A gradient build against its plain version: the kernel's affine steps
+# round once, its libm differs in the last bit and its sums run in another
+# order; a pathwise mean within GRAD_RTOL of itself plus GRAD_RTOL of the
+# mean |f'(x) dx/dp| on the family's quantile grid.
+GRAD_RTOL = 1e-5
+# adapt_proposal on the card against the same call on the CPU: one counter
+# stream, the per-bin sums in another order; the learned edges within
+# ADAPT_EDGE_TOL of the support's width.
+ADAPT_SUPPORT = (-8.0, 8.0)
+ADAPT_EDGE_TOL = 1e-3

@@ -3410,3 +3410,224 @@ def test_control_variates_on_the_card(cuda_device):
     want = tm.MonteCarloIntegrator(device="cpu").integrate(fns, n01, **kw)
     np.testing.assert_allclose(got.values, want.values, rtol=1e-5)
     np.testing.assert_allclose(got.stderr, want.stderr, rtol=1e-3)
+
+
+# -- the gradient builds (expectation_fn): kernels 1 and 2 ---------------------------
+#
+# A gradient build draws its value build's samples and adds each value in
+# the same order, so its value sums are the value build's bit for bit;
+# its pathwise sums are held against the plain version's within 1e-5
+# relative plus 1e-5 of the mean |f'(x) dx/dp| on the quantile grid (the
+# kernel's affine steps round once, its transcendentals differ from
+# torch's in the last bit, and the sums' orders differ).
+
+GRAD_FAMILIES = {
+    DistKind.UNIFORM: (-1.0, 2.0),
+    DistKind.NORMAL: (0.5, 1.5),
+    DistKind.EXPONENTIAL: (2.0, 0.0),
+    DistKind.LOGNORMAL: (0.0, 0.5),
+    DistKind.CAUCHY: (0.0, 1.0),
+    DistKind.LAPLACE: (3.0, 1.0),
+    DistKind.LOGISTIC: (0.0, 2.0),
+    DistKind.GUMBEL: (1.0, 0.5),
+    DistKind.WEIBULL: (1.5, 2.0),
+    DistKind.PARETO: (1.0, 3.0),
+}
+GRAD_CASES = [(k, m) for k in (DistKind.UNIFORM, DistKind.NORMAL,
+                               DistKind.EXPONENTIAL)
+              for m in ("mc", "antithetic", "qmc")] + [
+    (k, "mc") for k in GRAD_FAMILIES if k > DistKind.CUSTOM]
+GRAD_TOL = 1e-5
+
+
+def _grad_size(program, kind, params):
+    """(K, 2): the mean |f_k'(x) dx/dp| over the 1,024 quantile midpoints
+    of the family."""
+    from tpu_montecarlo_torch.sampling import transform_grad_from_u
+
+    u = (torch.arange(1024, dtype=torch.float32) + 0.5) / 1024.0
+    p = params.cpu()
+    x, d1, d2 = transform_grad_from_u(u, kind, p[0], p[1])
+    out = []
+    for vg in program.torch_grads:
+        _, (g,) = vg(x)
+        out.append([float((g * d).abs().mean()) for d in (d1, d2)])
+    return np.array(out)
+
+
+@pytest.fixture(scope="module")
+def grad_libraries():
+    """BENCH's program with its value and gradient libraries for every
+    GRAD_CASES configuration, built at once."""
+    from tpu_montecarlo_torch.api.passes import build_all
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        library_route,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    program = _program(BENCH)
+    libs = {(IntegrateConfig(m, grad=g), library_route(k))
+            for k, m in GRAD_CASES for g in (False, True)}
+    build_all([lambda c=c, r=r: program.library(c, r) for c, r in libs])
+    return program
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,method", GRAD_CASES,
+                         ids=[f"{k.name.lower()}-{m}" for k, m in GRAD_CASES])
+def test_grad_kernel_matches_plain_version(cuda_device, grad_libraries, kind,
+                                           method):
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        integrate_grad_cuda,
+        integrate_grad_reference,
+    )
+
+    program = grad_libraries
+    cfg = IntegrateConfig(method, grad=True)
+    grid = plan_grid(1 << 22, method)
+    params = torch.tensor(GRAD_FAMILIES[kind], device=cuda_device)
+    before = (integrate_cuda.launches, integrate_cuda.grad_launches)
+    sums, grads = integrate_grad_cuda(program, kind, params, 42, grid, cfg)
+    torch.cuda.synchronize()
+    assert (integrate_cuda.launches, integrate_cuda.grad_launches) == (
+        before[0] + 1, before[1] + 1)
+    values = integrate_cuda(program, kind, params, 42, grid,
+                            IntegrateConfig(method))
+    assert torch.equal(sums, values)
+    want_s, want_g = integrate_grad_reference(program, kind, params, 42, grid,
+                                              cfg)
+    assert torch.equal(want_s, integrate_reference(
+        program.torch_values, kind, params, 42, grid, IntegrateConfig(method)))
+    n = float(np.float32(grid.actual_samples))
+    m_k, m_p = (sums / n).double().cpu().numpy(), (want_s / n).double().cpu().numpy()
+    assert np.all(np.isfinite(m_k))
+    np.testing.assert_allclose(m_k, m_p, rtol=RTOL, atol=ATOL)
+    g_k, g_p = (grads / n).double().cpu().numpy(), (want_g / n).double().cpu().numpy()
+    size = _grad_size(program, kind, params)
+    with np.errstate(invalid="ignore"):
+        close = (g_k == g_p) | (np.abs(g_k - g_p) <= GRAD_TOL * (np.abs(g_p) + size))
+    assert np.all(close), (g_k, g_p)
+    # An indicator's pathwise gradient is 0, as under jax.grad.
+    assert np.array_equal(g_k[6], [0.0, 0.0])
+
+
+@pytest.mark.cuda
+def test_grad_kernel_wide_set_in_passes(cuda_device):
+    """33 functions: one value launch on the run-time position loop, two
+    gradient groups of 17 and 16, the second compiled onto that loop
+    (``wide_loop``); values bit for bit, gradients against the plain
+    version."""
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateConfig,
+        integrate_grad_reference,
+    )
+
+    fns = [(lambda c: lambda x: np.sin(c * x) + x * x)(0.1 * j)
+           for j in range(33)]
+    integ = tm.MonteCarloIntegrator()
+    est = integ.expectation_fn(fns, tm.Distribution.normal(0.0, 1.0),
+                               n_samples=1 << 22)
+    leaf = torch.tensor([0.5, 1.5], device=cuda_device, requires_grad=True)
+    before = integrate_cuda.grad_launches
+    vals = est(leaf)
+    torch.cuda.synchronize()
+    assert integrate_cuda.grad_launches == before + 2
+    ref = integ.integrate(fns, tm.Distribution.normal(0.5, 1.5),
+                          n_samples=1 << 22)
+    np.testing.assert_array_equal(vals.detach().cpu().numpy(),
+                                  np.float32(ref.values))
+    (jac,) = torch.autograd.grad(vals[7], leaf)
+    program = _program(fns)
+    grid = plan_grid(1 << 22)
+    _, want = integrate_grad_reference(program, DistKind.NORMAL,
+                                       torch.tensor([0.5, 1.5], device=cuda_device),
+                                       42, grid, IntegrateConfig("mc", grad=True))
+    n = float(np.float32(grid.actual_samples))
+    np.testing.assert_allclose(jac.cpu().numpy(), (want[7] / n).cpu().numpy(),
+                               rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["mc", "antithetic", "qmc"])
+def test_nd_grad_kernel_matches_plain_version(cuda_device, method):
+    from tpu_montecarlo_torch.ops.integrate_nd_kernel import (
+        IntegrateNdProgram,
+        NdConfig,
+        integrate_nd_cuda,
+        integrate_nd_grad_cuda,
+        integrate_nd_grad_reference,
+    )
+
+    kinds = (DistKind.NORMAL, DistKind.UNIFORM, DistKind.EXPONENTIAL)
+    fns = [lambda x, y, z: x * y * z, lambda x, y, z: x * x + y + z]
+    program = IntegrateNdProgram(tuple(tm.trace_function(f, 3) for f in fns),
+                                 kinds)
+    params = torch.tensor([[0.0, 1.0], [0.0, 1.0], [2.0, 0.0]],
+                          device=cuda_device)
+    grid = plan_grid(1 << 22, method)
+    cfg = NdConfig(kinds, method, grad=True)
+    before = integrate_nd_cuda.grad_launches
+    sums, grads = integrate_nd_grad_cuda(program, cfg, params, 42, grid)
+    torch.cuda.synchronize()
+    assert integrate_nd_cuda.grad_launches == before + 1
+    assert torch.equal(sums, integrate_nd_cuda(
+        program, NdConfig(kinds, method), params, 42, grid))
+    want_s, want_g = integrate_nd_grad_reference(program.torch_grads, cfg,
+                                                 params, 42, grid)
+    n = float(np.float32(grid.actual_samples))
+    np.testing.assert_allclose((sums / n).cpu().numpy(),
+                               (want_s / n).cpu().numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose((grads / n).cpu().numpy(),
+                               (want_g / n).cpu().numpy(), rtol=GRAD_TOL,
+                               atol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_expectation_fn_on_cuda_matches_cpu(cuda_device):
+    """The public estimator, 1-D and nd, on the card against the CPU's
+    plain version: values and gradients within the kernels' tolerances;
+    on the card, one gradient launch a group."""
+    fns = [lambda x: x * x, lambda x: np.exp(0.5 * x)]
+    nd_fns = [lambda x, y: x * y + y * y]
+    runs = [(fns, tm.Distribution.normal(0.0, 1.0), [[0.5, 1.5]]),
+            (nd_fns, [tm.Distribution.normal(0.0, 1.0),
+                      tm.Distribution.gumbel(1.0, 0.5)],
+             [[0.5, 1.5], [1.0, 0.5]])]
+    for f, dist, p in runs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            est = tm.expectation_fn(f, dist, n_samples=1 << 21, device=dev)
+            leaf = torch.tensor(p if len(p) > 1 else p[0], requires_grad=True)
+            vals = est(leaf, seed=3)
+            assert vals.device.type == dev
+            vals.sum().backward()
+            out[dev] = (vals.detach().cpu().numpy(), leaf.grad.numpy())
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1],
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_adapt_proposal_on_cuda_matches_cpu(cuda_device):
+    """The card's adaptation draws the CPU's points: the learned edges
+    within 1e-3 of the support's width (the per-bin sums' order differs,
+    which moves an edge by a sliver of a bin), and the learned proposal's
+    IS run on kernel 1 within 5 % of P(X > 4)."""
+    target = tm.Distribution.normal(0.0, 1.0)
+    edges, learned = {}, {}
+    for dev in ("cuda", "cpu"):
+        learned[dev], hist = tm.adapt_proposal(
+            lambda x: x > 4.0, target, support=(-8.0, 8.0), device=dev,
+            return_history=True)
+        edges[dev] = hist["edges"][0]
+    assert np.max(np.abs(edges["cuda"] - edges["cpu"])) <= 1e-3 * 16.0
+    r = tm.integrate_importance_sampling([lambda x: x > 4.0], target,
+                                         learned["cuda"],
+                                         n_samples=10_000_000,
+                                         return_stderr=True)
+    truth = 0.5 * math.erfc(4.0 / math.sqrt(2.0))
+    assert abs(r.values[0] - truth) < 0.05 * truth

@@ -483,17 +483,38 @@ def test_family_mixture_integrates_on_the_cpu():
 
 
 def test_family_features_of_later_items_still_raise():
-    """``expectation_fn`` still raises, naming item 10.  The family sets
-    over more than 127 (126) functions, which raised here before, run in
-    passes over one set of chains: E[x + k] - E[x] = k, every row."""
+    """The family features of later items, which raised here before.
+    ``expectation_fn`` over Weibull(1.5, 2): its pathwise gradient is the
+    plain forward's autograd gradient on the same uniforms (autograd
+    through ``integrate_reference`` with the parameters as leaves), within
+    1e-6 relative.  The family sets over more than 127 (126) functions
+    run in passes over one set of chains: E[x + k] - E[x] = k, every
+    row."""
     integ = tm.MonteCarloIntegrator(device="cpu")
     w = tm.Distribution.weibull(1.5, 2.0)
     c = tm.Distribution.cauchy(0.0, 1.0)
     wide1 = [(lambda k: lambda x: x + k)(float(k)) for k in range(127)]
     wide2 = [(lambda k: lambda x, y: x + k)(float(k)) for k in range(128)]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 " + r"item 10 "):
-        integ.expectation_fn([lambda x: x], w)
+    fns = [lambda x: x, lambda x: x * x]
+    est = integ.expectation_fn(fns, w, n_samples=1 << 17)
+    leaf = torch.tensor([1.5, 2.0], requires_grad=True)
+    got = torch.stack([torch.autograd.grad(est(leaf, seed=3)[j], leaf)[0]
+                       for j in range(len(fns))])
+    from tpu_montecarlo_torch.ops.integrate_kernel import (
+        IntegrateProgram,
+        integrate_reference,
+        plan_grid,
+    )
+
+    prog = IntegrateProgram(tuple(tm.trace_function(f) for f in fns))
+    grid = plan_grid(1 << 17)
+    plain = torch.tensor([1.5, 2.0], requires_grad=True)
+    sums = integrate_reference(prog.torch_values, DistKind.WEIBULL, plain, 3,
+                               grid)
+    want = torch.stack([torch.autograd.grad(sums[j], plain,
+                                            retain_graph=True)[0]
+                        for j in range(len(fns))]) / grid.actual_samples
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
     short = dict(n_steps=10, n_burnin=2)
     runs = {
         "8.8": integ.compile_mcmc(wide2, [c, w], [w, w], seed_batch=2,

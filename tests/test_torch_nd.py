@@ -477,18 +477,16 @@ def _while_pdf(x):
 def test_out_of_scope_options_name_their_roadmap_items():
     """What still raises, naming its item; what raised here before and
     runs since (more than 127/128/126 functions in passes, nd control
-    variates) is checked by test_wide_and_control_variate_options_run."""
+    variates) is checked by test_wide_and_control_variate_options_run,
+    and ``expectation_fn``, 1-D and nd, by tests/test_torch_expectation.py."""
     integ = tm.MonteCarloIntegrator(device="cpu")
     u = tm.Distribution.uniform(0.0, 1.0)
-    f2 = [lambda x, y: x * y]
     # A density with a while loop: the JAX package traces it; the port's
     # front end names item 3 rather than take the PDF-table fallback.
     untraceable = tm.Distribution(tm.DistributionType.CUSTOM, {}, _while_pdf)
     cases = {
-        r"item 7\.5 \(nd expectation_fn": lambda: integ.expectation_fn(f2, [u, u]),
         r"item 12 ": lambda: tm.MonteCarloIntegrator(device="cpu", mesh="auto"),
         r"item 3 ": lambda: integ.integrate_importance_sampling([lambda x: x], untraceable, u),
-        r"item 10 ": lambda: integ.expectation_fn([lambda x: x], u),
     }
     for item, case in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 " + item):

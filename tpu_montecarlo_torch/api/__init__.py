@@ -1,6 +1,7 @@
 """Public API: MonteCarloIntegrator, IntegrationResult, McmcState,
-integrate, integrate_importance_sampling, integrate_mcmc, and the
-``pack_*`` functions of param-batched handles."""
+expectation_fn, integrate, integrate_importance_sampling,
+integrate_mcmc, and the ``pack_*`` functions of param-batched
+handles."""
 
 from .batching import (
     pack_param_batch,
@@ -8,7 +9,12 @@ from .batching import (
     pack_random_walk_batch,
     pack_random_walk_batch_nd,
 )
-from .functions import integrate, integrate_importance_sampling, integrate_mcmc
+from .functions import (
+    expectation_fn,
+    integrate,
+    integrate_importance_sampling,
+    integrate_mcmc,
+)
 from .integrator import MonteCarloIntegrator
 from .results import IntegrationResult, McmcState
 
@@ -16,6 +22,7 @@ __all__ = [
     "IntegrationResult",
     "McmcState",
     "MonteCarloIntegrator",
+    "expectation_fn",
     "integrate",
     "integrate_importance_sampling",
     "integrate_mcmc",

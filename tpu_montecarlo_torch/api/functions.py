@@ -34,6 +34,26 @@ def integrate(
     )
 
 
+def expectation_fn(
+    functions: List[Union[Callable, str]],
+    distribution: Distribution,
+    n_samples: int = 1_000_000,
+    method: str = "mc",
+    target_threads: Optional[int] = None,
+    device="cuda",
+    mesh=None,
+) -> Callable:
+    """Module-level shorthand for
+    :meth:`MonteCarloIntegrator.expectation_fn` (fresh integrator; built
+    programs are still cached process-wide)."""
+    integrator = MonteCarloIntegrator(
+        target_threads=target_threads, device=device, mesh=mesh
+    )
+    return integrator.expectation_fn(
+        functions, distribution, n_samples, method=method
+    )
+
+
 def integrate_importance_sampling(
     functions: List[Union[Callable, str]],
     target_distribution: Distribution,

@@ -1,7 +1,8 @@
 """Monte Carlo integration, 1-D and multi-dimensional (port of the
 1-D and nd paths of ``tpu_montecarlo/api/integrate.py``), with its
-multi-pass path over more than 128 functions (``api/passes.py``) and
-control variates."""
+multi-pass path over more than 128 functions (``api/passes.py``),
+control variates and differentiable expectations
+(``expectation_fn``, ``api/expectation.py``)."""
 
 from __future__ import annotations
 
@@ -14,12 +15,15 @@ from ..distributions import Distribution
 from ..ops.integrate_kernel import (
     LANES,
     MAX_FUNCTIONS,
+    MAX_GRAD_FUNCTIONS,
     METHODS,
+    WIDE_K,
     IntegrateConfig,
     IntegrateProgram,
     finish_stderr,
     integrate_batch,
     integrate_cuda,
+    integrate_grad_cuda,
     library_route,
     pilot_values,
     plan_grid,
@@ -29,6 +33,8 @@ from ..ops.integrate_nd_kernel import (
     NdConfig,
     integrate_nd_batch,
     integrate_nd_cuda,
+    integrate_nd_grad_cuda,
+    max_grad_functions,
     nd_routes,
     pilot_row,
 )
@@ -36,10 +42,10 @@ from ..ops.lower import to_torch
 from ..sampling import DistKind, dist_spec_of, ensure_param_batch_family
 from ..tracing import product, shifted
 from ..utils.dispatch import make_integrate_plan
-from ..utils.roadmap import API_SURFACE, ND_CV, not_ported
 from .batching import _check_nd_params, _checked_batch_prog, stage_seeds
 from .cache import fns_key
 from .device import nd_tables, sampling_tables
+from .expectation import estimator
 from .passes import build_all, cat_passes, split_groups
 from .results import IntegrationResult
 
@@ -579,12 +585,116 @@ class _IntegrateMixin:
             values=theta, n_samples=n_samples, n_functions=k, stderr=stderr,
         )
 
-    # -- surfaces of the JAX package not ported yet -------------------------
+    # -- differentiable expectations (the JAX package's
+    # api/integrate.py:301-405) -----------------------------------------------
 
-    def expectation_fn(self, functions, distribution, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError`` naming the
-        ROADMAP item (nd or 1-D)."""
-        if _as_dims(distribution) is not None:
-            raise not_ported("expectation_fn for nd integrate",
-                             ND_CV)
-        raise not_ported("expectation_fn", API_SURFACE)
+    def expectation_fn(
+        self,
+        functions: List[Union[Callable, str]],
+        distribution: Distribution,
+        n_samples: int = 1_000_000,
+        method: str = "mc",
+    ) -> Callable:
+        """Differentiable expectation estimator: ``est(params, seed=42) ->
+        (K,)``, float32 on the integrator's device, computes E[f_i(X_params)]
+        with ``integrate``'s sampling (its value equals ``integrate(fns,
+        <family>(*params), n_samples, seed, method)``'s bit for bit).
+
+        ``params`` packs as :func:`pack_param_batch` rows do: a (2,) tensor
+        (uniform (min, max), normal (mean, std), exponential (lambda,
+        ignored), an extended family its two parameters), or for a list
+        of d >= 2 Distributions a (d, 2) tensor of per-dimension rows;
+        ``distribution`` gives the families.  Analytic families only:
+        CUSTOM tables are built for one Distribution.
+
+        Gradients are pathwise (reparameterisation): with
+        ``params.requires_grad`` the estimate is a ``torch.autograd``
+        node whose backward pass gives (1/n) sum f'(x) dx/dparams, from
+        one launch of the kernel's gradient build per group of functions
+        (``api/expectation.py``); an indicator integrand gets zero
+        pathwise gradient.  Unlike the JAX package under
+        ``backend="pallas"``, nothing here warns: the port's kernels do
+        differentiate.  Second-order gradients and ``torch.func.vmap``
+        of ``est`` are not ported yet."""
+        dists = _as_dims(distribution)
+        if dists is not None and len(dists) > 1:
+            return self._nd_expectation_fn(functions, dists, n_samples,
+                                           method)
+        if dists is not None:
+            distribution = dists[0]
+        spec = dist_spec_of(distribution)
+        ensure_param_batch_family(spec.kind, feature="expectation_fn")
+        kind = spec.kind
+        cfg = IntegrateConfig(method)  # the method's error first
+        traced = self._trace_user_functions(functions)
+        grid = self._grid(n_samples, method)
+        n = float(np.float32(grid.actual_samples))
+        route = library_route(kind)
+        programs = self._integrate_groups(traced)
+        grad_runs = []
+        for group in programs:
+            wide = len(group.fns) >= WIDE_K
+            for sub in split_groups(group.fns, MAX_GRAD_FUNCTIONS):
+                gcfg = IntegrateConfig(method, grad=True,
+                                       wide_loop=wide and len(sub) < WIDE_K)
+                grad_runs.append((self._integrate_program(sub), gcfg))
+
+        def value(row, word):
+            row = row.to(device=self._device, dtype=torch.float32)
+            return cat_passes([integrate_cuda(p, kind, row, word, grid, cfg)
+                               for p in programs]) / n
+
+        def grad(row, word):
+            row = row.to(device=self._device, dtype=torch.float32)
+            outs = [integrate_grad_cuda(p, kind, row, word, grid, c)
+                    for p, c in grad_runs]
+            return (torch.cat([s for s, _ in outs]) / n,
+                    torch.cat([g for _, g in outs]) / n)
+
+        builds = []
+        if self._device.type == "cuda":
+            builds = [*(lambda p=p: p.library(cfg, route) for p in programs),
+                      *(lambda p=p, c=c: p.library(c, route)
+                        for p, c in grad_runs)]
+        return estimator(
+            (2,), "expected a (2,) params array (pack as pack_param_batch "
+            "does)", value, grad, builds)
+
+    def _nd_expectation_fn(self, functions, dists, n_samples, method):
+        """``expectation_fn`` over d >= 2 dimensions: ``est(params)`` of a
+        (d, 2) tensor, on the nd kernel's value and gradient builds."""
+        kinds = tuple(dist_spec_of(dd).kind for dd in dists)
+        for kind in kinds:
+            ensure_param_batch_family(kind, feature="expectation_fn")
+        d = len(kinds)
+        cfg = NdConfig(kinds, method)
+        gcfg = NdConfig(kinds, method, grad=True)
+        traced = self._trace_user_functions(functions, n_args=d)
+        grid = self._grid(n_samples, method)
+        n = float(np.float32(grid.actual_samples))
+        programs = self._nd_groups(traced, kinds)
+        grad_programs = [self._nd_program(sub, kinds)
+                         for group in programs
+                         for sub in split_groups(group.fns,
+                                                 max_grad_functions(d))]
+
+        def value(row, word):
+            row = row.to(device=self._device, dtype=torch.float32)
+            return cat_passes([integrate_nd_cuda(p, cfg, row, word, grid)
+                               for p in programs]) / n
+
+        def grad(row, word):
+            row = row.to(device=self._device, dtype=torch.float32)
+            outs = [integrate_nd_grad_cuda(p, gcfg, row, word, grid)
+                    for p in grad_programs]
+            return (torch.cat([s for s, _ in outs]) / n,
+                    torch.cat([g for _, g in outs]) / n)
+
+        builds = []
+        if self._device.type == "cuda":
+            builds = [*(p.library for p in programs),
+                      *(lambda p=p: p.library(None, True)
+                        for p in grad_programs)]
+        return estimator(
+            (d, 2), f"expected a ({d}, 2) params array (one pack_param_batch "
+            "row per dimension)", value, grad, builds)

@@ -178,6 +178,58 @@ __device__ __forceinline__ float ext_inv(int kind, float u, float p1,
   return p1 * expf(-logf(clip_u(u)) / p2);  // kPareto
 }
 
+// ext_inv's sample (bit for bit) with its derivatives in (p1, p2) at the
+// fixed uniform u, d1 and d2: the pathwise derivatives jax.grad takes
+// through the JAX package's registry inverse, in its float32 grouping
+// (sampling.transform_grad_from_u is the plain twin).  clip_u does not
+// depend on the parameters.
+__device__ __forceinline__ float ext_inv_grad(int kind, float u, float p1,
+                                              float p2, float& d1,
+                                              float& d2) {
+  if (kind == kLognormal) {
+    const float z = normal_from_u01(u);
+    const float x = expf(p1 + p2 * z);
+    d1 = x;
+    d2 = x * z;
+    return x;
+  }
+  d1 = 1.0f;
+  if (kind == kCauchy) {
+    const float t = fast_tan(kPiF * (clip_u(u) - 0.5f));
+    d2 = t;
+    return fmaf(p2, t, p1);
+  }
+  if (kind == kLaplace) {
+    const float t = clip_u(u) - 0.5f;
+    const float mag = -logf(1.0f - 2.0f * fabsf(t));
+    d2 = t >= 0.0f ? mag : -mag;
+    return p1 + p2 * d2;
+  }
+  if (kind == kLogistic) {
+    const float uc = clip_u(u);
+    d2 = logf(uc / (1.0f - uc));
+    return p1 + p2 * d2;
+  }
+  if (kind == kGumbel) {
+    const float l = logf(-logf(clip_u(u)));
+    d2 = -l;
+    return p1 - p2 * l;
+  }
+  if (kind == kWeibull) {
+    const float le = logf(-logf(clip_u(u)));
+    const float e = expf(le / p1);
+    d1 = -((p2 * e) * (1.0f / (p1 * p1))) * le;
+    d2 = e;
+    return p2 * e;
+  }
+  // kPareto
+  const float a = -logf(clip_u(u));
+  const float e = expf(a / p2);
+  d1 = e;
+  d2 = -((p1 * e) * (1.0f / (p2 * p2))) * a;
+  return p1 * e;
+}
+
 // An extended family's log density at x, floored at kLogPdfFloor (and the
 // floor off its support).  x is finite: no argument below is NaN.
 __device__ __forceinline__ float ext_log_pdf(int kind, float p1, float p2,

@@ -94,6 +94,16 @@
 //   for a given plan.  A second pass (torch.sum over the rows, as the JAX
 //   package sums its program rows at integrate_pallas.py:1214) finishes
 //   the reduction.
+// * The gradient build (TMC_GRAD, a library of its own: expectation_fn's
+//   autograd estimator; the JAX package differentiates its XLA sweep,
+//   tpu_montecarlo/api/integrate.py:301-405, with jax.grad) draws the
+//   value build's samples, adds each f_k(x) to the value build's sums in
+//   its order (the same loop: a set whose value build takes sweep_wide
+//   compiles TMC_WIDE_K 1), and beside them 2K pathwise sums f_k'(x) *
+//   dx/dp1 and f_k'(x) * dx/dp2 (integrate_draw.cuh transform_top_grad;
+//   f_k' from ops/grad.py's IR gradient): K + 2K floats a row, values
+//   first, then (k, parameter) pairs.  No error bars, CUSTOM tables or
+//   weights: expectation_fn takes the analytic families only.
 // * Built without --use_fast_math, so sinf, expf, logf and erfinvf keep
 //   full float32 accuracy, and with --fmad=false, so the only fused
 //   multiply-adds are those written out (tmc_fma).
@@ -115,9 +125,13 @@
 #ifndef TMC_STDERR
 #define TMC_STDERR 0
 #endif
+#ifndef TMC_GRAD
+#define TMC_GRAD 0
+#endif
 // tools/integrate_sweep.py may set TMC_UNROLL (samples per loop body) and
 // TMC_WIDE_K (the first integrand count that takes sweep_wide) to time
-// other values; the package builds with neither.
+// other values; the package sets TMC_WIDE_K only to 1, in a gradient build
+// whose set's value build takes sweep_wide (IntegrateConfig.wide_loop).
 #ifndef TMC_WIDE_K
 #define TMC_WIDE_K 17
 #endif
@@ -144,7 +158,10 @@ using tmc::kUniform;
 enum Method { kMc = 0, kAntithetic = 1, kQmc = 2 };
 constexpr int kMethod = TMC_METHOD;
 constexpr bool kStderr = TMC_STDERR != 0;
+constexpr bool kGrad = TMC_GRAD != 0;
 static_assert(kMethod >= kMc && kMethod <= kQmc, "TMC_METHOD is 0, 1 or 2");
+static_assert(!kGrad || (!kStderr && TMC_CUSTOM == 0 && TMC_WEIGHTED == 0),
+              "a gradient build takes no error bars, tables or weights");
 constexpr int kCustomRoute = TMC_CUSTOM;
 enum CustomRoute { kNoCustom = 0, kStrataRoute = 1, kKnotRoute = 2 };
 static_assert(kCustomRoute >= kNoCustom && kCustomRoute <= kKnotRoute,
@@ -173,14 +190,18 @@ constexpr int kPerPosition = kMethod == kAntithetic ? 2 : 1;
 #ifdef TMC_UNROLL
 constexpr int kUnroll = TMC_UNROLL;
 #else
-constexpr int kUnroll = tmc::default_unroll(TMC_K, 1);  // samples per body
+// Samples per body; a gradient build's body carries 3K sums.
+constexpr int kUnroll = tmc::default_unroll(kGrad ? 3 * TMC_K : TMC_K, 1);
 #endif
 // Positions per loop body.
 constexpr int kPosUnroll = kUnroll > kPerPosition ? kUnroll / kPerPosition : 1;
 // Integrand sets from this size on take sweep_wide.
 constexpr int kWideK = TMC_WIDE_K;
 constexpr bool kWide = TMC_K >= kWideK;
-constexpr int kOut = kStderr ? 2 * TMC_K : TMC_K;
+constexpr int kOut = kStderr ? 2 * TMC_K : (kGrad ? 3 * TMC_K : TMC_K);
+// The second accumulator array: the error bars' K squares, or a gradient
+// build's 2K pathwise sums.
+constexpr int kSq = kGrad ? 2 * TMC_K : (kStderr ? TMC_K : 1);
 // The cursor's step between a thread's positions t, t + 256, ...
 constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
 // The step of a thread's bit-reversed point word under qmc:
@@ -254,13 +275,27 @@ __device__ __forceinline__ float kernel_weight(float x, float q_samp,
 #endif
 
 // One position's top 24 bits and its place pos in the tile: its sample(s),
-// and the integrands into the sums (and squares).
+// and the integrands into the sums (and squares, or a gradient build's
+// pathwise sums in sq).
 template <int KIND>
 __device__ __forceinline__ void take(uint32_t top, uint32_t pos,
                                      const tmc::Family& f,
                                      const tmc::Tables& tb,
                                      const float* pilot, float* acc,
                                      float* sq) {
+#if TMC_GRAD
+  if constexpr (kMethod == kAntithetic) {
+    float a, b, da[2], db[2];
+    tmc::transform_pair_top_grad(KIND, top, f, a, b, da, db);
+    tmc_accumulate_grad(a, da[0], da[1], acc, sq);
+    tmc_accumulate_grad(b, db[0], db[1], acc, sq);
+  } else {
+    float d[2];
+    const float x = tmc::transform_top_grad(KIND, top, f, d);
+    tmc_accumulate_grad(x, d[0], d[1], acc, sq);
+  }
+  return;
+#endif
   if constexpr (kMethod == kAntithetic) {
     float a, b, qa = 0.0f, qb = 0.0f;
     draw_pair<KIND>(top, pos, f, tb, a, b, &qa, &qb);
@@ -451,12 +486,11 @@ integrate_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
   const tmc::Family f = tmc::family(params[0], params[1]);
   __shared__ float warp_sums[kThreads / 32][kOut];
   float acc[TMC_K];
-  float sq[kStderr ? TMC_K : 1];
+  float sq[kSq];
 #pragma unroll
-  for (int j = 0; j < TMC_K; ++j) {
-    acc[j] = 0.0f;
-    if constexpr (kStderr) sq[j] = 0.0f;
-  }
+  for (int j = 0; j < TMC_K; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kSq; ++j) sq[j] = 0.0f;
   // Pilots: registers for narrow sets, shared memory for wide ones.
   if constexpr (kStderr && kWide) {
     __shared__ float s_pilot[TMC_K];
@@ -486,6 +520,13 @@ integrate_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
     if constexpr (kStderr) {
       const float q = warp_sum(sq[j]);
       if (lane == 0) warp_sums[warp][TMC_K + j] = q;
+    }
+  }
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int j = 0; j < 2 * TMC_K; ++j) {
+      const float g = warp_sum(sq[j]);
+      if (lane == 0) warp_sums[warp][TMC_K + j] = g;
     }
   }
   __syncthreads();
@@ -556,9 +597,11 @@ void launch(const Launch& a, cudaStream_t s, const tmc::Tables& tb) {
 // param_stride` (stride 0: one pair for all, 2: a row each); with error
 // bars its TMC_K pilots at `pilots + r * pilot_stride` (0 or TMC_K), else
 // `pilots` is null; its partials the r-th of `reps` blocks of grid x
-// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
+// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars,
+// or grid x 3 TMC_K (sums, then the (k, parameter) pathwise sums) in a
+// gradient build;
 // their sums over the blocks, in rows_sum.cuh's order, the r-th of `reps`
-// rows of TMC_K (or 2 TMC_K) floats at `sums`.  `seg_bits` is the qmc segment bits, or -1 (a qmc run inside one
+// rows of kOut floats at `sums`.  `seg_bits` is the qmc segment bits, or -1 (a qmc run inside one
 // 2^32-point segment, and every other mode); `tables` is a host
 // tmc::Tables (copied into the launch), or null where the library reads
 // no table.  A CUSTOM library launches only kind 3, an extended family's

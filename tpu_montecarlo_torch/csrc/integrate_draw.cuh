@@ -138,6 +138,77 @@ __device__ __forceinline__ void transform_pair_top(int kind, uint32_t top,
   }
 }
 
+// The gradient builds (TMC_GRAD): transform_top's and transform_pair_top's
+// samples, bit for bit, with each sample's derivatives in (p1, p2), d[0]
+// and d[1], the pathwise derivatives jax.grad takes through the JAX
+// package's transforms with the uniform held fixed
+// (sampling.transform_grad_from_u is the plain twin): the uniform
+// (1 - u, u) times the share of its clamp min(x, next_below(p2)) that
+// reaches x (jnp.minimum's: 1 below, 0.5 at a tie, 0 on the clamp, whose
+// bound is a stopped gradient); the normal (1, z), its mirror (1, -z);
+// the exponential (-x / p1, 0); an extended family's tmc::ext_inv_grad.
+__device__ __forceinline__ float uniform_grad(float pre, float below, float u,
+                                              float* d) {
+  const float share = pre < below ? 1.0f : (pre == below ? 0.5f : 0.0f);
+  d[0] = share * (1.0f - u);
+  d[1] = share * u;
+  return fminf(pre, below);
+}
+
+__device__ __forceinline__ float transform_top_grad(int kind, uint32_t top,
+                                                    const Family& f,
+                                                    float* d) {
+  if (kind == kUniform) {
+    return uniform_grad(tmc_fma(float(top), f.scaled, f.p1), f.below,
+                        halfopen_top(top), d);
+  }
+  if (kind == kNormal) {
+    const float z = normal_z(top);
+    d[0] = 1.0f;
+    d[1] = z;
+    return tmc_fma(f.p2, z, f.p1);
+  }
+  if (kind == kExponential) {
+    const float x = logf(fmaxf(open_top(top), kULo)) * f.neg_inv;
+    d[0] = x * f.neg_inv;
+    d[1] = 0.0f;
+    return x;
+  }
+  return ext_inv_grad(kind, halfopen_top(top), f.p1, f.p2, d[0], d[1]);
+}
+
+__device__ __forceinline__ void transform_pair_top_grad(int kind,
+                                                        uint32_t top,
+                                                        const Family& f,
+                                                        float& a, float& b,
+                                                        float* da,
+                                                        float* db) {
+  if (kind == kUniform) {
+    const float u = halfopen_top(top);
+    const float v = 1.0f - u;  // exact
+    a = uniform_grad(tmc_fma(float(top), f.scaled, f.p1), f.below, u, da);
+    b = uniform_grad(tmc_fma(v, f.width, f.p1), f.below, v, db);
+  } else if (kind == kNormal) {
+    const float z = normal_z(top);
+    a = tmc_fma(f.p2, z, f.p1);
+    b = tmc_fma(-f.p2, z, f.p1);
+    da[0] = db[0] = 1.0f;
+    da[1] = z;
+    db[1] = -z;
+  } else if (kind == kExponential) {
+    const float u = open_top(top);
+    a = logf(fmaxf(u, kULo)) * f.neg_inv;
+    b = logf(fmaxf(1.0f - u, kULo)) * f.neg_inv;
+    da[0] = a * f.neg_inv;
+    db[0] = b * f.neg_inv;
+    da[1] = db[1] = 0.0f;
+  } else {
+    const float u = halfopen_top(top);
+    a = ext_inv_grad(kind, u, f.p1, f.p2, da[0], da[1]);
+    b = ext_inv_grad(kind, 1.0f - u, f.p1, f.p2, db[0], db[1]);
+  }
+}
+
 constexpr int kStrata = 32;  // strata of a 256-row tile (STRATA)
 // A position's stratum: pos >> kStratumShift = (pos / 128) / (256 / 32).
 constexpr int kStratumShift = 10;

@@ -78,6 +78,14 @@
 //   16 KB and stays in L1.  The routes and weight modes are compiled in
 //   per library; a library with neither takes no table argument and
 //   compiles no table code, so the closed-form libraries are unchanged.
+// * The gradient build (TMC_GRAD, a library of its own: nd expectation_fn's
+//   autograd estimator; the JAX package differentiates its XLA nd sweep)
+//   draws the value build's points, adds each f_k(x) to the value build's
+//   sums in its order, and beside them K x d x 2 pathwise sums
+//   df_k/dx_j * dx_j/dp of each dimension's two parameters
+//   (integrate_draw.cuh transform_top_grad): K + 2Kd floats a row, values
+//   first, then (k, j, parameter) triples.  Analytic dimensions only, no
+//   error bars or weights.
 // * Built without --use_fast_math and with --fmad=false, as integrate.cu:
 //   the only fused multiply-adds are those written out (tmc_fma).
 #include <cstdint>
@@ -105,6 +113,11 @@
 #else
 #define TMC_ND_TABLES 0
 #endif
+#ifndef TMC_GRAD
+#define TMC_GRAD 0
+#endif
+static_assert(!TMC_GRAD || !TMC_ND_TABLES,
+              "a gradient build draws analytic dimensions, unweighted");
 
 namespace {
 
@@ -117,10 +130,14 @@ constexpr int kThreadBits = 8;   // threadIdx.x, the low bits of pos
 constexpr int kSobolBits = 32;
 // Positions per loop body; tools/integrate_sweep.py may set TMC_UNROLL to
 // time other values, the package builds without it.
+constexpr bool kGrad = TMC_GRAD != 0;
+// A gradient build's pathwise sums: K x d x 2.
+constexpr int kGradSums = kGrad ? 2 * TMC_K * TMC_D : 1;
 #ifdef TMC_UNROLL
 constexpr int kUnroll = TMC_UNROLL;
 #else
-constexpr int kUnroll = tmc::default_unroll(TMC_K, TMC_D);
+constexpr int kUnroll =
+    tmc::default_unroll(kGrad ? TMC_K * (2 * TMC_D + 1) : TMC_K, TMC_D);
 #endif
 // The cursor's step between a thread's positions t, t + 256, ...
 constexpr uint32_t kStep = uint32_t(kThreads) * tmc::kCursorStride;
@@ -233,7 +250,7 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
                     int loops, long long n_tiles, int seg_bits,
                     float* __restrict__ partials TMC_TABLES_PARAM) {
   constexpr bool kSobol = METHOD == kQmc;
-  constexpr int kOut = STDERR ? 2 * TMC_K : TMC_K;
+  constexpr int kOut = STDERR ? 2 * TMC_K : TMC_K + (kGrad ? kGradSums : 0);
   const int rep = blockIdx.y;
   if (seeds != nullptr) seed = seeds[rep];
   params += rep * param_stride;
@@ -249,13 +266,15 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
   for (int j = 0; j < TMC_D; ++j) {
     fam[j] = tmc::family(params[2 * j], params[2 * j + 1]);
   }
-  float acc[TMC_K], sq[TMC_K], pilot[TMC_K];
+  float acc[TMC_K], sq[TMC_K], pilot[TMC_K], grad[kGradSums];
 #pragma unroll
   for (int k = 0; k < TMC_K; ++k) {
     acc[k] = 0.0f;
     sq[k] = 0.0f;
     pilot[k] = STDERR ? pilots[k] : 0.0f;
   }
+#pragma unroll
+  for (int k = 0; k < kGradSums; ++k) grad[k] = 0.0f;
 
   uint32_t shift0[TMC_D], low[TMC_D];
   if (kSobol) {
@@ -308,6 +327,9 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
     for (int i = 0; i < kPerThread; ++i) {
       float x[TMC_D], y[TMC_D];
       float qx[TMC_D], qy[TMC_D];  // sampler densities (sampler-mode q)
+#if TMC_GRAD
+      float dx1[TMC_D], dx2[TMC_D], dy1[TMC_D], dy2[TMC_D];
+#endif
 #pragma unroll
       for (int j = 0; j < TMC_D; ++j) {
         // Position threadIdx.x + 256 i of dimension j, its top 24 bits.
@@ -315,6 +337,22 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
             kSobol ? tmc::sobol_top24(word[j] ^ s_high[i * TMC_D + j],
                                       shift[j])
                    : tmc::cursor_top24(word[j] + uint32_t(i) * kStep);
+#if TMC_GRAD
+        // The draws with their derivatives, parameter c of dimension j in
+        // dx[c][j] (dy: the mirrors').
+        float da[2], db[2];
+        if (METHOD == kAntithetic) {
+          tmc::transform_pair_top_grad(kind_of(j), top, fam[j], x[j], y[j],
+                                       da, db);
+          dy1[j] = db[0];
+          dy2[j] = db[1];
+        } else {
+          x[j] = tmc::transform_top_grad(kind_of(j), top, fam[j], da);
+        }
+        dx1[j] = da[0];
+        dx2[j] = da[1];
+        continue;
+#endif
 #if TMC_ND_TABLES
         if (kind_of(j) == tmc::kCustom) {
           // w and its mirror 1 - w through the route's tables (a
@@ -349,7 +387,10 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
           x[j] = tmc::transform_top(kind_of(j), top, fam[j]);
         }
       }
-#if TMC_WEIGHTED
+#if TMC_GRAD
+      tmc_accumulate_nd_grad(x, dx1, dx2, acc, grad);
+      if (METHOD == kAntithetic) tmc_accumulate_nd_grad(y, dy1, dy2, acc, grad);
+#elif TMC_WEIGHTED
       // The product weight multiplies each integrand's value before the
       // sums and the pilot-shifted squares.
       const float wx = nd_weight(x, qx, tb);
@@ -409,6 +450,13 @@ integrate_nd_kernel(uint32_t seed, const uint32_t* __restrict__ seeds,
     if (STDERR) {
       const float q = warp_sum(sq[k]);
       if (lane == 0) warp_sums[warp][TMC_K + k] = q;
+    }
+  }
+  if (kGrad) {
+#pragma unroll
+    for (int k = 0; k < kGradSums; ++k) {
+      const float g = warp_sum(grad[k]);
+      if (lane == 0) warp_sums[warp][TMC_K + k] = g;
     }
   }
   __syncthreads();
@@ -486,7 +534,8 @@ cudaError_t launch(const Launch& a, cudaStream_t s, const void* tables) {
       a.seed, a.seeds, a.params, a.param_stride, a.dirs, a.pilots,
       a.pilot_stride, a.loops, a.n_tiles, a.seg_bits, a.partials
       TMC_TABLES_ARG);
-  tmc::rows_sum(a.partials, a.reps, a.grid, STDERR ? 2 * TMC_K : TMC_K, a.sums,
+  tmc::rows_sum(a.partials, a.reps, a.grid,
+                STDERR ? 2 * TMC_K : TMC_K + (kGrad ? kGradSums : 0), a.sums,
                 s);
   return cudaGetLastError();
 }
@@ -500,9 +549,11 @@ cudaError_t launch(const Launch& a, cudaStream_t s, const void* tables) {
 // `params + r * param_stride` (0, or 2 TMC_D: a block each); with error
 // bars its TMC_K pilots at `pilots + r * pilot_stride` (0 or TMC_K), else
 // `pilots` is null; its partials the r-th of `reps` blocks of grid x
-// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars;
+// TMC_K floats, or grid x 2 TMC_K (sums, then squares) with error bars,
+// or grid x (TMC_K + 2 TMC_K TMC_D) (sums, then the (k, j, parameter)
+// pathwise sums) in a gradient build, which takes no error bars;
 // their sums over the blocks, in rows_sum.cuh's order, the r-th of `reps`
-// rows of TMC_K (or 2 TMC_K) floats at `sums`.  `dirs` holds TMC_D x 32 Sobol direction numbers (qmc only, else null);
+// rows of as many floats at `sums`.  `dirs` holds TMC_D x 32 Sobol direction numbers (qmc only, else null);
 // `seg_bits` is -1 for a qmc run inside one 2^32-point segment; `tables`
 // a host NdTables (copied into the launch) where the library reads tables
 // (TMC_ROUTES or TMC_WEIGHTED), else null.
@@ -517,6 +568,7 @@ extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((method == kQmc) != (dirs != nullptr) ||
       (with_stderr != 0) != (pilots != nullptr) || seg_bits > 31 ||
+      (kGrad && with_stderr != 0) ||
       TMC_ND_TABLES != (tables != nullptr) || reps < 1 || reps > 65535 ||
       (param_stride != 0 && param_stride != 2 * TMC_D) ||
       (pilot_stride != 0 && pilot_stride != TMC_K)) {
@@ -539,21 +591,24 @@ extern "C" int tmc_integrate_nd(int method, int with_stderr, unsigned int seed,
   if (method == kMc && !with_stderr) {
     return static_cast<int>(launch<kMc, false>(a, s, tables));
   }
-  if (method == kMc) {
-    return static_cast<int>(launch<kMc, true>(a, s, tables));
-  }
   if (method == kAntithetic && !with_stderr) {
     return static_cast<int>(launch<kAntithetic, false>(a, s, tables));
-  }
-  if (method == kAntithetic) {
-    return static_cast<int>(launch<kAntithetic, true>(a, s, tables));
   }
   if (method == kQmc && !with_stderr) {
     return static_cast<int>(launch<kQmc, false>(a, s, tables));
   }
+#if !TMC_GRAD
+  // Error bars: a gradient build compiles none.
+  if (method == kMc) {
+    return static_cast<int>(launch<kMc, true>(a, s, tables));
+  }
+  if (method == kAntithetic) {
+    return static_cast<int>(launch<kAntithetic, true>(a, s, tables));
+  }
   if (method == kQmc) {
     return static_cast<int>(launch<kQmc, true>(a, s, tables));
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

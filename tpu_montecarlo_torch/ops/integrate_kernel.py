@@ -47,9 +47,10 @@ from ..sampling import (
     exponential_from_u01,
     normal_from_u01,
     transform_from_u,
+    transform_grad_from_u,
 )
 from ..tracing import TracedFunction
-from .lower import cuda_source, to_torch, to_torch_set
+from .lower import cuda_source, to_torch, to_torch_grad, to_torch_set
 from .qmc import (
     MASK32,
     QMC_MAX_SAMPLES,
@@ -71,6 +72,7 @@ __all__ = [
     "KnotWeightTable",
     "LANES",
     "MAX_CUDA_BLOCKS",
+    "MAX_GRAD_FUNCTIONS",
     "SAMPLER",
     "STRATA",
     "StrataTables",
@@ -80,6 +82,8 @@ __all__ = [
     "integrate_batch",
     "integrate_batch_rows",
     "integrate_cuda",
+    "integrate_grad_cuda",
+    "integrate_grad_reference",
     "integrate_reference",
     "integrate_rows",
     "knot_interp",
@@ -121,6 +125,13 @@ SEG_BITS = (QMC_MAX_SAMPLES // BLOCK_ELEMS).bit_length() - 1
 # order, and with it the result, is the same on every card).
 MAX_CUDA_BLOCKS = 8192
 MAX_FUNCTIONS = 128
+# A gradient build keeps 3K sums in registers (values and two pathwise
+# sums a function): at most this many functions a group, wider sets in
+# passes over one stream (api/passes.py).
+MAX_GRAD_FUNCTIONS = 32
+# The first integrand count whose sample loop counts positions at run
+# time (csrc/integrate.cu TMC_WIDE_K).
+WIDE_K = 17
 METHODS = ("mc", "qmc", "antithetic")
 # Tiles the plain version draws at once: 2M samples, 16 MB per int64
 # word tensor.
@@ -179,10 +190,19 @@ class IntegrateConfig:
     its own (``IntegrateProgram.library``), and so is each CUSTOM route
     and each extended family: the route of the tables a run draws
     through compiles the CUSTOM family in, an extended family's library
-    that family alone, and nothing else does."""
+    that family alone, and nothing else does.
+
+    ``grad`` makes it the gradient build (``expectation_fn``): beside
+    each function's sum, its pathwise derivatives' sums in the family's
+    two parameters, no error bars.  ``wide_loop`` makes a gradient build
+    take the run-time position loop of sets of ``WIDE_K`` functions or
+    more, which the value build of the set its group came from takes,
+    so that its sums are that build's bit for bit."""
 
     method: str = "mc"
     with_stderr: bool = False
+    grad: bool = False
+    wide_loop: bool = False
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -190,6 +210,10 @@ class IntegrateConfig:
                 "method must be 'mc', 'qmc' or 'antithetic', got "
                 f"{self.method!r}"
             )
+        if self.grad and self.with_stderr:
+            raise ValueError("the gradient build takes no error bars")
+        if self.wide_loop and not self.grad:
+            raise ValueError("wide_loop is a gradient build's")
 
     @property
     def antithetic(self) -> bool:
@@ -204,7 +228,17 @@ class IntegrateConfig:
             lines.append(f"#define TMC_METHOD {code}")
         if self.with_stderr:
             lines.append("#define TMC_STDERR 1")
+        if self.grad:
+            lines.append("#define TMC_GRAD 1")
+        if self.wide_loop:
+            lines.append("#define TMC_WIDE_K 1")
         return "".join(line + "\n" for line in lines)
+
+    @property
+    def n_out(self) -> int:
+        """Floats a row of K functions takes, over K: values, squares or
+        the pathwise sums."""
+        return 3 if self.grad else (2 if self.with_stderr else 1)
 
 
 _METHOD_CODES = {"mc": 0, "antithetic": 1, "qmc": 2}
@@ -508,54 +542,76 @@ def kernel_weight(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, p / torch.where(ok, q, 1.0), 0.0)
 
 
+def _transform(u, kind, p1, p2, grad: bool):
+    """The family's samples at ``u``, or with ``grad`` the triple ``(x,
+    dx/dp1, dx/dp2)`` (:func:`transform_grad_from_u`), x the same."""
+    if grad:
+        return transform_grad_from_u(u, kind, p1, p2)
+    return transform_from_u(u, kind, p1, p2)
+
+
+def _normal_pair(z, p1, p2, grad: bool):
+    """The antithetic normal pair ``p1 + p2 z``, ``p1 - p2 z``, each with
+    its derivatives (1, +-z) under ``grad``."""
+    a, b = p1 + p2 * z, p1 - p2 * z
+    if not grad:
+        return [a, b]
+    one = torch.ones_like(a)
+    return [(a, one, z), (b, one, -z)]
+
+
 def sample_block(
-    kind: DistKind, p1, p2, rng: CounterRng, shape, counter, tag: int = 0
+    kind: DistKind, p1, p2, rng: CounterRng, shape, counter, tag: int = 0,
+    grad: bool = False,
 ) -> torch.Tensor:
     """One block of samples of the family from the (counter, tag) stream
     (``csrc/counter_rng.cuh`` ``tmc::transform``): the exponential from
-    (0, 1] uniforms, the others from [0, 1) ones."""
+    (0, 1] uniforms, the others from [0, 1) ones; with ``grad`` each
+    sample's ``(x, dx/dp1, dx/dp2)``."""
     draw = uniform_open01 if kind == DistKind.EXPONENTIAL else uniform_halfopen01
-    return transform_from_u(draw(rng, shape, counter, tag), kind, p1, p2)
+    return _transform(draw(rng, shape, counter, tag), kind, p1, p2, grad)
 
 
 def sample_subblocks(
     kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS,
-    tables: Optional[Tables] = None,
+    tables: Optional[Tables] = None, grad: bool = False,
 ) -> List[torch.Tensor]:
     """One tile of samples as a list of equal-shape sub-blocks, as the JAX
     kernel's ``_sample_subblocks`` (integrate_pallas.py:550-602) returns
     them: the normal family as two half blocks (tags 0 and 1); CUSTOM
     one block through ``tables`` from tag-0 [0, 1) uniforms, an (x, q)
-    pair with a ``qs`` table."""
+    pair with a ``qs`` table.  With ``grad`` (analytic families) each
+    sub-block is ``(x, dx/dp1, dx/dp2)``."""
     if kind == DistKind.NORMAL:
         half = (rows // 2, LANES)
         return [
-            sample_block(kind, p1, p2, rng, half, counter, tag)
+            sample_block(kind, p1, p2, rng, half, counter, tag, grad)
             for tag in (0, 1)
         ]
     if kind == DistKind.CUSTOM:
         w = uniform_halfopen01(rng, (rows, LANES), counter, 0)
         return [_custom_draw(tables, w, rows)]
-    return [sample_block(kind, p1, p2, rng, (rows, LANES), counter)]
+    return [sample_block(kind, p1, p2, rng, (rows, LANES), counter, 0, grad)]
 
 
 def sample_subblocks_antithetic(
     kind: DistKind, p1, p2, rng: CounterRng, counter, rows: int = BLOCK_ROWS,
-    tables: Optional[Tables] = None,
+    tables: Optional[Tables] = None, grad: bool = False,
 ) -> List[torch.Tensor]:
     """One antithetic tile in the JAX kernel's sub-block order
     (``_sample_subblocks_antithetic``, integrate_pallas.py:605-676): the
     same uniforms as :func:`sample_subblocks`, each at ``u`` and at
     ``1 - u``, so sub-block ``2i + 1`` mirrors sub-block ``2i`` element
     for element; the normal family ``[+z1, -z1, +z2, -z2]``; CUSTOM
-    mirrors ``w`` and ``1 - w`` within each row's stratum."""
+    mirrors ``w`` and ``1 - w`` within each row's stratum.  With ``grad``
+    each sub-block is ``(x, dx/dp1, dx/dp2)``."""
     shape = (rows, LANES)
     if kind == DistKind.NORMAL:
         half = (rows // 2, LANES)
         out = []
         for tag in (0, 1):
             z = normal_from_u01(uniform_halfopen01(rng, half, counter, tag))
-            out += [p1 + p2 * z, p1 - p2 * z]
+            out += _normal_pair(z, p1, p2, grad)
         return out
     if kind == DistKind.CUSTOM:
         w = uniform_halfopen01(rng, shape, counter, 0)
@@ -563,8 +619,8 @@ def sample_subblocks_antithetic(
                 _custom_draw(tables, 1.0 - w, rows)]
     draw = uniform_open01 if kind == DistKind.EXPONENTIAL else uniform_halfopen01
     u = draw(rng, shape, counter, 0)
-    return [transform_from_u(u, kind, p1, p2),
-            transform_from_u(1.0 - u, kind, p1, p2)]
+    return [_transform(u, kind, p1, p2, grad),
+            _transform(1.0 - u, kind, p1, p2, grad)]
 
 
 def _positions(rows: int, device) -> torch.Tensor:
@@ -577,6 +633,7 @@ def _positions(rows: int, device) -> torch.Tensor:
 def sample_subblocks_qmc(
     kind: DistKind, p1, p2, block_num: torch.Tensor, shift: torch.Tensor,
     rows: int = BLOCK_ROWS, tables: Optional[Tables] = None,
+    grad: bool = False,
 ) -> List[torch.Tensor]:
     """QMC tiles in the JAX kernel's sub-block order
     (``_sample_subblocks_qmc``, integrate_pallas.py:481-547), each
@@ -585,7 +642,7 @@ def sample_subblocks_qmc(
     int64 words); the normal family as the block's two contiguous
     halves, the exponential from (0, 1] uniforms, CUSTOM through
     ``tables`` and the extended families through their inverses from
-    [0, 1) ones."""
+    [0, 1) ones; with ``grad`` each sub-block ``(x, dx/dp1, dx/dp2)``."""
     dev = block_num.device
     base = (block_num.to(torch.int64) * (rows * LANES))[:, None, None]
     shift = shift.to(torch.int64)[:, None, None]
@@ -593,14 +650,15 @@ def sample_subblocks_qmc(
         half = rows // 2
         pos = _positions(half, dev)
         return [
-            p1 + p2 * normal_from_u01(qmc_u01_halfopen(base + off + pos, shift))
+            _transform(qmc_u01_halfopen(base + off + pos, shift), kind, p1,
+                       p2, grad)
             for off in (0, half * LANES)
         ]
     g = base + _positions(rows, dev)
     if kind == DistKind.CUSTOM:
         return [_custom_draw(tables, qmc_u01_halfopen(g, shift), rows)]
     u01 = qmc_u01_open if kind == DistKind.EXPONENTIAL else qmc_u01_halfopen
-    return [transform_from_u(u01(g, shift), kind, p1, p2)]
+    return [_transform(u01(g, shift), kind, p1, p2, grad)]
 
 
 def tile_subblocks(
@@ -609,7 +667,7 @@ def tile_subblocks(
 ) -> List[torch.Tensor]:
     """The given tiles' sub-blocks under ``cfg.method``, each
     ``(len(tiles), ..., 128)`` (an (x, q) pair under a ``"sampler"``
-    weight)."""
+    weight; ``(x, dx/dp1, dx/dp2)`` under ``cfg.grad``)."""
     if cfg.method == "qmc":
         b = tiles
         shift = derive_shift(seed, 1).to(tiles.device)
@@ -619,10 +677,12 @@ def tile_subblocks(
             b = b & ((1 << seg_bits) - 1)
         else:
             shift = shift.expand(b.shape)
-        return sample_subblocks_qmc(kind, p1, p2, b, shift, tables=tables)
+        return sample_subblocks_qmc(kind, p1, p2, b, shift, tables=tables,
+                                    grad=cfg.grad)
     rng = CounterRng(seed, tiles // grid.loops, device=tiles.device)
     draw = sample_subblocks_antithetic if cfg.antithetic else sample_subblocks
-    return draw(kind, p1, p2, rng, tiles % grid.loops, tables=tables)
+    return draw(kind, p1, p2, rng, tiles % grid.loops, tables=tables,
+                grad=cfg.grad)
 
 
 def pilot_values(
@@ -777,6 +837,16 @@ class IntegrateProgram:
         else:
             self.torch_values = to_torch_set(self.fns)
         self._libs = {}
+        self._grads = None
+
+    @property
+    def torch_grads(self) -> List[Callable]:
+        """Each function's value and derivative at a block of samples,
+        ``(value, [d/dx])`` (``lower.to_torch_grad``), for the gradient
+        build's plain version; made at first use."""
+        if self._grads is None:
+            self._grads = [to_torch_grad(f) for f in self.fns]
+        return self._grads
 
     @property
     def sampler(self) -> bool:
@@ -816,6 +886,10 @@ class IntegrateProgram:
         if (cfg, route) not in self._libs:
             from .build import load_kernel_library
 
+            if cfg.grad and (self.weight is not None
+                             or isinstance(route, str)):
+                raise ValueError("the gradient build takes analytic "
+                                 "families and unweighted sets only")
             if route is None:
                 draws = ""
             elif isinstance(route, str):
@@ -827,7 +901,8 @@ class IntegrateProgram:
                                  "extended family")
             lib = load_kernel_library(
                 "integrate.cu",
-                cuda_source(self.fns, weight=self._lowered_weight())
+                cuda_source(self.fns, weight=self._lowered_weight(),
+                            grad=cfg.grad)
                 + cfg.defines + draws,
             )
             lib.tmc_integrate.argtypes = [
@@ -843,8 +918,8 @@ class IntegrateProgram:
                 ctypes.c_longlong,  # tiles = programs * loops
                 ctypes.c_int,       # QMC segment bits, or -1
                 ctypes.c_int,       # CUDA grid size
-                ctypes.c_void_p,    # partials (R, grid, K or 2K) float32
-                ctypes.c_void_p,    # sums (R, K or 2K) float32
+                ctypes.c_void_p,    # partials (R, grid, K, 2K or 3K) float32
+                ctypes.c_void_p,    # sums (R, K, 2K or 3K) float32
                 ctypes.c_void_p,    # host tmc::Tables, or null
                 ctypes.c_void_p,    # cudaStream_t
             ]
@@ -972,6 +1047,77 @@ def integrate_reference(
     return torch.stack([sums, sqs]) if cfg.with_stderr else sums
 
 
+def _check_grad(program: IntegrateProgram, kind, params: torch.Tensor,
+                cfg: IntegrateConfig) -> None:
+    if not cfg.grad:
+        raise ValueError("a gradient run takes a gradient configuration")
+    if program.weight is not None or DistKind(kind) == DistKind.CUSTOM:
+        raise ValueError("the gradient build takes analytic families and "
+                         "unweighted sets only")
+    _check_args(kind, params)
+
+
+def integrate_grad_reference(
+    program: IntegrateProgram,
+    kind: DistKind,
+    params: torch.Tensor,
+    seed: int,
+    grid: Grid,
+    cfg: IntegrateConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the gradient build, on ``params``' device:
+    ``(sums, grads)``, the (K,) float32 sums of the values
+    (:func:`integrate_reference`'s, bit for bit: the same draws and
+    operations in the same order) and the (K, 2) sums of the pathwise
+    terms ``f_k'(x) * dx/dp`` of the family's two parameters, over the
+    grid's samples under ``cfg.method``."""
+    _check_grad(program, kind, params, cfg)
+    dev = params.device
+    p1, p2 = params[0], params[1]
+    k = len(program.fns)
+    sums, grads = 0.0, 0.0
+    for t0 in range(0, grid.n_tiles, _TILES_PER_CHUNK):
+        tiles = torch.arange(
+            t0, min(t0 + _TILES_PER_CHUNK, grid.n_tiles),
+            dtype=torch.int64, device=dev,
+        )
+        subs = tile_subblocks(cfg, kind, p1, p2, seed, grid, tiles)
+        outs = [[vg(x) for vg in program.torch_grads] for x, _, _ in subs]
+        tile_sums = [sum(o[j][0].sum(dim=(1, 2)) for o in outs)
+                     for j in range(k)]
+        sums = sums + torch.stack(tile_sums, dim=1).sum(dim=0)
+        tile_grads = [
+            torch.stack([sum((o[j][1][0] * sub[c]).sum(dim=(1, 2))
+                             for o, sub in zip(outs, subs))
+                         for c in (1, 2)], dim=1)
+            for j in range(k)]
+        grads = grads + torch.stack(tile_grads, dim=1).sum(dim=0)
+    return sums, grads
+
+
+def integrate_grad_cuda(
+    program: IntegrateProgram,
+    kind: DistKind,
+    params: torch.Tensor,
+    seed: int,
+    grid: Grid,
+    cfg: IntegrateConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient build's ``(sums, grads)``, as
+    :func:`integrate_grad_reference` returns them, on ``params``' device:
+    a CUDA ``params`` launches the kernel's gradient build (counted in
+    ``integrate_cuda.launches`` and ``integrate_cuda.grad_launches``), a
+    CPU one runs the plain version.  Its value sums are the value
+    build's, bit for bit."""
+    _check_grad(program, kind, params, cfg)
+    if params.device.type == "cpu":
+        return integrate_grad_reference(program, kind, params, seed, grid, cfg)
+    k = len(program.fns)
+    out = _launch(program, kind, params, int(seed), None, grid, cfg, None,
+                  None)[1][0]
+    return out[:k], out[k:].reshape(k, 2)
+
+
 def integrate_cuda(
     program: IntegrateProgram,
     kind: DistKind,
@@ -1012,8 +1158,9 @@ def integrate_rows(
 ) -> torch.Tensor:
     """Launches the kernel on CUDA ``params`` and returns its per-block
     rows, (blocks, K) float32 sums or with ``cfg.with_stderr`` (blocks,
-    2K) sums then squares, unsummed (the launch's second pass sums them
-    for ``integrate_cuda``).
+    2K) sums then squares, or under ``cfg.grad`` (blocks, 3K) sums then
+    the (k, parameter) pathwise sums, unsummed (the launch's second pass
+    sums them for ``integrate_cuda``).
     Counts the launch in ``integrate_cuda.launches``."""
     _check_args(kind, params, tables, program)
     _check_pilot(cfg, params, pilot, len(program.fns))
@@ -1114,7 +1261,7 @@ def integrate_batch(
 def _launch(program, kind, params, seed, seeds, grid, cfg, pilot, tables):
     """One launch of the kernel and its second pass: R = len(seeds) reps,
     or one rep under the seed word ``seed`` where ``seeds`` is None.
-    Returns the (R, blocks, K or 2K) rows and their (R, K or 2K) sums over
+    Returns the (R, blocks, n_out K) rows and their (R, n_out K) sums over
     the blocks, in ``csrc/rows_sum.cuh``'s order."""
     k = len(program.fns)
     if params.device.type != "cuda":
@@ -1135,7 +1282,7 @@ def _launch(program, kind, params, seed, seeds, grid, cfg, pilot, tables):
     kt = program.kernel_tables(tables, dev)
     lib = program.library(cfg, library_route(kind, tables))
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
-    n_out = 2 * k if cfg.with_stderr else k
+    n_out = cfg.n_out * k
     partials = torch.empty((reps, rows, n_out), dtype=torch.float32,
                            device=dev)
     sums = torch.empty((reps, n_out), dtype=torch.float32, device=dev)
@@ -1156,8 +1303,10 @@ def _launch(program, kind, params, seed, seeds, grid, cfg, pilot, tables):
         )
     integrate_cuda.launches += 1
     integrate_cuda.batch_launches += int(seeds is not None)
+    integrate_cuda.grad_launches += int(cfg.grad)
     return partials, sums
 
 
 integrate_cuda.launches = 0
 integrate_cuda.batch_launches = 0
+integrate_cuda.grad_launches = 0

@@ -49,6 +49,7 @@ from ..sampling import (
     DistKind,
     normal_from_u01,
     transform_from_u,
+    transform_grad_from_u,
 )
 from ..tracing import TracedFunction
 from .integrate_kernel import (
@@ -77,7 +78,7 @@ from .integrate_kernel import (
     uniform_halfopen01,
     uniform_open01,
 )
-from .lower import cuda_source, to_torch
+from .lower import cuda_source, to_torch, to_torch_grad
 from .reduce import fixed_sum
 from .qmc import (
     MASK32,
@@ -99,7 +100,10 @@ __all__ = [
     "integrate_nd_batch",
     "integrate_nd_batch_rows",
     "integrate_nd_cuda",
+    "integrate_nd_grad_cuda",
+    "integrate_nd_grad_reference",
     "integrate_nd_reference",
+    "max_grad_functions",
     "integrate_nd_rows",
     "nd_draws",
     "nd_routes",
@@ -125,13 +129,16 @@ class NdConfig:
     """What one nd run computes: the per-dimension families, the method,
     and whether the kernel also sums pilot-shifted squares (in every mode,
     as the JAX kernel does; ``integrate``'s own ``qmc`` error bars come
-    from rotations).  Its
+    from rotations), or under ``grad`` each function's pathwise
+    derivatives in every dimension's two parameters (the gradient build,
+    a library of its own; analytic dimensions).  Its
     ``strat_dim`` is the CUSTOM dimension that draws through stratified
     tables, if any."""
 
     kinds: Tuple[DistKind, ...]
     method: str = "mc"
     with_stderr: bool = False
+    grad: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "kinds", tuple(DistKind(k) for k in self.kinds))
@@ -147,6 +154,9 @@ class NdConfig:
                 f"method='qmc' supports up to {SOBOL_MAX_DIMS} dimensions, "
                 f"got {self.d}"
             )
+        if self.grad and (self.with_stderr or DistKind.CUSTOM in self.kinds):
+            raise ValueError("the gradient build takes analytic dimensions "
+                             "and no error bars")
 
     @property
     def d(self) -> int:
@@ -320,6 +330,26 @@ def _draw_dim(kind: DistKind, p1, p2, get_u) -> torch.Tensor:
     return transform_from_u(get_u(kind == DistKind.EXPONENTIAL), kind, p1, p2)
 
 
+def _draw_dim_grad(kind: DistKind, p1, p2, get_u):
+    """:func:`_draw_dim`'s block (bit for bit) with its derivatives,
+    ``(x, dx/dp1, dx/dp2)``."""
+    return transform_grad_from_u(get_u(kind == DistKind.EXPONENTIAL), kind,
+                                 p1, p2)
+
+
+def _draw_dim_pair_grad(kind: DistKind, p1, p2, get_u):
+    """:func:`_draw_dim_pair`'s pair (bit for bit), each with its
+    derivatives: the normal mirror's are (1, -z)."""
+    if kind == DistKind.NORMAL:
+        z = normal_from_u01(get_u(False))
+        a, b = p1 + p2 * z, p1 - p2 * z
+        one = torch.ones_like(a)
+        return (a, one, z), (b, one, -z)
+    u = get_u(kind == DistKind.EXPONENTIAL)
+    return (transform_grad_from_u(u, kind, p1, p2),
+            transform_grad_from_u(1.0 - u, kind, p1, p2))
+
+
 def _draw_dim_pair(kind: DistKind, p1, p2, get_u):
     """Antithetic pair of one dimension from one uniform set: the
     transform at ``u`` and at its mirror ``1 - u`` (the normal pair
@@ -366,6 +396,29 @@ def nd_draws(
         for (xs, qs), x in zip(sets, draws):
             xs.append(x)
             qs.append(None)
+    return sets
+
+
+def nd_draws_grad(
+    cfg: NdConfig, params: torch.Tensor, seed: int, grid: Grid,
+    tiles: torch.Tensor,
+):
+    """The given tiles' points with their derivatives, for the gradient
+    build's plain version: a list of one (under ``antithetic`` two) ``(xs,
+    ds)`` pairs, ``xs`` :func:`nd_draws`'s d blocks bit for bit and
+    ``ds[j]`` the pair ``(dx_j/dp1, dx_j/dp2)`` of dimension j's
+    parameters.  Analytic dimensions only."""
+    sets = [([], []) for _ in range(2 if cfg.antithetic else 1)]
+    for j, kind in enumerate(cfg.kinds):
+        get_u = lambda open01, j=j: nd_uniforms(  # noqa: E731
+            cfg.method, seed, grid, tiles, j, open01
+        )
+        p1, p2 = params[j, 0], params[j, 1]
+        draws = (_draw_dim_pair_grad(kind, p1, p2, get_u) if cfg.antithetic
+                 else (_draw_dim_grad(kind, p1, p2, get_u),))
+        for (xs, ds), (x, d1, d2) in zip(sets, draws):
+            xs.append(x)
+            ds.append((d1, d2))
     return sets
 
 
@@ -515,6 +568,55 @@ def integrate_nd_reference(
     return torch.stack([sums, sqs]) if cfg.with_stderr else sums
 
 
+def integrate_nd_grad_reference(
+    torch_grads: Sequence[Callable],
+    cfg: NdConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: Grid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the nd gradient build, on ``params``'
+    device: ``(sums, grads)``, the (K,) float32 sums of the values
+    (:func:`integrate_nd_reference`'s, bit for bit) and the (K, d, 2) sums
+    of the pathwise terms ``df_k/dx_j * dx_j/dp`` of each dimension's two
+    parameters.  ``torch_grads`` is the program's ``torch_grads``."""
+    k = len(torch_grads)
+    _check_grad(cfg, params)
+    dev = params.device
+    sums = torch.zeros(k, dtype=torch.float32, device=dev)
+    grads = torch.zeros((k, cfg.d, 2), dtype=torch.float32, device=dev)
+    for t0 in range(0, grid.n_tiles, _TILES_PER_CHUNK):
+        tiles = torch.arange(
+            t0, min(t0 + _TILES_PER_CHUNK, grid.n_tiles),
+            dtype=torch.int64, device=dev,
+        )
+        sets = nd_draws_grad(cfg, params, seed, grid, tiles)
+        tile_sums, tile_grads = [], []
+        for vg in torch_grads:
+            outs = [vg(*xs) for xs, _ in sets]
+            tile_sums.append(sum(v.sum(dim=(1, 2)) for v, _ in outs))
+            tile_grads.append(torch.stack([
+                torch.stack([sum((g[j] * ds[j][c]).sum(dim=(1, 2))
+                                 for (_, g), (_, ds) in zip(outs, sets))
+                             for c in (0, 1)], dim=-1)
+                for j in range(cfg.d)], dim=-2))
+        sums += torch.stack(tile_sums, dim=1).sum(dim=0)
+        grads += torch.stack(tile_grads, dim=1).sum(dim=0)
+    return sums, grads
+
+
+def _check_grad(cfg: NdConfig, params: torch.Tensor) -> None:
+    if not cfg.grad:
+        raise ValueError("a gradient run takes a gradient configuration")
+    _check_args(cfg, params, None, 0)
+
+
+def max_grad_functions(d: int) -> int:
+    """Most functions a gradient build's group takes over d dimensions:
+    K (2d + 1) sums in registers, at most the 1-D build's 96."""
+    return max(1, 96 // (2 * d + 1))
+
+
 class _NdWeight:
     """An importance set's product weight over d dimensions, each a (p,
     q) pair: p a traced density, a :class:`UniformWeightTable` or a
@@ -588,6 +690,16 @@ class IntegrateNdProgram:
                         "sampler-mode nd IS weights need CUSTOM dims")
         self._libs = {}
         self._dirs = {}
+        self._grads = None
+
+    @property
+    def torch_grads(self) -> List[Callable]:
+        """Each function's value and partial derivatives at a point's
+        blocks, ``(value, [d/dx_j])`` (``lower.to_torch_grad``), for the
+        gradient build's plain version; made at first use."""
+        if self._grads is None:
+            self._grads = [to_torch_grad(f) for f in self.fns]
+        return self._grads
 
     @property
     def weight(self):
@@ -598,17 +710,25 @@ class IntegrateNdProgram:
         """The dimensions whose q is their sampler's own density."""
         return () if self.torch_weight is None else self.torch_weight.sampler_dims
 
-    def library(self, routes: Optional[Sequence[int]] = None):
+    def library(self, routes: Optional[Sequence[int]] = None,
+                grad: bool = False):
         """The library drawing each CUSTOM dimension on ``routes[j]``
-        (:func:`nd_routes`; None where no dimension is CUSTOM)."""
+        (:func:`nd_routes`; None where no dimension is CUSTOM); with
+        ``grad`` the gradient build (analytic dimensions, unweighted)."""
         routes = tuple(routes) if routes is not None and any(routes) else None
         if (routes is not None) != (DistKind.CUSTOM in self.kinds):
             raise ValueError("CUSTOM dimensions, and only they, take routes")
-        if routes not in self._libs:
+        if grad and (routes is not None or self.weight is not None):
+            raise ValueError("the gradient build takes analytic dimensions "
+                             "and unweighted sets only")
+        key = (routes, grad)
+        if key not in self._libs:
             from .build import load_kernel_library
 
             kinds = ", ".join(str(int(k)) for k in self.kinds)
             defines = f"#define TMC_KINDS {kinds}\n"
+            if grad:
+                defines += "#define TMC_GRAD 1\n"
             if routes is not None:
                 defines += ("#define TMC_ROUTES "
                             + ", ".join(str(r) for r in routes) + "\n")
@@ -619,7 +739,7 @@ class IntegrateNdProgram:
                                for pair in self.weight)
             lib = load_kernel_library(
                 "integrate_nd.cu",
-                cuda_source(self.fns, weight=weight) + defines,
+                cuda_source(self.fns, weight=weight, grad=grad) + defines,
             )
             lib.tmc_integrate_nd.argtypes = [
                 ctypes.c_int,       # method: 0 mc, 1 antithetic, 2 qmc
@@ -636,14 +756,14 @@ class IntegrateNdProgram:
                 ctypes.c_longlong,  # tiles = programs * loops
                 ctypes.c_int,       # Sobol segment bits, or -1
                 ctypes.c_int,       # CUDA grid size
-                ctypes.c_void_p,    # partials (R, grid, K or 2K) float32
-                ctypes.c_void_p,    # sums (R, K or 2K) float32
+                ctypes.c_void_p,    # partials (R, grid, n_out) float32
+                ctypes.c_void_p,    # sums (R, n_out) float32
                 ctypes.c_void_p,    # host NdTables, or null
                 ctypes.c_void_p,    # cudaStream_t
             ]
             lib.tmc_integrate_nd.restype = ctypes.c_int
-            self._libs[routes] = lib
-        return self._libs[routes]
+            self._libs[key] = lib
+        return self._libs[key]
 
     def direction_numbers(self, device) -> torch.Tensor:
         """(d, 32) Sobol direction numbers on ``device`` (uint32 words in
@@ -733,6 +853,32 @@ def integrate_nd_cuda(
     out = _launch_nd(program, cfg, params, int(seed), None, grid, pilot,
                      tables)[1][0]
     return out.reshape(2, -1) if cfg.with_stderr else out
+
+
+def integrate_nd_grad_cuda(
+    program: IntegrateNdProgram,
+    cfg: NdConfig,
+    params: torch.Tensor,
+    seed: int,
+    grid: Grid,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The nd gradient build's ``(sums, grads)``, as
+    :func:`integrate_nd_grad_reference` returns them, on ``params``'
+    device: a CUDA ``params`` launches the kernel's gradient build
+    (counted in ``integrate_nd_cuda.launches`` and
+    ``integrate_nd_cuda.grad_launches``), a CPU one runs the plain
+    version.  Its value sums are the value build's, bit for bit."""
+    _check_grad(cfg, params)
+    if cfg.kinds != program.kinds or program.weight is not None:
+        raise ValueError("the gradient build takes the program's analytic "
+                         "dimensions, unweighted")
+    if params.device.type == "cpu":
+        return integrate_nd_grad_reference(program.torch_grads, cfg, params,
+                                           seed, grid)
+    k = len(program.fns)
+    out = _launch_nd(program, cfg, params, int(seed), None, grid, None,
+                     None)[1][0]
+    return out[:k], out[k:].reshape(k, cfg.d, 2)
 
 
 def _check_program(program, cfg, params, pilot, tables=None) -> None:
@@ -854,8 +1000,9 @@ def _launch_nd(program, cfg, params, seed, seeds, grid, pilot, tables):
         dirs = program.direction_numbers(dev).data_ptr()
     pilots = pilot.contiguous().data_ptr() if cfg.with_stderr else 0
     kt = program.kernel_tables(tables, dev)
-    lib = program.library(routes)
-    n_out = 2 * k if cfg.with_stderr else k
+    lib = program.library(routes, cfg.grad)
+    n_out = (2 * k if cfg.with_stderr
+             else k * (1 + 2 * cfg.d) if cfg.grad else k)
     rows = min(grid.n_tiles, MAX_CUDA_BLOCKS)
     partials = torch.empty((reps, rows, n_out), dtype=torch.float32,
                            device=dev)
@@ -878,8 +1025,10 @@ def _launch_nd(program, cfg, params, seed, seeds, grid, pilot, tables):
         )
     integrate_nd_cuda.launches += 1
     integrate_nd_cuda.batch_launches += int(seeds is not None)
+    integrate_nd_cuda.grad_launches += int(cfg.grad)
     return partials, sums
 
 
 integrate_nd_cuda.launches = 0
 integrate_nd_cuda.batch_launches = 0
+integrate_nd_cuda.grad_launches = 0

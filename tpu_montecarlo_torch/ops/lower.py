@@ -310,8 +310,64 @@ def _c_function(name: str, fn: TracedFunction, pointer: bool = False,
                       *lines, f"  return {ret};", "}"])
 
 
+def _c_value_grad(name: str, fn: TracedFunction, nd: bool,
+                  fused: bool) -> str:
+    """``fn``'s value and its partial derivatives (``ops/grad.py``
+    ``grad_ir``) from one forward pass, as a device function of the point
+    and a sum ``acc``: it returns ``acc`` plus the value, with the
+    value build's rounding (``tmc_fma(a, b, acc)`` where ``fused``, the
+    function ending in a multiply a * b), and writes d f / d x_j to
+    ``d[j]``.  The forward statements are the value function's, so the
+    sums are the value build's bit for bit."""
+    from .grad import grad_ir
+
+    value, grads = grad_ir(fn)
+    lines, names = _c_lines([value, *grads], nd)
+    lines += [f"  d[{j}] = {names[id(g)]};" for j, g in enumerate(grads)]
+    if fused:
+        a, b = (names[id(arg)] for arg in fn.ir.args)
+        ret = f"tmc_fma({a}, {b}, acc)"
+    else:
+        ret = f"acc + {names[id(value)]}"
+    param = "const float* x" if nd else "float x"
+    return "\n".join([
+        f"static __device__ inline float {name}({param}, float acc, "
+        "float* d) {", *lines, f"  return {ret};", "}"])
+
+
+def _grad_entries(fns: Sequence[TracedFunction], fused, nd: bool) -> List[str]:
+    """The gradient builds' entry (``TMC_GRAD``): ``tmc_accumulate_grad(x,
+    d1, d2, acc, g)`` for 1-argument integrands, ``tmc_accumulate_nd_grad(x,
+    d1, d2, acc, g)`` for d-ary ones.  Each adds ``f_k(x)`` to ``acc[k]``
+    as the value entries do and the pathwise terms ``df_k/dx_j * dx_j/dp``
+    to ``g[(k * d + j) * 2 + c]``, c = 0 for p1 (``d1[j]``, the sample's
+    derivative in its family's first parameter) and 1 for p2, each one
+    fused multiply-add."""
+    d = fns[0].n_args
+    parts = [_c_value_grad(f"f_{k}_vg", fn, nd, fused[k])
+             for k, fn in enumerate(fns)]
+    body = []
+    for k in range(len(fns)):
+        body.append(f"  {{\n    float d[{d}];\n"
+                    f"    acc[{k}] = f_{k}_vg(x, acc[{k}], d);")
+        for j in range(d):
+            dj1, dj2 = (f"d1[{j}]", f"d2[{j}]") if nd else ("d1", "d2")
+            i = (k * d + j) * 2
+            body.append(f"    g[{i}] = tmc_fma(d[{j}], {dj1}, g[{i}]);")
+            body.append(f"    g[{i + 1}] = tmc_fma(d[{j}], {dj2}, g[{i + 1}]);")
+        body.append("  }")
+    if nd:
+        sig = ("tmc_accumulate_nd_grad(const float* x, const float* d1, "
+               "const float* d2, float* acc, float* g)")
+    else:
+        sig = ("tmc_accumulate_grad(float x, float d1, float d2, float* acc, "
+               "float* g)")
+    joined = "\n".join(body)
+    return parts + [f"static __device__ inline void {sig} {{\n{joined}\n}}"]
+
+
 def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
-                weight=None) -> str:
+                weight=None, grad: bool = False) -> str:
     """Device source for ``fns``: ``f_0 .. f_{K-1}``, ``TMC_K`` and the
     per-point entries.
 
@@ -332,7 +388,11 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
     integrand that ends in a multiply a * b as ``f_j_fma(x, acc)``,
     ``tmc_fma(a, b, acc)``: one rounding where ``TMC_CONTRACT`` is 1 (the
     integrate kernels' sums; the other entries and the plain version
-    round the product first)."""
+    round the product first).
+
+    ``grad=True`` appends the gradient builds' entry
+    (:func:`_grad_entries`); the other entries are unchanged, so a value
+    library's source is the same with or without it."""
     k = len(fns)
     arity = {fn.n_args for fn in fns}
     if len(arity) != 1:
@@ -355,6 +415,9 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
     fused = [weight is None and _fma_root(fn) for fn in fns]
     parts += [_c_function(f"f_{j}_fma", fn, nd, fma_acc=True)
               for j, fn in enumerate(fns) if fused[j]]
+    if grad and weight is not None:
+        raise ValueError("the gradient builds take unweighted integrands")
+    grad_entries = _grad_entries(fns, fused, nd) if grad else []
     if nd:
         acc = "\n".join(
             f"  acc[{j}] = f_{j}_fma(x, acc[{j}]);" if fused[j]
@@ -363,10 +426,10 @@ def cuda_source(fns: Sequence[TracedFunction], pointer: bool = False,
         entries = _nd_entries(k, acc)
         if weight is not None:
             entries += _nd_weighted_entries(k, weight)
-        return "\n\n".join(parts + entries) + "\n"
+        return "\n\n".join(parts + entries + grad_entries) + "\n"
     if weight is not None:
         return "\n\n".join(parts + _weighted_entries(k, weight)) + "\n"
-    return "\n\n".join(parts + _one_d_entries(k, fused)) + "\n"
+    return "\n\n".join(parts + _one_d_entries(k, fused) + grad_entries) + "\n"
 
 
 # Weight mode codes (TMC_P_MODE, TMC_Q_MODE): a traced density

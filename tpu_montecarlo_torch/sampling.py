@@ -32,6 +32,7 @@ __all__ = [
     "next_below_f32",
     "normal_from_u01",
     "transform_from_u",
+    "transform_grad_from_u",
 ]
 
 #: Log density out of support (``tpu_montecarlo/tables.py:36``).
@@ -330,6 +331,54 @@ def transform_from_u(u: torch.Tensor, kind: DistKind, p1, p2) -> torch.Tensor:
     return ext.inv_cdf(u, p1, p2)
 
 
+def transform_grad_from_u(u: torch.Tensor, kind: DistKind, p1, p2):
+    """``(x, dx/dp1, dx/dp2)`` at the uniforms ``u``: ``x`` is
+    :func:`transform_from_u`'s, bit for bit, and the derivatives are the
+    pathwise ones ``jax.grad`` takes through the JAX package's transform
+    with ``u`` held fixed (``tpu_montecarlo/sampling.py:490`` and the
+    registry inverses, ``:250-410``), in its float32 grouping: the
+    uniform (1 - u, u) times the share of ``minimum(x, next_below(p2))``
+    that reaches x (1 below the clamp, 0.5 at a tie, 0 on it: the
+    clamp's bound is a stopped gradient); the normal (1, z); the
+    exponential (-x / p1, 0); lognormal (x, x z); Cauchy, Laplace and
+    logistic (1, the scaled term); Gumbel (1, -log(-log u)); Weibull and
+    Pareto through their power's exponent.  ``clip_u`` does not depend
+    on the parameters, so the clamped tails pass nothing extra."""
+    x = transform_from_u(u, kind, p1, p2)
+    one = torch.ones_like(x)
+    if kind == DistKind.UNIFORM:
+        pre = p1 + u * (p2 - p1)
+        share = _share(pre, x, next_below_f32(torch.as_tensor(p2)))
+        return x, share * (1.0 - u), share * u
+    if kind == DistKind.NORMAL:
+        return x, one, torch.broadcast_to(normal_from_u01(u), x.shape)
+    if kind == DistKind.EXPONENTIAL:
+        return x, -x / p1, torch.zeros_like(x)
+    p1, p2 = _f32(p1, x), _f32(p2, x)
+    uc = _clip_u(u)
+    if kind == DistKind.LOGNORMAL:
+        return x, x, x * normal_from_u01(u)
+    if kind == DistKind.CAUCHY:
+        return x, one, fast_tan(_PI_F * (uc - 0.5))
+    if kind == DistKind.LAPLACE:
+        t = uc - 0.5
+        mag = -torch.log(1.0 - 2.0 * torch.abs(t))
+        return x, one, torch.where(t >= 0, mag, -mag)
+    if kind == DistKind.LOGISTIC:
+        return x, one, torch.log(uc / (1.0 - uc))
+    if kind == DistKind.GUMBEL:
+        return x, one, -torch.log(-torch.log(uc))
+    if kind == DistKind.WEIBULL:
+        le = torch.log(-torch.log(uc))
+        e = torch.exp(le / p1)
+        return x, -((p2 * e) * (1.0 / (p1 * p1))) * le, e
+    if kind == DistKind.PARETO:
+        a = -torch.log(uc)
+        e = torch.exp(a / p2)
+        return x, e, -((p1 * e) * (1.0 / (p2 * p2))) * a
+    raise ValueError(f"No closed-form transform for {DistKind(kind).name}")
+
+
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor on ``like``'s device."""
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
@@ -548,8 +597,9 @@ ANALYTIC_KINDS: Tuple[DistKind, ...] = (
 
 def next_below_f32(hi: torch.Tensor) -> torch.Tensor:
     """Largest float32 strictly below ``hi`` (finite ``hi``), by bit
-    arithmetic: the uniform transform's clamp below its open bound."""
-    h = hi.to(torch.float32)
+    arithmetic: the uniform transform's clamp below its open bound, a
+    constant to autograd (the JAX package's ``stop_gradient``)."""
+    h = hi.detach().to(torch.float32)
     bits = h.view(torch.int32)
     dec = torch.where(
         h > 0,

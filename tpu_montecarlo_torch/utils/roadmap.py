@@ -7,12 +7,10 @@ __all__ = [
     "API_SURFACE",
     "FRONT_END",
     "MESH",
-    "ND_CV",
     "not_ported",
 ]
 
 FRONT_END = "ROADMAP.md, queue 1 item 3 (integrand front end)"
-ND_CV = "ROADMAP.md, queue 1 item 7.5 (nd expectation_fn)"
 API_SURFACE = "ROADMAP.md, queue 1 item 10 (remaining API surface)"
 MESH = "ROADMAP.md, queue 1 item 12 (multi-device)"
 
